@@ -1,0 +1,83 @@
+"""Device-time breakdown of the port's main path on one NVIDIA card.
+
+    python3 chip_profile.py
+
+Serves chip_smoke.py's synthetic Llama-3.1-8B in bf16 through the port's
+gRPC backend and drives chip_smoke's four requests (its phase 4, with
+its checks); then drives the same four again with fresh prompt ids (no
+prompt-cache reuse), first unprofiled, then under torch.profiler with
+CUDA activity. Prints one JSON line: the unprofiled and profiled wall
+times, device busy time by kernel class, the top kernels and the
+device's idle share of the profiled window. Kernels run on one stream,
+so their summed device time is the busy time. A one-off study, apart
+from the pass/fail smoke; it imports nothing of JAX or localai_tpu.
+"""
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import time
+
+import chip_smoke as smoke
+
+
+def _kernel_class(key: str) -> str:
+    if "decode_kernel" in key or "prefill_kernel" in key:
+        return "attention (port kernels)"
+    if any(t in key.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "gemm (cuBLAS)"
+    if key.startswith(("Memcpy", "Memset")):
+        return "memcpy/memset"
+    return "other (elementwise, reductions, sort, sampling)"
+
+
+def _summary(p, wall_s, steps):
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in p.key_averages() if e.self_device_time_total > 0]
+    busy = sum(ms for _, _, ms in rows)
+    by_class: dict = {}
+    for key, _, ms in rows:
+        c = _kernel_class(key)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    top = sorted(rows, key=lambda r: -r[2])[:8]
+    return {
+        "wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+        "idle_share": (1 - busy / (wall_s * 1e3)) if busy else None,
+        "decode_steps": int(steps), "by_class_ms": by_class,
+        "top_kernels": [{"name": k[:90], "count": c, "ms": ms}
+                        for k, c, ms in top],
+    }
+
+
+def profile_window(client):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, plain_wall = smoke.drive_requests(client, salt=101)
+    m0 = client.metrics()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        smoke.drive_requests(client, salt=202)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m1 = client.metrics()
+    out = _summary(p, wall, m1["decode_steps_dispatched"]
+                   - m0["decode_steps_dispatched"])
+    out["unprofiled_wall_ms"] = plain_wall * 1e3
+    smoke.log("profile bf16 " + json.dumps(out))
+
+
+def main():
+    smoke.phase_device()
+    smoke.phase_build()
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(smoke.CFG_8B, localai_synthetic=True), f)
+        smoke.serve_recipe("bf16", d, dict(dtype="bfloat16"),
+                           then=profile_window)
+
+
+if __name__ == "__main__":
+    main()

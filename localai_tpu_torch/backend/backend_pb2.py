@@ -1,0 +1,113 @@
+# -*- coding: utf-8 -*-
+# Generated by the protocol buffer compiler.  DO NOT EDIT!
+# source: backend.proto
+# (a copy of localai_tpu/backend/backend_pb2.py: the same descriptor,
+# imported package-relative as localai_tpu_torch.backend.backend_pb2)
+"""Generated protocol buffer code."""
+from google.protobuf.internal import builder as _builder
+from google.protobuf import descriptor as _descriptor
+from google.protobuf import descriptor_pool as _descriptor_pool
+from google.protobuf import symbol_database as _symbol_database
+# @@protoc_insertion_point(imports)
+
+_sym_db = _symbol_database.Default()
+
+
+
+
+DESCRIPTOR = _descriptor_pool.Default().AddSerializedFile(b'\n\rbackend.proto\x12\x0blocalai_tpu"\x0f\n\rHealthMessage"*\n\x06Result\x12\x0f\n\x07message\x18\x01 \x01(\t\x12\x0f\n\x07success\x18\x02 \x01(\x08"\xe9\x01\n\x05Reply\x12\x0f\n\x07message\x18\x01 \x01(\x0c\x12\x0e\n\x06tokens\x18\x02 \x01(\x05\x12\x15\n\rprompt_tokens\x18\x03 \x01(\x05\x12 \n\x18timing_prompt_processing\x18\x04 \x01(\x01\x12\x1f\n\x17timing_token_generation\x18\x05 \x01(\x01\x12\x10\n\x08logprobs\x18\x06 \x03(\x01\x12\x11\n\ttoken_ids\x18\x07 \x03(\x05\x12\x15\n\rfinish_reason\x18\x08 \x01(\t\x12\x14\n\x0ctimings_json\x18\t \x01(\t\x12\x13\n\x0bresume_json\x18\n \x01(\t"\xd9\x02\n\x0cModelOptions\x12\r\n\x05model\x18\x01 \x01(\t\x12\x12\n\nmodel_path\x18\x02 \x01(\t\x12\x14\n\x0ccontext_size\x18\x03 \x01(\x05\x12\x10\n\x08parallel\x18\x04 \x01(\x05\x12\x0c\n\x04seed\x18\x05 \x01(\x05\x12\r\n\x05dtype\x18\x06 \x01(\t\x12\x17\n\x0fprefill_buckets\x18\x07 \x03(\x05\x12\x11\n\tmesh_data\x18\x08 \x01(\x05\x12\x12\n\nmesh_model\x18\t \x01(\x05\x12\x12\n\nbackend_id\x18\n \x01(\t\x12\x12\n\nembeddings\x18\x0b \x01(\x08\x12\x0f\n\x07options\x18\x0c \x01(\t\x12\x13\n\x0bdraft_model\x18\r \x01(\t\x12\x0f\n\x07n_draft\x18\x0e \x01(\x05\x12\x16\n\x0ecache_type_key\x18\x0f \x01(\t\x12\x18\n\x10cache_type_value\x18\x10 \x01(\t\x12\x10\n\x08kv_pages\x18\x11 \x01(\x05"\xa4\x05\n\x0ePredictOptions\x12\x0e\n\x06prompt\x18\x01 \x01(\t\x12\x12\n\nprompt_ids\x18\x02 \x03(\x05\x12\x15\n\rmessages_json\x18\x03 \x01(\t\x12\x1e\n\x16use_tokenizer_template\x18\x04 \x01(\x08\x12\x0e\n\x06tokens\x18\x05 \x01(\x05\x12\x13\n\x0btemperature\x18\x06 \x01(\x02\x12\r\n\x05top_k\x18\x07 \x01(\x05\x12\r\n\x05top_p\x18\x08 \x01(\x02\x12\r\n\x05min_p\x18\t \x01(\x02\x12\x11\n\ttypical_p\x18\n \x01(\x02\x12\x16\n\x0erepeat_penalty\x18\x0b \x01(\x02\x12\x18\n\x10presence_penalty\x18\x0c \x01(\x02\x12\x19\n\x11frequency_penalty\x18\r \x01(\x02\x12\x0c\n\x04seed\x18\x0e \x01(\x05\x12\x14\n\x0cstop_prompts\x18\x0f \x03(\t\x12\x12\n\nignore_eos\x18\x10 \x01(\x08\x12>\n\nlogit_bias\x18\x11 \x03(\x0b2*.localai_tpu.PredictOptions.LogitBiasEntry\x12\x0f\n\x07grammar\x18\x12 \x01(\t\x12\x10\n\x08logprobs\x18\x13 \x01(\x08\x12\x0e\n\x06images\x18\x14 \x03(\t\x12\x0e\n\x06audios\x18\x15 \x03(\t\x12\x15\n\rcontext_shift\x18\x16 \x01(\x08\x12\x0f\n\x07prompts\x18\x17 \x03(\t\x12\x19\n\x11prompt_cache_path\x18\x18 \x01(\t\x12\x17\n\x0fprompt_cache_ro\x18\x19 \x01(\x08\x12\x12\n\ntools_json\x18\x1a \x01(\t\x12\x13\n\x0bdeadline_ms\x18\x1b \x01(\x03\x12\x13\n\x0bresume_json\x18\x1c \x01(\t\x1a0\n\x0eLogitBiasEntry\x12\x0b\n\x03key\x18\x01 \x01(\x05\x12\r\n\x05value\x18\x02 \x01(\x02:\x028\x01"!\n\x0fEmbeddingVector\x12\x0e\n\x06values\x18\x01 \x03(\x02"k\n\x0fEmbeddingResult\x12\x12\n\nembeddings\x18\x01 \x03(\x02\x12-\n\x07vectors\x18\x02 \x03(\x0b2\x1c.localai_tpu.EmbeddingVector\x12\x15\n\rprompt_tokens\x18\x03 \x01(\x05"6\n\x14TokenizationResponse\x12\x0e\n\x06length\x18\x01 \x01(\x05\x12\x0e\n\x06tokens\x18\x02 \x03(\x05"@\n\rRerankRequest\x12\r\n\x05query\x18\x01 \x01(\t\x12\x11\n\tdocuments\x18\x02 \x03(\t\x12\r\n\x05top_n\x18\x03 \x01(\x05"H\n\x10RerankedDocument\x12\r\n\x05index\x18\x01 \x01(\x05\x12\x0c\n\x04text\x18\x02 \x01(\t\x12\x17\n\x0frelevance_score\x18\x03 \x01(\x02">\n\x0cRerankResult\x12.\n\x07results\x18\x01 \x03(\x0b2\x1d.localai_tpu.RerankedDocument"\x10\n\x0eMetricsRequest"}\n\x0fMetricsResponse\x12:\n\x07metrics\x18\x01 \x03(\x0b2).localai_tpu.MetricsResponse.MetricsEntry\x1a.\n\x0cMetricsEntry\x12\x0b\n\x03key\x18\x01 \x01(\t\x12\r\n\x05value\x18\x02 \x01(\x01:\x028\x01"\x92\x01\n\x0fMemoryUsageData\x12\r\n\x05total\x18\x01 \x01(\x04\x12>\n\tbreakdown\x18\x02 \x03(\x0b2+.localai_tpu.MemoryUsageData.BreakdownEntry\x1a0\n\x0eBreakdownEntry\x12\x0b\n\x03key\x18\x01 \x01(\t\x12\r\n\x05value\x18\x02 \x01(\x04:\x028\x01"\xac\x01\n\x0eStatusResponse\x120\n\x05state\x18\x01 \x01(\x0e2!.localai_tpu.StatusResponse.State\x12,\n\x06memory\x18\x02 \x01(\x0b2\x1c.localai_tpu.MemoryUsageData":\n\x05State\x12\x11\n\rUNINITIALIZED\x10\x00\x12\x08\n\x04BUSY\x10\x01\x12\t\n\x05READY\x10\x02\x12\t\n\x05ERROR\x10\x03"W\n\nTTSRequest\x12\x0c\n\x04text\x18\x01 \x01(\t\x12\r\n\x05model\x18\x02 \x01(\t\x12\r\n\x05voice\x18\x03 \x01(\t\x12\x10\n\x08language\x18\x04 \x01(\t\x12\x0b\n\x03dst\x18\x05 \x01(\t"i\n\x16SoundGenerationRequest\x12\x0c\n\x04text\x18\x01 \x01(\t\x12\r\n\x05model\x18\x02 \x01(\t\x12\x10\n\x08duration\x18\x03 \x01(\x02\x12\x13\n\x0btemperature\x18\x04 \x01(\x02\x12\x0b\n\x03dst\x18\x05 \x01(\t"E\n\x11TranscriptRequest\x12\x0b\n\x03dst\x18\x01 \x01(\t\x12\x10\n\x08language\x18\x02 \x01(\t\x12\x11\n\ttranslate\x18\x03 \x01(\x08"Y\n\x11TranscriptSegment\x12\n\n\x02id\x18\x01 \x01(\x05\x12\r\n\x05start\x18\x02 \x01(\x03\x12\x0b\n\x03end\x18\x03 \x01(\x03\x12\x0c\n\x04text\x18\x04 \x01(\t\x12\x0e\n\x06tokens\x18\x05 \x03(\x05"R\n\x10TranscriptResult\x120\n\x08segments\x18\x01 \x03(\x0b2\x1e.localai_tpu.TranscriptSegment\x12\x0c\n\x04text\x18\x02 \x01(\t"\x1b\n\nVADRequest\x12\r\n\x05audio\x18\x01 \x03(\x02"(\n\nVADSegment\x12\r\n\x05start\x18\x01 \x01(\x02\x12\x0b\n\x03end\x18\x02 \x01(\x02"8\n\x0bVADResponse\x12)\n\x08segments\x18\x01 \x03(\x0b2\x17.localai_tpu.VADSegment"\x9d\x01\n\x14GenerateImageRequest\x12\x0e\n\x06height\x18\x01 \x01(\x05\x12\r\n\x05width\x18\x02 \x01(\x05\x12\x0c\n\x04step\x18\x03 \x01(\x05\x12\x0c\n\x04seed\x18\x04 \x01(\x05\x12\x17\n\x0fpositive_prompt\x18\x05 \x01(\t\x12\x17\n\x0fnegative_prompt\x18\x06 \x01(\t\x12\x0b\n\x03src\x18\x07 \x01(\t\x12\x0b\n\x03dst\x18\x08 \x01(\t"w\n\x14GenerateVideoRequest\x12\x0e\n\x06prompt\x18\x01 \x01(\t\x12\x13\n\x0bstart_image\x18\x02 \x01(\t\x12\x12\n\nnum_frames\x18\x03 \x01(\x05\x12\x0b\n\x03fps\x18\x04 \x01(\x05\x12\x0c\n\x04seed\x18\x05 \x01(\x05\x12\x0b\n\x03dst\x18\x06 \x01(\t"\x1c\n\rDetectOptions\x12\x0b\n\x03src\x18\x01 \x01(\t"h\n\tDetection\x12\t\n\x01x\x18\x01 \x01(\x02\x12\t\n\x01y\x18\x02 \x01(\x02\x12\r\n\x05width\x18\x03 \x01(\x02\x12\x0e\n\x06height\x18\x04 \x01(\x02\x12\x12\n\nconfidence\x18\x05 \x01(\x02\x12\x12\n\nclass_name\x18\x06 \x01(\t"<\n\x0eDetectResponse\x12*\n\ndetections\x18\x01 \x03(\x0b2\x16.localai_tpu.Detection"\x1b\n\tStoresKey\x12\x0e\n\x06floats\x18\x01 \x03(\x02"\x1c\n\x0bStoresValue\x12\r\n\x05bytes\x18\x01 \x01(\x0c"b\n\x10StoresSetOptions\x12$\n\x04keys\x18\x01 \x03(\x0b2\x16.localai_tpu.StoresKey\x12(\n\x06values\x18\x02 \x03(\x0b2\x18.localai_tpu.StoresValue";\n\x13StoresDeleteOptions\x12$\n\x04keys\x18\x01 \x03(\x0b2\x16.localai_tpu.StoresKey"8\n\x10StoresGetOptions\x12$\n\x04keys\x18\x01 \x03(\x0b2\x16.localai_tpu.StoresKey"a\n\x0fStoresGetResult\x12$\n\x04keys\x18\x01 \x03(\x0b2\x16.localai_tpu.StoresKey\x12(\n\x06values\x18\x02 \x03(\x0b2\x18.localai_tpu.StoresValue"G\n\x11StoresFindOptions\x12#\n\x03key\x18\x01 \x01(\x0b2\x16.localai_tpu.StoresKey\x12\r\n\x05top_k\x18\x02 \x01(\x05"x\n\x10StoresFindResult\x12$\n\x04keys\x18\x01 \x03(\x0b2\x16.localai_tpu.StoresKey\x12(\n\x06values\x18\x02 \x03(\x0b2\x18.localai_tpu.StoresValue\x12\x14\n\x0csimilarities\x18\x03 \x03(\x022\xd1\x0b\n\x07Backend\x12:\n\x06Health\x12\x1a.localai_tpu.HealthMessage\x1a\x12.localai_tpu.Reply"\x00\x12=\n\tLoadModel\x12\x19.localai_tpu.ModelOptions\x1a\x13.localai_tpu.Result"\x00\x12<\n\x07Predict\x12\x1b.localai_tpu.PredictOptions\x1a\x12.localai_tpu.Reply"\x00\x12D\n\rPredictStream\x12\x1b.localai_tpu.PredictOptions\x1a\x12.localai_tpu.Reply"\x000\x01\x12H\n\tEmbedding\x12\x1b.localai_tpu.PredictOptions\x1a\x1c.localai_tpu.EmbeddingResult"\x00\x12R\n\x0eTokenizeString\x12\x1b.localai_tpu.PredictOptions\x1a!.localai_tpu.TokenizationResponse"\x00\x12A\n\x06Rerank\x12\x1a.localai_tpu.RerankRequest\x1a\x19.localai_tpu.RerankResult"\x00\x12C\n\x06Status\x12\x1a.localai_tpu.HealthMessage\x1a\x1b.localai_tpu.StatusResponse"\x00\x12I\n\nGetMetrics\x12\x1b.localai_tpu.MetricsRequest\x1a\x1c.localai_tpu.MetricsResponse"\x00\x125\n\x03TTS\x12\x17.localai_tpu.TTSRequest\x1a\x13.localai_tpu.Result"\x00\x12M\n\x0fSoundGeneration\x12#.localai_tpu.SoundGenerationRequest\x1a\x13.localai_tpu.Result"\x00\x12U\n\x12AudioTranscription\x12\x1e.localai_tpu.TranscriptRequest\x1a\x1d.localai_tpu.TranscriptResult"\x00\x12:\n\x03VAD\x12\x17.localai_tpu.VADRequest\x1a\x18.localai_tpu.VADResponse"\x00\x12I\n\rGenerateImage\x12!.localai_tpu.GenerateImageRequest\x1a\x13.localai_tpu.Result"\x00\x12I\n\rGenerateVideo\x12!.localai_tpu.GenerateVideoRequest\x1a\x13.localai_tpu.Result"\x00\x12C\n\x06Detect\x12\x1a.localai_tpu.DetectOptions\x1a\x1b.localai_tpu.DetectResponse"\x00\x12A\n\tStoresSet\x12\x1d.localai_tpu.StoresSetOptions\x1a\x13.localai_tpu.Result"\x00\x12G\n\x0cStoresDelete\x12 .localai_tpu.StoresDeleteOptions\x1a\x13.localai_tpu.Result"\x00\x12J\n\tStoresGet\x12\x1d.localai_tpu.StoresGetOptions\x1a\x1c.localai_tpu.StoresGetResult"\x00\x12M\n\nStoresFind\x12\x1e.localai_tpu.StoresFindOptions\x1a\x1d.localai_tpu.StoresFindResult"\x00\x12;\n\x08GetTrace\x12\x1b.localai_tpu.MetricsRequest\x1a\x12.localai_tpu.Replyb\x06proto3')
+
+_builder.BuildMessageAndEnumDescriptors(DESCRIPTOR, globals())
+_builder.BuildTopDescriptorsAndMessages(DESCRIPTOR, 'localai_tpu_torch.backend.backend_pb2', globals())
+if _descriptor._USE_C_DESCRIPTORS == False:
+
+  DESCRIPTOR._options = None
+  _PREDICTOPTIONS_LOGITBIASENTRY._options = None
+  _PREDICTOPTIONS_LOGITBIASENTRY._serialized_options = b'8\001'
+  _METRICSRESPONSE_METRICSENTRY._options = None
+  _METRICSRESPONSE_METRICSENTRY._serialized_options = b'8\001'
+  _MEMORYUSAGEDATA_BREAKDOWNENTRY._options = None
+  _MEMORYUSAGEDATA_BREAKDOWNENTRY._serialized_options = b'8\001'
+  _HEALTHMESSAGE._serialized_start=30
+  _HEALTHMESSAGE._serialized_end=45
+  _RESULT._serialized_start=47
+  _RESULT._serialized_end=89
+  _REPLY._serialized_start=92
+  _REPLY._serialized_end=325
+  _MODELOPTIONS._serialized_start=328
+  _MODELOPTIONS._serialized_end=673
+  _PREDICTOPTIONS._serialized_start=676
+  _PREDICTOPTIONS._serialized_end=1352
+  _PREDICTOPTIONS_LOGITBIASENTRY._serialized_start=1304
+  _PREDICTOPTIONS_LOGITBIASENTRY._serialized_end=1352
+  _EMBEDDINGVECTOR._serialized_start=1354
+  _EMBEDDINGVECTOR._serialized_end=1387
+  _EMBEDDINGRESULT._serialized_start=1389
+  _EMBEDDINGRESULT._serialized_end=1496
+  _TOKENIZATIONRESPONSE._serialized_start=1498
+  _TOKENIZATIONRESPONSE._serialized_end=1552
+  _RERANKREQUEST._serialized_start=1554
+  _RERANKREQUEST._serialized_end=1618
+  _RERANKEDDOCUMENT._serialized_start=1620
+  _RERANKEDDOCUMENT._serialized_end=1692
+  _RERANKRESULT._serialized_start=1694
+  _RERANKRESULT._serialized_end=1756
+  _METRICSREQUEST._serialized_start=1758
+  _METRICSREQUEST._serialized_end=1774
+  _METRICSRESPONSE._serialized_start=1776
+  _METRICSRESPONSE._serialized_end=1901
+  _METRICSRESPONSE_METRICSENTRY._serialized_start=1855
+  _METRICSRESPONSE_METRICSENTRY._serialized_end=1901
+  _MEMORYUSAGEDATA._serialized_start=1904
+  _MEMORYUSAGEDATA._serialized_end=2050
+  _MEMORYUSAGEDATA_BREAKDOWNENTRY._serialized_start=2002
+  _MEMORYUSAGEDATA_BREAKDOWNENTRY._serialized_end=2050
+  _STATUSRESPONSE._serialized_start=2053
+  _STATUSRESPONSE._serialized_end=2225
+  _TTSREQUEST._serialized_start=2227
+  _TTSREQUEST._serialized_end=2314
+  _SOUNDGENERATIONREQUEST._serialized_start=2316
+  _SOUNDGENERATIONREQUEST._serialized_end=2421
+  _TRANSCRIPTREQUEST._serialized_start=2423
+  _TRANSCRIPTREQUEST._serialized_end=2492
+  _TRANSCRIPTSEGMENT._serialized_start=2494
+  _TRANSCRIPTSEGMENT._serialized_end=2583
+  _TRANSCRIPTRESULT._serialized_start=2585
+  _TRANSCRIPTRESULT._serialized_end=2667
+  _VADREQUEST._serialized_start=2669
+  _VADREQUEST._serialized_end=2696
+  _VADSEGMENT._serialized_start=2698
+  _VADSEGMENT._serialized_end=2738
+  _VADRESPONSE._serialized_start=2740
+  _VADRESPONSE._serialized_end=2796
+  _GENERATEIMAGEREQUEST._serialized_start=2799
+  _GENERATEIMAGEREQUEST._serialized_end=2956
+  _GENERATEVIDEOREQUEST._serialized_start=2958
+  _GENERATEVIDEOREQUEST._serialized_end=3077
+  _DETECTOPTIONS._serialized_start=3079
+  _DETECTOPTIONS._serialized_end=3107
+  _DETECTION._serialized_start=3109
+  _DETECTION._serialized_end=3213
+  _DETECTRESPONSE._serialized_start=3215
+  _DETECTRESPONSE._serialized_end=3275
+  _STORESKEY._serialized_start=3277
+  _STORESKEY._serialized_end=3304
+  _STORESVALUE._serialized_start=3306
+  _STORESVALUE._serialized_end=3334
+  _STORESSETOPTIONS._serialized_start=3336
+  _STORESSETOPTIONS._serialized_end=3434
+  _STORESDELETEOPTIONS._serialized_start=3436
+  _STORESDELETEOPTIONS._serialized_end=3495
+  _STORESGETOPTIONS._serialized_start=3497
+  _STORESGETOPTIONS._serialized_end=3553
+  _STORESGETRESULT._serialized_start=3555
+  _STORESGETRESULT._serialized_end=3652
+  _STORESFINDOPTIONS._serialized_start=3654
+  _STORESFINDOPTIONS._serialized_end=3725
+  _STORESFINDRESULT._serialized_start=3727
+  _STORESFINDRESULT._serialized_end=3847
+  _BACKEND._serialized_start=3850
+  _BACKEND._serialized_end=5339
+  _STATUSRESPONSE_STATE._serialized_start=2167
+  _STATUSRESPONSE_STATE._serialized_end=2225
+# @@protoc_insertion_point(module_scope)

@@ -1,0 +1,281 @@
+"""The LLM backend servicer (counterpart of localai_tpu/backend/llm.py),
+main-path slice: LoadModel reads an HF safetensors checkpoint onto the
+device, Predict/PredictStream drive the continuous-batching Engine,
+TokenizeString, Status, GetMetrics and Health answer as the reference's
+do. Embeddings, BERT, llava, draft models, meshes, paged KV and telemetry
+spans wait for later slices: LoadModel rejects their options with a
+message naming the slice, and their RPCs stay UNIMPLEMENTED.
+"""
+from __future__ import annotations
+
+import json
+import os
+import resource
+import threading
+import time
+
+import grpc
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.backend import pb
+from localai_tpu_torch.backend.base import BackendServicer
+from localai_tpu_torch.ops.sampling import SamplingParams
+
+
+class LLMServicer(BackendServicer):
+    def __init__(self, device=None):
+        """`device`: where LoadModel places the model (default: the CUDA
+        device; "cpu" serves through the plain PyTorch versions)."""
+        self.device = device
+        self.engine = None
+        self.tok = None
+        self.cfg = None
+        self.model_name = ""
+        self._state = pb.StatusResponse.UNINITIALIZED
+        self._load_lock = threading.Lock()
+
+    # ------------------------------------------------------------ lifecycle
+
+    def LoadModel(self, request, context):
+        with self._load_lock:
+            if self.engine is not None:
+                return pb.Result(success=True, message="already loaded")
+            self._state = pb.StatusResponse.BUSY
+            try:
+                self._load(request)
+                self._state = pb.StatusResponse.READY
+                return pb.Result(success=True, message="ok")
+            except Exception as e:  # surface load errors to the control plane
+                self._state = pb.StatusResponse.ERROR
+                return pb.Result(success=False,
+                                 message=f"{type(e).__name__}: {e}")
+
+    def _load(self, request):
+        from localai_tpu_torch.engine.engine import Engine, EngineConfig
+        from localai_tpu_torch.engine.loader import (
+            load_config, load_params, load_tokenizer,
+        )
+        from localai_tpu_torch.ops.kvcache import is_quant_kind
+
+        if request.mesh_data or request.mesh_model:
+            raise not_ported("mesh_data/mesh_model (tensor parallelism)",
+                             "parallel")
+        if request.draft_model:
+            raise not_ported("draft_model (speculative decoding)",
+                   "speculative decoding")
+        if request.embeddings:
+            raise not_ported("embeddings", "embeddings")
+        if request.kv_pages:
+            raise not_ported("kv_pages (paged KV)", "paged")
+        if request.options:
+            opts = json.loads(request.options)  # typos fail the load loudly
+            for key in ("kv_policy", "kv_cold_pages", "kv_host_bytes"):
+                if opts.get(key) not in (None, "", 0, "full"):
+                    raise not_ported(key, "KV-tier")
+        model_dir = request.model
+        if request.model_path and not os.path.exists(model_dir):
+            model_dir = os.path.join(request.model_path, request.model)
+        if os.path.isfile(model_dir) and model_dir.endswith(".gguf"):
+            raise not_ported("GGUF checkpoints", "other-roles")
+        if not os.path.isdir(model_dir):
+            raise FileNotFoundError(f"model directory not found: {model_dir}")
+
+        cfg = load_config(model_dir, dtype=request.dtype or None)
+        # quant in EITHER field means int8 KV (one storage kind for both)
+        kv_kind = "int8" if (is_quant_kind(request.cache_type_key)
+                             or is_quant_kind(request.cache_type_value)) \
+            else ""
+        context_size = request.context_size or min(2048, cfg.max_position)
+        params = load_params(model_dir, cfg, dtype=request.dtype or None,
+                             device=self.device)
+        tok = load_tokenizer(model_dir)
+        # single-shot prefill up to the chunk size; longer prompts prefill in
+        # chunk-sized pieces interleaved with running decodes
+        chunk = min(512, context_size)
+        buckets = tuple(request.prefill_buckets) or tuple(
+            b for b in (64, 256, 512) if b <= chunk) or (chunk,)
+        self.engine = Engine(cfg, params, tok, EngineConfig(
+            max_slots=request.parallel or 4,
+            max_context=context_size,
+            prefill_buckets=buckets,
+            prefill_chunk=chunk,
+            cache_type=kv_kind,
+        ), device=self.device)
+        self.cfg, self.tok = cfg, tok
+        self.model_name = request.model
+        self.engine.start()
+        if os.environ.get("LOCALAI_NO_PREWARM") != "1":
+            self._prewarm()
+
+    def _prewarm(self):
+        """Build the kernels and run the serving paths once before LoadModel
+        returns READY: the engine's all-inactive dispatches, then one short
+        request per sampling tier (sort-free fast path, its 8x escalation
+        tier, the full-sort path)."""
+        from localai_tpu_torch.engine.engine import GenRequest
+
+        self.engine.warmup()
+        n = 3 * self.engine.ec.decode_block + 2
+        W = self.engine.ec.sampling_topk_width
+        warm = [SamplingParams(temperature=0.0, top_k=40),
+                SamplingParams(temperature=0.8, top_p=0.9, top_k=0, seed=1)]
+        if W and 2 * W <= self.cfg.vocab_size:
+            warm.insert(1, SamplingParams(temperature=0.8, top_k=2 * W,
+                                          seed=2))
+        for sp in warm:
+            _, q = self.engine.submit(GenRequest(
+                prompt_ids=[1], max_tokens=n, ignore_eos=True, params=sp))
+            while not q.get(timeout=600).finished:
+                pass
+
+    # ------------------------------------------------------------ helpers
+
+    def _require_engine(self, context):
+        if self.engine is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "no model loaded (call LoadModel first)")
+
+    def _prompt_ids(self, request, context) -> list[int]:
+        if request.prompt_ids:
+            return list(request.prompt_ids)
+        if self.tok is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "no tokenizer; pass prompt_ids")
+        if request.use_tokenizer_template and request.messages_json:
+            messages = json.loads(request.messages_json)
+            tools = None
+            if request.tools_json:
+                try:
+                    tools = json.loads(request.tools_json) or None
+                except json.JSONDecodeError:
+                    context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                  "tools_json is not valid JSON")
+            return self.tok.encode_chat(messages, tools=tools)
+        return self.tok.encode(request.prompt)
+
+    @staticmethod
+    def _sampling(request) -> SamplingParams:
+        return SamplingParams(
+            temperature=request.temperature,
+            top_k=request.top_k or 0,
+            top_p=request.top_p or 1.0,
+            min_p=request.min_p,
+            typical_p=request.typical_p or 1.0,
+            repeat_penalty=request.repeat_penalty or 1.0,
+            presence_penalty=request.presence_penalty,
+            frequency_penalty=request.frequency_penalty,
+            seed=request.seed if request.seed else -1,
+            logit_bias=dict(request.logit_bias) or None,
+        )
+
+    def _submit(self, request, context):
+        from localai_tpu_torch.engine.engine import GenRequest
+
+        if request.resume_json:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, str(not_ported(
+                "resume_json", "preemption/resume")))
+        if request.images or request.audios:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, str(not_ported(
+                "multimodal inputs", "other-roles")))
+        ids = self._prompt_ids(request, context)
+        req = GenRequest(
+            prompt_ids=ids,
+            params=self._sampling(request),
+            max_tokens=request.tokens or 128,
+            stop=tuple(request.stop_prompts),
+            ignore_eos=request.ignore_eos,
+            logprobs=request.logprobs,
+            grammar=request.grammar,
+            context_shift=request.context_shift,
+            prompt_cache_path=request.prompt_cache_path,
+            prompt_cache_ro=request.prompt_cache_ro,
+            deadline=(time.monotonic() + request.deadline_ms / 1e3
+                      if request.deadline_ms else 0.0),
+        )
+        try:
+            rid, out = self.engine.submit(req)
+        except NotImplementedError as e:
+            context.abort(grpc.StatusCode.UNIMPLEMENTED, str(e))
+        except (ValueError, RuntimeError) as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        # RPC termination (client cancel/disconnect) evicts the slot; a
+        # no-op after normal completion
+        if context is not None:
+            context.add_callback(lambda: self.engine.cancel(rid))
+        return rid, out, ids
+
+    # ------------------------------------------------------------ inference
+
+    def Predict(self, request, context):
+        self._require_engine(context)
+        t0 = time.monotonic()
+        text, ids, logprobs, ttft = [], [], [], 0.0
+        _, out, _ = self._submit(request, context)
+        while True:
+            o = out.get()
+            if o.token_id >= 0 and not ttft:
+                ttft = time.monotonic() - t0
+            if o.text:
+                text.append(o.text)
+            if o.token_id >= 0:
+                ids.append(o.token_id)
+                logprobs.append(o.logprob)
+            if o.finished:
+                break
+        return pb.Reply(
+            message="".join(text).encode(),
+            tokens=o.generated_tokens,
+            prompt_tokens=o.prompt_tokens,
+            timing_prompt_processing=ttft,
+            timing_token_generation=time.monotonic() - t0 - ttft,
+            logprobs=logprobs if request.logprobs else [],
+            token_ids=ids,
+            finish_reason=o.finish_reason or "",
+        )
+
+    def PredictStream(self, request, context):
+        self._require_engine(context)
+        t0 = time.monotonic()
+        ttft = 0.0
+        _, out, _ = self._submit(request, context)
+        while True:
+            o = out.get()
+            if o.token_id >= 0 and not ttft:
+                ttft = time.monotonic() - t0
+            yield pb.Reply(
+                message=o.text.encode(),
+                tokens=o.generated_tokens,
+                prompt_tokens=o.prompt_tokens,
+                timing_prompt_processing=ttft if o.finished else 0.0,
+                timing_token_generation=(time.monotonic() - t0 - ttft)
+                if o.finished else 0.0,
+                logprobs=[o.logprob]
+                if request.logprobs and o.token_id >= 0 else [],
+                token_ids=[o.token_id] if o.token_id >= 0 else [],
+                finish_reason=o.finish_reason or "",
+            )
+            if o.finished:
+                return
+
+    # ------------------------------------------------------------ aux RPCs
+
+    def TokenizeString(self, request, context):
+        if self.tok is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, "no tokenizer")
+        ids = self.tok.encode(request.prompt)
+        return pb.TokenizationResponse(length=len(ids), tokens=ids)
+
+    def Status(self, request, context):
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        return pb.StatusResponse(
+            state=self._state,
+            memory=pb.MemoryUsageData(total=rss, breakdown={"rss_peak": rss}),
+        )
+
+    def GetMetrics(self, request, context):
+        m = dict(self.engine.metrics) if self.engine else {}
+        return pb.MetricsResponse(metrics={k: float(v) for k, v in m.items()})
+
+    def shutdown(self):
+        if self.engine is not None:
+            self.engine.stop()

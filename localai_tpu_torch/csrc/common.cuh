@@ -1,0 +1,71 @@
+// Shared helpers of the port's attention kernels (sm_90a, plain C ABI).
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// The reference's mask value, -0.7 * f32max: large but finite, so
+// exp(NEG_INF - NEG_INF) stays 1 instead of NaN on a fully masked row and
+// exp(NEG_INF - m) is exactly 0 once a real score is seen.
+#define LT_NEG_INF (static_cast<float>(-0.7 * 3.4028234663852886e38))
+
+enum LtDtype { LT_F32 = 0, LT_BF16 = 1 };
+
+__device__ __forceinline__ float lt_to_f(float x) { return x; }
+__device__ __forceinline__ float lt_to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float lt_to_f(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename T> __device__ __forceinline__ T lt_from_f(float x);
+template <> __device__ __forceinline__ float lt_from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 lt_from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+// Stage `rows` rows of D elements into shared memory as f32 (times `mul`),
+// row r read from src + r * src_stride. Rows at or past `valid` are zero
+// and never read from device memory. Loads are 16 bytes per thread, so D *
+// sizeof(T) must be a multiple of 16 and every row 16-byte aligned (the
+// wrappers check both).
+template <typename T>
+__device__ __forceinline__ void lt_load_tile(float* dst, int ld,
+                                             const T* __restrict__ src,
+                                             int64_t src_stride, int rows,
+                                             int valid, int D, float mul) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int per_row = D / VEC;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * VEC;
+    float* d = dst + r * ld + c;
+    if (r < valid) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(src + r * src_stride + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) d[j] = lt_to_f(e[j]) * mul;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) d[j] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float lt_warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float lt_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

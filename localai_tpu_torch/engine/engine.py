@@ -1,0 +1,1061 @@
+"""Slot-based continuous-batching serving engine (counterpart of
+localai_tpu/engine/engine.py), main-path slice.
+
+What this slice serves, as the reference does:
+- a dense per-slot KV cache (kv_pages=0), no ragged batching;
+- bucketed, batched burst admission (one prefill pass per same-bucket
+  group) and chunked prefill through `extend` for prompts longer than the
+  largest bucket;
+- three decode dispatch paths: the single step (sample, then decode), the
+  `decode_block` path stop-string slots keep, and the fused decode loop
+  (decode_loop=64) with per-slot EOS / max_tokens / context-margin stops
+  on the device, frozen slots and a [steps, B] token ring;
+- host side: pipelined dispatch with an async device→host fetch of the
+  token ring (pinned memory + a CUDA event), stop strings with holdback,
+  logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
+
+Every EngineConfig/GenRequest/StepOutput field of the reference is kept.
+Those this slice does not serve are rejected with NotImplementedError
+naming the slice they wait for; none is silently ignored. The engine runs
+on the CUDA device unless `device="cpu"` is passed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.device import resolve_device, torch_dtype
+from localai_tpu_torch.models.llama import (
+    LlamaConfig,
+    build_decode_loop,
+    decode_step,
+    extend,
+    init_kv_cache,
+    prefill,
+)
+from localai_tpu_torch.ops.rope import rope_table
+from localai_tpu_torch.ops.sampling import (
+    FIELD_DTYPES,
+    SamplerState,
+    SamplingParams,
+    sample,
+    sampler_row,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine shape knobs — the reference's fields and defaults."""
+    max_slots: int = 4            # n_parallel — concurrent sequences
+    max_context: int = 1024       # n_ctx per slot
+    prefill_buckets: tuple[int, ...] = (64, 256, 1024)
+    prefill_chunk: int = 256      # chunked-prefill window (tokens/engine tick)
+    pipeline: bool = True         # keep one decode dispatch in flight
+    decode_block: int = 16        # decode steps fused per block dispatch
+    decode_loop: int = 64         # fused decode loop steps (0/1 disables)
+    dtype: str | None = None      # KV dtype (default: model dtype)
+    cache_type: str = ""          # ""|bf16 dense; int8|q8_0 quantized KV
+    mesh: Any | None = None       # parallel slice
+    shift_keep: int = 4           # context shift (waits)
+    replicator: Any | None = None  # multi-host (parallel slice)
+    gamma: int = 4                # speculative decoding (waits)
+    prompt_cache: bool = True     # reuse a freed slot's KV prefix
+    prompt_cache_min: int = 16    # minimum shared prefix worth reusing
+    sampling_topk_width: int = 64  # sort-free decode sampling width
+    admit_per_tick: int = 4       # admission/prefill units per engine tick
+    kv_pages: int = 0             # paged KV (paged slice)
+    ragged_token_budget: int = 0  # ragged batching (ragged slice)
+    ragged_loop_steps: int = 16   # fused ragged ticks (ragged slice; only
+                                  # read on ragged engines)
+    grammar_table_states: int = 256  # device grammar tables (grammar
+                                     # slice; only read with grammars)
+    kv_policy: str = "full"       # KV lifecycle tier (KV-tier slice)
+    kv_cold_pages: int = 0        # KV-tier slice
+    kv_host_bytes: int = 0        # host spill tier (KV-tier slice)
+    max_restarts: int = 2         # fatal step() errors survived
+
+
+@dataclasses.dataclass
+class GenRequest:
+    """One generation request — the reference's fields."""
+    prompt_ids: list[int]
+    params: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    max_tokens: int = 128
+    stop: tuple[str, ...] = ()
+    ignore_eos: bool = False
+    logprobs: bool = False
+    grammar: str = ""             # grammar slice
+    context_shift: bool = False   # context-shift slice
+    prompt_cache_path: str = ""   # disk prompt cache (context-shift slice)
+    prompt_cache_ro: bool = False
+    trace_id: str = ""            # request id from the HTTP layer
+    trace_parent: int = 0
+    deadline: float = 0.0         # absolute time.monotonic(); 0 = none
+    kv_policy: str = ""           # KV-tier slice
+    mm_embeds: Any = None         # multimodal slice
+    mm_positions: Any = None
+    queued_t: float = 0.0         # time.monotonic() at submit()
+    resume: dict | None = None    # preemption/resume slice
+
+
+@dataclasses.dataclass
+class StepOutput:
+    """One streamed chunk."""
+    request_id: int
+    text: str
+    token_id: int
+    logprob: float
+    finished: bool
+    finish_reason: str | None = None   # stop | length | eos | ...
+    generated_tokens: int = 0
+    prompt_tokens: int = 0
+    timings: dict | None = None        # telemetry slice (None here)
+    resume: dict | None = None         # preemption slice (None here)
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    req: GenRequest
+    out: queue.Queue
+    detok: Any                       # _IncrementalDecoder | None
+    pending_text: str = ""           # holdback buffer for stop-string scan
+    generated: int = 0
+    gen_ids: list[int] = dataclasses.field(default_factory=list)
+    start_time: float = 0.0
+    first_token_time: float | None = None
+    prompt_len: int = 0
+    prefilled: bool = True           # False while chunked prefill in progress
+    prefill_pos: int = 0             # prompt tokens already written to KV
+    row: Any = None                  # sampler row (installed at final chunk)
+    counts_row: Any = None
+    fast_w: int | None = None        # narrowest sort-free top-k width
+    inflight: int = 0                # tokens reserved by in-flight dispatches
+
+
+def _check_config(ec: EngineConfig):
+    if ec.kv_pages:
+        raise not_ported("kv_pages (paged KV)", "paged")
+    if ec.ragged_token_budget:
+        raise not_ported("ragged_token_budget (ragged batching)", "ragged")
+    if ec.kv_policy not in ("", "full"):
+        raise not_ported(f"kv_policy {ec.kv_policy!r}", "KV-tier")
+    if ec.kv_cold_pages:
+        raise not_ported("kv_cold_pages", "KV-tier")
+    if ec.kv_host_bytes:
+        raise not_ported("kv_host_bytes (host KV spill)", "KV-tier")
+    if ec.mesh is not None:
+        raise not_ported("mesh (tensor parallelism)", "parallel")
+    if ec.replicator is not None:
+        raise not_ported("replicator (multi-host)", "parallel")
+
+
+class _AsyncFetch:
+    """Async device→host fetch of a dispatch's small outputs: each tensor's
+    copy into pinned host memory is enqueued the moment the dispatch is,
+    with a CUDA event behind it, so block N's tokens land while block N+1
+    computes; `wait()` syncs on the event only. CPU tensors are already on
+    the host."""
+
+    __slots__ = ("_host", "_event", "_extra")
+
+    def __init__(self, tensors, extra=()):
+        self._extra = tuple(extra)
+        self._event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.clone() for t in tensors]
+
+    def wait(self):
+        """Host numpy arrays in input order (plus any extra host values)."""
+        if self._event is not None:
+            self._event.synchronize()
+        return tuple(h.numpy() for h in self._host) + self._extra
+
+
+class Engine:
+    """Continuous-batching engine over one loaded model."""
+
+    _ADMIT_GROUP_SIZES = (2, 4, 8)
+
+    def __init__(self, cfg: LlamaConfig, params, tokenizer=None,
+                 econfig: EngineConfig | None = None, draft: tuple | None = None,
+                 kvhost=None, device=None):
+        if draft is not None:
+            raise not_ported("speculative decoding (draft)",
+                             "speculative decoding")
+        if kvhost is not None:
+            raise not_ported("kvhost (host KV spill)", "KV-tier")
+        self.cfg = cfg
+        self.tok = tokenizer
+        self.ec = econfig or EngineConfig()
+        _check_config(self.ec)
+        self.device = resolve_device(device)
+        self.params = params.to(self.device)
+        if self.ec.max_context > cfg.max_position:
+            raise ValueError("max_context exceeds model max_position")
+        for b in self.ec.prefill_buckets:
+            if b > self.ec.max_context:
+                raise ValueError("prefill bucket larger than max_context")
+        self._kv_dtype = (torch_dtype(self.ec.dtype) if self.ec.dtype
+                          else cfg.tdtype)
+        self._init_device_state()
+        if self.ec.prefill_chunk < 8:
+            raise ValueError("prefill_chunk must be >= 8")
+        self._chunk = min(self.ec.prefill_chunk, self.ec.max_context)
+        small = tuple(b for b in self.ec.prefill_buckets if b <= self._chunk)
+        dropped = tuple(b for b in self.ec.prefill_buckets if b > self._chunk)
+        if dropped:
+            import warnings
+
+            warnings.warn(
+                f"prefill buckets {dropped} exceed prefill_chunk="
+                f"{self._chunk}; prompts longer than "
+                f"{max(small) if small else self._chunk} tokens will prefill "
+                f"in {self._chunk}-token chunks instead of single-shot",
+                stacklevel=2)
+        self._small_buckets = small or (self._chunk,)
+        self._small_max = max(self._small_buckets)
+        self._prefillq: list[int] = []   # slot indices mid-prefill, FIFO
+        self._pending = None             # in-flight decode (pipeline depth 1)
+        self._inflight_steps = 0
+        self._queue: "queue.Queue[tuple[int, GenRequest, queue.Queue]]" = \
+            queue.Queue()
+        self._next_id = 0
+        self._cancelled: set[int] = set()
+        self._live: set[int] = set()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._running = False
+        self._dead = False
+        self._thread: threading.Thread | None = None
+        self._admitting: tuple | None = None
+
+        self.metrics = {
+            "requests_completed": 0,
+            "tokens_generated": 0,
+            "prompt_tokens_processed": 0,
+            "prompt_tokens_reused": 0,
+            "prompt_cache_hits": 0,
+            "ttft_ms_last": 0.0,
+            "tokens_per_second_last": 0.0,
+            "decode_dispatches": 0,
+            "decode_steps_dispatched": 0,
+            "admit_dispatches": 0,
+            "host_sync_wait_ms": 0.0,
+            "tokens_by_path__loop": 0,
+            "tokens_by_path__dense": 0,
+        }
+        self._build_fns()
+
+    # ------------------------------------------------------------ state
+
+    def _init_device_state(self):
+        """(Re)create the device-held serving state: KV caches, sampler,
+        logits, lengths, and the host slot table."""
+        cfg, B, T = self.cfg, self.ec.max_slots, self.ec.max_context
+        V, dev = cfg.vocab_size, self.device
+        self._cos, self._sin = rope_table(cfg.rope, T, device=dev)
+        self._kc, self._vc = init_kv_cache(cfg, B, T, self._kv_dtype,
+                                           cache_type=self.ec.cache_type,
+                                           device=dev)
+        self._sampler = SamplerState.init(B, V, device=dev)
+        self._last_logits = torch.zeros((B, V), dtype=torch.float32,
+                                        device=dev)
+        self._lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+        eos = sorted(self.tok.eos_ids) if (
+            self.tok is not None and getattr(self.tok, "eos_ids", None)
+        ) else []
+        self._eos_dev = torch.tensor(eos or [-1], dtype=torch.int32,
+                                     device=dev)
+        self._slots: list[_Slot | None] = [None] * B
+        self._free: list[int] = list(range(B))
+        # prompt cache: per slot, the token ids whose K/V rows are still
+        # valid in that slot's cache region (recorded at release)
+        self._slot_kv_tokens: list[list[int]] = [[] for _ in range(B)]
+
+    def _build_fns(self):
+        cfg = self.cfg
+
+        def _decode(params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                    active, fast_width=None):
+            """sample(prev logits) → decode → next logits, for all slots.
+            The caches and token counts update in place."""
+            tokens, keys, logprobs = sample(last_logits, sampler,
+                                            topk_width=fast_width)
+            logits = decode_step(params, cfg, tokens, lengths, cos, sin, kc,
+                                 vc, active)
+            act = active.to(torch.int32)
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+            sampler.token_counts.index_put_((rows, tokens.long()), act,
+                                            accumulate=True)
+            sampler = dataclasses.replace(sampler, key=keys)
+            return tokens, logprobs, sampler, logits, lengths + act
+
+        self._decode_fn = _decode
+        self._decode_loop_fn = None
+        if self.ec.decode_loop > 1:
+            self._decode_loop_fn = build_decode_loop(
+                _decode, max_steps=self.ec.decode_loop,
+                limit=self.ec.max_context - 2)
+
+    def _install_rows(self, slots, rows: dict, counts_rows):
+        """Install K sampler rows at `slots` [K] (stacked [K, ...] fields);
+        absent logit_bias / counts rows are zeroed."""
+        s = self._sampler
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        for f in dataclasses.fields(SamplerState):
+            cur = getattr(s, f.name)
+            if f.name == "token_counts":
+                if counts_rows is None:
+                    cur[idx] = 0
+                else:
+                    cur[idx] = torch.as_tensor(counts_rows,
+                                               device=self.device).to(cur.dtype)
+            elif f.name == "logit_bias" and "logit_bias" not in rows:
+                cur[idx] = 0.0
+            else:
+                val = np.asarray(rows[f.name])
+                if f.name == "key":
+                    val = val.astype(np.int64)
+                cur[idx] = torch.as_tensor(val, device=self.device).to(
+                    FIELD_DTYPES[f.name])
+
+    # ------------------------------------------------------ device dispatch
+
+    def _dev_admit(self, ids, n, slot, row, counts_row):
+        self._dev_admit_many(
+            np.asarray(ids, np.int32), np.asarray([n], np.int32),
+            np.asarray([slot], np.int32),
+            {k: np.asarray(v)[None] for k, v in row.items()},
+            None if counts_row is None else np.asarray(counts_row)[None])
+
+    def _dev_admit_many(self, ids, lens, slots, rows, counts_rows):
+        """Admission burst: prefill K same-bucket requests in ONE pass."""
+        self.metrics["admit_dispatches"] += 1
+        dev = self.device
+        tokens = torch.as_tensor(ids, device=dev)
+        lens_t = torch.as_tensor(lens, device=dev)
+        slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+        with torch.no_grad():
+            logits = prefill(self.params, self.cfg, tokens, lens_t, self._cos,
+                             self._sin, self._kc, self._vc, slots_t)
+            self._last_logits[slots_t] = logits
+            self._lengths[slots_t] = lens_t
+            self._install_rows(slots, rows, counts_rows)
+
+    def _dev_extend_mid(self, buf, pos, idx):
+        """One non-final prefill chunk: KV writes only."""
+        dev = self.device
+        with torch.no_grad():
+            extend(self.params, self.cfg, torch.as_tensor(buf, device=dev),
+                   torch.tensor([pos], device=dev), self._cos, self._sin,
+                   self._kc, self._vc,
+                   slot_map=torch.tensor([idx], device=dev),
+                   with_logits=False)
+
+    def _dev_extend_final(self, buf, pos, nvalid, idx, row, counts_row):
+        """Final prefill chunk: KV writes + last-token logits + the sampler
+        row install (deferred to here so the request's RNG stream does not
+        depend on how many ticks the prefill spanned)."""
+        dev = self.device
+        with torch.no_grad():
+            logits = extend(
+                self.params, self.cfg, torch.as_tensor(buf, device=dev),
+                torch.tensor([pos], device=dev), self._cos, self._sin,
+                self._kc, self._vc, slot_map=torch.tensor([idx], device=dev),
+                last_pos=torch.tensor([max(nvalid - 1, 0)], device=dev))
+            self._last_logits[idx] = logits[0]
+            self._lengths[idx] = pos + nvalid
+            self._install_rows(
+                [idx], {k: np.asarray(v)[None] for k, v in row.items()},
+                None if counts_row is None else np.asarray(counts_row)[None])
+
+    def _step_args(self, active):
+        return (self.params, self._cos, self._sin, self._kc, self._vc,
+                self._sampler, self._last_logits, self._lengths,
+                torch.as_tensor(active, device=self.device))
+
+    def _dev_decode(self, active, fast_width=None):
+        self.metrics["decode_dispatches"] += 1
+        self.metrics["decode_steps_dispatched"] += 1
+        with torch.no_grad():
+            (tokens, logprobs, self._sampler, self._last_logits,
+             self._lengths) = self._decode_fn(*self._step_args(active),
+                                              fast_width)
+            return _AsyncFetch((tokens, logprobs))
+
+    def _dev_decode_block(self, active, steps: int, fast_width=None):
+        """`steps` fused sample→decode iterations in one dispatch."""
+        self.metrics["decode_dispatches"] += 1
+        self.metrics["decode_steps_dispatched"] += steps
+        toks, lps = [], []
+        with torch.no_grad():
+            act = torch.as_tensor(active, device=self.device)
+            for _ in range(steps):
+                (tokens, logprobs, self._sampler, self._last_logits,
+                 self._lengths) = self._decode_fn(
+                    self.params, self._cos, self._sin, self._kc, self._vc,
+                    self._sampler, self._last_logits, self._lengths, act,
+                    fast_width)
+                toks.append(tokens)
+                lps.append(logprobs)
+            return _AsyncFetch((torch.stack(toks), torch.stack(lps)))
+
+    def _dev_decode_loop(self, active, remaining, check_eos, fast_width=None):
+        """ONE fused-loop dispatch of up to ec.decode_loop steps with the
+        per-slot stop conditions on the device. The steps actually run ride
+        the fetch; decode_steps_dispatched is credited at consume time."""
+        self.metrics["decode_dispatches"] += 1
+        dev = self.device
+        with torch.no_grad():
+            (toks, lps, n_out, steps, self._sampler, self._last_logits,
+             self._lengths) = self._decode_loop_fn(
+                *self._step_args(active),
+                torch.as_tensor(remaining, device=dev),
+                torch.as_tensor(check_eos, device=dev), self._eos_dev,
+                fast_width=fast_width)
+            return _AsyncFetch((toks, lps, n_out), extra=(steps,))
+
+    # ------------------------------------------------------------ requests
+
+    def submit(self, req: GenRequest) -> tuple[int, queue.Queue]:
+        """Enqueue a request; returns (request_id, output queue of StepOutput)."""
+        if self._dead:
+            raise RuntimeError("engine loop has terminated; no new requests")
+        if len(req.prompt_ids) == 0:
+            raise ValueError("empty prompt")
+        limit = self.ec.max_context - 2
+        if len(req.prompt_ids) > limit:
+            raise ValueError(
+                f"prompt length {len(req.prompt_ids)} exceeds {limit} "
+                f"(max_context minus the decode margin); longer prompts "
+                f"need a larger context window")
+        if req.grammar:
+            raise not_ported("grammar-constrained decoding", "grammar")
+        if req.mm_embeds is not None or req.mm_positions is not None:
+            raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
+        if req.resume is not None:
+            raise not_ported("resume (preemption checkpoints)",
+                             "preemption/resume")
+        if req.context_shift:
+            raise not_ported("context_shift", "context-shift")
+        if req.prompt_cache_path:
+            raise not_ported("prompt_cache_path (disk prompt cache)",
+                             "context-shift")
+        if req.kv_policy not in ("", "full"):
+            raise not_ported(f"kv_policy {req.kv_policy!r}", "KV-tier")
+        V = self.cfg.vocab_size
+        if any(not (0 <= t < V) for t in req.prompt_ids):
+            raise ValueError(f"prompt token id outside [0, {V})")
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+            self._live.add(rid)
+        out: queue.Queue = queue.Queue()
+        req.queued_t = time.monotonic()
+        self._queue.put((rid, req, out))
+        self._wake.set()
+        return rid, out
+
+    def cancel(self, rid: int):
+        """Mark a submitted request for eviction (finish "cancelled" at its
+        next token; queued requests terminate at admission)."""
+        with self._lock:
+            if rid in self._live:
+                self._cancelled.add(rid)
+        self._wake.set()
+
+    def _finish_rid(self, rid: int):
+        with self._lock:
+            self._live.discard(rid)
+            self._cancelled.discard(rid)
+
+    # ------------------------------------------------------------ admission
+
+    def _bucket(self, n: int) -> int:
+        for b in self._small_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt too long for single-shot prefill: {n}")
+
+    def _admit_one(self, rid: int, req: GenRequest, out: queue.Queue,
+                   batch: list | None = None) -> bool:
+        n = len(req.prompt_ids)
+        chunked = n > self._small_max
+        bucket = None if chunked else self._bucket(n)
+        slot, lcp = self._pick_slot(req.prompt_ids)
+        self._slot_kv_tokens[slot] = []
+        if lcp:
+            # shared prefix already in this slot's cache: prefill only the
+            # suffix via the chunked-extend path (start offset = lcp)
+            chunked = True
+            self.metrics["prompt_cache_hits"] += 1
+            self.metrics["prompt_tokens_reused"] += lcp
+        p = req.params.normalized()
+        heavy = bool(p.logit_bias) or p.repeat_penalty != 1.0 \
+            or p.presence_penalty != 0.0 or p.frequency_penalty != 0.0
+        row = sampler_row(req.params, self.cfg.vocab_size,
+                          fallback_seed=rid + 1, include_bias=heavy)
+        if heavy:
+            counts_row = np.zeros((self.cfg.vocab_size,), np.int32)
+            pid, pcnt = np.unique(np.asarray(req.prompt_ids, np.int64),
+                                  return_counts=True)
+            counts_row[pid] = pcnt
+        else:
+            counts_row = None
+        if not chunked:
+            if batch is not None:
+                # defer the device call: _flush_admits batches same-bucket
+                # admissions from this tick into one prefill pass
+                batch.append(dict(slot=slot, n=n, bucket=bucket,
+                                  prompt_ids=req.prompt_ids, row=row,
+                                  counts_row=counts_row, heavy=heavy))
+            else:
+                ids = self._pad_ids([dict(n=n, prompt_ids=req.prompt_ids)],
+                                    bucket)
+                self._dev_admit(ids, n, slot, row, counts_row)
+
+        W = self.ec.sampling_topk_width
+        fast_w = None
+        if W and (p.typical_p is None or p.typical_p >= 1.0):
+            V = self.cfg.vocab_size
+            tk = min(p.top_k or 0, V)
+            if p.greedy:
+                fast_w = min(W, V)
+            elif 0 < tk <= min(W, V):
+                fast_w = min(W, V)
+            elif 0 < tk <= min(8 * W, V):
+                fast_w = min(8 * W, V)
+        self._slots[slot] = _Slot(
+            request_id=rid, req=req, out=out,
+            detok=self.tok.stream_decoder() if self.tok else None,
+            start_time=time.monotonic(), prompt_len=n,
+            prefilled=not chunked, row=row, counts_row=counts_row,
+            prefill_pos=lcp, fast_w=fast_w,
+        )
+        if chunked:
+            self._prefillq.append(slot)
+        self.metrics["prompt_tokens_processed"] += n - lcp
+        return True
+
+    def _prefill_tick(self):
+        """Admission work for one tick: continue chunked prefills (oldest
+        first) and admit queued requests, up to `admit_per_tick` units while
+        decodes run; an idle engine drains freely."""
+        budget = max(1, self.ec.admit_per_tick)
+        if not any(s is not None and s.prefilled for s in self._slots):
+            budget = max(budget, self.ec.max_slots)
+        pending: list = []
+        try:
+            self._prefill_drain(budget, pending)
+        finally:
+            self._flush_admits(pending)
+
+    def _prefill_drain(self, budget: int, pending: list):
+        for _ in range(budget):
+            if self._prefillq:
+                idx = self._prefillq[0]
+                slot = self._slots[idx]
+                ids = slot.req.prompt_ids
+                pos = slot.prefill_pos
+                nvalid = min(len(ids) - pos, self._chunk)
+                buf = np.zeros((1, self._chunk), np.int32)
+                buf[0, :nvalid] = ids[pos:pos + nvalid]
+                final = pos + nvalid == len(ids)
+                if final:
+                    self._dev_extend_final(buf, pos, nvalid, idx, slot.row,
+                                           slot.counts_row)
+                else:
+                    self._dev_extend_mid(buf, pos, idx)
+                slot.prefill_pos = pos + nvalid
+                if final:
+                    slot.prefilled = True
+                    self._prefillq.remove(idx)
+                continue
+            if not self._free:
+                return
+            try:
+                rid, req, out = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            # dead on arrival (cancelled, or deadline spent in the queue)
+            if (rid in self._cancelled
+                    or (req.deadline and time.monotonic() > req.deadline)):
+                reason = "cancelled" if rid in self._cancelled else "timeout"
+                self._finish_rid(rid)
+                out.put(StepOutput(
+                    request_id=rid, text="", token_id=-1, logprob=0.0,
+                    finished=True, finish_reason=reason,
+                    prompt_tokens=len(req.prompt_ids)))
+                continue
+            self._admitting = (rid, req, out)
+            self._admit_one(rid, req, out, batch=pending)
+            self._admitting = None
+
+    @staticmethod
+    def _pad_ids(plans: list, bucket: int) -> np.ndarray:
+        ids = np.zeros((len(plans), bucket), np.int32)
+        for i, p in enumerate(plans):
+            ids[i, :p["n"]] = p["prompt_ids"]
+        return ids
+
+    def _flush_admits(self, pending: list):
+        """Run this tick's deferred admissions: group by (bucket, heavy),
+        one batched prefill per group, group size padded up to the next of
+        _ADMIT_GROUP_SIZES by repeating the last plan (identical rows)."""
+        groups: dict = {}
+        for plan in pending:
+            groups.setdefault((plan["bucket"], plan["heavy"]),
+                              []).append(plan)
+        for (bucket, heavy), g in groups.items():
+            while g:
+                if len(g) == 1:
+                    p = g.pop()
+                    self._dev_admit(self._pad_ids([p], bucket), p["n"],
+                                    p["slot"], p["row"], p["counts_row"])
+                    continue
+                k = min(len(g), self._ADMIT_GROUP_SIZES[-1])
+                size = next(s for s in self._ADMIT_GROUP_SIZES if s >= k)
+                batch, g = g[:k], g[k:]
+                batch = batch + [batch[-1]] * (size - k)
+                ids = self._pad_ids(batch, bucket)
+                lens = np.asarray([p["n"] for p in batch], np.int32)
+                slots = np.asarray([p["slot"] for p in batch], np.int32)
+                rows = {f: np.stack([np.asarray(p["row"][f]) for p in batch])
+                        for f in batch[0]["row"]}
+                counts = (np.stack([p["counts_row"] for p in batch])
+                          if heavy else None)
+                self._dev_admit_many(ids, lens, slots, rows, counts)
+
+    # ------------------------------------------------------------ decode
+
+    def _active_mask(self) -> np.ndarray:
+        return np.array([s is not None and s.prefilled for s in self._slots],
+                        bool)
+
+    def _block_steps(self) -> int:
+        """Steps the next block dispatch may fuse: 1 while a per-token host
+        decision is live (pending admissions/prefills, a slot near its
+        context limit); a slot near max_tokens steps the batch down a
+        power-of-two ladder."""
+        G = self.ec.decode_block
+        if (G <= 1 or not self.ec.pipeline or self._prefillq
+                or (self._free and not self._queue.empty())):
+            return 1
+        limit = self.ec.max_context - 2
+        steps = G
+        for s in self._slots:
+            if s is None or not s.prefilled:
+                continue
+            if s.prompt_len + s.generated + 2 * G >= limit:
+                return 1
+            stale = self._inflight_steps if self._pending is not None else 0
+            rem = s.req.max_tokens - s.generated - stale
+            while steps > 1 and steps * 2 > max(rem, 1):
+                steps //= 2
+            if steps == 1:
+                return 1
+        return steps
+
+    def _loop_block_reason(self, entries) -> str | None:
+        """None when this dispatch can take the fused loop; otherwise why
+        the block/ladder path runs instead."""
+        if self._decode_loop_fn is None:
+            return "loop_disabled"
+        if self._prefillq:
+            return "pending_prefill"
+        if self._free and not self._queue.empty():
+            return "pending_admission"
+        if any(self._slots[i].req.stop for i, _ in entries):
+            return "stop_string"
+        return None
+
+    def _dispatch_loop(self, active, entries, fast):
+        """Dispatch the fused loop with per-slot budgets net of the pending
+        dispatch's reservation, so two pipelined loops never overshoot."""
+        G = self.ec.decode_loop
+        B = self.ec.max_slots
+        remaining = np.zeros((B,), np.int32)
+        check_eos = np.zeros((B,), bool)
+        live = []
+        for i, rid in entries:
+            s = self._slots[i]
+            rem = s.req.max_tokens - s.generated - s.inflight
+            if rem <= 0:
+                active[i] = False
+                continue
+            remaining[i] = rem
+            check_eos[i] = self.tok is not None and not s.req.ignore_eos
+            live.append((i, rid))
+        if not live:
+            return None
+        res = {}
+        for i, _ in live:
+            res[i] = int(min(G, remaining[i]))
+            self._slots[i].inflight += res[i]
+        self._inflight_steps = G
+        fetch = self._dev_decode_loop(active, remaining, check_eos, fast)
+        return ("loop", fetch, live, res)
+
+    def _dispatch(self):
+        """Dispatch one decode step, a fused block, or a fused loop for the
+        active slots; returns a tagged pend (without waiting for the
+        device) or None when nothing can run."""
+        active = self._active_mask()
+        if not active.any():
+            return None
+        entries = [(int(i), self._slots[i].request_id)
+                   for i in np.where(active)[0]]
+        ws = [self._slots[i].fast_w for i, _ in entries]
+        fast = max(ws) if all(w is not None for w in ws) else None
+        if self._loop_block_reason(entries) is None:
+            return self._dispatch_loop(active, entries, fast)
+        steps = self._block_steps()
+        self._inflight_steps = steps
+        res = {}
+        for i, _ in entries:
+            res[i] = steps
+            self._slots[i].inflight += steps
+        if steps > 1:
+            fetch = self._dev_decode_block(active, steps, fast)
+        else:
+            fetch = self._dev_decode(active, fast)
+        return ("block", fetch, entries, res)
+
+    def _release_reservations(self, entries, res):
+        for i, rid in entries:
+            s = self._slots[i]
+            if s is not None and s.request_id == rid:
+                s.inflight = max(0, s.inflight - res.get(i, 0))
+
+    def _consume_loop(self, pend):
+        """Finish a fused loop's fetch, credit the steps actually run and
+        commit slot b's n_out[b] tokens in device order."""
+        _, fetch, entries, res = pend
+        t0 = time.perf_counter()
+        tokens, logprobs, n_out, steps = fetch.wait()
+        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
+        self.metrics["decode_steps_dispatched"] += int(steps)
+        self._release_reservations(entries, res)
+        now = time.monotonic()
+        for g in range(int(steps)):
+            for i, rid in entries:
+                if g >= int(n_out[i]):
+                    continue
+                slot = self._slots[i]
+                if slot is None or slot.request_id != rid:
+                    continue  # finished earlier (cancel/deadline)
+                self._emit(i, slot, int(tokens[g, i]), float(logprobs[g, i]),
+                           now, path="loop")
+
+    def _consume(self, pend):
+        """Block on a dispatch's results and run the host-side token
+        handling for every slot that was active at dispatch time and still
+        serves the same request."""
+        if pend[0] == "loop":
+            self._consume_loop(pend)
+            return
+        _, fetch, entries, res = pend
+        t0 = time.perf_counter()
+        tokens, logprobs = fetch.wait()
+        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
+        self._release_reservations(entries, res)
+        now = time.monotonic()
+        if tokens.ndim == 1:
+            tokens, logprobs = tokens[None], logprobs[None]
+        for g in range(tokens.shape[0]):
+            for i, rid in entries:
+                slot = self._slots[i]
+                if slot is None or slot.request_id != rid:
+                    continue  # finished earlier in this block
+                self._emit(i, slot, int(tokens[g, i]), float(logprobs[g, i]),
+                           now)
+
+    # ------------------------------------------------------------ the loop
+
+    def step(self) -> bool:
+        """One engine iteration. In pipelined mode one decode dispatch stays
+        in flight: dispatch N+1 is enqueued before N's tokens are read.
+        Returns True while work remains."""
+        sync = not self.ec.pipeline
+        if sync and self._pending is not None:
+            self._consume(self._pending)
+            self._pending = None
+        cur = self._dispatch()
+        self._prefill_tick()
+        if cur is None:
+            if self._pending is not None:
+                self._consume(self._pending)
+                self._pending = None
+        elif sync:
+            self._consume(cur)
+        else:
+            prev, self._pending = self._pending, cur
+            if prev is not None:
+                self._consume(prev)
+        return (any(s is not None for s in self._slots)
+                or not self._queue.empty() or self._pending is not None)
+
+    def _emit(self, idx: int, slot: _Slot, token_id: int, logprob: float,
+              now: float, path: str = "dense") -> bool:
+        """Commit one sampled token to `slot` (detok, stop scan, stream,
+        maybe finish)."""
+        finish = None
+        cache_len = slot.prompt_len + slot.generated + 1
+        is_eos = self.tok is not None and token_id in self.tok.eos_ids
+        if is_eos and not slot.req.ignore_eos:
+            finish = "eos"
+        elif slot.generated + 1 >= slot.req.max_tokens:
+            finish = "length"
+        elif cache_len >= self.ec.max_context - 2:
+            finish = "length"
+        if finish is None and slot.request_id in self._cancelled:
+            finish = "cancelled"
+        elif finish is None and slot.req.deadline \
+                and now > slot.req.deadline:
+            finish = "timeout"
+
+        if slot.first_token_time is None:
+            slot.first_token_time = now
+            self.metrics["ttft_ms_last"] = \
+                (now - (slot.req.queued_t or slot.start_time)) * 1e3
+        slot.generated += 1
+        slot.gen_ids.append(token_id)
+        self.metrics["tokens_generated"] += 1
+        self.metrics["tokens_by_path__" + path] += 1
+
+        text = ""
+        if slot.detok is not None:
+            if finish != "eos":
+                text = slot.detok.push(token_id)
+            if finish is not None:
+                text += slot.detok.flush()
+
+        # stop-string scan with holdback
+        emit_text = text
+        if slot.req.stop:
+            slot.pending_text += text
+            hold = max(len(s) for s in slot.req.stop) - 1
+            matched = None
+            for s in slot.req.stop:
+                j = slot.pending_text.find(s)
+                if j != -1 and (matched is None or j < matched[0]):
+                    matched = (j, s)
+            if matched is not None:
+                emit_text = slot.pending_text[: matched[0]]
+                slot.pending_text = ""
+                finish = "stop"
+            elif finish is not None:
+                emit_text = slot.pending_text
+                slot.pending_text = ""
+            else:
+                stable = len(slot.pending_text) - hold
+                emit_text = slot.pending_text[:stable] if stable > 0 else ""
+                slot.pending_text = slot.pending_text[max(stable, 0):]
+
+        slot.out.put(StepOutput(
+            request_id=slot.request_id, text=emit_text, token_id=token_id,
+            logprob=logprob, finished=finish is not None,
+            finish_reason=finish, generated_tokens=slot.generated,
+            prompt_tokens=slot.prompt_len,
+        ))
+        if finish is not None:
+            dur = now - slot.start_time
+            if dur > 0:
+                self.metrics["tokens_per_second_last"] = slot.generated / dur
+            self.metrics["requests_completed"] += 1
+            self._release_slot(idx, slot)
+        return True
+
+    def _pick_slot(self, prompt_ids: list[int]) -> tuple[int, int]:
+        """A free slot, preferring the one whose cached tokens share the
+        longest prefix with the prompt (llama.cpp's slot prompt cache).
+        Returns (slot, reusable_prefix_len); 0 = cold prefill."""
+        limit = self.ec.max_context - 2
+
+        def common(cached: list[int]) -> int:
+            m = min(len(cached), len(prompt_ids) - 1, limit - 1)
+            i = 0
+            while i < m and cached[i] == prompt_ids[i]:
+                i += 1
+            return i
+
+        best_slot, best_lcp = None, 0
+        if self.ec.prompt_cache:
+            for s in self._free:
+                lcp = common(self._slot_kv_tokens[s])
+                if lcp > best_lcp:
+                    best_slot, best_lcp = s, lcp
+        if best_slot is not None and best_lcp >= self.ec.prompt_cache_min:
+            self._free.remove(best_slot)
+            return best_slot, best_lcp
+        # cold admission: the free slot with the LEAST useful cached record
+        cold = min(self._free, key=lambda s: len(self._slot_kv_tokens[s]))
+        self._free.remove(cold)
+        return cold, 0
+
+    def _release_slot(self, idx: int, slot: _Slot):
+        self._finish_rid(slot.request_id)
+        # record what the slot's cache still holds (rows 0..len-1) so a
+        # later prompt sharing the prefix skips that part of its prefill
+        if self.ec.prompt_cache:
+            self._slot_kv_tokens[idx] = (list(slot.req.prompt_ids)
+                                         + slot.gen_ids)[
+                : self.ec.max_context - 2]
+        else:
+            self._slot_kv_tokens[idx] = []
+        self._slots[idx] = None
+        self._free.append(idx)
+
+    # ------------------------------------------------------------ run modes
+
+    def warmup(self):
+        """Run the single-step decode once per sampling tier with all slots
+        inactive (every cache write goes to the trash row and no slot state
+        is consumed), so the kernels are built and the first requests pay no
+        first-use cost. Must run before any request is admitted; dispatch
+        metrics are restored afterwards."""
+        if any(s is not None for s in self._slots):
+            raise RuntimeError("warmup() requires an idle engine")
+        B, V = self.ec.max_slots, self.cfg.vocab_size
+        snap = {k: self.metrics[k] for k in (
+            "decode_dispatches", "decode_steps_dispatched",
+            "host_sync_wait_ms")}
+        idle = np.zeros((B,), bool)
+        try:
+            widths = [None]
+            W = self.ec.sampling_topk_width
+            if W:
+                widths.append(min(W, V))
+                if min(8 * W, V) != min(W, V):
+                    widths.append(min(8 * W, V))
+            for w in widths:
+                self._dev_decode(idle, w).wait()
+        finally:
+            self.metrics.update(snap)
+
+    def start(self):
+        """Run the engine loop in a background thread (serving mode)."""
+        if self._running:
+            return
+        self._running = True
+        self._dead = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        was_serving = self._thread is not None
+        self._running = False
+        self._dead = True
+        self._wake.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                return
+            self._thread = None
+        if was_serving:
+            self._fail_active("cancelled")
+
+    def preempt(self, grace: float = 0.0) -> list[dict]:
+        """Spill-drain checkpointing of live requests (the reference's
+        ResumeToken path) needs the host KV tier."""
+        raise not_ported("preempt (spill-drain checkpoints)",
+                         "preemption/resume")
+
+    def _fail_active(self, reason: str):
+        """Send a terminal StepOutput to every in-flight slot and queued
+        request so no consumer blocks forever on its output queue."""
+        self._pending = None
+        self._prefillq.clear()
+        failed = set()
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            failed.add(slot.request_id)
+            slot.out.put(StepOutput(
+                request_id=slot.request_id, text="", token_id=-1, logprob=0.0,
+                finished=True, finish_reason=reason,
+                generated_tokens=slot.generated,
+                prompt_tokens=slot.prompt_len))
+            self._release_slot(i, slot)
+        if self._admitting is not None:
+            rid, req, out = self._admitting
+            self._admitting = None
+            if rid not in failed:
+                self._finish_rid(rid)
+                out.put(StepOutput(request_id=rid, text="", token_id=-1,
+                                   logprob=0.0, finished=True,
+                                   finish_reason=reason))
+        while True:
+            try:
+                rid, req, out = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            self._finish_rid(rid)
+            out.put(StepOutput(request_id=rid, text="", token_id=-1,
+                               logprob=0.0, finished=True,
+                               finish_reason=reason))
+
+    def _loop(self):
+        restarts = 0
+        while self._running:
+            try:
+                busy = self.step()
+            except Exception:  # device OOM, kernel fault, ...
+                import traceback
+
+                traceback.print_exc()
+                self._fail_active("error")
+                if restarts >= self.ec.max_restarts:
+                    self._running = False
+                    self._dead = True
+                    return
+                restarts += 1
+                try:
+                    self._init_device_state()
+                except Exception:
+                    traceback.print_exc()
+                    self._running = False
+                    self._dead = True
+                    self._fail_active("error")
+                    return
+                continue
+            if not busy:
+                self._wake.clear()
+                self._wake.wait(timeout=0.05)
+
+    def generate(self, req: GenRequest) -> Iterator[StepOutput]:
+        """Synchronous convenience: submit + drive the loop until finished.
+        Only valid when the background thread is NOT running."""
+        if self._running:
+            raise RuntimeError("use submit() while the engine loop is running")
+        rid, out = self.submit(req)
+        done = False
+        while not done:
+            self.step()
+            while True:
+                try:
+                    o = out.get_nowait()
+                except queue.Empty:
+                    break
+                yield o
+                if o.finished:
+                    done = True
+
+    def generate_text(self, req: GenRequest) -> str:
+        return "".join(o.text for o in self.generate(req))

@@ -1,0 +1,310 @@
+"""Checkpoint loading: HF safetensors → models.llama.Llama (counterpart of
+localai_tpu/engine/loader.py).
+
+Tensors are read lazily per shard from an mmap with torch.frombuffer (BF16
+included — no ml_dtypes), transposed once into the [in, out] matmul
+layout, cast to the compute dtype and placed on the target device.
+dtype="int8" casts each projection to bf16 first and then quantizes it per
+output channel on the device — the reference's order, so the int8 payload
+and scales are bit-identical to localai_tpu.engine.loader.load_params.
+"""
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import warnings
+from typing import Any
+
+import torch
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.device import resolve_device, torch_dtype
+from localai_tpu_torch.models.llama import (
+    Llama, LlamaConfig, LlamaLayer, init_params,
+)
+from localai_tpu_torch.ops.quant import QuantWeight, quantize
+
+# HF architectures the Llama-family decoder covers
+LLAMA_FAMILY = {
+    "LlamaForCausalLM": {},
+    "MistralForCausalLM": {},
+    "MixtralForCausalLM": {"moe": True},
+    "Qwen2ForCausalLM": {"qkv_bias": True},
+    "TinyLlamaForCausalLM": {},
+}
+
+_QBITS = {"int8": 8, "q8": 8, "int4": 4, "q4": 4}
+
+
+def load_config(model_dir: str, dtype: str | None = None) -> LlamaConfig:
+    """Parse HF config.json into a LlamaConfig. `dtype` overrides the compute
+    dtype (int8/int4 = weight quantization; activations stay bf16)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf: dict[str, Any] = json.load(f)
+
+    arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+    if hf.get("model_type") == "llava" or arch.startswith("Llava"):
+        raise not_ported("vision-language (llava) checkpoints", "other-roles")
+    if arch not in LLAMA_FAMILY:
+        raise ValueError(f"unsupported architecture {arch!r}")
+    extra = LLAMA_FAMILY[arch]
+
+    num_heads = hf["num_attention_heads"]
+    head_dim = hf.get("head_dim") or hf["hidden_size"] // num_heads
+
+    kw: dict[str, Any] = dict(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=num_heads,
+        num_kv_heads=hf.get("num_key_value_heads", num_heads),
+        head_dim=head_dim,
+        max_position=hf.get("max_position_embeddings", 8192),
+        rms_eps=hf.get("rms_norm_eps", 1e-5),
+        rope_base=hf.get("rope_theta", 10000.0),
+        tie_embeddings=hf.get("tie_word_embeddings", False),
+        sliding_window=hf.get("sliding_window"),
+        qkv_bias=hf.get("attention_bias", extra.get("qkv_bias", False)),
+    )
+    if extra.get("moe") or hf.get("num_local_experts"):
+        kw["num_experts"] = hf.get("num_local_experts", 8)
+        kw["experts_per_tok"] = hf.get("num_experts_per_tok", 2)
+    if dtype is not None:
+        kw["dtype"] = "bfloat16" if dtype in _QBITS else dtype
+
+    rs = hf.get("rope_scaling") or hf.get("rope_parameters") or None
+    if rs and isinstance(rs, dict) and rs.get(
+            "rope_type", rs.get("type")) not in (None, "default"):
+        rope_type = rs.get("rope_type", rs.get("type"))
+        kw["rope_scaling"] = rope_type
+        kw["rope_scale_factor"] = rs.get("factor", 1.0)
+        kw["rope_original_max_position"] = rs.get(
+            "original_max_position_embeddings", kw["max_position"])
+        if rope_type == "llama3":
+            kw["rope_low_freq_factor"] = rs.get("low_freq_factor", 1.0)
+            kw["rope_high_freq_factor"] = rs.get("high_freq_factor", 4.0)
+        if rope_type == "yarn":
+            kw["rope_beta_fast"] = rs.get("beta_fast", 32.0)
+            kw["rope_beta_slow"] = rs.get("beta_slow", 1.0)
+            kw["rope_attn_factor"] = rs.get("attention_factor")
+    return LlamaConfig(**kw)
+
+
+class _SafetensorsFile:
+    """Minimal safetensors reader: 8-byte header length, JSON header {name:
+    {dtype, shape, data_offsets}}, then raw little-endian tensor data,
+    viewed zero-copy through an mmap (tensors stay on the host until the
+    loader moves them)."""
+
+    _DTYPES = {
+        "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+        "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+        "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+        "BOOL": torch.bool,
+    }
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb")
+        self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+        hlen = int.from_bytes(self._mm[:8], "little")
+        self._header: dict[str, Any] = json.loads(self._mm[8:8 + hlen])
+        self._header.pop("__metadata__", None)
+        self._base = 8 + hlen
+
+    def keys(self):
+        return self._header.keys()
+
+    def get(self, name: str) -> torch.Tensor:
+        meta = self._header[name]
+        lo, hi = meta["data_offsets"]
+        dtype = self._DTYPES[meta["dtype"]]
+        count = (hi - lo) // torch.empty((), dtype=dtype).element_size()
+        with warnings.catch_warnings():
+            # the mmap is read-only; every tensor is copied (cast/moved)
+            # before anything could write to it
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.frombuffer(self._mm, dtype=dtype, count=count,
+                                 offset=self._base + lo)
+        return t.reshape(meta["shape"])
+
+    def close(self):
+        self._mm.close()
+        self._f.close()
+
+
+class _TensorReader:
+    """Lazy per-tensor host reads across safetensors shards."""
+
+    def __init__(self, model_dir: str):
+        self.dir = model_dir
+        self.index = self._shard_index(model_dir)
+        self._open: dict[str, _SafetensorsFile] = {}
+
+    @staticmethod
+    def _shard_index(model_dir: str) -> dict[str, str]:
+        """tensor name → safetensors filename (single-file or index.json)."""
+        idx = os.path.join(model_dir, "model.safetensors.index.json")
+        if os.path.exists(idx):
+            with open(idx) as f:
+                return json.load(f)["weight_map"]
+        name = "model.safetensors"
+        if os.path.exists(os.path.join(model_dir, name)):
+            f = _SafetensorsFile(os.path.join(model_dir, name))
+            try:
+                return {k: name for k in f.keys()}
+            finally:
+                f.close()
+        raise FileNotFoundError(f"no safetensors checkpoint in {model_dir}")
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.index
+
+    def get(self, name: str) -> torch.Tensor:
+        if name not in self.index:
+            raise KeyError(name)
+        fname = self.index[name]
+        if fname not in self._open:
+            self._open[fname] = _SafetensorsFile(os.path.join(self.dir, fname))
+        return self._open[fname].get(name)
+
+    def close(self):
+        for f in self._open.values():
+            f.close()
+        self._open.clear()
+
+
+def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
+                device=None) -> Llama:
+    """Load + restructure a HF Llama-family checkpoint onto `device`
+    (default: the CUDA device). HF stores projections [out, in]; they are
+    transposed once here. dtype="int8" quantizes every projection (and the
+    lm_head) per output channel after the bf16 load cast."""
+    device = resolve_device(device)
+    qbits = _QBITS.get(dtype)
+    if qbits == 4:
+        raise not_ported("int4 weights", "Mixtral/int4")
+    if cfg.num_experts:
+        raise not_ported("Mixtral MoE checkpoints", "Mixtral/int4")
+    tdtype = (torch.bfloat16 if qbits else
+              torch_dtype(dtype) if dtype is not None else cfg.tdtype)
+
+    if _is_synthetic(model_dir):
+        # benchmark checkpoints: config.json declares the geometry, weights
+        # are seeded random init made on the device
+        return _synthetic_params(cfg, dtype=tdtype, device=device,
+                                 qbits=qbits)
+
+    r = _TensorReader(model_dir)
+
+    def get(name: str, transpose: bool = False, quant: bool = False):
+        t = r.get(name)
+        t = t.T if transpose else t
+        # copy=True: the reader's mmap closes after the load
+        t = t.to(device=device, dtype=tdtype, copy=True).contiguous()
+        return quantize(t) if (quant and qbits) else t
+
+    L = "model.layers.{i}."
+    layers = []
+    for i in range(cfg.num_layers):
+        p = L.format(i=i)
+        w = {
+            "attn_norm": get(p + "input_layernorm.weight"),
+            "wq": get(p + "self_attn.q_proj.weight", True, True),
+            "wk": get(p + "self_attn.k_proj.weight", True, True),
+            "wv": get(p + "self_attn.v_proj.weight", True, True),
+            "wo": get(p + "self_attn.o_proj.weight", True, True),
+            "mlp_norm": get(p + "post_attention_layernorm.weight"),
+            "w_gate": get(p + "mlp.gate_proj.weight", True, True),
+            "w_up": get(p + "mlp.up_proj.weight", True, True),
+            "w_down": get(p + "mlp.down_proj.weight", True, True),
+        }
+        if cfg.qkv_bias:
+            w["bq"] = get(p + "self_attn.q_proj.bias")
+            w["bk"] = get(p + "self_attn.k_proj.bias")
+            w["bv"] = get(p + "self_attn.v_proj.bias")
+        layers.append(LlamaLayer(w))
+    head = None
+    if not cfg.tie_embeddings:
+        if "lm_head.weight" not in r:
+            raise ValueError(
+                "config says untied embeddings but lm_head.weight is missing")
+        head = get("lm_head.weight", True, True)
+    params = Llama(cfg, get("model.embed_tokens.weight"), layers,
+                   get("model.norm.weight"), head)
+    r.close()
+    return params
+
+
+def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
+                      seed: int = 0) -> Llama:
+    """Deterministic random params at any scale, made on `device` from a
+    seeded torch.Generator. The quantized case generates the int8 payload
+    and scales directly (no full-precision intermediate), sized so the
+    dequantized weights have ~1/sqrt(fan_in) std like init_params."""
+    if qbits is None:
+        return init_params(cfg, seed=seed, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, hd = cfg.hidden_size, cfg.head_dim
+    nh, nkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+    def qrand(shape, fan_in):
+        q = torch.randint(-127, 128, shape, generator=gen, device=device,
+                          dtype=torch.int8)
+        s = torch.full((1, shape[-1]), (fan_in ** -0.5) * (1.73 / 127),
+                       dtype=torch.float32, device=device)
+        return QuantWeight(q, s)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        w = {"attn_norm": ones(h), "wq": qrand((h, nh * hd), h),
+             "wk": qrand((h, nkv * hd), h), "wv": qrand((h, nkv * hd), h),
+             "wo": qrand((nh * hd, h), nh * hd), "mlp_norm": ones(h),
+             "w_gate": qrand((h, inter), h), "w_up": qrand((h, inter), h),
+             "w_down": qrand((inter, h), inter)}
+        if cfg.qkv_bias:
+            for k, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+                w[k] = torch.zeros((n,), dtype=dtype, device=device)
+        layers.append(LlamaLayer(w))
+    embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device,
+                         dtype=torch.float32) * h ** -0.5).to(dtype)
+    head = None if cfg.tie_embeddings else qrand((h, cfg.vocab_size), h)
+    return Llama(cfg, embed, layers, ones(h), head)
+
+
+def _is_synthetic(model_dir: str) -> bool:
+    """True for benchmark checkpoints: config.json with
+    "localai_synthetic": true AND the LOCALAI_ALLOW_SYNTHETIC=1 opt-in, so a
+    stray config key never makes a server silently serve random weights."""
+    if os.environ.get("LOCALAI_ALLOW_SYNTHETIC") != "1":
+        return False
+    try:
+        with open(os.path.join(model_dir, "config.json")) as fh:
+            return bool(json.load(fh).get("localai_synthetic"))
+    except (OSError, ValueError):
+        return False
+
+
+def load_tokenizer(model_dir: str):
+    """Tokenizer for a model dir; None for synthetic benchmark checkpoints
+    (callers drive the engine with prompt_ids)."""
+    from localai_tpu_torch.engine.tokenizer import Tokenizer
+
+    try:
+        return Tokenizer.from_dir(model_dir)
+    except FileNotFoundError:
+        if not _is_synthetic(model_dir):
+            raise
+        return None
+
+
+def load_model(model_dir: str, *, dtype=None, device=None):
+    """config.json + safetensors + tokenizer in one call → (cfg, params, tok).
+    `device` defaults to the CUDA device; pass "cpu" to load on the host."""
+    cfg = load_config(model_dir, dtype=dtype)
+    params = load_params(model_dir, cfg, dtype=dtype, device=device)
+    return cfg, params, load_tokenizer(model_dir)

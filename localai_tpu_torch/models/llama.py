@@ -1,0 +1,442 @@
+"""Llama-family decoder (Llama 2/3, Mistral, Qwen2, TinyLlama) in PyTorch
+(counterpart of localai_tpu/models/llama.py).
+
+Weights keep the reference's [in, out] orientation (x @ W) and live per
+layer in an nn.Module; the KV cache keeps the head-major layout [L, B, KVH,
+T, D] (int8 caches: ops/kvcache.QuantKV with T padded to 128). Where the
+reference returns new cache arrays, the port writes into the caches it was
+given, in place, and returns only the logits.
+
+Attention on the main path goes through ops/kernels/flash_attention.py:
+the prefill and decode wrappers launch the CUDA kernels for CUDA tensors
+and run their plain versions for CPU tensors (the selection the
+reference's _attn_impls makes between Pallas and XLA). Chunked prefill
+(`extend`) attends with the plain ops/attention.mha_extend, as the
+reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.device import torch_dtype
+from localai_tpu_torch.ops.attention import mha_extend
+from localai_tpu_torch.ops.kernels import (
+    flash_prefill, ragged_decode, ragged_decode_q8,
+)
+from localai_tpu_torch.ops.kvcache import (
+    QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
+)
+from localai_tpu_torch.ops.norms import rms_norm
+from localai_tpu_torch.ops.quant import QuantWeight, is_quantized, qmatmul
+from localai_tpu_torch.ops.rope import RopeConfig, apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    max_position: int = 8192
+    rms_eps: float = 1e-5
+    rope_base: float = 10000.0
+    rope_scaling: str = "none"          # none|linear|yarn|llama3
+    rope_scale_factor: float = 1.0
+    rope_original_max_position: int = 8192
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_attn_factor: float | None = None
+    qkv_bias: bool = False              # Qwen2
+    tie_embeddings: bool = False
+    sliding_window: int | None = None   # Mistral
+    num_experts: int = 0                # Mixtral MoE (0 = dense MLP)
+    experts_per_tok: int = 2
+    dtype: str = "bfloat16"
+
+    @property
+    def rope(self) -> RopeConfig:
+        return RopeConfig(
+            head_dim=self.head_dim,
+            base=self.rope_base,
+            scaling=self.rope_scaling,
+            scale_factor=self.rope_scale_factor,
+            original_max_position=self.rope_original_max_position,
+            low_freq_factor=self.rope_low_freq_factor,
+            high_freq_factor=self.rope_high_freq_factor,
+            beta_fast=self.rope_beta_fast,
+            beta_slow=self.rope_beta_slow,
+            attn_factor=self.rope_attn_factor,
+        )
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+def _no_moe(cfg: LlamaConfig):
+    if cfg.num_experts:
+        raise not_ported("Mixtral MoE (num_experts > 0)", "Mixtral/int4")
+
+
+# ---------------------------------------------------------------- params
+
+class LlamaLayer(nn.Module):
+    """One decoder layer's weights: norms as [H] buffers, projections as
+    [in, out] buffers or QuantWeight submodules. `layer["wq"]` reads like
+    the reference's per-layer param dict."""
+
+    PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+    def __init__(self, weights: dict):
+        super().__init__()
+        for name, w in weights.items():
+            self.set_weight(name, w)
+
+    def set_weight(self, name: str, w) -> None:
+        self._buffers.pop(name, None)
+        self._modules.pop(name, None)
+        if isinstance(w, nn.Module):
+            self.add_module(name, w)
+        else:
+            self.register_buffer(name, w)
+
+    def weight_names(self):
+        return [n for n in self.PROJECTIONS
+                if n in self._buffers or n in self._modules]
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class Llama(nn.Module):
+    """The whole model's weights: embed [V, H], per-layer LlamaLayers,
+    final_norm [H] and lm_head [H, V] (None with tied embeddings)."""
+
+    def __init__(self, cfg: LlamaConfig, embed, layers, final_norm,
+                 lm_head=None):
+        super().__init__()
+        _no_moe(cfg)
+        self.cfg = cfg
+        self.register_buffer("embed", embed)
+        self.layers = nn.ModuleList(layers)
+        self.register_buffer("final_norm", final_norm)
+        self.set_head(lm_head)
+
+    def set_head(self, head) -> None:
+        self._buffers.pop("lm_head", None)
+        self._modules.pop("lm_head", None)
+        if isinstance(head, nn.Module):
+            self.add_module("lm_head", head)
+        else:
+            self.register_buffer("lm_head", head)
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None,
+                device=None) -> Llama:
+    """Random init (tests, synthetic checkpoints): N(0, 1/fan_in) weights
+    drawn from a torch.Generator seeded with `seed`, on `device`."""
+    _no_moe(cfg)
+    dtype = torch_dtype(dtype) if dtype is not None else cfg.tdtype
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    h, hd = cfg.hidden_size, cfg.head_dim
+    nh, nkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+    def norm(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * fan_in ** -0.5).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        w = {"attn_norm": ones(h), "wq": norm((h, nh * hd), h),
+             "wk": norm((h, nkv * hd), h), "wv": norm((h, nkv * hd), h),
+             "wo": norm((nh * hd, h), nh * hd), "mlp_norm": ones(h),
+             "w_gate": norm((h, inter), h), "w_up": norm((h, inter), h),
+             "w_down": norm((inter, h), inter)}
+        if cfg.qkv_bias:
+            w.update(bq=torch.zeros((nh * hd,), dtype=dtype, device=device),
+                     bk=torch.zeros((nkv * hd,), dtype=dtype, device=device),
+                     bv=torch.zeros((nkv * hd,), dtype=dtype, device=device))
+        layers.append(LlamaLayer(w))
+    embed = norm((cfg.vocab_size, h), h)
+    head = None if cfg.tie_embeddings else norm((h, cfg.vocab_size), h)
+    return Llama(cfg, embed, layers, ones(h), head)
+
+
+def _to_torch(x) -> torch.Tensor:
+    """numpy (incl. ml_dtypes bfloat16, read through its bit pattern) →
+    torch tensor on the CPU."""
+    a = np.array(x)       # a writable copy: torch tensors may be written
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree, cfg: LlamaConfig, device="cpu") -> Llama:
+    """The reference's parameter tree (numpy leaves, layers stacked on a
+    leading [L] axis, int8 projections as {"q", "s"} dicts) → Llama."""
+    _no_moe(cfg)
+    if any(k.startswith("moe_") for k in tree["layers"]):
+        raise not_ported("Mixtral experts", "Mixtral/int4")
+
+    def leaf(x, i=None):
+        if isinstance(x, dict):
+            return QuantWeight(leaf(x["q"], i), leaf(x["s"], i))
+        t = _to_torch(x if i is None else np.asarray(x)[i])
+        return t.to(device)
+
+    layers = [LlamaLayer({k: leaf(v, i) for k, v in tree["layers"].items()})
+              for i in range(cfg.num_layers)]
+    head = tree.get("lm_head")
+    return Llama(cfg, leaf(tree["embed"]), layers, leaf(tree["final_norm"]),
+                 None if head is None else leaf(head))
+
+
+# ---------------------------------------------------------------- KV cache
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
+                  cache_type: str = "", device=None):
+    """Head-major caches [L, B, KVH, T, D]. cache_type "int8"/"q8_0" stores
+    int8 + per-token scales with T padded to the 128-token scale tile."""
+    if is_quant_kind(cache_type):
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads,
+                 padded_len(max_len), cfg.head_dim)
+        return init_quant(shape, device=device), init_quant(shape,
+                                                            device=device)
+    dtype = torch_dtype(dtype) if dtype is not None else cfg.tdtype
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _cache_write(kc, vc, k, v, rows, positions):
+    """Write window K/V [B, S, KVH, D] into one layer's head-major caches
+    [B', KVH, T, D] at (rows[b], :, positions[b, s]) — in place. Rows may
+    repeat (batched admission pads groups by repeating a plan: identical
+    values)."""
+    kvh = kc.shape[1]
+    dev = k.device
+    idx = (rows.long().to(dev)[:, None, None],
+           torch.arange(kvh, device=dev)[None, :, None],
+           positions.long().to(dev)[:, None, :])
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if isinstance(kc, QuantKV):
+        cache_scatter(kc, idx, kt)
+        cache_scatter(vc, idx, vt)
+        return
+    kc[idx] = kt.to(kc.dtype)
+    vc[idx] = vt.to(vc.dtype)
+
+
+# ---------------------------------------------------------------- forward
+
+def _qkv(x, lp, cfg: LlamaConfig):
+    b, s, _ = x.shape
+    q = qmatmul(x, lp["wq"])
+    k = qmatmul(x, lp["wk"])
+    v = qmatmul(x, lp["wv"])
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _lm_head(x32, params: Llama):
+    """Vocabulary projection in f32 (tied embeddings or separate, possibly
+    int8, lm_head). The int8 head is a bf16×bf16 product with f32
+    accumulation: the activations round to bf16, int8 values are exact."""
+    head = params.lm_head
+    if head is None:
+        return x32 @ params.embed.float().T
+    if is_quantized(head):
+        y = x32.to(torch.bfloat16).float() @ head.q.float()
+        return y * head.s.float()
+    return x32 @ head.float()
+
+
+def _mlp(x, lp):
+    return qmatmul(F.silu(qmatmul(x, lp["w_gate"]))
+                   * qmatmul(x, lp["w_up"]), lp["w_down"])
+
+
+def _embed(params: Llama, tokens, dtype):
+    return params.embed[tokens.long()].to(dtype)
+
+
+def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
+            k_cache, v_cache, slot_map):
+    """Padded prompt batch → last-token logits [B, V] f32, writing K/V into
+    cache rows slot_map[b] (in place). tokens: [B, S]; lengths: [B]."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    x = _embed(params, tokens, cfg.tdtype)
+    for i, lp in enumerate(params.layers):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        attn = flash_prefill(q, k, v, lengths,
+                             sliding_window=cfg.sliding_window)
+        x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp)
+        _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    last_idx = torch.clamp_min(lengths.long().to(dev) - 1, 0)
+    last = x[torch.arange(b, device=dev), last_idx]
+    return _lm_head(last.float(), params)
+
+
+def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
+                k_cache, v_cache, active=None):
+    """One decode step over ALL slots. tokens: [B] last sampled token per
+    slot; lengths: [B] valid cache entries BEFORE this token (it is written
+    at index lengths). `active` [B] bool: inactive slots write to the last
+    cache row T-1, which is never readable (the engine stops at
+    max_context-2). Returns logits [B, V] f32."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    kv_quant = isinstance(k_cache, QuantKV)
+    T = k_cache.shape[3]
+    positions = lengths.long()[:, None]
+    wpos = positions if active is None else torch.where(
+        active[:, None], positions, torch.full_like(positions, T - 1))
+    rows = torch.arange(b, device=dev)
+    attn_len = lengths + 1
+    x = _embed(params, tokens, cfg.tdtype)[:, None, :]
+    for i, lp in enumerate(params.layers):
+        kc, vc = k_cache[i], v_cache[i]     # this layer's views
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        _cache_write(kc, vc, k, v, rows, wpos)
+        if kv_quant:
+            attn = ragged_decode_q8(q, kc.q, kc.s, vc.q, vc.s, attn_len,
+                                    sliding_window=cfg.sliding_window)
+        else:
+            attn = ragged_decode(q, kc, vc, attn_len,
+                                 sliding_window=cfg.sliding_window)
+        x = x + qmatmul(attn.reshape(b, 1, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    return _lm_head(x[:, 0].float(), params)
+
+
+def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
+           k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None):
+    """Forward a window of S tokens per row starting at cache offset
+    `start` [B] — the chunked-prefill workhorse. Writes the window's K/V
+    (in place) and returns logits for every window position [B, S, V], or
+    [B, V] at `last_pos` [B], or None with with_logits=False.
+
+    A final chunk's padded tail can run past the cache end: those rows are
+    garbage by contract (they sit above every real query and are masked),
+    so their table lookups and cache writes clamp to the last row, which
+    is never readable."""
+    b, s = tokens.shape
+    dev = tokens.device
+    rows = (torch.arange(b, device=dev) if slot_map is None
+            else slot_map.long().to(dev))
+    positions = start.long().to(dev)[:, None] + torch.arange(
+        s, device=dev)[None, :]
+    T = k_cache.shape[3]
+    rpos = torch.clamp_max(positions, cos.shape[0] - 1)
+    wpos = torch.clamp_max(positions, T - 1)
+    x = _embed(params, tokens, cfg.tdtype)
+    for i, lp in enumerate(params.layers):
+        kc, vc = k_cache[i], v_cache[i]
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rope(q, cos, sin, rpos)
+        k = apply_rope(k, cos, sin, rpos)
+        _cache_write(kc, vc, k, v, rows, wpos)
+        kr = kc if slot_map is None else kc[rows]
+        vr = vc if slot_map is None else vc[rows]
+        attn = mha_extend(q, dequant(kr), dequant(vr), positions,
+                          sliding_window=cfg.sliding_window)
+        x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp)
+    if not with_logits:
+        return None
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    if last_pos is not None:
+        x = x[torch.arange(b, device=dev), last_pos.long().to(dev)]
+    return _lm_head(x.float(), params)
+
+
+# the fused loop reads its device-side `done` flags (a host sync) once per
+# this many steps; frozen slots make the steps in between inert
+_DONE_CHECK_EVERY = 8
+
+
+def build_decode_loop(step_fn, *, max_steps: int, limit: int):
+    """The fused decode loop: up to `max_steps` sample→decode iterations per
+    dispatch with per-slot stop conditions kept on the device (EOS-set
+    membership for slots with `check_eos`, the per-slot token budget
+    `remaining`, the context margin `limit`).
+
+    PyTorch has no on-device while loop, so the loop runs in Python with
+    the stop state on the device. A finished slot is frozen — its key and
+    last_logits stop advancing, its length stops and its cache writes go
+    to the trash row through step_fn's active mask — so extra iterations
+    are inert, and the loop checks `done.all()` (one host sync) only every
+    _DONE_CHECK_EVERY steps. `steps` counts the iterations actually run.
+
+    step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths, active,
+    fast_width) → (tokens, logprobs, sampler, logits, lengths).
+    Returns (tokens [max_steps, B], logprobs [max_steps, B], n_out [B],
+    steps, sampler, last_logits, lengths); slot b's valid tokens are rows
+    0..n_out[b]-1."""
+
+    def decode_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                    active, remaining, check_eos, eos_ids, fast_width=None):
+        B = lengths.shape[0]
+        dev = lengths.device
+        done = ~active
+        n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
+        toks = torch.zeros((max_steps, B), dtype=torch.int32, device=dev)
+        lps = torch.zeros((max_steps, B), dtype=torch.float32, device=dev)
+        steps = 0
+        while steps < max_steps:
+            if steps % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+                break
+            live = ~done
+            prev_key = sampler.key
+            tokens, lp, sampler, logits, lengths = step_fn(
+                params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                live, fast_width)
+            sampler = dataclasses.replace(
+                sampler, key=torch.where(live[:, None], sampler.key,
+                                         prev_key))
+            last_logits = torch.where(live[:, None], logits, last_logits)
+            toks[steps] = tokens
+            lps[steps] = lp
+            n_out = n_out + live.to(torch.int32)
+            is_eos = check_eos & (tokens[:, None] == eos_ids[None, :]).any(1)
+            done = done | (live & (is_eos | (n_out >= remaining)
+                                   | (lengths >= limit)))
+            steps += 1
+        return toks, lps, n_out, steps, sampler, last_logits, lengths
+
+    return decode_loop

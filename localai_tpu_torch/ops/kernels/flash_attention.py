@@ -1,0 +1,253 @@
+"""Prefill and decode attention kernels of the main path, with their plain
+PyTorch versions (counterpart of localai_tpu/ops/pallas/flash_attention.py).
+
+Three wrappers, each beside its plain version with the same signature:
+- flash_prefill / flash_prefill_plain — causal GQA attention over a padded
+  prompt batch (csrc/flash_prefill.cu);
+- ragged_decode / ragged_decode_plain — one query token per slot against
+  the dense KV cache (csrc/decode_attention.cu);
+- ragged_decode_q8 / ragged_decode_q8_plain — the same over an int8 cache
+  with per-token scales (csrc/decode_attention.cu, q8 variant).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises — there is no fallback. Each launch adds one
+to the wrapper's count in LAUNCHES (and nothing else does), so a run can
+show that its main path went through the kernels. Paged mode (`table=`)
+waits for the paged slice.
+
+The plain versions follow the kernels' math: f32 scores from the
+pre-scaled query, masks, softmax in f32, the 1e-30 floor on the
+denominator, and — for int8 — the K scale on the score columns and the V
+scale on p before the value product.
+"""
+from __future__ import annotations
+
+import torch
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.ops.attention import NEG_INF
+from localai_tpu_torch.ops.kernels import _build
+
+LAUNCHES = {"flash_prefill": 0, "ragged_decode": 0, "ragged_decode_q8": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _no_table(table):
+    if table is not None:
+        raise not_ported("paged KV (table=)", "paged")
+
+
+def _window(sliding_window) -> int:
+    return int(sliding_window) if sliding_window else 0
+
+
+def _check_cuda(name, tensors, dtypes):
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if dt is not None and t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def _lengths_i32(lengths, device):
+    return lengths.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_rc(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed "
+                           f"(cudaError {rc})")
+
+
+# ----------------------------------------------------------------- prefill
+
+def flash_prefill_plain(q, k, v, lengths, sliding_window=None):
+    """Plain version of flash_prefill. q: [B, S, H, D]; k/v: [B, S, KVH, D];
+    lengths: [B]. Returns [B, S, H, D] in q's dtype."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    qg = (q.float() * (D ** -0.5)).reshape(B, S, KVH, H // KVH, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    ln = lengths.to(q.device)
+    mask = ((pos[None, None, :] <= pos[None, :, None])
+            & (pos[None, None, :] < ln[:, None, None]))        # [B,S,T]
+    if sliding_window:
+        mask = mask & (pos[None, None, :] > pos[None, :, None]
+                       - int(sliding_window))
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgst,btkd->bkgsd", p, v.float())
+    o = o / torch.clamp_min(l, 1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_prefill(q, k, v, lengths, sliding_window=None):
+    """Causal GQA flash attention. q: [B, S, H, D]; k/v: [B, S, KVH, D]
+    (bf16 or f32, same dtype); lengths: [B]. Returns [B, S, H, D]."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, lengths, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_prefill: unsupported dtype {q.dtype}")
+    if k.shape != (B, S, KVH, D) or v.shape != k.shape or H % KVH:
+        raise ValueError(f"flash_prefill: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if D % 16 or D > 128:
+        raise ValueError(f"flash_prefill: head_dim {D} must be a multiple "
+                         f"of 16 and at most 128")
+    _check_cuda("flash_prefill", (q, k, v), (None, q.dtype, q.dtype))
+    lens = _lengths_i32(lengths, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("flash_prefill")
+    rc = lib.flash_prefill_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), B, S, H, KVH, D,
+        _window(sliding_window), D ** -0.5, _stream(q.device))
+    _raise_rc("flash_prefill", rc)
+    LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+# ----------------------------------------------------------------- decode
+
+def ragged_decode_plain(q, k_cache, v_cache, lengths, sliding_window=None,
+                        table=None):
+    """Plain version of ragged_decode. q: [B, 1, H, D]; caches [B, KVH, T,
+    D]; lengths: [B] valid entries INCLUDING the new token."""
+    _no_table(table)
+    return _decode_plain(q, k_cache.float(), v_cache.float(), None, None,
+                         lengths, sliding_window)
+
+
+def ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
+                           sliding_window=None, table=None):
+    """Plain version of ragged_decode_q8. k_q/v_q: [B, KVH, T, D] int8;
+    k_s/v_s: [B, KVH, T//128, 128] f32 (token t's scale at [t//128,
+    t%128])."""
+    _no_table(table)
+    B, KVH, T, _ = k_q.shape
+    return _decode_plain(q, k_q.float(), v_q.float(),
+                         k_s.float().reshape(B, KVH, T),
+                         v_s.float().reshape(B, KVH, T), lengths,
+                         sliding_window)
+
+
+def _decode_plain(q, kf, vf, ks, vs, lengths, sliding_window):
+    B, _, H, D = q.shape
+    KVH, T = kf.shape[1], kf.shape[2]
+    qg = (q.float() * (D ** -0.5)).reshape(B, KVH, H // KVH, D)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, kf)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    pos = torch.arange(T, device=q.device)
+    ln = lengths.to(q.device)
+    mask = pos[None, :] < ln[:, None]
+    if sliding_window:
+        mask = mask & (pos[None, :] >= ln[:, None] - int(sliding_window))
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * vs[:, :, None, :] if vs is not None else p
+    o = torch.einsum("bkgt,bktd->bkgd", pv, vf) / torch.clamp_min(l, 1e-30)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_checks(name, q, kshape, T):
+    B, S1, H, D = q.shape
+    KVH = kshape[1]
+    if S1 != 1 or kshape[0] != B or kshape[3] != D or H % KVH:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"cache{tuple(kshape)}")
+    if D % 16 or (H // KVH) * D > 1024:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 16 "
+                         f"and group*head_dim at most 1024")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    return B, H, KVH, T, D
+
+
+def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
+                  table=None):
+    """Decode-step GQA attention over the dense cache. q: [B, 1, H, D];
+    caches [B, KVH, T, D] in q's dtype; lengths: [B] valid entries incl.
+    the newly written token. Returns [B, 1, H, D]."""
+    _no_table(table)
+    if q.device.type == "cpu":
+        return ragged_decode_plain(q, k_cache, v_cache, lengths,
+                                   sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_decode: unsupported device {q.device}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("ragged_decode: k/v cache shapes differ")
+    B, H, KVH, T, D = _decode_checks("ragged_decode", q, k_cache.shape,
+                                     k_cache.shape[2])
+    _check_cuda("ragged_decode", (q, k_cache, v_cache),
+                (None, q.dtype, q.dtype))
+    lens = _lengths_i32(lengths, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, KVH, T, D,
+        _window(sliding_window), D ** -0.5, _stream(q.device))
+    _raise_rc("ragged_decode", rc)
+    LAUNCHES["ragged_decode"] += 1
+    return out
+
+
+def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
+                     table=None):
+    """Decode-step GQA attention over an int8 cache (ops/kvcache.py layout).
+    k_q/v_q: [B, KVH, T, D] int8 with T % 128 == 0; k_s/v_s: [B, KVH,
+    T//128, 128] f32. Returns [B, 1, H, D] in q's dtype."""
+    _no_table(table)
+    if q.device.type == "cpu":
+        return ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
+                                      sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_decode_q8: unsupported device {q.device}")
+    T = k_q.shape[2]
+    if T % 128:
+        raise ValueError("int8 KV cache length must be a multiple of 128")
+    B, H, KVH, T, D = _decode_checks("ragged_decode_q8", q, k_q.shape, T)
+    if (v_q.shape != k_q.shape or k_s.shape != (B, KVH, T // 128, 128)
+            or v_s.shape != k_s.shape):
+        raise ValueError("ragged_decode_q8: bad cache/scale shapes")
+    _check_cuda("ragged_decode_q8", (q, k_q, k_s, v_q, v_s),
+                (None, torch.int8, torch.float32, torch.int8, torch.float32))
+    lens = _lengths_i32(lengths, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_q8_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
+        v_q.data_ptr(), v_s.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H,
+        KVH, T, D, _window(sliding_window), D ** -0.5, _stream(q.device))
+    _raise_rc("ragged_decode_q8", rc)
+    LAUNCHES["ragged_decode_q8"] += 1
+    return out

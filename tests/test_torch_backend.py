@@ -1,0 +1,161 @@
+"""PyTorch port backend process (localai_tpu_torch.backend) and the port's
+import hygiene.
+
+- `python -m localai_tpu_torch.backend --device cpu` in a subprocess,
+  driven over gRPC with the reference's client (same proto contract),
+  streams greedy text EQUAL to the JAX package's `llm` backend (f32, tiny
+  checkpoint).
+- In a subprocess, importing the port's backend and engine leaves no `jax`
+  or `localai_tpu` module in sys.modules.
+- An AST scan finds no `jax` / `localai_tpu` import anywhere in
+  localai_tpu_torch/, chip_smoke.py or chip_profile.py.
+  (`localai_tpu_torch` starts with "localai_tpu": the checks match the
+  name exactly or with a dot.)
+"""
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from fixtures import tiny_checkpoint
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    return tiny_checkpoint(tmp_path_factory)
+
+
+def _forbidden(mod: str) -> bool:
+    return any(mod == p or mod.startswith(p + ".")
+               for p in ("jax", "jaxlib", "localai_tpu"))
+
+
+LOAD = dict(dtype="float32", parallel=2, context_size=128,
+            prefill_buckets=[32])
+PROMPTS = [("hello world", 12), ("the quick brown fox jumps", 9)]
+
+
+def _stream(client, prompt, n):
+    chunks = list(client.predict_stream(prompt=prompt, tokens=n,
+                                        temperature=0.0, ignore_eos=True))
+    return ("".join(c.message.decode() for c in chunks),
+            [t for c in chunks for t in c.token_ids], chunks[-1])
+
+
+def test_backend_subprocess_streams_reference_text(ckpt, tmp_path):
+    from localai_tpu.backend.client import BackendClient
+    from localai_tpu.backend.server import serve
+
+    # the reference: the JAX llm backend, in process
+    server, servicer, port = serve("127.0.0.1:0", "llm")
+    ref = BackendClient(f"127.0.0.1:{port}")
+    try:
+        assert ref.wait_ready(attempts=20, sleep=0.1)
+        r = ref.load_model(model=ckpt, mesh_data=1, mesh_model=1, **LOAD)
+        assert r.success, r.message
+        want = [_stream(ref, p, n) for p, n in PROMPTS]
+    finally:
+        ref.close()
+        servicer.shutdown()
+        server.stop(grace=1)
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "localai_tpu_torch.backend", "--addr",
+         "127.0.0.1:0", "--device", "cpu"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(tmp_path))
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"serving on port (\d+)", line)
+        assert m, line
+        client = BackendClient(f"127.0.0.1:{m.group(1)}")
+        assert client.wait_ready(attempts=60, sleep=0.25)
+        r = client.load_model(model=ckpt, **LOAD)
+        assert r.success, r.message
+        assert client.status().state == 2                        # READY
+        got = [_stream(client, p, n) for p, n in PROMPTS]
+        for (text, ids, last), (rtext, rids, rlast), (_, n) in zip(
+                got, want, PROMPTS):
+            assert ids == rids
+            assert text == rtext
+            assert last.finish_reason == rlast.finish_reason == "length"
+            assert last.tokens == n
+        r = client.predict(prompt="hello world", tokens=12, temperature=0.0,
+                           ignore_eos=True)
+        assert r.message.decode() == want[0][0]
+        assert client.tokenize("hello world").length > 0
+        metrics = client.metrics()
+        assert metrics["tokens_generated"] >= sum(n for _, n in PROMPTS) + 12
+        client.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+
+
+def test_load_rejects_unported_options(ckpt):
+    from localai_tpu_torch.backend import pb
+    from localai_tpu_torch.backend.llm import LLMServicer
+
+    for kw in (dict(kv_pages=8), dict(draft_model="x"),
+               dict(embeddings=True), dict(mesh_model=2),
+               dict(options=json.dumps({"kv_policy": "sink_window"}))):
+        s = LLMServicer(device="cpu")
+        r = s.LoadModel(pb.ModelOptions(model=ckpt, dtype="float32", **kw),
+                        None)
+        assert not r.success and "slice" in r.message, (kw, r.message)
+        assert s.Status(pb.HealthMessage(), None).state == 3      # ERROR
+
+
+def test_import_leaves_no_jax_in_sys_modules():
+    code = (
+        "import sys, json\n"
+        "import localai_tpu_torch.backend.server\n"
+        "import localai_tpu_torch.backend.llm\n"
+        "import localai_tpu_torch.backend.__main__\n"
+        "import localai_tpu_torch.engine\n"
+        "import localai_tpu_torch.models.llama\n"
+        "import localai_tpu_torch.ops.kernels\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "localai_tpu_torch.backend.backend_pb2" in mods
+    bad = [m for m in mods if _forbidden(m)]
+    assert bad == []
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.lineno, node.module
+
+
+def test_ast_no_jax_or_reference_imports():
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
+                                             "chip_profile.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "localai_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    bad = [(os.path.relpath(f, ROOT), line, mod) for f in files
+           for line, mod in _imports(f) if _forbidden(mod)]
+    assert bad == []
+    # the prefix trap: the port's own name is not a reference import
+    assert not _forbidden("localai_tpu_torch.engine")
+    assert _forbidden("localai_tpu.engine") and _forbidden("jax")

@@ -1,0 +1,231 @@
+"""The PyTorch port's attention kernels (localai_tpu_torch.ops.kernels).
+
+On the CPU: each kernel's plain PyTorch version against the Pallas kernel
+it replaces, run as tests/test_pallas_attention.py runs it (interpret
+mode), on the same numpy inputs; and the wrappers' CPU dispatch. On an
+NVIDIA card (marker `cuda`, skipped without one): each CUDA kernel against
+its plain version.
+
+Tolerances: 2e-5 in f32 (same math, sums in another order). With bf16
+inputs/outputs, plain vs Pallas: 2e-2, the bf16 bar of
+test_pallas_attention.py; CUDA kernel vs plain: atol 1e-3 + rtol 2**-7
+(one bf16 ulp, relative) — both compute in f32 and round once, so they
+differ by at most one rounding step of the output (chip_smoke.py holds
+the same bar). Only query rows below each row's length are compared for
+prefill: padding rows are don't-care by the kernels' contract.
+
+JAX is imported inside the CPU tests only, so the card's machine (which
+has no JAX) runs the CUDA-gated tests with
+`python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`.
+"""
+import numpy as np
+import pytest
+import torch
+
+from localai_tpu_torch.ops import kernels as tk
+from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+BF16_CARD = dict(rtol=2 ** -7, atol=1e-3)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _pallas():
+    """The reference kernels (interpret mode on the CPU) and jax.numpy."""
+    import jax.numpy as jnp
+
+    from localai_tpu.ops.pallas import flash_attention as pfa
+
+    return pfa, jnp
+
+
+def _prefill_inputs(seed, B, S, H, KVH, D):
+    r = _rng(seed)
+    return [r.standard_normal(s).astype(np.float32)
+            for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))]
+
+
+def _valid(x, lens):
+    return np.concatenate([x[b, :n] for b, n in enumerate(lens) if n > 0])
+
+
+@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (8, 1)])
+def test_flash_prefill_plain_vs_pallas_gqa(H, KVH):
+    pfa, jnp = _pallas()
+    q, k, v = _prefill_inputs(0, 3, 32, H, KVH, 16)
+    lens = [32, 19, 1]
+    ref = pfa.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lens, jnp.int32), block_q=16,
+                            block_k=16)
+    out = tk.flash_prefill_plain(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), torch.tensor(lens))
+    np.testing.assert_allclose(_valid(out.numpy(), lens),
+                               _valid(np.asarray(ref), lens), **F32)
+
+
+def test_flash_prefill_plain_vs_pallas_window():
+    pfa, jnp = _pallas()
+    q, k, v = _prefill_inputs(1, 2, 48, 4, 2, 16)
+    lens = [48, 30]
+    ref = pfa.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lens, jnp.int32), sliding_window=7,
+                            block_q=16, block_k=16)
+    out = tk.flash_prefill_plain(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), torch.tensor(lens),
+                                 sliding_window=7)
+    np.testing.assert_allclose(_valid(out.numpy(), lens),
+                               _valid(np.asarray(ref), lens), **F32)
+
+
+def test_flash_prefill_plain_vs_pallas_bf16():
+    pfa, jnp = _pallas()
+    q, k, v = _prefill_inputs(2, 1, 32, 2, 2, 16)
+    lens = [32]
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    ref = pfa.flash_prefill(*jb, jnp.asarray(lens, jnp.int32), block_q=16,
+                            block_k=16)
+    tb = [torch.tensor(x).bfloat16() for x in (q, k, v)]
+    out = tk.flash_prefill_plain(*tb, torch.tensor(lens))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), **BF16)
+
+
+def _decode_inputs(seed, B, H, KVH, T, D):
+    r = _rng(seed)
+    q = r.standard_normal((B, 1, H, D)).astype(np.float32)
+    kc = r.standard_normal((B, KVH, T, D)).astype(np.float32)
+    vc = r.standard_normal((B, KVH, T, D)).astype(np.float32)
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_ragged_decode_plain_vs_pallas(window):
+    pfa, jnp = _pallas()
+    q, kc, vc = _decode_inputs(3, 3, 8, 2, 64, 16)
+    lens = [1, 37, 64]
+    ref = pfa.ragged_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                            jnp.asarray(lens, jnp.int32),
+                            sliding_window=window, block_k=16)
+    out = tk.ragged_decode_plain(torch.tensor(q), torch.tensor(kc),
+                                 torch.tensor(vc), torch.tensor(lens),
+                                 sliding_window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+def _q8(kc):
+    B, KVH, T, _ = kc.shape
+    q, s = quantize_tokens(torch.tensor(kc))
+    return q, s.reshape(B, KVH, T // 128, 128)
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_ragged_decode_q8_plain_vs_pallas(window):
+    pfa, jnp = _pallas()
+    q, kc, vc = _decode_inputs(4, 3, 8, 2, 256, 16)
+    lens = [1, 130, 256]
+    kq, ks = _q8(kc)
+    vq, vs = _q8(vc)
+    ref = pfa.ragged_decode_q8(
+        jnp.asarray(q), jnp.asarray(kq.numpy()), jnp.asarray(ks.numpy()),
+        jnp.asarray(vq.numpy()), jnp.asarray(vs.numpy()),
+        jnp.asarray(lens, jnp.int32), sliding_window=window)
+    out = tk.ragged_decode_q8_plain(torch.tensor(q), kq, ks, vq, vs,
+                                    torch.tensor(lens),
+                                    sliding_window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    tk.reset_launch_counts()
+    q, k, v = _prefill_inputs(5, 1, 8, 2, 1, 16)
+    lens = torch.tensor([8])
+    a = tk.flash_prefill(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                         lens)
+    b = tk.flash_prefill_plain(torch.tensor(q), torch.tensor(k),
+                               torch.tensor(v), lens)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    qd, kc, vc = _decode_inputs(6, 1, 2, 1, 128, 16)
+    a = tk.ragged_decode(torch.tensor(qd), torch.tensor(kc),
+                         torch.tensor(vc), torch.tensor([5]))
+    torch.testing.assert_close(a, tk.ragged_decode_plain(
+        torch.tensor(qd), torch.tensor(kc), torch.tensor(vc),
+        torch.tensor([5])), rtol=0, atol=0)
+    kq, ks = _q8(kc)
+    tk.ragged_decode_q8(torch.tensor(qd), kq, ks, kq, ks, torch.tensor([5]))
+    assert tk.launch_counts() == {"flash_prefill": 0, "ragged_decode": 0,
+                                  "ragged_decode_q8": 0}
+
+
+def test_paged_table_waits_for_paged_slice():
+    qd, kc, vc = _decode_inputs(7, 1, 2, 1, 128, 16)
+    with pytest.raises(NotImplementedError, match="paged"):
+        tk.ragged_decode(torch.tensor(qd), torch.tensor(kc), torch.tensor(vc),
+                         torch.tensor([3]), table=torch.zeros(1, 1))
+    kq, ks = _q8(kc)
+    with pytest.raises(NotImplementedError, match="paged"):
+        tk.ragged_decode_q8(torch.tensor(qd), kq, ks, kq, ks,
+                            torch.tensor([3]), table=torch.zeros(1, 1))
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _dev(xs, device, dtype):
+    return [torch.tensor(x, device=device).to(dtype) for x in xs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KVH,window", [(4, 4, None), (8, 2, None),
+                                          (8, 1, 9)])
+def test_cuda_flash_prefill_vs_plain(cuda, dtype, H, KVH, window):
+    td = getattr(torch, dtype)
+    q, k, v = _dev(_prefill_inputs(8, 3, 80, H, KVH, 64), cuda, td)
+    lens = [80, 33, 1]
+    before = tk.launch_counts()["flash_prefill"]
+    out = tk.flash_prefill(q, k, v, torch.tensor(lens, device=cuda),
+                           sliding_window=window)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_prefill"] == before + 1
+    ref = tk.flash_prefill_plain(q, k, v, torch.tensor(lens, device=cuda),
+                                 sliding_window=window)
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(_valid(out.float().cpu().numpy(), lens),
+                               _valid(ref.float().cpu().numpy(), lens),
+                               **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8", [False, True])
+def test_cuda_decode_vs_plain(cuda, dtype, q8):
+    td = getattr(torch, dtype)
+    q, kc, vc = _decode_inputs(9, 3, 8, 2, 256, 64)
+    lens = torch.tensor([1, 130, 256], device=cuda)
+    qd = torch.tensor(q, device=cuda).to(td)
+    if q8:
+        kq, ks = _q8(kc)
+        vq, vs = _q8(vc)
+        args = [t.to(cuda) for t in (kq, ks, vq, vs)]
+        out = tk.ragged_decode_q8(qd, *args, lens)
+        ref = tk.ragged_decode_q8_plain(qd, *args, lens)
+    else:
+        k, v = _dev((kc, vc), cuda, td)
+        out = tk.ragged_decode(qd, k, v, lens, sliding_window=100)
+        ref = tk.ragged_decode_plain(qd, k, v, lens, sliding_window=100)
+    torch.cuda.synchronize()
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
