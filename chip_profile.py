@@ -3,12 +3,14 @@
     python3 chip_profile.py
 
 Serves chip_smoke.py's synthetic Llama-3.1-8B in bf16 through the port's
-gRPC backend and drives chip_smoke's four requests (its phase 4, with
-its checks); then drives the same four again with fresh prompt ids (no
-prompt-cache reuse), first unprofiled, then under torch.profiler with
-CUDA activity. Prints one JSON line: the unprofiled and profiled wall
-times, device busy time by kernel class, the top kernels and the
-device's idle share of the profiled window. Kernels run on one stream,
+gRPC backend, first dense (chip_smoke phase 4's configuration and four
+requests), then paged (phase 5's configuration and its first wave of six
+requests), each with chip_smoke's checks; then drives the same requests
+again with fresh prompt ids (no prompt-cache reuse), first unprofiled,
+then under torch.profiler with CUDA activity. Prints one JSON line per
+path: the unprofiled and profiled wall times, device busy time by kernel
+class, the top kernels and the device's idle share of the profiled
+window. Kernels run on one stream,
 so their summed device time is the busy time. A one-off study, apart
 from the pass/fail smoke; it imports nothing of JAX or localai_tpu.
 """
@@ -50,25 +52,36 @@ def _summary(p, wall_s, steps):
     }
 
 
-def profile_window(client):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profile_window(label, requests=None):
+    """A serve_recipe hook: drive `requests` (default chip_smoke's four)
+    with fresh prompt ids unprofiled, then again profiled, and print the
+    profiled window's summary."""
 
-    _, plain_wall = smoke.drive_requests(client, salt=101)
-    m0 = client.metrics()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        smoke.drive_requests(client, salt=202)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    m1 = client.metrics()
-    out = _summary(p, wall, m1["decode_steps_dispatched"]
-                   - m0["decode_steps_dispatched"])
-    out["unprofiled_wall_ms"] = plain_wall * 1e3
-    smoke.log("profile bf16 " + json.dumps(out))
+    def hook(client, servicer, readings):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        _, plain_wall = smoke.drive_requests(client, salt=101,
+                                             requests=requests)
+        m0 = client.metrics()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            smoke.drive_requests(client, salt=202, requests=requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        m1 = client.metrics()
+        out = _summary(p, wall, m1["decode_steps_dispatched"]
+                       - m0["decode_steps_dispatched"])
+        out["unprofiled_wall_ms"] = plain_wall * 1e3
+        smoke.log(f"profile {label} " + json.dumps(out))
+
+    return hook
 
 
 def main():
+    """The dense bf16 path (chip_smoke phase 4's configuration and four
+    requests), then the paged bf16 path (phase 5's configuration and its
+    first wave of six requests)."""
     smoke.phase_device()
     smoke.phase_build()
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
@@ -76,7 +89,12 @@ def main():
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(dict(smoke.CFG_8B, localai_synthetic=True), f)
         smoke.serve_recipe("bf16", d, dict(dtype="bfloat16"),
-                           then=profile_window)
+                           then=profile_window("bf16 dense"))
+        smoke.serve_recipe("bf16", d, dict(dtype="bfloat16"),
+                           phase="phase5", load_opts=smoke.PAGED_LOAD,
+                           waves=[smoke.PAGED_WAVE1],
+                           then=profile_window("bf16 paged",
+                                               smoke.PAGED_WAVE1))
 
 
 if __name__ == "__main__":

@@ -11,25 +11,36 @@ and the script exits non-zero:
      parallel) and prints the build seconds.
   2. kernels vs plain at the main path's shapes (Llama-3.1-8B geometry:
      H=32, KVH=8, D=128): max abs error against each kernel's plain
-     PyTorch version with its tolerance, and the error of a planted fault
-     that the tolerance must reject; kernel/plain/library times (CUDA
-     events, median of 25 after warmup) and the least time the card could
-     take (bound_ms).
+     PyTorch version with its tolerance (the paged scatters: bit-exact over
+     the whole pool), and the error of a planted fault that the check must
+     reject; kernel/plain/library times (CUDA events, median of 25 after
+     warmup) and the least time the card could take (bound_ms).
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
-     (kernels) gives the same tokens and first-step logits within
-     tolerance.
+     (kernels), dense and paged, gives the same tokens and first-step
+     logits within tolerance; on the card paged tokens equal dense ones.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
      the kernels' launch counters are zeroed just before and read just
      after.
+  5. the paged path: the same checkpoint served with kv_pages=129,
+     parallel=8 and context_size=4096 (the pool holds half of what eight
+     dense slots would), both recipes; six concurrent requests, then two
+     that share the 640-token prompt of the first wave (retained-slot reuse
+     and blocks borrowed through the prefix index), then eight 2000-token
+     prompts that need more blocks than the pool holds (reclaim of retained
+     blocks, deferred admission); checks prefix reuse, the pressure, the
+     pool's peak, that only the recipe's paged kernels launched, and three
+     greedy requests' served tokens against a teacher-forced plain forward
+     of the same model.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -313,6 +324,200 @@ def check_decode(B, H, KVH, T, D, dtype, lengths, q8=False, window=None,
     return res
 
 
+def _paged_pools(B, KVH, D, lengths, maxb, seed=0, nb=0):
+    """K/V block pools [NB, KVH, 128, D] (f32, random) and a shuffled,
+    non-contiguous table [B, maxb]: slot b's ceil(len/128) blocks are drawn
+    from a random permutation of blocks 1..NB-1, its entries past the
+    allocation are 0 (the trash block). NB is at least `nb` and leaves room
+    for the identity map of the planted fault (blocks 1..maxb)."""
+    import torch
+
+    alloc = [-(-n // 128) for n in lengths]
+    nb = max(sum(alloc) + 1, maxb + 1, nb)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    v = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = torch.zeros(B, maxb, dtype=torch.int32)
+    used = 0
+    for b, a in enumerate(alloc):
+        table[b, :a] = perm[used:used + a]
+        used += a
+    return k, v, table.cuda(), nb
+
+
+def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
+                       window=None, timed=True, nb=0):
+    """Paged decode (kernels 3 and 5) against its plain version (paged_view
+    then the dense plain version), over a pool of at least `nb` blocks.
+    With timed=True also plants a fault — the plain version reads the
+    identity map (blocks 1..maxb for every slot) instead of the table — and
+    checks that the tolerance rejects it."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        ragged_decode, ragged_decode_plain, ragged_decode_q8,
+        ragged_decode_q8_plain,
+    )
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    k, v, table, nb = _paged_pools(B, KVH, D, lengths, maxb, nb=nb)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, 1, H, D, device="cuda", generator=g).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = (kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128))
+        kernel, plain_fn = ragged_decode_q8, ragged_decode_q8_plain
+    else:
+        pools = (k.to(dtype), v.to(dtype))
+        kernel, plain_fn = ragged_decode, ragged_decode_plain
+    fn = lambda: kernel(q, *pools, lens, sliding_window=window,  # noqa: E731
+                        table=table)
+    plain = lambda: plain_fn(q, *pools, lens,  # noqa: E731
+                             sliding_window=window, table=table)
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    fault = None
+    if timed:
+        ident = (torch.arange(maxb, dtype=torch.int32, device="cuda")
+                 + 1).expand(B, maxb).contiguous()
+        fault = plain_fn(q, *pools, lens, sliding_window=window, table=ident)
+    kname = "ragged_decode_q8 paged" if q8 else "ragged_decode paged"
+    name = f"{kname} {str(dtype).split('.')[-1]} B={B} MAXB={maxb} " \
+           f"NB={nb} H={H} KVH={KVH} D={D} " \
+           f"lengths={lengths[:8]}{'...' if B > 8 else ''} window={window}"
+    res = _check_close(name, out, ref, TOL[str(dtype).split(".")[-1]],
+                       fault=fault)
+    if timed:
+        es = q.element_size()
+        read = sum(min(n, maxb * 128) if not window
+                   else min(n, maxb * 128, window) for n in lengths)
+        kv_es = 1 if q8 else es
+        entries = sum(-(-n // 128) for n in lengths)
+        # K/V (and int8 scales) of the tokens read, the table entries read,
+        # q and out, lengths
+        nbytes = (read * KVH * D * 2 * kv_es + (read * KVH * 2 * 4 if q8
+                                                else 0)
+                  + 4 * entries + 2 * B * H * D * es + 4 * B)
+        flops = 4.0 * read * H * D
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        res.update(ms=_time_ms(fn), plain_ms=_time_ms(plain),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_formula=(f"max({nbytes:.4g} B of K/V + table read "
+                                  f"+ q/out / 3.35 TB/s, {flops:.4g} flop / "
+                                  f"{peak / 1e12:.0f} TFLOP/s)"),
+                   library_ms=None,
+                   library_note="no single PyTorch call attends through a "
+                                "block table")
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
+    """Scatter-append (kernels 6 and 7) against its plain version: the
+    pools after the kernel must equal the pools after the plain version BIT
+    FOR BIT, trash block included, and every byte outside the targets must
+    equal a clone taken before. Inactive slots (every third) go to the
+    trash block. The planted fault (the plain version writing row off+1)
+    must differ."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        paged_scatter_append, paged_scatter_append_plain,
+        paged_scatter_append_q8, paged_scatter_append_q8_plain,
+        paged_targets,
+    )
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    lengths = [(97 * b + 1) % (maxb * 128 - 1) for b in range(B)]
+    k, v, table, nb = _paged_pools(B, KVH, D, [n + 1 for n in lengths],
+                                   maxb, seed=2, nb=nb)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k_new = torch.randn(B, KVH, D, device="cuda", generator=g).to(dtype)
+    v_new = torch.randn(B, KVH, D, device="cuda", generator=g).to(dtype)
+    pos = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    active = torch.tensor([b % 3 != 2 for b in range(B)], device="cuda")
+    targets = paged_targets(pos, table, active)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128)]
+        kernel, plain_fn = paged_scatter_append_q8, \
+            paged_scatter_append_q8_plain
+    else:
+        pools = [k.to(dtype), v.to(dtype)]
+        kernel, plain_fn = paged_scatter_append, paged_scatter_append_plain
+    before = [t.clone() for t in pools]
+    ref = [t.clone() for t in pools]
+    kernel(*pools, k_new, v_new, pos, table, active, targets=targets)
+    torch.cuda.synchronize()
+    plain_fn(*ref, k_new, v_new, pos, table, active, targets=targets)
+    pb, off = (t.long() for t in targets)
+    # rows of a pool: [NB, KVH, 128, D] as is, a scale pool [NB, KVH, 1,
+    # 128] as [NB, KVH, 128]; `keep` marks every row but the targets
+    keep = torch.ones(nb, KVH, 128, dtype=torch.bool, device="cuda")
+    keep[pb, :, off] = False
+
+    def rows(t):
+        return t[:, :, 0] if t.shape[2] == 1 else t
+
+    for i, (got, want, old) in enumerate(zip(pools, ref, before)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"paged scatter pool {i}: kernel and plain "
+                                 f"version differ")
+        if not torch.equal(rows(got)[keep], rows(old)[keep]):
+            raise AssertionError(f"paged scatter pool {i}: a byte outside "
+                                 f"the targets changed")
+    fault = [t.clone() for t in before]
+    plain_fn(*fault, k_new, v_new, pos, table, active,
+             targets=(targets[0], (targets[1] + 1) % 128))
+    if all(torch.equal(a, b) for a, b in zip(fault, pools)):
+        raise AssertionError("paged scatter: the check does not reject the "
+                             "planted fault")
+    kname = "paged_scatter_append_q8" if q8 else "paged_scatter_append"
+    name = f"{kname} {str(dtype).split('.')[-1]} B={B} NB={nb} KVH={KVH} " \
+           f"D={D}"
+    res = {"max_abs_err": 0.0, "tol": "bit-exact",
+           "planted_fault_differs": True}
+    es = k_new.element_size()
+    # in: the new K/V rows and the targets (one table entry and one offset
+    # per slot); out: the rows written (int8: plus one f32 scale per row)
+    out_es = 1 if q8 else es
+    nbytes = (2 * B * KVH * D * es + 8 * B + 2 * B * KVH * D * out_es
+              + (2 * B * KVH * 4 if q8 else 0))
+    res.update(
+        ms=_time_ms(lambda: kernel(*pools, k_new, v_new, pos, table, active,
+                                   targets=targets)),
+        plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pos, table,
+                                           active, targets=targets)),
+        bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        bound_formula=f"{nbytes} B / 3.35 TB/s")
+    if q8:
+        # the function quantizes each row and writes int8 rows plus their
+        # scales: no single PyTorch call does that (the plain version is
+        # the PyTorch composition of it)
+        res.update(library_ms=None,
+                   library_note="no single PyTorch call quantizes rows and "
+                                "scatters them with their scales")
+    else:
+        def library():
+            pools[0][pb, :, off] = k_new
+            pools[1][pb, :, off] = v_new
+        res.update(library_ms=_time_ms(library),
+                   library_note="pool[pb, :, off] = row (index_put_) for the "
+                                "K and the V pool")
+    log(name + " " + json.dumps(res))
+    return res
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes
     (plus small f32 / GQA / window cases for the algorithm)."""
@@ -341,6 +546,32 @@ def phase_kernels():
     check_decode(16, H, KVH, 2048, D, bf16, lens16, q8=True)
     check_decode(3, 8, 1, 256, 64, f32, [5, 200, 256], q8=True,
                  timed=False)
+    # paged (kernels 3, 5, 6, 7) over a shuffled pool. Main: phase 5's
+    # shapes — 8 slots, a 4096-token table (MAXB 32) over the 129-block
+    # pool, lengths of its requests mid-decode (prompts 1, 17, 300, 700,
+    # 1500, 640 and 680 plus 32 generated) and one slot at the context end;
+    # extra: B=4 and B=16 at MAXB 16 (PR 1's dense shapes)
+    lens8 = [33, 49, 332, 732, 1532, 672, 712, 4095]
+    main["ragged_decode_paged"] = check_paged_decode(8, H, KVH, D, bf16,
+                                                     lens8, 32, nb=129)
+    check_paged_decode(4, H, KVH, D, bf16, lens4, 16)
+    check_paged_decode(16, H, KVH, D, bf16, lens16, 16)
+    check_paged_decode(3, 8, 2, 64, f32, [5, 200, 256], 2, timed=False)
+    check_paged_decode(2, H, KVH, D, bf16, [1500, 40], 16, window=256,
+                       timed=False)
+    main["ragged_decode_q8_paged"] = check_paged_decode(
+        8, H, KVH, D, bf16, lens8, 32, q8=True, nb=129)
+    check_paged_decode(4, H, KVH, D, bf16, lens4, 16, q8=True)
+    check_paged_decode(16, H, KVH, D, bf16, lens16, 16, q8=True)
+    check_paged_decode(3, 8, 1, 64, f32, [5, 200, 256], 2, q8=True,
+                       timed=False)
+    main["paged_scatter_append"] = check_paged_scatter(8, KVH, D, bf16)
+    check_paged_scatter(16, KVH, D, bf16)
+    check_paged_scatter(5, 2, 64, f32, nb=12, maxb=4)
+    main["paged_scatter_append_q8"] = check_paged_scatter(8, KVH, D, bf16,
+                                                          q8=True)
+    check_paged_scatter(16, KVH, D, bf16, q8=True)
+    check_paged_scatter(5, 2, 64, f32, q8=True, nb=12, maxb=4)
     log("phase2 kernels: all within tolerance")
     return main
 
@@ -349,9 +580,11 @@ def phase_kernels():
 
 def phase_card_vs_cpu():
     """f32, 8B widths, depth 2: the same greedy request through the port on
-    the CPU (plain versions) and on the card (kernels). Tokens must be
+    the CPU (plain versions) and on the card (kernels), with the dense
+    cache and with the paged pool (a shuffled block table). Tokens must be
     equal; first-step logits within 2e-3 (f32 GEMMs over K up to 14336
-    summed in another order on the two devices)."""
+    summed in another order on the two devices). On the card the paged
+    engine must give the dense engine's tokens."""
     import torch
 
     from localai_tpu_torch.engine.engine import (
@@ -361,6 +594,7 @@ def phase_card_vs_cpu():
     from localai_tpu_torch.models.llama import (
         init_kv_cache, init_params, prefill,
     )
+    from localai_tpu_torch.ops.paged import init_paged
     from localai_tpu_torch.ops.rope import rope_table
     from localai_tpu_torch.ops.sampling import SamplingParams
 
@@ -377,39 +611,57 @@ def phase_card_vs_cpu():
     prompt = [(i * 7919) % cfg.vocab_size for i in range(1, 24)]
     ec = EngineConfig(max_slots=1, max_context=128, prefill_buckets=(32,),
                       prefill_chunk=32)
+    # paged: 256-token context (MAXB 2) over a 5-block pool; the prefill
+    # check writes through a shuffled table
+    ec_paged = dataclasses.replace(ec, max_context=256, kv_pages=5)
+    table = [[3, 1]]
 
     def run(device):
         m = model.to(device)
         ids = torch.zeros((1, 32), dtype=torch.int32, device=device)
         ids[0, :len(prompt)] = torch.tensor(prompt)
-        cos, sin = rope_table(cfg.rope, 128, device=device)
+        lens = torch.tensor([len(prompt)], device=device)
+        slot = torch.zeros((1,), dtype=torch.int64, device=device)
+        cos, sin = rope_table(cfg.rope, 256, device=device)
         kc, vc = init_kv_cache(cfg, 1, 128, device=device)
+        pk, pv = init_paged(cfg.num_layers, 5, cfg.num_kv_heads,
+                            cfg.head_dim, torch.float32, device=device)
         with torch.no_grad():
-            logits = prefill(m, cfg, ids, torch.tensor([len(prompt)],
-                                                       device=device),
-                             cos, sin, kc, vc,
-                             torch.zeros((1,), dtype=torch.int64,
-                                         device=device))
-        eng = Engine(cfg, m, None, ec, device=device)
-        toks = [o.token_id for o in eng.generate(GenRequest(
-            prompt, SamplingParams(temperature=0.0), max_tokens=16,
-            ignore_eos=True))]
-        return logits.float().cpu(), toks
+            logits = prefill(m, cfg, ids, lens, cos, sin, kc, vc, slot)
+            plogits = prefill(m, cfg, ids, lens, cos, sin, pk, pv, slot,
+                              table=torch.tensor(table, dtype=torch.int32,
+                                                 device=device))
+        out = {"logits": logits.float().cpu(),
+               "paged_logits": plogits.float().cpu()}
+        for key, conf in (("tokens", ec), ("paged_tokens", ec_paged)):
+            eng = Engine(cfg, m, None, conf, device=device)
+            out[key] = [o.token_id for o in eng.generate(GenRequest(
+                prompt, SamplingParams(temperature=0.0), max_tokens=16,
+                ignore_eos=True))]
+        return out
 
     t0 = time.perf_counter()
-    cpu_logits, cpu_toks = run("cpu")
+    cpu = run("cpu")
     t1 = time.perf_counter()
-    gpu_logits, gpu_toks = run("cuda")
+    gpu = run("cuda")
     t2 = time.perf_counter()
-    err = float((cpu_logits - gpu_logits).abs().max())
-    log(f"phase3 cpu tokens  {cpu_toks} ({t1 - t0:.1f} s)")
-    log(f"phase3 card tokens {gpu_toks} ({t2 - t1:.1f} s)")
-    log(f"phase3 first-step logits max_abs_err {err:.3g} (tol 2e-3), "
-        f"|logits| max {float(cpu_logits.abs().max()):.3g}")
-    if cpu_toks != gpu_toks or len(gpu_toks) != 16:
-        raise AssertionError("card and CPU greedy tokens differ")
-    if not err <= 2e-3:
-        raise AssertionError(f"first-step logits differ by {err}")
+    for key in ("", "paged_"):
+        err = float((cpu[key + "logits"] - gpu[key + "logits"]).abs().max())
+        kind = key.rstrip("_") or "dense"
+        log(f"phase3 {kind} cpu tokens  {cpu[key + 'tokens']} "
+            f"({t1 - t0:.1f} s both)")
+        log(f"phase3 {kind} card tokens {gpu[key + 'tokens']} "
+            f"({t2 - t1:.1f} s both)")
+        log(f"phase3 {kind} first-step logits max_abs_err {err:.3g} "
+            f"(tol 2e-3), |logits| max "
+            f"{float(cpu[key + 'logits'].abs().max()):.3g}")
+        if (cpu[key + "tokens"] != gpu[key + "tokens"]
+                or len(gpu[key + "tokens"]) != 16):
+            raise AssertionError(f"{kind}: card and CPU greedy tokens differ")
+        if not err <= 2e-3:
+            raise AssertionError(f"{kind}: first-step logits differ by {err}")
+    if gpu["paged_tokens"] != gpu["tokens"]:
+        raise AssertionError("card: paged and dense engines' tokens differ")
     model.to("cpu")
     del model
     torch.cuda.empty_cache()
@@ -463,17 +715,24 @@ REQUESTS = [  # (prompt length, sampling) — 700 prefills in 512-token chunks
 NEW_TOKENS = 64
 
 
-def drive_requests(client, salt=0):
-    """The four REQUESTS at once over `client`. Returns ([(ttft_s, token
-    ids, logprobs, last reply)], wall seconds). The prompt ids depend on
-    `salt`, so a new salt misses the prompt cache."""
+def prompt_ids(i, n, salt=0):
+    """Request i's n prompt ids; a new salt misses the prompt cache."""
+    vocab = CFG_8B["vocab_size"]
+    return [(7 * i + 13 * j + salt) % (vocab - 1) + 1 for j in range(n)]
+
+
+def drive_requests(client, salt=0, requests=None):
+    """`requests` ([(prompt length or ids, sampling)], default REQUESTS) at
+    once over `client`. Returns ([(ttft_s, token ids, logprobs, last
+    reply, prompt ids)], wall seconds). The prompt ids depend on `salt`, so
+    a new salt misses the prompt cache."""
     import threading
 
-    vocab = CFG_8B["vocab_size"]
-    results = [None] * len(REQUESTS)
+    requests = REQUESTS if requests is None else requests
+    results = [None] * len(requests)
 
     def one(i, n, sp):
-        ids = [(7 * i + 13 * j + salt) % (vocab - 1) + 1 for j in range(n)]
+        ids = list(n) if isinstance(n, list) else prompt_ids(i, n, salt)
         ts = time.perf_counter()
         ttft, toks, lps, last = None, [], [], None
         for c in client.stream(prompt_ids=ids, tokens=NEW_TOKENS,
@@ -483,11 +742,11 @@ def drive_requests(client, salt=0):
             toks += list(c.token_ids)
             lps += list(c.logprobs)
             last = c
-        results[i] = (ttft, toks, lps, last)
+        results[i] = (ttft, toks, lps, last, ids)
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i, n, sp))
-               for i, (n, sp) in enumerate(REQUESTS)]
+               for i, (n, sp) in enumerate(requests)]
     for t in threads:
         t.start()
     for t in threads:
@@ -495,65 +754,96 @@ def drive_requests(client, salt=0):
     return results, time.perf_counter() - t0
 
 
-def serve_recipe(name, model_dir, load_kw, then=None):
+def check_wave(name, results):
+    """Every request finished with `length` and NEW_TOKENS in-vocab tokens
+    with finite logprobs."""
+    vocab = CFG_8B["vocab_size"]
+    for i, res in enumerate(results):
+        if res is None:
+            raise RuntimeError(f"{name}: request {i} failed")
+        ttft, toks, lps, last, _ = res
+        if (last.finish_reason != "length" or last.tokens != NEW_TOKENS
+                or len(toks) != NEW_TOKENS):
+            raise AssertionError(
+                f"{name} request {i}: finish {last.finish_reason!r} "
+                f"tokens {last.tokens}/{len(toks)}")
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{name}: token id out of vocab")
+        if not all(x == x and abs(x) < 1e30 for x in lps):
+            raise AssertionError(f"{name}: non-finite logprob")
+
+
+def wave_stats(name, results, wall, m0, m1, before, after, requests):
+    """One wave's readings: tok/s, TTFT, dispatches, launches."""
+    import statistics
+
+    import torch
+
+    ttfts = [r[0] for r in results]
+    dd = m1["decode_dispatches"] - m0["decode_dispatches"]
+    ds = m1["decode_steps_dispatched"] - m0["decode_steps_dispatched"]
+    gen = m1["tokens_generated"] - m0["tokens_generated"]
+    return {
+        "recipe": name, "requests": len(requests),
+        "prompt_lengths": [n if isinstance(n, int) else len(n)
+                           for n, _ in requests],
+        "new_tokens_each": NEW_TOKENS, "tokens": int(gen),
+        "wall_s": wall, "tok_s": gen / wall,
+        "ttft_p50_ms": statistics.median(ttfts) * 1e3,
+        "ttft_ms": sorted(t * 1e3 for t in ttfts),
+        "decode_dispatches": int(dd),
+        "steps_per_dispatch": ds / max(dd, 1),
+        "launches_during_requests": {k: after[k] - before[k]
+                                     for k in after},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
+                 waves=None, then=None):
     """Start the port's gRPC backend on 127.0.0.1, load the model, drive
-    the four requests and check them. `then(client)`, if given, runs after
-    the checks and before the server stops."""
+    each wave of requests (default: the four REQUESTS) after the previous
+    one finished, and check them. Then, with the model still loaded, call
+    then(client, servicer, readings) if given. Returns the wave's readings
+    (its requests' results under "_results"), or with several waves the
+    list of them."""
     import torch
 
     from localai_tpu_torch.backend.server import serve
     from localai_tpu_torch.ops.kernels import launch_counts
 
-    vocab = CFG_8B["vocab_size"]
+    load_opts = load_opts or dict(parallel=4, context_size=2048)
+    waves = waves or [REQUESTS]
     server, servicer, port = serve("127.0.0.1:0", device="cuda")
     client = _Client(f"127.0.0.1:{port}")
     try:
         t0 = time.perf_counter()
-        r = client.load(model=model_dir, parallel=4, context_size=2048,
-                        **load_kw)
+        r = client.load(model=model_dir, **load_opts, **load_kw)
         if not r.success:
             raise RuntimeError(f"{name}: LoadModel failed: {r.message}")
-        log(f"phase4 {name}: LoadModel (weights + warmup) "
+        log(f"{phase} {name}: LoadModel (weights + warmup) "
             f"{time.perf_counter() - t0:.1f} s")
-        before = launch_counts()
-        m0 = client.metrics()
-        results, wall = drive_requests(client)
-        m1 = client.metrics()
-        after = launch_counts()
-        for i, res in enumerate(results):
-            if res is None:
-                raise RuntimeError(f"{name}: request {i} failed")
-            ttft, toks, lps, last = res
-            if (last.finish_reason != "length" or last.tokens != NEW_TOKENS
-                    or len(toks) != NEW_TOKENS):
-                raise AssertionError(
-                    f"{name} request {i}: finish {last.finish_reason!r} "
-                    f"tokens {last.tokens}/{len(toks)}")
-            if not all(0 <= t < vocab for t in toks):
-                raise AssertionError(f"{name}: token id out of vocab")
-            if not all(x == x and abs(x) < 1e30 for x in lps):
-                raise AssertionError(f"{name}: non-finite logprob")
-        ttfts = sorted(r[0] for r in results)
-        dd = m1["decode_dispatches"] - m0["decode_dispatches"]
-        ds = m1["decode_steps_dispatched"] - m0["decode_steps_dispatched"]
-        gen = m1["tokens_generated"] - m0["tokens_generated"]
-        launched = {k: after[k] - before[k] for k in after}
-        out = {
-            "recipe": name, "requests": len(REQUESTS),
-            "prompt_lengths": [n for n, _ in REQUESTS],
-            "new_tokens_each": NEW_TOKENS, "tokens": int(gen),
-            "wall_s": wall, "tok_s": gen / wall,
-            "ttft_p50_ms": (ttfts[1] + ttfts[2]) / 2 * 1e3,
-            "ttft_ms": [t * 1e3 for t in ttfts],
-            "decode_dispatches": int(dd),
-            "steps_per_dispatch": ds / max(dd, 1),
-            "launches_during_requests": launched,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-        }
-        log(f"phase4 {name} " + json.dumps(out))
+        outs = []
+        for w, requests in enumerate(waves):
+            before = launch_counts()
+            m0 = client.metrics()
+            results, wall = drive_requests(client, requests=requests)
+            m1 = client.metrics()
+            after = launch_counts()
+            check_wave(f"{name} wave {w + 1}", results)
+            out = wave_stats(name, results, wall, m0, m1, before, after,
+                             requests)
+            out["metrics_before"], out["metrics_after"] = m0, m1
+            out["_results"] = results
+            outs.append(out)
+            log(f"{phase} {name}" + (f" wave {w + 1} " if len(waves) > 1
+                                     else " ")
+                + json.dumps({k: v for k, v in out.items()
+                              if not k.startswith(("metrics_", "_"))}))
+        outs = outs if len(waves) > 1 else outs[0]
         if then is not None:
-            then(client)
-        return out
+            then(client, servicer, outs)
+        return outs
     finally:
         client.close()
         servicer.shutdown()
@@ -598,6 +888,204 @@ def phase_main_path():
     return counts
 
 
+# ------------------------------------------------------------------ phase 5
+
+PAGED_LOAD = dict(parallel=8, context_size=4096, kv_pages=129)
+SHARED = 640          # wave 1's request 5; wave 2 extends its prompt
+PAGED_WAVE1 = [
+    (1, dict(temperature=0.0)),
+    (17, dict(temperature=0.8, top_k=40, seed=11)),
+    (300, dict(temperature=0.0)),
+    (700, dict(temperature=0.9, top_p=0.9, seed=5)),
+    (1500, dict(temperature=0.0)),
+    (SHARED, dict(temperature=0.7, top_k=50, seed=21)),
+]
+# wave 3: eight fresh 2000-token prompts. Each reserves 17 blocks (2000
+# prompt + 64 new + the engine's 33-token pipelining margin, over 128), so
+# eight need 136 of the 128 usable blocks: admission reclaims the blocks
+# that waves 1 and 2 left retained, and the last request defers until one
+# finishes
+PRESSURE_PROMPT, PRESSURE_REQUESTS = 2000, 8
+
+# teacher-forced reference check (check_reference): the served greedy
+# token's reference logit must be within REF_MARGIN of the row's largest,
+# and its served logprob within REF_LP_TOL of the reference's. The model's
+# logits are about N(0, 1) per entry (unit-RMS final norm, weights of std
+# 1/sqrt(fan_in)); the two computations round to bf16 in different places
+# (kernels vs the plain forward), which moves a logit by a few hundredths
+REF_MARGIN, REF_LP_TOL = 0.25, 0.25
+
+
+def _tail(seed, n=40):
+    vocab = CFG_8B["vocab_size"]
+    return [(104729 * seed + 31 * j) % (vocab - 1) + 1 for j in range(n)]
+
+
+def paged_wave2():
+    """Two greedy requests: wave 1's 640-token prompt plus two different
+    40-token tails — one reuses the retained slot, the other borrows its 5
+    full blocks through the prefix index (copy-on-write)."""
+    return [(prompt_ids(5, SHARED) + _tail(t), dict(temperature=0.0))
+            for t in (1, 2)]
+
+
+def paged_wave3():
+    """Pool pressure: PRESSURE_REQUESTS greedy requests with fresh
+    PRESSURE_PROMPT-token prompts (a salt no earlier wave used)."""
+    return [(prompt_ids(i, PRESSURE_PROMPT, salt=3), dict(temperature=0.0))
+            for i in range(PRESSURE_REQUESTS)]
+
+
+def check_reference(name, engine, outs):
+    """Hold greedy requests served on the paged path against a
+    teacher-forced reference: the prompt plus the served tokens go through
+    the port's plain forward (models.llama.extend over a dense cache — plain
+    attention, no block table, none of the paged kernels) in one window,
+    which gives the logits that predicted each served token. Greedy serving
+    picks each row's argmax, so the served token's reference logit must be
+    within REF_MARGIN of the row's largest (gap) and its served logprob
+    within REF_LP_TOL of the reference's. Checked: wave 1's 1500-token
+    request (12 blocks through the table) and both wave-2 requests (the
+    retained slot and the borrowed blocks). The planted fault — wave 2's
+    second request's tokens after a different 640-token prefix, what a
+    table pointing at the wrong blocks would attend to — must fail."""
+    import torch
+
+    from localai_tpu_torch.models.llama import extend, init_kv_cache
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    cfg, dev = engine.cfg, engine.device
+    w1, w2 = outs[0]["_results"], outs[1]["_results"]
+    cases = {"wave1 1500-token": w1[4], "wave2 request 1": w2[0],
+             "wave2 request 2": w2[1]}
+
+    def reference(ids, toks):
+        seq = list(ids) + list(toks[:-1])
+        kc, vc = init_kv_cache(cfg, 1, len(seq),
+                               cache_type=engine.ec.cache_type, device=dev)
+        with torch.no_grad():
+            logits = extend(engine.params, cfg,
+                            torch.tensor([seq], dtype=torch.int32,
+                                         device=dev),
+                            torch.zeros((1,), dtype=torch.int32, device=dev),
+                            engine._cos, engine._sin, kc, vc)
+        return logits[0, len(ids) - 1:].float()  # row i predicted toks[i]
+
+    def readings(ref, toks, lps):
+        t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
+        gap = ref.max(1).values - ref.gather(1, t)[:, 0]
+        lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
+        dlp = (lp_ref - torch.tensor(lps, device=dev)).abs()
+        return {"max_gap": float(gap.max()),
+                "argmax_equal": int((gap == 0).sum()), "tokens": len(toks),
+                "max_dlogprob": float(dlp.max()),
+                "logit_std": float(ref.std(1).mean())}
+
+    before = launch_counts()
+    out = {label: readings(reference(ids, toks), toks, lps)
+           for label, (_, toks, lps, _, ids) in cases.items()}
+    _, toks, lps, _, ids = w2[1]
+    out["planted fault"] = readings(
+        reference(prompt_ids(0, SHARED, salt=99) + ids[SHARED:], toks), toks,
+        lps)
+    if launch_counts() != before:
+        raise AssertionError("the reference forward launched a kernel")
+    log(f"phase5 {name} reference (margin {REF_MARGIN}, logprob tol "
+        f"{REF_LP_TOL}) " + json.dumps(out))
+    for label, r in out.items():
+        ok = r["max_gap"] <= REF_MARGIN and r["max_dlogprob"] <= REF_LP_TOL
+        if label == "planted fault" and ok:
+            raise AssertionError(f"phase5 {name}: the reference check does "
+                                 f"not reject the planted fault")
+        if label != "planted fault" and not ok:
+            raise AssertionError(f"phase5 {name} {label}: served greedy "
+                                 f"tokens disagree with the reference {r}")
+    return out
+
+
+def phase_paged_path(smi):
+    """The paged path at full width: the synthetic Llama-3.1-8B (32 layers)
+    served by the port's gRPC backend with parallel=8, context_size=4096
+    and kv_pages=129 (128 usable blocks = 16384 tokens, half of what eight
+    dense 4096-token slots would hold), bf16 then the int8 recipe; wave 1
+    (six requests), wave 2 (two requests sharing wave 1's 640-token
+    prompt), wave 3 (pool pressure: reclaim and deferral), then the
+    teacher-forced reference check. The launch counts are zeroed just
+    before and read just after."""
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    waves = [PAGED_WAVE1, paged_wave2(), paged_wave3()]
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_8B, localai_synthetic=True), f)
+        reset_launch_counts()
+        for name, kw in (("bf16", dict(dtype="bfloat16")),
+                         ("int8", dict(dtype="int8", cache_type_key="int8",
+                                       cache_type_value="int8"))):
+            torch.cuda.reset_peak_memory_stats()
+            res[name] = serve_recipe(
+                name, d, kw, phase="phase5", load_opts=PAGED_LOAD,
+                waves=waves, then=lambda c, s, outs, name=name:
+                check_reference(name, s.engine, outs))
+        counts = launch_counts()
+    log("phase5 launches on the paged path " + json.dumps(counts))
+    own = {"bf16": ("ragged_decode_paged", "paged_scatter_append"),
+           "int8": ("ragged_decode_q8_paged", "paged_scatter_append_q8")}
+    pool = PAGED_LOAD["kv_pages"] - 1
+    for name, (w1, w2, w3) in res.items():
+        def delta(w, key):
+            return w["metrics_after"][key] - w["metrics_before"][key]
+
+        reused = delta(w2, "prompt_tokens_reused")
+        peak = w3["metrics_after"]["kv_blocks_peak"]
+        launched = {k: sum(w["launches_during_requests"][k]
+                           for w in (w1, w2, w3)) for k in counts}
+        log(f"phase5 {name} summary " + json.dumps({
+            "wave1_tok_s": w1["tok_s"], "wave1_ttft_p50_ms":
+            w1["ttft_p50_ms"], "wave2_tok_s": w2["tok_s"],
+            "wave2_ttft_p50_ms": w2["ttft_p50_ms"], "wave3_tok_s":
+            w3["tok_s"], "wave3_ttft_ms": w3["ttft_ms"],
+            "decode_dispatches": sum(w["decode_dispatches"]
+                                     for w in (w1, w2, w3)),
+            "peak_mem_gb": w3["peak_mem_gb"],
+            "wave2_prompt_tokens_reused": reused,
+            "wave3_admissions_deferred": delta(w3, "kv_admissions_deferred"),
+            "wave3_slots_reclaimed": delta(w3, "kv_slots_reclaimed"),
+            "cow_swaps": w3["metrics_after"]["kv_cow_swaps"],
+            "kv_blocks_peak": peak, "pool_blocks": pool,
+            "flash_prefill_launches": launched["flash_prefill"],
+            "card": smi}))
+        if reused < 2 * SHARED:
+            raise AssertionError(f"phase5 {name}: wave 2 reused {reused} "
+                                 f"prompt tokens, expected >= {2 * SHARED}")
+        if not 0 < peak <= pool:
+            raise AssertionError(f"phase5 {name}: kv_blocks_peak {peak}")
+        if delta(w3, "kv_admissions_deferred") <= 0 \
+                or delta(w3, "kv_slots_reclaimed") <= 0:
+            raise AssertionError(f"phase5 {name}: wave 3 did not put the "
+                                 f"pool under pressure (no deferral or no "
+                                 f"reclaim)")
+        for k in ("ragged_decode", "ragged_decode_q8"):
+            if launched[k]:
+                raise AssertionError(f"phase5 {name}: the dense {k} "
+                                     f"launched on the paged path")
+        for k in own[name] + ("flash_prefill",):
+            if launched[k] <= 0:
+                raise AssertionError(f"phase5 {name}: {k} never launched")
+        for k in own["int8" if name == "bf16" else "bf16"]:
+            if launched[k]:
+                raise AssertionError(f"phase5 {name}: the other recipe's "
+                                     f"{k} launched")
+    return counts
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -605,22 +1093,38 @@ KERNELS = {
                       "localai_tpu/ops/pallas/flash_attention.py:289"),
     "ragged_decode_q8": ("localai_tpu_torch/csrc/decode_attention.cu",
                          "localai_tpu/ops/pallas/flash_attention.py:453"),
+    "ragged_decode_paged": ("localai_tpu_torch/csrc/decode_attention.cu",
+                            "localai_tpu/ops/pallas/flash_attention.py:248"),
+    "ragged_decode_q8_paged": (
+        "localai_tpu_torch/csrc/decode_attention.cu",
+        "localai_tpu/ops/pallas/flash_attention.py:411"),
+    "paged_scatter_append": ("localai_tpu_torch/csrc/paged_scatter.cu",
+                             "localai_tpu/ops/pallas/paged_scatter.py:115"),
+    "paged_scatter_append_q8": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/paged_scatter.py:254"),
 }
+# which path's run each kernel's `launches` comes from: PR 1's dense main
+# path (phase 4) or the paged path (phase 5)
+PAGED_KERNELS = ("ragged_decode_paged", "ragged_decode_q8_paged",
+                 "paged_scatter_append", "paged_scatter_append_q8")
 
 
 def main():
     import torch
 
-    phase_device()
+    smi = phase_device()
     phase_build()
     measured = phase_kernels()
     phase_card_vs_cpu()
     counts = phase_main_path()
+    paged_counts = phase_paged_path(smi)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
+        launches = (paged_counts if name in PAGED_KERNELS else counts)[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],

@@ -2,8 +2,8 @@
 main-path slice: LoadModel reads an HF safetensors checkpoint onto the
 device, Predict/PredictStream drive the continuous-batching Engine,
 TokenizeString, Status, GetMetrics and Health answer as the reference's
-do. Embeddings, BERT, llava, draft models, meshes, paged KV and telemetry
-spans wait for later slices: LoadModel rejects their options with a
+do; `kv_pages` selects the paged KV pool. Embeddings, BERT, llava, draft
+models, meshes and telemetry spans wait for later slices: LoadModel rejects their options with a
 message naming the slice, and their RPCs stay UNIMPLEMENTED.
 """
 from __future__ import annotations
@@ -65,8 +65,6 @@ class LLMServicer(BackendServicer):
                    "speculative decoding")
         if request.embeddings:
             raise not_ported("embeddings", "embeddings")
-        if request.kv_pages:
-            raise not_ported("kv_pages (paged KV)", "paged")
         if request.options:
             opts = json.loads(request.options)  # typos fail the load loudly
             for key in ("kv_policy", "kv_cold_pages", "kv_host_bytes"):
@@ -100,6 +98,7 @@ class LLMServicer(BackendServicer):
             prefill_buckets=buckets,
             prefill_chunk=chunk,
             cache_type=kv_kind,
+            kv_pages=request.kv_pages,
         ), device=self.device)
         self.cfg, self.tok = cfg, tok
         self.model_name = request.model

@@ -2,7 +2,13 @@
 localai_tpu/engine/engine.py), main-path slice.
 
 What this slice serves, as the reference does:
-- a dense per-slot KV cache (kv_pages=0), no ragged batching;
+- a dense per-slot KV cache (kv_pages=0), or the paged block pool
+  (kv_pages > 0, ops/paged.py): a host-side allocator hands 128-token
+  blocks to slots through a [B, MAXB] table, reserving prompt + max_tokens
+  at admission (admission defers, FIFO, while the pool is exhausted),
+  retaining a released slot's cached blocks as a warm prefix and sharing
+  full blocks across slots through a content-hash prefix index with
+  copy-on-write; no ragged batching;
 - bucketed, batched burst admission (one prefill pass per same-bucket
   group) and chunked prefill through `extend` for prompts longer than the
   largest bucket;
@@ -22,6 +28,7 @@ on the CUDA device unless `device="cpu"` is passed.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import queue
 import threading
 import time
@@ -40,6 +47,7 @@ from localai_tpu_torch.models.llama import (
     init_kv_cache,
     prefill,
 )
+from localai_tpu_torch.ops.paged import BLOCK, blocks_needed, init_paged
 from localai_tpu_torch.ops.rope import rope_table
 from localai_tpu_torch.ops.sampling import (
     FIELD_DTYPES,
@@ -70,7 +78,8 @@ class EngineConfig:
     prompt_cache_min: int = 16    # minimum shared prefix worth reusing
     sampling_topk_width: int = 64  # sort-free decode sampling width
     admit_per_tick: int = 4       # admission/prefill units per engine tick
-    kv_pages: int = 0             # paged KV (paged slice)
+    kv_pages: int = 0             # paged KV: physical 128-token blocks in the
+                                  # pool, trash block 0 included (0 = dense)
     ragged_token_budget: int = 0  # ragged batching (ragged slice)
     ragged_loop_steps: int = 16   # fused ragged ticks (ragged slice; only
                                   # read on ragged engines)
@@ -141,8 +150,6 @@ class _Slot:
 
 
 def _check_config(ec: EngineConfig):
-    if ec.kv_pages:
-        raise not_ported("kv_pages (paged KV)", "paged")
     if ec.ragged_token_budget:
         raise not_ported("ragged_token_budget (ragged batching)", "ragged")
     if ec.kv_policy not in ("", "full"):
@@ -213,6 +220,18 @@ class Engine:
                 raise ValueError("prefill bucket larger than max_context")
         self._kv_dtype = (torch_dtype(self.ec.dtype) if self.ec.dtype
                           else cfg.tdtype)
+        # paged KV (ops/paged.py): block pool + per-slot tables instead of a
+        # dense [B, T] product. The host owns allocation; the device sees a
+        # [B, MAXB] table per dispatch (_tab).
+        self._paged = self.ec.kv_pages > 0
+        if self._paged:
+            if self.ec.kv_pages < 2:
+                raise ValueError("kv_pages must be >= 2 (block 0 is trash)")
+            if self.ec.max_slots > BLOCK:
+                # inactive slots write to the trash block at row b % 128;
+                # beyond 128 slots those rows would collide
+                raise ValueError(f"paged KV serves at most {BLOCK} slots "
+                                 f"(max_slots={self.ec.max_slots})")
         self._init_device_state()
         if self.ec.prefill_chunk < 8:
             raise ValueError("prefill_chunk must be >= 8")
@@ -260,19 +279,53 @@ class Engine:
             "tokens_by_path__loop": 0,
             "tokens_by_path__dense": 0,
         }
+        if self._paged:
+            # pool occupancy (blocks held by live and retained slots), and
+            # the allocator's pressure events: admissions deferred on an
+            # exhausted pool, released slots whose retained blocks were
+            # reclaimed, blocks swapped by the copy-on-write pass
+            self.metrics.update(kv_blocks_in_use=0, kv_blocks_peak=0,
+                                kv_admissions_deferred=0,
+                                kv_slots_reclaimed=0, kv_cow_swaps=0)
         self._build_fns()
 
     # ------------------------------------------------------------ state
 
     def _init_device_state(self):
-        """(Re)create the device-held serving state: KV caches, sampler,
-        logits, lengths, and the host slot table."""
+        """(Re)create the device-held serving state: KV caches (or the paged
+        pool and its host allocator), sampler, logits, lengths, and the host
+        slot table."""
         cfg, B, T = self.cfg, self.ec.max_slots, self.ec.max_context
         V, dev = cfg.vocab_size, self.device
+        if self._paged:
+            self._maxb = blocks_needed(T)
+            self._table = np.zeros((B, self._maxb), np.int32)
+            self._kv_free: list[int] = list(range(1, self.ec.kv_pages))
+            self._slot_blocks: list[list[int]] = [[] for _ in range(B)]
+            self._released_lru: list[int] = []
+            # block-level prefix cache: refcounted shared pages. A block's
+            # refcount is the number of slot block-lists (live or released-
+            # retained) holding it; the chain-hash index maps a full
+            # 128-token content prefix to the physical block still storing
+            # its K/V, so a new admission can map another tenant's pages
+            # into its own table (copy-on-write: borrowed pages are never
+            # written — see _alloc_slot).
+            self._block_ref = np.zeros(self.ec.kv_pages, np.int64)
+            self._block_ref[0] = 1          # trash block: pinned forever
+            self._hash_index: dict[bytes, int] = {}
+            self._block_hash_of: dict[int, bytes] = {}
+        self._deferred: tuple | None = None   # admission waiting on blocks
+        self._blocks_freed = False
         self._cos, self._sin = rope_table(cfg.rope, T, device=dev)
-        self._kc, self._vc = init_kv_cache(cfg, B, T, self._kv_dtype,
-                                           cache_type=self.ec.cache_type,
-                                           device=dev)
+        if self._paged:
+            self._kc, self._vc = init_paged(
+                cfg.num_layers, self.ec.kv_pages, cfg.num_kv_heads,
+                cfg.head_dim, self._kv_dtype, cache_type=self.ec.cache_type,
+                device=dev)
+        else:
+            self._kc, self._vc = init_kv_cache(cfg, B, T, self._kv_dtype,
+                                               cache_type=self.ec.cache_type,
+                                               device=dev)
         self._sampler = SamplerState.init(B, V, device=dev)
         self._last_logits = torch.zeros((B, V), dtype=torch.float32,
                                         device=dev)
@@ -292,13 +345,13 @@ class Engine:
         cfg = self.cfg
 
         def _decode(params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                    active, fast_width=None):
+                    active, fast_width=None, table=None):
             """sample(prev logits) → decode → next logits, for all slots.
             The caches and token counts update in place."""
             tokens, keys, logprobs = sample(last_logits, sampler,
                                             topk_width=fast_width)
             logits = decode_step(params, cfg, tokens, lengths, cos, sin, kc,
-                                 vc, active)
+                                 vc, active, table)
             act = active.to(torch.int32)
             rows = torch.arange(tokens.shape[0], device=tokens.device)
             sampler.token_counts.index_put_((rows, tokens.long()), act,
@@ -337,6 +390,24 @@ class Engine:
 
     # ------------------------------------------------------ device dispatch
 
+    def _tab(self):
+        """Device copy of the block table for this dispatch (paged KV only).
+        The host allocator rewrites rows of self._table while a pipelined
+        dispatch is in flight (_release_slot, _alloc_slot), so each dispatch
+        gets its own snapshot: a fresh host copy (np.copy) moved to the
+        device by a blocking copy, never a view of self._table that a
+        pending non-blocking copy could still read."""
+        if not self._paged:
+            return None
+        return torch.from_numpy(self._table.copy()).to(self.device)
+
+    def _note_pool(self):
+        """Refresh the pool-occupancy gauges (paged engines)."""
+        used = self.ec.kv_pages - 1 - len(self._kv_free)
+        self.metrics["kv_blocks_in_use"] = used
+        if used > self.metrics["kv_blocks_peak"]:
+            self.metrics["kv_blocks_peak"] = used
+
     def _dev_admit(self, ids, n, slot, row, counts_row):
         self._dev_admit_many(
             np.asarray(ids, np.int32), np.asarray([n], np.int32),
@@ -353,7 +424,8 @@ class Engine:
         slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
         with torch.no_grad():
             logits = prefill(self.params, self.cfg, tokens, lens_t, self._cos,
-                             self._sin, self._kc, self._vc, slots_t)
+                             self._sin, self._kc, self._vc, slots_t,
+                             self._tab())
             self._last_logits[slots_t] = logits
             self._lengths[slots_t] = lens_t
             self._install_rows(slots, rows, counts_rows)
@@ -366,7 +438,7 @@ class Engine:
                    torch.tensor([pos], device=dev), self._cos, self._sin,
                    self._kc, self._vc,
                    slot_map=torch.tensor([idx], device=dev),
-                   with_logits=False)
+                   with_logits=False, table=self._tab())
 
     def _dev_extend_final(self, buf, pos, nvalid, idx, row, counts_row):
         """Final prefill chunk: KV writes + last-token logits + the sampler
@@ -378,7 +450,8 @@ class Engine:
                 self.params, self.cfg, torch.as_tensor(buf, device=dev),
                 torch.tensor([pos], device=dev), self._cos, self._sin,
                 self._kc, self._vc, slot_map=torch.tensor([idx], device=dev),
-                last_pos=torch.tensor([max(nvalid - 1, 0)], device=dev))
+                last_pos=torch.tensor([max(nvalid - 1, 0)], device=dev),
+                table=self._tab())
             self._last_logits[idx] = logits[0]
             self._lengths[idx] = pos + nvalid
             self._install_rows(
@@ -396,7 +469,7 @@ class Engine:
         with torch.no_grad():
             (tokens, logprobs, self._sampler, self._last_logits,
              self._lengths) = self._decode_fn(*self._step_args(active),
-                                              fast_width)
+                                              fast_width, table=self._tab())
             return _AsyncFetch((tokens, logprobs))
 
     def _dev_decode_block(self, active, steps: int, fast_width=None):
@@ -406,12 +479,13 @@ class Engine:
         toks, lps = [], []
         with torch.no_grad():
             act = torch.as_tensor(active, device=self.device)
+            table = self._tab()
             for _ in range(steps):
                 (tokens, logprobs, self._sampler, self._last_logits,
                  self._lengths) = self._decode_fn(
                     self.params, self._cos, self._sin, self._kc, self._vc,
                     self._sampler, self._last_logits, self._lengths, act,
-                    fast_width)
+                    fast_width, table=table)
                 toks.append(tokens)
                 lps.append(logprobs)
             return _AsyncFetch((torch.stack(toks), torch.stack(lps)))
@@ -428,7 +502,7 @@ class Engine:
                 *self._step_args(active),
                 torch.as_tensor(remaining, device=dev),
                 torch.as_tensor(check_eos, device=dev), self._eos_dev,
-                fast_width=fast_width)
+                fast_width=fast_width, table=self._tab())
             return _AsyncFetch((toks, lps, n_out), extra=(steps,))
 
     # ------------------------------------------------------------ requests
@@ -459,6 +533,12 @@ class Engine:
                              "context-shift")
         if req.kv_policy not in ("", "full"):
             raise not_ported(f"kv_policy {req.kv_policy!r}", "KV-tier")
+        if self._paged and self._blocks_for(req) > self.ec.kv_pages - 1:
+            raise ValueError(
+                f"request needs {self._blocks_for(req)} KV blocks (prompt "
+                f"{len(req.prompt_ids)} + max_tokens {req.max_tokens}) but "
+                f"the pool has {self.ec.kv_pages - 1}; raise kv_pages or "
+                f"lower max_tokens")
         V = self.cfg.vocab_size
         if any(not (0 <= t < V) for t in req.prompt_ids):
             raise ValueError(f"prompt token id outside [0, {V})")
@@ -499,6 +579,27 @@ class Engine:
         chunked = n > self._small_max
         bucket = None if chunked else self._bucket(n)
         slot, lcp = self._pick_slot(req.prompt_ids)
+        if self._paged:
+            shared = None
+            if self.ec.prompt_cache:
+                # block-level prefix cache: another tenant's pages beat the
+                # slot-retained token match when they cover more prefix
+                shared, shtok = self._match_prefix_blocks(req.prompt_ids)
+                if shtok > lcp:
+                    lcp = shtok
+                else:
+                    self._unref_blocks(shared)
+                    shared = None
+            eff = self._alloc_slot(slot, req, shared=shared, lcp=lcp)
+            if eff is None:
+                # pool exhausted even after reclaim: defer (FIFO) until
+                # blocks free — the caller re-attempts on later ticks
+                self._free.append(slot)
+                self._deferred = (rid, req, out)
+                self.metrics["kv_admissions_deferred"] += 1
+                return None
+            lcp = eff
+            self._note_pool()
         self._slot_kv_tokens[slot] = []
         if lcp:
             # shared prefix already in this slot's cache: prefill only the
@@ -589,10 +690,19 @@ class Engine:
                 continue
             if not self._free:
                 return
-            try:
-                rid, req, out = self._queue.get_nowait()
-            except queue.Empty:
-                return
+            if self._deferred is not None:
+                # a paged admission waiting on KV blocks retries only after
+                # something released (head-of-line, preserving FIFO)
+                if not self._blocks_freed:
+                    return
+                self._blocks_freed = False
+                rid, req, out = self._deferred
+                self._deferred = None
+            else:
+                try:
+                    rid, req, out = self._queue.get_nowait()
+                except queue.Empty:
+                    return
             # dead on arrival (cancelled, or deadline spent in the queue)
             if (rid in self._cancelled
                     or (req.deadline and time.monotonic() > req.deadline)):
@@ -604,8 +714,10 @@ class Engine:
                     prompt_tokens=len(req.prompt_ids)))
                 continue
             self._admitting = (rid, req, out)
-            self._admit_one(rid, req, out, batch=pending)
+            ok = self._admit_one(rid, req, out, batch=pending)
             self._admitting = None
+            if ok is None:
+                return
 
     @staticmethod
     def _pad_ids(plans: list, bucket: int) -> np.ndarray:
@@ -809,7 +921,8 @@ class Engine:
             if prev is not None:
                 self._consume(prev)
         return (any(s is not None for s in self._slots)
-                or not self._queue.empty() or self._pending is not None)
+                or not self._queue.empty() or self._pending is not None
+                or self._deferred is not None)
 
     def _emit(self, idx: int, slot: _Slot, token_id: int, logprob: float,
               now: float, path: str = "dense") -> bool:
@@ -909,8 +1022,193 @@ class Engine:
         self._free.remove(cold)
         return cold, 0
 
+    # ------------------------------------------------------------ paged KV
+
+    def _blocks_for(self, req: GenRequest) -> int:
+        margin = 2 * self.ec.decode_block + 1   # in-flight pipelined writes
+        tokens = min(len(req.prompt_ids) + max(req.max_tokens, 0) + margin,
+                     self.ec.max_context)
+        return blocks_needed(tokens)
+
+    def _ref_blocks(self, blocks):
+        for pb in blocks:
+            self._block_ref[pb] += 1
+
+    def _unref_blocks(self, blocks):
+        """Drop one reference from each block; blocks reaching zero return
+        to the free pool (their content is dead — any hash entry with it)."""
+        freed = False
+        for pb in blocks:
+            self._block_ref[pb] -= 1
+            if self._block_ref[pb] <= 0:
+                self._block_ref[pb] = 0
+                self._drop_hash(pb)
+                self._kv_free.append(pb)
+                freed = True
+        if freed:
+            self._blocks_freed = True
+
+    def _drop_hash(self, pb: int):
+        """Forget a block's registered content (freed or about to be
+        rewritten) so the prefix index can never serve stale pages."""
+        h = self._block_hash_of.pop(pb, None)
+        if h is not None and self._hash_index.get(h) == pb:
+            del self._hash_index[h]
+
+    @staticmethod
+    def _chain_hashes(ids) -> list[bytes]:
+        """Chain content hashes of consecutive full 128-token blocks: the
+        hash of block v commits to every token before it, so equal hash ⇒
+        equal whole prefix AND equal absolute positions (K rows are stored
+        post-RoPE, so a flat per-block hash would be wrong)."""
+        h = b""
+        out = []
+        for vb in range(len(ids) // BLOCK):
+            blk = np.asarray(ids[vb * BLOCK:(vb + 1) * BLOCK], np.int64)
+            h = hashlib.blake2b(h + blk.tobytes(), digest_size=16).digest()
+            out.append(h)
+        return out
+
+    def _match_prefix_blocks(self, prompt_ids) -> tuple[list[int], int]:
+        """Block-level prefix cache lookup: the longest run of leading full
+        128-token blocks whose chain hash is registered. Matched blocks are
+        ref'd for the caller — commit them via _alloc_slot(shared=...) or
+        return them with _unref_blocks on any bail-out.
+        Returns (physical blocks, tokens covered)."""
+        limit = self.ec.max_context - 2
+        nfull = min(len(prompt_ids) - 1, limit - 1) // BLOCK
+        blocks: list[int] = []
+        for h in self._chain_hashes(prompt_ids[:nfull * BLOCK]):
+            pb = self._hash_index.get(h)
+            if pb is None:
+                break
+            blocks.append(pb)
+        self._ref_blocks(blocks)
+        return blocks, len(blocks) * BLOCK
+
+    def _take_blocks(self, k: int, keep_slot: int):
+        """Pop k free blocks (ref'd for the caller), reclaiming released
+        slots' retained blocks (oldest first, never `keep_slot` — its prefix
+        is being reused). A victim's pages that other tenants still share
+        stay alive (refcount) — only its last reference frees a block.
+        Returns None when the pool genuinely cannot satisfy k."""
+        while len(self._kv_free) < k:
+            victim = next((s for s in self._released_lru if s != keep_slot),
+                          None)
+            if victim is None:
+                return None
+            self._released_lru.remove(victim)
+            self.metrics["kv_slots_reclaimed"] += 1
+            self._unref_blocks(self._slot_blocks[victim])
+            self._slot_blocks[victim] = []
+            self._slot_kv_tokens[victim] = []
+            self._table[victim, :] = 0
+        out = self._kv_free[:k]
+        del self._kv_free[:k]
+        self._ref_blocks(out)
+        return out
+
+    def _alloc_slot(self, slot: int, req: GenRequest, shared=None,
+                    lcp: int = 0):
+        """Size `slot`'s block list for `req`; update the table row.
+
+        `shared`: already-ref'd physical blocks from _match_prefix_blocks —
+        they become the slot's head (the borrowed prefix pages). `lcp`: the
+        token prefix the request will NOT rewrite (slot-retained or shared
+        reuse). Returns the EFFECTIVE reusable prefix length (may shrink —
+        see the copy-on-write pass), or None when the pool is exhausted
+        (defer; `shared` refs are returned here on that path)."""
+        need = self._blocks_for(req)
+        have = self._slot_blocks[slot]
+        if shared is not None:
+            fresh = self._take_blocks(need - len(shared), keep_slot=slot) \
+                if need > len(shared) else []
+            if fresh is None:
+                self._unref_blocks(shared)
+                return None
+            self._unref_blocks(have)
+            have = list(shared) + fresh
+            self._slot_blocks[slot] = have
+        else:
+            old_len = len(have)
+            if len(have) < need:
+                got = self._take_blocks(need - len(have), keep_slot=slot)
+                if got is None:
+                    return None
+                have.extend(got)
+            elif len(have) > need:
+                self._unref_blocks(have[need:])
+                del have[need:]
+            # copy-on-write: every block from the first written one onward
+            # gets rewritten by this request. A page another tenant still
+            # reads (ref > 1) must not be written in place — swap in a
+            # fresh block.
+            j0 = lcp // BLOCK
+            swap = [j for j in range(j0, len(have))
+                    if self._block_ref[have[j]] > 1]
+            if swap:
+                got = self._take_blocks(len(swap), keep_slot=slot)
+                if got is None:
+                    # roll the extension back: a deferred slot must not sit
+                    # on fresh blocks the retry (or another request) needs
+                    if len(have) > old_len:
+                        self._unref_blocks(have[old_len:])
+                        del have[old_len:]
+                    return None
+                self.metrics["kv_cow_swaps"] += len(swap)
+                for j, nb in zip(swap, got):
+                    self._unref_blocks([have[j]])
+                    have[j] = nb
+                if swap[0] == j0:
+                    # the partially-reused block itself was swapped: the
+                    # rows [j0*BLOCK, lcp) went with it
+                    lcp = j0 * BLOCK
+        # the to-be-written blocks' old content is dead the moment the
+        # first new row lands — their hash entries must go now, or the
+        # index would hand out pages mid-rewrite
+        for j in range(lcp // BLOCK, len(have)):
+            self._drop_hash(have[j])
+        self._table[slot, :] = 0
+        self._table[slot, :len(have)] = have
+        if slot in self._released_lru:
+            self._released_lru.remove(slot)
+        return lcp
+
     def _release_slot(self, idx: int, slot: _Slot):
         self._finish_rid(slot.request_id)
+        if self._paged:
+            if self.ec.prompt_cache:
+                # retain ONLY the blocks holding cached rows as the warm
+                # prefix cache (reclaimable oldest-first, _take_blocks); the
+                # unused tail of the reservation returns to the pool now.
+                # Safe against the in-flight pipelined step: it writes
+                # through the table snapshot of ITS dispatch (_tab), and
+                # stream order runs it before any later admission's prefill.
+                kept = min(slot.prompt_len + slot.generated,
+                           self.ec.max_context - 2)
+                keep = blocks_needed(kept)
+                blocks = self._slot_blocks[idx]
+                if len(blocks) > keep:
+                    self._unref_blocks(blocks[keep:])
+                    del blocks[keep:]
+                    self._table[idx, keep:] = 0
+                # register every FULL block in the content-hash index: a
+                # future admission sharing the prefix maps these pages into
+                # its own table (block-level prefix cache)
+                ids = (list(slot.req.prompt_ids) + slot.gen_ids)[:kept]
+                for vb, h in enumerate(self._chain_hashes(ids)):
+                    pb = blocks[vb]
+                    if h not in self._hash_index:
+                        self._drop_hash(pb)
+                        self._hash_index[h] = pb
+                        self._block_hash_of[pb] = h
+                self._released_lru.append(idx)
+            else:
+                self._unref_blocks(self._slot_blocks[idx])
+                self._slot_blocks[idx] = []
+                self._table[idx, :] = 0
+            self._blocks_freed = True
+            self._note_pool()
         # record what the slot's cache still holds (rows 0..len-1) so a
         # later prompt sharing the prefix skips that part of its prefill
         if self.ec.prompt_cache:
@@ -978,11 +1276,18 @@ class Engine:
                          "preemption/resume")
 
     def _fail_active(self, reason: str):
-        """Send a terminal StepOutput to every in-flight slot and queued
-        request so no consumer blocks forever on its output queue."""
+        """Send a terminal StepOutput to every in-flight slot, deferred and
+        queued request so no consumer blocks forever on its output queue."""
         self._pending = None
         self._prefillq.clear()
         failed = set()
+        if self._deferred is not None:
+            rid, req, out = self._deferred
+            self._deferred = None
+            self._finish_rid(rid)
+            out.put(StepOutput(request_id=rid, text="", token_id=-1,
+                               logprob=0.0, finished=True,
+                               finish_reason=reason))
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue

@@ -3,16 +3,18 @@
 
 Weights keep the reference's [in, out] orientation (x @ W) and live per
 layer in an nn.Module; the KV cache keeps the head-major layout [L, B, KVH,
-T, D] (int8 caches: ops/kvcache.QuantKV with T padded to 128). Where the
-reference returns new cache arrays, the port writes into the caches it was
-given, in place, and returns only the logits.
+T, D] (int8 caches: ops/kvcache.QuantKV with T padded to 128), or — with a
+block `table` [B, MAXB] — the paged block pool [L, NB, KVH, 128, D] of
+ops/paged.py. Where the reference returns new cache arrays, the port
+writes into the caches it was given, in place, and returns only the
+logits.
 
-Attention on the main path goes through ops/kernels/flash_attention.py:
-the prefill and decode wrappers launch the CUDA kernels for CUDA tensors
-and run their plain versions for CPU tensors (the selection the
-reference's _attn_impls makes between Pallas and XLA). Chunked prefill
-(`extend`) attends with the plain ops/attention.mha_extend, as the
-reference does.
+Attention on the main path goes through ops/kernels/: the prefill and
+decode wrappers (and, paged, the decode scatter-append write) launch the
+CUDA kernels for CUDA tensors and run their plain versions for CPU tensors
+(the selection the reference's _attn_impls makes between Pallas and XLA).
+Chunked prefill (`extend`) attends with the plain ops/attention.mha_extend,
+reading a paged cache through ops/paged.paged_view, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import torch_dtype
 from localai_tpu_torch.ops.attention import mha_extend
 from localai_tpu_torch.ops.kernels import (
-    flash_prefill, ragged_decode, ragged_decode_q8,
+    flash_prefill, paged_scatter_append, paged_scatter_append_q8,
+    paged_targets, ragged_decode, ragged_decode_q8,
 )
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
 )
+from localai_tpu_torch.ops.paged import BLOCK, paged_view
 from localai_tpu_torch.ops.norms import rms_norm
 from localai_tpu_torch.ops.quant import QuantWeight, is_quantized, qmatmul
 from localai_tpu_torch.ops.rope import RopeConfig, apply_rope
@@ -222,16 +226,37 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _cache_write(kc, vc, k, v, rows, positions):
+def _cache_write(kc, vc, k, v, rows, positions, table=None):
     """Write window K/V [B, S, KVH, D] into one layer's head-major caches
     [B', KVH, T, D] at (rows[b], :, positions[b, s]) — in place. Rows may
     repeat (batched admission pads groups by repeating a plan: identical
-    values)."""
+    values).
+
+    With a paged `table` [B', MAXB] the cache is a block pool [NB, KVH,
+    128, D] and (slot, position) resolves to (table[slot, pos // 128], :,
+    pos % 128). A position past the table's end (a final prefill chunk's
+    padded tail) goes to the trash block 0: the reference's gather clamps
+    it to the last column instead, which can land on a real block's valid
+    rows. (Decode's inactive slots never come here: decode_step sends
+    them to the trash block through the scatter kernel's targets.)"""
     kvh = kc.shape[1]
     dev = k.device
-    idx = (rows.long().to(dev)[:, None, None],
-           torch.arange(kvh, device=dev)[None, :, None],
-           positions.long().to(dev)[:, None, :])
+    rows = rows.long().to(dev)
+    positions = positions.long().to(dev)
+    if table is None:
+        idx = (rows[:, None, None],
+               torch.arange(kvh, device=dev)[None, :, None],
+               positions[:, None, :])
+    else:
+        maxb = table.shape[1]
+        raw = torch.div(positions, BLOCK, rounding_mode="floor")
+        pb = table.long()[rows[:, None], torch.clamp_max(raw, maxb - 1)]
+        pb = torch.where(raw < maxb, pb, torch.zeros_like(pb))
+        off = torch.remainder(positions, BLOCK)
+        # off < 128 == SCALE_TILE (ops/paged.py asserts BLOCK ==
+        # SCALE_TILE), so an int8 pool's scale lands at [pb, h, 0, off]
+        idx = (pb[:, None, :], torch.arange(kvh, device=dev)[None, :, None],
+               off[:, None, :])
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if isinstance(kc, QuantKV):
         cache_scatter(kc, idx, kt)
@@ -281,9 +306,11 @@ def _embed(params: Llama, tokens, dtype):
 
 
 def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
-            k_cache, v_cache, slot_map):
+            k_cache, v_cache, slot_map, table=None):
     """Padded prompt batch → last-token logits [B, V] f32, writing K/V into
-    cache rows slot_map[b] (in place). tokens: [B, S]; lengths: [B]."""
+    cache rows slot_map[b] (in place; through the block `table` when the
+    cache is paged). tokens: [B, S]; lengths: [B]. Attention runs on the
+    fresh K/V, so it is the same kernel either way."""
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
@@ -298,7 +325,8 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
-        _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions)
+        _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions,
+                     table)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last_idx = torch.clamp_min(lengths.long().to(dev) - 1, 0)
     last = x[torch.arange(b, device=dev), last_idx]
@@ -306,20 +334,30 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 
 def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
-                k_cache, v_cache, active=None):
+                k_cache, v_cache, active=None, table=None):
     """One decode step over ALL slots. tokens: [B] last sampled token per
     slot; lengths: [B] valid cache entries BEFORE this token (it is written
     at index lengths). `active` [B] bool: inactive slots write to the last
     cache row T-1, which is never readable (the engine stops at
-    max_context-2). Returns logits [B, V] f32."""
+    max_context-2). Returns logits [B, V] f32.
+
+    `table` [B, MAXB] int: the cache is the paged block pool. Each layer's
+    write is the scatter-append kernel, whose targets (block, row) are
+    computed once here — positions, table and active are the same for all
+    layers; inactive rows go to the trash block 0 at row b % 128, never
+    through their own table (its last virtual block can be a retained,
+    shared prefix block). Attention reads through the table."""
     b = tokens.shape[0]
     dev = tokens.device
     kv_quant = isinstance(k_cache, QuantKV)
-    T = k_cache.shape[3]
     positions = lengths.long()[:, None]
-    wpos = positions if active is None else torch.where(
-        active[:, None], positions, torch.full_like(positions, T - 1))
-    rows = torch.arange(b, device=dev)
+    if table is None:
+        T = k_cache.shape[3]
+        wpos = positions if active is None else torch.where(
+            active[:, None], positions, torch.full_like(positions, T - 1))
+        rows = torch.arange(b, device=dev)
+    else:
+        targets = paged_targets(lengths, table, active)
     attn_len = lengths + 1
     x = _embed(params, tokens, cfg.tdtype)[:, None, :]
     for i, lp in enumerate(params.layers):
@@ -328,13 +366,22 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
         q, k, v = _qkv(h, lp, cfg)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        _cache_write(kc, vc, k, v, rows, wpos)
+        if table is None:
+            _cache_write(kc, vc, k, v, rows, wpos)
+        elif kv_quant:
+            paged_scatter_append_q8(kc.q, kc.s, vc.q, vc.s, k[:, 0], v[:, 0],
+                                    lengths, table, active, targets=targets)
+        else:
+            paged_scatter_append(kc, vc, k[:, 0], v[:, 0], lengths, table,
+                                 active, targets=targets)
         if kv_quant:
             attn = ragged_decode_q8(q, kc.q, kc.s, vc.q, vc.s, attn_len,
-                                    sliding_window=cfg.sliding_window)
+                                    sliding_window=cfg.sliding_window,
+                                    table=table)
         else:
             attn = ragged_decode(q, kc, vc, attn_len,
-                                 sliding_window=cfg.sliding_window)
+                                 sliding_window=cfg.sliding_window,
+                                 table=table)
         x = x + qmatmul(attn.reshape(b, 1, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
@@ -343,7 +390,8 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 
 def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
-           k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None):
+           k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None,
+           table=None):
     """Forward a window of S tokens per row starting at cache offset
     `start` [B] — the chunked-prefill workhorse. Writes the window's K/V
     (in place) and returns logits for every window position [B, S, V], or
@@ -351,17 +399,22 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
 
     A final chunk's padded tail can run past the cache end: those rows are
     garbage by contract (they sit above every real query and are masked),
-    so their table lookups and cache writes clamp to the last row, which
-    is never readable."""
+    so their rope lookups clamp to the last table row and their cache
+    writes go to a row that is never readable — the last cache row (dense)
+    or the trash block (paged `table`, see _cache_write). A paged cache is
+    read through ops/paged.paged_view of the rows' table rows."""
     b, s = tokens.shape
     dev = tokens.device
     rows = (torch.arange(b, device=dev) if slot_map is None
             else slot_map.long().to(dev))
     positions = start.long().to(dev)[:, None] + torch.arange(
         s, device=dev)[None, :]
-    T = k_cache.shape[3]
     rpos = torch.clamp_max(positions, cos.shape[0] - 1)
-    wpos = torch.clamp_max(positions, T - 1)
+    if table is None:
+        wpos = torch.clamp_max(positions, k_cache.shape[3] - 1)
+    else:
+        wpos = positions
+        row_table = table.long().to(dev)[rows]
     x = _embed(params, tokens, cfg.tdtype)
     for i, lp in enumerate(params.layers):
         kc, vc = k_cache[i], v_cache[i]
@@ -369,9 +422,12 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
         q, k, v = _qkv(h, lp, cfg)
         q = apply_rope(q, cos, sin, rpos)
         k = apply_rope(k, cos, sin, rpos)
-        _cache_write(kc, vc, k, v, rows, wpos)
-        kr = kc if slot_map is None else kc[rows]
-        vr = vc if slot_map is None else vc[rows]
+        _cache_write(kc, vc, k, v, rows, wpos, table)
+        if table is not None:
+            kr, vr = paged_view(kc, row_table), paged_view(vc, row_table)
+        else:
+            kr = kc if slot_map is None else kc[rows]
+            vr = vc if slot_map is None else vc[rows]
         attn = mha_extend(q, dequant(kr), dequant(vr), positions,
                           sliding_window=cfg.sliding_window)
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
@@ -404,13 +460,16 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int):
     _DONE_CHECK_EVERY steps. `steps` counts the iterations actually run.
 
     step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths, active,
-    fast_width) → (tokens, logprobs, sampler, logits, lengths).
+    fast_width, table=table) → (tokens, logprobs, sampler, logits, lengths);
+    `table` is the paged block table (None for a dense cache), the same
+    for every step of the dispatch.
     Returns (tokens [max_steps, B], logprobs [max_steps, B], n_out [B],
     steps, sampler, last_logits, lengths); slot b's valid tokens are rows
     0..n_out[b]-1."""
 
     def decode_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                    active, remaining, check_eos, eos_ids, fast_width=None):
+                    active, remaining, check_eos, eos_ids, fast_width=None,
+                    table=None):
         B = lengths.shape[0]
         dev = lengths.device
         done = ~active
@@ -425,7 +484,7 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int):
             prev_key = sampler.key
             tokens, lp, sampler, logits, lengths = step_fn(
                 params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                live, fast_width)
+                live, fast_width, table=table)
             sampler = dataclasses.replace(
                 sampler, key=torch.where(live[:, None], sampler.key,
                                          prev_key))

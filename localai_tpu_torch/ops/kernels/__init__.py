@@ -1,15 +1,38 @@
 """Hand-written CUDA kernels of the port (counterparts of
 localai_tpu/ops/pallas). Importing this package builds nothing: each
 kernel's shared library is compiled with nvcc at its first launch
-(_build.py)."""
+(_build.py).
+
+Every wrapper adds one to its own count where it launches its kernel, and
+nowhere else; `launch_counts()` reads all the counts, `reset_launch_counts()`
+sets them to 0."""
+from localai_tpu_torch.ops.kernels import flash_attention as _fa
+from localai_tpu_torch.ops.kernels import paged_scatter as _ps
 from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
-    LAUNCHES,
     flash_prefill,
     flash_prefill_plain,
-    launch_counts,
     ragged_decode,
     ragged_decode_plain,
     ragged_decode_q8,
     ragged_decode_q8_plain,
-    reset_launch_counts,
 )
+from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
+    paged_scatter_append,
+    paged_scatter_append_plain,
+    paged_scatter_append_q8,
+    paged_scatter_append_q8_plain,
+    paged_targets,
+)
+
+_COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
+
+
+def reset_launch_counts() -> None:
+    for counts in _COUNTS:
+        for k in counts:
+            counts[k] = 0

@@ -23,7 +23,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("flash_prefill", "decode_attention")
+SOURCES = ("flash_prefill", "decode_attention", "paged_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +40,17 @@ SIGNATURES = {
                                     _I, _I, _F, _P],
         "decode_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _F, _P],
+        "decode_attention_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _F, _P],
+        "decode_attention_q8_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _I, _I, _I, _I, _I, _I, _F,
+                                             _P],
+    },
+    "paged_scatter": {
+        "paged_scatter_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
+        "paged_scatter_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P],
     },
 }
 

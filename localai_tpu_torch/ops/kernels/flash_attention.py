@@ -5,15 +5,17 @@ Three wrappers, each beside its plain version with the same signature:
 - flash_prefill / flash_prefill_plain — causal GQA attention over a padded
   prompt batch (csrc/flash_prefill.cu);
 - ragged_decode / ragged_decode_plain — one query token per slot against
-  the dense KV cache (csrc/decode_attention.cu);
+  the dense KV cache, or (`table=`) against the paged block pool through a
+  block table (csrc/decode_attention.cu);
 - ragged_decode_q8 / ragged_decode_q8_plain — the same over an int8 cache
   with per-token scales (csrc/decode_attention.cu, q8 variant).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Each launch adds one
 to the wrapper's count in LAUNCHES (and nothing else does), so a run can
-show that its main path went through the kernels. Paged mode (`table=`)
-waits for the paged slice.
+show that its main path went through the kernels; the paged launches count
+apart (`ragged_decode_paged`, `ragged_decode_q8_paged`). The paged plain
+versions are ops/paged.paged_view followed by the dense plain version.
 
 The plain versions follow the kernels' math: f32 scores from the
 pre-scaled query, masks, softmax in f32, the 1e-30 floor on the
@@ -24,27 +26,15 @@ from __future__ import annotations
 
 import torch
 
-from localai_tpu_torch import not_ported
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kernels import _build
+from localai_tpu_torch.ops.kvcache import QuantKV
+from localai_tpu_torch.ops.paged import BLOCK, paged_view
 
-LAUNCHES = {"flash_prefill": 0, "ragged_decode": 0, "ragged_decode_q8": 0}
+LAUNCHES = {"flash_prefill": 0, "ragged_decode": 0, "ragged_decode_q8": 0,
+            "ragged_decode_paged": 0, "ragged_decode_q8_paged": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
-
-def _no_table(table):
-    if table is not None:
-        raise not_ported("paged KV (table=)", "paged")
 
 
 def _window(sliding_window) -> int:
@@ -138,8 +128,12 @@ def flash_prefill(q, k, v, lengths, sliding_window=None):
 def ragged_decode_plain(q, k_cache, v_cache, lengths, sliding_window=None,
                         table=None):
     """Plain version of ragged_decode. q: [B, 1, H, D]; caches [B, KVH, T,
-    D]; lengths: [B] valid entries INCLUDING the new token."""
-    _no_table(table)
+    D]; lengths: [B] valid entries INCLUDING the new token. With `table`
+    [B, MAXB]: caches are block pools [NB, KVH, 128, D], read through
+    paged_view (T = MAXB*128)."""
+    if table is not None:
+        k_cache, v_cache = paged_view(k_cache, table), paged_view(v_cache,
+                                                                  table)
     return _decode_plain(q, k_cache.float(), v_cache.float(), None, None,
                          lengths, sliding_window)
 
@@ -148,8 +142,12 @@ def ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
                            sliding_window=None, table=None):
     """Plain version of ragged_decode_q8. k_q/v_q: [B, KVH, T, D] int8;
     k_s/v_s: [B, KVH, T//128, 128] f32 (token t's scale at [t//128,
-    t%128])."""
-    _no_table(table)
+    t%128]). With `table` [B, MAXB]: int8 pools [NB, KVH, 128, D] with
+    scales [NB, KVH, 1, 128], read through paged_view."""
+    if table is not None:
+        kv = paged_view(QuantKV(k_q, k_s), table)
+        vv = paged_view(QuantKV(v_q, v_s), table)
+        k_q, k_s, v_q, v_s = kv.q, kv.s, vv.q, vv.s
     B, KVH, T, _ = k_q.shape
     return _decode_plain(q, k_q.float(), v_q.float(),
                          k_s.float().reshape(B, KVH, T),
@@ -192,19 +190,37 @@ def _decode_checks(name, q, kshape, T):
     return B, H, KVH, T, D
 
 
+def _table_i32(name, table, q, pool_shape):
+    """Checks of the paged mode: pool [NB, KVH, 128, D], table [B, MAXB] →
+    the table as contiguous int32 on q's device, and MAXB."""
+    B = q.shape[0]
+    if len(pool_shape) != 4 or pool_shape[2] != BLOCK:
+        raise ValueError(f"{name}: paged pool must be [NB, KVH, {BLOCK}, D], "
+                         f"got {tuple(pool_shape)}")
+    if table.dim() != 2 or table.shape[0] != B:
+        raise ValueError(f"{name}: table must be [B={B}, MAXB], got "
+                         f"{tuple(table.shape)}")
+    return (table.to(device=q.device, dtype=torch.int32).contiguous(),
+            table.shape[1])
+
+
 def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
                   table=None):
-    """Decode-step GQA attention over the dense cache. q: [B, 1, H, D];
-    caches [B, KVH, T, D] in q's dtype; lengths: [B] valid entries incl.
-    the newly written token. Returns [B, 1, H, D]."""
-    _no_table(table)
+    """Decode-step GQA attention. q: [B, 1, H, D]; caches [B, KVH, T, D]
+    in q's dtype; lengths: [B] valid entries incl. the newly written token.
+    Paged mode (`table` [B, MAXB] int): the caches are block pools [NB,
+    KVH, 128, D] and virtual block v of slot b is pool block table[b, v]
+    (T = MAXB*128). Returns [B, 1, H, D]."""
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, lengths,
-                                   sliding_window)
+                                   sliding_window, table=table)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_decode: unsupported device {q.device}")
     if v_cache.shape != k_cache.shape:
         raise ValueError("ragged_decode: k/v cache shapes differ")
+    if table is not None:
+        return _ragged_decode_paged(q, k_cache, v_cache, lengths,
+                                    sliding_window, table)
     B, H, KVH, T, D = _decode_checks("ragged_decode", q, k_cache.shape,
                                      k_cache.shape[2])
     _check_cuda("ragged_decode", (q, k_cache, v_cache),
@@ -221,17 +237,41 @@ def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
     return out
 
 
+def _ragged_decode_paged(q, k_pool, v_pool, lengths, sliding_window, table):
+    tab, maxb = _table_i32("ragged_decode", table, q, k_pool.shape)
+    B, H, KVH, T, D = _decode_checks("ragged_decode", q,
+                                     (q.shape[0],) + tuple(k_pool.shape[1:]),
+                                     maxb * BLOCK)
+    _check_cuda("ragged_decode", (q, k_pool, v_pool),
+                (None, q.dtype, q.dtype))
+    lens = _lengths_i32(lengths, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_paged_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), tab.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
+        H, KVH, maxb, D, _window(sliding_window), D ** -0.5,
+        _stream(q.device))
+    _raise_rc("ragged_decode (paged)", rc)
+    LAUNCHES["ragged_decode_paged"] += 1
+    return out
+
+
 def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
                      table=None):
     """Decode-step GQA attention over an int8 cache (ops/kvcache.py layout).
     k_q/v_q: [B, KVH, T, D] int8 with T % 128 == 0; k_s/v_s: [B, KVH,
-    T//128, 128] f32. Returns [B, 1, H, D] in q's dtype."""
-    _no_table(table)
+    T//128, 128] f32. Paged mode (`table` [B, MAXB] int): int8 pools [NB,
+    KVH, 128, D] with scales [NB, KVH, 1, 128] (ops/paged.py). Returns
+    [B, 1, H, D] in q's dtype."""
     if q.device.type == "cpu":
         return ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
-                                      sliding_window)
+                                      sliding_window, table=table)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_decode_q8: unsupported device {q.device}")
+    if table is not None:
+        return _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths,
+                                       sliding_window, table)
     T = k_q.shape[2]
     if T % 128:
         raise ValueError("int8 KV cache length must be a multiple of 128")
@@ -250,4 +290,29 @@ def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
         KVH, T, D, _window(sliding_window), D ** -0.5, _stream(q.device))
     _raise_rc("ragged_decode_q8", rc)
     LAUNCHES["ragged_decode_q8"] += 1
+    return out
+
+
+def _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths, sliding_window,
+                            table):
+    tab, maxb = _table_i32("ragged_decode_q8", table, q, k_q.shape)
+    NB = k_q.shape[0]
+    B, H, KVH, T, D = _decode_checks("ragged_decode_q8", q,
+                                     (q.shape[0],) + tuple(k_q.shape[1:]),
+                                     maxb * BLOCK)
+    if (v_q.shape != k_q.shape or k_s.shape != (NB, KVH, 1, BLOCK)
+            or v_s.shape != k_s.shape):
+        raise ValueError("ragged_decode_q8: bad paged pool/scale shapes")
+    _check_cuda("ragged_decode_q8", (q, k_q, k_s, v_q, v_s),
+                (None, torch.int8, torch.float32, torch.int8, torch.float32))
+    lens = _lengths_i32(lengths, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_q8_paged_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
+        v_q.data_ptr(), v_s.data_ptr(), tab.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, H, KVH, maxb, D, _window(sliding_window),
+        D ** -0.5, _stream(q.device))
+    _raise_rc("ragged_decode_q8 (paged)", rc)
+    LAUNCHES["ragged_decode_q8_paged"] += 1
     return out

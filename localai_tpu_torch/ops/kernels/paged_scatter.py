@@ -1,0 +1,180 @@
+"""Paged-KV decode write — scatter-append of one K/V row per slot into the
+block pool, with its plain PyTorch version (counterpart of
+localai_tpu/ops/pallas/paged_scatter.py).
+
+Two wrappers, each beside its plain version with the same signature:
+- paged_scatter_append / _plain — bf16/f32 pools [NB, KVH, BS, D];
+- paged_scatter_append_q8 / _plain — int8 pools + per-token f32 scales
+  [NB, KVH, 1, BS]; the new rows are quantized here, in the wrapper, with
+  ops/kvcache.quantize_tokens (the reference quantizes in its wrapper too),
+  and the kernel writes the int8 row and one scale element per (slot,
+  head) (csrc/paged_scatter.cu).
+
+Slot b's row goes to block table[b, pos // 128], row pos % 128; an
+inactive slot goes to the trash block 0 at row b % 128 (`paged_targets`,
+the reference's _targets, plain PyTorch outside the kernel). The pools are
+written IN PLACE and returned — the port's counterpart of the Pallas
+`input_output_aliases`. A decode step computes the targets once and hands
+them to every layer's call (`targets=`): positions, table and active are
+the same for all layers.
+
+A wrapper given CPU tensors runs the plain version (advanced-index
+assignment); given CUDA tensors it launches the kernel or raises. Each
+launch adds one to its count in LAUNCHES, and nothing else does.
+"""
+from __future__ import annotations
+
+import torch
+
+from localai_tpu_torch.ops.kernels import _build
+from localai_tpu_torch.ops.kernels.flash_attention import (
+    _check_cuda, _raise_rc, _stream,
+)
+from localai_tpu_torch.ops.kvcache import quantize_tokens
+from localai_tpu_torch.ops.paged import BLOCK, ring_block_map
+
+LAUNCHES = {"paged_scatter_append": 0, "paged_scatter_append_q8": 0}
+
+
+def paged_targets(positions, table, active=None, sb=None, rw=None):
+    """(physical block [B], in-block row [B]) int32 for each slot's new
+    token. Inactive rows route to the trash block at row b % BLOCK
+    (distinct while B <= BLOCK, which the engine checks; past that, two
+    inactive slots share a trash row that nothing reads). sb/rw ([B] int,
+    optional): ring geometry (ops/paged.ring_block_map) applied to the raw
+    block index before the table lookup. A raw index past the table clamps
+    to its last column, as the reference's gather does; only an inactive
+    slot's stale position can get there, and it goes to trash."""
+    b = positions.shape[0]
+    dev = table.device
+    positions = positions.to(device=dev, dtype=torch.int64)
+    raw = torch.div(positions, BLOCK, rounding_mode="floor")
+    if sb is not None:
+        raw = ring_block_map(raw, sb.to(dev).long(), rw.to(dev).long())
+    raw = torch.clamp(raw, 0, table.shape[1] - 1)
+    rows = torch.arange(b, device=dev)
+    pb = table.long()[rows, raw]
+    off = torch.remainder(positions, BLOCK)
+    if active is not None:
+        act = active.to(dev)
+        pb = torch.where(act, pb, torch.zeros_like(pb))
+        off = torch.where(act, off, rows % BLOCK)
+    return pb.to(torch.int32), off.to(torch.int32)
+
+
+def _resolve(positions, table, active, sb, rw, targets):
+    return targets if targets is not None else paged_targets(
+        positions, table, active, sb=sb, rw=rw)
+
+
+def paged_scatter_append_plain(k_pool, v_pool, k_new, v_new, positions,
+                               table, active=None, sb=None, rw=None,
+                               targets=None):
+    """Plain version of paged_scatter_append: pool[pb, :, off] = row."""
+    pb, off = (t.long() for t in _resolve(positions, table, active, sb, rw,
+                                          targets))
+    k_pool[pb, :, off] = k_new.to(k_pool.dtype)
+    v_pool[pb, :, off] = v_new.to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def paged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new, positions,
+                                  table, active=None, sb=None, rw=None,
+                                  targets=None):
+    """Plain version of paged_scatter_append_q8: quantize each row, then
+    pool[pb, :, off] = int8 row and scales[pb, :, 0, off] = its scale."""
+    pb, off = (t.long() for t in _resolve(positions, table, active, sb, rw,
+                                          targets))
+    kq_n, ks_n = quantize_tokens(k_new)              # [B, KVH, D], [B, KVH]
+    vq_n, vs_n = quantize_tokens(v_new)
+    kq[pb, :, off] = kq_n
+    ks[pb, :, 0, off] = ks_n.to(ks.dtype)
+    vq[pb, :, off] = vq_n
+    vs[pb, :, 0, off] = vs_n.to(vs.dtype)
+    return kq, ks, vq, vs
+
+
+def _shapes(name, k_pool, v_pool, k_new, v_new):
+    NB, KVH, bs, D = k_pool.shape
+    B = k_new.shape[0]
+    if bs != BLOCK or v_pool.shape != k_pool.shape or \
+            k_new.shape != (B, KVH, D) or v_new.shape != k_new.shape:
+        raise ValueError(f"{name}: bad shapes pool{tuple(k_pool.shape)} "
+                         f"new{tuple(k_new.shape)}")
+    return B, KVH, D, NB
+
+
+def _targets_i32(targets, device):
+    return tuple(t.to(device=device, dtype=torch.int32).contiguous()
+                 for t in targets)
+
+
+def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
+                         active=None, sb=None, rw=None, targets=None):
+    """Append one K/V token per slot into the paged pools, IN PLACE.
+
+    k_pool/v_pool: [NB, KVH, BS, D]; k_new/v_new: [B, KVH, D] (this step's
+    rope-applied K and raw V rows, cast to the pool dtype); positions: [B]
+    write position (= the slot's current length); table: [B, MAXB] int;
+    active: [B] bool or None; sb/rw: ring geometry or None; targets:
+    (pb, off) precomputed by paged_targets (then positions/table/active/
+    sb/rw are not read). Returns (k_pool, v_pool), the same tensors."""
+    if k_new.device.type == "cpu":
+        return paged_scatter_append_plain(k_pool, v_pool, k_new, v_new,
+                                          positions, table, active, sb, rw,
+                                          targets)
+    if k_new.device.type != "cuda":
+        raise ValueError(f"paged_scatter_append: unsupported device "
+                         f"{k_new.device}")
+    B, KVH, D, NB = _shapes("paged_scatter_append", k_pool, v_pool, k_new,
+                            v_new)
+    kn = k_new.to(k_pool.dtype).contiguous()
+    vn = v_new.to(k_pool.dtype).contiguous()
+    _check_cuda("paged_scatter_append", (kn, vn, k_pool, v_pool),
+                (None, None, kn.dtype, kn.dtype))
+    pb, off = _targets_i32(_resolve(positions, table, active, sb, rw,
+                                    targets), k_new.device)
+    lib = _build.load("paged_scatter")
+    rc = lib.paged_scatter_launch(
+        k_pool.element_size(), kn.data_ptr(), vn.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), pb.data_ptr(), off.data_ptr(),
+        B, KVH, D, NB, _stream(k_new.device))
+    _raise_rc("paged_scatter_append", rc)
+    LAUNCHES["paged_scatter_append"] += 1
+    return k_pool, v_pool
+
+
+def paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions, table,
+                            active=None, sb=None, rw=None, targets=None):
+    """int8 variant, IN PLACE: pools kq/vq [NB, KVH, BS, D] int8 with scales
+    ks/vs [NB, KVH, 1, BS] f32. k_new/v_new arrive dense [B, KVH, D] and
+    are quantized here (per token, symmetric over D). Returns (kq, ks, vq,
+    vs), the same tensors."""
+    if k_new.device.type == "cpu":
+        return paged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new,
+                                             positions, table, active, sb,
+                                             rw, targets)
+    if k_new.device.type != "cuda":
+        raise ValueError(f"paged_scatter_append_q8: unsupported device "
+                         f"{k_new.device}")
+    B, KVH, D, NB = _shapes("paged_scatter_append_q8", kq, vq, k_new, v_new)
+    if ks.shape != (NB, KVH, 1, BLOCK) or vs.shape != ks.shape:
+        raise ValueError("paged_scatter_append_q8: bad pool/scale shapes")
+    kq_n, ks_n = quantize_tokens(k_new)              # [B, KVH, D], [B, KVH]
+    vq_n, vs_n = quantize_tokens(v_new)
+    kq_n, vq_n = kq_n.contiguous(), vq_n.contiguous()
+    ks_n, vs_n = ks_n.contiguous(), vs_n.contiguous()
+    _check_cuda("paged_scatter_append_q8",
+                (kq_n, ks_n, vq_n, vs_n, kq, ks, vq, vs),
+                (None, torch.float32, None, torch.float32) + (
+                    torch.int8, torch.float32) * 2)
+    pb, off = _targets_i32(_resolve(positions, table, active, sb, rw,
+                                    targets), k_new.device)
+    lib = _build.load("paged_scatter")
+    rc = lib.paged_scatter_q8_launch(
+        kq_n.data_ptr(), ks_n.data_ptr(), vq_n.data_ptr(), vs_n.data_ptr(),
+        kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(k_new.device))
+    _raise_rc("paged_scatter_append_q8", rc)
+    LAUNCHES["paged_scatter_append_q8"] += 1
+    return kq, ks, vq, vs

@@ -4,7 +4,8 @@ import hygiene.
 - `python -m localai_tpu_torch.backend --device cpu` in a subprocess,
   driven over gRPC with the reference's client (same proto contract),
   streams greedy text EQUAL to the JAX package's `llm` backend (f32, tiny
-  checkpoint).
+  checkpoint); so does the port's servicer loaded with `kv_pages` (the
+  paged KV pool) against the JAX backend loaded the same way.
 - In a subprocess, importing the port's backend and engine leaves no `jax`
   or `localai_tpu` module in sys.modules.
 - An AST scan finds no `jax` / `localai_tpu` import anywhere in
@@ -102,11 +103,48 @@ def test_backend_subprocess_streams_reference_text(ckpt, tmp_path):
             proc.kill()
 
 
+def _serve_and_stream(serve_fn, ckpt, load, prompts):
+    from localai_tpu.backend.client import BackendClient
+
+    server, servicer, port = serve_fn()
+    client = BackendClient(f"127.0.0.1:{port}")
+    try:
+        assert client.wait_ready(attempts=40, sleep=0.1)
+        r = client.load_model(model=ckpt, **load)
+        assert r.success, r.message
+        return [_stream(client, p, n) for p, n in prompts], client.metrics()
+    finally:
+        client.close()
+        servicer.shutdown()
+        server.stop(grace=1)
+
+
+def test_load_kv_pages_streams_reference_text(ckpt):
+    """LoadModel(kv_pages=...) serves through the paged pool: the same
+    greedy text as the JAX backend with the same options, the second
+    prompt reusing the first's retained blocks."""
+    from localai_tpu.backend.server import serve as jserve
+    from localai_tpu_torch.backend.server import serve as tserve
+
+    load = dict(LOAD, context_size=256, kv_pages=6)
+    prompts = PROMPTS + [("hello world, and more", 10)]
+    want, _ = _serve_and_stream(lambda: jserve("127.0.0.1:0", "llm"), ckpt,
+                                dict(load, mesh_data=1, mesh_model=1),
+                                prompts)
+    got, metrics = _serve_and_stream(
+        lambda: tserve("127.0.0.1:0", device="cpu"), ckpt, load, prompts)
+    for (text, ids, last), (rtext, rids, _), (_, n) in zip(got, want,
+                                                          prompts):
+        assert ids == rids and text == rtext
+        assert last.finish_reason == "length" and last.tokens == n
+    assert 0 < metrics["kv_blocks_peak"] <= 5
+
+
 def test_load_rejects_unported_options(ckpt):
     from localai_tpu_torch.backend import pb
     from localai_tpu_torch.backend.llm import LLMServicer
 
-    for kw in (dict(kv_pages=8), dict(draft_model="x"),
+    for kw in (dict(draft_model="x"),
                dict(embeddings=True), dict(mesh_model=2),
                dict(options=json.dumps({"kv_policy": "sink_window"}))):
         s = LLMServicer(device="cpu")

@@ -157,19 +157,24 @@ def test_wrappers_run_plain_on_cpu_without_counting():
         torch.tensor([5])), rtol=0, atol=0)
     kq, ks = _q8(kc)
     tk.ragged_decode_q8(torch.tensor(qd), kq, ks, kq, ks, torch.tensor([5]))
-    assert tk.launch_counts() == {"flash_prefill": 0, "ragged_decode": 0,
-                                  "ragged_decode_q8": 0}
-
-
-def test_paged_table_waits_for_paged_slice():
-    qd, kc, vc = _decode_inputs(7, 1, 2, 1, 128, 16)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tk.ragged_decode(torch.tensor(qd), torch.tensor(kc), torch.tensor(vc),
-                         torch.tensor([3]), table=torch.zeros(1, 1))
-    kq, ks = _q8(kc)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tk.ragged_decode_q8(torch.tensor(qd), kq, ks, kq, ks,
-                            torch.tensor([3]), table=torch.zeros(1, 1))
+    # the paged modes and the scatter-append wrappers on CPU tensors
+    pool, table = torch.tensor(kc[0])[None], torch.tensor([[0]])
+    tk.ragged_decode(torch.tensor(qd), pool, pool, torch.tensor([5]),
+                     table=table)
+    pq, ps = kq[0][None], ks[0].reshape(1, 1, 1, 128)
+    tk.ragged_decode_q8(torch.tensor(qd), pq, ps, pq, ps, torch.tensor([5]),
+                        table=table)
+    row = torch.tensor(qd[:, 0, :1])                          # [1, KVH, D]
+    tk.paged_scatter_append(pool, pool.clone(), row, row, torch.tensor([7]),
+                            table)
+    tk.paged_scatter_append_q8(pq, ps, pq.clone(), ps.clone(), row, row,
+                               torch.tensor([7]), table)
+    counts = tk.launch_counts()
+    assert set(counts) == {"flash_prefill", "ragged_decode",
+                           "ragged_decode_q8", "ragged_decode_paged",
+                           "ragged_decode_q8_paged", "paged_scatter_append",
+                           "paged_scatter_append_q8"}
+    assert not any(counts.values())
 
 
 # ------------------------------------------------------------- on the card
@@ -229,3 +234,90 @@ def test_cuda_decode_vs_plain(cuda, dtype, q8):
     tol = F32 if dtype == "float32" else BF16_CARD
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **tol)
+
+
+def _paged_case(seed, B, KVH, D, NB, MAXB, lens):
+    """Pools [NB, KVH, 128, D] and a shuffled, non-contiguous table whose
+    entries past each slot's allocation are 0."""
+    r = _rng(seed)
+    pool_k = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    pool_v = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    perm = r.permutation(np.arange(1, NB))
+    table = np.zeros((B, MAXB), np.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        k = -(-n // 128)
+        table[b, :k] = perm[used:used + k]
+        used += k
+    return pool_k, pool_v, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8", [False, True])
+def test_cuda_paged_decode_vs_plain(cuda, dtype, q8):
+    td = getattr(torch, dtype)
+    lens = [1, 130, 384, 257]
+    pool_k, pool_v, table = _paged_case(10, 4, 2, 64, 16, 3, lens)
+    q = torch.tensor(_rng(11).standard_normal((4, 1, 8, 64)), device=cuda,
+                     dtype=torch.float32).to(td)
+    tab = torch.tensor(table, device=cuda)
+    lt = torch.tensor(lens, device=cuda)
+    name = "ragged_decode_q8_paged" if q8 else "ragged_decode_paged"
+    before = tk.launch_counts()[name]
+    if q8:
+        kq, ks = _q8(pool_k.reshape(1, -1, 128, 64))
+        vq, vs = _q8(pool_v.reshape(1, -1, 128, 64))
+        args = [kq.reshape(16, 2, 128, 64).to(cuda),
+                ks.reshape(16, 2, 1, 128).to(cuda),
+                vq.reshape(16, 2, 128, 64).to(cuda),
+                vs.reshape(16, 2, 1, 128).to(cuda)]
+        out = tk.ragged_decode_q8(q, *args, lt, table=tab)
+        ref = tk.ragged_decode_q8_plain(q, *args, lt, table=tab)
+    else:
+        k, v = _dev((pool_k, pool_v), cuda, td)
+        out = tk.ragged_decode(q, k, v, lt, sliding_window=100, table=tab)
+        ref = tk.ragged_decode_plain(q, k, v, lt, sliding_window=100,
+                                     table=tab)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()[name] == before + 1
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_paged_scatter_vs_plain(cuda, dtype):
+    """Bit-exact over the whole pool, trash block included; inactive slots
+    go to the trash block."""
+    B, KVH, D, NB = 5, 2, 64, 12
+    pool_k, pool_v, table = _paged_case(12, B, KVH, D, NB, 4,
+                                        [1, 129, 300, 512, 40])
+    r = _rng(13)
+    k_new = torch.tensor(r.standard_normal((B, KVH, D)), dtype=torch.float32,
+                         device=cuda)
+    v_new = torch.tensor(r.standard_normal((B, KVH, D)), dtype=torch.float32,
+                         device=cuda)
+    pos = torch.tensor([0, 128, 299, 511, 39], device=cuda)
+    tab = torch.tensor(table, device=cuda)
+    act = torch.tensor([True, True, False, True, False], device=cuda)
+    if dtype == "int8":
+        kq, ks = _q8(pool_k.reshape(1, -1, 128, D))
+        vq, vs = _q8(pool_v.reshape(1, -1, 128, D))
+        pools = [kq.reshape(NB, KVH, 128, D), ks.reshape(NB, KVH, 1, 128),
+                 vq.reshape(NB, KVH, 128, D), vs.reshape(NB, KVH, 1, 128)]
+        pools = [t.to(cuda) for t in pools]
+        ref = [t.clone() for t in pools]
+        tk.paged_scatter_append_q8(*pools, k_new, v_new, pos, tab, act)
+        tk.paged_scatter_append_q8_plain(*ref, k_new, v_new, pos, tab, act)
+    else:
+        td = getattr(torch, dtype)
+        pools = _dev((pool_k, pool_v), cuda, td)
+        ref = [t.clone() for t in pools]
+        kn, vn = k_new.to(td), v_new.to(td)
+        tk.paged_scatter_append(*pools, kn, vn, pos, tab, act)
+        tk.paged_scatter_append_plain(*ref, kn, vn, pos, tab, act)
+    torch.cuda.synchronize()
+    for got, want in zip(pools, ref):
+        assert torch.equal(got, want)
