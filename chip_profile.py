@@ -5,9 +5,11 @@
 Serves chip_smoke.py's synthetic Llama-3.1-8B in bf16 through the port's
 gRPC backend, first dense (chip_smoke phase 4's configuration and four
 requests), then paged (phase 5's configuration and its first wave of six
-requests), each with chip_smoke's checks; then drives the same requests
-again with fresh prompt ids (no prompt-cache reuse), first unprofiled,
-then under torch.profiler with CUDA activity. Prints one JSON line per
+requests), then ragged through the port's Engine in-process (phase 6's
+configuration and its two waves of eight requests), each with
+chip_smoke's checks; then drives the same requests again with fresh
+prompt ids (no prompt-cache or prefix reuse), first unprofiled, then
+under torch.profiler with CUDA activity. Prints one JSON line per
 path: the unprofiled and profiled wall times, device busy time by kernel
 class, the top kernels and the device's idle share of the profiled
 window. Kernels run on one stream,
@@ -25,8 +27,11 @@ import chip_smoke as smoke
 
 
 def _kernel_class(key: str) -> str:
-    if "decode_kernel" in key or "prefill_kernel" in key:
+    if any(t in key for t in ("decode_kernel", "prefill_kernel",
+                                "ragged_kernel")):
         return "attention (port kernels)"
+    if "scatter_rows" in key:
+        return "kv scatter (port kernel)"
     if any(t in key.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")):
         return "gemm (cuBLAS)"
     if key.startswith(("Memcpy", "Memset")):
@@ -78,10 +83,33 @@ def profile_window(label, requests=None):
     return hook
 
 
+def profile_engine(label):
+    """A serve_ragged hook: drive chip_smoke's ragged waves with fresh
+    prompt ids unprofiled, then again profiled, and print the profiled
+    window's summary."""
+
+    def hook(eng):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        _, plain_wall = smoke.drive_engine(eng, salt=101)
+        s0 = eng.metrics["decode_steps_dispatched"]
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            smoke.drive_engine(eng, salt=202)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = _summary(p, wall, eng.metrics["decode_steps_dispatched"] - s0)
+        out["unprofiled_wall_ms"] = plain_wall * 1e3
+        smoke.log(f"profile {label} " + json.dumps(out))
+
+    return hook
+
+
 def main():
     """The dense bf16 path (chip_smoke phase 4's configuration and four
-    requests), then the paged bf16 path (phase 5's configuration and its
-    first wave of six requests)."""
+    requests), the paged bf16 path (phase 5's configuration and its first
+    wave of six requests), then the ragged bf16 path (phase 6's)."""
     smoke.phase_device()
     smoke.phase_build()
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
@@ -95,6 +123,8 @@ def main():
                            waves=[smoke.PAGED_WAVE1],
                            then=profile_window("bf16 paged",
                                                smoke.PAGED_WAVE1))
+        smoke.serve_ragged("bf16", d, "bfloat16", "",
+                           then=profile_engine("bf16 ragged"))
 
 
 if __name__ == "__main__":

@@ -12,14 +12,19 @@ and the script exits non-zero:
   2. kernels vs plain at the main path's shapes (Llama-3.1-8B geometry:
      H=32, KVH=8, D=128): max abs error against each kernel's plain
      PyTorch version with its tolerance (the paged scatters: bit-exact over
-     the whole pool), and the error of a planted fault that the check must
-     reject; kernel/plain/library times (CUDA events, median of 25 after
-     warmup) and the least time the card could take (bound_ms).
+     the whole pool; the flat-row scatters bit-exact outside the trash
+     block), and the error of a planted fault that the check must reject;
+     kernel/plain/library times (CUDA events, median of 25 after warmup)
+     and the least time the card could take (bound_ms). The ragged
+     kernels run at phase 6's pack: T=192 rows, eight decode rows plus a
+     128-row prefill chunk, over the 129-block pool.
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
      (kernels), dense and paged, gives the same tokens and first-step
-     logits within tolerance; on the card paged tokens equal dense ones.
+     logits within tolerance; on the card paged tokens equal dense ones;
+     a ragged engine (fused loop on, a second request admitted mid-decode)
+     gives the same tokens on the card as on the CPU.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
@@ -35,6 +40,16 @@ and the script exits non-zero:
      pool's peak, that only the recipe's paged kernels launched, and three
      greedy requests' served tokens against a teacher-forced plain forward
      of the same model.
+  6. the ragged path: the same synthetic model served in-process by the
+     port's Engine with ragged continuous batching (max_slots=8,
+     max_context=4096, kv_pages=129, ragged_token_budget=192, the fused
+     ragged loop of 16 steps), both recipes; four requests (prompts 1, 17,
+     300, 700), then, once they decode, four more (1500, 2000, 40, 640),
+     64 new tokens each; checks that every prompt token was packed into
+     ragged ticks, that the loop exited on finishes and on pending prefill,
+     that the recipe's ragged kernels launched and the prefill and dense
+     decode kernels did not, and three greedy requests against the
+     teacher-forced reference.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -518,6 +533,219 @@ def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
     return res
 
 
+# phase 6's ragged pack: the eight decode rows at phase 5's lengths beside
+# one 128-row chunk at offset 1024 of a 1500-token prompt (T = 8*8 + 128)
+RAGGED_DECODE = [33, 49, 332, 732, 1532, 672, 712, 4095]
+RAGGED_CHUNK = (1024, 128)
+
+
+def _ragged_pack(decode_lens, chunk, maxb, nb, KVH, D, seed=0):
+    """A flat stream: one decode row (its own 8-row q block) per entry of
+    decode_lens at that kv length, then the (offset, rows) prefill chunk.
+    Pools and a shuffled table as _paged_pools makes them. Returns (k, v,
+    meta dict of int32 CUDA tensors, live rows, kvlens, nb)."""
+    import torch
+
+    off, n = chunk
+    kvlens = list(decode_lens) + [off + n]
+    qlens = [1] * len(decode_lens) + [n]
+    k, v, table, nb = _paged_pools(len(kvlens), KVH, D, kvlens, maxb,
+                                   seed=seed, nb=nb)
+    block_seq, qstart, live, row = [], [], [], 0
+    for s, ql in enumerate(qlens):
+        qstart.append(row)
+        live += list(range(row, row + ql))
+        block_seq += [s] * -(-ql // 8)
+        row += -(-ql // 8) * 8
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    meta = dict(block_seq=i32(block_seq), qstart=i32(qstart),
+                qlen=i32(qlens), kvlen=i32(kvlens), tables=table)
+    return k, v, meta, live, kvlens, nb
+
+
+def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
+                           q8=False, window=None, nb=0):
+    """Ragged paged attention (kernels 8 and 9) against its plain version
+    on the live rows of the pack (padding rows are garbage by contract).
+    Plants a fault — the plain version reading the identity map (blocks
+    1..maxb for every sequence) instead of the table — that the tolerance
+    must reject."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        ragged_paged_attention, ragged_paged_attention_plain,
+        ragged_paged_attention_q8, ragged_paged_attention_q8_plain,
+    )
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    k, v, meta, live, kvlens, nb = _ragged_pack(decode_lens, chunk, maxb,
+                                                nb, KVH, D, seed=4)
+    T = int(meta["block_seq"].shape[0]) * 8
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(T, H, D, device="cuda", generator=g).to(dtype)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = (kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128))
+        kernel = ragged_paged_attention_q8
+        plain_fn = ragged_paged_attention_q8_plain
+    else:
+        pools = (k.to(dtype), v.to(dtype))
+        kernel, plain_fn = ragged_paged_attention, ragged_paged_attention_plain
+    fn = lambda: kernel(q, *pools, **meta,  # noqa: E731
+                        sliding_window=window)
+    plain = lambda: plain_fn(q, *pools, **meta,  # noqa: E731
+                             sliding_window=window)
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    n_seq = len(kvlens)
+    ident = (torch.arange(maxb, dtype=torch.int32, device="cuda")
+             + 1).expand(n_seq, maxb).contiguous()
+    fault = plain_fn(q, *pools, **dict(meta, tables=ident),
+                     sliding_window=window)
+    rows = torch.tensor(live, device="cuda")
+    kname = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    name = (f"{kname} {str(dtype).split('.')[-1]} T={T} MAXB={maxb} NB={nb} "
+            f"H={H} KVH={KVH} D={D} decode={decode_lens} chunk={chunk} "
+            f"window={window}")
+    res = _check_close(name, out[rows], ref[rows],
+                       TOL[str(dtype).split(".")[-1]], fault=fault[rows])
+    # the work this pack needs: each live row attends to keys up to its
+    # position (within the window); each sequence's K/V below its length
+    # (from its first live row's window start) is read once, with q and
+    # out of the live rows and the table entries
+    es = q.element_size()
+    kv_es = 1 if q8 else es
+    pairs, kv_read, entries = 0, 0, 0
+    qlens = [1] * len(decode_lens) + [chunk[1]]
+    for kvl, ql in zip(kvlens, qlens):
+        first = kvl - ql
+        lo = max(first - window + 1, 0) if window else 0
+        kv_read += kvl - lo
+        entries += -(-kvl // 128) - lo // 128
+        pairs += sum(min(p + 1, window or p + 1) for p in range(first, kvl))
+    nbytes = (kv_read * KVH * D * 2 * kv_es
+              + (kv_read * KVH * 2 * 4 if q8 else 0)
+              + 2 * len(live) * H * D * es + 4 * entries)
+    flops = 4.0 * pairs * H * D
+    peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    res.update(ms=_time_ms(fn), plain_ms=_time_ms(plain),
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_formula=(f"max({nbytes:.4g} B of unique K/V + live q/out "
+                              f"+ table / 3.35 TB/s, {flops:.4g} causal flop "
+                              f"/ {peak / 1e12:.0f} TFLOP/s)"),
+               library_ms=None,
+               library_note="no single PyTorch call attends a flat stream "
+                            "through block tables")
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
+                         nb=0):
+    """Flat-row scatter (kernels 10 and 11) at the pack's own targets
+    (models/llama.ragged_row_targets: live rows at their positions through
+    the table, padding rows to the trash block at row % 128, colliding
+    there when T > 128). Outside block 0 the pools after the kernel must
+    equal the pools after the plain version BIT FOR BIT, and every row
+    outside the live targets must equal a clone taken before; the planted
+    fault (live rows written at off+1) must differ."""
+    import torch
+
+    from localai_tpu_torch.models.llama import ragged_row_targets
+    from localai_tpu_torch.ops.kernels import (
+        ragged_scatter_append, ragged_scatter_append_plain,
+        ragged_scatter_append_q8, ragged_scatter_append_q8_plain,
+    )
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    k, v, meta, live, _, nb = _ragged_pack(decode_lens, chunk, maxb, nb,
+                                           KVH, D, seed=6)
+    T = int(meta["block_seq"].shape[0]) * 8
+    _, pb, off = ragged_row_targets(meta["block_seq"], meta["qstart"],
+                                    meta["qlen"], meta["kvlen"],
+                                    meta["tables"], maxb * 128)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k_new = torch.randn(T, KVH, D, device="cuda", generator=g).to(dtype)
+    v_new = torch.randn(T, KVH, D, device="cuda", generator=g).to(dtype)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128)]
+        kernel = ragged_scatter_append_q8
+        plain_fn = ragged_scatter_append_q8_plain
+    else:
+        pools = [k.to(dtype), v.to(dtype)]
+        kernel, plain_fn = ragged_scatter_append, ragged_scatter_append_plain
+    before = [t.clone() for t in pools]
+    ref = [t.clone() for t in pools]
+    kernel(*pools, k_new, v_new, pb, off)
+    torch.cuda.synchronize()
+    plain_fn(*ref, k_new, v_new, pb, off)
+    rows = torch.tensor(live, device="cuda")
+    lpb, loff = pb.long()[rows], off.long()[rows]
+    keep = torch.ones(nb, KVH, 128, dtype=torch.bool, device="cuda")
+    keep[lpb, :, loff] = False
+    keep[0] = False                       # the trash block: a benign race
+
+    def body(t):
+        return t[:, :, 0] if t.shape[2] == 1 else t
+
+    for i, (got, want, old) in enumerate(zip(pools, ref, before)):
+        if not torch.equal(got[1:], want[1:]):
+            raise AssertionError(f"ragged scatter pool {i}: kernel and "
+                                 f"plain version differ outside block 0")
+        if not torch.equal(body(got)[keep], body(old)[keep]):
+            raise AssertionError(f"ragged scatter pool {i}: a row outside "
+                                 f"the targets changed")
+    fault = [t.clone() for t in before]
+    plain_fn(*fault, k_new, v_new, pb, torch.where(
+        pb > 0, (off + 1) % 128, off).to(torch.int32))
+    if all(torch.equal(a[1:], b[1:]) for a, b in zip(fault, pools)):
+        raise AssertionError("ragged scatter: the check does not reject "
+                             "the planted fault")
+    kname = "ragged_scatter_append_q8" if q8 else "ragged_scatter_append"
+    name = (f"{kname} {str(dtype).split('.')[-1]} T={T} NB={nb} KVH={KVH} "
+            f"D={D}")
+    res = {"max_abs_err": 0.0, "tol": "bit-exact outside block 0",
+           "planted_fault_differs": True}
+    es = k_new.element_size()
+    n = len(live)
+    # in: the live rows and their targets; out: the rows written (int8:
+    # plus one f32 scale per row and head)
+    out_es = 1 if q8 else es
+    nbytes = (2 * n * KVH * D * es + 8 * n + 2 * n * KVH * D * out_es
+              + (2 * n * KVH * 4 if q8 else 0))
+    res.update(
+        ms=_time_ms(lambda: kernel(*pools, k_new, v_new, pb, off)),
+        plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pb, off)),
+        bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        bound_formula=f"{nbytes} B / 3.35 TB/s")
+    if q8:
+        res.update(library_ms=None,
+                   library_note="no single PyTorch call quantizes rows and "
+                                "scatters them with their scales")
+    else:
+        pbl, offl = pb.long(), off.long()
+
+        def library():
+            pools[0][pbl, :, offl] = k_new
+            pools[1][pbl, :, offl] = v_new
+        res.update(library_ms=_time_ms(library),
+                   library_note="pool[pb, :, off] = row (index_put_) for the "
+                                "K and the V pool")
+    log(name + " " + json.dumps(res))
+    return res
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes
     (plus small f32 / GQA / window cases for the algorithm)."""
@@ -572,6 +800,23 @@ def phase_kernels():
                                                           q8=True)
     check_paged_scatter(16, KVH, D, bf16, q8=True)
     check_paged_scatter(5, 2, 64, f32, q8=True, nb=12, maxb=4)
+    # ragged (kernels 8-11) at phase 6's pack over the 129-block pool (MAXB
+    # 32); extra: f32 at the same pack, a small sliding-window stream
+    rd, rc = RAGGED_DECODE, RAGGED_CHUNK
+    main["ragged_paged_attention"] = check_ragged_attention(
+        H, KVH, D, bf16, rd, rc, 32, nb=129)
+    main["ragged_paged_attention_q8"] = check_ragged_attention(
+        H, KVH, D, bf16, rd, rc, 32, q8=True, nb=129)
+    check_ragged_attention(H, KVH, D, f32, rd, rc, 32, nb=129)
+    check_ragged_attention(8, 2, 64, f32, [5, 200, 300], (96, 40), 4,
+                           window=64)
+    check_ragged_attention(8, 2, 64, bf16, [5, 200, 300], (96, 40), 4,
+                           q8=True, window=64)
+    main["ragged_scatter_append"] = check_ragged_scatter(KVH, D, bf16, rd,
+                                                         rc, 32, nb=129)
+    main["ragged_scatter_append_q8"] = check_ragged_scatter(
+        KVH, D, bf16, rd, rc, 32, q8=True, nb=129)
+    check_ragged_scatter(2, 64, f32, [5, 200, 300], (96, 40), 4)
     log("phase2 kernels: all within tolerance")
     return main
 
@@ -614,6 +859,10 @@ def phase_card_vs_cpu():
     # paged: 256-token context (MAXB 2) over a 5-block pool; the prefill
     # check writes through a shuffled table
     ec_paged = dataclasses.replace(ec, max_context=256, kv_pages=5)
+    # ragged: two slots over the same pool, 64-row stream, fused loop on
+    ec_ragged = dataclasses.replace(ec_paged, max_slots=2,
+                                    ragged_token_budget=64,
+                                    ragged_loop_steps=16)
     table = [[3, 1]]
 
     def run(device):
@@ -638,7 +887,33 @@ def phase_card_vs_cpu():
             out[key] = [o.token_id for o in eng.generate(GenRequest(
                 prompt, SamplingParams(temperature=0.0), max_tokens=16,
                 ignore_eos=True))]
+        out["ragged_tokens"] = run_ragged(m, device)
         return out
+
+    def run_ragged(m, device):
+        """The ragged engine (fused loop on): the greedy request, and after
+        two ticks a 40-token one whose chunks pack beside its decode."""
+        eng = Engine(cfg, m, None, ec_ragged, device=device)
+        qs = [eng.submit(GenRequest(prompt, SamplingParams(temperature=0.0),
+                                    max_tokens=16, ignore_eos=True))[1]]
+        for _ in range(2):
+            eng.step()
+        qs.append(eng.submit(GenRequest(prompt[::-1] + prompt[:17],
+                                        SamplingParams(temperature=0.0),
+                                        max_tokens=16, ignore_eos=True))[1])
+        while eng.step():
+            pass
+        if eng.metrics["ragged_dispatches"] < 2:
+            raise AssertionError("phase3: the ragged engine packed no "
+                                 "mixed tick")
+        ids = []
+        for q in qs:
+            ids.append([])
+            while not q.empty():
+                o = q.get_nowait()
+                if o.token_id >= 0:
+                    ids[-1].append(o.token_id)
+        return ids
 
     t0 = time.perf_counter()
     cpu = run("cpu")
@@ -662,6 +937,11 @@ def phase_card_vs_cpu():
             raise AssertionError(f"{kind}: first-step logits differ by {err}")
     if gpu["paged_tokens"] != gpu["tokens"]:
         raise AssertionError("card: paged and dense engines' tokens differ")
+    log(f"phase3 ragged cpu tokens  {cpu['ragged_tokens']}")
+    log(f"phase3 ragged card tokens {gpu['ragged_tokens']}")
+    if (cpu["ragged_tokens"] != gpu["ragged_tokens"]
+            or [len(t) for t in gpu["ragged_tokens"]] != [16, 16]):
+        raise AssertionError("ragged: card and CPU greedy tokens differ")
     model.to("cpu")
     del model
     torch.cuda.empty_cache()
@@ -936,28 +1216,38 @@ def paged_wave3():
             for i in range(PRESSURE_REQUESTS)]
 
 
-def check_reference(name, engine, outs):
-    """Hold greedy requests served on the paged path against a
+def paged_reference_cases(outs):
+    """Phase 5's teacher-forced cases: wave 1's 1500-token request (12
+    blocks through the table) and both wave-2 requests (the retained slot
+    and the borrowed blocks); the planted fault is wave 2's second
+    request's tokens after a different 640-token prefix, what a table
+    pointing at the wrong blocks would attend to."""
+    w1, w2 = outs[0]["_results"], outs[1]["_results"]
+    cases = {label: (r[4], r[1], r[2]) for label, r in (
+        ("wave1 1500-token", w1[4]), ("wave2 request 1", w2[0]),
+        ("wave2 request 2", w2[1]))}
+    _, toks, lps, _, ids = w2[1]
+    fault = (prompt_ids(0, SHARED, salt=99) + ids[SHARED:], toks, lps)
+    return cases, fault
+
+
+def check_reference(name, engine, cases, fault, phase="phase5"):
+    """Hold greedy requests served on the paged or ragged path against a
     teacher-forced reference: the prompt plus the served tokens go through
     the port's plain forward (models.llama.extend over a dense cache — plain
-    attention, no block table, none of the paged kernels) in one window,
-    which gives the logits that predicted each served token. Greedy serving
-    picks each row's argmax, so the served token's reference logit must be
-    within REF_MARGIN of the row's largest (gap) and its served logprob
-    within REF_LP_TOL of the reference's. Checked: wave 1's 1500-token
-    request (12 blocks through the table) and both wave-2 requests (the
-    retained slot and the borrowed blocks). The planted fault — wave 2's
-    second request's tokens after a different 640-token prefix, what a
-    table pointing at the wrong blocks would attend to — must fail."""
+    attention, no block table, none of the paged or ragged kernels) in one
+    window, which gives the logits that predicted each served token. Greedy
+    serving picks each row's argmax, so the served token's reference logit
+    must be within REF_MARGIN of the row's largest (gap) and its served
+    logprob within REF_LP_TOL of the reference's. `cases`: {label: (prompt
+    ids, served tokens, served logprobs)}; `fault`: served tokens and
+    logprobs under a WRONG prompt, which must fail."""
     import torch
 
     from localai_tpu_torch.models.llama import extend, init_kv_cache
     from localai_tpu_torch.ops.kernels import launch_counts
 
     cfg, dev = engine.cfg, engine.device
-    w1, w2 = outs[0]["_results"], outs[1]["_results"]
-    cases = {"wave1 1500-token": w1[4], "wave2 request 1": w2[0],
-             "wave2 request 2": w2[1]}
 
     def reference(ids, toks):
         seq = list(ids) + list(toks[:-1])
@@ -983,22 +1273,20 @@ def check_reference(name, engine, outs):
 
     before = launch_counts()
     out = {label: readings(reference(ids, toks), toks, lps)
-           for label, (_, toks, lps, _, ids) in cases.items()}
-    _, toks, lps, _, ids = w2[1]
-    out["planted fault"] = readings(
-        reference(prompt_ids(0, SHARED, salt=99) + ids[SHARED:], toks), toks,
-        lps)
+           for label, (ids, toks, lps) in cases.items()}
+    ids, toks, lps = fault
+    out["planted fault"] = readings(reference(ids, toks), toks, lps)
     if launch_counts() != before:
         raise AssertionError("the reference forward launched a kernel")
-    log(f"phase5 {name} reference (margin {REF_MARGIN}, logprob tol "
+    log(f"{phase} {name} reference (margin {REF_MARGIN}, logprob tol "
         f"{REF_LP_TOL}) " + json.dumps(out))
     for label, r in out.items():
         ok = r["max_gap"] <= REF_MARGIN and r["max_dlogprob"] <= REF_LP_TOL
         if label == "planted fault" and ok:
-            raise AssertionError(f"phase5 {name}: the reference check does "
+            raise AssertionError(f"{phase} {name}: the reference check does "
                                  f"not reject the planted fault")
         if label != "planted fault" and not ok:
-            raise AssertionError(f"phase5 {name} {label}: served greedy "
+            raise AssertionError(f"{phase} {name} {label}: served greedy "
                                  f"tokens disagree with the reference {r}")
     return out
 
@@ -1033,7 +1321,8 @@ def phase_paged_path(smi):
             res[name] = serve_recipe(
                 name, d, kw, phase="phase5", load_opts=PAGED_LOAD,
                 waves=waves, then=lambda c, s, outs, name=name:
-                check_reference(name, s.engine, outs))
+                check_reference(name, s.engine,
+                                *paged_reference_cases(outs)))
         counts = launch_counts()
     log("phase5 launches on the paged path " + json.dumps(counts))
     own = {"bf16": ("ragged_decode_paged", "paged_scatter_append"),
@@ -1086,6 +1375,187 @@ def phase_paged_path(smi):
     return counts
 
 
+# ------------------------------------------------------------------ phase 6
+
+RAGGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
+                 ragged_token_budget=192, ragged_loop_steps=16,
+                 prefill_buckets=(64, 256), prefill_chunk=256)
+RAGGED_WAVES = [
+    [(1, dict(temperature=0.0)),
+     (17, dict(temperature=0.8, top_k=40, seed=11)),
+     (300, dict(temperature=0.0)),
+     (700, dict(temperature=0.9, top_p=0.9, seed=5))],
+    [(1500, dict(temperature=0.0)),
+     (2000, dict(temperature=0.0)),
+     (40, dict(temperature=0.8, top_k=40, seed=13)),
+     (640, dict(temperature=0.7, top_k=50, seed=21))],
+]
+RAGGED_OWN = {"bf16": ("ragged_paged_attention", "ragged_scatter_append"),
+              "int8": ("ragged_paged_attention_q8",
+                       "ragged_scatter_append_q8")}
+
+
+def drive_engine(eng, salt=6):
+    """Submit RAGGED_WAVES[0], step the engine until each of its requests
+    has streamed a token, submit RAGGED_WAVES[1], step to the end (a new
+    salt misses the prefix index). Returns
+    ([{ids, toks, lps, ttft, last}], wall seconds); TTFT counts from each
+    request's submit()."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    recs = []
+
+    def submit(w):
+        for i, (n, sp) in enumerate(RAGGED_WAVES[w]):
+            ids = prompt_ids(10 * w + i, n, salt=salt)
+            _, q = eng.submit(GenRequest(ids, SamplingParams(**sp),
+                                         max_tokens=NEW_TOKENS,
+                                         ignore_eos=True, logprobs=True))
+            recs.append(dict(ids=ids, q=q, t0=time.perf_counter(),
+                             ttft=None, toks=[], lps=[], last=None))
+
+    def pump():
+        busy = eng.step()
+        now = time.perf_counter()
+        for r in recs:
+            while not r["q"].empty():
+                o = r["q"].get_nowait()
+                if o.token_id >= 0:
+                    if r["ttft"] is None:
+                        r["ttft"] = now - r["t0"]
+                    r["toks"].append(o.token_id)
+                    r["lps"].append(o.logprob)
+                if o.finished:
+                    r["last"] = o
+        return busy
+
+    t0 = time.perf_counter()
+    submit(0)
+    for _ in range(10000):
+        if all(r["ttft"] is not None for r in recs):
+            break
+        pump()
+    submit(1)
+    for _ in range(10000):
+        if not pump():
+            break
+    return recs, time.perf_counter() - t0
+
+
+def serve_ragged(name, model_dir, dtype, kv_kind, then=None):
+    """One recipe on the ragged path; returns its readings. `then(eng)`,
+    if given, runs after the checks on the same engine."""
+    import gc
+    import statistics
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = load_config(model_dir, dtype=dtype)
+    params = load_params(model_dir, cfg, dtype=dtype, device="cuda")
+    eng = Engine(cfg, params, None, EngineConfig(**RAGGED_EC,
+                                                 cache_type=kv_kind),
+                 device="cuda")
+    eng.warmup()
+    log(f"phase6 {name}: weights + engine + warmup "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        reset_launch_counts()
+        recs, wall = drive_engine(eng)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        vocab = CFG_8B["vocab_size"]
+        for i, r in enumerate(recs):
+            last = r["last"]
+            if (last is None or last.finish_reason != "length"
+                    or len(r["toks"]) != NEW_TOKENS):
+                raise AssertionError(f"phase6 {name} request {i}: finish "
+                                     f"{last and last.finish_reason} "
+                                     f"tokens {len(r['toks'])}")
+            if not all(0 <= t < vocab for t in r["toks"]) or not all(
+                    x == x and abs(x) < 1e30 for x in r["lps"]):
+                raise AssertionError(f"phase6 {name}: bad token or logprob")
+        m = dict(eng.metrics)
+        prompts = [len(r["ids"]) for r in recs]
+        ttfts = [r["ttft"] for r in recs]
+        out = {
+            "recipe": name, "prompt_lengths": prompts,
+            "new_tokens_each": NEW_TOKENS,
+            "tokens": m["tokens_generated"], "wall_s": wall,
+            "tok_s": m["tokens_generated"] / wall,
+            "ttft_p50_ms": statistics.median(ttfts) * 1e3,
+            "ttft_ms": [t * 1e3 for t in ttfts],
+            **{k: m[k] for k in (
+                "ragged_dispatches", "ragged_tokens_packed",
+                "ragged_prefill_tokens", "budget_utilization",
+                "rloop_exit_steps_cap", "rloop_exit_finish",
+                "rloop_exit_prefill", "rloop_exit_host_arbitration",
+                "decode_dispatches", "decode_steps_dispatched",
+                "tokens_by_path__ragged", "tokens_by_path__rloop",
+                "kv_blocks_peak")},
+            "launches": {k: v for k, v in counts.items() if v},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        log(f"phase6 {name} " + json.dumps(out))
+        if m["ragged_prefill_tokens"] != sum(prompts):
+            raise AssertionError(f"phase6 {name}: ragged_prefill_tokens "
+                                 f"{m['ragged_prefill_tokens']} != "
+                                 f"{sum(prompts)} prompt tokens")
+        if m["rloop_exit_finish"] <= 0 or m["rloop_exit_prefill"] <= 0:
+            raise AssertionError(f"phase6 {name}: the fused ragged loop "
+                                 f"never exited on a finish or on prefill")
+        for k in RAGGED_OWN[name]:
+            if counts[k] <= 0:
+                raise AssertionError(f"phase6 {name}: {k} never launched")
+        other = RAGGED_OWN["int8" if name == "bf16" else "bf16"]
+        for k in ("flash_prefill", "ragged_decode", "ragged_decode_q8") \
+                + other:
+            if counts[k]:
+                raise AssertionError(f"phase6 {name}: {k} launched on the "
+                                     f"ragged path")
+        cases = {f"{len(r['ids'])}-token": (r["ids"], r["toks"], r["lps"])
+                 for r in (recs[2], recs[4], recs[5])}
+        fault = (prompt_ids(99, 1500, salt=99), recs[4]["toks"],
+                 recs[4]["lps"])
+        check_reference(name, eng, cases, fault, phase="phase6")
+        if then is not None:
+            then(eng)
+        return out, counts
+    finally:
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ragged_path(smi):
+    """The ragged path at full width: the synthetic Llama-3.1-8B (32
+    layers) in the port's Engine with ragged continuous batching, bf16 then
+    the int8 recipe. The launch counts are zeroed just before each
+    recipe's requests and read just after; returns their sums."""
+    import tempfile
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    total = {}
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_8B, localai_synthetic=True), f)
+        for name, dtype, kv in (("bf16", "bfloat16", ""),
+                                ("int8", "int8", "int8")):
+            out, counts = serve_ragged(name, d, dtype, kv)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    log("phase6 launches on the ragged path " + json.dumps(total)
+        + f" card {smi}")
+    return total
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -1103,11 +1573,24 @@ KERNELS = {
     "paged_scatter_append_q8": (
         "localai_tpu_torch/csrc/paged_scatter.cu",
         "localai_tpu/ops/pallas/paged_scatter.py:254"),
+    "ragged_paged_attention": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:203"),
+    "ragged_paged_attention_q8": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:297"),
+    "ragged_scatter_append": ("localai_tpu_torch/csrc/paged_scatter.cu",
+                              "localai_tpu/ops/pallas/ragged_attention.py:490"),
+    "ragged_scatter_append_q8": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:520"),
 }
 # which path's run each kernel's `launches` comes from: PR 1's dense main
-# path (phase 4) or the paged path (phase 5)
+# path (phase 4), the paged path (phase 5) or the ragged path (phase 6)
 PAGED_KERNELS = ("ragged_decode_paged", "ragged_decode_q8_paged",
                  "paged_scatter_append", "paged_scatter_append_q8")
+RAGGED_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_q8",
+                  "ragged_scatter_append", "ragged_scatter_append_q8")
 
 
 def main():
@@ -1119,10 +1602,13 @@ def main():
     phase_card_vs_cpu()
     counts = phase_main_path()
     paged_counts = phase_paged_path(smi)
+    ragged_counts = phase_ragged_path(smi)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
-        launches = (paged_counts if name in PAGED_KERNELS else counts)[name]
+        launches = (ragged_counts if name in RAGGED_KERNELS
+                    else paged_counts if name in PAGED_KERNELS
+                    else counts)[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -8,7 +8,7 @@ What this slice serves, as the reference does:
   at admission (admission defers, FIFO, while the pool is exhausted),
   retaining a released slot's cached blocks as a warm prefix and sharing
   full blocks across slots through a content-hash prefix index with
-  copy-on-write; no ragged batching;
+  copy-on-write;
 - bucketed, batched burst admission (one prefill pass per same-bucket
   group) and chunked prefill through `extend` for prompts longer than the
   largest bucket;
@@ -16,6 +16,13 @@ What this slice serves, as the reference does:
   `decode_block` path stop-string slots keep, and the fused decode loop
   (decode_loop=64) with per-slot EOS / max_tokens / context-margin stops
   on the device, frozen slots and a [steps, B] token ring;
+- ragged continuous batching (ragged_token_budget > 0, paged only): every
+  admission is chunked, and a tick with prefill work packs every decode
+  slot plus prefill-chunk windows into one flat token stream served by one
+  `ragged_forward` — as the fused ragged loop (ragged_loop_steps=16: the
+  pack, then decode steps until a slot finishes, prefill is pending or the
+  step cap) or, for stop-string slots, a single step; pure-decode ticks
+  take the same loop without a pack;
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
   logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
@@ -42,11 +49,14 @@ from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.models.llama import (
     LlamaConfig,
     build_decode_loop,
+    build_ragged_loop,
     decode_step,
     extend,
     init_kv_cache,
     prefill,
+    ragged_forward,
 )
+from localai_tpu_torch.ops.kernels import QBLK
 from localai_tpu_torch.ops.paged import BLOCK, blocks_needed, init_paged
 from localai_tpu_torch.ops.rope import rope_table
 from localai_tpu_torch.ops.sampling import (
@@ -80,9 +90,11 @@ class EngineConfig:
     admit_per_tick: int = 4       # admission/prefill units per engine tick
     kv_pages: int = 0             # paged KV: physical 128-token blocks in the
                                   # pool, trash block 0 included (0 = dense)
-    ragged_token_budget: int = 0  # ragged batching (ragged slice)
-    ragged_loop_steps: int = 16   # fused ragged ticks (ragged slice; only
-                                  # read on ragged engines)
+    ragged_token_budget: int = 0  # ragged batching: flat-stream rows per
+                                  # mixed tick (paged KV only; 0 = off)
+    ragged_loop_steps: int = 16   # fused ragged ticks: steps per ragged
+                                  # dispatch (0/1 = single step; only read
+                                  # on ragged engines)
     grammar_table_states: int = 256  # device grammar tables (grammar
                                      # slice; only read with grammars)
     kv_policy: str = "full"       # KV lifecycle tier (KV-tier slice)
@@ -150,8 +162,10 @@ class _Slot:
 
 
 def _check_config(ec: EngineConfig):
-    if ec.ragged_token_budget:
-        raise not_ported("ragged_token_budget (ragged batching)", "ragged")
+    if ec.ragged_token_budget > 0 and ec.kv_pages <= 0:
+        # the flat-stream KV writes resolve through block tables
+        raise ValueError(
+            "ragged_token_budget requires paged KV (set kv_pages)")
     if ec.kv_policy not in ("", "full"):
         raise not_ported(f"kv_policy {ec.kv_policy!r}", "KV-tier")
     if ec.kv_cold_pages:
@@ -232,6 +246,13 @@ class Engine:
                 # beyond 128 slots those rows would collide
                 raise ValueError(f"paged KV serves at most {BLOCK} slots "
                                  f"(max_slots={self.ec.max_slots})")
+        # ragged continuous batching: one flat-stream dispatch for mixed
+        # prefill+decode ticks (models/llama.ragged_forward); _check_config
+        # made sure the pool is paged
+        self._ragged = self.ec.ragged_token_budget > 0
+        if self._ragged:
+            rows = max(self.ec.ragged_token_budget, 2 * QBLK)
+            self._ragged_rows = -(-rows // QBLK) * QBLK
         self._init_device_state()
         if self.ec.prefill_chunk < 8:
             raise ValueError("prefill_chunk must be >= 8")
@@ -278,7 +299,19 @@ class Engine:
             "host_sync_wait_ms": 0.0,
             "tokens_by_path__loop": 0,
             "tokens_by_path__dense": 0,
+            "tokens_by_path__rloop": 0,
+            "tokens_by_path__ragged": 0,
         }
+        if self._ragged:
+            # flat-stream packing: dispatches, live rows packed (decode +
+            # prefill), the prefill share of them, and the budget
+            # utilization (packed / (dispatches * rows)); the fused ragged
+            # loop's exits by cause
+            self.metrics.update(
+                ragged_dispatches=0, ragged_tokens_packed=0,
+                ragged_prefill_tokens=0, budget_utilization=0.0,
+                rloop_exit_steps_cap=0, rloop_exit_finish=0,
+                rloop_exit_prefill=0, rloop_exit_host_arbitration=0)
         if self._paged:
             # pool occupancy (blocks held by live and retained slots), and
             # the allocator's pressure events: admissions deferred on an
@@ -337,6 +370,7 @@ class Engine:
                                      device=dev)
         self._slots: list[_Slot | None] = [None] * B
         self._free: list[int] = list(range(B))
+        self._ragged_rr = 0   # ragged decode-row round-robin offset
         # prompt cache: per slot, the token ids whose K/V rows are still
         # valid in that slot's cache region (recorded at release)
         self._slot_kv_tokens: list[list[int]] = [[] for _ in range(B)]
@@ -364,6 +398,45 @@ class Engine:
         if self.ec.decode_loop > 1:
             self._decode_loop_fn = build_decode_loop(
                 _decode, max_steps=self.ec.decode_loop,
+                limit=self.ec.max_context - 2)
+
+        self._ragged_loop_fn = None
+        if not self._ragged:
+            return
+
+        def _ragged_step(params, cos, sin, kc, vc, sampler, last_logits,
+                         lengths, pack, is_decode, table):
+            """The mixed tick: sample every slot from last_logits (full
+            sampler, topk_width=None — the draw is width-independent, so
+            per-slot streams equal the dense paths'), splice the sampled
+            tokens into the flat stream at the decode rows, one
+            ragged_forward over decode rows and prefill chunks; decode slots
+            and final chunks take their new last-token logits, set_len
+            commits a final chunk's length."""
+            sampled, keys, logprobs = sample(last_logits, sampler,
+                                             topk_width=None)
+            ds = pack["decode_slot"]
+            toks = torch.where(ds >= 0, sampled[ds.clamp_min(0)],
+                               pack["tokens"])
+            logits = ragged_forward(
+                params, cfg, toks, cos, sin, kc, vc, pack["block_seq"],
+                pack["qstart"], pack["qlen"], pack["kvlen"], table,
+                pack["logit_rows"])
+            act = is_decode.to(torch.int32)
+            rows = torch.arange(sampled.shape[0], device=sampled.device)
+            sampler.token_counts.index_put_((rows, sampled.long()), act,
+                                            accumulate=True)
+            sampler = dataclasses.replace(sampler, key=keys)
+            last_logits = torch.where(pack["logit_set"][:, None], logits,
+                                      last_logits)
+            set_len = pack["set_len"]
+            lengths = torch.where(set_len >= 0, set_len, lengths + act)
+            return sampled, logprobs, sampler, last_logits, lengths
+
+        self._ragged_fn = _ragged_step
+        if self.ec.ragged_loop_steps > 1:
+            self._ragged_loop_fn = build_ragged_loop(
+                _ragged_step, _decode, max_steps=self.ec.ragged_loop_steps,
                 limit=self.ec.max_context - 2)
 
     def _install_rows(self, slots, rows: dict, counts_rows):
@@ -505,6 +578,101 @@ class Engine:
                 fast_width=fast_width, table=self._tab())
             return _AsyncFetch((toks, lps, n_out), extra=(steps,))
 
+    # ---------------------------------------------------- ragged dispatch
+
+    _PACK_FIELDS = ("tokens", "decode_slot", "set_len", "logit_set",
+                    "logit_rows", "block_seq", "qstart", "qlen", "kvlen",
+                    "is_decode")
+
+    def _pack_dev(self, pack):
+        """The host pack's arrays on the device, in ONE host→device copy
+        (int32, split back into views there; the bool fields compare)."""
+        flat = np.concatenate([np.asarray(pack[k]).astype(np.int32).ravel()
+                               for k in self._PACK_FIELDS])
+        dev_flat = torch.from_numpy(flat).to(self.device)
+        out, i = {}, 0
+        for k in self._PACK_FIELDS:
+            n = np.asarray(pack[k]).size
+            out[k] = dev_flat[i:i + n]
+            i += n
+        out["logit_set"] = out["logit_set"] != 0
+        out["is_decode"] = out["is_decode"] != 0
+        return out
+
+    def _note_ragged(self, pack):
+        """The ragged packing counters of one dispatch."""
+        m = self.metrics
+        packed = int(pack["packed"])
+        m["ragged_dispatches"] += 1
+        m["ragged_tokens_packed"] += packed
+        # the packed rows that are not decode rows: prefill-chunk tokens
+        m["ragged_prefill_tokens"] += packed - int(np.sum(pack["is_decode"]))
+        m["budget_utilization"] = m["ragged_tokens_packed"] / max(
+            m["ragged_dispatches"] * self._ragged_rows, 1)
+
+    def _dev_ragged(self, pack):
+        """ONE flat-stream dispatch for a mixed tick: every packed decode
+        slot (one sampled token each) plus the packed chunked-prefill
+        windows run a single ragged forward (see _ragged_tick)."""
+        self.metrics["decode_dispatches"] += 1
+        self.metrics["decode_steps_dispatched"] += 1
+        self._note_ragged(pack)
+        with torch.no_grad():
+            dp = self._pack_dev(pack)
+            (tokens, logprobs, self._sampler, self._last_logits,
+             self._lengths) = self._ragged_fn(
+                self.params, self._cos, self._sin, self._kc, self._vc,
+                self._sampler, self._last_logits, self._lengths, dp,
+                dp["is_decode"], self._tab())
+            return _AsyncFetch((tokens, logprobs))
+
+    def _dev_ragged_loop(self, pack, remaining, check_eos, prefill_pending):
+        """ONE fused ragged dispatch: the mixed pack as iteration 0, then up
+        to ragged_loop_steps-1 decode steps for every live decode slot
+        (models/llama.build_ragged_loop). `prefill_pending` (host bool)
+        ends the dispatch after iteration 0, so TTFT stays at single-step
+        ragged levels. Steps run and the exit code ride the fetch."""
+        self.metrics["decode_dispatches"] += 1
+        self._note_ragged(pack)
+        dev = self.device
+        with torch.no_grad():
+            dp = self._pack_dev(pack)
+            (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
+             self._lengths) = self._ragged_loop_fn(
+                self.params, self._cos, self._sin, self._kc, self._vc,
+                self._sampler, self._last_logits, self._lengths,
+                dp["is_decode"], torch.as_tensor(remaining, device=dev),
+                torch.as_tensor(check_eos, device=dev), self._eos_dev,
+                bool(prefill_pending), pack=dp, table=self._tab(),
+                fast_width=None, has_pack=True)
+            return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
+
+    def _dev_rloop_decode(self, active, remaining, check_eos,
+                          fast_width=None):
+        """The fused ragged loop without a pack: a pure-decode tick on a
+        ragged engine, with the loop's first-finish exit."""
+        self.metrics["decode_dispatches"] += 1
+        dev = self.device
+        with torch.no_grad():
+            (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
+             self._lengths) = self._ragged_loop_fn(
+                self.params, self._cos, self._sin, self._kc, self._vc,
+                self._sampler, self._last_logits, self._lengths,
+                torch.as_tensor(active, device=dev),
+                torch.as_tensor(remaining, device=dev),
+                torch.as_tensor(check_eos, device=dev), self._eos_dev, False,
+                table=self._tab(), fast_width=fast_width, has_pack=False)
+            return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
+
+    def _dev_install(self, idx, row, counts_row):
+        """Sampler-row install for a ragged final prefill chunk (the dense
+        path installs inside _dev_extend_final; the ragged dispatch leaves
+        it to here, after the pack)."""
+        with torch.no_grad():
+            self._install_rows(
+                [idx], {k: np.asarray(v)[None] for k, v in row.items()},
+                None if counts_row is None else np.asarray(counts_row)[None])
+
     # ------------------------------------------------------------ requests
 
     def submit(self, req: GenRequest) -> tuple[int, queue.Queue]:
@@ -578,6 +746,11 @@ class Engine:
         n = len(req.prompt_ids)
         chunked = n > self._small_max
         bucket = None if chunked else self._bucket(n)
+        if self._ragged:
+            # ragged admissions are always chunked: admission is host-only
+            # slot bookkeeping and the prompt packs unpadded into mixed
+            # ragged ticks — no bucket padding, no admission dispatch
+            chunked, bucket = True, None
         slot, lcp = self._pick_slot(req.prompt_ids)
         if self._paged:
             shared = None
@@ -669,7 +842,9 @@ class Engine:
 
     def _prefill_drain(self, budget: int, pending: list):
         for _ in range(budget):
-            if self._prefillq:
+            # ragged engines pack ALL prefill into mixed ragged ticks
+            # (_ragged_tick); nothing takes the dense chunked path here
+            if self._prefillq and not self._ragged:
                 idx = self._prefillq[0]
                 slot = self._slots[idx]
                 ids = slot.req.prompt_ids
@@ -800,7 +975,8 @@ class Engine:
     def _dispatch_loop(self, active, entries, fast):
         """Dispatch the fused loop with per-slot budgets net of the pending
         dispatch's reservation, so two pipelined loops never overshoot."""
-        G = self.ec.decode_loop
+        G = (self.ec.ragged_loop_steps if self._ragged_loop_fn is not None
+             else self.ec.decode_loop)
         B = self.ec.max_slots
         remaining = np.zeros((B,), np.int32)
         check_eos = np.zeros((B,), bool)
@@ -821,6 +997,13 @@ class Engine:
             res[i] = int(min(G, remaining[i]))
             self._slots[i].inflight += res[i]
         self._inflight_steps = G
+        if self._ragged_loop_fn is not None:
+            # ragged engines: pure-decode dispatches take the pack-free
+            # ragged loop — the decode loop's stops plus the first-finish
+            # exit, so a freed slot admits without waiting out the loop
+            fetch = self._dev_rloop_decode(active, remaining, check_eos,
+                                           fast)
+            return ("rloop", fetch, live, res)
         fetch = self._dev_decode_loop(active, remaining, check_eos, fast)
         return ("loop", fetch, live, res)
 
@@ -855,31 +1038,54 @@ class Engine:
             if s is not None and s.request_id == rid:
                 s.inflight = max(0, s.inflight - res.get(i, 0))
 
-    def _consume_loop(self, pend):
-        """Finish a fused loop's fetch, credit the steps actually run and
-        commit slot b's n_out[b] tokens in device order."""
-        _, fetch, entries, res = pend
-        t0 = time.perf_counter()
-        tokens, logprobs, n_out, steps = fetch.wait()
-        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
-        self.metrics["decode_steps_dispatched"] += int(steps)
-        self._release_reservations(entries, res)
-        now = time.monotonic()
-        for g in range(int(steps)):
+    # device exit codes of the fused ragged loop (models/llama.py
+    # RLOOP_EXIT_*) → the reference's metric names; host_arbitration is
+    # recorded host-side when a tick declines the loop (_ragged_tick)
+    _RLOOP_EXIT_REASON = {0: "steps_cap", 1: "finish", 2: "prefill"}
+
+    def _rloop_exit(self, code: int, reason: str | None = None) -> None:
+        """Count one fused-ragged-loop exit as rloop_exit_<cause>."""
+        reason = reason or self._RLOOP_EXIT_REASON.get(code, "steps_cap")
+        self.metrics["rloop_exit_" + reason] += 1
+
+    def _emit_ring(self, entries, tokens, logprobs, n_out, steps, now,
+                   path):
+        """Commit a [steps, B] token ring in device order: slot b's valid
+        tokens are rows 0..n_out[b]-1. The host re-derives every finish in
+        _emit; a slot finished earlier (cancel/deadline) drops the rest."""
+        for g in range(steps):
             for i, rid in entries:
                 if g >= int(n_out[i]):
                     continue
                 slot = self._slots[i]
                 if slot is None or slot.request_id != rid:
-                    continue  # finished earlier (cancel/deadline)
+                    continue
                 self._emit(i, slot, int(tokens[g, i]), float(logprobs[g, i]),
-                           now, path="loop")
+                           now, path=path)
+
+    def _consume_loop(self, pend):
+        """Finish a fused loop's fetch, credit the steps actually run and
+        commit slot b's n_out[b] tokens in device order. The pack-free
+        ragged loop ("rloop") also carries its exit code."""
+        tag, fetch, entries, res = pend
+        t0 = time.perf_counter()
+        out = fetch.wait()
+        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
+        if tag == "rloop":
+            tokens, logprobs, n_out, code, steps = out
+            self._rloop_exit(int(code))
+        else:
+            tokens, logprobs, n_out, steps = out
+        self.metrics["decode_steps_dispatched"] += int(steps)
+        self._release_reservations(entries, res)
+        self._emit_ring(entries, tokens, logprobs, n_out, int(steps),
+                        time.monotonic(), tag)
 
     def _consume(self, pend):
         """Block on a dispatch's results and run the host-side token
         handling for every slot that was active at dispatch time and still
         serves the same request."""
-        if pend[0] == "loop":
+        if pend[0] in ("loop", "rloop"):
             self._consume_loop(pend)
             return
         _, fetch, entries, res = pend
@@ -904,6 +1110,12 @@ class Engine:
         """One engine iteration. In pipelined mode one decode dispatch stays
         in flight: dispatch N+1 is enqueued before N's tokens are read.
         Returns True while work remains."""
+        if self._ragged and self._step_ragged():
+            # mixed tick: decode + prefill ran as one ragged dispatch,
+            # consumed synchronously (no pending survives a ragged tick)
+            return (any(s is not None for s in self._slots)
+                    or not self._queue.empty() or self._pending is not None
+                    or self._deferred is not None)
         sync = not self.ec.pipeline
         if sync and self._pending is not None:
             self._consume(self._pending)
@@ -923,6 +1135,160 @@ class Engine:
         return (any(s is not None for s in self._slots)
                 or not self._queue.empty() or self._pending is not None
                 or self._deferred is not None)
+
+    # ------------------------------------------------------ ragged scheduling
+
+    def _ragged_chunkable(self) -> list[int]:
+        """Prefill-queue slots whose next chunk can ride the flat stream."""
+        return [i for i in self._prefillq if self._slots[i] is not None]
+
+    def _step_ragged(self) -> bool:
+        """Run one mixed ragged tick if there is prefill work to pack with
+        the running decodes. Returns False to fall through to the dense
+        tick: pure decode keeps the pipelined loop dispatch."""
+        admissible = ((not self._queue.empty() and bool(self._free))
+                      or (self._deferred is not None and self._blocks_freed))
+        if not self._ragged_chunkable() and not admissible:
+            return False
+        # host lengths must be exact before packing (loop dispatches have
+        # data-dependent step counts): consume the in-flight dispatch first.
+        # The ragged dispatch below is consumed in-tick, so the pipeline
+        # resumes cleanly on the next pure-decode tick.
+        if self._pending is not None:
+            self._consume(self._pending)
+            self._pending = None
+        self._prefill_tick()   # ragged admissions land chunked (host-only)
+        chunkable = self._ragged_chunkable()
+        if not chunkable:
+            return False
+        self._ragged_tick(chunkable)
+        return True
+
+    def _ragged_tick(self, chunkable: list[int]):
+        """Pack every live decode slot plus as many prefill-chunk tokens as
+        fit into ONE flat [T] token stream and dispatch one ragged forward.
+        Layout (ops/kernels/ragged_attention.py): each QBLK-row q block
+        belongs to one sequence; a decode slot takes one live row plus
+        QBLK-1 padding rows; a prefill chunk spans ceil(n/QBLK) blocks. The
+        sequence index is the engine slot, so the device derives every
+        row's position and page target from the engine's own block table."""
+        B = self.ec.max_slots
+        T = self._ragged_rows
+        block_seq = np.full((T // QBLK,), -1, np.int32)
+        tokens = np.zeros((T,), np.int32)
+        decode_slot = np.full((T,), -1, np.int32)
+        qstart = np.zeros((B,), np.int32)
+        qlen = np.zeros((B,), np.int32)
+        kvlen = np.zeros((B,), np.int32)
+        set_len = np.full((B,), -1, np.int32)
+        logit_set = np.zeros((B,), bool)
+        is_decode = np.zeros((B,), bool)
+        logit_rows = np.zeros((B,), np.int32)
+        row = 0
+        entries = []
+        # decode rows, QBLK-aligned, one per prefilled slot; the last QBLK
+        # is reserved for prefill so admission is never starved, and the
+        # rotating start keeps a budget overflow fair across ticks
+        cap = T - QBLK
+        order = [(self._ragged_rr + j) % B for j in range(B)]
+        self._ragged_rr = (self._ragged_rr + 1) % max(B, 1)
+        for i in order:
+            s = self._slots[i]
+            if s is None or not s.prefilled:
+                continue
+            if row + QBLK > cap:
+                break
+            n = s.prompt_len + s.generated
+            qstart[i], qlen[i], kvlen[i] = row, 1, n + 1
+            block_seq[row // QBLK] = i
+            decode_slot[row] = i
+            is_decode[i] = True
+            logit_set[i] = True
+            logit_rows[i] = row
+            entries.append((i, s.request_id))
+            row += QBLK
+        packed = len(entries)
+        chunks = []
+        for idx in chunkable:
+            if T - row < QBLK:
+                break
+            s = self._slots[idx]
+            ids = s.req.prompt_ids
+            pos = s.prefill_pos
+            nvalid = min(len(ids) - pos, T - row, self._chunk)
+            tokens[row:row + nvalid] = ids[pos:pos + nvalid]
+            nb = -(-nvalid // QBLK)
+            block_seq[row // QBLK:row // QBLK + nb] = idx
+            final = pos + nvalid == len(ids)
+            qstart[idx], qlen[idx] = row, nvalid
+            kvlen[idx] = pos + nvalid
+            if final:
+                # the device length is set only by the final chunk (a mid
+                # chunk leaves it, so the slot cannot be decoded early)
+                set_len[idx] = pos + nvalid
+                logit_set[idx] = True
+                logit_rows[idx] = row + nvalid - 1
+            chunks.append((idx, pos, nvalid, final))
+            packed += nvalid
+            row += nb * QBLK
+        pack = dict(tokens=tokens, decode_slot=decode_slot,
+                    is_decode=is_decode, set_len=set_len,
+                    logit_set=logit_set, logit_rows=logit_rows,
+                    block_seq=block_seq, qstart=qstart, qlen=qlen,
+                    kvlen=kvlen, packed=packed)
+        # the fused loop: the pack is iteration 0 and every decode slot
+        # keeps advancing on the device until a slot finishes, host work
+        # appears, or the step cap. Stop-string slots need a host decision
+        # per token (host arbitration): they keep the single step.
+        res: dict[int, int] = {}
+        arbitration = any(self._slots[i].req.stop for i, _ in entries)
+        use_loop = (self._ragged_loop_fn is not None and bool(entries)
+                    and not arbitration)
+        if use_loop:
+            remaining = np.zeros((B,), np.int32)
+            check_eos = np.zeros((B,), bool)
+            for i, _ in entries:
+                s = self._slots[i]
+                remaining[i] = max(1, s.req.max_tokens - s.generated
+                                   - s.inflight)
+                check_eos[i] = self.tok is not None and not s.req.ignore_eos
+                res[i] = int(min(self.ec.ragged_loop_steps, remaining[i]))
+                s.inflight += res[i]
+            # chunk work left after this pack (mid chunks, budget-capped
+            # slots) or queued/deferred admissions end the loop after the
+            # pack, so TTFT stays at single-step ragged levels
+            left = set(self._prefillq) - {
+                idx for idx, _pos, _nv, fin in chunks if fin}
+            prefill_pending = (bool(left) or self._deferred is not None
+                               or not self._queue.empty())
+            fetch = self._dev_ragged_loop(pack, remaining, check_eos,
+                                          prefill_pending)
+        else:
+            if self._ragged_loop_fn is not None and entries and arbitration:
+                self._rloop_exit(-1, reason="host_arbitration")
+            fetch = self._dev_ragged(pack)
+        for idx, pos, nvalid, final in chunks:
+            s = self._slots[idx]
+            s.prefill_pos = pos + nvalid
+            if final:
+                # the request's sampler row goes in after the pack, so its
+                # RNG stream does not depend on how many ticks it spanned
+                self._dev_install(idx, s.row, s.counts_row)
+                s.prefilled = True
+                self._prefillq.remove(idx)
+        t0 = time.perf_counter()
+        if use_loop:
+            tokens_out, logprobs, n_out, code, steps = fetch.wait()
+            self.metrics["decode_steps_dispatched"] += int(steps)
+            self._rloop_exit(int(code))
+            self._release_reservations(entries, res)
+        else:
+            tokens_out, logprobs = fetch.wait()
+            steps, n_out = 1, np.ones((B,), np.int32)
+            tokens_out, logprobs = tokens_out[None], logprobs[None]
+        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
+        self._emit_ring(entries, tokens_out, logprobs, n_out, int(steps),
+                        time.monotonic(), "ragged")
 
     def _emit(self, idx: int, slot: _Slot, token_id: int, logprob: float,
               now: float, path: str = "dense") -> bool:

@@ -15,6 +15,9 @@ CUDA kernels for CUDA tensors and run their plain versions for CPU tensors
 (the selection the reference's _attn_impls makes between Pallas and XLA).
 Chunked prefill (`extend`) attends with the plain ops/attention.mha_extend,
 reading a paged cache through ops/paged.paged_view, as the reference does.
+The ragged slice (`ragged_forward`, `build_ragged_loop`) serves mixed
+prefill+decode ticks over one flat token stream through the ragged
+attention and flat-row scatter kernels.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import torch_dtype
 from localai_tpu_torch.ops.attention import mha_extend
 from localai_tpu_torch.ops.kernels import (
-    flash_prefill, paged_scatter_append, paged_scatter_append_q8,
-    paged_targets, ragged_decode, ragged_decode_q8,
+    QBLK, flash_prefill, paged_scatter_append, paged_scatter_append_q8,
+    paged_targets, ragged_decode, ragged_decode_q8, ragged_paged_attention,
+    ragged_paged_attention_q8, ragged_scatter_append,
+    ragged_scatter_append_q8,
 )
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
@@ -441,6 +446,97 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     return _lm_head(x.float(), params)
 
 
+def ragged_row_targets(block_seq, qstart, qlen, kvlen, tables, max_pos):
+    """Per-row (position, scatter block, in-block row) [T] of a flat stream,
+    derived from the per-sequence metadata (the reference's in-forward
+    derivation). A live row's position is clipped to the rope table
+    (max_pos rows); a padding row takes position 0 and writes to the trash
+    block 0 at row `row % 128` (collisions there only overwrite other
+    padding rows, and nothing reads block 0)."""
+    dev = tables.device
+    t = block_seq.shape[0] * QBLK
+    rows = torch.arange(t, device=dev)
+    sid = block_seq.long()[rows // QBLK]
+    s = sid.clamp_min(0)
+    qs, ql = qstart.long()[s], qlen.long()[s]
+    live = (sid >= 0) & (rows >= qs) & (rows < qs + ql)
+    pos = kvlen.long()[s] - ql + (rows - qs)
+    pos = torch.where(live, pos.clamp(0, max_pos - 1), 0)
+    raw = torch.div(pos, BLOCK, rounding_mode="floor").clamp_max(
+        tables.shape[1] - 1)
+    pb = torch.where(live, tables.long()[s, raw], 0)
+    off = torch.where(live, pos % BLOCK, rows % BLOCK)
+    return pos, pb.to(torch.int32), off.to(torch.int32)
+
+
+def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
+                   k_cache, v_cache, block_seq, qstart, qlen, kvlen, tables,
+                   logit_rows, kvt=None, inject=None):
+    """Mixed prefill+decode forward over ONE flat token stream (ragged
+    continuous batching): decode rows and chunked-prefill windows of
+    different requests in a single [T] stream, one dispatch on the paged
+    pool, no bucket padding.
+
+    tokens: [T] int, T a multiple of QBLK (8); every sequence's rows start
+    on a QBLK boundary. Per-sequence metadata ([NSEQ], dead entries padded):
+    qstart/qlen (row span), kvlen (cache length INCLUDING this chunk),
+    tables [NSEQ, MAXB]; block_seq [T/QBLK] (-1 = padding block);
+    logit_rows [NSEQ] — the flat row of each sequence's last token (mid
+    prefill chunks may point anywhere; their logits are ignored).
+
+    Per-row positions and scatter targets are derived once here
+    (ragged_row_targets) and every layer reuses them. Each layer writes
+    first (this tick's K/V land in the pool through the flat-row scatter)
+    and then attends through the table (write-then-attend: kvlen already
+    counts the new rows). k_cache/v_cache: paged pools [L, NB, KVH, 128, D]
+    (QuantKV for int8 KV), updated IN PLACE. Returns logits [NSEQ, V] f32.
+
+    2-D logit_rows (the spec-as-ragged verify windows), `inject`
+    (multimodal rows) and `kvt` (KV lifecycle tier) belong to later
+    slices."""
+    if kvt is not None:
+        raise not_ported("kvt (KV lifecycle tier) in ragged_forward",
+                         "KV-tier")
+    if inject is not None:
+        raise not_ported("inject (multimodal rows) in ragged_forward",
+                         "multimodal")
+    if logit_rows.dim() != 1:
+        raise not_ported("2-D logit_rows (spec-as-ragged verify windows)",
+                         "speculative decoding")
+    t = tokens.shape[0]
+    dev = tokens.device
+    kv_quant = isinstance(k_cache, QuantKV)
+    block_seq, qstart, qlen, kvlen, tables = (
+        m.to(device=dev, dtype=torch.int32).contiguous()
+        for m in (block_seq, qstart, qlen, kvlen, tables))
+    pos, pb, off = ragged_row_targets(block_seq, qstart, qlen, kvlen, tables,
+                                      cos.shape[0])
+    meta = (block_seq, qstart, qlen, kvlen, tables)
+    sw = cfg.sliding_window
+    x = _embed(params, tokens, cfg.tdtype)[None]                # [1, T, H]
+    for i, lp in enumerate(params.layers):
+        kc, vc = k_cache[i], v_cache[i]
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rope(q, cos, sin, pos[None])
+        k = apply_rope(k, cos, sin, pos[None])
+        if kv_quant:
+            ragged_scatter_append_q8(kc.q, kc.s, vc.q, vc.s, k[0], v[0], pb,
+                                     off)
+            attn = ragged_paged_attention_q8(q[0], kc.q, kc.s, vc.q, vc.s,
+                                             *meta, sliding_window=sw)
+        else:
+            ragged_scatter_append(kc, vc, k[0], v[0], pb, off)
+            attn = ragged_paged_attention(q[0], kc, vc, *meta,
+                                          sliding_window=sw)
+        x = x + qmatmul(attn.reshape(1, t, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    last = x[0][logit_rows.long().to(dev)]
+    return _lm_head(last.float(), params)
+
+
 # the fused loop reads its device-side `done` flags (a host sync) once per
 # this many steps; frozen slots make the steps in between inert
 _DONE_CHECK_EVERY = 8
@@ -499,3 +595,98 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int):
         return toks, lps, n_out, steps, sampler, last_logits, lengths
 
     return decode_loop
+
+
+# fused ragged-loop exit codes (the reference's RLOOP_EXIT_*)
+RLOOP_EXIT_STEPS_CAP = 0   # ran the full max_steps budget
+RLOOP_EXIT_FINISH = 1      # a decode slot finished (EOS/max_tokens/context)
+RLOOP_EXIT_PREFILL = 2     # the host had prefill/admission work pending
+
+
+def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
+                      limit: int):
+    """The fused ragged tick: the mixed ragged dispatch plus up to
+    `max_steps - 1` decode iterations for every live decode slot in one
+    dispatch. Iteration 0 runs `ragged_step` (the engine's single-step mixed
+    body: sample, splice into the flat stream, one ragged_forward, the
+    set_len/logit_set commits); iterations >= 1 run `decode_step`, the
+    paged decode body of the fused decode loop, over the decode-live slots.
+    Slots mid-prefill (or whose final chunk just packed) sit the
+    continuation out frozen. With has_pack=False iteration 0 is skipped: the
+    pure-decode loop of a ragged engine.
+
+    Stops, as the reference's: a decode slot finishing (EOS set for
+    `check_eos` slots, its `remaining` budget, the `limit` context margin),
+    `prefill_pending` (the host has prefill or admission work: the dispatch
+    ends after iteration 0), or max_steps. A finished slot is frozen — its
+    key, last_logits and length stop — so extra iterations are inert for
+    it. PyTorch has no device while loop: the loop runs in Python, the stop
+    state on the device, and the host reads it (one sync) every
+    _DONE_CHECK_EVERY steps, as build_decode_loop does; `prefill_pending`
+    is a host bool and costs no sync. So after a first finish a dispatch
+    may run up to _DONE_CHECK_EVERY - 1 more steps than the reference's;
+    only live slots advance in them, within their `remaining` budgets, so
+    token streams are unchanged.
+
+    Returns (toks [max_steps, B], lps [max_steps, B], n_out [B], steps,
+    exit_code [] int32 tensor, sampler, last_logits, lengths); the exit
+    code is RLOOP_EXIT_FINISH if a decode slot finished, else
+    RLOOP_EXIT_PREFILL if prefill was pending with a slot left, else
+    RLOOP_EXIT_STEPS_CAP."""
+
+    def ragged_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                    is_decode, remaining, check_eos, eos_ids,
+                    prefill_pending: bool, pack=None, table=None,
+                    fast_width=None, *, has_pack: bool):
+        B = lengths.shape[0]
+        dev = lengths.device
+        done = ~is_decode
+        n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
+        toks = torch.zeros((max_steps, B), dtype=torch.int32, device=dev)
+        lps = torch.zeros((max_steps, B), dtype=torch.float32, device=dev)
+
+        def stops(tokens, n_out, lengths, live):
+            is_eos = check_eos & (tokens[:, None] == eos_ids[None, :]).any(1)
+            return live & (is_eos | (n_out >= remaining)
+                           | (lengths >= limit))
+
+        steps = 0
+        if has_pack:
+            # iteration 0: the exact single-step mixed ragged body; every
+            # packed decode row samples and advances
+            tokens, lp, sampler, last_logits, lengths = ragged_step(
+                params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                pack, is_decode, table)
+            toks[0] = tokens
+            lps[0] = lp
+            n_out = n_out + is_decode.to(torch.int32)
+            done = done | stops(tokens, n_out, lengths, is_decode)
+            steps = 1
+        while steps < max_steps and not (has_pack and prefill_pending):
+            if steps % _DONE_CHECK_EVERY == 0 and bool(
+                    (done.all() | (is_decode & done).any())):
+                break
+            live = ~done
+            prev_key = sampler.key
+            tokens, lp, sampler, logits, lengths = decode_step(
+                params, cos, sin, kc, vc, sampler, last_logits, lengths,
+                live, fast_width, table=table)
+            sampler = dataclasses.replace(
+                sampler, key=torch.where(live[:, None], sampler.key,
+                                         prev_key))
+            last_logits = torch.where(live[:, None], logits, last_logits)
+            toks[steps] = tokens
+            lps[steps] = lp
+            n_out = n_out + live.to(torch.int32)
+            done = done | stops(tokens, n_out, lengths, live)
+            steps += 1
+        # finish wins over prefill wins over the steps cap (STEPS_CAP = 0)
+        finish = (is_decode & done).any()
+        exit_code = finish.to(torch.int32) * RLOOP_EXIT_FINISH
+        if has_pack and prefill_pending:
+            exit_code = exit_code + (~finish & (~done).any()).to(
+                torch.int32) * RLOOP_EXIT_PREFILL
+        return (toks, lps, n_out, steps, exit_code, sampler, last_logits,
+                lengths)
+
+    return ragged_loop

@@ -8,6 +8,7 @@ nowhere else; `launch_counts()` reads all the counts, `reset_launch_counts()`
 sets them to 0."""
 from localai_tpu_torch.ops.kernels import flash_attention as _fa
 from localai_tpu_torch.ops.kernels import paged_scatter as _ps
+from localai_tpu_torch.ops.kernels import ragged_attention as _ra
 from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     flash_prefill,
     flash_prefill_plain,
@@ -23,8 +24,19 @@ from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
     paged_scatter_append_q8_plain,
     paged_targets,
 )
+from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
+    QBLK,
+    ragged_paged_attention,
+    ragged_paged_attention_plain,
+    ragged_paged_attention_q8,
+    ragged_paged_attention_q8_plain,
+    ragged_scatter_append,
+    ragged_scatter_append_plain,
+    ragged_scatter_append_q8,
+    ragged_scatter_append_q8_plain,
+)
 
-_COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES)
+_COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES, _ra.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -23,7 +23,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("flash_prefill", "decode_attention", "paged_scatter")
+SOURCES = ("flash_prefill", "decode_attention", "paged_scatter",
+           "ragged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +52,13 @@ SIGNATURES = {
                                  _P],
         "paged_scatter_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P],
+    },
+    "ragged_attention": {
+        "ragged_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
+        "ragged_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _F, _P],
     },
 }
 

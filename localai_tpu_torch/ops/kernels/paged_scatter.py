@@ -109,6 +109,48 @@ def _targets_i32(targets, device):
                  for t in targets)
 
 
+def launch_rows(name, k_pool, v_pool, k_new, v_new, targets):
+    """Launch the row-scatter kernel (csrc/paged_scatter.cu) on CUDA
+    tensors: row b of k_new/v_new [B, KVH, D] to pool block targets[0][b],
+    row targets[1][b]. Counts nothing: each wrapper that calls it counts
+    its own launch (this one and ragged_attention.ragged_scatter_append)."""
+    B, KVH, D, NB = _shapes(name, k_pool, v_pool, k_new, v_new)
+    kn = k_new.to(k_pool.dtype).contiguous()
+    vn = v_new.to(k_pool.dtype).contiguous()
+    _check_cuda(name, (kn, vn, k_pool, v_pool),
+                (None, None, kn.dtype, kn.dtype))
+    pb, off = _targets_i32(targets, k_new.device)
+    lib = _build.load("paged_scatter")
+    rc = lib.paged_scatter_launch(
+        k_pool.element_size(), kn.data_ptr(), vn.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), pb.data_ptr(), off.data_ptr(),
+        B, KVH, D, NB, _stream(k_new.device))
+    _raise_rc(name, rc)
+
+
+def launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new, targets):
+    """The int8 twin of launch_rows: quantize the rows (per token,
+    symmetric over D), then one launch writes the int8 rows and their
+    scales [NB, KVH, 1, BS]. Counts nothing."""
+    B, KVH, D, NB = _shapes(name, kq, vq, k_new, v_new)
+    if ks.shape != (NB, KVH, 1, BLOCK) or vs.shape != ks.shape:
+        raise ValueError(f"{name}: bad pool/scale shapes")
+    kq_n, ks_n = quantize_tokens(k_new)              # [B, KVH, D], [B, KVH]
+    vq_n, vs_n = quantize_tokens(v_new)
+    kq_n, vq_n = kq_n.contiguous(), vq_n.contiguous()
+    ks_n, vs_n = ks_n.contiguous(), vs_n.contiguous()
+    _check_cuda(name, (kq_n, ks_n, vq_n, vs_n, kq, ks, vq, vs),
+                (None, torch.float32, None, torch.float32) + (
+                    torch.int8, torch.float32) * 2)
+    pb, off = _targets_i32(targets, k_new.device)
+    lib = _build.load("paged_scatter")
+    rc = lib.paged_scatter_q8_launch(
+        kq_n.data_ptr(), ks_n.data_ptr(), vq_n.data_ptr(), vs_n.data_ptr(),
+        kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(k_new.device))
+    _raise_rc(name, rc)
+
+
 def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
                          active=None, sb=None, rw=None, targets=None):
     """Append one K/V token per slot into the paged pools, IN PLACE.
@@ -126,20 +168,8 @@ def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
     if k_new.device.type != "cuda":
         raise ValueError(f"paged_scatter_append: unsupported device "
                          f"{k_new.device}")
-    B, KVH, D, NB = _shapes("paged_scatter_append", k_pool, v_pool, k_new,
-                            v_new)
-    kn = k_new.to(k_pool.dtype).contiguous()
-    vn = v_new.to(k_pool.dtype).contiguous()
-    _check_cuda("paged_scatter_append", (kn, vn, k_pool, v_pool),
-                (None, None, kn.dtype, kn.dtype))
-    pb, off = _targets_i32(_resolve(positions, table, active, sb, rw,
-                                    targets), k_new.device)
-    lib = _build.load("paged_scatter")
-    rc = lib.paged_scatter_launch(
-        k_pool.element_size(), kn.data_ptr(), vn.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), pb.data_ptr(), off.data_ptr(),
-        B, KVH, D, NB, _stream(k_new.device))
-    _raise_rc("paged_scatter_append", rc)
+    launch_rows("paged_scatter_append", k_pool, v_pool, k_new, v_new,
+                _resolve(positions, table, active, sb, rw, targets))
     LAUNCHES["paged_scatter_append"] += 1
     return k_pool, v_pool
 
@@ -157,24 +187,7 @@ def paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions, table,
     if k_new.device.type != "cuda":
         raise ValueError(f"paged_scatter_append_q8: unsupported device "
                          f"{k_new.device}")
-    B, KVH, D, NB = _shapes("paged_scatter_append_q8", kq, vq, k_new, v_new)
-    if ks.shape != (NB, KVH, 1, BLOCK) or vs.shape != ks.shape:
-        raise ValueError("paged_scatter_append_q8: bad pool/scale shapes")
-    kq_n, ks_n = quantize_tokens(k_new)              # [B, KVH, D], [B, KVH]
-    vq_n, vs_n = quantize_tokens(v_new)
-    kq_n, vq_n = kq_n.contiguous(), vq_n.contiguous()
-    ks_n, vs_n = ks_n.contiguous(), vs_n.contiguous()
-    _check_cuda("paged_scatter_append_q8",
-                (kq_n, ks_n, vq_n, vs_n, kq, ks, vq, vs),
-                (None, torch.float32, None, torch.float32) + (
-                    torch.int8, torch.float32) * 2)
-    pb, off = _targets_i32(_resolve(positions, table, active, sb, rw,
-                                    targets), k_new.device)
-    lib = _build.load("paged_scatter")
-    rc = lib.paged_scatter_q8_launch(
-        kq_n.data_ptr(), ks_n.data_ptr(), vq_n.data_ptr(), vs_n.data_ptr(),
-        kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(k_new.device))
-    _raise_rc("paged_scatter_append_q8", rc)
+    launch_rows_q8("paged_scatter_append_q8", kq, ks, vq, vs, k_new, v_new,
+                   _resolve(positions, table, active, sb, rw, targets))
     LAUNCHES["paged_scatter_append_q8"] += 1
     return kq, ks, vq, vs

@@ -1,0 +1,303 @@
+"""Ragged paged attention and the flat-stream KV writes, with their plain
+PyTorch versions (counterpart of localai_tpu/ops/pallas/ragged_attention.py).
+
+One flat token stream serves a mixed tick: one row per live decode slot
+plus chunked-prefill windows, packed into q [T, H, D], every row attending
+to its own sequence's paged KV through the block table. The packing
+contract is the reference's:
+- rows are grouped by sequence and every sequence's rows start at a
+  QBLK-aligned row, so each QBLK-row q block belongs to exactly one
+  sequence (its tail rows up to the next boundary are padding);
+- block_seq [T/QBLK] maps each q block to its sequence (-1 = dead block);
+- qstart/qlen [NSEQ] give each sequence's first row and row count;
+- kvlen [NSEQ] is the attended KV length INCLUDING this tick's tokens
+  (write-then-attend: the row at position p attends to 0..p);
+- tables [NSEQ, MAXB] are the per-sequence block-table rows.
+Padding rows are garbage by contract and callers ignore them (the kernel
+writes 0 there, the plain version a uniform average).
+
+Four wrappers, each beside its plain version with the same signature:
+- ragged_paged_attention / _plain — bf16/f32 pools [NB, KVH, 128, D]
+  (csrc/ragged_attention.cu);
+- ragged_paged_attention_q8 / _plain — int8 pools with per-token f32
+  scales [NB, KVH, 1, 128] (csrc/ragged_attention.cu, q8 variant);
+- ragged_scatter_append / _plain — row t of k/v_new [T, KVH, D] to block
+  pb[t], row off[t], in place: the paged scatter kernel
+  (csrc/paged_scatter.cu) with B = T host-free targets, as the reference
+  builds it on paged_scatter's _append_kernel;
+- ragged_scatter_append_q8 / _plain — quantize the rows (plain PyTorch, as
+  the reference does), then the same kernel writes int8 rows and scales.
+
+The plain attention versions gather only the table-mapped blocks of each q
+block ([NQB, KVH, MAXB*128, D], never the whole pool) and run one masked
+softmax, the reference's ragged_attention_xla structure, with the kernel's
+math: f32 scores from the pre-scaled query, the K scale on the score
+columns and the V scale on p (int8), the 1e-30 floor.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises. Each launch adds one to the wrapper's count
+in LAUNCHES, and nothing else does. The KV lifecycle tier (`kvt`) and the
+tensor-parallel `*_sharded` wrappers wait for their slices and raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from localai_tpu_torch import not_ported
+from localai_tpu_torch.ops.attention import NEG_INF
+from localai_tpu_torch.ops.kernels import _build
+from localai_tpu_torch.ops.kernels.flash_attention import (
+    _DTYPE_CODE, _check_cuda, _raise_rc, _stream, _window,
+)
+from localai_tpu_torch.ops.kernels.paged_scatter import (
+    launch_rows, launch_rows_q8, paged_scatter_append_plain,
+    paged_scatter_append_q8_plain,
+)
+from localai_tpu_torch.ops.paged import BLOCK
+
+QBLK = 8   # q rows per block; every sequence's rows start on a boundary
+
+LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0,
+            "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0}
+
+
+def _no_kvt(kvt):
+    if kvt is not None:
+        raise not_ported("kvt (KV lifecycle tier) in ragged attention",
+                         "KV-tier")
+
+
+def _meta_i32(device, *meta):
+    return tuple(m.to(device=device, dtype=torch.int32).contiguous()
+                 for m in meta)
+
+
+# ------------------------------------------------------------ plain versions
+
+def _gather_blocks(pool, block_seq, tables):
+    """[NQB, KVH, MAXB*BS, ...] per-q-block view through the table (a
+    scale pool [NB, KVH, 1, BS] gives [NQB, KVH, MAXB*BS])."""
+    tab = tables.long()[block_seq.long().clamp_min(0)]         # [NQB, MAXB]
+    g = pool[tab]                                 # [NQB, MAXB, KVH, BS, D]
+    nqb, maxb, kvh, bs = g.shape[:4]
+    if g.shape[3] == 1:                           # scales [.., KVH, 1, BS]
+        return g[:, :, :, 0].permute(0, 2, 1, 3).reshape(
+            nqb, kvh, maxb * g.shape[4])
+    return g.permute(0, 2, 1, 3, 4).reshape(nqb, kvh, maxb * bs,
+                                            g.shape[4])
+
+
+def _plain_core(q, kg, vg, ks, vs, block_seq, qstart, qlen, kvlen,
+                sliding_window):
+    """q [T, H, D]; kg/vg [NQB, KVH, C, D] f32 per-q-block gathered KV;
+    ks/vs [NQB, KVH, C] scales or None. Returns [T, H, D] in q.dtype."""
+    t, h, d = q.shape
+    nqb, kvh, c, _ = kg.shape
+    g = h // kvh
+    dev = q.device
+    qb = q.reshape(nqb, QBLK, kvh, g, d).float() * d ** -0.5
+    sc = torch.einsum("nqhgd,nhcd->nhqgc", qb, kg)
+    if ks is not None:
+        sc = sc * ks[:, :, None, None, :]
+    block_seq = block_seq.to(dev).long()
+    s_b = block_seq.clamp_min(0)
+    klen = kvlen.to(dev).long()[s_b][:, None]                   # [NQB, 1]
+    qs = qstart.to(dev).long()[s_b][:, None]
+    ql = qlen.to(dev).long()[s_b][:, None]
+    grow = torch.arange(t, device=dev).reshape(nqb, QBLK)
+    q_pos = klen - ql + (grow - qs)                             # [NQB, QBLK]
+    valid = (grow >= qs) & (grow < qs + ql) & (block_seq[:, None] >= 0)
+    kv_pos = torch.arange(c, device=dev)[None, None, :]
+    mask = (valid[:, :, None] & (kv_pos <= q_pos[:, :, None])
+            & (kv_pos < klen[:, :, None]))
+    if sliding_window:
+        mask = mask & (kv_pos > q_pos[:, :, None] - int(sliding_window))
+    sc = torch.where(mask[:, None, :, None, :], sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * vs[:, :, None, None, :] if vs is not None else p
+    o = torch.einsum("nhqgc,nhcd->nqhgd", pv, vg)
+    o = o / torch.clamp_min(l.permute(0, 2, 1, 3, 4), 1e-30)
+    return o.reshape(t, h, d).to(q.dtype)
+
+
+def ragged_paged_attention_plain(q, k_pool, v_pool, block_seq, qstart, qlen,
+                                 kvlen, tables, sliding_window=None,
+                                 kvt=None):
+    """Plain version of ragged_paged_attention."""
+    _no_kvt(kvt)
+    kg = _gather_blocks(k_pool, block_seq, tables).float()
+    vg = _gather_blocks(v_pool, block_seq, tables).float()
+    return _plain_core(q, kg, vg, None, None, block_seq, qstart, qlen, kvlen,
+                       sliding_window)
+
+
+def ragged_paged_attention_q8_plain(q, k_q, k_s, v_q, v_s, block_seq, qstart,
+                                    qlen, kvlen, tables, sliding_window=None,
+                                    kvt=None):
+    """Plain version of ragged_paged_attention_q8."""
+    _no_kvt(kvt)
+    return _plain_core(
+        q, _gather_blocks(k_q, block_seq, tables).float(),
+        _gather_blocks(v_q, block_seq, tables).float(),
+        _gather_blocks(k_s, block_seq, tables).float(),
+        _gather_blocks(v_s, block_seq, tables).float(), block_seq, qstart,
+        qlen, kvlen, sliding_window)
+
+
+def ragged_scatter_append_plain(k_pool, v_pool, k_new, v_new, pb, off):
+    """Plain version of ragged_scatter_append: pool[pb, :, off] = row."""
+    return paged_scatter_append_plain(k_pool, v_pool, k_new, v_new, None,
+                                      None, targets=(pb, off))
+
+
+def ragged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new, pb, off):
+    """Plain version of ragged_scatter_append_q8."""
+    return paged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new, None,
+                                         None, targets=(pb, off))
+
+
+# ------------------------------------------------------------------ kernels
+
+def _attn_checks(name, q, pool_shape, tables):
+    t, h, d = q.shape
+    if t % QBLK:
+        raise ValueError(
+            f"ragged stream rows T={t} must be a multiple of QBLK={QBLK} "
+            "(the engine's token budget is QBLK-aligned by construction)")
+    if len(pool_shape) != 4 or pool_shape[2] != BLOCK \
+            or pool_shape[3] != d or h % pool_shape[1]:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"pool{tuple(pool_shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    if tables.dim() != 2:
+        raise ValueError(f"{name}: tables must be [NSEQ, MAXB]")
+    kvh = pool_shape[1]
+    if d % 16 or QBLK * (h // kvh) * d > 4096:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of 16 "
+                         f"and QBLK*group*head_dim at most 4096")
+    return t, h, kvh, d, tables.shape[1]
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
+                           kvlen, tables, sliding_window=None, kvt=None):
+    """Flat-stream GQA attention over paged KV. q: [T, H, D], T a multiple
+    of QBLK; pools [NB, KVH, 128, D] in q's dtype; metadata per the module
+    docstring. Returns [T, H, D] in q.dtype (padding rows garbage)."""
+    _no_kvt(kvt)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(q, k_pool, v_pool, block_seq,
+                                            qstart, qlen, kvlen, tables,
+                                            sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention: unsupported device "
+                         f"{q.device}")
+    if v_pool.shape != k_pool.shape:
+        raise ValueError("ragged_paged_attention: k/v pool shapes differ")
+    t, h, kvh, d, maxb = _attn_checks("ragged_paged_attention", q,
+                                      k_pool.shape, tables)
+    q = q.contiguous()
+    _check_cuda("ragged_paged_attention", (q, k_pool, v_pool),
+                (None, q.dtype, q.dtype))
+    meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
+    out = torch.empty_like(q)
+    lib = _build.load("ragged_attention")
+    rc = lib.ragged_attention_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), *(m.data_ptr() for m in meta), out.data_ptr(), t,
+        h, kvh, maxb, d, _window(sliding_window), d ** -0.5,
+        _stream(q.device))
+    _raise_rc("ragged_paged_attention", rc)
+    LAUNCHES["ragged_paged_attention"] += 1
+    return out
+
+
+def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
+                              qlen, kvlen, tables, sliding_window=None,
+                              kvt=None):
+    """int8 twin: pools k_q/v_q [NB, KVH, 128, D] int8 with per-token scales
+    k_s/v_s [NB, KVH, 1, 128] f32 (ops/paged.py layout)."""
+    _no_kvt(kvt)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_q8_plain(q, k_q, k_s, v_q, v_s,
+                                               block_seq, qstart, qlen,
+                                               kvlen, tables, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention_q8: unsupported device "
+                         f"{q.device}")
+    t, h, kvh, d, maxb = _attn_checks("ragged_paged_attention_q8", q,
+                                      k_q.shape, tables)
+    nb = k_q.shape[0]
+    if (v_q.shape != k_q.shape or k_s.shape != (nb, kvh, 1, BLOCK)
+            or v_s.shape != k_s.shape):
+        raise ValueError("ragged_paged_attention_q8: bad pool/scale shapes")
+    q = q.contiguous()
+    _check_cuda("ragged_paged_attention_q8", (q, k_q, k_s, v_q, v_s),
+                (None, torch.int8, torch.float32, torch.int8, torch.float32))
+    meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
+    out = torch.empty_like(q)
+    lib = _build.load("ragged_attention")
+    rc = lib.ragged_attention_q8_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
+        v_q.data_ptr(), v_s.data_ptr(), *(m.data_ptr() for m in meta),
+        out.data_ptr(), t, h, kvh, maxb, d, _window(sliding_window),
+        d ** -0.5, _stream(q.device))
+    _raise_rc("ragged_paged_attention_q8", rc)
+    LAUNCHES["ragged_paged_attention_q8"] += 1
+    return out
+
+
+def ragged_scatter_append(k_pool, v_pool, k_new, v_new, pb, off):
+    """Write each flat row into its pool slot, IN PLACE. k_new/v_new: [T,
+    KVH, D]; pb/off: [T] int (padding rows aim at trash block 0). Returns
+    (k_pool, v_pool), the same tensors."""
+    if k_new.device.type == "cpu":
+        return ragged_scatter_append_plain(k_pool, v_pool, k_new, v_new, pb,
+                                           off)
+    if k_new.device.type != "cuda":
+        raise ValueError(f"ragged_scatter_append: unsupported device "
+                         f"{k_new.device}")
+    launch_rows("ragged_scatter_append", k_pool, v_pool, k_new, v_new,
+                (pb, off))
+    LAUNCHES["ragged_scatter_append"] += 1
+    return k_pool, v_pool
+
+
+def ragged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, pb, off):
+    """int8 twin, IN PLACE: quantize the flat rows, then write int8 rows and
+    scale elements into [NB, KVH, 128, D] / [NB, KVH, 1, 128]. Returns (kq,
+    ks, vq, vs), the same tensors."""
+    if k_new.device.type == "cpu":
+        return ragged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new,
+                                              pb, off)
+    if k_new.device.type != "cuda":
+        raise ValueError(f"ragged_scatter_append_q8: unsupported device "
+                         f"{k_new.device}")
+    launch_rows_q8("ragged_scatter_append_q8", kq, ks, vq, vs, k_new, v_new,
+                   (pb, off))
+    LAUNCHES["ragged_scatter_append_q8"] += 1
+    return kq, ks, vq, vs
+
+
+# ------------------------------------------------ tensor parallelism (later)
+
+def ragged_paged_attention_sharded(mesh, *args, **kwargs):
+    raise not_ported("ragged_paged_attention_sharded (KV-head shards)",
+                     "parallel")
+
+
+def ragged_paged_attention_q8_sharded(mesh, *args, **kwargs):
+    raise not_ported("ragged_paged_attention_q8_sharded (KV-head shards)",
+                     "parallel")
+
+
+def ragged_scatter_append_sharded(mesh, *args, **kwargs):
+    raise not_ported("ragged_scatter_append_sharded (KV-head shards)",
+                     "parallel")
+
+
+def ragged_scatter_append_q8_sharded(mesh, *args, **kwargs):
+    raise not_ported("ragged_scatter_append_q8_sharded (KV-head shards)",
+                     "parallel")

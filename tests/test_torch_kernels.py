@@ -169,11 +169,26 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                             table)
     tk.paged_scatter_append_q8(pq, ps, pq.clone(), ps.clone(), row, row,
                                torch.tensor([7]), table)
+    # the ragged attention and flat-row scatter wrappers (a one-sequence
+    # stream of 8 rows, one live)
+    qr = torch.tensor(np.repeat(qd[:, 0], 8, axis=0))          # [8, H, D]
+    meta = [torch.tensor(x) for x in ([0], [0], [1], [5], [[0]])]
+    tk.ragged_paged_attention(qr, pool, pool, *meta)
+    tk.ragged_paged_attention_q8(qr, pq, ps, pq, ps, *meta)
+    rows8 = row.repeat(8, 1, 1)
+    pb8, off8 = torch.zeros(8, dtype=torch.int32), torch.arange(8)
+    tk.ragged_scatter_append(pool, pool.clone(), rows8, rows8, pb8, off8)
+    tk.ragged_scatter_append_q8(pq, ps, pq.clone(), ps.clone(), rows8, rows8,
+                                pb8, off8)
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
                            "ragged_decode_q8_paged", "paged_scatter_append",
-                           "paged_scatter_append_q8"}
+                           "paged_scatter_append_q8",
+                           "ragged_paged_attention",
+                           "ragged_paged_attention_q8",
+                           "ragged_scatter_append",
+                           "ragged_scatter_append_q8"}
     assert not any(counts.values())
 
 
@@ -321,3 +336,108 @@ def test_cuda_paged_scatter_vs_plain(cuda, dtype):
     torch.cuda.synchronize()
     for got, want in zip(pools, ref):
         assert torch.equal(got, want)
+
+
+def _ragged_case(seed, H, KVH, D, NB, kvlens, qlens, pad_blocks=1):
+    """A flat stream over a shuffled pool: sequence s has qlen[s] rows at
+    a QBLK-aligned start and attends to kvlen[s] tokens; `pad_blocks` dead
+    q blocks at the end. Returns (q, k, v, meta dict, live rows)."""
+    r = _rng(seed)
+    k = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    v = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    perm = r.permutation(np.arange(1, NB))
+    maxb = max(-(-n // 128) for n in kvlens)
+    tables = np.zeros((len(kvlens), maxb), np.int32)
+    block_seq, qstart, live, used, row = [], [], [], 0, 0
+    for s, (n, ql) in enumerate(zip(kvlens, qlens)):
+        nb = -(-n // 128)
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+        qstart.append(row)
+        live += list(range(row, row + ql))
+        block_seq += [s] * -(-ql // 8)
+        row += -(-ql // 8) * 8
+    block_seq += [-1] * pad_blocks
+    T = len(block_seq) * 8
+    q = r.standard_normal((T, H, D)).astype(np.float32)
+    meta = dict(block_seq=np.asarray(block_seq, np.int32),
+                qstart=np.asarray(qstart, np.int32),
+                qlen=np.asarray(qlens, np.int32),
+                kvlen=np.asarray(kvlens, np.int32), tables=tables)
+    return q, k, v, meta, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8,window", [(False, None), (False, 100),
+                                       (True, None)])
+def test_cuda_ragged_attention_vs_plain(cuda, dtype, q8, window):
+    """Kernels 8/9: decode rows (qlen 1) beside prefill chunks, one of
+    them at an offset past a block boundary; live rows compared."""
+    td = getattr(torch, dtype)
+    q, k, v, meta, live = _ragged_case(14, 8, 2, 64, 24,
+                                       [1, 300, 140, 700, 33],
+                                       [1, 1, 12, 40, 33])
+    qd = torch.tensor(q, device=cuda).to(td)
+    m = {n: torch.tensor(a, device=cuda) for n, a in meta.items()}
+    name = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    before = tk.launch_counts()[name]
+    if q8:
+        kq, ks = _q8(k.reshape(1, -1, 128, 64))
+        vq, vs = _q8(v.reshape(1, -1, 128, 64))
+        args = [kq.reshape(24, 2, 128, 64).to(cuda),
+                ks.reshape(24, 2, 1, 128).to(cuda),
+                vq.reshape(24, 2, 128, 64).to(cuda),
+                vs.reshape(24, 2, 1, 128).to(cuda)]
+        out = tk.ragged_paged_attention_q8(qd, *args, **m)
+        ref = tk.ragged_paged_attention_q8_plain(qd, *args, **m)
+    else:
+        kv = _dev((k, v), cuda, td)
+        out = tk.ragged_paged_attention(qd, *kv, **m, sliding_window=window)
+        ref = tk.ragged_paged_attention_plain(qd, *kv, **m,
+                                              sliding_window=window)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()[name] == before + 1
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy()[live],
+                               ref.float().cpu().numpy()[live], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_ragged_scatter_vs_plain(cuda, dtype):
+    """Kernels 10/11: bit-exact outside the trash block 0, where the
+    padding rows of a T > 128 stream collide (a race nothing reads)."""
+    T, KVH, D, NB = 200, 2, 64, 12
+    r = _rng(15)
+    pool_k = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    pool_v = r.standard_normal((NB, KVH, 128, D)).astype(np.float32)
+    k_new = torch.tensor(r.standard_normal((T, KVH, D)), dtype=torch.float32,
+                         device=cuda)
+    v_new = torch.tensor(r.standard_normal((T, KVH, D)), dtype=torch.float32,
+                         device=cuda)
+    live = r.random(T) < 0.6
+    slots = r.permutation((NB - 1) * 128)[:T]
+    pb = torch.tensor(np.where(live, 1 + slots // 128, 0), dtype=torch.int32,
+                      device=cuda)
+    off = torch.tensor(np.where(live, slots % 128, np.arange(T) % 128),
+                       dtype=torch.int32, device=cuda)
+    if dtype == "int8":
+        kq, ks = _q8(pool_k.reshape(1, -1, 128, D))
+        vq, vs = _q8(pool_v.reshape(1, -1, 128, D))
+        pools = [kq.reshape(NB, KVH, 128, D), ks.reshape(NB, KVH, 1, 128),
+                 vq.reshape(NB, KVH, 128, D), vs.reshape(NB, KVH, 1, 128)]
+        pools = [t.to(cuda) for t in pools]
+        ref = [t.clone() for t in pools]
+        tk.ragged_scatter_append_q8(*pools, k_new, v_new, pb, off)
+        tk.ragged_scatter_append_q8_plain(*ref, k_new, v_new, pb, off)
+    else:
+        td = getattr(torch, dtype)
+        pools = _dev((pool_k, pool_v), cuda, td)
+        ref = [t.clone() for t in pools]
+        kn, vn = k_new.to(td), v_new.to(td)
+        tk.ragged_scatter_append(*pools, kn, vn, pb, off)
+        tk.ragged_scatter_append_plain(*ref, kn, vn, pb, off)
+    torch.cuda.synchronize()
+    for got, want in zip(pools, ref):
+        assert torch.equal(got[1:], want[1:])
