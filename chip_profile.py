@@ -11,8 +11,8 @@ chip_smoke's checks; then drives the same requests again with fresh
 prompt ids (no prompt-cache or prefix reuse), first unprofiled, then
 under torch.profiler with CUDA activity. Prints one JSON line per
 path: the unprofiled and profiled wall times, device busy time by kernel
-class, the top kernels and the device's idle share of the profiled
-window. Kernels run on one stream,
+class, the top kernels, the device's idle share of the profiled
+window and its idle ms per decode step. Kernels run on one stream,
 so their summed device time is the busy time. A one-off study, apart
 from the pass/fail smoke; it imports nothing of JAX or localai_tpu.
 """
@@ -27,8 +27,9 @@ import chip_smoke as smoke
 
 
 def _kernel_class(key: str) -> str:
-    if any(t in key for t in ("decode_kernel", "prefill_kernel",
-                                "ragged_kernel")):
+    if any(t in key for t in ("decode_kernel", "decode_split_kernel",
+                                "decode_combine_kernel", "prefill_tc_kernel",
+                                "prefill_simt_kernel", "ragged_kernel")):
         return "attention (port kernels)"
     if "scatter_rows" in key:
         return "kv scatter (port kernel)"
@@ -51,6 +52,8 @@ def _summary(p, wall_s, steps):
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy,
         "idle_share": (1 - busy / (wall_s * 1e3)) if busy else None,
+        "idle_ms_per_step": ((wall_s * 1e3 - busy) / steps) if steps
+        else None,
         "decode_steps": int(steps), "by_class_ms": by_class,
         "top_kernels": [{"name": k[:90], "count": c, "ms": ms}
                         for k, c, ms in top],

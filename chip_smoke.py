@@ -14,8 +14,13 @@ and the script exits non-zero:
      PyTorch version with its tolerance (the paged scatters: bit-exact over
      the whole pool; the flat-row scatters bit-exact outside the trash
      block), and the error of a planted fault that the check must reject;
-     kernel/plain/library times (CUDA events, median of 25 after warmup)
-     and the least time the card could take (bound_ms). The ragged
+     kernel/plain/library device times (CUDA events around a call the
+     host enqueued while a spin kernel kept the card busy, median of 25
+     after warmup; for the main prefill and dense decode rows also with a
+     cold L2: a 256 MB scratch buffer written before each rep), the
+     kernel's and the library call's times with the host's cost of the
+     call in them (ms_host, library_ms_host: no spin) and the least time
+     the card could take (bound_ms). The ragged
      kernels run at phase 6's pack: T=192 rows, eight decode rows plus a
      128-row prefill chunk, over the 129-block pool.
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
@@ -82,11 +87,17 @@ CFG_8B = {
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# a spin of about 0.5 ms at the H100's 1.98 GHz boost clock (_time_ms)
+SPIN_CYCLES = 1_000_000
 
-# Kernel vs plain version: both compute in f32 and round once to the output
-# dtype, so they differ by the f32 summation order, which moves an output by
-# at most one rounding step: |out - ref| <= atol + rtol * |ref|. bf16: rtol
-# 2**-7 (one bf16 ulp, relative) plus atol 1e-3; f32: 2e-5 absolute.
+# Kernel vs plain version: |out - ref| <= atol + rtol * |ref|. bf16: rtol
+# 2**-7 (one bf16 ulp, relative) plus atol 1e-3; f32: 2e-5 absolute. Both
+# compute in f32 and round once to the output dtype, so they differ by the
+# f32 summation order, which moves an output by at most one rounding step.
+# The bf16 prefill kernel multiplies on the tensor cores: bf16 inputs (exact)
+# into f32 sums, and p — f32 in the plain version — enters P V as two bf16
+# terms, hi + lo, which carry it to about 2**-17 relative (one bf16 term
+# alone put outputs 2 ulps off).
 TOL = {"bfloat16": (1e-3, 2 ** -7), "float32": (2e-5, 0.0)}
 
 
@@ -136,9 +147,23 @@ def phase_build():
 
 # ------------------------------------------------------------------ phase 2
 
-def _time_ms(fn, reps=25, warm=3):
+def _time_ms(fn, reps=25, warm=3, cold=False, spin=True):
+    """Median device ms of `reps` calls of fn, each between two CUDA
+    events, after `warm` calls. Before each rep's start event a spin kernel
+    (torch.cuda._sleep, about 0.5 ms) keeps the card busy while the host
+    enqueues the event and fn's launches, so the time between the events
+    is the card's: the host's cost of a call (Python, ctypes, the launch)
+    does not enter it, for kernel, plain version and library call alike.
+    spin=False leaves the card idle instead, so a short call's time is
+    mostly the host's cost of it (the `ms_host` and `library_ms_host`
+    readings). cold=True also
+    writes a 256 MB scratch buffer (five times the 50 MB L2) before the
+    start event, so the call finds its inputs in device memory, not in the
+    L2."""
     import torch
 
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda") \
+        if cold else None
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -146,6 +171,10 @@ def _time_ms(fn, reps=25, warm=3):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+        if flush is not None:
+            flush.fill_(1.0)
         a.record()
         fn()
         b.record()
@@ -222,10 +251,12 @@ def _check_close(name, out, ref, tol, lengths=None, fault=None):
 
 
 def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
-                  timed=True):
+                  timed=True, cold=False):
     """With timed=True also plants a fault — the 64 keys furthest back
     dropped for the query rows that have more than S - 64 (a window of
-    S - 64) — and checks that the tolerance rejects it."""
+    S - 64; for S <= 128 a window of half the longest length) — and checks
+    that the tolerance rejects it. cold=True also times kernel and library
+    with a cold L2."""
     import torch
     import torch.nn.functional as F
 
@@ -237,7 +268,8 @@ def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
     out = flash_prefill(q, k, v, lens, sliding_window=window)
     torch.cuda.synchronize()
     ref = flash_prefill_plain(q, k, v, lens, sliding_window=window)
-    fault = flash_prefill_plain(q, k, v, lens, sliding_window=S - 64) \
+    fault_window = S - 64 if S > 128 else max(max(lengths) // 2, 1)
+    fault = flash_prefill_plain(q, k, v, lens, sliding_window=fault_window) \
         if timed and window is None else None
     name = f"flash_prefill {str(dtype).split('.')[-1]} B={B} S={S} " \
            f"H={H} KVH={KVH} D={D} lengths={lengths} window={window}"
@@ -257,6 +289,8 @@ def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
         res.update(
             ms=_time_ms(lambda: flash_prefill(q, k, v, lens,
                                               sliding_window=window)),
+            ms_host=_time_ms(lambda: flash_prefill(
+                q, k, v, lens, sliding_window=window), spin=False),
             plain_ms=_time_ms(lambda: flash_prefill_plain(
                 q, k, v, lens, sliding_window=window)),
             bound_ms=max(t_ops, t_bytes),
@@ -266,20 +300,29 @@ def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
                            f"3.35 TB/s)"))
         if window is None:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            res["library_ms"] = _time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            res["library_ms"] = _time_ms(library)
+            res["library_ms_host"] = _time_ms(library, spin=False)
         else:
-            res["library_ms"] = None
+            library = res["library_ms"] = res["library_ms_host"] = None
+        if cold:
+            res["ms_cold"] = _time_ms(lambda: flash_prefill(
+                q, k, v, lens, sliding_window=window), cold=True)
+            res["library_ms_cold"] = _time_ms(library, cold=True) \
+                if library else None
     log(name + " " + json.dumps(res))
     return res
 
 
 def check_decode(B, H, KVH, T, D, dtype, lengths, q8=False, window=None,
-                 timed=True):
+                 timed=True, cold=False):
     """With timed=True also plants a fault — the last 32-token tile dropped
     from each row longer than 512, where one tile moves the output least —
-    and checks that the tolerance rejects it."""
+    and checks that the tolerance rejects it. cold=True also times kernel
+    and library with a cold L2."""
     import torch
     import torch.nn.functional as F
 
@@ -319,7 +362,8 @@ def check_decode(B, H, KVH, T, D, dtype, lengths, q8=False, window=None,
         flops = 4.0 * read * H * D
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        res.update(ms=_time_ms(fn), plain_ms=_time_ms(plain),
+        res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
+                   plain_ms=_time_ms(plain),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    bound_formula=(f"max({nbytes:.4g} B of K/V read + q/out "
@@ -330,11 +374,18 @@ def check_decode(B, H, KVH, T, D, dtype, lengths, q8=False, window=None,
             qt = q.transpose(1, 2)                        # [B, H, 1, D]
             mask = (torch.arange(T, device="cuda")[None, :]
                     < lens[:, None])[:, None, None, :]   # [B, 1, 1, T]
-            res["library_ms"] = _time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, k, v, attn_mask=mask, enable_gqa=True))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, k, v, attn_mask=mask, enable_gqa=True)
+            res["library_ms"] = _time_ms(library)
+            res["library_ms_host"] = _time_ms(library, spin=False)
         else:
-            res["library_ms"] = None
+            library = res["library_ms"] = res["library_ms_host"] = None
+        if cold:
+            res["ms_cold"] = _time_ms(fn, cold=True)
+            res["library_ms_cold"] = _time_ms(library, cold=True) \
+                if library else None
     log(name + " " + json.dumps(res))
     return res
 
@@ -422,13 +473,14 @@ def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
         flops = 4.0 * read * H * D
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        res.update(ms=_time_ms(fn), plain_ms=_time_ms(plain),
+        res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
+                   plain_ms=_time_ms(plain),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    bound_formula=(f"max({nbytes:.4g} B of K/V + table read "
                                   f"+ q/out / 3.35 TB/s, {flops:.4g} flop / "
                                   f"{peak / 1e12:.0f} TFLOP/s)"),
-                   library_ms=None,
+                   library_ms=None, library_ms_host=None,
                    library_note="no single PyTorch call attends through a "
                                 "block table")
     log(name + " " + json.dumps(res))
@@ -511,6 +563,9 @@ def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
     res.update(
         ms=_time_ms(lambda: kernel(*pools, k_new, v_new, pos, table, active,
                                    targets=targets)),
+        ms_host=_time_ms(lambda: kernel(*pools, k_new, v_new, pos, table,
+                                        active, targets=targets),
+                         spin=False),
         plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pos, table,
                                            active, targets=targets)),
         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
@@ -519,7 +574,7 @@ def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
         # the function quantizes each row and writes int8 rows plus their
         # scales: no single PyTorch call does that (the plain version is
         # the PyTorch composition of it)
-        res.update(library_ms=None,
+        res.update(library_ms=None, library_ms_host=None,
                    library_note="no single PyTorch call quantizes rows and "
                                 "scatters them with their scales")
     else:
@@ -527,6 +582,7 @@ def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
             pools[0][pb, :, off] = k_new
             pools[1][pb, :, off] = v_new
         res.update(library_ms=_time_ms(library),
+                   library_ms_host=_time_ms(library, spin=False),
                    library_note="pool[pb, :, off] = row (index_put_) for the "
                                 "K and the V pool")
     log(name + " " + json.dumps(res))
@@ -635,13 +691,14 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
     flops = 4.0 * pairs * H * D
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    res.update(ms=_time_ms(fn), plain_ms=_time_ms(plain),
+    res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
+               plain_ms=_time_ms(plain),
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                bound_formula=(f"max({nbytes:.4g} B of unique K/V + live q/out "
                               f"+ table / 3.35 TB/s, {flops:.4g} causal flop "
                               f"/ {peak / 1e12:.0f} TFLOP/s)"),
-               library_ms=None,
+               library_ms=None, library_ms_host=None,
                library_note="no single PyTorch call attends a flat stream "
                             "through block tables")
     log(name + " " + json.dumps(res))
@@ -726,11 +783,13 @@ def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
               + (2 * n * KVH * 4 if q8 else 0))
     res.update(
         ms=_time_ms(lambda: kernel(*pools, k_new, v_new, pb, off)),
+        ms_host=_time_ms(lambda: kernel(*pools, k_new, v_new, pb, off),
+                         spin=False),
         plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pb, off)),
         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
         bound_formula=f"{nbytes} B / 3.35 TB/s")
     if q8:
-        res.update(library_ms=None,
+        res.update(library_ms=None, library_ms_host=None,
                    library_note="no single PyTorch call quantizes rows and "
                                 "scatters them with their scales")
     else:
@@ -740,6 +799,7 @@ def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
             pools[0][pbl, :, offl] = k_new
             pools[1][pbl, :, offl] = v_new
         res.update(library_ms=_time_ms(library),
+                   library_ms_host=_time_ms(library, spin=False),
                    library_note="pool[pb, :, off] = row (index_put_) for the "
                                 "K and the V pool")
     log(name + " " + json.dumps(res))
@@ -754,9 +814,11 @@ def phase_kernels():
     bf16, f32 = torch.bfloat16, torch.float32
     H, KVH, D = 32, 8, 128
     main = {}
-    # main-path shapes: 4 slots, 512-token prefill bucket, 2048 context
+    # main-path shapes: 4 slots, 512-token prefill bucket, 2048 context;
+    # the 64-token bucket that phase 4's prompts of 1 and 17 tokens take
     main["flash_prefill"] = check_prefill(4, 512, H, KVH, D, bf16,
-                                          [512, 300, 17, 1])
+                                          [512, 300, 17, 1], cold=True)
+    check_prefill(2, 64, H, KVH, D, bf16, [17, 1])
     check_prefill(2, 256, H, KVH, D, bf16, [256, 200], window=64,
                   timed=False)
     check_prefill(3, 64, 8, 1, 64, f32, [64, 40, 1], timed=False)
@@ -764,7 +826,8 @@ def phase_kernels():
     lens4 = [1, 129, 1000, 2048]
     lens16 = lens4 + [7, 64, 255, 256, 511, 700, 1024, 1500, 1777, 2000,
                       2047, 300]
-    main["ragged_decode"] = check_decode(4, H, KVH, 2048, D, bf16, lens4)
+    main["ragged_decode"] = check_decode(4, H, KVH, 2048, D, bf16, lens4,
+                                         cold=True)
     check_decode(16, H, KVH, 2048, D, bf16, lens16)
     check_decode(3, 8, 2, 256, 64, f32, [5, 200, 256], timed=False)
     check_decode(2, H, KVH, 2048, D, bf16, [1500, 40], window=256,
@@ -1614,7 +1677,8 @@ def main():
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
-                     "library_ms": m["library_ms"]})
+                     "library_ms": m["library_ms"], "ms_host": m["ms_host"],
+                     "library_ms_host": m["library_ms_host"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

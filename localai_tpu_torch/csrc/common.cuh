@@ -57,6 +57,45 @@ __device__ __forceinline__ void lt_load_tile(float* dst, int ld,
   }
 }
 
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only). With
+// valid == false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void lt_cp_async16(void* dst, const void* src,
+                                              bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void lt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void lt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `smem` bytes on the
+// current device. The attribute is per device, so `done` keeps, per device
+// id, the largest size set so far, and a launch sets it only when it needs
+// more on its device; a device id past LT_MAX_DEVICES sets it every time.
+constexpr int LT_MAX_DEVICES = 64;
+template <typename K>
+inline cudaError_t lt_set_max_smem(K* kernel, size_t smem,
+                                   size_t (&done)[LT_MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = dev >= 0 && dev < LT_MAX_DEVICES;
+  if (kept && smem <= done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess && kept) done[dev] = smem;
+  return e;
+}
+
 __device__ __forceinline__ float lt_warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

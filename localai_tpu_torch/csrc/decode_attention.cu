@@ -20,19 +20,43 @@
 //
 // What bounds it on the H100: decode reads every valid K/V byte once and
 // does 4 flops per byte or fewer, so the bound is the K/V bytes actually
-// read over 3.35 TB/s. Design: one block of 128 threads per (slot, KV
-// head); the G = H/KVH query heads of the group share each 32-token K/V
-// tile staged in shared memory (16-byte vector loads). The block walks
-// only ceil(len/32) tiles and never reads a row at or past `len` (masked
-// loads stand in for the Pallas zeroing of the partial tile) — the
-// O(valid tokens) property the Pallas index-map clamp provides. Paged
-// mode is the same kernel (template flag PAGED): a 32-token tile never
-// straddles a 128-token block, so each tile reads one table entry,
-// table[b, t0/128], and only for t0 < len — a block reads table entries
-// below ceil(len/128) only, which keeps the O(valid tokens) property of the
-// Pallas index-map clamp. Known limit: at the main path's 4 slots x 8 KV
-// heads that is 32 blocks on 132 SMs, so most of the card idles; split-KV
-// across blocks is later work.
+// read over 3.35 TB/s. The card has 132 SMs, and one (slot, KV head) row
+// walked by one block leaves most of them idle (4 slots x 8 KV heads is 32
+// blocks) and serializes a long row.
+//
+// Dense bf16/f32 (decode_attention_launch): split-KV, two launches. It
+// replaced the one-block-per-(slot, KV head) walk below for this mode.
+//   - Split pass, grid (nsplit, KVH, B): a block takes one contiguous span
+//     of `split` tokens of one (slot, KV head), keeps the G = H/KVH query
+//     heads of the group in shared memory (f32, pre-scaled) and streams the
+//     span's K/V rows through a ring of 32-token tiles (4 stages bf16, 2
+//     f32; 16-byte cp.async, 17-34 KB a stage), so up to 3 tiles of copies
+//     are in flight while one is consumed; rows at/past `length` are
+//     zero-filled, never read. Tile rows are padded by 16 bytes, so 16-byte
+//     reads down a column of 32 rows hit distinct banks. It writes f32
+//     partials (m, l, acc[G, D]) to a workspace. A block whose span starts
+//     at/past `length`, or ends before the window, writes the empty partial
+//     (NEG_INF, 0, 0) and loads nothing.
+//   - Combine pass, grid (H, B): M = max m_i, l = sum e^(m_i-M) l_i, out =
+//     sum e^(m_i-M) acc_i / max(l, 1e-30) over the splits below
+//     ceil(len/split) only; with the finite NEG_INF an empty split adds 0,
+//     and a row with no split left comes out 0. It is a programmatic
+//     dependent launch: its launch overlaps the split pass, and it waits
+//     for that grid on the device (griddepcontrol), which hides most of a
+//     second launch's cost.
+//   - nsplit and split come from shapes alone (T, B*KVH, the SM count:
+//     ops/kernels/flash_attention.decode_split), never from `lengths`, so a
+//     decode step needs no device sync; split is a multiple of the tile.
+//   The split pass takes a PAGED template flag (a 32-token tile never
+//   straddles a 128-token block: one table entry per tile) so the paged and
+//   int8 modes can move onto it; today only the dense mode uses it.
+//
+// int8 and paged (the other three entry points): decode_kernel, one block
+// of 128 threads per (slot, KV head) walking the row in 32-token tiles that
+// the G query heads share, staged in shared memory as f32; it reads only
+// ceil(len/32) tiles (paged: the table entries below ceil(len/128)), the
+// O(valid tokens) property of the Pallas index-map clamp. A long row
+// serializes in one block; these modes move to the split pass later.
 #include "common.cuh"
 
 namespace {
@@ -220,17 +244,338 @@ int dispatch(int dtype, const void* q, const void* kc, const void* vc,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ---------------------------------------------------------------- split-KV
+
+// Two adjacent elements (the first at an even index) as f32.
+__device__ __forceinline__ float2 lt_to_f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 lt_to_f2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+constexpr int SK_BK = 32;     // tokens per tile (one per lane in the softmax)
+constexpr int SK_P = NT / SK_BK;  // threads sharing one token's dot products
+constexpr int SK_MAXP = 4;    // (d, d+1) output pairs a thread: G*D <= 1024
+
+// First cache row of the tile at token t0: dense [B, KVH, T] rows, or paged
+// block table[b, t0/128] of the pool's [NB, KVH, 128] rows.
+template <bool PAGED>
+__device__ __forceinline__ int64_t tile_row0(const int* table, int b, int kh,
+                                             int KVH, int Tlen, int t0) {
+  if (PAGED) {
+    const int64_t pb =
+        table[static_cast<int64_t>(b) * (Tlen / PBS) + t0 / PBS];
+    return (pb * KVH + kh) * PBS + t0 % PBS;
+  }
+  return (static_cast<int64_t>(b) * KVH + kh) * Tlen + t0;
+}
+
+template <typename T>
+__host__ __device__ constexpr int sk_stages() {
+  return sizeof(T) == 2 ? 4 : 2;
+}
+
+// Shared-memory bytes of the split pass.
+template <typename T>
+size_t sk_smem(int G, int D) {
+  const size_t rs = static_cast<size_t>(D) * sizeof(T) + 16;
+  return sizeof(float) * static_cast<size_t>(G) * D +        // Qs
+         static_cast<size_t>(sk_stages<T>()) * 2 * SK_BK * rs +  // K/V ring
+         sizeof(float) * (static_cast<size_t>(SK_P + 1) * G * SK_BK +
+                          3 * G);                             // Red, Ps, state
+}
+
+// Workspace: ml [B, H, nsplit, 2] (m, l) then acc [B, H, nsplit, D], f32.
+template <typename T, bool PAGED>
+__global__ void __launch_bounds__(NT)
+    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc,
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ table, float* __restrict__ ws,
+                        int H, int KVH, int Tlen, int D, float scale,
+                        int window, int split, int nsplit) {
+  constexpr int ES = sizeof(T), VEC = 16 / ES, NS = sk_stages<T>();
+  extern __shared__ __align__(16) uint8_t sk_raw[];
+  const int G = H / KVH;
+  const int rs = D * ES + 16;  // padded tile row (bytes)
+  float* Qs = reinterpret_cast<float*>(sk_raw);  // [G][D], pre-scaled
+  uint8_t* ring = sk_raw + sizeof(float) * G * D;  // NS x (K [BK][rs], V)
+  float* Red = reinterpret_cast<float*>(ring + NS * 2 * SK_BK * rs);
+  float* Ps = Red + SK_P * G * SK_BK;  // [G][BK] p
+  float* Ms = Ps + G * SK_BK;          // [G] running max
+  float* Ls = Ms + G;                  // [G] running denominator
+  float* Al = Ls + G;                  // [G] this tile's rescale factor
+
+  // let the combine grid launch now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int sp = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(lengths[b], Tlen);
+  const int wstart = window > 0 ? max(len - window, 0) : 0;
+  const int lo = sp * split, hi = min(lo + split, len);
+  const int64_t part0 = (static_cast<int64_t>(b) * H + kh * G) * nsplit + sp;
+  float* ml = ws + 2 * part0;  // head g at + 2 * g * nsplit
+  float* accw = ws + 2 * static_cast<int64_t>(gridDim.z) * H * nsplit +
+                part0 * D;     // head g at + g * nsplit * D
+
+  if (hi <= lo || hi <= wstart) {  // empty span: the partial that adds 0
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D;
+      accw[static_cast<int64_t>(g) * nsplit * D + (i - g * D)] = 0.f;
+    }
+    for (int g = tid; g < G; g += NT) {
+      ml[2 * g * nsplit] = LT_NEG_INF;
+      ml[2 * g * nsplit + 1] = 0.f;
+    }
+    return;
+  }
+
+  const int kb0 = max(lo, wstart) / SK_BK;
+  const int kb1 = (hi + SK_BK - 1) / SK_BK;
+  const int cpr = D / VEC;  // 16-byte chunks per row
+  auto load = [&](int kb) {
+    const int t0 = kb * SK_BK;
+    const int valid = min(SK_BK, hi - t0);
+    const int64_t row0 = tile_row0<PAGED>(table, b, kh, KVH, Tlen, t0);
+    uint8_t* ks = ring + ((kb - kb0) % NS) * 2 * SK_BK * rs;
+    uint8_t* vs = ks + SK_BK * rs;
+    for (int i = tid; i < SK_BK * cpr; i += NT) {
+      const int r = i / cpr, c = i - r * cpr;
+      const bool ok = r < valid;
+      const int64_t off = (row0 + (ok ? r : 0)) * D + c * VEC;
+      lt_cp_async16(ks + r * rs + c * 16, kc + off, ok);
+      lt_cp_async16(vs + r * rs + c * 16, vc + off, ok);
+    }
+  };
+  // the first NS-1 tiles in flight, one commit group each (possibly empty)
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (kb0 + i < kb1) load(kb0 + i);
+    lt_cp_async_commit();
+  }
+
+  lt_load_tile(Qs, D, q + (static_cast<int64_t>(b) * H + kh * G) * D, D, G,
+               G, D, scale);
+  for (int g = tid; g < G; g += NT) {
+    Ms[g] = LT_NEG_INF;
+    Ls[g] = 0.f;
+  }
+  float acc[2 * SK_MAXP];
+#pragma unroll
+  for (int i = 0; i < 2 * SK_MAXP; ++i) acc[i] = 0.f;
+  const int j = tid % SK_BK, part = tid / SK_BK;  // score thread's token
+
+  for (int kb = kb0; kb < kb1; ++kb) {
+    if (kb + NS - 1 < kb1) load(kb + NS - 1);
+    lt_cp_async_commit();
+    lt_cp_async_wait<NS - 1>();  // tile kb landed
+    __syncthreads();
+    const uint8_t* ks = ring + ((kb - kb0) % NS) * 2 * SK_BK * rs;
+    const uint8_t* vs = ks + SK_BK * rs;
+    const int t0 = kb * SK_BK;
+
+    // partial dot products of token j over chunks part, part + P, ...,
+    // for 8 heads at a time: each K chunk is read once per 8 heads
+    for (int g0 = 0; g0 < G; g0 += 8) {
+      float s[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) s[x] = 0.f;
+      for (int c = part; c < cpr; c += SK_P) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(ks + j * rs + c * 16);
+        const T* e = reinterpret_cast<const T*>(&raw);
+        float kf[VEC];
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) kf[x] = lt_to_f(e[x]);
+#pragma unroll
+        for (int gi = 0; gi < 8; ++gi) {
+          if (g0 + gi < G) {
+            const float4* qr = reinterpret_cast<const float4*>(
+                Qs + (g0 + gi) * D + c * VEC);
+#pragma unroll
+            for (int x = 0; x < VEC / 4; ++x) {
+              const float4 qv = qr[x];
+              s[gi] += qv.x * kf[4 * x] + qv.y * kf[4 * x + 1] +
+                       qv.z * kf[4 * x + 2] + qv.w * kf[4 * x + 3];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < 8; ++gi)
+        if (g0 + gi < G) Red[(part * G + g0 + gi) * SK_BK + j] = s[gi];
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NT / 32) {
+      float s = 0.f;
+#pragma unroll
+      for (int p = 0; p < SK_P; ++p) s += Red[(p * G + g) * SK_BK + lane];
+      const int kpos = t0 + lane;
+      s = (kpos < len && kpos >= wstart) ? s : LT_NEG_INF;
+      const float m_old = Ms[g];
+      const float m_new = fmaxf(m_old, lt_warp_max(s));
+      const float p = expf(s - m_new);
+      const float psum = lt_warp_sum(p);
+      Ps[g * SK_BK + lane] = p;
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        Ls[g] = Ls[g] * alpha + psum;
+        Ms[g] = m_new;
+        Al[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < SK_MAXP; ++i) {
+      const int idx = tid + i * NT;
+      if (idx < G * D / 2) {
+        const int g = idx / (D / 2), d = 2 * (idx - g * (D / 2));
+        const float* pr = Ps + g * SK_BK;
+        float a0 = acc[2 * i] * Al[g], a1 = acc[2 * i + 1] * Al[g];
+#pragma unroll 8
+        for (int t = 0; t < SK_BK; ++t) {
+          const float2 vv =
+              lt_to_f2(reinterpret_cast<const T*>(vs + t * rs) + d);
+          a0 += pr[t] * vv.x;
+          a1 += pr[t] * vv.y;
+        }
+        acc[2 * i] = a0;
+        acc[2 * i + 1] = a1;
+      }
+    }
+    __syncthreads();  // this stage consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < SK_MAXP; ++i) {
+    const int idx = tid + i * NT;
+    if (idx < G * D / 2) {
+      const int g = idx / (D / 2), d = 2 * (idx - g * (D / 2));
+      float* a = accw + static_cast<int64_t>(g) * nsplit * D + d;
+      a[0] = acc[2 * i];
+      a[1] = acc[2 * i + 1];
+    }
+  }
+  for (int g = tid; g < G; g += NT) {
+    ml[2 * g * nsplit] = Ms[g];
+    ml[2 * g * nsplit + 1] = Ls[g];
+  }
+}
+
+// One block of NT threads per (q head, slot); thread d < D owns output d,
+// and all NT stage the splits' weights in chunks of NT. Launched with
+// programmatic stream serialization, it may start while the split pass
+// still runs: griddepcontrol.wait holds it until that grid has finished
+// and its writes are visible.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    decode_combine_kernel(const float* __restrict__ ws,
+                          const int* __restrict__ lengths,
+                          T* __restrict__ out, int H, int Tlen, int D,
+                          int split, int nsplit) {
+  __shared__ float wsm[NT], lsm[NT], red[NT / 32];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = min(lengths[b], Tlen);
+  const int n = min(nsplit, (len + split - 1) / split);  // splits read
+  const int64_t row = static_cast<int64_t>(b) * H + h;
+  const float* ml = ws + 2 * row * nsplit;
+  const float* acc = ws + 2 * static_cast<int64_t>(gridDim.y) * H * nsplit +
+                     row * nsplit * D + tid;
+  float mx = LT_NEG_INF;
+  for (int i = tid; i < n; i += NT) mx = fmaxf(mx, ml[2 * i]);
+  mx = lt_warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  float M = red[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) M = fmaxf(M, red[w]);
+  float l = 0.f, o = 0.f;
+  for (int c0 = 0; c0 < n; c0 += NT) {
+    const int i = c0 + tid;
+    const float w = i < n ? expf(ml[2 * i] - M) : 0.f;
+    __syncthreads();  // the previous chunk consumed
+    wsm[tid] = w;
+    lsm[tid] = i < n ? w * ml[2 * i + 1] : 0.f;
+    __syncthreads();
+    const int cnt = min(NT, n - c0);
+    if (tid < D) {
+#pragma unroll 8
+      for (int k = 0; k < cnt; ++k) {
+        o += wsm[k] * acc[static_cast<int64_t>(c0 + k) * D];
+        l += lsm[k];
+      }
+    }
+  }
+  if (tid < D) out[row * D + tid] = lt_from_f<T>(o / fmaxf(l, 1e-30f));
+}
+
+template <typename T>
+int launch_split(const void* q, const void* kc, const void* vc,
+                 const int* lengths, void* out, float* ws, int B, int H,
+                 int KVH, int Tlen, int D, int window, float scale,
+                 int nsplit, int split, cudaStream_t stream) {
+  const int G = H / KVH;
+  const size_t smem = sk_smem<T>(G, D);
+  static size_t smem_set[LT_MAX_DEVICES] = {};
+  const cudaError_t ea =
+      lt_set_max_smem(decode_split_kernel<T, false>, smem, smem_set);
+  if (ea != cudaSuccess) return static_cast<int>(ea);
+  decode_split_kernel<T, false><<<dim3(nsplit, KVH, B), NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), lengths, nullptr, ws, H, KVH, Tlen, D,
+      scale, window, split, nsplit);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the combine's launch overlaps the split pass's tail (programmatic
+  // dependent launch); it waits for the split grid inside
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* cws = ws;
+  T* o = static_cast<T*>(out);
+  const cudaError_t e2 = cudaLaunchKernelEx(
+      &cfg, decode_combine_kernel<T>, cws, lengths, o, H, Tlen, D, split,
+      nsplit);
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Dense bf16/f32, split-KV: ws holds B*H*nsplit*(D+2) floats; split is a
+// multiple of 32 and nsplit*split >= T (both from the wrapper's shapes).
 extern "C" int decode_attention_launch(int dtype, const void* q,
                                        const void* kc, const void* vc,
-                                       const int* lengths, void* out, int B,
-                                       int H, int KVH, int Tlen, int D,
-                                       int window, float scale,
+                                       const int* lengths, void* out,
+                                       float* ws, int B, int H, int KVH,
+                                       int Tlen, int D, int window,
+                                       float scale, int nsplit, int split,
                                        void* stream) {
-  return dispatch<false, false>(dtype, q, kc, vc, nullptr, nullptr, lengths,
-                                nullptr, out, B, H, KVH, Tlen, D, window,
-                                scale, stream);
+  if (bad_geometry(H, KVH, D) || split <= 0 || split % SK_BK != 0 ||
+      nsplit <= 0 || static_cast<int64_t>(nsplit) * split < Tlen)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == LT_BF16)
+    return launch_split<__nv_bfloat16>(q, kc, vc, lengths, out, ws, B, H,
+                                       KVH, Tlen, D, window, scale, nsplit,
+                                       split, st);
+  if (dtype == LT_F32)
+    return launch_split<float>(q, kc, vc, lengths, out, ws, B, H, KVH, Tlen,
+                               D, window, scale, nsplit, split, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int decode_attention_q8_launch(int dtype, const void* q,

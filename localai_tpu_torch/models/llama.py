@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from localai_tpu_torch import not_ported
-from localai_tpu_torch.device import torch_dtype
+from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.ops.attention import mha_extend
 from localai_tpu_torch.ops.kernels import (
     QBLK, flash_prefill, paged_scatter_append, paged_scatter_append_q8,
@@ -194,9 +194,12 @@ def _to_torch(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree, cfg: LlamaConfig, device="cpu") -> Llama:
+def params_from_jax(tree, cfg: LlamaConfig, device=None) -> Llama:
     """The reference's parameter tree (numpy leaves, layers stacked on a
-    leading [L] axis, int8 projections as {"q", "s"} dicts) → Llama."""
+    leading [L] axis, int8 projections as {"q", "s"} dicts) → Llama on
+    `device` (default: the card; raises without CUDA unless "cpu" is
+    asked for)."""
+    device = resolve_device(device)
     _no_moe(cfg)
     if any(k.startswith("moe_") for k in tree["layers"]):
         raise not_ported("Mixtral experts", "Mixtral/int4")

@@ -10,6 +10,8 @@ from localai_tpu_torch.ops.kernels import flash_attention as _fa
 from localai_tpu_torch.ops.kernels import paged_scatter as _ps
 from localai_tpu_torch.ops.kernels import ragged_attention as _ra
 from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
+    DECODE_TILE,
+    decode_split,
     flash_prefill,
     flash_prefill_plain,
     ragged_decode,

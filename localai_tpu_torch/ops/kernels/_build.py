@@ -37,8 +37,8 @@ SIGNATURES = {
                                  _I, _F, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _F, _P],
+        "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _F, _I, _I, _P],
         "decode_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _F, _P],
         "decode_attention_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _I,

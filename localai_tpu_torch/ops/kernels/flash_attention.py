@@ -5,7 +5,8 @@ Three wrappers, each beside its plain version with the same signature:
 - flash_prefill / flash_prefill_plain — causal GQA attention over a padded
   prompt batch (csrc/flash_prefill.cu);
 - ragged_decode / ragged_decode_plain — one query token per slot against
-  the dense KV cache, or (`table=`) against the paged block pool through a
+  the dense KV cache (split-KV: a split pass and a combine pass, spans from
+  `decode_split`), or (`table=`) against the paged block pool through a
   block table (csrc/decode_attention.cu);
 - ragged_decode_q8 / ragged_decode_q8_plain — the same over an int8 cache
   with per-token scales (csrc/decode_attention.cu, q8 variant).
@@ -17,12 +18,14 @@ show that its main path went through the kernels; the paged launches count
 apart (`ragged_decode_paged`, `ragged_decode_q8_paged`). The paged plain
 versions are ops/paged.paged_view followed by the dense plain version.
 
-The plain versions follow the kernels' math: f32 scores from the
-pre-scaled query, masks, softmax in f32, the 1e-30 floor on the
-denominator, and — for int8 — the K scale on the score columns and the V
-scale on p before the value product.
+The plain versions follow the kernels' math: f32 scores scaled by
+D**-0.5, masks, softmax in f32, the 1e-30 floor on the denominator, and —
+for int8 — the K scale on the score columns and the V scale on p before
+the value product.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -60,6 +63,29 @@ def _lengths_i32(lengths, device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+DECODE_TILE = 32   # tokens per tile of the split pass (SK_BK in the .cu)
+
+
+def decode_split(T: int, rows: int, sms: int) -> tuple[int, int]:
+    """(nsplit, split) of dense split-KV decode over a T-token cache for
+    rows = B*KVH (slot, KV head) rows on a card with `sms` SMs: about 16
+    blocks per SM over all rows at full length — rows are mostly shorter
+    than T, and a block past its row's length exits at once — so a long
+    row's spans stay a few tiles deep, but at least two tiles, which a
+    block has in flight together. Shapes only, never the lengths, so a
+    decode step needs no device sync. nsplit * split >= T > (nsplit - 1)
+    * split."""
+    tiles = -(-T // DECODE_TILE)
+    want = min(max(1, -(-16 * sms // rows)), -(-tiles // 2))
+    split = -(-tiles // want) * DECODE_TILE
+    return -(-T // split), split
 
 
 def _raise_rc(name, rc):
@@ -210,7 +236,11 @@ def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
     in q's dtype; lengths: [B] valid entries incl. the newly written token.
     Paged mode (`table` [B, MAXB] int): the caches are block pools [NB,
     KVH, 128, D] and virtual block v of slot b is pool block table[b, v]
-    (T = MAXB*128). Returns [B, 1, H, D]."""
+    (T = MAXB*128). Returns [B, 1, H, D].
+
+    Dense mode on the card is split-KV: two CUDA launches (the split pass
+    over `decode_split` spans into an f32 workspace, then the combine),
+    counted as one launch of "ragged_decode"."""
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, lengths,
                                    sliding_window, table=table)
@@ -227,11 +257,15 @@ def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
                 (None, q.dtype, q.dtype))
     lens = _lengths_i32(lengths, q.device)
     out = torch.empty_like(q)
+    nsplit, split = decode_split(T, B * KVH, _sm_count(q.device))
+    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                     device=q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, KVH, T, D,
-        _window(sliding_window), D ** -0.5, _stream(q.device))
+        v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, H, KVH, T, D, _window(sliding_window), D ** -0.5, nsplit, split,
+        _stream(q.device))
     _raise_rc("ragged_decode", rc)
     LAUNCHES["ragged_decode"] += 1
     return out

@@ -11,7 +11,8 @@ inputs/outputs, plain vs Pallas: 2e-2, the bf16 bar of
 test_pallas_attention.py; CUDA kernel vs plain: atol 1e-3 + rtol 2**-7
 (one bf16 ulp, relative) — both compute in f32 and round once, so they
 differ by at most one rounding step of the output (chip_smoke.py holds
-the same bar). Only query rows below each row's length are compared for
+the same bar; the bf16 prefill kernel's tensor-core P V takes p as two
+bf16 terms, hi + lo, about 2**-17 relative). Only query rows below each row's length are compared for
 prefill: padding rows are don't-care by the kernels' contract.
 
 JAX is imported inside the CPU tests only, so the card's machine (which
@@ -192,6 +193,27 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert not any(counts.values())
 
 
+@pytest.mark.parametrize("T", [128, 2048, 4096, 131072])
+@pytest.mark.parametrize("rows", [1, 32, 128])
+def test_decode_split_from_shapes(T, rows):
+    """Split-KV decode's spans: whole tiles, at least two where the cache
+    has two, that cover the T-token cache; enough (slot, KV head, span)
+    blocks to fill the card's 132 SMs where the cache has that many
+    two-tile spans; nothing but shapes as input (the lengths would cost a
+    device sync every decode step)."""
+    import inspect
+
+    assert list(inspect.signature(tk.decode_split).parameters) == [
+        "T", "rows", "sms"]
+    nsplit, split = tk.decode_split(T, rows, 132)
+    assert split > 0 and split % tk.DECODE_TILE == 0
+    assert nsplit * split >= T > (nsplit - 1) * split
+    tiles = -(-T // tk.DECODE_TILE)
+    assert split >= min(2, tiles) * tk.DECODE_TILE
+    assert nsplit * rows >= min(132, -(-tiles // 2) * rows)
+    assert tk.decode_split(T, rows, 132) == (nsplit, split)
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -225,6 +247,63 @@ def test_cuda_flash_prefill_vs_plain(cuda, dtype, H, KVH, window):
     np.testing.assert_allclose(_valid(out.float().cpu().numpy(), lens),
                                _valid(ref.float().cpu().numpy(), lens),
                                **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("S,lens,window", [
+    (80, [80, 0, 1, 65], None),        # S not a multiple of 64, lengths 0, 1
+    (200, [200, 130, 64], 70),         # the window's start crosses K/V tiles
+])
+def test_cuda_flash_prefill_bf16_tensor_cores(cuda, D, S, lens, window):
+    """The bf16 tensor-core kernel at every head_dim it is built for: the
+    rows below each length against the plain version (bf16 bar), and every
+    output row finite, padding rows and a length-0 row included (the next
+    layer writes their K/V into the cache)."""
+    B, H, KVH = len(lens), 8, 2
+    q, k, v = _dev(_prefill_inputs(17, B, S, H, KVH, D), cuda,
+                   torch.bfloat16)
+    lt = torch.tensor(lens, device=cuda)
+    before = tk.launch_counts()["flash_prefill"]
+    out = tk.flash_prefill(q, k, v, lt, sliding_window=window)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_prefill"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    ref = tk.flash_prefill_plain(q, k, v, lt, sliding_window=window)
+    np.testing.assert_allclose(_valid(out.float().cpu().numpy(), lens),
+                               _valid(ref.float().cpu().numpy(), lens),
+                               **BF16_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,window", [(4, False), (4, True), (16, False)])
+def test_cuda_decode_split_vs_plain(cuda, dtype, B, window):
+    """Split-KV dense decode at the span edges: lengths 1, one span, one
+    span plus a token and the whole cache; with `window`, a window whose
+    start crosses a span boundary; B=16 beside B=4."""
+    td = getattr(torch, dtype)
+    H, KVH, T, D = 8, 2, 512, 64
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsplit, split = tk.decode_split(T, B * KVH, sms)
+    assert nsplit > 1
+    lens = [1, split, split + 1, T] + [int(x) for x in
+                                       _rng(18).integers(1, T + 1, B - 4)]
+    win = None
+    if window:
+        lens[1], win = 3 * split + 5, split + 7  # window from 2*split - 2
+    q, kc, vc = _decode_inputs(19, B, H, KVH, T, D)
+    qd, k, v = _dev((q, kc, vc), cuda, td)
+    lt = torch.tensor(lens, device=cuda)
+    before = tk.launch_counts()["ragged_decode"]
+    out = tk.ragged_decode(qd, k, v, lt, sliding_window=win)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["ragged_decode"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    ref = tk.ragged_decode_plain(qd, k, v, lt, sliding_window=win)
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
 
 
 @pytest.mark.cuda

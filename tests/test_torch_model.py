@@ -111,7 +111,7 @@ def test_params_from_jax(ckpt):
                                   jloader.load_params(ckpt, cfg,
                                                       dtype="int8"))
     tcfg = tloader.load_config(ckpt, dtype="int8")
-    model = tllama.params_from_jax(tree, tcfg)
+    model = tllama.params_from_jax(tree, tcfg, device="cpu")
     assert is_quantized(model.layers[0]["wq"]) and is_quantized(
         model.lm_head)
     assert model.embed.dtype == torch.bfloat16
@@ -120,6 +120,25 @@ def test_params_from_jax(ckpt):
     assert set(mine) == set(ref)
     for k in ref:
         np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+
+
+def test_params_from_jax_defaults_to_cuda(ckpt):
+    """Like every entry point, params_from_jax puts the weights on the
+    card unless the caller asks for the CPU: without CUDA and without a
+    device it raises."""
+    cfg = jloader.load_config(ckpt, dtype="float32")
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jloader.load_params(ckpt, cfg,
+                                                      dtype="float32"))
+    tcfg = tloader.load_config(ckpt, dtype="float32")
+    if torch.cuda.is_available():
+        model = tllama.params_from_jax(tree, tcfg)
+        assert model.embed.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tllama.params_from_jax(tree, tcfg)
+    assert tllama.params_from_jax(tree, tcfg,
+                                  device="cpu").embed.device.type == "cpu"
 
 
 def test_mixtral_waits_for_its_slice():
@@ -134,7 +153,8 @@ def _models(ckpt, dtype):
     jcfg = jloader.load_config(ckpt, dtype=dtype)
     jp = jloader.load_params(ckpt, jcfg, dtype=dtype)
     tcfg = tloader.load_config(ckpt, dtype=dtype)
-    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                                device="cpu")
     return jcfg, jp, tcfg, tp
 
 

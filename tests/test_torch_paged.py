@@ -277,7 +277,8 @@ def _models(ckpt, dtype):
     jcfg = jloader.load_config(ckpt, dtype=dtype)
     jp = jloader.load_params(ckpt, jcfg, dtype=dtype)
     tcfg = tloader.load_config(ckpt, dtype=dtype)
-    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                                device="cpu")
     return jcfg, jp, tcfg, tp
 
 

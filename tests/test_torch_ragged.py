@@ -304,7 +304,8 @@ def _tiny_models():
     jcfg = jllama.LlamaConfig(**TINY)
     jp = jllama.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = tllama.LlamaConfig(**TINY)
-    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = tllama.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                                device="cpu")
     r = np.random.default_rng(7)
     toks = [r.integers(0, 256, (1, n)).astype(np.int32) for n in (5, 7, 12)]
     return jcfg, jp, tcfg, tp, toks
