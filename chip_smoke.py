@@ -16,8 +16,9 @@ and the script exits non-zero:
      block), and the error of a planted fault that the check must reject;
      kernel/plain/library device times (CUDA events around a call the
      host enqueued while a spin kernel kept the card busy, median of 25
-     after warmup; for the main prefill and dense decode rows also with a
-     cold L2: a 256 MB scratch buffer written before each rep), the
+     after warmup; for the main prefill, dense decode and paged decode rows
+     also with a cold L2: a 256 MB scratch buffer written before each rep;
+     the paged decode cases print their spans and ring stages), the
      kernel's and the library call's times with the host's cost of the
      call in them (ms_host, library_ms_host: no spin) and the least time
      the card could take (bound_ms). The ragged
@@ -413,19 +414,52 @@ def _paged_pools(B, KVH, D, lengths, maxb, seed=0, nb=0):
     return k, v, table.cuda(), nb
 
 
+def _q8_paged_fault_l_scaled(q, kq, ks, vq, vs, lens, window, table):
+    """A planted fault of the int8 paged decode: the plain version with the
+    V scale applied to l as well (l sums p * Sv where the kernel's contract
+    sums the unscaled p)."""
+    import torch
+
+    from localai_tpu_torch.ops.attention import NEG_INF
+    from localai_tpu_torch.ops.kvcache import QuantKV
+    from localai_tpu_torch.ops.paged import paged_view
+
+    kv, vv = paged_view(QuantKV(kq, ks), table), paged_view(QuantKV(vq, vs),
+                                                             table)
+    B, _, H, D = q.shape
+    KVH, T = kv.q.shape[1], kv.q.shape[2]
+    qg = (q.float() * D ** -0.5).reshape(B, KVH, H // KVH, D)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, kv.q.float()) \
+        * kv.s.float().reshape(B, KVH, 1, T)
+    pos = torch.arange(T, device=q.device)
+    mask = pos[None, :] < lens[:, None]
+    if window:
+        mask = mask & (pos[None, :] >= lens[:, None] - window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = p * vv.s.float().reshape(B, KVH, 1, T)
+    o = torch.einsum("bkgt,bktd->bkgd", pv, vv.q.float()) \
+        / torch.clamp_min(pv.sum(dim=-1, keepdim=True), 1e-30)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
 def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
-                       window=None, timed=True, nb=0):
-    """Paged decode (kernels 3 and 5) against its plain version (paged_view
-    then the dense plain version), over a pool of at least `nb` blocks.
-    With timed=True also plants a fault — the plain version reads the
-    identity map (blocks 1..maxb for every slot) instead of the table — and
-    checks that the tolerance rejects it."""
+                       window=None, timed=True, nb=0, cold=False):
+    """Paged decode (kernels 3 and 5, split-KV) against its plain version
+    (paged_view then the dense plain version), over a pool of at least `nb`
+    blocks; reports the spans (nsplit, split) and ring stages the kernel
+    launches with. With timed=True also plants a fault — the plain version
+    reads the identity map (blocks 1..maxb for every slot) instead of the
+    table; int8 also the V scale applied to l — and checks that the
+    tolerance rejects it. cold=True also times the kernel with a cold
+    L2."""
     import torch
 
     from localai_tpu_torch.ops.kernels import (
-        ragged_decode, ragged_decode_plain, ragged_decode_q8,
-        ragged_decode_q8_plain,
+        _build, decode_split, ragged_decode, ragged_decode_plain,
+        ragged_decode_q8, ragged_decode_q8_plain,
     )
+    from localai_tpu_torch.ops.kernels.flash_attention import _DTYPE_CODE
     from localai_tpu_torch.ops.kvcache import quantize_tokens
 
     k, v, table, nb = _paged_pools(B, KVH, D, lengths, maxb, nb=nb)
@@ -449,16 +483,25 @@ def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
     torch.cuda.synchronize()
     ref = plain()
     fault = None
-    if timed:
-        ident = (torch.arange(maxb, dtype=torch.int32, device="cuda")
-                 + 1).expand(B, maxb).contiguous()
-        fault = plain_fn(q, *pools, lens, sliding_window=window, table=ident)
     kname = "ragged_decode_q8 paged" if q8 else "ragged_decode paged"
     name = f"{kname} {str(dtype).split('.')[-1]} B={B} MAXB={maxb} " \
            f"NB={nb} H={H} KVH={KVH} D={D} " \
            f"lengths={lengths[:8]}{'...' if B > 8 else ''} window={window}"
-    res = _check_close(name, out, ref, TOL[str(dtype).split(".")[-1]],
-                       fault=fault)
+    tol = TOL[str(dtype).split(".")[-1]]
+    if timed:
+        ident = (torch.arange(maxb, dtype=torch.int32, device="cuda")
+                 + 1).expand(B, maxb).contiguous()
+        fault = plain_fn(q, *pools, lens, sliding_window=window, table=ident)
+    res = _check_close(name, out, ref, tol, fault=fault)
+    if timed and q8:
+        res["planted_fault_l_scaled_err"] = _check_close(
+            name + " (V scale in l)", out, ref, tol,
+            fault=_q8_paged_fault_l_scaled(q, *pools, lens, window,
+                                           table))["planted_fault_err"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["nsplit"], res["split"] = decode_split(maxb * 128, B * KVH, sms)
+    res["stages"] = _build.load("decode_attention").decode_split_stages(
+        _DTYPE_CODE[dtype], int(q8))
     if timed:
         es = q.element_size()
         read = sum(min(n, maxb * 128) if not window
@@ -483,6 +526,8 @@ def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
                    library_ms=None, library_ms_host=None,
                    library_note="no single PyTorch call attends through a "
                                 "block table")
+        if cold:
+            res["ms_cold"] = _time_ms(fn, cold=True)
     log(name + " " + json.dumps(res))
     return res
 
@@ -844,18 +889,21 @@ def phase_kernels():
     # extra: B=4 and B=16 at MAXB 16 (PR 1's dense shapes)
     lens8 = [33, 49, 332, 732, 1532, 672, 712, 4095]
     main["ragged_decode_paged"] = check_paged_decode(8, H, KVH, D, bf16,
-                                                     lens8, 32, nb=129)
+                                                     lens8, 32, nb=129,
+                                                     cold=True)
     check_paged_decode(4, H, KVH, D, bf16, lens4, 16)
     check_paged_decode(16, H, KVH, D, bf16, lens16, 16)
     check_paged_decode(3, 8, 2, 64, f32, [5, 200, 256], 2, timed=False)
     check_paged_decode(2, H, KVH, D, bf16, [1500, 40], 16, window=256,
                        timed=False)
     main["ragged_decode_q8_paged"] = check_paged_decode(
-        8, H, KVH, D, bf16, lens8, 32, q8=True, nb=129)
+        8, H, KVH, D, bf16, lens8, 32, q8=True, nb=129, cold=True)
     check_paged_decode(4, H, KVH, D, bf16, lens4, 16, q8=True)
     check_paged_decode(16, H, KVH, D, bf16, lens16, 16, q8=True)
     check_paged_decode(3, 8, 1, 64, f32, [5, 200, 256], 2, q8=True,
                        timed=False)
+    check_paged_decode(2, H, KVH, D, bf16, [1500, 40], 16, q8=True,
+                       window=256, timed=False)
     main["paged_scatter_append"] = check_paged_scatter(8, KVH, D, bf16)
     check_paged_scatter(16, KVH, D, bf16)
     check_paged_scatter(5, 2, 64, f32, nb=12, maxb=4)
@@ -1678,7 +1726,8 @@ def main():
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
-                     "library_ms_host": m["library_ms_host"]})
+                     "library_ms_host": m["library_ms_host"],
+                     "ms_cold": m.get("ms_cold")})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,22 +21,34 @@
 // What bounds it on the H100: decode reads every valid K/V byte once and
 // does 4 flops per byte or fewer, so the bound is the K/V bytes actually
 // read over 3.35 TB/s. The card has 132 SMs, and one (slot, KV head) row
-// walked by one block leaves most of them idle (4 slots x 8 KV heads is 32
+// walked by one block leaves most of them idle (8 slots x 8 KV heads is 64
 // blocks) and serializes a long row.
 //
-// Dense bf16/f32 (decode_attention_launch): split-KV, two launches. It
-// replaced the one-block-per-(slot, KV head) walk below for this mode.
+// Split-KV, two launches: dense bf16/f32 (decode_attention_launch) and
+// both paged modes, bf16/f32 and int8 (decode_attention_paged_launch,
+// decode_attention_q8_paged_launch).
 //   - Split pass, grid (nsplit, KVH, B): a block takes one contiguous span
 //     of `split` tokens of one (slot, KV head), keeps the G = H/KVH query
 //     heads of the group in shared memory (f32, pre-scaled) and streams the
-//     span's K/V rows through a ring of 32-token tiles (4 stages bf16, 2
-//     f32; 16-byte cp.async, 17-34 KB a stage), so up to 3 tiles of copies
-//     are in flight while one is consumed; rows at/past `length` are
-//     zero-filled, never read. Tile rows are padded by 16 bytes, so 16-byte
-//     reads down a column of 32 rows hit distinct banks. It writes f32
-//     partials (m, l, acc[G, D]) to a workspace. A block whose span starts
-//     at/past `length`, or ends before the window, writes the empty partial
-//     (NEG_INF, 0, 0) and loads nothing.
+//     span's K/V rows through a ring of 32-token tiles (16-byte cp.async;
+//     SK_NS_* stages by K/V type, which decode_split_stages reports), so
+//     several tiles of copies are in flight while one is consumed; rows
+//     at/past `length` are zero-filled, never read. Tile
+//     rows are padded by 16 bytes, so 16-byte reads down a column of 32
+//     rows hit distinct banks. Paged: a 32-token tile never straddles a
+//     128-token block, so each tile reads one table entry, and only tiles
+//     below the length are loaded (the O(valid tokens) property of the
+//     Pallas index-map clamp). int8: the tile's 32 K and 32 V scales are
+//     contiguous (128 bytes each, at the tile's first row in the flattened
+//     scale pool, dense or paged) and ride in the same stage and commit
+//     group; the summed score is multiplied by its K scale and then
+//     masked, and p times its V scale (0 outside the mask: a reused
+//     block's tail holds a freed slot's stale scales) goes into the value
+//     product while l sums the unscaled p. It writes f32 partials (m, l,
+//     acc[G, D]) to a workspace. A block whose span starts at/past
+//     `length` exits at once, before any table read (the combine never
+//     reads it); one whose span ends before the window writes the empty
+//     partial (NEG_INF, 0, 0) and loads nothing.
 //   - Combine pass, grid (H, B): M = max m_i, l = sum e^(m_i-M) l_i, out =
 //     sum e^(m_i-M) acc_i / max(l, 1e-30) over the splits below
 //     ceil(len/split) only; with the finite NEG_INF an empty split adds 0,
@@ -47,16 +59,12 @@
 //   - nsplit and split come from shapes alone (T, B*KVH, the SM count:
 //     ops/kernels/flash_attention.decode_split), never from `lengths`, so a
 //     decode step needs no device sync; split is a multiple of the tile.
-//   The split pass takes a PAGED template flag (a 32-token tile never
-//   straddles a 128-token block: one table entry per tile) so the paged and
-//   int8 modes can move onto it; today only the dense mode uses it.
 //
-// int8 and paged (the other three entry points): decode_kernel, one block
-// of 128 threads per (slot, KV head) walking the row in 32-token tiles that
-// the G query heads share, staged in shared memory as f32; it reads only
-// ceil(len/32) tiles (paged: the table entries below ceil(len/128)), the
-// O(valid tokens) property of the Pallas index-map clamp. A long row
-// serializes in one block; these modes move to the split pass later.
+// Dense int8 (decode_attention_q8_launch): decode_kernel, one block of 128
+// threads per (slot, KV head) walking the row in 32-token tiles that the G
+// query heads share, staged in shared memory as f32; it reads only
+// ceil(len/32) tiles. A long row serializes in one block; this mode moves
+// onto the split pass's int8 flag next.
 #include "common.cuh"
 
 namespace {
@@ -66,13 +74,12 @@ constexpr int NT = 128;    // 4 warps
 constexpr int MAXO = 8;    // outputs per thread: G * D <= NT * MAXO
 constexpr int PBS = 128;   // paged block size (tokens); PBS % BK == 0
 
-template <typename T, typename KV, bool Q8, bool PAGED>
+template <typename T>
 __global__ void __launch_bounds__(NT)
-    decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
-                  const KV* __restrict__ vc, const float* __restrict__ ks,
+    decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
+                  const int8_t* __restrict__ vc, const float* __restrict__ ks,
                   const float* __restrict__ vs,
-                  const int* __restrict__ lengths,
-                  const int* __restrict__ table, T* __restrict__ out, int H,
+                  const int* __restrict__ lengths, T* __restrict__ out, int H,
                   int KVH, int Tlen, int D, float scale, int window) {
   extern __shared__ float smem[];
   const int G = H / KVH;
@@ -80,18 +87,17 @@ __global__ void __launch_bounds__(NT)
   float* Qs = smem;            // [G][ld], pre-scaled
   float* Ks = Qs + G * ld;     // [BK][ld]
   float* Vs = Ks + BK * ld;    // [BK][ld]
-  float* Ps = Vs + BK * ld;    // [G][BK] scores, then p (times v scale)
+  float* Ps = Vs + BK * ld;    // [G][BK] scores, then p times v scale
   float* Ms = Ps + G * BK;     // [G] running max
   float* Ls = Ms + G;          // [G] running denominator
   float* Al = Ls + G;          // [G] this tile's rescale factor
-  float* Sk = Al + G;          // [BK] k scales (q8)
-  float* Sv = Sk + BK;         // [BK] v scales (q8)
+  float* Sk = Al + G;          // [BK] k scales
+  float* Sv = Sk + BK;         // [BK] v scales
 
   const int kh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(lengths[b], Tlen);
   const int64_t slot = static_cast<int64_t>(b) * KVH + kh;
-  const int maxb = Tlen / PBS;  // table width (paged)
 
   lt_load_tile(Qs, ld, q + (static_cast<int64_t>(b) * H + kh * G) * D, D, G,
                G, D, scale);
@@ -110,25 +116,14 @@ __global__ void __launch_bounds__(NT)
   for (int kb = t_start; kb < nt; ++kb) {
     const int t0 = kb * BK;
     const int valid = min(BK, len - t0);
-    // first row of this tile: dense [B, KVH, T] rows, or paged block
-    // table[b, t0/128] of the pool's [NB, KVH, 128] rows
-    int64_t row0;
-    if (PAGED) {
-      const int64_t pb = table[static_cast<int64_t>(b) * maxb + t0 / PBS];
-      row0 = (pb * KVH + kh) * PBS + t0 % PBS;
-    } else {
-      row0 = slot * Tlen + t0;
-    }
+    const int64_t row0 = slot * Tlen + t0;
     __syncthreads();  // previous tile consumed (and Q / state visible)
     lt_load_tile(Ks, ld, kc + row0 * D, D, BK, valid, D, 1.f);
     lt_load_tile(Vs, ld, vc + row0 * D, D, BK, valid, D, 1.f);
-    if (Q8) {
-      // scales: element t of the slot's strip (dense) or row t%128 of the
-      // block's [1, 128] scale row (paged) — both sit at row0 + i
-      for (int i = tid; i < BK; i += NT) {
-        Sk[i] = i < valid ? ks[row0 + i] : 0.f;
-        Sv[i] = i < valid ? vs[row0 + i] : 0.f;
-      }
+    // scales: element t of the slot's strip sits at row0 + i
+    for (int i = tid; i < BK; i += NT) {
+      Sk[i] = i < valid ? ks[row0 + i] : 0.f;
+      Sv[i] = i < valid ? vs[row0 + i] : 0.f;
     }
     __syncthreads();
 
@@ -138,7 +133,7 @@ __global__ void __launch_bounds__(NT)
       const float* kr = Ks + j * ld;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      if (Q8) s *= Sk[j];
+      s *= Sk[j];
       const int kpos = t0 + j;
       const bool ok = kpos < len && (window <= 0 || kpos >= len - window);
       Ps[idx] = ok ? s : LT_NEG_INF;
@@ -151,7 +146,7 @@ __global__ void __launch_bounds__(NT)
       const float m_new = fmaxf(m_old, lt_warp_max(s));
       const float p = expf(s - m_new);
       const float psum = lt_warp_sum(p);
-      Ps[g * BK + lane] = Q8 ? p * Sv[lane] : p;
+      Ps[g * BK + lane] = p * Sv[lane];
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
         Ls[g] = Ls[g] * alpha + psum;
@@ -186,62 +181,29 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, typename KV, bool Q8, bool PAGED>
-int launch(const void* q, const void* kc, const void* vc, const float* ks,
-           const float* vs, const int* lengths, const int* table, void* out,
-           int B, int H, int KVH, int Tlen, int D, int window, float scale,
-           cudaStream_t stream) {
+template <typename T>
+int launch_q8_dense(const void* q, const void* kc, const void* vc,
+                    const float* ks, const float* vs, const int* lengths,
+                    void* out, int B, int H, int KVH, int Tlen, int D,
+                    int window, float scale, cudaStream_t stream) {
   const int G = H / KVH;
   const int ld = D + 1;
   const size_t smem = sizeof(float) * (static_cast<size_t>(G + 2 * BK) * ld +
                                        G * BK + 3 * G + 2 * BK);
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<T, KV, Q8, PAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static size_t smem_set[LT_MAX_DEVICES] = {};
+  const cudaError_t e =
+      lt_set_max_smem(decode_kernel<T>, smem, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(KVH, B);
-  decode_kernel<T, KV, Q8, PAGED><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kc),
-      static_cast<const KV*>(vc), ks, vs, lengths, table,
-      static_cast<T*>(out), H, KVH, Tlen, D, scale, window);
+  decode_kernel<T><<<dim3(KVH, B), NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const int8_t*>(vc), ks, vs, lengths, static_cast<T*>(out),
+      H, KVH, Tlen, D, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_geometry(int H, int KVH, int D) {
   return KVH <= 0 || H % KVH != 0 || D % 16 != 0 ||
          (H / KVH) * D > NT * MAXO;
-}
-
-// Dispatch on dtype and storage; Tlen is T (dense) or MAXB*128 (paged).
-template <bool Q8, bool PAGED>
-int dispatch(int dtype, const void* q, const void* kc, const void* vc,
-             const float* ks, const float* vs, const int* lengths,
-             const int* table, void* out, int B, int H, int KVH, int Tlen,
-             int D, int window, float scale, void* stream) {
-  if (bad_geometry(H, KVH, D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // if constexpr: each (Q8, PAGED) pair instantiates only its own KV type
-  if constexpr (Q8) {
-    if (dtype == LT_BF16)
-      return launch<__nv_bfloat16, int8_t, Q8, PAGED>(
-          q, kc, vc, ks, vs, lengths, table, out, B, H, KVH, Tlen, D, window,
-          scale, st);
-    if (dtype == LT_F32)
-      return launch<float, int8_t, Q8, PAGED>(q, kc, vc, ks, vs, lengths,
-                                              table, out, B, H, KVH, Tlen, D,
-                                              window, scale, st);
-  } else {
-    if (dtype == LT_BF16)
-      return launch<__nv_bfloat16, __nv_bfloat16, Q8, PAGED>(
-          q, kc, vc, ks, vs, lengths, table, out, B, H, KVH, Tlen, D, window,
-          scale, st);
-    if (dtype == LT_F32)
-      return launch<float, float, Q8, PAGED>(q, kc, vc, ks, vs, lengths,
-                                             table, out, B, H, KVH, Tlen, D,
-                                             window, scale, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 
@@ -254,13 +216,18 @@ __device__ __forceinline__ float2 lt_to_f2(const float* p) {
 __device__ __forceinline__ float2 lt_to_f2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 lt_to_f2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+}
 
 constexpr int SK_BK = 32;     // tokens per tile (one per lane in the softmax)
 constexpr int SK_P = NT / SK_BK;  // threads sharing one token's dot products
 constexpr int SK_MAXP = 4;    // (d, d+1) output pairs a thread: G*D <= 1024
 
 // First cache row of the tile at token t0: dense [B, KVH, T] rows, or paged
-// block table[b, t0/128] of the pool's [NB, KVH, 128] rows.
+// block table[b, t0/128] of the pool's [NB, KVH, 128] rows. The int8
+// scales of the tile start at the same index of the flattened scale pool.
 template <bool PAGED>
 __device__ __forceinline__ int64_t tile_row0(const int* table, int b, int kh,
                                              int KVH, int Tlen, int t0) {
@@ -272,38 +239,53 @@ __device__ __forceinline__ int64_t tile_row0(const int* table, int b, int kh,
   return (static_cast<int64_t>(b) * KVH + kh) * Tlen + t0;
 }
 
-template <typename T>
-__host__ __device__ constexpr int sk_stages() {
-  return sizeof(T) == 2 ? 4 : 2;
+// Ring stages of the split pass by K/V type: 4 of bf16 tiles (17 KB each at
+// D=128), 2 of f32 (34 KB), 4 of int8 (9.3 KB; 4 beat 6 and 8 on the H100,
+// chip_stage_sweep.py: a 4-tile span never has more than 4 tiles in
+// flight, so a deeper ring only costs occupancy).
+constexpr int SK_NS_BF16 = 4;
+constexpr int SK_NS_F32 = 2;
+constexpr int SK_NS_Q8 = 4;
+
+// Bytes of one ring stage: the K and V tiles (rows padded by 16 bytes),
+// then, for int8, the tile's 32 K scales and 32 V scales (f32).
+template <typename KV, bool Q8>
+__host__ __device__ __forceinline__ int sk_stage_bytes(int D) {
+  return 2 * SK_BK * (D * static_cast<int>(sizeof(KV)) + 16) +
+         (Q8 ? 2 * SK_BK * static_cast<int>(sizeof(float)) : 0);
 }
 
-// Shared-memory bytes of the split pass.
-template <typename T>
+// Shared-memory bytes of the split pass with NS stages.
+template <typename KV, bool Q8, int NS>
 size_t sk_smem(int G, int D) {
-  const size_t rs = static_cast<size_t>(D) * sizeof(T) + 16;
-  return sizeof(float) * static_cast<size_t>(G) * D +        // Qs
-         static_cast<size_t>(sk_stages<T>()) * 2 * SK_BK * rs +  // K/V ring
+  return sizeof(float) * static_cast<size_t>(G) * D +               // Qs
+         static_cast<size_t>(NS) * sk_stage_bytes<KV, Q8>(D) +      // ring
          sizeof(float) * (static_cast<size_t>(SK_P + 1) * G * SK_BK +
                           3 * G);                             // Red, Ps, state
 }
 
 // Workspace: ml [B, H, nsplit, 2] (m, l) then acc [B, H, nsplit, D], f32.
-template <typename T, bool PAGED>
+// T is q's (and out's) type, KV the cache's: T itself, or int8 with the
+// f32 scales ksc/vsc (Q8).
+template <typename T, typename KV, bool Q8, bool PAGED, int NS>
 __global__ void __launch_bounds__(NT)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc,
+    decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                        const KV* __restrict__ vc,
+                        const float* __restrict__ ksc,
+                        const float* __restrict__ vsc,
                         const int* __restrict__ lengths,
                         const int* __restrict__ table, float* __restrict__ ws,
                         int H, int KVH, int Tlen, int D, float scale,
                         int window, int split, int nsplit) {
-  constexpr int ES = sizeof(T), VEC = 16 / ES, NS = sk_stages<T>();
+  constexpr int ES = sizeof(KV), VEC = 16 / ES;
   extern __shared__ __align__(16) uint8_t sk_raw[];
   const int G = H / KVH;
   const int rs = D * ES + 16;  // padded tile row (bytes)
+  const int stage = sk_stage_bytes<KV, Q8>(D);
   float* Qs = reinterpret_cast<float*>(sk_raw);  // [G][D], pre-scaled
-  uint8_t* ring = sk_raw + sizeof(float) * G * D;  // NS x (K [BK][rs], V)
-  float* Red = reinterpret_cast<float*>(ring + NS * 2 * SK_BK * rs);
-  float* Ps = Red + SK_P * G * SK_BK;  // [G][BK] p
+  uint8_t* ring = sk_raw + sizeof(float) * G * D;  // NS x (K, V[, scales])
+  float* Red = reinterpret_cast<float*>(ring + NS * stage);
+  float* Ps = Red + SK_P * G * SK_BK;  // [G][BK] p (int8: times v scale)
   float* Ms = Ps + G * SK_BK;          // [G] running max
   float* Ls = Ms + G;                  // [G] running denominator
   float* Al = Ls + G;                  // [G] this tile's rescale factor
@@ -315,12 +297,15 @@ __global__ void __launch_bounds__(NT)
   const int len = min(lengths[b], Tlen);
   const int wstart = window > 0 ? max(len - window, 0) : 0;
   const int lo = sp * split, hi = min(lo + split, len);
+  // at/past the length: the combine reads only the splits below
+  // ceil(len/split), so this one writes nothing (and reads no table entry)
+  if (hi <= lo) return;
   const int64_t part0 = (static_cast<int64_t>(b) * H + kh * G) * nsplit + sp;
   float* ml = ws + 2 * part0;  // head g at + 2 * g * nsplit
   float* accw = ws + 2 * static_cast<int64_t>(gridDim.z) * H * nsplit +
                 part0 * D;     // head g at + g * nsplit * D
 
-  if (hi <= lo || hi <= wstart) {  // empty span: the partial that adds 0
+  if (hi <= wstart) {  // before the window: the partial that adds 0
     for (int i = tid; i < G * D; i += NT) {
       const int g = i / D;
       accw[static_cast<int64_t>(g) * nsplit * D + (i - g * D)] = 0.f;
@@ -339,14 +324,23 @@ __global__ void __launch_bounds__(NT)
     const int t0 = kb * SK_BK;
     const int valid = min(SK_BK, hi - t0);
     const int64_t row0 = tile_row0<PAGED>(table, b, kh, KVH, Tlen, t0);
-    uint8_t* ks = ring + ((kb - kb0) % NS) * 2 * SK_BK * rs;
-    uint8_t* vs = ks + SK_BK * rs;
+    uint8_t* kt = ring + ((kb - kb0) % NS) * stage;
+    uint8_t* vt = kt + SK_BK * rs;
     for (int i = tid; i < SK_BK * cpr; i += NT) {
       const int r = i / cpr, c = i - r * cpr;
       const bool ok = r < valid;
       const int64_t off = (row0 + (ok ? r : 0)) * D + c * VEC;
-      lt_cp_async16(ks + r * rs + c * 16, kc + off, ok);
-      lt_cp_async16(vs + r * rs + c * 16, vc + off, ok);
+      lt_cp_async16(kt + r * rs + c * 16, kc + off, ok);
+      lt_cp_async16(vt + r * rs + c * 16, vc + off, ok);
+    }
+    if (Q8 && tid < 2 * SK_BK / 4) {
+      // 8 chunks of 4 K scales, then 8 of 4 V scales; a chunk wholly past
+      // the length is zero-filled (a partial one is masked when used)
+      const int c = tid % (SK_BK / 4);
+      const bool ok = 4 * c < valid;
+      const float* src = (tid < SK_BK / 4 ? ksc : vsc) + row0 + (ok ? 4 * c
+                                                                    : 0);
+      lt_cp_async16(vt + SK_BK * rs + tid * 16, src, ok);
     }
   };
   // the first NS-1 tiles in flight, one commit group each (possibly empty)
@@ -372,8 +366,10 @@ __global__ void __launch_bounds__(NT)
     lt_cp_async_commit();
     lt_cp_async_wait<NS - 1>();  // tile kb landed
     __syncthreads();
-    const uint8_t* ks = ring + ((kb - kb0) % NS) * 2 * SK_BK * rs;
-    const uint8_t* vs = ks + SK_BK * rs;
+    const uint8_t* kt = ring + ((kb - kb0) % NS) * stage;
+    const uint8_t* vt = kt + SK_BK * rs;
+    // int8: K scales [BK], then V scales [BK]
+    const float* sc = reinterpret_cast<const float*>(vt + SK_BK * rs);
     const int t0 = kb * SK_BK;
 
     // partial dot products of token j over chunks part, part + P, ...,
@@ -384,8 +380,8 @@ __global__ void __launch_bounds__(NT)
       for (int x = 0; x < 8; ++x) s[x] = 0.f;
       for (int c = part; c < cpr; c += SK_P) {
         const uint4 raw =
-            *reinterpret_cast<const uint4*>(ks + j * rs + c * 16);
-        const T* e = reinterpret_cast<const T*>(&raw);
+            *reinterpret_cast<const uint4*>(kt + j * rs + c * 16);
+        const KV* e = reinterpret_cast<const KV*>(&raw);
         float kf[VEC];
 #pragma unroll
         for (int x = 0; x < VEC; ++x) kf[x] = lt_to_f(e[x]);
@@ -413,13 +409,15 @@ __global__ void __launch_bounds__(NT)
       float s = 0.f;
 #pragma unroll
       for (int p = 0; p < SK_P; ++p) s += Red[(p * G + g) * SK_BK + lane];
+      if (Q8) s *= sc[lane];  // the K scale on the finished dot product
       const int kpos = t0 + lane;
-      s = (kpos < len && kpos >= wstart) ? s : LT_NEG_INF;
+      const bool ok = kpos < len && kpos >= wstart;
+      s = ok ? s : LT_NEG_INF;
       const float m_old = Ms[g];
       const float m_new = fmaxf(m_old, lt_warp_max(s));
       const float p = expf(s - m_new);
-      const float psum = lt_warp_sum(p);
-      Ps[g * SK_BK + lane] = p;
+      const float psum = lt_warp_sum(p);  // l sums the unscaled p
+      Ps[g * SK_BK + lane] = Q8 ? (ok ? p * sc[SK_BK + lane] : 0.f) : p;
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
         Ls[g] = Ls[g] * alpha + psum;
@@ -439,7 +437,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll 8
         for (int t = 0; t < SK_BK; ++t) {
           const float2 vv =
-              lt_to_f2(reinterpret_cast<const T*>(vs + t * rs) + d);
+              lt_to_f2(reinterpret_cast<const KV*>(vt + t * rs) + d);
           a0 += pr[t] * vv.x;
           a1 += pr[t] * vv.y;
         }
@@ -515,42 +513,85 @@ __global__ void __launch_bounds__(NT)
   if (tid < D) out[row * D + tid] = lt_from_f<T>(o / fmaxf(l, 1e-30f));
 }
 
-template <typename T>
-int launch_split(const void* q, const void* kc, const void* vc,
-                 const int* lengths, void* out, float* ws, int B, int H,
-                 int KVH, int Tlen, int D, int window, float scale,
-                 int nsplit, int split, cudaStream_t stream) {
-  const int G = H / KVH;
-  const size_t smem = sk_smem<T>(G, D);
+// Arguments of one split-KV decode call (pointers untyped, as they come
+// through the C interface). Tlen is T (dense) or MAXB*128 (paged); ks/vs
+// (int8 scales) and table (paged) are null where unused.
+struct SplitArgs {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const float* ks;
+  const float* vs;
+  const int* table;
+  const int* lengths;
+  void* out;
+  float* ws;
+  int B, H, KVH, Tlen, D, window;
+  float scale;
+  int nsplit, split;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, bool Q8, bool PAGED, int NS>
+int launch_split(const SplitArgs& a) {
+  const size_t smem = sk_smem<KV, Q8, NS>(a.H / a.KVH, a.D);
   static size_t smem_set[LT_MAX_DEVICES] = {};
-  const cudaError_t ea =
-      lt_set_max_smem(decode_split_kernel<T, false>, smem, smem_set);
+  const cudaError_t ea = lt_set_max_smem(
+      decode_split_kernel<T, KV, Q8, PAGED, NS>, smem, smem_set);
   if (ea != cudaSuccess) return static_cast<int>(ea);
-  decode_split_kernel<T, false><<<dim3(nsplit, KVH, B), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, nullptr, ws, H, KVH, Tlen, D,
-      scale, window, split, nsplit);
+  decode_split_kernel<T, KV, Q8, PAGED, NS>
+      <<<dim3(a.nsplit, a.KVH, a.B), NT, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
+          static_cast<const KV*>(a.vc), a.ks, a.vs, a.lengths, a.table, a.ws,
+          a.H, a.KVH, a.Tlen, a.D, a.scale, a.window, a.split, a.nsplit);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   // the combine's launch overlaps the split pass's tail (programmatic
   // dependent launch); it waits for the split grid inside
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(H, B);
+  cfg.gridDim = dim3(a.H, a.B);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
+  cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const float* cws = ws;
-  T* o = static_cast<T*>(out);
+  const float* cws = a.ws;
+  T* o = static_cast<T*>(a.out);
   const cudaError_t e2 = cudaLaunchKernelEx(
-      &cfg, decode_combine_kernel<T>, cws, lengths, o, H, Tlen, D, split,
-      nsplit);
+      &cfg, decode_combine_kernel<T>, cws, a.lengths, o, a.H, a.Tlen, a.D,
+      a.split, a.nsplit);
   if (e2 != cudaSuccess) return static_cast<int>(e2);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_split(const SplitArgs& a) {
+  return bad_geometry(a.H, a.KVH, a.D) || a.split <= 0 ||
+         a.split % SK_BK != 0 || a.nsplit <= 0 ||
+         static_cast<int64_t>(a.nsplit) * a.split < a.Tlen;
+}
+
+template <bool PAGED>
+int split_same_type(int dtype, const SplitArgs& a) {
+  if (bad_split(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == LT_BF16)
+    return launch_split<__nv_bfloat16, __nv_bfloat16, false, PAGED,
+                        SK_NS_BF16>(a);
+  if (dtype == LT_F32)
+    return launch_split<float, float, false, PAGED, SK_NS_F32>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool PAGED>
+int split_q8(int dtype, const SplitArgs& a) {
+  if (bad_split(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == LT_BF16)
+    return launch_split<__nv_bfloat16, int8_t, true, PAGED, SK_NS_Q8>(a);
+  if (dtype == LT_F32)
+    return launch_split<float, int8_t, true, PAGED, SK_NS_Q8>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -564,20 +605,13 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
                                        int Tlen, int D, int window,
                                        float scale, int nsplit, int split,
                                        void* stream) {
-  if (bad_geometry(H, KVH, D) || split <= 0 || split % SK_BK != 0 ||
-      nsplit <= 0 || static_cast<int64_t>(nsplit) * split < Tlen)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == LT_BF16)
-    return launch_split<__nv_bfloat16>(q, kc, vc, lengths, out, ws, B, H,
-                                       KVH, Tlen, D, window, scale, nsplit,
-                                       split, st);
-  if (dtype == LT_F32)
-    return launch_split<float>(q, kc, vc, lengths, out, ws, B, H, KVH, Tlen,
-                               D, window, scale, nsplit, split, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a = {q, kc, vc, nullptr, nullptr, nullptr, lengths, out,
+                       ws, B, H, KVH, Tlen, D, window, scale, nsplit, split,
+                       static_cast<cudaStream_t>(stream)};
+  return split_same_type<false>(dtype, a);
 }
 
+// Dense int8: decode_kernel, one block per (slot, KV head).
 extern "C" int decode_attention_q8_launch(int dtype, const void* q,
                                           const void* kq, const float* ks,
                                           const void* vq, const float* vs,
@@ -585,30 +619,48 @@ extern "C" int decode_attention_q8_launch(int dtype, const void* q,
                                           int B, int H, int KVH, int Tlen,
                                           int D, int window, float scale,
                                           void* stream) {
-  return dispatch<true, false>(dtype, q, kq, vq, ks, vs, lengths, nullptr,
-                               out, B, H, KVH, Tlen, D, window, scale,
-                               stream);
+  if (bad_geometry(H, KVH, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == LT_BF16)
+    return launch_q8_dense<__nv_bfloat16>(q, kq, vq, ks, vs, lengths, out, B,
+                                          H, KVH, Tlen, D, window, scale, st);
+  if (dtype == LT_F32)
+    return launch_q8_dense<float>(q, kq, vq, ks, vs, lengths, out, B, H, KVH,
+                                  Tlen, D, window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Paged: pools [NB, KVH, 128, D], table [B, MAXB] int32.
-extern "C" int decode_attention_paged_launch(int dtype, const void* q,
-                                             const void* kp, const void* vp,
-                                             const int* table,
-                                             const int* lengths, void* out,
-                                             int B, int H, int KVH, int MAXB,
-                                             int D, int window, float scale,
-                                             void* stream) {
-  return dispatch<false, true>(dtype, q, kp, vp, nullptr, nullptr, lengths,
-                               table, out, B, H, KVH, MAXB * PBS, D, window,
-                               scale, stream);
+// Paged, split-KV: pools [NB, KVH, 128, D], table [B, MAXB] int32; ws,
+// nsplit and split as the dense launch has them, with T = MAXB*128.
+extern "C" int decode_attention_paged_launch(
+    int dtype, const void* q, const void* kp, const void* vp,
+    const int* table, const int* lengths, void* out, float* ws, int B, int H,
+    int KVH, int MAXB, int D, int window, float scale, int nsplit, int split,
+    void* stream) {
+  const SplitArgs a = {q, kp, vp, nullptr, nullptr, table, lengths, out, ws,
+                       B, H, KVH, MAXB * PBS, D, window, scale, nsplit, split,
+                       static_cast<cudaStream_t>(stream)};
+  return split_same_type<true>(dtype, a);
 }
 
-// Paged int8: pools [NB, KVH, 128, D] int8, scales [NB, KVH, 1, 128] f32.
+// Paged int8, split-KV: pools [NB, KVH, 128, D] int8, scales [NB, KVH, 1,
+// 128] f32.
 extern "C" int decode_attention_q8_paged_launch(
     int dtype, const void* q, const void* kq, const float* ks, const void* vq,
-    const float* vs, const int* table, const int* lengths, void* out, int B,
-    int H, int KVH, int MAXB, int D, int window, float scale, void* stream) {
-  return dispatch<true, true>(dtype, q, kq, vq, ks, vs, lengths, table, out,
-                              B, H, KVH, MAXB * PBS, D, window, scale,
-                              stream);
+    const float* vs, const int* table, const int* lengths, void* out,
+    float* ws, int B, int H, int KVH, int MAXB, int D, int window,
+    float scale, int nsplit, int split, void* stream) {
+  const SplitArgs a = {q, kq, vq, ks, vs, table, lengths, out, ws, B, H,
+                       KVH, MAXB * PBS, D, window, scale, nsplit, split,
+                       static_cast<cudaStream_t>(stream)};
+  return split_q8<true>(dtype, a);
+}
+
+// Ring stages the split pass launches with for K/V in `dtype` (q8 = 0) or
+// int8 (q8 = 1); 0 for a dtype it does not take.
+extern "C" int decode_split_stages(int dtype, int q8) {
+  if (q8) return SK_NS_Q8;
+  if (dtype == LT_BF16) return SK_NS_BF16;
+  if (dtype == LT_F32) return SK_NS_F32;
+  return 0;
 }

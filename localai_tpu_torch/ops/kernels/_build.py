@@ -41,11 +41,13 @@ SIGNATURES = {
                                     _I, _I, _I, _F, _I, _I, _P],
         "decode_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _F, _P],
-        "decode_attention_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _I, _F, _P],
+        "decode_attention_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _F, _I,
+                                          _I, _P],
         "decode_attention_q8_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _I, _I, _I, _I, _I, _I, _F,
-                                             _P],
+                                             _P, _P, _I, _I, _I, _I, _I, _I,
+                                             _F, _I, _I, _P],
+        "decode_split_stages": [_I, _I],
     },
     "paged_scatter": {
         "paged_scatter_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -137,10 +139,16 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             if not os.path.exists(so_path(name)):
                 build_all()
-            lib = ctypes.CDLL(so_path(name))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name] = bind(so_path(name), name)
     return _libs[name]
+
+
+def bind(path: str, name: str) -> ctypes.CDLL:
+    """The library at `path`, a build of csrc/<name>.cu, with its entry
+    points' argument types set."""
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib

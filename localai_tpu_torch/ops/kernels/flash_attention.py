@@ -5,11 +5,13 @@ Three wrappers, each beside its plain version with the same signature:
 - flash_prefill / flash_prefill_plain — causal GQA attention over a padded
   prompt batch (csrc/flash_prefill.cu);
 - ragged_decode / ragged_decode_plain — one query token per slot against
-  the dense KV cache (split-KV: a split pass and a combine pass, spans from
-  `decode_split`), or (`table=`) against the paged block pool through a
-  block table (csrc/decode_attention.cu);
+  the dense KV cache, or (`table=`) against the paged block pool through a
+  block table (csrc/decode_attention.cu; split-KV in both modes: a split
+  pass and a combine pass, spans from `decode_split`);
 - ragged_decode_q8 / ragged_decode_q8_plain — the same over an int8 cache
-  with per-token scales (csrc/decode_attention.cu, q8 variant).
+  with per-token scales (csrc/decode_attention.cu: the paged mode on the
+  split pass's int8 flag, the dense mode on one block per (slot, KV
+  head)).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Each launch adds one
@@ -57,12 +59,20 @@ def _check_cuda(name, tensors, dtypes):
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
-def _lengths_i32(lengths, device):
-    return lengths.to(device=device, dtype=torch.int32).contiguous()
+def _on(t, dtype, device):
+    """t as a contiguous `dtype` tensor on `device`. One that already is
+    comes back as it is, without the conversion calls' host cost (a decode
+    step hands every layer the same int32 lengths, table and targets)."""
+    if t.dtype is dtype and t.device == device and t.is_contiguous():
+        return t
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on `device` (the call
+    torch's own generated kernels make; torch.cuda.current_stream builds a
+    Stream object first, several microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,19 +83,30 @@ def _sm_count(device) -> int:
 DECODE_TILE = 32   # tokens per tile of the split pass (SK_BK in the .cu)
 
 
+@functools.lru_cache(maxsize=None)
 def decode_split(T: int, rows: int, sms: int) -> tuple[int, int]:
-    """(nsplit, split) of dense split-KV decode over a T-token cache for
-    rows = B*KVH (slot, KV head) rows on a card with `sms` SMs: about 16
-    blocks per SM over all rows at full length — rows are mostly shorter
-    than T, and a block past its row's length exits at once — so a long
-    row's spans stay a few tiles deep, but at least two tiles, which a
-    block has in flight together. Shapes only, never the lengths, so a
-    decode step needs no device sync. nsplit * split >= T > (nsplit - 1)
-    * split."""
+    """(nsplit, split) of split-KV decode over a T-token cache (dense, or
+    paged with T = MAXB*128) for rows = B*KVH (slot, KV head) rows on a
+    card with `sms` SMs: about 16 blocks per SM over all rows at full
+    length — rows are mostly shorter than T, and a block past its row's
+    length exits at once — so a long row's spans stay a few tiles deep,
+    but at least two tiles, which a block has in flight together. Shapes
+    only, never the lengths, so a decode step needs no device sync (and
+    each shape is computed once). nsplit * split >= T > (nsplit - 1) *
+    split."""
     tiles = -(-T // DECODE_TILE)
     want = min(max(1, -(-16 * sms // rows)), -(-tiles // 2))
     split = -(-tiles // want) * DECODE_TILE
     return -(-T // split), split
+
+
+def _split_workspace(T, B, H, KVH, D, device):
+    """(nsplit, split, workspace) of one split-KV call: the spans of
+    decode_split and the f32 partials [B*H*nsplit*(D+2)] they write."""
+    nsplit, split = decode_split(T, B * KVH, _sm_count(device))
+    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                     device=device)
+    return nsplit, split, ws
 
 
 def _raise_rc(name, rc):
@@ -137,7 +158,7 @@ def flash_prefill(q, k, v, lengths, sliding_window=None):
         raise ValueError(f"flash_prefill: head_dim {D} must be a multiple "
                          f"of 16 and at most 128")
     _check_cuda("flash_prefill", (q, k, v), (None, q.dtype, q.dtype))
-    lens = _lengths_i32(lengths, q.device)
+    lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
     lib = _build.load("flash_prefill")
     rc = lib.flash_prefill_launch(
@@ -226,8 +247,7 @@ def _table_i32(name, table, q, pool_shape):
     if table.dim() != 2 or table.shape[0] != B:
         raise ValueError(f"{name}: table must be [B={B}, MAXB], got "
                          f"{tuple(table.shape)}")
-    return (table.to(device=q.device, dtype=torch.int32).contiguous(),
-            table.shape[1])
+    return _on(table, torch.int32, q.device), table.shape[1]
 
 
 def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
@@ -238,9 +258,10 @@ def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
     KVH, 128, D] and virtual block v of slot b is pool block table[b, v]
     (T = MAXB*128). Returns [B, 1, H, D].
 
-    Dense mode on the card is split-KV: two CUDA launches (the split pass
+    On the card both modes are split-KV: two CUDA launches (the split pass
     over `decode_split` spans into an f32 workspace, then the combine),
-    counted as one launch of "ragged_decode"."""
+    counted as one launch of "ragged_decode" (paged mode:
+    "ragged_decode_paged")."""
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, lengths,
                                    sliding_window, table=table)
@@ -255,11 +276,9 @@ def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
                                      k_cache.shape[2])
     _check_cuda("ragged_decode", (q, k_cache, v_cache),
                 (None, q.dtype, q.dtype))
-    lens = _lengths_i32(lengths, q.device)
+    lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
-    nsplit, split = decode_split(T, B * KVH, _sm_count(q.device))
-    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
-                     device=q.device)
+    nsplit, split, ws = _split_workspace(T, B, H, KVH, D, q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
@@ -278,14 +297,15 @@ def _ragged_decode_paged(q, k_pool, v_pool, lengths, sliding_window, table):
                                      maxb * BLOCK)
     _check_cuda("ragged_decode", (q, k_pool, v_pool),
                 (None, q.dtype, q.dtype))
-    lens = _lengths_i32(lengths, q.device)
+    lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
+    nsplit, split, ws = _split_workspace(T, B, H, KVH, D, q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_paged_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tab.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
-        H, KVH, maxb, D, _window(sliding_window), D ** -0.5,
-        _stream(q.device))
+        v_pool.data_ptr(), tab.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), B, H, KVH, maxb, D, _window(sliding_window),
+        D ** -0.5, nsplit, split, _stream(q.device))
     _raise_rc("ragged_decode (paged)", rc)
     LAUNCHES["ragged_decode_paged"] += 1
     return out
@@ -297,7 +317,11 @@ def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
     k_q/v_q: [B, KVH, T, D] int8 with T % 128 == 0; k_s/v_s: [B, KVH,
     T//128, 128] f32. Paged mode (`table` [B, MAXB] int): int8 pools [NB,
     KVH, 128, D] with scales [NB, KVH, 1, 128] (ops/paged.py). Returns
-    [B, 1, H, D] in q's dtype."""
+    [B, 1, H, D] in q's dtype.
+
+    The paged mode on the card is split-KV as ragged_decode's (the split
+    pass's int8 flag); the dense mode is one launch of one block per (slot,
+    KV head)."""
     if q.device.type == "cpu":
         return ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
                                       sliding_window, table=table)
@@ -315,7 +339,7 @@ def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
         raise ValueError("ragged_decode_q8: bad cache/scale shapes")
     _check_cuda("ragged_decode_q8", (q, k_q, k_s, v_q, v_s),
                 (None, torch.int8, torch.float32, torch.int8, torch.float32))
-    lens = _lengths_i32(lengths, q.device)
+    lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_q8_launch(
@@ -339,14 +363,15 @@ def _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths, sliding_window,
         raise ValueError("ragged_decode_q8: bad paged pool/scale shapes")
     _check_cuda("ragged_decode_q8", (q, k_q, k_s, v_q, v_s),
                 (None, torch.int8, torch.float32, torch.int8, torch.float32))
-    lens = _lengths_i32(lengths, q.device)
+    lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
+    nsplit, split, ws = _split_workspace(T, B, H, KVH, D, q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_q8_paged_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
         v_q.data_ptr(), v_s.data_ptr(), tab.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, H, KVH, maxb, D, _window(sliding_window),
-        D ** -0.5, _stream(q.device))
+        out.data_ptr(), ws.data_ptr(), B, H, KVH, maxb, D,
+        _window(sliding_window), D ** -0.5, nsplit, split, _stream(q.device))
     _raise_rc("ragged_decode_q8 (paged)", rc)
     LAUNCHES["ragged_decode_q8_paged"] += 1
     return out

@@ -28,7 +28,7 @@ import torch
 
 from localai_tpu_torch.ops.kernels import _build
 from localai_tpu_torch.ops.kernels.flash_attention import (
-    _check_cuda, _raise_rc, _stream,
+    _check_cuda, _on, _raise_rc, _stream,
 )
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, ring_block_map
@@ -104,27 +104,23 @@ def _shapes(name, k_pool, v_pool, k_new, v_new):
     return B, KVH, D, NB
 
 
-def _targets_i32(targets, device):
-    return tuple(t.to(device=device, dtype=torch.int32).contiguous()
-                 for t in targets)
-
-
 def launch_rows(name, k_pool, v_pool, k_new, v_new, targets):
     """Launch the row-scatter kernel (csrc/paged_scatter.cu) on CUDA
     tensors: row b of k_new/v_new [B, KVH, D] to pool block targets[0][b],
     row targets[1][b]. Counts nothing: each wrapper that calls it counts
     its own launch (this one and ragged_attention.ragged_scatter_append)."""
     B, KVH, D, NB = _shapes(name, k_pool, v_pool, k_new, v_new)
-    kn = k_new.to(k_pool.dtype).contiguous()
-    vn = v_new.to(k_pool.dtype).contiguous()
+    dev = k_new.device
+    kn, vn = _on(k_new, k_pool.dtype, dev), _on(v_new, k_pool.dtype, dev)
     _check_cuda(name, (kn, vn, k_pool, v_pool),
                 (None, None, kn.dtype, kn.dtype))
-    pb, off = _targets_i32(targets, k_new.device)
+    pb = _on(targets[0], torch.int32, dev)
+    off = _on(targets[1], torch.int32, dev)
     lib = _build.load("paged_scatter")
     rc = lib.paged_scatter_launch(
         k_pool.element_size(), kn.data_ptr(), vn.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), pb.data_ptr(), off.data_ptr(),
-        B, KVH, D, NB, _stream(k_new.device))
+        B, KVH, D, NB, _stream(dev))
     _raise_rc(name, rc)
 
 
@@ -142,12 +138,14 @@ def launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new, targets):
     _check_cuda(name, (kq_n, ks_n, vq_n, vs_n, kq, ks, vq, vs),
                 (None, torch.float32, None, torch.float32) + (
                     torch.int8, torch.float32) * 2)
-    pb, off = _targets_i32(targets, k_new.device)
+    dev = k_new.device
+    pb = _on(targets[0], torch.int32, dev)
+    off = _on(targets[1], torch.int32, dev)
     lib = _build.load("paged_scatter")
     rc = lib.paged_scatter_q8_launch(
         kq_n.data_ptr(), ks_n.data_ptr(), vq_n.data_ptr(), vs_n.data_ptr(),
         kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(k_new.device))
+        pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(dev))
     _raise_rc(name, rc)
 
 

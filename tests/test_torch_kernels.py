@@ -214,6 +214,34 @@ def test_decode_split_from_shapes(T, rows):
     assert tk.decode_split(T, rows, 132) == (nsplit, split)
 
 
+def test_decode_split_computed_once_per_shape():
+    """A decode step calls the split-KV wrappers once per layer with the
+    same shapes: decode_split computes each shape once."""
+    tk.decode_split.cache_clear()
+    first = tk.decode_split(4096, 64, 132)
+    for _ in range(31):
+        assert tk.decode_split(4096, 64, 132) == first
+    info = tk.decode_split.cache_info()
+    assert (info.misses, info.hits) == (1, 31)
+
+
+@pytest.mark.parametrize("case", ["as-is", "int64", "strided", "float"])
+def test_wrapper_conversion_only_where_needed(case):
+    """The wrappers' int32 lengths, tables and scatter targets, and the
+    scatter's rows in the pool dtype: a tensor that already has the dtype,
+    is contiguous and is on the device comes back as it is (no conversion
+    call on the host); any other is converted to one that has all three."""
+    from localai_tpu_torch.ops.kernels.flash_attention import _on
+
+    base = torch.arange(12, dtype=torch.int32)
+    x = {"as-is": base, "int64": base.long(),
+         "strided": base.reshape(3, 4).t(), "float": base.float()}[case]
+    y = _on(x, torch.int32, base.device)
+    assert (y is x) == (case == "as-is")
+    assert y.dtype == torch.int32 and y.is_contiguous()
+    assert torch.equal(y, x.to(torch.int32))
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -375,6 +403,63 @@ def test_cuda_paged_decode_vs_plain(cuda, dtype, q8):
                                      table=tab)
     torch.cuda.synchronize()
     assert tk.launch_counts()[name] == before + 1
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("B,window", [(4, False), (4, True), (16, False),
+                                      (16, True)])
+def test_cuda_paged_decode_split_vs_plain(cuda, dtype, q8, B, window):
+    """Split-KV paged decode at the edges the split creates — lengths 1, a
+    block, a block + 1, a span, a span + 1 and the full table (B=4: four of
+    them; B=16: all six, the rest random) — over a shuffled table whose
+    entries past each slot's allocation are 0; with `window`, a window
+    whose start falls inside a block and a span, and one from a span
+    boundary less 2 on the row of 3 spans + 5."""
+    td = getattr(torch, dtype)
+    H, KVH, D, MAXB = 8, 2, 64, 8
+    T = MAXB * 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsplit, split = tk.decode_split(T, B * KVH, sms)
+    assert nsplit > 1
+    edges = [1, 128, 129, split, split + 1, T]
+    lens = ([1, 129, split + 1, T] if B == 4 else edges + [
+        int(x) for x in _rng(20).integers(1, T + 1, B - 6)])
+    win = None
+    if window:
+        lens[1], win = 3 * split + 5, split + 7
+    NB = sum(-(-n // 128) for n in lens) + 3
+    pool_k, pool_v, table = _paged_case(21, B, KVH, D, NB, MAXB, lens)
+    q = torch.tensor(_rng(22).standard_normal((B, 1, H, D)), device=cuda,
+                     dtype=torch.float32).to(td)
+    tab = torch.tensor(table, device=cuda)
+    lt = torch.tensor(lens, device=cuda)
+    name = "ragged_decode_q8_paged" if q8 else "ragged_decode_paged"
+    before = tk.launch_counts()[name]
+    if q8:
+        kq, ks = _q8(pool_k.reshape(1, -1, 128, D))
+        vq, vs = _q8(pool_v.reshape(1, -1, 128, D))
+        args = [kq.reshape(NB, KVH, 128, D).to(cuda),
+                ks.reshape(NB, KVH, 1, 128).to(cuda),
+                vq.reshape(NB, KVH, 128, D).to(cuda),
+                vs.reshape(NB, KVH, 1, 128).to(cuda)]
+        out = tk.ragged_decode_q8(q, *args, lt, sliding_window=win,
+                                  table=tab)
+        torch.cuda.synchronize()
+        ref = tk.ragged_decode_q8_plain(q, *args, lt, sliding_window=win,
+                                        table=tab)
+    else:
+        k, v = _dev((pool_k, pool_v), cuda, td)
+        out = tk.ragged_decode(q, k, v, lt, sliding_window=win, table=tab)
+        torch.cuda.synchronize()
+        ref = tk.ragged_decode_plain(q, k, v, lt, sliding_window=win,
+                                     table=tab)
+    assert tk.launch_counts()[name] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
     tol = F32 if dtype == "float32" else BF16_CARD
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **tol)

@@ -35,6 +35,7 @@ from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.rope import rope_table as trope_table
 
 F32 = dict(rtol=2e-5, atol=2e-5)
+BLOCK = tpaged.BLOCK
 
 
 def _np(x):
@@ -122,14 +123,59 @@ def _pallas():
     return pfa
 
 
-@pytest.mark.parametrize("window", [None, 100])
-def test_paged_decode_plain_vs_pallas(window):
+def _split_edges(B, KVH, MAXB):
+    """Lengths at the edges split-KV decode creates over a MAXB-block
+    table: 1, a block, a block + 1, a span and a span + 1 (decode_split on
+    a 132-SM H100) and the full table."""
+    _, split = tk.decode_split(MAXB * BLOCK, B * KVH, 132)
+    assert split % BLOCK and split + 1 < MAXB * BLOCK
+    return [1, BLOCK, BLOCK + 1, split, split + 1, MAXB * BLOCK]
+
+
+def _alloc_table(seed, lens, NB, MAXB):
+    """A shuffled, non-contiguous table: slot b's ceil(len/128) blocks are
+    drawn from a permutation of blocks 1..NB-1, and its entries past that
+    allocation are 0 (the trash block)."""
+    perm = np.random.default_rng(seed).permutation(np.arange(1, NB))
+    table = np.zeros((len(lens), MAXB), np.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        k = tpaged.blocks_needed(n)
+        table[b, :k] = perm[used:used + k]
+        used += k
+    return table
+
+
+def _decode_case(seed, edges):
+    """(pool_k, pool_v, table, lens, q) of a paged decode test: three slots
+    over a table of 3 blocks, or (`edges`) six slots at _split_edges over a
+    table of 3 blocks that _alloc_table fills."""
+    if not edges:
+        pool_k, table = _pool_and_table(seed)
+        pool_v, _ = _pool_and_table(seed + 1)
+        lens = None
+    else:
+        lens = _split_edges(6, 2, 3)
+        r = np.random.default_rng(seed)
+        NB = sum(tpaged.blocks_needed(n) for n in lens) + 1
+        pool_k, pool_v = (r.standard_normal((NB, 2, BLOCK, 16)).astype(
+            np.float32) for _ in range(2))
+        table = _alloc_table(seed, lens, NB, 3)
+    q = np.random.default_rng(seed + 2).standard_normal(
+        (table.shape[0], 1, 8, 16)).astype(np.float32)
+    return pool_k, pool_v, table, lens, q
+
+
+# the ids of the first two cases name the window, as before the edge cases;
+# the window of 150 starts inside a block (and a span) on the longer rows
+@pytest.mark.parametrize("window,edges", [
+    pytest.param(None, False, id="None"), pytest.param(100, False, id="100"),
+    pytest.param(None, True, id="split-edges"),
+    pytest.param(150, True, id="split-edges-window150")])
+def test_paged_decode_plain_vs_pallas(window, edges):
     pfa = _pallas()
-    pool_k, table = _pool_and_table(1)
-    pool_v, _ = _pool_and_table(2)
-    r = np.random.default_rng(3)
-    q = r.standard_normal((3, 1, 8, 16)).astype(np.float32)
-    lens = [300, 129, 5]
+    pool_k, pool_v, table, lens, q = _decode_case(1, edges)
+    lens = lens or [300, 129, 5]
     ref = pfa.ragged_decode(jnp.asarray(q), jnp.asarray(pool_k),
                             jnp.asarray(pool_v), jnp.asarray(lens, jnp.int32),
                             sliding_window=window,
@@ -152,16 +198,16 @@ def _q8_pool(pool):
     return q, s.reshape(s.shape[0], s.shape[1], 1, 128)
 
 
-@pytest.mark.parametrize("window", [None, 60])
-def test_paged_decode_q8_plain_vs_pallas(window):
+@pytest.mark.parametrize("window,edges", [
+    pytest.param(None, False, id="None"), pytest.param(60, False, id="60"),
+    pytest.param(None, True, id="split-edges"),
+    pytest.param(150, True, id="split-edges-window150")])
+def test_paged_decode_q8_plain_vs_pallas(window, edges):
     pfa = _pallas()
-    pool_k, table = _pool_and_table(4)
-    pool_v, _ = _pool_and_table(5)
+    pool_k, pool_v, table, lens, q = _decode_case(4, edges)
     kq, ks = _q8_pool(pool_k)
     vq, vs = _q8_pool(pool_v)
-    q = np.random.default_rng(6).standard_normal((3, 1, 8, 16)).astype(
-        np.float32)
-    lens = [384, 200, 128]
+    lens = lens or [384, 200, 128]
     ref = pfa.ragged_decode_q8(
         jnp.asarray(q), jnp.asarray(kq.numpy()), jnp.asarray(ks.numpy()),
         jnp.asarray(vq.numpy()), jnp.asarray(vs.numpy()),
