@@ -1,25 +1,27 @@
 """Device-time breakdown of the port's main path on one NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [bf16|int8]
 
-Serves chip_smoke.py's synthetic Llama-3.1-8B in bf16 through the port's
-gRPC backend, first dense (chip_smoke phase 4's configuration and four
-requests), then paged (phase 5's configuration and its first wave of six
-requests), then ragged through the port's Engine in-process (phase 6's
-configuration and its two waves of eight requests), each with
-chip_smoke's checks; then drives the same requests again with fresh
-prompt ids (no prompt-cache or prefix reuse), first unprofiled, then
-under torch.profiler with CUDA activity. Prints one JSON line per
-path: the unprofiled and profiled wall times, device busy time by kernel
-class, the top kernels, the device's idle share of the profiled
-window and its idle ms per decode step. Kernels run on one stream,
-so their summed device time is the busy time. A one-off study, apart
-from the pass/fail smoke; it imports nothing of JAX or localai_tpu.
+Serves chip_smoke.py's synthetic Llama-3.1-8B through the port's gRPC
+backend in bf16 and then in the int8 recipe (int8 weights + int8 KV), or
+in the one recipe named; each first dense (chip_smoke phase 4's
+configuration and four requests), then paged (phase 5's configuration and
+its first wave of six requests), then ragged through the port's Engine
+in-process (phase 6's configuration and its two waves of eight requests),
+each with chip_smoke's checks; then drives the same requests again with
+fresh prompt ids (no prompt-cache or prefix reuse), first unprofiled, then
+under torch.profiler with CUDA activity. Prints one JSON line per path:
+the unprofiled and profiled wall times, device busy time by kernel class,
+the top kernels, the device's idle share of the profiled window and its
+idle ms per decode step. Kernels run on one stream, so their summed
+device time is the busy time. A one-off study, apart from the pass/fail
+smoke; it imports nothing of JAX or localai_tpu.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import tempfile
 import time
 
@@ -27,11 +29,9 @@ import chip_smoke as smoke
 
 
 def _kernel_class(key: str) -> str:
-    if any(t in key for t in ("decode_kernel", "decode_split_kernel",
-                                "decode_combine_kernel", "prefill_tc_kernel",
-                                "prefill_simt_kernel", "ragged_kernel")):
+    if any(t in key for t in ("decode_", "prefill_", "ragged_kernel")):
         return "attention (port kernels)"
-    if "scatter_rows" in key:
+    if "scatter_rows" in key or "scatter_q8_rows" in key:
         return "kv scatter (port kernel)"
     if any(t in key.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")):
         return "gemm (cuBLAS)"
@@ -109,25 +109,36 @@ def profile_engine(label):
     return hook
 
 
+# recipe: (LoadModel options, engine dtype, engine KV cache type)
+RECIPES = {
+    "bf16": (dict(dtype="bfloat16"), "bfloat16", ""),
+    "int8": (dict(dtype="int8", cache_type_key="int8",
+                  cache_type_value="int8"), "int8", "int8"),
+}
+
+
 def main():
-    """The dense bf16 path (chip_smoke phase 4's configuration and four
-    requests), the paged bf16 path (phase 5's configuration and its first
-    wave of six requests), then the ragged bf16 path (phase 6's)."""
+    """For each recipe: the dense path (chip_smoke phase 4's configuration
+    and four requests), the paged path (phase 5's configuration and its
+    first wave of six requests), then the ragged path (phase 6's)."""
+    recipes = sys.argv[1:] or list(RECIPES)
     smoke.phase_device()
     smoke.phase_build()
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
     with tempfile.TemporaryDirectory() as d:
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(dict(smoke.CFG_8B, localai_synthetic=True), f)
-        smoke.serve_recipe("bf16", d, dict(dtype="bfloat16"),
-                           then=profile_window("bf16 dense"))
-        smoke.serve_recipe("bf16", d, dict(dtype="bfloat16"),
-                           phase="phase5", load_opts=smoke.PAGED_LOAD,
-                           waves=[smoke.PAGED_WAVE1],
-                           then=profile_window("bf16 paged",
-                                               smoke.PAGED_WAVE1))
-        smoke.serve_ragged("bf16", d, "bfloat16", "",
-                           then=profile_engine("bf16 ragged"))
+        for name in recipes:
+            load_kw, dtype, kv = RECIPES[name]
+            smoke.serve_recipe(name, d, load_kw,
+                               then=profile_window(f"{name} dense"))
+            smoke.serve_recipe(name, d, load_kw, phase="phase5",
+                               load_opts=smoke.PAGED_LOAD,
+                               waves=[smoke.PAGED_WAVE1],
+                               then=profile_window(f"{name} paged",
+                                                   smoke.PAGED_WAVE1))
+            smoke.serve_ragged(name, d, dtype, kv,
+                               then=profile_engine(f"{name} ragged"))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,79 @@
+"""Phase 2's main-shape kernel rows, timed alone, to compare two trees on
+one NVIDIA card.
+
+    python3 chip_rows.py LABEL
+
+Builds the port's kernels and runs chip_smoke.py's checks of rows 1–5, 7–9
+and 11 (PERF.md §6) at the Llama-3.1-8B shapes, each against its plain
+version with its planted fault, then prints one line `ROWS LABEL {row:
+{ms, ms_cold, ms_host}}` (device ms warm and with a cold L2, and the
+host-inclusive reading). It also prints a `DIVISION` line: how many of
+4,194,304 random f32 values PyTorch's CUDA division by the Python number
+127.0 gives otherwise than division by a device tensor, and how many of
+the latter differ from the CPU's quotients (ops/kvcache.quantize_tokens
+divides by a device tensor on the card for this reason).
+
+To compare commits, unpack the other with `git archive` into
+`_archive_check/` (git-ignored), copy this script beside its
+chip_smoke.py, and run it from each root in turns (parent, change,
+change, parent) in one chip call. A one-off study, apart from the smoke;
+it imports nothing of JAX or localai_tpu.
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+import chip_smoke as smoke
+
+
+def main():
+    import torch
+
+    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    smoke.phase_device()
+    smoke.phase_build()
+    H, KVH, D = 32, 8, 128
+    bf16 = torch.bfloat16
+    lens4 = [1, 129, 1000, 2048]
+    lens8 = [33, 49, 332, 732, 1532, 672, 712, 4095]
+    rd, rc = smoke.RAGGED_DECODE, smoke.RAGGED_CHUNK
+    rows = {
+        "1 flash_prefill": lambda: smoke.check_prefill(
+            4, 512, H, KVH, D, bf16, [512, 300, 17, 1], cold=True),
+        "2 ragged_decode": lambda: smoke.check_decode(
+            4, H, KVH, 2048, D, bf16, lens4, cold=True),
+        "4 ragged_decode_q8": lambda: smoke.check_decode(
+            4, H, KVH, 2048, D, bf16, lens4, q8=True, cold=True),
+        "3 ragged_decode_paged": lambda: smoke.check_paged_decode(
+            8, H, KVH, D, bf16, lens8, 32, nb=129, cold=True),
+        "5 ragged_decode_q8_paged": lambda: smoke.check_paged_decode(
+            8, H, KVH, D, bf16, lens8, 32, q8=True, nb=129, cold=True),
+        "7 paged_scatter_append_q8": lambda: smoke.check_paged_scatter(
+            8, KVH, D, bf16, q8=True),
+        "8 ragged_paged_attention": lambda: smoke.check_ragged_attention(
+            H, KVH, D, bf16, rd, rc, 32, nb=129),
+        "9 ragged_paged_attention_q8": lambda: smoke.check_ragged_attention(
+            H, KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
+        "11 ragged_scatter_append_q8": lambda: smoke.check_ragged_scatter(
+            KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
+    }
+    out = {}
+    for name, check in rows.items():
+        r = check()
+        out[name] = {k: r.get(k) for k in ("ms", "ms_cold", "ms_host")}
+    print(f"ROWS {label} " + json.dumps(out), flush=True)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(1 << 22, device="cuda", generator=g) * 100 + 1e-3
+    by_number = x / 127.0
+    by_tensor = x / torch.tensor(127.0, device="cuda")
+    print(f"DIVISION {label} " + json.dumps({
+        "values": x.numel(),
+        "python_number_vs_device_tensor": int((by_number != by_tensor).sum()),
+        "device_tensor_vs_cpu": int((by_tensor.cpu() != x.cpu() / 127.0)
+                                    .sum())}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,7 +23,10 @@ and the script exits non-zero:
      call in them (ms_host, library_ms_host: no spin) and the least time
      the card could take (bound_ms). The ragged
      kernels run at phase 6's pack: T=192 rows, eight decode rows plus a
-     128-row prefill chunk, over the 129-block pool.
+     128-row prefill chunk, over the 129-block pool. Then the wider
+     geometries, each with its planted fault: ragged attention and paged
+     decode at Qwen2-7B's H=28, KVH=4 (GQA group 7), dense decode at G=16
+     (H=128, KVH=8), prefill at head_dim 256.
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
@@ -55,7 +58,10 @@ and the script exits non-zero:
      ragged ticks, that the loop exited on finishes and on pending prefill,
      that the recipe's ragged kernels launched and the prefill and dense
      decode kernels did not, and three greedy requests against the
-     teacher-forced reference.
+     teacher-forced reference. Then the same run on a synthetic checkpoint
+     of Qwen2-7B's published widths (Qwen2ForCausalLM: hidden 3584, 28
+     layers, 28 heads on 4 KV heads, head_dim 128, QKV bias, untied head,
+     vocab 152064), full depth, both recipes, with the same checks.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -81,6 +87,21 @@ CFG_8B = {
     "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                      "original_max_position_embeddings": 8192},
+}
+
+# Qwen2-7B's published widths (HF config of Qwen/Qwen2-7B): GQA group 7 (28
+# heads on 4 KV heads, head_dim 128), QKV bias, untied head. Its
+# `sliding_window` (131072) is kept although `use_sliding_window` is false:
+# both packages' loaders read `sliding_window` alone, and 131072 is longer
+# than any context here, so the window masks nothing.
+CFG_QWEN2_7B = {
+    "architectures": ["Qwen2ForCausalLM"],
+    "vocab_size": 152064, "hidden_size": 3584, "intermediate_size": 18944,
+    "num_hidden_layers": 28, "num_attention_heads": 28,
+    "num_key_value_heads": 4, "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+    "tie_word_embeddings": False, "sliding_window": 131072,
+    "use_sliding_window": False, "max_window_layers": 28,
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
@@ -878,9 +899,11 @@ def phase_kernels():
     check_decode(2, H, KVH, 2048, D, bf16, [1500, 40], window=256,
                  timed=False)
     main["ragged_decode_q8"] = check_decode(4, H, KVH, 2048, D, bf16, lens4,
-                                            q8=True)
+                                            q8=True, cold=True)
     check_decode(16, H, KVH, 2048, D, bf16, lens16, q8=True)
     check_decode(3, 8, 1, 256, 64, f32, [5, 200, 256], q8=True,
+                 timed=False)
+    check_decode(2, H, KVH, 2048, D, bf16, [1500, 40], q8=True, window=256,
                  timed=False)
     # paged (kernels 3, 5, 6, 7) over a shuffled pool. Main: phase 5's
     # shapes — 8 slots, a 4096-token table (MAXB 32) over the 129-block
@@ -928,6 +951,33 @@ def phase_kernels():
     main["ragged_scatter_append_q8"] = check_ragged_scatter(
         KVH, D, bf16, rd, rc, 32, q8=True, nb=129)
     check_ragged_scatter(2, 64, f32, [5, 200, 300], (96, 40), 4)
+    # every GQA group size and head_dim up to 256, each with its planted
+    # fault: rows 8/9 and 3/5 at Qwen2-7B's H=28, KVH=4 (G = 7) at the main
+    # shapes; rows 2/4 at Llama-3.1-405B's G = 16 (H=128, KVH=8); row 1 at
+    # head_dim 256 (Gemma-2-9B's H=16, KVH=8 in bf16; a small f32 case)
+    wide = {
+        "ragged_paged_attention H=28 KVH=4": check_ragged_attention(
+            28, 4, D, bf16, rd, rc, 32, nb=129),
+        "ragged_paged_attention_q8 H=28 KVH=4": check_ragged_attention(
+            28, 4, D, bf16, rd, rc, 32, q8=True, nb=129),
+        "ragged_decode_paged H=28 KVH=4": check_paged_decode(
+            8, 28, 4, D, bf16, lens8, 32, nb=129),
+        "ragged_decode_q8_paged H=28 KVH=4": check_paged_decode(
+            8, 28, 4, D, bf16, lens8, 32, q8=True, nb=129),
+        "ragged_decode H=128 KVH=8": check_decode(4, 128, 8, 2048, D, bf16,
+                                                  lens4),
+        "ragged_decode_q8 H=128 KVH=8": check_decode(
+            4, 128, 8, 2048, D, bf16, lens4, q8=True),
+        "flash_prefill H=16 KVH=8 D=256": check_prefill(
+            4, 512, 16, 8, 256, bf16, [512, 300, 17, 1]),
+        "flash_prefill f32 H=8 KVH=2 D=256": check_prefill(
+            2, 96, 8, 2, 256, f32, [96, 50]),
+    }
+    log("phase2 wide geometry " + json.dumps({
+        k: {f: r.get(f) for f in ("max_abs_err", "planted_fault_err", "ms",
+                                  "ms_host", "bound_ms", "bound_by",
+                                  "plain_ms", "library_ms")}
+        for k, r in wide.items()}))
     log("phase2 kernels: all within tolerance")
     return main
 
@@ -1554,9 +1604,11 @@ def drive_engine(eng, salt=6):
     return recs, time.perf_counter() - t0
 
 
-def serve_ragged(name, model_dir, dtype, kv_kind, then=None):
+def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
+                 phase="phase6"):
     """One recipe on the ragged path; returns its readings. `then(eng)`,
-    if given, runs after the checks on the same engine."""
+    if given, runs after the checks on the same engine; `phase` labels
+    the log lines and errors."""
     import gc
     import statistics
 
@@ -1575,29 +1627,33 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None):
                                                  cache_type=kv_kind),
                  device="cuda")
     eng.warmup()
-    log(f"phase6 {name}: weights + engine + warmup "
+    log(f"{phase} {name}: weights + engine + warmup "
         f"{time.perf_counter() - t0:.1f} s")
     try:
         reset_launch_counts()
         recs, wall = drive_engine(eng)
         torch.cuda.synchronize()
         counts = launch_counts()
-        vocab = CFG_8B["vocab_size"]
+        vocab = cfg.vocab_size
         for i, r in enumerate(recs):
             last = r["last"]
             if (last is None or last.finish_reason != "length"
                     or len(r["toks"]) != NEW_TOKENS):
-                raise AssertionError(f"phase6 {name} request {i}: finish "
+                raise AssertionError(f"{phase} {name} request {i}: finish "
                                      f"{last and last.finish_reason} "
                                      f"tokens {len(r['toks'])}")
             if not all(0 <= t < vocab for t in r["toks"]) or not all(
                     x == x and abs(x) < 1e30 for x in r["lps"]):
-                raise AssertionError(f"phase6 {name}: bad token or logprob")
+                raise AssertionError(f"{phase} {name}: bad token or "
+                                     f"logprob")
         m = dict(eng.metrics)
         prompts = [len(r["ids"]) for r in recs]
         ttfts = [r["ttft"] for r in recs]
         out = {
-            "recipe": name, "prompt_lengths": prompts,
+            "recipe": name, "model": {
+                "layers": cfg.num_layers, "heads": cfg.num_heads,
+                "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim},
+            "prompt_lengths": prompts,
             "new_tokens_each": NEW_TOKENS,
             "tokens": m["tokens_generated"], "wall_s": wall,
             "tok_s": m["tokens_generated"] / wall,
@@ -1614,28 +1670,28 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None):
             "launches": {k: v for k, v in counts.items() if v},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         }
-        log(f"phase6 {name} " + json.dumps(out))
+        log(f"{phase} {name} " + json.dumps(out))
         if m["ragged_prefill_tokens"] != sum(prompts):
-            raise AssertionError(f"phase6 {name}: ragged_prefill_tokens "
+            raise AssertionError(f"{phase} {name}: ragged_prefill_tokens "
                                  f"{m['ragged_prefill_tokens']} != "
                                  f"{sum(prompts)} prompt tokens")
         if m["rloop_exit_finish"] <= 0 or m["rloop_exit_prefill"] <= 0:
-            raise AssertionError(f"phase6 {name}: the fused ragged loop "
+            raise AssertionError(f"{phase} {name}: the fused ragged loop "
                                  f"never exited on a finish or on prefill")
         for k in RAGGED_OWN[name]:
             if counts[k] <= 0:
-                raise AssertionError(f"phase6 {name}: {k} never launched")
+                raise AssertionError(f"{phase} {name}: {k} never launched")
         other = RAGGED_OWN["int8" if name == "bf16" else "bf16"]
         for k in ("flash_prefill", "ragged_decode", "ragged_decode_q8") \
                 + other:
             if counts[k]:
-                raise AssertionError(f"phase6 {name}: {k} launched on the "
-                                     f"ragged path")
+                raise AssertionError(f"{phase} {name}: {k} launched on "
+                                     f"the ragged path")
         cases = {f"{len(r['ids'])}-token": (r["ids"], r["toks"], r["lps"])
                  for r in (recs[2], recs[4], recs[5])}
         fault = (prompt_ids(99, 1500, salt=99), recs[4]["toks"],
                  recs[4]["lps"])
-        check_reference(name, eng, cases, fault, phase="phase6")
+        check_reference(name, eng, cases, fault, phase=phase)
         if then is not None:
             then(eng)
         return out, counts
@@ -1645,25 +1701,37 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None):
         torch.cuda.empty_cache()
 
 
-def phase_ragged_path(smi):
-    """The ragged path at full width: the synthetic Llama-3.1-8B (32
-    layers) in the port's Engine with ragged continuous batching, bf16 then
-    the int8 recipe. The launch counts are zeroed just before each
-    recipe's requests and read just after; returns their sums."""
+def _serve_ragged_model(cfg_json, phase, smi):
+    """serve_ragged in bf16 then the int8 recipe on a synthetic checkpoint
+    of `cfg_json`'s widths; returns the two recipes' launch counts
+    summed."""
     import tempfile
 
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
     total = {}
     with tempfile.TemporaryDirectory() as d:
         with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(dict(CFG_8B, localai_synthetic=True), f)
+            json.dump(dict(cfg_json, localai_synthetic=True), f)
         for name, dtype, kv in (("bf16", "bfloat16", ""),
                                 ("int8", "int8", "int8")):
-            out, counts = serve_ragged(name, d, dtype, kv)
+            out, counts = serve_ragged(name, d, dtype, kv, phase=phase)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
-    log("phase6 launches on the ragged path " + json.dumps(total)
+    log(f"{phase} launches on the ragged path " + json.dumps(total)
         + f" card {smi}")
+    return total
+
+
+def phase_ragged_path(smi):
+    """The ragged path at full width: the synthetic Llama-3.1-8B (32
+    layers) in the port's Engine with ragged continuous batching, bf16 then
+    the int8 recipe; then the same run on a synthetic checkpoint of
+    Qwen2-7B's widths (28 layers, GQA group 7), whose ragged attention
+    takes two head groups a KV head. The launch counts are zeroed just
+    before each recipe's requests and read just after; returns the Llama
+    run's sums."""
+    total = _serve_ragged_model(CFG_8B, "phase6", smi)
+    _serve_ragged_model(CFG_QWEN2_7B, "phase6 qwen2-7b", smi)
     return total
 
 

@@ -24,16 +24,21 @@
 // walked by one block leaves most of them idle (8 slots x 8 KV heads is 64
 // blocks) and serializes a long row.
 //
-// Split-KV, two launches: dense bf16/f32 (decode_attention_launch) and
+// Split-KV, two launches, for every mode: dense bf16/f32
+// (decode_attention_launch), dense int8 (decode_attention_q8_launch) and
 // both paged modes, bf16/f32 and int8 (decode_attention_paged_launch,
 // decode_attention_q8_paged_launch).
-//   - Split pass, grid (nsplit, KVH, B): a block takes one contiguous span
-//     of `split` tokens of one (slot, KV head), keeps the G = H/KVH query
-//     heads of the group in shared memory (f32, pre-scaled) and streams the
-//     span's K/V rows through a ring of 32-token tiles (16-byte cp.async;
-//     SK_NS_* stages by K/V type, which decode_split_stages reports), so
-//     several tiles of copies are in flight while one is consumed; rows
-//     at/past `length` are zero-filled, never read. Tile
+//   - Split pass, grid (nsplit, KVH * ngrp, B): a block takes one
+//     contiguous span of `split` tokens of one (slot, KV head) for one
+//     group of at most GC = min(G, 1024 / D) of the KV head's G = H/KVH
+//     query heads (ngrp = ceil(G / GC) groups; the last may be partial: G
+//     = 16 at D = 128 is 8 + 8, G = 7 one group). It keeps those heads in
+//     shared memory (f32, pre-scaled) and streams the span's K/V rows
+//     through a ring of 32-token tiles (16-byte cp.async; SK_NS_* stages by
+//     K/V type, which decode_split_stages reports), so several tiles of
+//     copies are in flight while one is consumed; rows at/past `length`
+//     are zero-filled, never read. With ngrp > 1 each group's blocks read
+//     the same K/V span, the second time mostly from the 50 MB L2. Tile
 //     rows are padded by 16 bytes, so 16-byte reads down a column of 32
 //     rows hit distinct banks. Paged: a 32-token tile never straddles a
 //     128-token block, so each tile reads one table entry, and only tiles
@@ -45,10 +50,10 @@
 //     masked, and p times its V scale (0 outside the mask: a reused
 //     block's tail holds a freed slot's stale scales) goes into the value
 //     product while l sums the unscaled p. It writes f32 partials (m, l,
-//     acc[G, D]) to a workspace. A block whose span starts at/past
-//     `length` exits at once, before any table read (the combine never
-//     reads it); one whose span ends before the window writes the empty
-//     partial (NEG_INF, 0, 0) and loads nothing.
+//     acc[D]) of each of its heads to a workspace. A block whose span
+//     starts at/past `length` exits at once, before any table read (the
+//     combine never reads it); one whose span ends before the window
+//     writes the empty partial (NEG_INF, 0, 0) and loads nothing.
 //   - Combine pass, grid (H, B): M = max m_i, l = sum e^(m_i-M) l_i, out =
 //     sum e^(m_i-M) acc_i / max(l, 1e-30) over the splits below
 //     ceil(len/split) only; with the finite NEG_INF an empty split adds 0,
@@ -59,151 +64,19 @@
 //   - nsplit and split come from shapes alone (T, B*KVH, the SM count:
 //     ops/kernels/flash_attention.decode_split), never from `lengths`, so a
 //     decode step needs no device sync; split is a multiple of the tile.
-//
-// Dense int8 (decode_attention_q8_launch): decode_kernel, one block of 128
-// threads per (slot, KV head) walking the row in 32-token tiles that the G
-// query heads share, staged in shared memory as f32; it reads only
-// ceil(len/32) tiles. A long row serializes in one block; this mode moves
-// onto the split pass's int8 flag next.
+// Geometry: D % 16 == 0 and D <= 256 (a combine thread owns D / 128 output
+// columns at most 2; the bf16 ring at D = 256 takes 135 KB of shared
+// memory); any G.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BK = 32;     // tokens per tile (one per lane in the softmax)
 constexpr int NT = 128;    // 4 warps
-constexpr int MAXO = 8;    // outputs per thread: G * D <= NT * MAXO
-constexpr int PBS = 128;   // paged block size (tokens); PBS % BK == 0
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
-                  const int8_t* __restrict__ vc, const float* __restrict__ ks,
-                  const float* __restrict__ vs,
-                  const int* __restrict__ lengths, T* __restrict__ out, int H,
-                  int KVH, int Tlen, int D, float scale, int window) {
-  extern __shared__ float smem[];
-  const int G = H / KVH;
-  const int ld = D + 1;
-  float* Qs = smem;            // [G][ld], pre-scaled
-  float* Ks = Qs + G * ld;     // [BK][ld]
-  float* Vs = Ks + BK * ld;    // [BK][ld]
-  float* Ps = Vs + BK * ld;    // [G][BK] scores, then p times v scale
-  float* Ms = Ps + G * BK;     // [G] running max
-  float* Ls = Ms + G;          // [G] running denominator
-  float* Al = Ls + G;          // [G] this tile's rescale factor
-  float* Sk = Al + G;          // [BK] k scales
-  float* Sv = Sk + BK;         // [BK] v scales
-
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int len = min(lengths[b], Tlen);
-  const int64_t slot = static_cast<int64_t>(b) * KVH + kh;
-
-  lt_load_tile(Qs, ld, q + (static_cast<int64_t>(b) * H + kh * G) * D, D, G,
-               G, D, scale);
-  for (int g = tid; g < G; g += NT) {
-    Ms[g] = LT_NEG_INF;
-    Ls[g] = 0.f;
-  }
-  float acc[MAXO];
-#pragma unroll
-  for (int i = 0; i < MAXO; ++i) acc[i] = 0.f;
-
-  const int nt = (len + BK - 1) / BK;
-  int t_start = 0;
-  if (window > 0 && len - window > 0) t_start = (len - window) / BK;
-
-  for (int kb = t_start; kb < nt; ++kb) {
-    const int t0 = kb * BK;
-    const int valid = min(BK, len - t0);
-    const int64_t row0 = slot * Tlen + t0;
-    __syncthreads();  // previous tile consumed (and Q / state visible)
-    lt_load_tile(Ks, ld, kc + row0 * D, D, BK, valid, D, 1.f);
-    lt_load_tile(Vs, ld, vc + row0 * D, D, BK, valid, D, 1.f);
-    // scales: element t of the slot's strip sits at row0 + i
-    for (int i = tid; i < BK; i += NT) {
-      Sk[i] = i < valid ? ks[row0 + i] : 0.f;
-      Sv[i] = i < valid ? vs[row0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * BK; idx += NT) {
-      const int g = idx / BK, j = idx - g * BK;
-      const float* qr = Qs + g * ld;
-      const float* kr = Ks + j * ld;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      s *= Sk[j];
-      const int kpos = t0 + j;
-      const bool ok = kpos < len && (window <= 0 || kpos >= len - window);
-      Ps[idx] = ok ? s : LT_NEG_INF;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NT / 32) {
-      const float s = Ps[g * BK + lane];
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, lt_warp_max(s));
-      const float p = expf(s - m_new);
-      const float psum = lt_warp_sum(p);
-      Ps[g * BK + lane] = p * Sv[lane];
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Ls[g] = Ls[g] * alpha + psum;
-        Ms[g] = m_new;
-        Al[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < MAXO; ++i) {
-      const int idx = tid + i * NT;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx - g * D;
-        const float* pr = Ps + g * BK;
-        float a = acc[i] * Al[g];
-        for (int j = 0; j < BK; ++j) a += pr[j] * Vs[j * ld + d];
-        acc[i] = a;
-      }
-    }
-  }
-  __syncthreads();  // final denominators visible
-
-#pragma unroll
-  for (int i = 0; i < MAXO; ++i) {
-    const int idx = tid + i * NT;
-    if (idx < G * D) {
-      const int g = idx / D, d = idx - g * D;
-      out[(static_cast<int64_t>(b) * H + kh * G + g) * D + d] =
-          lt_from_f<T>(acc[i] / fmaxf(Ls[g], 1e-30f));
-    }
-  }
-}
-
-template <typename T>
-int launch_q8_dense(const void* q, const void* kc, const void* vc,
-                    const float* ks, const float* vs, const int* lengths,
-                    void* out, int B, int H, int KVH, int Tlen, int D,
-                    int window, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  const int ld = D + 1;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(G + 2 * BK) * ld +
-                                       G * BK + 3 * G + 2 * BK);
-  static size_t smem_set[LT_MAX_DEVICES] = {};
-  const cudaError_t e =
-      lt_set_max_smem(decode_kernel<T>, smem, smem_set);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  decode_kernel<T><<<dim3(KVH, B), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kc),
-      static_cast<const int8_t*>(vc), ks, vs, lengths, static_cast<T*>(out),
-      H, KVH, Tlen, D, scale, window);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int PBS = 128;   // paged block size (tokens); PBS % SK_BK == 0
+constexpr int SK_MAXD = 256;  // largest head_dim
 
 bool bad_geometry(int H, int KVH, int D) {
-  return KVH <= 0 || H % KVH != 0 || D % 16 != 0 ||
-         (H / KVH) * D > NT * MAXO;
+  return KVH <= 0 || H % KVH != 0 || D % 16 != 0 || D <= 0 || D > SK_MAXD;
 }
 
 
@@ -223,7 +96,14 @@ __device__ __forceinline__ float2 lt_to_f2(const int8_t* p) {
 
 constexpr int SK_BK = 32;     // tokens per tile (one per lane in the softmax)
 constexpr int SK_P = NT / SK_BK;  // threads sharing one token's dot products
-constexpr int SK_MAXP = 4;    // (d, d+1) output pairs a thread: G*D <= 1024
+constexpr int SK_MAXP = 4;    // (d, d+1) output pairs a thread: GC*D <= 1024
+
+// Query heads of one split-pass block: GC = min(G, 1024 / D) of the KV
+// head's G, so its GC*D outputs fit SK_MAXP pairs a thread.
+__host__ __device__ __forceinline__ int sk_group(int G, int D) {
+  const int c = 2 * SK_MAXP * NT / D;
+  return G < c ? G : c;
+}
 
 // First cache row of the tile at token t0: dense [B, KVH, T] rows, or paged
 // block table[b, t0/128] of the pool's [NB, KVH, 128] rows. The int8
@@ -266,8 +146,10 @@ size_t sk_smem(int G, int D) {
 
 // Workspace: ml [B, H, nsplit, 2] (m, l) then acc [B, H, nsplit, D], f32.
 // T is q's (and out's) type, KV the cache's: T itself, or int8 with the
-// f32 scales ksc/vsc (Q8).
-template <typename T, typename KV, bool Q8, bool PAGED, int NS>
+// f32 scales ksc/vsc (Q8). GROUPED: blockIdx.y = kh * ngrp + head group;
+// otherwise blockIdx.y = kh and the block takes all G heads (GC = G), the
+// case of every G*D <= 1024, compiled without the group arithmetic.
+template <typename T, typename KV, bool Q8, bool PAGED, int NS, bool GROUPED>
 __global__ void __launch_bounds__(NT)
     decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
                         const KV* __restrict__ vc,
@@ -279,7 +161,15 @@ __global__ void __launch_bounds__(NT)
                         int window, int split, int nsplit) {
   constexpr int ES = sizeof(KV), VEC = 16 / ES;
   extern __shared__ __align__(16) uint8_t sk_raw[];
-  const int G = H / KVH;
+  const int GA = H / KVH;  // the KV head's query heads
+  // this block's heads: kh*GA + g0 + [0, G)
+  int kh = blockIdx.y, g0 = 0, G = GA;
+  if (GROUPED) {
+    const int GC = sk_group(GA, D), ngrp = (GA + GC - 1) / GC;
+    kh = blockIdx.y / ngrp;
+    g0 = (blockIdx.y - kh * ngrp) * GC;
+    G = min(GC, GA - g0);
+  }
   const int rs = D * ES + 16;  // padded tile row (bytes)
   const int stage = sk_stage_bytes<KV, Q8>(D);
   float* Qs = reinterpret_cast<float*>(sk_raw);  // [G][D], pre-scaled
@@ -292,7 +182,7 @@ __global__ void __launch_bounds__(NT)
 
   // let the combine grid launch now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int sp = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(lengths[b], Tlen);
   const int wstart = window > 0 ? max(len - window, 0) : 0;
@@ -300,7 +190,8 @@ __global__ void __launch_bounds__(NT)
   // at/past the length: the combine reads only the splits below
   // ceil(len/split), so this one writes nothing (and reads no table entry)
   if (hi <= lo) return;
-  const int64_t part0 = (static_cast<int64_t>(b) * H + kh * G) * nsplit + sp;
+  const int64_t head0 = static_cast<int64_t>(b) * H + kh * GA + g0;
+  const int64_t part0 = head0 * nsplit + sp;
   float* ml = ws + 2 * part0;  // head g at + 2 * g * nsplit
   float* accw = ws + 2 * static_cast<int64_t>(gridDim.z) * H * nsplit +
                 part0 * D;     // head g at + g * nsplit * D
@@ -350,8 +241,7 @@ __global__ void __launch_bounds__(NT)
     lt_cp_async_commit();
   }
 
-  lt_load_tile(Qs, D, q + (static_cast<int64_t>(b) * H + kh * G) * D, D, G,
-               G, D, scale);
+  lt_load_tile(Qs, D, q + head0 * D, D, G, G, D, scale);
   for (int g = tid; g < G; g += NT) {
     Ms[g] = LT_NEG_INF;
     Ls[g] = 0.f;
@@ -374,7 +264,7 @@ __global__ void __launch_bounds__(NT)
 
     // partial dot products of token j over chunks part, part + P, ...,
     // for 8 heads at a time: each K chunk is read once per 8 heads
-    for (int g0 = 0; g0 < G; g0 += 8) {
+    for (int gb = 0; gb < G; gb += 8) {
       float s[8];
 #pragma unroll
       for (int x = 0; x < 8; ++x) s[x] = 0.f;
@@ -387,9 +277,9 @@ __global__ void __launch_bounds__(NT)
         for (int x = 0; x < VEC; ++x) kf[x] = lt_to_f(e[x]);
 #pragma unroll
         for (int gi = 0; gi < 8; ++gi) {
-          if (g0 + gi < G) {
+          if (gb + gi < G) {
             const float4* qr = reinterpret_cast<const float4*>(
-                Qs + (g0 + gi) * D + c * VEC);
+                Qs + (gb + gi) * D + c * VEC);
 #pragma unroll
             for (int x = 0; x < VEC / 4; ++x) {
               const float4 qv = qr[x];
@@ -401,7 +291,7 @@ __global__ void __launch_bounds__(NT)
       }
 #pragma unroll
       for (int gi = 0; gi < 8; ++gi)
-        if (g0 + gi < G) Red[(part * G + g0 + gi) * SK_BK + j] = s[gi];
+        if (gb + gi < G) Red[(part * G + gb + gi) * SK_BK + j] = s[gi];
     }
     __syncthreads();
 
@@ -464,12 +354,13 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// One block of NT threads per (q head, slot); thread d < D owns output d,
-// and all NT stage the splits' weights in chunks of NT. Launched with
-// programmatic stream serialization, it may start while the split pass
-// still runs: griddepcontrol.wait holds it until that grid has finished
-// and its writes are visible.
-template <typename T>
+// One block of NT threads per (q head, slot); thread tid owns outputs tid,
+// tid + NT, ... below D (DC of them: 1 for D <= 128, 2 up to 256), and all
+// NT stage the splits' weights in chunks of NT. Launched with programmatic
+// stream serialization, it may start while the split pass still runs:
+// griddepcontrol.wait holds it until that grid has finished and its writes
+// are visible.
+template <typename T, int DC>
 __global__ void __launch_bounds__(NT)
     decode_combine_kernel(const float* __restrict__ ws,
                           const int* __restrict__ lengths,
@@ -493,7 +384,9 @@ __global__ void __launch_bounds__(NT)
   float M = red[0];
 #pragma unroll
   for (int w = 1; w < NT / 32; ++w) M = fmaxf(M, red[w]);
-  float l = 0.f, o = 0.f;
+  float l = 0.f, o[DC];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) o[c] = 0.f;
   for (int c0 = 0; c0 < n; c0 += NT) {
     const int i = c0 + tid;
     const float w = i < n ? expf(ml[2 * i] - M) : 0.f;
@@ -505,12 +398,18 @@ __global__ void __launch_bounds__(NT)
     if (tid < D) {
 #pragma unroll 8
       for (int k = 0; k < cnt; ++k) {
-        o += wsm[k] * acc[static_cast<int64_t>(c0 + k) * D];
+        const float* ak = acc + static_cast<int64_t>(c0 + k) * D;
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          if (tid + c * NT < D) o[c] += wsm[k] * ak[c * NT];
         l += lsm[k];
       }
     }
   }
-  if (tid < D) out[row * D + tid] = lt_from_f<T>(o / fmaxf(l, 1e-30f));
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+    if (tid + c * NT < D)
+      out[row * D + tid + c * NT] = lt_from_f<T>(o[c] / fmaxf(l, 1e-30f));
 }
 
 // Arguments of one split-KV decode call (pointers untyped, as they come
@@ -532,15 +431,16 @@ struct SplitArgs {
   cudaStream_t stream;
 };
 
-template <typename T, typename KV, bool Q8, bool PAGED, int NS>
-int launch_split(const SplitArgs& a) {
-  const size_t smem = sk_smem<KV, Q8, NS>(a.H / a.KVH, a.D);
+// The split pass over ngrp groups of GC heads a KV head, then the combine.
+template <typename T, typename KV, bool Q8, bool PAGED, int NS, bool GROUPED>
+int launch_groups(const SplitArgs& a, int GC, int ngrp) {
+  const size_t smem = sk_smem<KV, Q8, NS>(GC, a.D);
   static size_t smem_set[LT_MAX_DEVICES] = {};
   const cudaError_t ea = lt_set_max_smem(
-      decode_split_kernel<T, KV, Q8, PAGED, NS>, smem, smem_set);
+      decode_split_kernel<T, KV, Q8, PAGED, NS, GROUPED>, smem, smem_set);
   if (ea != cudaSuccess) return static_cast<int>(ea);
-  decode_split_kernel<T, KV, Q8, PAGED, NS>
-      <<<dim3(a.nsplit, a.KVH, a.B), NT, smem, a.stream>>>(
+  decode_split_kernel<T, KV, Q8, PAGED, NS, GROUPED>
+      <<<dim3(a.nsplit, a.KVH * ngrp, a.B), NT, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
           static_cast<const KV*>(a.vc), a.ks, a.vs, a.lengths, a.table, a.ws,
           a.H, a.KVH, a.Tlen, a.D, a.scale, a.window, a.split, a.nsplit);
@@ -560,11 +460,24 @@ int launch_split(const SplitArgs& a) {
   cfg.numAttrs = 1;
   const float* cws = a.ws;
   T* o = static_cast<T*>(a.out);
-  const cudaError_t e2 = cudaLaunchKernelEx(
-      &cfg, decode_combine_kernel<T>, cws, a.lengths, o, a.H, a.Tlen, a.D,
-      a.split, a.nsplit);
+  const cudaError_t e2 =
+      a.D <= NT ? cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 1>, cws,
+                                     a.lengths, o, a.H, a.Tlen, a.D, a.split,
+                                     a.nsplit)
+                : cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 2>, cws,
+                                     a.lengths, o, a.H, a.Tlen, a.D, a.split,
+                                     a.nsplit);
   if (e2 != cudaSuccess) return static_cast<int>(e2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename KV, bool Q8, bool PAGED, int NS>
+int launch_split(const SplitArgs& a) {
+  const int G = a.H / a.KVH, GC = sk_group(G, a.D);
+  if (GC < G)
+    return launch_groups<T, KV, Q8, PAGED, NS, true>(a, GC,
+                                                     (G + GC - 1) / GC);
+  return launch_groups<T, KV, Q8, PAGED, NS, false>(a, G, 1);
 }
 
 bool bad_split(const SplitArgs& a) {
@@ -611,23 +524,18 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
   return split_same_type<false>(dtype, a);
 }
 
-// Dense int8: decode_kernel, one block per (slot, KV head).
-extern "C" int decode_attention_q8_launch(int dtype, const void* q,
-                                          const void* kq, const float* ks,
-                                          const void* vq, const float* vs,
-                                          const int* lengths, void* out,
-                                          int B, int H, int KVH, int Tlen,
-                                          int D, int window, float scale,
-                                          void* stream) {
-  if (bad_geometry(H, KVH, D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == LT_BF16)
-    return launch_q8_dense<__nv_bfloat16>(q, kq, vq, ks, vs, lengths, out, B,
-                                          H, KVH, Tlen, D, window, scale, st);
-  if (dtype == LT_F32)
-    return launch_q8_dense<float>(q, kq, vq, ks, vs, lengths, out, B, H, KVH,
-                                  Tlen, D, window, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// Dense int8, split-KV: caches [B, KVH, T, D] int8 (T % 128 == 0), scales
+// [B, KVH, T/128, 128] f32 (token t's at element t of the slot/head's
+// strip); ws, nsplit and split as the dense launch has them.
+extern "C" int decode_attention_q8_launch(
+    int dtype, const void* q, const void* kq, const float* ks, const void* vq,
+    const float* vs, const int* lengths, void* out, float* ws, int B, int H,
+    int KVH, int Tlen, int D, int window, float scale, int nsplit, int split,
+    void* stream) {
+  const SplitArgs a = {q, kq, vq, ks, vs, nullptr, lengths, out, ws, B, H,
+                       KVH, Tlen, D, window, scale, nsplit, split,
+                       static_cast<cudaStream_t>(stream)};
+  return split_q8<false>(dtype, a);
 }
 
 // Paged, split-KV: pools [NB, KVH, 128, D], table [B, MAXB] int32; ws,

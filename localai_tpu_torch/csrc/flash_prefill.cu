@@ -45,7 +45,12 @@
 //     head's tiles through the 50 MB L2 (a prompt's K/V for one KV head is
 //     at most S*D*4 bytes = 256 KB at S=512), which keeps a q row one tile
 //     row and the causal mask one compare.
-// One instantiation per head_dim the wrapper accepts (16, 32, ..., 128).
+// One instantiation per head_dim the wrapper accepts (16, 32, ..., 256).
+// Above 128 a block is two warpgroups: a 64 x D f32 output accumulator
+// beside the S tile and P's fragments does not fit one thread's 255
+// registers, so each warpgroup keeps 128 of P V's output columns (the
+// tiles are staged 256 columns wide) and both compute the same S tile and
+// softmax (S's product runs in both: a third more MMA work than one).
 // It uses wgmma (sm_90a) with register-level softmax, but no warp
 // specialisation or intra-warpgroup overlap of softmax with the next S
 // product yet.
@@ -53,8 +58,9 @@
 // f32: prefill_simt_kernel, the port's first kernel, kept on purpose: f32
 // has no tensor-core path without TF32, which would break the f32 parity
 // bar of 2e-5. One block of 128 threads per (32-row q tile, q head, batch
-// row) stages f32 tiles and multiplies with scalar FMAs. The launcher picks
-// the kernel by dtype alone.
+// row) stages f32 tiles and multiplies with scalar FMAs (a thread holds D/4
+// outputs: 32 up to D = 128, 64 up to 256). The launcher picks the kernel
+// by dtype alone. Both take D % 16 == 0, D <= 256.
 #include "common.cuh"
 
 namespace {
@@ -64,8 +70,11 @@ namespace {
 constexpr int BQ = 32;       // query rows per block
 constexpr int BK = 32;       // keys per tile
 constexpr int NT = 128;      // threads: 4 per query row
-constexpr int MAXD4 = 32;    // head_dim / 4 held per thread (D <= 128)
+constexpr int MAXD = 256;    // largest head_dim, both kernels
 
+// MAXD4: head_dim / 4 outputs held per thread, 32 (D <= 128) or 64 (D <=
+// 256), so the common widths keep the smaller register file
+template <int MAXD4>
 __global__ void __launch_bounds__(NT)
     prefill_simt_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -182,12 +191,13 @@ int launch_simt(const void* q, const void* k, const void* v,
   const int ld = D + 1;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * ld + BQ * (BK + 1));
+  auto* kernel = D <= 128 ? prefill_simt_kernel<32> : prefill_simt_kernel<64>;
   cudaError_t e = cudaFuncSetAttribute(
-      prefill_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  prefill_simt_kernel<<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), lengths, static_cast<float*>(out), S, H,
       KVH, D, scale, window);
@@ -291,12 +301,12 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
 
 // Copy `valid` rows (of 64) of D bf16 columns, row r at src + r * stride,
 // into a swizzled tile of D/64 (rounded up) atoms; rows at/past `valid`
-// are zero-filled and not read.
-template <int D>
+// are zero-filled and not read. NTH threads share the copies.
+template <int D, int NTH>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
                                           int64_t stride, int valid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CPR; i += TC_NT) {
+  for (int i = threadIdx.x; i < 64 * CPR; i += NTH) {
     const int r = i / CPR, c = i - r * CPR;
     const bool ok = r < valid;
     lt_cp_async16(dst + (c >> 3) * ATOM + r * 128 + (((c & 7) ^ (r & 7)) << 4),
@@ -304,13 +314,30 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
   }
 }
 
+// Warpgroups of the kernel for head_dim D: one up to 128; two above, which
+// split P V's output columns (a 64 x 256 f32 accumulator is 128 registers
+// a thread, with the S tile and P's fragments past the 255 a thread has).
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
+__host__ __device__ constexpr int tc_nwg() {
+  return D > 128 ? 2 : 1;
+}
+// Staged columns: whole atoms; above 128 always 256, so each warpgroup's
+// 128 output columns start on an atom (pad columns are never a contraction
+// column of Q K^T, and P V's pad output columns are never stored).
+template <int D>
+__host__ __device__ constexpr int tc_dp() {
+  return D > 128 ? 256 : (D + 63) / 64 * 64;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT * tc_nwg<D>())
     prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ lengths, bf16* __restrict__ out,
                       int S, int H, int KVH, float scale, int window) {
-  constexpr int DP = (D + 63) / 64 * 64;  // staged columns: whole atoms
+  constexpr int NWG = tc_nwg<D>(), NTH = TC_NT * NWG;
+  constexpr int DP = tc_dp<D>();
+  constexpr int OC = DP / NWG;            // P V output columns a warpgroup
   constexpr int TILE = DP / 64 * ATOM;    // bytes of a 64-row tile
   constexpr int KSTEPS = D / 16;          // wgmma k-steps of Q K^T
   extern __shared__ uint8_t smem_raw[];
@@ -326,7 +353,11 @@ __global__ void __launch_bounds__(TC_NT)
   const int kh = h / (H / KVH);
   const int q0 = qt * TM;
   const int len = max(0, min(lengths[b], S));
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // warpgroup wg computes the whole S tile (both compute the same) and P
+  // V's columns [wg*OC, wg*OC + OC); warp is the warp within it
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = NWG == 1 ? 0 : tid / TC_NT;
+  const int warp = NWG == 1 ? tid >> 5 : (tid >> 5) & 3;
   const int g = lane >> 2, t4 = lane & 3;
   const int64_t q_row = static_cast<int64_t>(H) * D;
   const int64_t kv_row = static_cast<int64_t>(KVH) * D;
@@ -334,7 +365,7 @@ __global__ void __launch_bounds__(TC_NT)
                 static_cast<int64_t>(h) * D;
 
   if (q0 >= len) {  // padding rows only: write finite zeros
-    for (int i = tid; i < TM * (D / 8); i += TC_NT) {
+    for (int i = tid; i < TM * (D / 8); i += NTH) {
       const int r = i / (D / 8), c = i - r * (D / 8);
       if (q0 + r < S)
         *reinterpret_cast<uint4*>(obase + (q0 + r) * q_row + c * 8) =
@@ -354,20 +385,22 @@ __global__ void __launch_bounds__(TC_NT)
   auto load_kv = [&](int kb, int st) {
     const int64_t off = static_cast<int64_t>(kb) * TN * kv_row;
     const int valid = min(TN, len - kb * TN);
-    load_tile<D>(smem + TILE * (1 + 2 * st), kbase + off, kv_row, valid);
-    load_tile<D>(smem + TILE * (2 + 2 * st), vbase + off, kv_row, valid);
+    load_tile<D, NTH>(smem + TILE * (1 + 2 * st), kbase + off, kv_row,
+                      valid);
+    load_tile<D, NTH>(smem + TILE * (2 + 2 * st), vbase + off, kv_row,
+                      valid);
   };
 
-  load_tile<D>(Qs, q + (static_cast<int64_t>(b) * S + q0) * q_row +
-                       static_cast<int64_t>(h) * D,
-               q_row, min(TM, S - q0));
+  load_tile<D, NTH>(Qs, q + (static_cast<int64_t>(b) * S + q0) * q_row +
+                            static_cast<int64_t>(h) * D,
+                    q_row, min(TM, S - q0));
   load_kv(kb_start, 0);
   lt_cp_async_commit();
 
   const int qp0 = q0 + warp * 16 + g, qp1 = qp0 + 8;  // this thread's rows
-  float o[DP / 2];
+  float o[OC / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < OC / 2; ++i) o[i] = 0.f;
   float m0 = LT_NEG_INF, m1 = LT_NEG_INF, l0 = 0.f, l1 = 0.f;
 
   for (int kb = kb_start; kb < kb_end; ++kb) {
@@ -448,7 +481,7 @@ __global__ void __launch_bounds__(TC_NT)
     l0 = l0 * a0 + r0;  // per-thread partial sums; the quad adds at the end
     l1 = l1 * a1 + r1;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < OC / 8; ++j) {
       o[4 * j] *= a0;
       o[4 * j + 1] *= a0;
       o[4 * j + 2] *= a1;
@@ -458,7 +491,8 @@ __global__ void __launch_bounds__(TC_NT)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TN / 16; ++kk) {  // 16 keys: 2 groups of 8 V rows
-      const uint64_t dv = smem_desc(Vs + kk * 2048, ATOM, 1024);
+      const uint64_t dv =
+          smem_desc(Vs + wg * (OC / 64) * ATOM + kk * 2048, ATOM, 1024);
       wgmma_rs(o, hi + 4 * kk, dv);
       wgmma_rs(o, lo + 4 * kk, dv);
     }
@@ -474,8 +508,9 @@ __global__ void __launch_bounds__(TC_NT)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
+  for (int j = 0; j < OC / 8; ++j) {
+    if (wg * OC + 8 * j >= D) continue;  // a pad column (D % 8 == 0)
+    const int col = wg * OC + 8 * j + 2 * t4;
     if (qp0 < S)
       *reinterpret_cast<__nv_bfloat162*>(obase + qp0 * q_row + col) =
           __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -489,13 +524,13 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v,
               const int* lengths, void* out, int B, int S, int H, int KVH,
               int window, float scale, cudaStream_t stream) {
-  constexpr int TILE = (D + 63) / 64 * ATOM;
+  constexpr int TILE = tc_dp<D>() / 64 * ATOM;
   constexpr int smem = 1024 + 5 * TILE;  // alignment slack, Q, 2 x (K, V)
   static size_t smem_set[LT_MAX_DEVICES] = {};
   const cudaError_t e = lt_set_max_smem(prefill_tc_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(H, (S + TM - 1) / TM, B);
-  prefill_tc_kernel<D><<<grid, TC_NT, smem, stream>>>(
+  prefill_tc_kernel<D><<<grid, TC_NT * tc_nwg<D>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), lengths, static_cast<bf16*>(out), S, H,
       KVH, scale, window);
@@ -512,6 +547,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                         st);
     LT_CASE(16) LT_CASE(32) LT_CASE(48) LT_CASE(64)
     LT_CASE(80) LT_CASE(96) LT_CASE(112) LT_CASE(128)
+    LT_CASE(144) LT_CASE(160) LT_CASE(176) LT_CASE(192)
+    LT_CASE(208) LT_CASE(224) LT_CASE(240) LT_CASE(256)
 #undef LT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -524,7 +561,7 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     void* out, int B, int S, int H, int KVH,
                                     int D, int window, float scale,
                                     void* stream) {
-  if (D > 4 * MAXD4 || D % 16 != 0 || H % KVH != 0)
+  if (D <= 0 || D > MAXD || D % 16 != 0 || KVH <= 0 || H % KVH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == LT_BF16)

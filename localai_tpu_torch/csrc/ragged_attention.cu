@@ -24,11 +24,18 @@
 // be read once (plus q, out and the table entries), at 4 flops per K/V
 // element and q-row pair; at the serving shapes (mostly decode rows) that is
 // far below the card's ops:byte line, so bytes bound it. Design, simple
-// first: one block of 256 threads per (q block, KV head), the Pallas grid's
-// (T/8, KVH) axes; its QBLK*G query rows (kv-head-major within the block:
-// row r is token r/G, head-in-group r%G, as _q_blocked lays them out) share
-// each 32-token K/V tile staged in shared memory, and the Pallas kernel's
-// sequential KV-block axis becomes a loop inside the block. The loop runs
+// first: one block of 256 threads per (q block, KV head, head group), the
+// Pallas grid's (T/8, KVH) axes and a third over groups of at most GC =
+// min(G, max(1, 512 / D)) of the KV head's G query heads (GC*D <= 512, so a
+// block's QBLK*GC*D outputs fit its threads' registers at any G: G = 4 at D
+// = 128 is one group, G = 7 is 4 + 3, G = 16 four of 4). The group's
+// query rows (row c is token c/G', head g0 + c%G' of the KV head's G, G'
+// the group's own count; with one group this is _q_blocked's row r = token
+// r/G, head r%G) share each 32-token K/V tile staged in shared memory, and
+// each output row goes back to its (token, head) of q's [T, H, D] layout.
+// The Pallas kernel's sequential KV-block axis becomes a loop inside the
+// block. With more than one group, each group's blocks read the
+// same K/V tiles, the second time mostly from the 50 MB L2. The loop runs
 // only over tiles below min(kvlen, the block's last q_pos + 1) (and, with a
 // window, from the first q_pos's window start), which is exact: a tile the
 // mask hides from every row adds nothing. A 32-token tile never straddles a
@@ -46,16 +53,23 @@ namespace {
 constexpr int QBLK = 8;    // q rows per block (the reference's QBLK)
 constexpr int BK = 32;     // tokens per tile (one per lane in the softmax)
 constexpr int NT = 256;    // 8 warps
-constexpr int MAXO = 16;   // outputs per thread: QBLK * G * D <= NT * MAXO
+constexpr int MAXO = 16;   // outputs per thread: QBLK * GC * D <= NT * MAXO
+constexpr int MAXD = NT * MAXO / QBLK;  // largest head_dim (GC = 1): 512
+
+// Query heads of one block: GC of the KV head's G, GC*D <= NT*MAXO/QBLK.
+__host__ __device__ __forceinline__ int head_group(int G, int D) {
+  const int c = D < MAXD ? MAXD / D : 1;
+  return G < c ? G : c;
+}
 constexpr int PBS = 128;   // paged block size (tokens); PBS % BK == 0
 
 // Stage query rows into shared memory as f32 times `scale`: compact row c
-// is token t_lo + c/G, head kh*G + c%G of the flat stream. 16-byte loads
-// (the wrapper checks D % 16 == 0 and 16-byte alignment).
+// is token t_lo + c/G, head h0 + c%G of the flat stream (G heads from h0).
+// 16-byte loads (the wrapper checks D % 16 == 0 and 16-byte alignment).
 template <typename T>
 __device__ __forceinline__ void load_q(float* Qs, int ld,
                                        const T* __restrict__ q, int row0,
-                                       int t_lo, int nr, int G, int H, int kh,
+                                       int t_lo, int nr, int G, int H, int h0,
                                        int D, float scale) {
   constexpr int VEC = 16 / sizeof(T);
   const int per_row = D / VEC;
@@ -64,7 +78,7 @@ __device__ __forceinline__ void load_q(float* Qs, int ld,
     const int col = (i - c * per_row) * VEC;
     const int t = t_lo + c / G, g = c - (c / G) * G;
     const T* src =
-        q + (static_cast<int64_t>(row0 + t) * H + kh * G + g) * D + col;
+        q + (static_cast<int64_t>(row0 + t) * H + h0 + g) * D + col;
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
     const T* e = reinterpret_cast<const T*>(&raw);
     float* d = Qs + c * ld + col;
@@ -73,7 +87,10 @@ __device__ __forceinline__ void load_q(float* Qs, int ld,
   }
 }
 
-template <typename T, typename KV, bool Q8>
+// GROUPED: blockIdx.z is the head group (GC = head_group(G, D) heads);
+// otherwise the block takes all G heads, the case of every G*D <= 512,
+// compiled without the group arithmetic.
+template <typename T, typename KV, bool Q8, bool GROUPED>
 __global__ void __launch_bounds__(NT)
     ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                   const KV* __restrict__ vp, const float* __restrict__ ks,
@@ -84,7 +101,11 @@ __global__ void __launch_bounds__(NT)
                   const int* __restrict__ tables, T* __restrict__ out, int H,
                   int KVH, int MAXB, int D, float scale, int window) {
   extern __shared__ float smem[];
-  const int G = H / KVH;
+  const int GA = H / KVH;  // the KV head's query heads
+  const int kh = blockIdx.y;
+  const int g0 = GROUPED ? blockIdx.z * head_group(GA, D) : 0;
+  const int G = GROUPED ? min(head_group(GA, D), GA - g0) : GA;  // its heads
+  const int h0 = kh * GA + g0;                    // its first q head
   const int R = QBLK * G;
   const int ld = D + 1;
   float* Qs = smem;            // [R][ld], pre-scaled
@@ -97,7 +118,7 @@ __global__ void __launch_bounds__(NT)
   float* Sk = Al + R;          // [BK] k scales (q8)
   float* Sv = Sk + BK;         // [BK] v scales (q8)
 
-  const int qb = blockIdx.x, kh = blockIdx.y;
+  const int qb = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = qb * QBLK;
   const int s_raw = block_seq[qb];
@@ -114,7 +135,7 @@ __global__ void __launch_bounds__(NT)
   int kv_begin = 0;
   if (window > 0) kv_begin = max(qpos0 + t_lo - window + 1, 0);
 
-  load_q(Qs, ld, q, row0, t_lo, nr, G, H, kh, D, scale);
+  load_q(Qs, ld, q, row0, t_lo, nr, G, H, h0, D, scale);
   for (int r = tid; r < nr; r += NT) {
     Ms[r] = LT_NEG_INF;
     Ls[r] = 0.f;
@@ -191,7 +212,7 @@ __global__ void __launch_bounds__(NT)
     if (idx < nr * D) {
       const int c = idx / D, d = idx - c * D;
       const int t = t_lo + c / G, g = c - (c / G) * G;
-      out[(static_cast<int64_t>(row0 + t) * H + kh * G + g) * D + d] =
+      out[(static_cast<int64_t>(row0 + t) * H + h0 + g) * D + d] =
           lt_from_f<T>(acc[i] / fmaxf(Ls[c], 1e-30f));
     }
   }
@@ -200,7 +221,7 @@ __global__ void __launch_bounds__(NT)
     const int r = idx / D, d = idx - r * D;
     const int t = r / G, g = r - t * G;
     if (t < t_lo || t >= t_hi)
-      out[(static_cast<int64_t>(row0 + t) * H + kh * G + g) * D + d] =
+      out[(static_cast<int64_t>(row0 + t) * H + h0 + g) * D + d] =
           lt_from_f<T>(0.f);
   }
 }
@@ -211,17 +232,20 @@ int launch(const void* q, const void* kp, const void* vp, const float* ks,
            const int* qlen, const int* kvlen, const int* tables, void* out,
            int Trows, int H, int KVH, int MAXB, int D, int window,
            float scale, cudaStream_t stream) {
-  const int R = QBLK * (H / KVH);
+  const int G = H / KVH, GC = head_group(G, D);
+  const int R = QBLK * GC;
   const int ld = D + 1;
   const size_t smem = sizeof(float) * (static_cast<size_t>(R + 2 * BK) * ld +
                                        R * BK + 3 * R + 2 * BK);
+  auto* kernel = GC < G ? ragged_kernel<T, KV, Q8, true>
+                        : ragged_kernel<T, KV, Q8, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      ragged_kernel<T, KV, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (Trows <= 0) return 0;
-  dim3 grid(Trows / QBLK, KVH);
-  ragged_kernel<T, KV, Q8><<<grid, NT, smem, stream>>>(
+  dim3 grid(Trows / QBLK, KVH, (G + GC - 1) / GC);
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), ks, vs, block_seq, qstart, qlen, kvlen,
       tables, static_cast<T*>(out), H, KVH, MAXB, D, scale, window);
@@ -230,7 +254,7 @@ int launch(const void* q, const void* kp, const void* vp, const float* ks,
 
 bool bad_geometry(int Trows, int H, int KVH, int D, int MAXB) {
   return KVH <= 0 || H % KVH != 0 || D % 16 != 0 || Trows % QBLK != 0 ||
-         MAXB <= 0 || QBLK * (H / KVH) * D > NT * MAXO;
+         MAXB <= 0 || D <= 0 || D > MAXD;
 }
 
 template <bool Q8>

@@ -39,8 +39,9 @@ SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _I, _P],
-        "decode_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _I, _I, _F, _P],
+        "decode_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                       _P],
         "decode_attention_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _F, _I,
                                           _I, _P],
@@ -52,7 +53,7 @@ SIGNATURES = {
     "paged_scatter": {
         "paged_scatter_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
-        "paged_scatter_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "paged_scatter_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P],
     },
     "ragged_attention": {

@@ -9,9 +9,13 @@ Three wrappers, each beside its plain version with the same signature:
   block table (csrc/decode_attention.cu; split-KV in both modes: a split
   pass and a combine pass, spans from `decode_split`);
 - ragged_decode_q8 / ragged_decode_q8_plain — the same over an int8 cache
-  with per-token scales (csrc/decode_attention.cu: the paged mode on the
-  split pass's int8 flag, the dense mode on one block per (slot, KV
-  head)).
+  with per-token scales (csrc/decode_attention.cu: both modes on the split
+  pass's int8 flag).
+
+On the card every kernel takes any GQA group size G = H/KVH and a head_dim
+D that is a multiple of 16 up to MAX_HEAD_DIM (256): decode splits a KV
+head's G query heads into blocks of at most 1024/D heads, prefill runs D
+above 128 on two warpgroups.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Each launch adds one
@@ -40,6 +44,11 @@ LAUNCHES = {"flash_prefill": 0, "ragged_decode": 0, "ragged_decode_q8": 0,
             "ragged_decode_paged": 0, "ragged_decode_q8_paged": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# Largest head_dim of the prefill and decode kernels: the tensor-core
+# prefill stages 256 columns, the decode combine holds 2 outputs of 128
+# threads, and the bf16 decode ring takes 135 KB of shared memory at 256.
+MAX_HEAD_DIM = 256
 
 
 def _window(sliding_window) -> int:
@@ -140,13 +149,16 @@ def flash_prefill_plain(q, k, v, lengths, sliding_window=None):
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
-def flash_prefill(q, k, v, lengths, sliding_window=None):
-    """Causal GQA flash attention. q: [B, S, H, D]; k/v: [B, S, KVH, D]
-    (bf16 or f32, same dtype); lengths: [B]. Returns [B, S, H, D]."""
-    if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, lengths, sliding_window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_prefill: unsupported device {q.device}")
+def _head_dim_check(name, D):
+    if D % 16 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 16 "
+                         f"and at most {MAX_HEAD_DIM}")
+
+
+def _prefill_checks(q, k, v):
+    """Shapes and dtype flash_prefill's kernel takes: q [B, S, H, D], k/v
+    [B, S, KVH, D], any G = H/KVH, D % 16 == 0 up to MAX_HEAD_DIM.
+    Returns (B, S, H, KVH, D)."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     if q.dtype not in _DTYPE_CODE:
@@ -154,9 +166,18 @@ def flash_prefill(q, k, v, lengths, sliding_window=None):
     if k.shape != (B, S, KVH, D) or v.shape != k.shape or H % KVH:
         raise ValueError(f"flash_prefill: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if D % 16 or D > 128:
-        raise ValueError(f"flash_prefill: head_dim {D} must be a multiple "
-                         f"of 16 and at most 128")
+    _head_dim_check("flash_prefill", D)
+    return B, S, H, KVH, D
+
+
+def flash_prefill(q, k, v, lengths, sliding_window=None):
+    """Causal GQA flash attention. q: [B, S, H, D]; k/v: [B, S, KVH, D]
+    (bf16 or f32, same dtype); lengths: [B]. Returns [B, S, H, D]."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, lengths, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    B, S, H, KVH, D = _prefill_checks(q, k, v)
     _check_cuda("flash_prefill", (q, k, v), (None, q.dtype, q.dtype))
     lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
@@ -229,9 +250,7 @@ def _decode_checks(name, q, kshape, T):
     if S1 != 1 or kshape[0] != B or kshape[3] != D or H % KVH:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
                          f"cache{tuple(kshape)}")
-    if D % 16 or (H // KVH) * D > 1024:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 16 "
-                         f"and group*head_dim at most 1024")
+    _head_dim_check(name, D)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: unsupported dtype {q.dtype}")
     return B, H, KVH, T, D
@@ -319,9 +338,9 @@ def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
     KVH, 128, D] with scales [NB, KVH, 1, 128] (ops/paged.py). Returns
     [B, 1, H, D] in q's dtype.
 
-    The paged mode on the card is split-KV as ragged_decode's (the split
-    pass's int8 flag); the dense mode is one launch of one block per (slot,
-    KV head)."""
+    On the card both modes are split-KV as ragged_decode's (the split
+    pass's int8 flag), counted as one launch of "ragged_decode_q8" (paged
+    mode: "ragged_decode_q8_paged")."""
     if q.device.type == "cpu":
         return ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
                                       sliding_window, table=table)
@@ -341,11 +360,13 @@ def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
                 (None, torch.int8, torch.float32, torch.int8, torch.float32))
     lens = _on(lengths, torch.int32, q.device)
     out = torch.empty_like(q)
+    nsplit, split, ws = _split_workspace(T, B, H, KVH, D, q.device)
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_q8_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
-        v_q.data_ptr(), v_s.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H,
-        KVH, T, D, _window(sliding_window), D ** -0.5, _stream(q.device))
+        v_q.data_ptr(), v_s.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), B, H, KVH, T, D, _window(sliding_window), D ** -0.5,
+        nsplit, split, _stream(q.device))
     _raise_rc("ragged_decode_q8", rc)
     LAUNCHES["ragged_decode_q8"] += 1
     return out

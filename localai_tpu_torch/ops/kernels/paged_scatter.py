@@ -5,10 +5,11 @@ localai_tpu/ops/pallas/paged_scatter.py).
 Two wrappers, each beside its plain version with the same signature:
 - paged_scatter_append / _plain — bf16/f32 pools [NB, KVH, BS, D];
 - paged_scatter_append_q8 / _plain — int8 pools + per-token f32 scales
-  [NB, KVH, 1, BS]; the new rows are quantized here, in the wrapper, with
-  ops/kvcache.quantize_tokens (the reference quantizes in its wrapper too),
-  and the kernel writes the int8 row and one scale element per (slot,
-  head) (csrc/paged_scatter.cu).
+  [NB, KVH, 1, BS]; the kernel (csrc/paged_scatter.cu) reads the new bf16
+  or f32 rows, quantizes each (slot, head) row as
+  ops/kvcache.quantize_tokens does, bit for bit, and writes the int8 row
+  and its scale element, all in one launch; the plain version runs
+  quantize_tokens and then the index writes.
 
 Slot b's row goes to block table[b, pos // 128], row pos % 128; an
 inactive slot goes to the trash block 0 at row b % 128 (`paged_targets`,
@@ -28,7 +29,7 @@ import torch
 
 from localai_tpu_torch.ops.kernels import _build
 from localai_tpu_torch.ops.kernels.flash_attention import (
-    _check_cuda, _on, _raise_rc, _stream,
+    _DTYPE_CODE, _check_cuda, _on, _raise_rc, _stream,
 )
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, ring_block_map
@@ -125,25 +126,25 @@ def launch_rows(name, k_pool, v_pool, k_new, v_new, targets):
 
 
 def launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new, targets):
-    """The int8 twin of launch_rows: quantize the rows (per token,
-    symmetric over D), then one launch writes the int8 rows and their
-    scales [NB, KVH, 1, BS]. Counts nothing."""
+    """The int8 twin of launch_rows: one launch quantizes the bf16/f32 rows
+    (per token, symmetric over D) and writes the int8 rows and their scales
+    [NB, KVH, 1, BS]; no PyTorch arithmetic runs on the rows. Counts
+    nothing."""
     B, KVH, D, NB = _shapes(name, kq, vq, k_new, v_new)
     if ks.shape != (NB, KVH, 1, BLOCK) or vs.shape != ks.shape:
         raise ValueError(f"{name}: bad pool/scale shapes")
-    kq_n, ks_n = quantize_tokens(k_new)              # [B, KVH, D], [B, KVH]
-    vq_n, vs_n = quantize_tokens(v_new)
-    kq_n, vq_n = kq_n.contiguous(), vq_n.contiguous()
-    ks_n, vs_n = ks_n.contiguous(), vs_n.contiguous()
-    _check_cuda(name, (kq_n, ks_n, vq_n, vs_n, kq, ks, vq, vs),
-                (None, torch.float32, None, torch.float32) + (
-                    torch.int8, torch.float32) * 2)
+    if k_new.dtype not in _DTYPE_CODE or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: new rows must be bf16 or f32 alike, got "
+                        f"{k_new.dtype} and {v_new.dtype}")
     dev = k_new.device
+    kn, vn = _on(k_new, k_new.dtype, dev), _on(v_new, k_new.dtype, dev)
+    _check_cuda(name, (kn, vn, kq, ks, vq, vs),
+                (None, None) + (torch.int8, torch.float32) * 2)
     pb = _on(targets[0], torch.int32, dev)
     off = _on(targets[1], torch.int32, dev)
     lib = _build.load("paged_scatter")
     rc = lib.paged_scatter_q8_launch(
-        kq_n.data_ptr(), ks_n.data_ptr(), vq_n.data_ptr(), vs_n.data_ptr(),
+        _DTYPE_CODE[kn.dtype], kn.data_ptr(), vn.data_ptr(),
         kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         pb.data_ptr(), off.data_ptr(), B, KVH, D, NB, _stream(dev))
     _raise_rc(name, rc)
@@ -175,9 +176,10 @@ def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
 def paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions, table,
                             active=None, sb=None, rw=None, targets=None):
     """int8 variant, IN PLACE: pools kq/vq [NB, KVH, BS, D] int8 with scales
-    ks/vs [NB, KVH, 1, BS] f32. k_new/v_new arrive dense [B, KVH, D] and
-    are quantized here (per token, symmetric over D). Returns (kq, ks, vq,
-    vs), the same tensors."""
+    ks/vs [NB, KVH, 1, BS] f32. k_new/v_new arrive dense [B, KVH, D] (bf16
+    or f32 on the card) and are quantized per token, symmetric over D (on
+    the card inside the kernel). Returns (kq, ks, vq, vs), the same
+    tensors."""
     if k_new.device.type == "cpu":
         return paged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new,
                                              positions, table, active, sb,

@@ -25,8 +25,9 @@ Four wrappers, each beside its plain version with the same signature:
   pb[t], row off[t], in place: the paged scatter kernel
   (csrc/paged_scatter.cu) with B = T host-free targets, as the reference
   builds it on paged_scatter's _append_kernel;
-- ragged_scatter_append_q8 / _plain — quantize the rows (plain PyTorch, as
-  the reference does), then the same kernel writes int8 rows and scales.
+- ragged_scatter_append_q8 / _plain — the int8 twin: the paged scatter's
+  quantizing kernel (csrc/paged_scatter.cu) quantizes each row per token
+  and writes the int8 rows and their scales in one launch.
 
 The plain attention versions gather only the table-mapped blocks of each q
 block ([NQB, KVH, MAXB*128, D], never the whole pool) and run one masked
@@ -56,6 +57,14 @@ from localai_tpu_torch.ops.kernels.paged_scatter import (
 from localai_tpu_torch.ops.paged import BLOCK
 
 QBLK = 8   # q rows per block; every sequence's rows start on a boundary
+
+# The kernel's one limit (csrc/ragged_attention.cu). A block takes QBLK rows
+# of at most 512 // D of a KV head's query heads, so any GQA group size
+# fits, and its shared memory no longer grows with the group: head_dim is
+# what binds, QBLK*D outputs of one head over 256 threads, 16 each. At D =
+# 512 a block's shared memory (f32 q rows, two 32-token K/V tiles, scores)
+# is 149,120 bytes of the 232,448 it may use.
+RAGGED_MAX_HEAD_DIM = 512
 
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0,
             "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0}
@@ -175,9 +184,10 @@ def _attn_checks(name, q, pool_shape, tables):
     if tables.dim() != 2:
         raise ValueError(f"{name}: tables must be [NSEQ, MAXB]")
     kvh = pool_shape[1]
-    if d % 16 or QBLK * (h // kvh) * d > 4096:
+    if d % 16 or not 0 < d <= RAGGED_MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {d} must be a multiple of 16 "
-                         f"and QBLK*group*head_dim at most 4096")
+                         f"and at most {RAGGED_MAX_HEAD_DIM} (QBLK*head_dim "
+                         f"outputs of one head over a block's 256 threads)")
     return t, h, kvh, d, tables.shape[1]
 
 

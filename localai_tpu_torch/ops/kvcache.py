@@ -10,6 +10,7 @@ attention masks by length).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -56,12 +57,25 @@ def init_quant(shape, *, device=None) -> QuantKV:
                     device=device))
 
 
+@functools.lru_cache(maxsize=None)
+def _qmax_on(device):
+    """_QMAX as a 0-dim f32 tensor on a CUDA device. PyTorch divides a CUDA
+    tensor by a Python number as a product with the number's rounded
+    reciprocal, which moves some scales by an ulp; by a device tensor it
+    divides (IEEE, as on the CPU, in the reference and in the card's
+    quantizing scatter kernel)."""
+    return torch.tensor(_QMAX, dtype=torch.float32, device=device)
+
+
 def quantize_tokens(x):
     """Per-token symmetric int8 over the trailing head_dim axis.
-    x: [..., D] → (q int8 same shape, scale f32 lead shape)."""
+    x: [..., D] → (q int8 same shape, scale f32 lead shape). Both divisions
+    are IEEE divisions on every device: scale = max(amax, 1e-8) / 127 and q
+    = round-half-even(x / scale) clamped to ±127."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf), dim=-1)
-    scale = torch.clamp_min(amax, _EPS) / _QMAX
+    qmax = _qmax_on(xf.device) if xf.device.type == "cuda" else _QMAX
+    scale = torch.clamp_min(amax, _EPS) / qmax
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(
         torch.int8)
     return q, scale

@@ -9,7 +9,8 @@ import hygiene.
 - In a subprocess, importing the port's backend and engine leaves no `jax`
   or `localai_tpu` module in sys.modules.
 - An AST scan finds no `jax` / `localai_tpu` import anywhere in
-  localai_tpu_torch/, chip_smoke.py or chip_profile.py.
+  localai_tpu_torch/ or the chip scripts (chip_smoke.py, chip_profile.py,
+  chip_rows.py, chip_stage_sweep.py).
   (`localai_tpu_torch` starts with "localai_tpu": the checks match the
   name exactly or with a dot.)
 """
@@ -186,8 +187,9 @@ def _imports(path):
 
 
 def test_ast_no_jax_or_reference_imports():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
-                                             "chip_profile.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "chip_profile.py", "chip_rows.py",
+        "chip_stage_sweep.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "localai_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

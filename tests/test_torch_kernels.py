@@ -54,10 +54,14 @@ def _valid(x, lens):
     return np.concatenate([x[b, :n] for b, n in enumerate(lens) if n > 0])
 
 
-@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (8, 1)])
-def test_flash_prefill_plain_vs_pallas_gqa(H, KVH):
+# G = 7 (Qwen2-7B's group) and head_dim 256 beside the first three cases
+@pytest.mark.parametrize("H,KVH,D", [
+    pytest.param(4, 4, 16, id="4-4"), pytest.param(4, 2, 16, id="4-2"),
+    pytest.param(8, 1, 16, id="8-1"), pytest.param(7, 1, 16, id="G7"),
+    pytest.param(14, 2, 256, id="G7-D256")])
+def test_flash_prefill_plain_vs_pallas_gqa(H, KVH, D):
     pfa, jnp = _pallas()
-    q, k, v = _prefill_inputs(0, 3, 32, H, KVH, 16)
+    q, k, v = _prefill_inputs(0, 3, 32, H, KVH, D)
     lens = [32, 19, 1]
     ref = pfa.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             jnp.asarray(lens, jnp.int32), block_q=16,
@@ -104,10 +108,14 @@ def _decode_inputs(seed, B, H, KVH, T, D):
     return q, kc, vc
 
 
-@pytest.mark.parametrize("window", [None, 20])
-def test_ragged_decode_plain_vs_pallas(window):
+@pytest.mark.parametrize("window,H,KVH,D", [
+    pytest.param(None, 8, 2, 16, id="None"),
+    pytest.param(20, 8, 2, 16, id="20"),
+    pytest.param(None, 7, 1, 16, id="G7"),
+    pytest.param(20, 14, 2, 256, id="G7-D256-20")])
+def test_ragged_decode_plain_vs_pallas(window, H, KVH, D):
     pfa, jnp = _pallas()
-    q, kc, vc = _decode_inputs(3, 3, 8, 2, 64, 16)
+    q, kc, vc = _decode_inputs(3, 3, H, KVH, 64, D)
     lens = [1, 37, 64]
     ref = pfa.ragged_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
                             jnp.asarray(lens, jnp.int32),
@@ -124,10 +132,14 @@ def _q8(kc):
     return q, s.reshape(B, KVH, T // 128, 128)
 
 
-@pytest.mark.parametrize("window", [None, 50])
-def test_ragged_decode_q8_plain_vs_pallas(window):
+@pytest.mark.parametrize("window,H,KVH,D", [
+    pytest.param(None, 8, 2, 16, id="None"),
+    pytest.param(50, 8, 2, 16, id="50"),
+    pytest.param(None, 7, 1, 16, id="G7"),
+    pytest.param(50, 14, 2, 256, id="G7-D256-50")])
+def test_ragged_decode_q8_plain_vs_pallas(window, H, KVH, D):
     pfa, jnp = _pallas()
-    q, kc, vc = _decode_inputs(4, 3, 8, 2, 256, 16)
+    q, kc, vc = _decode_inputs(4, 3, H, KVH, 256, D)
     lens = [1, 130, 256]
     kq, ks = _q8(kc)
     vq, vs = _q8(vc)
@@ -225,6 +237,64 @@ def test_decode_split_computed_once_per_shape():
     assert (info.misses, info.hits) == (1, 31)
 
 
+# Qwen2-7B (G = 7), Llama-3.1-405B (G = 16) and head_dim 256 (G = 16 too)
+WIDE = [(28, 4, 128), (128, 8, 128), (32, 8, 256), (16, 1, 256)]
+
+
+@pytest.mark.parametrize("H,KVH,D", WIDE)
+def test_wrapper_shape_checks_accept_wide_geometry(H, KVH, D):
+    """The card's wrappers take every GQA group size and head_dim up to
+    256: prefill, dense and paged decode, ragged attention (shapes only, on
+    the meta device: nothing is allocated or launched)."""
+    from localai_tpu_torch.ops.kernels.flash_attention import (
+        _decode_checks, _prefill_checks,
+    )
+    from localai_tpu_torch.ops.kernels.ragged_attention import _attn_checks
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    kv = meta(2, 64, KVH, D)
+    assert _prefill_checks(meta(2, 64, H, D), kv, kv) == (2, 64, H, KVH, D)
+    qd = meta(2, 1, H, D)
+    assert _decode_checks("ragged_decode", qd, (2, KVH, 512, D), 512) == (
+        2, H, KVH, 512, D)
+    assert _decode_checks("ragged_decode", qd, (2, KVH, 128, D), 4 * 128) \
+        == (2, H, KVH, 512, D)                        # paged: T = MAXB*128
+    tables = torch.zeros(3, 4, dtype=torch.int32)
+    assert _attn_checks("ragged_paged_attention", meta(24, H, D),
+                        (9, KVH, 128, D), tables) == (24, H, KVH, D, 4)
+
+
+@pytest.mark.parametrize("D,ragged_ok", [(24, False), (272, True),
+                                         (512, True), (528, False)])
+def test_wrapper_shape_checks_name_the_head_dim_limit(D, ragged_ok):
+    """What the kernels cannot take raises with the limit: head_dim a
+    multiple of 16, up to 256 for prefill and decode and 512 for ragged
+    attention."""
+    from localai_tpu_torch.ops.kernels import ragged_attention as ra
+    from localai_tpu_torch.ops.kernels.flash_attention import (
+        _decode_checks, _prefill_checks,
+    )
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    kv = meta(1, 8, 1, D)
+    with pytest.raises(ValueError, match="multiple of 16 and at most 256"):
+        _prefill_checks(meta(1, 8, 16, D), kv, kv)
+    with pytest.raises(ValueError, match="multiple of 16 and at most 256"):
+        _decode_checks("ragged_decode", meta(1, 1, 16, D), (1, 1, 128, D),
+                       128)
+    tables = torch.zeros(1, 1, dtype=torch.int32)
+    args = ("ragged_paged_attention", meta(8, 16, D), (2, 1, 128, D), tables)
+    if ragged_ok:
+        assert ra._attn_checks(*args)[3] == D
+    else:
+        with pytest.raises(ValueError, match="multiple of 16 and at most 512"):
+            ra._attn_checks(*args)
+
+
 @pytest.mark.parametrize("case", ["as-is", "int64", "strided", "float"])
 def test_wrapper_conversion_only_where_needed(case):
     """The wrappers' int32 lengths, tables and scatter targets, and the
@@ -278,16 +348,18 @@ def test_cuda_flash_prefill_vs_plain(cuda, dtype, H, KVH, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128, 144, 160,
+                               176, 192, 208, 224, 240, 256])
 @pytest.mark.parametrize("S,lens,window", [
     (80, [80, 0, 1, 65], None),        # S not a multiple of 64, lengths 0, 1
     (200, [200, 130, 64], 70),         # the window's start crosses K/V tiles
 ])
 def test_cuda_flash_prefill_bf16_tensor_cores(cuda, D, S, lens, window):
-    """The bf16 tensor-core kernel at every head_dim it is built for: the
-    rows below each length against the plain version (bf16 bar), and every
-    output row finite, padding rows and a length-0 row included (the next
-    layer writes their K/V into the cache)."""
+    """The bf16 tensor-core kernel at every head_dim it is built for (one
+    warpgroup up to 128, two above): the rows below each length against the
+    plain version (bf16 bar), and every output row finite, padding rows and
+    a length-0 row included (the next layer writes their K/V into the
+    cache)."""
     B, H, KVH = len(lens), 8, 2
     q, k, v = _dev(_prefill_inputs(17, B, S, H, KVH, D), cuda,
                    torch.bfloat16)
@@ -605,3 +677,245 @@ def test_cuda_ragged_scatter_vs_plain(cuda, dtype):
     torch.cuda.synchronize()
     for got, want in zip(pools, ref):
         assert torch.equal(got[1:], want[1:])
+
+
+# ------------------------------------- every group size and head_dim 256
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KVH,window", [(8, 2, None), (16, 1, 70)])
+def test_cuda_flash_prefill_head_dim_256(cuda, dtype, H, KVH, window):
+    """head_dim 256: f32 on the SIMT kernel's wide variant, bf16 on two
+    warpgroups; G = 4 and G = 16 with a window across K/V tiles."""
+    td = getattr(torch, dtype)
+    lens = [200, 130, 1]
+    q, k, v = _dev(_prefill_inputs(24, 3, 200, H, KVH, 256), cuda, td)
+    lt = torch.tensor(lens, device=cuda)
+    before = tk.launch_counts()["flash_prefill"]
+    out = tk.flash_prefill(q, k, v, lt, sliding_window=window)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_prefill"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    ref = tk.flash_prefill_plain(q, k, v, lt, sliding_window=window)
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(_valid(out.float().cpu().numpy(), lens),
+                               _valid(ref.float().cpu().numpy(), lens), **tol)
+
+
+# (H, KVH, D): Llama-3.1-405B's G = 16 at D = 128 (two head groups of 8),
+# Qwen2-7B's G = 7 (one group), G = 8 at D = 256 (two groups of 4, the
+# combine's two columns a thread)
+DECODE_WIDE = [(32, 2, 128), (28, 4, 128), (16, 2, 256)]
+
+
+def _decode_lens(B, T, split):
+    return [1, split, split + 1, T] + [
+        int(x) for x in _rng(25).integers(1, T + 1, B - 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("H,KVH,D", DECODE_WIDE)
+def test_cuda_decode_wide_group_vs_plain(cuda, dtype, q8, H, KVH, D):
+    """Dense split-KV decode, bf16/f32 and int8, at G = 16, 7 and D = 256:
+    lengths at the span edges, a window from inside a span."""
+    td = getattr(torch, dtype)
+    B, T = 6, 512
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, split = tk.decode_split(T, B * KVH, sms)
+    lens = _decode_lens(B, T, split)
+    lt = torch.tensor(lens, device=cuda)
+    q, kc, vc = _decode_inputs(26, B, H, KVH, T, D)
+    qd = torch.tensor(q, device=cuda).to(td)
+    name = "ragged_decode_q8" if q8 else "ragged_decode"
+    for win in (None, split + 7):
+        before = tk.launch_counts()[name]
+        if q8:
+            kq, ks = _q8(kc)
+            vq, vs = _q8(vc)
+            args = [t.to(cuda) for t in (kq, ks, vq, vs)]
+            out = tk.ragged_decode_q8(qd, *args, lt, sliding_window=win)
+            torch.cuda.synchronize()
+            ref = tk.ragged_decode_q8_plain(qd, *args, lt, sliding_window=win)
+        else:
+            k, v = _dev((kc, vc), cuda, td)
+            out = tk.ragged_decode(qd, k, v, lt, sliding_window=win)
+            torch.cuda.synchronize()
+            ref = tk.ragged_decode_plain(qd, k, v, lt, sliding_window=win)
+        assert tk.launch_counts()[name] == before + 1
+        assert bool(torch.isfinite(out.float()).all())
+        tol = F32 if dtype == "float32" else BF16_CARD
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("H,KVH,D", DECODE_WIDE)
+def test_cuda_paged_decode_wide_group_vs_plain(cuda, dtype, q8, H, KVH, D):
+    """Paged split-KV decode at the same geometries over a shuffled table,
+    a window from inside a span."""
+    td = getattr(torch, dtype)
+    B, MAXB = 6, 4
+    T = MAXB * 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, split = tk.decode_split(T, B * KVH, sms)
+    lens = _decode_lens(B, T, split)
+    NB = sum(-(-n // 128) for n in lens) + 2
+    pool_k, pool_v, table = _paged_case(27, B, KVH, D, NB, MAXB, lens)
+    q = torch.tensor(_rng(28).standard_normal((B, 1, H, D)), device=cuda,
+                     dtype=torch.float32).to(td)
+    tab, lt = torch.tensor(table, device=cuda), torch.tensor(lens,
+                                                             device=cuda)
+    name = "ragged_decode_q8_paged" if q8 else "ragged_decode_paged"
+    for win in (None, split + 7):
+        before = tk.launch_counts()[name]
+        if q8:
+            kq, ks = _q8(pool_k.reshape(1, -1, 128, D))
+            vq, vs = _q8(pool_v.reshape(1, -1, 128, D))
+            args = [kq.reshape(NB, KVH, 128, D).to(cuda),
+                    ks.reshape(NB, KVH, 1, 128).to(cuda),
+                    vq.reshape(NB, KVH, 128, D).to(cuda),
+                    vs.reshape(NB, KVH, 1, 128).to(cuda)]
+            out = tk.ragged_decode_q8(q, *args, lt, sliding_window=win,
+                                      table=tab)
+            torch.cuda.synchronize()
+            ref = tk.ragged_decode_q8_plain(q, *args, lt, sliding_window=win,
+                                            table=tab)
+        else:
+            k, v = _dev((pool_k, pool_v), cuda, td)
+            out = tk.ragged_decode(q, k, v, lt, sliding_window=win,
+                                   table=tab)
+            torch.cuda.synchronize()
+            ref = tk.ragged_decode_plain(q, k, v, lt, sliding_window=win,
+                                         table=tab)
+        assert tk.launch_counts()[name] == before + 1
+        tol = F32 if dtype == "float32" else BF16_CARD
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,q8", [("bfloat16", False),
+                                      ("bfloat16", True),
+                                      ("float32", False)])
+@pytest.mark.parametrize("H,KVH,D", [(28, 4, 128), (32, 2, 128),
+                                     (16, 1, 256)])
+def test_cuda_ragged_attention_wide_group_vs_plain(cuda, dtype, q8, H, KVH,
+                                                   D):
+    """Kernels 8/9 over the head-group axis: G = 7 at D = 128 (groups of 4
+    and 3), G = 16 (four groups of 4) and G = 16 at D = 256 (eight of 2),
+    decode rows beside prefill chunks, one with a window."""
+    td = getattr(torch, dtype)
+    q, k, v, meta, live = _ragged_case(29, H, KVH, D, 24,
+                                       [1, 300, 140, 700, 33],
+                                       [1, 1, 12, 40, 33])
+    qd = torch.tensor(q, device=cuda).to(td)
+    m = {n: torch.tensor(a, device=cuda) for n, a in meta.items()}
+    name = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    for win in (None, 100):
+        before = tk.launch_counts()[name]
+        if q8:
+            kq, ks = _q8(k.reshape(1, -1, 128, D))
+            vq, vs = _q8(v.reshape(1, -1, 128, D))
+            args = [kq.reshape(24, KVH, 128, D).to(cuda),
+                    ks.reshape(24, KVH, 1, 128).to(cuda),
+                    vq.reshape(24, KVH, 128, D).to(cuda),
+                    vs.reshape(24, KVH, 1, 128).to(cuda)]
+            out = tk.ragged_paged_attention_q8(qd, *args, **m,
+                                               sliding_window=win)
+            torch.cuda.synchronize()
+            ref = tk.ragged_paged_attention_q8_plain(qd, *args, **m,
+                                                     sliding_window=win)
+        else:
+            kv = _dev((k, v), cuda, td)
+            out = tk.ragged_paged_attention(qd, *kv, **m, sliding_window=win)
+            torch.cuda.synchronize()
+            ref = tk.ragged_paged_attention_plain(qd, *kv, **m,
+                                                  sliding_window=win)
+        assert tk.launch_counts()[name] == before + 1
+        tol = F32 if dtype == "float32" else BF16_CARD
+        np.testing.assert_allclose(out.float().cpu().numpy()[live],
+                                   ref.float().cpu().numpy()[live], **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_tokens_equals_cpu(cuda):
+    """quantize_tokens on the card gives the CPU's int8 rows and scales bit
+    for bit (IEEE division on both; a CUDA division by the Python number
+    127 would multiply by its rounded reciprocal and move some scales)."""
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    x = torch.tensor(_rng(32).standard_normal((64, 8, 128)) * 3,
+                     dtype=torch.float32)
+    q_cpu, s_cpu = quantize_tokens(x)
+    q_card, s_card = quantize_tokens(x.to(cuda))
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+
+
+def _half_rows(B, KVH, D):
+    """[B, KVH, D] rows whose quotients x / scale land on .5 (scale 1 and
+    2: a row's largest |x| is 127 or 254, the others k + 0.5 times the
+    scale), one row of zeros (the 1e-8 floor), the rest random."""
+    r = _rng(30)
+    x = r.standard_normal((B, KVH, D)).astype(np.float32) * 3
+    halves = np.array([2.5, -3.5, 0.5, -0.5, 1.5, -2.5, 126.5, -126.5],
+                      np.float32)
+    for b, s in ((0, 1.0), (1, 2.0)):
+        x[b] = np.resize(halves, (KVH, D)) * s
+        x[b, :, 0] = 127 * s
+    x[2] = 0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_scatter_q8_fused_bit_exact(cuda, dtype, monkeypatch):
+    """The quantizing scatter kernel against quantize_tokens and the index
+    writes, bit for bit over the whole pool, on the card and on the CPU:
+    rows whose quotient lands on .5 round half to even (2.5 -> 2, -3.5 ->
+    -4, 126.5 -> 126), a zero row takes the 1e-8 floor, inactive slots go
+    to the trash block. The wrapper quantizes nothing in PyTorch: with
+    quantize_tokens made to raise, it still writes the same pools."""
+    from localai_tpu_torch.ops.kernels import paged_scatter as ps
+
+    td = getattr(torch, dtype)
+    B, KVH, D, NB = 6, 2, 128, 16
+    pool_k, pool_v, table = _paged_case(31, B, KVH, D, NB, 4,
+                                        [1, 129, 300, 512, 40, 77])
+    k_new = torch.tensor(_half_rows(B, KVH, D), device=cuda).to(td)
+    v_new = torch.tensor(_half_rows(B, KVH, D)[::-1].copy(),
+                         device=cuda).to(td)
+    pos = torch.tensor([0, 128, 299, 511, 39, 76], device=cuda)
+    tab = torch.tensor(table, device=cuda)
+    act = torch.tensor([True, True, True, True, False, True], device=cuda)
+    kq, ks = _q8(pool_k.reshape(1, -1, 128, D))
+    vq, vs = _q8(pool_v.reshape(1, -1, 128, D))
+    pools = [kq.reshape(NB, KVH, 128, D), ks.reshape(NB, KVH, 1, 128),
+             vq.reshape(NB, KVH, 128, D), vs.reshape(NB, KVH, 1, 128)]
+    ref_cpu = [t.clone() for t in pools]
+    pools = [t.to(cuda) for t in pools]
+    ref = [t.clone() for t in pools]
+    tk.paged_scatter_append_q8_plain(*ref, k_new, v_new, pos, tab, act)
+    tk.paged_scatter_append_q8_plain(*ref_cpu, k_new.cpu(), v_new.cpu(),
+                                     pos.cpu(), tab.cpu(), act.cpu())
+    targets = tk.paged_targets(pos, tab, act)
+
+    def no_quantize(x):
+        raise AssertionError("the wrapper quantized in PyTorch")
+    monkeypatch.setattr(ps, "quantize_tokens", no_quantize)
+    before = tk.launch_counts()["paged_scatter_append_q8"]
+    tk.paged_scatter_append_q8(*pools, k_new, v_new, pos, tab, act,
+                               targets=targets)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["paged_scatter_append_q8"] == before + 1
+    for got, want, want_cpu in zip(pools, ref, ref_cpu):
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), want_cpu)
+    pb, off = (int(t[0]) for t in targets)
+    assert pools[1][pb, 0, 0, off].item() == 1.0
+    assert pools[0][pb, 0, off, :8].tolist() == [127, -4, 0, 0, 2, -2, 126,
+                                                 -126]

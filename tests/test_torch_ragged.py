@@ -92,11 +92,16 @@ def _q8_pool(pool):
     return qv, s.reshape(s.shape[0], s.shape[1], 1, 128)
 
 
-@pytest.mark.parametrize("window", [None, 100])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ragged_attention_plain_vs_reference(monkeypatch, dtype, window):
+# the first four cases at G = 2, then G = 7 (Qwen2-7B's group)
+@pytest.mark.parametrize("dtype,window,H,KVH", [
+    pytest.param(dt, w, 4, 2, id=f"{dt}-{w}")
+    for dt in ("float32", "bfloat16") for w in (None, 100)] + [
+    pytest.param("float32", None, 7, 1, id="float32-None-G7"),
+    pytest.param("bfloat16", 100, 14, 2, id="bfloat16-100-G7")])
+def test_ragged_attention_plain_vs_reference(monkeypatch, dtype, window, H,
+                                             KVH):
     monkeypatch.setenv("LOCALAI_FORCE_PALLAS", "1")
-    q, k, v, meta, live = _stream(0)
+    q, k, v, meta, live = _stream(0, H=H, KVH=KVH)
     jd = getattr(jnp, dtype)
     jmeta = {n: jnp.asarray(a) for n, a in meta.items()}
     jargs = [jnp.asarray(x, jd) for x in (q, k, v)]
@@ -118,10 +123,12 @@ def test_ragged_attention_plain_vs_reference(monkeypatch, dtype, window):
     assert not any(tk.launch_counts().values())
 
 
-@pytest.mark.parametrize("window", [None, 60])
-def test_ragged_attention_q8_plain_vs_reference(monkeypatch, window):
+@pytest.mark.parametrize("window,H,KVH", [
+    pytest.param(None, 4, 2, id="None"), pytest.param(60, 4, 2, id="60"),
+    pytest.param(60, 7, 1, id="60-G7")])
+def test_ragged_attention_q8_plain_vs_reference(monkeypatch, window, H, KVH):
     monkeypatch.setenv("LOCALAI_FORCE_PALLAS", "1")
-    q, k, v, meta, live = _stream(1)
+    q, k, v, meta, live = _stream(1, H=H, KVH=KVH)
     kq, ks = _q8_pool(k)
     vq, vs = _q8_pool(v)
     jmeta = {n: jnp.asarray(a) for n, a in meta.items()}
@@ -518,6 +525,34 @@ def test_ragged_streams_equal_reference_engine(models, dense_paged_streams,
         assert m["decode_steps_dispatched"] > m["decode_dispatches"]
     else:
         assert not any(exits.values()), exits
+
+
+@pytest.fixture(scope="module")
+def models_g7(tmp_path_factory):
+    """A tiny checkpoint at GQA group size 7 (7 query heads on one KV
+    head, head_dim 16): Qwen2-7B's group."""
+    ckpt = tiny_checkpoint(tmp_path_factory, heads=7, kv_heads=1, hidden=112)
+    jcfg, jp, jtok = jloader.load_model(ckpt, dtype="float32")
+    tcfg, tp, ttok = tloader.load_model(ckpt, dtype="float32", device="cpu")
+    assert (tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim) == (7, 1, 16)
+    return (jcfg, jp, jtok), (tcfg, tp, ttok)
+
+
+def test_ragged_streams_equal_reference_engine_g7(models_g7):
+    """At G = 7 the port's ragged engine (fused loop on) emits the JAX
+    ragged engine's token streams, greedy and seeded-sampled, mid-decode
+    admissions included."""
+    (jcfg, jp, jtok), (tcfg, tp, ttok) = models_g7
+    ec = _ec(ragged_token_budget=64, ragged_loop_steps=16)
+    ref, _ = _run_stream(JEngine(jcfg, jp, jtok, JConfig(**ec)), JRequest,
+                         JParams, jcfg.vocab_size)
+    got, m = _run_stream(TEngine(tcfg, tp, ttok, TConfig(**ec),
+                                 device="cpu"),
+                         TRequest, TParams, tcfg.vocab_size)
+    assert all(len(s) == 10 for s in got)
+    assert got == ref
+    assert m["ragged_dispatches"] > 0
+    assert m["ragged_prefill_tokens"] == 5 + 12 + 33 + 7 + 21 + 3
 
 
 def test_admission_packs_first_chunk_in_the_same_tick(models):
