@@ -1,21 +1,22 @@
 """Device-time breakdown of the port's main path on one NVIDIA card.
 
-    python3 chip_profile.py [bf16|int8]
+    python3 chip_profile.py [bf16|int8] [dense|paged|ragged]
 
 Serves chip_smoke.py's synthetic Llama-3.1-8B through the port's gRPC
 backend in bf16 and then in the int8 recipe (int8 weights + int8 KV), or
-in the one recipe named; each first dense (chip_smoke phase 4's
-configuration and four requests), then paged (phase 5's configuration and
-its first wave of six requests), then ragged through the port's Engine
-in-process (phase 6's configuration and its two waves of eight requests),
-each with chip_smoke's checks; then drives the same requests again with
-fresh prompt ids (no prompt-cache or prefix reuse), first unprofiled, then
-under torch.profiler with CUDA activity. Prints one JSON line per path:
-the unprofiled and profiled wall times, device busy time by kernel class,
-the top kernels, the device's idle share of the profiled window and its
-idle ms per decode step. Kernels run on one stream, so their summed
-device time is the busy time. A one-off study, apart from the pass/fail
-smoke; it imports nothing of JAX or localai_tpu.
+in the recipes named; each first dense (chip_smoke phase 4's
+configuration and four requests), then paged (phase 5's configuration
+and its first wave of six requests), then ragged through the port's
+Engine in-process (phase 6's configuration and its two waves of eight
+requests), or only the paths named, each with chip_smoke's checks; then
+drives the same requests again with fresh prompt ids (no prompt-cache or
+prefix reuse), first unprofiled, then under torch.profiler with CUDA
+activity. Prints one JSON line per path: the unprofiled and profiled
+wall times, device busy time by kernel class, the top kernels, the
+device's idle share of the profiled window and its idle ms per decode
+step. Kernels run on one stream, so their summed device time is the busy
+time. A one-off study, apart from the pass/fail smoke; it imports nothing
+of JAX or localai_tpu.
 """
 from __future__ import annotations
 
@@ -29,7 +30,12 @@ import chip_smoke as smoke
 
 
 def _kernel_class(key: str) -> str:
-    if any(t in key for t in ("decode_", "prefill_", "ragged_kernel")):
+    # ragged attention's kernels: one before the split-KV redesign, its
+    # split pass (tensor-core or SIMT) and combine since
+    if any(t in key for t in ("ragged_kernel", "ragged_tc_kernel",
+                              "ragged_simt_kernel", "ragged_combine_kernel")):
+        return "ragged attention (port kernels)"
+    if any(t in key for t in ("decode_", "prefill_")):
         return "attention (port kernels)"
     if "scatter_rows" in key or "scatter_q8_rows" in key:
         return "kv scatter (port kernel)"
@@ -120,8 +126,14 @@ RECIPES = {
 def main():
     """For each recipe: the dense path (chip_smoke phase 4's configuration
     and four requests), the paged path (phase 5's configuration and its
-    first wave of six requests), then the ragged path (phase 6's)."""
-    recipes = sys.argv[1:] or list(RECIPES)
+    first wave of six requests), then the ragged path (phase 6's); only
+    the recipes and paths named, where any are."""
+    paths = ("dense", "paged", "ragged")
+    recipes = [a for a in sys.argv[1:] if a in RECIPES] or list(RECIPES)
+    chosen = [a for a in sys.argv[1:] if a in paths] or list(paths)
+    bad = [a for a in sys.argv[1:] if a not in RECIPES and a not in paths]
+    if bad:
+        raise SystemExit(f"chip_profile.py: unknown arguments {bad}")
     smoke.phase_device()
     smoke.phase_build()
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
@@ -130,15 +142,18 @@ def main():
             json.dump(dict(smoke.CFG_8B, localai_synthetic=True), f)
         for name in recipes:
             load_kw, dtype, kv = RECIPES[name]
-            smoke.serve_recipe(name, d, load_kw,
-                               then=profile_window(f"{name} dense"))
-            smoke.serve_recipe(name, d, load_kw, phase="phase5",
-                               load_opts=smoke.PAGED_LOAD,
-                               waves=[smoke.PAGED_WAVE1],
-                               then=profile_window(f"{name} paged",
-                                                   smoke.PAGED_WAVE1))
-            smoke.serve_ragged(name, d, dtype, kv,
-                               then=profile_engine(f"{name} ragged"))
+            if "dense" in chosen:
+                smoke.serve_recipe(name, d, load_kw,
+                                   then=profile_window(f"{name} dense"))
+            if "paged" in chosen:
+                smoke.serve_recipe(name, d, load_kw, phase="phase5",
+                                   load_opts=smoke.PAGED_LOAD,
+                                   waves=[smoke.PAGED_WAVE1],
+                                   then=profile_window(f"{name} paged",
+                                                       smoke.PAGED_WAVE1))
+            if "ragged" in chosen:
+                smoke.serve_ragged(name, d, dtype, kv,
+                                   then=profile_engine(f"{name} ragged"))
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@ one NVIDIA card.
 
     python3 chip_rows.py LABEL
 
-Builds the port's kernels and runs chip_smoke.py's checks of rows 1–5, 7–9
-and 11 (PERF.md §6) at the Llama-3.1-8B shapes, each against its plain
+Builds the port's kernels and runs chip_smoke.py's checks of rows 1–11
+(PERF.md §6) at the Llama-3.1-8B shapes, each against its plain
 version with its planted fault, then prints one line `ROWS LABEL {row:
 {ms, ms_cold, ms_host}}` (device ms warm and with a cold L2, and the
 host-inclusive reading). It also prints a `DIVISION` line: how many of
@@ -49,12 +49,16 @@ def main():
             8, H, KVH, D, bf16, lens8, 32, nb=129, cold=True),
         "5 ragged_decode_q8_paged": lambda: smoke.check_paged_decode(
             8, H, KVH, D, bf16, lens8, 32, q8=True, nb=129, cold=True),
+        "6 paged_scatter_append": lambda: smoke.check_paged_scatter(
+            8, KVH, D, bf16),
         "7 paged_scatter_append_q8": lambda: smoke.check_paged_scatter(
             8, KVH, D, bf16, q8=True),
         "8 ragged_paged_attention": lambda: smoke.check_ragged_attention(
             H, KVH, D, bf16, rd, rc, 32, nb=129),
         "9 ragged_paged_attention_q8": lambda: smoke.check_ragged_attention(
             H, KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
+        "10 ragged_scatter_append": lambda: smoke.check_ragged_scatter(
+            KVH, D, bf16, rd, rc, 32, nb=129),
         "11 ragged_scatter_append_q8": lambda: smoke.check_ragged_scatter(
             KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
     }

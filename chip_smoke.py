@@ -23,7 +23,12 @@ and the script exits non-zero:
      call in them (ms_host, library_ms_host: no spin) and the least time
      the card could take (bound_ms). The ragged
      kernels run at phase 6's pack: T=192 rows, eight decode rows plus a
-     128-row prefill chunk, over the 129-block pool. Then the wider
+     128-row prefill chunk, over the 129-block pool; then the packs that
+     exercise its split-KV work split (one 4095-token decode row, a 256-row
+     chunk at offset 3840, dead q blocks, kv lengths at a span boundary and
+     at MAXB*128, a window starting inside a span, G=16, head_dim 256 and
+     512), each also against a dropped-split fault (line `phase2 ragged
+     packs`). Then the wider
      geometries, each with its planted fault: ragged attention and paged
      decode at Qwen2-7B's H=28, KVH=4 (GQA group 7), dense decode at G=16
      (H=128, KVH=8), prefill at head_dim 256.
@@ -661,23 +666,40 @@ RAGGED_DECODE = [33, 49, 332, 732, 1532, 672, 712, 4095]
 RAGGED_CHUNK = (1024, 128)
 
 
-def _ragged_pack(decode_lens, chunk, maxb, nb, KVH, D, seed=0):
-    """A flat stream: one decode row (its own 8-row q block) per entry of
-    decode_lens at that kv length, then the (offset, rows) prefill chunk.
+def _ragged_seqs(decode_lens, chunk):
+    """(kvlen, qlen) of each sequence of the pack: one decode row per entry
+    of decode_lens at that kv length, then the (offset, rows) prefill chunk
+    (none for chunk=None)."""
+    seqs = [(n, 1) for n in decode_lens]
+    if chunk is not None:
+        seqs.append((chunk[0] + chunk[1], chunk[1]))
+    return seqs
+
+
+def _ragged_pack(decode_lens, chunk, maxb, nb, KVH, D, seed=0, seqs=None):
+    """A flat stream of the sequences `seqs` — (kvlen, qlen) each, or None
+    for a dead q block (block_seq -1) at that place — in stream order, each
+    from an 8-aligned row (by default _ragged_seqs(decode_lens, chunk)).
     Pools and a shuffled table as _paged_pools makes them. Returns (k, v,
     meta dict of int32 CUDA tensors, live rows, kvlens, nb)."""
     import torch
 
-    off, n = chunk
-    kvlens = list(decode_lens) + [off + n]
-    qlens = [1] * len(decode_lens) + [n]
+    if seqs is None:
+        seqs = _ragged_seqs(decode_lens, chunk)
+    kvlens = [x[0] for x in seqs if x is not None]
     k, v, table, nb = _paged_pools(len(kvlens), KVH, D, kvlens, maxb,
                                    seed=seed, nb=nb)
-    block_seq, qstart, live, row = [], [], [], 0
-    for s, ql in enumerate(qlens):
+    block_seq, qstart, qlens, live, row = [], [], [], [], 0
+    for x in seqs:
+        if x is None:
+            block_seq.append(-1)
+            row += 8
+            continue
+        ql = x[1]
+        block_seq += [len(qstart)] * -(-ql // 8)
         qstart.append(row)
+        qlens.append(ql)
         live += list(range(row, row + ql))
-        block_seq += [s] * -(-ql // 8)
         row += -(-ql // 8) * 8
 
     def i32(x):
@@ -689,22 +711,31 @@ def _ragged_pack(decode_lens, chunk, maxb, nb, KVH, D, seed=0):
 
 
 def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
-                           q8=False, window=None, nb=0):
-    """Ragged paged attention (kernels 8 and 9) against its plain version
-    on the live rows of the pack (padding rows are garbage by contract).
-    Plants a fault — the plain version reading the identity map (blocks
-    1..maxb for every sequence) instead of the table — that the tolerance
-    must reject."""
+                           q8=False, window=None, nb=0, seqs=None,
+                           cold=False):
+    """Ragged paged attention (kernels 8 and 9, split-KV) against its plain
+    version on the live rows of the pack (padding rows are garbage by
+    contract; the kernel writes 0 there, which is checked too). Plants two
+    faults that the tolerance must reject: the plain version reading the
+    identity map (blocks 1..maxb for every sequence) instead of the table,
+    and the plain version with each sequence's kvlen cut back to the start
+    of its last span (a dropped split). Reports the spans, the tiling the
+    .cu launches with, and the CUDA launches of one call (the split pass
+    and the combine)."""
     import torch
 
     from localai_tpu_torch.ops.kernels import (
-        ragged_paged_attention, ragged_paged_attention_plain,
-        ragged_paged_attention_q8, ragged_paged_attention_q8_plain,
+        _build, launch_counts, ragged_paged_attention,
+        ragged_paged_attention_plain, ragged_paged_attention_q8,
+        ragged_paged_attention_q8_plain, ragged_split, ragged_tiling,
     )
+    from localai_tpu_torch.ops.kernels.flash_attention import _DTYPE_CODE
     from localai_tpu_torch.ops.kvcache import quantize_tokens
 
-    k, v, meta, live, kvlens, nb = _ragged_pack(decode_lens, chunk, maxb,
-                                                nb, KVH, D, seed=4)
+    if seqs is None:
+        seqs = _ragged_seqs(decode_lens, chunk)
+    k, v, meta, live, kvlens, nb = _ragged_pack(None, None, maxb, nb, KVH,
+                                                D, seed=4, seqs=seqs)
     T = int(meta["block_seq"].shape[0]) * 8
     g = torch.Generator(device="cuda").manual_seed(5)
     q = torch.randn(T, H, D, device="cuda", generator=g).to(dtype)
@@ -722,21 +753,45 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
                         sliding_window=window)
     plain = lambda: plain_fn(q, *pools, **meta,  # noqa: E731
                              sliding_window=window)
+    kname = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    before = launch_counts()[kname]
     out = fn()
     torch.cuda.synchronize()
+    if launch_counts()[kname] != before + 1:
+        raise AssertionError(f"{kname}: one call did not count one launch")
     ref = plain()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nsplit, split = ragged_split(T, maxb, KVH, sms)
     n_seq = len(kvlens)
     ident = (torch.arange(maxb, dtype=torch.int32, device="cuda")
              + 1).expand(n_seq, maxb).contiguous()
     fault = plain_fn(q, *pools, **dict(meta, tables=ident),
                      sliding_window=window)
+    dropped = plain_fn(q, *pools, **dict(
+        meta, kvlen=((meta["kvlen"] - 1) // split * split).to(torch.int32)),
+        sliding_window=window)
     rows = torch.tensor(live, device="cuda")
-    kname = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    dead = sorted(set(range(T)) - set(live))
+    if dead and bool(out[torch.tensor(dead, device="cuda")].float().abs()
+                     .max() != 0):
+        raise AssertionError(f"{kname}: a row outside every span is not 0")
+    desc = ",".join("dead" if x is None else f"{x[0]}/{x[1]}" for x in seqs)
     name = (f"{kname} {str(dtype).split('.')[-1]} T={T} MAXB={maxb} NB={nb} "
-            f"H={H} KVH={KVH} D={D} decode={decode_lens} chunk={chunk} "
-            f"window={window}")
-    res = _check_close(name, out[rows], ref[rows],
-                       TOL[str(dtype).split(".")[-1]], fault=fault[rows])
+            f"H={H} KVH={KVH} D={D} kvlen/qlen=[{desc}] window={window}")
+    tol = TOL[str(dtype).split(".")[-1]]
+    res = _check_close(name, out[rows], ref[rows], tol, fault=fault[rows])
+    res["planted_fault_dropped_split_err"] = _check_close(
+        name + " (dropped split)", out[rows], ref[rows], tol,
+        fault=dropped[rows])["planted_fault_err"]
+    tc = dtype == torch.bfloat16 and D <= 256
+    tiling = _build.load("ragged_attention").ragged_attention_tiling(
+        _DTYPE_CODE[dtype], H // KVH, D)
+    if (tiling >> 16, tiling & 0xFFFF) != ragged_tiling(H // KVH, D, tc):
+        raise AssertionError(f"{kname}: the .cu's tiling {tiling} is not "
+                             f"ragged_tiling's")
+    res.update(nsplit=nsplit, split=split, gc=tiling >> 16,
+               qt=tiling & 0xFFFF, route="tensor cores" if tc else "SIMT",
+               launches=1, cuda_launches=2)
     # the work this pack needs: each live row attends to keys up to its
     # position (within the window); each sequence's K/V below its length
     # (from its first live row's window start) is read once, with q and
@@ -744,8 +799,7 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
     es = q.element_size()
     kv_es = 1 if q8 else es
     pairs, kv_read, entries = 0, 0, 0
-    qlens = [1] * len(decode_lens) + [chunk[1]]
-    for kvl, ql in zip(kvlens, qlens):
+    for kvl, ql in (x for x in seqs if x is not None):
         first = kvl - ql
         lo = max(first - window + 1, 0) if window else 0
         kv_read += kvl - lo
@@ -767,6 +821,8 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
                library_ms=None, library_ms_host=None,
                library_note="no single PyTorch call attends a flat stream "
                             "through block tables")
+    if cold:
+        res["ms_cold"] = _time_ms(fn, cold=True)
     log(name + " " + json.dumps(res))
     return res
 
@@ -872,6 +928,65 @@ def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
     return res
 
 
+def ragged_packs(H, KVH, D):
+    """Split-KV ragged attention (rows 8 and 9) at the packs that exercise
+    its work split, each against the plain version with both planted
+    faults, timed warm, cold and with the host's cost: one 4095-token
+    decode row; one 256-row chunk at offset 3840 (kvlen = MAXB*128); dead
+    q blocks between live sequences; kv lengths exactly at a span boundary
+    and at MAXB*128; phase 6's pack with a window whose start falls inside
+    a span; G = 16 (H=128, KVH=8); then head_dim 256 and 512 on a small
+    pack (f32 and bf16; 512 takes the SIMT variant)."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import ragged_split
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def split_of(seqs, maxb=32):
+        rows = sum(8 if x is None else -(-x[1] // 8) * 8 for x in seqs)
+        return ragged_split(rows, maxb, KVH, sms)[1]
+
+    main_seqs = _ragged_seqs(RAGGED_DECODE, RAGGED_CHUNK)
+    bnd = [(1, 1), (1, 1), (4096, 1), (1, 1), (4096, 64)]
+    sp = split_of(bnd)
+    bnd[0], bnd[1], bnd[3] = (sp, 1), (sp + 1, 1), (2 * sp, 1)
+    packs = {
+        "one 4095-token decode row": dict(seqs=[(4095, 1)]),
+        "256-row chunk at offset 3840": dict(seqs=[(4096, 256)]),
+        "dead q blocks between live ones": dict(
+            seqs=[(700, 1), None, (1500, 1), None, (1152, 128), None]),
+        f"kvlen at the span boundary {sp} and at 4096": dict(seqs=bnd),
+        "phase 6 pack, window start inside a span": dict(
+            seqs=main_seqs, window=split_of(main_seqs) + 7),
+        "phase 6 pack, G=16 (H=128, KVH=8)": dict(seqs=main_seqs, H=128),
+    }
+    summary = {}
+    for label, kw in packs.items():
+        h = kw.pop("H", H)
+        for q8 in (False, True):
+            r = check_ragged_attention(h, KVH, D, bf16, None, None, 32,
+                                       q8=q8, nb=129, cold=True, **kw)
+            summary[label + (" int8" if q8 else " bf16")] = {
+                f: r.get(f) for f in (
+                    "ms", "ms_cold", "ms_host", "bound_ms", "plain_ms",
+                    "launches", "cuda_launches", "nsplit", "split", "gc",
+                    "qt", "max_abs_err", "planted_fault_err",
+                    "planted_fault_dropped_split_err")}
+    small = [(5, 1), (200, 1), (300, 1), (136, 40)]
+    for d in (256, 512):
+        for dt in (f32, bf16):
+            r = check_ragged_attention(8, 2, d, dt, None, None, 4,
+                                       seqs=small, window=100)
+            summary[f"small pack D={d} {str(dt).split('.')[-1]}"] = {
+                f: r.get(f) for f in ("ms", "bound_ms", "route", "nsplit",
+                                      "split", "max_abs_err",
+                                      "planted_fault_err",
+                                      "planted_fault_dropped_split_err")}
+    log("phase2 ragged packs " + json.dumps(summary))
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes
     (plus small f32 / GQA / window cases for the algorithm)."""
@@ -938,9 +1053,9 @@ def phase_kernels():
     # 32); extra: f32 at the same pack, a small sliding-window stream
     rd, rc = RAGGED_DECODE, RAGGED_CHUNK
     main["ragged_paged_attention"] = check_ragged_attention(
-        H, KVH, D, bf16, rd, rc, 32, nb=129)
+        H, KVH, D, bf16, rd, rc, 32, nb=129, cold=True)
     main["ragged_paged_attention_q8"] = check_ragged_attention(
-        H, KVH, D, bf16, rd, rc, 32, q8=True, nb=129)
+        H, KVH, D, bf16, rd, rc, 32, q8=True, nb=129, cold=True)
     check_ragged_attention(H, KVH, D, f32, rd, rc, 32, nb=129)
     check_ragged_attention(8, 2, 64, f32, [5, 200, 300], (96, 40), 4,
                            window=64)
@@ -973,6 +1088,7 @@ def phase_kernels():
         "flash_prefill f32 H=8 KVH=2 D=256": check_prefill(
             2, 96, 8, 2, 256, f32, [96, 50]),
     }
+    ragged_packs(H, KVH, D)
     log("phase2 wide geometry " + json.dumps({
         k: {f: r.get(f) for f in ("max_abs_err", "planted_fault_err", "ms",
                                   "ms_host", "bound_ms", "bound_by",
@@ -1727,9 +1843,9 @@ def phase_ragged_path(smi):
     layers) in the port's Engine with ragged continuous batching, bf16 then
     the int8 recipe; then the same run on a synthetic checkpoint of
     Qwen2-7B's widths (28 layers, GQA group 7), whose ragged attention
-    takes two head groups a KV head. The launch counts are zeroed just
-    before each recipe's requests and read just after; returns the Llama
-    run's sums."""
+    takes a KV head's 7 query heads in one block. The launch counts are
+    zeroed just before each recipe's requests and read just after; returns
+    the Llama run's sums."""
     total = _serve_ragged_model(CFG_8B, "phase6", smi)
     _serve_ragged_model(CFG_QWEN2_7B, "phase6 qwen2-7b", smi)
     return total

@@ -28,6 +28,7 @@ from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
 )
 from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
     QBLK,
+    RAGGED_TILE,
     ragged_paged_attention,
     ragged_paged_attention_plain,
     ragged_paged_attention_q8,
@@ -36,6 +37,8 @@ from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
     ragged_scatter_append_plain,
     ragged_scatter_append_q8,
     ragged_scatter_append_q8_plain,
+    ragged_split,
+    ragged_tiling,
 )
 
 _COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES, _ra.LAUNCHES)

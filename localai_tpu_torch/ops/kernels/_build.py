@@ -58,10 +58,12 @@ SIGNATURES = {
     },
     "ragged_attention": {
         "ragged_attention_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _F, _P],
+                                    _I, _I, _I, _I, _I, _I, _F, _P, _I, _I,
+                                    _P],
         "ragged_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _F, _P],
+                                       _F, _P, _I, _I, _P],
+        "ragged_attention_tiling": [_I, _I, _I],
     },
 }
 

@@ -29,6 +29,15 @@ Four wrappers, each beside its plain version with the same signature:
   quantizing kernel (csrc/paged_scatter.cu) quantizes each row per token
   and writes the int8 rows and their scales in one launch.
 
+On the card ragged attention is split-KV (csrc/ragged_attention.cu): a
+split pass gives each (q tile, KV head, span of `split` tokens) its own
+block, where a q tile is up to QT consecutive q blocks of one sequence (a
+prefill chunk's K/V tile is read once for all of them, a decode row's q
+block is its own tile) and the spans come from `ragged_split`, from shapes
+alone; a combine pass merges each row's spans. bf16 q runs on the tensor
+cores up to head_dim 256, f32 q and wider bf16 heads on a SIMT variant of
+the same pass (`ragged_tiling` gives both tilings).
+
 The plain attention versions gather only the table-mapped blocks of each q
 block ([NQB, KVH, MAXB*128, D], never the whole pool) and run one masked
 softmax, the reference's ragged_attention_xla structure, with the kernel's
@@ -42,13 +51,15 @@ tensor-parallel `*_sharded` wrappers wait for their slices and raise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kernels import _build
 from localai_tpu_torch.ops.kernels.flash_attention import (
-    _DTYPE_CODE, _check_cuda, _raise_rc, _stream, _window,
+    _DTYPE_CODE, _check_cuda, _raise_rc, _sm_count, _stream, _window,
 )
 from localai_tpu_torch.ops.kernels.paged_scatter import (
     launch_rows, launch_rows_q8, paged_scatter_append_plain,
@@ -58,13 +69,61 @@ from localai_tpu_torch.ops.paged import BLOCK
 
 QBLK = 8   # q rows per block; every sequence's rows start on a boundary
 
-# The kernel's one limit (csrc/ragged_attention.cu). A block takes QBLK rows
-# of at most 512 // D of a KV head's query heads, so any GQA group size
-# fits, and its shared memory no longer grows with the group: head_dim is
-# what binds, QBLK*D outputs of one head over 256 threads, 16 each. At D =
-# 512 a block's shared memory (f32 q rows, two 32-token K/V tiles, scores)
-# is 149,120 bytes of the 232,448 it may use.
+# The kernels' one limit (csrc/ragged_attention.cu): bf16 q up to head_dim
+# 256 runs on the tensor cores (a warp's 16 rows hold a 16 x D f32
+# accumulator); above that, and for f32 q, the SIMT variant holds 4096 / D
+# compact rows a block, 16 outputs of 256 threads: 8 rows (one q block of
+# one head) at D = 512. Any GQA group size fits either way.
 RAGGED_MAX_HEAD_DIM = 512
+RAGGED_TILE = 32   # tokens per K/V tile of the split pass (BK in the .cu)
+RAGGED_TC_ROWS = 128   # compact (token, head) rows of a tensor-core block
+# Rows times spans of the partials' workspace at most: 68 MB of f32
+# partials at H=32, D=128
+RAGGED_PARTIAL_ROWS = 4096
+
+
+def ragged_tiling(G: int, D: int, tensor_cores: bool) -> tuple[int, int]:
+    """(GC, QT) of the split pass (`tiling` in the .cu, which
+    ragged_attention_tiling reports): a block holds GC of a KV head's G
+    query heads for the live rows of QT consecutive q blocks of one
+    sequence, at most 128 compact rows on the tensor cores and 4096 // D
+    (at least QBLK) in the SIMT variant."""
+    rows = RAGGED_TC_ROWS if tensor_cores else max(4096 // D, QBLK)
+    gc = min(G, max(1, rows // QBLK))
+    return gc, max(1, rows // (QBLK * gc))
+
+
+@functools.lru_cache(maxsize=None)
+def ragged_split(T: int, maxb: int, rows: int, sms: int) -> tuple[int, int]:
+    """(nsplit, split) of split-KV ragged attention over a T-row stream
+    whose sequences attend through MAXB-block tables (MAXB*128 tokens), for
+    rows = KVH KV heads on a card with `sms` SMs. A span is at most 8
+    tiles (a block walks it in sequence) and at least 2 (a block keeps two
+    in flight); between those, about 2 blocks per SM if every q block were
+    a full-length sequence — most are shorter, and a block past its tile's
+    keys exits at once. T * nsplit stays within RAGGED_PARTIAL_ROWS (the
+    workspace holds T*H*nsplit partials), which lengthens the spans of a
+    long table under a long stream. Shapes only, never kvlen, so a tick
+    needs no device sync (and each shape is computed once). nsplit *
+    split >= MAXB*128 > (nsplit - 1) * split."""
+    tokens = maxb * BLOCK
+    tiles = -(-tokens // RAGGED_TILE)
+    blocks = max(T // QBLK, 1) * rows
+    want = min(max(1, -(-2 * sms // blocks)), -(-tiles // 2))
+    want = max(want, -(-tiles // 8))
+    want = min(want, max(1, RAGGED_PARTIAL_ROWS // T))
+    split = -(-tiles // want) * RAGGED_TILE
+    return -(-tokens // split), split
+
+
+def _ragged_workspace(t, h, kvh, d, maxb, device):
+    """(nsplit, split, workspace) of one call: ragged_split's spans and the
+    f32 partials [T*H*nsplit*(D+2)] they write."""
+    nsplit, split = ragged_split(t, maxb, kvh, _sm_count(device))
+    ws = torch.empty(t * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=device)
+    return nsplit, split, ws
+
 
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0,
             "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0}
@@ -187,7 +246,8 @@ def _attn_checks(name, q, pool_shape, tables):
     if d % 16 or not 0 < d <= RAGGED_MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {d} must be a multiple of 16 "
                          f"and at most {RAGGED_MAX_HEAD_DIM} (QBLK*head_dim "
-                         f"outputs of one head over a block's 256 threads)")
+                         f"outputs of one head over a SIMT block's 256 "
+                         f"threads)")
     return t, h, kvh, d, tables.shape[1]
 
 
@@ -213,12 +273,13 @@ def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
                 (None, q.dtype, q.dtype))
     meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
     out = torch.empty_like(q)
+    nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
     lib = _build.load("ragged_attention")
     rc = lib.ragged_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), *(m.data_ptr() for m in meta), out.data_ptr(), t,
-        h, kvh, maxb, d, _window(sliding_window), d ** -0.5,
-        _stream(q.device))
+        h, kvh, maxb, d, _window(sliding_window), d ** -0.5, ws.data_ptr(),
+        nsplit, split, _stream(q.device))
     _raise_rc("ragged_paged_attention", rc)
     LAUNCHES["ragged_paged_attention"] += 1
     return out
@@ -248,12 +309,13 @@ def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
                 (None, torch.int8, torch.float32, torch.int8, torch.float32))
     meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
     out = torch.empty_like(q)
+    nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
     lib = _build.load("ragged_attention")
     rc = lib.ragged_attention_q8_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
         v_q.data_ptr(), v_s.data_ptr(), *(m.data_ptr() for m in meta),
         out.data_ptr(), t, h, kvh, maxb, d, _window(sliding_window),
-        d ** -0.5, _stream(q.device))
+        d ** -0.5, ws.data_ptr(), nsplit, split, _stream(q.device))
     _raise_rc("ragged_paged_attention_q8", rc)
     LAUNCHES["ragged_paged_attention_q8"] += 1
     return out

@@ -919,3 +919,329 @@ def test_cuda_paged_scatter_q8_fused_bit_exact(cuda, dtype, monkeypatch):
     assert pools[1][pb, 0, 0, off].item() == 1.0
     assert pools[0][pb, 0, off, :8].tolist() == [127, -4, 0, 0, 2, -2, 126,
                                                  -126]
+
+
+# ------------------------------------ split-KV ragged attention (kernels 8/9)
+
+@pytest.mark.parametrize("T", [8, 192, 1024])
+@pytest.mark.parametrize("maxb", [1, 4, 32])
+@pytest.mark.parametrize("rows", [1, 4, 8])
+def test_ragged_split_from_shapes(T, maxb, rows):
+    """Split-KV ragged attention's spans: whole 32-token tiles, at least two
+    where the table holds two, covering MAXB*128 tokens; nothing but shapes
+    as input (kvlen would cost a device sync every tick); the same answer
+    every time."""
+    import inspect
+
+    assert list(inspect.signature(tk.ragged_split).parameters) == [
+        "T", "maxb", "rows", "sms"]
+    nsplit, split = tk.ragged_split(T, maxb, rows, 132)
+    tokens = maxb * 128
+    assert split > 0 and split % tk.RAGGED_TILE == 0
+    assert nsplit * split >= tokens > (nsplit - 1) * split
+    assert split >= 2 * tk.RAGGED_TILE
+    assert T * nsplit <= 4096 or nsplit == 1  # the workspace stays bounded
+    # one decode row's KV heads spread over many SMs
+    if T == 8 and maxb == 32:
+        assert nsplit * rows >= 64
+    assert tk.ragged_split(T, maxb, rows, 132) == (nsplit, split)
+
+
+def test_ragged_split_computed_once_per_shape():
+    """A ragged tick calls the wrapper once per layer with the same shapes:
+    ragged_split computes each shape once."""
+    tk.ragged_split.cache_clear()
+    first = tk.ragged_split(192, 32, 8, 132)
+    for _ in range(31):
+        assert tk.ragged_split(192, 32, 8, 132) == first
+    info = tk.ragged_split.cache_info()
+    assert (info.misses, info.hits) == (1, 31)
+
+
+@pytest.mark.parametrize("G,D,tc,want", [
+    (4, 128, True, (4, 4)), (7, 128, True, (7, 2)), (16, 128, True, (16, 1)),
+    (32, 128, True, (16, 1)), (1, 16, True, (1, 16)),
+    (4, 128, False, (4, 1)), (1, 128, False, (1, 4)),
+    (16, 512, False, (1, 1)), (4, 256, False, (2, 1))])
+def test_ragged_tiling(G, D, tc, want):
+    """(GC, QT): a block's compact rows, QT q blocks of GC heads, fit its
+    capacity (128 on the tensor cores, 4096 // D in the SIMT variant), and
+    every head of a group of up to 16 shares a tensor-core block."""
+    gc, qt = tk.ragged_tiling(G, D, tc)
+    assert (gc, qt) == want
+    cap = 128 if tc else max(4096 // D, 8)
+    assert qt * 8 * gc <= cap
+
+
+def _split_pack(seed, H, KVH, D, seqs, NB=None):
+    """A flat stream over a shuffled pool. `seqs`: (kvlen, qlen) of each
+    sequence in stream order, or None for a dead q block there. Returns (q,
+    k, v, meta of torch int32 tensors, live rows)."""
+    r = _rng(seed)
+    live_seqs = [x for x in seqs if x is not None]
+    need = sum(-(-n // 128) for n, _ in live_seqs)
+    NB = NB or need + 2
+    k = torch.tensor(r.standard_normal((NB, KVH, 128, D)), dtype=torch.float32)
+    v = torch.tensor(r.standard_normal((NB, KVH, 128, D)), dtype=torch.float32)
+    perm = r.permutation(np.arange(1, NB))
+    maxb = max(-(-n // 128) for n, _ in live_seqs)
+    tables = np.zeros((len(live_seqs), maxb), np.int32)
+    block_seq, qstart, qlens, kvlens, live = [], [], [], [], []
+    used = row = 0
+    for x in seqs:
+        if x is None:
+            block_seq.append(-1)
+            row += 8
+            continue
+        n, ql = x
+        s = len(qstart)
+        nb = -(-n // 128)
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+        qstart.append(row)
+        qlens.append(ql)
+        kvlens.append(n)
+        live += list(range(row, row + ql))
+        block_seq += [s] * -(-ql // 8)
+        row += -(-ql // 8) * 8
+    q = torch.tensor(r.standard_normal((row, H, D)), dtype=torch.float32)
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32)  # noqa
+    meta = dict(block_seq=i32(block_seq), qstart=i32(qstart),
+                qlen=i32(qlens), kvlen=i32(kvlens), tables=i32(tables))
+    return q, k, v, meta, live
+
+
+def _split_model(q, kf, vf, ks, vs, meta, window, tensor_cores):
+    """A PyTorch model of the kernel's work split: q tiles by leader (the q
+    block whose offset from its sequence's first block is a multiple of
+    QT), GC heads a block, spans of ragged_split; a span the tile's keys do
+    not reach writes nothing, a row the span hides wholly gets (NEG_INF,
+    0, 0); the combine merges each row's own splits. kf/vf [NB, KVH, 128,
+    D] f32 pools, ks/vs [NB, KVH, 128] scales or None."""
+    from localai_tpu_torch.ops.attention import NEG_INF
+
+    T, H, D = q.shape
+    KVH = kf.shape[1]
+    G = H // KVH
+    bseq, qst, qln, kvl, tab = (meta[n].tolist() for n in (
+        "block_seq", "qstart", "qlen", "kvlen", "tables"))
+    maxb = len(tab[0])
+    nsplit, split = tk.ragged_split(T, maxb, KVH, 132)
+    gc, qt = tk.ragged_tiling(G, D, tensor_cores)
+    m = torch.full((T, H, nsplit), NEG_INF)
+    l = torch.zeros(T, H, nsplit)
+    acc = torch.zeros(T, H, nsplit, D)
+    written = torch.zeros(T, H, nsplit, dtype=torch.bool)
+    qf = q.float() * D ** -0.5
+    for qb in range(T // 8):
+        s = bseq[qb]
+        if s < 0:
+            continue
+        qs, ql, kl = qst[s], qln[s], kvl[s]
+        fb = qs // 8
+        if qb < fb or (qb - fb) % qt:
+            continue
+        nqb = min(qt, -(-(qs + ql) // 8) - qb)
+        row0 = qb * 8
+        t_lo, t_hi = max(qs - row0, 0), min(qs + ql - row0, nqb * 8)
+        if t_hi <= t_lo:
+            continue
+        qpos0 = kl - ql + row0 - qs
+        tend = min(kl, qpos0 + t_hi, maxb * 128)
+        tbeg = max(qpos0 + t_lo - window + 1, 0) if window else 0
+        rows = torch.arange(row0 + t_lo, row0 + t_hi)
+        qpos = qpos0 + torch.arange(t_lo, t_hi)
+        blocks = torch.tensor(tab[s]).long()
+        kseq = kf[blocks].permute(1, 0, 2, 3).reshape(KVH, -1, D)
+        vseq = vf[blocks].permute(1, 0, 2, 3).reshape(KVH, -1, D)
+        if ks is not None:
+            kss = ks[blocks].permute(1, 0, 2).reshape(KVH, -1)
+            vss = vs[blocks].permute(1, 0, 2).reshape(KVH, -1)
+        for y in range(KVH * -(-G // gc)):
+            kh, g0 = divmod(y, -(-G // gc))
+            heads = kh * G + g0 * gc + torch.arange(min(gc, G - g0 * gc))
+            for sp in range(nsplit):
+                lo = sp * split
+                hi = min(lo + split, tend)
+                if hi <= lo or lo + split <= tbeg:
+                    continue
+                kpos = torch.arange(lo, hi)
+                sc = torch.einsum("thd,kd->thk", qf[rows][:, heads],
+                                  kseq[kh, lo:hi])
+                if ks is not None:
+                    sc = sc * kss[kh, lo:hi]
+                mask = kpos[None, :] <= qpos[:, None]
+                if window:
+                    mask &= kpos[None, :] > qpos[:, None] - window
+                mask = mask[:, None, :]
+                sc = torch.where(mask, sc, NEG_INF)
+                mx = sc.amax(-1)
+                p = torch.where(mask, torch.exp(sc - mx[..., None]), 0.0)
+                pv = p * vss[kh, lo:hi] if ks is not None else p
+                ri, hi_ = rows[:, None], heads[None, :]
+                m[ri, hi_, sp] = mx
+                l[ri, hi_, sp] = p.sum(-1)
+                acc[ri, hi_, sp] = torch.einsum("thk,kd->thd", pv,
+                                                vseq[kh, lo:hi])
+                written[ri, hi_, sp] = True
+    out = torch.zeros(T, H, D)
+    for t in range(T):
+        s = bseq[t // 8]
+        if s < 0 or not qst[s] <= t < qst[s] + qln[s]:
+            continue
+        qpos = kvl[s] - qln[s] + t - qst[s]
+        end = min(qpos + 1, maxb * 128)
+        beg = max(qpos - window + 1, 0) if window else 0
+        first, last = beg // split, min(nsplit, -(-end // split))
+        if last <= first:
+            continue  # no key: the combine writes 0
+        assert bool(written[t, :, first:last].all())  # only written partials
+        mi = m[t, :, first:last]
+        w = torch.exp(mi - mi.amax(-1, keepdim=True))
+        den = torch.clamp_min((w * l[t, :, first:last]).sum(-1), 1e-30)
+        out[t] = (w[..., None] * acc[t, :, first:last]).sum(1) / den[:, None]
+    return out
+
+
+# (kvlen, qlen) packs: decode rows at and beside the split boundary (64
+# here: T=48..72 rows, MAXB 4, 2 KV heads) and at MAXB*128 = 512, prefill
+# chunks across q tiles, and dead q blocks between live sequences
+SPLIT_PACKS = {
+    "boundaries": [(64, 1), (65, 1), (512, 1), (128, 1), (300, 40)],
+    "dead-between": [(200, 1), None, (448, 30), None, (33, 1)],
+    "chunk-at-end": [(512, 57), (1, 1)],
+}
+
+
+@pytest.mark.parametrize("pack", sorted(SPLIT_PACKS))
+@pytest.mark.parametrize("H,KVH", [(8, 2), (14, 2), (32, 2)],
+                         ids=["G4", "G7", "G16"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("tc", [True, False], ids=["tc", "simt"])
+def test_ragged_split_model_vs_plain(pack, H, KVH, window, tc):
+    """The kernel's work split (q tiles by leader, spans by ragged_split,
+    empty spans, the combine) gives the plain version's live rows within
+    f32 2e-5, at G = 4, 7 and 16, with a window whose start falls inside a
+    span, dead blocks, and lengths at the span and table boundaries."""
+    q, k, v, meta, live = _split_pack(40, H, KVH, 16, SPLIT_PACKS[pack])
+    T = q.shape[0]
+    _, split = tk.ragged_split(T, meta["tables"].shape[1], KVH, 132)
+    assert split == 64
+    out = _split_model(q, k, v, None, None, meta, window, tc)
+    ref = tk.ragged_paged_attention_plain(q, k, v, **meta,
+                                          sliding_window=window)
+    np.testing.assert_allclose(out[live].numpy(), ref[live].numpy(), **F32)
+
+
+@pytest.mark.parametrize("H,KVH", [(8, 2), (14, 2), (32, 2)],
+                         ids=["G4", "G7", "G16"])
+@pytest.mark.parametrize("window", [None, 100])
+def test_ragged_split_model_vs_plain_q8(H, KVH, window):
+    """The same split over int8 pools: the K scale on the score columns, the
+    V scale on p, l summing the unscaled p."""
+    q, k, v, meta, live = _split_pack(41, H, KVH, 16,
+                                      SPLIT_PACKS["dead-between"])
+    NB = k.shape[0]
+    kq, ks = _q8(k.reshape(1, -1, 128, 16).numpy())
+    vq, vs = _q8(v.reshape(1, -1, 128, 16).numpy())
+    kq, vq = kq.reshape(NB, KVH, 128, 16), vq.reshape(NB, KVH, 128, 16)
+    ks, vs = ks.reshape(NB, KVH, 1, 128), vs.reshape(NB, KVH, 1, 128)
+    out = _split_model(q, kq.float(), vq.float(), ks[:, :, 0], vs[:, :, 0],
+                       meta, window, True)
+    ref = tk.ragged_paged_attention_q8_plain(q, kq, ks, vq, vs, **meta,
+                                             sliding_window=window)
+    np.testing.assert_allclose(out[live].numpy(), ref[live].numpy(), **F32)
+
+
+def test_ragged_split_model_rejects_a_dropped_split():
+    """The bar has teeth: the model with each sequence's last split dropped
+    (kvlen cut back to that split's start) misses the plain version."""
+    q, k, v, meta, live = _split_pack(42, 8, 2, 16, SPLIT_PACKS["boundaries"])
+    ref = tk.ragged_paged_attention_plain(q, k, v, **meta)
+    cut = dict(meta, kvlen=(meta["kvlen"] - 1) // 64 * 64)
+    bad = _split_model(q, k, v, None, None, cut, None, True)
+    err = (bad[live] - ref[live]).abs().max().item()
+    assert err > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", sorted(SPLIT_PACKS))
+@pytest.mark.parametrize("dtype,q8", [("bfloat16", False), ("bfloat16", True),
+                                      ("float32", False), ("float32", True)])
+@pytest.mark.parametrize("H,KVH,D", [(8, 2, 128), (14, 2, 128),
+                                     (32, 2, 128), (8, 2, 16)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_ragged_split_vs_plain(cuda, pack, dtype, q8, H, KVH, D,
+                                    window):
+    """Kernels 8/9, split-KV, at the model's packs: G = 4, 7, 16 on the
+    tensor cores (bf16) and the SIMT variant (f32), int8 pools, windows,
+    dead blocks, span and table boundaries; one count a call."""
+    td = getattr(torch, dtype)
+    q, k, v, meta, live = _split_pack(43, H, KVH, D, SPLIT_PACKS[pack])
+    qd = q.to(cuda, td)
+    m = {n: t.to(cuda) for n, t in meta.items()}
+    name = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    before = tk.launch_counts()[name]
+    if q8:
+        NB = k.shape[0]
+        kq, ks = _q8(k.reshape(1, -1, 128, D).numpy())
+        vq, vs = _q8(v.reshape(1, -1, 128, D).numpy())
+        args = [kq.reshape(NB, KVH, 128, D).to(cuda),
+                ks.reshape(NB, KVH, 1, 128).to(cuda),
+                vq.reshape(NB, KVH, 128, D).to(cuda),
+                vs.reshape(NB, KVH, 1, 128).to(cuda)]
+        out = tk.ragged_paged_attention_q8(qd, *args, **m,
+                                           sliding_window=window)
+        torch.cuda.synchronize()
+        ref = tk.ragged_paged_attention_q8_plain(qd, *args, **m,
+                                                 sliding_window=window)
+    else:
+        kv = [k.to(cuda, td), v.to(cuda, td)]
+        out = tk.ragged_paged_attention(qd, *kv, **m, sliding_window=window)
+        torch.cuda.synchronize()
+        ref = tk.ragged_paged_attention_plain(qd, *kv, **m,
+                                              sliding_window=window)
+    assert tk.launch_counts()[name] == before + 1
+    o = out.float().cpu()
+    assert bool(torch.isfinite(o).all())
+    dead = sorted(set(range(q.shape[0])) - set(live))
+    assert not o[dead].any()  # rows outside a span and dead blocks are 0
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(o.numpy()[live],
+                               ref.float().cpu().numpy()[live], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [256, 512])
+def test_cuda_ragged_split_wide_head_dim(cuda, dtype, D):
+    """head_dim 256 (bf16 on the tensor cores' wide instantiation, f32 on
+    SIMT) and 512 (the SIMT variant for both), decode rows beside a chunk,
+    with a window."""
+    td = getattr(torch, dtype)
+    q, k, v, meta, live = _split_pack(44, 8, 2, D,
+                                      SPLIT_PACKS["boundaries"])
+    qd = q.to(cuda, td)
+    m = {n: t.to(cuda) for n, t in meta.items()}
+    kv = [k.to(cuda, td), v.to(cuda, td)]
+    out = tk.ragged_paged_attention(qd, *kv, **m, sliding_window=100)
+    torch.cuda.synchronize()
+    ref = tk.ragged_paged_attention_plain(qd, *kv, **m, sliding_window=100)
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy()[live],
+                               ref.float().cpu().numpy()[live], **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_tiling_matches_python(cuda):
+    """The .cu's tiling (ragged_attention_tiling) is ragged_tiling's."""
+    from localai_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("ragged_attention")
+    for dtype, code in (("bfloat16", 1), ("float32", 0)):
+        for G in (1, 4, 7, 16, 32):
+            for D in (16, 128, 256, 512):
+                tc = dtype == "bfloat16" and D <= 256
+                gc, qt = tk.ragged_tiling(G, D, tc)
+                assert lib.ragged_attention_tiling(code, G, D) == \
+                    gc * 65536 + qt
