@@ -13,9 +13,10 @@ drives the same requests again with fresh prompt ids (no prompt-cache or
 prefix reuse), first unprofiled, then under torch.profiler with CUDA
 activity. Prints one JSON line per path: the unprofiled and profiled
 wall times, device busy time by kernel class, the top kernels, the
-device's idle share of the profiled window and its idle ms per decode
-step. Kernels run on one stream, so their summed device time is the busy
-time. A one-off study, apart from the pass/fail smoke; it imports nothing
+device's idle share of the profiled window, its idle and busy ms per
+decode step, and the fused loops' graph-runner counters gained in the
+window (captures, replays, steps replayed, warm-up steps). Kernels run on
+one stream, so their summed device time is the busy time. A one-off study, apart from the pass/fail smoke; it imports nothing
 of JAX or localai_tpu.
 """
 from __future__ import annotations
@@ -60,6 +61,7 @@ def _summary(p, wall_s, steps):
         "idle_share": (1 - busy / (wall_s * 1e3)) if busy else None,
         "idle_ms_per_step": ((wall_s * 1e3 - busy) / steps) if steps
         else None,
+        "busy_ms_per_step": (busy / steps) if steps else None,
         "decode_steps": int(steps), "by_class_ms": by_class,
         "top_kernels": [{"name": k[:90], "count": c, "ms": ms}
                         for k, c, ms in top],
@@ -78,6 +80,7 @@ def profile_window(label, requests=None):
         _, plain_wall = smoke.drive_requests(client, salt=101,
                                              requests=requests)
         m0 = client.metrics()
+        g0 = servicer.engine.graphs.counters()
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             t0 = time.perf_counter()
             smoke.drive_requests(client, salt=202, requests=requests)
@@ -86,6 +89,8 @@ def profile_window(label, requests=None):
         m1 = client.metrics()
         out = _summary(p, wall, m1["decode_steps_dispatched"]
                        - m0["decode_steps_dispatched"])
+        out["graphs"] = smoke.graph_delta(
+            g0, servicer.engine.graphs.counters())
         out["unprofiled_wall_ms"] = plain_wall * 1e3
         smoke.log(f"profile {label} " + json.dumps(out))
 
@@ -103,12 +108,14 @@ def profile_engine(label):
 
         _, plain_wall = smoke.drive_engine(eng, salt=101)
         s0 = eng.metrics["decode_steps_dispatched"]
+        g0 = eng.graphs.counters()
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             t0 = time.perf_counter()
             smoke.drive_engine(eng, salt=202)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         out = _summary(p, wall, eng.metrics["decode_steps_dispatched"] - s0)
+        out["graphs"] = smoke.graph_delta(g0, eng.graphs.counters())
         out["unprofiled_wall_ms"] = plain_wall * 1e3
         smoke.log(f"profile {label} " + json.dumps(out))
 

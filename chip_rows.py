@@ -6,8 +6,10 @@ one NVIDIA card.
 Builds the port's kernels and runs chip_smoke.py's checks of rows 1–11
 (PERF.md §6) at the Llama-3.1-8B shapes, each against its plain
 version with its planted fault, then prints one line `ROWS LABEL {row:
-{ms, ms_cold, ms_host}}` (device ms warm and with a cold L2, and the
-host-inclusive reading). It also prints a `DIVISION` line: how many of
+{ms, ms_cold, ms_host, ms_graph}}` (device ms warm and with a cold L2,
+the host-inclusive reading, and the device ms of a call inside a CUDA
+graph of 20 calls), with the same readings of an empty kernel, the
+harness's launch floor, under "0 empty kernel". It also prints a `DIVISION` line: how many of
 4,194,304 random f32 values PyTorch's CUDA division by the Python number
 127.0 gives otherwise than division by a device tensor, and how many of
 the latter differ from the CPU's quotients (ops/kvcache.quantize_tokens
@@ -62,10 +64,13 @@ def main():
         "11 ragged_scatter_append_q8": lambda: smoke.check_ragged_scatter(
             KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
     }
-    out = {}
+    # a parent tree's chip_smoke.py may predate the in-graph readings
+    out = {"0 empty kernel": smoke.launch_floor()} \
+        if hasattr(smoke, "launch_floor") else {}
     for name, check in rows.items():
         r = check()
-        out[name] = {k: r.get(k) for k in ("ms", "ms_cold", "ms_host")}
+        out[name] = {k: r.get(k) for k in ("ms", "ms_cold", "ms_host",
+                                           "ms_graph")}
     print(f"ROWS {label} " + json.dumps(out), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(0)

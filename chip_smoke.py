@@ -7,8 +7,8 @@ Phases, each printing its results on lines of its own; any failure raises
 and the script exits non-zero:
   0. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi), the torch and CUDA versions; turns TF32 off.
-  1. build: compiles the port's CUDA sources (csrc/*.cu, one nvcc each, in
-     parallel) and prints the build seconds.
+  1. build: prints `nvcc --version`, compiles the port's CUDA sources
+     (csrc/*.cu, one nvcc each, in parallel) and prints the build seconds.
   2. kernels vs plain at the main path's shapes (Llama-3.1-8B geometry:
      H=32, KVH=8, D=128): max abs error against each kernel's plain
      PyTorch version with its tolerance (the paged scatters: bit-exact over
@@ -20,8 +20,11 @@ and the script exits non-zero:
      also with a cold L2: a 256 MB scratch buffer written before each rep;
      the paged decode cases print their spans and ring stages), the
      kernel's and the library call's times with the host's cost of the
-     call in them (ms_host, library_ms_host: no spin) and the least time
-     the card could take (bound_ms). The ragged
+     call in them (ms_host, library_ms_host: no spin), a call's device
+     time inside a CUDA graph of 20 calls (ms_graph, as the fused loops
+     replay them; the same three readings of an empty kernel give the
+     harness's launch floor) and the least time the card could take
+     (bound_ms). The ragged
      kernels run at phase 6's pack: T=192 rows, eight decode rows plus a
      128-row prefill chunk, over the 129-block pool; then the packs that
      exercise its split-KV work split (one 4095-token decode row, a 256-row
@@ -38,12 +41,22 @@ and the script exits non-zero:
      (kernels), dense and paged, gives the same tokens and first-step
      logits within tolerance; on the card paged tokens equal dense ones;
      a ragged engine (fused loop on, a second request admitted mid-decode)
-     gives the same tokens on the card as on the CPU.
+     gives the same tokens on the card as on the CPU; on the card the
+     fused loops of all three engines ran as CUDA graph replays. Then the
+     graphs against the eager segments: engines at the 8B widths (2
+     layers), dense, paged and ragged, bf16 and int8, serve four requests
+     (greedy and seeded-sampled) twice — through graph replays and with
+     each loop segment run eagerly by a test helper — and must give equal
+     tokens and logprobs, bit for bit.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
      the kernels' launch counters are zeroed just before and read just
-     after.
+     after. In phases 4-6 the fused loops run as CUDA graph replays: each
+     run prints its graph runner's counters (captures, replays, steps
+     replayed, warm-up steps) and fails if its fused loop served tokens
+     without a replay, or if a decode attention or KV scatter kernel did
+     not launch exactly once a layer a decode step.
   5. the paged path: the same checkpoint served with kv_pages=129,
      parallel=8 and context_size=4096 (the pool holds half of what eight
      dense slots would), both recipes; six concurrent requests, then two
@@ -161,6 +174,9 @@ def phase_device():
 def phase_build():
     from localai_tpu_torch.ops.kernels import _build
 
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True)
+    log("nvcc " + " ".join(nvcc.stdout.strip().splitlines()[-2:]))
     t0 = time.perf_counter()
     built = _build.build_all()
     secs = time.perf_counter() - t0
@@ -209,6 +225,44 @@ def _time_ms(fn, reps=25, warm=3, cold=False, spin=True):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+# calls of one kernel captured in one CUDA graph for its in-graph reading
+GRAPH_CALLS = 20
+
+
+def _graph_ms(fn, calls=GRAPH_CALLS):
+    """Device ms of one call of fn inside a CUDA graph, as the fused decode
+    loops replay their kernels: `calls` calls captured in one graph, the
+    replay timed as _time_ms times a call (behind a spin kernel, median of
+    25), divided by `calls`. Launching from a graph skips the host's cost
+    of a call and the launch latency between kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = _time_ms(graph.replay, warm=2)
+    del graph
+    return ms / calls
+
+
+def launch_floor():
+    """The harness's floor: an empty kernel (torch.cuda._sleep(0), one
+    thread that returns at once) timed as the kernels are — device ms
+    behind a spin, host-inclusive ms, and ms inside a graph."""
+    import torch
+
+    def empty():
+        torch.cuda._sleep(0)
+
+    res = {"ms": _time_ms(empty), "ms_host": _time_ms(empty, spin=False),
+           "ms_graph": _graph_ms(empty)}
+    log("phase2 launch floor (empty kernel) " + json.dumps(res))
+    return res
 
 
 def _prefill_case(B, S, H, KVH, D, dtype, lengths, window=None, seed=0):
@@ -318,6 +372,8 @@ def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
                                               sliding_window=window)),
             ms_host=_time_ms(lambda: flash_prefill(
                 q, k, v, lens, sliding_window=window), spin=False),
+            ms_graph=_graph_ms(lambda: flash_prefill(
+                q, k, v, lens, sliding_window=window)),
             plain_ms=_time_ms(lambda: flash_prefill_plain(
                 q, k, v, lens, sliding_window=window)),
             bound_ms=max(t_ops, t_bytes),
@@ -390,7 +446,7 @@ def check_decode(B, H, KVH, T, D, dtype, lengths, q8=False, window=None,
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
-                   plain_ms=_time_ms(plain),
+                   ms_graph=_graph_ms(fn), plain_ms=_time_ms(plain),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    bound_formula=(f"max({nbytes:.4g} B of K/V read + q/out "
@@ -543,7 +599,7 @@ def check_paged_decode(B, H, KVH, D, dtype, lengths, maxb, q8=False,
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
-                   plain_ms=_time_ms(plain),
+                   ms_graph=_graph_ms(fn), plain_ms=_time_ms(plain),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    bound_formula=(f"max({nbytes:.4g} B of K/V + table read "
@@ -637,6 +693,8 @@ def check_paged_scatter(B, KVH, D, dtype, q8=False, nb=129, maxb=32):
         ms_host=_time_ms(lambda: kernel(*pools, k_new, v_new, pos, table,
                                         active, targets=targets),
                          spin=False),
+        ms_graph=_graph_ms(lambda: kernel(*pools, k_new, v_new, pos, table,
+                                          active, targets=targets)),
         plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pos, table,
                                            active, targets=targets)),
         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
@@ -812,7 +870,7 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
     peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     res.update(ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
-               plain_ms=_time_ms(plain),
+               ms_graph=_graph_ms(fn), plain_ms=_time_ms(plain),
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                bound_formula=(f"max({nbytes:.4g} B of unique K/V + live q/out "
@@ -905,6 +963,7 @@ def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
               + (2 * n * KVH * 4 if q8 else 0))
     res.update(
         ms=_time_ms(lambda: kernel(*pools, k_new, v_new, pb, off)),
+        ms_graph=_graph_ms(lambda: kernel(*pools, k_new, v_new, pb, off)),
         ms_host=_time_ms(lambda: kernel(*pools, k_new, v_new, pb, off),
                          spin=False),
         plain_ms=_time_ms(lambda: plain_fn(*ref, k_new, v_new, pb, off)),
@@ -1089,10 +1148,11 @@ def phase_kernels():
             2, 96, 8, 2, 256, f32, [96, 50]),
     }
     ragged_packs(H, KVH, D)
+    main["launch floor"] = launch_floor()
     log("phase2 wide geometry " + json.dumps({
         k: {f: r.get(f) for f in ("max_abs_err", "planted_fault_err", "ms",
-                                  "ms_host", "bound_ms", "bound_by",
-                                  "plain_ms", "library_ms")}
+                                  "ms_host", "ms_graph", "bound_ms",
+                                  "bound_by", "plain_ms", "library_ms")}
         for k, r in wide.items()}))
     log("phase2 kernels: all within tolerance")
     return main
@@ -1159,15 +1219,17 @@ def phase_card_vs_cpu():
                                                  device=device))
         out = {"logits": logits.float().cpu(),
                "paged_logits": plogits.float().cpu()}
+        out["graphs"] = {}
         for key, conf in (("tokens", ec), ("paged_tokens", ec_paged)):
             eng = Engine(cfg, m, None, conf, device=device)
             out[key] = [o.token_id for o in eng.generate(GenRequest(
                 prompt, SamplingParams(temperature=0.0), max_tokens=16,
                 ignore_eos=True))]
-        out["ragged_tokens"] = run_ragged(m, device)
+            out["graphs"].update(eng.graphs.counters())
+        out["ragged_tokens"] = run_ragged(m, device, out["graphs"])
         return out
 
-    def run_ragged(m, device):
+    def run_ragged(m, device, graphs):
         """The ragged engine (fused loop on): the greedy request, and after
         two ticks a 40-token one whose chunks pack beside its decode."""
         eng = Engine(cfg, m, None, ec_ragged, device=device)
@@ -1183,6 +1245,7 @@ def phase_card_vs_cpu():
         if eng.metrics["ragged_dispatches"] < 2:
             raise AssertionError("phase3: the ragged engine packed no "
                                  "mixed tick")
+        graphs.update(eng.graphs.counters())
         ids = []
         for q in qs:
             ids.append([])
@@ -1219,9 +1282,122 @@ def phase_card_vs_cpu():
     if (cpu["ragged_tokens"] != gpu["ragged_tokens"]
             or [len(t) for t in gpu["ragged_tokens"]] != [16, 16]):
         raise AssertionError("ragged: card and CPU greedy tokens differ")
+    log("phase3 card graph runners " + json.dumps(gpu["graphs"]))
+    for path in ("dense", "paged", "rloop"):
+        if gpu["graphs"].get(path, {}).get("replays", 0) <= 0:
+            raise AssertionError(f"phase3: the card's {path} loop replayed "
+                                 f"no CUDA graph")
     model.to("cpu")
     del model
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 3, graphs
+
+# the fused loops' graph check: engines at the 8B widths (depth cut to 2
+# layers), four requests each — greedy, seeded top-k, a 300-token prompt
+# that prefills in chunks, seeded top-p through the full sort — of
+# GRAPH_TOKENS tokens, three segments of the loop
+GRAPH_EC = {
+    "dense": dict(max_slots=4, max_context=1024, prefill_buckets=(64, 256),
+                  prefill_chunk=256),
+    "paged": dict(max_slots=4, max_context=1024, prefill_buckets=(64, 256),
+                  prefill_chunk=256, kv_pages=33),
+    "rloop": dict(max_slots=4, max_context=1024, prefill_buckets=(64, 256),
+                  prefill_chunk=128, kv_pages=33, ragged_token_budget=128),
+}
+GRAPH_REQUESTS = [
+    (17, dict(temperature=0.0)),
+    (40, dict(temperature=0.8, top_k=40, seed=11)),
+    (300, dict(temperature=0.0)),
+    (90, dict(temperature=0.9, top_k=0, top_p=0.9, seed=5)),
+]
+GRAPH_TOKENS = 24
+
+
+def _serve_graph_case(cfg, params, ec, eager):
+    """GRAPH_REQUESTS through an in-process Engine, its loop segments as
+    graph replays or (eager=True) each called directly (EagerSegments, a
+    runner for checks: the engine never makes one). Returns
+    ([(tokens, logprobs)], runner counters)."""
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+    from localai_tpu_torch.engine.graphs import EagerSegments
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    eng = Engine(cfg, params, None, EngineConfig(**ec), device="cuda")
+    if eager:
+        eng.graphs = EagerSegments(eng.device)
+    eng.warmup()
+    qs = [eng.submit(GenRequest(prompt_ids(i, n, salt=7), SamplingParams(**sp),
+                                max_tokens=GRAPH_TOKENS, ignore_eos=True,
+                                logprobs=True))[1]
+          for i, (n, sp) in enumerate(GRAPH_REQUESTS)]
+    for _ in range(10000):
+        if not eng.step():
+            break
+    out = []
+    for q in qs:
+        toks, lps = [], []
+        while not q.empty():
+            o = q.get_nowait()
+            if o.token_id >= 0:
+                toks.append(o.token_id)
+                lps.append(o.logprob)
+        out.append((toks, lps))
+    return out, eng.graphs.counters()
+
+
+def phase_graphs():
+    """The fused loops' CUDA graphs against their eager segments, on the
+    card: the same requests served twice by fresh engines at the 8B widths
+    (2 layers, weights from a seed), once through graph replays and once
+    with each segment run eagerly (a test helper); tokens and logprobs must
+    be equal, bit for bit, for the dense, paged and ragged (pack-free and
+    mixed) loops, in bf16 and in the int8 recipe (int8 weights + KV),
+    greedy and seeded-sampled. The graphed runs must have replayed."""
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config
+    from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.ops.quant import quantize_params
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_8B, num_hidden_layers=2), f)
+        cfg = load_config(d, dtype="bfloat16")
+    for recipe in ("bf16", "int8"):
+        params = init_params(cfg, seed=0, device="cuda")
+        kv = ""
+        if recipe == "int8":
+            params, kv = quantize_params(params), "int8"
+        for path, ec in GRAPH_EC.items():
+            ec = dict(ec, cache_type=kv)
+            graphed, counters = _serve_graph_case(cfg, params, ec, False)
+            eager, eager_counters = _serve_graph_case(cfg, params, ec, True)
+            res = {
+                "tokens_equal": [g[0] == e[0]
+                                 for g, e in zip(graphed, eager)],
+                "logprobs_equal": [g[1] == e[1]
+                                   for g, e in zip(graphed, eager)],
+                "tokens": [len(g[0]) for g in graphed],
+                "graphs": counters.get(path), "eager_runner": eager_counters}
+            log(f"phase3 graphs {recipe} {path} " + json.dumps(res))
+            if not all(res["tokens_equal"]) or not all(res["logprobs_equal"]):
+                raise AssertionError(f"phase3 graphs {recipe} {path}: graph "
+                                     f"replays and eager segments differ")
+            if res["tokens"] != [GRAPH_TOKENS] * len(GRAPH_REQUESTS):
+                raise AssertionError(f"phase3 graphs {recipe} {path}: "
+                                     f"token counts {res['tokens']}")
+            if not counters.get(path, {}).get("replays"):
+                raise AssertionError(f"phase3 graphs {recipe} {path}: no "
+                                     f"graph replayed")
+        del params
+        torch.cuda.empty_cache()
+    log("phase3 graphs: replays equal the eager segments")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1348,12 +1524,39 @@ def wave_stats(name, results, wall, m0, m1, before, after, requests):
         "wall_s": wall, "tok_s": gen / wall,
         "ttft_p50_ms": statistics.median(ttfts) * 1e3,
         "ttft_ms": sorted(t * 1e3 for t in ttfts),
-        "decode_dispatches": int(dd),
+        "decode_dispatches": int(dd), "decode_steps": int(ds),
+        "loop_tokens": int(m1["tokens_by_path__loop"]
+                           - m0["tokens_by_path__loop"]),
         "steps_per_dispatch": ds / max(dd, 1),
         "launches_during_requests": {k: after[k] - before[k]
                                      for k in after},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
+
+
+def graph_delta(before, after):
+    """The graph runner's counters gained between two readings, by path."""
+    return {p: {k: v - before.get(p, {}).get(k, 0) for k, v in c.items()}
+            for p, c in after.items()}
+
+
+def check_fused_path(label, graphs, path, loop_tokens, launched, kernels,
+                     layers, steps):
+    """A run's fused loop went through graph replays whenever it served
+    tokens (`loop_tokens`), and each of `kernels` launched once a layer a
+    decode step: `steps` decode steps (replayed, eager or the graphs'
+    inert warm-up steps alike)."""
+    g = graphs.get(path, {})
+    if loop_tokens > 0 and g.get("replays", 0) <= 0:
+        raise AssertionError(f"{label}: the fused {path} loop served "
+                             f"{loop_tokens} tokens without a graph replay")
+    want = layers * (steps + g.get("warmup_steps", 0))
+    for k in kernels:
+        if launched[k] != want:
+            raise AssertionError(
+                f"{label}: {k} launched {launched[k]} times, not {layers} "
+                f"layers x ({steps} decode steps + {g.get('warmup_steps', 0)}"
+                f" warm-up steps) = {want}")
 
 
 def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
@@ -1383,13 +1586,16 @@ def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
         outs = []
         for w, requests in enumerate(waves):
             before = launch_counts()
+            g0 = servicer.engine.graphs.counters()
             m0 = client.metrics()
             results, wall = drive_requests(client, requests=requests)
             m1 = client.metrics()
+            g1 = servicer.engine.graphs.counters()
             after = launch_counts()
             check_wave(f"{name} wave {w + 1}", results)
             out = wave_stats(name, results, wall, m0, m1, before, after,
                              requests)
+            out["graphs"] = graph_delta(g0, g1)
             out["metrics_before"], out["metrics_after"] = m0, m1
             out["_results"] = results
             outs.append(out)
@@ -1442,6 +1648,12 @@ def phase_main_path():
             int8["launches_during_requests"]["ragged_decode"]:
         raise AssertionError("decode kernel variant does not match the "
                              "recipe's KV cache")
+    for name, out, k in (("bf16", bf16, "ragged_decode"),
+                         ("int8", int8, "ragged_decode_q8")):
+        check_fused_path(f"phase4 {name}", out["graphs"], "dense",
+                         out["loop_tokens"], out["launches_during_requests"],
+                         (k,), CFG_8B["num_hidden_layers"],
+                         out["decode_steps"])
     return counts
 
 
@@ -1602,8 +1814,7 @@ def phase_paged_path(smi):
                                 *paged_reference_cases(outs)))
         counts = launch_counts()
     log("phase5 launches on the paged path " + json.dumps(counts))
-    own = {"bf16": ("ragged_decode_paged", "paged_scatter_append"),
-           "int8": ("ragged_decode_q8_paged", "paged_scatter_append_q8")}
+    own = PAGED_OWN
     pool = PAGED_LOAD["kv_pages"] - 1
     for name, (w1, w2, w3) in res.items():
         def delta(w, key):
@@ -1649,6 +1860,12 @@ def phase_paged_path(smi):
             if launched[k]:
                 raise AssertionError(f"phase5 {name}: the other recipe's "
                                      f"{k} launched")
+        for w, out in enumerate((w1, w2, w3)):
+            check_fused_path(f"phase5 {name} wave {w + 1}", out["graphs"],
+                             "paged", out["loop_tokens"],
+                             out["launches_during_requests"], own[name],
+                             CFG_8B["num_hidden_layers"],
+                             out["decode_steps"])
     return counts
 
 
@@ -1667,6 +1884,8 @@ RAGGED_WAVES = [
      (40, dict(temperature=0.8, top_k=40, seed=13)),
      (640, dict(temperature=0.7, top_k=50, seed=21))],
 ]
+PAGED_OWN = {"bf16": ("ragged_decode_paged", "paged_scatter_append"),
+             "int8": ("ragged_decode_q8_paged", "paged_scatter_append_q8")}
 RAGGED_OWN = {"bf16": ("ragged_paged_attention", "ragged_scatter_append"),
               "int8": ("ragged_paged_attention_q8",
                        "ragged_scatter_append_q8")}
@@ -1747,9 +1966,11 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
         f"{time.perf_counter() - t0:.1f} s")
     try:
         reset_launch_counts()
+        g0 = eng.graphs.counters()
         recs, wall = drive_engine(eng)
         torch.cuda.synchronize()
         counts = launch_counts()
+        graphs = graph_delta(g0, eng.graphs.counters())
         vocab = cfg.vocab_size
         for i, r in enumerate(recs):
             last = r["last"]
@@ -1784,6 +2005,7 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
                 "tokens_by_path__ragged", "tokens_by_path__rloop",
                 "kv_blocks_peak")},
             "launches": {k: v for k, v in counts.items() if v},
+            "graphs": graphs,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         }
         log(f"{phase} {name} " + json.dumps(out))
@@ -1797,6 +2019,15 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
         for k in RAGGED_OWN[name]:
             if counts[k] <= 0:
                 raise AssertionError(f"{phase} {name}: {k} never launched")
+        # decode iterations ran the paged decode kernels (the mixed ticks'
+        # pack ran ragged attention once a layer)
+        packs = m["ragged_dispatches"]
+        check_fused_path(f"{phase} {name}", graphs, "rloop",
+                         m["tokens_by_path__rloop"], counts,
+                         PAGED_OWN[name], cfg.num_layers,
+                         m["decode_steps_dispatched"] - packs)
+        check_fused_path(f"{phase} {name} packs", {}, "rloop", 0, counts,
+                         RAGGED_OWN[name], cfg.num_layers, packs)
         other = RAGGED_OWN["int8" if name == "bf16" else "bf16"]
         for k in ("flash_prefill", "ragged_decode", "ragged_decode_q8") \
                 + other:
@@ -1895,6 +2126,7 @@ def main():
     phase_build()
     measured = phase_kernels()
     phase_card_vs_cpu()
+    phase_graphs()
     counts = phase_main_path()
     paged_counts = phase_paged_path(smi)
     ragged_counts = phase_ragged_path(smi)
@@ -1911,7 +2143,7 @@ def main():
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
                      "library_ms_host": m["library_ms_host"],
-                     "ms_cold": m.get("ms_cold")})
+                     "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

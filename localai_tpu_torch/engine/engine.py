@@ -15,7 +15,9 @@ What this slice serves, as the reference does:
 - three decode dispatch paths: the single step (sample, then decode), the
   `decode_block` path stop-string slots keep, and the fused decode loop
   (decode_loop=64) with per-slot EOS / max_tokens / context-margin stops
-  on the device, frozen slots and a [steps, B] token ring;
+  on the device, frozen slots and a [steps, B] token ring. The fused
+  loops run in segments of 8 steps over fixed tensors (LoopState), each
+  segment on the card one CUDA graph replay (engine/graphs.py);
 - ragged continuous batching (ragged_token_budget > 0, paged only): every
   admission is chunked, and a tick with prefill work packs every decode
   slot plus prefill-chunk windows into one flat token stream served by one
@@ -46,17 +48,22 @@ import torch
 
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
+from localai_tpu_torch.engine.graphs import GraphRunner
 from localai_tpu_torch.models.llama import (
     LlamaConfig,
+    LoopState,
     build_decode_loop,
     build_ragged_loop,
     decode_step,
     extend,
     init_kv_cache,
+    loop_segment,
     prefill,
     ragged_forward,
+    segment_lengths,
 )
 from localai_tpu_torch.ops.kernels import QBLK
+from localai_tpu_torch.ops.kvcache import QuantKV
 from localai_tpu_torch.ops.paged import BLOCK, blocks_needed, init_paged
 from localai_tpu_torch.ops.rope import rope_table
 from localai_tpu_torch.ops.sampling import (
@@ -368,6 +375,21 @@ class Engine:
         ) else []
         self._eos_dev = torch.tensor(eos or [-1], dtype=torch.int32,
                                      device=dev)
+        # the fused loops' fixed tensors (models/llama.LoopState; the first
+        # dispatch binds the state above to them), with each dispatch's
+        # inputs in one int32 buffer that one host→device copy fills —
+        # [table B*MAXB (paged) | active B | remaining B | check_eos B]
+        nt = B * self._maxb if self._paged else 0
+        inp = torch.zeros((nt + 3 * B,), dtype=torch.int32, device=dev)
+        self._loop_inp = inp
+        no = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._loop_st = LoopState.start(
+            self._sampler, self._last_logits, self._lengths, no,
+            inp[nt + B:nt + 2 * B], no, self._eos_dev,
+            inp[:nt].view(B, self._maxb) if self._paged else None)
+        # the loop segments' CUDA graphs (on the card); they hold the
+        # addresses of the tensors made here, so a new state gets new graphs
+        self.graphs = GraphRunner(dev)
         self._slots: list[_Slot | None] = [None] * B
         self._free: list[int] = list(range(B))
         self._ragged_rr = 0   # ragged decode-row round-robin offset
@@ -394,11 +416,17 @@ class Engine:
             return tokens, logprobs, sampler, logits, lengths + act
 
         self._decode_fn = _decode
+        # the fused loops run on the loop's fixed tensors (_loop_begin),
+        # each segment through the graph runner (_run_segment)
+        rloop_on = self._ragged and self.ec.ragged_loop_steps > 1
+        self._loop_path = ("rloop" if rloop_on
+                           else "paged" if self._paged else "dense")
+        hooks = dict(limit=self.ec.max_context - 2, start=self._loop_begin,
+                     run=self._run_segment)
         self._decode_loop_fn = None
         if self.ec.decode_loop > 1:
             self._decode_loop_fn = build_decode_loop(
-                _decode, max_steps=self.ec.decode_loop,
-                limit=self.ec.max_context - 2)
+                _decode, max_steps=self.ec.decode_loop, **hooks)
 
         self._ragged_loop_fn = None
         if not self._ragged:
@@ -434,10 +462,10 @@ class Engine:
             return sampled, logprobs, sampler, last_logits, lengths
 
         self._ragged_fn = _ragged_step
-        if self.ec.ragged_loop_steps > 1:
+        if rloop_on:
             self._ragged_loop_fn = build_ragged_loop(
                 _ragged_step, _decode, max_steps=self.ec.ragged_loop_steps,
-                limit=self.ec.max_context - 2)
+                **hooks)
 
     def _install_rows(self, slots, rows: dict, counts_rows):
         """Install K sampler rows at `slots` [K] (stacked [K, ...] fields);
@@ -563,20 +591,78 @@ class Engine:
                 lps.append(logprobs)
             return _AsyncFetch((torch.stack(toks), torch.stack(lps)))
 
+    def _loop_begin(self, sampler, last_logits, lengths, active, remaining,
+                    check_eos, eos_ids, table):
+        """The fused loops' `start`: a dispatch on the loop's fixed tensors.
+        The engine's state goes into them (what an eager path rebound to
+        new tensors is copied back) and the engine is bound to them; this
+        dispatch's host inputs — a snapshot of the block table, the active
+        slots, budgets and EOS flags — go in one host→device copy, on the
+        card from pinned memory: it waits for nothing and lands after the
+        previous dispatch's work on the stream. `eos_ids` is the state's
+        own (_eos_dev)."""
+        st = self._loop_st
+        assert eos_ids is st.eos_ids
+        st.adopt(sampler, last_logits, lengths)
+        self._sampler, self._last_logits, self._lengths = (
+            st.sampler, st.last_logits, st.lengths)
+        parts = ([table] if self._paged else []) + [
+            active, remaining, check_eos]
+        src = torch.from_numpy(np.concatenate(
+            [np.asarray(p, np.int32).ravel() for p in parts]))
+        inp = self._loop_inp
+        if inp.is_cuda:
+            inp.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            inp.copy_(src)
+        B = self.ec.max_slots
+        nt = inp.shape[0] - 3 * B
+        st.done.copy_(inp[nt:nt + B] == 0)
+        st.check_eos.copy_(inp[nt + 2 * B:] != 0)
+        st.n_out.zero_()
+        return st
+
+    def _segment(self, n: int, fast_width):
+        """n iterations of the decode body over the loop's tensors."""
+        st, limit = self._loop_st, self.ec.max_context - 2
+        return lambda: loop_segment(self._decode_fn, st, n, limit,
+                                    self.params, self._cos, self._sin,
+                                    self._kc, self._vc, fast_width)
+
+    def _run_segment(self, st, n: int, fast_width):
+        """The fused loops' `run`: a segment through the runner — on the
+        card the replay of its CUDA graph."""
+        self.graphs.run((self._loop_path, n, fast_width), n,
+                        self._segment(n, fast_width), st.frozen,
+                        self._loop_addresses())
+
+    def _loop_addresses(self) -> tuple:
+        """Where a loop segment's tensors live: the loop state's, the KV
+        caches' and the rope tables' (the weights never move)."""
+        kv = [t for c in (self._kc, self._vc)
+              for t in ((c.q, c.s) if isinstance(c, QuantKV) else (c,))]
+        return self._loop_st.addresses() + tuple(
+            t.data_ptr() for t in kv + [self._cos, self._sin])
+
     def _dev_decode_loop(self, active, remaining, check_eos, fast_width=None):
         """ONE fused-loop dispatch of up to ec.decode_loop steps with the
         per-slot stop conditions on the device. The steps actually run ride
-        the fetch; decode_steps_dispatched is credited at consume time."""
+        the fetch; decode_steps_dispatched is credited at consume time.
+        _dispatch_loop dispatches it only with a live slot."""
         self.metrics["decode_dispatches"] += 1
-        dev = self.device
         with torch.no_grad():
             (toks, lps, n_out, steps, self._sampler, self._last_logits,
              self._lengths) = self._decode_loop_fn(
-                *self._step_args(active),
-                torch.as_tensor(remaining, device=dev),
-                torch.as_tensor(check_eos, device=dev), self._eos_dev,
-                fast_width=fast_width, table=self._tab())
+                self.params, self._cos, self._sin, self._kc, self._vc,
+                self._sampler, self._last_logits, self._lengths, active,
+                remaining, check_eos, self._eos_dev, fast_width=fast_width,
+                table=self._loop_table())
             return _AsyncFetch((toks, lps, n_out), extra=(steps,))
+
+    def _loop_table(self):
+        """The host block table for a fused dispatch's snapshot (None for
+        a dense cache)."""
+        return self._table if self._paged else None
 
     # ---------------------------------------------------- ragged dispatch
 
@@ -628,23 +714,22 @@ class Engine:
 
     def _dev_ragged_loop(self, pack, remaining, check_eos, prefill_pending):
         """ONE fused ragged dispatch: the mixed pack as iteration 0, then up
-        to ragged_loop_steps-1 decode steps for every live decode slot
-        (models/llama.build_ragged_loop). `prefill_pending` (host bool)
-        ends the dispatch after iteration 0, so TTFT stays at single-step
-        ragged levels. Steps run and the exit code ride the fetch."""
+        to ragged_loop_steps-1 decode steps for every live decode slot —
+        the pack eagerly (it changes every tick), the decode steps as loop
+        segments (CUDA graph replays on the card). `prefill_pending` (host
+        bool) ends the dispatch after iteration 0, so TTFT stays at
+        single-step ragged levels. Steps run and the exit code ride the
+        fetch."""
         self.metrics["decode_dispatches"] += 1
         self._note_ragged(pack)
-        dev = self.device
         with torch.no_grad():
-            dp = self._pack_dev(pack)
             (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
              self._lengths) = self._ragged_loop_fn(
                 self.params, self._cos, self._sin, self._kc, self._vc,
                 self._sampler, self._last_logits, self._lengths,
-                dp["is_decode"], torch.as_tensor(remaining, device=dev),
-                torch.as_tensor(check_eos, device=dev), self._eos_dev,
-                bool(prefill_pending), pack=dp, table=self._tab(),
-                fast_width=None, has_pack=True)
+                pack["is_decode"], remaining, check_eos, self._eos_dev,
+                bool(prefill_pending), pack=self._pack_dev(pack),
+                table=self._loop_table(), fast_width=None, has_pack=True)
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_rloop_decode(self, active, remaining, check_eos,
@@ -652,16 +737,14 @@ class Engine:
         """The fused ragged loop without a pack: a pure-decode tick on a
         ragged engine, with the loop's first-finish exit."""
         self.metrics["decode_dispatches"] += 1
-        dev = self.device
         with torch.no_grad():
             (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
              self._lengths) = self._ragged_loop_fn(
                 self.params, self._cos, self._sin, self._kc, self._vc,
-                self._sampler, self._last_logits, self._lengths,
-                torch.as_tensor(active, device=dev),
-                torch.as_tensor(remaining, device=dev),
-                torch.as_tensor(check_eos, device=dev), self._eos_dev, False,
-                table=self._tab(), fast_width=fast_width, has_pack=False)
+                self._sampler, self._last_logits, self._lengths, active,
+                remaining, check_eos, self._eos_dev, False,
+                table=self._loop_table(), fast_width=fast_width,
+                has_pack=False)
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_install(self, idx, row, counts_row):
@@ -1592,8 +1675,9 @@ class Engine:
         """Run the single-step decode once per sampling tier with all slots
         inactive (every cache write goes to the trash row and no slot state
         is consumed), so the kernels are built and the first requests pay no
-        first-use cost. Must run before any request is admitted; dispatch
-        metrics are restored afterwards."""
+        first-use cost; on the card, also capture the fused loops' CUDA
+        graphs (_prepare_graphs). Must run before any request is admitted;
+        dispatch metrics are restored afterwards."""
         if any(s is not None for s in self._slots):
             raise RuntimeError("warmup() requires an idle engine")
         B, V = self.ec.max_slots, self.cfg.vocab_size
@@ -1610,8 +1694,39 @@ class Engine:
                     widths.append(min(8 * W, V))
             for w in widths:
                 self._dev_decode(idle, w).wait()
+            self._prepare_graphs(widths)
         finally:
             self.metrics.update(snap)
+
+    def _prepare_graphs(self, widths):
+        """Capture, with every slot frozen, the graph of each loop segment
+        the fused dispatches run: each segment length of the pure-decode
+        loop (segment_lengths) at each sampling width, and each of the
+        ragged mixed tick's continuation (from iteration 1, full sampler)."""
+        if not self.graphs.graphed:
+            return
+        keys = []
+        rloop_on = self._ragged_loop_fn is not None
+        if self._decode_loop_fn is not None:
+            M = (self.ec.ragged_loop_steps if rloop_on
+                 else self.ec.decode_loop)
+            keys += [(n, w) for w in widths for n in segment_lengths(0, M)]
+        if rloop_on:
+            keys += [(n, None)
+                     for n in segment_lengths(1, self.ec.ragged_loop_steps)]
+        if not keys:
+            return
+        B = self.ec.max_slots
+        idle = np.zeros((B,), bool)
+        with torch.no_grad():
+            st = self._loop_begin(
+                self._sampler, self._last_logits, self._lengths, idle,
+                np.zeros((B,), np.int32), idle, self._eos_dev,
+                self._loop_table())
+            for n, w in dict.fromkeys(keys):
+                self.graphs.prepare((self._loop_path, n, w), n,
+                                    self._segment(n, w), st.frozen,
+                                    self._loop_addresses())
 
     def start(self):
         """Run the engine loop in a background thread (serving mode)."""

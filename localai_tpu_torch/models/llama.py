@@ -21,7 +21,9 @@ attention and flat-row scatter kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -540,23 +542,207 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
     return _lm_head(last.float(), params)
 
 
-# the fused loop reads its device-side `done` flags (a host sync) once per
-# this many steps; frozen slots make the steps in between inert
+# the fused loops read their device-side `done` flags (a host sync) once per
+# this many steps; frozen slots make the steps in between inert. It is also
+# the length of a loop segment, the unit that the engine's CUDA graphs
+# capture (engine/graphs.py)
 _DONE_CHECK_EVERY = 8
 
 
-def build_decode_loop(step_fn, *, max_steps: int, limit: int):
+@dataclasses.dataclass
+class LoopState:
+    """The fused loops' carried state in fixed tensors, which loop_segment
+    updates IN PLACE: the sampler (a SamplerState), last_logits [B, V] f32,
+    lengths [B] int32, the stop state done [B] bool and n_out [B] int32, the
+    dispatch's inputs remaining [B] int32, check_eos [B] bool, eos_ids [E]
+    and the paged block table [B, MAXB] (None for a dense cache), and one
+    segment's token and logprob rows toks/lps [_DONE_CHECK_EVERY, B]. A
+    segment reads and writes no other tensor across iterations, so a CUDA
+    graph captured over one segment replays the next of any dispatch that
+    fills the same tensors."""
+    sampler: Any
+    last_logits: torch.Tensor
+    lengths: torch.Tensor
+    done: torch.Tensor
+    n_out: torch.Tensor
+    remaining: torch.Tensor
+    check_eos: torch.Tensor
+    eos_ids: torch.Tensor
+    table: torch.Tensor | None
+    toks: torch.Tensor
+    lps: torch.Tensor
+
+    @classmethod
+    def start(cls, sampler, last_logits, lengths, active, remaining,
+              check_eos, eos_ids, table=None) -> "LoopState":
+        """A state in new tensors for last_logits, lengths, the sampler
+        key and the stop state: the caller's stay as they are (the other
+        sampler fields are shared; the step updates token_counts in
+        place, as it always has)."""
+        B, dev = lengths.shape[0], lengths.device
+        return cls(
+            sampler=dataclasses.replace(sampler, key=sampler.key.clone()),
+            last_logits=last_logits.clone(), lengths=lengths.clone(),
+            done=~active,
+            n_out=torch.zeros((B,), dtype=torch.int32, device=dev),
+            remaining=remaining, check_eos=check_eos, eos_ids=eos_ids,
+            table=table,
+            toks=torch.zeros((_DONE_CHECK_EVERY, B), dtype=torch.int32,
+                             device=dev),
+            lps=torch.zeros((_DONE_CHECK_EVERY, B), dtype=torch.float32,
+                            device=dev))
+
+    def adopt(self, sampler, last_logits, lengths):
+        """Copy into this state's tensors each of `sampler`'s fields,
+        `last_logits` and `lengths` that is another tensor than its own (an
+        eager step returns new ones)."""
+        for f in dataclasses.fields(sampler):
+            _copy_into(getattr(self.sampler, f.name), getattr(sampler, f.name))
+        _copy_into(self.last_logits, last_logits)
+        _copy_into(self.lengths, lengths)
+
+    def addresses(self) -> tuple:
+        """The device addresses of every tensor of the state (a CUDA graph
+        captured over it reads these)."""
+        ts = [getattr(self.sampler, f.name)
+              for f in dataclasses.fields(self.sampler)]
+        ts += [getattr(self, f.name) for f in dataclasses.fields(self)
+               if f.name != "sampler"]
+        return tuple(t.data_ptr() for t in ts if t is not None)
+
+    @contextlib.contextmanager
+    def frozen(self):
+        """Every slot frozen while the body runs: a segment then changes
+        nothing but the scratch rows toks/lps (a frozen slot's cache writes
+        go to the trash row or block; its counts, key, logits and length
+        hold)."""
+        done = self.done.clone()
+        self.done.fill_(True)
+        try:
+            yield
+        finally:
+            self.done.copy_(done)
+
+
+def _copy_into(dst, src):
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _stops(st: LoopState, tokens, live, limit: int):
+    """The slots that finish at this iteration: live ones that sampled an
+    EOS id (slots with check_eos), reached their `remaining` budget or the
+    context margin `limit`."""
+    is_eos = st.check_eos & (tokens[:, None] == st.eos_ids[None, :]).any(1)
+    return live & (is_eos | (st.n_out >= st.remaining)
+                   | (st.lengths >= limit))
+
+
+def loop_segment(step_fn, st: LoopState, n: int, limit: int, params, cos,
+                 sin, kc, vc, fast_width=None):
+    """`n` (at most _DONE_CHECK_EVERY) iterations of the fused loops'
+    decode body over `st`, IN PLACE: sample→decode for the live slots
+    (step_fn with the active mask ~done), freeze the finished ones (their
+    key and last_logits hold; step_fn already holds their lengths and
+    counts and sends their cache writes to the trash row or block),
+    iteration i's tokens and logprobs into st.toks[i] / st.lps[i], then
+    n_out and the stop state. Nothing in it waits for the device, so a CUDA
+    graph captures it whole.
+
+    step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths,
+    active, fast_width, table=table) → (tokens, logprobs, sampler, logits,
+    lengths)."""
+    for i in range(n):
+        live = ~st.done
+        tokens, lp, sampler, logits, lengths = step_fn(
+            params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
+            live, fast_width, table=st.table)
+        st.sampler.key.copy_(torch.where(live[:, None], sampler.key,
+                                         st.sampler.key))
+        st.last_logits.copy_(torch.where(live[:, None], logits,
+                                         st.last_logits))
+        st.lengths.copy_(lengths)
+        st.toks[i] = tokens
+        st.lps[i] = lp
+        st.n_out.add_(live.to(torch.int32))
+        st.done |= _stops(st, tokens, live, limit)
+
+
+def loop_outputs(max_steps: int, st: LoopState):
+    """A dispatch's own token and logprob rings [max_steps, B] (zeros past
+    the steps it runs)."""
+    B, dev = st.lengths.shape[0], st.lengths.device
+    return (torch.zeros((max_steps, B), dtype=torch.int32, device=dev),
+            torch.zeros((max_steps, B), dtype=torch.float32, device=dev))
+
+
+def drive_loop(st: LoopState, run, toks, lps, steps: int, max_steps: int,
+               stop) -> int:
+    """The host side of a fused loop, from iteration `steps` up to
+    `max_steps`: at every multiple of _DONE_CHECK_EVERY it asks
+    `stop(steps)` (one host sync) whether to end, else runs the iterations up to the next
+    multiple (or to max_steps) as one segment — `run(n)` runs loop_segment's
+    n iterations, directly or as the replay of a CUDA graph — and copies the
+    segment's rows into the dispatch's own toks/lps. Returns the
+    iterations run."""
+    while steps < max_steps:
+        if steps % _DONE_CHECK_EVERY == 0 and stop(steps):
+            break
+        n = min(_DONE_CHECK_EVERY - steps % _DONE_CHECK_EVERY,
+                max_steps - steps)
+        run(n)
+        toks[steps:steps + n] = st.toks[:n]
+        lps[steps:steps + n] = st.lps[:n]
+        steps += n
+    return steps
+
+
+def segment_lengths(start: int, max_steps: int) -> list[int]:
+    """The segment lengths drive_loop runs from iteration `start` to
+    `max_steps` when no stop ends it early, in order of first use."""
+    out = []
+    while start < max_steps:
+        n = min(_DONE_CHECK_EVERY - start % _DONE_CHECK_EVERY,
+                max_steps - start)
+        if n not in out:
+            out.append(n)
+        start += n
+    return out
+
+
+def _segment_runner(run, step_fn, st, limit, params, cos, sin, kc, vc,
+                    fast_width):
+    """drive_loop's run(n): the builders' `run` hook, or loop_segment
+    called directly."""
+    if run is not None:
+        return lambda n: run(st, n, fast_width)
+    return lambda n: loop_segment(step_fn, st, n, limit, params, cos, sin,
+                                  kc, vc, fast_width)
+
+
+def build_decode_loop(step_fn, *, max_steps: int, limit: int,
+                      start=LoopState.start, run=None):
     """The fused decode loop: up to `max_steps` sample→decode iterations per
     dispatch with per-slot stop conditions kept on the device (EOS-set
     membership for slots with `check_eos`, the per-slot token budget
     `remaining`, the context margin `limit`).
 
-    PyTorch has no on-device while loop, so the loop runs in Python with
-    the stop state on the device. A finished slot is frozen — its key and
-    last_logits stop advancing, its length stops and its cache writes go
-    to the trash row through step_fn's active mask — so extra iterations
-    are inert, and the loop checks `done.all()` (one host sync) only every
-    _DONE_CHECK_EVERY steps. `steps` counts the iterations actually run.
+    PyTorch has no on-device while loop, so the host drives the loop
+    (drive_loop) in segments of _DONE_CHECK_EVERY iterations (loop_segment)
+    with the stop state on the device. A finished slot is frozen — its key
+    and last_logits stop advancing, its length stops and its cache writes
+    go to the trash row through step_fn's active mask — so extra iterations
+    are inert, and the host checks `done.all()` (one sync) only between
+    segments — not before the first: a dispatch starts with a live slot
+    (with none, its first segment runs inert). `steps` counts the
+    iterations actually run.
+
+    The engine's hooks: `start(sampler, last_logits, lengths, active,
+    remaining, check_eos, eos_ids, table)` returns the dispatch's LoopState
+    (default LoopState.start, in new tensors; the engine fills its fixed
+    ones); `run(st, n, fast_width)` runs loop_segment's n iterations over
+    it (default: directly; the engine replays the segment's CUDA graph,
+    engine/graphs.py).
 
     step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths, active,
     fast_width, table=table) → (tokens, logprobs, sampler, logits, lengths);
@@ -569,33 +755,15 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int):
     def decode_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
                     active, remaining, check_eos, eos_ids, fast_width=None,
                     table=None):
-        B = lengths.shape[0]
-        dev = lengths.device
-        done = ~active
-        n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
-        toks = torch.zeros((max_steps, B), dtype=torch.int32, device=dev)
-        lps = torch.zeros((max_steps, B), dtype=torch.float32, device=dev)
-        steps = 0
-        while steps < max_steps:
-            if steps % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-                break
-            live = ~done
-            prev_key = sampler.key
-            tokens, lp, sampler, logits, lengths = step_fn(
-                params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                live, fast_width, table=table)
-            sampler = dataclasses.replace(
-                sampler, key=torch.where(live[:, None], sampler.key,
-                                         prev_key))
-            last_logits = torch.where(live[:, None], logits, last_logits)
-            toks[steps] = tokens
-            lps[steps] = lp
-            n_out = n_out + live.to(torch.int32)
-            is_eos = check_eos & (tokens[:, None] == eos_ids[None, :]).any(1)
-            done = done | (live & (is_eos | (n_out >= remaining)
-                                   | (lengths >= limit)))
-            steps += 1
-        return toks, lps, n_out, steps, sampler, last_logits, lengths
+        st = start(sampler, last_logits, lengths, active, remaining,
+                   check_eos, eos_ids, table)
+        toks, lps = loop_outputs(max_steps, st)
+        steps = drive_loop(
+            st, _segment_runner(run, step_fn, st, limit, params, cos, sin,
+                                kc, vc, fast_width),
+            toks, lps, 0, max_steps, lambda s: s > 0 and bool(st.done.all()))
+        return (toks, lps, st.n_out, steps, st.sampler, st.last_logits,
+                st.lengths)
 
     return decode_loop
 
@@ -606,30 +774,66 @@ RLOOP_EXIT_FINISH = 1      # a decode slot finished (EOS/max_tokens/context)
 RLOOP_EXIT_PREFILL = 2     # the host had prefill/admission work pending
 
 
+def ragged_pack_step(ragged_step, st: LoopState, limit: int, params, cos,
+                     sin, kc, vc, pack, is_decode):
+    """Iteration 0 of a fused ragged dispatch over `st`: the mixed tick's
+    single-step body (every packed decode row samples and advances), its
+    results adopted into st's tensors, then n_out and the stop state.
+    Returns the iteration's (tokens, logprobs)."""
+    tokens, lp, sampler, last_logits, lengths = ragged_step(
+        params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
+        pack, is_decode, st.table)
+    st.adopt(sampler, last_logits, lengths)
+    st.n_out.add_(is_decode.to(torch.int32))
+    st.done |= _stops(st, tokens, is_decode, limit)
+    return tokens, lp
+
+
+def ragged_stop(st: LoopState, is_decode) -> bool:
+    """The fused ragged loop's host check: every slot frozen, or a decode
+    slot finished (its first-finish exit)."""
+    return bool(st.done.all() | (is_decode & st.done).any())
+
+
+def ragged_exit_code(st: LoopState, is_decode, prefill_pending: bool):
+    """The dispatch's exit code ([] int32 tensor): RLOOP_EXIT_FINISH if a
+    decode slot finished, else RLOOP_EXIT_PREFILL if prefill was pending
+    (after a pack) with a slot left, else RLOOP_EXIT_STEPS_CAP."""
+    finish = (is_decode & st.done).any()
+    code = finish.to(torch.int32) * RLOOP_EXIT_FINISH
+    if prefill_pending:
+        code = code + (~finish & (~st.done).any()).to(
+            torch.int32) * RLOOP_EXIT_PREFILL
+    return code
+
+
 def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
-                      limit: int):
+                      limit: int, start=LoopState.start, run=None):
     """The fused ragged tick: the mixed ragged dispatch plus up to
     `max_steps - 1` decode iterations for every live decode slot in one
     dispatch. Iteration 0 runs `ragged_step` (the engine's single-step mixed
     body: sample, splice into the flat stream, one ragged_forward, the
-    set_len/logit_set commits); iterations >= 1 run `decode_step`, the
-    paged decode body of the fused decode loop, over the decode-live slots.
-    Slots mid-prefill (or whose final chunk just packed) sit the
-    continuation out frozen. With has_pack=False iteration 0 is skipped: the
-    pure-decode loop of a ragged engine.
+    set_len/logit_set commits; ragged_pack_step); iterations >= 1 run
+    `decode_step`, the paged decode body of the fused decode loop, over the
+    decode-live slots (loop_segment). Slots mid-prefill (or whose final
+    chunk just packed) sit the continuation out frozen. With has_pack=False
+    iteration 0 is skipped: the pure-decode loop of a ragged engine.
 
     Stops, as the reference's: a decode slot finishing (EOS set for
     `check_eos` slots, its `remaining` budget, the `limit` context margin),
     `prefill_pending` (the host has prefill or admission work: the dispatch
     ends after iteration 0), or max_steps. A finished slot is frozen — its
     key, last_logits and length stop — so extra iterations are inert for
-    it. PyTorch has no device while loop: the loop runs in Python, the stop
-    state on the device, and the host reads it (one sync) every
-    _DONE_CHECK_EVERY steps, as build_decode_loop does; `prefill_pending`
-    is a host bool and costs no sync. So after a first finish a dispatch
-    may run up to _DONE_CHECK_EVERY - 1 more steps than the reference's;
-    only live slots advance in them, within their `remaining` budgets, so
-    token streams are unchanged.
+    it. PyTorch has no device while loop: the host drives the decode
+    iterations in segments (drive_loop), the stop state on the device, and
+    reads it (one sync, ragged_stop) at every multiple of
+    _DONE_CHECK_EVERY, as build_decode_loop does; `prefill_pending` is a
+    host bool and costs no sync. So after a first finish a dispatch may run
+    up to _DONE_CHECK_EVERY - 1 more steps than the reference's; only live
+    slots advance in them, within their `remaining` budgets, so token
+    streams are unchanged. As in build_decode_loop, a dispatch starts with
+    a live slot, and the hooks `start` (given `is_decode` as its `active`)
+    and `run` are the engine's.
 
     Returns (toks [max_steps, B], lps [max_steps, B], n_out [B], steps,
     exit_code [] int32 tensor, sampler, last_logits, lengths); the exit
@@ -641,55 +845,25 @@ def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
                     is_decode, remaining, check_eos, eos_ids,
                     prefill_pending: bool, pack=None, table=None,
                     fast_width=None, *, has_pack: bool):
-        B = lengths.shape[0]
-        dev = lengths.device
-        done = ~is_decode
-        n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
-        toks = torch.zeros((max_steps, B), dtype=torch.int32, device=dev)
-        lps = torch.zeros((max_steps, B), dtype=torch.float32, device=dev)
-
-        def stops(tokens, n_out, lengths, live):
-            is_eos = check_eos & (tokens[:, None] == eos_ids[None, :]).any(1)
-            return live & (is_eos | (n_out >= remaining)
-                           | (lengths >= limit))
-
+        st = start(sampler, last_logits, lengths, is_decode, remaining,
+                   check_eos, eos_ids, table)
+        live = ~st.done       # is_decode on the device
+        toks, lps = loop_outputs(max_steps, st)
         steps = 0
         if has_pack:
-            # iteration 0: the exact single-step mixed ragged body; every
-            # packed decode row samples and advances
-            tokens, lp, sampler, last_logits, lengths = ragged_step(
-                params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                pack, is_decode, table)
-            toks[0] = tokens
-            lps[0] = lp
-            n_out = n_out + is_decode.to(torch.int32)
-            done = done | stops(tokens, n_out, lengths, is_decode)
+            toks[0], lps[0] = ragged_pack_step(ragged_step, st, limit,
+                                               params, cos, sin, kc, vc,
+                                               pack, live)
             steps = 1
-        while steps < max_steps and not (has_pack and prefill_pending):
-            if steps % _DONE_CHECK_EVERY == 0 and bool(
-                    (done.all() | (is_decode & done).any())):
-                break
-            live = ~done
-            prev_key = sampler.key
-            tokens, lp, sampler, logits, lengths = decode_step(
-                params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                live, fast_width, table=table)
-            sampler = dataclasses.replace(
-                sampler, key=torch.where(live[:, None], sampler.key,
-                                         prev_key))
-            last_logits = torch.where(live[:, None], logits, last_logits)
-            toks[steps] = tokens
-            lps[steps] = lp
-            n_out = n_out + live.to(torch.int32)
-            done = done | stops(tokens, n_out, lengths, live)
-            steps += 1
-        # finish wins over prefill wins over the steps cap (STEPS_CAP = 0)
-        finish = (is_decode & done).any()
-        exit_code = finish.to(torch.int32) * RLOOP_EXIT_FINISH
-        if has_pack and prefill_pending:
-            exit_code = exit_code + (~finish & (~done).any()).to(
-                torch.int32) * RLOOP_EXIT_PREFILL
-        return (toks, lps, n_out, steps, exit_code, sampler, last_logits,
-                lengths)
+        pending = has_pack and prefill_pending
+        if not pending:
+            steps = drive_loop(
+                st, _segment_runner(run, decode_step, st, limit, params, cos,
+                                    sin, kc, vc, fast_width),
+                toks, lps, steps, max_steps,
+                lambda s: s > 0 and ragged_stop(st, live))
+        return (toks, lps, st.n_out, steps,
+                ragged_exit_code(st, live, pending), st.sampler,
+                st.last_logits, st.lengths)
 
     return ragged_loop

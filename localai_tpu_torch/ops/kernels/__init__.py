@@ -5,7 +5,9 @@ kernel's shared library is compiled with nvcc at its first launch
 
 Every wrapper adds one to its own count where it launches its kernel, and
 nowhere else; `launch_counts()` reads all the counts, `reset_launch_counts()`
-sets them to 0."""
+sets them to 0. A CUDA graph replays its kernels without a Python call, so
+its runner (engine/graphs.py) adds a replay's launches with
+`add_launch_counts()`."""
 from localai_tpu_torch.ops.kernels import flash_attention as _fa
 from localai_tpu_torch.ops.kernels import paged_scatter as _ps
 from localai_tpu_torch.ops.kernels import ragged_attention as _ra
@@ -53,3 +55,11 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add {kernel name: launches} to the counts."""
+    for k, v in delta.items():
+        for counts in _COUNTS:
+            if k in counts:
+                counts[k] += v
