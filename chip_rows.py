@@ -4,7 +4,8 @@ one NVIDIA card.
     python3 chip_rows.py LABEL
 
 Builds the port's kernels and runs chip_smoke.py's checks of rows 1–11
-(PERF.md §6) at the Llama-3.1-8B shapes, each against its plain
+and, where the tree has them, 13–14 (PERF.md §6) at the Llama-3.1-8B
+shapes, each against its plain
 version with its planted fault, then prints one line `ROWS LABEL {row:
 {ms, ms_cold, ms_host, ms_graph}}` (device ms warm and with a cold L2,
 the host-inclusive reading, and the device ms of a call inside a CUDA
@@ -64,6 +65,13 @@ def main():
         "11 ragged_scatter_append_q8": lambda: smoke.check_ragged_scatter(
             KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
     }
+    # rows 13 and 14, the weight GEMMs, at their main rows: M = 4 on
+    # w_gate, and the bf16 head at M = 4 (a parent tree may predate them)
+    if hasattr(smoke, "check_w8a16"):
+        rows["13 w8a16_matmul"] = lambda: smoke.check_w8a16(
+            4, 4096, 14336, bf16)
+        rows["14 head_matmul"] = lambda: smoke.check_head(
+            4, 4096, 128256, "bf16")
     # a parent tree's chip_smoke.py may predate the in-graph readings
     out = {"0 empty kernel": smoke.launch_floor()} \
         if hasattr(smoke, "launch_floor") else {}

@@ -34,7 +34,17 @@ and the script exits non-zero:
      packs`). Then the wider
      geometries, each with its planted fault: ragged attention and paged
      decode at Qwen2-7B's H=28, KVH=4 (GQA group 7), dense decode at G=16
-     (H=128, KVH=8), prefill at head_dim 256.
+     (H=128, KVH=8), prefill at head_dim 256. Then the weight GEMMs:
+     w8a16_matmul (int8 weight, bf16 x) at every 8B projection geometry
+     for M = 4, 8, 192 and 2048 (and one f32 case), against its plain
+     version within two bf16 steps an output and at most 1% of outputs
+     differing, each with two planted faults (a K tile dropped, the scale
+     applied before the bf16 rounding), library_ms the cast + matmul it
+     replaces and library_bf16_ms cuBLAS on a bf16 weight; head_matmul
+     (f32 logits) on the 8B head [4096, 128256] in bf16, int8 and tied at
+     M = 4 and 8 and on Qwen2-7B's head (V = 152064), with a planted fault
+     each (x32 rounded to bf16; a K tile dropped), library_ms the head's
+     f32 copy + matmul (line `phase2 weight gemms`).
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
@@ -56,7 +66,11 @@ and the script exits non-zero:
      run prints its graph runner's counters (captures, replays, steps
      replayed, warm-up steps) and fails if its fused loop served tokens
      without a replay, or if a decode attention or KV scatter kernel did
-     not launch exactly once a layer a decode step.
+     not launch exactly once a layer a decode step. In phases 3 (the
+     graph engines) to 6 the weight GEMMs must have launched exactly once
+     a projection a layer a forward (w8a16_matmul, int8 recipe: 7 a
+     layer) and once a forward that returns logits (head_matmul, both
+     recipes), the forwards counted from the engine's metrics.
   5. the paged path: the same checkpoint served with kv_pages=129,
      parallel=8 and context_size=4096 (the pool holds half of what eight
      dense slots would), both recipes; six concurrent requests, then two
@@ -66,7 +80,8 @@ and the script exits non-zero:
      blocks, deferred admission); checks prefix reuse, the pressure, the
      pool's peak, that only the recipe's paged kernels launched, and three
      greedy requests' served tokens against a teacher-forced plain forward
-     of the same model.
+     of the same model (plain attention and the weight GEMMs' plain
+     versions).
   6. the ragged path: the same synthetic model served in-process by the
      port's Engine with ragged continuous batching (max_slots=8,
      max_context=4096, kv_pages=129, ragged_token_budget=192, the fused
@@ -85,6 +100,7 @@ The second line from the end is {"kernels": [...]}; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -166,6 +182,10 @@ def phase_device():
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16/f16 GEMMs reduce split-K partials in f32, as the reference sums
+    # (the plain versions' cuBLAS calls; the port's kernels always do)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return smi
 
 
@@ -313,21 +333,37 @@ def _compare(out, ref, tol, lengths=None):
     return err, excess
 
 
-def _check_close(name, out, ref, tol, lengths=None, fault=None):
-    """Raise unless out agrees with ref within tol. With `fault` (a plain
-    result of a deliberately wrong computation), also raise unless the
-    same limit rejects it, and report its error."""
+def _mismatch(out, ref):
+    """The share of outputs that differ at all."""
+    return float((out != ref).float().mean())
+
+
+def _check_close(name, out, ref, tol, lengths=None, fault=None, share=None):
+    """Raise unless out agrees with ref within tol (and, with `share`, at
+    most that share of the outputs differs at all). With `fault` (a plain
+    result of a deliberately wrong computation, or {label: result}), also
+    raise unless the same limit rejects each, and report its error."""
     err, excess = _compare(out, ref, tol, lengths)
-    if not excess <= tol[0]:
-        raise AssertionError(f"{name}: max_abs_err {err}, excess over rtol "
-                             f"{excess} > atol {tol[0]}")
     res = {"max_abs_err": err, "tol": f"atol {tol[0]:g} + rtol {tol[1]:g}"}
-    if fault is not None:
-        f_err, f_excess = _compare(out, fault, tol, lengths)
-        if f_excess <= tol[0]:
+    if share is not None:
+        res["mismatch_share"] = _mismatch(out, ref)
+        res["tol"] += f", at most {share:g} of outputs differing"
+    if not excess <= tol[0] or res.get("mismatch_share", 0.0) > (share or 0):
+        raise AssertionError(f"{name}: max_abs_err {err}, excess over rtol "
+                             f"{excess} > atol {tol[0]}, or mismatch share "
+                             f"{res.get('mismatch_share')} > {share}")
+    faults = fault if isinstance(fault, dict) else (
+        {} if fault is None else {"planted_fault": fault})
+    for label, f in faults.items():
+        f_err, f_excess = _compare(out, f, tol, lengths)
+        f_share = _mismatch(out, f) if share is not None else None
+        if f_excess <= tol[0] and (share is None or f_share <= share):
             raise AssertionError(f"{name}: the limit does not reject the "
-                                 f"planted fault ({f_err})")
-        res["planted_fault_err"] = f_err
+                                 f"planted fault {label} ({f_err}, "
+                                 f"share {f_share})")
+        res[label + "_err"] = f_err
+        if f_share is not None:
+            res[label + "_mismatch_share"] = f_share
     return res
 
 
@@ -1046,6 +1082,178 @@ def ragged_packs(H, KVH, D):
     log("phase2 ragged packs " + json.dumps(summary))
 
 
+# w8a16_matmul vs plain: 2 bf16 steps an output — the sum and the scaled
+# product each round once, and another summation order can move either by
+# a step — and at most 1% of the outputs different at all: another order
+# flips about one rounding in 10^4, a scale applied before the rounding
+# about a third (each by the same steps, so only the share rejects it).
+# f32: sums over K up to 14336 of products up to 127 in another order.
+W8_TOL = {"bfloat16": (1e-3, 2 ** -6), "float32": (5e-5, 2 ** -16)}
+W8_SHARE = 0.01
+# head_matmul vs plain: f32 logits of magnitude ~1, sums over K = 4096 in
+# another order (tensor-core sums for the int8 head); rounding x32 to bf16
+# on a bf16 head moves them by ~1e-3
+HEAD_TOL = (1e-4, 0.0)
+# the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
+W8_GEOMETRIES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def _int8_weight(K, N, g):
+    """An N(0, 1/K) weight [K, N] on the card, int8-quantized
+    (QuantWeight)."""
+    import torch
+
+    from localai_tpu_torch.ops.quant import quantize
+
+    return quantize(torch.randn(K, N, device="cuda", generator=g)
+                    * K ** -0.5)
+
+
+def _timings(fn, plain, library, nbytes, flops, peak, cold, **extra):
+    """The readings of one timed case: kernel, plain and library device
+    times (library also host-inclusive), the in-graph reading, cold L2
+    readings with `cold`, and bound_ms; `extra` names more library calls,
+    each timed warm (and cold)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    res = dict(
+        ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
+        ms_graph=_graph_ms(fn), plain_ms=_time_ms(plain),
+        library_ms=_time_ms(library),
+        library_ms_host=_time_ms(library, spin=False),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_formula=(f"max({nbytes:.4g} B / 3.35 TB/s, {flops:.4g} flop "
+                       f"/ {peak / 1e12:.0f} TFLOP/s)"))
+    for k, f in extra.items():
+        res[k] = _time_ms(f) if f else None
+    if cold:
+        res["ms_cold"] = _time_ms(fn, cold=True)
+        res["library_ms_cold"] = _time_ms(library, cold=True)
+        for k, f in extra.items():
+            res[k.replace("_ms", "_ms_cold")] = _time_ms(f, cold=True) \
+                if f else None
+    return res
+
+
+def check_w8a16(M, K, N, dtype, timed=True, cold=True, seed=0):
+    """w8a16_matmul at x [M, K] @ int8 [K, N]. With timed=True also plants
+    two faults — the 64 K rows 64..127 of the weight dropped, and (bf16)
+    the scale applied to the f32 sum before the rounding — and checks that
+    the limit rejects each. library_ms: the two calls it replaces, the
+    weight's cast and torch.matmul; library_bf16_ms: torch.matmul on a
+    bf16 weight made beforehand (what the bf16 recipe pays)."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import w8a16_matmul, \
+        w8a16_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    qw = _int8_weight(K, N, g)
+    q, s = qw.q, qw.s
+    x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+    fn = lambda: w8a16_matmul(x, q, s)  # noqa: E731
+    plain = lambda: w8a16_matmul_plain(x, q, s)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    dt = str(dtype).split(".")[-1]
+    faults = {}
+    if timed:
+        qd = q.clone()
+        qd[64:128] = 0
+        faults["k_tile_dropped"] = w8a16_matmul_plain(x, qd, s)
+        if dtype != torch.float32:
+            faults["scale_before_rounding"] = (
+                (x.float() @ q.float()) * s).to(dtype)
+    name = f"w8a16_matmul {dt} M={M} K={K} N={N}"
+    res = _check_close(name, out, ref, W8_TOL[dt], fault=faults or None,
+                       share=None if dtype == torch.float32 else W8_SHARE)
+    if timed:
+        es = x.element_size()
+        wb = q.to(dtype)
+        res.update(_timings(
+            fn, plain, lambda: torch.matmul(x, q.to(dtype)),
+            nbytes=K * N + M * K * es + M * N * es + 4 * N,
+            flops=2.0 * M * K * N,
+            peak=PEAK_F32 if dtype == torch.float32 else PEAK_BF16,
+            cold=cold, library_bf16_ms=None if dtype == torch.float32
+            else (lambda: torch.matmul(x, wb))))
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_head(M, K, V, kind, timed=True, cold=True, seed=0):
+    """head_matmul at x32 [M, K] f32 against a [K, V] head: bf16, int8
+    (q, s) or a tied bf16 embedding [V, K] passed as embed.T. Planted
+    fault: x32 rounded to bf16 (bf16 and tied), the K rows 64..127
+    dropped (int8). library_ms: the f32 copy of the head and
+    torch.matmul."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul, head_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + V)
+    x32 = torch.randn(M, K, device="cuda", generator=g)
+    if kind == "int8":
+        qw = _int8_weight(K, V, g)
+        args = (qw.q, qw.s)
+    else:
+        w = (torch.randn(V, K, device="cuda", generator=g)
+             * K ** -0.5).to(torch.bfloat16)
+        args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    fn = lambda: head_matmul(x32, *args)  # noqa: E731
+    plain = lambda: head_matmul_plain(x32, *args)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    if kind == "int8":
+        qd = args[0].clone()
+        qd[64:128] = 0
+        fault = {"k_tile_dropped": head_matmul_plain(x32, qd, args[1])}
+    else:
+        fault = {"x32_rounded_to_bf16": head_matmul_plain(
+            x32.to(torch.bfloat16).float(), *args)}
+    name = f"head_matmul {kind} M={M} K={K} V={V}"
+    res = _check_close(name, out, ref, HEAD_TOL,
+                       fault=fault if timed else None)
+    if timed:
+        wbytes = K * V * (1 if kind == "int8" else 2)
+        res.update(_timings(
+            fn, plain, lambda: x32 @ args[0].float(),
+            nbytes=wbytes + (4 * V if kind == "int8" else 0) + M * K * 4
+            + M * V * 4, flops=2.0 * M * K * V,
+            peak=PEAK_BF16 if kind == "int8" else PEAK_F32, cold=cold))
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def weight_gemms():
+    """Rows 13 and 14 of PERF.md §6 at every 8B projection geometry for
+    M = 4, 8 (decode), 192 (phase 6's pack) and 2048 (a prefill batch) in
+    bf16 and one f32 case; the heads of Llama-3.1-8B (bf16, int8, tied) at
+    M = 4 and 8 and of Qwen2-7B at M = 4. Returns the main rows: M = 4 on
+    w_gate, and the bf16 head at M = 4."""
+    import torch
+
+    w8 = {f"M={M} K={K} N={N}": check_w8a16(M, K, N, torch.bfloat16)
+          for K, N in W8_GEOMETRIES for M in (4, 8, 192, 2048)}
+    w8["f32 M=8 K=4096 N=4096"] = check_w8a16(8, 4096, 4096, torch.float32)
+    heads = {f"{kind} M={M}": check_head(M, 4096, 128256, kind)
+             for kind in ("bf16", "int8", "tied") for M in (4, 8)}
+    for kind in ("bf16", "int8"):
+        heads[f"qwen2-7b {kind} M=4"] = check_head(4, 3584, 152064, kind)
+    keep = ("max_abs_err", "mismatch_share", "ms", "ms_cold", "ms_host",
+            "ms_graph", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "library_bf16_ms")
+    log("phase2 weight gemms " + json.dumps({
+        "w8a16_matmul": {k: {f: r.get(f) for f in keep}
+                         for k, r in w8.items()},
+        "head_matmul": {k: {f: r.get(f) for f in keep}
+                        for k, r in heads.items()}}))
+    torch.cuda.empty_cache()
+    return w8["M=4 K=4096 N=14336"], heads["bf16 M=4"]
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes
     (plus small f32 / GQA / window cases for the algorithm)."""
@@ -1148,6 +1356,7 @@ def phase_kernels():
             2, 96, 8, 2, 256, f32, [96, 50]),
     }
     ragged_packs(H, KVH, D)
+    main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
     main["launch floor"] = launch_floor()
     log("phase2 wide geometry " + json.dumps({
         k: {f: r.get(f) for f in ("max_abs_err", "planted_fault_err", "ms",
@@ -1315,21 +1524,25 @@ GRAPH_REQUESTS = [
 GRAPH_TOKENS = 24
 
 
-def _serve_graph_case(cfg, params, ec, eager):
+def _serve_graph_case(cfg, params, ec, eager, label):
     """GRAPH_REQUESTS through an in-process Engine, its loop segments as
     graph replays or (eager=True) each called directly (EagerSegments, a
-    runner for checks: the engine never makes one). Returns
+    runner for checks: the engine never makes one); checks the weight
+    GEMMs' launches against the forwards run. Returns
     ([(tokens, logprobs)], runner counters)."""
     from localai_tpu_torch.engine.engine import (
         Engine, EngineConfig, GenRequest,
     )
     from localai_tpu_torch.engine.graphs import EagerSegments
+    from localai_tpu_torch.ops.kernels import launch_counts
+    from localai_tpu_torch.ops.quant import is_quantized
     from localai_tpu_torch.ops.sampling import SamplingParams
 
     eng = Engine(cfg, params, None, EngineConfig(**ec), device="cuda")
     if eager:
         eng.graphs = EagerSegments(eng.device)
     eng.warmup()
+    c0, m0, g0 = launch_counts(), dict(eng.metrics), eng.graphs.counters()
     qs = [eng.submit(GenRequest(prompt_ids(i, n, salt=7), SamplingParams(**sp),
                                 max_tokens=GRAPH_TOKENS, ignore_eos=True,
                                 logprobs=True))[1]
@@ -1337,6 +1550,11 @@ def _serve_graph_case(cfg, params, ec, eager):
     for _ in range(10000):
         if not eng.step():
             break
+    launched = {k: v - c0[k] for k, v in launch_counts().items()}
+    check_weight_gemms(label, launched, cfg.num_layers,
+                       *forward_counts(m0, eng.metrics,
+                                       graph_delta(g0, eng.graphs.counters())),
+                       is_quantized(params.layers[0]["wq"]))
     out = []
     for q in qs:
         toks, lps = [], []
@@ -1376,8 +1594,11 @@ def phase_graphs():
             params, kv = quantize_params(params), "int8"
         for path, ec in GRAPH_EC.items():
             ec = dict(ec, cache_type=kv)
-            graphed, counters = _serve_graph_case(cfg, params, ec, False)
-            eager, eager_counters = _serve_graph_case(cfg, params, ec, True)
+            label = f"phase3 graphs {recipe} {path}"
+            graphed, counters = _serve_graph_case(cfg, params, ec, False,
+                                                  label)
+            eager, eager_counters = _serve_graph_case(cfg, params, ec, True,
+                                                      label + " eager")
             res = {
                 "tokens_equal": [g[0] == e[0]
                                  for g, e in zip(graphed, eager)],
@@ -1540,6 +1761,42 @@ def graph_delta(before, after):
             for p, c in after.items()}
 
 
+# the projections w8a16_matmul runs a layer a forward in the int8 recipe
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def forward_counts(m0, m1, graphs):
+    """(forwards, forwards that return logits) an engine ran between two
+    readings of its metrics: admission prefills, chunked-prefill extends
+    (a non-final chunk returns no logits), decode steps (a ragged pack
+    counts as one) and its graphs' inert warm-up steps (`graphs`: the
+    runner's counters gained, by path)."""
+    def gained(k):
+        return int(m1[k] - m0[k])
+
+    mid = gained("prefill_chunks_mid")
+    forwards = (gained("admit_dispatches") + mid
+                + gained("prefill_chunks_final")
+                + gained("decode_steps_dispatched")
+                + sum(g.get("warmup_steps", 0) for g in graphs.values()))
+    return forwards, forwards - mid
+
+
+def check_weight_gemms(label, launched, layers, forwards, logit_forwards,
+                       int8):
+    """The weight GEMM kernels launched once a projection a layer a forward
+    (w8a16_matmul, int8 recipe only) and once a forward that returns
+    logits (head_matmul: the untied bf16 or int8 head)."""
+    want = {"w8a16_matmul": len(PROJECTIONS) * layers * forwards if int8
+            else 0, "head_matmul": logit_forwards}
+    for k, n in want.items():
+        if launched[k] != n:
+            raise AssertionError(
+                f"{label}: {k} launched {launched[k]} times, not {n} "
+                f"({forwards} forwards, {logit_forwards} with logits, "
+                f"{layers} layers)")
+
+
 def check_fused_path(label, graphs, path, loop_tokens, launched, kernels,
                      layers, steps):
     """A run's fused loop went through graph replays whenever it served
@@ -1596,6 +1853,8 @@ def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
             out = wave_stats(name, results, wall, m0, m1, before, after,
                              requests)
             out["graphs"] = graph_delta(g0, g1)
+            out["forwards"], out["logit_forwards"] = forward_counts(
+                m0, m1, out["graphs"])
             out["metrics_before"], out["metrics_after"] = m0, m1
             out["_results"] = results
             outs.append(out)
@@ -1654,6 +1913,9 @@ def phase_main_path():
                          out["loop_tokens"], out["launches_during_requests"],
                          (k,), CFG_8B["num_hidden_layers"],
                          out["decode_steps"])
+        check_weight_gemms(f"phase4 {name}", out["launches_during_requests"],
+                           CFG_8B["num_hidden_layers"], out["forwards"],
+                           out["logit_forwards"], name == "int8")
     return counts
 
 
@@ -1720,12 +1982,33 @@ def paged_reference_cases(outs):
     return cases, fault
 
 
+@contextlib.contextmanager
+def plain_weight_gemms():
+    """Within: the model's projections and lm head run the weight GEMMs'
+    plain versions (cast + torch.matmul) on the card too, for the
+    teacher-forced reference, which launches none of the port's kernels.
+    A check's own device, never the serving path's."""
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops import quant
+    from localai_tpu_torch.ops.kernels import head_matmul_plain, \
+        w8a16_matmul_plain
+
+    saved = quant.w8a16_matmul, llama.head_matmul
+    quant.w8a16_matmul, llama.head_matmul = (w8a16_matmul_plain,
+                                             head_matmul_plain)
+    try:
+        yield
+    finally:
+        quant.w8a16_matmul, llama.head_matmul = saved
+
+
 def check_reference(name, engine, cases, fault, phase="phase5"):
     """Hold greedy requests served on the paged or ragged path against a
     teacher-forced reference: the prompt plus the served tokens go through
     the port's plain forward (models.llama.extend over a dense cache — plain
-    attention, no block table, none of the paged or ragged kernels) in one
-    window, which gives the logits that predicted each served token. Greedy
+    attention, no block table, none of the paged or ragged kernels, and the
+    weight GEMMs' plain versions) in one window, which gives the logits
+    that predicted each served token. Greedy
     serving picks each row's argmax, so the served token's reference logit
     must be within REF_MARGIN of the row's largest (gap) and its served
     logprob within REF_LP_TOL of the reference's. `cases`: {label: (prompt
@@ -1761,10 +2044,11 @@ def check_reference(name, engine, cases, fault, phase="phase5"):
                 "logit_std": float(ref.std(1).mean())}
 
     before = launch_counts()
-    out = {label: readings(reference(ids, toks), toks, lps)
-           for label, (ids, toks, lps) in cases.items()}
-    ids, toks, lps = fault
-    out["planted fault"] = readings(reference(ids, toks), toks, lps)
+    with plain_weight_gemms():
+        out = {label: readings(reference(ids, toks), toks, lps)
+               for label, (ids, toks, lps) in cases.items()}
+        ids, toks, lps = fault
+        out["planted fault"] = readings(reference(ids, toks), toks, lps)
     if launch_counts() != before:
         raise AssertionError("the reference forward launched a kernel")
     log(f"{phase} {name} reference (margin {REF_MARGIN}, logprob tol "
@@ -1866,6 +2150,10 @@ def phase_paged_path(smi):
                              out["launches_during_requests"], own[name],
                              CFG_8B["num_hidden_layers"],
                              out["decode_steps"])
+            check_weight_gemms(f"phase5 {name} wave {w + 1}",
+                               out["launches_during_requests"],
+                               CFG_8B["num_hidden_layers"], out["forwards"],
+                               out["logit_forwards"], name == "int8")
     return counts
 
 
@@ -1967,6 +2255,7 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
     try:
         reset_launch_counts()
         g0 = eng.graphs.counters()
+        m0 = dict(eng.metrics)
         recs, wall = drive_engine(eng)
         torch.cuda.synchronize()
         counts = launch_counts()
@@ -2028,6 +2317,8 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
                          m["decode_steps_dispatched"] - packs)
         check_fused_path(f"{phase} {name} packs", {}, "rloop", 0, counts,
                          RAGGED_OWN[name], cfg.num_layers, packs)
+        check_weight_gemms(f"{phase} {name}", counts, cfg.num_layers,
+                           *forward_counts(m0, m, graphs), name == "int8")
         other = RAGGED_OWN["int8" if name == "bf16" else "bf16"]
         for k in ("flash_prefill", "ragged_decode", "ragged_decode_q8") \
                 + other:
@@ -2110,6 +2401,12 @@ KERNELS = {
     "ragged_scatter_append_q8": (
         "localai_tpu_torch/csrc/paged_scatter.cu",
         "localai_tpu/ops/pallas/ragged_attention.py:520"),
+    # XLA-fused in the reference (no Pallas kernel): the int8 projection's
+    # convert + dot, and the f32 lm head's
+    "w8a16_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                     "localai_tpu/ops/quant.py:78"),
+    "head_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                    "localai_tpu/models/llama.py:347"),
 }
 # which path's run each kernel's `launches` comes from: PR 1's dense main
 # path (phase 4), the paged path (phase 5) or the ragged path (phase 6)
@@ -2143,7 +2440,9 @@ def main():
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
                      "library_ms_host": m["library_ms_host"],
-                     "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"]})
+                     "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"],
+                     **({"library_bf16_ms": m["library_bf16_ms"]}
+                        if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -303,6 +303,10 @@ class Engine:
             "decode_dispatches": 0,
             "decode_steps_dispatched": 0,
             "admit_dispatches": 0,
+            # chunked prefill (extend) dispatches: non-final chunks (no
+            # logits) and final chunks (last-token logits)
+            "prefill_chunks_mid": 0,
+            "prefill_chunks_final": 0,
             "host_sync_wait_ms": 0.0,
             "tokens_by_path__loop": 0,
             "tokens_by_path__dense": 0,
@@ -533,6 +537,7 @@ class Engine:
 
     def _dev_extend_mid(self, buf, pos, idx):
         """One non-final prefill chunk: KV writes only."""
+        self.metrics["prefill_chunks_mid"] += 1
         dev = self.device
         with torch.no_grad():
             extend(self.params, self.cfg, torch.as_tensor(buf, device=dev),
@@ -545,6 +550,7 @@ class Engine:
         """Final prefill chunk: KV writes + last-token logits + the sampler
         row install (deferred to here so the request's RNG stream does not
         depend on how many ticks the prefill spanned)."""
+        self.metrics["prefill_chunks_final"] += 1
         dev = self.device
         with torch.no_grad():
             logits = extend(

@@ -34,9 +34,9 @@ from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.ops.attention import mha_extend
 from localai_tpu_torch.ops.kernels import (
-    QBLK, flash_prefill, paged_scatter_append, paged_scatter_append_q8,
-    paged_targets, ragged_decode, ragged_decode_q8, ragged_paged_attention,
-    ragged_paged_attention_q8, ragged_scatter_append,
+    QBLK, flash_prefill, head_matmul, paged_scatter_append,
+    paged_scatter_append_q8, paged_targets, ragged_decode, ragged_decode_q8,
+    ragged_paged_attention, ragged_paged_attention_q8, ragged_scatter_append,
     ragged_scatter_append_q8,
 )
 from localai_tpu_torch.ops.kvcache import (
@@ -295,15 +295,15 @@ def _qkv(x, lp, cfg: LlamaConfig):
 
 def _lm_head(x32, params: Llama):
     """Vocabulary projection in f32 (tied embeddings or separate, possibly
-    int8, lm_head). The int8 head is a bf16×bf16 product with f32
-    accumulation: the activations round to bf16, int8 values are exact."""
+    int8, lm_head) through ops/kernels.head_matmul, which reads the head as
+    stored. The int8 head is a bf16×bf16 product with f32 accumulation: the
+    activations round to bf16, int8 values are exact."""
     head = params.lm_head
     if head is None:
-        return x32 @ params.embed.float().T
+        return head_matmul(x32, params.embed.T)
     if is_quantized(head):
-        y = x32.to(torch.bfloat16).float() @ head.q.float()
-        return y * head.s.float()
-    return x32 @ head.float()
+        return head_matmul(x32, head.q, head.s)
+    return head_matmul(x32, head)
 
 
 def _mlp(x, lp):

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port (counterparts of
-localai_tpu/ops/pallas). Importing this package builds nothing: each
-kernel's shared library is compiled with nvcc at its first launch
-(_build.py).
+localai_tpu/ops/pallas, and — weight_gemm — of the XLA-fused weight
+products of localai_tpu/ops/quant.py and models/llama.py). Importing this
+package builds nothing: each kernel's shared library is compiled with nvcc
+at its first launch (_build.py).
 
 Every wrapper adds one to its own count where it launches its kernel, and
 nowhere else; `launch_counts()` reads all the counts, `reset_launch_counts()`
@@ -11,6 +12,7 @@ its runner (engine/graphs.py) adds a replay's launches with
 from localai_tpu_torch.ops.kernels import flash_attention as _fa
 from localai_tpu_torch.ops.kernels import paged_scatter as _ps
 from localai_tpu_torch.ops.kernels import ragged_attention as _ra
+from localai_tpu_torch.ops.kernels import weight_gemm as _wg
 from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     DECODE_TILE,
     decode_split,
@@ -42,8 +44,15 @@ from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
     ragged_split,
     ragged_tiling,
 )
+from localai_tpu_torch.ops.kernels.weight_gemm import (  # noqa: F401
+    gemm_split,
+    head_matmul,
+    head_matmul_plain,
+    w8a16_matmul,
+    w8a16_matmul_plain,
+)
 
-_COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES, _ra.LAUNCHES)
+_COUNTS = (_fa.LAUNCHES, _ps.LAUNCHES, _ra.LAUNCHES, _wg.LAUNCHES)
 
 
 def launch_counts() -> dict:

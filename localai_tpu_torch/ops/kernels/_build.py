@@ -24,7 +24,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("flash_prefill", "decode_attention", "paged_scatter",
-           "ragged_attention")
+           "ragged_attention", "weight_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -64,6 +64,12 @@ SIGNATURES = {
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _F, _P, _I, _I, _P],
         "ragged_attention_tiling": [_I, _I, _I],
+    },
+    "weight_gemm": {
+        "weight_gemm_mma_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _P],
+        "weight_gemm_simt_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _P],
     },
 }
 

@@ -1,0 +1,234 @@
+"""Weight GEMMs that read the weights as they are stored, with their plain
+PyTorch versions (counterparts of two products the reference leaves to
+XLA, which fuses each weight's convert into its dot:
+localai_tpu/ops/quant.py:78-80 and localai_tpu/models/llama.py:347-364).
+
+Two wrappers, each beside its plain version with the same signature:
+- w8a16_matmul / _plain — x [..., K] (bf16, f16 or f32) @ int8 q [K, N],
+  then * s [1, N]: the int8 recipe's projections (ops/quant.qmatmul). The
+  sum is taken in f32 and rounds once to x's dtype, the scale rounds to
+  x's dtype, and their product rounds again — the reference's order.
+- head_matmul / _plain — the f32 vocabulary projection
+  (models/llama._lm_head): x32 [..., K] f32 against a bf16/f16 head [K, V],
+  a tied embedding passed as `embed.T` (the transpose of a row-major
+  [V, K]), or an int8 head (q [K, V], s [1, V]), for which x32 rounds to
+  bf16 and the exact bf16 x int8 products sum in f32. An f32 head is a
+  plain product (`x32 @ head`) on any device: there is no cast to save.
+
+On the card both run csrc/weight_gemm.cu: bf16/f16 activations (and the
+int8 head) on the tensor cores, f32 activations as f32 FMAs; split-K with
+a workspace and an ordered combine where the output tiles alone would not
+fill the card. No weight is cast or copied per call: a weight that is not
+contiguous (or, for the head, the transpose of a contiguous tensor) or
+not 16-byte aligned raises. K and N must be multiples of 16.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises — no size threshold, probe or switch sends a
+CUDA tensor elsewhere. Each launch adds one to its count in LAUNCHES, and
+nothing else does.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from localai_tpu_torch.ops.kernels import _build
+from localai_tpu_torch.ops.kernels.flash_attention import (
+    _raise_rc, _sm_count, _stream,
+)
+
+LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0}
+
+# csrc/weight_gemm.cu's dtype codes
+_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+         torch.int8: 3}
+
+# (rows, columns, K depth) of a block's tile on each route, as in
+# csrc/weight_gemm.cu: tensor cores with 16-row tiles (M <= 16), 64-row
+# tiles (M <= 64) or 128-row tiles, and the f32 SIMT route
+MMA_TILES = ((16, 128, 64), (64, 128, 64), (128, 128, 64))
+SIMT = (8, 512, 16)
+# K rows a split takes at least
+SPLIT_MIN_K = 256
+
+
+def mma_rows(M: int) -> int:
+    """The tensor-core tile for M rows (an index of MMA_TILES): the
+    smallest that holds them, 128-row tiles above 64."""
+    return 0 if M <= 16 else 1 if M <= 64 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_split(M: int, N: int, K: int, tile: tuple, sms: int):
+    """(splits, K tiles a split) of an [M, K] @ [K, N] call on `tile`'s
+    route: enough splits that the (row tile, column tile, split) blocks
+    number about two per SM, each split at least SPLIT_MIN_K deep, and
+    none empty. Shapes only, so a call needs no device sync."""
+    bm, bn, bk = tile
+    blocks = -(-M // bm) * -(-N // bn)
+    nk = -(-K // bk)
+    want = max(1, -(-2 * sms // blocks))
+    per = max(-(-nk // want), min(nk, max(1, SPLIT_MIN_K // bk)))
+    return -(-nk // per), per
+
+
+# ------------------------------------------------------------------ plain
+
+def w8a16_matmul_plain(x, q, s):
+    """Plain version of w8a16_matmul: the int8 weight cast to x's dtype,
+    the product, then the scale in x's dtype (the reference's order)."""
+    y = x @ q.to(x.dtype)
+    return y * s.reshape((1,) * (y.ndim - 1) + (-1,)).to(y.dtype)
+
+
+def head_matmul_plain(x32, w, s=None):
+    """Plain version of head_matmul: f32 logits of x32 against the head's
+    f32 values; with `s` (an int8 head) x32 rounds to bf16 first."""
+    if s is not None:
+        y = x32.to(torch.bfloat16).float() @ w.float()
+        return y * s.float()
+    return x32 @ w.float()
+
+
+# ------------------------------------------------------------ the checks
+
+_ACT = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _weight_checks(name, x, w, s, dtypes):
+    """(K, N, nk) of the weight w [K, N] (nk: w is the transpose of a
+    row-major [N, K]); raises, naming the limit, on what the kernels do
+    not take. Shapes, dtypes and layouts only (a meta tensor will do).
+    Nothing is copied: a weight is used as it lies in memory."""
+    if w.dim() != 2:
+        raise ValueError(f"{name}: the weight must be 2-D [K, N], got "
+                         f"{tuple(w.shape)}")
+    K, N = w.shape
+    if x.shape[-1] != K:
+        raise ValueError(f"{name}: x has {x.shape[-1]} features, the weight "
+                         f"{K} rows")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: activations must be one of "
+                        f"{[str(d) for d in dtypes]}, got {x.dtype}")
+    if K % 16 or N % 16:
+        raise ValueError(f"{name}: K ({K}) and N ({N}) must be multiples of "
+                         f"16 (16-byte weight rows)")
+    if s is not None:
+        if w.dtype != torch.int8 or not w.is_contiguous():
+            raise ValueError(f"{name}: an int8 weight must be a contiguous "
+                             f"int8 [K, N], got {w.dtype}")
+        if s.dtype != torch.float32 or s.numel() != N \
+                or not s.is_contiguous():
+            raise ValueError(f"{name}: scales must be a contiguous f32 "
+                             f"[1, {N}], got {s.dtype} {tuple(s.shape)}")
+        return K, N, False
+    if w.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{name}: the weight must be bf16 or f16 (or int8 "
+                        f"with scales), got {w.dtype}")
+    nk = not w.is_contiguous()
+    if nk and not w.t().is_contiguous():
+        raise ValueError(f"{name}: the weight must be a row-major [K, N] or "
+                         f"the transpose of a row-major [N, K]")
+    return K, N, nk
+
+
+def _placement_checks(name, x, tensors):
+    """The weights lie on x's card, 16-byte aligned (cp.async rows)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: weights must be 16-byte aligned")
+
+
+def _rows(x, K):
+    """x as a contiguous, 16-byte aligned [M, K] (an activation; a view
+    that is neither is copied)."""
+    x2 = x.reshape(-1, K)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    return x2
+
+
+def _workspace(splits, M, N, device):
+    return torch.empty(splits * M * N, dtype=torch.float32, device=device) \
+        if splits > 1 else None
+
+
+def _launch_mma(name, x2, q, s, out, epi):
+    """Tensor-core route: x2 [M, K] bf16/f16, q [K, N] int8, s [N] f32."""
+    M, K = x2.shape
+    N = q.shape[1]
+    rows = mma_rows(M)
+    splits, per = gemm_split(M, N, K, MMA_TILES[rows], _sm_count(x2.device))
+    ws = _workspace(splits, M, N, x2.device)
+    rc = _build.load("weight_gemm").weight_gemm_mma_launch(
+        _CODE[x2.dtype], epi, rows, x2.data_ptr(),
+        q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K, splits, per,
+        _stream(x2.device))
+    _raise_rc(name, rc)
+
+
+def _launch_simt(name, x2, w, s, out, nk):
+    """SIMT route: x2 [M, K] f32; w int8/bf16/f16 [K, N] (nk: the
+    transpose of a row-major [N, K]); s [N] f32 or None."""
+    M, K = x2.shape
+    N = w.shape[1]
+    splits, per = gemm_split(M, N, K, SIMT, _sm_count(x2.device))
+    ws = _workspace(splits, M, N, x2.device)
+    rc = _build.load("weight_gemm").weight_gemm_simt_launch(
+        _CODE[w.dtype], int(nk), x2.data_ptr(), w.data_ptr(),
+        None if s is None else s.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K, splits, per,
+        _stream(x2.device))
+    _raise_rc(name, rc)
+
+
+# --------------------------------------------------------------- wrappers
+
+def w8a16_matmul(x, q, s):
+    """x [..., K] (bf16, f16 or f32) @ int8 q [K, N] with per-output-
+    channel scales s [1, N] f32 → [..., N] in x's dtype, computed as
+    w8a16_matmul_plain computes it: f32 sums, rounded once to x's dtype,
+    times s in x's dtype."""
+    if x.device.type == "cpu":
+        return w8a16_matmul_plain(x, q, s)
+    name = "w8a16_matmul"
+    K, N, _ = _weight_checks(name, x, q, s, _ACT)
+    _placement_checks(name, x, (q, s))
+    x2 = _rows(x, K)
+    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
+    if x2.shape[0]:
+        if x.dtype == torch.float32:
+            _launch_simt(name, x2, q, s, out, nk=False)
+        else:
+            _launch_mma(name, x2, q, s, out, epi=0)
+        LAUNCHES[name] += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+def head_matmul(x32, w, s=None):
+    """f32 logits [..., V] of x32 [..., K] f32 against the head w [K, V]:
+    bf16/f16 (row-major, or `embed.T` of a tied row-major [V, K]
+    embedding), int8 with scales s [1, V] f32, or f32 (a plain product)."""
+    if x32.device.type == "cpu":
+        return head_matmul_plain(x32, w, s)
+    if s is None and w.dtype == torch.float32:
+        return x32 @ w
+    name = "head_matmul"
+    K, V, nk = _weight_checks(name, x32, w, s, (torch.float32,))
+    _placement_checks(name, x32, (w,) if s is None else (w, s))
+    x2 = _rows(x32, K)
+    out = torch.empty((x2.shape[0], V), dtype=torch.float32,
+                      device=x32.device)
+    if x2.shape[0]:
+        if s is not None:
+            _launch_mma(name, x2.to(torch.bfloat16), w, s, out, epi=1)
+        else:
+            _launch_simt(name, x2, w, None, out, nk=nk)
+        LAUNCHES[name] += 1
+    return out.reshape(*x32.shape[:-1], V)

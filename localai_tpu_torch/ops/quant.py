@@ -2,9 +2,11 @@
 localai_tpu/ops/quant.py).
 
 A quantized weight holds `q` int8 [.., in, out] and `s` f32 [.., 1, out]
-(one scale per output channel). `qmatmul` casts int8 to the activation
-dtype, multiplies, then applies the scale — the reference's order, so bf16
-rounds at the same place. int4 waits for a later slice.
+(one scale per output channel). `qmatmul` computes the reference's
+x @ q.astype(x.dtype), then * s in x's dtype, through
+ops/kernels.w8a16_matmul: on the card one kernel reads the int8 weight as
+stored (no per-call cast), on the CPU its plain version casts and
+multiplies. int4 waits for a later slice.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from localai_tpu_torch import not_ported
+from localai_tpu_torch.ops.kernels import w8a16_matmul
 
 
 class QuantWeight(nn.Module):
@@ -71,8 +74,7 @@ def qmatmul(x, p):
     if not is_quantized(p):
         return x @ p
     q, s = (p.q, p.s) if isinstance(p, QuantWeight) else (p["q"], p["s"])
-    y = x @ q.to(x.dtype)
-    return y * s.reshape((1,) * (y.ndim - 1) + (-1,)).to(y.dtype)
+    return w8a16_matmul(x, q, s)
 
 
 def quantize_params(model, *, bits: int = 8):

@@ -201,7 +201,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                            "ragged_paged_attention",
                            "ragged_paged_attention_q8",
                            "ragged_scatter_append",
-                           "ragged_scatter_append_q8"}
+                           "ragged_scatter_append_q8", "w8a16_matmul",
+                           "head_matmul"}
     assert not any(counts.values())
 
 

@@ -1,0 +1,582 @@
+"""The port's weight GEMMs (localai_tpu_torch.ops.kernels.weight_gemm):
+w8a16_matmul, the int8 projections of ops/quant.qmatmul, and head_matmul,
+the f32 vocabulary projection of models/llama._lm_head.
+
+On the CPU: each plain version against the JAX function it stands for
+(localai_tpu.ops.quant.qmatmul, localai_tpu.models.llama._lm_head) on the
+same numpy inputs; the wrappers' CPU dispatch and shape checks; and the
+tiny checkpoint's int8 recipe through both engines. On an NVIDIA card
+(marker `cuda`, skipped without one): each kernel against its plain
+version, a kernel call captured in a CUDA graph against the same call run
+eagerly, and repeated calls, bit for bit.
+
+Tolerances:
+- f32: 2e-5 (same products, summed in another order);
+- bf16 plain vs JAX: atol 1e-3 + rtol 2**-6. Both sum in f32 and round
+  twice — the sum to bf16 and the scaled product to bf16 — so an output
+  may sit one bf16 step (2**-7 relative at most) off for each rounding
+  whose input differs by the f32 summation order: two steps, 2**-6;
+- kernel vs plain on the card, bf16 (w8a16_matmul): the same 2-step bound
+  per element, and at most 1% of the outputs differ at all. Another
+  summation order flips the bf16 rounding of about one output in 10^4; a
+  scale applied before the rounding (a wrong epilogue) moves about a third
+  of them, each by at most the same two steps, so only the share tells it
+  from a right one;
+- head_matmul on the card: atol 1e-4 on logits of magnitude ~1 — f32 sums
+  of 4096 terms in another order (rounding x32 to bf16 on a bf16 head
+  moves them by ~1e-3).
+
+JAX is imported inside the CPU tests only, so the card's machine (which
+has no JAX) runs the CUDA-gated tests with
+`python -m pytest --noconftest tests/test_torch_weight_gemm.py -m cuda`.
+"""
+import numpy as np
+import pytest
+import torch
+
+from localai_tpu_torch.ops import kernels as tk
+from localai_tpu_torch.ops.kernels import weight_gemm as wg
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2 ** -6, atol=1e-3)
+MISMATCH_SHARE = 0.01
+HEAD_CARD = dict(rtol=0.0, atol=1e-4)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _jax():
+    import jax.numpy as jnp
+
+    from localai_tpu.models import llama as jllama
+    from localai_tpu.ops import quant as jquant
+
+    return jnp, jquant, jllama
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _weight(seed, K, N):
+    """An int8 weight and its scales as numpy, quantized by the reference
+    from N(0, 1/K) values (the checkpoints' init)."""
+    jnp, jquant, _ = _jax()
+    w = _rng(seed).standard_normal((K, N)).astype(np.float32) * K ** -0.5
+    p = jquant.quantize(jnp.asarray(w))
+    return np.asarray(p["q"]), np.asarray(p["s"])
+
+
+def _x_shape(M, ndim):
+    if ndim == 2:
+        return (M,)
+    return {1: (1, 1), 8: (2, 4), 192: (2, 96), 300: (3, 100)}[M]
+
+
+# ------------------------------------------------ plain vs the reference
+
+@pytest.mark.parametrize("K,N", [(24, 40), (256, 384)],
+                         ids=["ragged", "aligned"])
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("M", [1, 8, 192, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w8a16_plain_vs_reference_qmatmul(dtype, M, ndim, K, N):
+    jnp, jquant, _ = _jax()
+    q, s = _weight(M + K, K, N)
+    x = _rng(M).standard_normal(_x_shape(M, ndim) + (K,)).astype(np.float32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = jquant.qmatmul(jnp.asarray(x, jd),
+                         {"q": jnp.asarray(q), "s": jnp.asarray(s)})
+    out = wg.w8a16_matmul_plain(torch.tensor(x).to(td), torch.tensor(q),
+                                torch.tensor(s))
+    assert out.dtype == td and out.shape == ref.shape
+    np.testing.assert_allclose(_np(out), np.asarray(ref, np.float32),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+def _head_params(kind, K, V, seed):
+    """The reference's params for _lm_head, and the port's head_matmul
+    arguments for the same head."""
+    jnp, jquant, _ = _jax()
+    r = _rng(seed)
+    w = (r.standard_normal((K, V)) * K ** -0.5).astype(np.float32)
+    embed = (r.standard_normal((V, K)) * K ** -0.5).astype(np.float32)
+    if kind == "bf16":
+        h = jnp.asarray(w, jnp.bfloat16)
+        return {"embed": jnp.asarray(embed), "lm_head": h}, (
+            torch.tensor(np.asarray(h, np.float32)).to(torch.bfloat16),)
+    if kind == "tied":
+        e = jnp.asarray(embed, jnp.bfloat16)
+        te = torch.tensor(np.asarray(e, np.float32)).to(torch.bfloat16)
+        return {"embed": e}, (te.T,)
+    p = jquant.quantize(jnp.asarray(w))
+    return {"embed": jnp.asarray(embed), "lm_head": p}, (
+        torch.tensor(np.asarray(p["q"])), torch.tensor(np.asarray(p["s"])))
+
+
+@pytest.mark.parametrize("shape", [(1,), (8,), (2, 5)],
+                         ids=["M1", "M8", "3d"])
+@pytest.mark.parametrize("kind", ["bf16", "tied", "int8"])
+def test_head_plain_vs_reference_lm_head(kind, shape):
+    jnp, _, jllama = _jax()
+    K, V = 64, 200
+    params, args = _head_params(kind, K, V, seed=len(shape) + shape[0])
+    x = _rng(3).standard_normal(shape + (K,)).astype(np.float32)
+    ref = jllama._lm_head(jnp.asarray(x), params)
+    out = wg.head_matmul_plain(torch.tensor(x), *args)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+def test_port_lm_head_takes_the_three_head_kinds():
+    """models/llama._lm_head hands each head kind to head_matmul as stored:
+    the tied embedding as embed.T, the int8 head as (q, s)."""
+    jnp, _, jllama = _jax()
+    from localai_tpu_torch.models import llama as tllama
+    from localai_tpu_torch.ops.quant import QuantWeight
+
+    K, V = 32, 48
+    x = _rng(4).standard_normal((3, K)).astype(np.float32)
+    for kind in ("bf16", "tied", "int8"):
+        params, args = _head_params(kind, K, V, seed=9)
+        head = None if kind == "tied" else (
+            QuantWeight(*args) if kind == "int8" else args[0])
+        embed = args[0].T.contiguous() if kind == "tied" else \
+            torch.zeros(V, K, dtype=torch.bfloat16)
+        model = type("P", (), {"lm_head": head, "embed": embed})()
+        out = tllama._lm_head(torch.tensor(x), model)
+        ref = jllama._lm_head(jnp.asarray(x), params)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+# ------------------------------------------------------ wrappers on CPU
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    tk.reset_launch_counts()
+    q, s = _weight(1, 32, 48)
+    x = torch.tensor(_rng(2).standard_normal((2, 3, 32)).astype(np.float32))
+    tq, ts = torch.tensor(q), torch.tensor(s)
+    for dt in (torch.float32, torch.bfloat16):
+        a = tk.w8a16_matmul(x.to(dt), tq, ts)
+        torch.testing.assert_close(a, tk.w8a16_matmul_plain(x.to(dt), tq, ts),
+                                   rtol=0, atol=0)
+    hb = torch.tensor(_rng(3).standard_normal((32, 64)).astype(np.float32))
+    for args in ((hb.to(torch.bfloat16),), (hb.T.contiguous().to(
+            torch.bfloat16).T,), (hb,), (tq, ts)):
+        torch.testing.assert_close(tk.head_matmul(x, *args),
+                                   tk.head_matmul_plain(x, *args), rtol=0,
+                                   atol=0)
+    counts = tk.launch_counts()
+    assert counts["w8a16_matmul"] == 0 and counts["head_matmul"] == 0
+
+
+def test_qmatmul_routes_int8_through_the_wrapper(monkeypatch):
+    """ops/quant.qmatmul hands a quantized weight to w8a16_matmul as
+    stored (q, s); a dense weight is still `x @ p`, no wrapper."""
+    from localai_tpu_torch.ops import quant as tquant
+
+    seen = []
+
+    def spy(x, q, s):
+        seen.append((q, s))
+        return wg.w8a16_matmul_plain(x, q, s)
+
+    monkeypatch.setattr(tquant, "w8a16_matmul", spy)
+    w = torch.tensor(_rng(5).standard_normal((32, 48)).astype(np.float32))
+    x = torch.tensor(_rng(6).standard_normal((4, 32)).astype(np.float32))
+    qw = tquant.quantize(w)
+    y = tquant.qmatmul(x, qw)
+    assert len(seen) == 1 and seen[0][0] is qw.q and seen[0][1] is qw.s
+    torch.testing.assert_close(y, wg.w8a16_matmul_plain(x, qw.q, qw.s),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tquant.qmatmul(x, w), x @ w, rtol=0, atol=0)
+    assert len(seen) == 1
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("K,N,ok", [(4096, 14336, True), (3584, 18944, True),
+                                    (272, 400, True), (24, 40, False),
+                                    (4096, 1000, False)])
+def test_shape_checks_name_the_multiple_of_16(K, N, ok):
+    """K and N multiples of 16 (every published width); a ragged tail
+    inside a tile is the kernel's to mask."""
+    args = ("w8a16_matmul", _meta(8, K), _meta(K, N, dtype=torch.int8),
+            _meta(1, N, dtype=torch.float32), wg._ACT)
+    if ok:
+        assert wg._weight_checks(*args) == (K, N, False)
+    else:
+        with pytest.raises(ValueError, match="multiples of 16"):
+            wg._weight_checks(*args)
+
+
+def test_shape_checks_raise_on_what_the_kernels_do_not_take():
+    q = _meta(64, 128, dtype=torch.int8)
+    s = _meta(1, 128, dtype=torch.float32)
+    with pytest.raises(ValueError, match="64 rows"):
+        wg._weight_checks("w8a16_matmul", _meta(4, 32), q, s, wg._ACT)
+    with pytest.raises(TypeError, match="activations"):
+        wg._weight_checks("w8a16_matmul", _meta(4, 64, dtype=torch.int32), q,
+                          s, wg._ACT)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        wg._weight_checks("w8a16_matmul", _meta(4, 64),
+                          _meta(128, 64, dtype=torch.int8).T, s, wg._ACT)
+    with pytest.raises(ValueError, match="scales"):
+        wg._weight_checks("w8a16_matmul", _meta(4, 64), q,
+                          _meta(1, 64, dtype=torch.float32), wg._ACT)
+    x32 = _meta(4, 64, dtype=torch.float32)
+    # the head: row-major, or the transpose of a row-major tied embedding
+    assert wg._weight_checks("head_matmul", x32, _meta(64, 128), None,
+                             (torch.float32,)) == (64, 128, False)
+    assert wg._weight_checks("head_matmul", x32, _meta(128, 64).T, None,
+                             (torch.float32,)) == (64, 128, True)
+    with pytest.raises(ValueError, match="row-major"):
+        wg._weight_checks("head_matmul", x32, _meta(64, 256)[:, ::2], None,
+                          (torch.float32,))
+    with pytest.raises(TypeError, match="activations"):
+        wg._weight_checks("head_matmul", _meta(4, 64), _meta(64, 128), None,
+                          (torch.float32,))
+
+
+@pytest.mark.parametrize("M,K,N,route", [
+    (4, 4096, 1024, "mma"), (4, 4096, 14336, "mma"), (8, 14336, 4096, "mma"),
+    (40, 4096, 1024, "mma"), (192, 4096, 4096, "mma"),
+    (2048, 4096, 14336, "mma"), (8, 4096, 128256, "simt"),
+    (1, 272, 400, "simt")])
+def test_gemm_split_from_shapes(M, K, N, route):
+    """Split-K: every K tile in exactly one split, none empty, each split
+    at least 256 of K deep where K has that, and at least a block an SM
+    over all (row tile, column tile, split) blocks unless the splits are
+    already at that depth; no split where the output tiles fill the card
+    twice."""
+    sms = 132
+    tile = wg.MMA_TILES[wg.mma_rows(M)] if route == "mma" else wg.SIMT
+    assert tile[0] >= min(M, 128) and (M <= 16 or tile[0] > 16)
+    splits, per = wg.gemm_split(M, N, K, tile, sms)
+    bm, bn, bk = tile
+    nk = -(-K // bk)
+    min_per = min(nk, wg.SPLIT_MIN_K // bk)
+    assert (splits - 1) * per < nk <= splits * per
+    assert per >= min_per
+    tiles = -(-M // bm) * -(-N // bn)
+    if tiles >= 2 * sms:
+        assert splits == 1
+    else:
+        assert tiles * splits >= sms or per == min_per
+
+
+# ---------------------------------------------- the int8 recipe, whole
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    from fixtures import tiny_checkpoint
+
+    return tiny_checkpoint(tmp_path_factory)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_recipe_greedy_tokens_equal_reference_engine(ckpt, dtype):
+    """The tiny checkpoint quantized by the reference's quantize_params
+    (int8 projections and head, activations in `dtype`), the same weights
+    through both engines via params_from_jax: the same greedy tokens,
+    through prefill, chunked prefill (extend) and the fused decode loop."""
+    import jax
+
+    from localai_tpu.engine import loader as jloader
+    from localai_tpu.engine.engine import (
+        Engine as JEngine, EngineConfig as JConfig, GenRequest as JRequest,
+    )
+    from localai_tpu.ops.quant import quantize_params as jquantize_params
+    from localai_tpu.ops.sampling import SamplingParams as JParams
+    from localai_tpu_torch.engine import loader as tloader
+    from localai_tpu_torch.engine.engine import (
+        Engine as TEngine, EngineConfig as TConfig, GenRequest as TRequest,
+    )
+    from localai_tpu_torch.models.llama import params_from_jax
+    from localai_tpu_torch.ops.quant import is_quantized
+    from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+
+    jcfg, jp, jtok = jloader.load_model(ckpt, dtype=dtype)
+    jq = jquantize_params(jp)
+    tcfg, _, ttok = tloader.load_model(ckpt, dtype=dtype, device="cpu")
+    tq = params_from_jax(jax.tree_util.tree_map(np.asarray, jq), tcfg,
+                         device="cpu")
+    assert is_quantized(tq.layers[0]["wq"]) and is_quantized(tq.lm_head)
+    ec = dict(max_slots=2, max_context=128, prefill_buckets=(16, 32),
+              prefill_chunk=32, decode_loop=8)
+    prompts = [list(range(3, 12)), list(range(5, 75))]   # bucket, chunked
+    streams = []
+    for eng, req, par in ((JEngine(jcfg, jq, jtok, JConfig(**ec)), JRequest,
+                           JParams),
+                          (TEngine(tcfg, tq, ttok, TConfig(**ec),
+                                   device="cpu"), TRequest, TParams)):
+        streams.append([
+            [o.token_id for o in eng.generate(req(
+                p, par(temperature=0.0), max_tokens=12, ignore_eos=True))
+             if o.token_id >= 0] for p in prompts])
+    assert streams[1] == streams[0]
+    assert all(len(s) == 12 for s in streams[1])
+
+
+ENGINE_EC = {
+    "dense": dict(max_slots=2, max_context=128, prefill_buckets=(16, 32),
+                  prefill_chunk=32, decode_loop=8),
+    "paged": dict(max_slots=2, max_context=128, prefill_buckets=(16, 32),
+                  prefill_chunk=32, decode_loop=8, kv_pages=6),
+    "ragged": dict(max_slots=3, max_context=128, prefill_buckets=(16,),
+                   prefill_chunk=16, kv_pages=10, ragged_token_budget=64),
+}
+
+
+@pytest.mark.parametrize("path", list(ENGINE_EC))
+def test_engine_metrics_count_every_forward(ckpt, monkeypatch, path):
+    """chip_smoke.py holds the kernels' launches to the forwards an engine
+    ran, from its metrics: admission prefills, chunked-prefill chunks (the
+    non-final ones, prefill_chunks_mid, return no logits) and decode steps
+    (a ragged pack counts as one), plus its graphs' warm-up steps (none on
+    the CPU). Here the same sums count the calls of the two wrappers: 7 a
+    layer a forward for the int8 projections, one a forward with logits
+    for the head."""
+    from localai_tpu_torch.engine import loader as tloader
+    from localai_tpu_torch.engine.engine import (
+        Engine as TEngine, EngineConfig as TConfig, GenRequest as TRequest,
+    )
+    from localai_tpu_torch.models import llama as tllama
+    from localai_tpu_torch.ops import quant as tquant
+    from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+
+    calls = {"w8": 0, "head": 0}
+
+    def w8(x, q, s):
+        calls["w8"] += 1
+        return wg.w8a16_matmul_plain(x, q, s)
+
+    def head(x32, w, s=None):
+        calls["head"] += 1
+        return wg.head_matmul_plain(x32, w, s)
+
+    monkeypatch.setattr(tquant, "w8a16_matmul", w8)
+    monkeypatch.setattr(tllama, "head_matmul", head)
+    cfg, params, tok = tloader.load_model(ckpt, dtype="int8", device="cpu")
+    eng = TEngine(cfg, params, tok, TConfig(**ENGINE_EC[path]), device="cpu")
+    m0 = dict(eng.metrics)
+    qs = [eng.submit(TRequest(p, TParams(temperature=0.0), max_tokens=10,
+                              ignore_eos=True))[1]
+          for p in (list(range(3, 12)), list(range(5, 75)))]
+    for i in range(500):
+        if i == 3:
+            qs.append(eng.submit(TRequest(list(range(7, 30)),
+                                          TParams(temperature=0.0),
+                                          max_tokens=6, ignore_eos=True))[1])
+        if not eng.step() and i > 3:
+            break
+    assert all(not q.empty() for q in qs)
+    m = eng.metrics
+
+    def gained(k):
+        return m[k] - m0[k]
+
+    mid = gained("prefill_chunks_mid")
+    forwards = (gained("admit_dispatches") + mid
+                + gained("prefill_chunks_final")
+                + gained("decode_steps_dispatched"))
+    if path == "ragged":
+        assert gained("admit_dispatches") == 0 and mid == 0
+    else:
+        assert mid > 0 and gained("prefill_chunks_final") > 0
+    assert calls["w8"] == 7 * cfg.num_layers * forwards
+    assert calls["head"] == forwards - mid
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    return torch.device("cuda")
+
+
+def _card_weight(K, N, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=device) * K ** -0.5
+    amax = w.abs().amax(0, keepdim=True)
+    s = torch.clamp_min(amax, 1e-8) / 127
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def assert_w8_close(out, ref):
+    """The bf16/f16 bar of the module docstring: 2 steps per element and
+    at most MISMATCH_SHARE of the outputs different at all."""
+    d = (out.float() - ref.float()).abs()
+    excess = float((d - BF16["rtol"] * ref.float().abs()).max())
+    share = float((out != ref).float().mean())
+    assert excess <= BF16["atol"], (excess, float(d.max()))
+    assert share <= MISMATCH_SHARE, share
+
+
+GEOMETRIES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (3584, 512), (272, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 17, 64, 65, 192, 2048])
+@pytest.mark.parametrize("K,N", GEOMETRIES)
+def test_cuda_w8a16_bf16_vs_plain(cuda, K, N, M):
+    q, s = _card_weight(K, N, cuda, seed=K + N)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    out = tk.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert_w8_close(out, tk.w8a16_matmul_plain(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_w8a16_converts_every_int8_value_exactly(cuda, dtype):
+    """Every int8 value, -128 included, through the kernel's conversion:
+    one-hot rows of x pick weight rows, so each output is one int8 value
+    times a unit scale, exact in bf16 and f16."""
+    K, N, M = 256, 256, 32
+    k = torch.arange(K, device=cuda)[:, None]
+    n = torch.arange(N, device=cuda)[None, :]
+    q = ((k + n) % 256 - 128).to(torch.int8)
+    s = torch.ones(1, N, device=cuda)
+    x = torch.zeros(M, K, device=cuda)
+    x[torch.arange(M), torch.arange(M) * 7 % K] = 1.0
+    x = x.to(getattr(torch, dtype))
+    out = tk.w8a16_matmul(x, q, s)
+    assert torch.equal(out, tk.w8a16_matmul_plain(x, q, s))
+    assert torch.equal(out.float(), q[torch.arange(M) * 7 % K].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3,), (2, 96), (3, 100)])
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_cuda_w8a16_f16_f32_vs_plain(cuda, dtype, shape):
+    K, N = 4096, 1024
+    q, s = _card_weight(K, N, cuda, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape + (K,), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    out = tk.w8a16_matmul(x, q, s)
+    ref = tk.w8a16_matmul_plain(x, q, s)
+    assert out.dtype == x.dtype and out.shape == shape + (N,)
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, rtol=2 ** -16, atol=5e-5)
+    else:
+        assert_w8_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 64])
+@pytest.mark.parametrize("kind", ["bf16", "tied", "int8"])
+def test_cuda_head_vs_plain(cuda, kind, M):
+    K, V = 4096, 128256
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x32 = torch.randn(M, K, generator=g, device=cuda)
+    if kind == "int8":
+        args = _card_weight(K, V, cuda, seed=3)
+    else:
+        w = (torch.randn(V, K, generator=g, device=cuda)
+             * K ** -0.5).to(torch.bfloat16)
+        args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    out = tk.head_matmul(x32, *args)
+    ref = tk.head_matmul_plain(x32, *args)
+    assert out.dtype == torch.float32 and out.shape == (M, V)
+    torch.testing.assert_close(out, ref, **HEAD_CARD)
+    if kind == "bf16":   # the planted fault: x32 rounded to bf16
+        bad = tk.head_matmul_plain(x32.to(torch.bfloat16).float(), *args)
+        assert float((bad - ref).abs().max()) > HEAD_CARD["atol"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "tied"])
+def test_cuda_head_ragged_tails(cuda, kind):
+    K, V = 272, 400
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x32 = torch.randn(3, K, generator=g, device=cuda)
+    w = (torch.randn(V, K, generator=g, device=cuda)
+         * K ** -0.5).to(torch.bfloat16)
+    args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    torch.testing.assert_close(tk.head_matmul(x32, *args),
+                               tk.head_matmul_plain(x32, *args), **HEAD_CARD)
+
+
+@pytest.mark.cuda
+def test_cuda_w8a16_planted_faults_rejected(cuda):
+    K, N, M = 4096, 1024, 8
+    q, s = _card_weight(K, N, cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    out = tk.w8a16_matmul(x, q, s)
+    early = ((x.float() @ q.float()) * s).to(torch.bfloat16)
+    with pytest.raises(AssertionError):
+        assert_w8_close(out, early)
+    qd = q.clone()
+    qd[64:128] = 0                                  # one K tile dropped
+    with pytest.raises(AssertionError):
+        assert_w8_close(out, tk.w8a16_matmul_plain(x, qd, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split", "big", "head", "head-int8"])
+def test_cuda_graph_replay_equals_eager_and_repeats(cuda, case):
+    """A call captured in a CUDA graph (its output and split-K workspace
+    from the graph's pool) gives the eager call's bits, and so does every
+    repeated call: no atomics, a fixed combine order."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if case.startswith("head"):
+        K, V = 4096, 32000
+        x = torch.randn(4, K, generator=g, device=cuda)
+        args = _card_weight(K, V, cuda) if case == "head-int8" else (
+            (torch.randn(K, V, generator=g, device=cuda)
+             * K ** -0.5).to(torch.bfloat16),)
+
+        def fn():
+            return tk.head_matmul(x, *args)
+    else:
+        M = 4 if case == "split" else 192
+        q, s = _card_weight(4096, 1024, cuda)
+        x = torch.randn(M, 4096, generator=g, device=cuda).to(torch.bfloat16)
+
+        def fn():
+            return tk.w8a16_matmul(x, q, s)
+    eager = fn()
+    for _ in range(3):
+        assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_rather_than_copy_a_weight(cuda):
+    q, s = _card_weight(64, 128, cuda)
+    x = torch.randn(4, 64, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        tk.w8a16_matmul(x, q.T.contiguous().T, s)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tk.w8a16_matmul(x[:, :40], q[:40], s)
+    tk.reset_launch_counts()
+    tk.w8a16_matmul(x, q, s)
+    tk.head_matmul(x.float(), q, s)
+    assert tk.launch_counts()["w8a16_matmul"] == 1
+    assert tk.launch_counts()["head_matmul"] == 1
