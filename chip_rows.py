@@ -5,11 +5,13 @@ one NVIDIA card.
 
 Builds the port's kernels and runs chip_smoke.py's checks of rows 1–11
 and, where the tree has them, 13–14 (PERF.md §6) at the Llama-3.1-8B
-shapes, each against its plain
-version with its planted fault, then prints one line `ROWS LABEL {row:
+shapes — row 13 at every projection geometry for M = 4, 192 and 2048,
+row 14 with the bf16 and the int8 head — each against its plain
+version with its planted faults, then prints one line `ROWS LABEL {row:
 {ms, ms_cold, ms_host, ms_graph}}` (device ms warm and with a cold L2,
 the host-inclusive reading, and the device ms of a call inside a CUDA
-graph of 20 calls), with the same readings of an empty kernel, the
+graph of 20 calls; rows 13 and 14 also `host_us`, the host's µs a call
+with the card busy), with the same readings of an empty kernel, the
 harness's launch floor, under "0 empty kernel". It also prints a `DIVISION` line: how many of
 4,194,304 random f32 values PyTorch's CUDA division by the Python number
 127.0 gives otherwise than division by a device tensor, and how many of
@@ -28,6 +30,55 @@ import json
 import sys
 
 import chip_smoke as smoke
+
+# the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
+W8_GEOMETRIES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+def host_us(fn, calls=200):
+    """The host's µs a call of fn: `calls` calls enqueued behind a spin
+    kernel that keeps the card busy longer than the host takes to enqueue
+    them, so no call waits for the card, timed on the host clock."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100 * smoke.SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def weight_gemm_host_us():
+    """host_us of rows 13 and 14 at chip_rows' shapes: the wrappers'
+    Python, ctypes and launch cost (and, on a large-M route, the tensor
+    map of x) a call."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul, w8a16_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    for K, N in W8_GEOMETRIES:
+        qw = smoke._int8_weight(K, N, g)
+        for M in (4, 192, 2048):
+            x = torch.randn(M, K, device="cuda", generator=g).to(
+                torch.bfloat16)
+            res[f"13 w8a16_matmul M={M} K={K} N={N}"] = host_us(
+                lambda: w8a16_matmul(x, qw.q, qw.s))
+    x32 = torch.randn(4, 4096, device="cuda", generator=g)
+    qw = smoke._int8_weight(4096, 128256, g)
+    res["14 head_matmul int8"] = host_us(lambda: head_matmul(x32, qw.q,
+                                                             qw.s))
+    w = qw.q.to(torch.bfloat16)
+    res["14 head_matmul"] = host_us(lambda: head_matmul(x32, w))
+    torch.cuda.empty_cache()
+    return res
 
 
 def main():
@@ -65,13 +116,19 @@ def main():
         "11 ragged_scatter_append_q8": lambda: smoke.check_ragged_scatter(
             KVH, D, bf16, rd, rc, 32, q8=True, nb=129),
     }
-    # rows 13 and 14, the weight GEMMs, at their main rows: M = 4 on
-    # w_gate, and the bf16 head at M = 4 (a parent tree may predate them)
+    # rows 13 and 14, the weight GEMMs: row 13 at every 8B projection
+    # geometry for M = 4 (decode), 192 (phase 6's pack) and 2048 (a
+    # prefill batch), the bf16 and int8 heads at M = 4 (a parent tree may
+    # predate them)
     if hasattr(smoke, "check_w8a16"):
-        rows["13 w8a16_matmul"] = lambda: smoke.check_w8a16(
-            4, 4096, 14336, bf16)
+        for K, N in W8_GEOMETRIES:
+            for M in (4, 192, 2048):
+                rows[f"13 w8a16_matmul M={M} K={K} N={N}"] = (
+                    lambda M=M, K=K, N=N: smoke.check_w8a16(M, K, N, bf16))
         rows["14 head_matmul"] = lambda: smoke.check_head(
             4, 4096, 128256, "bf16")
+        rows["14 head_matmul int8"] = lambda: smoke.check_head(
+            4, 4096, 128256, "int8")
     # a parent tree's chip_smoke.py may predate the in-graph readings
     out = {"0 empty kernel": smoke.launch_floor()} \
         if hasattr(smoke, "launch_floor") else {}
@@ -79,6 +136,9 @@ def main():
         r = check()
         out[name] = {k: r.get(k) for k in ("ms", "ms_cold", "ms_host",
                                            "ms_graph")}
+    if hasattr(smoke, "check_w8a16"):
+        for name, us in weight_gemm_host_us().items():
+            out[name]["host_us"] = us
     print(f"ROWS {label} " + json.dumps(out), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(0)

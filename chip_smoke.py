@@ -36,10 +36,12 @@ and the script exits non-zero:
      decode at Qwen2-7B's H=28, KVH=4 (GQA group 7), dense decode at G=16
      (H=128, KVH=8), prefill at head_dim 256. Then the weight GEMMs:
      w8a16_matmul (int8 weight, bf16 x) at every 8B projection geometry
-     for M = 4, 8, 192 and 2048 (and one f32 case), against its plain
-     version within two bf16 steps an output and at most 1% of outputs
-     differing, each with two planted faults (a K tile dropped, the scale
-     applied before the bf16 rounding), library_ms the cast + matmul it
+     for M = 4, 8, 16, 17, 192 and 2048, at Qwen2-7B's for M = 4, 192 and
+     2048 (and one f32 case), against its plain version within two bf16
+     steps an output and at most 1% of outputs differing, each with three
+     planted faults (a K tile dropped, a K tile read as the one before it
+     — a ring stage read before its load landed —, the scale applied
+     before the bf16 rounding), library_ms the cast + matmul it
      replaces and library_bf16_ms cuBLAS on a bf16 weight; head_matmul
      (f32 logits) on the 8B head [4096, 128256] in bf16, int8 and tied at
      M = 4 and 8 and on Qwen2-7B's head (V = 152064), with a planted fault
@@ -1096,6 +1098,11 @@ W8_SHARE = 0.01
 HEAD_TOL = (1e-4, 0.0)
 # the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
 W8_GEOMETRIES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# Qwen2-7B's (phase 6 serves it in int8): wq/wo, wk/wv, gate/up, down
+W8_GEOMETRIES_QWEN2 = [(3584, 3584), (3584, 512), (3584, 18944),
+                       (18944, 3584)]
+# the row-13 table's M: decode, phase 6's pack, a prefill batch
+W8_ROWS = (4, 192, 2048)
 
 
 def _int8_weight(K, N, g):
@@ -1137,9 +1144,11 @@ def _timings(fn, plain, library, nbytes, flops, peak, cold, **extra):
 
 def check_w8a16(M, K, N, dtype, timed=True, cold=True, seed=0):
     """w8a16_matmul at x [M, K] @ int8 [K, N]. With timed=True also plants
-    two faults — the 64 K rows 64..127 of the weight dropped, and (bf16)
-    the scale applied to the f32 sum before the rounding — and checks that
-    the limit rejects each. library_ms: the two calls it replaces, the
+    three faults — the 64 K rows 64..127 of the weight dropped, the same
+    rows replaced by rows 0..63 (a ring stage read before its load
+    landed: the stage's previous tile), and (bf16) the scale applied to
+    the f32 sum before the rounding — and checks that the limit rejects
+    each. library_ms: the two calls it replaces, the
     weight's cast and torch.matmul; library_bf16_ms: torch.matmul on a
     bf16 weight made beforehand (what the bf16 recipe pays)."""
     import torch
@@ -1162,6 +1171,9 @@ def check_w8a16(M, K, N, dtype, timed=True, cold=True, seed=0):
         qd = q.clone()
         qd[64:128] = 0
         faults["k_tile_dropped"] = w8a16_matmul_plain(x, qd, s)
+        # a ring stage read before its load landed: K tile 1 holds tile 0
+        qd[64:128] = q[:64]
+        faults["stage_before_load"] = w8a16_matmul_plain(x, qd, s)
         if dtype != torch.float32:
             faults["scale_before_rounding"] = (
                 (x.float() @ q.float()) * s).to(dtype)
@@ -1229,14 +1241,20 @@ def check_head(M, K, V, kind, timed=True, cold=True, seed=0):
 
 def weight_gemms():
     """Rows 13 and 14 of PERF.md §6 at every 8B projection geometry for
-    M = 4, 8 (decode), 192 (phase 6's pack) and 2048 (a prefill batch) in
-    bf16 and one f32 case; the heads of Llama-3.1-8B (bf16, int8, tied) at
-    M = 4 and 8 and of Qwen2-7B at M = 4. Returns the main rows: M = 4 on
-    w_gate, and the bf16 head at M = 4."""
+    M = 4, 8, 16 (decode), 17 (the first on the wgmma route), 192 (phase
+    6's pack) and 2048 (a prefill batch) and at Qwen2-7B's geometries for
+    M = 4, 192 and 2048, in bf16, and one f32 case; the heads of
+    Llama-3.1-8B (bf16, int8, tied) at M = 4 and 8 and of Qwen2-7B at M =
+    4. Returns the main rows: M = 4 on w_gate, and the bf16 head at M =
+    4."""
     import torch
 
     w8 = {f"M={M} K={K} N={N}": check_w8a16(M, K, N, torch.bfloat16)
-          for K, N in W8_GEOMETRIES for M in (4, 8, 192, 2048)}
+          for K, N in W8_GEOMETRIES for M in (4, 8, 16, 17, 192, 2048)}
+    for K, N in W8_GEOMETRIES_QWEN2:
+        for M in W8_ROWS:
+            w8[f"qwen2-7b M={M} K={K} N={N}"] = check_w8a16(
+                M, K, N, torch.bfloat16, cold=False)
     w8["f32 M=8 K=4096 N=4096"] = check_w8a16(8, 4096, 4096, torch.float32)
     heads = {f"{kind} M={M}": check_head(M, 4096, 128256, kind)
              for kind in ("bf16", "int8", "tied") for M in (4, 8)}

@@ -1,4 +1,4 @@
-// Shared helpers of the port's attention kernels (sm_90a, plain C ABI).
+// Shared helpers of the port's kernels (sm_90a, plain C ABI).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,4 +107,99 @@ __device__ __forceinline__ float lt_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ------------------------------------------- Hopper: wgmma, mbarrier, TMA
+
+__device__ __forceinline__ uint32_t lt_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. lbo/sbo in bytes.
+__device__ __forceinline__ uint64_t lt_smem_desc(const void* p, uint32_t lbo,
+                                                 uint32_t sbo) {
+  const uint32_t a = lt_smem_u32(p);
+  uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= 1ull << 62;
+  return d;
+}
+
+__device__ __forceinline__ void lt_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void lt_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups of the warpgroup are pending
+template <int N>
+__device__ __forceinline__ void lt_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads across the async MMA
+template <int N>
+__device__ __forceinline__ void lt_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// eight accumulator operands d[i..i+7] of a wgmma asm statement
+#define LT_D8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// mbarriers in shared memory. A wait on `parity` returns once the phase of
+// that parity has completed (the phase before the first, parity 1, counts
+// as completed: a producer's first wait on an empty slot passes).
+__device__ __forceinline__ void lt_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   lt_smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void lt_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void lt_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   lt_smem_u32(bar))
+               : "memory");
+}
+// arrive, and expect `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void lt_mbar_expect_tx(uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          lt_smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void lt_mbar_wait(uint64_t* bar,
+                                             uint32_t parity) {
+  const uint32_t a = lt_smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at coordinates (c0 innermost, c1) of the 2-D tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared memory at dst;
+// completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void lt_tma_load_2d(void* dst, const void* map,
+                                               uint64_t* bar, int c0,
+                                               int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(lt_smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(lt_smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
 }

@@ -213,37 +213,6 @@ constexpr int TN = 64;            // keys per K/V tile
 constexpr int TC_NT = 128;        // one warpgroup
 constexpr int ATOM = 64 * 128;    // bytes of a 64-row, 128-byte swizzle atom
 
-// wgmma shared-memory descriptor, 128-byte swizzle. lbo/sbo in bytes.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
-  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
-  d |= 1ull << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads across the async MMA
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define LT_D8(d, i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
 // d[64 x 64] (+)= A[64 x 16] * B[16 x 64]^T, A and B K-major in shared
 // memory. scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -416,16 +385,16 @@ __global__ void __launch_bounds__(TC_NT * tc_nwg<D>())
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    wgmma_fence();
+    lt_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       const int off = (kk >> 2) * ATOM + (kk & 3) * 32;
-      wgmma_ss_n64(s, smem_desc(Qs + off, 16, 1024),
-                   smem_desc(Ks + off, 16, 1024), kk > 0);
+      wgmma_ss_n64(s, lt_smem_desc(Qs + off, 16, 1024),
+                   lt_smem_desc(Ks + off, 16, 1024), kk > 0);
     }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(s);
+    lt_wgmma_commit();
+    lt_wgmma_wait<0>();
+    lt_fence_regs(s);
 
     // masks and the online softmax, on the accumulator: s[4j + e] is row
     // qp0, key 8j + 2*t4 + e; s[4j + 2 + e] is row qp1, the same key
@@ -488,17 +457,17 @@ __global__ void __launch_bounds__(TC_NT * tc_nwg<D>())
       o[4 * j + 3] *= a1;
     }
 
-    wgmma_fence();
+    lt_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TN / 16; ++kk) {  // 16 keys: 2 groups of 8 V rows
       const uint64_t dv =
-          smem_desc(Vs + wg * (OC / 64) * ATOM + kk * 2048, ATOM, 1024);
+          lt_smem_desc(Vs + wg * (OC / 64) * ATOM + kk * 2048, ATOM, 1024);
       wgmma_rs(o, hi + 4 * kk, dv);
       wgmma_rs(o, lo + 4 * kk, dv);
     }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(o);
+    lt_wgmma_commit();
+    lt_wgmma_wait<0>();
+    lt_fence_regs(o);
     __syncthreads();  // stage st consumed before it is refilled
   }
 

@@ -14,37 +14,57 @@
 // 2.1 GB for the head's f32 copy.
 //
 // Arithmetic (the reference's, exactly):
-//   - bf16/f16 x, int8 q (weight_gemm_mma_kernel, EPI_ROUND): each int8
-//     value converts to x's type (exact), products sum in f32 on the tensor
-//     cores (mma.sync m16n8k16), the sum rounds once to x's type, the scale
-//     rounds to x's type and their product rounds again: y * s.to(y.dtype);
-//   - int8 head (the same kernel, EPI_F32): x32 rounded to bf16 by the
-//     caller; bf16 x int8 products are exact in f32, summed in f32, then
-//     times s in f32;
+//   - bf16/f16 x, int8 q (EPI_ROUND): each int8 value converts to x's type
+//     (exact), products sum in f32 on the tensor cores, the sum rounds once
+//     to x's type, the scale rounds to x's type and their product rounds
+//     again: y * s.to(y.dtype);
+//   - int8 head (EPI_F32): x32 rounded to bf16 by the caller; bf16 x int8
+//     products are exact in f32, summed in f32, then times s in f32;
 //   - f32 x with an int8, bf16 or f16 weight (weight_gemm_simt_kernel): f32
 //     FMAs of x and the weight's exact f32 value. The tensor cores would
 //     round x to bf16 (or TF32), which is not the reference's arithmetic.
 //
-// What bounds it on the H100: at decode (M <= 8) the weight's bytes — one
-// int8 byte (or two bf16 bytes) read per element, 3.35 TB/s — and at
-// prefill's M the tensor cores (or, for f32 x, the 67 TFLOP/s of f32 FMA).
-// Design (simple and right; wgmma/TMA are later work):
-//   - every block streams its weight tiles once, through a cp.async ring in
-//     shared memory, and reuses each tile for all of its M rows (16, 64 or
-//     128 on the tensor cores, 8 on the SIMT route); the tensor-core route
-//     converts an int8 tile to x's type in shared memory (bf16 by byte
-//     permutes and f32 adds, wg_cvt4), then ldmatrix feeds mma. Every
-//     block of rows converts the tile again, so at prefill's M the
-//     conversion, not the stream, is what the 128-row tiles amortise;
+// What bounds it on the H100: at decode (M <= 16) the weight's bytes — one
+// int8 byte read per element at 3.35 TB/s — and at prefill's M the bf16
+// tensor cores (989 TFLOP/s; for f32 x, the 67 TFLOP/s of f32 FMA). Two
+// tensor-core routes, chosen by M in the wrapper:
+//   - large M (weight_gemm_wgmma_kernel, M > 16): the weight is wgmma's A
+//     operand and x its B operand (y^T = q^T x^T), so the int8 tile never
+//     goes back to shared memory as bf16. A producer warp keeps TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle) of x tiles [BM][64] and
+//     int8 tiles [64][128], read from q [K, N] as stored, in flight through
+//     a ring of stages with full/empty mbarriers. Two consumer warpgroups
+//     own 64 output channels each: ldmatrix.trans lifts their int8 bytes
+//     straight into the A-fragment layout (two channels, two K rows a
+//     register), the exact conversion (wg_pair) turns them into bf16/f16
+//     pairs in registers, and wgmma m64nBMk16 multiplies them with the x
+//     tile from shared memory. The fragments of tile t + 1 are converted
+//     while the wgmmas of tile t run (double-buffered fragments,
+//     wgmma.wait_group 1). Each int8 element is converted once per BM
+//     (64 to 256, the wrapper's choice by shape) rows of x;
+//   - decode (weight_gemm_gemv_kernel, M <= 16): mma.sync m16n8k16 with
+//     the weight as A and x^T as B, so the 8 (or 16) columns of the tile
+//     are the tokens and no row is padding but the tokens' own. Each thread
+//     reads 16 channels of four K rows with 16-byte loads straight from
+//     device memory, a tile of 64 K rows ahead of its products (16 loads
+//     in flight a thread, tens of KB an SM), and converts them in
+//     registers into the A fragments (a K and channel permutation that x's
+//     fragments share); no shared-memory tile, no barrier in the loop;
 //   - split-K where the output tiles alone would not fill the card (a
 //     4096x1024 projection at M = 4 has 8 column tiles for 132 SMs): each
 //     split writes f32 partials to a workspace the caller allocates on its
-//     stream, and a combine pass sums them in split order and applies the
-//     epilogue. No float atomics: a call's result is the same bits every
-//     time, so CUDA graph replays equal eager runs bit for bit.
-// Limits: K and N multiples of 16 (16-byte rows for cp.async); the M, N and
-// K tails inside a tile are predicated (zero-filled, never stored).
+//     stream, and the last split to reach an output tile (a counter in
+//     `counters`, back to 0 when it is done) sums the partials in split
+//     order and applies the epilogue, in the same launch. No float atomics:
+//     a call's result is the same bits every time, so CUDA graph replays
+//     equal eager runs bit for bit.
+// Limits: K and N multiples of 16 (16-byte rows); the M, N and K tails of a
+// tile are zero-filled (TMA's out-of-bounds fill, or predicated loads) and
+// never stored.
+#include <cuda.h>
 #include <cuda_fp16.h>
+
+#include <cstring>
 
 #include "common.cuh"
 
@@ -53,18 +73,21 @@ namespace {
 enum WgDtype { WG_F32 = 0, WG_BF16 = 1, WG_F16 = 2, WG_I8 = 3 };
 enum WgEpi { EPI_ROUND = 0, EPI_F32 = 1 };
 
-// tensor-core route: tiles of BM (16, 64 or 128) x 128 output elements,
-// 64 of K
-constexpr int TC_BN = 128, TC_BK = 64;
+// large-M route: blocks of BM rows x 128 output channels (64 a consumer
+// warpgroup), K stages of 64; a producer warpgroup beside two consumers
+constexpr int A_BN = 128, A_BK = 64;
+constexpr int A_THREADS = 384;
+constexpr int A_RING_BYTES = 200 * 1024;  // shared memory for the ring
+// decode route: blocks of 128 output channels (16 a thread row of a warp)
+// over K tiles of 64; a warp takes every 4th tile of the block's split
+constexpr int B_BN = 128, B_BK = 64, B_WARPS = 4;
 // SIMT route: tiles of 8 x 512 outputs, 16 of K; 4 outputs a thread a row
 constexpr int SG_BM = 8, SG_BN = 512, SG_BK = 16, SG_STAGES = 3;
 constexpr int SG_THREADS = 128;
 // the [BN][BK] tile of a transposed (tied) weight, rows padded to 48 bytes
 // so that eight lanes' 16-byte reads of eight rows hit distinct banks
 constexpr int SG_NK_LD = SG_BK + 8;
-constexpr int COMBINE_THREADS = 256;
 
-__device__ __forceinline__ float wg_f(float x) { return x; }
 __device__ __forceinline__ float wg_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -86,40 +109,33 @@ __device__ __forceinline__ int wg_byte(uint32_t w, int j) {
   return static_cast<int>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
 }
 
-// Four int8 values (one 32-bit word) as two packed pairs of T, byte 0 in
-// the low half of p0 (exact: |v| <= 128 has at most 8 significant bits).
+// Two int8 values, bytes 0 and 2 of t (bytes 1 and 3 are not read), as a
+// packed pair of T, byte 0 in the low half. Exact (an integer of at most 8
+// significant bits), and without the int -> float conversion unit (16 a
+// clock an SM): the byte goes into the low mantissa bits of a power of
+// two, and one packed subtraction of that power (plus 128 for f16) leaves
+// the value. Three instructions a pair.
 template <typename T>
-__device__ __forceinline__ void wg_cvt4(uint32_t w, uint32_t& p0,
-                                        uint32_t& p1);
+__device__ __forceinline__ uint32_t wg_pair(uint32_t t);
+// f16: 0x64 above byte u is 1024 + u (10 mantissa bits), so 1024 + (b ^
+// 0x80) - 1152 = b.
 template <>
-__device__ __forceinline__ void wg_cvt4<__half>(uint32_t w, uint32_t& p0,
-                                                uint32_t& p1) {
-  __half2 h0 = __floats2half2_rn(static_cast<float>(wg_byte(w, 0)),
-                                 static_cast<float>(wg_byte(w, 1)));
-  __half2 h1 = __floats2half2_rn(static_cast<float>(wg_byte(w, 2)),
-                                 static_cast<float>(wg_byte(w, 3)));
-  p0 = *reinterpret_cast<uint32_t*>(&h0);
-  p1 = *reinterpret_cast<uint32_t*>(&h1);
+__device__ __forceinline__ uint32_t wg_pair<__half>(uint32_t t) {
+  const uint32_t u = (t & 0x00FF00FFu) ^ 0x64806480u;
+  uint32_t r;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(u), "r"(0x64806480u));
+  return r;
 }
-// bf16, without the int -> float conversion unit (16 a clock an SM, the
-// kernel's bottleneck at prefill's M): byte b + 128 (b ^ 0x80) put in the
-// low byte of 2^23's bit pattern is the f32 2^23 + b + 128, exactly, and
-// subtracting 2^23 + 128 leaves b. An integer of at most 8 significant
-// bits is exact in bf16, so the f32's high half is its bf16; one byte
-// permute packs two. Byte permutes and f32 adds run at full rate.
+// bf16 has 7 mantissa bits: 0x43 above the byte's low 7 bits is 128 + (b
+// & 127), and subtracting 128 (b >= 0) or 256 (b < 0, 0x4380: the sign bit
+// moved into the mantissa) leaves b.
 template <>
-__device__ __forceinline__ void wg_cvt4<__nv_bfloat16>(uint32_t w,
-                                                       uint32_t& p0,
-                                                       uint32_t& p1) {
-  const uint32_t u = w ^ 0x80808080u;
-  constexpr uint32_t kMagic = 0x4B000000u;   // 2^23
-  constexpr float kBias = 8388736.f;         // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, kMagic, 0x7650)) - kBias;
-  const float f1 = __uint_as_float(__byte_perm(u, kMagic, 0x7651)) - kBias;
-  const float f2 = __uint_as_float(__byte_perm(u, kMagic, 0x7652)) - kBias;
-  const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - kBias;
-  p0 = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  p1 = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+__device__ __forceinline__ uint32_t wg_pair<__nv_bfloat16>(uint32_t t) {
+  const uint32_t x = (t & 0x007F007Fu) | 0x43004300u;
+  const uint32_t y = (t & 0x00800080u) | 0x43004300u;
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(x), "r"(y));
+  return r;
 }
 
 // 2 (bf16, f16) or 4 (int8) weight elements of one 32-bit word as f32
@@ -138,25 +154,24 @@ __device__ __forceinline__ void wg_word_f(uint32_t w, int8_t, float* v) {
   for (int j = 0; j < 4; ++j) v[j] = static_cast<float>(wg_byte(w, j));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices from shared memory (lanes 8i..8i+7 give matrix i's
-// row addresses); .trans delivers each transposed.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
+// Four 8x8 b16 matrices from shared memory, each delivered transposed
+// (lanes 8i..8i+7 give matrix i's row addresses; lane (g, t4) receives
+// rows 2*t4 and 2*t4 + 1 of column g, the first in the low half).
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
+      : "r"(lt_smem_u32(p))
       : "memory");
+}
+
+// 16 bytes of the weight, read once: no L1 allocation
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
 }
 
 // d += a (16x16, row) * b (16x8, col) in T, f32 accumulators.
@@ -185,6 +200,170 @@ __device__ __forceinline__ void wg_mma<__half>(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d[64 x N] += A[64 x 16] (registers, pairs of T) * B[16 x N], B K-major in
+// shared memory (x's rows, 128-byte swizzle) at descriptor db.
+template <typename T, int N>
+__device__ __forceinline__ void wg_wgmma(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wg_wgmma<__nv_bfloat16, 64>(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__half, 64>(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__nv_bfloat16, 128>(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__half, 128>(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__nv_bfloat16, 192>(float (&d)[96],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56),
+        LT_D8(d, 64), LT_D8(d, 72), LT_D8(d, 80), LT_D8(d, 88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__half, 192>(float (&d)[96],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56),
+        LT_D8(d, 64), LT_D8(d, 72), LT_D8(d, 80), LT_D8(d, 88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__nv_bfloat16, 256>(float (&d)[128],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125,"
+      "%126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56),
+        LT_D8(d, 64), LT_D8(d, 72), LT_D8(d, 80), LT_D8(d, 88),
+        LT_D8(d, 96), LT_D8(d, 104), LT_D8(d, 112), LT_D8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wg_wgmma<__half, 256>(float (&d)[128],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125,"
+      "%126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : LT_D8(d, 0), LT_D8(d, 8), LT_D8(d, 16), LT_D8(d, 24),
+        LT_D8(d, 32), LT_D8(d, 40), LT_D8(d, 48), LT_D8(d, 56),
+        LT_D8(d, 64), LT_D8(d, 72), LT_D8(d, 80), LT_D8(d, 88),
+        LT_D8(d, 96), LT_D8(d, 104), LT_D8(d, 112), LT_D8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the bits of a 16-bit value
+__device__ __forceinline__ uint32_t wg_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t wg_bits(__half v) {
+  return __half_as_ushort(v);
+}
+
 // Outputs o and o + 1 (columns n, n + 1) from their f32 sums v0, v1.
 // EPI_ROUND: out is T, y = T(v), then T(y * T(s[n])), the reference's two
 // roundings (the product of two T values is exact in f32). EPI_F32: out is
@@ -200,174 +379,399 @@ __device__ __forceinline__ void wg_store(void* out, const float* s,
   } else {
     const float y0 = wg_f(wg_round<T>(v0)), y1 = wg_f(wg_round<T>(v1));
     const float s0 = wg_f(wg_round<T>(s[n])), s1 = wg_f(wg_round<T>(s[n + 1]));
-    T* p = static_cast<T*>(out) + o;
-    p[0] = wg_round<T>(y0 * s0);
-    p[1] = wg_round<T>(y1 * s1);
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + o) =
+        wg_bits(wg_round<T>(y0 * s0)) | wg_bits(wg_round<T>(y1 * s1)) << 16;
   }
 }
 
-// -------------------------------------------------- tensor-core route
+// The split-K combine inside the launch. The threads of a block of split z
+// have written their f32 partials of the block's output tile to the
+// workspace; `sync` is a barrier of those threads. Returns true in the last
+// of the `splits` blocks of the tile to arrive (counted in *counter, which
+// that block sets back to 0 for the next launch); that block then sums the
+// splits' partials in split order. The barrier orders the block's writes
+// before the leader's release; the leader's acquire orders the other
+// splits' writes before the block's reads (the last split reads with
+// ld.global.cg, past the L1).
+template <typename Sync>
+__device__ __forceinline__ bool wg_last_split(int* counter, int splits,
+                                              int* flag, bool leader,
+                                              Sync sync) {
+  sync();
+  if (leader) {
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    const bool last = prev == splits - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  sync();
+  return *flag != 0;
+}
 
-// A block of WM x WN warps, each MI m16 fragments tall; STAGES tiles in
-// the cp.async ring. The three shapes (launch_mma_rows): 16 rows (M <=
-// 16: decode), 64 rows, and 128 rows on 8 warps (M > 64: prefill, the
-// ragged packs), where a block's converted weight tile feeds twice the
-// rows.
-template <typename T, int WM, int WN, int MI, int STAGES>
-struct TcTile {
-  static constexpr int NT = 32 * WM * WN;       // threads a block
-  static constexpr int BM = WM * MI * 16;       // rows a block
-  static constexpr int WCOLS = TC_BN / WN;      // columns a warp
-  static constexpr int NI = WCOLS / 8;          // n8 fragments a warp
-  static constexpr int A_STAGE = BM * TC_BK;    // T elements
-  static constexpr int Q_STAGE = TC_BK * TC_BN; // int8 bytes
-  static constexpr size_t SMEM =
-      STAGES * (A_STAGE * sizeof(T) + Q_STAGE) + TC_BK * TC_BN * sizeof(T);
+// ---------------------------------------- large-M route: wgmma fed by TMA
+
+// The ring for BM rows of x: stage i holds the x tile [BM][64] (T, 128-byte
+// swizzle, BM * 128 bytes), then the int8 tile [64][128] (128-byte swizzle,
+// 8 KB), both on 1024-byte boundaries as the swizzle wants; the full and
+// empty mbarriers of the stages and the split flag follow.
+template <int BM>
+struct RingA {
+  static constexpr int X_BYTES = BM * A_BK * 2;
+  static constexpr int Q_BYTES = A_BK * A_BN;
+  static constexpr int STAGE = X_BYTES + Q_BYTES;
+  static constexpr int STAGES =
+      A_RING_BYTES / STAGE < 8 ? A_RING_BYTES / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8 + 16;
 };
 
-// out [M, N] = epilogue(x [M, K] @ q [K, N]) for K tiles [z*kt_per,
-// (z+1)*kt_per) of split z = blockIdx.z; with several splits the f32 sums
-// go to ws [splits][M][N] instead. Shared memory: the ring of x tiles
-// [BM][64] and int8 tiles [64][128], and one converted tile [64][128] of T.
-// 16-byte chunks of x rows and converted rows are stored at chunk c ^ (row
-// & 7), so ldmatrix's eight row addresses hit distinct banks.
-template <typename T, int WM, int WN, int MI, int STAGES, int EPI>
-__global__ void __launch_bounds__(32 * WM * WN)
-    weight_gemm_mma_kernel(const T* __restrict__ x,
-                           const int8_t* __restrict__ q,
-                           const float* __restrict__ s, void* __restrict__ out,
-                           float* __restrict__ ws, int M, int N, int K,
-                           int kt_per) {
-  using L = TcTile<T, WM, WN, MI, STAGES>;
-  constexpr int NT = L::NT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sA = reinterpret_cast<T*>(smem);
-  int8_t* sQ =
-      reinterpret_cast<int8_t*>(smem + STAGES * L::A_STAGE * sizeof(T));
-  T* sB = reinterpret_cast<T*>(
-      smem + STAGES * (L::A_STAGE * sizeof(T) + L::Q_STAGE));
+// out [M, N] = epilogue(x [M, K] @ q [K, N]) for the block's BM rows and
+// 128 channels over K tiles [z*kt_per, (z+1)*kt_per) of split z =
+// blockIdx.z; with several splits, the f32 sums go to ws [splits][M][N]
+// and the tile's last split applies the epilogue. tx: x [M, K] in boxes
+// [BM][64]; tq: q [K, N] in boxes [64][128]. Warpgroups 0 and 1 consume
+// (channels 64*wg..64*wg+63 of the block), warpgroup 2 produces.
+template <typename T, int BM, int EPI>
+__global__ void __launch_bounds__(A_THREADS, 1)
+    weight_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tq,
+                             const float* __restrict__ s,
+                             void* __restrict__ out, float* __restrict__ ws,
+                             int* __restrict__ counters, int M, int N, int K,
+                             int kt_per) {
+  using R = RingA<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (lt_smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  int* flag = reinterpret_cast<int*>(empty + R::STAGES);
 
-  const int m0 = blockIdx.x * L::BM, n0 = blockIdx.y * TC_BN;
-  const int nk = (K + TC_BK - 1) / TC_BK;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * A_BN;
+  const int nk = (K + A_BK - 1) / A_BK;
   const int kt0 = blockIdx.z * kt_per;
   const int ntile = min(nk, kt0 + kt_per) - kt0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * TC_BK;
-    T* a = sA + stage * L::A_STAGE;
-    for (int i = tid; i < L::BM * 8; i += NT) {
-      const int r = i >> 3, c = i & 7;
-      const int gm = m0 + r, gk = k0 + c * 8;
-      const bool ok = gm < M && gk < K;
-      lt_cp_async16(a + r * TC_BK + ((c ^ (r & 7)) << 3),
-                    ok ? x + static_cast<int64_t>(gm) * K + gk : x, ok);
+  if (tid == 0) {
+    for (int i = 0; i < R::STAGES; ++i) {
+      lt_mbar_init(&full[i], 1);
+      lt_mbar_init(&empty[i], 8);  // one arrival a consumer warp
     }
-    int8_t* b = sQ + stage * L::Q_STAGE;
-    for (int i = tid; i < TC_BK * 8; i += NT) {
-      const int r = i >> 3, c = i & 7;
-      const int gk = k0 + r, gn = n0 + c * 16;
-      const bool ok = gk < K && gn < N;
-      lt_cp_async16(b + r * TC_BN + c * 16,
-                    ok ? q + static_cast<int64_t>(gk) * N + gn : q, ok);
-    }
-  };
+    lt_mbar_init_fence();
+  }
+  __syncthreads();
 
-  // int8 tile of `stage` -> sB in T: 16 int8 a thread, two 16-byte chunks
-  auto convert = [&](int stage) {
-    const int8_t* b = sQ + stage * L::Q_STAGE;
-    for (int i = tid; i < TC_BK * 8; i += NT) {
-      const int r = i >> 3, c = i & 7;
-      const uint4 raw = *reinterpret_cast<const uint4*>(b + r * TC_BN + c * 16);
-      uint4 lo, hi;
-      wg_cvt4<T>(raw.x, lo.x, lo.y);
-      wg_cvt4<T>(raw.y, lo.z, lo.w);
-      wg_cvt4<T>(raw.z, hi.x, hi.y);
-      wg_cvt4<T>(raw.w, hi.z, hi.w);
-      T* row = sB + r * TC_BN;
-      *reinterpret_cast<uint4*>(row + (((2 * c) ^ (r & 7)) << 3)) = lo;
-      *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (r & 7)) << 3)) = hi;
-    }
-  };
-
-  float acc[MI][L::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < L::NI; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  auto compute = [&](int stage) {
-    const T* a = sA + stage * L::A_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = (wm * MI + mi) * 16 + (lane & 15);
-        const int c = kk * 2 + (lane >> 4);
-        ldsm_x4(af[mi], a + r * TC_BK + ((c ^ (r & 7)) << 3));
-      }
-#pragma unroll
-      for (int nj = 0; nj < L::NI / 2; ++nj) {
-        // matrices (k 0-7, frag 2nj), (k 8-15, 2nj), (k 0-7, 2nj+1), (k
-        // 8-15, 2nj+1): the b0, b1 pairs of two n8 fragments
-        const int r = kk * 16 + (lane & 15);
-        const int c = ((wn * L::WCOLS) >> 3) + nj * 2 + (lane >> 4);
-        uint32_t bf[4];
-        ldsm_x4_t(bf, sB + r * TC_BN + ((c ^ (r & 7)) << 3));
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          wg_mma<T>(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          wg_mma<T>(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        }
+  if (wg == 2) {
+    // producer: one thread keeps the ring full; the warpgroup gives its
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int t = 0; t < ntile; ++t) {
+        const int st = t % R::STAGES;
+        lt_mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
+        uint8_t* stage = smem + st * R::STAGE;
+        const int k0 = (kt0 + t) * A_BK;
+        lt_mbar_expect_tx(&full[st], R::STAGE);
+        lt_tma_load_2d(stage, &tx, &full[st], k0, m0);
+        lt_tma_load_2d(stage + R::X_BYTES, &tq, &full[st], n0, k0);
       }
     }
-  };
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    // The warp's 16 channels are the 16-byte chunk c of an int8 row; A rows
+    // g and g + 8 of the warp are its channels 2g and 2g + 1.
+    const int c = 4 * wg + warp;
+    float acc[BM / 2];
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    uint32_t fa[4][4], fb[4][4];  // A fragments of two tiles, [k16][reg]
 
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < ntile) load(st, kt0 + st);
-    lt_cp_async_commit();
-  }
-  for (int t = 0; t < ntile; ++t) {
-    lt_cp_async_wait<STAGES - 2>();
-    // tile t has landed for every thread, and every warp is done with
-    // tile t - 1 (its ring stage and sB are free)
-    __syncthreads();
-    const int nt = t + STAGES - 1;
-    if (nt < ntile) load(nt % STAGES, kt0 + nt);
-    lt_cp_async_commit();
-    convert(t % STAGES);
-    __syncthreads();
-    compute(t % STAGES);
-  }
-
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool split = gridDim.z > 1;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < L::NI; ++ni)
+    // The A fragments of the int8 tile at qt. ldmatrix.trans of 8 K rows of
+    // the chunk gives lane (g, t4) one register: channels 2g, 2g + 1 of K
+    // rows 2t4 (low half) and 2t4 + 1, bytes (k, c0), (k, c1), (k+1, c0),
+    // (k+1, c1). Bytes 0 and 2 are the fragment register of row g (channel
+    // c0), bytes 1 and 3 the one of row g + 8. Lane l gives the address of
+    // row l of each 32.
+    auto convert = [&](const uint8_t* qt, uint32_t (&f)[4][4]) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = m0 + (wm * MI + mi) * 16 + g + h * 8;
-        const int n = n0 + wn * L::WCOLS + ni * 8 + t4 * 2;
-        if (r >= M || n >= N) continue;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        const int64_t o = static_cast<int64_t>(r) * N + n;
-        if (split)
-          *reinterpret_cast<float2*>(
-              ws + static_cast<int64_t>(blockIdx.z) * M * N + o) =
-              make_float2(v0, v1);
-        else
-          wg_store<T, EPI>(out, s, o, n, v0, v1);
+        const int k = 32 * h + lane;
+        uint32_t r[4];
+        ldsm_x4_t(r, qt + k * A_BN + ((c ^ (k & 7)) << 4));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {  // K rows 8m..8m+7 of the 32
+          f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair<T>(r[m]);
+          f[2 * h + (m >> 1)][2 * (m & 1) + 1] = wg_pair<T>(r[m] >> 8);
+        }
       }
+    };
+    // tile t: wait for its stage, convert, start its wgmmas; then wait for
+    // tile t - 1's and hand its stage back to the producer
+    auto step = [&](int t, uint32_t (&f)[4][4]) {
+      const int st = t % R::STAGES;
+      lt_mbar_wait(&full[st], (t / R::STAGES) & 1);
+      const uint8_t* stage = smem + st * R::STAGE;
+      convert(stage + R::X_BYTES, f);
+      lt_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg_wgmma<T, BM>(acc, f[kk], lt_smem_desc(stage + kk * 32, 16, 1024));
+      lt_wgmma_commit();
+      lt_wgmma_wait<1>();
+      if (t > 0 && lane == 0) lt_mbar_arrive(&empty[(t - 1) % R::STAGES]);
+    };
+    int t = 0;
+    for (; t + 1 < ntile; t += 2) {
+      step(t, fa);
+      step(t + 1, fb);
+    }
+    if (t < ntile) step(t, fa);
+    lt_wgmma_wait<0>();
+    lt_fence_regs(acc);
+
+    // acc[4j + e] is channel cb, row m0 + 8j + 2t4 + e; acc[4j + 2 + e]
+    // channel cb + 1 of the same row
+    const int cb = n0 + 16 * c + 2 * g;
+    const int64_t mn = static_cast<int64_t>(M) * N;
+    auto each = [&](auto&& fn) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = m0 + 8 * j + 2 * t4 + e;
+          if (r < M && cb < N)
+            fn(static_cast<int64_t>(r) * N + cb, acc[4 * j + e],
+               acc[4 * j + 2 + e]);
+        }
+    };
+    if (gridDim.z == 1) {
+      each([&](int64_t o, float v0, float v1) {
+        wg_store<T, EPI>(out, s, o, cb, v0, v1);
+      });
+    } else {
+      float* wz = ws + blockIdx.z * mn;
+      each([&](int64_t o, float v0, float v1) {
+        *reinterpret_cast<float2*>(wz + o) = make_float2(v0, v1);
+      });
+      if (wg_last_split(counters + blockIdx.x + gridDim.x * blockIdx.y,
+                        gridDim.z, flag, tid == 0, [] {
+                          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+                        })) {
+        // the tile's last split: acc becomes the sum of the splits'
+        // partials in split order, 8 rows' loads in flight at a time
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+        for (int z = 0; z < static_cast<int>(gridDim.z); ++z) {
+          const float* wsz = ws + z * mn;
+#pragma unroll
+          for (int j0 = 0; j0 < BM / 8; j0 += 4) {
+            float2 p[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int r = m0 + 8 * (j0 + j) + 2 * t4 + e;
+                p[j][e] = r < M && cb < N
+                              ? __ldcg(reinterpret_cast<const float2*>(
+                                    wsz + static_cast<int64_t>(r) * N + cb))
+                              : make_float2(0.f, 0.f);
+              }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                acc[4 * (j0 + j) + e] += p[j][e].x;
+                acc[4 * (j0 + j) + 2 + e] += p[j][e].y;
+              }
+          }
+        }
+        each([&](int64_t o, float v0, float v1) {
+          wg_store<T, EPI>(out, s, o, cb, v0, v1);
+        });
+      }
+    }
+  }
 }
 
-// ---------------------------------------------------------- SIMT route
+// ------------------------------------------------ decode route: mma.sync
+
+// word i of a 16-byte chunk
+__device__ __forceinline__ uint32_t wg_word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// out [M, N] = epilogue(x [M, K] @ q [K, N]) for M <= 8 * NT8 and the
+// block's 128 channels over K tiles [z*kt_per, (z+1)*kt_per) of split z =
+// blockIdx.y; warp w takes tiles w, w + 4, ... of them. The products are
+// m16n8k16 with A = 16 channels of the weight and B = x^T, 8 tokens a
+// column tile. Lane (g, t4) reads channels 16g..16g+15 of the block at K
+// rows 4t4..4t4+3 of each 16, and fragment k slot 2t4 + {0, 1, 8, 9} is
+// K row 4t4 + {0, 1, 2, 3}: x's B fragment is then 8 contiguous bytes of
+// a row, and the A fragment of m16 tile i (rows g, g + 8 = channels 16g +
+// 2i, + 1) comes from byte 2i, 2i + 1 of the four rows' chunks. The loads
+// run a tile ahead: once a 16-row step is multiplied, its registers take
+// the same step of the warp's next tile. The warps' sums are added in
+// warp order through shared memory.
+template <typename T, int NT8, int EPI>
+__global__ void __launch_bounds__(B_WARPS * 32)
+    weight_gemm_gemv_kernel(const T* __restrict__ x,
+                            const int8_t* __restrict__ q,
+                            const float* __restrict__ s,
+                            void* __restrict__ out, float* __restrict__ ws,
+                            int* __restrict__ counters, int M, int N, int K,
+                            int kt_per) {
+  constexpr int ROWS = 8 * NT8, LD = B_BN + 4;
+  __shared__ __align__(16) float red[B_WARPS][ROWS][LD];
+  __shared__ int flag;
+  const int n0 = blockIdx.x * B_BN;
+  const int nk = (K + B_BK - 1) / B_BK;
+  const int kt0 = blockIdx.y * kt_per, kt1 = min(nk, kt0 + kt_per);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int cb = n0 + 16 * g;
+  const bool cok = cb < N;
+
+  float acc[8][NT8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][nt][j] = 0.f;
+
+  uint4 w[4][4];     // [k16 step][K row 4t4 + j]: 16 channels
+  uint2 xv[4][NT8];  // [k16 step][token tile]: K rows 4t4..4t4+3
+  // step kk of tile t into w[kk], xv[kk]
+  auto load = [&](int kk, int t) {
+    const int k16 = t * B_BK + 16 * kk, kr = k16 + 4 * t4;
+    const bool kok = k16 < K;  // K % 16 == 0
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[kk][j] = cok && kok
+                     ? ldg_stream(q + static_cast<int64_t>(kr + j) * N + cb)
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      const int r = 8 * nt + g;
+      xv[kk][nt] = kok && r < M ? *reinterpret_cast<const uint2*>(
+                                      x + static_cast<int64_t>(r) * K + kr)
+                                : make_uint2(0u, 0u);
+    }
+  };
+  // byte b of word i/2 (channel 16g + 2i) in bytes 0 and 2, of rows (0, 1)
+  // and (2, 3); byte b + 1 (channel 16g + 2i + 1) likewise
+  auto mul = [&](int kk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int wi = i >> 1;
+      const uint32_t lo = (i & 1) ? 0x6622 : 0x4400;
+      const uint32_t hi = (i & 1) ? 0x7733 : 0x5511;
+      const uint32_t w0 = wg_word(w[kk][0], wi), w1 = wg_word(w[kk][1], wi);
+      const uint32_t w2 = wg_word(w[kk][2], wi), w3 = wg_word(w[kk][3], wi);
+      const uint32_t a[4] = {wg_pair<T>(__byte_perm(w0, w1, lo)),
+                             wg_pair<T>(__byte_perm(w0, w1, hi)),
+                             wg_pair<T>(__byte_perm(w2, w3, lo)),
+                             wg_pair<T>(__byte_perm(w2, w3, hi))};
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+        wg_mma<T>(acc[i][nt], a, xv[kk][nt].x, xv[kk][nt].y);
+    }
+  };
+  const int ntl = kt1 - kt0 > warp ? (kt1 - kt0 - warp + B_WARPS - 1) / B_WARPS
+                                   : 0;  // this warp's tiles
+  if (ntl > 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) load(kk, kt0 + warp);
+  }
+  for (int i = 0; i < ntl; ++i) {
+    const int nxt = kt0 + warp + B_WARPS * (i + 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mul(kk);
+      if (i + 1 < ntl) load(kk, nxt);
+    }
+  }
+
+  // acc[i][nt][e]: channel 16g + 2i, token 8nt + 2t4 + e; [2 + e]: the
+  // next channel
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(
+            &red[warp][8 * nt + 2 * t4 + e][16 * g + 2 * i]) =
+            make_float2(acc[i][nt][e], acc[i][nt][2 + e]);
+  __syncthreads();
+  // this thread's outputs: channels n, n + 1 of rows r0, r0 + 2, ...
+  const int n = n0 + 2 * (tid & 63), r0 = tid >> 6;
+  const int64_t mn = static_cast<int64_t>(M) * N;
+  const bool split = gridDim.y > 1;
+  for (int r = r0; r < M; r += 2) {
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int w8 = 0; w8 < B_WARPS; ++w8) {
+      const float2 u = *reinterpret_cast<const float2*>(&red[w8][r][n - n0]);
+      v.x += u.x;
+      v.y += u.y;
+    }
+    if (n >= N) continue;
+    const int64_t o = static_cast<int64_t>(r) * N + n;
+    if (split)
+      *reinterpret_cast<float2*>(ws + blockIdx.y * mn + o) = v;
+    else
+      wg_store<T, EPI>(out, s, o, n, v.x, v.y);
+  }
+  if (!split || !wg_last_split(counters + blockIdx.x, gridDim.y, &flag,
+                               tid == 0, [] { __syncthreads(); }))
+    return;
+  // the tile's last split: sum the splits' partials in split order, the
+  // loads of ZG splits in flight at a time
+  constexpr int RT = ROWS / 2;  // rows a thread at most
+  constexpr int ZG = 8 / NT8;
+  const int splits = gridDim.y;
+  float2 v[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) v[i] = make_float2(0.f, 0.f);
+  for (int z0 = 0; z0 < splits; z0 += ZG) {
+    float2 p[ZG][RT];
+#pragma unroll
+    for (int zz = 0; zz < ZG; ++zz)
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = r0 + 2 * i;
+        p[zz][i] = z0 + zz < splits && r < M && n < N
+                       ? __ldcg(reinterpret_cast<const float2*>(
+                             ws + (z0 + zz) * mn +
+                             static_cast<int64_t>(r) * N + n))
+                       : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+    for (int zz = 0; zz < ZG; ++zz)
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        if (z0 + zz < splits) {
+          v[i].x += p[zz][i].x;
+          v[i].y += p[zz][i].y;
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = r0 + 2 * i;
+    if (r < M && n < N)
+      wg_store<T, EPI>(out, s, static_cast<int64_t>(r) * N + n, n, v[i].x,
+                       v[i].y);
+  }
+}
+
+// ------------------------------------------- SIMT route (f32 activations)
 
 template <typename WT, bool NK>
 struct SgTile {
@@ -383,15 +787,18 @@ struct SgTile {
 // true, a tied embedding). Thread j owns 4 columns of the block's 512
 // (4j..4j+3 for [K, N], j + 128c for [N, K], so that its reads are
 // conflict-free) and all 8 rows; its sums run over K in order. With
-// several splits the sums go to ws [splits][M][N].
+// several splits the sums go to ws [splits][M][N] and the tile's last
+// split sums them (wg_last_split).
 template <typename WT, bool NK>
 __global__ void __launch_bounds__(SG_THREADS)
     weight_gemm_simt_kernel(const float* __restrict__ x,
                             const WT* __restrict__ w,
                             const float* __restrict__ s,
                             float* __restrict__ out, float* __restrict__ ws,
-                            int M, int N, int K, int kt_per) {
+                            int* __restrict__ counters, int M, int N, int K,
+                            int kt_per) {
   using L = SgTile<WT, NK>;
+  __shared__ int flag;
   constexpr int WV = 16 / sizeof(WT);  // elements of a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
   float* sX = reinterpret_cast<float*>(smem);
@@ -505,107 +912,178 @@ __global__ void __launch_bounds__(SG_THREADS)
   }
 
   const bool split = gridDim.z > 1;
+  const int64_t mn = static_cast<int64_t>(M) * N;
+  // fn(o, n, m, c) for each output o (column n) of the thread's acc[m][c]
+  auto each = [&](auto&& fn) {
 #pragma unroll
-  for (int m = 0; m < SG_BM; ++m) {
-    const int r = m0 + m;
-    if (r >= M) break;
+    for (int m = 0; m < SG_BM; ++m) {
+      const int r = m0 + m;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = NK ? n0 + tid + c * SG_THREADS : n0 + tid * 4 + c;
-      if (n >= N) continue;
-      const int64_t o = static_cast<int64_t>(r) * N + n;
-      if (split)
-        ws[static_cast<int64_t>(blockIdx.z) * M * N + o] = acc[m][c];
-      else
-        out[o] = s ? acc[m][c] * s[n] : acc[m][c];
+      for (int c = 0; c < 4; ++c) {
+        const int n = NK ? n0 + tid + c * SG_THREADS : n0 + tid * 4 + c;
+        if (r < M && n < N) fn(static_cast<int64_t>(r) * N + n, n, m, c);
+      }
+    }
+  };
+  if (split) {
+    each([&](int64_t o, int, int m, int c) {
+      ws[blockIdx.z * mn + o] = acc[m][c];
+    });
+    if (!wg_last_split(counters + blockIdx.x + gridDim.x * blockIdx.y,
+                       gridDim.z, &flag, tid == 0, [] { __syncthreads(); }))
+      return;
+    // the tile's last split: acc becomes the sum of the splits' partials
+    // in split order, two splits' loads in flight at once
+#pragma unroll
+    for (int m = 0; m < SG_BM; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+    const int splits = gridDim.z;
+    for (int z = 0; z < splits; z += 2) {
+      float p[2][SG_BM][4];
+#pragma unroll
+      for (int zz = 0; zz < 2; ++zz)
+#pragma unroll
+        for (int m = 0; m < SG_BM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) p[zz][m][c] = 0.f;
+      each([&](int64_t o, int, int m, int c) {
+        p[0][m][c] = __ldcg(ws + z * mn + o);
+        if (z + 1 < splits) p[1][m][c] = __ldcg(ws + (z + 1) * mn + o);
+      });
+#pragma unroll
+      for (int zz = 0; zz < 2; ++zz)
+#pragma unroll
+        for (int m = 0; m < SG_BM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (z + zz < splits) acc[m][c] += p[zz][m][c];
     }
   }
+  each([&](int64_t o, int n, int m, int c) {
+    out[o] = s ? acc[m][c] * s[n] : acc[m][c];
+  });
 }
 
-// ------------------------------------------------------------- combine
-
-// out = epilogue(sum over z of ws[z]), summed in split order (the same
-// bits every run); one thread per pair of columns.
-template <typename T, int EPI>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-    weight_gemm_combine_kernel(const float* __restrict__ ws,
-                               const float* __restrict__ s,
-                               void* __restrict__ out, int M, int N,
-                               int splits) {
-  const int64_t pairs = static_cast<int64_t>(M) * N / 2;
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * COMBINE_THREADS + threadIdx.x;
-  if (i >= pairs) return;
-  const float2* p = reinterpret_cast<const float2*>(ws);
-  float v0 = 0.f, v1 = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const float2 v = p[z * pairs + i];
-    v0 += v.x;
-    v1 += v.y;
-  }
-  const int64_t o = 2 * i;
-  wg_store<T, EPI>(out, s, o, static_cast<int>(o % N), v0, v1);
-}
-
-template <typename T, int EPI>
-cudaError_t combine(const float* ws, const float* s, void* out, int M, int N,
-                    int splits, cudaStream_t st) {
-  const int64_t pairs = static_cast<int64_t>(M) * N / 2;
-  const int64_t blocks = (pairs + COMBINE_THREADS - 1) / COMBINE_THREADS;
-  weight_gemm_combine_kernel<T, EPI>
-      <<<static_cast<unsigned>(blocks), COMBINE_THREADS, 0, st>>>(
-          ws, s, out, M, N, splits);
-  return cudaGetLastError();
-}
+// ------------------------------------------------------------ launchers
 
 // (splits, kt_per) must cover the nk tiles of K with no empty split
-bool bad_split(int K, int bk, int splits, int kt_per, const void* ws) {
+bool bad_split(int K, int bk, int splits, int kt_per, const void* ws,
+               const void* counters) {
   const int nk = (K + bk - 1) / bk;
   return splits < 1 || kt_per < 1 || (splits - 1) * kt_per >= nk ||
-         splits * kt_per < nk || (splits > 1 && ws == nullptr);
+         splits * kt_per < nk ||
+         (splits > 1 && (ws == nullptr || counters == nullptr));
 }
 
-template <typename T, int WM, int WN, int MI, int STAGES, int EPI>
-int launch_mma(const void* x, const void* q, const float* s, void* out,
-               float* ws, int M, int N, int K, int splits, int kt_per,
-               cudaStream_t st) {
-  using L = TcTile<T, WM, WN, MI, STAGES>;
-  auto kernel = weight_gemm_mma_kernel<T, WM, WN, MI, STAGES, EPI>;
+bool bad_shape(int M, int N, int K) {
+  return M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 16 != 0;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
+// so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major [rows, cols] tensor of `dtype` (bf16, f16
+// or int8) at ptr, read in boxes of box_rows rows and 128 bytes, 128-byte
+// swizzle; out-of-bounds elements load as zeros.
+int encode_2d(CUtensorMap* map, int dtype, const void* ptr, int rows,
+              int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int es = dtype == WG_I8 ? 1 : 2;
+  const CUtensorMapDataType t =
+      dtype == WG_BF16   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : dtype == WG_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * es};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / es),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, t, 2, const_cast<void*>(ptr), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int BM, int EPI>
+int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
+                 const float* s, void* out, float* ws, int* counters, int M,
+                 int N, int K, int splits, int kt_per, cudaStream_t st) {
+  using R = RingA<BM>;
+  auto kernel = weight_gemm_wgmma_kernel<T, BM, EPI>;
   static size_t done[LT_MAX_DEVICES];
-  cudaError_t e = lt_set_max_smem(kernel, L::SMEM, done);
+  cudaError_t e = lt_set_max_smem(kernel, R::SMEM, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((M + L::BM - 1) / L::BM, (N + TC_BN - 1) / TC_BN, splits);
-  kernel<<<grid, L::NT, L::SMEM, st>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out,
-      splits > 1 ? ws : nullptr, M, N, K, kt_per);
-  e = cudaGetLastError();
-  if (e == cudaSuccess && splits > 1)
-    e = combine<T, EPI>(ws, s, out, M, N, splits, st);
-  return static_cast<int>(e);
+  const dim3 grid((M + BM - 1) / BM, (N + A_BN - 1) / A_BN, splits);
+  kernel<<<grid, A_THREADS, R::SMEM, st>>>(tx, tq, s, out, ws, counters, M,
+                                            N, K, kt_per);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// rows 0: 16-row tiles (4 warps in a row), 1: 64-row tiles (2 x 2 warps),
-// 2: 128-row tiles (4 x 2 warps, a 3-stage ring: 88 KB, two blocks an SM)
 template <typename T, int EPI>
-int launch_mma_rows(int rows, const void* x, const void* q, const float* s,
-                    void* out, float* ws, int M, int N, int K, int splits,
-                    int kt_per, cudaStream_t st) {
-  if (rows == 0)
-    return launch_mma<T, 1, 4, 1, 4, EPI>(x, q, s, out, ws, M, N, K, splits,
-                                          kt_per, st);
-  if (rows == 1)
-    return launch_mma<T, 2, 2, 2, 4, EPI>(x, q, s, out, ws, M, N, K, splits,
-                                          kt_per, st);
-  if (rows == 2)
-    return launch_mma<T, 4, 2, 2, 3, EPI>(x, q, s, out, ws, M, N, K, splits,
-                                          kt_per, st);
+int launch_wgmma_rows(int bm, const CUtensorMap& tx, const CUtensorMap& tq,
+                      const float* s, void* out, float* ws, int* counters,
+                      int M, int N, int K, int splits, int kt_per,
+                      cudaStream_t st) {
+  switch (bm) {
+#define WG_CASE(b)                                                           \
+  case b:                                                                    \
+    return launch_wgmma<T, b, EPI>(tx, tq, s, out, ws, counters, M, N, K,    \
+                                   splits, kt_per, st);
+    WG_CASE(64) WG_CASE(128) WG_CASE(192) WG_CASE(256)
+#undef WG_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int EPI>
+int launch_gemv(const void* x, const void* q, const float* s, void* out,
+                float* ws, int* counters, int M, int N, int K, int splits,
+                int kt_per, cudaStream_t st) {
+  const dim3 grid((N + B_BN - 1) / B_BN, splits);
+  if (M <= 8)
+    weight_gemm_gemv_kernel<T, 1, EPI><<<grid, B_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
+        counters, M, N, K, kt_per);
+  else
+    weight_gemm_gemv_kernel<T, 2, EPI><<<grid, B_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
+        counters, M, N, K, kt_per);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT, bool NK>
 int launch_simt(const void* x, const void* w, const float* s, void* out,
-                float* ws, int M, int N, int K, int splits, int kt_per,
-                cudaStream_t st) {
+                float* ws, int* counters, int M, int N, int K, int splits,
+                int kt_per, cudaStream_t st) {
   using L = SgTile<WT, NK>;
   static size_t done[LT_MAX_DEVICES];
   cudaError_t e =
@@ -614,73 +1092,113 @@ int launch_simt(const void* x, const void* w, const float* s, void* out,
   const dim3 grid((M + SG_BM - 1) / SG_BM, (N + SG_BN - 1) / SG_BN, splits);
   weight_gemm_simt_kernel<WT, NK><<<grid, SG_THREADS, L::SMEM, st>>>(
       static_cast<const float*>(x), static_cast<const WT*>(w), s,
-      static_cast<float*>(out), splits > 1 ? ws : nullptr, M, N, K, kt_per);
-  e = cudaGetLastError();
-  if (e == cudaSuccess && splits > 1)
-    e = combine<float, EPI_F32>(ws, s, out, M, N, splits, st);
-  return static_cast<int>(e);
-}
-
-bool bad_shape(int M, int N, int K) {
-  return M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 16 != 0;
+      static_cast<float*>(out), ws, counters, M, N, K, kt_per);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Tensor-core route. x [M, K] in `dtype` (bf16 or f16), q [K, N] int8, s
-// [N] f32; epi 0 (EPI_ROUND): out [M, N] in dtype, the reference's
-// qmatmul; epi 1 (EPI_F32, bf16 only): out [M, N] f32 = sums * s, the int8
-// head. rows: the block's rows, 0: 16 (decode), 1: 64, 2: 128. ws: f32
-// [splits * M * N] when splits > 1; split z sums K tiles [z*kt_per,
-// (z+1)*kt_per) of 64.
-extern "C" int weight_gemm_mma_launch(int dtype, int epi, int rows,
-                                      const void* x, const void* q,
-                                      const void* s, void* out, void* ws,
-                                      int M, int N, int K, int splits,
-                                      int kt_per, void* stream) {
-  if (bad_shape(M, N, K) || bad_split(K, TC_BK, splits, kt_per, ws))
+// The tensor map of a weight for the large-M route: q [K, N] int8 at ptr,
+// boxes of 64 K rows and 128 columns, written to `map` (128 bytes, host
+// memory). The wrapper keeps one a weight.
+extern "C" int weight_gemm_tmap(const void* ptr, int K, int N, void* map) {
+  if (K <= 0 || N <= 0 || N % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m;
+  const int e = encode_2d(&m, WG_I8, ptr, K, N, A_BK);
+  if (e == 0) memcpy(map, &m, sizeof m);
+  return e;
+}
+
+// Large-M route (wgmma). x [M, K] in `dtype` (bf16 or f16), its tensor map
+// encoded here for boxes of bm (64, 128, 192 or 256) rows; qmap: the
+// weight's map from weight_gemm_tmap; s [N] f32; epi 0 (EPI_ROUND): out
+// [M, N] in dtype, the reference's qmatmul; epi 1 (EPI_F32, bf16 only):
+// out [M, N] f32 = sums * s, the int8 head. ws: f32 [splits * M * N] and
+// counters: int32, zero, one a (row tile, column tile) block, when splits
+// > 1; split z sums K tiles [z*kt_per, (z+1)*kt_per) of 64.
+extern "C" int weight_gemm_wgmma_launch(int dtype, int epi, int bm,
+                                        const void* x, const void* qmap,
+                                        const void* s, void* out, void* ws,
+                                        void* counters, int M, int N, int K,
+                                        int splits, int kt_per,
+                                        void* stream) {
+  if (bad_shape(M, N, K) || bad_split(K, A_BK, splits, kt_per, ws, counters))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tq;
+  memcpy(&tq, qmap, sizeof tq);
+  const int e = encode_2d(&tx, dtype, x, M, K, bm);
+  if (e != 0) return e;
+  const float* sc = static_cast<const float*>(s);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == WG_BF16 && epi == EPI_ROUND)
+    return launch_wgmma_rows<__nv_bfloat16, EPI_ROUND>(
+        bm, tx, tq, sc, out, w, cnt, M, N, K, splits, kt_per, st);
+  if (dtype == WG_BF16 && epi == EPI_F32)
+    return launch_wgmma_rows<__nv_bfloat16, EPI_F32>(
+        bm, tx, tq, sc, out, w, cnt, M, N, K, splits, kt_per, st);
+  if (dtype == WG_F16 && epi == EPI_ROUND)
+    return launch_wgmma_rows<__half, EPI_ROUND>(bm, tx, tq, sc, out, w, cnt,
+                                                M, N, K, splits, kt_per, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Decode route (M <= 16, mma.sync). x [M, K] in `dtype` (bf16 or f16), q
+// [K, N] int8, s [N] f32; epi, ws, counters and (splits, kt_per) as above,
+// one counter a column tile of 128.
+extern "C" int weight_gemm_gemv_launch(int dtype, int epi, const void* x,
+                                       const void* q, const void* s,
+                                       void* out, void* ws, void* counters,
+                                       int M, int N, int K, int splits,
+                                       int kt_per, void* stream) {
+  if (bad_shape(M, N, K) || M > 16 ||
+      bad_split(K, B_BK, splits, kt_per, ws, counters))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(s);
   float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == WG_BF16 && epi == EPI_ROUND)
-    return launch_mma_rows<__nv_bfloat16, EPI_ROUND>(rows, x, q, sc, out, w, M,
-                                                     N, K, splits, kt_per, st);
+    return launch_gemv<__nv_bfloat16, EPI_ROUND>(x, q, sc, out, w, cnt, M, N,
+                                                 K, splits, kt_per, st);
   if (dtype == WG_BF16 && epi == EPI_F32)
-    return launch_mma_rows<__nv_bfloat16, EPI_F32>(rows, x, q, sc, out, w, M,
-                                                   N, K, splits, kt_per, st);
+    return launch_gemv<__nv_bfloat16, EPI_F32>(x, q, sc, out, w, cnt, M, N,
+                                               K, splits, kt_per, st);
   if (dtype == WG_F16 && epi == EPI_ROUND)
-    return launch_mma_rows<__half, EPI_ROUND>(rows, x, q, sc, out, w, M, N, K,
-                                              splits, kt_per, st);
+    return launch_gemv<__half, EPI_ROUND>(x, q, sc, out, w, cnt, M, N, K,
+                                          splits, kt_per, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // SIMT route (f32 activations). x [M, K] f32; w in `wdtype` (int8, bf16 or
 // f16): [K, N] row-major (nk = 0) or the transpose of a row-major [N, K]
 // (nk = 1, bf16/f16 only); s [N] f32 or null; out [M, N] f32 = (x @ w) * s.
-// ws and (splits, kt_per) as above, over K tiles of 16.
+// ws, counters and (splits, kt_per) as above, over K tiles of 16.
 extern "C" int weight_gemm_simt_launch(int wdtype, int nk, const void* x,
                                        const void* w, const void* s,
-                                       void* out, void* ws, int M, int N,
-                                       int K, int splits, int kt_per,
-                                       void* stream) {
-  if (bad_shape(M, N, K) || bad_split(K, SG_BK, splits, kt_per, ws))
+                                       void* out, void* ws, void* counters,
+                                       int M, int N, int K, int splits,
+                                       int kt_per, void* stream) {
+  if (bad_shape(M, N, K) || bad_split(K, SG_BK, splits, kt_per, ws, counters))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(s);
   float* wsp = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wdtype == WG_I8 && !nk)
-    return launch_simt<int8_t, false>(x, w, sc, out, wsp, M, N, K, splits,
-                                      kt_per, st);
+    return launch_simt<int8_t, false>(x, w, sc, out, wsp, cnt, M, N, K,
+                                      splits, kt_per, st);
   if (wdtype == WG_BF16)
-    return nk ? launch_simt<__nv_bfloat16, true>(x, w, sc, out, wsp, M, N, K,
-                                                 splits, kt_per, st)
-              : launch_simt<__nv_bfloat16, false>(x, w, sc, out, wsp, M, N,
-                                                  K, splits, kt_per, st);
+    return nk ? launch_simt<__nv_bfloat16, true>(x, w, sc, out, wsp, cnt, M,
+                                                 N, K, splits, kt_per, st)
+              : launch_simt<__nv_bfloat16, false>(x, w, sc, out, wsp, cnt, M,
+                                                  N, K, splits, kt_per, st);
   if (wdtype == WG_F16)
-    return nk ? launch_simt<__half, true>(x, w, sc, out, wsp, M, N, K, splits,
-                                          kt_per, st)
-              : launch_simt<__half, false>(x, w, sc, out, wsp, M, N, K,
+    return nk ? launch_simt<__half, true>(x, w, sc, out, wsp, cnt, M, N, K,
+                                          splits, kt_per, st)
+              : launch_simt<__half, false>(x, w, sc, out, wsp, cnt, M, N, K,
                                            splits, kt_per, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

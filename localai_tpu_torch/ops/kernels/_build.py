@@ -66,10 +66,13 @@ SIGNATURES = {
         "ragged_attention_tiling": [_I, _I, _I],
     },
     "weight_gemm": {
-        "weight_gemm_mma_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _P],
-        "weight_gemm_simt_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _P],
+        "weight_gemm_tmap": [_P, _I, _I, _P],
+        "weight_gemm_wgmma_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _P],
+        "weight_gemm_gemv_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _P],
+        "weight_gemm_simt_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _P],
     },
 }
 

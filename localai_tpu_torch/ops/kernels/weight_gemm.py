@@ -15,12 +15,16 @@ Two wrappers, each beside its plain version with the same signature:
   bf16 and the exact bf16 x int8 products sum in f32. An f32 head is a
   plain product (`x32 @ head`) on any device: there is no cast to save.
 
-On the card both run csrc/weight_gemm.cu: bf16/f16 activations (and the
-int8 head) on the tensor cores, f32 activations as f32 FMAs; split-K with
-a workspace and an ordered combine where the output tiles alone would not
-fill the card. No weight is cast or copied per call: a weight that is not
-contiguous (or, for the head, the transpose of a contiguous tensor) or
-not 16-byte aligned raises. K and N must be multiples of 16.
+On the card both run csrc/weight_gemm.cu. bf16/f16 activations (and the
+int8 head) take one of two tensor-core routes, by M alone: up to 16 rows
+(decode) `mma.sync` with the weight converted in registers, above that
+`wgmma` fed by TMA (a tensor map of each weight is encoded once and kept
+here, x's is encoded at each call). f32 activations run f32 FMAs. Split-K,
+with a workspace and an ordered combine by the tile's last split inside
+the same launch, where the output tiles alone would not fill the card. No
+weight is cast or copied per call: a weight that is not contiguous (or,
+for the head, the transpose of a contiguous tensor) or not 16-byte
+aligned raises. K and N must be multiples of 16.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — no size threshold, probe or switch sends a
@@ -29,6 +33,7 @@ nothing else does.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -44,33 +49,74 @@ LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0}
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
          torch.int8: 3}
 
-# (rows, columns, K depth) of a block's tile on each route, as in
-# csrc/weight_gemm.cu: tensor cores with 16-row tiles (M <= 16), 64-row
-# tiles (M <= 64) or 128-row tiles, and the f32 SIMT route
-MMA_TILES = ((16, 128, 64), (64, 128, 64), (128, 128, 64))
+# (rows, columns, K depth) of a block's tile on each route of
+# csrc/weight_gemm.cu: the decode route takes all M <= GEMV_ROWS rows, the
+# large-M route BM of WGMMA_ROWS rows a block (x's row tile), and the f32
+# SIMT route 8 rows
+GEMV_ROWS = 16
+GEMV = (GEMV_ROWS, 128, 64)
+WGMMA_ROWS = (64, 128, 192, 256)
+WGMMA_BN, WGMMA_BK = 128, 64
 SIMT = (8, 512, 16)
+# blocks an SM takes in a split call's wave on each route: one of three
+# warpgroups with a 200 KB ring (wgmma); two of the four-warp decode
+# blocks, the split count nearest that (fewer leave SMs idle or unevenly
+# loaded, more add split-K tails), and two SIMT blocks (a head's 251
+# column tiles then take no split, whose combine cost more than it
+# gained); chip timings in PERF.md §6
+PER_SM = {"gemv": 2, "wgmma": 1, "simt": 2}
+# the large-M route's cost model (w8_plan), in rows of x times K tiles: a
+# block converts each weight element of its K tiles once, which costs about
+# as much as CONVERT_ROWS more rows; with split-K, the tile's last split
+# reads every split's partials, about COMBINE_ROWS rows a row a split
+CONVERT_ROWS = 32
+COMBINE_ROWS = 4
 # K rows a split takes at least
 SPLIT_MIN_K = 256
 
 
-def mma_rows(M: int) -> int:
-    """The tensor-core tile for M rows (an index of MMA_TILES): the
-    smallest that holds them, 128-row tiles above 64."""
-    return 0 if M <= 16 else 1 if M <= 64 else 2
-
-
 @functools.lru_cache(maxsize=None)
-def gemm_split(M: int, N: int, K: int, tile: tuple, sms: int):
+def gemm_split(M: int, N: int, K: int, tile: tuple, sms: int, per_sm: int,
+               nearest: bool = False):
     """(splits, K tiles a split) of an [M, K] @ [K, N] call on `tile`'s
-    route: enough splits that the (row tile, column tile, split) blocks
-    number about two per SM, each split at least SPLIT_MIN_K deep, and
-    none empty. Shapes only, so a call needs no device sync."""
+    route, whose blocks run per_sm to an SM: as many splits as keep all
+    (row tile, column tile, split) blocks in one wave of per_sm * sms
+    blocks (with `nearest`, the count nearest that), each split at least
+    SPLIT_MIN_K deep, and none empty. Shapes only, so a call needs no
+    device sync."""
     bm, bn, bk = tile
     blocks = -(-M // bm) * -(-N // bn)
     nk = -(-K // bk)
-    want = max(1, -(-2 * sms // blocks))
+    want = max(1, (2 * per_sm * sms + blocks) // (2 * blocks) if nearest
+               else per_sm * sms // blocks)
     per = max(-(-nk // want), min(nk, max(1, SPLIT_MIN_K // bk)))
     return -(-nk // per), per
+
+
+def wgmma_cost(M: int, N: int, K: int, bm: int, sms: int) -> int:
+    """The large-M route's cost of row tile bm (w8_plan's model): waves of
+    blocks times a block's K tiles times its rows plus the conversion, and
+    the last split's reads of every split's partials."""
+    splits, per = gemm_split(M, N, K, (bm, WGMMA_BN, WGMMA_BK), sms,
+                             PER_SM["wgmma"])
+    blocks = -(-M // bm) * -(-N // WGMMA_BN) * splits
+    cost = -(-blocks // sms) * per * (bm + CONVERT_ROWS)
+    return cost + (splits * COMBINE_ROWS * bm if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def w8_plan(M: int, N: int, K: int, sms: int):
+    """(route, tile, splits, K tiles a split) of an int8 projection x [M,
+    K] @ q [K, N] on the tensor cores. The route is a rule of M alone:
+    "gemv" (mma.sync, the weight converted in registers) up to GEMV_ROWS
+    rows, "wgmma" above. On the wgmma route the row tile is the one of
+    WGMMA_ROWS that wgmma_cost puts lowest, the larger on a tie."""
+    if M <= GEMV_ROWS:
+        return ("gemv", GEMV) + gemm_split(M, N, K, GEMV, sms,
+                                           PER_SM["gemv"], nearest=True)
+    bm = min(WGMMA_ROWS, key=lambda b: (wgmma_cost(M, N, K, b, sms), -b))
+    tile = (bm, WGMMA_BN, WGMMA_BK)
+    return ("wgmma", tile) + gemm_split(M, N, K, tile, sms, PER_SM["wgmma"])
 
 
 # ------------------------------------------------------------------ plain
@@ -134,7 +180,7 @@ def _weight_checks(name, x, w, s, dtypes):
 
 
 def _placement_checks(name, x, tensors):
-    """The weights lie on x's card, 16-byte aligned (cp.async rows)."""
+    """The weights lie on x's card, 16-byte aligned (16-byte loads, TMA)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for t in tensors:
@@ -158,18 +204,62 @@ def _workspace(splits, M, N, device):
         if splits > 1 else None
 
 
-def _launch_mma(name, x2, q, s, out, epi):
-    """Tensor-core route: x2 [M, K] bf16/f16, q [K, N] int8, s [N] f32."""
+_COUNTERS: dict = {}
+
+
+def _counters(device):
+    """The card's split-K counters, one an output tile of a split call
+    (gemm_split splits only calls of fewer tiles than the card's SMs hold
+    blocks): int32 zeros, made at the card's first launch and left at zero
+    by every launch (a tile's last split resets its counter). Made outside
+    any CUDA graph capture, which would record the zeroing instead of
+    doing it. Launches that overlap on two streams of one card would share
+    them: the port runs its GEMMs on one stream at a time."""
+    c = _COUNTERS.get(device.index)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("weight GEMMs: a card's first launch makes "
+                               "its split-K counters and must not be "
+                               "captured in a CUDA graph")
+        c = _COUNTERS[device.index] = torch.zeros(
+            max(PER_SM.values()) * _sm_count(device), dtype=torch.int32,
+            device=device)
+    return c
+
+
+@functools.lru_cache(maxsize=4096)
+def _weight_map(ptr: int, shape: tuple, dtype) -> ctypes.Array:
+    """The large-route tensor map (128 bytes, host memory) of the int8
+    weight [K, N] at ptr: a weight lives for the process, so its map is
+    encoded once. The map holds only the address and the shape, so a key
+    names one map."""
+    buf = ctypes.create_string_buffer(128)
+    rc = _build.load("weight_gemm").weight_gemm_tmap(
+        ptr, shape[0], shape[1], ctypes.addressof(buf))
+    _raise_rc("weight tensor map", rc)
+    return buf
+
+
+def _launch_w8(name, x2, q, s, out, epi):
+    """Tensor-core routes: x2 [M, K] bf16/f16, q [K, N] int8, s [N] f32."""
     M, K = x2.shape
     N = q.shape[1]
-    rows = mma_rows(M)
-    splits, per = gemm_split(M, N, K, MMA_TILES[rows], _sm_count(x2.device))
+    route, tile, splits, per = w8_plan(M, N, K, _sm_count(x2.device))
     ws = _workspace(splits, M, N, x2.device)
-    rc = _build.load("weight_gemm").weight_gemm_mma_launch(
-        _CODE[x2.dtype], epi, rows, x2.data_ptr(),
-        q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits, per,
-        _stream(x2.device))
+    wsp = None if ws is None else ws.data_ptr()
+    cnt = _counters(x2.device).data_ptr()
+    lib = _build.load("weight_gemm")
+    if route == "gemv":
+        rc = lib.weight_gemm_gemv_launch(
+            _CODE[x2.dtype], epi, x2.data_ptr(), q.data_ptr(), s.data_ptr(),
+            out.data_ptr(), wsp, cnt, M, N, K, splits, per,
+            _stream(x2.device))
+    else:
+        qmap = _weight_map(q.data_ptr(), tuple(q.shape), q.dtype)
+        rc = lib.weight_gemm_wgmma_launch(
+            _CODE[x2.dtype], epi, tile[0], x2.data_ptr(),
+            ctypes.addressof(qmap), s.data_ptr(), out.data_ptr(), wsp, cnt,
+            M, N, K, splits, per, _stream(x2.device))
     _raise_rc(name, rc)
 
 
@@ -178,12 +268,14 @@ def _launch_simt(name, x2, w, s, out, nk):
     transpose of a row-major [N, K]); s [N] f32 or None."""
     M, K = x2.shape
     N = w.shape[1]
-    splits, per = gemm_split(M, N, K, SIMT, _sm_count(x2.device))
+    splits, per = gemm_split(M, N, K, SIMT, _sm_count(x2.device),
+                             PER_SM["simt"])
     ws = _workspace(splits, M, N, x2.device)
     rc = _build.load("weight_gemm").weight_gemm_simt_launch(
         _CODE[w.dtype], int(nk), x2.data_ptr(), w.data_ptr(),
         None if s is None else s.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits, per,
+        None if ws is None else ws.data_ptr(),
+        _counters(x2.device).data_ptr(), M, N, K, splits, per,
         _stream(x2.device))
     _raise_rc(name, rc)
 
@@ -206,7 +298,7 @@ def w8a16_matmul(x, q, s):
         if x.dtype == torch.float32:
             _launch_simt(name, x2, q, s, out, nk=False)
         else:
-            _launch_mma(name, x2, q, s, out, epi=0)
+            _launch_w8(name, x2, q, s, out, epi=0)
         LAUNCHES[name] += 1
     return out.reshape(*x.shape[:-1], N)
 
@@ -227,7 +319,7 @@ def head_matmul(x32, w, s=None):
                       device=x32.device)
     if x2.shape[0]:
         if s is not None:
-            _launch_mma(name, x2.to(torch.bfloat16), w, s, out, epi=1)
+            _launch_w8(name, x2.to(torch.bfloat16), w, s, out, epi=1)
         else:
             _launch_simt(name, x2, w, None, out, nk=nk)
         LAUNCHES[name] += 1

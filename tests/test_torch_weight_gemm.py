@@ -242,31 +242,74 @@ def test_shape_checks_raise_on_what_the_kernels_do_not_take():
                           (torch.float32,))
 
 
+# Qwen2-7B's projections (K, N): gate/up, down, and k/v (hidden 3584,
+# intermediate 18944, 4 KV heads of 128)
+QWEN2_GEOMETRIES = [(3584, 18944), (18944, 3584), (3584, 512)]
+
+
 @pytest.mark.parametrize("M,K,N,route", [
-    (4, 4096, 1024, "mma"), (4, 4096, 14336, "mma"), (8, 14336, 4096, "mma"),
-    (40, 4096, 1024, "mma"), (192, 4096, 4096, "mma"),
-    (2048, 4096, 14336, "mma"), (8, 4096, 128256, "simt"),
-    (1, 272, 400, "simt")])
+    (4, 4096, 1024, "w8"), (4, 4096, 14336, "w8"), (8, 14336, 4096, "w8"),
+    (40, 4096, 1024, "w8"), (192, 4096, 4096, "w8"),
+    (2048, 4096, 14336, "w8"), (8, 4096, 128256, "simt"),
+    (1, 272, 400, "simt")]
+    + [(M, K, N, "w8") for K, N in QWEN2_GEOMETRIES for M in (4, 192, 2048)])
 def test_gemm_split_from_shapes(M, K, N, route):
     """Split-K: every K tile in exactly one split, none empty, each split
-    at least 256 of K deep where K has that, and at least a block an SM
-    over all (row tile, column tile, split) blocks unless the splits are
-    already at that depth; no split where the output tiles fill the card
-    twice."""
+    at least 256 of K deep where K has that; the (row tile, column tile,
+    split) blocks number at most one wave of the route's blocks an SM
+    times the SMs (the decode route: the nearest count to it), and at
+    least half of that unless the splits are already at that depth; no
+    split where the output tiles fill the wave alone."""
     sms = 132
-    tile = wg.MMA_TILES[wg.mma_rows(M)] if route == "mma" else wg.SIMT
-    assert tile[0] >= min(M, 128) and (M <= 16 or tile[0] > 16)
-    splits, per = wg.gemm_split(M, N, K, tile, sms)
+    if route == "w8":
+        name, tile, splits, per = wg.w8_plan(M, N, K, sms)
+        assert tile[0] >= min(M, wg.GEMV_ROWS)
+        assert (M <= wg.GEMV_ROWS) == (name == "gemv")
+    else:
+        name, tile = "simt", wg.SIMT
+    per_sm, nearest = wg.PER_SM[name], name == "gemv"
+    assert (route == "simt" or (splits, per) == wg.gemm_split(
+        M, N, K, tile, sms, per_sm, nearest))
+    splits, per = wg.gemm_split(M, N, K, tile, sms, per_sm, nearest)
     bm, bn, bk = tile
     nk = -(-K // bk)
     min_per = min(nk, wg.SPLIT_MIN_K // bk)
     assert (splits - 1) * per < nk <= splits * per
     assert per >= min_per
     tiles = -(-M // bm) * -(-N // bn)
-    if tiles >= 2 * sms:
+    wave = per_sm * sms
+    # the decode route takes the split count nearest a wave, the others
+    # the most that fit in one
+    want = max(1, round(wave / tiles) if nearest else wave // tiles)
+    assert splits <= want
+    assert splits * 2 > want or per == min_per
+    if want == 1:
         assert splits == 1
-    else:
-        assert tiles * splits >= sms or per == min_per
+    if want >= 2:
+        assert splits >= 2 or nk < 2 * min_per
+
+
+@pytest.mark.parametrize("M,K,N,route,bm", [
+    (1, 4096, 14336, "gemv", 16), (16, 4096, 1024, "gemv", 16),
+    (17, 4096, 1024, "wgmma", 64), (64, 4096, 14336, "wgmma", 64),
+    (65, 4096, 14336, "wgmma", 128), (192, 4096, 14336, "wgmma", 192),
+    (192, 4096, 1024, "wgmma", 64), (192, 14336, 4096, "wgmma", 192),
+    (193, 4096, 14336, "wgmma", 256), (700, 4096, 14336, "wgmma", 256),
+    (2048, 4096, 14336, "wgmma", 256), (2048, 4096, 1024, "wgmma", 128),
+    (2048, 3584, 512, "wgmma", 64)])
+def test_w8_plan_route_and_row_tile(M, K, N, route, bm):
+    """The route is a rule of M alone: mma.sync with the weight converted
+    in registers up to 16 rows (decode), wgmma above. There the row tile
+    is the cheapest by wgmma_cost: the largest that fills the card at
+    prefill's M; a small one with split-K where few column tiles would
+    leave SMs idle (wk at M = 192: 24 tiles of 64 rows in 5 splits, not 8
+    of 192 rows in 16)."""
+    name, tile, splits, per = wg.w8_plan(M, N, K, 132)
+    assert (name, tile[0]) == (route, bm)
+    assert tile[1:] == ((128, 64) if route == "wgmma" else wg.GEMV[1:])
+    if route == "wgmma":
+        costs = {b: wg.wgmma_cost(M, N, K, b, 132) for b in wg.WGMMA_ROWS}
+        assert costs[bm] == min(costs.values())
 
 
 # ---------------------------------------------- the int8 recipe, whole
@@ -428,8 +471,9 @@ GEOMETRIES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 8, 17, 64, 65, 192, 2048])
-@pytest.mark.parametrize("K,N", GEOMETRIES)
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 63, 64, 65, 191, 192, 193,
+                               2047, 2048])
+@pytest.mark.parametrize("K,N", GEOMETRIES + QWEN2_GEOMETRIES[:2])
 def test_cuda_w8a16_bf16_vs_plain(cuda, K, N, M):
     q, s = _card_weight(K, N, cuda, seed=K + N)
     g = torch.Generator(device=cuda).manual_seed(M)
@@ -441,12 +485,14 @@ def test_cuda_w8a16_bf16_vs_plain(cuda, K, N, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 32])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-def test_cuda_w8a16_converts_every_int8_value_exactly(cuda, dtype):
-    """Every int8 value, -128 included, through the kernel's conversion:
-    one-hot rows of x pick weight rows, so each output is one int8 value
-    times a unit scale, exact in bf16 and f16."""
-    K, N, M = 256, 256, 32
+def test_cuda_w8a16_converts_every_int8_value_exactly(cuda, dtype, M):
+    """Every int8 value, -128 included, through the kernel's conversion on
+    both routes (M = 4: decode, 32: wgmma): one-hot rows of x pick weight
+    rows, so each output is one int8 value times a unit scale, exact in
+    bf16 and f16."""
+    K, N = 256, 256
     k = torch.arange(K, device=cuda)[:, None]
     n = torch.arange(N, device=cuda)[None, :]
     q = ((k + n) % 256 - 128).to(torch.int8)
@@ -512,13 +558,23 @@ def test_cuda_head_ragged_tails(cuda, kind):
                                tk.head_matmul_plain(x32, *args), **HEAD_CARD)
 
 
-@pytest.mark.cuda
-def test_cuda_w8a16_planted_faults_rejected(cuda):
-    K, N, M = 4096, 1024, 8
-    q, s = _card_weight(K, N, cuda, seed=5)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+def _stage_before_load(q, t=1):
+    """The weight a ring stage read before its load landed would give: K
+    tile t (64 rows) replaced by tile t - 1, the stage's previous
+    contents."""
+    qs = q.clone()
+    qs[64 * t:64 * (t + 1)] = q[64 * (t - 1):64 * t]
+    return qs
+
+
+def _assert_faults_rejected(M, seed):
+    K, N = 4096, 1024
+    dev = torch.device("cuda")
+    q, s = _card_weight(K, N, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
     out = tk.w8a16_matmul(x, q, s)
+    assert_w8_close(out, tk.w8a16_matmul_plain(x, q, s))
     early = ((x.float() @ q.float()) * s).to(torch.bfloat16)
     with pytest.raises(AssertionError):
         assert_w8_close(out, early)
@@ -526,14 +582,34 @@ def test_cuda_w8a16_planted_faults_rejected(cuda):
     qd[64:128] = 0                                  # one K tile dropped
     with pytest.raises(AssertionError):
         assert_w8_close(out, tk.w8a16_matmul_plain(x, qd, s))
+    with pytest.raises(AssertionError):             # a stage read early
+        assert_w8_close(out, tk.w8a16_matmul_plain(
+            x, _stage_before_load(q), s))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["split", "big", "head", "head-int8"])
+def test_cuda_w8a16_planted_faults_rejected(cuda):
+    """Decode route (M = 8)."""
+    _assert_faults_rejected(8, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [192, 2048])
+def test_cuda_w8a16_wgmma_planted_faults_rejected(cuda, M):
+    """Large-M route: the TMA ring's stage read early among them."""
+    _assert_faults_rejected(M, seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split", "big", "prefill", "head",
+                                  "head-int8"])
 def test_cuda_graph_replay_equals_eager_and_repeats(cuda, case):
     """A call captured in a CUDA graph (its output and split-K workspace
-    from the graph's pool) gives the eager call's bits, and so does every
-    repeated call: no atomics, a fixed combine order."""
+    from the graph's pool, the tensor maps in its kernel's parameters)
+    gives the eager call's bits, and so does every repeated call: no float
+    atomics, a fixed combine order. "split": the decode route with split-K,
+    "big": the wgmma route with split-K (M = 192), "prefill": the wgmma
+    route with no split (M = 2048)."""
     g = torch.Generator(device=cuda).manual_seed(11)
     if case.startswith("head"):
         K, V = 4096, 32000
@@ -545,8 +621,8 @@ def test_cuda_graph_replay_equals_eager_and_repeats(cuda, case):
         def fn():
             return tk.head_matmul(x, *args)
     else:
-        M = 4 if case == "split" else 192
-        q, s = _card_weight(4096, 1024, cuda)
+        M = {"split": 4, "big": 192, "prefill": 2048}[case]
+        q, s = _card_weight(4096, 1024 if M < 2048 else 4096, cuda)
         x = torch.randn(M, 4096, generator=g, device=cuda).to(torch.bfloat16)
 
         def fn():
