@@ -8,7 +8,9 @@ and the script exits non-zero:
   0. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi), the torch and CUDA versions; turns TF32 off.
   1. build: prints `nvcc --version`, compiles the port's CUDA sources
-     (csrc/*.cu, one nvcc each, in parallel) and prints the build seconds.
+     (csrc/*.cu, one nvcc each, in parallel) and, beside them, the grammar
+     matcher (native/grammar.cpp, g++) into the git-ignored csrc/build/,
+     and prints the build seconds.
   2. kernels vs plain at the main path's shapes (Llama-3.1-8B geometry:
      H=32, KVH=8, D=128): max abs error against each kernel's plain
      PyTorch version with its tolerance (the paged scatters: bit-exact over
@@ -59,7 +61,14 @@ and the script exits non-zero:
      layers), dense, paged and ragged, bf16 and int8, serve four requests
      (greedy and seeded-sampled) twice — through graph replays and with
      each loop segment run eagerly by a test helper — and must give equal
-     tokens and logprobs, bit for bit.
+     tokens and logprobs, bit for bit. Then grammar-constrained decoding
+     on the same f32 model with the grammar leg's tokenizer (V = 128256):
+     a table-backed tool-call grammar request, greedy and seeded-sampled,
+     gives the same tokens on the card as on the CPU and as the
+     host-masked path (grammar_table_states=0, decode_block=1,
+     decode_loop=0) on the card, every token accepted by the port's
+     matcher; on the dense, paged and ragged engines the grammar segments'
+     graph replays equal the eager segments, bit for bit.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
@@ -97,6 +106,27 @@ and the script exits non-zero:
      of Qwen2-7B's published widths (Qwen2ForCausalLM: hidden 3584, 28
      layers, 28 heads on 4 KV heads, head_dim 128, QKV bias, untied head,
      vocab 152064), full depth, both recipes, with the same checks.
+  7. grammar-constrained decoding at full width. The leg's checkpoint is
+     a directory of its own: the synthetic Llama-3.1-8B's config and a
+     ByteLevel BPE tokenizer written here (the 256 byte symbols, strings
+     of 2-8 JSON-ish characters from a seed, no merges, an EOS token;
+     128256 entries). The grammar tables at V = 128256: the tool-call
+     grammar's build seconds and states, the JSON grammar's overflow, the
+     device tables' bytes. One wave of four streams — two on the tool-call
+     grammar (greedy, seeded-sampled; device tables, fused loops), one on
+     the generic JSON grammar (it overflows the tables: host-only, the
+     block path with rollbacks), one free — with a malformed GBNF sent
+     mid-wave, then the same prompts as four free streams (the baseline
+     tok/s): through the gRPC backend on the dense path (bf16, int8
+     recipe) and, on phase 6's Llama weights, an in-process ragged Engine
+     of phase 6's shape. Checks: every grammar stream's tokens up to EOS
+     or its budget are accepted by the port's matcher; the table-backed
+     streams ran as graph replays of the grammar key; the host-only one
+     took the block path; the malformed GBNF gets INVALID_ARGUMENT (a
+     ValueError at the Engine's submit) while the others finish; the
+     greedy tool-call stream passes the teacher-forced check with each
+     reference row masked by the matcher. Each reading line carries the
+     card's name and power limit.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -139,6 +169,55 @@ CFG_QWEN2_7B = {
     "tie_word_embeddings": False, "sliding_window": 131072,
     "use_sliding_window": False, "max_window_layers": 28,
 }
+
+# the grammar leg's grammars, as GBNF text (what the control plane sends
+# the backend in PredictOptions.grammar): a forced call of one tool (the
+# OpenAI tools schema {"name", "arguments"} of a get_weather function, with
+# tool_choice "required"), whose automaton fits the device tables, and the
+# generic JSON grammar of response_format json_object, whose unbounded
+# nesting overflows them (host-only)
+TOOL_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "name": {"const": "get_weather"},
+        "arguments": {
+            "type": "object",
+            "properties": {"location": {"type": "string"},
+                           "unit": {"enum": ["celsius", "fahrenheit"]}},
+            "required": ["location", "unit"]}},
+    "required": ["name", "arguments"]}
+TOOL_GBNF = "\n".join([
+    r'root ::= root-v space',
+    r'space ::= " "?',
+    r'root-v-name ::= "\"get_weather\"" space',
+    r'string ::= "\"" (',
+    r'  [^"\\\x00-\x1f] |',
+    r'  "\\" (["\\/bfnrt] | "u" [0-9a-fA-F] [0-9a-fA-F] [0-9a-fA-F] '
+    r'[0-9a-fA-F])',
+    r')* "\"" space',
+    r'root-v-arguments-unit ::= ("\"celsius\"" | "\"fahrenheit\"") space',
+    r'root-v-arguments ::= "{" space "\"location\"" space ":" space string '
+    r'"," space "\"unit\"" space ":" space root-v-arguments-unit "}" space',
+    r'root-v ::= "{" space "\"name\"" space ":" space root-v-name "," space '
+    r'"\"arguments\"" space ":" space root-v-arguments "}" space',
+])
+JSON_GBNF = "\n".join([
+    r'root ::= object',
+    r'space ::= " "?',
+    r'object ::= "{" space (string ":" space value ("," space string ":" '
+    r'space value)*)? "}" space',
+    r'array ::= "[" space (value ("," space value)*)? "]" space',
+    r'string ::= "\"" (',
+    r'  [^"\\\x00-\x1f] |',
+    r'  "\\" (["\\/bfnrt] | "u" [0-9a-fA-F] [0-9a-fA-F] [0-9a-fA-F] '
+    r'[0-9a-fA-F])',
+    r')* "\"" space',
+    r'number ::= ("-"? ([0-9] | [1-9] [0-9]*)) ("." [0-9]+)? '
+    r'([eE] [-+]? [0-9]+)? space',
+    r'boolean ::= ("true" | "false") space',
+    r'null ::= "null" space',
+    r'value ::= object | array | string | number | boolean | null',
+])
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
 # f32 outside the tensor cores (the port's f32 paths never use TF32), HBM3
@@ -199,11 +278,33 @@ def phase_build():
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     log("nvcc " + " ".join(nvcc.stdout.strip().splitlines()[-2:]))
+    import threading
+
+    from localai_tpu_torch import native
+
+    # the grammar matcher (g++) builds beside the CUDA sources (nvcc)
+    gxx = {}
+
+    def build_grammar():
+        t = time.perf_counter()
+        try:
+            native.build_and_load("grammar")
+        except Exception as e:     # re-raised below, on the main thread
+            gxx["error"] = e
+        gxx["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=build_grammar)
     t0 = time.perf_counter()
+    th.start()
     built = _build.build_all()
+    th.join()
     secs = time.perf_counter() - t0
+    if "error" in gxx:
+        raise gxx["error"]
     for name, s in built.items():
         log(f"build {name}: {s:.1f} s")
+    log(f"build grammar.cpp (g++): {gxx['s']:.1f} s -> "
+        f"{os.path.relpath(native.so_path('grammar'), HERE)}")
     log(f"phase1 build: {secs:.1f} s wall for {sorted(built) or 'cached'}")
     for name in _build.SOURCES:
         _build.load(name)
@@ -2020,7 +2121,8 @@ def plain_weight_gemms():
         quant.w8a16_matmul, llama.head_matmul = saved
 
 
-def check_reference(name, engine, cases, fault, phase="phase5"):
+def check_reference(name, engine, cases, fault, phase="phase5",
+                    grammar=None):
     """Hold greedy requests served on the paged or ragged path against a
     teacher-forced reference: the prompt plus the served tokens go through
     the port's plain forward (models.llama.extend over a dense cache — plain
@@ -2031,7 +2133,10 @@ def check_reference(name, engine, cases, fault, phase="phase5"):
     must be within REF_MARGIN of the row's largest (gap) and its served
     logprob within REF_LP_TOL of the reference's. `cases`: {label: (prompt
     ids, served tokens, served logprobs)}; `fault`: served tokens and
-    logprobs under a WRONG prompt, which must fail."""
+    logprobs under a WRONG prompt, which must fail. `grammar`: the GBNF
+    the cases were served under; each reference row is then masked to the
+    tokens the grammar allowed there (the port's matcher), as the sampler
+    masked the served row."""
     import torch
 
     from localai_tpu_torch.models.llama import extend, init_kv_cache
@@ -2052,14 +2157,17 @@ def check_reference(name, engine, cases, fault, phase="phase5"):
         return logits[0, len(ids) - 1:].float()  # row i predicted toks[i]
 
     def readings(ref, toks, lps):
+        std = float(ref.std(1).mean())
+        if grammar:
+            allowed = _grammar_rows(engine, grammar, toks)
+            ref = ref.masked_fill(~allowed, float("-inf"))
         t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
         gap = ref.max(1).values - ref.gather(1, t)[:, 0]
         lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
         dlp = (lp_ref - torch.tensor(lps, device=dev)).abs()
         return {"max_gap": float(gap.max()),
                 "argmax_equal": int((gap == 0).sum()), "tokens": len(toks),
-                "max_dlogprob": float(dlp.max()),
-                "logit_std": float(ref.std(1).mean())}
+                "max_dlogprob": float(dlp.max()), "logit_std": std}
 
     before = launch_counts()
     with plain_weight_gemms():
@@ -2357,10 +2465,11 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
         torch.cuda.empty_cache()
 
 
-def _serve_ragged_model(cfg_json, phase, smi):
+def _serve_ragged_model(cfg_json, phase, smi, then=None):
     """serve_ragged in bf16 then the int8 recipe on a synthetic checkpoint
     of `cfg_json`'s widths; returns the two recipes' launch counts
-    summed."""
+    summed. `then(name)`, if given, makes each recipe's serve_ragged
+    `then`."""
     import tempfile
 
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
@@ -2370,7 +2479,9 @@ def _serve_ragged_model(cfg_json, phase, smi):
             json.dump(dict(cfg_json, localai_synthetic=True), f)
         for name, dtype, kv in (("bf16", "bfloat16", ""),
                                 ("int8", "int8", "int8")):
-            out, counts = serve_ragged(name, d, dtype, kv, phase=phase)
+            out, counts = serve_ragged(
+                name, d, dtype, kv, phase=phase,
+                then=None if then is None else then(name))
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
     log(f"{phase} launches on the ragged path " + json.dumps(total)
@@ -2378,17 +2489,602 @@ def _serve_ragged_model(cfg_json, phase, smi):
     return total
 
 
-def phase_ragged_path(smi):
+def phase_ragged_path(smi, grammar_then=None):
     """The ragged path at full width: the synthetic Llama-3.1-8B (32
     layers) in the port's Engine with ragged continuous batching, bf16 then
     the int8 recipe; then the same run on a synthetic checkpoint of
     Qwen2-7B's widths (28 layers, GQA group 7), whose ragged attention
     takes a KV head's 7 query heads in one block. The launch counts are
     zeroed just before each recipe's requests and read just after; returns
-    the Llama run's sums."""
-    total = _serve_ragged_model(CFG_8B, "phase6", smi)
+    the Llama run's sums. `grammar_then(recipe)`: the grammar leg's ragged
+    wave on each Llama recipe's weights, after its checks."""
+    total = _serve_ragged_model(CFG_8B, "phase6", smi, then=grammar_then)
     _serve_ragged_model(CFG_QWEN2_7B, "phase6 qwen2-7b", smi)
     return total
+
+
+# ------------------------------------------------------------ the grammar leg
+
+# the device grammar tables' rows (EngineConfig.grammar_table_states)
+GRAMMAR_CAP = 256
+GRAMMAR_EOS = "<|eot_id|>"
+# a wave of four streams at full width: two table-backed tool calls
+# (greedy, seeded-sampled), the generic JSON grammar (its automaton
+# overflows the tables: host-only, the block path; 16 tokens, so the
+# table-backed streams ride the fused loop once it is done) and a free
+# stream. (label, prompt length, grammar, sampling, max_tokens)
+GRAMMAR_WAVE = [
+    ("tool greedy", 40, "tool", dict(temperature=0.0), NEW_TOKENS),
+    ("tool sampled", 300, "tool", dict(temperature=0.8, seed=11),
+     NEW_TOKENS),
+    ("json host-only", 17, "json", dict(temperature=0.0), 16),
+    ("free", 120, "", dict(temperature=0.0), NEW_TOKENS),
+]
+GRAMMARS = {"tool": TOOL_GBNF, "json": JSON_GBNF, "": ""}
+BAD_GBNF = 'root ::= ("a"'
+def wave_grammar(g, mode):
+    """The GBNF of a stream on grammar `g` in a wave of `mode`, each mode
+    over GRAMMAR_WAVE's prompts and budgets: "grammar" as it stands;
+    "tables", the JSON stream served free (the device tables' lane alone);
+    "free", every stream free (the baseline tok/s)."""
+    if mode == "grammar" or (mode == "tables" and g == "tool"):
+        return GRAMMARS[g]
+    return ""
+
+
+def _byte_alphabet() -> dict:
+    """GPT-2's byte → character map, in which ByteLevel tokenizers spell
+    their vocabularies (a space is 'Ġ')."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(0xA1, 0xAD))
+          + list(range(0xAE, 0x100)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+def write_tokenizer(d, vocab_size, seed=7):
+    """A ByteLevel BPE tokenizer of `vocab_size` entries into `d`
+    (tokenizer.json, tokenizer_config.json): the 256 byte symbols, then
+    distinct strings of 2-8 JSON-ish characters drawn from a seed, each
+    spelled in the byte alphabet, no merges, and the EOS token last."""
+    import random
+    import string
+
+    byte = _byte_alphabet()
+    chars = string.ascii_letters + string.digits + ' {}[]":,_-.'
+    rng = random.Random(seed)
+    vocab = {byte[b]: b for b in range(256)}
+    while len(vocab) < vocab_size - 1:
+        w = "".join(rng.choice(chars) for _ in range(rng.randint(2, 8)))
+        vocab.setdefault("".join(byte[c] for c in w.encode()), len(vocab))
+    level = {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab_size - 1, "content": GRAMMAR_EOS,
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False,
+                          "special": True}],
+        "normalizer": None, "pre_tokenizer": level, "post_processor": None,
+        "decoder": level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "vocab": vocab, "merges": []}}
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"eos_token": GRAMMAR_EOS, "bos_token": None,
+                   "add_bos_token": False}, f)
+
+
+def grammar_checkpoint(d, cfg_json):
+    """A synthetic checkpoint of `cfg_json`'s widths with the tokenizer of
+    write_tokenizer, in a directory of its own (a tokenizer turns on the
+    EOS checks, which the other phases' checkpoints keep off)."""
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(cfg_json, localai_synthetic=True), f)
+    write_tokenizer(d, cfg_json["vocab_size"])
+
+
+def _grammar_rows(engine, gbnf, toks):
+    """[len(toks), V] bool on the engine's device: the allowed set before
+    each served token, by a fresh matcher of the port (EOS allowed once
+    the grammar is complete)."""
+    import numpy as np
+    import torch
+
+    m = engine._compile_grammar(gbnf).state()
+    eos = sorted(engine.tok.eos_ids)
+    V = engine.cfg.vocab_size
+    rows = []
+    for t in toks:
+        rows.append(np.unpackbits(m.mask_bits(eos), bitorder="little")[:V])
+        if t in eos:
+            break
+        m.accept(t)
+    return torch.from_numpy(np.stack(rows).astype(bool)).to(engine.device)
+
+
+def conformant(tok, matcher, toks) -> bool:
+    """Every served token up to EOS is accepted by the matcher."""
+    for t in toks:
+        if t in tok.eos_ids:
+            return True
+        if not matcher.accept(t):
+            return False
+    return True
+
+
+def _stream_rate(times):
+    """A stream's decode rate: tokens after the first over the time from
+    the first to the last."""
+    if len(times) < 2 or times[-1] <= times[0]:
+        return None
+    return (len(times) - 1) / (times[-1] - times[0])
+
+
+def grammar_wave_checks(label, engine, results, m0, m1, key_replays, path,
+                        mode):
+    """A wave's checks and readings: every stream finished; each grammar
+    stream conformant up to EOS or its budget; with grammars, the
+    table-backed streams' segments replayed as grammar graphs; in a
+    "grammar" wave, the host-only stream took the block path."""
+    from localai_tpu_torch.functions.matcher import GrammarCache
+
+    cache = GrammarCache(engine.tok)
+    out = {"mode": mode, "streams": {}}
+    for (name, _, g, _, n), r in zip(GRAMMAR_WAVE, results):
+        toks, reason = r["toks"], r["finish"]
+        ok = True
+        gbnf = wave_grammar(g, mode)
+        if gbnf:
+            ok = conformant(engine.tok, cache.get(gbnf).state(), toks)
+        out["streams"][name] = {
+            "tokens": len(toks), "finish": reason, "conformant": ok,
+            "tok_s": _stream_rate(r["times"])}
+        if not ok:
+            raise AssertionError(f"{label} {name}: a served token the "
+                                 f"grammar rejects: {toks}")
+        if not toks or reason not in ("length", "eos", "stop"):
+            raise AssertionError(f"{label} {name}: finish {reason!r} after "
+                                 f"{len(toks)} tokens")
+        if reason == "length" and len(toks) != n:
+            raise AssertionError(f"{label} {name}: {len(toks)} tokens")
+        if gbnf and g == "json":
+            # the host-only slot's mask walks, replayed over its tokens:
+            # the engine walks the vocabulary at admission and after each
+            # token the matcher accepts
+            m, eos = cache.get(gbnf).state(), sorted(engine.tok.eos_ids)
+            walks = []
+            for t in [None] + toks:
+                if t is not None and (t in eos or not m.accept(t)):
+                    break
+                t0 = time.perf_counter()
+                m.mask_bits(eos)
+                walks.append((time.perf_counter() - t0) * 1e3)
+            out["hostonly_mask_walks"] = {
+                "n": len(walks), "total_ms": sum(walks), "max_ms": max(walks)}
+
+    def gained(k):
+        return m1[k] - m0[k]
+
+    grammar_replays = sum(v for k, v in key_replays.items()
+                          if k[0] == path and k[3])
+    out.update(
+        grammar_key_replays=grammar_replays,
+        grammar_rollbacks=gained("grammar_rollbacks"),
+        grammar_table_overflows=m1["grammar_table_overflows"],
+        grammar_table_states=m1["grammar_table_states"],
+        block_path_tokens=gained("tokens_by_path__dense"),
+        decode_dispatches=gained("decode_dispatches"),
+        decode_steps=gained("decode_steps_dispatched"),
+        extend_chunks=gained("prefill_chunks_final"))
+    if mode != "free" and grammar_replays <= 0:
+        raise AssertionError(f"{label}: no {path} graph replay of the "
+                             f"grammar key")
+    if mode == "grammar" and (out["grammar_table_overflows"] < 1
+                              or out["block_path_tokens"] <= 0):
+        raise AssertionError(f"{label}: the host-only stream did not take "
+                             f"the block path")
+    return out
+
+
+def _wave_prompt(i, n):
+    return prompt_ids(40 + i, n, salt=17)
+
+
+def grammar_reference(label, engine, results, phase):
+    """The greedy table-backed stream against the teacher-forced
+    reference, its rows masked by the grammar; the fault: the same tokens
+    after a wrong prompt."""
+    r = results[0]
+    g = GRAMMARS[GRAMMAR_WAVE[0][2]]
+    cases = {"tool greedy": (r["ids"], r["toks"], r["lps"])}
+    fault = (prompt_ids(99, len(r["ids"]), salt=99), r["toks"], r["lps"])
+    return check_reference(label, engine, cases, fault, phase=phase,
+                           grammar=g)
+
+
+def serve_grammar_grpc(name, model_dir, load_kw, smi):
+    """The grammar wave through the port's gRPC backend on the dense path
+    (loaded with the tokenizer's checkpoint), a malformed GBNF sent
+    mid-wave (INVALID_ARGUMENT), then a wave of four free streams with
+    the same prompts and budgets (the baseline tok/s, same call)."""
+    import threading
+
+    import grpc
+    import torch
+
+    from localai_tpu_torch.backend.server import serve
+
+    server, servicer, port = serve("127.0.0.1:0", device="cuda")
+    client = _Client(f"127.0.0.1:{port}")
+    label = f"phase7 grammar dense {name}"
+    try:
+        t0 = time.perf_counter()
+        r = client.load(model=model_dir, parallel=4, context_size=2048,
+                        **load_kw)
+        if not r.success:
+            raise RuntimeError(f"{label}: LoadModel failed: {r.message}")
+        log(f"{label}: LoadModel (weights + warmup) "
+            f"{time.perf_counter() - t0:.1f} s")
+        eng = servicer.engine
+
+        def wave(mode):
+            results = [None] * len(GRAMMAR_WAVE)
+
+            def one(i, n, g, sp, budget):
+                ids = _wave_prompt(i, n)
+                rec = dict(ids=ids, toks=[], lps=[], times=[], finish=None)
+                gbnf = wave_grammar(g, mode)
+                for c in client.stream(
+                        prompt_ids=ids, tokens=budget, logprobs=True,
+                        grammar=gbnf, ignore_eos=not gbnf, **sp):
+                    now = time.perf_counter()
+                    rec["toks"] += list(c.token_ids)
+                    rec["lps"] += list(c.logprobs)
+                    rec["times"] += [now] * len(c.token_ids)
+                    rec["finish"] = c.finish_reason or rec["finish"]
+                results[i] = rec
+
+            threads = [threading.Thread(target=one, args=(i, n, g, sp, b))
+                       for i, (_, n, g, sp, b) in enumerate(GRAMMAR_WAVE)]
+            ts = time.perf_counter()
+            for t in threads:
+                t.start()
+            bad = None
+            if mode == "grammar":
+                try:
+                    list(client.stream(prompt_ids=[1, 2, 3], tokens=8,
+                                       grammar=BAD_GBNF))
+                except grpc.RpcError as e:
+                    bad = e.code()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - ts
+            if any(r is None for r in results):
+                raise RuntimeError(f"{label}: a stream failed")
+            return results, wall, bad
+
+        outs = {}
+        # the grammar wave twice: cold (each grammar's first request:
+        # its automaton enumerated at submit) and warm
+        for kind, mode in (("cold", "grammar"), ("warm", "grammar"),
+                           ("tables", "tables"), ("free", "free")):
+            m0, k0 = client.metrics(), eng.graphs.key_replays()
+            res, wall, bad = wave(mode)
+            m1, k1 = client.metrics(), eng.graphs.key_replays()
+            if mode == "grammar" and bad != grpc.StatusCode.INVALID_ARGUMENT:
+                raise AssertionError(f"{label}: a malformed GBNF gave {bad}")
+            out = outs[kind] = grammar_wave_checks(
+                f"{label} {kind}", eng, res, m0, m1,
+                {k: v - k0.get(k, 0) for k, v in k1.items()}, "dense", mode)
+            toks = sum(len(r["toks"]) for r in res)
+            out.update(wave_tokens=toks, wave_s=wall, wave_tok_s=toks / wall,
+                       table_bytes=eng._gmasks.nbytes + eng._gtrans.nbytes,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                       card=smi)
+            if mode == "grammar":
+                out["malformed_gbnf"] = "INVALID_ARGUMENT"
+                results = res
+            log(f"{label} {kind} wave " + json.dumps(out))
+        grammar_reference(name, eng, results, "phase7 grammar dense")
+        return outs
+    finally:
+        client.close()
+        servicer.shutdown()
+        server.stop(grace=1).wait(10)
+        servicer.engine = None
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def grammar_engine_wave(eng, mode):
+    """A wave of `mode` (wave_grammar) through an in-process Engine.
+    Returns (per-stream records, wall seconds)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    recs = []
+    t0 = time.perf_counter()
+    for i, (_, n, g, sp, budget) in enumerate(GRAMMAR_WAVE):
+        ids = _wave_prompt(i, n)
+        gbnf = wave_grammar(g, mode)
+        _, q = eng.submit(GenRequest(
+            ids, SamplingParams(**sp), max_tokens=budget, logprobs=True,
+            grammar=gbnf, ignore_eos=not gbnf))
+        recs.append(dict(ids=ids, q=q, toks=[], lps=[], times=[],
+                         finish=None))
+    for _ in range(100000):
+        busy = eng.step()
+        now = time.perf_counter()
+        for r in recs:
+            while not r["q"].empty():
+                o = r["q"].get_nowait()
+                if o.token_id >= 0:
+                    r["toks"].append(o.token_id)
+                    r["lps"].append(o.logprob)
+                    r["times"].append(now)
+                if o.finished:
+                    r["finish"] = o.finish_reason
+        if not busy:
+            break
+    return recs, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def host_seconds(eng, acc):
+    """Within: the host seconds (inclusive; nested calls count in each)
+    the engine spends in each of its grammar-relevant methods, and in the
+    matcher's mask walks, summed into `acc`. Only the smoke's reading: the
+    engine's own code is unchanged."""
+    from localai_tpu_torch.functions.matcher import MatcherState
+
+    def timed(key, f):
+        def w(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return w
+
+    names = ("step", "_dispatch", "_consume", "_emit", "_repair",
+             "_prefill_tick", "_ragged_tick", "_dev_decode_block",
+             "_dev_decode", "_dev_rloop_decode", "_dev_ragged_loop")
+    for n in names:
+        setattr(eng, n, timed(n, getattr(eng, n)))
+    walk = MatcherState.mask_bits
+    MatcherState.mask_bits = timed("mask_walk", walk)
+    try:
+        yield acc
+    finally:
+        MatcherState.mask_bits = walk
+        for n in names:
+            delattr(eng, n)
+
+
+def grammar_ragged(name, smi, tok):
+    """serve_ragged's `then`: the grammar wave on a ragged Engine of phase
+    6's shape over the same weights, with the grammar checkpoint's
+    tokenizer; a malformed GBNF rejected at submit; then the free wave."""
+    import torch
+
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+
+    def then(eng0):
+        label = f"phase7 grammar ragged {name}"
+        t0 = time.perf_counter()
+        eng = Engine(eng0.cfg, eng0.params, tok, EngineConfig(
+            **RAGGED_EC, cache_type=eng0.ec.cache_type), device="cuda")
+        eng.warmup()
+        log(f"{label}: engine + warmup {time.perf_counter() - t0:.1f} s")
+        try:
+            eng.submit(GenRequest([1, 2], grammar=BAD_GBNF))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{label}: a malformed GBNF was accepted")
+        for kind, mode in (("cold", "grammar"), ("warm", "grammar"),
+                           ("tables", "tables"), ("free", "free")):
+            m0, k0 = dict(eng.metrics), eng.graphs.key_replays()
+            with host_seconds(eng, {}) as host:
+                res, wall = grammar_engine_wave(eng, mode)
+            m1, k1 = dict(eng.metrics), eng.graphs.key_replays()
+            out = grammar_wave_checks(
+                f"{label} {kind}", eng, res, m0, m1,
+                {k: v - k0.get(k, 0) for k, v in k1.items()}, "rloop", mode)
+            out["host_s"] = host
+            out["host_sync_wait_s"] = (m1["host_sync_wait_ms"]
+                                       - m0["host_sync_wait_ms"]) / 1e3
+            toks = sum(len(r["toks"]) for r in res)
+            out.update(
+                wave_tokens=toks, wave_s=wall, wave_tok_s=toks / wall,
+                ragged_dispatches=m1["ragged_dispatches"]
+                - m0["ragged_dispatches"],
+                table_bytes=eng._gmasks.nbytes + eng._gtrans.nbytes,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                card=smi)
+            if mode == "grammar":
+                out["malformed_gbnf"] = "ValueError at submit"
+                results = res
+            log(f"{label} {kind} wave " + json.dumps(out))
+        grammar_reference(name, eng, results, "phase7 grammar ragged")
+        del eng
+    return then
+
+
+def phase_grammar_tables(smi, tok):
+    """The grammar tables at V = 128256: the build's seconds and states
+    for the tool-call grammar, the JSON grammar's overflow, and the bytes
+    of the device tables an engine allocates."""
+    from localai_tpu_torch.functions.matcher import CompiledGrammar, \
+        token_texts
+
+    t0 = time.perf_counter()
+    texts = token_texts(tok)
+    t1 = time.perf_counter()
+    out = {"vocab": len(texts), "token_texts_s": t1 - t0, "cap": GRAMMAR_CAP}
+    for g in ("tool", "json"):
+        t0 = time.perf_counter()
+        cg = CompiledGrammar(GRAMMARS[g], texts)
+        tbl = cg.table(GRAMMAR_CAP)
+        t1 = time.perf_counter()
+        # a host-only slot's per-token cost: the matcher's mask walk (a
+        # trial of every vocabulary entry) at the start state
+        cg.state().mask_bits(sorted(tok.eos_ids))
+        out[g] = {"build_s": t1 - t0,
+                  "states": None if tbl is None else tbl.n_states,
+                  "mask_bits_ms": (time.perf_counter() - t1) * 1e3}
+    V = len(texts)
+    out["table_bytes"] = GRAMMAR_CAP * (4 * ((V + 31) // 32) + 4 * V)
+    out["card"] = smi
+    log("phase7 grammar tables " + json.dumps(out))
+    if out["tool"]["states"] is None or out["json"]["states"] is not None:
+        raise AssertionError("phase7: the tool grammar must fit the tables "
+                             "and the JSON grammar overflow them")
+    return out
+
+
+def phase_grammar_card_vs_cpu(tok):
+    """Phase 3's grammar checks: the 2-layer f32 model at the 8B widths
+    (V = 128256) with the grammar checkpoint's tokenizer. A table-backed
+    tool-call request, greedy and seeded-sampled: the same tokens on the
+    card as on the CPU, and as the host-masked path on the card; on the
+    dense, paged and ragged engines graph replays of the grammar variant
+    equal eager segments bit for bit."""
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+    from localai_tpu_torch.engine.graphs import EagerSegments
+    from localai_tpu_torch.engine.loader import load_config
+    from localai_tpu_torch.functions.matcher import GrammarCache
+    from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_8B, num_hidden_layers=2), f)
+        cfg = load_config(d, dtype="float32")
+    model = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    reqs = [(prompt_ids(1, 23), dict(temperature=0.0), TOOL_GBNF),
+            (prompt_ids(2, 31), dict(temperature=0.8, seed=7), TOOL_GBNF),
+            (prompt_ids(3, 19), dict(temperature=0.0), "")]
+    base = dict(max_slots=4, max_context=512, prefill_buckets=(32,),
+                prefill_chunk=32)
+    ecs = {"dense": base, "paged": dict(base, kv_pages=9),
+           "rloop": dict(base, kv_pages=9, ragged_token_budget=64)}
+
+    def serve(device, ec, n_req=2, eager=False):
+        eng = Engine(cfg, model.to(device), tok, EngineConfig(**ec),
+                     device=device)
+        if eager:
+            eng.graphs = EagerSegments(eng.device)
+        eng.warmup()
+        qs = [eng.submit(GenRequest(ids, SamplingParams(**sp),
+                                    max_tokens=24, grammar=g,
+                                    ignore_eos=not g, logprobs=True))[1]
+              for ids, sp, g in reqs[:n_req]]
+        while eng.step():
+            pass
+        out = []
+        for q in qs:
+            toks, lps = [], []
+            while not q.empty():
+                o = q.get_nowait()
+                if o.token_id >= 0:
+                    toks.append(o.token_id)
+                    lps.append(o.logprob)
+            out.append((toks, lps))
+        return out, eng
+
+    t0 = time.perf_counter()
+    cpu, _ = serve("cpu", base)
+    t1 = time.perf_counter()
+    card, eng = serve("cuda", base)
+    hostonly, _ = serve("cuda", dict(base, grammar_table_states=0,
+                                     decode_block=1, decode_loop=0))
+    cache = GrammarCache(tok)
+    res = {"cpu_s": t1 - t0,
+           "cpu_tokens": [t for t, _ in cpu], "card_tokens": [t for t, _ in
+                                                               card],
+           "card_hostonly_tokens": [t for t, _ in hostonly],
+           "conformant": [conformant(tok, cache.get(TOOL_GBNF).state(), t)
+                          for t, _ in card],
+           "dense_grammar_replays": sum(
+               v for k, v in eng.graphs.key_replays().items() if k[3])}
+    log("phase3 grammar " + json.dumps(res))
+    if res["cpu_tokens"] != res["card_tokens"]:
+        raise AssertionError("phase3 grammar: card and CPU tokens differ")
+    if res["card_hostonly_tokens"] != res["card_tokens"]:
+        raise AssertionError("phase3 grammar: the table-backed and the "
+                             "host-masked paths' tokens differ")
+    if not all(res["conformant"]) or not res["dense_grammar_replays"]:
+        raise AssertionError("phase3 grammar: a token the grammar rejects, "
+                             "or no grammar graph replayed")
+    for path, ec in ecs.items():
+        graphed, geng = serve("cuda", ec, n_req=3)
+        eager, _ = serve("cuda", ec, n_req=3, eager=True)
+        reps = sum(v for k, v in geng.graphs.key_replays().items()
+                   if k[0] == path and k[3])
+        r = {"equal": [g == e for g, e in zip(graphed, eager)],
+             "tokens": [len(t) for t, _ in graphed],
+             "grammar_replays": reps}
+        log(f"phase3 grammar graphs {path} " + json.dumps(r))
+        if not all(r["equal"]) or reps <= 0:
+            raise AssertionError(f"phase3 grammar graphs {path}: replays "
+                                 f"and eager segments differ, or no "
+                                 f"grammar graph replayed")
+        del geng
+    del eng
+    model.to("cpu")
+    del model
+    torch.cuda.empty_cache()
+
+
+def grammar_setup(d):
+    """The grammar leg's checkpoint in `d`: the synthetic Llama-3.1-8B's
+    config and write_tokenizer's tokenizer of its vocabulary. Returns the
+    port's Tokenizer of it."""
+    from localai_tpu_torch.engine.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    grammar_checkpoint(d, CFG_8B)
+    tok = Tokenizer.from_dir(d)
+    log(f"grammar checkpoint: a tokenizer of {tok.vocab_size} entries "
+        f"written and loaded in {time.perf_counter() - t0:.1f} s; EOS "
+        f"{sorted(tok.eos_ids)}")
+    return tok
+
+
+def phase_grammar(d, smi, tok):
+    """Phase 7, the grammar leg at full width: the tables at V = 128256,
+    then the synthetic Llama-3.1-8B (32 layers) with the grammar
+    checkpoint's tokenizer served by the gRPC backend on the dense path,
+    bf16 then the int8 recipe. (The ragged path's grammar wave ran on
+    phase 6's weights: grammar_ragged.)"""
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    tables = phase_grammar_tables(smi, tok)
+    out = {name: serve_grammar_grpc(name, d, kw, smi)
+           for name, kw in (("bf16", dict(dtype="bfloat16")),
+                            ("int8", dict(dtype="int8",
+                                          cache_type_key="int8",
+                                          cache_type_value="int8")))}
+    return tables, out
 
 
 KERNELS = {
@@ -2435,16 +3131,23 @@ RAGGED_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_q8",
 
 
 def main():
+    import tempfile
+
     import torch
 
     smi = phase_device()
     phase_build()
     measured = phase_kernels()
-    phase_card_vs_cpu()
-    phase_graphs()
-    counts = phase_main_path()
-    paged_counts = phase_paged_path(smi)
-    ragged_counts = phase_ragged_path(smi)
+    with tempfile.TemporaryDirectory() as gdir:
+        gtok = grammar_setup(gdir)
+        phase_card_vs_cpu()
+        phase_grammar_card_vs_cpu(gtok)
+        phase_graphs()
+        counts = phase_main_path()
+        paged_counts = phase_paged_path(smi)
+        ragged_counts = phase_ragged_path(
+            smi, grammar_then=lambda name: grammar_ragged(name, smi, gtok))
+        phase_grammar(gdir, smi, gtok)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]

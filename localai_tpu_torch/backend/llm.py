@@ -2,9 +2,12 @@
 main-path slice: LoadModel reads an HF safetensors checkpoint onto the
 device, Predict/PredictStream drive the continuous-batching Engine,
 TokenizeString, Status, GetMetrics and Health answer as the reference's
-do; `kv_pages` selects the paged KV pool. Embeddings, BERT, llava, draft
-models, meshes and telemetry spans wait for later slices: LoadModel rejects their options with a
-message naming the slice, and their RPCs stay UNIMPLEMENTED.
+do; `kv_pages` selects the paged KV pool. `PredictOptions.grammar` (a GBNF
+string: tool calls, `response_format` JSON) constrains a request's
+tokens; a malformed grammar is INVALID_ARGUMENT for that request alone.
+Embeddings, BERT, llava, draft models, meshes and telemetry spans wait for
+later slices: LoadModel rejects their options with a message naming the
+slice, and their RPCs stay UNIMPLEMENTED.
 """
 from __future__ import annotations
 

@@ -25,6 +25,15 @@ What this slice serves, as the reference does:
   pack, then decode steps until a slot finishes, prefill is pending or the
   step cap) or, for stop-string slots, a single step; pure-decode ticks
   take the same loop without a pack;
+- grammar-constrained decoding (GenRequest.grammar, a GBNF string; the
+  native matcher in functions/matcher.py): a grammar whose automaton fits
+  the shared device tables (grammar_table_states rows: masks
+  [S, ceil(V/32)] and transitions [S, V], allocated once and written in
+  place at each install) rides the fused loops and the ragged loop, the
+  device gathering each step's mask row and advancing the slot's state; a
+  grammar that overflows them is host-masked and takes the single step or
+  the block path (sampled under the block-start masks, rolled back at the
+  first token the matcher rejects — _repair), which bars both loops;
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
   logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
@@ -72,6 +81,7 @@ from localai_tpu_torch.ops.sampling import (
     SamplingParams,
     sample,
     sampler_row,
+    threefry_seed,
 )
 
 
@@ -102,8 +112,10 @@ class EngineConfig:
     ragged_loop_steps: int = 16   # fused ragged ticks: steps per ragged
                                   # dispatch (0/1 = single step; only read
                                   # on ragged engines)
-    grammar_table_states: int = 256  # device grammar tables (grammar
-                                     # slice; only read with grammars)
+    grammar_table_states: int = 256  # device grammar tables: shared rows
+                                     # (automaton states across live
+                                     # grammars; 0 = every grammar slot is
+                                     # host-masked)
     kv_policy: str = "full"       # KV lifecycle tier (KV-tier slice)
     kv_cold_pages: int = 0        # KV-tier slice
     kv_host_bytes: int = 0        # host spill tier (KV-tier slice)
@@ -119,7 +131,7 @@ class GenRequest:
     stop: tuple[str, ...] = ()
     ignore_eos: bool = False
     logprobs: bool = False
-    grammar: str = ""             # grammar slice
+    grammar: str = ""             # GBNF; enforced through the matcher
     context_shift: bool = False   # context-shift slice
     prompt_cache_path: str = ""   # disk prompt cache (context-shift slice)
     prompt_cache_ro: bool = False
@@ -166,6 +178,11 @@ class _Slot:
     counts_row: Any = None
     fast_w: int | None = None        # narrowest sort-free top-k width
     inflight: int = 0                # tokens reserved by in-flight dispatches
+    matcher: Any = None              # grammar MatcherState | None
+    gbase: int | None = None         # base row of this slot's grammar in the
+                                     # device tables; None = host-masked
+                                     # (the automaton overflowed them, or
+                                     # grammar_table_states is 0)
 
 
 def _check_config(ec: EngineConfig):
@@ -291,6 +308,8 @@ class Engine:
         self._dead = False
         self._thread: threading.Thread | None = None
         self._admitting: tuple | None = None
+        self._grammar_lock = threading.Lock()
+        self._grammar_cache = None
 
         self.metrics = {
             "requests_completed": 0,
@@ -312,6 +331,12 @@ class Engine:
             "tokens_by_path__dense": 0,
             "tokens_by_path__rloop": 0,
             "tokens_by_path__ragged": 0,
+            # grammar: device table rows in use (the identity row 0
+            # included), grammars whose automaton did not fit them, and
+            # fused blocks rolled back to a grammar slot's accepted prefix
+            "grammar_table_states": 0,
+            "grammar_table_overflows": 0,
+            "grammar_rollbacks": 0,
         }
         if self._ragged:
             # flat-stream packing: dispatches, live rows packed (decode +
@@ -379,18 +404,21 @@ class Engine:
         ) else []
         self._eos_dev = torch.tensor(eos or [-1], dtype=torch.int32,
                                      device=dev)
+        self._init_grammar_state()
         # the fused loops' fixed tensors (models/llama.LoopState; the first
         # dispatch binds the state above to them), with each dispatch's
         # inputs in one int32 buffer that one host→device copy fills —
-        # [table B*MAXB (paged) | active B | remaining B | check_eos B]
+        # [table B*MAXB (paged) | active B | remaining B | check_eos B |
+        # gstate B]
         nt = B * self._maxb if self._paged else 0
-        inp = torch.zeros((nt + 3 * B,), dtype=torch.int32, device=dev)
+        inp = torch.zeros((nt + 4 * B,), dtype=torch.int32, device=dev)
         self._loop_inp = inp
         no = torch.zeros((B,), dtype=torch.bool, device=dev)
         self._loop_st = LoopState.start(
             self._sampler, self._last_logits, self._lengths, no,
             inp[nt + B:nt + 2 * B], no, self._eos_dev,
-            inp[:nt].view(B, self._maxb) if self._paged else None)
+            inp[:nt].view(B, self._maxb) if self._paged else None,
+            gmasks=self._gmasks, gtrans=self._gtrans)
         # the loop segments' CUDA graphs (on the card); they hold the
         # addresses of the tensors made here, so a new state gets new graphs
         self.graphs = GraphRunner(dev)
@@ -401,14 +429,55 @@ class Engine:
         # valid in that slot's cache region (recorded at release)
         self._slot_kv_tokens: list[list[int]] = [[] for _ in range(B)]
 
+    def _init_grammar_state(self):
+        """The grammar state: per slot a host mask row (all-ones =
+        unconstrained) and an automaton state, and, with
+        grammar_table_states > 0, ONE shared pair of device tables for
+        every live grammar — masks [cap, ceil(V/32)] (u32 words as int32,
+        LSB-first allowed-token rows) and trans [cap, V] int32 (absolute
+        next state per token). Row 0 is the identity state every
+        unconstrained slot sits in: an all-ones mask (torch.where over an
+        all-true mask is the logits exactly, so constrained and
+        unconstrained slots share one segment) and a self-loop. Grammars
+        get base rows in _grammar_table_entry; the numpy mirrors are
+        authoritative (_emit advances _gstate through _gtrans_np). The
+        device tables are allocated here once and each install writes its
+        rows in place, so the captured graphs keep reading them."""
+        B, V, dev = self.ec.max_slots, self.cfg.vocab_size, self.device
+        self._mask_nbytes = (V + 7) // 8
+        self._mask_nwords = (V + 31) // 32
+        self._mask_host = np.full((B, self._mask_nbytes), 0xFF, np.uint8)
+        self._grammar_slots = 0
+        self._grammar_hostonly = 0   # grammar slots WITHOUT device tables:
+                                     # they keep the per-token host masks
+                                     # and bar the fused loops
+        self._gstate = np.zeros((B,), np.int32)
+        # without a tokenizer no grammar compiles (submit rejects it), so
+        # such an engine keeps no tables and captures no grammar segments
+        self._gtab_cap = (max(int(self.ec.grammar_table_states), 0)
+                          if self.tok is not None else 0)
+        self._gtab_base: dict[str, int | None] = {}
+        self._gtab_used = 1
+        self._gmasks = self._gtrans = None
+        if self._gtab_cap:
+            self._gmasks_np = np.zeros((self._gtab_cap, self._mask_nwords),
+                                       np.uint32)
+            self._gmasks_np[0] = 0xFFFFFFFF
+            self._gtrans_np = np.zeros((self._gtab_cap, V), np.int32)
+            self._gmasks = torch.tensor(self._gmasks_np.view(np.int32),
+                                        device=dev)
+            self._gtrans = torch.zeros((self._gtab_cap, V),
+                                       dtype=torch.int32, device=dev)
+
     def _build_fns(self):
         cfg = self.cfg
 
         def _decode(params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                    active, fast_width=None, table=None):
-            """sample(prev logits) → decode → next logits, for all slots.
-            The caches and token counts update in place."""
-            tokens, keys, logprobs = sample(last_logits, sampler,
+                    active, fast_width=None, table=None, mask_bits=None):
+            """sample(prev logits) → decode → next logits, for all slots
+            (under `mask_bits`, a grammar mask row a slot, if given). The
+            caches and token counts update in place."""
+            tokens, keys, logprobs = sample(last_logits, sampler, mask_bits,
                                             topk_width=fast_width)
             logits = decode_step(params, cfg, tokens, lengths, cos, sin, kc,
                                  vc, active, table)
@@ -437,15 +506,16 @@ class Engine:
             return
 
         def _ragged_step(params, cos, sin, kc, vc, sampler, last_logits,
-                         lengths, pack, is_decode, table):
+                         lengths, pack, is_decode, table, mask_bits=None):
             """The mixed tick: sample every slot from last_logits (full
             sampler, topk_width=None — the draw is width-independent, so
-            per-slot streams equal the dense paths'), splice the sampled
-            tokens into the flat stream at the decode rows, one
-            ragged_forward over decode rows and prefill chunks; decode slots
-            and final chunks take their new last-token logits, set_len
-            commits a final chunk's length."""
-            sampled, keys, logprobs = sample(last_logits, sampler,
+            per-slot streams equal the dense paths' — under `mask_bits`,
+            the grammar masks, if given), splice the sampled tokens into
+            the flat stream at the decode rows, one ragged_forward over
+            decode rows and prefill chunks; decode slots and final chunks
+            take their new last-token logits, set_len commits a final
+            chunk's length."""
+            sampled, keys, logprobs = sample(last_logits, sampler, mask_bits,
                                              topk_width=None)
             ds = pack["decode_slot"]
             toks = torch.where(ds >= 0, sampled[ds.clamp_min(0)],
@@ -570,50 +640,68 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths,
                 torch.as_tensor(active, device=self.device))
 
-    def _dev_decode(self, active, fast_width=None):
+    def _mask_dev(self, mask_host):
+        """The host grammar mask rows [B, ceil(V/8)] u8 on the device (None
+        passes through)."""
+        if mask_host is None:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(mask_host)).to(
+            self.device)
+
+    def _dev_decode(self, active, fast_width=None, mask_host=None):
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += 1
         with torch.no_grad():
             (tokens, logprobs, self._sampler, self._last_logits,
-             self._lengths) = self._decode_fn(*self._step_args(active),
-                                              fast_width, table=self._tab())
+             self._lengths) = self._decode_fn(
+                *self._step_args(active), fast_width, table=self._tab(),
+                mask_bits=self._mask_dev(mask_host))
             return _AsyncFetch((tokens, logprobs))
 
-    def _dev_decode_block(self, active, steps: int, fast_width=None):
-        """`steps` fused sample→decode iterations in one dispatch."""
+    def _dev_decode_block(self, active, steps: int, fast_width=None,
+                          mask_host=None):
+        """`steps` fused sample→decode iterations in one dispatch (a grammar
+        slot samples every step under its block-start mask row)."""
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += steps
         toks, lps = [], []
         with torch.no_grad():
             act = torch.as_tensor(active, device=self.device)
             table = self._tab()
+            mask = self._mask_dev(mask_host)
             for _ in range(steps):
                 (tokens, logprobs, self._sampler, self._last_logits,
                  self._lengths) = self._decode_fn(
                     self.params, self._cos, self._sin, self._kc, self._vc,
                     self._sampler, self._last_logits, self._lengths, act,
-                    fast_width, table=table)
+                    fast_width, table=table, mask_bits=mask)
                 toks.append(tokens)
                 lps.append(logprobs)
             return _AsyncFetch((torch.stack(toks), torch.stack(lps)))
 
     def _loop_begin(self, sampler, last_logits, lengths, active, remaining,
-                    check_eos, eos_ids, table):
+                    check_eos, eos_ids, table, gstate=None, gmasks=None,
+                    gtrans=None):
         """The fused loops' `start`: a dispatch on the loop's fixed tensors.
         The engine's state goes into them (what an eager path rebound to
         new tensors is copied back) and the engine is bound to them; this
         dispatch's host inputs — a snapshot of the block table, the active
-        slots, budgets and EOS flags — go in one host→device copy, on the
-        card from pinned memory: it waits for nothing and lands after the
-        previous dispatch's work on the stream. `eos_ids` is the state's
-        own (_eos_dev)."""
+        slots, budgets, EOS flags and grammar states (the host mirror
+        _gstate; zeros without grammar slots) — go in one host→device copy,
+        on the card from pinned memory: it waits for nothing and lands
+        after the previous dispatch's work on the stream. `eos_ids` and the
+        grammar tables are the state's own (_eos_dev, _gmasks, _gtrans)."""
         st = self._loop_st
         assert eos_ids is st.eos_ids
+        assert gstate is None or (gmasks is st.gmasks
+                                  and gtrans is st.gtrans)
         st.adopt(sampler, last_logits, lengths)
         self._sampler, self._last_logits, self._lengths = (
             st.sampler, st.last_logits, st.lengths)
+        B = self.ec.max_slots
         parts = ([table] if self._paged else []) + [
-            active, remaining, check_eos]
+            active, remaining, check_eos,
+            np.zeros((B,), np.int32) if gstate is None else gstate]
         src = torch.from_numpy(np.concatenate(
             [np.asarray(p, np.int32).ravel() for p in parts]))
         inp = self._loop_inp
@@ -621,40 +709,56 @@ class Engine:
             inp.copy_(src.pin_memory(), non_blocking=True)
         else:
             inp.copy_(src)
-        B = self.ec.max_slots
-        nt = inp.shape[0] - 3 * B
+        nt = inp.shape[0] - 4 * B
         st.done.copy_(inp[nt:nt + B] == 0)
-        st.check_eos.copy_(inp[nt + 2 * B:] != 0)
+        st.check_eos.copy_(inp[nt + 2 * B:nt + 3 * B] != 0)
+        st.gstate.copy_(inp[nt + 3 * B:])
         st.n_out.zero_()
         return st
 
-    def _segment(self, n: int, fast_width):
-        """n iterations of the decode body over the loop's tensors."""
+    def _segment(self, n: int, fast_width, grammar: bool):
+        """n iterations of the decode body over the loop's tensors (the
+        grammar variant gathers masks from and steps through the device
+        tables)."""
         st, limit = self._loop_st, self.ec.max_context - 2
         return lambda: loop_segment(self._decode_fn, st, n, limit,
                                     self.params, self._cos, self._sin,
-                                    self._kc, self._vc, fast_width)
+                                    self._kc, self._vc, fast_width, grammar)
 
-    def _run_segment(self, st, n: int, fast_width):
+    def _run_segment(self, st, n: int, fast_width, grammar: bool):
         """The fused loops' `run`: a segment through the runner — on the
-        card the replay of its CUDA graph."""
-        self.graphs.run((self._loop_path, n, fast_width), n,
-                        self._segment(n, fast_width), st.frozen,
+        card the replay of its CUDA graph, keyed (path, length, width,
+        grammar)."""
+        self.graphs.run((self._loop_path, n, fast_width, grammar), n,
+                        self._segment(n, fast_width, grammar), st.frozen,
                         self._loop_addresses())
 
     def _loop_addresses(self) -> tuple:
-        """Where a loop segment's tensors live: the loop state's, the KV
-        caches' and the rope tables' (the weights never move)."""
+        """Where a loop segment's tensors live: the loop state's (the
+        grammar state and tables included), the KV caches' and the rope
+        tables' (the weights never move)."""
         kv = [t for c in (self._kc, self._vc)
               for t in ((c.q, c.s) if isinstance(c, QuantKV) else (c,))]
         return self._loop_st.addresses() + tuple(
             t.data_ptr() for t in kv + [self._cos, self._sin])
 
-    def _dev_decode_loop(self, active, remaining, check_eos, fast_width=None):
+    def _gkw(self, gstate) -> dict:
+        """A fused dispatch's grammar arguments: `gstate` [B] (the host
+        mirror's snapshot) with the shared device tables, or none."""
+        if gstate is None:
+            return {}
+        return dict(gstate=gstate, gmasks=self._gmasks, gtrans=self._gtrans)
+
+    def _dev_decode_loop(self, active, remaining, check_eos, fast_width=None,
+                         gstate=None):
         """ONE fused-loop dispatch of up to ec.decode_loop steps with the
-        per-slot stop conditions on the device. The steps actually run ride
-        the fetch; decode_steps_dispatched is credited at consume time.
-        _dispatch_loop dispatches it only with a live slot."""
+        per-slot stop conditions on the device. `gstate` [B] int32 (or
+        None) selects the grammar variant: each iteration gathers the
+        slots' mask rows from the device tables and advances their
+        automaton states on the device, so table-backed grammar slots ride
+        the loop with no per-token host round trip. The steps actually run
+        ride the fetch; decode_steps_dispatched is credited at consume
+        time. _dispatch_loop dispatches it only with a live slot."""
         self.metrics["decode_dispatches"] += 1
         with torch.no_grad():
             (toks, lps, n_out, steps, self._sampler, self._last_logits,
@@ -662,7 +766,7 @@ class Engine:
                 self.params, self._cos, self._sin, self._kc, self._vc,
                 self._sampler, self._last_logits, self._lengths, active,
                 remaining, check_eos, self._eos_dev, fast_width=fast_width,
-                table=self._loop_table())
+                table=self._loop_table(), **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out), extra=(steps,))
 
     def _loop_table(self):
@@ -704,8 +808,10 @@ class Engine:
 
     def _dev_ragged(self, pack):
         """ONE flat-stream dispatch for a mixed tick: every packed decode
-        slot (one sampled token each) plus the packed chunked-prefill
-        windows run a single ragged forward (see _ragged_tick)."""
+        slot (one sampled token each, under its current grammar mask row
+        `pack["mask"]` when grammar slots are live) plus the packed
+        chunked-prefill windows run a single ragged forward (see
+        _ragged_tick)."""
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += 1
         self._note_ragged(pack)
@@ -715,16 +821,19 @@ class Engine:
              self._lengths) = self._ragged_fn(
                 self.params, self._cos, self._sin, self._kc, self._vc,
                 self._sampler, self._last_logits, self._lengths, dp,
-                dp["is_decode"], self._tab())
+                dp["is_decode"], self._tab(),
+                mask_bits=self._mask_dev(pack.get("mask")))
             return _AsyncFetch((tokens, logprobs))
 
-    def _dev_ragged_loop(self, pack, remaining, check_eos, prefill_pending):
+    def _dev_ragged_loop(self, pack, remaining, check_eos, prefill_pending,
+                         gstate=None):
         """ONE fused ragged dispatch: the mixed pack as iteration 0, then up
         to ragged_loop_steps-1 decode steps for every live decode slot —
         the pack eagerly (it changes every tick), the decode steps as loop
         segments (CUDA graph replays on the card). `prefill_pending` (host
         bool) ends the dispatch after iteration 0, so TTFT stays at
-        single-step ragged levels. Steps run and the exit code ride the
+        single-step ragged levels. `gstate` selects the grammar variant,
+        as in _dev_decode_loop. Steps run and the exit code ride the
         fetch."""
         self.metrics["decode_dispatches"] += 1
         self._note_ragged(pack)
@@ -735,13 +844,15 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths,
                 pack["is_decode"], remaining, check_eos, self._eos_dev,
                 bool(prefill_pending), pack=self._pack_dev(pack),
-                table=self._loop_table(), fast_width=None, has_pack=True)
+                table=self._loop_table(), fast_width=None, has_pack=True,
+                **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_rloop_decode(self, active, remaining, check_eos,
-                          fast_width=None):
+                          fast_width=None, gstate=None):
         """The fused ragged loop without a pack: a pure-decode tick on a
-        ragged engine, with the loop's first-finish exit."""
+        ragged engine, with the loop's first-finish exit (grammar variant
+        with `gstate`, as in _dev_decode_loop)."""
         self.metrics["decode_dispatches"] += 1
         with torch.no_grad():
             (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
@@ -750,7 +861,7 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths, active,
                 remaining, check_eos, self._eos_dev, False,
                 table=self._loop_table(), fast_width=fast_width,
-                has_pack=False)
+                has_pack=False, **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_install(self, idx, row, counts_row):
@@ -761,6 +872,90 @@ class Engine:
             self._install_rows(
                 [idx], {k: np.asarray(v)[None] for k, v in row.items()},
                 None if counts_row is None else np.asarray(counts_row)[None])
+
+    # ------------------------------------------------------------ grammar
+
+    def _dev_gtable(self, base: int, masks, trans):
+        """Install one grammar's rows at `base` in the shared tables: the
+        numpy mirrors, and the device tables IN PLACE (copy_ into the rows
+        of the tensors allocated once, so every captured graph keeps
+        reading them; the rows are new, so no dispatch in flight reads
+        them)."""
+        n = masks.shape[0]
+        self._gmasks_np[base:base + n] = masks
+        self._gtrans_np[base:base + n] = trans
+        with torch.no_grad():
+            self._gmasks[base:base + n].copy_(
+                torch.from_numpy(np.ascontiguousarray(masks).view(np.int32)))
+            self._gtrans[base:base + n].copy_(
+                torch.from_numpy(np.ascontiguousarray(trans)))
+
+    def _grammar_table_entry(self, grammar: str) -> int | None:
+        """Base row of this grammar's states in the shared device tables,
+        building and installing them (off the decode hot path) at its
+        first use. None = the automaton does not fit (it overflows the
+        cap, or the rows left, or the tables are off): the slot keeps the
+        per-token host masks."""
+        if not self._gtab_cap:
+            return None
+        if grammar in self._gtab_base:
+            return self._gtab_base[grammar]
+        tbl = self._compile_grammar(grammar).table(self._gtab_cap)
+        base = None
+        if tbl is not None and self._gtab_used + tbl.n_states <= self._gtab_cap:
+            base = self._gtab_used
+            masks = tbl.masks.copy()
+            # local -1 (token masked off — never sampled) → absolute 0, the
+            # identity row; live states → base-relative absolute rows
+            trans = np.where(tbl.trans < 0, 0,
+                             tbl.trans + base).astype(np.int32)
+            # EOS policy is the tokenizer's, injected here (the raw table
+            # has no EOS bits, as matcher.mask_bits): accepting states
+            # allow EOS and self-loop on it, as the host matcher never
+            # advances past EOS
+            V = self.cfg.vocab_size
+            eos = [e for e in (self.tok.eos_ids if self.tok else ())
+                   if 0 <= e < V]
+            for st in range(tbl.n_states):
+                if tbl.accepting[st]:
+                    for e in eos:
+                        masks[st, e >> 5] |= np.uint32(1) << np.uint32(e & 31)
+                        trans[st, e] = base + st
+            self._dev_gtable(base, masks, trans)
+            self._gtab_used = base + tbl.n_states
+            self.metrics["grammar_table_states"] = self._gtab_used
+        else:
+            self.metrics["grammar_table_overflows"] += 1
+        self._gtab_base[grammar] = base
+        return base
+
+    def _compile_grammar(self, grammar: str):
+        """Compile (or fetch the cached) GBNF → CompiledGrammar; a malformed
+        grammar raises ValueError. Called from request threads (submit)
+        and the engine loop. Only the lazy GrammarCache init (it walks the
+        whole vocabulary once) holds _grammar_lock; the cache is itself
+        thread-safe, and a slow compile holds none of the engine's locks."""
+        cache = self._grammar_cache
+        if cache is None:
+            with self._grammar_lock:
+                if self._grammar_cache is None:
+                    if self.tok is None:
+                        raise ValueError(
+                            "grammar constraint requires a tokenizer")
+                    from localai_tpu_torch.functions.matcher import \
+                        GrammarCache
+
+                    self._grammar_cache = GrammarCache(self.tok)
+                cache = self._grammar_cache
+        return cache.get(grammar)
+
+    def _matcher_for(self, grammar: str):
+        return self._compile_grammar(grammar).state()
+
+    def _mask_row(self, st: int) -> np.ndarray:
+        """Table state `st`'s mask row as the host's u8 bytes (LSB-first
+        u32 words read as LSB-first bytes)."""
+        return self._gmasks_np[st].view(np.uint8)[:self._mask_nbytes]
 
     # ------------------------------------------------------------ requests
 
@@ -776,8 +971,6 @@ class Engine:
                 f"prompt length {len(req.prompt_ids)} exceeds {limit} "
                 f"(max_context minus the decode margin); longer prompts "
                 f"need a larger context window")
-        if req.grammar:
-            raise not_ported("grammar-constrained decoding", "grammar")
         if req.mm_embeds is not None or req.mm_positions is not None:
             raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
         if req.resume is not None:
@@ -799,6 +992,16 @@ class Engine:
         V = self.cfg.vocab_size
         if any(not (0 <= t < V) for t in req.prompt_ids):
             raise ValueError(f"prompt token id outside [0, {V})")
+        if req.grammar:
+            # compile now (cached) so a malformed GBNF rejects THIS call
+            # with ValueError (gRPC INVALID_ARGUMENT) instead of failing
+            # later at admission; and enumerate its automaton for the
+            # device tables here (memoized per grammar): the caller's
+            # thread pays the seconds a new grammar's states take at a
+            # full vocabulary, not the engine loop every stream waits on
+            cg = self._compile_grammar(req.grammar)
+            if self._gtab_cap:
+                cg.table(self._gtab_cap)
         with self._lock:
             rid = self._next_id
             self._next_id += 1
@@ -832,6 +1035,25 @@ class Engine:
 
     def _admit_one(self, rid: int, req: GenRequest, out: queue.Queue,
                    batch: list | None = None) -> bool:
+        # host-side per-request failures (a grammar that no longer
+        # compiles, no tokenizer) reject THIS request only and never stop
+        # the loop, which would strand every other stream
+        try:
+            matcher = self._matcher_for(req.grammar) if req.grammar else None
+            # the device tables: installed once per grammar; None = the
+            # automaton overflowed them → per-token host masks
+            gbase = (self._grammar_table_entry(req.grammar)
+                     if req.grammar else None)
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+            self._finish_rid(rid)
+            out.put(StepOutput(
+                request_id=rid, text="", token_id=-1, logprob=0.0,
+                finished=True, finish_reason="error",
+                prompt_tokens=len(req.prompt_ids)))
+            return False
         n = len(req.prompt_ids)
         chunked = n > self._small_max
         bucket = None if chunked else self._bucket(n)
@@ -895,7 +1117,8 @@ class Engine:
 
         W = self.ec.sampling_topk_width
         fast_w = None
-        if W and (p.typical_p is None or p.typical_p >= 1.0):
+        if W and not req.grammar and (p.typical_p is None
+                                      or p.typical_p >= 1.0):
             V = self.cfg.vocab_size
             tk = min(p.top_k or 0, V)
             if p.greedy:
@@ -909,10 +1132,24 @@ class Engine:
             detok=self.tok.stream_decoder() if self.tok else None,
             start_time=time.monotonic(), prompt_len=n,
             prefilled=not chunked, row=row, counts_row=counts_row,
-            prefill_pos=lcp, fast_w=fast_w,
+            prefill_pos=lcp, fast_w=fast_w, matcher=matcher, gbase=gbase,
         )
         if chunked:
             self._prefillq.append(slot)
+        if matcher is not None:
+            # the first token samples under the start state's mask, as every
+            # later one: a table-backed slot starts at its grammar's state 0
+            # (its mask row straight from the table mirror, no V-trial
+            # matcher walk for the life of the request); a host-only slot
+            # under the matcher's mask
+            self._grammar_slots += 1
+            if gbase is not None:
+                self._gstate[slot] = gbase
+                self._mask_host[slot] = self._mask_row(gbase)
+            else:
+                self._grammar_hostonly += 1
+                self._mask_host[slot] = matcher.mask_bits(
+                    self.tok.eos_ids if self.tok else ())
         self.metrics["prompt_tokens_processed"] += n - lcp
         return True
 
@@ -1053,6 +1290,11 @@ class Engine:
         the block/ladder path runs instead."""
         if self._decode_loop_fn is None:
             return "loop_disabled"
+        # table-backed grammar slots ride the loop (the device gathers each
+        # step's mask row and advances the state); only automata that
+        # overflowed the tables need per-token host masks
+        if self._grammar_hostonly > 0:
+            return "grammar_hostonly"
         if self._prefillq:
             return "pending_prefill"
         if self._free and not self._queue.empty():
@@ -1086,14 +1328,16 @@ class Engine:
             res[i] = int(min(G, remaining[i]))
             self._slots[i].inflight += res[i]
         self._inflight_steps = G
+        gstate = self._gstate.copy() if self._grammar_slots > 0 else None
         if self._ragged_loop_fn is not None:
             # ragged engines: pure-decode dispatches take the pack-free
             # ragged loop — the decode loop's stops plus the first-finish
             # exit, so a freed slot admits without waiting out the loop
             fetch = self._dev_rloop_decode(active, remaining, check_eos,
-                                           fast)
+                                           fast, gstate=gstate)
             return ("rloop", fetch, live, res)
-        fetch = self._dev_decode_loop(active, remaining, check_eos, fast)
+        fetch = self._dev_decode_loop(active, remaining, check_eos, fast,
+                                      gstate=gstate)
         return ("loop", fetch, live, res)
 
     def _dispatch(self):
@@ -1105,21 +1349,29 @@ class Engine:
             return None
         entries = [(int(i), self._slots[i].request_id)
                    for i in np.where(active)[0]]
-        ws = [self._slots[i].fast_w for i, _ in entries]
-        fast = max(ws) if all(w is not None for w in ws) else None
+        # sort-free sampling only while no grammar slot is live: a grammar
+        # mask needs the full sampler
+        fast = None
+        if self._grammar_slots == 0:
+            ws = [self._slots[i].fast_w for i, _ in entries]
+            fast = max(ws) if all(w is not None for w in ws) else None
         if self._loop_block_reason(entries) is None:
             return self._dispatch_loop(active, entries, fast)
         steps = self._block_steps()
+        # the dispatch-time masks: _consume compares each slot's refreshed
+        # mask with what the device sampled under, to catch the allowed set
+        # GROWING within a block
+        gmask = self._mask_host.copy() if self._grammar_slots > 0 else None
         self._inflight_steps = steps
         res = {}
         for i, _ in entries:
             res[i] = steps
             self._slots[i].inflight += steps
         if steps > 1:
-            fetch = self._dev_decode_block(active, steps, fast)
+            fetch = self._dev_decode_block(active, steps, fast, gmask)
         else:
-            fetch = self._dev_decode(active, fast)
-        return ("block", fetch, entries, res)
+            fetch = self._dev_decode(active, fast, gmask)
+        return ("block", fetch, entries, gmask, res)
 
     def _release_reservations(self, entries, res):
         for i, rid in entries:
@@ -1173,11 +1425,15 @@ class Engine:
     def _consume(self, pend):
         """Block on a dispatch's results and run the host-side token
         handling for every slot that was active at dispatch time and still
-        serves the same request."""
+        serves the same request. Grammar slots in a fused block sampled
+        under their block-START mask: the first token a slot's matcher
+        rejects marks it for rollback — its accepted prefix stands, the
+        rest of its block is dropped, and _repair restores the device
+        state."""
         if pend[0] in ("loop", "rloop"):
             self._consume_loop(pend)
             return
-        _, fetch, entries, res = pend
+        _, fetch, entries, gmask, res = pend
         t0 = time.perf_counter()
         tokens, logprobs = fetch.wait()
         self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
@@ -1185,13 +1441,57 @@ class Engine:
         now = time.monotonic()
         if tokens.ndim == 1:
             tokens, logprobs = tokens[None], logprobs[None]
-        for g in range(tokens.shape[0]):
+        steps = tokens.shape[0]
+        rolled: list[int] = []
+        for g in range(steps):
             for i, rid in entries:
                 slot = self._slots[i]
-                if slot is None or slot.request_id != rid:
+                if slot is None or slot.request_id != rid or i in rolled:
                     continue  # finished earlier in this block
-                self._emit(i, slot, int(tokens[g, i]), float(logprobs[g, i]),
-                           now)
+                if not self._emit(i, slot, int(tokens[g, i]),
+                                  float(logprobs[g, i]), now,
+                                  fresh_mask=(g == 0)):
+                    rolled.append(i)
+                    continue
+                # mask-growth check: rollback at a matcher reject makes
+                # in-block sampling exact rejection sampling while the
+                # allowed set only shrinks; if this token OPENED tokens the
+                # dispatch mask forbade, the rest of the block was drawn
+                # from a wrongly restricted distribution and is dropped
+                if (gmask is not None and g + 1 < steps
+                        and self._slots[i] is slot
+                        and slot.matcher is not None
+                        and np.any(self._mask_host[i] & ~gmask[i])):
+                    rolled.append(i)
+        for i in rolled:
+            slot = self._slots[i]
+            if slot is not None:
+                self._repair(i, slot)
+
+    def _repair(self, idx: int, slot: _Slot):
+        """Roll a grammar slot back to its last accepted token after a
+        fused block sampled past a stale mask (_consume): run the model on
+        that token again through the extend path — rewriting the same KV
+        row with the same values, restoring last_logits and the slot's
+        length to the accepted position — and install the sampler row with
+        a fresh deterministic key, PRNGKey(request_id * 1000003 +
+        generated) (the admission key would replay the block's draws). The
+        rows the block wrote past the accepted position are unreadable
+        (attention masks by length) and later steps overwrite them."""
+        self.metrics["grammar_rollbacks"] += 1
+        n = slot.prompt_len + slot.generated      # valid rows
+        seq = list(slot.req.prompt_ids) + slot.gen_ids
+        buf = np.zeros((1, self._chunk), np.int32)
+        buf[0, 0] = seq[-1]
+        seed = (slot.request_id * 1000003 + slot.generated) & 0x7FFFFFFF
+        row = dict(slot.row, key=threefry_seed(seed))
+        slot.row = row
+        counts = slot.counts_row
+        if counts is not None:
+            counts = counts.copy()
+            for t in slot.gen_ids:
+                counts[t] += 1
+        self._dev_extend_final(buf, n - 1, 1, idx, row, counts)
 
     # ------------------------------------------------------------ the loop
 
@@ -1205,7 +1505,9 @@ class Engine:
             return (any(s is not None for s in self._slots)
                     or not self._queue.empty() or self._pending is not None
                     or self._deferred is not None)
-        sync = not self.ec.pipeline
+        # grammar batches run synchronously: a sampled token must update
+        # the slot's mask (or its state) before the next dispatch
+        sync = self._grammar_slots > 0 or not self.ec.pipeline
         if sync and self._pending is not None:
             self._consume(self._pending)
             self._pending = None
@@ -1324,13 +1626,19 @@ class Engine:
                     is_decode=is_decode, set_len=set_len,
                     logit_set=logit_set, logit_rows=logit_rows,
                     block_seq=block_seq, qstart=qstart, qlen=qlen,
-                    kvlen=kvlen, packed=packed)
+                    kvlen=kvlen, packed=packed,
+                    # grammar decode slots sample under their CURRENT mask
+                    # rows (the tick is consumed in it, so never stale)
+                    mask=(self._mask_host.copy()
+                          if self._grammar_slots > 0 else None))
         # the fused loop: the pack is iteration 0 and every decode slot
         # keeps advancing on the device until a slot finishes, host work
-        # appears, or the step cap. Stop-string slots need a host decision
-        # per token (host arbitration): they keep the single step.
+        # appears, or the step cap. Host-only grammar slots and stop-string
+        # slots need a host decision per token (host arbitration): they
+        # keep the single step.
         res: dict[int, int] = {}
-        arbitration = any(self._slots[i].req.stop for i, _ in entries)
+        arbitration = (self._grammar_hostonly > 0
+                       or any(self._slots[i].req.stop for i, _ in entries))
         use_loop = (self._ragged_loop_fn is not None and bool(entries)
                     and not arbitration)
         if use_loop:
@@ -1350,8 +1658,10 @@ class Engine:
                 idx for idx, _pos, _nv, fin in chunks if fin}
             prefill_pending = (bool(left) or self._deferred is not None
                                or not self._queue.empty())
-            fetch = self._dev_ragged_loop(pack, remaining, check_eos,
-                                          prefill_pending)
+            fetch = self._dev_ragged_loop(
+                pack, remaining, check_eos, prefill_pending,
+                gstate=(self._gstate.copy()
+                        if self._grammar_slots > 0 else None))
         else:
             if self._ragged_loop_fn is not None and entries and arbitration:
                 self._rloop_exit(-1, reason="host_arbitration")
@@ -1380,9 +1690,14 @@ class Engine:
                         time.monotonic(), "ragged")
 
     def _emit(self, idx: int, slot: _Slot, token_id: int, logprob: float,
-              now: float, path: str = "dense") -> bool:
-        """Commit one sampled token to `slot` (detok, stop scan, stream,
-        maybe finish)."""
+              now: float, path: str = "dense", fresh_mask: bool = True) -> bool:
+        """Commit one sampled token to `slot` (grammar advance, detok, stop
+        scan, stream, maybe finish). Returns False — with NO state changed
+        — when the slot's grammar rejects a token sampled under a STALE
+        block mask (fresh_mask=False); the caller then rolls the device
+        back (_repair). A reject under a FRESH mask means mask and matcher
+        disagree (it should not happen): the request finishes "stop"
+        rather than resample the same token forever."""
         finish = None
         cache_len = slot.prompt_len + slot.generated + 1
         is_eos = self.tok is not None and token_id in self.tok.eos_ids
@@ -1397,6 +1712,42 @@ class Engine:
         elif finish is None and slot.req.deadline \
                 and now > slot.req.deadline:
             finish = "timeout"
+
+        # grammar: check and advance the matcher BEFORE changing anything,
+        # so a stale-mask reject leaves the slot at its accepted prefix
+        if slot.matcher is not None:
+            eos = self.tok.eos_ids if self.tok else ()
+            if is_eos:
+                # EOS never advances the matcher; it is legal exactly when
+                # the grammar is complete (mask_bits sets the EOS bits
+                # then). A stale block mask can offer EOS mid-grammar
+                if not slot.matcher.done:
+                    if not fresh_mask:
+                        return False
+                    if finish is None:
+                        finish = "stop"  # mask/matcher disagreement
+                elif finish is None:
+                    # ignore_eos and a completed grammar: the model stopped,
+                    # and a rollback would resample the same EOS forever
+                    finish = "stop"
+            elif finish is None:
+                if slot.matcher.accept(token_id):
+                    if slot.gbase is not None:
+                        # table-backed: step the host mirror of the device
+                        # automaton and take the mask row from the table;
+                        # the matcher stays the arbiter of done/continue
+                        st = int(self._gtrans_np[self._gstate[idx], token_id])
+                        self._gstate[idx] = st
+                        self._mask_host[idx] = self._mask_row(st)
+                    else:
+                        self._mask_host[idx] = slot.matcher.mask_bits(eos)
+                    if (slot.matcher.done and not slot.matcher.can_continue
+                            and not eos):
+                        finish = "stop"  # complete and nothing can follow
+                elif not fresh_mask:
+                    return False
+                else:
+                    finish = "stop"  # mask/matcher disagreement
 
         if slot.first_token_time is None:
             slot.first_token_time = now
@@ -1631,6 +1982,12 @@ class Engine:
 
     def _release_slot(self, idx: int, slot: _Slot):
         self._finish_rid(slot.request_id)
+        if slot.matcher is not None:
+            self._mask_host[idx] = 0xFF
+            self._grammar_slots -= 1
+            self._gstate[idx] = 0    # row 0 = identity (all-ones, self-loop)
+            if slot.gbase is None:
+                self._grammar_hostonly -= 1
         if self._paged:
             if self.ec.prompt_cache:
                 # retain ONLY the blocks holding cached rows as the warm
@@ -1700,6 +2057,9 @@ class Engine:
                     widths.append(min(8 * W, V))
             for w in widths:
                 self._dev_decode(idle, w).wait()
+            # the masked step every grammar configuration can take
+            self._dev_decode(idle, mask_host=np.full(
+                (B, self._mask_nbytes), 0xFF, np.uint8)).wait()
             self._prepare_graphs(widths)
         finally:
             self.metrics.update(snap)
@@ -1708,17 +2068,23 @@ class Engine:
         """Capture, with every slot frozen, the graph of each loop segment
         the fused dispatches run: each segment length of the pure-decode
         loop (segment_lengths) at each sampling width, and each of the
-        ragged mixed tick's continuation (from iteration 1, full sampler)."""
+        ragged mixed tick's continuation (from iteration 1, full sampler);
+        with the grammar tables on, the grammar variant of each (full
+        sampler)."""
         if not self.graphs.graphed:
             return
         keys = []
         rloop_on = self._ragged_loop_fn is not None
+        grammar = [False, True] if self._gtab_cap > 0 else [False]
         if self._decode_loop_fn is not None:
             M = (self.ec.ragged_loop_steps if rloop_on
                  else self.ec.decode_loop)
-            keys += [(n, w) for w in widths for n in segment_lengths(0, M)]
+            keys += [(n, w, False) for w in widths
+                     for n in segment_lengths(0, M)]
+            if self._gtab_cap > 0:
+                keys += [(n, None, True) for n in segment_lengths(0, M)]
         if rloop_on:
-            keys += [(n, None)
+            keys += [(n, None, g) for g in grammar
                      for n in segment_lengths(1, self.ec.ragged_loop_steps)]
         if not keys:
             return
@@ -1729,9 +2095,9 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths, idle,
                 np.zeros((B,), np.int32), idle, self._eos_dev,
                 self._loop_table())
-            for n, w in dict.fromkeys(keys):
-                self.graphs.prepare((self._loop_path, n, w), n,
-                                    self._segment(n, w), st.frozen,
+            for n, w, g in dict.fromkeys(keys):
+                self.graphs.prepare((self._loop_path, n, w, g), n,
+                                    self._segment(n, w, g), st.frozen,
                                     self._loop_addresses())
 
     def start(self):

@@ -5,7 +5,9 @@ program, where the port launches every op of a step from Python.
 The engine's fused loops (models/llama.drive_loop) run in segments of up
 to _DONE_CHECK_EVERY iterations over fixed tensors (models/llama.LoopState,
 loop_segment). On the card, `GraphRunner.run` replays one
-`torch.cuda.CUDAGraph` per key — (path, segment length, sampling width):
+`torch.cuda.CUDAGraph` per key — (path, segment length, sampling width,
+grammar: whether the segment gathers grammar masks from the device
+tables and steps the slots' automata):
 the same kernels on the same addresses, one launch from the host for the
 whole segment. A key's first use (or `prepare`) warms the segment up on a
 side stream, as torch.cuda.graph asks (the warm-up builds the kernels'
@@ -22,7 +24,8 @@ Launch counts (ops/kernels.launch_counts) stay counts of kernel launches on
 the card: the warm-up's launches run and count; the capture launches
 nothing, so the runner takes back what the wrappers counted during it;
 each replay adds the capture's counts. The runner's own counters, per
-path: captures, replays, steps replayed and warm-up steps (`counters()`).
+path: captures, replays, steps replayed and warm-up steps (`counters()`);
+and the replays of each key (`key_replays()`).
 
 `EagerSegments` runs every segment eagerly, on any device. The engine
 never makes one: checks set it on an engine to hold the graphs against
@@ -49,8 +52,8 @@ def _warm_stream(device) -> torch.cuda.Stream:
 
 class GraphRunner:
     """The CUDA graphs of one engine's loop segments, by key (path,
-    segment length, sampling width); `path` names the fused loop ("dense",
-    "paged" or "rloop") for the counters."""
+    segment length, sampling width, grammar); `path` names the fused loop
+    ("dense", "paged" or "rloop") for the counters."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -58,10 +61,15 @@ class GraphRunner:
         self._graphs: dict = {}
         self._pool = None
         self._counts: dict = {}
+        self._key_replays: dict = {}
 
     def counters(self) -> dict:
         """{path: {captures, replays, steps_replayed, warmup_steps}}."""
         return {p: dict(c) for p, c in self._counts.items()}
+
+    def key_replays(self) -> dict:
+        """{key: replays of its graph}."""
+        return dict(self._key_replays)
 
     def _count(self, path) -> dict:
         return self._counts.setdefault(path, dict.fromkeys(COUNTERS, 0))
@@ -103,6 +111,7 @@ class GraphRunner:
                                f"addresses")
         replay()
         add_launch_counts(counted)
+        self._key_replays[key] = self._key_replays.get(key, 0) + 1
         c = self._count(key[0])
         c["replays"] += 1
         c["steps_replayed"] += steps

@@ -555,11 +555,16 @@ class LoopState:
     updates IN PLACE: the sampler (a SamplerState), last_logits [B, V] f32,
     lengths [B] int32, the stop state done [B] bool and n_out [B] int32, the
     dispatch's inputs remaining [B] int32, check_eos [B] bool, eos_ids [E]
-    and the paged block table [B, MAXB] (None for a dense cache), and one
-    segment's token and logprob rows toks/lps [_DONE_CHECK_EVERY, B]. A
-    segment reads and writes no other tensor across iterations, so a CUDA
-    graph captured over one segment replays the next of any dispatch that
-    fills the same tensors."""
+    and the paged block table [B, MAXB] (None for a dense cache), one
+    segment's token and logprob rows toks/lps [_DONE_CHECK_EVERY, B], and
+    the grammar lane: each slot's automaton state gstate [B] int32 and the
+    shared device grammar tables gmasks [S, ceil(V/32)] (u32 words held as
+    int32 bit patterns, LSB-first allowed-token rows) and gtrans [S, V]
+    int32 (next state per token), None without tables. Row 0 of the tables
+    is the identity state (all tokens allowed, a self-loop) that every
+    unconstrained slot sits in. A segment reads and writes no other tensor
+    across iterations, so a CUDA graph captured over one segment replays
+    the next of any dispatch that fills the same tensors."""
     sampler: Any
     last_logits: torch.Tensor
     lengths: torch.Tensor
@@ -571,14 +576,19 @@ class LoopState:
     table: torch.Tensor | None
     toks: torch.Tensor
     lps: torch.Tensor
+    gstate: torch.Tensor
+    gmasks: torch.Tensor | None = None
+    gtrans: torch.Tensor | None = None
 
     @classmethod
     def start(cls, sampler, last_logits, lengths, active, remaining,
-              check_eos, eos_ids, table=None) -> "LoopState":
+              check_eos, eos_ids, table=None, gstate=None, gmasks=None,
+              gtrans=None) -> "LoopState":
         """A state in new tensors for last_logits, lengths, the sampler
-        key and the stop state: the caller's stay as they are (the other
-        sampler fields are shared; the step updates token_counts in
-        place, as it always has)."""
+        key, the stop state and gstate (zeros when None: the identity
+        row): the caller's stay as they are (the other sampler fields are
+        shared; the step updates token_counts in place, as it always
+        has)."""
         B, dev = lengths.shape[0], lengths.device
         return cls(
             sampler=dataclasses.replace(sampler, key=sampler.key.clone()),
@@ -590,7 +600,10 @@ class LoopState:
             toks=torch.zeros((_DONE_CHECK_EVERY, B), dtype=torch.int32,
                              device=dev),
             lps=torch.zeros((_DONE_CHECK_EVERY, B), dtype=torch.float32,
-                            device=dev))
+                            device=dev),
+            gstate=(torch.zeros((B,), dtype=torch.int32, device=dev)
+                    if gstate is None else gstate.to(torch.int32).clone()),
+            gmasks=gmasks, gtrans=gtrans)
 
     def adopt(self, sampler, last_logits, lengths):
         """Copy into this state's tensors each of `sampler`'s fields,
@@ -610,12 +623,23 @@ class LoopState:
                if f.name != "sampler"]
         return tuple(t.data_ptr() for t in ts if t is not None)
 
+    def grammar_mask(self):
+        """Each slot's allowed-token row of the device grammar table,
+        gathered at its automaton state: [B, ceil(V/32)]."""
+        return self.gmasks.index_select(0, self.gstate)
+
+    def advance_grammar(self, tokens, live):
+        """Step each live slot's automaton on its sampled token (a frozen
+        slot's state holds): gstate = gtrans[gstate, token]."""
+        nxt = self.gtrans[self.gstate.long(), tokens.long()]
+        self.gstate.copy_(torch.where(live, nxt, self.gstate))
+
     @contextlib.contextmanager
     def frozen(self):
         """Every slot frozen while the body runs: a segment then changes
         nothing but the scratch rows toks/lps (a frozen slot's cache writes
-        go to the trash row or block; its counts, key, logits and length
-        hold)."""
+        go to the trash row or block; its counts, key, logits, length and
+        grammar state hold)."""
         done = self.done.clone()
         self.done.fill_(True)
         try:
@@ -639,7 +663,7 @@ def _stops(st: LoopState, tokens, live, limit: int):
 
 
 def loop_segment(step_fn, st: LoopState, n: int, limit: int, params, cos,
-                 sin, kc, vc, fast_width=None):
+                 sin, kc, vc, fast_width=None, grammar: bool = False):
     """`n` (at most _DONE_CHECK_EVERY) iterations of the fused loops'
     decode body over `st`, IN PLACE: sample→decode for the live slots
     (step_fn with the active mask ~done), freeze the finished ones (their
@@ -649,14 +673,20 @@ def loop_segment(step_fn, st: LoopState, n: int, limit: int, params, cos,
     n_out and the stop state. Nothing in it waits for the device, so a CUDA
     graph captures it whole.
 
+    The grammar variant (`grammar`, the reference's gstate lane; full-width
+    sampling, fast_width None): each iteration gathers every slot's mask
+    row at its automaton state, samples under it, and advances the live
+    slots' states through gtrans on the sampled tokens.
+
     step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths,
-    active, fast_width, table=table) → (tokens, logprobs, sampler, logits,
-    lengths)."""
+    active, fast_width, table=table[, mask_bits=mask]) → (tokens,
+    logprobs, sampler, logits, lengths)."""
     for i in range(n):
         live = ~st.done
+        kw = {"mask_bits": st.grammar_mask()} if grammar else {}
         tokens, lp, sampler, logits, lengths = step_fn(
             params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
-            live, fast_width, table=st.table)
+            live, fast_width, table=st.table, **kw)
         st.sampler.key.copy_(torch.where(live[:, None], sampler.key,
                                          st.sampler.key))
         st.last_logits.copy_(torch.where(live[:, None], logits,
@@ -665,6 +695,8 @@ def loop_segment(step_fn, st: LoopState, n: int, limit: int, params, cos,
         st.toks[i] = tokens
         st.lps[i] = lp
         st.n_out.add_(live.to(torch.int32))
+        if grammar:
+            st.advance_grammar(tokens, live)
         st.done |= _stops(st, tokens, live, limit)
 
 
@@ -711,13 +743,13 @@ def segment_lengths(start: int, max_steps: int) -> list[int]:
 
 
 def _segment_runner(run, step_fn, st, limit, params, cos, sin, kc, vc,
-                    fast_width):
+                    fast_width, grammar):
     """drive_loop's run(n): the builders' `run` hook, or loop_segment
     called directly."""
     if run is not None:
-        return lambda n: run(st, n, fast_width)
+        return lambda n: run(st, n, fast_width, grammar)
     return lambda n: loop_segment(step_fn, st, n, limit, params, cos, sin,
-                                  kc, vc, fast_width)
+                                  kc, vc, fast_width, grammar)
 
 
 def build_decode_loop(step_fn, *, max_steps: int, limit: int,
@@ -737,12 +769,19 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int,
     (with none, its first segment runs inert). `steps` counts the
     iterations actually run.
 
+    Grammar-constrained slots ride the same loop through the device
+    automaton tables (`gstate` [B] int32 each slot's state, `gmasks`,
+    `gtrans`: LoopState's grammar lane): each iteration gathers the slot's
+    mask row, samples under it and advances the state on the sampled token
+    (loop_segment's grammar variant). Unconstrained slots sit in the
+    identity row 0, so their streams equal the maskless variant's.
+
     The engine's hooks: `start(sampler, last_logits, lengths, active,
-    remaining, check_eos, eos_ids, table)` returns the dispatch's LoopState
-    (default LoopState.start, in new tensors; the engine fills its fixed
-    ones); `run(st, n, fast_width)` runs loop_segment's n iterations over
-    it (default: directly; the engine replays the segment's CUDA graph,
-    engine/graphs.py).
+    remaining, check_eos, eos_ids, table, gstate, gmasks, gtrans)` returns
+    the dispatch's LoopState (default LoopState.start, in new tensors; the
+    engine fills its fixed ones); `run(st, n, fast_width, grammar)` runs
+    loop_segment's n iterations over it (default: directly; the engine
+    replays the segment's CUDA graph, engine/graphs.py).
 
     step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths, active,
     fast_width, table=table) → (tokens, logprobs, sampler, logits, lengths);
@@ -754,13 +793,13 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int,
 
     def decode_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
                     active, remaining, check_eos, eos_ids, fast_width=None,
-                    table=None):
+                    table=None, gstate=None, gmasks=None, gtrans=None):
         st = start(sampler, last_logits, lengths, active, remaining,
-                   check_eos, eos_ids, table)
+                   check_eos, eos_ids, table, gstate, gmasks, gtrans)
         toks, lps = loop_outputs(max_steps, st)
         steps = drive_loop(
             st, _segment_runner(run, step_fn, st, limit, params, cos, sin,
-                                kc, vc, fast_width),
+                                kc, vc, fast_width, gstate is not None),
             toks, lps, 0, max_steps, lambda s: s > 0 and bool(st.done.all()))
         return (toks, lps, st.n_out, steps, st.sampler, st.last_logits,
                 st.lengths)
@@ -775,16 +814,21 @@ RLOOP_EXIT_PREFILL = 2     # the host had prefill/admission work pending
 
 
 def ragged_pack_step(ragged_step, st: LoopState, limit: int, params, cos,
-                     sin, kc, vc, pack, is_decode):
+                     sin, kc, vc, pack, is_decode, grammar: bool = False):
     """Iteration 0 of a fused ragged dispatch over `st`: the mixed tick's
     single-step body (every packed decode row samples and advances), its
-    results adopted into st's tensors, then n_out and the stop state.
-    Returns the iteration's (tokens, logprobs)."""
+    results adopted into st's tensors, then n_out and the stop state. The
+    grammar variant samples under each slot's mask row at its state
+    (`mask0`) and advances the decode rows' states. Returns the
+    iteration's (tokens, logprobs)."""
+    kw = {"mask_bits": st.grammar_mask()} if grammar else {}
     tokens, lp, sampler, last_logits, lengths = ragged_step(
         params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
-        pack, is_decode, st.table)
+        pack, is_decode, st.table, **kw)
     st.adopt(sampler, last_logits, lengths)
     st.n_out.add_(is_decode.to(torch.int32))
+    if grammar:
+        st.advance_grammar(tokens, is_decode)
     st.done |= _stops(st, tokens, is_decode, limit)
     return tokens, lp
 
@@ -833,7 +877,10 @@ def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
     slots advance in them, within their `remaining` budgets, so token
     streams are unchanged. As in build_decode_loop, a dispatch starts with
     a live slot, and the hooks `start` (given `is_decode` as its `active`)
-    and `run` are the engine's.
+    and `run` are the engine's. With `gstate` (and the tables) every
+    iteration runs the grammar variant: the pack samples under each slot's
+    row at its state and advances the decode rows only, the decode
+    iterations as build_decode_loop's.
 
     Returns (toks [max_steps, B], lps [max_steps, B], n_out [B], steps,
     exit_code [] int32 tensor, sampler, last_logits, lengths); the exit
@@ -844,22 +891,24 @@ def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
     def ragged_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
                     is_decode, remaining, check_eos, eos_ids,
                     prefill_pending: bool, pack=None, table=None,
-                    fast_width=None, *, has_pack: bool):
+                    fast_width=None, gstate=None, gmasks=None, gtrans=None,
+                    *, has_pack: bool):
+        grammar = gstate is not None
         st = start(sampler, last_logits, lengths, is_decode, remaining,
-                   check_eos, eos_ids, table)
+                   check_eos, eos_ids, table, gstate, gmasks, gtrans)
         live = ~st.done       # is_decode on the device
         toks, lps = loop_outputs(max_steps, st)
         steps = 0
         if has_pack:
             toks[0], lps[0] = ragged_pack_step(ragged_step, st, limit,
                                                params, cos, sin, kc, vc,
-                                               pack, live)
+                                               pack, live, grammar)
             steps = 1
         pending = has_pack and prefill_pending
         if not pending:
             steps = drive_loop(
                 st, _segment_runner(run, decode_step, st, limit, params, cos,
-                                    sin, kc, vc, fast_width),
+                                    sin, kc, vc, fast_width, grammar),
                 toks, lps, steps, max_steps,
                 lambda s: s > 0 and ragged_stop(st, live))
         return (toks, lps, st.n_out, steps,

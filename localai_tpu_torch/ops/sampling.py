@@ -195,16 +195,32 @@ def apply_penalties(logits, state: SamplerState):
     return logits
 
 
+def mask_allowed(mask_bits, v: int):
+    """The allowed-token set [B, v] bool of an LSB-first bitmask in either
+    wire format: u8 rows [B, ceil(V/8)] (the host matcher's per-step
+    upload) or 32-bit words [B, ceil(V/32)] gathered from the device
+    grammar table (uint32, or int32 holding the same bit patterns). The
+    bit order is the same, so both give the same set."""
+    b = mask_bits.shape[0]
+    if mask_bits.dtype == torch.uint8:
+        width, words = 8, mask_bits.to(torch.int32)
+    else:
+        # an arithmetic shift of a negative word fills with ones, and & 1
+        # keeps the bit shifted down: int32 unpacks as uint32 does
+        width, words = 32, mask_bits.view(torch.int32)
+    shifts = torch.arange(width, device=mask_bits.device, dtype=torch.int32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(b, -1)[:, :v].bool()
+
+
 def pipeline_logits(logits, state: SamplerState, mask_bits=None):
-    """Penalties → bias → temperature. mask_bits: optional [B, ceil(V/8)]
-    u8 allowed-token bitmask (LSB-first)."""
+    """Penalties → bias → temperature. mask_bits: an optional LSB-first
+    allowed-token bitmask, u8 [B, ceil(V/8)] or 32-bit words
+    [B, ceil(V/32)] (mask_allowed)."""
     b, v = logits.shape
     logits = logits.float()
     if mask_bits is not None:
-        shifts = torch.arange(8, device=logits.device, dtype=torch.int32)
-        bits = (mask_bits.to(torch.int32)[:, :, None] >> shifts) & 1
-        allowed = bits.reshape(b, -1)[:, :v].bool()
-        logits = torch.where(allowed, logits, NEG_INF)
+        logits = torch.where(mask_allowed(mask_bits, v), logits, NEG_INF)
     logits = apply_penalties(logits, state)
     logits = logits + state.logit_bias
     return logits / torch.clamp_min(state.temperature[:, None], 1e-6)

@@ -176,7 +176,7 @@ def test_unported_config_rejected(models, field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("grammar", "root ::= \"a\""), ("context_shift", True),
+    ("context_shift", True),
     ("prompt_cache_path", "/nonexistent/x.npz"), ("kv_policy", "w"),
     ("resume", {"emitted": 0}), ("mm_embeds", np.zeros((1, 64)))])
 def test_unported_request_fields_rejected(models, field, value):

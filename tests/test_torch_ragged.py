@@ -644,10 +644,21 @@ def test_ragged_requires_paged_kv(models):
 
 
 def test_draft_and_grammar_wait_for_their_slices(models):
+    """A draft model still waits for the speculative-decoding slice; a
+    grammar request is served on the ragged engine (its tokens are the
+    grammar's: tests/test_torch_grammar.py holds them to the JAX
+    engine)."""
     (_, _, _), (tcfg, tp, ttok), _ = models
     ec = TConfig(**_ec(ragged_token_budget=64))
     with pytest.raises(NotImplementedError, match="speculative decoding"):
         TEngine(tcfg, tp, ttok, ec, draft=(tcfg, tp), device="cpu")
     eng = TEngine(tcfg, tp, ttok, ec, device="cpu")
-    with pytest.raises(NotImplementedError, match="grammar"):
-        eng.submit(TRequest([3, 4], grammar='root ::= "a"'))
+    a = ttok.encode("a", add_bos=False)
+    assert len(a) == 1
+    outs = list(eng.generate(TRequest([3, 4], TParams(temperature=0.0),
+                                      max_tokens=8,
+                                      grammar='root ::= "a"+')))
+    ids = [o.token_id for o in outs if o.token_id >= 0]
+    assert outs[-1].finished and ids
+    assert all(t == a[0] or t in ttok.eos_ids for t in ids)
+    assert eng.metrics["grammar_table_states"] > 1
