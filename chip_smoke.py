@@ -48,7 +48,14 @@ and the script exits non-zero:
      (f32 logits) on the 8B head [4096, 128256] in bf16, int8 and tied at
      M = 4 and 8 and on Qwen2-7B's head (V = 152064), with a planted fault
      each (x32 rounded to bf16; a K tile dropped), library_ms the head's
-     f32 copy + matmul (line `phase2 weight gemms`).
+     f32 copy + matmul (line `phase2 weight gemms`). Then the speculative
+     leg's shapes, each with its planted fault (line `phase2 spec
+     shapes`): dense decode at the Llama-3.2-1B draft's H=32, KVH=8,
+     D=64 (B=8, T=4096), w8a16_matmul on the 1B's projections at M = 8
+     and head_matmul on its tied head [128256, 2048], w8a16_matmul on
+     the 8B's projections and the 8B head at the verify's M = 8 x 5, and
+     ragged attention and the flat-row scatters at a spec-as-ragged pack
+     (eight 5-row windows in 8-row blocks beside a 128-row chunk).
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
@@ -68,7 +75,11 @@ and the script exits non-zero:
      host-masked path (grammar_table_states=0, decode_block=1,
      decode_loop=0) on the card, every token accepted by the port's
      matcher; on the dense, paged and ragged engines the grammar segments'
-     graph replays equal the eager segments, bit for bit.
+     graph replays equal the eager segments, bit for bit. Then
+     speculative decoding on the same f32 target with a 1-layer f32 draft
+     at the 1B's widths: the greedy spec streams on the card equal the
+     CPU's, dense, paged and ragged; with the target as its own draft
+     every proposal is accepted and the stream is the plain one.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
@@ -127,6 +138,26 @@ and the script exits non-zero:
      greedy tool-call stream passes the teacher-forced check with each
      reference row masked by the matcher. Each reading line carries the
      card's name and power limit.
+  8. speculative decoding at full width: the synthetic Llama-3.1-8B (32
+     layers) with a synthetic draft of Llama-3.2-1B's published widths
+     (hidden 2048, 16 layers, 32 heads on 8 KV heads, head_dim 64, tied
+     head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
+     LoadModel(draft_model, n_draft=4) on the dense path (phase 4's
+     prompts, the fourth greedy), then draft Engines in-process on phase
+     5's pool (kv_pages=129, 8 slots; phase 6's two waves of requests,
+     first without the draft) and on phase 6's ragged path. Checks: three
+     greedy streams a path pass the teacher-forced check, whose planted
+     fault — the draft's own proposals, as an accept test that takes
+     every draft would serve them — fails; the draft's dense decode
+     launched (gamma+1) x 16 times a spec dispatch, counted from the
+     engine's metrics, the target's decode kernels never, and on the
+     ragged path ragged attention and the flat-row scatter once a layer a
+     spec-as-ragged dispatch, no fused loop; then a perfect draft (2
+     layers at the 8B widths, bf16, draft = target) accepts >= 0.95,
+     dense and ragged. Prints tok/s and TTFT p50 with and without the
+     draft, the acceptance (near 0 with random weights: not a finding),
+     and a spec dispatch's host and device-busy ms, split into the draft
+     steps, the verify and the accept tail.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -151,6 +182,20 @@ CFG_8B = {
     "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
     "rope_theta": 500000.0, "tie_word_embeddings": False,
     "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
+                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192},
+}
+
+# Llama-3.2-1B's published widths (HF config of meta-llama/Llama-3.2-1B):
+# the speculative leg's draft (tied head, head_dim 64)
+CFG_1B = {
+    "architectures": ["LlamaForCausalLM"],
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64,
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "tie_word_embeddings": True,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                      "original_max_position_embeddings": 8192},
 }
@@ -1025,7 +1070,7 @@ def check_ragged_attention(H, KVH, D, dtype, decode_lens, chunk, maxb,
 
 
 def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
-                         nb=0):
+                         nb=0, seqs=None):
     """Flat-row scatter (kernels 10 and 11) at the pack's own targets
     (models/llama.ragged_row_targets: live rows at their positions through
     the table, padding rows to the trash block at row % 128, colliding
@@ -1043,7 +1088,7 @@ def check_ragged_scatter(KVH, D, dtype, decode_lens, chunk, maxb, q8=False,
     from localai_tpu_torch.ops.kvcache import quantize_tokens
 
     k, v, meta, live, _, nb = _ragged_pack(decode_lens, chunk, maxb, nb,
-                                           KVH, D, seed=6)
+                                           KVH, D, seed=6, seqs=seqs)
     T = int(meta["block_seq"].shape[0]) * 8
     _, pb, off = ragged_row_targets(meta["block_seq"], meta["qstart"],
                                     meta["qlen"], meta["kvlen"],
@@ -1373,6 +1418,53 @@ def weight_gemms():
     return w8["M=4 K=4096 N=14336"], heads["bf16 M=4"]
 
 
+# the speculative leg's shapes (phase 8): the Llama-3.2-1B draft decodes
+# at H=32, KVH=8, D=64 over eight 4096-token slots, through its
+# projections (K, N) and its tied head; the 8B target verifies eight
+# (gamma+1)-row windows (M = 8 x 5 through its projections; in a ragged
+# pack, one window of 5 rows in each 8-row block, beside phase 6's chunk)
+W8_GEOMETRIES_1B = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+SPEC_GAMMA = 4
+SPEC_KV = [33, 49, 332, 732, 1532, 672, 712, 4095]
+
+
+def spec_shapes():
+    """Rows 2, 8-11, 13 and 14 at the speculative leg's shapes, each with
+    its planted fault (the checks' own). Returns the draft's decode row
+    (row 2 at D = 64)."""
+    import torch
+
+    bf16, G = torch.bfloat16, SPEC_GAMMA
+    res = {"ragged_decode 1B draft D=64": check_decode(
+        8, 32, 8, 4096, 64, bf16, SPEC_KV)}
+    for K, N in W8_GEOMETRIES_1B:
+        res[f"w8a16_matmul 1B draft M=8 K={K} N={N}"] = check_w8a16(
+            8, K, N, bf16, cold=False)
+    res["head_matmul 1B tied M=8"] = check_head(8, 2048, 128256, "tied",
+                                                cold=False)
+    M = 8 * (G + 1)
+    for K, N in W8_GEOMETRIES:
+        res[f"w8a16_matmul 8B verify M={M} K={K} N={N}"] = check_w8a16(
+            M, K, N, bf16, cold=False)
+    res[f"head_matmul 8B verify bf16 M={M}"] = check_head(
+        M, 4096, 128256, "bf16", cold=False)
+    seqs = [(n, G + 1) for n in SPEC_KV] + [
+        (RAGGED_CHUNK[0] + RAGGED_CHUNK[1], RAGGED_CHUNK[1])]
+    for q8, sfx in ((False, ""), (True, "_q8")):
+        res["ragged_paged_attention" + sfx + " spec pack"] = \
+            check_ragged_attention(32, 8, 128, bf16, None, None, 32, q8=q8,
+                                   nb=129, seqs=seqs)
+        res["ragged_scatter_append" + sfx + " spec pack"] = \
+            check_ragged_scatter(8, 128, bf16, None, None, 32, q8=q8,
+                                 nb=129, seqs=seqs)
+    keep = ("max_abs_err", "planted_fault_err", "mismatch_share", "ms",
+            "ms_graph", "bound_ms", "bound_by", "plain_ms", "library_ms")
+    log("phase2 spec shapes " + json.dumps(
+        {k: {f: r.get(f) for f in keep} for k, r in res.items()}))
+    torch.cuda.empty_cache()
+    return res["ragged_decode 1B draft D=64"]
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes
     (plus small f32 / GQA / window cases for the algorithm)."""
@@ -1476,6 +1568,7 @@ def phase_kernels():
     }
     ragged_packs(H, KVH, D)
     main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
+    main["spec shapes"] = spec_shapes()
     main["launch floor"] = launch_floor()
     log("phase2 wide geometry " + json.dumps({
         k: {f: r.get(f) for f in ("max_abs_err", "planted_fault_err", "ms",
@@ -1615,9 +1708,99 @@ def phase_card_vs_cpu():
         if gpu["graphs"].get(path, {}).get("replays", 0) <= 0:
             raise AssertionError(f"phase3: the card's {path} loop replayed "
                                  f"no CUDA graph")
+    spec_card_vs_cpu(cfg, model, prompt, gpu["tokens"])
     model.to("cpu")
     del model
     torch.cuda.empty_cache()
+
+
+# phase 3's spec streams (the CPU's spec step samples over V = 128256 with
+# two sorts a window position: about 0.8 s a step)
+SPEC_CHECK_TOKENS = 10
+
+
+def spec_card_vs_cpu(cfg, model, prompt, plain_tokens):
+    """Speculative decoding on phase 3's f32 target (8B widths, 2 layers)
+    with a 1-layer f32 draft at Llama-3.2-1B's widths (weights from a
+    seed): the greedy spec streams on the card equal the CPU's, dense,
+    paged and ragged (a second request joins the ragged engine mid-
+    decode), 10 tokens each; and with the target as its own draft every
+    proposal is accepted (gamma a step) and the stream is the plain
+    engine's on the card (`plain_tokens`, its first 10)."""
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+    from localai_tpu_torch.engine.loader import load_config
+    from localai_tpu_torch.models.llama import init_params
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_1B, num_hidden_layers=1), f)
+        dcfg = load_config(d, dtype="float32")
+    draft = init_params(dcfg, seed=1, dtype=torch.float32, device="cpu")
+    base = dict(max_slots=2, max_context=256, prefill_buckets=(32,),
+                prefill_chunk=32, gamma=SPEC_GAMMA)
+    ecs = {"dense": EngineConfig(**base),
+           "paged": EngineConfig(**base, kv_pages=5),
+           "ragged": EngineConfig(**base, kv_pages=5,
+                                  ragged_token_budget=64)}
+
+    def serve(ec, dm, dc, device):
+        eng = Engine(cfg, model, None, ec, draft=(dc, dm), device=device)
+        qs = [eng.submit(GenRequest(prompt, SamplingParams(temperature=0.0),
+                                    max_tokens=SPEC_CHECK_TOKENS,
+                                    ignore_eos=True))[1]]
+        if ec.ragged_token_budget:
+            for _ in range(2):
+                eng.step()
+            qs.append(eng.submit(GenRequest(
+                prompt[::-1] + prompt[:17], SamplingParams(temperature=0.0),
+                max_tokens=SPEC_CHECK_TOKENS, ignore_eos=True))[1])
+        while eng.step():
+            pass
+        ids = []
+        for q in qs:
+            ids.append([])
+            while not q.empty():
+                o = q.get_nowait()
+                if o.token_id >= 0:
+                    ids[-1].append(o.token_id)
+        return ids, {k: eng.metrics[k] for k in (
+            "draft_proposed", "draft_accepted", "tokens_by_path__spec")}
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev)
+        draft.to(dev)
+        t0 = time.perf_counter()
+        for path, ec in ecs.items():
+            res[(dev, path)] = serve(ec, draft, dcfg, dev)
+        log(f"phase3 spec {dev}: dense, paged and ragged draft engines "
+            f"{time.perf_counter() - t0:.1f} s")
+    for path in ecs:
+        (cpu, mc), (card, mg) = res[("cpu", path)], res[("cuda", path)]
+        log(f"phase3 spec {path} cpu tokens {cpu} card tokens {card} "
+            f"card metrics {json.dumps(mg)}")
+        if cpu != card or any(len(t) != SPEC_CHECK_TOKENS for t in card):
+            raise AssertionError(f"phase3 spec {path}: card and CPU greedy "
+                                 f"tokens differ")
+    perfect = {}
+    for path, ec in ecs.items():
+        toks, m = serve(ec, model, cfg, "cuda")
+        perfect[path] = dict(m, tokens=toks[0])
+        if not (toks[0] == plain_tokens[:SPEC_CHECK_TOKENS]
+                and m["draft_accepted"] == m["draft_proposed"] > 0):
+            raise AssertionError(f"phase3 spec {path}: the perfect draft "
+                                 f"did not accept gamma a step with the "
+                                 f"plain stream {perfect[path]}")
+    log("phase3 spec perfect draft (draft = target) " + json.dumps(perfect))
+    draft.to("cpu")
+    del draft
 
 
 # ------------------------------------------------------------ phase 3, graphs
@@ -2018,6 +2201,7 @@ def phase_main_path():
                                             cache_type_key="int8",
                                             cache_type_value="int8"))
         counts = launch_counts()
+    PLAIN["dense", "bf16"], PLAIN["dense", "int8"] = bf16, int8
     log("phase4 launches on the main path " + json.dumps(counts))
     for k in ("flash_prefill", "ragged_decode", "ragged_decode_q8"):
         if counts[k] <= 0:
@@ -2424,6 +2608,8 @@ def serve_ragged(name, model_dir, dtype, kv_kind, then=None,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         }
         log(f"{phase} {name} " + json.dumps(out))
+        if phase == "phase6":
+            PLAIN["ragged", name] = out
         if m["ragged_prefill_tokens"] != sum(prompts):
             raise AssertionError(f"{phase} {name}: ragged_prefill_tokens "
                                  f"{m['ragged_prefill_tokens']} != "
@@ -3087,6 +3273,512 @@ def phase_grammar(d, smi, tok):
     return tables, out
 
 
+# ------------------------------------------------------------------ phase 8
+
+# the draft-free runs' readings (phase 4's dense and phase 6's ragged run,
+# phase 8's paged one), by (path, recipe): phase 8's "without the draft"
+PLAIN = {}
+RECIPES = (("bf16", "bfloat16", ""), ("int8", "int8", "int8"))
+# phase 4's four prompts, the fourth greedy: three greedy streams for the
+# teacher-forced check
+SPEC_REQUESTS = [(1, dict(temperature=0.0)),
+                 (17, dict(temperature=0.8, top_k=40, seed=11)),
+                 (300, dict(temperature=0.0)),
+                 (700, dict(temperature=0.0))]
+# phase 5's pool, served in-process; phase 6's ragged engine (a draft
+# engine never runs the fused ragged loop, so ragged_loop_steps is unread)
+SPEC_PAGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
+                     prefill_buckets=(64, 256, 512), prefill_chunk=512)
+DRAFT_LAYERS = CFG_1B["num_hidden_layers"]
+LAYERS_8B = CFG_8B["num_hidden_layers"]
+
+
+def draft_fault(engine, ids, toks, lps):
+    """The planted fault of the spec legs: an accept test that takes every
+    draft. Its stream is the draft's own greedy proposal at each position
+    (the draft's plain forward over the prompt and the served tokens, the
+    weight GEMMs' plain versions), which the teacher-forced check must
+    reject."""
+    import torch
+
+    from localai_tpu_torch.models.llama import extend, init_kv_cache
+
+    dcfg, dparams = engine._draft
+    dev = engine.device
+    seq = list(ids) + list(toks[:-1])
+    kc, vc = init_kv_cache(dcfg, 1, len(seq), engine._kv_dtype, device=dev)
+    with torch.no_grad(), plain_weight_gemms():
+        logits = extend(dparams, dcfg,
+                        torch.tensor([seq], dtype=torch.int32, device=dev),
+                        torch.zeros((1,), dtype=torch.int32, device=dev),
+                        engine._cos_d, engine._sin_d, kc, vc)
+    fake = logits[0, len(ids) - 1:].argmax(-1).tolist()
+    return ids, fake, lps
+
+
+def spec_split(engine, label, smi, reps=3):
+    """A spec dispatch of four active slots (kv lengths 33, 49, 332, 732;
+    two greedy, two sampled) on `engine`'s weights and fresh caches, in its
+    three parts: the draft's gamma decode steps and the ingest of the last
+    draft, the target's verify forward, and the accept tail (the target
+    distributions, the accept test, the correction draw and the commit).
+    Per part: the host's ms to enqueue it, its wall ms to a synchronize,
+    and the card's busy ms (torch.profiler, the kernels' device time);
+    medians of `reps`."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localai_tpu_torch.engine import spec as sp
+    from localai_tpu_torch.models.llama import extend, init_kv_cache
+    from localai_tpu_torch.ops.sampling import SamplerState, split_keys
+
+    cfg, (dcfg, dparams) = engine.cfg, engine._draft
+    B, T, G, dev = 4, engine.ec.max_context, engine.ec.gamma, "cuda"
+    kt, vt = init_kv_cache(cfg, B, T, engine._kv_dtype,
+                           cache_type=engine.ec.cache_type, device=dev)
+    kd, vd = init_kv_cache(dcfg, B, T, engine._kv_dtype, device=dev)
+    lengths = torch.tensor([33, 49, 332, 732], dtype=torch.int32,
+                           device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    nxt = torch.tensor([11, 12, 13, 14], dtype=torch.int32, device=dev)
+    sampler = SamplerState.init(B, cfg.vocab_size, device=dev)
+    sampler.greedy[:2] = True
+    sampler.key[:, 1] = torch.arange(B, device=dev) + 1
+    st = {}
+
+    def draft():
+        st["carry"], st["step"] = split_keys(sampler.key)
+        st["d"], st["pd"] = sp._draft_phase(
+            dparams, dcfg, G, engine._cos_d, engine._sin_d, kd, vd, sampler,
+            lengths, nxt, active, st["step"])
+
+    def verify():
+        window = torch.cat([nxt[:, None], st["d"]], dim=1)
+        st["tl"] = extend(engine.params, cfg, window, lengths, engine._cos,
+                          engine._sin, kt, vt)
+
+    def accept():
+        sp._verify_outputs(sampler, active, st["step"], st["carry"],
+                           st["d"], st["pd"], st["tl"], G)
+
+    parts = (("draft", draft), ("verify", verify), ("accept", accept))
+    times = {k: {"host_ms": [], "wall_ms": [], "busy_ms": []}
+             for k, _ in parts}
+    with torch.no_grad():
+        for _ in range(reps + 1):            # the first round warms up
+            for k, fn in parts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                times[k]["host_ms"].append((t1 - t0) * 1e3)
+                times[k]["wall_ms"].append((t2 - t0) * 1e3)
+        for _ in range(reps):
+            for k, fn in parts:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    fn()
+                    torch.cuda.synchronize()
+                busy = sum(e.self_device_time_total
+                           for e in p.key_averages()) / 1e3
+                times[k]["busy_ms"].append(busy)
+    out = {}
+    for k, r in times.items():
+        out[k] = {m: statistics.median(v[-reps:]) if v else None
+                  for m, v in r.items()}
+        if not out[k]["busy_ms"]:
+            out[k]["busy_ms"] = "not measured (the profiler saw no "\
+                                "device time)"
+    log(f"phase8 {label} spec dispatch split (B=4, gamma={G}) "
+        + json.dumps(out) + f" card {smi}")
+    del kt, vt, kd, vd
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_summary(label, m0, m1, spec, plain, smi, extra=None):
+    """The with/without-draft line of one leg."""
+    proposed = m1["draft_proposed"] - m0["draft_proposed"]
+    accepted = m1["draft_accepted"] - m0["draft_accepted"]
+    row = {"with_draft": {"tok_s": spec["tok_s"],
+                          "ttft_p50_ms": spec["ttft_p50_ms"]},
+           "without_draft": None if plain is None else {
+               "tok_s": plain["tok_s"], "ttft_p50_ms": plain["ttft_p50_ms"]},
+           "draft_proposed": proposed, "draft_accepted": accepted,
+           "acceptance": accepted / max(proposed, 1),
+           "acceptance_note": "random weights: the draft and the target "
+                              "agree by chance only; not a finding about "
+                              "the port",
+           **(extra or {})}
+    log(f"phase8 {label} " + json.dumps(row) + f" card {smi}")
+    return row
+
+
+def _spec_launch_checks(label, counts, m0, m1, ragged):
+    """Row 2 launched (gamma+1) x 16 times a spec dispatch (the draft's
+    steps), counted from the engine's metrics; on the ragged path rows
+    8-11 once a layer a spec-as-ragged dispatch; the target never ran the
+    decode kernels, and no fused loop ran."""
+    G = SPEC_GAMMA
+
+    def gained(k):
+        return int(m1[k] - m0[k])
+
+    if ragged:
+        n = gained("spec_ragged_dispatches")
+        if n <= 0 or n != gained("ragged_dispatches"):
+            raise AssertionError(f"phase8 {label}: {n} spec-as-ragged "
+                                 f"dispatches of "
+                                 f"{gained('ragged_dispatches')} ragged")
+        steps = (G + 1) * n
+    else:
+        n = gained("decode_dispatches")
+        steps = gained("decode_steps_dispatched")
+        if n <= 0 or steps != (G + 1) * n:
+            raise AssertionError(f"phase8 {label}: {steps} steps in {n} "
+                                 f"spec dispatches")
+    want = {"ragged_decode": DRAFT_LAYERS * steps}
+    zero = ["ragged_decode_q8", "ragged_decode_paged",
+            "ragged_decode_q8_paged", "paged_scatter_append",
+            "paged_scatter_append_q8"]
+    if ragged:
+        q8 = counts["ragged_paged_attention_q8"] > 0
+        sfx = "_q8" if q8 else ""
+        want["ragged_paged_attention" + sfx] = LAYERS_8B * n
+        want["ragged_scatter_append" + sfx] = LAYERS_8B * n
+        zero += ["flash_prefill",
+                 "ragged_paged_attention" + ("" if q8 else "_q8"),
+                 "ragged_scatter_append" + ("" if q8 else "_q8")]
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"phase8 {label}: {k} launched "
+                                 f"{counts[k]} times, not {v} ({n} spec "
+                                 f"dispatches, gamma {G})")
+    for k in zero:
+        if counts[k]:
+            raise AssertionError(f"phase8 {label}: {k} launched on the "
+                                 f"spec path")
+    for k in ("tokens_by_path__loop", "tokens_by_path__rloop"):
+        if gained(k):
+            raise AssertionError(f"phase8 {label}: a fused loop ran")
+    return {"spec_dispatches": n, **{k: counts[k] for k in want}}
+
+
+def spec_dense(name, d, dd, dtype, kv, smi):
+    """The dense path through the gRPC backend:
+    LoadModel(draft_model, n_draft=4), phase 4's prompts."""
+    from localai_tpu_torch.ops.kernels import reset_launch_counts
+
+    kw = dict(dtype=dtype, draft_model=dd, n_draft=SPEC_GAMMA)
+    if kv:
+        kw.update(cache_type_key=kv, cache_type_value=kv)
+    res = {}
+
+    def then(client, servicer, out):
+        eng = servicer.engine
+        if eng.ec.gamma != SPEC_GAMMA or eng._draft is None:
+            raise AssertionError("phase8: LoadModel did not make a draft "
+                                 "engine of n_draft")
+        m0, m1 = out["metrics_before"], out["metrics_after"]
+        res["launches"] = _spec_launch_checks(
+            f"dense {name}", out["launches_during_requests"], m0, m1, False)
+        results = out["_results"]
+        cases = {f"{len(results[i][4])}-token": (results[i][4],
+                                                 results[i][1],
+                                                 results[i][2])
+                 for i in (0, 2, 3)}
+        fault = draft_fault(eng, *cases["700-token"])
+        check_reference(name, eng, cases, fault, phase="phase8 dense")
+        res["summary"] = _spec_summary(
+            f"dense {name}", m0, m1, out, PLAIN.get(("dense", name)), smi,
+            extra={"launches": res["launches"],
+                   "without_draft_note": "phase 4's run: the same prompts, "
+                                         "its fourth request sampled"})
+        res["split"] = spec_split(eng, f"dense {name}", smi)
+
+    # LoadModel's prewarm serves three 50-token requests, which on the
+    # eager spec path take longer than the wave; the kernels are built and
+    # nothing is compiled at a first use, so the leg loads without it
+    os.environ["LOCALAI_NO_PREWARM"] = "1"
+    try:
+        reset_launch_counts()
+        res["out"] = serve_recipe(name, d, kw, phase="phase8 dense",
+                                  waves=[SPEC_REQUESTS], then=then)
+    finally:
+        del os.environ["LOCALAI_NO_PREWARM"]
+    return res
+
+
+def spec_engine(name, d, dd, dtype, kv, ec, path, smi, plain=False):
+    """A draft Engine in-process on the paged pool or the ragged path,
+    phase 6's two waves of four requests; with `plain`, the same requests
+    first through the same engine configuration without the draft."""
+    import gc
+    import statistics
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    cfg = load_config(d, dtype=dtype)
+    params = load_params(d, cfg, dtype=dtype, device="cuda")
+    dcfg = load_config(dd, dtype=dtype)
+    dparams = load_params(dd, dcfg, dtype=dtype, device="cuda")
+    label = f"{path} {name}"
+
+    def run(draft):
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, None, EngineConfig(
+            **ec, cache_type=kv, gamma=SPEC_GAMMA), draft=draft,
+            device="cuda")
+        eng.warmup()
+        setup = time.perf_counter() - t0
+        reset_launch_counts()
+        m0 = dict(eng.metrics)
+        recs, wall = drive_engine(eng)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        m1 = dict(eng.metrics)
+        for i, r in enumerate(recs):
+            last = r["last"]
+            if (last is None or last.finish_reason != "length"
+                    or len(r["toks"]) != NEW_TOKENS
+                    or not all(0 <= t < cfg.vocab_size for t in r["toks"])):
+                raise AssertionError(f"phase8 {label} request {i}: finish "
+                                     f"{last and last.finish_reason} "
+                                     f"tokens {len(r['toks'])}")
+        ttfts = [r["ttft"] for r in recs]
+        gen = m1["tokens_generated"] - m0["tokens_generated"]
+        stats = {"tok_s": gen / wall, "ttft_p50_ms":
+                 statistics.median(ttfts) * 1e3, "wall_s": wall,
+                 "tokens": gen, "setup_s": setup,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        return eng, recs, counts, m0, m1, stats
+
+    try:
+        if plain:
+            eng, _, _, _, _, PLAIN[path, name] = run(None)
+            del eng
+            gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        eng, recs, counts, m0, m1, stats = run((dcfg, dparams))
+        launches = _spec_launch_checks(label, counts, m0, m1,
+                                       path == "ragged")
+        if path == "ragged":
+            prompts = sum(len(r["ids"]) for r in recs)
+            got = m1["ragged_prefill_tokens"] - m0["ragged_prefill_tokens"]
+            if got != prompts:
+                raise AssertionError(f"phase8 {label}: {got} prefill rows "
+                                     f"packed for {prompts} prompt tokens")
+        cases = {f"{len(r['ids'])}-token": (r["ids"], r["toks"], r["lps"])
+                 for r in (recs[2], recs[4], recs[5])}
+        fault = draft_fault(eng, *cases["1500-token"])
+        check_reference(name, eng, cases, fault, phase=f"phase8 {path}")
+        summary = _spec_summary(
+            label, m0, m1, stats, PLAIN.get((path, name)), smi,
+            extra={"launches": launches, "setup_s": stats["setup_s"],
+                   "peak_mem_gb": stats["peak_mem_gb"],
+                   "without_draft_note": (
+                       "the same requests without the draft, just before"
+                       if plain else "phase 6's run of the same requests")})
+        return {"summary": summary, "counts": counts}
+    finally:
+        eng = None
+        del params, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# the perfect-draft leg. In f32 the draft's decode and the verify agree to
+# ~1e-6, so a greedy proposal is rejected only at a tie. In bf16 they
+# round differently (the decode kernel and GEMMs at M = B beside the
+# verify's window at M = B x 5), and with random weights the top two of
+# 128256 logits of std 1 lie ~0.2 apart: a few % of greedy argmaxes flip
+# between the two, as they do between the served streams and their plain
+# teacher-forced reference (argmax_equal 60-64 of 64), and each flip
+# rejects the rest of its window. So every rejected proposal must be
+# within PERFECT_TIE logit of the plain reference's largest logit at its
+# position (a tie, not a fault), and the acceptance at least the floor.
+PERFECT_FLOOR = {"float32": 0.95, "bfloat16": 0.85}
+PERFECT_TIE = 0.05
+
+
+def spec_perfect_draft(d, smi):
+    """The target as its own draft (2 layers at the 8B widths), bf16 and
+    f32, dense and ragged: greedy proposals are accepted (at least
+    PERFECT_FLOOR of them), and each rejected one is a tie of the plain
+    teacher-forced reference (within PERFECT_TIE of its largest logit)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config, load_params
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        with tempfile.TemporaryDirectory() as d2:
+            with open(os.path.join(d2, "config.json"), "w") as f:
+                json.dump(dict(CFG_8B, num_hidden_layers=2,
+                               localai_synthetic=True), f)
+            cfg = load_config(d2, dtype=dtype)
+            params = load_params(d2, cfg, dtype=dtype, device="cuda")
+        _perfect_draft_runs(cfg, params, dtype, out)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("phase8 perfect draft (2 layers, 8B widths, draft = target) "
+        + json.dumps(out) + f" card {smi}")
+    for key, r in out.items():
+        if r["acceptance"] < r["floor"]:
+            raise AssertionError(f"phase8 perfect draft {key}: acceptance "
+                                 f"{r['acceptance']} < {r['floor']}")
+        if r["rejections"] and r["max_rejected_gap"] > PERFECT_TIE:
+            raise AssertionError(f"phase8 perfect draft {key}: a rejected "
+                                 f"proposal is no tie of the reference {r}")
+    return out
+
+
+def _perfect_draft_runs(cfg, params, dtype, out):
+    """spec_perfect_draft's engines, dense and ragged, on one dtype. The
+    draft's proposals (engine/spec.py `_draft_phase`) and each window's
+    accepted run (`Engine._emit_windows`) are recorded on the way, so a
+    rejected proposal's position is known; the plain reference (the
+    target's plain forward over the prompt and the stream before that
+    position) gives its gap to the largest logit there."""
+    import torch
+
+    from localai_tpu_torch.engine import spec
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+    from localai_tpu_torch.models.llama import extend, init_kv_cache
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    G, proposals = SPEC_GAMMA, {}
+    draft_phase = spec._draft_phase
+
+    def recording(*a, **kw):
+        d, p = draft_phase(*a, **kw)
+        proposals["d"] = d.tolist()
+        return d, p
+
+    spec._draft_phase = recording
+    try:
+        for path, ec in (("dense", dict(max_slots=4, max_context=2048,
+                                        prefill_buckets=(64, 256, 512),
+                                        prefill_chunk=512)),
+                         ("ragged", RAGGED_EC)):
+            eng = Engine(cfg, params, None, EngineConfig(**ec, gamma=G),
+                         draft=(cfg, params), device="cuda")
+            rejected = []
+            emit = eng._emit_windows
+
+            def windows(entries, toks, n_out, lps, n_extra, eng=eng,
+                        emit=emit, rejected=rejected):
+                for i, rid in entries:
+                    s, k = eng._slots[i], int(n_extra[i])
+                    if s is not None and s.request_id == rid and k < G:
+                        rejected.append((rid, s.generated + k,
+                                         proposals["d"][i][k]))
+                emit(entries, toks, n_out, lps, n_extra)
+
+            eng._emit_windows = windows
+            reqs = {}
+            for i, (n, sp) in enumerate(SPEC_REQUESTS):
+                if sp["temperature"] == 0.0:
+                    ids = prompt_ids(i, n)
+                    rid, q = eng.submit(GenRequest(
+                        ids, SamplingParams(**sp), max_tokens=NEW_TOKENS,
+                        ignore_eos=True))
+                    reqs[rid] = (ids, q, [])
+            while eng.step():
+                pass
+            for ids, q, toks in reqs.values():
+                while not q.empty():
+                    o = q.get_nowait()
+                    if o.token_id >= 0:
+                        toks.append(o.token_id)
+                if len(toks) != NEW_TOKENS:
+                    raise AssertionError(f"phase8 perfect draft {path}: "
+                                         f"{len(toks)} tokens")
+            gaps = []
+            for rid, at, proposed in rejected:
+                ids, _, toks = reqs[rid]
+                if at >= len(toks):
+                    continue                # past the request's budget
+                seq, dev = list(ids) + toks[:at], eng.device
+                kc, vc = init_kv_cache(cfg, 1, len(seq), device=dev)
+                with torch.no_grad(), plain_weight_gemms():
+                    ref = extend(params, cfg, torch.tensor(
+                        [seq], dtype=torch.int32, device=dev),
+                        torch.zeros((1,), dtype=torch.int32, device=dev),
+                        eng._cos, eng._sin, kc, vc)[0, -1].float()
+                gaps.append(float(ref.max() - ref[proposed]))
+            m = eng.metrics
+            out[f"{path} {dtype}"] = {
+                "draft_proposed": m["draft_proposed"],
+                "draft_accepted": m["draft_accepted"],
+                "acceptance": m["draft_accepted"]
+                / max(m["draft_proposed"], 1),
+                "floor": PERFECT_FLOOR[dtype],
+                "rejections": len(gaps), "rejected_gaps": gaps,
+                "max_rejected_gap": max(gaps, default=0.0),
+                "tokens_per_spec_step": m["tokens_by_path__spec"]
+                / max(m["draft_proposed"] // G, 1)}
+            del eng
+    finally:
+        spec._draft_phase = draft_phase
+
+
+def phase_spec_path(smi):
+    """Phase 8, speculative decoding at full width: the synthetic
+    Llama-3.1-8B (32 layers) with a synthetic draft of Llama-3.2-1B's
+    widths (16 layers), gamma 4, bf16 then the int8 recipe, on the dense
+    path (the gRPC backend's LoadModel draft_model), the paged pool and
+    the ragged path (in-process Engines); then the perfect-draft leg.
+    Returns the launch counts of the spec legs' requests, summed."""
+    import tempfile
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    total, out = {}, {}
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as dd:
+        for path, cfg_json in ((d, CFG_8B), (dd, CFG_1B)):
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(dict(cfg_json, localai_synthetic=True), f)
+        for name, dtype, kv in RECIPES:
+            r = spec_dense(name, d, dd, dtype, kv, smi)
+            out["dense", name] = r["summary"]
+            for k, v in r["out"]["launches_during_requests"].items():
+                total[k] = total.get(k, 0) + v
+            for path, ec, plain in (("paged", SPEC_PAGED_EC, True),
+                                    ("ragged", RAGGED_EC, False)):
+                r = spec_engine(name, d, dd, dtype, kv, ec, path, smi,
+                                plain=plain)
+                out[path, name] = r["summary"]
+                for k, v in r["counts"].items():
+                    total[k] = total.get(k, 0) + v
+        perfect = spec_perfect_draft(d, smi)
+    log("phase8 launches on the spec path " + json.dumps(total)
+        + f" card {smi}")
+    log("phase8 summary " + json.dumps(
+        {f"{p} {n}": {k: r[k] for k in ("with_draft", "without_draft",
+                                         "acceptance")}
+         for (p, n), r in out.items()}) + f" perfect draft "
+        + json.dumps({p: r["acceptance"] for p, r in perfect.items()})
+        + f" card {smi}")
+    return total
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -3148,6 +3840,7 @@ def main():
         ragged_counts = phase_ragged_path(
             smi, grammar_then=lambda name: grammar_ragged(name, smi, gtok))
         phase_grammar(gdir, smi, gtok)
+    spec_counts = phase_spec_path(smi)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
@@ -3162,6 +3855,7 @@ def main():
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
                      "library_ms_host": m["library_ms_host"],
                      "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"],
+                     "launches_spec": spec_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,9 +5,12 @@ TokenizeString, Status, GetMetrics and Health answer as the reference's
 do; `kv_pages` selects the paged KV pool. `PredictOptions.grammar` (a GBNF
 string: tool calls, `response_format` JSON) constrains a request's
 tokens; a malformed grammar is INVALID_ARGUMENT for that request alone.
-Embeddings, BERT, llava, draft models, meshes and telemetry spans wait for
-later slices: LoadModel rejects their options with a message naming the
-slice, and their RPCs stay UNIMPLEMENTED.
+`draft_model` (a checkpoint directory, resolved against `model_path`) and
+`n_draft` serve speculative decoding: the draft proposes n_draft tokens a
+step (4 by default) and GetMetrics carries draft_proposed and
+draft_accepted. Embeddings, BERT, llava, meshes and telemetry spans wait
+for later slices: LoadModel rejects their options with a message naming
+the slice, and their RPCs stay UNIMPLEMENTED.
 """
 from __future__ import annotations
 
@@ -63,9 +66,6 @@ class LLMServicer(BackendServicer):
         if request.mesh_data or request.mesh_model:
             raise not_ported("mesh_data/mesh_model (tensor parallelism)",
                              "parallel")
-        if request.draft_model:
-            raise not_ported("draft_model (speculative decoding)",
-                   "speculative decoding")
         if request.embeddings:
             raise not_ported("embeddings", "embeddings")
         if request.options:
@@ -90,6 +90,17 @@ class LLMServicer(BackendServicer):
         params = load_params(model_dir, cfg, dtype=request.dtype or None,
                              device=self.device)
         tok = load_tokenizer(model_dir)
+        draft = None
+        if request.draft_model:
+            # speculative decoding (reference DraftModel, backend.proto:218):
+            # the draft loads and quantizes as the target does
+            draft_dir = request.draft_model
+            if request.model_path and not os.path.isdir(draft_dir):
+                draft_dir = os.path.join(request.model_path, draft_dir)
+            dcfg = load_config(draft_dir, dtype=request.dtype or None)
+            draft = (dcfg, load_params(draft_dir, dcfg,
+                                       dtype=request.dtype or None,
+                                       device=self.device))
         # single-shot prefill up to the chunk size; longer prompts prefill in
         # chunk-sized pieces interleaved with running decodes
         chunk = min(512, context_size)
@@ -100,9 +111,10 @@ class LLMServicer(BackendServicer):
             max_context=context_size,
             prefill_buckets=buckets,
             prefill_chunk=chunk,
+            gamma=request.n_draft or 4,
             cache_type=kv_kind,
             kv_pages=request.kv_pages,
-        ), device=self.device)
+        ), draft=draft, device=self.device)
         self.cfg, self.tok = cfg, tok
         self.model_name = request.model
         self.engine.start()

@@ -25,6 +25,14 @@ What this slice serves, as the reference does:
   pack, then decode steps until a slot finishes, prefill is pending or the
   step cap) or, for stop-string slots, a single step; pure-decode ticks
   take the same loop without a pack;
+- speculative decoding (draft=(draft_cfg, draft_params), engine/spec.py):
+  every step the draft proposes ec.gamma tokens a slot from its own dense
+  cache and the target verifies each slot's window in one forward — an
+  `extend` on a dense or paged cache, or, on a ragged engine, gamma+1 rows
+  of the flat stream beside other slots' prefill chunks (spec-as-ragged,
+  which also carries table-backed grammars); the first token is sampled
+  at admission. Draft engines take no prefix cache, no batched admission
+  and no fused loop;
 - grammar-constrained decoding (GenRequest.grammar, a GBNF string; the
   native matcher in functions/matcher.py): a grammar whose automaton fits
   the shared device tables (grammar_table_states rows: masks
@@ -100,7 +108,7 @@ class EngineConfig:
     mesh: Any | None = None       # parallel slice
     shift_keep: int = 4           # context shift (waits)
     replicator: Any | None = None  # multi-host (parallel slice)
-    gamma: int = 4                # speculative decoding (waits)
+    gamma: int = 4                # speculative: draft tokens per step
     prompt_cache: bool = True     # reuse a freed slot's KV prefix
     prompt_cache_min: int = 16    # minimum shared prefix worth reusing
     sampling_topk_width: int = 64  # sort-free decode sampling width
@@ -240,9 +248,6 @@ class Engine:
     def __init__(self, cfg: LlamaConfig, params, tokenizer=None,
                  econfig: EngineConfig | None = None, draft: tuple | None = None,
                  kvhost=None, device=None):
-        if draft is not None:
-            raise not_ported("speculative decoding (draft)",
-                             "speculative decoding")
         if kvhost is not None:
             raise not_ported("kvhost (host KV spill)", "KV-tier")
         self.cfg = cfg
@@ -251,6 +256,13 @@ class Engine:
         _check_config(self.ec)
         self.device = resolve_device(device)
         self.params = params.to(self.device)
+        # speculative decoding: (draft_cfg, draft_params) — the draft keeps
+        # a dense cache of its own beside the target's (engine/spec.py)
+        self._draft = None
+        if draft is not None:
+            if draft[0].vocab_size != cfg.vocab_size:
+                raise ValueError("draft vocab differs from target")
+            self._draft = (draft[0], draft[1].to(self.device))
         if self.ec.max_context > cfg.max_position:
             raise ValueError("max_context exceeds model max_position")
         for b in self.ec.prefill_buckets:
@@ -276,7 +288,16 @@ class Engine:
         self._ragged = self.ec.ragged_token_budget > 0
         if self._ragged:
             rows = max(self.ec.ragged_token_budget, 2 * QBLK)
+            if self._draft is not None:
+                # spec-as-ragged: every verifying slot takes gamma+1 window
+                # rows (QBLK-aligned); a full slot population plus one
+                # prefill block always fits
+                winb = -(-(self.ec.gamma + 1) // QBLK)
+                rows = max(rows, (self.ec.max_slots * winb + 1) * QBLK)
             self._ragged_rows = -(-rows // QBLK) * QBLK
+        # the verify window writes up to gamma+1 rows past `lengths`: a
+        # spec step never writes past the cache end
+        self._ctx_reserve = (self.ec.gamma + 1) if self._draft else 0
         self._init_device_state()
         if self.ec.prefill_chunk < 8:
             raise ValueError("prefill_chunk must be >= 8")
@@ -331,6 +352,7 @@ class Engine:
             "tokens_by_path__dense": 0,
             "tokens_by_path__rloop": 0,
             "tokens_by_path__ragged": 0,
+            "tokens_by_path__spec": 0,
             # grammar: device table rows in use (the identity row 0
             # included), grammars whose automaton did not fit them, and
             # fused blocks rolled back to a grammar slot's accepted prefix
@@ -347,7 +369,12 @@ class Engine:
                 ragged_dispatches=0, ragged_tokens_packed=0,
                 ragged_prefill_tokens=0, budget_utilization=0.0,
                 rloop_exit_steps_cap=0, rloop_exit_finish=0,
-                rloop_exit_prefill=0, rloop_exit_host_arbitration=0)
+                rloop_exit_prefill=0, rloop_exit_host_arbitration=0,
+                spec_ragged_dispatches=0)
+        if self._draft is not None:
+            # draft tokens proposed (gamma a verifying slot a step) and
+            # accepted by the target's verify
+            self.metrics.update(draft_proposed=0, draft_accepted=0)
         if self._paged:
             # pool occupancy (blocks held by live and retained slots), and
             # the allocator's pressure events: admissions deferred on an
@@ -404,6 +431,15 @@ class Engine:
         ) else []
         self._eos_dev = torch.tensor(eos or [-1], dtype=torch.int32,
                                      device=dev)
+        if self._draft is not None:
+            dcfg = self._draft[0]
+            self._cos_d, self._sin_d = rope_table(dcfg.rope, T, device=dev)
+            self._kcd, self._vcd = init_kv_cache(dcfg, B, T, self._kv_dtype,
+                                                 device=dev)
+            # the sampled, emitted token each slot's next verify window
+            # starts with (its K/V not yet written)
+            self._next_tokens = torch.zeros((B,), dtype=torch.int32,
+                                            device=dev)
         self._init_grammar_state()
         # the fused loops' fixed tensors (models/llama.LoopState; the first
         # dispatch binds the state above to them), with each dispatch's
@@ -489,9 +525,14 @@ class Engine:
             return tokens, logprobs, sampler, logits, lengths + act
 
         self._decode_fn = _decode
+        if self._draft is not None:
+            self._build_spec_fns()
         # the fused loops run on the loop's fixed tensors (_loop_begin),
-        # each segment through the graph runner (_run_segment)
-        rloop_on = self._ragged and self.ec.ragged_loop_steps > 1
+        # each segment through the graph runner (_run_segment); draft
+        # engines never take the fused ragged loop: a verify window returns
+        # to the host every tick (accept arbitration)
+        rloop_on = (self._ragged and self.ec.ragged_loop_steps > 1
+                    and self._draft is None)
         self._loop_path = ("rloop" if rloop_on
                            else "paged" if self._paged else "dense")
         hooks = dict(limit=self.ec.max_context - 2, start=self._loop_begin,
@@ -540,6 +581,32 @@ class Engine:
             self._ragged_loop_fn = build_ragged_loop(
                 _ragged_step, _decode, max_steps=self.ec.ragged_loop_steps,
                 **hooks)
+
+    def _build_spec_fns(self):
+        """The speculative programs (engine/spec.py): the extend-verify
+        step for dense and paged engines, spec-as-ragged for ragged ones,
+        the admission tail and the draft ingest."""
+        from localai_tpu_torch.engine.spec import (
+            build_draft_ingest, build_spec_admit_tail, build_spec_decode,
+            build_spec_ragged,
+        )
+
+        cfg, dcfg, G = self.cfg, self._draft[0], self.ec.gamma
+        if self._paged and self.ec.max_slots * (G + 1) > BLOCK:
+            import logging
+
+            logging.getLogger("localai_tpu_torch").warning(
+                "paged spec verify: %d slots x (gamma+1)=%d trash offsets "
+                "exceed one %d-token block, so inactive windows share trash "
+                "rows; lower max_slots or gamma to keep them distinct",
+                self.ec.max_slots, G + 1, BLOCK)
+        self._spec_fn = self._spec_ragged_fn = None
+        if self._ragged:
+            self._spec_ragged_fn = build_spec_ragged(cfg, dcfg, G)
+        else:
+            self._spec_fn = build_spec_decode(cfg, dcfg, G)
+        self._spec_admit_tail_fn = build_spec_admit_tail(cfg)
+        self._draft_ingest_fn = build_draft_ingest(dcfg)
 
     def _install_rows(self, slots, rows: dict, counts_rows):
         """Install K sampler rows at `slots` [K] (stacked [K, ...] fields);
@@ -780,29 +847,28 @@ class Engine:
                     "logit_rows", "block_seq", "qstart", "qlen", "kvlen",
                     "is_decode")
 
-    def _pack_dev(self, pack):
-        """The host pack's arrays on the device, in ONE host→device copy
-        (int32, split back into views there; the bool fields compare)."""
-        flat = np.concatenate([np.asarray(pack[k]).astype(np.int32).ravel()
-                               for k in self._PACK_FIELDS])
+    def _pack_dev(self, pack, fields=_PACK_FIELDS):
+        """The host pack's arrays `fields` on the device, in ONE host→device
+        copy (int32, split back into views of their shapes there; the bool
+        fields compare)."""
+        arrs = [np.asarray(pack[k]) for k in fields]
+        flat = np.concatenate([a.astype(np.int32).ravel() for a in arrs])
         dev_flat = torch.from_numpy(flat).to(self.device)
         out, i = {}, 0
-        for k in self._PACK_FIELDS:
-            n = np.asarray(pack[k]).size
-            out[k] = dev_flat[i:i + n]
-            i += n
-        out["logit_set"] = out["logit_set"] != 0
-        out["is_decode"] = out["is_decode"] != 0
+        for k, a in zip(fields, arrs):
+            t = dev_flat[i:i + a.size].view(a.shape)
+            out[k] = t != 0 if a.dtype == np.bool_ else t
+            i += a.size
         return out
 
-    def _note_ragged(self, pack):
-        """The ragged packing counters of one dispatch."""
+    def _note_ragged(self, packed: int, decode_rows: int):
+        """The ragged packing counters of one dispatch: `packed` live rows,
+        `decode_rows` of them decode (or verify) rows, the rest prefill-
+        chunk tokens."""
         m = self.metrics
-        packed = int(pack["packed"])
         m["ragged_dispatches"] += 1
         m["ragged_tokens_packed"] += packed
-        # the packed rows that are not decode rows: prefill-chunk tokens
-        m["ragged_prefill_tokens"] += packed - int(np.sum(pack["is_decode"]))
+        m["ragged_prefill_tokens"] += packed - decode_rows
         m["budget_utilization"] = m["ragged_tokens_packed"] / max(
             m["ragged_dispatches"] * self._ragged_rows, 1)
 
@@ -814,7 +880,7 @@ class Engine:
         _ragged_tick)."""
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += 1
-        self._note_ragged(pack)
+        self._note_ragged(int(pack["packed"]), int(np.sum(pack["is_decode"])))
         with torch.no_grad():
             dp = self._pack_dev(pack)
             (tokens, logprobs, self._sampler, self._last_logits,
@@ -836,7 +902,7 @@ class Engine:
         as in _dev_decode_loop. Steps run and the exit code ride the
         fetch."""
         self.metrics["decode_dispatches"] += 1
-        self._note_ragged(pack)
+        self._note_ragged(int(pack["packed"]), int(np.sum(pack["is_decode"])))
         with torch.no_grad():
             (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
              self._lengths) = self._ragged_loop_fn(
@@ -872,6 +938,82 @@ class Engine:
             self._install_rows(
                 [idx], {k: np.asarray(v)[None] for k, v in row.items()},
                 None if counts_row is None else np.asarray(counts_row)[None])
+
+    # ------------------------------------------------- speculative dispatch
+
+    def _dev_draft_ingest(self, buf, pos, idx):
+        """Write a prompt window into the draft's cache (K/V only)."""
+        dev = self.device
+        with torch.no_grad():
+            self._draft_ingest_fn(
+                self._draft[1], self._cos_d, self._sin_d, self._kcd,
+                self._vcd, torch.as_tensor(buf, device=dev),
+                torch.tensor(pos, device=dev), torch.tensor(idx, device=dev))
+
+    def _dev_spec_admit_tail(self, idx, mask=None):
+        """Sample slot `idx`'s first token at admission (a grammar slot
+        under its start state's mask); it becomes the slot's carried
+        next_token. Returns (token, logprob) on the host."""
+        if mask is None:
+            s = self._slots[idx]
+            if s is not None and s.matcher is not None:
+                mask = self._mask_host[idx:idx + 1].copy()
+        with torch.no_grad():
+            tok, lp, self._sampler = self._spec_admit_tail_fn(
+                self._sampler, self._last_logits, idx, self._mask_dev(mask))
+            self._next_tokens[idx] = tok
+            # the emitted first token is needed now: one sync a request
+            return int(tok), float(lp)
+
+    def _dev_spec_decode(self, active):
+        """ONE speculative step for every active slot: gamma draft decode
+        steps and the target's verify of each window (engine/spec.py
+        build_spec_decode)."""
+        self.metrics["decode_dispatches"] += 1
+        self.metrics["decode_steps_dispatched"] += self.ec.gamma + 1
+        with torch.no_grad():
+            (tokens_out, n_out, logprobs_out, self._next_tokens,
+             self._sampler, self._lengths, n_extra) = self._spec_fn(
+                self.params, self._draft[1], self._cos, self._sin,
+                self._cos_d, self._sin_d, self._kc, self._vc, self._kcd,
+                self._vcd, self._sampler, self._lengths, self._next_tokens,
+                torch.as_tensor(active, device=self.device), self._tab())
+            return _AsyncFetch((tokens_out, n_out, logprobs_out, n_extra))
+
+    _SPEC_PACK_FIELDS = ("verify", "tokens", "spec_rows", "set_len",
+                         "logit_set", "logit_rows", "block_seq", "qstart",
+                         "qlen", "kvlen")
+
+    def _dev_spec_ragged(self, pack):
+        """ONE spec-as-ragged dispatch: gamma draft steps and one ragged
+        target forward over every verifying slot's (gamma+1)-row window
+        plus the packed prefill chunks (engine/spec.py build_spec_ragged);
+        table-backed grammar slots verify under the device tables
+        (pack["gstate"])."""
+        m = self.metrics
+        m["decode_dispatches"] += 1
+        m["decode_steps_dispatched"] += self.ec.gamma + 1
+        m["spec_ragged_dispatches"] += 1
+        self._note_ragged(int(pack["packed"]), int(np.sum(pack["verify"]))
+                          * (self.ec.gamma + 1))
+        d = self._pack_dev(pack, self._SPEC_PACK_FIELDS)
+        gkw = {}
+        if pack.get("gstate") is not None:
+            gkw = dict(gstate=torch.as_tensor(
+                np.asarray(pack["gstate"], np.int32), device=self.device),
+                gmasks=self._gmasks, gtrans=self._gtrans)
+        with torch.no_grad():
+            (tokens_out, n_out, logprobs_out, self._next_tokens,
+             self._sampler, self._last_logits, self._lengths,
+             n_extra) = self._spec_ragged_fn(
+                self.params, self._draft[1], self._cos, self._sin,
+                self._cos_d, self._sin_d, self._kc, self._vc, self._kcd,
+                self._vcd, self._sampler, self._last_logits, self._lengths,
+                self._next_tokens, d["verify"], d["tokens"],
+                d["spec_rows"], d["set_len"], d["logit_set"],
+                d["logit_rows"], d["block_seq"], d["qstart"], d["qlen"],
+                d["kvlen"], self._tab(), **gkw)
+            return _AsyncFetch((tokens_out, n_out, logprobs_out, n_extra))
 
     # ------------------------------------------------------------ grammar
 
@@ -965,7 +1107,7 @@ class Engine:
             raise RuntimeError("engine loop has terminated; no new requests")
         if len(req.prompt_ids) == 0:
             raise ValueError("empty prompt")
-        limit = self.ec.max_context - 2
+        limit = self.ec.max_context - 2 - self._ctx_reserve
         if len(req.prompt_ids) > limit:
             raise ValueError(
                 f"prompt length {len(req.prompt_ids)} exceeds {limit} "
@@ -992,6 +1134,22 @@ class Engine:
         V = self.cfg.vocab_size
         if any(not (0 <= t < V) for t in req.prompt_ids):
             raise ValueError(f"prompt token id outside [0, {V})")
+        if req.grammar and self._draft is not None:
+            if not self._ragged:
+                raise ValueError(
+                    "grammar-constrained decoding with a draft model needs "
+                    "ragged continuous batching (the spec-as-ragged verify "
+                    "threads the device grammar tables; the dense spec "
+                    "step has no grammar lane)")
+            # the verify masks come from the device tables (the host cannot
+            # resync inside the draft+verify step): the automaton must fit
+            if not self._gtab_cap or self._compile_grammar(
+                    req.grammar).table(self._gtab_cap) is None:
+                raise ValueError(
+                    "grammar automaton exceeds grammar_table_states; "
+                    "speculative verify needs the precompiled device "
+                    "grammar table (raise grammar_table_states or drop "
+                    "the draft model for this grammar)")
         if req.grammar:
             # compile now (cached) so a malformed GBNF rejects THIS call
             # with ValueError (gRPC INVALID_ARGUMENT) instead of failing
@@ -1044,6 +1202,10 @@ class Engine:
             # automaton overflowed them → per-token host masks
             gbase = (self._grammar_table_entry(req.grammar)
                      if req.grammar else None)
+            if req.grammar and gbase is None and self._draft is not None:
+                # the tables filled up after submit's check: the spec
+                # verify cannot fall back to host masks
+                raise ValueError("grammar table capacity exhausted")
         except Exception:
             import traceback
 
@@ -1065,7 +1227,7 @@ class Engine:
         slot, lcp = self._pick_slot(req.prompt_ids)
         if self._paged:
             shared = None
-            if self.ec.prompt_cache:
+            if self.ec.prompt_cache and self._draft is None:
                 # block-level prefix cache: another tenant's pages beat the
                 # slot-retained token match when they cover more prefix
                 shared, shtok = self._match_prefix_blocks(req.prompt_ids)
@@ -1104,7 +1266,7 @@ class Engine:
         else:
             counts_row = None
         if not chunked:
-            if batch is not None:
+            if batch is not None and self._draft is None:
                 # defer the device call: _flush_admits batches same-bucket
                 # admissions from this tick into one prefill pass
                 batch.append(dict(slot=slot, n=n, bucket=bucket,
@@ -1114,6 +1276,8 @@ class Engine:
                 ids = self._pad_ids([dict(n=n, prompt_ids=req.prompt_ids)],
                                     bucket)
                 self._dev_admit(ids, n, slot, row, counts_row)
+                if self._draft is not None:
+                    self._dev_draft_ingest(ids, 0, slot)
 
         W = self.ec.sampling_topk_width
         fast_w = None
@@ -1151,6 +1315,12 @@ class Engine:
                 self._mask_host[slot] = matcher.mask_bits(
                     self.tok.eos_ids if self.tok else ())
         self.metrics["prompt_tokens_processed"] += n - lcp
+        if not chunked and self._draft is not None:
+            # the first token is sampled (and emitted) at admission; it is
+            # the slot's carried next_token
+            tok, lp = self._dev_spec_admit_tail(slot)
+            self._emit(slot, self._slots[slot], tok, lp, time.monotonic(),
+                       path="spec")
         return True
 
     def _prefill_tick(self):
@@ -1184,10 +1354,16 @@ class Engine:
                                            slot.counts_row)
                 else:
                     self._dev_extend_mid(buf, pos, idx)
+                if self._draft is not None:
+                    self._dev_draft_ingest(buf, pos, idx)
                 slot.prefill_pos = pos + nvalid
                 if final:
                     slot.prefilled = True
                     self._prefillq.remove(idx)
+                    if self._draft is not None:
+                        tok, lp = self._dev_spec_admit_tail(idx)
+                        self._emit(idx, slot, tok, lp, time.monotonic(),
+                                   path="spec")
                 continue
             if not self._free:
                 return
@@ -1270,7 +1446,7 @@ class Engine:
         if (G <= 1 or not self.ec.pipeline or self._prefillq
                 or (self._free and not self._queue.empty())):
             return 1
-        limit = self.ec.max_context - 2
+        limit = self.ec.max_context - 2 - self._ctx_reserve
         steps = G
         for s in self._slots:
             if s is None or not s.prefilled:
@@ -1290,6 +1466,8 @@ class Engine:
         the block/ladder path runs instead."""
         if self._decode_loop_fn is None:
             return "loop_disabled"
+        if self._draft is not None:
+            return "draft_engine"
         # table-backed grammar slots ride the loop (the device gathers each
         # step's mask row and advances the state); only automata that
         # overflowed the tables need per-token host masks
@@ -1499,6 +1677,11 @@ class Engine:
         """One engine iteration. In pipelined mode one decode dispatch stays
         in flight: dispatch N+1 is enqueued before N's tokens are read.
         Returns True while work remains."""
+        if self._draft is not None:
+            # draft + ragged = spec-as-ragged: every tick is ONE dispatch
+            # of verify windows and prefill chunks
+            return (self._step_spec_ragged() if self._ragged
+                    else self._step_spec())
         if self._ragged and self._step_ragged():
             # mixed tick: decode + prefill ran as one ragged dispatch,
             # consumed synchronously (no pending survives a ragged tick)
@@ -1526,6 +1709,155 @@ class Engine:
         return (any(s is not None for s in self._slots)
                 or not self._queue.empty() or self._pending is not None
                 or self._deferred is not None)
+
+    # ------------------------------------------------- speculative steps
+
+    def _busy(self) -> bool:
+        return (any(s is not None for s in self._slots)
+                or not self._queue.empty() or self._deferred is not None)
+
+    def _emit_windows(self, entries, tokens_out, n_out, logprobs_out,
+                      n_extra):
+        """Commit each verifying slot's 1..gamma+1 tokens, counting its
+        proposals and acceptances."""
+        now = time.monotonic()
+        G = self.ec.gamma
+        for i, rid in entries:
+            slot = self._slots[i]
+            if slot is None or slot.request_id != rid:
+                continue
+            self.metrics["draft_proposed"] += G
+            self.metrics["draft_accepted"] += int(n_extra[i])
+            for j in range(int(n_out[i])):
+                slot = self._slots[i]
+                if slot is None or slot.request_id != rid:
+                    break  # finished mid-window (EOS/length/stop)
+                self._emit(i, slot, int(tokens_out[i, j]),
+                           float(logprobs_out[i, j]), now, path="spec")
+
+    def _step_spec(self) -> bool:
+        """Spec-mode iteration on a dense or paged engine: one batched
+        draft+verify step for every active slot, the admission work
+        overlapping it."""
+        active = self._active_mask()
+        if active.any():
+            entries = [(int(i), self._slots[i].request_id)
+                       for i in np.where(active)[0]]
+            pend = self._dev_spec_decode(active)
+            self._prefill_tick()
+            t0 = time.perf_counter()
+            out = pend.wait()
+            self.metrics["host_sync_wait_ms"] += (
+                time.perf_counter() - t0) * 1e3
+            self._emit_windows(entries, *out)
+        else:
+            self._prefill_tick()
+        return self._busy()
+
+    def _step_spec_ragged(self) -> bool:
+        """Draft+ragged iteration: ONE spec-as-ragged dispatch a tick,
+        holding every verifying slot's window and the packed prefill
+        chunks (admissions land first: they are host-only bookkeeping, so
+        new arrivals pack into this tick)."""
+        self._prefill_tick()
+        active = self._active_mask()
+        if active.any() or self._ragged_chunkable():
+            self._spec_ragged_tick(active, self._ragged_chunkable())
+        return self._busy()
+
+    def _spec_ragged_tick(self, active, chunkable: list[int]):
+        """Pack verify windows and prefill chunks into one flat [T] stream
+        and dispatch one spec-as-ragged step. The layout is _ragged_tick's
+        (QBLK-aligned q blocks, sequence index = slot), except that a
+        verifying slot spans ceil((gamma+1)/QBLK) blocks whose rows the
+        device fills with the window (the host ships zeros)."""
+        B = self.ec.max_slots
+        T = self._ragged_rows
+        G = self.ec.gamma
+        winb = -(-(G + 1) // QBLK)
+        block_seq = np.full((T // QBLK,), -1, np.int32)
+        tokens = np.zeros((T,), np.int32)
+        verify = np.zeros((B,), bool)
+        spec_rows = np.zeros((B,), np.int32)
+        qstart = np.zeros((B,), np.int32)
+        qlen = np.zeros((B,), np.int32)
+        kvlen = np.zeros((B,), np.int32)
+        set_len = np.full((B,), -1, np.int32)
+        logit_set = np.zeros((B,), bool)
+        logit_rows = np.zeros((B, G + 1), np.int32)
+        row = 0
+        cap = T - QBLK   # one q block always reserved for prefill
+        entries = []
+        order = [(self._ragged_rr + j) % B for j in range(B)]
+        self._ragged_rr = (self._ragged_rr + 1) % max(B, 1)
+        for i in order:
+            if not active[i]:
+                continue
+            s = self._slots[i]
+            if row + winb * QBLK > cap:
+                break
+            # the window starts at the carried next_token, which is
+            # emitted (counted in `generated`) but not yet written: its
+            # position is prompt_len + generated - 1, the device length
+            n = s.prompt_len + s.generated - 1
+            qstart[i], qlen[i], kvlen[i] = row, G + 1, n + G + 1
+            block_seq[row // QBLK:row // QBLK + winb] = i
+            spec_rows[i] = row
+            verify[i] = True
+            logit_rows[i] = row + np.arange(G + 1)
+            entries.append((i, s.request_id))
+            row += winb * QBLK
+        packed = len(entries) * (G + 1)
+        chunks = []
+        for idx in chunkable:
+            if T - row < QBLK:
+                break
+            s = self._slots[idx]
+            ids = s.req.prompt_ids
+            pos = s.prefill_pos
+            nvalid = min(len(ids) - pos, T - row, self._chunk)
+            tokens[row:row + nvalid] = ids[pos:pos + nvalid]
+            nb = -(-nvalid // QBLK)
+            block_seq[row // QBLK:row // QBLK + nb] = idx
+            final = pos + nvalid == len(ids)
+            qstart[idx], qlen[idx] = row, nvalid
+            kvlen[idx] = pos + nvalid
+            if final:
+                set_len[idx] = pos + nvalid
+                logit_set[idx] = True
+                # every logit row points at the final prompt row, so the
+                # last_logits merge takes the admission logits
+                logit_rows[idx, :] = row + nvalid - 1
+            chunks.append((idx, pos, nvalid, final))
+            packed += nvalid
+            row += nb * QBLK
+        pack = dict(verify=verify, tokens=tokens, spec_rows=spec_rows,
+                    set_len=set_len, logit_set=logit_set,
+                    logit_rows=logit_rows, block_seq=block_seq,
+                    qstart=qstart, qlen=qlen, kvlen=kvlen, packed=packed,
+                    # the verify masks come from the device tables, keyed
+                    # by each slot's automaton state
+                    gstate=(self._gstate.copy()
+                            if self._grammar_slots > 0 else None))
+        fetch = self._dev_spec_ragged(pack)
+        # chunk bookkeeping overlaps the device step; the draft ingests
+        # each chunk's tokens through its own extend
+        for idx, pos, nvalid, final in chunks:
+            s = self._slots[idx]
+            s.prefill_pos = pos + nvalid
+            buf = np.zeros((1, self._chunk), np.int32)
+            buf[0, :nvalid] = s.req.prompt_ids[pos:pos + nvalid]
+            self._dev_draft_ingest(buf, pos, idx)
+            if final:
+                self._dev_install(idx, s.row, s.counts_row)
+                s.prefilled = True
+                self._prefillq.remove(idx)
+                tok, lp = self._dev_spec_admit_tail(idx)
+                self._emit(idx, s, tok, lp, time.monotonic(), path="spec")
+        t0 = time.perf_counter()
+        out = fetch.wait()
+        self.metrics["host_sync_wait_ms"] += (time.perf_counter() - t0) * 1e3
+        self._emit_windows(entries, *out)
 
     # ------------------------------------------------------ ragged scheduling
 
@@ -1705,7 +2037,7 @@ class Engine:
             finish = "eos"
         elif slot.generated + 1 >= slot.req.max_tokens:
             finish = "length"
-        elif cache_len >= self.ec.max_context - 2:
+        elif cache_len >= self.ec.max_context - 2 - self._ctx_reserve:
             finish = "length"
         if finish is None and slot.request_id in self._cancelled:
             finish = "cancelled"
@@ -1805,7 +2137,7 @@ class Engine:
         """A free slot, preferring the one whose cached tokens share the
         longest prefix with the prompt (llama.cpp's slot prompt cache).
         Returns (slot, reusable_prefix_len); 0 = cold prefill."""
-        limit = self.ec.max_context - 2
+        limit = self.ec.max_context - 2 - self._ctx_reserve
 
         def common(cached: list[int]) -> int:
             m = min(len(cached), len(prompt_ids) - 1, limit - 1)
@@ -1815,7 +2147,7 @@ class Engine:
             return i
 
         best_slot, best_lcp = None, 0
-        if self.ec.prompt_cache:
+        if self.ec.prompt_cache and self._draft is None:
             for s in self._free:
                 lcp = common(self._slot_kv_tokens[s])
                 if lcp > best_lcp:
@@ -1832,6 +2164,10 @@ class Engine:
 
     def _blocks_for(self, req: GenRequest) -> int:
         margin = 2 * self.ec.decode_block + 1   # in-flight pipelined writes
+        if self._draft is not None:
+            # the verify window writes up to gamma+1 rows past the sampled
+            # length: the reservation covers the overshoot
+            margin = max(margin, self.ec.gamma + 1)
         tokens = min(len(req.prompt_ids) + max(req.max_tokens, 0) + margin,
                      self.ec.max_context)
         return blocks_needed(tokens)
@@ -1881,7 +2217,7 @@ class Engine:
         ref'd for the caller — commit them via _alloc_slot(shared=...) or
         return them with _unref_blocks on any bail-out.
         Returns (physical blocks, tokens covered)."""
-        limit = self.ec.max_context - 2
+        limit = self.ec.max_context - 2 - self._ctx_reserve
         nfull = min(len(prompt_ids) - 1, limit - 1) // BLOCK
         blocks: list[int] = []
         for h in self._chain_hashes(prompt_ids[:nfull * BLOCK]):
@@ -1989,7 +2325,7 @@ class Engine:
             if slot.gbase is None:
                 self._grammar_hostonly -= 1
         if self._paged:
-            if self.ec.prompt_cache:
+            if self.ec.prompt_cache and self._draft is None:
                 # retain ONLY the blocks holding cached rows as the warm
                 # prefix cache (reclaimable oldest-first, _take_blocks); the
                 # unused tail of the reservation returns to the pool now.
@@ -2023,7 +2359,7 @@ class Engine:
             self._note_pool()
         # record what the slot's cache still holds (rows 0..len-1) so a
         # later prompt sharing the prefix skips that part of its prefill
-        if self.ec.prompt_cache:
+        if self.ec.prompt_cache and self._draft is None:
             self._slot_kv_tokens[idx] = (list(slot.req.prompt_ids)
                                          + slot.gen_ids)[
                 : self.ec.max_context - 2]
@@ -2039,16 +2375,24 @@ class Engine:
         inactive (every cache write goes to the trash row and no slot state
         is consumed), so the kernels are built and the first requests pay no
         first-use cost; on the card, also capture the fused loops' CUDA
-        graphs (_prepare_graphs). Must run before any request is admitted;
-        dispatch metrics are restored afterwards."""
+        graphs (_prepare_graphs). A draft engine runs its speculative step
+        instead (spec-as-ragged with and without the grammar tables). Must
+        run before any request is admitted; dispatch metrics are restored
+        afterwards."""
         if any(s is not None for s in self._slots):
             raise RuntimeError("warmup() requires an idle engine")
         B, V = self.ec.max_slots, self.cfg.vocab_size
         snap = {k: self.metrics[k] for k in (
             "decode_dispatches", "decode_steps_dispatched",
-            "host_sync_wait_ms")}
+            "host_sync_wait_ms") + (
+            ("ragged_dispatches", "ragged_tokens_packed",
+             "budget_utilization", "spec_ragged_dispatches")
+            if self._ragged else ())}
         idle = np.zeros((B,), bool)
         try:
+            if self._draft is not None:
+                self._warm_spec(idle)
+                return
             widths = [None]
             W = self.ec.sampling_topk_width
             if W:
@@ -2063,6 +2407,26 @@ class Engine:
             self._prepare_graphs(widths)
         finally:
             self.metrics.update(snap)
+
+    def _warm_spec(self, idle):
+        """All-inactive speculative dispatches (warmup)."""
+        if self._spec_ragged_fn is None:
+            self._dev_spec_decode(idle).wait()
+            return
+        B, T, G = self.ec.max_slots, self._ragged_rows, self.ec.gamma
+        base = dict(verify=idle, tokens=np.zeros((T,), np.int32),
+                    spec_rows=np.zeros((B,), np.int32),
+                    set_len=np.full((B,), -1, np.int32),
+                    logit_set=np.zeros((B,), bool),
+                    logit_rows=np.zeros((B, G + 1), np.int32),
+                    block_seq=np.full((T // QBLK,), -1, np.int32),
+                    qstart=np.zeros((B,), np.int32),
+                    qlen=np.zeros((B,), np.int32),
+                    kvlen=np.zeros((B,), np.int32), packed=0, gstate=None)
+        self._dev_spec_ragged(base).wait()
+        if self._gtab_cap > 0:
+            self._dev_spec_ragged(
+                dict(base, gstate=np.zeros((B,), np.int32))).wait()
 
     def _prepare_graphs(self, widths):
         """Capture, with every slot frozen, the graph of each loop segment

@@ -236,11 +236,17 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _cache_write(kc, vc, k, v, rows, positions, table=None):
+def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None):
     """Write window K/V [B, S, KVH, D] into one layer's head-major caches
     [B', KVH, T, D] at (rows[b], :, positions[b, s]) — in place. Rows may
     repeat (batched admission pads groups by repeating a plan: identical
     values).
+
+    redirect [B] bool (paged only): rows flagged True write to the trash
+    block 0 at offset (rows[b] * S + s) % 128, never through their table
+    (a slot's table can map its last virtual block to a retained, shared
+    prefix block) — the inactive rows of the paged speculative verify.
+    The offsets are distinct while B * S <= 128.
 
     With a paged `table` [B', MAXB] the cache is a block pool [NB, KVH,
     128, D] and (slot, position) resolves to (table[slot, pos // 128], :,
@@ -263,6 +269,14 @@ def _cache_write(kc, vc, k, v, rows, positions, table=None):
         pb = table.long()[rows[:, None], torch.clamp_max(raw, maxb - 1)]
         pb = torch.where(raw < maxb, pb, torch.zeros_like(pb))
         off = torch.remainder(positions, BLOCK)
+        if redirect is not None:
+            red = redirect.to(dev)[:, None]
+            s = positions.shape[1]
+            tr_off = torch.remainder(
+                rows[:, None] * s + torch.arange(s, device=dev)[None, :],
+                BLOCK)
+            pb = torch.where(red, torch.zeros_like(pb), pb)
+            off = torch.where(red, tr_off, off)
         # off < 128 == SCALE_TILE (ops/paged.py asserts BLOCK ==
         # SCALE_TILE), so an int8 pool's scale lands at [pb, h, 0, off]
         idx = (pb[:, None, :], torch.arange(kvh, device=dev)[None, :, None],
@@ -401,7 +415,7 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
            k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None,
-           table=None):
+           table=None, redirect=None):
     """Forward a window of S tokens per row starting at cache offset
     `start` [B] — the chunked-prefill workhorse. Writes the window's K/V
     (in place) and returns logits for every window position [B, S, V], or
@@ -412,7 +426,9 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     so their rope lookups clamp to the last table row and their cache
     writes go to a row that is never readable — the last cache row (dense)
     or the trash block (paged `table`, see _cache_write). A paged cache is
-    read through ops/paged.paged_view of the rows' table rows."""
+    read through ops/paged.paged_view of the rows' table rows. `redirect`
+    [B] bool (paged): flagged rows write their whole window to the trash
+    block (the speculative verify's inactive rows, _cache_write)."""
     b, s = tokens.shape
     dev = tokens.device
     rows = (torch.arange(b, device=dev) if slot_map is None
@@ -432,7 +448,7 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
         q, k, v = _qkv(h, lp, cfg)
         q = apply_rope(q, cos, sin, rpos)
         k = apply_rope(k, cos, sin, rpos)
-        _cache_write(kc, vc, k, v, rows, wpos, table)
+        _cache_write(kc, vc, k, v, rows, wpos, table, redirect)
         if table is not None:
             kr, vr = paged_view(kc, row_table), paged_view(vc, row_table)
         else:
@@ -487,27 +503,25 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
     qstart/qlen (row span), kvlen (cache length INCLUDING this chunk),
     tables [NSEQ, MAXB]; block_seq [T/QBLK] (-1 = padding block);
     logit_rows [NSEQ] — the flat row of each sequence's last token (mid
-    prefill chunks may point anywhere; their logits are ignored).
+    prefill chunks may point anywhere; their logits are ignored) — or
+    [NSEQ, R], R rows a sequence (the speculative verify windows).
 
     Per-row positions and scatter targets are derived once here
     (ragged_row_targets) and every layer reuses them. Each layer writes
     first (this tick's K/V land in the pool through the flat-row scatter)
     and then attends through the table (write-then-attend: kvlen already
     counts the new rows). k_cache/v_cache: paged pools [L, NB, KVH, 128, D]
-    (QuantKV for int8 KV), updated IN PLACE. Returns logits [NSEQ, V] f32.
+    (QuantKV for int8 KV), updated IN PLACE. Returns logits [NSEQ, V] f32
+    ([NSEQ, R, V] for 2-D logit_rows).
 
-    2-D logit_rows (the spec-as-ragged verify windows), `inject`
-    (multimodal rows) and `kvt` (KV lifecycle tier) belong to later
-    slices."""
+    `inject` (multimodal rows) and `kvt` (KV lifecycle tier) belong to
+    later slices."""
     if kvt is not None:
         raise not_ported("kvt (KV lifecycle tier) in ragged_forward",
                          "KV-tier")
     if inject is not None:
         raise not_ported("inject (multimodal rows) in ragged_forward",
                          "multimodal")
-    if logit_rows.dim() != 1:
-        raise not_ported("2-D logit_rows (spec-as-ragged verify windows)",
-                         "speculative decoding")
     t = tokens.shape[0]
     dev = tokens.device
     kv_quant = isinstance(k_cache, QuantKV)

@@ -93,14 +93,60 @@ def split_keys(keys):
             torch.stack([b1[:, 1], b2[:, 1]], dim=1))
 
 
+def _unit_floats(bits):
+    """f32 in [0, 1) from 32 random bits: the mantissa of a float in
+    [1, 2), minus 1 (jax.random's construction)."""
+    bits = (bits >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def random_bits(keys, n: int):
+    """The 32-bit words of jax.random's draw of shape (n,) from each key
+    [B, 2] ([B, n] int64): under jax_threefry_partitionable the counters
+    are the flat indices (high word 0), and a word is the xor of the two
+    outputs."""
+    cnt = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(cnt),
+                          cnt)
+    return b1 ^ b2
+
+
 def uniform_scalar(keys):
     """jax.random.uniform(key, ()) (f32 in [0, 1)) for a batch of keys."""
-    k1, k2 = keys[:, 0], keys[:, 1]
-    z = torch.zeros_like(k1)
-    b1, b2 = threefry2x32(k1, k2, z, z)
-    bits = ((b1 ^ b2) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    return torch.clamp_min(_unit_floats(random_bits(keys, 1)[:, 0]), 0.0)
+
+
+def uniform(keys, n: int):
+    """jax.random.uniform(key, (n,)) for a batch of keys: [B, n] f32."""
+    return torch.clamp_min(_unit_floats(random_bits(keys, n)), 0.0)
+
+
+def fold_in(keys, data: int):
+    """jax.random.fold_in(key, data) for a batch of keys [B, 2]: the
+    threefry hash of the counter pair (0, data) under each key."""
+    z = torch.zeros_like(keys[:, 0])
+    b1, b2 = threefry2x32(keys[:, 0], keys[:, 1], z,
+                          torch.full_like(z, int(data) & _M32))
+    return torch.stack([b1, b2], dim=1)
+
+
+_TINY32 = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(keys, n: int):
+    """jax.random.gumbel(key, (n,)) in its default mode "low" (JAX 0.9.0:
+    jax_high_dynamic_range_gumbel is off) for a batch of keys: [B, n] f32,
+    -log(-log(u)) of a uniform on [tiny, 1)."""
+    u = _unit_floats(random_bits(keys, n)) + _TINY32
+    return -torch.log(-torch.log(torch.clamp_min(u, _TINY32)))
+
+
+def categorical(keys, logp):
+    """jax.random.categorical(key, logp) row by row: the Gumbel-max draw
+    argmax(gumbel + logp) over each row of logp [B, V] (ties to the first
+    index, as jnp.argmax). Returns [B] int32."""
+    g = gumbel(keys, logp.shape[-1])
+    return torch.argmax(g + logp.float(), dim=-1).to(torch.int32)
 
 
 # ------------------------------------------------------------ sampler state
@@ -140,6 +186,20 @@ class SamplerState:
             logit_bias=torch.zeros((batch, vocab), dtype=torch.float32,
                                    device=device),
         )
+
+
+def draft_state(sampler: SamplerState) -> SamplerState:
+    """A speculative draft's proposal settings: temperature only (greedy
+    follows the slot), every truncation, penalty and bias off."""
+    ones = torch.ones_like(sampler.top_p)
+    zeros = torch.zeros_like(sampler.min_p)
+    return dataclasses.replace(
+        sampler, top_k=torch.zeros_like(sampler.top_k), top_p=ones,
+        min_p=zeros, typical_p=ones,
+        repeat_penalty=torch.ones_like(sampler.repeat_penalty),
+        presence_penalty=zeros, frequency_penalty=zeros,
+        token_counts=torch.zeros_like(sampler.token_counts),
+        logit_bias=torch.zeros_like(sampler.logit_bias))
 
 
 FIELD_DTYPES = {

@@ -142,6 +142,10 @@ def test_load_kv_pages_streams_reference_text(ckpt):
 
 
 def test_load_rejects_unported_options(ckpt):
+    """Options of later slices fail the load, naming the slice. A
+    draft_model is served (speculative decoding): LoadModel reads the
+    draft's checkpoint — a missing one fails the load as a missing target
+    does — and tests/test_torch_spec.py streams through a real one."""
     from localai_tpu_torch.backend import pb
     from localai_tpu_torch.backend.llm import LLMServicer
 
@@ -151,7 +155,8 @@ def test_load_rejects_unported_options(ckpt):
         s = LLMServicer(device="cpu")
         r = s.LoadModel(pb.ModelOptions(model=ckpt, dtype="float32", **kw),
                         None)
-        assert not r.success and "slice" in r.message, (kw, r.message)
+        want = ("FileNotFoundError" if "draft_model" in kw else "slice")
+        assert not r.success and want in r.message, (kw, r.message)
         assert s.Status(pb.HealthMessage(), None).state == 3      # ERROR
 
 
@@ -162,6 +167,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import localai_tpu_torch.backend.llm\n"
         "import localai_tpu_torch.backend.__main__\n"
         "import localai_tpu_torch.engine\n"
+        "import localai_tpu_torch.engine.spec\n"
+        "import localai_tpu_torch.engine.speculative\n"
         "import localai_tpu_torch.models.llama\n"
         "import localai_tpu_torch.ops.kernels\n"
         "print(json.dumps(sorted(sys.modules)))\n")
@@ -171,6 +178,7 @@ def test_import_leaves_no_jax_in_sys_modules():
                          timeout=120)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "localai_tpu_torch.backend.backend_pb2" in mods
+    assert "localai_tpu_torch.engine.speculative" in mods
     bad = [m for m in mods if _forbidden(m)]
     assert bad == []
 
@@ -193,6 +201,9 @@ def test_ast_no_jax_or_reference_imports():
     for d, _, names in os.walk(os.path.join(ROOT, "localai_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for name in ("spec.py", "speculative.py"):
+        assert os.path.join(ROOT, "localai_tpu_torch", "engine",
+                            name) in files
     bad = [(os.path.relpath(f, ROOT), line, mod) for f in files
            for line, mod in _imports(f) if _forbidden(mod)]
     assert bad == []

@@ -1246,3 +1246,79 @@ def test_cuda_ragged_tiling_matches_python(cuda):
                 gc, qt = tk.ragged_tiling(G, D, tc)
                 assert lib.ragged_attention_tiling(code, G, D) == \
                     gc * 65536 + qt
+
+
+# ------------------------------------------------- speculative decoding
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_draft_decode_head_dim_64(cuda, dtype):
+    """Row 2 (dense ragged_decode) at the Llama-3.2-1B draft's geometry,
+    which the speculative draft's decode steps run: H=32 on KVH=8,
+    head_dim 64, B=8 over a 4096-token cache."""
+    td = getattr(torch, dtype)
+    lens = [1, 5, 129, 700, 1500, 2048, 4000, 4096]
+    q, kc, vc = _decode_inputs(23, 8, 32, 8, 4096, 64)
+    qd, k, v = _dev((q, kc, vc), cuda, td)
+    lt = torch.tensor(lens, device=cuda)
+    before = tk.launch_counts()["ragged_decode"]
+    out = tk.ragged_decode(qd, k, v, lt)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["ragged_decode"] == before + 1
+    ref = tk.ragged_decode_plain(qd, k, v, lt)
+    tol = F32 if dtype == "float32" else BF16_CARD
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_spec_step_equals_cpu(cuda):
+    """One dense speculative step (engine/spec.py) of a tiny f32 target
+    and draft on the card against the same step on the CPU: equal tokens
+    and lengths, logprobs within 2e-5; the draft's gamma+1 decode steps
+    launch row 2 once a layer each."""
+    from localai_tpu_torch.engine.spec import build_spec_decode
+    from localai_tpu_torch.models.llama import (
+        LlamaConfig, init_kv_cache, init_params,
+    )
+    from localai_tpu_torch.ops.rope import rope_table
+    from localai_tpu_torch.ops.sampling import SamplerState
+
+    kw = dict(vocab_size=128, max_position=256, dtype="float32")
+    tcfg = LlamaConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                       num_heads=4, num_kv_heads=2, head_dim=16, **kw)
+    dcfg = LlamaConfig(hidden_size=64, intermediate_size=128, num_layers=1,
+                       num_heads=4, num_kv_heads=2, head_dim=16, **kw)
+    G, B, T = 3, 4, 64
+
+    def run(dev):
+        # made on the CPU (a generator's stream depends on its device)
+        tp = init_params(tcfg, seed=0, device="cpu").to(dev)
+        dp = init_params(dcfg, seed=1, device="cpu").to(dev)
+        caches = []
+        for c, seed in ((tcfg, 2), (dcfg, 3)):
+            g = torch.Generator().manual_seed(seed)
+            for x in init_kv_cache(c, B, T, device="cpu"):
+                caches.append((torch.randn(x.shape, generator=g) * 0.5)
+                              .to(dev))
+        sm = SamplerState.init(B, 128, device=dev)
+        sm.greedy[:2] = True
+        sm.key[:, 1] = torch.arange(B, device=dev) + 7
+        fn = build_spec_decode(tcfg, dcfg, G)
+        i32 = dict(dtype=torch.int32, device=dev)
+        return fn(tp, dp, *rope_table(tcfg.rope, T, device=dev),
+                  *rope_table(dcfg.rope, T, device=dev), *caches, sm,
+                  torch.tensor([9, 20, 0, 33], **i32),
+                  torch.tensor([7, 3, 0, 100], **i32),
+                  torch.tensor([True, True, False, True], device=dev))
+
+    before = tk.launch_counts()["ragged_decode"]
+    card = run(cuda)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["ragged_decode"] - before == (
+        (G + 1) * dcfg.num_layers)
+    host = run(torch.device("cpu"))
+    for i in (0, 1, 3, 5, 6):        # tokens, n_out, next, lengths, n_extra
+        assert torch.equal(card[i].cpu(), host[i])
+    np.testing.assert_allclose(card[2].cpu().numpy()[[0, 1, 3]],
+                               host[2].numpy()[[0, 1, 3]], rtol=0, atol=2e-5)

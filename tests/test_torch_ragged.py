@@ -352,15 +352,23 @@ def test_ragged_forward_int8_kv_matches_reference(monkeypatch):
 
 
 def test_ragged_forward_unported_inputs_raise():
+    """2-D logit_rows (the speculative verify windows) are served: logits
+    [NSEQ, R, V], each row's those of the 1-D gather at that row. The
+    multimodal and KV-tier inputs still raise, naming their slices."""
     _, _, tcfg, tp, _ = _tiny_models()
     cos, sin = trope_table(tcfg.rope, 256)
     kc, vc = tpaged.init_paged(tcfg.num_layers, 4, tcfg.num_kv_heads,
                                tcfg.head_dim, torch.float32)
-    args = (tp, tcfg, torch.zeros((8,), dtype=torch.int32), cos, sin, kc, vc,
-            torch.tensor([0]), torch.tensor([0]), torch.tensor([1]),
-            torch.tensor([1]), torch.tensor([[1]]))
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        tllama.ragged_forward(*args, torch.zeros((1, 2), dtype=torch.int32))
+    toks = torch.arange(3, 11, dtype=torch.int32)
+    args = (tp, tcfg, toks, cos, sin, kc, vc,
+            torch.tensor([0]), torch.tensor([0]), torch.tensor([5]),
+            torch.tensor([5]), torch.tensor([[1]]))
+    two = tllama.ragged_forward(*args, torch.tensor([[1, 2, 4]]))
+    assert two.shape == (1, 3, tcfg.vocab_size)
+    for j, r in enumerate((1, 2, 4)):
+        one = tllama.ragged_forward(*args, torch.tensor([r]))
+        np.testing.assert_allclose(two[:, j].numpy(), one.numpy(),
+                                   rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="multimodal"):
         tllama.ragged_forward(*args, torch.tensor([0]), inject=(None, None))
     with pytest.raises(NotImplementedError, match="KV-tier"):
@@ -644,14 +652,22 @@ def test_ragged_requires_paged_kv(models):
 
 
 def test_draft_and_grammar_wait_for_their_slices(models):
-    """A draft model still waits for the speculative-decoding slice; a
-    grammar request is served on the ragged engine (its tokens are the
-    grammar's: tests/test_torch_grammar.py holds them to the JAX
+    """A draft model is served on the ragged engine (spec-as-ragged; with
+    draft = target every proposal is accepted and the stream is the plain
+    engine's greedy one — tests/test_torch_spec.py holds it to the JAX
+    engine); a grammar request is served on the ragged engine (its tokens
+    are the grammar's: tests/test_torch_grammar.py holds them to the JAX
     engine)."""
     (_, _, _), (tcfg, tp, ttok), _ = models
     ec = TConfig(**_ec(ragged_token_budget=64))
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        TEngine(tcfg, tp, ttok, ec, draft=(tcfg, tp), device="cpu")
+    req = TRequest([3, 4, 5], TParams(temperature=0.0), max_tokens=12,
+                   ignore_eos=True)
+    spec = TEngine(tcfg, tp, ttok, ec, draft=(tcfg, tp), device="cpu")
+    plain = TEngine(tcfg, tp, ttok, ec, device="cpu")
+    assert spec.generate_text(req) == plain.generate_text(req)
+    m = spec.metrics
+    assert m["spec_ragged_dispatches"] > 0
+    assert m["draft_accepted"] == m["draft_proposed"] > 0
     eng = TEngine(tcfg, tp, ttok, ec, device="cpu")
     a = ttok.encode("a", add_bos=False)
     assert len(a) == 1
