@@ -79,7 +79,11 @@ and the script exits non-zero:
      speculative decoding on the same f32 target with a 1-layer f32 draft
      at the 1B's widths: the greedy spec streams on the card equal the
      CPU's, dense, paged and ragged; with the target as its own draft
-     every proposal is accepted and the stream is the plain one.
+     every proposal is accepted and the stream is the plain one. Then
+     preemption on the card: a paged engine with an int8 pool and the
+     host tier serves a greedy and a seeded-sampled request, is
+     preempted, and a fresh engine adopting its pool resumes both
+     ResumeTokens into the uninterrupted streams, token for token.
   4. the main path: a synthetic Llama-3.1-8B checkpoint served by the
      port's gRPC backend on 127.0.0.1 in bf16 and in the int8 recipe
      (int8 weights + int8 KV), four concurrent PredictStream requests each;
@@ -158,6 +162,34 @@ and the script exits non-zero:
      draft, the acceptance (near 0 with random weights: not a finding),
      and a spec dispatch's host and device-busy ms, split into the draft
      steps, the verify and the accept tail.
+  9. the host KV spill tier, preemption and resume at full width: the
+     synthetic Llama-3.1-8B (32 layers) with the grammar leg's tokenizer,
+     bf16 then the int8 recipe, in-process Engines on phase 5's pool
+     (kv_pages=129, 8 slots, prompt cache on) with kv_host_bytes = 2 GiB.
+     9.1: waves A1 (8 conversations, 2000-token prompts), A2 (8 unrelated
+     2000-token prompts, which reclaim or rewrite A1's retained blocks:
+     they spill) and A3 (A1's follow-ups: prompt + reply + 100 new
+     tokens, readmitted from the host), with the tier and without;
+     checks that every A1 full block reached the host, that A3's reused
+     prompt tokens all came from readmitted blocks (at least 7 of 8
+     conversations whole), that the int8 pages readmitted hold the
+     spilled bytes, and three A3 streams against the teacher-forced
+     reference, whose planted fault — an engine readmitting with the
+     scales dropped — fails. 9.2: eight greedy 600-token requests
+     preempted mid-decode by Engine.preempt(), resumed on a fresh engine
+     adopting the pool (8 readmits, 0 re-prefills) and on one without it
+     (0, 8); the text before and after the preemption is the stream's,
+     and three resumed streams pass the teacher-forced check. 9.3: the
+     port's backend process (LoadModel with kv_host_bytes, bf16) streams
+     phase 4's prompts and gets SIGTERM once each has 16 tokens: every
+     stream ends "preempted" with a resume_json, the process exits 0, and
+     a new backend process resumes each (re-prefill) to its budget with
+     the joined text the detokenized ids. Prints, each with the card:
+     spill and readmit ms a block and GB/s (and a spill into newly pinned
+     memory), the A3 wave's host ms in the tier's methods, the drain's
+     wall ms and blocks, host bytes at peak, A3's TTFT p50 with and
+     without the tier, resume TTFT p50 by readmit and by re-prefill, and
+     the launches of the paged decode and scatter kernels in the phase.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -1709,9 +1741,85 @@ def phase_card_vs_cpu():
             raise AssertionError(f"phase3: the card's {path} loop replayed "
                                  f"no CUDA graph")
     spec_card_vs_cpu(cfg, model, prompt, gpu["tokens"])
+    resume_card_check(cfg, model)
     model.to("cpu")
     del model
     torch.cuda.empty_cache()
+
+
+def _preempt_run(eng, reqs, stop_at=None):
+    """Submit `reqs` [(ids, SamplingParams, max_tokens, resume payload)]
+    at once and step: to the end, or, with `stop_at`, until every stream
+    has that many tokens, then preempt. Returns (token lists, each
+    stream's terminal ResumeToken dict or None)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+
+    recs = []
+    for ids, sp, n, resume in reqs:
+        _, q = eng.submit(GenRequest(list(ids), sp, max_tokens=n,
+                                     ignore_eos=True, resume=resume))
+        recs.append({"q": q, "toks": [], "end": None})
+    while any(r["end"] is None for r in recs):
+        eng.step()
+        if stop_at is not None and all(len(r["toks"]) >= stop_at
+                                       for r in recs):
+            eng.preempt()
+            stop_at = None
+        for r in recs:
+            while not r["q"].empty():
+                o = r["q"].get_nowait()
+                if o.token_id >= 0:
+                    r["toks"].append(o.token_id)
+                if o.finished:
+                    r["end"] = o
+    return [r["toks"] for r in recs], [r["end"].resume for r in recs]
+
+
+def resume_card_check(cfg, model):
+    """Phase 3's preemption check, on the card: a paged engine with an int8
+    pool and the host tier serves a greedy and a seeded-sampled request
+    (300-token prompts: two full blocks each); once both have streamed 8
+    tokens it is preempted, and a fresh engine adopting its pool resumes
+    both ResumeTokens. got + rest must equal the uninterrupted streams
+    token for token, both resumes readmitting their blocks."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.engine.resume import ResumeToken
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    ec = EngineConfig(max_slots=2, max_context=512, prefill_buckets=(64,),
+                      prefill_chunk=256, kv_pages=8, cache_type="int8",
+                      decode_loop=8, decode_block=4)
+    n = 32
+    reqs = [([(i * 7919 + s) % cfg.vocab_size for i in range(1, 301)], sp)
+            for s, sp in ((0, SamplingParams(temperature=0.0)),
+                          (5, SamplingParams(temperature=0.8, top_k=40,
+                                             seed=7)))]
+    plan = [(ids, sp, n, None) for ids, sp in reqs]
+
+    def engine(**kw):
+        return Engine(cfg, model, None, dataclasses.replace(ec, **kw),
+                      device="cuda")
+
+    want, _ = _preempt_run(engine(), plan)
+    eng = engine(kv_host_bytes=1 << 30)
+    got, man = _preempt_run(eng, plan, stop_at=8)
+    toks = [ResumeToken.from_dict(m) for m in man]
+    fresh = Engine(cfg, model, None, ec, kvhost=eng._kvhost, device="cuda")
+    rest, _ = _preempt_run(fresh, [
+        (t.resume_prompt, sp, n - t.generated, t.payload())
+        for t, (_, sp) in zip(toks, reqs)])
+    res = {"emitted_at_preempt": [t.generated for t in toks],
+           "spilled_blocks": eng.metrics["preempt_spilled_blocks"],
+           "resume_readmits": fresh.metrics["resume_readmits"],
+           "greedy_equal": got[0] + rest[0] == want[0],
+           "sampled_equal": got[1] + rest[1] == want[1],
+           "sampled_key": toks[1].key}
+    log("phase3 preempt/resume (int8 pool, fresh engine adopting the "
+        "pool) " + json.dumps(res))
+    if not (res["greedy_equal"] and res["sampled_equal"]
+            and res["resume_readmits"] == 2 and toks[1].key):
+        raise AssertionError("phase3: a preempted and resumed stream is not "
+                             "the uninterrupted one")
 
 
 # phase 3's spec streams (the CPU's spec step samples over V = 128256 with
@@ -3779,6 +3887,516 @@ def phase_spec_path(smi):
     return total
 
 
+# ------------------------------------------------------------------ phase 9
+
+HOST_BYTES = 2 << 30              # room for 248 int8 blocks of the 8B
+HOST_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
+               prompt_cache=True, prefill_buckets=(64, 256, 512),
+               prefill_chunk=512)
+CONV_PROMPT, FOLLOW_UP = 2000, 100
+# the preempted requests' budget outlasts the in-flight fused loop (up to
+# 64 steps) the drain consumes first
+PREEMPT_PROMPT, PREEMPT_AT, PREEMPT_TOKENS = 600, 16, 192
+GRPC_PREEMPT_TOKENS = 400
+
+
+def host_engine(cfg, params, tok, kv, host_bytes=0, kvhost=None):
+    """An in-process Engine on phase 5's paged pool (8 slots, 128 usable
+    blocks, prompt cache on), with the host tier when `host_bytes` or
+    `kvhost` is given."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    return Engine(cfg, params, tok, EngineConfig(
+        **HOST_EC, cache_type=kv, kv_host_bytes=host_bytes), kvhost=kvhost,
+        device="cuda")
+
+
+def _pump(eng, recs):
+    """One engine step; collects each record's outputs (tokens, logprobs,
+    text, the terminal output, the first token's time)."""
+    busy = eng.step()
+    now = time.perf_counter()
+    for r in recs:
+        while not r["q"].empty():
+            o = r["q"].get_nowait()
+            r["text"] += o.text
+            if o.token_id >= 0:
+                if r["ttft"] is None:
+                    r["ttft"] = now - r["t0"]
+                r["toks"].append(o.token_id)
+                r["lps"].append(o.logprob)
+            if o.finished:
+                r["last"] = o
+    return busy
+
+
+def _submit_all(eng, prompts, resumes=None, max_tokens=NEW_TOKENS):
+    """Greedy requests of `max_tokens` tokens for `prompts`, submitted at
+    once (with `resumes`, each the ResumeToken its prompt came from, the
+    budget net of its emitted tokens). Returns their records."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    recs = []
+    for i, ids in enumerate(prompts):
+        tok = resumes[i] if resumes else None
+        rid, q = eng.submit(GenRequest(
+            list(ids), SamplingParams(temperature=0.0),
+            max_tokens=max_tokens - (tok.generated if tok else 0),
+            ignore_eos=True, logprobs=True,
+            resume=tok.payload() if tok else None))
+        recs.append(dict(rid=rid, ids=list(ids), q=q,
+                         t0=time.perf_counter(), ttft=None, toks=[], lps=[],
+                         text="", last=None))
+    return recs
+
+
+def host_wave(eng, prompts, resumes=None, max_tokens=NEW_TOKENS):
+    """`prompts` at once, run to the end; every request must finish
+    "length". Returns (records, wall seconds)."""
+    t0 = time.perf_counter()
+    recs = _submit_all(eng, prompts, resumes, max_tokens)
+    while _pump(eng, recs):
+        pass
+    for r in recs:
+        if r["last"] is None or r["last"].finish_reason != "length":
+            raise AssertionError(f"phase9: a request ended "
+                                 f"{r['last'] and r['last'].finish_reason}")
+    return recs, time.perf_counter() - t0
+
+
+def _p50_ms(recs):
+    import statistics
+
+    return statistics.median(r["ttft"] for r in recs) * 1e3
+
+
+def _gained(m0, m1, key):
+    return m1[key] - m0[key]
+
+
+def transfer_rates(eng, blocks=16):
+    """The spill and the readmit of `blocks` physical blocks, each timed
+    alone with the card synchronized around it (the spill up to its copy
+    landing in pinned host memory): median ms a block, and GB/s of the
+    block's host bytes (its int8 form). The spill copies into pinned sets
+    made up front, as `_spill_block` does (pin_ms_per_block: making one
+    set); spill_new_pin_ms into pinned memory allocated for it and kept,
+    as a spill past the sets does."""
+    import torch
+
+    from localai_tpu_torch.engine.engine import _AsyncFetch, _PinnedBlocks
+    from localai_tpu_torch.engine.kvhost import HostKVBlock
+
+    t0 = time.perf_counter()
+    sets = _PinnedBlocks(eng._pinned._shapes, blocks)
+    pin_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    spill, readmit, new_pin, kept = [], [], [], []
+    for pb in range(1, blocks + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blk = HostKVBlock(*_AsyncFetch(eng._spill_arrays(pb),
+                                       out=sets.take()).tensors())
+        spill.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._readmit_block(pb, b"", blk)
+        torch.cuda.synchronize()
+        readmit.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        kept.append(_AsyncFetch(eng._spill_arrays(pb)).tensors())
+        new_pin.append(time.perf_counter() - t0)
+    spill_ms = 1e3 * sorted(spill)[blocks // 2]
+    readmit_ms = 1e3 * sorted(readmit)[blocks // 2]
+    return {"block_bytes": blk.nbytes, "spill_ms_per_block": spill_ms,
+            "spill_gb_s": blk.nbytes / spill_ms / 1e6,
+            "spill_new_pin_ms_per_block": 1e3 * sorted(new_pin)[blocks // 2],
+            "pin_ms_per_block": pin_ms,
+            "readmit_ms_per_block": readmit_ms,
+            "readmit_gb_s": blk.nbytes / readmit_ms / 1e6}
+
+
+def host_timers(eng, names=("_host_extend", "_host_drain", "_spill_block",
+                             "_readmit_block")):
+    """Wrap the engine's host-tier methods `names` so each adds its wall
+    ms to the returned dict (nested calls count in both)."""
+    acc = dict.fromkeys(names, 0.0)
+    for n in names:
+        def timed(*a, _fn=getattr(eng, n), _n=n, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                acc[_n] += (time.perf_counter() - t0) * 1e3
+        setattr(eng, n, timed)
+    return acc
+
+
+def readmitted_bytes(eng, chains):
+    """Of A1's chain blocks now both on the device (hash index) and in the
+    host pool: how many there are and how many device pages hold exactly
+    the host block's bytes (int8 pool)."""
+    import torch
+
+    same = total = 0
+    for h in (h for c in chains for h in c):
+        pb = eng._hash_index.get(h)
+        blk = eng._kvhost.get(h) if pb is not None else None
+        if blk is None:
+            continue
+        total += 1
+        dev = [t[:, pb].cpu() for t in (eng._kc.q, eng._kc.s, eng._vc.q,
+                                         eng._vc.s)]
+        same += all(torch.equal(d, b) for d, b in zip(
+            dev, (blk.kq, blk.ks, blk.vq, blk.vs)))
+    return total, same
+
+
+def host_fault(cfg, params, tok, kv, pool, ids):
+    """The planted fault: an engine adopting the pool whose readmit drops
+    the scales (each block's scale tiles written as 1) serves `ids`; the
+    teacher-forced check must reject its tokens."""
+    import torch
+
+    from localai_tpu_torch.engine.kvhost import HostKVBlock
+
+    bad = host_engine(cfg, params, tok, kv, kvhost=pool)
+    readmit = bad._readmit_block
+
+    def scales_dropped(pb, h, blk):
+        readmit(pb, h, HostKVBlock(blk.kq, torch.ones_like(blk.ks), blk.vq,
+                                   torch.ones_like(blk.vs)))
+
+    bad._readmit_block = scales_dropped
+    recs, _ = host_wave(bad, [ids])
+    if bad.metrics["prompt_tokens_reused"] < 128:
+        raise AssertionError("phase9: the planted fault readmitted nothing")
+    r = recs[0]
+    return r["ids"], r["toks"], r["lps"]
+
+
+def host_tier_leg(name, cfg, params, tok, kv, smi):
+    """9.1: waves A1 (8 conversations, 2000-token prompts), A2 (8 unrelated
+    2000-token prompts, whose admissions reclaim or rewrite A1's retained
+    blocks: they spill) and A3 (A1's follow-up turns: prompt + reply + 100
+    new tokens, readmitted from the host tier), on an engine with the tier
+    and on one without."""
+    import gc
+
+    import torch
+
+    a1 = [prompt_ids(i, CONV_PROMPT, salt=9) for i in range(8)]
+    a2 = [prompt_ids(i, CONV_PROMPT, salt=10) for i in range(8)]
+    out, w3_tier = {}, None
+    for tier in (True, False):
+        key = "tier" if tier else "no_tier"
+        eng = host_engine(cfg, params, tok, kv, HOST_BYTES if tier else 0)
+        w1, _ = host_wave(eng, a1)
+        host_wave(eng, a2)
+        a3 = [r["ids"] + r["toks"] + _tail(20 + i, FOLLOW_UP)
+              for i, r in enumerate(w1)]
+        if tier:
+            eng._host_drain()
+            chains = [eng._chain_hashes(r["ids"] + r["toks"]) for r in w1]
+            out["a1_full_blocks"] = sum(len(c) for c in chains)
+            out["a1_blocks_on_host_after_a2"] = sum(
+                eng._kvhost.contains(h) for c in chains for h in c)
+        m2 = dict(eng.metrics)
+        timers = host_timers(eng) if tier else None
+        w3, wall3 = host_wave(eng, a3)
+        m3 = dict(eng.metrics)
+        if tier:
+            out["a3_host_ms"] = dict(timers)
+        out[f"a3_ttft_p50_ms_{key}"] = _p50_ms(w3)
+        out[f"a3_tok_s_{key}"] = _gained(m2, m3, "tokens_generated") / wall3
+        out[f"a3_prompt_tokens_prefilled_{key}"] = _gained(
+            m2, m3, "prompt_tokens_processed")
+        if not tier:
+            out["a3_tokens_equal_to_tier"] = sum(
+                a == b for r, s in zip(w3, w3_tier)
+                for a, b in zip(r["toks"], s["toks"]))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        w3_tier = w3
+        eng._host_drain()
+        m3 = dict(eng.metrics)
+        out.update(
+            a1_a2_spills=m2["kv_host_spills"],
+            a3_spills=_gained(m2, m3, "kv_host_spills"),
+            a3_host_hits=_gained(m2, m3, "kv_host_hits"),
+            a3_prompt_tokens_reused=_gained(m2, m3, "prompt_tokens_reused"),
+            host_evictions=m3["kv_host_evictions"],
+            host_bytes_peak=m3["kv_host_bytes_peak"],
+            host_blocks=m3["kv_host_blocks"])
+        if kv:
+            out["readmitted_pages_checked"], out[
+                "readmitted_pages_byte_equal"] = readmitted_bytes(eng, chains)
+        cases = {f"A3 conversation {i}": (r["ids"], r["toks"], r["lps"])
+                 for i, r in enumerate(w3[:3])}
+        pool = eng._kvhost
+        out["transfer"] = transfer_rates(eng)
+        ref = check_reference(name, eng, cases, host_fault(
+            cfg, params, tok, kv, pool, a3[0]), phase="phase9 host tier")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase9 {name} host tier " + json.dumps(out) + f" card {smi}")
+    # every A1 full block reached the host tier; every A3 prompt token
+    # reused came from a readmitted block (A1's pages left the device in
+    # A2; a hit whose admission then deferred is readmitted again at the
+    # retry, so hits may exceed the blocks kept), at least seven of the
+    # eight conversations whole (the eighth may lose its tail to the
+    # budget: A3's readmissions reclaim A2's blocks, whose spills push the
+    # pool past it); the int8 pages readmitted hold the spilled bytes
+    if out["a1_blocks_on_host_after_a2"] != out["a1_full_blocks"] \
+            or out["a1_a2_spills"] < out["a1_full_blocks"]:
+        raise AssertionError(f"phase9 {name}: not every A1 full block "
+                             f"reached the host tier {out}")
+    if (out["a3_prompt_tokens_reused"] > 128 * out["a3_host_hits"]
+            or out["a3_prompt_tokens_reused"]
+            < 128 * (7 * out["a1_full_blocks"] // 8)):
+        raise AssertionError(f"phase9 {name}: A3's readmission {out}")
+    if kv and (out["readmitted_pages_checked"]
+               < 3 * out["a1_full_blocks"] // 4
+               or out["readmitted_pages_byte_equal"]
+               != out["readmitted_pages_checked"]):
+        raise AssertionError(f"phase9 {name}: readmitted pages differ "
+                             f"from the spilled blocks {out}")
+    return out, ref
+
+
+def preempt_leg(name, cfg, params, tok, kv, smi):
+    """9.2: eight greedy 600-token requests preempted mid-decode (each has
+    streamed >= 16 tokens) by Engine.preempt(); every ResumeToken resumes
+    on a fresh engine adopting the pool (readmit) and on one without a
+    pool (re-prefill)."""
+    import gc
+
+    import torch
+
+    from localai_tpu_torch.engine.resume import ResumeToken
+
+    prompts = [prompt_ids(i, PREEMPT_PROMPT, salt=11) for i in range(8)]
+    eng = host_engine(cfg, params, tok, kv, HOST_BYTES)
+    host_wave(eng, [prompt_ids(0, 40, salt=12)])    # its graphs captured
+    recs = _submit_all(eng, prompts, max_tokens=PREEMPT_TOKENS)
+    while not all(len(r["toks"]) >= PREEMPT_AT for r in recs):
+        _pump(eng, recs)
+        if any(r["last"] is not None for r in recs):
+            raise AssertionError(f"phase9 {name}: a request finished "
+                                 f"before the preemption")
+    live = sum(s is not None for s in eng._slots)
+    t0 = time.perf_counter()
+    man = eng.preempt()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    _pump(eng, recs)
+    ends = [r["last"] and r["last"].finish_reason for r in recs]
+    # the manifest is in slot order: each stream's token by request id
+    by_rid = {m["request_id"]: ResumeToken.from_dict(m) for m in man}
+    toks = [by_rid.get(f"rid-{r['rid']}") for r in recs]
+    if ends != ["preempted"] * 8 or live != 8 or any(
+            t is None or t.emitted != r["toks"] or t.prompt_ids != r["ids"]
+            for t, r in zip(toks, recs)):
+        raise AssertionError(f"phase9 {name}: live slots {live}, ends "
+                             f"{ends}, or a manifest entry that is not its "
+                             f"stream")
+    out = {"live_slots": live, "drain_ms": drain_ms,
+           "drain_blocks": eng.metrics["preempt_spilled_blocks"],
+           "emitted_at_preempt": [t.generated for t in toks]}
+    pool = eng._kvhost
+    del eng
+    gc.collect()
+    ref = None
+    for mode in ("readmit", "reprefill"):
+        fresh = host_engine(cfg, params, tok, kv, kvhost=pool
+                            if mode == "readmit" else None)
+        host_wave(fresh, [prompt_ids(1, 40, salt=12)])  # graphs captured
+        m0 = dict(fresh.metrics)
+        rest, _ = host_wave(fresh, [t.resume_prompt for t in toks], toks,
+                            PREEMPT_TOKENS)
+        m1 = dict(fresh.metrics)
+        out[f"resume_ttft_p50_ms_{mode}"] = _p50_ms(rest)
+        got = (_gained(m0, m1, "resume_readmits"),
+               _gained(m0, m1, "resume_reprefills"))
+        out[f"resume_readmits_reprefills_{mode}"] = got
+        if got != ((8, 0) if mode == "readmit" else (0, 8)):
+            raise AssertionError(f"phase9 {name} {mode}: (readmits, "
+                                 f"reprefills) = {got}")
+        joined = [r["toks"] + s["toks"] for r, s in zip(recs, rest)]
+        for r, s, j in zip(recs, rest, joined):
+            if len(j) != PREEMPT_TOKENS or r["text"] + s["text"] \
+                    != tok.decode(j):
+                raise AssertionError(
+                    f"phase9 {name} {mode}: {len(j)} tokens, or the text "
+                    f"before and after the preemption is not the stream's "
+                    f"(characters repeated or lost)")
+        if mode == "readmit":
+            cases = {f"resumed {i}": (r["ids"], j, r["lps"] + s["lps"])
+                     for i, (r, s, j) in enumerate(
+                         zip(recs[:3], rest, joined))}
+            fault = (prompt_ids(98, PREEMPT_PROMPT, salt=98), joined[0],
+                     recs[0]["lps"] + rest[0]["lps"])
+            ref = check_reference(name, fresh, cases, fault,
+                                  phase="phase9 preempt")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase9 {name} preempt " + json.dumps(out) + f" card {smi}")
+    return out, ref
+
+
+def grpc_preempt_leg(d, tok, smi):
+    """9.3: a port backend process (`python -m localai_tpu_torch.backend`,
+    LoadModel with kv_host_bytes, bf16) streams phase 4's four prompts; it
+    gets SIGTERM once every stream has >= 16 tokens. Every stream must end
+    "preempted" with a resume_json, the process exit 0, and a new backend
+    process resume each stream (re-prefill: the pool died with the
+    process) to its budget, the joined text equal to the detokenized
+    ids."""
+    import re
+    import signal
+    import sys
+    import threading
+
+    env = dict(os.environ, LOCALAI_ALLOW_SYNTHETIC="1",
+               LOCALAI_NO_PREWARM="1", PYTHONPATH=HERE)
+    load = dict(model=d, dtype="bfloat16", parallel=4, context_size=2048,
+                kv_pages=65,
+                options=json.dumps({"kv_host_bytes": HOST_BYTES}))
+
+    def backend():
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "localai_tpu_torch.backend", "--addr",
+             "127.0.0.1:0"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=HERE)
+        line = proc.stdout.readline()
+        m = re.search(r"serving on port (\d+)", line)
+        if not m:
+            proc.kill()
+            raise RuntimeError(f"phase9 backend did not start: {line!r}")
+        lines = []
+        threading.Thread(target=lambda: lines.extend(proc.stdout),
+                         daemon=True).start()
+        client = _Client(f"127.0.0.1:{m.group(1)}")
+        t0 = time.perf_counter()
+        r = client.load(**load)
+        if not r.success:
+            proc.kill()
+            raise RuntimeError(f"phase9 LoadModel failed: {r.message}")
+        return proc, client, lines, time.perf_counter() - t0
+
+    def streams(client, reqs, on_chunk=None):
+        res = [None] * len(reqs)
+
+        def one(i, kw):
+            chunks = []
+            for c in client.stream(ignore_eos=True,
+                                   tokens=GRPC_PREEMPT_TOKENS, **kw):
+                chunks.append(c)
+                if on_chunk:
+                    on_chunk(i, chunks)
+            res[i] = chunks
+
+        threads = [threading.Thread(target=one, args=(i, kw))
+                   for i, kw in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return res
+
+    out = {}
+    proc, client, lines, out["load_s"] = backend()
+    counts = [0] * len(REQUESTS)
+    fired = threading.Event()
+
+    def on_chunk(i, chunks):
+        counts[i] = sum(len(c.token_ids) for c in chunks)
+        if min(counts) >= PREEMPT_AT and not fired.is_set():
+            fired.set()
+            out["tokens_at_sigterm"] = list(counts)
+            proc.send_signal(signal.SIGTERM)
+
+    reqs = [dict(prompt_ids=prompt_ids(i, n, salt=13), **sp)
+            for i, (n, sp) in enumerate(REQUESTS)]
+    try:
+        first = streams(client, reqs, on_chunk)
+        client.close()
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    ends = [c[-1].finish_reason for c in first]
+    if code != 0 or ends != ["preempted"] * len(reqs) or not all(
+            c[-1].resume_json for c in first):
+        raise AssertionError(f"phase9 gRPC: exit {code}, ends {ends}; "
+                             + "".join(lines[-20:]))
+    out["emitted_at_preempt"] = [sum(len(c.token_ids) for c in s)
+                                 for s in first]
+    proc, client, lines, out["reload_s"] = backend()
+    try:
+        rest = streams(client, [dict(kw, resume_json=c[-1].resume_json)
+                                for kw, c in zip(reqs, first)])
+        out["resume_reprefills"] = client.metrics()["resume_reprefills"]
+    finally:
+        client.close()
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    for a, b in zip(first, rest):
+        ids = [t for c in a + b for t in c.token_ids]
+        text = "".join(c.message.decode() for c in a + b)
+        if (b[-1].finish_reason != "length"
+                or len(ids) != GRPC_PREEMPT_TOKENS
+                or text != tok.decode(ids)):
+            raise AssertionError(f"phase9 gRPC resume: finish "
+                                 f"{b[-1].finish_reason}, {len(ids)} ids, "
+                                 f"or the joined text is not theirs")
+    if out["resume_reprefills"] != len(reqs):
+        raise AssertionError(f"phase9 gRPC: {out['resume_reprefills']} "
+                             f"re-prefill resumes")
+    log("phase9 gRPC SIGTERM " + json.dumps(out) + f" card {smi}")
+    return out
+
+
+def phase_host_tier(d, smi, tok):
+    """Phase 9, the host KV spill tier, preemption and resume at full
+    width: the synthetic Llama-3.1-8B (32 layers) with the grammar
+    checkpoint's tokenizer, bf16 then the int8 recipe, on phase 5's paged
+    pool with kv_host_bytes = 2 GiB (9.1 host tier, 9.2 preempt and
+    resume in-process), then the gRPC SIGTERM leg (9.3, bf16). Returns
+    the launch counts of the phase."""
+    import gc
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    for name, dtype, kv in RECIPES:
+        cfg = load_config(d, dtype=dtype)
+        params = load_params(d, cfg, dtype=dtype, device="cuda")
+        host_tier_leg(name, cfg, params, tok, kv, smi)
+        preempt_leg(name, cfg, params, tok, kv, smi)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    grpc = grpc_preempt_leg(d, tok, smi)
+    counts = launch_counts()
+    log("phase9 launches " + json.dumps(
+        {k: counts[k] for k in PAGED_OWN["bf16"] + PAGED_OWN["int8"]})
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    for k in PAGED_OWN["bf16"] + PAGED_OWN["int8"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"phase9: {k} never launched")
+    return counts, grpc
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -3840,6 +4458,7 @@ def main():
         ragged_counts = phase_ragged_path(
             smi, grammar_then=lambda name: grammar_ragged(name, smi, gtok))
         phase_grammar(gdir, smi, gtok)
+        host_counts, _ = phase_host_tier(gdir, smi, gtok)
     spec_counts = phase_spec_path(smi)
     rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -3856,6 +4475,7 @@ def main():
                      "library_ms_host": m["library_ms_host"],
                      "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"],
                      "launches_spec": spec_counts[name],
+                     "launches_host_tier": host_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

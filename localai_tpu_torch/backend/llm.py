@@ -8,9 +8,13 @@ tokens; a malformed grammar is INVALID_ARGUMENT for that request alone.
 `draft_model` (a checkpoint directory, resolved against `model_path`) and
 `n_draft` serve speculative decoding: the draft proposes n_draft tokens a
 step (4 by default) and GetMetrics carries draft_proposed and
-draft_accepted. Embeddings, BERT, llava, meshes and telemetry spans wait
-for later slices: LoadModel rejects their options with a message naming
-the slice, and their RPCs stay UNIMPLEMENTED.
+draft_accepted. `kv_host_bytes` in `options` turns on the host KV spill
+tier; `resume_json` (a ResumeToken) continues a preempted stream, and
+`preempt` (the SIGTERM path of server.py) ends every open stream with a
+terminal "preempted" reply carrying one. Embeddings, BERT, llava, meshes,
+the KV retention tier and telemetry spans wait for later slices: LoadModel
+rejects their options with a message naming the slice, and their RPCs
+stay UNIMPLEMENTED.
 """
 from __future__ import annotations
 
@@ -68,11 +72,14 @@ class LLMServicer(BackendServicer):
                              "parallel")
         if request.embeddings:
             raise not_ported("embeddings", "embeddings")
+        # the KV tiers ride the ModelOptions.options JSON blob
+        kv_host_bytes = 0
         if request.options:
             opts = json.loads(request.options)  # typos fail the load loudly
-            for key in ("kv_policy", "kv_cold_pages", "kv_host_bytes"):
+            for key in ("kv_policy", "kv_cold_pages"):
                 if opts.get(key) not in (None, "", 0, "full"):
                     raise not_ported(key, "KV-tier")
+            kv_host_bytes = int(opts.get("kv_host_bytes", 0))
         model_dir = request.model
         if request.model_path and not os.path.exists(model_dir):
             model_dir = os.path.join(request.model_path, request.model)
@@ -114,6 +121,7 @@ class LLMServicer(BackendServicer):
             gamma=request.n_draft or 4,
             cache_type=kv_kind,
             kv_pages=request.kv_pages,
+            kv_host_bytes=kv_host_bytes,
         ), draft=draft, device=self.device)
         self.cfg, self.tok = cfg, tok
         self.model_name = request.model
@@ -185,17 +193,33 @@ class LLMServicer(BackendServicer):
     def _submit(self, request, context):
         from localai_tpu_torch.engine.engine import GenRequest
 
-        if request.resume_json:
-            context.abort(grpc.StatusCode.UNIMPLEMENTED, str(not_ported(
-                "resume_json", "preemption/resume")))
         if request.images or request.audios:
             context.abort(grpc.StatusCode.UNIMPLEMENTED, str(not_ported(
                 "multimodal inputs", "other-roles")))
-        ids = self._prompt_ids(request, context)
+        resume = None
+        max_tokens = request.tokens or 128
+        if request.resume_json:
+            # a preempted stream's ResumeToken: the prompt becomes original
+            # + emitted, the payload drives the engine's RNG, grammar and
+            # detokenizer fixups, and the budget shrinks by what the
+            # preempted stream already produced
+            from localai_tpu_torch.engine.resume import ResumeToken
+
+            try:
+                tok = ResumeToken.from_json(request.resume_json)
+            except (ValueError, KeyError, TypeError) as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"bad resume_json: {e}")
+            ids = tok.resume_prompt
+            resume = tok.payload()
+            max_tokens = max(1, max_tokens - tok.generated)
+        else:
+            ids = self._prompt_ids(request, context)
         req = GenRequest(
             prompt_ids=ids,
             params=self._sampling(request),
-            max_tokens=request.tokens or 128,
+            max_tokens=max_tokens,
+            resume=resume,
             stop=tuple(request.stop_prompts),
             ignore_eos=request.ignore_eos,
             logprobs=request.logprobs,
@@ -251,11 +275,22 @@ class LLMServicer(BackendServicer):
         self._require_engine(context)
         t0 = time.monotonic()
         ttft = 0.0
-        _, out, _ = self._submit(request, context)
+        _, out, ids = self._submit(request, context)
+        first = True
         while True:
             o = out.get()
             if o.token_id >= 0 and not ttft:
                 ttft = time.monotonic() - t0
+            resume_json = ""
+            if first and not o.finished:
+                # the minimal checkpoint on the FIRST chunk: the tokenized
+                # prompt, so a caller can rebuild prompt + emitted after an
+                # ungraceful death (no spill-drain ran, no full token)
+                resume_json = json.dumps({"v": 1, "prompt_ids": ids})
+            elif o.finish_reason == "preempted" and o.resume is not None:
+                # the spill-drain's checkpoint rides the terminal reply
+                resume_json = json.dumps(o.resume)
+            first = False
             yield pb.Reply(
                 message=o.text.encode(),
                 tokens=o.generated_tokens,
@@ -267,6 +302,7 @@ class LLMServicer(BackendServicer):
                 if request.logprobs and o.token_id >= 0 else [],
                 token_ids=[o.token_id] if o.token_id >= 0 else [],
                 finish_reason=o.finish_reason or "",
+                resume_json=resume_json,
             )
             if o.finished:
                 return
@@ -289,6 +325,15 @@ class LLMServicer(BackendServicer):
     def GetMetrics(self, request, context):
         m = dict(self.engine.metrics) if self.engine else {}
         return pb.MetricsResponse(metrics={k: float(v) for k, v in m.items()})
+
+    def preempt(self, grace: float = 0.0) -> list[dict]:
+        """Spill-drain the engine: freeze the live slots, spill their KV
+        into the host pool, and end the open streams with terminal
+        "preempted" replies carrying ResumeTokens. Returns the resume
+        manifest (server.py's SIGTERM path calls this before stopping)."""
+        if self.engine is None:
+            return []
+        return self.engine.preempt(grace)
 
     def shutdown(self):
         if self.engine is not None:

@@ -2,6 +2,7 @@
 (counterpart of localai_tpu/backend/server.py), `llm` role only."""
 from __future__ import annotations
 
+import os
 import signal
 import threading
 from concurrent import futures
@@ -35,8 +36,31 @@ def serve_blocking(addr: str = "127.0.0.1:50051", device=None) -> int:
     server, servicer, port = serve(addr, device=device)
     print(f"backend[llm] serving on port {port}", flush=True)
     stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
+
+    def _preempt_then_stop():
+        # SIGTERM: spill-drain the live slots, so their terminal
+        # "preempted" replies (carrying ResumeTokens) flush through the
+        # still-open streams, THEN stop. The drain runs off the signal
+        # handler's thread: engine.preempt blocks until the freeze is done.
+        # LOCALAI_PREEMPT_GRACE (seconds, default 0) lets slots finish first.
+        try:
+            servicer.preempt(float(
+                os.environ.get("LOCALAI_PREEMPT_GRACE", "0") or 0))
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+        finally:
+            stop.set()
+
+    def _sig(signum, frame):
+        if signum == signal.SIGTERM:
+            threading.Thread(target=_preempt_then_stop, daemon=True).start()
+        else:
+            stop.set()
+
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
     stop.wait()
     servicer.shutdown()
     server.stop(grace=5).wait(10)

@@ -42,6 +42,18 @@ What this slice serves, as the reference does:
   grammar that overflows them is host-masked and takes the single step or
   the block path (sampled under the block-start masks, rolled back at the
   first token the matcher rejects — _repair), which bars both loops;
+- the host KV spill tier (kv_host_bytes > 0 or Engine(kvhost=pool), paged
+  only, engine/kvhost.py): a registered block the device pool is about to
+  lose (its last reference dropped, a reclaimed slot's chain, a block
+  about to be rewritten) is copied to host memory in int8 first, and an
+  admission extends its device prefix-cache match with host hits, written
+  back into fresh pages ahead of the suffix's prefill;
+- preemption and resume (Engine.preempt, GenRequest.resume,
+  engine/resume.py): preempt freezes every live slot at a tick boundary,
+  force-spills its full KV blocks, reads back its RNG key and ends its
+  stream with a terminal "preempted" StepOutput carrying a ResumeToken; a
+  resume is a normal request over prompt + emitted that installs the key
+  and replays the grammar and the detokenizer, sending no text twice;
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
   logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
@@ -58,6 +70,7 @@ import hashlib
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Iterator
 
 import numpy as np
@@ -80,7 +93,7 @@ from localai_tpu_torch.models.llama import (
     segment_lengths,
 )
 from localai_tpu_torch.ops.kernels import QBLK
-from localai_tpu_torch.ops.kvcache import QuantKV
+from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, blocks_needed, init_paged
 from localai_tpu_torch.ops.rope import rope_table
 from localai_tpu_torch.ops.sampling import (
@@ -126,7 +139,10 @@ class EngineConfig:
                                      # host-masked)
     kv_policy: str = "full"       # KV lifecycle tier (KV-tier slice)
     kv_cold_pages: int = 0        # KV-tier slice
-    kv_host_bytes: int = 0        # host spill tier (KV-tier slice)
+    kv_host_bytes: int = 0        # host KV spill tier: byte budget of the
+                                  # HostKVPool (int8 blocks keyed by the
+                                  # prefix cache's chain hashes; paged KV
+                                  # only; 0 = off)
     max_restarts: int = 2         # fatal step() errors survived
 
 
@@ -150,7 +166,11 @@ class GenRequest:
     mm_embeds: Any = None         # multimodal slice
     mm_positions: Any = None
     queued_t: float = 0.0         # time.monotonic() at submit()
-    resume: dict | None = None    # preemption/resume slice
+    resume: dict | None = None    # ResumeToken.payload(): prompt_ids is
+                                  # prompt + emitted; "emitted" counts the
+                                  # trailing checkpoint tokens, "key"
+                                  # restores the slot's RNG key,
+                                  # "sent_chars" the text already sent
 
 
 @dataclasses.dataclass
@@ -165,7 +185,8 @@ class StepOutput:
     generated_tokens: int = 0
     prompt_tokens: int = 0
     timings: dict | None = None        # telemetry slice (None here)
-    resume: dict | None = None         # preemption slice (None here)
+    resume: dict | None = None         # ResumeToken.to_dict() on the
+                                       # terminal "preempted" chunk
 
 
 @dataclasses.dataclass
@@ -175,6 +196,14 @@ class _Slot:
     out: queue.Queue
     detok: Any                       # _IncrementalDecoder | None
     pending_text: str = ""           # holdback buffer for stop-string scan
+    sent_chars: int = 0              # detok chars released downstream since
+                                     # the ORIGINAL prompt boundary (across
+                                     # resume segments; pending_text, which
+                                     # a resume replays, excluded)
+    resume_base: int = 0             # emitted-chain tokens replayed into the
+                                     # prompt at resume admission; a second
+                                     # preempt folds them back into the
+                                     # checkpoint's emitted list
     generated: int = 0
     gen_ids: list[int] = dataclasses.field(default_factory=list)
     start_time: float = 0.0
@@ -202,8 +231,6 @@ def _check_config(ec: EngineConfig):
         raise not_ported(f"kv_policy {ec.kv_policy!r}", "KV-tier")
     if ec.kv_cold_pages:
         raise not_ported("kv_cold_pages", "KV-tier")
-    if ec.kv_host_bytes:
-        raise not_ported("kv_host_bytes (host KV spill)", "KV-tier")
     if ec.mesh is not None:
         raise not_ported("mesh (tensor parallelism)", "parallel")
     if ec.replicator is not None:
@@ -212,22 +239,22 @@ def _check_config(ec: EngineConfig):
 
 class _AsyncFetch:
     """Async device→host fetch of a dispatch's small outputs: each tensor's
-    copy into pinned host memory is enqueued the moment the dispatch is,
-    with a CUDA event behind it, so block N's tokens land while block N+1
-    computes; `wait()` syncs on the event only. CPU tensors are already on
-    the host."""
+    copy into pinned host memory (new, or the buffers `out`) is enqueued
+    the moment the dispatch is, with a CUDA event behind it, so block N's
+    tokens land while block N+1 computes; `wait()` syncs on the event
+    only. CPU tensors are already on the host."""
 
     __slots__ = ("_host", "_event", "_extra")
 
-    def __init__(self, tensors, extra=()):
+    def __init__(self, tensors, extra=(), out=None):
         self._extra = tuple(extra)
         self._event = None
         if tensors and tensors[0].device.type == "cuda":
-            self._host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host = list(out) if out is not None else [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+            for h, t in zip(self._host, tensors):
                 h.copy_(t, non_blocking=True)
-                self._host.append(h)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
@@ -235,9 +262,38 @@ class _AsyncFetch:
 
     def wait(self):
         """Host numpy arrays in input order (plus any extra host values)."""
+        return tuple(h.numpy() for h in self.tensors()) + self._extra
+
+    def tensors(self) -> list:
+        """The host tensors in input order (pinned when fetched from the
+        card), once their copies have landed."""
         if self._event is not None:
             self._event.synchronize()
-        return tuple(h.numpy() for h in self._host) + self._extra
+        return self._host
+
+
+class _PinnedBlocks:
+    """Pinned host buffers for spilled blocks, allocated up front and
+    reused. Page-locking memory costs ~2 ms a block against ~0.3 ms for
+    the copy itself, so a spill copies into a free (kq, ks, vq, vs) set;
+    the set returns to the free list when the block holding it is dropped
+    (evicted, refused, or its pool discarded). Past the sets made up
+    front a spill pins a new one."""
+
+    def __init__(self, shapes, count: int):
+        self._shapes = shapes            # [(shape, dtype)] in block order
+        self._free = [self._new() for _ in range(count)]
+
+    def _new(self):
+        return tuple(torch.empty(shape, dtype=dtype, pin_memory=True)
+                     for shape, dtype in self._shapes)
+
+    def take(self):
+        return self._free.pop() if self._free else self._new()
+
+    def lend(self, blk, bufs):
+        """`blk` holds `bufs` now: they come back when it is dropped."""
+        weakref.finalize(blk, self._free.append, bufs)
 
 
 class Engine:
@@ -248,8 +304,11 @@ class Engine:
     def __init__(self, cfg: LlamaConfig, params, tokenizer=None,
                  econfig: EngineConfig | None = None, draft: tuple | None = None,
                  kvhost=None, device=None):
-        if kvhost is not None:
-            raise not_ported("kvhost (host KV spill)", "KV-tier")
+        """`draft=(draft_cfg, draft_params)` enables speculative decoding.
+        `kvhost`: an existing engine/kvhost.HostKVPool to adopt instead of
+        building one from ec.kv_host_bytes — host memory outlives device
+        state, so a restarted worker readmits the previous engine's
+        spilled blocks."""
         self.cfg = cfg
         self.tok = tokenizer
         self.ec = econfig or EngineConfig()
@@ -298,6 +357,36 @@ class Engine:
         # the verify window writes up to gamma+1 rows past `lengths`: a
         # spec step never writes past the cache end
         self._ctx_reserve = (self.ec.gamma + 1) if self._draft else 0
+        # the host KV spill tier (engine/kvhost.py): catches the blocks the
+        # device pool loses, keyed by the prefix cache's chain hashes. None
+        # without a budget or an adopted pool — every hook is one branch
+        self._kvhost = None
+        self._host_pending: list = []    # in-flight spills (hash, fetch)
+        self._readmits: list = []        # (hash, event) of H2D copies
+        self._spill_group: bytes | None = None
+        if kvhost is not None or self.ec.kv_host_bytes > 0:
+            if not self._paged:
+                raise ValueError(
+                    "kv_host_bytes requires paged KV (set kv_pages)")
+            if self._draft is not None:
+                raise ValueError(
+                    "kv_host_bytes is incompatible with a draft model "
+                    "(draft engines never consult the prefix cache)")
+            from localai_tpu_torch.engine.kvhost import HostKVPool
+
+            self._kvhost = (kvhost if kvhost is not None
+                            else HostKVPool(self.ec.kv_host_bytes))
+        # on the card, spills copy into pinned sets made here for the
+        # pool's budget (a block's int8 form: q [L, KVH, 128, D], scales
+        # [L, KVH, 1, 128], for K and V)
+        self._pinned = None
+        if self._kvhost is not None and self.device.type == "cuda":
+            L, KVH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+            q, sc = ((L, KVH, BLOCK, D), torch.int8), \
+                ((L, KVH, 1, BLOCK), torch.float32)
+            nbytes = 2 * (L * KVH * BLOCK * D + 4 * L * KVH * BLOCK)
+            self._pinned = _PinnedBlocks(
+                [q, sc, q, sc], max(self._kvhost.budget_bytes, 0) // nbytes)
         self._init_device_state()
         if self.ec.prefill_chunk < 8:
             raise ValueError("prefill_chunk must be >= 8")
@@ -331,6 +420,13 @@ class Engine:
         self._admitting: tuple | None = None
         self._grammar_lock = threading.Lock()
         self._grammar_cache = None
+        # preemption handshake: preempt() arms the request and the grace
+        # deadline from any thread; the engine thread runs _spill_drain at
+        # a tick boundary and signals done
+        self._preempt_req = threading.Event()
+        self._preempt_done = threading.Event()
+        self._preempt_t = 0.0
+        self._preempt_manifest: list[dict] = []
 
         self.metrics = {
             "requests_completed": 0,
@@ -359,6 +455,13 @@ class Engine:
             "grammar_table_states": 0,
             "grammar_table_overflows": 0,
             "grammar_rollbacks": 0,
+            # preemption: spill-drains run, blocks force-spilled, and
+            # resume admissions by outcome (every full prefix block covered
+            # by the device or host cache, or a re-prefill)
+            "preempts": 0,
+            "preempt_spilled_blocks": 0,
+            "resume_readmits": 0,
+            "resume_reprefills": 0,
         }
         if self._ragged:
             # flat-stream packing: dispatches, live rows packed (decode +
@@ -383,6 +486,13 @@ class Engine:
             self.metrics.update(kv_blocks_in_use=0, kv_blocks_peak=0,
                                 kv_admissions_deferred=0,
                                 kv_slots_reclaimed=0, kv_cow_swaps=0)
+        if self._kvhost is not None:
+            # the host tier: occupancy refreshed from the pool at each
+            # _host_drain; hits/spills/evictions are the pool's cumulative
+            # counters (shared by every engine adopting the pool)
+            self.metrics.update(
+                kv_host_blocks=0, kv_host_bytes=0, kv_host_bytes_peak=0,
+                kv_host_hits=0, kv_host_spills=0, kv_host_evictions=0)
         self._build_fns()
 
     # ------------------------------------------------------------ state
@@ -412,6 +522,15 @@ class Engine:
             self._block_hash_of: dict[int, bytes] = {}
         self._deferred: tuple | None = None   # admission waiting on blocks
         self._blocks_freed = False
+        # in-flight spills and readmits die with the old state: their pool
+        # claims are abandoned and their pins released, or the chain pins
+        # they hold would leak
+        if self._kvhost is not None:
+            for h, _fetch in self._host_pending:
+                self._kvhost.end_spill(h, None)
+            for h, _event in self._readmits:
+                self._kvhost.unpin(h)
+        self._host_pending, self._readmits = [], []
         self._cos, self._sin = rope_table(cfg.rope, T, device=dev)
         if self._paged:
             self._kc, self._vc = init_paged(
@@ -939,6 +1058,153 @@ class Engine:
                 [idx], {k: np.asarray(v)[None] for k, v in row.items()},
                 None if counts_row is None else np.asarray(counts_row)[None])
 
+    # ------------------------------------------------------- host KV tier
+
+    def _spill_arrays(self, pb: int) -> list:
+        """Physical block `pb` of both pools as [kq, ks, vq, vs] on the
+        device: an int8 pool's bytes as stored (its round trip is
+        byte-exact), a dense pool through quantize_tokens (the scales in
+        the [L, KVH, 1, 128] tile layout)."""
+        out = []
+        for c in (self._kc, self._vc):
+            if isinstance(c, QuantKV):
+                out += [c.q[:, pb], c.s[:, pb]]
+            else:
+                q, scale = quantize_tokens(c[:, pb])
+                out += [q, scale[:, :, None, :]]
+        return out
+
+    def _spill_block(self, pb: int, h: bytes | None = None,
+                     group: bytes | None = None):
+        """Spill physical block `pb` to the host tier before its content
+        dies (freed or rewritten). The slice and the copy into pinned host
+        memory (on the card a reused set, _PinnedBlocks) are enqueued on
+        the stream NOW, ahead of any later dispatch that could rewrite the
+        page; _host_drain lands the block in the pool once the copy's event
+        has passed."""
+        if self._kvhost is None:
+            return
+        if h is None:
+            h = self._block_hash_of.get(pb)
+        gkey = group if group is not None else self._spill_group
+        # begin_spill claims the hash AND pins the group's resident chain
+        # until _host_drain lands it: an LRU eviction racing the copy can
+        # not free the chain head under its in-flight tail
+        if h is None or not self._kvhost.begin_spill(h, group=gkey):
+            return
+        out = self._pinned.take() if self._pinned is not None else None
+        with torch.no_grad():
+            self._host_pending.append(
+                (h, _AsyncFetch(self._spill_arrays(pb), out=out)))
+        self.metrics["kv_host_spills"] += 1
+
+    def _host_drain(self):
+        """Release the pool pins of readmits whose host→device copies have
+        run, and land every in-flight spill in the HostKVPool (each waits on
+        its copy's event, normally passed: the copy was enqueued at spill
+        time, ahead of the dispatches since)."""
+        if self._readmits:
+            left = []
+            for h, event in self._readmits:
+                if event.query():
+                    self._kvhost.unpin(h)
+                else:
+                    left.append((h, event))
+            self._readmits = left
+        if not self._host_pending:
+            return
+        from localai_tpu_torch.engine.kvhost import HostKVBlock
+
+        pending, self._host_pending = self._host_pending, []
+        for h, fetch in pending:
+            bufs = tuple(fetch.tensors())
+            blk = HostKVBlock(*bufs)
+            if self._pinned is not None:
+                self._pinned.lend(blk, bufs)
+            self._kvhost.end_spill(h, blk)
+        self._host_note()
+
+    def _host_note(self):
+        """Refresh the kv_host_* metrics from the pool (which engines may
+        share — a restarted engine keeps the pool's history)."""
+        st = self._kvhost.stats()
+        self.metrics["kv_host_blocks"] = st["blocks"]
+        self.metrics["kv_host_bytes"] = st["bytes"]
+        self.metrics["kv_host_bytes_peak"] = st["peak_bytes"]
+        self.metrics["kv_host_spills"] = st["spills"]
+        self.metrics["kv_host_hits"] = st["hits"]
+        self.metrics["kv_host_evictions"] = st["evictions"]
+
+    def _readmit_block(self, pb: int, h: bytes, blk):
+        """Write one host-tier block into physical page `pb`: host→device
+        copies (non-blocking from pinned memory) enqueued ahead of the
+        suffix's prefill on the same stream, then the page written in
+        place (a dense pool dequantizes, (q * s).to(dtype)). On the card
+        the block stays pinned in the pool until its copies have run
+        (_host_drain)."""
+        dev = self.device
+        with torch.no_grad():
+            for c, q, sc in ((self._kc, blk.kq, blk.ks),
+                             (self._vc, blk.vq, blk.vs)):
+                q = q.to(dev, non_blocking=True)
+                sc = sc.to(dev, non_blocking=True)
+                if isinstance(c, QuantKV):
+                    c.q[:, pb] = q
+                    c.s[:, pb] = sc
+                else:
+                    c[:, pb] = (q.float() * sc[:, :, 0, :, None]).to(c.dtype)
+            if dev.type == "cuda" and self._kvhost.pin(h):
+                event = torch.cuda.Event()
+                event.record()
+                self._readmits.append((h, event))
+
+    def _host_extend(self, slot: int, req: GenRequest, shared, shtok: int):
+        """Extend a device prefix-cache match with host-tier blocks.
+
+        Called from _admit_one right after _match_prefix_blocks: for each
+        chain hash past the device hit, a host hit is readmitted into a
+        fresh page (registered in the hash index, so the NEXT tenant finds
+        it on the device); the first miss on both tiers ends the run —
+        everything after it is prefilled. Returns the updated
+        (shared, shtok); readmitted blocks are ref'd like matched ones."""
+        if self._kvhost is None:
+            return shared, shtok
+        self._host_drain()   # a block spilled this tick is admissible now
+        limit = self.ec.max_context - 2 - self._ctx_reserve
+        nfull = min(len(req.prompt_ids) - 1, limit - 1) // BLOCK
+        base = len(shared) if shared is not None else 0
+        if nfull <= base:
+            return shared, shtok
+        chain = self._chain_hashes(req.prompt_ids[:nfull * BLOCK])
+        added: list[int] = []
+        for vb in range(base, nfull):
+            blk = self._kvhost.get(chain[vb])
+            if blk is None:
+                break
+            got = self._take_blocks(1, keep_slot=slot)
+            if got is None:
+                break
+            pb = got[0]
+            self._readmit_block(pb, chain[vb], blk)
+            # register: this page now holds the chain's content on device
+            self._drop_hash(pb)
+            self._hash_index[chain[vb]] = pb
+            self._block_hash_of[pb] = chain[vb]
+            added.append(pb)
+        if added:
+            shared = (list(shared) if shared is not None else []) + added
+            shtok = len(shared) * BLOCK
+        self._host_note()
+        return shared, shtok
+
+    def kvhost_snapshot(self) -> dict:
+        """Host-tier stats ({} when the tier is off)."""
+        if self._kvhost is None:
+            return {}
+        st = self._kvhost.stats()
+        st["pending"] = len(self._host_pending)
+        return st
+
     # ------------------------------------------------- speculative dispatch
 
     def _dev_draft_ingest(self, buf, pos, idx):
@@ -1115,9 +1381,6 @@ class Engine:
                 f"need a larger context window")
         if req.mm_embeds is not None or req.mm_positions is not None:
             raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
-        if req.resume is not None:
-            raise not_ported("resume (preemption checkpoints)",
-                             "preemption/resume")
         if req.context_shift:
             raise not_ported("context_shift", "context-shift")
         if req.prompt_cache_path:
@@ -1231,6 +1494,12 @@ class Engine:
                 # block-level prefix cache: another tenant's pages beat the
                 # slot-retained token match when they cover more prefix
                 shared, shtok = self._match_prefix_blocks(req.prompt_ids)
+                if self._kvhost is not None:
+                    # device miss → host tier: readmit spilled blocks before
+                    # falling back to prefill; the uploads enqueue ahead of
+                    # the suffix's prefill chunks
+                    shared, shtok = self._host_extend(slot, req, shared,
+                                                      shtok)
                 if shtok > lcp:
                     lcp = shtok
                 else:
@@ -1253,11 +1522,27 @@ class Engine:
             chunked = True
             self.metrics["prompt_cache_hits"] += 1
             self.metrics["prompt_tokens_reused"] += lcp
+        if req.resume is not None:
+            # resume outcome: every full prefix block covered by the device
+            # or host cache = a readmit; any uncovered full block pays the
+            # prefill of prompt + emitted
+            if self._paged:
+                full = (min(n - 1, self.ec.max_context - 2
+                            - self._ctx_reserve - 1) // BLOCK) * BLOCK
+                fast = full > 0 and lcp >= full
+            else:
+                fast = lcp > 0
+            self.metrics["resume_readmits" if fast
+                         else "resume_reprefills"] += 1
         p = req.params.normalized()
         heavy = bool(p.logit_bias) or p.repeat_penalty != 1.0 \
             or p.presence_penalty != 0.0 or p.frequency_penalty != 0.0
         row = sampler_row(req.params, self.cfg.vocab_size,
                           fallback_seed=rid + 1, include_bias=heavy)
+        if req.resume is not None and req.resume.get("key") is not None:
+            # the preempted slot's RNG key, read back at the spill-drain,
+            # continues its exact split sequence (greedy ignores it)
+            row = dict(row, key=np.asarray(req.resume["key"], np.uint32))
         if heavy:
             counts_row = np.zeros((self.cfg.vocab_size,), np.int32)
             pid, pcnt = np.unique(np.asarray(req.prompt_ids, np.int64),
@@ -1291,7 +1576,7 @@ class Engine:
                 fast_w = min(W, V)
             elif 0 < tk <= min(8 * W, V):
                 fast_w = min(8 * W, V)
-        self._slots[slot] = _Slot(
+        slot_obj = self._slots[slot] = _Slot(
             request_id=rid, req=req, out=out,
             detok=self.tok.stream_decoder() if self.tok else None,
             start_time=time.monotonic(), prompt_len=n,
@@ -1314,6 +1599,44 @@ class Engine:
                 self._grammar_hostonly += 1
                 self._mask_host[slot] = matcher.mask_bits(
                     self.tok.eos_ids if self.tok else ())
+            if req.resume is not None:
+                # replay the emitted tokens through the automaton, so the
+                # matcher (and the table state) resumes mid-grammar where
+                # the preempted slot stopped
+                eos = self.tok.eos_ids if self.tok else ()
+                for t in req.prompt_ids[n - int(req.resume.get(
+                        "emitted", 0)):]:
+                    if not matcher.accept(t):
+                        break
+                    if gbase is not None:
+                        st = int(self._gtrans_np[self._gstate[slot], t])
+                        self._gstate[slot] = st
+                        self._mask_host[slot] = self._mask_row(st)
+                    else:
+                        self._mask_host[slot] = matcher.mask_bits(eos)
+        if req.resume is not None:
+            # detokenizer replay: the emitted chain through the fresh
+            # incremental decoder (the preempted run's stream), the chars
+            # the client already has suppressed, and the remainder — text
+            # produced but never released (stop-string holdback, chars past
+            # the last chunk sent) — to the stream or the holdback buffer
+            cut = n - int(req.resume.get("emitted", 0))
+            slot_obj.resume_base = n - cut
+            replay = ""
+            if slot_obj.detok is not None:
+                for t in req.prompt_ids[cut:]:
+                    replay += slot_obj.detok.push(t)
+            sent = max(0, int(req.resume.get("sent_chars", 0)))
+            leftover = replay[sent:]
+            slot_obj.sent_chars = sent
+            if req.stop:
+                slot_obj.pending_text = leftover
+            elif leftover:
+                slot_obj.sent_chars += len(leftover)
+                out.put(StepOutput(
+                    request_id=rid, text=leftover, token_id=-1,
+                    logprob=0.0, finished=False,
+                    generated_tokens=0, prompt_tokens=n))
         self.metrics["prompt_tokens_processed"] += n - lcp
         if not chunked and self._draft is not None:
             # the first token is sampled (and emitted) at admission; it is
@@ -1677,11 +2000,22 @@ class Engine:
         """One engine iteration. In pipelined mode one decode dispatch stays
         in flight: dispatch N+1 is enqueued before N's tokens are read.
         Returns True while work remains."""
+        if self._preempt_req.is_set() and (
+                time.monotonic() >= self._preempt_t
+                or not any(s is not None for s in self._slots)):
+            # grace expired (or nothing left decoding): freeze and spill
+            # every live slot, manifest the queue, keep serving — the
+            # caller owns what happens to the process next
+            self._spill_drain()
         if self._draft is not None:
             # draft + ragged = spec-as-ragged: every tick is ONE dispatch
             # of verify windows and prefill chunks
             return (self._step_spec_ragged() if self._ragged
                     else self._step_spec())
+        if self._host_pending or self._readmits:
+            # land last tick's spills (their copies have arrived by now),
+            # so the pool's occupancy metrics stay current
+            self._host_drain()
         if self._ragged and self._step_ragged():
             # mixed tick: decode + prefill ran as one ragged dispatch,
             # consumed synchronously (no pending survives a ragged tick)
@@ -2119,6 +2453,7 @@ class Engine:
                 emit_text = slot.pending_text[:stable] if stable > 0 else ""
                 slot.pending_text = slot.pending_text[max(stable, 0):]
 
+        slot.sent_chars += len(emit_text)
         slot.out.put(StepOutput(
             request_id=slot.request_id, text=emit_text, token_id=token_id,
             logprob=logprob, finished=finish is not None,
@@ -2184,6 +2519,10 @@ class Engine:
             self._block_ref[pb] -= 1
             if self._block_ref[pb] <= 0:
                 self._block_ref[pb] = 0
+                if self._kvhost is not None:
+                    # last reference on registered content: catch it in the
+                    # host tier before the page returns to the free pool
+                    self._spill_block(pb)
                 self._drop_hash(pb)
                 self._kv_free.append(pb)
                 freed = True
@@ -2241,7 +2580,14 @@ class Engine:
                 return None
             self._released_lru.remove(victim)
             self.metrics["kv_slots_reclaimed"] += 1
+            if self._kvhost is not None and self._slot_blocks[victim]:
+                # the victim's retained chain dies as one session: group
+                # its spills under the chain-head hash, so the host tier's
+                # LRU evicts whole conversations, tail first
+                self._spill_group = self._block_hash_of.get(
+                    self._slot_blocks[victim][0])
             self._unref_blocks(self._slot_blocks[victim])
+            self._spill_group = None
             self._slot_blocks[victim] = []
             self._slot_kv_tokens[victim] = []
             self._table[victim, :] = 0
@@ -2307,8 +2653,13 @@ class Engine:
                     lcp = j0 * BLOCK
         # the to-be-written blocks' old content is dead the moment the
         # first new row lands — their hash entries must go now, or the
-        # index would hand out pages mid-rewrite
+        # index would hand out pages mid-rewrite. The host tier catches
+        # each registered block on the way out (its copy is enqueued before
+        # this request's first prefill dispatch can rewrite the page)
         for j in range(lcp // BLOCK, len(have)):
+            if self._kvhost is not None:
+                self._spill_block(
+                    have[j], group=self._block_hash_of.get(have[0]))
             self._drop_hash(have[j])
         self._table[slot, :] = 0
         self._table[slot, :len(have)] = have
@@ -2316,7 +2667,11 @@ class Engine:
             self._released_lru.remove(slot)
         return lcp
 
-    def _release_slot(self, idx: int, slot: _Slot):
+    def _release_slot(self, idx: int, slot: _Slot, retain: bool = True):
+        """Free `slot`; with `retain` (and the prompt cache on) its cached
+        rows stay as a warm prefix. A preempted mid-prefill slot passes
+        retain=False: its blocks are only partly written, so none is
+        registered in the prefix index."""
         self._finish_rid(slot.request_id)
         if slot.matcher is not None:
             self._mask_host[idx] = 0xFF
@@ -2324,8 +2679,9 @@ class Engine:
             self._gstate[idx] = 0    # row 0 = identity (all-ones, self-loop)
             if slot.gbase is None:
                 self._grammar_hostonly -= 1
+        retain = retain and self.ec.prompt_cache and self._draft is None
         if self._paged:
-            if self.ec.prompt_cache and self._draft is None:
+            if retain:
                 # retain ONLY the blocks holding cached rows as the warm
                 # prefix cache (reclaimable oldest-first, _take_blocks); the
                 # unused tail of the reservation returns to the pool now.
@@ -2359,7 +2715,7 @@ class Engine:
             self._note_pool()
         # record what the slot's cache still holds (rows 0..len-1) so a
         # later prompt sharing the prefix skips that part of its prefill
-        if self.ec.prompt_cache and self._draft is None:
+        if retain:
             self._slot_kv_tokens[idx] = (list(slot.req.prompt_ids)
                                          + slot.gen_ids)[
                 : self.ec.max_context - 2]
@@ -2487,10 +2843,150 @@ class Engine:
             self._fail_active("cancelled")
 
     def preempt(self, grace: float = 0.0) -> list[dict]:
-        """Spill-drain checkpointing of live requests (the reference's
-        ResumeToken path) needs the host KV tier."""
-        raise not_ported("preempt (spill-drain checkpoints)",
-                         "preemption/resume")
+        """Preemption notice: freeze every in-flight request, force-spill
+        its KV chain to the host tier, and return a resume manifest (one
+        ResumeToken dict a live or queued request).
+
+        For up to `grace` seconds the engine keeps decoding — slots that
+        finish stream their normal terminal chunk — then the spill-drain
+        runs at a tick boundary: each surviving slot gets a terminal
+        StepOutput with finish_reason "preempted" carrying its checkpoint.
+
+        Safe from any thread; with no loop thread running (generate() or
+        tests) the drain runs inline. The engine stays serviceable — a
+        resume may be submitted right back into it."""
+        if self._dead:
+            return []
+        self._preempt_manifest = []
+        self._preempt_done.clear()
+        self._preempt_t = time.monotonic() + max(float(grace), 0.0)
+        if self._thread is not None and self._thread.is_alive():
+            self._preempt_req.set()
+            self._wake.set()
+            self._preempt_done.wait(timeout=max(float(grace), 0.0) + 60.0)
+        else:
+            self._preempt_req.set()
+            while (self._preempt_req.is_set()
+                   and time.monotonic() < self._preempt_t
+                   and any(s is not None for s in self._slots)):
+                self.step()
+            if self._preempt_req.is_set():
+                self._spill_drain()
+        return list(self._preempt_manifest)
+
+    def _spill_drain(self):
+        """The engine-thread half of preempt(): consume the in-flight
+        dispatch, checkpoint, spill and release every live slot, manifest
+        the queued, deferred and mid-admission requests, and land the
+        spills in the host pool."""
+        from localai_tpu_torch.engine.resume import ResumeToken
+
+        self._preempt_req.clear()
+        if self._pending is not None:
+            self._consume(self._pending)
+            self._pending = None
+        self._prefillq.clear()
+        manifest: list[dict] = []
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        # the per-slot RNG keys as the device advanced them (the fused
+        # loops' fixed tensors included: self._sampler is bound to them) —
+        # a sampled resume continues from these, not from the seed
+        keys = self._sampler.key.cpu().numpy() if live else None
+        now = time.monotonic()
+        spilled_total = 0
+        frozen: set[int] = set()
+        for idx in live:
+            slot = self._slots[idx]
+            frozen.add(slot.request_id)
+            tok, spilled = self._freeze_slot(idx, slot, keys, now)
+            spilled_total += spilled
+            manifest.append(tok.to_dict())
+            slot.out.put(StepOutput(
+                request_id=slot.request_id, text="", token_id=-1,
+                logprob=0.0, finished=True, finish_reason="preempted",
+                generated_tokens=slot.generated,
+                prompt_tokens=slot.prompt_len, resume=tok.to_dict()))
+            # a mid-prefill slot's blocks are only partly written: none of
+            # them may enter the prefix index
+            self._release_slot(idx, slot, retain=slot.prefilled)
+        # queued / deferred / mid-admission requests have no device state:
+        # their manifest entries are plain resubmits (emitted=[])
+        waiting = []
+        if self._deferred is not None:
+            waiting.append(self._deferred)
+            self._deferred = None
+        if self._admitting is not None:
+            rid, req, out = self._admitting
+            self._admitting = None
+            if rid not in frozen:   # died before reaching a slot
+                waiting.append((rid, req, out))
+        while True:
+            try:
+                waiting.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for rid, req, out in waiting:
+            tok = ResumeToken(
+                prompt_ids=list(req.prompt_ids), emitted=[],
+                deadline_left=(max(req.deadline - now, 0.0)
+                               if req.deadline else 0.0),
+                request_id=req.trace_id or f"rid-{rid}")
+            manifest.append(tok.to_dict())
+            self._finish_rid(rid)
+            out.put(StepOutput(
+                request_id=rid, text="", token_id=-1, logprob=0.0,
+                finished=True, finish_reason="preempted",
+                prompt_tokens=len(req.prompt_ids), resume=tok.to_dict()))
+        if self._kvhost is not None:
+            self._host_drain()
+        self.metrics["preempts"] += 1
+        self.metrics["preempt_spilled_blocks"] += spilled_total
+        self._preempt_manifest = manifest
+        self._preempt_done.set()
+
+    def _freeze_slot(self, idx: int, slot: _Slot, keys, now: float):
+        """Checkpoint one live slot into a ResumeToken, force-spilling its
+        full KV chain blocks to the host tier (the retention rules of
+        _release_slot: a prefilled slot, prompt cache on, no draft).
+        Returns (token, blocks spilled)."""
+        from localai_tpu_torch.engine.resume import ResumeToken
+
+        req = slot.req
+        spilled = 0
+        chain_hex: list[str] = []
+        if (self._paged and self.ec.prompt_cache and self._kvhost is not None
+                and slot.prefilled and self._draft is None):
+            kept = min(slot.prompt_len + slot.generated,
+                       self.ec.max_context - 2)
+            ids = (list(req.prompt_ids) + slot.gen_ids)[:kept]
+            chain = self._chain_hashes(ids)
+            blocks = self._slot_blocks[idx]
+            group = chain[0] if chain else None
+            for vb, h in enumerate(chain):
+                if vb >= len(blocks):
+                    break
+                self._spill_block(blocks[vb], h=h, group=group)
+                spilled += 1
+                chain_hex.append(h.hex())
+        key = None
+        if keys is not None and not req.params.normalized().greedy:
+            key = [int(k) for k in np.asarray(keys[idx]).astype(np.uint32)]
+        # a slot that is itself a resume carries replayed emitted tokens in
+        # its prompt (resume_base): fold them back into the checkpoint's
+        # emitted list, so the ORIGINAL prompt boundary — and with it the
+        # detokenizer replay and the sent_chars cursor — stays fixed across
+        # any number of preempt/resume rounds
+        cut = slot.prompt_len - slot.resume_base
+        return ResumeToken(
+            prompt_ids=list(req.prompt_ids[:cut]),
+            emitted=list(req.prompt_ids[cut:]) + list(slot.gen_ids),
+            key=key,
+            sent_chars=int(slot.sent_chars),
+            chain=chain_hex,
+            deadline_left=(max(req.deadline - now, 0.0)
+                           if req.deadline else 0.0),
+            request_id=req.trace_id or f"rid-{slot.request_id}",
+        ), spilled
 
     def _fail_active(self, reason: str):
         """Send a terminal StepOutput to every in-flight slot, deferred and

@@ -10,7 +10,7 @@ import hygiene.
   or `localai_tpu` module in sys.modules.
 - An AST scan finds no `jax` / `localai_tpu` import anywhere in
   localai_tpu_torch/ or the chip scripts (chip_smoke.py, chip_profile.py,
-  chip_rows.py, chip_stage_sweep.py).
+  chip_rows.py, chip_stage_sweep.py, chip_host_tier.py).
   (`localai_tpu_torch` starts with "localai_tpu": the checks match the
   name exactly or with a dot.)
 """
@@ -151,7 +151,8 @@ def test_load_rejects_unported_options(ckpt):
 
     for kw in (dict(draft_model="x"),
                dict(embeddings=True), dict(mesh_model=2),
-               dict(options=json.dumps({"kv_policy": "sink_window"}))):
+               dict(options=json.dumps({"kv_policy": "sink_window"})),
+               dict(options=json.dumps({"kv_cold_pages": 4}))):
         s = LLMServicer(device="cpu")
         r = s.LoadModel(pb.ModelOptions(model=ckpt, dtype="float32", **kw),
                         None)
@@ -169,6 +170,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import localai_tpu_torch.engine\n"
         "import localai_tpu_torch.engine.spec\n"
         "import localai_tpu_torch.engine.speculative\n"
+        "import localai_tpu_torch.engine.kvhost\n"
+        "import localai_tpu_torch.engine.resume\n"
         "import localai_tpu_torch.models.llama\n"
         "import localai_tpu_torch.ops.kernels\n"
         "print(json.dumps(sorted(sys.modules)))\n")
@@ -179,6 +182,8 @@ def test_import_leaves_no_jax_in_sys_modules():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "localai_tpu_torch.backend.backend_pb2" in mods
     assert "localai_tpu_torch.engine.speculative" in mods
+    assert "localai_tpu_torch.engine.kvhost" in mods
+    assert "localai_tpu_torch.engine.resume" in mods
     bad = [m for m in mods if _forbidden(m)]
     assert bad == []
 
@@ -197,11 +202,11 @@ def _imports(path):
 def test_ast_no_jax_or_reference_imports():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "chip_profile.py", "chip_rows.py",
-        "chip_stage_sweep.py")]
+        "chip_stage_sweep.py", "chip_host_tier.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "localai_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    for name in ("spec.py", "speculative.py"):
+    for name in ("spec.py", "speculative.py", "kvhost.py", "resume.py"):
         assert os.path.join(ROOT, "localai_tpu_torch", "engine",
                             name) in files
     bad = [(os.path.relpath(f, ROOT), line, mod) for f in files

@@ -167,12 +167,15 @@ def test_threaded_serving_cancel_and_deadline(models):
     ("replicator", object())])
 def test_unported_config_rejected(models, field, value):
     (_, _, _), (tcfg, tp, ttok) = models
-    # ragged batching is served now, but only over a paged pool: without
-    # kv_pages it is rejected as the reference rejects it
-    exc, match = ((ValueError, "paged") if field == "ragged_token_budget"
+    # ragged batching and the host KV tier are served now, but only over a
+    # paged pool: without kv_pages they are rejected as the reference
+    # rejects them
+    exc, match = ((ValueError, "paged")
+                  if field in ("ragged_token_budget", "kv_host_bytes")
                   else (NotImplementedError, "slice"))
     with pytest.raises(exc, match=match):
-        TEngine(tcfg, tp, ttok, TConfig(**{field: value}), device="cpu")
+        TEngine(tcfg, tp, ttok, TConfig(**dict(EC, **{field: value})),
+                device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -182,15 +185,54 @@ def test_unported_config_rejected(models, field, value):
 def test_unported_request_fields_rejected(models, field, value):
     (_, _, _), (tcfg, tp, ttok) = models
     eng = TEngine(tcfg, tp, ttok, TConfig(**EC), device="cpu")
+    if field == "resume":
+        # served now: a resume is a normal request with the checkpoint's
+        # fixups; on a dense engine with nothing cached it re-prefills
+        out = list(eng.generate(TRequest([3, 4], TParams(temperature=0.0),
+                                         max_tokens=4, ignore_eos=True,
+                                         **{field: value})))
+        assert out[-1].finish_reason == "length"
+        assert eng.metrics["resume_reprefills"] == 1
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         eng.submit(TRequest([3, 4], **{field: value}))
 
 
 def test_preempt_waits_for_its_slice(models):
+    """Engine.preempt is served now: on a dense engine without a host tier
+    a live greedy stream ends "preempted" with its ResumeToken, and the
+    token resumed in the same engine (the slot's prompt cache holds the
+    prefix) continues into the uninterrupted stream."""
+    from localai_tpu_torch.engine.resume import ResumeToken
+
     (_, _, _), (tcfg, tp, ttok) = models
     eng = TEngine(tcfg, tp, ttok, TConfig(**EC), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        eng.preempt(0.0)
+    req = dict(params=TParams(temperature=0.0), max_tokens=20,
+               ignore_eos=True)
+    want = [o.token_id for o in eng.generate(TRequest(list(range(3, 40)),
+                                                      **req))]
+    eng = TEngine(tcfg, tp, ttok, TConfig(**EC), device="cpu")
+    _, q = eng.submit(TRequest(list(range(3, 40)), **req))
+    got = []
+    while not got:
+        eng.step()
+        while not q.empty():
+            got.append(q.get().token_id)
+    man = eng.preempt(0.0)
+    while True:
+        o = q.get_nowait()
+        if o.finished:
+            break
+        got.append(o.token_id)
+    assert o.finish_reason == "preempted" and man == [o.resume]
+    tok = ResumeToken.from_dict(o.resume)
+    assert tok.emitted == got and tok.key is None
+    rest = [o.token_id for o in eng.generate(TRequest(
+        tok.resume_prompt, **dict(req, max_tokens=20 - tok.generated),
+        resume=tok.payload())) if o.token_id >= 0]
+    assert got + rest == [t for t in want if t >= 0]
+    assert eng.metrics["preempts"] == 1
+    assert eng.metrics["resume_readmits"] == 1
 
 
 def test_device_defaults_to_cuda():
