@@ -55,7 +55,18 @@ and the script exits non-zero:
      and head_matmul on its tied head [128256, 2048], w8a16_matmul on
      the 8B's projections and the 8B head at the verify's M = 8 x 5, and
      ragged attention and the flat-row scatters at a spec-as-ragged pack
-     (eight 5-row windows in 8-row blocks beside a 128-row chunk).
+     (eight 5-row windows in 8-row blocks beside a 128-row chunk). Then
+     the KV tier's kernels, each with its planted faults (a ring map off
+     by one column; the cold tier read without its scales), line `phase2
+     kv tier`: the tiered paged decode at the 8B's widths (8 slots up to
+     32768 tokens, sinks 256, window 4096) under the drop policy over bf16
+     and int8 hot pools and with the cold tier (the middle demoted) over a
+     bf16 pool, timed beside the untiered kernel over the full lengths,
+     with bound_ms from the live bytes, plus f32 cases, H=28/KVH=4 and
+     G=16; full-policy sentinels equal the untiered kernel bit for bit;
+     the tiered ragged attention at phase 6's pack over ring tables
+     (sinks 128, window 1024); the demotion (row 7's kernel over a hot
+     block's rows) bit-exact, ms a layer and a 32-layer block.
   3. card vs CPU: an f32 model with the 8B widths and 2 layers, weights
      made once on the CPU from a fixed seed; the same greedy request for 16
      tokens through the port on the CPU (plain versions) and on the card
@@ -120,52 +131,55 @@ and the script exits non-zero:
      teacher-forced reference. Then the same run on a synthetic checkpoint
      of Qwen2-7B's published widths (Qwen2ForCausalLM: hidden 3584, 28
      layers, 28 heads on 4 KV heads, head_dim 128, QKV bias, untied head,
-     vocab 152064), full depth, both recipes, with the same checks.
-  7. grammar-constrained decoding at full width. The leg's checkpoint is
-     a directory of its own: the synthetic Llama-3.1-8B's config and a
-     ByteLevel BPE tokenizer written here (the 256 byte symbols, strings
-     of 2-8 JSON-ish characters from a seed, no merges, an EOS token;
-     128256 entries). The grammar tables at V = 128256: the tool-call
-     grammar's build seconds and states, the JSON grammar's overflow, the
-     device tables' bytes. One wave of four streams — two on the tool-call
-     grammar (greedy, seeded-sampled; device tables, fused loops), one on
-     the generic JSON grammar (it overflows the tables: host-only, the
-     block path with rollbacks), one free — with a malformed GBNF sent
-     mid-wave, then the same prompts as four free streams (the baseline
-     tok/s): through the gRPC backend on the dense path (bf16, int8
-     recipe) and, on phase 6's Llama weights, an in-process ragged Engine
-     of phase 6's shape. Checks: every grammar stream's tokens up to EOS
-     or its budget are accepted by the port's matcher; the table-backed
-     streams ran as graph replays of the grammar key; the host-only one
-     took the block path; the malformed GBNF gets INVALID_ARGUMENT (a
-     ValueError at the Engine's submit) while the others finish; the
-     greedy tool-call stream passes the teacher-forced check with each
-     reference row masked by the matcher. Each reading line carries the
-     card's name and power limit.
-  8. speculative decoding at full width: the synthetic Llama-3.1-8B (32
-     layers) with a synthetic draft of Llama-3.2-1B's published widths
-     (hidden 2048, 16 layers, 32 heads on 8 KV heads, head_dim 64, tied
-     head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
-     LoadModel(draft_model, n_draft=4) on the dense path (phase 4's
-     prompts, the fourth greedy), then draft Engines in-process on phase
-     5's pool (kv_pages=129, 8 slots; phase 6's two waves of requests,
-     first without the draft) and on phase 6's ragged path. Checks: three
-     greedy streams a path pass the teacher-forced check, whose planted
-     fault — the draft's own proposals, as an accept test that takes
-     every draft would serve them — fails; the draft's dense decode
-     launched (gamma+1) x 16 times a spec dispatch, counted from the
-     engine's metrics, the target's decode kernels never, and on the
-     ragged path ragged attention and the flat-row scatter once a layer a
-     spec-as-ragged dispatch, no fused loop; then a perfect draft (2
-     layers at the 8B widths, bf16, draft = target) accepts >= 0.95,
-     dense and ragged. Prints tok/s and TTFT p50 with and without the
-     draft, the acceptance (near 0 with random weights: not a finding),
-     and a spec dispatch's host and device-busy ms, split into the draft
-     steps, the verify and the accept tail.
+     vocab 152064), 8 of its 28 layers since PR 14 (the smoke's time
+     limit), both recipes, with the same checks.
+  7. grammar-constrained decoding at full width. The leg's checkpoint is a
+     directory of its own: the synthetic Llama-3.1-8B's config (8 of its 32
+     layers on the gRPC legs since PR 14; the ragged wave rides phase 6's 32
+     layers) and a ByteLevel BPE tokenizer written here (the 256 byte
+     symbols, strings of 2-8 JSON-ish characters from a seed, no merges, an
+     EOS token; 128256 entries). The grammar tables at V = 128256: the tool-
+     call grammar's build seconds and states, the JSON grammar's overflow,
+     the device tables' bytes. One wave of four streams — two on the tool-
+     call grammar (greedy, seeded-sampled; device tables, fused loops), one
+     on the generic JSON grammar (it overflows the tables: host-only, the
+     block path with rollbacks), one free — with a malformed GBNF sent mid-
+     wave, then the same prompts as four free streams (the baseline tok/s):
+     through the gRPC backend on the dense path (bf16, int8 recipe) and, on
+     phase 6's Llama weights, an in-process ragged Engine of phase 6's
+     shape. Checks: every grammar stream's tokens up to EOS or its budget
+     are accepted by the port's matcher; the table-backed streams ran as
+     graph replays of the grammar key; the host-only one took the block
+     path; the malformed GBNF gets INVALID_ARGUMENT (a ValueError at the
+     Engine's submit) while the others finish; the greedy tool-call stream
+     passes the teacher-forced check with each reference row masked by the
+     matcher. Each reading line carries the card's name and power limit.
+  8. speculative decoding at full width: the synthetic Llama-3.1-8B's widths
+     at 4 of its 32 layers (since PR 14: the smoke's time limit) with a
+     synthetic draft of Llama-3.2-1B's published widths (hidden 2048, 4 of
+     its 16 layers, 32 heads on 8 KV heads, head_dim 64, tied head), gamma
+     4, bf16 then the int8 recipe: the gRPC backend's LoadModel(draft_model,
+     n_draft=4) on the dense path (phase 4's prompts, the fourth greedy),
+     then draft Engines in-process on phase 5's pool (kv_pages=129, 8 slots;
+     phase 6's two waves of requests, first without the draft) and on phase
+     6's ragged path. Checks: three greedy streams a path pass the teacher-
+     forced check, whose planted fault — the draft's own proposals, as an
+     accept test that takes every draft would serve them — fails; the
+     draft's dense decode launched (gamma+1) x 4 times a spec dispatch (a
+     launch a draft layer a step), counted from the engine's metrics, the
+     target's decode kernels never, and on the ragged path ragged attention
+     and the flat-row scatter once a layer a spec-as-ragged dispatch, no
+     fused loop; then a perfect draft (2 layers at the 8B widths, bf16,
+     draft = target) accepts >= 0.95, dense and ragged. Prints tok/s and
+     TTFT p50 with and without the draft, the acceptance (near 0 with random
+     weights: not a finding), and a spec dispatch's host and device-busy ms,
+     split into the draft steps, the verify and the accept tail.
   9. the host KV spill tier, preemption and resume at full width: the
-     synthetic Llama-3.1-8B (32 layers) with the grammar leg's tokenizer,
-     bf16 then the int8 recipe, in-process Engines on phase 5's pool
-     (kv_pages=129, 8 slots, prompt cache on) with kv_host_bytes = 2 GiB.
+     synthetic Llama-3.1-8B's widths at 8 of its 32 layers (since PR 14:
+     the smoke's time limit) with the grammar leg's tokenizer, bf16 then
+     the int8 recipe, in-process Engines on phase 5's pool (kv_pages=129,
+     8 slots, prompt cache on) with kv_host_bytes = 512 MiB (2 GiB at 32
+     layers: the same 248 blocks).
      9.1: waves A1 (8 conversations, 2000-token prompts), A2 (8 unrelated
      2000-token prompts, which reclaim or rewrite A1's retained blocks:
      they spill) and A3 (A1's follow-ups: prompt + reply + 100 new
@@ -190,6 +204,28 @@ and the script exits non-zero:
      wall ms and blocks, host bytes at peak, A3's TTFT p50 with and
      without the tier, resume TTFT p50 by readmit and by re-prefill, and
      the launches of the paged decode and scatter kernels in the phase.
+ 10. the KV retention tier at full width: the synthetic Llama-3.1-8B (32
+     layers) with the grammar leg's tokenizer, in-process Engines of 4
+     slots and 8192-token contexts, four 6000-token prompts of 256 new
+     tokens (three greedy, one seeded): kv_policy full (a pool of four
+     contexts); sink_window(sinks=128, window=1024) on the paged and the
+     ragged path (budget 192), bf16 and the int8 recipe (pools of 4 x 13
+     resident blocks + 1); with quantize_cold over a bf16 pool (a cold pool
+     of 4 x 49 + 1 blocks; paged only, as the reference); then the gRPC
+     backend's LoadModel with kv_policy in its options serving phase 4's
+     prompts. Checks: every stream to its budget; kv_blocks_peak <= 4 x
+     the resident blocks; kv_evictions (drop) and kv_cold_blocks (cold)
+     exactly 4 x 39 (_kv_tick's rule at the final length); the tiered
+     reads launched and no untiered one (the full engine: no tiered one),
+     the demotion 32 launches a cold block; three greedy streams an engine
+     against a teacher-forced plain forward under the same retention (the
+     sink and window mask; the demoted middle through the quantize_tokens
+     round trip), whose planted fault — a stream held to another prompt —
+     fails; a second wave of per-request policies ("full", a narrower
+     window) on the paged bf16 engine captures no new graph. Prints, each
+     with the card: tok/s, TTFT p50, busy ms a decode step (CUDA events
+     around each fused-loop segment replay), the seconds to prefill, the
+     demote's ms a block, the tiered launches.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -246,6 +282,14 @@ CFG_QWEN2_7B = {
     "tie_word_embeddings": False, "sliding_window": 131072,
     "use_sliding_window": False, "max_window_layers": 28,
 }
+
+# Depth cuts that keep the whole smoke within its time limit (since PR 14):
+# the leading phases and phase 10 serve the 8B at its 32 layers; phases 7
+# and 9 at 8 of them, phase 8's target at 4 with its draft at 4 of its 16,
+# phase 6's Qwen2-7B run at 8 of its 28. Widths, vocabularies and shapes
+# stay the published ones; every check counts the layers it serves.
+CUT_8B = dict(CFG_8B, num_hidden_layers=8)
+CUT_QWEN2_7B = dict(CFG_QWEN2_7B, num_hidden_layers=8)
 
 # the grammar leg's grammars, as GBNF text (what the control plane sends
 # the backend in PredictOptions.grammar): a forced call of one tool (the
@@ -1599,6 +1643,7 @@ def phase_kernels():
             2, 96, 8, 2, 256, f32, [96, 50]),
     }
     ragged_packs(H, KVH, D)
+    main.update(tier_kernels())
     main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
     main["spec shapes"] = spec_shapes()
     main["launch floor"] = launch_floor()
@@ -1609,6 +1654,457 @@ def phase_kernels():
         for k, r in wide.items()}))
     log("phase2 kernels: all within tolerance")
     return main
+
+
+# ------------------------------------------------- phase 2: the KV tier
+
+# the tiered paged decode at the 8B's widths: 8 slots up to 32768 tokens,
+# sinks 256, window 4096, the ring of the engine's default margin (256)
+TIER_LENS = [32768, 30001, 24577, 16500, 8193, 4097, 2000, 300]
+TIER_SINKS, TIER_WINDOW, TIER_MARGIN = 256, 4096, 256
+
+
+def _tier_geometry(sinks, window):
+    """(sink blocks, ring blocks) of sink_window(sinks, window) at the
+    engine's default margin (engine/kvtier.py)."""
+    from localai_tpu_torch.engine import kvtier
+
+    pol = kvtier.parse_policy(f"sink_window(sinks={sinks}, window={window})")
+    return pol.sink_blocks, kvtier.ring_blocks(window, TIER_MARGIN)
+
+
+def _tier_rows(L, sb, rw, sinks, window, demoted):
+    """(hot rows, cold rows, hot blocks, cold blocks) a tiered read of one
+    slot of length L takes: the resident rows it keeps (sinks and window;
+    with the cold tier every resident row not demoted) and the demoted rows
+    of the cold pool (`demoted`: raw blocks in the cold table, None without
+    the cold tier)."""
+    cur = (L - 1) // 128
+    ring_lo = max(sb, cur - rw + 1)
+    hot = cold = hb = cb = 0
+    for raw in range(cur + 1):
+        rows = [p for p in range(raw * 128, min(raw * 128 + 128, L))]
+        if demoted is not None and raw in demoted:
+            cold += len(rows)
+            cb += 1
+            continue
+        if raw >= sb and raw < ring_lo:
+            continue
+        kept = rows if demoted is not None else [
+            p for p in rows if p >= L - window or p < sinks]
+        hot += len(kept)
+        hb += 1 if kept else 0
+    return hot, cold, hb, cb
+
+
+def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
+                      H=32, KVH=8, D=128, sinks=TIER_SINKS,
+                      window=TIER_WINDOW, timed=True, seed=0):
+    """The tiered paged decode (rows 3/5 with the KV tier) against its plain
+    version: compact ring tables of sb + rw distinct blocks a slot of a
+    shuffled pool; with `cold`, each slot's middle — raw blocks sb ..
+    (L - window)/128 - 1, the ones the engine demotes — in an int8 cold
+    pool through the cold table. Planted faults that the bar must reject:
+    the ring map off by one column (the ring's table columns rotated), and
+    (cold) the cold tier read without its scales. Timed: ms (warm and cold
+    L2), ms_graph, the plain version, and the untiered paged kernel over
+    the full lengths (a table of ceil(L/128) blocks, `untiered_ms`);
+    bound_ms from the live bytes — the kept rows at the hot dtype, the
+    demoted rows at int8 with their scales."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        decode_split, launch_counts, ragged_decode, ragged_decode_plain,
+        ragged_decode_q8, ragged_decode_q8_plain,
+    )
+    from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
+
+    B = len(lens)
+    sb, rw = _tier_geometry(sinks, window)
+    maxb = sb + rw
+    nb = B * maxb + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    v = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = perm[:B * maxb].reshape(B, maxb).to(torch.int32).cuda()
+    q = torch.randn(B, 1, H, D, device="cuda", generator=g).to(dtype)
+
+    def full(x):
+        return torch.full((B,), x, dtype=torch.int32, device="cuda")
+
+    kvt = dict(sb=full(sb), rw=full(rw), sinks=full(sinks),
+               window=full(window))
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = (kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128))
+        kernel, plain_fn = ragged_decode_q8, ragged_decode_q8_plain
+    else:
+        pools = (k.to(dtype), v.to(dtype))
+        kernel, plain_fn = ragged_decode, ragged_decode_plain
+    kw, demoted = {}, [None] * B
+    mbc = -(-max(lens) // 128)
+    if cold:
+        ctab = torch.zeros(B, mbc, dtype=torch.int32)
+        ci = 1
+        demoted = [set() for _ in range(B)]
+        for b, n in enumerate(lens):
+            for raw in range(sb, max((n - window) // 128, sb)):
+                ctab[b, raw] = ci
+                demoted[b].add(raw)
+                ci += 1
+        kvt["cold_tab"] = ctab.cuda()
+        ck = [quantize_tokens(torch.randn(ci, KVH, 128, D, device="cuda",
+                                          generator=g)) for _ in range(2)]
+        kw["cold_kv"] = tuple(QuantKV(a, s.reshape(ci, KVH, 1, 128))
+                              for a, s in ck)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    fn = lambda: kernel(q, *pools, lens_t, table=table,  # noqa: E731
+                        kvt=kvt, **kw)
+    plain = lambda: plain_fn(q, *pools, lens_t, table=table,  # noqa: E731
+                             kvt=kvt, **kw)
+    kname = ("ragged_decode_q8_paged_tier" if q8
+             else "ragged_decode_paged_tier")
+    before = launch_counts()[kname]
+    out = fn()
+    torch.cuda.synchronize()
+    if launch_counts()[kname] != before + 1:
+        raise AssertionError(f"{kname}: one call did not count one launch")
+    ref = plain()
+    shifted = table.clone()
+    shifted[:, sb:] = table[:, sb:].roll(-1, dims=1)
+    faults = {"planted_fault_ring_off_by_one": plain_fn(
+        q, *pools, lens_t, table=shifted, kvt=kvt, **kw)}
+    if cold:
+        faults["planted_fault_cold_scales_dropped"] = plain_fn(
+            q, *pools, lens_t, table=table, kvt=kvt,
+            cold_kv=tuple(QuantKV(c.q, torch.ones_like(c.s))
+                          for c in kw["cold_kv"]))
+    name = (f"{kname}{' cold' if cold else ''} {str(dtype).split('.')[-1]} "
+            f"B={B} H={H} KVH={KVH} D={D} MAXB={maxb} (sb {sb}, ring {rw}) "
+            f"lengths={lens} sinks={sinks} window={window}")
+    tol = TOL[str(dtype).split(".")[-1]]
+    res = _check_close(name, out, ref, tol, fault=faults)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["nsplit"], res["split"] = decode_split(maxb * 128, B * KVH, sms)
+    if cold:
+        res["nsplit_cold"], res["split_cold"] = decode_split(
+            mbc * 128, B * KVH, sms)
+    if timed:
+        es = q.element_size()
+        kv_es = 1 if q8 else es
+        hot = cold_rows = blocks = 0
+        for b, n in enumerate(lens):
+            h_, c_, hb, cb = _tier_rows(n, sb, rw, sinks, window,
+                                        demoted[b])
+            hot, cold_rows, blocks = hot + h_, cold_rows + c_, blocks + hb + cb
+        # the kept rows' K/V (int8: with scales), the demoted rows' int8
+        # K/V and scales, the table and cold-table entries read, q and out,
+        # lengths and the geometry
+        nbytes = (hot * KVH * 2 * (D * kv_es + (4 if q8 else 0))
+                  + cold_rows * KVH * 2 * (D + 4) + 8 * blocks
+                  + 2 * B * H * D * es + 4 * B * 5)
+        flops = 4.0 * (hot + cold_rows) * H * D
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        # the untiered kernel over the full lengths (ceil(L/128) blocks a
+        # slot of a pool holding them all)
+        need = [-(-n // 128) for n in lens]
+        nbf = sum(need) + 1
+        kf = torch.randn(nbf, KVH, 128, D, device="cuda", generator=g)
+        vf = torch.randn(nbf, KVH, 128, D, device="cuda", generator=g)
+        ftab = torch.zeros(B, mbc, dtype=torch.int32)
+        used = 1
+        for b, a in enumerate(need):
+            ftab[b, :a] = torch.arange(used, used + a)
+            used += a
+        ftab = ftab.cuda()
+        if q8:
+            fq, fs = quantize_tokens(kf)
+            gq, gs = quantize_tokens(vf)
+            fpools = (fq, fs.reshape(nbf, KVH, 1, 128), gq,
+                      gs.reshape(nbf, KVH, 1, 128))
+        else:
+            fpools = (kf.to(dtype), vf.to(dtype))
+        untiered = lambda: kernel(q, *fpools, lens_t,  # noqa: E731
+                                  table=ftab)
+        res.update(ms=_time_ms(fn), ms_cold=_time_ms(fn, cold=True),
+                   ms_host=_time_ms(fn, spin=False), ms_graph=_graph_ms(fn),
+                   plain_ms=_time_ms(plain, reps=5, warm=1),
+                   untiered_ms=_time_ms(untiered),
+                   untiered_ms_cold=_time_ms(untiered, cold=True),
+                   live_rows={"hot": hot, "cold": cold_rows,
+                              "of": sum(lens)},
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_formula=(f"max({nbytes:.4g} B of kept K/V + demoted "
+                                  f"int8 K/V + tables + q/out / 3.35 TB/s, "
+                                  f"{flops:.4g} flop / {peak / 1e12:.0f} "
+                                  f"TFLOP/s)"),
+                   library_ms=None, library_ms_host=None,
+                   library_note="no PyTorch call attends through a ring")
+        del kf, vf, fpools
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_tier_sentinels(q8):
+    """Full-policy sentinels (sb = the table width, rw = 1, sinks = window
+    = the context) give the untiered paged kernel's output bit for bit, at
+    phase 2's main paged shapes."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import ragged_decode, ragged_decode_q8
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    lens8 = [33, 49, 332, 732, 1532, 672, 712, 4095]
+    k, v, table, nb = _paged_pools(8, 8, 128, lens8, 32, nb=129)
+    q = torch.randn(8, 1, 32, 128, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        2)).to(torch.bfloat16)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = (kq, ks.reshape(nb, 8, 1, 128), vq, vs.reshape(nb, 8, 1, 128))
+        kernel = ragged_decode_q8
+    else:
+        pools = (k.to(torch.bfloat16), v.to(torch.bfloat16))
+        kernel = ragged_decode
+    lt = torch.tensor(lens8, dtype=torch.int32, device="cuda")
+
+    def full(x):
+        return torch.full((8,), x, dtype=torch.int32, device="cuda")
+
+    kvt = dict(sb=full(32), rw=full(1), sinks=full(4096), window=full(4096))
+    a = kernel(q, *pools, lt, table=table, kvt=kvt)
+    b = kernel(q, *pools, lt, table=table)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"tiered decode (q8={q8}) with full-policy "
+                             f"sentinels differs from the untiered kernel: "
+                             f"{float((a.float() - b.float()).abs().max())}")
+    return True
+
+
+# phase 6's pack over ring tables of phase 10's policy (sinks 128, window
+# 1024; sb 1 and a ring of 12: MAXB 13); sequence 0 (33 tokens) carries the
+# full-policy sentinels
+TIER_RAGGED = dict(sinks=128, window=1024)
+
+
+def check_tier_ragged(H, KVH, D, dtype, q8=False, timed=True):
+    """The tiered ragged attention (rows 8/9 with the KV tier) against its
+    plain version at phase 6's pack (eight decode rows and a 128-row chunk
+    at 1024) over compact ring tables; a planted ring map off by one column
+    must fail. bound_ms from the keys each q tile keeps."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        launch_counts, ragged_paged_attention, ragged_paged_attention_plain,
+        ragged_paged_attention_q8, ragged_paged_attention_q8_plain,
+        ragged_split,
+    )
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    sinks, window = TIER_RAGGED["sinks"], TIER_RAGGED["window"]
+    sb, rw = _tier_geometry(sinks, window)
+    maxb = sb + rw
+    seqs = _ragged_seqs(RAGGED_DECODE, RAGGED_CHUNK)
+    n = len(seqs)
+    nb = n * maxb + 1
+    g = torch.Generator(device="cuda").manual_seed(4)
+    k = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    v = torch.randn(nb, KVH, 128, D, device="cuda", generator=g)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        4)) + 1
+    tables = perm[:n * maxb].reshape(n, maxb).to(torch.int32).cuda()
+    block_seq, qstart, live, row = [], [], [], 0
+    for kvl, ql in seqs:
+        qstart.append(row)
+        block_seq += [len(qstart) - 1] * -(-ql // 8)
+        live += list(range(row, row + ql))
+        row += -(-ql // 8) * 8
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    meta = dict(block_seq=i32(block_seq), qstart=i32(qstart),
+                qlen=i32([x[1] for x in seqs]),
+                kvlen=i32([x[0] for x in seqs]), tables=tables)
+    kvt = dict(sb=i32([maxb] + [sb] * (n - 1)), rw=i32([1] + [rw] * (n - 1)),
+               sinks=i32([8192] + [sinks] * (n - 1)),
+               window=i32([8192] + [window] * (n - 1)))
+    q = torch.randn(row, H, D, device="cuda", generator=g).to(dtype)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = (kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128))
+        kernel = ragged_paged_attention_q8
+        plain_fn = ragged_paged_attention_q8_plain
+    else:
+        pools = (k.to(dtype), v.to(dtype))
+        kernel, plain_fn = ragged_paged_attention, ragged_paged_attention_plain
+    fn = lambda: kernel(q, *pools, **meta, kvt=kvt)  # noqa: E731
+    plain = lambda: plain_fn(q, *pools, **meta, kvt=kvt)  # noqa: E731
+    kname = ("ragged_paged_attention_q8_tier" if q8
+             else "ragged_paged_attention_tier")
+    before = launch_counts()[kname]
+    out = fn()
+    torch.cuda.synchronize()
+    if launch_counts()[kname] != before + 1:
+        raise AssertionError(f"{kname}: one call did not count one launch")
+    ref = plain()
+    shifted = tables.clone()
+    shifted[:, sb:] = tables[:, sb:].roll(-1, dims=1)
+    fault = plain_fn(q, *pools, **dict(meta, tables=shifted), kvt=kvt)
+    rows = torch.tensor(live, device="cuda")
+    desc = ",".join(f"{a}/{b}" for a, b in seqs)
+    name = (f"{kname} {str(dtype).split('.')[-1]} T={row} MAXB={maxb} "
+            f"(sb {sb}, ring {rw}) NB={nb} H={H} KVH={KVH} D={D} "
+            f"kvlen/qlen=[{desc}] sinks={sinks} window={window} (sequence 0 "
+            f"full-policy)")
+    tol = TOL[str(dtype).split(".")[-1]]
+    res = _check_close(name, out[rows], ref[rows], tol,
+                       fault={"planted_fault_ring_off_by_one": fault[rows]})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["nsplit"], res["split"] = ragged_split(row, maxb, KVH, sms)
+    if timed:
+        es = q.element_size()
+        kv_es = 1 if q8 else es
+        pairs = kv_read = entries = 0
+        for s, (kvl, ql) in enumerate(seqs):
+            snk, win = (8192, 8192) if s == 0 else (sinks, window)
+            first = kvl - ql
+            keys = set(range(min(snk, kvl))) | set(
+                range(max(first - win + 1, 0), kvl))
+            kv_read += len(keys)
+            entries += len({p // 128 for p in keys})
+            for p in range(first, kvl):
+                pairs += min(p + 1, win) + max(0, min(snk, p - win + 1))
+        nbytes = (kv_read * KVH * 2 * (D * kv_es + (4 if q8 else 0))
+                  + 2 * len(live) * H * D * es + 4 * entries)
+        flops = 4.0 * pairs * H * D
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        res.update(ms=_time_ms(fn), ms_cold=_time_ms(fn, cold=True),
+                   ms_host=_time_ms(fn, spin=False), ms_graph=_graph_ms(fn),
+                   plain_ms=_time_ms(plain),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_formula=(f"max({nbytes:.4g} B of kept K/V + live "
+                                  f"q/out + table / 3.35 TB/s, {flops:.4g} "
+                                  f"flop / {peak / 1e12:.0f} TFLOP/s)"),
+                   library_ms=None, library_ms_host=None,
+                   library_note="no PyTorch call attends through a ring")
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_demote(dtype, layers=32, KVH=8, D=128, NBC=64):
+    """The demotion (paged_demote_q8: row 7's quantizing kernel over one
+    hot block's KVH*128 rows a layer) against its plain version, bit for
+    bit over the whole cold pool, with a planted fault (the targets one
+    row off) that must differ; ms a layer and a block (`layers` launches,
+    as Engine._dev_demote runs them)."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import (
+        demote_targets, paged_demote_q8, paged_demote_q8_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    hot = torch.randn(layers, 4, KVH, 128, D, device="cuda",
+                      generator=g).to(dtype)
+    cq = torch.zeros(layers, NBC, KVH, 128, D, dtype=torch.int8,
+                     device="cuda")
+    cs = torch.zeros(layers, NBC, KVH, 1, 128, device="cuda")
+    pools = [cq, cs, cq.clone(), cs.clone()]
+    plain_pools = [p.clone() for p in pools]
+    rows = torch.arange(KVH * 128, dtype=torch.int32, device="cuda")
+    targets = demote_targets(5, KVH, rows)
+
+    def block(pl, fn, tg=targets):
+        for i in range(layers):
+            fn(pl[0][i], pl[1][i], pl[2][i], pl[3][i], hot[i, 2], hot[i, 3],
+               tg)
+
+    block(pools, paged_demote_q8)
+    torch.cuda.synchronize()
+    block(plain_pools, paged_demote_q8_plain)
+    for a, b in zip(pools, plain_pools):
+        if not torch.equal(a, b):
+            raise AssertionError("paged_demote_q8 differs from its plain "
+                                 "version")
+    bad = [p.clone() for p in plain_pools]
+    block(bad, paged_demote_q8_plain, (targets[0], (targets[1] + 1) % 128))
+    if all(torch.equal(a, b) for a, b in zip(pools, bad)):
+        raise AssertionError("the demote check does not reject the planted "
+                             "fault")
+    one = lambda: paged_demote_q8(cq[0], cs[0], cq[0], cs[0],  # noqa: E731
+                                  hot[0, 2], hot[0, 3], targets)
+    es = hot.element_size()
+    nbytes = 2 * KVH * 128 * (D * es + D + 4)
+    res = {"max_abs_err": 0.0, "tol": "bit-exact",
+           "planted_fault": "targets one row off: differs",
+           "ms": _time_ms(one), "ms_host": _time_ms(one, spin=False),
+           "ms_graph": _graph_ms(one),
+           "plain_ms": _time_ms(lambda: paged_demote_q8_plain(
+               cq[0], cs[0], cq[0], cs[0], hot[0, 2], hot[0, 3], targets)),
+           "ms_block": _time_ms(lambda: block(pools, paged_demote_q8)),
+           "layers": layers,
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "bound_formula": f"{nbytes} B (a layer's K and V block read, "
+                            f"int8 rows and scales written) / 3.35 TB/s",
+           "library_ms": None, "library_ms_host": None,
+           "library_note": "no single PyTorch call quantizes rows and "
+                           "scatters them with their scales"}
+    log(f"paged_demote_q8 {str(dtype).split('.')[-1]} KVH={KVH} D={D} "
+        + json.dumps(res))
+    return res
+
+
+def tier_kernels():
+    """Phase 2's KV-tier kernels: the tiered paged decode (bf16 and int8
+    hot pools under the drop policy, the cold tier over a bf16 pool — the
+    reference keeps the cold tier to dense hot pools — and small f32
+    cases), the sentinels' bit-exactness, the tiered ragged attention at
+    phase 6's pack (bf16, int8, f32), and the demote."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    out = {
+        "ragged_decode_paged_tier": check_tier_decode(bf16),
+        "ragged_decode_q8_paged_tier": check_tier_decode(bf16, q8=True),
+        "ragged_decode_paged_tier cold": check_tier_decode(bf16, cold=True),
+    }
+    for cold in (False, True):
+        check_tier_decode(f32, cold=cold, lens=[3000, 1100, 300, 1], H=8,
+                          KVH=2, D=64, sinks=100, window=700, timed=False)
+    check_tier_decode(f32, q8=True, lens=[3000, 1100, 300, 1], H=8, KVH=2,
+                      D=64, sinks=100, window=700, timed=False)
+    check_tier_decode(bf16, lens=TIER_LENS, H=28, KVH=4, timed=False)
+    check_tier_decode(bf16, cold=True, lens=TIER_LENS, H=128, KVH=8,
+                      timed=False)
+    sentinels = {q8: check_tier_sentinels(q8) for q8 in (False, True)}
+    out["ragged_paged_attention_tier"] = check_tier_ragged(32, 8, 128, bf16)
+    out["ragged_paged_attention_q8_tier"] = check_tier_ragged(
+        32, 8, 128, bf16, q8=True)
+    check_tier_ragged(32, 8, 128, f32, timed=False)
+    check_tier_ragged(28, 4, 128, bf16, timed=False)
+    out["paged_demote_q8"] = check_demote(bf16)
+    log("phase2 kv tier " + json.dumps({
+        k: {f: r.get(f) for f in ("max_abs_err", "ms", "ms_cold", "ms_graph",
+                                  "untiered_ms", "bound_ms", "plain_ms",
+                                  "ms_block")}
+        for k, r in out.items()})
+        + f" sentinels bit-exact {sentinels} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -2793,7 +3289,7 @@ def phase_ragged_path(smi, grammar_then=None):
     the Llama run's sums. `grammar_then(recipe)`: the grammar leg's ragged
     wave on each Llama recipe's weights, after its checks."""
     total = _serve_ragged_model(CFG_8B, "phase6", smi, then=grammar_then)
-    _serve_ragged_model(CFG_QWEN2_7B, "phase6 qwen2-7b", smi)
+    _serve_ragged_model(CUT_QWEN2_7B, "phase6 qwen2-7b", smi)
     return total
 
 
@@ -3367,10 +3863,10 @@ def grammar_setup(d):
 
 def phase_grammar(d, smi, tok):
     """Phase 7, the grammar leg at full width: the tables at V = 128256,
-    then the synthetic Llama-3.1-8B (32 layers) with the grammar
-    checkpoint's tokenizer served by the gRPC backend on the dense path,
-    bf16 then the int8 recipe. (The ragged path's grammar wave ran on
-    phase 6's weights: grammar_ragged.)"""
+    then the synthetic Llama-3.1-8B's widths (8 of its 32 layers) with
+    the grammar checkpoint's tokenizer served by the gRPC backend on the
+    dense path, bf16 then the int8 recipe. (The ragged path's grammar wave
+    ran on phase 6's weights: grammar_ragged.)"""
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
     tables = phase_grammar_tables(smi, tok)
     out = {name: serve_grammar_grpc(name, d, kw, smi)
@@ -3397,8 +3893,12 @@ SPEC_REQUESTS = [(1, dict(temperature=0.0)),
 # engine never runs the fused ragged loop, so ragged_loop_steps is unread)
 SPEC_PAGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                      prefill_buckets=(64, 256, 512), prefill_chunk=512)
-DRAFT_LAYERS = CFG_1B["num_hidden_layers"]
-LAYERS_8B = CFG_8B["num_hidden_layers"]
+# phase 8's target and draft at their depth cuts (CUT_8B's note); the spec
+# checks count launches by these layers
+SPEC_TARGET = dict(CFG_8B, num_hidden_layers=4)
+SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=4)
+LAYERS_8B = SPEC_TARGET["num_hidden_layers"]
+DRAFT_LAYERS = SPEC_DRAFT["num_hidden_layers"]
 
 
 def draft_fault(engine, ids, toks, lps):
@@ -3528,8 +4028,8 @@ def _spec_summary(label, m0, m1, spec, plain, smi, extra=None):
 
 
 def _spec_launch_checks(label, counts, m0, m1, ragged):
-    """Row 2 launched (gamma+1) x 16 times a spec dispatch (the draft's
-    steps), counted from the engine's metrics; on the ragged path rows
+    """Row 2 launched (gamma+1) x DRAFT_LAYERS times a spec dispatch (the
+    draft's steps), counted from the engine's metrics; on the ragged path rows
     8-11 once a layer a spec-as-ragged dispatch; the target never ran the
     decode kernels, and no fused loop ran."""
     G = SPEC_GAMMA
@@ -3849,8 +4349,9 @@ def _perfect_draft_runs(cfg, params, dtype, out):
 
 def phase_spec_path(smi):
     """Phase 8, speculative decoding at full width: the synthetic
-    Llama-3.1-8B (32 layers) with a synthetic draft of Llama-3.2-1B's
-    widths (16 layers), gamma 4, bf16 then the int8 recipe, on the dense
+    Llama-3.1-8B (4 of its 32 layers) with a synthetic draft of
+    Llama-3.2-1B's widths (4 of its 16 layers), gamma 4, bf16 then the
+    int8 recipe, on the dense
     path (the gRPC backend's LoadModel draft_model), the paged pool and
     the ragged path (in-process Engines); then the perfect-draft leg.
     Returns the launch counts of the spec legs' requests, summed."""
@@ -3860,7 +4361,7 @@ def phase_spec_path(smi):
     total, out = {}, {}
     with tempfile.TemporaryDirectory() as d, \
             tempfile.TemporaryDirectory() as dd:
-        for path, cfg_json in ((d, CFG_8B), (dd, CFG_1B)):
+        for path, cfg_json in ((d, SPEC_TARGET), (dd, SPEC_DRAFT)):
             with open(os.path.join(path, "config.json"), "w") as f:
                 json.dump(dict(cfg_json, localai_synthetic=True), f)
         for name, dtype, kv in RECIPES:
@@ -3889,7 +4390,9 @@ def phase_spec_path(smi):
 
 # ------------------------------------------------------------------ phase 9
 
-HOST_BYTES = 2 << 30              # room for 248 int8 blocks of the 8B
+# room for 248 int8 blocks of the 8B at phase 9's depth (8 of 32 layers)
+HOST_BYTES = (2 << 30) * CUT_8B["num_hidden_layers"] // CFG_8B[
+    "num_hidden_layers"]
 HOST_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                prompt_cache=True, prefill_buckets=(64, 256, 512),
                prefill_chunk=512)
@@ -4362,11 +4865,11 @@ def grpc_preempt_leg(d, tok, smi):
 
 def phase_host_tier(d, smi, tok):
     """Phase 9, the host KV spill tier, preemption and resume at full
-    width: the synthetic Llama-3.1-8B (32 layers) with the grammar
-    checkpoint's tokenizer, bf16 then the int8 recipe, on phase 5's paged
-    pool with kv_host_bytes = 2 GiB (9.1 host tier, 9.2 preempt and
-    resume in-process), then the gRPC SIGTERM leg (9.3, bf16). Returns
-    the launch counts of the phase."""
+    width: the synthetic Llama-3.1-8B's widths at `d`'s depth (8 of its
+    32 layers) with the grammar checkpoint's tokenizer, bf16 then the
+    int8 recipe, on phase 5's paged pool with kv_host_bytes = HOST_BYTES
+    (9.1 host tier, 9.2 preempt and resume in-process), then the gRPC
+    SIGTERM leg (9.3, bf16). Returns the launch counts of the phase."""
     import gc
 
     import torch
@@ -4395,6 +4898,411 @@ def phase_host_tier(d, smi, tok):
         if counts[k] <= 0:
             raise AssertionError(f"phase9: {k} never launched")
     return counts, grpc
+
+
+# ----------------------------------------------------------------- phase 10
+
+TIER_EC = dict(max_slots=4, max_context=8192)
+TIER_PROMPT, TIER_NEW = 6000, 256
+TIER_DROP = "sink_window(sinks=128, window=1024)"
+TIER_COLD = "sink_window(sinks=128, window=1024, quantize_cold=true)"
+TIER_SAMPLING = [dict(temperature=0.0), dict(temperature=0.0),
+                 dict(temperature=0.8, seed=7), dict(temperature=0.0)]
+TIER_GREEDY = (0, 1, 3)
+# _kv_tick's rule: raw block r >= sink blocks (1) leaves the window once
+# (r + 1) * 128 <= n - window. A slot ends at n = 6256; the last tick before
+# its release sees at least n = 6256 - 64 (one fused dispatch in flight),
+# and 6192 - 1024 >= 40 * 128, so raws 1 .. 39 leave: 39 a slot
+TIER_EXITS = (TIER_PROMPT + TIER_NEW - 1024) // 128 - 1
+# phase 10's second wave: per-request policies on the windowed engine
+TIER_MIXED = ["full", "sink_window(sinks=0, window=512)", "", "full"]
+TIER_MIXED_PROMPT, TIER_MIXED_NEW = 1200, 64
+
+
+def tier_engine(cfg, params, tok, kv, policy, ragged=False):
+    """An in-process Engine of phase 10: 4 slots, 8192-token contexts; a
+    windowed policy gets a pool of 4 slots' resident blocks + 1 (and with
+    quantize_cold a cold pool of 4 full contexts' blocks + 1), the full
+    policy a pool of 4 full contexts. Warmed up (graphs captured)."""
+    from localai_tpu_torch.engine import kvtier
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+    from localai_tpu_torch.ops.paged import blocks_needed
+
+    ec = dict(TIER_EC, cache_type=kv)
+    if ragged:
+        ec["ragged_token_budget"] = 192
+    pol = kvtier.parse_policy(policy)
+    if pol.windowed:
+        margin = kvtier.engine_margin_tokens(EngineConfig(**ec))
+        ec.update(kv_policy=policy,
+                  kv_pages=4 * kvtier.resident_blocks(pol, margin) + 1)
+        if pol.quantize_cold:
+            ec["kv_cold_pages"] = 4 * blocks_needed(
+                TIER_PROMPT + TIER_NEW) + 1
+    else:
+        ec["kv_pages"] = 4 * blocks_needed(TIER_EC["max_context"]) + 1
+    eng = Engine(cfg, params, tok, EngineConfig(**ec), device="cuda")
+    eng.warmup()
+    return eng
+
+
+def _replay_events(eng):
+    """CUDA events around each fused-loop segment the engine replays from
+    here on: [(start, end, steps)]. A segment is one graph launch, so the
+    time between its events is the card's time on its steps (it starts
+    once the work before it is done; nothing of the host runs inside it):
+    the busy ms a decode step of the fused loops."""
+    import torch
+
+    marks, run = [], eng.graphs.run
+
+    def timed(key, steps, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run(key, steps, *a, **kw)
+        e1.record()
+        marks.append((e0, e1, steps))
+
+    eng.graphs.run = timed
+    return marks
+
+
+def _busy_ms_step(marks):
+    import torch
+
+    if not marks:
+        return None
+    torch.cuda.synchronize()
+    return (sum(a.elapsed_time(b) for a, b, _ in marks)
+            / sum(n for _, _, n in marks))
+
+
+def tier_wave(eng, salt, sampling=None, policies=None, prompt=None,
+              new=None, timed=False):
+    """Four requests of `prompt` tokens at once (`sampling`, per-request
+    `policies`), run to the end; each must finish "length" with `new`
+    tokens. Returns (records, readings): wall s, the s until every slot
+    had prefilled, and with `timed` (on the card) the busy ms a decode
+    step of the fused loops' replays (_replay_events)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    sampling = sampling or TIER_SAMPLING
+    prompt, new = prompt or TIER_PROMPT, new or TIER_NEW
+    marks = _replay_events(eng) if timed else None
+    t0 = time.perf_counter()
+    recs = []
+    for i, sp in enumerate(sampling):
+        ids = prompt_ids(i, prompt, salt)
+        rid, q = eng.submit(GenRequest(
+            ids, SamplingParams(**sp), max_tokens=new, ignore_eos=True,
+            logprobs=True, kv_policy=policies[i] if policies else ""))
+        recs.append(dict(rid=rid, ids=ids, q=q, t0=time.perf_counter(),
+                         ttft=None, toks=[], lps=[], text="", last=None))
+    out = {"prefilled_s": None}
+    while _pump(eng, recs):
+        live = [s for s in eng._slots if s is not None]
+        if (out["prefilled_s"] is None and len(live) == len(recs)
+                and all(s.prefilled for s in live)):
+            out["prefilled_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t0
+    if timed:
+        del eng.graphs.run
+        out["busy_ms_step"] = _busy_ms_step(marks)
+        out["steps_timed"] = sum(n for _, _, n in marks)
+    for r in recs:
+        if (r["last"] is None or r["last"].finish_reason != "length"
+                or len(r["toks"]) != new):
+            raise AssertionError(
+                f"phase10: a request ended "
+                f"{r['last'] and r['last'].finish_reason} after "
+                f"{len(r['toks'])} tokens")
+    return recs, out
+
+
+def _tier_forward(engine, seq, n_out, mode, sinks, window, sb):
+    """Logits of the last n_out positions of `seq` through a plain forward
+    of the engine's model (the weight GEMMs' plain versions within
+    plain_weight_gemms; attention in plain PyTorch, 512 queries at a time)
+    under the tier's retention: "full" every key k <= q; "drop" keys k <= q
+    with k > q - window or k < sinks; "cold" every key k <= q, a key in a
+    block the tier demotes before the query — raw >= sb and (raw + 1) * 128
+    + window <= q — at its quantize_tokens round trip, bf16(q8 * scale) as
+    the reference's dequant gives it. An int8 pool's keys and values are
+    all at their round trip, as the pool holds them."""
+    import torch
+
+    from localai_tpu_torch.models import llama as tl
+    from localai_tpu_torch.ops.attention import NEG_INF
+    from localai_tpu_torch.ops.kvcache import is_quant_kind, quantize_tokens
+    from localai_tpu_torch.ops.norms import rms_norm
+    from localai_tpu_torch.ops.quant import qmatmul
+    from localai_tpu_torch.ops.rope import apply_rope
+
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    S, D = len(seq), cfg.head_dim
+    KVH, G = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q8 = is_quant_kind(engine.ec.cache_type)
+    pos = torch.arange(S, device=dev)
+
+    def rt(x):
+        qq, sc = quantize_tokens(x)
+        return (qq.float() * sc[..., None]).to(torch.bfloat16)
+
+    x = tl._embed(params, torch.tensor([seq], device=dev), cfg.tdtype)
+    for lp in params.layers:
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = tl._qkv(h, lp, cfg)
+        q = apply_rope(q, engine._cos, engine._sin, pos[None])
+        k = apply_rope(k, engine._cos, engine._sin, pos[None])
+        kh, vh = k[0].to(torch.bfloat16), v[0].to(torch.bfloat16)
+        if q8:
+            kh, vh = rt(k[0]), rt(v[0])
+        kc = vc = None
+        if mode == "cold":
+            kc, vc = rt(k[0]), rt(v[0])
+        out = torch.empty(S, cfg.num_heads, D, dtype=torch.bfloat16,
+                          device=dev)
+        for a in range(0, S, 512):
+            b = min(a + 512, S)
+            qc = q[0, a:b].to(torch.bfloat16).reshape(b - a, KVH, G, D)
+            kp, qp = pos[:b], pos[a:b]
+            mask = kp[None, :] <= qp[:, None]
+            if mode == "drop":
+                mask &= (kp[None, :] > qp[:, None] - window) \
+                    | (kp[None, :] < sinks)
+            sc = torch.einsum("qkgd,tkd->kgqt", qc, kh[:b]).float() \
+                * D ** -0.5
+            if mode == "cold":
+                raw = kp // 128
+                cold = (raw[None, :] >= sb) \
+                    & ((raw[None, :] + 1) * 128 + window <= qp[:, None])
+                scc = torch.einsum("qkgd,tkd->kgqt", qc, kc[:b]).float() \
+                    * D ** -0.5
+                sc = torch.where(cold[None, None], scc, sc)
+            sc = torch.where(mask[None, None], sc, NEG_INF)
+            p = torch.softmax(sc, -1).to(torch.bfloat16)
+            if mode == "cold":
+                o = (torch.einsum("kgqt,tkd->qkgd", p * ~cold[None, None],
+                                  vh[:b])
+                     + torch.einsum("kgqt,tkd->qkgd", p * cold[None, None],
+                                    vc[:b]))
+            else:
+                o = torch.einsum("kgqt,tkd->qkgd", p, vh[:b])
+            out[a:b] = o.reshape(b - a, cfg.num_heads, D)
+        x = x + qmatmul(out.to(cfg.tdtype).reshape(1, S, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + tl._mlp(h, lp)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    return tl._lm_head(x[0, -n_out:].float(), params)
+
+
+def tier_reference(label, engine, recs, mode):
+    """Three greedy streams of a phase 10 engine against _tier_forward's
+    teacher-forced logits under the engine's retention (the served token's
+    reference logit within REF_MARGIN of the row's largest, its logprob
+    within REF_LP_TOL); the planted fault — the first stream's tokens
+    held to another stream's prompt — must fail."""
+    import torch
+
+    pol, dev = engine._kv_policy, engine.device
+    sinks, window, sb = pol.sinks, pol.window, pol.sink_blocks
+
+    def readings(ids, toks, lps):
+        with torch.no_grad(), plain_weight_gemms():
+            ref = _tier_forward(engine, list(ids) + list(toks[:-1]),
+                                len(toks), mode, sinks, window, sb)
+        t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
+        gap = ref.max(1).values - ref.gather(1, t)[:, 0]
+        lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
+        dlp = (lp_ref - torch.tensor(lps, device=dev)).abs()
+        return {"max_gap": float(gap.max()),
+                "argmax_equal": int((gap == 0).sum()), "tokens": len(toks),
+                "max_dlogprob": float(dlp.max())}
+
+    out = {f"request {i}": readings(recs[i]["ids"], recs[i]["toks"],
+                                    recs[i]["lps"]) for i in TIER_GREEDY}
+    out["planted fault"] = readings(recs[1]["ids"], recs[0]["toks"],
+                                    recs[0]["lps"])
+    for name, r in out.items():
+        ok = r["max_gap"] <= REF_MARGIN and r["max_dlogprob"] <= REF_LP_TOL
+        if name == "planted fault" and ok:
+            raise AssertionError(f"phase10 {label}: the reference check does "
+                                 f"not reject the planted fault")
+        if name != "planted fault" and not ok:
+            raise AssertionError(f"phase10 {label} {name}: served greedy "
+                                 f"tokens disagree with the reference {r}")
+    return out
+
+
+TIER_OWN = {"bf16": "ragged_decode_paged_tier",
+            "int8": "ragged_decode_q8_paged_tier"}
+TIER_RAGGED_OWN = {"bf16": "ragged_paged_attention_tier",
+                   "int8": "ragged_paged_attention_q8_tier"}
+TIER_KERNELS = ("ragged_decode_paged_tier", "ragged_decode_q8_paged_tier",
+                "ragged_paged_attention_tier",
+                "ragged_paged_attention_q8_tier", "paged_demote_q8")
+
+
+def tier_leg(label, recipe, cfg, params, tok, kv, policy, ragged, salt,
+             smi, mixed=False):
+    """One phase 10 engine: the wave of four 6000-token prompts, its checks
+    (pool peak, exits, launches, the teacher-forced streams), with `mixed`
+    a second wave of per-request policies that must capture no new graph.
+    Returns its reading."""
+    import gc
+
+    import torch
+
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    eng = tier_engine(cfg, params, tok, kv, policy, ragged)
+    before = launch_counts()
+    g0 = eng.graphs.counters()
+    t0 = time.perf_counter()
+    recs, wave = tier_wave(eng, salt, timed=True)
+    after = launch_counts()
+    m = dict(eng.metrics)
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    pol = eng._kv_policy
+    row = {"engine": label, "policy": policy, "ragged": ragged,
+           "tok_s": sum(len(r["toks"]) for r in recs) / wave["wall_s"],
+           "ttft_p50_ms": _p50_ms(recs), **wave,
+           "kv_pages": eng.ec.kv_pages, "kv_blocks_peak": m["kv_blocks_peak"],
+           "graphs": graph_delta(g0, eng.graphs.counters()),
+           "launches": launched}
+    own = (TIER_RAGGED_OWN if ragged else TIER_OWN)[recipe] \
+        if pol.windowed else PAGED_OWN[recipe][0]
+    if launched.get(own, 0) <= 0:
+        raise AssertionError(f"phase10 {label}: {own} never launched")
+    if pol.windowed:
+        row["resident_blocks"] = eng._kv_resident
+        row.update({k: m[k] for k in ("kv_cold_blocks", "kv_evictions",
+                                      "kv_recomputes",
+                                      "kv_policy_demotions")})
+        if m["kv_blocks_peak"] > 4 * eng._kv_resident:
+            raise AssertionError(f"phase10 {label}: kv_blocks_peak "
+                                 f"{m['kv_blocks_peak']} > 4 x "
+                                 f"{eng._kv_resident}")
+        want = (0, 4 * TIER_EXITS) if not pol.quantize_cold \
+            else (4 * TIER_EXITS, 0)
+        if (m["kv_cold_blocks"], m["kv_evictions"]) != want:
+            raise AssertionError(f"phase10 {label}: (kv_cold_blocks, "
+                                 f"kv_evictions) {m['kv_cold_blocks']}, "
+                                 f"{m['kv_evictions']} != {want}")
+        untiered = [k for k in ("ragged_decode_paged",
+                                "ragged_decode_q8_paged",
+                                "ragged_paged_attention",
+                                "ragged_paged_attention_q8")
+                    if launched.get(k)]
+        if untiered:
+            raise AssertionError(f"phase10 {label}: untiered reads "
+                                 f"{untiered} launched")
+        demotes = launched.get("paged_demote_q8", 0)
+        if demotes != cfg.num_layers * m["kv_cold_blocks"]:
+            raise AssertionError(f"phase10 {label}: {demotes} demote "
+                                 f"launches for {m['kv_cold_blocks']} cold "
+                                 f"blocks")
+    elif any(launched.get(k) for k in TIER_KERNELS):
+        raise AssertionError(f"phase10 {label}: the untiered engine "
+                             f"launched a tiered kernel")
+    mode = ("cold" if pol.quantize_cold else "drop") if pol.windowed \
+        else "full"
+    t1 = time.perf_counter()
+    row["reference"] = tier_reference(label, eng, recs, mode)
+    row["reference_s"] = time.perf_counter() - t1
+    if mixed:
+        c0 = eng.graphs.counters()
+        _, wave2 = tier_wave(
+            eng, salt + 1, sampling=[dict(temperature=0.0)] * 4,
+            policies=TIER_MIXED, prompt=TIER_MIXED_PROMPT,
+            new=TIER_MIXED_NEW)
+        c1 = eng.graphs.counters()
+        caps = {p: c1[p]["captures"] - c0[p]["captures"] for p in c1}
+        if any(caps.values()):
+            raise AssertionError(f"phase10 {label}: the mixed-policy wave "
+                                 f"captured new graphs {caps}")
+        row["mixed_wave"] = {"policies": TIER_MIXED,
+                             "new_captures": caps,
+                             "replays": {p: c1[p]["replays"]
+                                         - c0[p]["replays"] for p in c1},
+                             "tok_s": 4 * TIER_MIXED_NEW / wave2["wall_s"],
+                             "kv_policy_demotions": eng.metrics[
+                                 "kv_policy_demotions"]}
+    row["leg_s"] = time.perf_counter() - t0
+    log(f"phase10 {label} " + json.dumps(row) + f" card {smi}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kv_tier(d, smi, tok, demote):
+    """Phase 10, the KV retention tier at full width: the synthetic
+    Llama-3.1-8B (32 layers) with the grammar checkpoint's tokenizer,
+    in-process Engines of 4 slots and 8192-token contexts serving four
+    6000-token prompts of 256 new tokens (three greedy, one seeded): the
+    full policy; sink_window(sinks=128, window=1024) on the paged path and
+    on the ragged path (budget 192), bf16 and the int8 recipe; with
+    quantize_cold over a bf16 pool (paged: the reference refuses the cold
+    tier with ragged); then the gRPC backend's LoadModel with kv_policy in
+    its options serving phase 4's prompts. Returns the phase's launch
+    counts."""
+    import gc
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = []
+    legs = {"bf16": [("bf16 full", "full", False, False),
+                     ("bf16 drop paged", TIER_DROP, False, True),
+                     ("bf16 drop ragged", TIER_DROP, True, False),
+                     ("bf16 cold paged", TIER_COLD, False, False)],
+            "int8": [("int8 drop paged", TIER_DROP, False, False),
+                     ("int8 drop ragged", TIER_DROP, True, False)]}
+    for salt, (name, dtype, kv) in enumerate(RECIPES):
+        cfg = load_config(d, dtype=dtype)
+        params = load_params(d, cfg, dtype=dtype, device="cuda")
+        for j, (label, policy, ragged, mixed) in enumerate(legs[name]):
+            rows.append(tier_leg(label, name, cfg, params, tok, kv, policy,
+                                 ragged, 31 + 7 * salt + j, smi, mixed))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    before = launch_counts()
+    grpc_row = serve_recipe(
+        "bf16 kv tier", d, dict(dtype="bfloat16"), phase="phase10",
+        load_opts=dict(parallel=4, context_size=2048, kv_pages=61,
+                       options=json.dumps({"kv_policy": TIER_DROP})))
+    after = launch_counts()
+    if (after["ragged_decode_paged_tier"] <= before["ragged_decode_paged_tier"]
+            or after["ragged_decode_paged"] != before["ragged_decode_paged"]):
+        raise AssertionError("phase10 gRPC: the tiered paged decode did not "
+                             "serve the stream alone")
+    for k in ("kv_evictions", "kv_cold_blocks", "kv_blocks_peak"):
+        if k not in grpc_row["metrics_after"]:
+            raise AssertionError(f"phase10 gRPC: GetMetrics lacks {k}")
+    counts = launch_counts()
+    log("phase10 summary " + json.dumps({
+        "tok_s": {r["engine"]: r["tok_s"] for r in rows},
+        "ttft_p50_ms": {r["engine"]: r["ttft_p50_ms"] for r in rows},
+        "busy_ms_step": {r["engine"]: r["busy_ms_step"] for r in rows},
+        "kv_blocks_peak": {r["engine"]: r["kv_blocks_peak"] for r in rows},
+        "demote_ms_block": demote["ms_block"],
+        "demote_ms_layer": demote["ms"],
+        "tiered_launches": {k: counts[k] for k in TIER_KERNELS},
+        "grpc": {"tok_s": grpc_row["tok_s"],
+                 "ttft_p50_ms": grpc_row["ttft_p50_ms"]}})
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    return counts
 
 
 KERNELS = {
@@ -4431,6 +5339,24 @@ KERNELS = {
                      "localai_tpu/ops/quant.py:78"),
     "head_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
                     "localai_tpu/models/llama.py:347"),
+    # the KV tier's variants of rows 3/5 and 8/9 (on the TPU the tiered
+    # reads ride XLA twins: models/llama.py _decode_dq, the ragged
+    # _xla_core), and the demotion on row 7's kernel (the reference's
+    # engine _demote, XLA)
+    "ragged_decode_paged_tier": (
+        "localai_tpu_torch/csrc/decode_attention.cu",
+        "localai_tpu/ops/pallas/flash_attention.py:248"),
+    "ragged_decode_q8_paged_tier": (
+        "localai_tpu_torch/csrc/decode_attention.cu",
+        "localai_tpu/ops/pallas/flash_attention.py:411"),
+    "ragged_paged_attention_tier": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:203"),
+    "ragged_paged_attention_q8_tier": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:297"),
+    "paged_demote_q8": ("localai_tpu_torch/csrc/paged_scatter.cu",
+                        "localai_tpu/ops/pallas/paged_scatter.py:254"),
 }
 # which path's run each kernel's `launches` comes from: PR 1's dense main
 # path (phase 4), the paged path (phase 5) or the ragged path (phase 6)
@@ -4445,25 +5371,44 @@ def main():
 
     import torch
 
+    t0 = time.perf_counter()
+    walls = {}
+
+    def timed(label, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[label] = round(time.perf_counter() - t, 1)
+        return out
+
     smi = phase_device()
-    phase_build()
-    measured = phase_kernels()
-    with tempfile.TemporaryDirectory() as gdir:
+    timed("1 build", phase_build)
+    measured = timed("2 kernels", phase_kernels)
+    with tempfile.TemporaryDirectory() as gdir, \
+            tempfile.TemporaryDirectory() as cdir:
         gtok = grammar_setup(gdir)
-        phase_card_vs_cpu()
-        phase_grammar_card_vs_cpu(gtok)
-        phase_graphs()
-        counts = phase_main_path()
-        paged_counts = phase_paged_path(smi)
-        ragged_counts = phase_ragged_path(
-            smi, grammar_then=lambda name: grammar_ragged(name, smi, gtok))
-        phase_grammar(gdir, smi, gtok)
-        host_counts, _ = phase_host_tier(gdir, smi, gtok)
-    spec_counts = phase_spec_path(smi)
+        # phases 7 and 9 at their depth cut, with the same tokenizer
+        grammar_checkpoint(cdir, CUT_8B)
+        timed("3 card vs cpu", phase_card_vs_cpu)
+        timed("3 grammar card vs cpu", phase_grammar_card_vs_cpu, gtok)
+        timed("3 graphs", phase_graphs)
+        counts = timed("4 main path", phase_main_path)
+        paged_counts = timed("5 paged", phase_paged_path, smi)
+        ragged_counts = timed(
+            "6 ragged (+ 7's ragged waves)", phase_ragged_path, smi,
+            grammar_then=lambda name: grammar_ragged(name, smi, gtok))
+        timed("7 grammar", phase_grammar, cdir, smi, gtok)
+        host_counts, _ = timed("9 host tier", phase_host_tier, cdir, smi,
+                               gtok)
+        tier_counts = timed("10 kv tier", phase_kv_tier, gdir, smi, gtok,
+                            measured["paged_demote_q8"])
+    spec_counts = timed("8 speculative", phase_spec_path, smi)
+    log("phase walls (s) " + json.dumps(walls)
+        + f" total {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
-        launches = (ragged_counts if name in RAGGED_KERNELS
+        launches = (tier_counts if name in TIER_KERNELS
+                    else ragged_counts if name in RAGGED_KERNELS
                     else paged_counts if name in PAGED_KERNELS
                     else counts)[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -4476,6 +5421,7 @@ def main():
                      "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"],
                      "launches_spec": spec_counts[name],
                      "launches_host_tier": host_counts[name],
+                     "launches_kv_tier": tier_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

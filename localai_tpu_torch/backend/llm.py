@@ -9,10 +9,12 @@ tokens; a malformed grammar is INVALID_ARGUMENT for that request alone.
 `n_draft` serve speculative decoding: the draft proposes n_draft tokens a
 step (4 by default) and GetMetrics carries draft_proposed and
 draft_accepted. `kv_host_bytes` in `options` turns on the host KV spill
-tier; `resume_json` (a ResumeToken) continues a preempted stream, and
-`preempt` (the SIGTERM path of server.py) ends every open stream with a
-terminal "preempted" reply carrying one. Embeddings, BERT, llava, meshes,
-the KV retention tier and telemetry spans wait for later slices: LoadModel
+tier, `kv_policy` and `kv_cold_pages` the KV retention tier (GetMetrics
+then carries kv_cold_blocks, kv_evictions, kv_recomputes and
+kv_policy_demotions); `resume_json` (a ResumeToken) continues a preempted
+stream, and `preempt` (the SIGTERM path of server.py) ends every open
+stream with a terminal "preempted" reply carrying one. Embeddings, BERT,
+llava, meshes and telemetry spans wait for later slices: LoadModel
 rejects their options with a message naming the slice, and their RPCs
 stay UNIMPLEMENTED.
 """
@@ -72,13 +74,13 @@ class LLMServicer(BackendServicer):
                              "parallel")
         if request.embeddings:
             raise not_ported("embeddings", "embeddings")
-        # the KV tiers ride the ModelOptions.options JSON blob
-        kv_host_bytes = 0
+        # the KV tiers ride the ModelOptions.options JSON blob (no
+        # dedicated proto field), as the reference's do
+        kv_policy, kv_cold_pages, kv_host_bytes = "", 0, 0
         if request.options:
             opts = json.loads(request.options)  # typos fail the load loudly
-            for key in ("kv_policy", "kv_cold_pages"):
-                if opts.get(key) not in (None, "", 0, "full"):
-                    raise not_ported(key, "KV-tier")
+            kv_policy = str(opts.get("kv_policy", ""))
+            kv_cold_pages = int(opts.get("kv_cold_pages", 0))
             kv_host_bytes = int(opts.get("kv_host_bytes", 0))
         model_dir = request.model
         if request.model_path and not os.path.exists(model_dir):
@@ -121,6 +123,8 @@ class LLMServicer(BackendServicer):
             gamma=request.n_draft or 4,
             cache_type=kv_kind,
             kv_pages=request.kv_pages,
+            kv_policy=kv_policy,
+            kv_cold_pages=kv_cold_pages,
             kv_host_bytes=kv_host_bytes,
         ), draft=draft, device=self.device)
         self.cfg, self.tok = cfg, tok

@@ -27,7 +27,11 @@
 //     clamped to +-127, both divisions IEEE round-to-nearest (__fdiv_rn,
 //     whatever the compiler flags), never a product with the inverse.
 // A target outside the pool (pb >= NB) is skipped, never written: the
-// engine's table holds only block ids it allocated.
+// engine's table holds only block ids it allocated. The KV tier's demotion
+// (ops/kernels/paged_scatter.paged_demote_q8; the reference's engine
+// _demote is XLA) runs scatter_q8_rows too: a layer's hot block [KVH, 128,
+// D] as KVH*128 rows of one head into the cold pool viewed [NBc*KVH, 1,
+// 128, D].
 #include "common.cuh"
 
 namespace {

@@ -89,6 +89,21 @@
 //   - nsplit and split come from shapes alone (T, MAXB*128, KVH, the SM
 //     count: ops/kernels/ragged_attention.ragged_split), never from kvlen,
 //     so a tick needs no device sync; split is a multiple of the tile.
+// The KV lifecycle tier (ragged_attention_tier_launch; the reference reads
+// tiered KV through its XLA twin, _xla_core's tier branch): tables are
+// compact ring tables and each sequence has sink blocks sb, ring width rw,
+// retained sinks and window ([NSEQ] int32).
+//   - A q tile's keys are two spans, the sinks [0, sinks) and its first
+//     row's window (q_first - window, q_last], walked in one compressed
+//     order (tier_plan: tile j < g0 is true tile j, tile j >= g0 true tile
+//     j + gap) cut into ragged_split's spans; each tile's table entry comes
+//     through ring_block_map and is staged per tile, -1 for a dead tile
+//     (not resident, past the causal end, or no key kept).
+//   - Row mask: resident, kv_pos <= q_pos and (kv_pos > q_pos - window or
+//     kv_pos < sinks). The combine reads the splits of the row's q tile.
+//   - Raw block indices run up to kvlen/128 while MAXB is the compact
+//     width; the kept keys never exceed the resident columns, so
+//     nsplit * split >= MAXB*128 covers them.
 // Geometry: any G; D % 16 == 0 up to 512 (the SIMT variant's 8 rows of 512
 // outputs over 256 threads).
 #include <type_traits>
@@ -131,18 +146,76 @@ __host__ __device__ __forceinline__ void tiling(int G, int D, bool tc,
 // What one split-pass block computes: sequence s, KV head kh, query heads
 // h0 .. h0+G-1, the tile's rows row0 + [t_lo, t_hi), compact rows nr,
 // q_pos of row row0 (qpos0), and the span's tokens [lo, hi) of the tile's
-// window start tbeg.
+// window start tbeg. The mask of a row at q_pos q: key position kpos <
+// kend, kpos <= q and (kpos > q - win or kpos < snk), win 0 = no window.
+// Under the KV tier (TIER) the span's tokens are in the q tile's
+// compressed order — tile j < g0 is true tile j, tile j >= g0 true tile j
+// + gap, ntile of them (tier_plan) —, kend is the tile's causal end and
+// (win, snk) the sequence's retention window and sinks.
 struct Span {
   int s, kh, h0, G, row0, t_lo, t_hi, nr, qpos0, tbeg, lo, hi;
+  int kend, win, snk, g0, gap, ntile, sb, rw, cur, ring_lo;
 };
+
+// Per-sequence geometry of the KV lifecycle tier (engine/kvtier.py),
+// [NSEQ] int32 each: sink blocks, ring width, retained sinks and window;
+// sb is null outside the tier.
+struct RTier {
+  const int* sb;
+  const int* rw;
+  const int* sinks;
+  const int* window;
+};
+
+// The q tile led by q block qb of a sequence with rows [qs, qs + ql) and
+// kv length klen: its rows and the q position of its first row; false when
+// qb leads no tile (not a leader, or no live row).
+__device__ __forceinline__ bool tile_of(Span& p, int qb, int qs, int ql,
+                                        int klen, int qt) {
+  const int fb = qs / QBLK;  // the sequence's first q block
+  if (qb < fb || (qb - fb) % qt != 0) return false;
+  const int nqb = min(qt, (qs + ql + QBLK - 1) / QBLK - qb);
+  p.row0 = qb * QBLK;
+  p.t_lo = max(qs - p.row0, 0);
+  p.t_hi = min(qs + ql - p.row0, nqb * QBLK);
+  if (p.t_hi <= p.t_lo) return false;
+  p.qpos0 = klen - ql + (p.row0 - qs);
+  return true;
+}
+
+// The tier's compressed order for a q tile: its live keys are the sinks [0,
+// a) and the window of its first row up to its causal end, [c, kend), each
+// within the resident blocks (sink blocks, and the ring's raw blocks
+// ring_lo .. cur); g0 = ceil(a/32), gap the tiles skipped between. A ring
+// always holds the window of every row of a chunk (kvtier.ring_blocks keeps
+// a prefill chunk of margin), so at most MAXB*4 tiles are live.
+__device__ __forceinline__ void tier_plan(Span& p, const RTier& tr,
+                                          int klen) {
+  p.kend = min(klen, p.qpos0 + p.t_hi);
+  p.sb = tr.sb[p.s];
+  p.rw = max(tr.rw[p.s], 1);
+  p.snk = tr.sinks[p.s];
+  p.win = tr.window[p.s];
+  p.cur = klen > 0 ? (klen - 1) / PBS : 0;
+  p.ring_lo = max(p.sb, p.cur - p.rw + 1);
+  int a = min(min(p.snk, p.kend), p.sb * PBS);
+  int c = max(p.qpos0 + p.t_lo - p.win + 1, p.ring_lo * PBS);
+  a = max(a, 0);
+  c = min(max(c, a), max(p.kend, 0));
+  p.g0 = (a + BK - 1) / BK;
+  p.gap = max(c / BK, p.g0) - p.g0;
+  p.ntile = (max(p.kend, 0) + BK - 1) / BK - p.gap;
+}
 
 // Fill `p`; false when the block has nothing to do (dead block, not a
 // tile's leader, no live row, or a span outside the tile's keys), before
 // any table read.
+template <bool TIER>
 __device__ __forceinline__ bool block_span(
     Span& p, const int* __restrict__ block_seq, const int* __restrict__ qstart,
     const int* __restrict__ qlen, const int* __restrict__ kvlen, int H,
-    int KVH, int MAXB, int window, int split, int gc, int qt) {
+    int KVH, int MAXB, int window, int split, int gc, int qt,
+    const RTier& tr) {
   const int GA = H / KVH;
   const int ngrp = (GA + gc - 1) / gc;
   p.kh = blockIdx.y / ngrp;
@@ -153,20 +226,22 @@ __device__ __forceinline__ bool block_span(
   p.s = block_seq[qb];
   if (p.s < 0) return false;
   const int qs = qstart[p.s], ql = qlen[p.s], klen = kvlen[p.s];
-  const int fb = qs / QBLK;  // the sequence's first q block
-  if (qb < fb || (qb - fb) % qt != 0) return false;
-  const int nqb = min(qt, (qs + ql + QBLK - 1) / QBLK - qb);
-  p.row0 = qb * QBLK;
-  p.t_lo = max(qs - p.row0, 0);
-  p.t_hi = min(qs + ql - p.row0, nqb * QBLK);
-  if (p.t_hi <= p.t_lo) return false;
+  if (!tile_of(p, qb, qs, ql, klen, qt)) return false;
   p.nr = (p.t_hi - p.t_lo) * p.G;
-  p.qpos0 = klen - ql + (p.row0 - qs);
+  p.lo = blockIdx.z * split;
+  if (TIER) {
+    tier_plan(p, tr, klen);
+    p.tbeg = 0;
+    p.hi = min(p.lo + split, p.ntile * BK);
+    return p.hi > p.lo;
+  }
   // causal end of the tile (its last live row's q_pos + 1), within kvlen
   const int tend = min(min(klen, p.qpos0 + p.t_hi), MAXB * PBS);
   p.tbeg = window > 0 ? max(p.qpos0 + p.t_lo - window + 1, 0) : 0;
-  p.lo = blockIdx.z * split;
   p.hi = min(p.lo + split, tend);
+  p.kend = p.hi;
+  p.win = window;
+  p.snk = 0;
   return p.hi > p.lo && p.lo + split > p.tbeg;
 }
 
@@ -179,43 +254,81 @@ __host__ __device__ __forceinline__ int stage_bytes(int D) {
 }
 
 // Table entries a span can touch: split/128 blocks, plus one at each end
-// where the span is not block-aligned.
+// where the span is not block-aligned; under the tier one a tile (a span's
+// tiles may lie on both sides of the gap).
+template <bool TIER>
 __host__ __device__ __forceinline__ int span_entries(int split) {
-  return split / PBS + 2;
+  return TIER ? split / BK : split / PBS + 2;
 }
 
-// Stage the table entries of the span's tiles [kb0, kb1) into Tb (entry i
-// is block (kb0*BK)/PBS + i of the sequence's table): one parallel read at
-// the block's start instead of one dependent read a tile. The caller
-// synchronises before the first load_tile.
+// Stage the span's table entries [kb0, kb1) into Tb: one parallel read at
+// the block's start instead of one dependent read a tile. Untiered, entry i
+// is block (kb0*BK)/PBS + i of the sequence's table. TIER: entry i is the
+// pool block of the span's tile kb0 + i through ring_block_map, or -1 for
+// a dead tile (not resident, past the causal end, or no key of it kept).
+// The caller synchronises before the first load_tile.
+template <bool TIER>
 __device__ __forceinline__ void stage_table(int* Tb,
                                             const int* __restrict__ tables,
                                             const Span& p, int MAXB, int kb0,
                                             int kb1) {
+  if (TIER) {
+    const int qf = p.qpos0 + p.t_lo;
+    for (int i = threadIdx.x; i < kb1 - kb0; i += NT) {
+      const int kb = kb0 + i;
+      const int t0 = (kb < p.g0 ? kb : kb + p.gap) * BK;
+      const int raw = t0 / PBS;
+      int col = raw;
+      bool live = t0 < p.kend &&
+                  (t0 < min(p.snk, p.kend) || t0 + BK > qf - p.win + 1);
+      if (raw >= p.sb) {
+        live = live && raw >= p.ring_lo && raw <= p.cur;
+        col = p.sb + (raw - p.sb) % p.rw;
+      }
+      live = live && col < MAXB;
+      Tb[i] = live ? tables[static_cast<int64_t>(p.s) * MAXB + col] : -1;
+    }
+    return;
+  }
   const int e0 = kb0 * BK / PBS;
   const int n = kb1 > kb0 ? ((kb1 * BK - 1) / PBS) - e0 + 1 : 0;
   for (int i = threadIdx.x; i < n; i += NT)
     Tb[i] = tables[static_cast<int64_t>(p.s) * MAXB + e0 + i];
 }
 
-// Issue the cp.async copies of tile kb (tokens kb*32 ..) of the span into
-// `stage`: K rows, then V rows, then (int8) the scales. Rows at/past the
-// span's end are zero-filled. Tb: the span's table entries (stage_table),
-// from block (kb0*BK)/PBS.
+// Tile kb of the span: its first true key position t0, its pool block pb,
+// and the rows to load (0: a dead tile, never loaded or consumed).
+struct RTile {
+  int64_t pb;
+  int t0, valid;
+};
+
+template <bool TIER>
+__device__ __forceinline__ RTile span_tile(const int* Tb, const Span& p,
+                                           int kb0, int kb) {
+  if (TIER) {
+    const int t0 = (kb < p.g0 ? kb : kb + p.gap) * BK;
+    const int pb = Tb[kb - kb0];
+    return RTile{pb, t0, pb < 0 ? 0 : min(BK, p.kend - t0)};
+  }
+  const int t0 = kb * BK;
+  return RTile{Tb[t0 / PBS - kb0 * BK / PBS], t0, min(BK, p.hi - t0)};
+}
+
+// Issue the cp.async copies of a tile into `stage`: K rows, then V rows,
+// then (int8) the scales. Rows at/past `valid` are zero-filled.
 template <typename KV, bool Q8>
 __device__ __forceinline__ void load_tile(uint8_t* stage,
                                           const KV* __restrict__ kp,
                                           const KV* __restrict__ vp,
                                           const float* __restrict__ ks,
                                           const float* __restrict__ vs,
-                                          const int* Tb, const Span& p,
-                                          int KVH, int D, int kb0, int kb) {
+                                          const RTile& tl, const Span& p,
+                                          int KVH, int D) {
   constexpr int VEC = 16 / sizeof(KV);
   const int rs = D * static_cast<int>(sizeof(KV)) + 16;
-  const int t0 = kb * BK;
-  const int valid = min(BK, p.hi - t0);
-  const int64_t pb = Tb[t0 / PBS - kb0 * BK / PBS];
-  const int64_t row0 = (pb * KVH + p.kh) * PBS + t0 % PBS;
+  const int valid = tl.valid;
+  const int64_t row0 = (tl.pb * KVH + p.kh) * PBS + tl.t0 % PBS;
   uint8_t* kt = stage;
   uint8_t* vt = stage + BK * rs;
   const int cpr = D / VEC;  // 16-byte chunks per row
@@ -336,10 +449,11 @@ __host__ __device__ __forceinline__ int tc_table_offset(int D) {
 // Shared-memory bytes of the tensor-core pass: the layout above plus the
 // span's table entries, or the end-of-span merge of the warps' states
 // ([8 warps][DMAX/2 + 4][32 lanes] f32) laid over it, whichever is larger.
-template <typename KV, bool Q8, int DMAX>
+template <typename KV, bool Q8, int DMAX, bool TIER>
 size_t tc_smem(int D, int split) {
-  const size_t main = tc_table_offset<KV, Q8>(D) +
-                      sizeof(int) * static_cast<size_t>(span_entries(split));
+  const size_t main =
+      tc_table_offset<KV, Q8>(D) +
+      sizeof(int) * static_cast<size_t>(span_entries<TIER>(split));
   const size_t merge = sizeof(float) * NW * (DMAX / 2 + 4) * 32;
   return main > merge ? main : merge;
 }
@@ -349,8 +463,8 @@ size_t tc_smem(int D, int split) {
 // keys of every tile with its own running softmax (m, l, acc), merged at
 // the end of the span: a decode block (16 rows or fewer) runs 4 warps on
 // each tile instead of one. Q's copies are in flight (cp.async) when it
-// starts; Tb holds the span's table entries.
-template <typename KV, bool Q8, int DMAX, int WK>
+// starts; Tb holds the span's table entries (stage_table).
+template <typename KV, bool Q8, int DMAX, int WK, bool TIER>
 __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
                                         const KV* __restrict__ kp,
                                         const KV* __restrict__ vp,
@@ -358,8 +472,7 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
                                         const float* __restrict__ vs,
                                         const int* Tb, float* __restrict__ ws,
                                         int H, int KVH, int D, float scale,
-                                        int window, int nsplit, int kb0,
-                                        int kb1) {
+                                        int nsplit, int kb0, int kb1) {
   constexpr int NF = DMAX / 8;  // accumulator fragments (8 columns each)
   // a warp's keys of a tile, 32/WK, in NSUB steps of SF fragments of 8
   // keys: one step of 8 (WK = 4) or 16, two of 16 at WK = 1 (fewer live
@@ -374,8 +487,10 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
   uint8_t* ring = smem + TC_ROWS * ldq * 2;
   __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(ring + NS_TC * stage);
   auto load = [&](int kb) {
-    load_tile<KV, Q8>(ring + ((kb - kb0) % NS_TC) * stage, kp, vp, ks, vs,
-                      Tb, p, KVH, D, kb0, kb);
+    const RTile tl = span_tile<TIER>(Tb, p, kb0, kb);
+    if (tl.valid > 0)
+      load_tile<KV, Q8>(ring + ((kb - kb0) % NS_TC) * stage, kp, vp, ks, vs,
+                        tl, p, KVH, D);
   };
   // the first NS-1 tiles in flight, one commit group each (the first also
   // holds Q's copies)
@@ -394,8 +509,8 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
   const int ra = rg * 16 + (lane >> 2), rb = ra + 8;
   const int qa = ra < p.nr ? p.qpos0 + p.t_lo + ra / p.G : -1;
   const int qb = rb < p.nr ? p.qpos0 + p.t_lo + rb / p.G : -1;
-  const int wa = window > 0 ? qa - window + 1 : 0;
-  const int wb = window > 0 ? qb - window + 1 : 0;
+  const int wa = p.win > 0 ? qa - p.win + 1 : 0;
+  const int wb = p.win > 0 ? qb - p.win + 1 : 0;
   float m_a = LT_NEG_INF, m_b = LT_NEG_INF, l_a = 0.f, l_b = 0.f;
   float acc[NF][4];
 #pragma unroll
@@ -407,6 +522,10 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
     __syncthreads();  // ... for every thread; tile kb-1's stage is free
     if (kb + NS_TC - 1 < kb1) load(kb + NS_TC - 1);
     lt_cp_async_commit();
+    const RTile tl = span_tile<TIER>(Tb, p, kb0, kb);
+    // a dead tile (the same for every thread) is skipped: nothing reads its
+    // stage, and the next refill of it goes to a stage no one reads
+    if (TIER && tl.valid <= 0) continue;
     const uint8_t* st = ring + ((kb - kb0) % NS_TC) * stage;
     // int8: K scales [BK], then V scales [BK]
     const float* sc = reinterpret_cast<const float*>(st + 2 * BK * rs);
@@ -469,7 +588,7 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
         }
       }
       // scale, mask, online softmax; row a in [0..1], row b in [2..3]
-      const int t0 = kb * BK;
+      const int t0 = tl.t0;
       float mx_a = LT_NEG_INF, mx_b = LT_NEG_INF;
 #pragma unroll
       for (int j = 0; j < SF; ++j) {
@@ -478,9 +597,11 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
           const int col = kq + j * 8 + 2 * (lane & 3) + e;
           const int kpos = t0 + col;
           const float mul = Q8 ? scale * sc[col] : scale;
-          const bool in = kpos < p.hi;
-          const bool ok_a = in && kpos <= qa && kpos >= wa;
-          const bool ok_b = in && kpos <= qb && kpos >= wb;
+          const bool in = kpos < p.kend;
+          const bool ok_a =
+              in && kpos <= qa && (kpos >= wa || (TIER && kpos < p.snk));
+          const bool ok_b =
+              in && kpos <= qb && (kpos >= wb || (TIER && kpos < p.snk));
           s[j][e] = ok_a ? s[j][e] * mul : LT_NEG_INF;
           s[j][2 + e] = ok_b ? s[j][2 + e] * mul : LT_NEG_INF;
           mx_a = fmaxf(mx_a, s[j][e]);
@@ -635,7 +756,7 @@ __device__ __forceinline__ void tc_span(uint8_t* smem, const Span& p,
   }
 }
 
-template <typename KV, bool Q8, int DMAX>
+template <typename KV, bool Q8, int DMAX, bool TIER>
 __global__ void __launch_bounds__(NT, DMAX <= 128 ? 2 : 1)
     ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,
                      const KV* __restrict__ kp, const KV* __restrict__ vp,
@@ -647,13 +768,13 @@ __global__ void __launch_bounds__(NT, DMAX <= 128 ? 2 : 1)
                      const int* __restrict__ kvlen,
                      const int* __restrict__ tables, float* __restrict__ ws,
                      int H, int KVH, int MAXB, int D, float scale, int window,
-                     int split, int nsplit, int gc, int qt) {
+                     int split, int nsplit, int gc, int qt, const RTier tr) {
   extern __shared__ __align__(16) uint8_t smem[];
   // let the combine grid launch now; it waits for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   Span p;
-  if (!block_span(p, block_seq, qstart, qlen, kvlen, H, KVH, MAXB, window,
-                  split, gc, qt))
+  if (!block_span<TIER>(p, block_seq, qstart, qlen, kvlen, H, KVH, MAXB,
+                        window, split, gc, qt, tr))
     return;
   const int kb0 = max(p.lo, p.tbeg) / BK;
   const int kb1 = (p.hi + BK - 1) / BK;
@@ -672,36 +793,36 @@ __global__ void __launch_bounds__(NT, DMAX <= 128 ? 2 : 1)
         q + (static_cast<int64_t>(p.row0 + t) * H + p.h0 + g) * D + col, ok);
   }
   int* Tb = reinterpret_cast<int*>(smem + tc_table_offset<KV, Q8>(D));
-  stage_table(Tb, tables, p, MAXB, kb0, kb1);
+  stage_table<TIER>(Tb, tables, p, MAXB, kb0, kb1);
   __syncthreads();
   // warps a row group of 16: 4 key groups up to two, 2 up to four, 1
   // above
   const int groups = (p.nr + 15) >> 4;
   if (groups <= 2)
-    tc_span<KV, Q8, DMAX, 4>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH, D,
-                             scale, window, nsplit, kb0, kb1);
+    tc_span<KV, Q8, DMAX, 4, TIER>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH,
+                                   D, scale, nsplit, kb0, kb1);
   else if (groups <= 4)
-    tc_span<KV, Q8, DMAX, 2>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH, D,
-                             scale, window, nsplit, kb0, kb1);
+    tc_span<KV, Q8, DMAX, 2, TIER>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH,
+                                   D, scale, nsplit, kb0, kb1);
   else
-    tc_span<KV, Q8, DMAX, 1>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH, D,
-                             scale, window, nsplit, kb0, kb1);
+    tc_span<KV, Q8, DMAX, 1, TIER>(smem, p, kp, vp, ks, vs, Tb, ws, H, KVH,
+                                   D, scale, nsplit, kb0, kb1);
 }
 
 // --------------------------------------------------------- SIMT variant
 
 // Shared-memory bytes of the SIMT pass with NS stages: Q [rows][D] f32, the
 // ring, P [rows][BK], m, l, alpha [rows], and the span's table entries.
-template <typename KV, bool Q8>
+template <typename KV, bool Q8, bool TIER>
 size_t simt_smem(int D, int NS, int split) {
   const size_t rows = tile_rows(D, false);
   return sizeof(float) * rows * D +
          static_cast<size_t>(NS) * stage_bytes<KV, Q8>(D) +
          sizeof(float) * (rows * BK + 3 * rows) +
-         sizeof(int) * static_cast<size_t>(span_entries(split));
+         sizeof(int) * static_cast<size_t>(span_entries<TIER>(split));
 }
 
-template <typename T, typename KV, bool Q8, int NS>
+template <typename T, typename KV, bool Q8, int NS, bool TIER>
 __global__ void __launch_bounds__(NT)
     ragged_simt_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                        const KV* __restrict__ vp,
@@ -714,13 +835,13 @@ __global__ void __launch_bounds__(NT)
                        const int* __restrict__ tables,
                        float* __restrict__ ws, int H, int KVH, int MAXB,
                        int D, float scale, int window, int split, int nsplit,
-                       int gc, int qt) {
+                       int gc, int qt, const RTier tr) {
   constexpr int VEC = 16 / sizeof(KV);
   extern __shared__ __align__(16) uint8_t smem[];
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   Span p;
-  if (!block_span(p, block_seq, qstart, qlen, kvlen, H, KVH, MAXB, window,
-                  split, gc, qt))
+  if (!block_span<TIER>(p, block_seq, qstart, qlen, kvlen, H, KVH, MAXB,
+                        window, split, gc, qt, tr))
     return;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = tile_rows(D, false);
@@ -736,11 +857,13 @@ __global__ void __launch_bounds__(NT)
 
   const int kb0 = max(p.lo, p.tbeg) / BK;
   const int kb1 = (p.hi + BK - 1) / BK;
-  stage_table(Tb, tables, p, MAXB, kb0, kb1);
+  stage_table<TIER>(Tb, tables, p, MAXB, kb0, kb1);
   __syncthreads();
   auto load = [&](int kb) {
-    load_tile<KV, Q8>(ring + ((kb - kb0) % NS) * stage, kp, vp, ks, vs, Tb,
-                      p, KVH, D, kb0, kb);
+    const RTile tl = span_tile<TIER>(Tb, p, kb0, kb);
+    if (tl.valid > 0)
+      load_tile<KV, Q8>(ring + ((kb - kb0) % NS) * stage, kp, vp, ks, vs, tl,
+                        p, KVH, D);
   };
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
@@ -774,10 +897,13 @@ __global__ void __launch_bounds__(NT)
     lt_cp_async_commit();
     lt_cp_async_wait<NS - 1>();
     __syncthreads();
+    const RTile tl = span_tile<TIER>(Tb, p, kb0, kb);
+    // a dead tile (the same for every thread) is skipped, as in tc_span
+    if (TIER && tl.valid <= 0) continue;
     const uint8_t* kt = ring + ((kb - kb0) % NS) * stage;
     const uint8_t* vt = kt + BK * rs;
     const float* sc = reinterpret_cast<const float*>(vt + BK * rs);
-    const int t0 = kb * BK;
+    const int t0 = tl.t0;
 
     for (int idx = tid; idx < p.nr * BK; idx += NT) {
       const int c = idx / BK, j = idx - c * BK;
@@ -794,8 +920,9 @@ __global__ void __launch_bounds__(NT)
       if (Q8) a *= sc[j];
       const int qpos = p.qpos0 + p.t_lo + c / p.G;
       const int kpos = t0 + j;
-      const bool ok = kpos < p.hi && kpos <= qpos &&
-                      (window <= 0 || kpos > qpos - window);
+      const bool ok = kpos < p.kend && kpos <= qpos &&
+                      (p.win <= 0 || kpos > qpos - p.win ||
+                       (TIER && kpos < p.snk));
       Ps[idx] = ok ? a : LT_NEG_INF;
     }
     __syncthreads();
@@ -854,10 +981,12 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------- combine pass
 
 // One warp per (row t, head h): lanes own 16-byte column chunks lane, lane
-// + 32, ... of D. Launched with programmatic stream serialization, it may
-// start while the split pass still runs: griddepcontrol.wait holds it
-// until that grid has finished and its writes are visible.
-template <typename T>
+// + 32, ... of D. TIER: the row's splits are those of its q tile's
+// compressed span (tier_plan of the tile's leader, qt q blocks a tile), [0,
+// ceil(ntile*32/split)). Launched with programmatic stream serialization,
+// it may start while the split pass still runs: griddepcontrol.wait holds
+// it until that grid has finished and its writes are visible.
+template <typename T, bool TIER>
 __global__ void __launch_bounds__(NT)
     ragged_combine_kernel(const float* __restrict__ ws,
                           const int* __restrict__ block_seq,
@@ -865,7 +994,7 @@ __global__ void __launch_bounds__(NT)
                           const int* __restrict__ qlen,
                           const int* __restrict__ kvlen, T* __restrict__ out,
                           int H, int MAXB, int D, int window, int split,
-                          int nsplit) {
+                          int nsplit, const RTier tr, int qt) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int t = blockIdx.x, lane = threadIdx.x & 31;
   const int h = blockIdx.y * NW + (threadIdx.x >> 5);
@@ -876,7 +1005,15 @@ __global__ void __launch_bounds__(NT)
   const int s = block_seq[t / QBLK];
   if (s >= 0) {
     const int qs = qstart[s], ql = qlen[s];
-    if (t >= qs && t < qs + ql) {
+    if (TIER && t >= qs && t < qs + ql) {
+      Span p;
+      p.s = s;
+      const int fb = qs / QBLK, qb = t / QBLK;
+      if (tile_of(p, fb + (qb - fb) / qt * qt, qs, ql, kvlen[s], qt)) {
+        tier_plan(p, tr, kvlen[s]);
+        n = min(nsplit, (p.ntile * BK + split - 1) / split);
+      }
+    } else if (t >= qs && t < qs + ql) {
       const int qpos = kvlen[s] - ql + (t - qs);
       const int end = min(qpos + 1, MAXB * PBS);
       const int beg = window > 0 ? max(qpos - window + 1, 0) : 0;
@@ -960,10 +1097,11 @@ struct Args {
   float scale;
   int nsplit, split;
   cudaStream_t stream;
+  RTier tier;  // sb null: untiered
 };
 
-template <typename T>
-int launch_combine(const Args& a) {
+template <typename T, bool TIER>
+int launch_combine(const Args& a, int qt) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.T, (a.H + NW - 1) / NW);
   cfg.blockDim = dim3(NT);
@@ -975,21 +1113,21 @@ int launch_combine(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, ragged_combine_kernel<T>, static_cast<const float*>(a.ws),
+      &cfg, ragged_combine_kernel<T, TIER>, static_cast<const float*>(a.ws),
       a.block_seq, a.qstart, a.qlen, a.kvlen, static_cast<T*>(a.out), a.H,
-      a.MAXB, a.D, a.window, a.split, a.nsplit);
+      a.MAXB, a.D, a.window, a.split, a.nsplit, a.tier, qt);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename KV, bool Q8, int DMAX>
+template <typename KV, bool Q8, int DMAX, bool TIER>
 int launch_tc(const Args& a) {
   int gc = 0, qt = 0;
   const int G = a.H / a.KVH;
   tiling(G, a.D, true, gc, qt);
-  auto* kernel = ragged_tc_kernel<KV, Q8, DMAX>;
+  auto* kernel = ragged_tc_kernel<KV, Q8, DMAX, TIER>;
   static size_t smem_set[LT_MAX_DEVICES] = {};
-  const size_t smem = tc_smem<KV, Q8, DMAX>(a.D, a.split);
+  const size_t smem = tc_smem<KV, Q8, DMAX, TIER>(a.D, a.split);
   const cudaError_t es = lt_set_max_smem(kernel, smem, smem_set);
   if (es != cudaSuccess) return static_cast<int>(es);
   const dim3 grid(a.T / QBLK, a.KVH * ((G + gc - 1) / gc), a.nsplit);
@@ -997,20 +1135,20 @@ int launch_tc(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), a.ks, a.vs, a.block_seq, a.qstart,
       a.qlen, a.kvlen, a.tables, a.ws, a.H, a.KVH, a.MAXB, a.D, a.scale,
-      a.window, a.split, a.nsplit, gc, qt);
+      a.window, a.split, a.nsplit, gc, qt, a.tier);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_combine<__nv_bfloat16>(a);
+  return launch_combine<__nv_bfloat16, TIER>(a, qt);
 }
 
-template <typename T, typename KV, bool Q8, int NS>
+template <typename T, typename KV, bool Q8, int NS, bool TIER>
 int launch_simt_ns(const Args& a) {
   int gc = 0, qt = 0;
   const int G = a.H / a.KVH;
   tiling(G, a.D, false, gc, qt);
-  auto* kernel = ragged_simt_kernel<T, KV, Q8, NS>;
+  auto* kernel = ragged_simt_kernel<T, KV, Q8, NS, TIER>;
   static size_t smem_set[LT_MAX_DEVICES] = {};
-  const size_t smem = simt_smem<KV, Q8>(a.D, NS, a.split);
+  const size_t smem = simt_smem<KV, Q8, TIER>(a.D, NS, a.split);
   const cudaError_t es = lt_set_max_smem(kernel, smem, smem_set);
   if (es != cudaSuccess) return static_cast<int>(es);
   const dim3 grid(a.T / QBLK, a.KVH * ((G + gc - 1) / gc), a.nsplit);
@@ -1018,22 +1156,35 @@ int launch_simt_ns(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
       static_cast<const KV*>(a.vp), a.ks, a.vs, a.block_seq, a.qstart,
       a.qlen, a.kvlen, a.tables, a.ws, a.H, a.KVH, a.MAXB, a.D, a.scale,
-      a.window, a.split, a.nsplit, gc, qt);
+      a.window, a.split, a.nsplit, gc, qt, a.tier);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_combine<T>(a);
+  return launch_combine<T, TIER>(a, qt);
 }
 
 // Two ring stages where they fit, else one (two f32 tiles at D = 512).
-template <typename T, typename KV, bool Q8>
+template <typename T, typename KV, bool Q8, bool TIER>
 int launch_simt(const Args& a) {
-  if (simt_smem<KV, Q8>(a.D, 2, a.split) <= SMEM_CAP)
-    return launch_simt_ns<T, KV, Q8, 2>(a);
-  return launch_simt_ns<T, KV, Q8, 1>(a);
+  if (simt_smem<KV, Q8, TIER>(a.D, 2, a.split) <= SMEM_CAP)
+    return launch_simt_ns<T, KV, Q8, 2, TIER>(a);
+  return launch_simt_ns<T, KV, Q8, 1, TIER>(a);
 }
 
 // Route by shape: bf16 q up to D = 256 on the tensor cores, everything
 // else (f32 q, bf16 above 256) on the SIMT variant.
+template <bool Q8, bool TIER>
+int route(int dtype, const Args& a) {
+  using KVb = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
+  using KVf = typename std::conditional<Q8, int8_t, float>::type;
+  if (dtype == LT_BF16) {
+    if (a.D <= 128) return launch_tc<KVb, Q8, 128, TIER>(a);
+    if (a.D <= TC_MAXD) return launch_tc<KVb, Q8, TC_MAXD, TIER>(a);
+    return launch_simt<__nv_bfloat16, KVb, Q8, TIER>(a);
+  }
+  if (dtype == LT_F32) return launch_simt<float, KVf, Q8, TIER>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool Q8>
 int dispatch(int dtype, const Args& a) {
   if (a.KVH <= 0 || a.H % a.KVH != 0 || a.D <= 0 || a.D % 16 != 0 ||
@@ -1042,16 +1193,12 @@ int dispatch(int dtype, const Args& a) {
       static_cast<int64_t>(a.nsplit) * a.split <
           static_cast<int64_t>(a.MAXB) * PBS)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.tier.sb != nullptr &&
+      (!a.tier.rw || !a.tier.sinks || !a.tier.window))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.T <= 0) return 0;
-  using KVb = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  using KVf = typename std::conditional<Q8, int8_t, float>::type;
-  if (dtype == LT_BF16) {
-    if (a.D <= 128) return launch_tc<KVb, Q8, 128>(a);
-    if (a.D <= TC_MAXD) return launch_tc<KVb, Q8, TC_MAXD>(a);
-    return launch_simt<__nv_bfloat16, KVb, Q8>(a);
-  }
-  if (dtype == LT_F32) return launch_simt<float, KVf, Q8>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return a.tier.sb != nullptr ? route<Q8, true>(dtype, a)
+                              : route<Q8, false>(dtype, a);
 }
 
 }  // namespace
@@ -1071,7 +1218,8 @@ extern "C" int ragged_attention_launch(int dtype, const void* q,
                                        int split, void* stream) {
   const Args a = {q, kp, vp, nullptr, nullptr, block_seq, qstart, qlen,
                   kvlen, tables, out, ws, Trows, H, KVH, MAXB, D, window,
-                  scale, nsplit, split, static_cast<cudaStream_t>(stream)};
+                  scale, nsplit, split, static_cast<cudaStream_t>(stream),
+                  {}};
   return dispatch<false>(dtype, a);
 }
 
@@ -1085,8 +1233,30 @@ extern "C" int ragged_attention_q8_launch(
     float* ws, int nsplit, int split, void* stream) {
   const Args a = {q, kq, vq, ks, vs, block_seq, qstart, qlen, kvlen, tables,
                   out, ws, Trows, H, KVH, MAXB, D, window, scale, nsplit,
-                  split, static_cast<cudaStream_t>(stream)};
+                  split, static_cast<cudaStream_t>(stream), {}};
   return dispatch<true>(dtype, a);
+}
+
+// Under the KV lifecycle tier: the pools as above (q8 = 1: int8 with scales
+// ks/vs; 0: bf16/f32, ks/vs null), tables [NSEQ, MAXB] the compact ring
+// tables, sb/rw/sinks/window [NSEQ] int32 per sequence; keys are walked
+// at true positions through ring_block_map, masked by residency, kv_pos <=
+// q_pos and (kv_pos > q_pos - window or kv_pos < sinks). ws, nsplit and
+// split as above (nsplit*split >= MAXB*128 covers the live keys). No
+// sliding window: the tier's mask takes its place.
+extern "C" int ragged_attention_tier_launch(
+    int dtype, int q8, const void* q, const void* kp, const float* ks,
+    const void* vp, const float* vs, const int* block_seq, const int* qstart,
+    const int* qlen, const int* kvlen, const int* tables, const int* sb,
+    const int* rw, const int* sinks, const int* window, void* out, int Trows,
+    int H, int KVH, int MAXB, int D, float scale, float* ws, int nsplit,
+    int split, void* stream) {
+  if (sb == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = {q, kp, vp, ks, vs, block_seq, qstart, qlen, kvlen, tables,
+                  out, ws, Trows, H, KVH, MAXB, D, 0, scale, nsplit, split,
+                  static_cast<cudaStream_t>(stream),
+                  RTier{sb, rw, sinks, window}};
+  return q8 ? dispatch<true>(dtype, a) : dispatch<false>(dtype, a);
 }
 
 // The split pass's tiling for q in `dtype` with G query heads a KV head at

@@ -48,6 +48,15 @@ What this slice serves, as the reference does:
   about to be rewritten) is copied to host memory in int8 first, and an
   admission extends its device prefix-cache match with host hits, written
   back into fresh pages ahead of the suffix's prefill;
+- the KV lifecycle tier (kv_policy "sink_window(sinks=N, window=W[,
+  quantize_cold=true])", paged only, engine/kvtier.py): a windowed slot
+  holds sink blocks plus a ring of blocks reused in place, so its
+  residency is O(sinks + window) for any length; blocks whose tokens leave
+  the window are dropped (kv_evictions) or, with quantize_cold, demoted to
+  an int8 cold pool (kv_cold_blocks) that attention keeps reading. The
+  per-slot geometry (full-policy sentinels for the others) lives in fixed
+  device tensors written in place before each dispatch (_kvt), so one set
+  of kernels and captured graphs serves any mix of policies;
 - preemption and resume (Engine.preempt, GenRequest.resume,
   engine/resume.py): preempt freezes every live slot at a tick boundary,
   force-spills its full KV blocks, reads back its RNG key and ends its
@@ -78,6 +87,7 @@ import torch
 
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
+from localai_tpu_torch.engine import kvtier
 from localai_tpu_torch.engine.graphs import GraphRunner
 from localai_tpu_torch.models.llama import (
     LlamaConfig,
@@ -92,7 +102,7 @@ from localai_tpu_torch.models.llama import (
     ragged_forward,
     segment_lengths,
 )
-from localai_tpu_torch.ops.kernels import QBLK
+from localai_tpu_torch.ops.kernels import QBLK, demote_targets, paged_demote_q8
 from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, blocks_needed, init_paged
 from localai_tpu_torch.ops.rope import rope_table
@@ -137,8 +147,19 @@ class EngineConfig:
                                      # (automaton states across live
                                      # grammars; 0 = every grammar slot is
                                      # host-masked)
-    kv_policy: str = "full"       # KV lifecycle tier (KV-tier slice)
-    kv_cold_pages: int = 0        # KV-tier slice
+    kv_policy: str = "full"       # KV lifecycle tier (engine/kvtier.py):
+                                  # "full" keeps every block hot (the
+                                  # untiered engine); "sink_window(sinks=N,
+                                  # window=W[, quantize_cold=true])" switches
+                                  # the paged table to COMPACT ring geometry
+                                  # — O(sinks+window) resident blocks per
+                                  # slot for any context length. Requires
+                                  # kv_pages; per-request policies
+                                  # (GenRequest.kv_policy) may only shrink it
+    kv_cold_pages: int = 0        # quantize_cold: 128-token blocks of the
+                                  # int8 cold pool (index 0 = "not demoted"
+                                  # included); a full cold pool falls back
+                                  # to eviction (kv_evictions)
     kv_host_bytes: int = 0        # host KV spill tier: byte budget of the
                                   # HostKVPool (int8 blocks keyed by the
                                   # prefix cache's chain hashes; paged KV
@@ -162,7 +183,12 @@ class GenRequest:
     trace_id: str = ""            # request id from the HTTP layer
     trace_parent: int = 0
     deadline: float = 0.0         # absolute time.monotonic(); 0 = none
-    kv_policy: str = ""           # KV-tier slice
+    kv_policy: str = ""           # per-request KV retention ("" = the
+                                  # engine's): "full" or "sink_window(
+                                  # sinks=N, window=W)"; a windowed request
+                                  # needs a windowed engine and may only
+                                  # shrink its geometry
+                                  # (kvtier.resolve_policy)
     mm_embeds: Any = None         # multimodal slice
     mm_positions: Any = None
     queued_t: float = 0.0         # time.monotonic() at submit()
@@ -227,10 +253,6 @@ def _check_config(ec: EngineConfig):
         # the flat-stream KV writes resolve through block tables
         raise ValueError(
             "ragged_token_budget requires paged KV (set kv_pages)")
-    if ec.kv_policy not in ("", "full"):
-        raise not_ported(f"kv_policy {ec.kv_policy!r}", "KV-tier")
-    if ec.kv_cold_pages:
-        raise not_ported("kv_cold_pages", "KV-tier")
     if ec.mesh is not None:
         raise not_ported("mesh (tensor parallelism)", "parallel")
     if ec.replicator is not None:
@@ -357,6 +379,53 @@ class Engine:
         # the verify window writes up to gamma+1 rows past `lengths`: a
         # spec step never writes past the cache end
         self._ctx_reserve = (self.ec.gamma + 1) if self._draft else 0
+        # the KV lifecycle tier (engine/kvtier.py): a windowed engine policy
+        # switches the paged table to COMPACT geometry — sink_blocks identity
+        # columns plus a ring reused in place, so decode reads O(sinks +
+        # window) rows however long the sequence runs. kv_policy "full"
+        # keeps kvt None on every path (the untiered engine)
+        self._kv_policy = kvtier.parse_policy(self.ec.kv_policy)
+        self._tiered = self._kv_policy.windowed
+        self._cold = self._tiered and self._kv_policy.quantize_cold
+        if self._tiered:
+            if not self._paged:
+                raise ValueError(
+                    "kv_policy sink_window requires paged KV (set kv_pages)")
+            if self._draft is not None:
+                raise ValueError(
+                    "kv_policy sink_window is incompatible with a draft "
+                    "model (the dense draft cache has no ring geometry)")
+            if self._ragged and self._cold:
+                raise ValueError(
+                    "quantize_cold is incompatible with ragged continuous "
+                    "batching (the flat-stream program has no cold-tier "
+                    "lane); drop quantize_cold or ragged_token_budget")
+            self._kv_margin = kvtier.engine_margin_tokens(self.ec)
+            self._kv_ring = kvtier.ring_blocks(self._kv_policy.window,
+                                               self._kv_margin)
+            self._kv_resident = kvtier.resident_blocks(self._kv_policy,
+                                                       self._kv_margin)
+            if self._kv_resident > self.ec.kv_pages - 1:
+                raise ValueError(
+                    f"kv_policy {self._kv_policy.describe()} needs "
+                    f"{self._kv_resident} resident blocks per slot but the "
+                    f"pool has {self.ec.kv_pages - 1}; raise kv_pages or "
+                    f"shrink sinks/window")
+            if self._cold:
+                if self.ec.kv_cold_pages < 2:
+                    raise ValueError(
+                        "quantize_cold needs kv_cold_pages >= 2 (cold "
+                        "block 0 is the not-demoted sentinel)")
+                from localai_tpu_torch.ops.kvcache import is_quant_kind
+
+                if is_quant_kind(self.ec.cache_type):
+                    raise ValueError(
+                        "quantize_cold requires a dense hot cache "
+                        "(cache_type=''): the cold tier is already int8")
+        elif self.ec.kv_cold_pages:
+            raise ValueError(
+                "kv_cold_pages needs kv_policy sink_window(..., "
+                "quantize_cold=true)")
         # the host KV spill tier (engine/kvhost.py): catches the blocks the
         # device pool loses, keyed by the prefix cache's chain hashes. None
         # without a budget or an adopted pool — every hook is one branch
@@ -486,6 +555,13 @@ class Engine:
             self.metrics.update(kv_blocks_in_use=0, kv_blocks_peak=0,
                                 kv_admissions_deferred=0,
                                 kv_slots_reclaimed=0, kv_cow_swaps=0)
+        if self._tiered:
+            # the KV tier: cold demotions, evictions (window-exited blocks
+            # dropped: the ring's overwrite, or a full cold pool), prefix
+            # blocks re-prefilled because ring columns cannot be borrowed,
+            # and admission-time full -> window demotions
+            self.metrics.update(kv_cold_blocks=0, kv_evictions=0,
+                                kv_recomputes=0, kv_policy_demotions=0)
         if self._kvhost is not None:
             # the host tier: occupancy refreshed from the pool at each
             # _host_drain; hits/spills/evictions are the pool's cumulative
@@ -504,7 +580,10 @@ class Engine:
         cfg, B, T = self.cfg, self.ec.max_slots, self.ec.max_context
         V, dev = cfg.vocab_size, self.device
         if self._paged:
-            self._maxb = blocks_needed(T)
+            # a tiered engine's table is COMPACT: the resident columns of a
+            # slot (sinks + ring), not ceil(max_context/128)
+            self._maxb = (self._kv_resident if self._tiered
+                          else blocks_needed(T))
             self._table = np.zeros((B, self._maxb), np.int32)
             self._kv_free: list[int] = list(range(1, self.ec.kv_pages))
             self._slot_blocks: list[list[int]] = [[] for _ in range(B)]
@@ -520,6 +599,23 @@ class Engine:
             self._block_ref[0] = 1          # trash block: pinned forever
             self._hash_index: dict[bytes, int] = {}
             self._block_hash_of: dict[int, bytes] = {}
+        if self._tiered:
+            # per-slot tier geometry (full-policy sentinels: sb = the table
+            # width makes the ring map the identity, sinks/window at
+            # max_context keep the retention mask all-true), and the next raw
+            # block eligible for demotion/eviction (_kv_tick)
+            self._kv_sb = np.full((B,), self._maxb, np.int32)
+            self._kv_rw = np.ones((B,), np.int32)
+            self._kv_sinks = np.full((B,), T, np.int32)
+            self._kv_window = np.full((B,), T, np.int32)
+            self._slot_policy: list = [None] * B
+            self._demote_next = np.zeros((B,), np.int64)
+            if self._cold:
+                self._cold_maxb = blocks_needed(T)
+                self._cold_table = np.zeros((B, self._cold_maxb), np.int32)
+                self._cold_free: list[int] = list(
+                    range(1, self.ec.kv_cold_pages))
+                self._slot_cold: list[list[int]] = [[] for _ in range(B)]
         self._deferred: tuple | None = None   # admission waiting on blocks
         self._blocks_freed = False
         # in-flight spills and readmits die with the old state: their pool
@@ -541,6 +637,26 @@ class Engine:
             self._kc, self._vc = init_kv_cache(cfg, B, T, self._kv_dtype,
                                                cache_type=self.ec.cache_type,
                                                device=dev)
+        self._kvt_dev = None
+        if self._tiered:
+            # the tier's geometry in one int32 buffer written in place before
+            # each dispatch (_kvt) — [sb B | rw B | sinks B | window B
+            # (| cold table B*MBC)] — so the captured graphs read the current
+            # geometry; the int8 cold pools [L, NBc, KVH, 128, D] beside it
+            nc = B * self._cold_maxb if self._cold else 0
+            buf = torch.zeros((4 * B + nc,), dtype=torch.int32, device=dev)
+            self._kvt_buf = buf
+            self._kvt_dev = {k: buf[j * B:(j + 1) * B] for j, k in
+                             enumerate(("sb", "rw", "sinks", "window"))}
+            if self._cold:
+                self._ck, self._cv = init_paged(
+                    cfg.num_layers, self.ec.kv_cold_pages, cfg.num_kv_heads,
+                    cfg.head_dim, cache_type="int8", device=dev)
+                self._kvt_dev.update(
+                    cold_tab=buf[4 * B:].view(B, self._cold_maxb),
+                    cold_k=self._ck, cold_v=self._cv)
+                self._demote_rows = torch.arange(
+                    cfg.num_kv_heads * BLOCK, dtype=torch.int32, device=dev)
         self._sampler = SamplerState.init(B, V, device=dev)
         self._last_logits = torch.zeros((B, V), dtype=torch.float32,
                                         device=dev)
@@ -573,7 +689,7 @@ class Engine:
             self._sampler, self._last_logits, self._lengths, no,
             inp[nt + B:nt + 2 * B], no, self._eos_dev,
             inp[:nt].view(B, self._maxb) if self._paged else None,
-            gmasks=self._gmasks, gtrans=self._gtrans)
+            gmasks=self._gmasks, gtrans=self._gtrans, kvt=self._kvt_dev)
         # the loop segments' CUDA graphs (on the card); they hold the
         # addresses of the tensors made here, so a new state gets new graphs
         self.graphs = GraphRunner(dev)
@@ -628,14 +744,16 @@ class Engine:
         cfg = self.cfg
 
         def _decode(params, cos, sin, kc, vc, sampler, last_logits, lengths,
-                    active, fast_width=None, table=None, mask_bits=None):
+                    active, fast_width=None, table=None, mask_bits=None,
+                    kvt=None):
             """sample(prev logits) → decode → next logits, for all slots
-            (under `mask_bits`, a grammar mask row a slot, if given). The
-            caches and token counts update in place."""
+            (under `mask_bits`, a grammar mask row a slot, if given; through
+            the KV tier's geometry `kvt`, if given). The caches and token
+            counts update in place."""
             tokens, keys, logprobs = sample(last_logits, sampler, mask_bits,
                                             topk_width=fast_width)
             logits = decode_step(params, cfg, tokens, lengths, cos, sin, kc,
-                                 vc, active, table)
+                                 vc, active, table, kvt=kvt)
             act = active.to(torch.int32)
             rows = torch.arange(tokens.shape[0], device=tokens.device)
             sampler.token_counts.index_put_((rows, tokens.long()), act,
@@ -666,7 +784,8 @@ class Engine:
             return
 
         def _ragged_step(params, cos, sin, kc, vc, sampler, last_logits,
-                         lengths, pack, is_decode, table, mask_bits=None):
+                         lengths, pack, is_decode, table, mask_bits=None,
+                         kvt=None):
             """The mixed tick: sample every slot from last_logits (full
             sampler, topk_width=None — the draw is width-independent, so
             per-slot streams equal the dense paths' — under `mask_bits`,
@@ -683,7 +802,7 @@ class Engine:
             logits = ragged_forward(
                 params, cfg, toks, cos, sin, kc, vc, pack["block_seq"],
                 pack["qstart"], pack["qlen"], pack["kvlen"], table,
-                pack["logit_rows"])
+                pack["logit_rows"], kvt=kvt)
             act = is_decode.to(torch.int32)
             rows = torch.arange(sampled.shape[0], device=sampled.device)
             sampler.token_counts.index_put_((rows, sampled.long()), act,
@@ -762,6 +881,26 @@ class Engine:
             return None
         return torch.from_numpy(self._table.copy()).to(self.device)
 
+    def _kvt(self):
+        """The KV tier's geometry for this dispatch (None untiered): the host
+        mirrors (per-slot sb, rw, sinks, window and the cold table) copied
+        into the fixed device tensors in one host→device copy — on the card
+        from a pinned snapshot, non-blocking, so it lands after every
+        dispatch already on the stream (they read the geometry of their own
+        time) and before this one. The tensors stay where they are: the
+        captured graphs replay any mix of policies and demotion state."""
+        if not self._tiered:
+            return None
+        parts = [self._kv_sb, self._kv_rw, self._kv_sinks, self._kv_window]
+        if self._cold:
+            parts.append(self._cold_table.ravel())
+        src = torch.from_numpy(np.concatenate(parts).astype(np.int32))
+        if self._kvt_buf.is_cuda:
+            self._kvt_buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self._kvt_buf.copy_(src)
+        return self._kvt_dev
+
     def _note_pool(self):
         """Refresh the pool-occupancy gauges (paged engines)."""
         used = self.ec.kv_pages - 1 - len(self._kv_free)
@@ -786,7 +925,7 @@ class Engine:
         with torch.no_grad():
             logits = prefill(self.params, self.cfg, tokens, lens_t, self._cos,
                              self._sin, self._kc, self._vc, slots_t,
-                             self._tab())
+                             self._tab(), kvt=self._kvt())
             self._last_logits[slots_t] = logits
             self._lengths[slots_t] = lens_t
             self._install_rows(slots, rows, counts_rows)
@@ -800,7 +939,7 @@ class Engine:
                    torch.tensor([pos], device=dev), self._cos, self._sin,
                    self._kc, self._vc,
                    slot_map=torch.tensor([idx], device=dev),
-                   with_logits=False, table=self._tab())
+                   with_logits=False, table=self._tab(), kvt=self._kvt())
 
     def _dev_extend_final(self, buf, pos, nvalid, idx, row, counts_row):
         """Final prefill chunk: KV writes + last-token logits + the sampler
@@ -814,7 +953,7 @@ class Engine:
                 torch.tensor([pos], device=dev), self._cos, self._sin,
                 self._kc, self._vc, slot_map=torch.tensor([idx], device=dev),
                 last_pos=torch.tensor([max(nvalid - 1, 0)], device=dev),
-                table=self._tab())
+                table=self._tab(), kvt=self._kvt())
             self._last_logits[idx] = logits[0]
             self._lengths[idx] = pos + nvalid
             self._install_rows(
@@ -841,7 +980,7 @@ class Engine:
             (tokens, logprobs, self._sampler, self._last_logits,
              self._lengths) = self._decode_fn(
                 *self._step_args(active), fast_width, table=self._tab(),
-                mask_bits=self._mask_dev(mask_host))
+                mask_bits=self._mask_dev(mask_host), kvt=self._kvt())
             return _AsyncFetch((tokens, logprobs))
 
     def _dev_decode_block(self, active, steps: int, fast_width=None,
@@ -855,19 +994,20 @@ class Engine:
             act = torch.as_tensor(active, device=self.device)
             table = self._tab()
             mask = self._mask_dev(mask_host)
+            kvt = self._kvt()
             for _ in range(steps):
                 (tokens, logprobs, self._sampler, self._last_logits,
                  self._lengths) = self._decode_fn(
                     self.params, self._cos, self._sin, self._kc, self._vc,
                     self._sampler, self._last_logits, self._lengths, act,
-                    fast_width, table=table, mask_bits=mask)
+                    fast_width, table=table, mask_bits=mask, kvt=kvt)
                 toks.append(tokens)
                 lps.append(logprobs)
             return _AsyncFetch((torch.stack(toks), torch.stack(lps)))
 
     def _loop_begin(self, sampler, last_logits, lengths, active, remaining,
                     check_eos, eos_ids, table, gstate=None, gmasks=None,
-                    gtrans=None):
+                    gtrans=None, kvt=None):
         """The fused loops' `start`: a dispatch on the loop's fixed tensors.
         The engine's state goes into them (what an eager path rebound to
         new tensors is copied back) and the engine is bound to them; this
@@ -876,9 +1016,10 @@ class Engine:
         _gstate; zeros without grammar slots) — go in one host→device copy,
         on the card from pinned memory: it waits for nothing and lands
         after the previous dispatch's work on the stream. `eos_ids` and the
-        grammar tables are the state's own (_eos_dev, _gmasks, _gtrans)."""
+        grammar tables are the state's own (_eos_dev, _gmasks, _gtrans), and
+        so is the KV tier's geometry (`kvt`, _kvt's fixed tensors)."""
         st = self._loop_st
-        assert eos_ids is st.eos_ids
+        assert eos_ids is st.eos_ids and kvt is st.kvt
         assert gstate is None or (gmasks is st.gmasks
                                   and gtrans is st.gtrans)
         st.adopt(sampler, last_logits, lengths)
@@ -952,7 +1093,8 @@ class Engine:
                 self.params, self._cos, self._sin, self._kc, self._vc,
                 self._sampler, self._last_logits, self._lengths, active,
                 remaining, check_eos, self._eos_dev, fast_width=fast_width,
-                table=self._loop_table(), **self._gkw(gstate))
+                table=self._loop_table(), kvt=self._kvt(),
+                **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out), extra=(steps,))
 
     def _loop_table(self):
@@ -1007,7 +1149,7 @@ class Engine:
                 self.params, self._cos, self._sin, self._kc, self._vc,
                 self._sampler, self._last_logits, self._lengths, dp,
                 dp["is_decode"], self._tab(),
-                mask_bits=self._mask_dev(pack.get("mask")))
+                mask_bits=self._mask_dev(pack.get("mask")), kvt=self._kvt())
             return _AsyncFetch((tokens, logprobs))
 
     def _dev_ragged_loop(self, pack, remaining, check_eos, prefill_pending,
@@ -1029,8 +1171,8 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths,
                 pack["is_decode"], remaining, check_eos, self._eos_dev,
                 bool(prefill_pending), pack=self._pack_dev(pack),
-                table=self._loop_table(), fast_width=None, has_pack=True,
-                **self._gkw(gstate))
+                table=self._loop_table(), fast_width=None, kvt=self._kvt(),
+                has_pack=True, **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_rloop_decode(self, active, remaining, check_eos,
@@ -1046,7 +1188,7 @@ class Engine:
                 self._sampler, self._last_logits, self._lengths, active,
                 remaining, check_eos, self._eos_dev, False,
                 table=self._loop_table(), fast_width=fast_width,
-                has_pack=False, **self._gkw(gstate))
+                kvt=self._kvt(), has_pack=False, **self._gkw(gstate))
             return _AsyncFetch((toks, lps, n_out, code), extra=(steps,))
 
     def _dev_install(self, idx, row, counts_row):
@@ -1057,6 +1199,22 @@ class Engine:
             self._install_rows(
                 [idx], {k: np.asarray(v)[None] for k, v in row.items()},
                 None if counts_row is None else np.asarray(counts_row)[None])
+
+    def _dev_demote(self, pb: int, ci: int):
+        """Copy hot physical block `pb` into cold-pool block `ci` (int8,
+        per-token scales): each layer's K and V block through the
+        quantizing row kernel (paged_demote_q8), bit for bit what the
+        reference's _demote writes with quantize_tokens. Enqueued on the
+        stream behind any in-flight dispatch, so it reads the block's final
+        hot content; the ring's slack blocks (kvtier.ring_blocks) keep every
+        later write off the block until it has run."""
+        KVH = self.cfg.num_kv_heads
+        with torch.no_grad():
+            targets = demote_targets(ci, KVH, self._demote_rows)
+            for i in range(self.cfg.num_layers):
+                paged_demote_q8(self._ck.q[i], self._ck.s[i], self._cv.q[i],
+                                self._cv.s[i], self._kc[i, pb],
+                                self._vc[i, pb], targets)
 
     # ------------------------------------------------------- host KV tier
 
@@ -1386,11 +1544,14 @@ class Engine:
         if req.prompt_cache_path:
             raise not_ported("prompt_cache_path (disk prompt cache)",
                              "context-shift")
-        if req.kv_policy not in ("", "full"):
-            raise not_ported(f"kv_policy {req.kv_policy!r}", "KV-tier")
+        if req.kv_policy:
+            # a malformed or oversized policy fails THIS call (gRPC
+            # INVALID_ARGUMENT), not in-band at admission
+            kvtier.resolve_policy(req.kv_policy, self._kv_policy)
         if self._paged and self._blocks_for(req) > self.ec.kv_pages - 1:
             raise ValueError(
-                f"request needs {self._blocks_for(req)} KV blocks (prompt "
+                f"request needs {self._blocks_for(req)} KV blocks under "
+                f"kv_policy {self._req_policy(req).describe()} (prompt "
                 f"{len(req.prompt_ids)} + max_tokens {req.max_tokens}) but "
                 f"the pool has {self.ec.kv_pages - 1}; raise kv_pages or "
                 f"lower max_tokens")
@@ -1487,6 +1648,18 @@ class Engine:
             # slot bookkeeping and the prompt packs unpadded into mixed
             # ragged ticks — no bucket padding, no admission dispatch
             chunked, bucket = True, None
+        pol = self._req_policy(req) if self._tiered else None
+        if self._tiered and not pol.windowed:
+            # admission-time policy demotion: a full-policy request that
+            # does not fit the compact table (its identity map would write
+            # past the resident columns), or that lands while the free pool
+            # runs low, rides the engine's window instead of being rejected
+            margin = 2 * self.ec.decode_block + 1
+            base = blocks_needed(min(n + max(req.max_tokens, 0) + margin,
+                                     self.ec.max_context))
+            if base > self._maxb or base > len(self._kv_free):
+                pol = self._kv_policy
+                self.metrics["kv_policy_demotions"] += 1
         slot, lcp = self._pick_slot(req.prompt_ids)
         if self._paged:
             shared = None
@@ -1505,6 +1678,20 @@ class Engine:
                 else:
                     self._unref_blocks(shared)
                     shared = None
+            if pol is not None and pol.windowed and lcp:
+                # a windowed slot borrows or keeps prefix pages ONLY for
+                # whole sink blocks: past the sinks its blocks live in ring
+                # columns whose position map is its own, so those cached
+                # blocks are prefilled again (kv_recomputes)
+                keep = min(lcp // BLOCK, self._kv_policy.sink_blocks)
+                self.metrics["kv_recomputes"] += max(0, lcp // BLOCK - keep)
+                if shared is not None:
+                    if keep < len(shared):
+                        self._unref_blocks(shared[keep:])
+                        shared = shared[:keep]
+                    if not shared:
+                        shared = None
+                lcp = keep * BLOCK
             eff = self._alloc_slot(slot, req, shared=shared, lcp=lcp)
             if eff is None:
                 # pool exhausted even after reclaim: defer (FIFO) until
@@ -1514,6 +1701,8 @@ class Engine:
                 self.metrics["kv_admissions_deferred"] += 1
                 return None
             lcp = eff
+            if self._tiered:
+                self._set_tier_slot(slot, pol)
             self._note_pool()
         self._slot_kv_tokens[slot] = []
         if lcp:
@@ -1666,6 +1855,8 @@ class Engine:
             if self._prefillq and not self._ragged:
                 idx = self._prefillq[0]
                 slot = self._slots[idx]
+                if self._tiered:
+                    self._kv_tick_slot(idx, slot)
                 ids = slot.req.prompt_ids
                 pos = slot.prefill_pos
                 nvalid = min(len(ids) - pos, self._chunk)
@@ -1994,6 +2185,64 @@ class Engine:
                 counts[t] += 1
         self._dev_extend_final(buf, n - 1, 1, idx, row, counts)
 
+    def _kv_tick(self):
+        """Advance the hot → cold → evicted lifecycle of windowed slots.
+
+        A raw block is eligible once its LAST token has left the window of
+        the oldest position any in-flight or later query can hold (the host
+        length only lags the device, so eligibility here is conservative).
+        quantize_cold copies the block into the int8 cold pool (_dev_demote,
+        enqueued behind any in-flight dispatch; the ring's slack blocks land
+        it before the ring wraps over the block). A full cold pool, or a
+        drop-policy slot, counts the block evicted: the ring's overwrite IS
+        the eviction. With the host tier, an evicted block that ends inside
+        the first window span — every token of it computed with its full
+        history — is spilled first, under its chain hash."""
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                self._kv_tick_slot(i, s)
+
+    def _kv_tick_slot(self, i: int, s: _Slot):
+        """_kv_tick for slot i. The chunked prefill also runs it before each
+        chunk of a slot (_prefill_drain): an idle engine's tick runs up to
+        max_slots chunks of one slot, more than the ring's margin of one
+        chunk, so a tick-start demotion alone would copy blocks the later
+        chunks had already overwritten through the ring."""
+        pol = self._slot_policy[i]
+        if pol is None or not pol.windowed:
+            return
+        n = (s.prompt_len + s.generated if s.prefilled
+             else s.prefill_pos)
+        sb = int(self._kv_sb[i])
+        lim = n - int(self._kv_window[i])
+        while True:
+            raw = int(self._demote_next[i])
+            if raw < sb or (raw + 1) * BLOCK > lim:
+                break
+            self._demote_next[i] = raw + 1
+            col = sb + (raw - sb) % max(int(self._kv_rw[i]), 1)
+            if not self._cold or not self._cold_free:
+                self.metrics["kv_evictions"] += 1
+                if (self._kvhost is not None
+                        and (raw + 1) * BLOCK
+                        <= int(self._kv_window[i])):
+                    # ring content sits at TRUE positions; a block ending
+                    # inside the first window span is prefix-cache
+                    # content for any tenant (later ones saw truncated
+                    # attention and are not)
+                    ids = list(s.req.prompt_ids) + s.gen_ids
+                    if len(ids) >= (raw + 1) * BLOCK:
+                        chain = self._chain_hashes(
+                            ids[:(raw + 1) * BLOCK])
+                        self._spill_block(int(self._table[i, col]),
+                                          h=chain[raw], group=chain[0])
+                continue
+            ci = self._cold_free.pop()
+            self._cold_table[i, raw] = ci
+            self._slot_cold[i].append(ci)
+            self.metrics["kv_cold_blocks"] += 1
+            self._dev_demote(int(self._table[i, col]), ci)
+
     # ------------------------------------------------------------ the loop
 
     def step(self) -> bool:
@@ -2012,6 +2261,8 @@ class Engine:
             # of verify windows and prefill chunks
             return (self._step_spec_ragged() if self._ragged
                     else self._step_spec())
+        if self._tiered:
+            self._kv_tick()
         if self._host_pending or self._readmits:
             # land last tick's spills (their copies have arrived by now),
             # so the pool's occupancy metrics stay current
@@ -2497,6 +2748,15 @@ class Engine:
 
     # ------------------------------------------------------------ paged KV
 
+    def _req_policy(self, req: GenRequest):
+        """The request's retention policy before pressure demotion (the
+        engine's on a malformed request policy: submit already rejected
+        those; this keeps _blocks_for total)."""
+        try:
+            return kvtier.resolve_policy(req.kv_policy, self._kv_policy)
+        except ValueError:
+            return self._kv_policy
+
     def _blocks_for(self, req: GenRequest) -> int:
         margin = 2 * self.ec.decode_block + 1   # in-flight pipelined writes
         if self._draft is not None:
@@ -2505,7 +2765,14 @@ class Engine:
             margin = max(margin, self.ec.gamma + 1)
         tokens = min(len(req.prompt_ids) + max(req.max_tokens, 0) + margin,
                      self.ec.max_context)
-        return blocks_needed(tokens)
+        need = blocks_needed(tokens)
+        if self._tiered:
+            # retention bounds residency: the compact table holds at most
+            # sink + ring columns a slot however long the sequence runs, and
+            # a full-policy request larger than the table demotes to the
+            # engine's window at admission
+            need = min(need, self._maxb)
+        return need
 
     def _ref_blocks(self, blocks):
         for pb in blocks:
@@ -2667,6 +2934,32 @@ class Engine:
             self._released_lru.remove(slot)
         return lcp
 
+    def _set_tier_slot(self, idx: int, pol):
+        """Slot `idx`'s tier geometry for `pol` (None: released). The
+        RESIDENCY (sb/rw) is always the engine's (the ring was sized for
+        it); a request's narrower policy changes only the retention mask,
+        so every policy mix shares the table layout and the kernels. A
+        full-policy or released slot carries the sentinels; its cold blocks
+        return to the cold pool."""
+        T = self.ec.max_context
+        if pol is not None and pol.windowed:
+            self._kv_sb[idx] = self._kv_policy.sink_blocks
+            self._kv_rw[idx] = self._kv_ring
+            self._kv_sinks[idx] = pol.sinks
+            self._kv_window[idx] = pol.window
+        else:
+            self._kv_sb[idx] = self._maxb
+            self._kv_rw[idx] = 1
+            self._kv_sinks[idx] = T
+            self._kv_window[idx] = T
+        self._slot_policy[idx] = pol
+        self._demote_next[idx] = (self._kv_policy.sink_blocks
+                                  if pol is not None else 0)
+        if self._cold:
+            self._cold_free.extend(self._slot_cold[idx])
+            self._slot_cold[idx] = []
+            self._cold_table[idx, :] = 0
+
     def _release_slot(self, idx: int, slot: _Slot, retain: bool = True):
         """Free `slot`; with `retain` (and the prompt cache on) its cached
         rows stay as a warm prefix. A preempted mid-prefill slot passes
@@ -2679,7 +2972,14 @@ class Engine:
             self._gstate[idx] = 0    # row 0 = identity (all-ones, self-loop)
             if slot.gbase is None:
                 self._grammar_hostonly -= 1
-        retain = retain and self.ec.prompt_cache and self._draft is None
+        windowed = False
+        if self._tiered:
+            pol = self._slot_policy[idx]
+            windowed = pol is not None and pol.windowed
+        # a windowed slot's ring columns hold position-rotated content no
+        # other tenant can address: it retains nothing and registers nothing
+        retain = (retain and self.ec.prompt_cache and self._draft is None
+                  and not windowed)
         if self._paged:
             if retain:
                 # retain ONLY the blocks holding cached rows as the warm
@@ -2712,6 +3012,8 @@ class Engine:
                 self._slot_blocks[idx] = []
                 self._table[idx, :] = 0
             self._blocks_freed = True
+            if self._tiered:
+                self._set_tier_slot(idx, None)
             self._note_pool()
         # record what the slot's cache still holds (rows 0..len-1) so a
         # later prompt sharing the prefix skips that part of its prefill
@@ -2814,7 +3116,7 @@ class Engine:
             st = self._loop_begin(
                 self._sampler, self._last_logits, self._lengths, idle,
                 np.zeros((B,), np.int32), idle, self._eos_dev,
-                self._loop_table())
+                self._loop_table(), kvt=self._kvt())
             for n, w, g in dict.fromkeys(keys):
                 self.graphs.prepare((self._loop_path, n, w, g), n,
                                     self._segment(n, w, g), st.frozen,
@@ -2947,15 +3249,19 @@ class Engine:
     def _freeze_slot(self, idx: int, slot: _Slot, keys, now: float):
         """Checkpoint one live slot into a ResumeToken, force-spilling its
         full KV chain blocks to the host tier (the retention rules of
-        _release_slot: a prefilled slot, prompt cache on, no draft).
+        _release_slot: a prefilled slot, prompt cache on, no draft, no
+        window).
         Returns (token, blocks spilled)."""
         from localai_tpu_torch.engine.resume import ResumeToken
 
         req = slot.req
         spilled = 0
         chain_hex: list[str] = []
+        windowed = self._tiered and self._slot_policy[idx] is not None \
+            and self._slot_policy[idx].windowed
         if (self._paged and self.ec.prompt_cache and self._kvhost is not None
-                and slot.prefilled and self._draft is None):
+                and slot.prefilled and self._draft is None
+                and not windowed):
             kept = min(slot.prompt_len + slot.generated,
                        self.ec.max_context - 2)
             ids = (list(req.prompt_ids) + slot.gen_ids)[:kept]

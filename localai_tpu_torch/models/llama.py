@@ -18,6 +18,17 @@ reading a paged cache through ops/paged.paged_view, as the reference does.
 The ragged slice (`ragged_forward`, `build_ragged_loop`) serves mixed
 prefill+decode ticks over one flat token stream through the ragged
 attention and flat-row scatter kernels.
+
+The KV lifecycle tier (`kvt`, engine/kvtier.py) rides every paged path as
+a dict of per-slot geometry [B] int32 — "sb", "rw" (ring), "sinks",
+"window" (retention) — and, with the cold tier, "cold_tab" [B, MBC] and
+the int8 cold pools "cold_k"/"cold_v" [L, NBc, KVH, 128, D] (read-only
+here: the engine demotes). Writes map raw blocks through
+ops/paged.ring_block_map; decode and ragged attention take kvt in their
+kernels; the first prefill chunk attends under ops/attention's
+mha_prefill_tiered and `extend` against the resident view at true
+positions (mha_extend_tiered), as the reference does. kvt=None keeps
+every path as it is untiered.
 """
 from __future__ import annotations
 
@@ -32,7 +43,9 @@ from torch import nn
 
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
-from localai_tpu_torch.ops.attention import mha_extend
+from localai_tpu_torch.ops.attention import (
+    mha_extend, mha_extend_tiered, mha_prefill_tiered,
+)
 from localai_tpu_torch.ops.kernels import (
     QBLK, flash_prefill, head_matmul, paged_scatter_append,
     paged_scatter_append_q8, paged_targets, ragged_decode, ragged_decode_q8,
@@ -42,7 +55,9 @@ from localai_tpu_torch.ops.kernels import (
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
 )
-from localai_tpu_torch.ops.paged import BLOCK, paged_view
+from localai_tpu_torch.ops.paged import (
+    BLOCK, paged_view, ring_block_map, tiered_positions,
+)
 from localai_tpu_torch.ops.norms import rms_norm
 from localai_tpu_torch.ops.quant import QuantWeight, is_quantized, qmatmul
 from localai_tpu_torch.ops.rope import RopeConfig, apply_rope
@@ -236,7 +251,8 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None):
+def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None,
+                 kvt=None):
     """Write window K/V [B, S, KVH, D] into one layer's head-major caches
     [B', KVH, T, D] at (rows[b], :, positions[b, s]) — in place. Rows may
     repeat (batched admission pads groups by repeating a plan: identical
@@ -254,7 +270,12 @@ def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None):
     padded tail) goes to the trash block 0: the reference's gather clamps
     it to the last column instead, which can land on a real block's valid
     rows. (Decode's inactive slots never come here: decode_step sends
-    them to the trash block through the scatter kernel's targets.)"""
+    them to the trash block through the scatter kernel's targets.)
+
+    kvt (paged, the KV tier): raw block indices map through the rows'
+    ring (ring_block_map) before the table lookup, so a windowed slot's
+    writes reuse its ring columns in place; full-policy slots carry the
+    identity sentinel."""
     kvh = kc.shape[1]
     dev = k.device
     rows = rows.long().to(dev)
@@ -266,6 +287,9 @@ def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None):
     else:
         maxb = table.shape[1]
         raw = torch.div(positions, BLOCK, rounding_mode="floor")
+        if kvt is not None:
+            raw = ring_block_map(raw, kvt["sb"].to(dev).long()[rows][:, None],
+                                 kvt["rw"].to(dev).long()[rows][:, None])
         pb = table.long()[rows[:, None], torch.clamp_max(raw, maxb - 1)]
         pb = torch.where(raw < maxb, pb, torch.zeros_like(pb))
         off = torch.remainder(positions, BLOCK)
@@ -288,6 +312,41 @@ def _cache_write(kc, vc, k, v, rows, positions, table=None, redirect=None):
         return
     kc[idx] = kt.to(kc.dtype)
     vc[idx] = vt.to(vc.dtype)
+
+
+def _tiered_kv(kc, vc, table_rows, ctab=None, ck=None, cv=None):
+    """The RESIDENT (ring-mapped) cache view of the KV tier, as the
+    reference's _tiered_kv gathers it for chunked prefill: the rows' table
+    gather [B, KVH, MAXB*128, D] (QuantKV pools dequantized to bf16, as
+    `dequant` does), and with `ctab` [B, MBC] the cold tier's view of this
+    layer's int8 pools ck/cv concatenated (dequantized to bf16, then cast
+    to the hot view's dtype). Its rows' true positions and validity are the
+    layer-independent _tiered_rows. Returns (k, v)."""
+    k = dequant(paged_view(kc, table_rows))
+    v = dequant(paged_view(vc, table_rows))
+    if ctab is not None:
+        k = torch.cat([k, dequant(paged_view(ck, ctab)).to(k.dtype)], dim=2)
+        v = torch.cat([v, dequant(paged_view(cv, ctab)).to(v.dtype)], dim=2)
+    return k, v
+
+
+def _tiered_rows(maxb, sb, rw, length, ctab=None):
+    """True positions and validity [B, T] of _tiered_kv's rows (residency
+    and pos < length, ops/paged.tiered_positions; demoted blocks valid in
+    the cold part only)."""
+    pos, ok, posc, okc = tiered_positions(maxb, sb, rw, length, ctab)
+    if ctab is not None:
+        pos = torch.cat([pos, posc], dim=1)
+        ok = torch.cat([ok, okc], dim=1)
+    return pos, ok
+
+
+def _cold_layer(kvt, i):
+    """Layer i's cold pools (k, v) of a kvt with the cold tier, else
+    None."""
+    if kvt is None or "cold_tab" not in kvt:
+        return None
+    return kvt["cold_k"][i], kvt["cold_v"][i]
 
 
 # ---------------------------------------------------------------- forward
@@ -330,27 +389,41 @@ def _embed(params: Llama, tokens, dtype):
 
 
 def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
-            k_cache, v_cache, slot_map, table=None):
+            k_cache, v_cache, slot_map, table=None, kvt=None):
     """Padded prompt batch → last-token logits [B, V] f32, writing K/V into
     cache rows slot_map[b] (in place; through the block `table` when the
     cache is paged). tokens: [B, S]; lengths: [B]. Attention runs on the
-    fresh K/V, so it is the same kernel either way."""
+    fresh K/V, so it is the same kernel either way.
+
+    kvt (the KV tier): the writes map through the ring and the attention
+    is mha_prefill_tiered under each slot's sinks/window — with the cold
+    tier the window lifts to 1 << 30 (exited content is demoted, not
+    dropped), as the reference does."""
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    if kvt is not None:
+        sm = slot_map.long().to(dev)
+        sinks = kvt["sinks"].to(dev)[sm]
+        window = kvt["window"].to(dev)[sm]
+        if "cold_tab" in kvt:
+            window = torch.full_like(window, 1 << 30)
     x = _embed(params, tokens, cfg.tdtype)
     for i, lp in enumerate(params.layers):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        attn = flash_prefill(q, k, v, lengths,
-                             sliding_window=cfg.sliding_window)
+        if kvt is not None:
+            attn = mha_prefill_tiered(q, k, v, lengths, sinks, window)
+        else:
+            attn = flash_prefill(q, k, v, lengths,
+                                 sliding_window=cfg.sliding_window)
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
         _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions,
-                     table)
+                     table, kvt=kvt)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last_idx = torch.clamp_min(lengths.long().to(dev) - 1, 0)
     last = x[torch.arange(b, device=dev), last_idx]
@@ -358,7 +431,7 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 
 def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
-                k_cache, v_cache, active=None, table=None):
+                k_cache, v_cache, active=None, table=None, kvt=None):
     """One decode step over ALL slots. tokens: [B] last sampled token per
     slot; lengths: [B] valid cache entries BEFORE this token (it is written
     at index lengths). `active` [B] bool: inactive slots write to the last
@@ -370,7 +443,12 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
     computed once here — positions, table and active are the same for all
     layers; inactive rows go to the trash block 0 at row b % 128, never
     through their own table (its last virtual block can be a retained,
-    shared prefix block). Attention reads through the table."""
+    shared prefix block). Attention reads through the table.
+
+    kvt (paged, the KV tier): the targets map through each slot's ring, and
+    attention is the tiered paged kernel (the ring map, the retention mask
+    and, with kvt["cold_tab"], the cold pools "cold_k"/"cold_v" of each
+    layer, read-only), which takes the place of the sliding window."""
     b = tokens.shape[0]
     dev = tokens.device
     kv_quant = isinstance(k_cache, QuantKV)
@@ -381,7 +459,10 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
             active[:, None], positions, torch.full_like(positions, T - 1))
         rows = torch.arange(b, device=dev)
     else:
-        targets = paged_targets(lengths, table, active)
+        targets = paged_targets(
+            lengths, table, active,
+            sb=None if kvt is None else kvt["sb"],
+            rw=None if kvt is None else kvt["rw"])
     attn_len = lengths + 1
     x = _embed(params, tokens, cfg.tdtype)[:, None, :]
     for i, lp in enumerate(params.layers):
@@ -401,11 +482,12 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
         if kv_quant:
             attn = ragged_decode_q8(q, kc.q, kc.s, vc.q, vc.s, attn_len,
                                     sliding_window=cfg.sliding_window,
-                                    table=table)
+                                    table=table, kvt=kvt)
         else:
             attn = ragged_decode(q, kc, vc, attn_len,
                                  sliding_window=cfg.sliding_window,
-                                 table=table)
+                                 table=table, kvt=kvt,
+                                 cold_kv=_cold_layer(kvt, i))
         x = x + qmatmul(attn.reshape(b, 1, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
@@ -415,7 +497,7 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
            k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None,
-           table=None, redirect=None):
+           table=None, redirect=None, kvt=None):
     """Forward a window of S tokens per row starting at cache offset
     `start` [B] — the chunked-prefill workhorse. Writes the window's K/V
     (in place) and returns logits for every window position [B, S, V], or
@@ -428,7 +510,14 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     or the trash block (paged `table`, see _cache_write). A paged cache is
     read through ops/paged.paged_view of the rows' table rows. `redirect`
     [B] bool (paged): flagged rows write their whole window to the trash
-    block (the speculative verify's inactive rows, _cache_write)."""
+    block (the speculative verify's inactive rows, _cache_write).
+
+    kvt (paged, the KV tier): the window writes through the ring and
+    attends the resident view at true positions (_tiered_kv,
+    mha_extend_tiered): under the retention mask, or — with the cold tier,
+    drop_window False — every valid row, hot or cold. A padded final
+    chunk's tail lands in ring margin columns at positions above every real
+    query, so the kv_pos <= q_pos mask hides it."""
     b, s = tokens.shape
     dev = tokens.device
     rows = (torch.arange(b, device=dev) if slot_map is None
@@ -441,6 +530,14 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     else:
         wpos = positions
         row_table = table.long().to(dev)[rows]
+    if kvt is not None:
+        # the rows' geometry (and cold table), and the view's length: the
+        # window's end
+        geo = {k: kvt[k].to(dev)[rows] for k in
+               ("sb", "rw", "sinks", "window", "cold_tab") if k in kvt}
+        kv_pos, kv_ok = _tiered_rows(row_table.shape[1], geo["sb"],
+                                     geo["rw"], start.long().to(dev) + s,
+                                     geo.get("cold_tab"))
     x = _embed(params, tokens, cfg.tdtype)
     for i, lp in enumerate(params.layers):
         kc, vc = k_cache[i], v_cache[i]
@@ -448,14 +545,23 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
         q, k, v = _qkv(h, lp, cfg)
         q = apply_rope(q, cos, sin, rpos)
         k = apply_rope(k, cos, sin, rpos)
-        _cache_write(kc, vc, k, v, rows, wpos, table, redirect)
-        if table is not None:
-            kr, vr = paged_view(kc, row_table), paged_view(vc, row_table)
+        _cache_write(kc, vc, k, v, rows, wpos, table, redirect, kvt=kvt)
+        if kvt is not None:
+            cold = _cold_layer(kvt, i)
+            ck, cv = cold if cold is not None else (None, None)
+            kr, vr = _tiered_kv(kc, vc, row_table, ctab=geo.get("cold_tab"),
+                                ck=ck, cv=cv)
+            attn = mha_extend_tiered(q, kr, vr, positions, kv_pos, kv_ok,
+                                     geo["sinks"], geo["window"],
+                                     drop_window=cold is None)
         else:
-            kr = kc if slot_map is None else kc[rows]
-            vr = vc if slot_map is None else vc[rows]
-        attn = mha_extend(q, dequant(kr), dequant(vr), positions,
-                          sliding_window=cfg.sliding_window)
+            if table is not None:
+                kr, vr = paged_view(kc, row_table), paged_view(vc, row_table)
+            else:
+                kr = kc if slot_map is None else kc[rows]
+                vr = vc if slot_map is None else vc[rows]
+            attn = mha_extend(q, dequant(kr), dequant(vr), positions,
+                              sliding_window=cfg.sliding_window)
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
@@ -467,13 +573,16 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     return _lm_head(x.float(), params)
 
 
-def ragged_row_targets(block_seq, qstart, qlen, kvlen, tables, max_pos):
+def ragged_row_targets(block_seq, qstart, qlen, kvlen, tables, max_pos,
+                       kvt=None):
     """Per-row (position, scatter block, in-block row) [T] of a flat stream,
     derived from the per-sequence metadata (the reference's in-forward
     derivation). A live row's position is clipped to the rope table
     (max_pos rows); a padding row takes position 0 and writes to the trash
     block 0 at row `row % 128` (collisions there only overwrite other
-    padding rows, and nothing reads block 0)."""
+    padding rows, and nothing reads block 0). kvt (the KV tier, [NSEQ]
+    geometry like tables): raw blocks map through each sequence's ring
+    before the table lookup."""
     dev = tables.device
     t = block_seq.shape[0] * QBLK
     rows = torch.arange(t, device=dev)
@@ -483,8 +592,11 @@ def ragged_row_targets(block_seq, qstart, qlen, kvlen, tables, max_pos):
     live = (sid >= 0) & (rows >= qs) & (rows < qs + ql)
     pos = kvlen.long()[s] - ql + (rows - qs)
     pos = torch.where(live, pos.clamp(0, max_pos - 1), 0)
-    raw = torch.div(pos, BLOCK, rounding_mode="floor").clamp_max(
-        tables.shape[1] - 1)
+    raw = torch.div(pos, BLOCK, rounding_mode="floor")
+    if kvt is not None:
+        raw = ring_block_map(raw, kvt["sb"].to(dev).long()[s],
+                             kvt["rw"].to(dev).long()[s])
+    raw = raw.clamp_max(tables.shape[1] - 1)
     pb = torch.where(live, tables.long()[s, raw], 0)
     off = torch.where(live, pos % BLOCK, rows % BLOCK)
     return pos, pb.to(torch.int32), off.to(torch.int32)
@@ -514,11 +626,10 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
     (QuantKV for int8 KV), updated IN PLACE. Returns logits [NSEQ, V] f32
     ([NSEQ, R, V] for 2-D logit_rows).
 
-    `inject` (multimodal rows) and `kvt` (KV lifecycle tier) belong to
-    later slices."""
-    if kvt is not None:
-        raise not_ported("kvt (KV lifecycle tier) in ragged_forward",
-                         "KV-tier")
+    `kvt` (the KV tier, per-sequence [NSEQ] geometry: sequence = engine
+    slot): the row targets map through each sequence's ring and attention
+    is the tiered ragged kernel. `inject` (multimodal rows) belongs to a
+    later slice."""
     if inject is not None:
         raise not_ported("inject (multimodal rows) in ragged_forward",
                          "multimodal")
@@ -529,7 +640,7 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
         m.to(device=dev, dtype=torch.int32).contiguous()
         for m in (block_seq, qstart, qlen, kvlen, tables))
     pos, pb, off = ragged_row_targets(block_seq, qstart, qlen, kvlen, tables,
-                                      cos.shape[0])
+                                      cos.shape[0], kvt)
     meta = (block_seq, qstart, qlen, kvlen, tables)
     sw = cfg.sliding_window
     x = _embed(params, tokens, cfg.tdtype)[None]                # [1, T, H]
@@ -543,11 +654,12 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
             ragged_scatter_append_q8(kc.q, kc.s, vc.q, vc.s, k[0], v[0], pb,
                                      off)
             attn = ragged_paged_attention_q8(q[0], kc.q, kc.s, vc.q, vc.s,
-                                             *meta, sliding_window=sw)
+                                             *meta, sliding_window=sw,
+                                             kvt=kvt)
         else:
             ragged_scatter_append(kc, vc, k[0], v[0], pb, off)
             attn = ragged_paged_attention(q[0], kc, vc, *meta,
-                                          sliding_window=sw)
+                                          sliding_window=sw, kvt=kvt)
         x = x + qmatmul(attn.reshape(1, t, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _mlp(h, lp)
@@ -576,9 +688,11 @@ class LoopState:
     int32 bit patterns, LSB-first allowed-token rows) and gtrans [S, V]
     int32 (next state per token), None without tables. Row 0 of the tables
     is the identity state (all tokens allowed, a self-loop) that every
-    unconstrained slot sits in. A segment reads and writes no other tensor
-    across iterations, so a CUDA graph captured over one segment replays
-    the next of any dispatch that fills the same tensors."""
+    unconstrained slot sits in. kvt: the KV tier's geometry (and cold
+    tier) in fixed tensors, None untiered. A segment reads and writes no
+    other tensor across iterations, so a CUDA graph captured over one
+    segment replays the next of any dispatch that fills the same
+    tensors."""
     sampler: Any
     last_logits: torch.Tensor
     lengths: torch.Tensor
@@ -593,11 +707,12 @@ class LoopState:
     gstate: torch.Tensor
     gmasks: torch.Tensor | None = None
     gtrans: torch.Tensor | None = None
+    kvt: dict | None = None
 
     @classmethod
     def start(cls, sampler, last_logits, lengths, active, remaining,
               check_eos, eos_ids, table=None, gstate=None, gmasks=None,
-              gtrans=None) -> "LoopState":
+              gtrans=None, kvt=None) -> "LoopState":
         """A state in new tensors for last_logits, lengths, the sampler
         key, the stop state and gstate (zeros when None: the identity
         row): the caller's stay as they are (the other sampler fields are
@@ -617,7 +732,7 @@ class LoopState:
                             device=dev),
             gstate=(torch.zeros((B,), dtype=torch.int32, device=dev)
                     if gstate is None else gstate.to(torch.int32).clone()),
-            gmasks=gmasks, gtrans=gtrans)
+            gmasks=gmasks, gtrans=gtrans, kvt=kvt)
 
     def adopt(self, sampler, last_logits, lengths):
         """Copy into this state's tensors each of `sampler`'s fields,
@@ -634,7 +749,9 @@ class LoopState:
         ts = [getattr(self.sampler, f.name)
               for f in dataclasses.fields(self.sampler)]
         ts += [getattr(self, f.name) for f in dataclasses.fields(self)
-               if f.name != "sampler"]
+               if f.name not in ("sampler", "kvt")]
+        for v in (self.kvt or {}).values():
+            ts += [v.q, v.s] if isinstance(v, QuantKV) else [v]
         return tuple(t.data_ptr() for t in ts if t is not None)
 
     def grammar_mask(self):
@@ -698,6 +815,8 @@ def loop_segment(step_fn, st: LoopState, n: int, limit: int, params, cos,
     for i in range(n):
         live = ~st.done
         kw = {"mask_bits": st.grammar_mask()} if grammar else {}
+        if st.kvt is not None:
+            kw["kvt"] = st.kvt
         tokens, lp, sampler, logits, lengths = step_fn(
             params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
             live, fast_width, table=st.table, **kw)
@@ -798,18 +917,21 @@ def build_decode_loop(step_fn, *, max_steps: int, limit: int,
     replays the segment's CUDA graph, engine/graphs.py).
 
     step_fn(params, cos, sin, kc, vc, sampler, last_logits, lengths, active,
-    fast_width, table=table) → (tokens, logprobs, sampler, logits, lengths);
-    `table` is the paged block table (None for a dense cache), the same
-    for every step of the dispatch.
+    fast_width, table=table[, kvt=kvt]) → (tokens, logprobs, sampler,
+    logits, lengths); `table` is the paged block table (None for a dense
+    cache) and `kvt` the KV tier's geometry (LoopState.kvt), the same for
+    every step of the dispatch.
     Returns (tokens [max_steps, B], logprobs [max_steps, B], n_out [B],
     steps, sampler, last_logits, lengths); slot b's valid tokens are rows
     0..n_out[b]-1."""
 
     def decode_loop(params, cos, sin, kc, vc, sampler, last_logits, lengths,
                     active, remaining, check_eos, eos_ids, fast_width=None,
-                    table=None, gstate=None, gmasks=None, gtrans=None):
+                    table=None, gstate=None, gmasks=None, gtrans=None,
+                    kvt=None):
         st = start(sampler, last_logits, lengths, active, remaining,
-                   check_eos, eos_ids, table, gstate, gmasks, gtrans)
+                   check_eos, eos_ids, table, gstate, gmasks, gtrans,
+                   kvt=kvt)
         toks, lps = loop_outputs(max_steps, st)
         steps = drive_loop(
             st, _segment_runner(run, step_fn, st, limit, params, cos, sin,
@@ -836,6 +958,8 @@ def ragged_pack_step(ragged_step, st: LoopState, limit: int, params, cos,
     (`mask0`) and advances the decode rows' states. Returns the
     iteration's (tokens, logprobs)."""
     kw = {"mask_bits": st.grammar_mask()} if grammar else {}
+    if st.kvt is not None:
+        kw["kvt"] = st.kvt
     tokens, lp, sampler, last_logits, lengths = ragged_step(
         params, cos, sin, kc, vc, st.sampler, st.last_logits, st.lengths,
         pack, is_decode, st.table, **kw)
@@ -906,10 +1030,11 @@ def build_ragged_loop(ragged_step, decode_step, *, max_steps: int,
                     is_decode, remaining, check_eos, eos_ids,
                     prefill_pending: bool, pack=None, table=None,
                     fast_width=None, gstate=None, gmasks=None, gtrans=None,
-                    *, has_pack: bool):
+                    kvt=None, *, has_pack: bool):
         grammar = gstate is not None
         st = start(sampler, last_logits, lengths, is_decode, remaining,
-                   check_eos, eos_ids, table, gstate, gmasks, gtrans)
+                   check_eos, eos_ids, table, gstate, gmasks, gtrans,
+                   kvt=kvt)
         live = ~st.done       # is_decode on the device
         toks, lps = loop_outputs(max_steps, st)
         steps = 0

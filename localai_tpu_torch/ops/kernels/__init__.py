@@ -24,6 +24,9 @@ from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     ragged_decode_q8_plain,
 )
 from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
+    demote_targets,
+    paged_demote_q8,
+    paged_demote_q8_plain,
     paged_scatter_append,
     paged_scatter_append_plain,
     paged_scatter_append_q8,

@@ -48,6 +48,10 @@ SIGNATURES = {
         "decode_attention_q8_paged_launch": [_I, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _P, _I, _I, _I, _I, _I, _I,
                                              _F, _I, _I, _P],
+        "decode_attention_tier_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                         _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                         _I, _I, _I, _I, _P],
         "decode_split_stages": [_I, _I],
     },
     "paged_scatter": {
@@ -63,6 +67,9 @@ SIGNATURES = {
         "ragged_attention_q8_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _F, _P, _I, _I, _P],
+        "ragged_attention_tier_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _F, _P, _I, _I, _P],
         "ragged_attention_tiling": [_I, _I, _I],
     },
     "weight_gemm": {

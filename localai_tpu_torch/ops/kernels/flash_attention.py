@@ -12,6 +12,22 @@ Three wrappers, each beside its plain version with the same signature:
   with per-token scales (csrc/decode_attention.cu: both modes on the split
   pass's int8 flag).
 
+Paged mode also takes the KV lifecycle tier (`kvt`, engine/kvtier.py):
+per-slot ring geometry sb/rw and retention sinks/window [B] int32 over a
+compact ring table, and, on a dense hot pool, the int8 cold tier
+(kvt["cold_tab"] [B, ceil(max_context/128)] with this layer's cold pools
+`cold_kv`). The tiered kernel walks true positions: a raw block reads from
+the cold pool where the cold table has it, else from the hot pool through
+ring_block_map where it is resident, else not at all; the retention mask
+(pos < L and pos >= L - window or pos < sinks; with the cold tier pos < L
+only) takes the place of the model's sliding window. Its splits cover the
+live tiles (sinks and window), not 0..L, and the cold tier's tiles have
+splits of their own. Cold rows are read as the reference's dequant gives
+them, bf16(q * scale); a hot int8 pool keeps row 5's arithmetic (the K
+scale on the score, the V scale on p), so full-policy sentinels give row
+3/5's output bit for bit. Tiered launches count apart
+(`ragged_decode_paged_tier`, `ragged_decode_q8_paged_tier`).
+
 On the card every kernel takes any GQA group size G = H/KVH and a head_dim
 D that is a multiple of 16 up to MAX_HEAD_DIM (256): decode splits a KV
 head's G query heads into blocks of at most 1024/D heads, prefill runs D
@@ -37,11 +53,12 @@ import torch
 
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kernels import _build
-from localai_tpu_torch.ops.kvcache import QuantKV
-from localai_tpu_torch.ops.paged import BLOCK, paged_view
+from localai_tpu_torch.ops.kvcache import QuantKV, dequant
+from localai_tpu_torch.ops.paged import BLOCK, paged_view, tiered_positions
 
 LAUNCHES = {"flash_prefill": 0, "ragged_decode": 0, "ragged_decode_q8": 0,
-            "ragged_decode_paged": 0, "ragged_decode_q8_paged": 0}
+            "ragged_decode_paged": 0, "ragged_decode_q8_paged": 0,
+            "ragged_decode_paged_tier": 0, "ragged_decode_q8_paged_tier": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -194,11 +211,15 @@ def flash_prefill(q, k, v, lengths, sliding_window=None):
 # ----------------------------------------------------------------- decode
 
 def ragged_decode_plain(q, k_cache, v_cache, lengths, sliding_window=None,
-                        table=None):
+                        table=None, kvt=None, cold_kv=None):
     """Plain version of ragged_decode. q: [B, 1, H, D]; caches [B, KVH, T,
     D]; lengths: [B] valid entries INCLUDING the new token. With `table`
     [B, MAXB]: caches are block pools [NB, KVH, 128, D], read through
-    paged_view (T = MAXB*128)."""
+    paged_view (T = MAXB*128); with `kvt` (and `cold_kv`), the KV tier's
+    read (_tier_plain)."""
+    if kvt is not None:
+        return _tier_plain(q, k_cache, v_cache, None, None, lengths, table,
+                           kvt, cold_kv)
     if table is not None:
         k_cache, v_cache = paged_view(k_cache, table), paged_view(v_cache,
                                                                   table)
@@ -207,11 +228,14 @@ def ragged_decode_plain(q, k_cache, v_cache, lengths, sliding_window=None,
 
 
 def ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
-                           sliding_window=None, table=None):
+                           sliding_window=None, table=None, kvt=None):
     """Plain version of ragged_decode_q8. k_q/v_q: [B, KVH, T, D] int8;
     k_s/v_s: [B, KVH, T//128, 128] f32 (token t's scale at [t//128,
     t%128]). With `table` [B, MAXB]: int8 pools [NB, KVH, 128, D] with
-    scales [NB, KVH, 1, 128], read through paged_view."""
+    scales [NB, KVH, 1, 128], read through paged_view; with `kvt`, the KV
+    tier's read (_tier_plain; no cold tier over an int8 pool)."""
+    if kvt is not None:
+        return _tier_plain(q, k_q, v_q, k_s, v_s, lengths, table, kvt, None)
     if table is not None:
         kv = paged_view(QuantKV(k_q, k_s), table)
         vv = paged_view(QuantKV(v_q, v_s), table)
@@ -224,17 +248,58 @@ def ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
 
 
 def _decode_plain(q, kf, vf, ks, vs, lengths, sliding_window):
-    B, _, H, D = q.shape
-    KVH, T = kf.shape[1], kf.shape[2]
-    qg = (q.float() * (D ** -0.5)).reshape(B, KVH, H // KVH, D)
-    s = torch.einsum("bkgd,bktd->bkgt", qg, kf)
-    if ks is not None:
-        s = s * ks[:, :, None, :]
+    T = kf.shape[2]
     pos = torch.arange(T, device=q.device)
     ln = lengths.to(q.device)
     mask = pos[None, :] < ln[:, None]
     if sliding_window:
         mask = mask & (pos[None, :] >= ln[:, None] - int(sliding_window))
+    return _masked_plain(q, kf, vf, ks, vs, mask)
+
+
+def _tier_plain(q, kp, vp, ks, vs, lengths, table, kvt, cold_kv):
+    """The tiered paged read (the reference's _decode_dq tier branch, with
+    the kernel's arithmetic): the resident ring view of the pools at true
+    positions (ops/paged.tiered_positions), masked by pos < L and (pos >=
+    L - window or pos < sinks); with kvt["cold_tab"], demoted blocks drop
+    out of it and the cold view — cold_kv's int8 pools through the cold
+    table, each row bf16(q * scale) as the reference's dequant gives it —
+    joins it under pos < L alone. ks/vs: a hot int8 pool's scales (then K
+    and V are the int8 values, scaled as the kernel scales them)."""
+    ln = lengths.to(q.device)
+    ctab = kvt.get("cold_tab")
+    pos, ok, posc, okc = tiered_positions(table.shape[1], kvt["sb"],
+                                          kvt["rw"], ln, ctab)
+    if ks is not None:
+        kv, vv = paged_view(QuantKV(kp, ks), table), paged_view(
+            QuantKV(vp, vs), table)
+        B, KVH, T, _ = kv.q.shape
+        kf, vf = kv.q.float(), vv.q.float()
+        ks, vs = kv.s.float().reshape(B, KVH, T), vv.s.float().reshape(
+            B, KVH, T)
+    else:
+        kf, vf = paged_view(kp, table).float(), paged_view(vp, table).float()
+    if ctab is None:
+        mask = ok & ((pos >= (ln - kvt["window"].to(q.device))[:, None])
+                     | (pos < kvt["sinks"].to(q.device)[:, None]))
+    else:
+        ck, cv = cold_kv
+        kf = torch.cat([kf, dequant(paged_view(ck, ctab)).float()], dim=2)
+        vf = torch.cat([vf, dequant(paged_view(cv, ctab)).float()], dim=2)
+        mask = torch.cat([ok, okc], dim=1)
+    return _masked_plain(q, kf, vf, ks, vs, mask)
+
+
+def _masked_plain(q, kf, vf, ks, vs, mask):
+    """The decode kernels' arithmetic under a row mask [B, T]: f32 scores
+    from the pre-scaled query (times the K scale for int8), softmax in f32,
+    p (times the V scale) into the value product, the 1e-30 floor."""
+    B, _, H, D = q.shape
+    KVH = kf.shape[1]
+    qg = (q.float() * (D ** -0.5)).reshape(B, KVH, H // KVH, D)
+    s = torch.einsum("bkgd,bktd->bkgt", qg, kf)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -270,24 +335,32 @@ def _table_i32(name, table, q, pool_shape):
 
 
 def ragged_decode(q, k_cache, v_cache, lengths, sliding_window=None,
-                  table=None):
+                  table=None, kvt=None, cold_kv=None):
     """Decode-step GQA attention. q: [B, 1, H, D]; caches [B, KVH, T, D]
     in q's dtype; lengths: [B] valid entries incl. the newly written token.
     Paged mode (`table` [B, MAXB] int): the caches are block pools [NB,
     KVH, 128, D] and virtual block v of slot b is pool block table[b, v]
     (T = MAXB*128). Returns [B, 1, H, D].
 
+    KV tier (paged only): `kvt` {"sb", "rw", "sinks", "window"} [B] int
+    (and "cold_tab" [B, MBC] with `cold_kv` = (k, v) QuantKV cold pools
+    [NBc, KVH, 128, D] of this layer); sliding_window is then ignored.
+
     On the card both modes are split-KV: two CUDA launches (the split pass
     over `decode_split` spans into an f32 workspace, then the combine),
     counted as one launch of "ragged_decode" (paged mode:
-    "ragged_decode_paged")."""
+    "ragged_decode_paged", tiered "ragged_decode_paged_tier")."""
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, lengths,
-                                   sliding_window, table=table)
+                                   sliding_window, table=table, kvt=kvt,
+                                   cold_kv=cold_kv)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_decode: unsupported device {q.device}")
     if v_cache.shape != k_cache.shape:
         raise ValueError("ragged_decode: k/v cache shapes differ")
+    if kvt is not None:
+        return _decode_tier(q, (k_cache, None, v_cache, None), lengths,
+                            table, kvt, cold_kv)
     if table is not None:
         return _ragged_decode_paged(q, k_cache, v_cache, lengths,
                                     sliding_window, table)
@@ -331,21 +404,30 @@ def _ragged_decode_paged(q, k_pool, v_pool, lengths, sliding_window, table):
 
 
 def ragged_decode_q8(q, k_q, k_s, v_q, v_s, lengths, sliding_window=None,
-                     table=None):
+                     table=None, kvt=None):
     """Decode-step GQA attention over an int8 cache (ops/kvcache.py layout).
     k_q/v_q: [B, KVH, T, D] int8 with T % 128 == 0; k_s/v_s: [B, KVH,
     T//128, 128] f32. Paged mode (`table` [B, MAXB] int): int8 pools [NB,
     KVH, 128, D] with scales [NB, KVH, 1, 128] (ops/paged.py). Returns
     [B, 1, H, D] in q's dtype.
 
+    KV tier (paged only): `kvt` as ragged_decode's, without a cold tier
+    (the reference keeps it to dense hot pools).
+
     On the card both modes are split-KV as ragged_decode's (the split
     pass's int8 flag), counted as one launch of "ragged_decode_q8" (paged
-    mode: "ragged_decode_q8_paged")."""
+    mode: "ragged_decode_q8_paged", tiered "ragged_decode_q8_paged_tier")."""
     if q.device.type == "cpu":
         return ragged_decode_q8_plain(q, k_q, k_s, v_q, v_s, lengths,
-                                      sliding_window, table=table)
+                                      sliding_window, table=table, kvt=kvt)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_decode_q8: unsupported device {q.device}")
+    if kvt is not None:
+        if "cold_tab" in kvt:
+            raise ValueError("ragged_decode_q8: the cold tier needs a dense "
+                             "hot pool")
+        return _decode_tier(q, (k_q, k_s, v_q, v_s), lengths, table, kvt,
+                            None)
     if table is not None:
         return _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths,
                                        sliding_window, table)
@@ -395,4 +477,76 @@ def _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths, sliding_window,
         _window(sliding_window), D ** -0.5, nsplit, split, _stream(q.device))
     _raise_rc("ragged_decode_q8 (paged)", rc)
     LAUNCHES["ragged_decode_q8_paged"] += 1
+    return out
+
+
+def _decode_tier(q, pools, lengths, table, kvt, cold_kv):
+    """The tiered paged launch (decode_attention_tier_launch): pools (k,
+    ks, v, vs) with ks/vs None for a bf16/f32 pool; the hot spans from
+    decode_split over the compact table (MAXB*128: the live hot rows never
+    exceed the resident columns), the cold tier's over its table's full
+    context."""
+    kp, ks, vp, vs = pools
+    q8 = ks is not None
+    name = "ragged_decode_q8" if q8 else "ragged_decode"
+    if table is None:
+        raise ValueError(f"{name}: the KV tier reads a paged pool (table)")
+    tab, maxb = _table_i32(name, table, q, kp.shape)
+    B, H, KVH, T, D = _decode_checks(name, q,
+                                     (q.shape[0],) + tuple(kp.shape[1:]),
+                                     maxb * BLOCK)
+    dev = q.device
+    geo = [_on(kvt[k], torch.int32, dev) for k in ("sb", "rw", "sinks",
+                                                   "window")]
+    for g in geo:
+        if g.shape != (B,):
+            raise ValueError(f"{name}: kvt geometry must be [B={B}]")
+    if q8:
+        NB = kp.shape[0]
+        if (vp.shape != kp.shape or ks.shape != (NB, KVH, 1, BLOCK)
+                or vs.shape != ks.shape):
+            raise ValueError(f"{name}: bad paged pool/scale shapes")
+        _check_cuda(name, (q, kp, ks, vp, vs),
+                    (None, torch.int8, torch.float32, torch.int8,
+                     torch.float32))
+    else:
+        _check_cuda(name, (q, kp, vp), (None, q.dtype, q.dtype))
+    ctab = kvt.get("cold_tab")
+    cold = (None, 0, None, None, None, None)
+    nsplit_c = split_c = 0
+    if ctab is not None:
+        if cold_kv is None:
+            raise ValueError(f"{name}: kvt['cold_tab'] needs cold_kv")
+        ck, cv = cold_kv
+        ctab = _on(ctab, torch.int32, dev)
+        if ctab.dim() != 2 or ctab.shape[0] != B:
+            raise ValueError(f"{name}: cold_tab must be [B={B}, MBC]")
+        nbc = ck.q.shape[0]
+        if (ck.q.shape != (nbc, KVH, BLOCK, D) or cv.q.shape != ck.q.shape
+                or ck.s.shape != (nbc, KVH, 1, BLOCK)
+                or cv.s.shape != ck.s.shape):
+            raise ValueError(f"{name}: bad cold pool shapes")
+        _check_cuda(name, (q, ck.q, ck.s, cv.q, cv.s),
+                    (None, torch.int8, torch.float32, torch.int8,
+                     torch.float32))
+        mbc = ctab.shape[1]
+        nsplit_c, split_c = decode_split(mbc * BLOCK, B * KVH,
+                                         _sm_count(dev))
+        cold = (ctab, mbc, ck.q, ck.s, cv.q, cv.s)
+    lens = _on(lengths, torch.int32, dev)
+    out = torch.empty_like(q)
+    nsplit, split = decode_split(T, B * KVH, _sm_count(dev))
+    ws = torch.empty(B * H * (nsplit + nsplit_c) * (D + 2),
+                     dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ctab_t, mbc, ckq, cks, cvq, cvs = cold
+    lib = _build.load("decode_attention")
+    rc = lib.decode_attention_tier_launch(
+        _DTYPE_CODE[q.dtype], int(q8), q.data_ptr(), kp.data_ptr(), ptr(ks),
+        vp.data_ptr(), ptr(vs), tab.data_ptr(), lens.data_ptr(),
+        *(g.data_ptr() for g in geo), ptr(ctab_t), mbc, ptr(ckq), ptr(cks),
+        ptr(cvq), ptr(cvs), out.data_ptr(), ws.data_ptr(), B, H, KVH, maxb,
+        D, D ** -0.5, nsplit, split, nsplit_c, split_c, _stream(dev))
+    _raise_rc(f"{name} (tiered)", rc)
+    LAUNCHES[name + "_paged_tier"] += 1
     return out

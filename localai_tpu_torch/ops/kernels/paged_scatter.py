@@ -19,6 +19,12 @@ written IN PLACE and returned — the port's counterpart of the Pallas
 them to every layer's call (`targets=`): positions, table and active are
 the same for all layers.
 
+The KV lifecycle tier's demotion (`paged_demote_q8`, the reference's
+engine _demote) runs on the same quantizing kernel: one hot block [KVH,
+128, D] of a layer is KVH*128 rows of one head, written to the cold pool
+viewed as blocks of one head [NBc*KVH, 1, 128, D], targets from
+`demote_targets` — no kernel of its own and no op chain.
+
 A wrapper given CPU tensors runs the plain version (advanced-index
 assignment); given CUDA tensors it launches the kernel or raises. Each
 launch adds one to its count in LAUNCHES, and nothing else does.
@@ -34,7 +40,8 @@ from localai_tpu_torch.ops.kernels.flash_attention import (
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, ring_block_map
 
-LAUNCHES = {"paged_scatter_append": 0, "paged_scatter_append_q8": 0}
+LAUNCHES = {"paged_scatter_append": 0, "paged_scatter_append_q8": 0,
+            "paged_demote_q8": 0}
 
 
 def paged_targets(positions, table, active=None, sb=None, rw=None):
@@ -190,4 +197,57 @@ def paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions, table,
     launch_rows_q8("paged_scatter_append_q8", kq, ks, vq, vs, k_new, v_new,
                    _resolve(positions, table, active, sb, rw, targets))
     LAUNCHES["paged_scatter_append_q8"] += 1
+    return kq, ks, vq, vs
+
+
+def demote_targets(ci, kvh: int, rows=None):
+    """(block [KVH*128], row [KVH*128]) int32 targets of paged_demote_q8
+    for cold block `ci`: row h*128 + t of the hot block goes to block ci*KVH
+    + h of the one-head view, row t. `rows` ([KVH*128] int32 arange on the
+    block's device, made once by the caller) keeps a demote to one device
+    op; without it it is made here."""
+    if rows is None:
+        rows = torch.arange(kvh * BLOCK, dtype=torch.int32)
+    return (torch.div(rows, BLOCK, rounding_mode="floor") + ci * kvh,
+            torch.remainder(rows, BLOCK))
+
+
+def paged_demote_q8_plain(kq, ks, vq, vs, k_blk, v_blk, targets):
+    """Plain version of paged_demote_q8: quantize_tokens of each row, then
+    the int8 rows and scales into the cold block."""
+    nbc, kvh, _, d = kq.shape
+    return paged_scatter_append_q8_plain(
+        kq.view(nbc * kvh, 1, BLOCK, d), ks.view(nbc * kvh, 1, 1, BLOCK),
+        vq.view(nbc * kvh, 1, BLOCK, d), vs.view(nbc * kvh, 1, 1, BLOCK),
+        k_blk.reshape(kvh * BLOCK, 1, d), v_blk.reshape(kvh * BLOCK, 1, d),
+        None, None, targets=targets)
+
+
+def paged_demote_q8(kq, ks, vq, vs, k_blk, v_blk, targets):
+    """Demote one layer's hot block into a cold block, IN PLACE: k_blk/v_blk
+    [KVH, 128, D] (bf16/f32, contiguous: a block of the hot pool) quantized
+    per token, as ops/kvcache.quantize_tokens does bit for bit, into the
+    int8 pools kq/vq [NBc, KVH, 128, D] and scales ks/vs [NBc, KVH, 1, 128]
+    at `targets` (demote_targets of the cold block). On the card: one
+    launch of the quantizing row kernel (scatter_q8_rows)."""
+    if k_blk.device.type == "cpu":
+        return paged_demote_q8_plain(kq, ks, vq, vs, k_blk, v_blk, targets)
+    if k_blk.device.type != "cuda":
+        raise ValueError(f"paged_demote_q8: unsupported device "
+                         f"{k_blk.device}")
+    nbc, kvh, bs, d = kq.shape
+    if k_blk.shape != (kvh, BLOCK, d) or v_blk.shape != k_blk.shape \
+            or not (k_blk.is_contiguous() and v_blk.is_contiguous()):
+        raise ValueError(f"paged_demote_q8: blocks must be contiguous "
+                         f"[{kvh}, {BLOCK}, {d}], got {tuple(k_blk.shape)}")
+    if bs != BLOCK or ks.shape != (nbc, kvh, 1, BLOCK) \
+            or vq.shape != kq.shape or vs.shape != ks.shape:
+        raise ValueError("paged_demote_q8: bad cold pool shapes")
+    launch_rows_q8("paged_demote_q8", kq.view(nbc * kvh, 1, BLOCK, d),
+                   ks.view(nbc * kvh, 1, 1, BLOCK),
+                   vq.view(nbc * kvh, 1, BLOCK, d),
+                   vs.view(nbc * kvh, 1, 1, BLOCK),
+                   k_blk.view(kvh * BLOCK, 1, d),
+                   v_blk.view(kvh * BLOCK, 1, d), targets)
+    LAUNCHES["paged_demote_q8"] += 1
     return kq, ks, vq, vs

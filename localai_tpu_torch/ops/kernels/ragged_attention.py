@@ -44,10 +44,23 @@ softmax, the reference's ragged_attention_xla structure, with the kernel's
 math: f32 scores from the pre-scaled query, the K scale on the score
 columns and the V scale on p (int8), the 1e-30 floor.
 
+The KV lifecycle tier (`kvt`, engine/kvtier.py: per-sequence sb, rw,
+sinks, window [NSEQ] over compact ring tables) runs in the same kernels:
+each q tile walks two spans of keys, the sinks [0, sinks) and its window
+(q_first - window, q_last], in one compressed order whose tiles take their
+table entries through ring_block_map (raw block indices run up to
+kvlen/128 while MAXB is the compact width); a row keeps the resident keys
+at kv_pos <= q_pos with kv_pos > q_pos - window or kv_pos < sinks, the
+reference's _xla_core tier branch. Its plain versions gather the table
+rows as the untiered ones do and take the true positions and residency of
+ops/paged.resident_row_positions (the reference's _tier_blocks). Tiered
+launches count apart (`ragged_paged_attention_tier`,
+`ragged_paged_attention_q8_tier`).
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each launch adds one to the wrapper's count
-in LAUNCHES, and nothing else does. The KV lifecycle tier (`kvt`) and the
-tensor-parallel `*_sharded` wrappers wait for their slices and raise.
+in LAUNCHES, and nothing else does. The tensor-parallel `*_sharded`
+wrappers wait for their slice and raise.
 """
 from __future__ import annotations
 
@@ -59,13 +72,13 @@ from localai_tpu_torch import not_ported
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kernels import _build
 from localai_tpu_torch.ops.kernels.flash_attention import (
-    _DTYPE_CODE, _check_cuda, _raise_rc, _sm_count, _stream, _window,
+    _DTYPE_CODE, _check_cuda, _on, _raise_rc, _sm_count, _stream, _window,
 )
 from localai_tpu_torch.ops.kernels.paged_scatter import (
     launch_rows, launch_rows_q8, paged_scatter_append_plain,
     paged_scatter_append_q8_plain,
 )
-from localai_tpu_torch.ops.paged import BLOCK
+from localai_tpu_torch.ops.paged import BLOCK, resident_row_positions
 
 QBLK = 8   # q rows per block; every sequence's rows start on a boundary
 
@@ -126,13 +139,11 @@ def _ragged_workspace(t, h, kvh, d, maxb, device):
 
 
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0,
+            "ragged_paged_attention_tier": 0,
+            "ragged_paged_attention_q8_tier": 0,
             "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0}
 
-
-def _no_kvt(kvt):
-    if kvt is not None:
-        raise not_ported("kvt (KV lifecycle tier) in ragged attention",
-                         "KV-tier")
+_TIER_KEYS = ("sb", "rw", "sinks", "window")
 
 
 def _meta_i32(device, *meta):
@@ -155,10 +166,26 @@ def _gather_blocks(pool, block_seq, tables):
                                             g.shape[4])
 
 
+def _tier_blocks(block_seq, kvlen, tables, kvt):
+    """Per-q-block tier metadata for _plain_core (the reference's
+    _tier_blocks): true row positions and residency of the ring-mapped
+    gathered view, and each block's sinks and window. None without kvt."""
+    if kvt is None:
+        return None
+    dev = tables.device
+    s_b = block_seq.to(dev).long().clamp_min(0)
+    sb, rw, sinks, window = (kvt[k].to(dev).long()[s_b] for k in _TIER_KEYS)
+    pos, ok = resident_row_positions(tables.shape[1], sb, rw,
+                                     kvlen.to(dev).long()[s_b])
+    return pos, ok, sinks, window
+
+
 def _plain_core(q, kg, vg, ks, vs, block_seq, qstart, qlen, kvlen,
-                sliding_window):
+                sliding_window, tier=None):
     """q [T, H, D]; kg/vg [NQB, KVH, C, D] f32 per-q-block gathered KV;
-    ks/vs [NQB, KVH, C] scales or None. Returns [T, H, D] in q.dtype."""
+    ks/vs [NQB, KVH, C] scales or None; tier: _tier_blocks' metadata (the
+    retention mask then replaces the length and window masks). Returns [T,
+    H, D] in q.dtype."""
     t, h, d = q.shape
     nqb, kvh, c, _ = kg.shape
     g = h // kvh
@@ -175,11 +202,19 @@ def _plain_core(q, kg, vg, ks, vs, block_seq, qstart, qlen, kvlen,
     grow = torch.arange(t, device=dev).reshape(nqb, QBLK)
     q_pos = klen - ql + (grow - qs)                             # [NQB, QBLK]
     valid = (grow >= qs) & (grow < qs + ql) & (block_seq[:, None] >= 0)
-    kv_pos = torch.arange(c, device=dev)[None, None, :]
-    mask = (valid[:, :, None] & (kv_pos <= q_pos[:, :, None])
-            & (kv_pos < klen[:, :, None]))
-    if sliding_window:
-        mask = mask & (kv_pos > q_pos[:, :, None] - int(sliding_window))
+    if tier is None:
+        kv_pos = torch.arange(c, device=dev)[None, None, :]
+        mask = (valid[:, :, None] & (kv_pos <= q_pos[:, :, None])
+                & (kv_pos < klen[:, :, None]))
+        if sliding_window:
+            mask = mask & (kv_pos > q_pos[:, :, None] - int(sliding_window))
+    else:
+        pos, ok, sinks, window = tier
+        kv_pos = pos.long()[:, None, :]                        # [NQB, 1, C]
+        mask = (valid[:, :, None] & ok[:, None, :]
+                & (kv_pos <= q_pos[:, :, None]))
+        mask = mask & ((kv_pos > q_pos[:, :, None] - window[:, None, None])
+                       | (kv_pos < sinks[:, None, None]))
     sc = torch.where(mask[:, None, :, None, :], sc, NEG_INF)
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
@@ -194,24 +229,24 @@ def ragged_paged_attention_plain(q, k_pool, v_pool, block_seq, qstart, qlen,
                                  kvlen, tables, sliding_window=None,
                                  kvt=None):
     """Plain version of ragged_paged_attention."""
-    _no_kvt(kvt)
     kg = _gather_blocks(k_pool, block_seq, tables).float()
     vg = _gather_blocks(v_pool, block_seq, tables).float()
     return _plain_core(q, kg, vg, None, None, block_seq, qstart, qlen, kvlen,
-                       sliding_window)
+                       sliding_window,
+                       _tier_blocks(block_seq, kvlen, tables, kvt))
 
 
 def ragged_paged_attention_q8_plain(q, k_q, k_s, v_q, v_s, block_seq, qstart,
                                     qlen, kvlen, tables, sliding_window=None,
                                     kvt=None):
     """Plain version of ragged_paged_attention_q8."""
-    _no_kvt(kvt)
     return _plain_core(
         q, _gather_blocks(k_q, block_seq, tables).float(),
         _gather_blocks(v_q, block_seq, tables).float(),
         _gather_blocks(k_s, block_seq, tables).float(),
         _gather_blocks(v_s, block_seq, tables).float(), block_seq, qstart,
-        qlen, kvlen, sliding_window)
+        qlen, kvlen, sliding_window,
+        _tier_blocks(block_seq, kvlen, tables, kvt))
 
 
 def ragged_scatter_append_plain(k_pool, v_pool, k_new, v_new, pb, off):
@@ -255,12 +290,12 @@ def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
                            kvlen, tables, sliding_window=None, kvt=None):
     """Flat-stream GQA attention over paged KV. q: [T, H, D], T a multiple
     of QBLK; pools [NB, KVH, 128, D] in q's dtype; metadata per the module
-    docstring. Returns [T, H, D] in q.dtype (padding rows garbage)."""
-    _no_kvt(kvt)
+    docstring; `kvt` the KV tier's per-sequence geometry (sliding_window is
+    then ignored). Returns [T, H, D] in q.dtype (padding rows garbage)."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pool, v_pool, block_seq,
                                             qstart, qlen, kvlen, tables,
-                                            sliding_window)
+                                            sliding_window, kvt)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device "
                          f"{q.device}")
@@ -272,6 +307,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
     _check_cuda("ragged_paged_attention", (q, k_pool, v_pool),
                 (None, q.dtype, q.dtype))
     meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
+    if kvt is not None:
+        return _ragged_tier(q, (k_pool, None, v_pool, None), meta, kvt)
     out = torch.empty_like(q)
     nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
     lib = _build.load("ragged_attention")
@@ -290,11 +327,11 @@ def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
                               kvt=None):
     """int8 twin: pools k_q/v_q [NB, KVH, 128, D] int8 with per-token scales
     k_s/v_s [NB, KVH, 1, 128] f32 (ops/paged.py layout)."""
-    _no_kvt(kvt)
     if q.device.type == "cpu":
         return ragged_paged_attention_q8_plain(q, k_q, k_s, v_q, v_s,
                                                block_seq, qstart, qlen,
-                                               kvlen, tables, sliding_window)
+                                               kvlen, tables, sliding_window,
+                                               kvt)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention_q8: unsupported device "
                          f"{q.device}")
@@ -308,6 +345,8 @@ def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
     _check_cuda("ragged_paged_attention_q8", (q, k_q, k_s, v_q, v_s),
                 (None, torch.int8, torch.float32, torch.int8, torch.float32))
     meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
+    if kvt is not None:
+        return _ragged_tier(q, (k_q, k_s, v_q, v_s), meta, kvt)
     out = torch.empty_like(q)
     nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
     lib = _build.load("ragged_attention")
@@ -318,6 +357,37 @@ def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
         d ** -0.5, ws.data_ptr(), nsplit, split, _stream(q.device))
     _raise_rc("ragged_paged_attention_q8", rc)
     LAUNCHES["ragged_paged_attention_q8"] += 1
+    return out
+
+
+def _ragged_tier(q, pools, meta, kvt):
+    """The tiered launch (ragged_attention_tier_launch) over checked
+    pools (k, ks, v, vs; ks/vs None for bf16/f32) and int32 metadata; the
+    spans of ragged_split over the compact tables."""
+    kp, ks, vp, vs = pools
+    q8 = ks is not None
+    name = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    t, h, d = q.shape
+    kvh = kp.shape[1]
+    tables = meta[4]
+    geo = [_on(kvt[k], torch.int32, q.device) for k in _TIER_KEYS]
+    for g in geo:
+        if g.shape != (tables.shape[0],):
+            raise ValueError(f"{name}: kvt geometry must be "
+                             f"[NSEQ={tables.shape[0]}]")
+    out = torch.empty_like(q)
+    nsplit, split, ws = _ragged_workspace(t, h, kvh, d, tables.shape[1],
+                                          q.device)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    lib = _build.load("ragged_attention")
+    rc = lib.ragged_attention_tier_launch(
+        _DTYPE_CODE[q.dtype], int(q8), q.data_ptr(), kp.data_ptr(), ptr(ks),
+        vp.data_ptr(), ptr(vs), *(m.data_ptr() for m in meta),
+        *(g.data_ptr() for g in geo), out.data_ptr(), t, h, kvh,
+        tables.shape[1], d, d ** -0.5, ws.data_ptr(), nsplit, split,
+        _stream(q.device))
+    _raise_rc(f"{name} (tiered)", rc)
+    LAUNCHES[name + "_tier"] += 1
     return out
 
 

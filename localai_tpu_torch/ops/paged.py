@@ -77,9 +77,11 @@ def blocks_needed(tokens: int) -> int:
 # columns plus a ring of ring_blocks columns reused in place. Pure index
 # arithmetic over per-slot tensors `sb` (sink blocks) and `rw` (ring
 # width); full-policy slots carry the sentinel sb >= table width, which
-# makes the mapping the identity. The paged scatter's `_targets` takes
-# them as its sb/rw arguments; the engine's KV tier arrives in a later
-# slice.
+# makes the mapping the identity. The write paths map raw blocks through
+# ring_block_map before the table lookup (paged_targets, _cache_write,
+# ragged_row_targets); the plain read paths build the resident view's true
+# positions with tiered_positions, and the tiered CUDA kernels walk the
+# same sets without gathering them.
 
 
 def ring_block_map(raw_block, sb, rw):
@@ -120,3 +122,31 @@ def resident_row_positions(maxb: int, sb, rw, length):
     ok = okb[:, :, None].expand(b, maxb, BLOCK).reshape(b, maxb * BLOCK)
     ok = ok & (pos < length[:, None].to(torch.int32))
     return pos, ok
+
+
+def tiered_positions(maxb: int, sb, rw, length, ctab=None):
+    """Row positions and validity of the tier's views (the reference's
+    _tiered_kv without the gathers). Returns (pos, ok) of the resident
+    (ring-mapped) view [B, maxb*BLOCK] — residency and pos < length —
+    and, with the cold table ctab [B, MBC] (cold block per raw block, 0 =
+    not demoted), (posc, okc) of the cold view [B, MBC*BLOCK]; a demoted
+    block then drops out of the resident view (its ring column may already
+    hold a newer block's rows) and is valid in the cold view below
+    `length`."""
+    pos, ok = resident_row_positions(maxb, sb, rw, length)
+    if ctab is None:
+        return pos, ok, None, None
+    b = pos.shape[0]
+    mbc = ctab.shape[1]
+    dev = pos.device
+    raw, _ = resident_block_positions(maxb, sb, rw, length)
+    demoted = ctab.to(dev) != 0                               # [B, MBC]
+    hot_dem = torch.gather(demoted, 1, raw.long().clamp(0, mbc - 1))
+    hot_dem = hot_dem & (raw >= 0) & (raw < mbc)              # [B, maxb]
+    ok = ok & ~hot_dem[:, :, None].expand(b, maxb, BLOCK).reshape(
+        b, maxb * BLOCK)
+    posc = torch.arange(mbc * BLOCK, dtype=torch.int32,
+                        device=dev)[None, :].expand(b, mbc * BLOCK)
+    okc = demoted[:, :, None].expand(b, mbc, BLOCK).reshape(b, mbc * BLOCK)
+    okc = okc & (posc < length.to(dev)[:, None])
+    return pos, ok, posc, okc

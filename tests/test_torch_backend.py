@@ -145,20 +145,45 @@ def test_load_rejects_unported_options(ckpt):
     """Options of later slices fail the load, naming the slice. A
     draft_model is served (speculative decoding): LoadModel reads the
     draft's checkpoint — a missing one fails the load as a missing target
-    does — and tests/test_torch_spec.py streams through a real one."""
+    does — and tests/test_torch_spec.py streams through a real one. The KV
+    retention tier is served: an invalid option set fails the load with
+    the reference's ValueError ("sink_window" without arguments;
+    kv_cold_pages without quantize_cold), and a valid one (kv_pages with a
+    sink_window policy) serves."""
     from localai_tpu_torch.backend import pb
     from localai_tpu_torch.backend.llm import LLMServicer
 
-    for kw in (dict(draft_model="x"),
-               dict(embeddings=True), dict(mesh_model=2),
-               dict(options=json.dumps({"kv_policy": "sink_window"})),
-               dict(options=json.dumps({"kv_cold_pages": 4}))):
+    for kw, want in (
+            (dict(draft_model="x"), "FileNotFoundError"),
+            (dict(embeddings=True), "slice"), (dict(mesh_model=2), "slice"),
+            (dict(options=json.dumps({"kv_policy": "sink_window"})),
+             "ValueError: unknown kv_policy 'sink_window'"),
+            (dict(options=json.dumps({"kv_cold_pages": 4})),
+             "ValueError: kv_cold_pages needs kv_policy")):
         s = LLMServicer(device="cpu")
         r = s.LoadModel(pb.ModelOptions(model=ckpt, dtype="float32", **kw),
                         None)
-        want = ("FileNotFoundError" if "draft_model" in kw else "slice")
         assert not r.success and want in r.message, (kw, r.message)
         assert s.Status(pb.HealthMessage(), None).state == 3      # ERROR
+    os.environ["LOCALAI_NO_PREWARM"] = "1"
+    try:
+        s = LLMServicer(device="cpu")
+        r = s.LoadModel(pb.ModelOptions(
+            model=ckpt, dtype="float32", context_size=256, kv_pages=8,
+            options=json.dumps({"kv_policy":
+                                "sink_window(sinks=0, window=64)"})), None)
+        assert r.success, r.message
+        out = s.Predict(pb.PredictOptions(prompt="hello world", tokens=4,
+                                          temperature=0.0, ignore_eos=True),
+                        None)
+        assert out.tokens == 4
+        m = s.GetMetrics(pb.MetricsRequest(), None).metrics
+        for key in ("kv_cold_blocks", "kv_evictions", "kv_recomputes",
+                    "kv_policy_demotions", "kv_blocks_peak"):
+            assert key in m, key
+        s.engine.stop()
+    finally:
+        os.environ.pop("LOCALAI_NO_PREWARM", None)
 
 
 def test_import_leaves_no_jax_in_sys_modules():

@@ -167,11 +167,14 @@ def test_threaded_serving_cancel_and_deadline(models):
     ("replicator", object())])
 def test_unported_config_rejected(models, field, value):
     (_, _, _), (tcfg, tp, ttok) = models
-    # ragged batching and the host KV tier are served now, but only over a
-    # paged pool: without kv_pages they are rejected as the reference
-    # rejects them
+    # ragged batching and the host and retention KV tiers are served now,
+    # but only over a paged pool (kv_policy), and kv_cold_pages only with a
+    # quantize_cold policy: they are rejected with the reference's errors
     exc, match = ((ValueError, "paged")
-                  if field in ("ragged_token_budget", "kv_host_bytes")
+                  if field in ("ragged_token_budget", "kv_host_bytes",
+                               "kv_policy")
+                  else (ValueError, "kv_cold_pages needs kv_policy")
+                  if field == "kv_cold_pages"
                   else (NotImplementedError, "slice"))
     with pytest.raises(exc, match=match):
         TEngine(tcfg, tp, ttok, TConfig(**dict(EC, **{field: value})),
@@ -193,6 +196,11 @@ def test_unported_request_fields_rejected(models, field, value):
                                          **{field: value})))
         assert out[-1].finish_reason == "length"
         assert eng.metrics["resume_reprefills"] == 1
+        return
+    if field == "kv_policy":
+        # served now: a malformed policy is the reference's ValueError
+        with pytest.raises(ValueError, match="unknown kv_policy"):
+            eng.submit(TRequest([3, 4], **{field: value}))
         return
     with pytest.raises(NotImplementedError, match="slice"):
         eng.submit(TRequest([3, 4], **{field: value}))

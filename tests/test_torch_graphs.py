@@ -361,6 +361,90 @@ def test_cuda_replays_equal_eager_segments(cuda, path, recipe):
     assert counters[path]["replays"] > 0
 
 
+TIER_EC = {
+    "paged": dict(max_slots=3, max_context=1024, prefill_buckets=(32,),
+                  prefill_chunk=64, decode_block=4, kv_pages=40,
+                  kv_policy="sink_window(sinks=64, window=128)"),
+    "rloop": dict(max_slots=3, max_context=1024, prefill_buckets=(32,),
+                  prefill_chunk=64, decode_block=4, kv_pages=40,
+                  ragged_token_budget=64,
+                  kv_policy="sink_window(sinks=64, window=128)"),
+    "cold": dict(max_slots=3, max_context=1024, prefill_buckets=(32,),
+                 prefill_chunk=64, decode_block=4, kv_pages=40,
+                 kv_cold_pages=30,
+                 kv_policy="sink_window(sinks=64, window=128, "
+                           "quantize_cold=true)"),
+}
+
+
+def _tier_wave(eng, policies, n):
+    """Three requests (two greedy, one seeded) long enough to leave the
+    window, under `policies`; their (tokens, logprobs)."""
+    r = np.random.default_rng(7)
+    qs = []
+    for i, pol in enumerate(policies):
+        sp = (TParams(temperature=0.8, seed=9) if i == 1
+              else TParams(temperature=0.0))
+        qs.append(eng.submit(TRequest(r.integers(3, 300, 40 + 50 * i)
+                                      .tolist(), sp, max_tokens=n,
+                                      ignore_eos=True, logprobs=True,
+                                      kv_policy=pol))[1])
+        eng.step()
+    while eng.step():
+        pass
+    out = []
+    for q in qs:
+        toks, lps = [], []
+        while not q.empty():
+            o = q.get_nowait()
+            if o.token_id >= 0:
+                toks.append(o.token_id)
+                lps.append(o.logprob)
+        out.append((toks, lps))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,recipe", [("paged", "bf16"), ("paged", "int8"),
+                                         ("rloop", "bf16"), ("cold", "bf16")])
+def test_cuda_tiered_replays_equal_eager_segments(cuda, case, recipe):
+    """The KV tier on the card: the fused loops' graph replays over the
+    tier's fixed geometry tensors give the eager segments' tokens and
+    logprobs bit for bit, through ring wraps, evictions and (cold)
+    demotions; a second wave mixing per-request policies replays the
+    graphs already captured."""
+    from localai_tpu_torch.ops.quant import quantize_params
+
+    cfg = tllama.LlamaConfig(vocab_size=384, hidden_size=64,
+                             intermediate_size=128, num_layers=2,
+                             num_heads=4, num_kv_heads=2, head_dim=16,
+                             max_position=1024, dtype="bfloat16")
+    runs = {}
+    for name in ("graphs", "eager"):
+        params = tllama.init_params(cfg, seed=0, device=cuda)
+        kw = dict(TIER_EC[case])
+        if recipe == "int8":
+            params = quantize_params(params)
+            kw["cache_type"] = "int8"
+        eng = TEngine(cfg, params, None, TConfig(**kw), device=cuda)
+        if name == "eager":
+            eng.graphs = tgraphs.EagerSegments(cuda)
+        eng.warmup()
+        first = _tier_wave(eng, ["", "", ""], 300)
+        c0 = eng.graphs.counters()
+        second = _tier_wave(eng, ["full", "sink_window(sinks=0, window=64)",
+                                  ""], 120)
+        c1 = eng.graphs.counters()
+        runs[name] = (first, second, c0, c1, dict(eng.metrics))
+    (g1, g2, c0, c1, m), (e1, e2, _, _, _) = runs["graphs"], runs["eager"]
+    assert g1 == e1 and g2 == e2
+    path = "rloop" if case == "rloop" else "paged"
+    assert c1[path]["replays"] > c0[path]["replays"] > 0
+    assert c1[path]["captures"] == c0[path]["captures"]
+    key = "kv_cold_blocks" if case == "cold" else "kv_evictions"
+    assert m[key] > 0
+
+
 @pytest.mark.cuda
 def test_cuda_capture_error_propagates(cuda):
     """A segment that waits for the device (illegal under capture) makes

@@ -193,13 +193,30 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     tk.ragged_scatter_append(pool, pool.clone(), rows8, rows8, pb8, off8)
     tk.ragged_scatter_append_q8(pq, ps, pq.clone(), ps.clone(), rows8, rows8,
                                 pb8, off8)
+    # the KV tier's reads (identity ring, retention past every position)
+    # and the demotion
+    one = torch.ones(1, dtype=torch.int32)
+    kvt = {"sb": one, "rw": one, "sinks": one * 128, "window": one * 128}
+    tk.ragged_decode(torch.tensor(qd), pool, pool, torch.tensor([5]),
+                     table=table, kvt=kvt)
+    tk.ragged_decode_q8(torch.tensor(qd), pq, ps, pq, ps, torch.tensor([5]),
+                        table=table, kvt=kvt)
+    tk.ragged_paged_attention(qr, pool, pool, *meta, kvt=kvt)
+    tk.ragged_paged_attention_q8(qr, pq, ps, pq, ps, *meta, kvt=kvt)
+    tk.paged_demote_q8(pq, ps, pq.clone(), ps.clone(), pool[0], pool[0],
+                       tk.demote_targets(0, 1))
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
-                           "ragged_decode_q8_paged", "paged_scatter_append",
-                           "paged_scatter_append_q8",
+                           "ragged_decode_q8_paged",
+                           "ragged_decode_paged_tier",
+                           "ragged_decode_q8_paged_tier",
+                           "paged_scatter_append",
+                           "paged_scatter_append_q8", "paged_demote_q8",
                            "ragged_paged_attention",
                            "ragged_paged_attention_q8",
+                           "ragged_paged_attention_tier",
+                           "ragged_paged_attention_q8_tier",
                            "ragged_scatter_append",
                            "ragged_scatter_append_q8", "w8a16_matmul",
                            "head_matmul"}
@@ -1322,3 +1339,228 @@ def test_cuda_spec_step_equals_cpu(cuda):
         assert torch.equal(card[i].cpu(), host[i])
     np.testing.assert_allclose(card[2].cpu().numpy()[[0, 1, 3]],
                                host[2].numpy()[[0, 1, 3]], rtol=0, atol=2e-5)
+
+
+# ------------------------------------------------------- the KV tier (card)
+
+def _tier_decode_inputs(device, dtype, q8, cold, lens, sinks, window,
+                        H=32, KVH=8, D=128, seed=0):
+    """Tiered paged decode inputs: compact ring tables (sb sink blocks and
+    a ring of rw blocks a slot, distinct blocks of a shuffled pool), the
+    kvt geometry and, with `cold`, the middle blocks the engine would have
+    demoted (raw sb .. (L - window)/128 - 1) in a cold pool through the
+    cold table."""
+    from localai_tpu_torch.engine import kvtier
+
+    pol = kvtier.parse_policy(f"sink_window(sinks={sinks}, window={window})")
+    sb, rw = pol.sink_blocks, kvtier.ring_blocks(window, 256)
+    B, maxb = len(lens), pol.sink_blocks + kvtier.ring_blocks(window, 256)
+    nb = B * maxb + 1
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randn(nb, KVH, 128, D, generator=g)
+    v = torch.randn(nb, KVH, 128, D, generator=g)
+    table = (torch.randperm(nb - 1, generator=g)[:B * maxb] + 1).reshape(
+        B, maxb).to(torch.int32)
+    q = torch.randn(B, 1, H, D, generator=g)
+    i32 = lambda x: torch.full((B,), x, dtype=torch.int32)  # noqa: E731
+    kvt = dict(sb=i32(sb), rw=i32(rw), sinks=i32(sinks), window=i32(window))
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks[:, :, None, :], vq, vs[:, :, None, :]]
+    else:
+        pools = [k.to(dtype), v.to(dtype)]
+    cold_kv = None
+    if cold:
+        from localai_tpu_torch.ops.kvcache import QuantKV
+
+        mbc = -(-max(lens) // 128)
+        ctab = torch.zeros(B, mbc, dtype=torch.int32)
+        ci = 1
+        for b, n in enumerate(lens):
+            for raw in range(sb, max((n - window) // 128, sb)):
+                ctab[b, raw] = ci
+                ci += 1
+        kvt["cold_tab"] = ctab
+        cq, cs = quantize_tokens(torch.randn(ci, KVH, 128, D, generator=g))
+        vq2, vs2 = quantize_tokens(torch.randn(ci, KVH, 128, D, generator=g))
+        cold_kv = [QuantKV(cq.to(device), cs[:, :, None, :].to(device)),
+                   QuantKV(vq2.to(device), vs2[:, :, None, :].to(device))]
+    to = lambda x: x.to(device)  # noqa: E731
+    return (to(q.to(dtype)), [to(p) for p in pools],
+            to(torch.tensor(lens, dtype=torch.int32)), to(table),
+            {n: to(t) for n, t in kvt.items()}, cold_kv, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,q8,cold", [
+    ("bfloat16", False, False), ("bfloat16", True, False),
+    ("bfloat16", False, True), ("float32", False, False),
+    ("float32", False, True), ("float32", True, False)])
+@pytest.mark.parametrize("H,KVH", [(32, 8), (28, 4), (128, 8)])
+def test_cuda_tier_decode_vs_plain(cuda, dtype, q8, cold, H, KVH):
+    """The tiered paged decode kernel (rows 3/5 over the ring, the
+    retention mask, the cold tier's own splits) against its plain version:
+    slots past many ring wraps, inside the first window and at one token;
+    a ring map off by one column, and (cold) the cold scales dropped, fail
+    the bar."""
+    from localai_tpu_torch.ops.kvcache import QuantKV
+
+    dt = getattr(torch, dtype)
+    lens = [8192, 7001, 4097, 1100, 300, 1]
+    q, pools, lens_t, table, kvt, cold_kv, sb = _tier_decode_inputs(
+        cuda, dt, q8, cold, lens, 256, 1024, H=H, KVH=KVH)
+    kernel = tk.ragged_decode_q8 if q8 else tk.ragged_decode
+    plain = tk.ragged_decode_q8_plain if q8 else tk.ragged_decode_plain
+    kw = dict(cold_kv=cold_kv) if cold else {}
+    name = "ragged_decode_q8_paged_tier" if q8 else "ragged_decode_paged_tier"
+    before = tk.launch_counts()[name]
+    out = kernel(q, *pools, lens_t, table=table, kvt=kvt, **kw)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()[name] == before + 1
+    ref = plain(q, *pools, lens_t, table=table, kvt=kvt, **kw)
+    tol = BF16_CARD if dt == torch.bfloat16 else F32
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **tol)
+    shifted = table.clone()
+    shifted[:, sb:] = table[:, sb:].roll(-1, dims=1)
+    bad = plain(q, *pools, lens_t, table=shifted, kvt=kvt, **kw)
+    assert (bad.float() - out.float()).abs().max().item() > 1e-2
+    if cold:
+        ones = [QuantKV(c.q, torch.ones_like(c.s)) for c in cold_kv]
+        bad = plain(q, *pools, lens_t, table=table, kvt=kvt, cold_kv=ones)
+        assert (bad.float() - out.float()).abs().max().item() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True])
+def test_cuda_tier_full_sentinels_equal_untiered(cuda, q8):
+    """Full-policy sentinels (sb = the table width, rw = 1, sinks = window =
+    the context) give the untiered paged kernel's output bit for bit."""
+    B, H, KVH, D, maxb = 6, 32, 8, 128, 64
+    lens = [8192, 7001, 4097, 1100, 300, 1]
+    g = torch.Generator().manual_seed(3)
+    nb = B * maxb + 1
+    k = torch.randn(nb, KVH, 128, D, generator=g)
+    v = torch.randn(nb, KVH, 128, D, generator=g)
+    table = (torch.randperm(nb - 1, generator=g)[:B * maxb] + 1).reshape(
+        B, maxb).to(torch.int32).to(cuda)
+    q = torch.randn(B, 1, H, D, generator=g).to(torch.bfloat16).to(cuda)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [x.to(cuda) for x in (kq, ks[:, :, None, :], vq,
+                                      vs[:, :, None, :])]
+        kernel = tk.ragged_decode_q8
+    else:
+        pools = [x.to(torch.bfloat16).to(cuda) for x in (k, v)]
+        kernel = tk.ragged_decode
+    lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    full = lambda x: torch.full((B,), x, dtype=torch.int32,  # noqa: E731
+                                device=cuda)
+    kvt = dict(sb=full(maxb), rw=full(1), sinks=full(maxb * 128),
+               window=full(maxb * 128))
+    a = kernel(q, *pools, lt, table=table, kvt=kvt)
+    b = kernel(q, *pools, lt, table=table)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,q8", [("bfloat16", False), ("bfloat16", True),
+                                      ("float32", False), ("float32", True)])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (28, 4, 128),
+                                     (8, 2, 256)])
+def test_cuda_tier_ragged_vs_plain(cuda, dtype, q8, H, KVH, D):
+    """The tiered ragged kernel (two spans a q tile through the ring map,
+    the row mask) against its plain version over compact ring tables:
+    decode rows past the ring's wraps, a 128-row chunk, a full-policy
+    sequence, a dead q block; a ring map off by one column fails the
+    bar."""
+    from localai_tpu_torch.engine import kvtier
+
+    dt = getattr(torch, dtype)
+    sb = 1
+    rw = kvtier.ring_blocks(1024, 256)
+    maxb = sb + rw
+    seqs = [(33, 1), (4095, 1), (1532, 1), (3000, 1), None, (2048, 128),
+            (700, 1)]
+    live_seqs = [x for x in seqs if x is not None]
+    n = len(live_seqs)
+    g = torch.Generator().manual_seed(5)
+    nb = n * maxb + 1
+    k = torch.randn(nb, KVH, 128, D, generator=g)
+    v = torch.randn(nb, KVH, 128, D, generator=g)
+    tables = (torch.randperm(nb - 1, generator=g)[:n * maxb] + 1).reshape(
+        n, maxb).to(torch.int32)
+    block_seq, qstart, live, row = [], [], [], 0
+    for x in seqs:
+        if x is None:
+            block_seq.append(-1)
+            row += 8
+            continue
+        qstart.append(row)
+        block_seq += [len(qstart) - 1] * -(-x[1] // 8)
+        live += list(range(row, row + x[1]))
+        row += -(-x[1] // 8) * 8
+    q = torch.randn(row, H, D, generator=g).to(dt)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)  # noqa: E731
+    meta = dict(block_seq=i32(block_seq), qstart=i32(qstart),
+                qlen=i32([x[1] for x in live_seqs]),
+                kvlen=i32([x[0] for x in live_seqs]), tables=tables)
+    # sequence 0 (33 tokens) carries the full-policy sentinels
+    kvt = dict(sb=i32([maxb] + [sb] * (n - 1)), rw=i32([1] + [rw] * (n - 1)),
+               sinks=i32([8192] + [128] * (n - 1)),
+               window=i32([8192] + [1024] * (n - 1)))
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks[:, :, None, :], vq, vs[:, :, None, :]]
+        kernel, plain = (tk.ragged_paged_attention_q8,
+                         tk.ragged_paged_attention_q8_plain)
+    else:
+        pools = [k.to(dt), v.to(dt)]
+        kernel, plain = (tk.ragged_paged_attention,
+                         tk.ragged_paged_attention_plain)
+    q, pools = q.to(cuda), [p.to(cuda) for p in pools]
+    meta = {n_: t.to(cuda) for n_, t in meta.items()}
+    kvt = {n_: t.to(cuda) for n_, t in kvt.items()}
+    out = kernel(q, *pools, **meta, kvt=kvt)
+    torch.cuda.synchronize()
+    ref = plain(q, *pools, **meta, kvt=kvt)
+    rows = torch.tensor(live, device=cuda)
+    tol = BF16_CARD if dt == torch.bfloat16 else F32
+    np.testing.assert_allclose(out[rows].float().cpu().numpy(),
+                               ref[rows].float().cpu().numpy(), **tol)
+    shifted = meta["tables"].clone()
+    shifted[:, sb:] = meta["tables"][:, sb:].roll(-1, dims=1)
+    bad = plain(q, *pools, **dict(meta, tables=shifted), kvt=kvt)
+    assert (bad[rows].float() - out[rows].float()).abs().max().item() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_demote_bit_exact(cuda, dtype):
+    """The demotion (paged_demote_q8, row 7's quantizing kernel over a
+    block's KVH*128 rows) writes what quantize_tokens gives, bit for bit,
+    into the cold block and nowhere else."""
+    dt = getattr(torch, dtype)
+    KVH, D, NBC = 8, 128, 6
+    g = torch.Generator().manual_seed(2)
+    hot = torch.randn(5, KVH, 128, D, generator=g).to(dt).to(cuda)
+    pools = [torch.randint(-127, 128, (NBC, KVH, 128, D), generator=g,
+                           dtype=torch.int8),
+             torch.rand(NBC, KVH, 1, 128, generator=g)] * 2
+    pools = [p.clone().to(cuda) for p in pools]
+    plain_pools = [p.clone() for p in pools]
+    rows = torch.arange(KVH * 128, dtype=torch.int32, device=cuda)
+    targets = tk.demote_targets(3, KVH, rows)
+    before = tk.launch_counts()["paged_demote_q8"]
+    tk.paged_demote_q8(*pools, hot[2], hot[4], targets)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["paged_demote_q8"] == before + 1
+    tk.paged_demote_q8_plain(*plain_pools, hot[2], hot[4], targets)
+    for a, b in zip(pools, plain_pools):
+        assert torch.equal(a, b)
+    q, s = quantize_tokens(hot[2])
+    assert torch.equal(pools[0][3], q) and torch.equal(pools[1][3, :, 0], s)

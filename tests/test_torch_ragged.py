@@ -205,8 +205,17 @@ def test_unported_lanes_raise():
     q, k, v, meta, _ = _stream(5)
     tmeta = {n: torch.tensor(a) for n, a in meta.items()}
     targs = [torch.tensor(x) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="KV-tier slice"):
-        tk.ragged_paged_attention(*targs, **tmeta, kvt={"sb": None})
+    # the KV tier runs now: full-policy sentinels (identity ring, retention
+    # past every position) give the untiered attention
+    nseq = tmeta["tables"].shape[0]
+    maxb = tmeta["tables"].shape[1]
+    big = torch.full((nseq,), 1 << 20, dtype=torch.int32)
+    kvt = {"sb": torch.full((nseq,), maxb, dtype=torch.int32),
+           "rw": torch.ones(nseq, dtype=torch.int32), "sinks": big,
+           "window": big}
+    np.testing.assert_array_equal(
+        tk.ragged_paged_attention(*targs, **tmeta, kvt=kvt).numpy(),
+        tk.ragged_paged_attention(*targs, **tmeta).numpy())
     for fn in (tra.ragged_paged_attention_sharded,
                tra.ragged_paged_attention_q8_sharded,
                tra.ragged_scatter_append_sharded,
@@ -371,8 +380,12 @@ def test_ragged_forward_unported_inputs_raise():
                                    rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="multimodal"):
         tllama.ragged_forward(*args, torch.tensor([0]), inject=(None, None))
-    with pytest.raises(NotImplementedError, match="KV-tier"):
-        tllama.ragged_forward(*args, torch.tensor([0]), kvt={})
+    # the KV tier runs now: sentinel geometry gives the untiered forward
+    sent = {"sb": torch.tensor([1]), "rw": torch.tensor([1]),
+            "sinks": torch.tensor([1 << 20]), "window": torch.tensor([1 << 20])}
+    np.testing.assert_array_equal(
+        tllama.ragged_forward(*args, torch.tensor([0]), kvt=sent).numpy(),
+        tllama.ragged_forward(*args, torch.tensor([0])).numpy())
 
 
 # ----------------------------------------------------- the fused ragged loop
