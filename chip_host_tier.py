@@ -5,9 +5,8 @@ compare two trees in one call (one-off; not part of the smoke).
 
 Run from a tree's root (copy this file beside another tree's
 chip_smoke.py to run it there), in turns: A, B, B, A. It builds the
-kernels, writes the grammar leg's checkpoint at phase 9's depth
-(chip_smoke.CUT_8B, the budget chip_smoke.HOST_BYTES), and for bf16 then
-the int8 recipe times an Engine's construction with and without the host tier
+kernels, writes the grammar leg's checkpoint, and for bf16 then the int8
+recipe times an Engine's construction with and without the host tier
 and runs `host_tier_leg` (waves A1, A2, A3 with and without the tier,
 with its checks). Prints one line a recipe:
 
@@ -41,7 +40,6 @@ def main(label: str):
     os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
     with tempfile.TemporaryDirectory() as d:
         tok = c.grammar_setup(d)
-        c.grammar_checkpoint(d, c.CUT_8B)     # phase 9's depth
         for name, dtype, kv in c.RECIPES:
             cfg = load_config(d, dtype=dtype)
             params = load_params(d, cfg, dtype=dtype, device="cuda")

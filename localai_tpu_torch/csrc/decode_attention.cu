@@ -838,84 +838,38 @@ __global__ void __launch_bounds__(NT)
 // NT stage the splits' weights in chunks of NT. Launched with programmatic
 // stream serialization, it may start while the split pass still runs:
 // griddepcontrol.wait holds it until that grid has finished and its writes
-// are visible.
-template <typename T, int DC>
+// are visible. The splits it reads: below ceil(len/split) of the nsplit a
+// head; TIER, the tiered split pass's: the slot's hot splits [0, n1) and,
+// with the cold tier, its cold splits [nsplit, nsplit + n2) of the nsplit +
+// nsplit_c a head (tier_splits), merged as n1 + n2 splits in that order.
+template <typename T, int DC, bool TIER>
 __global__ void __launch_bounds__(NT)
     decode_combine_kernel(const float* __restrict__ ws,
                           const int* __restrict__ lengths,
                           T* __restrict__ out, int H, int Tlen, int D,
-                          int split, int nsplit) {
+                          int split, int nsplit, const TierArgs ta) {
   __shared__ float wsm[NT], lsm[NT], red[NT / 32];
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int len = min(lengths[b], Tlen);
-  const int n = min(nsplit, (len + split - 1) / split);  // splits read
-  const int64_t row = static_cast<int64_t>(b) * H + h;
-  const float* ml = ws + 2 * row * nsplit;
-  const float* acc = ws + 2 * static_cast<int64_t>(gridDim.y) * H * nsplit +
-                     row * nsplit * D + tid;
-  float mx = LT_NEG_INF;
-  for (int i = tid; i < n; i += NT) mx = fmaxf(mx, ml[2 * i]);
-  mx = lt_warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  float M = red[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) M = fmaxf(M, red[w]);
-  float l = 0.f, o[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) o[c] = 0.f;
-  for (int c0 = 0; c0 < n; c0 += NT) {
-    const int i = c0 + tid;
-    const float w = i < n ? expf(ml[2 * i] - M) : 0.f;
-    __syncthreads();  // the previous chunk consumed
-    wsm[tid] = w;
-    lsm[tid] = i < n ? w * ml[2 * i + 1] : 0.f;
-    __syncthreads();
-    const int cnt = min(NT, n - c0);
-    if (tid < D) {
-#pragma unroll 8
-      for (int k = 0; k < cnt; ++k) {
-        const float* ak = acc + static_cast<int64_t>(c0 + k) * D;
-#pragma unroll
-        for (int c = 0; c < DC; ++c)
-          if (tid + c * NT < D) o[c] += wsm[k] * ak[c * NT];
-        l += lsm[k];
-      }
-    }
+  int n1, n2 = 0, nsw = nsplit;
+  if (TIER) {
+    const bool cold = ta.ctab != nullptr;
+    tier_splits(tier_row(ta, b, lengths[b], cold), ta, split, nsplit, n1, n2);
+    nsw += cold ? ta.nsplit_c : 0;
+  } else {
+    const int len = min(lengths[b], Tlen);
+    n1 = min(nsplit, (len + split - 1) / split);
   }
-#pragma unroll
-  for (int c = 0; c < DC; ++c)
-    if (tid + c * NT < D)
-      out[row * D + tid + c * NT] = lt_from_f<T>(o[c] / fmaxf(l, 1e-30f));
-}
-
-// The tiered split pass's combine: as decode_combine_kernel, over the
-// slot's hot splits [0, nh) and, with the cold tier, its cold splits
-// [nsplit, nsplit + nc) of the nsw a head in the workspace (tier_splits).
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT)
-    decode_tier_combine_kernel(const float* __restrict__ ws,
-                               const int* __restrict__ lengths,
-                               T* __restrict__ out, int H, int D, int split,
-                               int nsplit, const TierArgs ta) {
-  __shared__ float wsm[NT], lsm[NT], red[NT / 32];
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool cold = ta.ctab != nullptr;
-  int n1, n2;
-  tier_splits(tier_row(ta, b, lengths[b], cold), ta, split, nsplit, n1, n2);
-  const int nsw = nsplit + (cold ? ta.nsplit_c : 0);
-  const int n = n1 + n2, off2 = nsplit - n1;  // split i >= n1 at i + off2
+  const int n = n1 + n2, off2 = nsplit - n1;
+  // workspace split of the i-th split read
+  auto at = [=](int i) { return TIER && i >= n1 ? i + off2 : i; };
   const int64_t row = static_cast<int64_t>(b) * H + h;
   const float* ml = ws + 2 * row * nsw;
   const float* acc = ws + 2 * static_cast<int64_t>(gridDim.y) * H * nsw +
                      row * nsw * D + tid;
   float mx = LT_NEG_INF;
-  for (int i = tid; i < n; i += NT)
-    mx = fmaxf(mx, ml[2 * (i < n1 ? i : i + off2)]);
+  for (int i = tid; i < n; i += NT) mx = fmaxf(mx, ml[2 * at(i)]);
   mx = lt_warp_max(mx);
   if (lane == 0) red[warp] = mx;
   __syncthreads();
@@ -927,18 +881,16 @@ __global__ void __launch_bounds__(NT)
   for (int c = 0; c < DC; ++c) o[c] = 0.f;
   for (int c0 = 0; c0 < n; c0 += NT) {
     const int i = c0 + tid;
-    const int si = i < n1 ? i : i + off2;
-    const float w = i < n ? expf(ml[2 * si] - M) : 0.f;
+    const float w = i < n ? expf(ml[2 * at(i)] - M) : 0.f;
     __syncthreads();  // the previous chunk consumed
     wsm[tid] = w;
-    lsm[tid] = i < n ? w * ml[2 * si + 1] : 0.f;
+    lsm[tid] = i < n ? w * ml[2 * at(i) + 1] : 0.f;
     __syncthreads();
     const int cnt = min(NT, n - c0);
     if (tid < D) {
 #pragma unroll 8
       for (int k = 0; k < cnt; ++k) {
-        const int sk = c0 + k < n1 ? c0 + k : c0 + k + off2;
-        const float* ak = acc + static_cast<int64_t>(sk) * D;
+        const float* ak = acc + static_cast<int64_t>(at(c0 + k)) * D;
 #pragma unroll
         for (int c = 0; c < DC; ++c)
           if (tid + c * NT < D) o[c] += wsm[k] * ak[c * NT];
@@ -989,23 +941,13 @@ int launch_combine(const SplitArgs& a) {
   cfg.numAttrs = 1;
   const float* cws = a.ws;
   T* o = static_cast<T*>(a.out);
-  cudaError_t e2;
-  if (TIER)
-    e2 = a.D <= NT
-             ? cudaLaunchKernelEx(&cfg, decode_tier_combine_kernel<T, 1>, cws,
-                                  a.lengths, o, a.H, a.D, a.split, a.nsplit,
-                                  a.tier)
-             : cudaLaunchKernelEx(&cfg, decode_tier_combine_kernel<T, 2>, cws,
-                                  a.lengths, o, a.H, a.D, a.split, a.nsplit,
-                                  a.tier);
-  else
-    e2 = a.D <= NT
-             ? cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 1>, cws,
-                                  a.lengths, o, a.H, a.Tlen, a.D, a.split,
-                                  a.nsplit)
-             : cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 2>, cws,
-                                  a.lengths, o, a.H, a.Tlen, a.D, a.split,
-                                  a.nsplit);
+  const cudaError_t e2 =
+      a.D <= NT ? cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 1, TIER>,
+                                     cws, a.lengths, o, a.H, a.Tlen, a.D,
+                                     a.split, a.nsplit, a.tier)
+                : cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, 2, TIER>,
+                                     cws, a.lengths, o, a.H, a.Tlen, a.D,
+                                     a.split, a.nsplit, a.tier);
   if (e2 != cudaSuccess) return static_cast<int>(e2);
   return static_cast<int>(cudaGetLastError());
 }
