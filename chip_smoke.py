@@ -155,10 +155,10 @@ and the script exits non-zero:
      greedy tool-call stream passes the teacher-forced check with each
      reference row masked by the matcher. Each reading line carries the
      card's name and power limit.
-  8. speculative decoding at full width: the synthetic Llama-3.1-8B (32
-     layers) with a synthetic draft of Llama-3.2-1B's published widths
-     (hidden 2048, 16 layers, 32 heads on 8 KV heads, head_dim 64, tied
-     head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
+  8. speculative decoding at full width: the synthetic Llama-3.1-8B (16
+     of its 32 layers) with a synthetic draft of Llama-3.2-1B's published
+     widths (hidden 2048, 8 of its 16 layers, 32 heads on 8 KV heads,
+     head_dim 64, tied head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
      LoadModel(draft_model, n_draft=4) on the dense path (phase 4's
      prompts, the fourth greedy), then draft Engines in-process on phase
      5's pool (kv_pages=129, 8 slots; phase 6's two waves of requests,
@@ -166,7 +166,7 @@ and the script exits non-zero:
      greedy streams a path pass the teacher-forced check, whose planted
      fault — the draft's own proposals, as an accept test that takes
      every draft would serve them — fails; the draft's dense decode
-     launched (gamma+1) x 16 times a spec dispatch, counted from the
+     launched (gamma+1) x 8 times a spec dispatch, counted from the
      engine's metrics, the target's decode kernels never, and on the
      ragged path ragged attention and the flat-row scatter once a layer a
      spec-as-ragged dispatch, no fused loop; then a perfect draft (2
@@ -225,6 +225,33 @@ and the script exits non-zero:
      with the card: tok/s, TTFT p50, busy ms a decode step (CUDA events
      around each fused-loop segment replay), the seconds to prefill, the
      demote's ms a block, the tiered launches.
+ 11. context shift and the disk prompt cache at full width: the synthetic
+     Llama-3.1-8B (32 layers) with the grammar leg's tokenizer. 11.1:
+     in-process Engines of 4 slots and 1024-token contexts (dense bf16
+     and int8, paged bf16 and int8 on a pool of 41 blocks, ragged bf16
+     with a budget of 192) serve four 900-token prompts of 700 new tokens
+     with context_shift (three greedy, one seeded). Checks: every stream
+     to its budget; exactly two shifts a stream (counted around
+     Engine._dev_shift); the path's decode kernels launched and no plain
+     version ran; no graph captured in the wave and replays after every
+     shift; each greedy stream against a plain forward carried through
+     the same shifts (plain_shift, written apart from the port's: the
+     slot's K/V rows right after each shift within SHIFT_KV_TOL of the
+     reference cache's, each served token within 0.25 logit of its
+     row's largest), whose planted fault — an engine whose shift slides
+     without rotating K — fails. 11.2, on the paged bf16 engine: a
+     512-token prefix P retained, a tenant holding its blocks, a shifting
+     tenant whose prompt starts with P (lcp 0, every page its own at each
+     shift), then a P tenant that reuses the retained blocks and streams
+     the first tenant's tokens. 11.3, dense bf16 then int8 (2 slots, 4096
+     tokens): an 1800-token prompt saved by prompt_cache_path at release,
+     a fresh engine's follow-up (+200 tokens, 64 new) cold and from the
+     file (prompt_cache_hits 1, prompt_tokens_reused 1800, the
+     teacher-forced check), then read-only (the file's bytes and mtime
+     unchanged). Prints, each with the card: tok/s, TTFT p50, busy ms a
+     decode step, the shifts a stream, the device and host ms of each
+     shift; the file's MB, save and load ms, and the follow-up's prefill
+     and TTFT from the file against cold.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -237,6 +264,7 @@ import json
 import os
 import subprocess
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -3935,8 +3963,13 @@ SPEC_REQUESTS = [(1, dict(temperature=0.0)),
 # engine never runs the fused ragged loop, so ragged_loop_steps is unread)
 SPEC_PAGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                      prefill_buckets=(64, 256, 512), prefill_chunk=512)
-DRAFT_LAYERS = CFG_1B["num_hidden_layers"]
-LAYERS_8B = CFG_8B["num_hidden_layers"]
+# phase 8's target at 16 of the 8B's 32 layers and its draft at 8 of the
+# 1B's 16, to keep the whole smoke within its time limit (the one depth
+# cut the port's plan allows); the spec checks count launches by these
+SPEC_TARGET = dict(CFG_8B, num_hidden_layers=16)
+SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=8)
+LAYERS_8B = SPEC_TARGET["num_hidden_layers"]
+DRAFT_LAYERS = SPEC_DRAFT["num_hidden_layers"]
 
 
 def draft_fault(engine, ids, toks, lps):
@@ -4066,8 +4099,8 @@ def _spec_summary(label, m0, m1, spec, plain, smi, extra=None):
 
 
 def _spec_launch_checks(label, counts, m0, m1, ragged):
-    """Row 2 launched (gamma+1) x 16 times a spec dispatch (the draft's
-    steps), counted from the engine's metrics; on the ragged path rows
+    """Row 2 launched (gamma+1) x DRAFT_LAYERS times a spec dispatch (the
+    draft's steps), counted from the engine's metrics; on the ragged path rows
     8-11 once a layer a spec-as-ragged dispatch; the target never ran the
     decode kernels, and no fused loop ran."""
     G = SPEC_GAMMA
@@ -4387,8 +4420,9 @@ def _perfect_draft_runs(cfg, params, dtype, out):
 
 def phase_spec_path(smi):
     """Phase 8, speculative decoding at full width: the synthetic
-    Llama-3.1-8B (32 layers) with a synthetic draft of Llama-3.2-1B's
-    widths (16 layers), gamma 4, bf16 then the int8 recipe, on the dense
+    Llama-3.1-8B (16 of its 32 layers) with a synthetic draft of
+    Llama-3.2-1B's widths (8 of its 16 layers), gamma 4, bf16 then the
+    int8 recipe, on the dense
     path (the gRPC backend's LoadModel draft_model), the paged pool and
     the ragged path (in-process Engines); then the perfect-draft leg.
     Returns the launch counts of the spec legs' requests, summed."""
@@ -4398,7 +4432,7 @@ def phase_spec_path(smi):
     total, out = {}, {}
     with tempfile.TemporaryDirectory() as d, \
             tempfile.TemporaryDirectory() as dd:
-        for path, cfg_json in ((d, CFG_8B), (dd, CFG_1B)):
+        for path, cfg_json in ((d, SPEC_TARGET), (dd, SPEC_DRAFT)):
             with open(os.path.join(path, "config.json"), "w") as f:
                 json.dump(dict(cfg_json, localai_synthetic=True), f)
         for name, dtype, kv in RECIPES:
@@ -4954,6 +4988,23 @@ TIER_MIXED = ["full", "sink_window(sinks=0, window=512)", "", "full"]
 TIER_MIXED_PROMPT, TIER_MIXED_NEW = 1200, 64
 
 
+# the synthetic Llama-3.1-8B's weights on the card by dtype: phases 10 and
+# 11 load each recipe once and phase 11 frees them
+WEIGHTS: dict = {}
+
+
+def recipe_weights(d, dtype):
+    """(cfg, params) of the checkpoint at `d` in `dtype`, on the card,
+    loaded at the first call (WEIGHTS)."""
+    from localai_tpu_torch.engine.loader import load_config, load_params
+
+    if dtype not in WEIGHTS:
+        cfg = load_config(d, dtype=dtype)
+        WEIGHTS[dtype] = (cfg, load_params(d, cfg, dtype=dtype,
+                                           device="cuda"))
+    return WEIGHTS[dtype]
+
+
 def tier_engine(cfg, params, tok, kv, policy, ragged=False):
     """An in-process Engine of phase 10: 4 slots, 8192-token contexts; a
     windowed policy gets a pool of 4 slots' resident blocks + 1 (and with
@@ -5145,9 +5196,14 @@ def tier_reference(label, engine, recs, mode):
     sinks, window, sb = pol.sinks, pol.window, pol.sink_blocks
 
     def readings(ids, toks, lps):
-        with torch.no_grad(), plain_weight_gemms():
-            ref = _tier_forward(engine, list(ids) + list(toks[:-1]),
-                                len(toks), mode, sinks, window, sb)
+        seq = list(ids) + list(toks[:-1])
+        key = (id(engine.params), engine.ec.cache_type, mode, sinks, window,
+               sb, tuple(seq), len(toks))
+        ref = TIER_REFS.get(key)
+        if ref is None:
+            with torch.no_grad(), plain_weight_gemms():
+                ref = TIER_REFS[key] = _tier_forward(
+                    engine, seq, len(toks), mode, sinks, window, sb)
         t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
         gap = ref.max(1).values - ref.gather(1, t)[:, 0]
         lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
@@ -5171,6 +5227,10 @@ def tier_reference(label, engine, recs, mode):
     return out
 
 
+# the teacher-forced logits of phase 10, by (weights, cache type, retention,
+# sequence): the paged and ragged legs of one policy serve the same prompts,
+# so a stream they serve alike is forwarded once
+TIER_REFS: dict = {}
 TIER_OWN = {"bf16": "ragged_decode_paged_tier",
             "int8": "ragged_decode_q8_paged_tier"}
 TIER_RAGGED_OWN = {"bf16": "ragged_paged_attention_tier",
@@ -5285,11 +5345,6 @@ def phase_kv_tier(d, smi, tok, demote):
     tier with ragged); then the gRPC backend's LoadModel with kv_policy in
     its options serving phase 4's prompts. Returns the phase's launch
     counts."""
-    import gc
-
-    import torch
-
-    from localai_tpu_torch.engine.loader import load_config, load_params
     from localai_tpu_torch.ops.kernels import launch_counts, \
         reset_launch_counts
 
@@ -5297,21 +5352,20 @@ def phase_kv_tier(d, smi, tok, demote):
     t0 = time.perf_counter()
     reset_launch_counts()
     rows = []
-    legs = {"bf16": [("bf16 full", "full", False, False),
-                     ("bf16 drop paged", TIER_DROP, False, True),
-                     ("bf16 drop ragged", TIER_DROP, True, False),
-                     ("bf16 cold paged", TIER_COLD, False, False)],
-            "int8": [("int8 drop paged", TIER_DROP, False, False),
-                     ("int8 drop ragged", TIER_DROP, True, False)]}
+    # (label, policy, ragged, mixed wave, prompt salt): a policy's paged
+    # and ragged legs serve the same prompts (TIER_REFS)
+    legs = {"bf16": [("bf16 full", "full", False, False, 0),
+                     ("bf16 drop paged", TIER_DROP, False, True, 1),
+                     ("bf16 drop ragged", TIER_DROP, True, False, 1),
+                     ("bf16 cold paged", TIER_COLD, False, False, 3)],
+            "int8": [("int8 drop paged", TIER_DROP, False, False, 0),
+                     ("int8 drop ragged", TIER_DROP, True, False, 0)]}
     for salt, (name, dtype, kv) in enumerate(RECIPES):
-        cfg = load_config(d, dtype=dtype)
-        params = load_params(d, cfg, dtype=dtype, device="cuda")
-        for j, (label, policy, ragged, mixed) in enumerate(legs[name]):
+        cfg, params = recipe_weights(d, dtype)
+        for label, policy, ragged, mixed, j in legs[name]:
             rows.append(tier_leg(label, name, cfg, params, tok, kv, policy,
                                  ragged, 31 + 7 * salt + j, smi, mixed))
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+        TIER_REFS.clear()
     before = launch_counts()
     grpc_row = serve_recipe(
         "bf16 kv tier", d, dict(dtype="bfloat16"), phase="phase10",
@@ -5336,6 +5390,628 @@ def phase_kv_tier(d, smi, tok, demote):
         "tiered_launches": {k: counts[k] for k in TIER_KERNELS},
         "grpc": {"tok_s": grpc_row["tok_s"],
                  "ttft_p50_ms": grpc_row["ttft_p50_ms"]}})
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    return counts
+
+
+# ----------------------------------------------------------------- phase 11
+
+# 11.1: engines of 4 slots and 1024-token contexts (shift_keep 4, the
+# default), four 900-token prompts of 700 new tokens each, all with
+# context_shift (three greedy, one seeded). A dense shift drops (1024 -
+# 4) // 2 = 510 tokens, a paged one 3 blocks (keep 1 block, drop (8 - 1)
+# // 2): either way each stream shifts exactly twice (at tokens 122 and
+# 632 dense, 122 and 506 paged; a third would fall past 700)
+SHIFT_EC = dict(max_slots=4, max_context=1024)
+SHIFT_PROMPT, SHIFT_NEW = 900, 700
+SHIFT_SAMPLING = [dict(temperature=0.0), dict(temperature=0.0),
+                  dict(temperature=0.8, seed=11), dict(temperature=0.0)]
+SHIFT_GREEDY = (0, 1, 3)
+SHIFT_PAGES = 4 * 8 + 1 + 8      # four contexts, the trash block, and
+#                                  room for 11.2's retained tenant
+SHIFT_LEGS = [("bf16 dense", "bf16", "dense"), ("int8 dense", "int8", "dense"),
+              ("bf16 paged", "bf16", "paged"), ("int8 paged", "int8", "paged"),
+              ("bf16 ragged", "bf16", "ragged")]
+DENSE_OWN = {"bf16": ("ragged_decode",), "int8": ("ragged_decode_q8",)}
+# 11.2: the prefix P (four full blocks) of the shared-pages leg
+SHIFT_SHARED = 512
+# 11.3: the disk prompt cache, dense engines of 2 slots and 4096-token
+# contexts: an 1800-token prompt, then its follow-up (+200 tokens, 64 new)
+DISK_EC = dict(max_slots=2, max_context=4096)
+DISK_PROMPT, DISK_FOLLOW, DISK_NEW = 1800, 200, 64
+# the slot's K and V rows right after a shift against the reference
+# cache's, relative norm of the difference: bf16 K/V computed by the
+# kernels against the plain forward differ by a few bf16 steps (about
+# 2**-8 relative each); a shift without the K rotation turns most of K's
+# channel pairs by hundreds of radians (error near 1)
+SHIFT_KV_TOL = 0.05
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Within: every kernel wrapper's plain version counts its calls
+    ({name: calls}); a wrapper given CUDA tensors launches its kernel, so
+    a serving run on the card must leave the counts at 0."""
+    from localai_tpu_torch.ops.kernels import flash_attention, paged_scatter, \
+        ragged_attention, weight_gemm
+
+    counts, saved = {}, []
+    for mod in (flash_attention, paged_scatter, ragged_attention,
+                weight_gemm):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_plain") and callable(fn)):
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                counts[_name] = counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def shift_engine(cfg, params, tok, kv, path, **kw):
+    """An in-process Engine of phase 11.1 on `path` (dense, paged: the pool
+    of SHIFT_PAGES, ragged: the same pool and a budget of 192), warmed up
+    (graphs captured)."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    ec = dict(SHIFT_EC, cache_type=kv, **kw)
+    if path != "dense":
+        ec["kv_pages"] = SHIFT_PAGES
+    if path == "ragged":
+        ec["ragged_token_budget"] = 192
+    eng = Engine(cfg, params, tok, EngineConfig(**ec), device="cuda")
+    eng.warmup()
+    return eng
+
+
+def slot_rows(eng, idx, n):
+    """Slot idx's first n K and V rows, [L, KVH, n, D] bf16 each (an int8
+    cache dequantized), read through its block table when paged."""
+    import torch
+
+    from localai_tpu_torch.ops.kvcache import dequant
+
+    out = []
+    for c in (eng._kc, eng._vc):
+        if eng._paged:
+            blocks = torch.tensor(eng._table[idx], dtype=torch.int64,
+                                  device=eng.device)
+            x = dequant(c[:, blocks])               # [L, MAXB, KVH, 128, D]
+            L, nb, kvh, bs, dd = x.shape
+            x = x.permute(0, 2, 1, 3, 4).reshape(L, kvh, nb * bs, dd)
+        else:
+            x = dequant(c[:, idx])
+        out.append(x[:, :, :n].to(torch.bfloat16).clone())
+    return out
+
+
+def shift_probe(eng):
+    """Wrap the engine's _dev_shift: a record a shift — the request, the
+    tokens it had emitted, its device length right after (one host sync,
+    after the timed call) and the slot's K and V rows then (slot_rows),
+    the device ms (CUDA events around the call: the first waits for the
+    work enqueued before it, so the two time the shift's own kernels), the
+    host ms of the call, the graph runner's counters before it and whether
+    the slot held every page it had alone (paged). Returns the list of
+    records."""
+    import torch
+
+    eng.__dict__.pop("_dev_shift", None)      # an earlier probe's wrapper
+    recs, run = [], eng._dev_shift
+
+    def probe(idx):
+        slot = eng._slots[idx]
+        rec = dict(rid=slot.request_id, generated=slot.generated,
+                   graphs=eng.graphs.counters())
+        if eng._paged:
+            rec["owned"] = all(eng._block_ref[b] == 1
+                               for b in eng._slot_blocks[idx])
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        run(idx)
+        e1.record()
+        rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["events"] = (e0, e1)
+        rec["length_after"] = int(eng._lengths[idx])
+        rec["kv"] = slot_rows(eng, idx, rec["length_after"])
+        recs.append(rec)
+
+    eng._dev_shift = probe
+    return recs
+
+
+def shift_geometry(eng):
+    """(keep, discard) rows of the engine's shift."""
+    if eng._paged:
+        return eng._shift_keepb * 128, eng._shift_discard
+    return eng.ec.shift_keep, eng._shift_discard
+
+
+def plain_shift(kc, vc, n, keep, discard, rotate=True):
+    """The reference's context shift of a one-slot dense cache [L, 1, KVH,
+    T, D] with n rows, written apart from models.llama's: rows [keep +
+    discard, n) move to [keep, n - discard); K turns back by `discard`
+    positions as complex numbers (channel i the real part, i + D/2 the
+    imaginary) times e^(-i·discard·inv_freq) in f64; V moves as it is. An
+    int8 cache moves in f32 and is quantized again whole (quantize_tokens).
+    `rotate` False: the slide alone (the planted fault's shift)."""
+    import torch
+
+    from localai_tpu_torch.ops.kvcache import QuantKV, dequant, quantize_tokens
+    from localai_tpu_torch.ops.rope import rope_freqs
+
+    def dense(c):
+        return (dequant(c, torch.float32) if isinstance(c, QuantKV)
+                else c.float())[:, 0].clone()
+
+    def store(c, x):
+        if isinstance(c, QuantKV):
+            q, s = quantize_tokens(x)
+            c.q[:, 0] = q
+            c.s[:, 0] = s.reshape(c.s[:, 0].shape)
+        else:
+            c[:, 0] = x.to(c.dtype)
+
+    k, v = dense(kc), dense(vc)
+    src, dst = slice(keep + discard, n), slice(keep, n - discard)
+    ks = k[:, :, src].clone()
+    if rotate:
+        half = ks.shape[-1] // 2
+        inv = rope_freqs(PLAIN_SHIFT_CFG[0])[0].double().to(ks.device)
+        z = torch.complex(ks[..., :half].double(), ks[..., half:].double())
+        z = z * torch.polar(torch.ones_like(inv), -discard * inv)
+        ks = torch.cat([z.real, z.imag], dim=-1).float()
+    k[:, :, dst] = ks
+    v[:, :, dst] = v[:, :, src].clone()
+    store(kc, k)
+    store(vc, v)
+
+
+# the rope of the model under check (set by shift_reference)
+PLAIN_SHIFT_CFG = [None]
+
+
+def shift_reference(engine, ids, toks, shifts, rotate=True, kv=()):
+    """The logits that predicted each served token of a stream with
+    context shifts, by the port's plain forward (models.llama.extend over
+    a one-slot dense cache, plain attention, the weight GEMMs' plain
+    versions) carried through the same shifts: the rows the engine wrote
+    before shift k (`shifts[k]`, counted over the whole stream) go in,
+    plain_shift moves the cache as the engine's shift should, and the
+    next rows go in at their new positions. The K/V of every row is then
+    what the engine's cache should hold: computed with the history it had
+    when written. `kv`: the engine's K and V rows right after each shift
+    (slot_rows), held against the reference cache's then. Returns
+    ([len(toks), V] f32 logits, [(K, V) relative error a shift]): the
+    error is ||engine - reference|| / ||reference|| over the rows."""
+    import torch
+
+    from localai_tpu_torch.models.llama import extend, init_kv_cache
+
+    cfg, dev = engine.cfg, engine.device
+    keep, discard = shift_geometry(engine)
+    PLAIN_SHIFT_CFG[0] = cfg.rope
+    seq, P = list(ids) + list(toks), len(ids)
+    kc, vc = init_kv_cache(cfg, 1, engine.ec.max_context + 8,
+                           cache_type=engine.ec.cache_type, device=dev)
+    out = torch.empty((len(toks), cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+    a = pos = 0
+    errs = []
+    for k, end in enumerate(list(shifts) + [len(seq) - 1]):
+        with torch.no_grad(), plain_weight_gemms():
+            logits = extend(engine.params, cfg,
+                            torch.tensor([seq[a:end]], dtype=torch.int32,
+                                         device=dev),
+                            torch.tensor([pos], dtype=torch.int32,
+                                         device=dev),
+                            engine._cos, engine._sin, kc, vc)[0].float()
+        lo = max(a, P - 1)          # row r predicted seq[r + 1]
+        out[lo + 1 - P:end + 1 - P] = logits[lo - a:end - a]
+        pos += end - a
+        a = end
+        if k < len(shifts):
+            with torch.no_grad():
+                plain_shift(kc, vc, pos, keep, discard, rotate)
+            pos -= discard
+            if k < len(kv):
+                errs.append(tuple(
+                    float((got.float() - want.float()).norm()
+                          / want.float().norm())
+                    for got, want in zip(kv[k], slot_rows(
+                        SimpleNamespace(_kc=kc, _vc=vc, _paged=False), 0,
+                        pos))))
+    return out, errs
+
+
+def stream_shifts(probe, rid, discard):
+    """The rows a stream had written (over the whole stream) at each of its
+    shifts: the device length after it, plus its discards so far."""
+    mine = [p for p in probe if p["rid"] == rid]
+    return [p["length_after"] + discard * (k + 1)
+            for k, p in enumerate(mine)]
+
+
+def shift_check(label, engine, probe, recs, greedy, fault=None):
+    """The teacher-forced check of greedy streams served with shifts: each
+    served token's reference logit within REF_MARGIN of its row's largest
+    and its logprob within REF_LP_TOL of the reference's, and the slot's K
+    and V rows right after each shift within SHIFT_KV_TOL (relative
+    norm) of the reference cache's. `fault`: a record of a stream served
+    by the planted fault (a shift without the K rotation), which must
+    fail. Returns the readings."""
+    import torch
+
+    dev = engine.device
+    _, discard = shift_geometry(engine)
+
+    def readings(r):
+        ref, errs = shift_reference(
+            engine, r["ids"], r["toks"],
+            stream_shifts(probe, r["rid"], discard),
+            kv=[p["kv"] for p in probe if p["rid"] == r["rid"]])
+        t = torch.tensor(r["toks"], dtype=torch.int64, device=dev)[:, None]
+        gap = ref.max(1).values - ref.gather(1, t)[:, 0]
+        lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
+        dlp = (lp_ref - torch.tensor(r["lps"], device=dev)).abs()
+        return {"max_gap": float(gap.max()),
+                "argmax_equal": int((gap == 0).sum()),
+                "tokens": len(r["toks"]),
+                "max_dlogprob": float(dlp.max()),
+                "shifts": len(errs),
+                "kv_rel_err": max([max(e) for e in errs], default=0.0)}
+
+    out = {f"request {i}": readings(recs[i]) for i in greedy}
+    if fault is not None:
+        out["planted fault"] = readings(fault)
+    for name, r in out.items():
+        ok = (r["max_gap"] <= REF_MARGIN and r["max_dlogprob"] <= REF_LP_TOL
+              and r["kv_rel_err"] <= SHIFT_KV_TOL)
+        if name == "planted fault" and ok:
+            raise AssertionError(f"phase11 {label}: the reference check does "
+                                 f"not reject the planted fault {r}")
+        if name != "planted fault" and not ok:
+            raise AssertionError(f"phase11 {label} {name}: served greedy "
+                                 f"tokens disagree with the reference {r}")
+    return out
+
+
+def shift_submit(eng, ids, sp, new, **kw):
+    """Submit one request (logprobs on); its record for _pump."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    rid, q = eng.submit(GenRequest(list(ids), SamplingParams(**sp),
+                                   max_tokens=new, ignore_eos=True,
+                                   logprobs=True, **kw))
+    return dict(rid=rid, ids=list(ids), q=q, t0=time.perf_counter(),
+                ttft=None, toks=[], lps=[], text="", last=None)
+
+
+def finished_length(label, recs, new):
+    for r in recs:
+        if (r["last"] is None or r["last"].finish_reason != "length"
+                or len(r["toks"]) != new):
+            raise AssertionError(
+                f"phase11 {label}: a request ended "
+                f"{r['last'] and r['last'].finish_reason} after "
+                f"{len(r['toks'])} tokens (budget {new})")
+
+
+def shift_timings(probe):
+    """Device and host ms of each shift (the events synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    return ([round(a.elapsed_time(b), 4)
+             for a, b in (p["events"] for p in probe)],
+            [round(p["host_ms"], 3) for p in probe])
+
+
+def shift_leg(label, recipe, cfg, params, tok, kv, path, salt):
+    """One phase 11.1 engine: the wave of four 900-token prompts of 700
+    shifting tokens, its checks (every stream to its budget, exactly two
+    shifts a stream, the path's decode kernels launched and no plain
+    version ran, no graph captured in the wave and replays after every
+    shift, the teacher-forced streams). Returns (reading, engine, its
+    shift probe, the wave's records)."""
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    eng = shift_engine(cfg, params, tok, kv, path)
+    probe = shift_probe(eng)
+    before, g0 = launch_counts(), eng.graphs.counters()
+    marks = _replay_events(eng)
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        recs = [shift_submit(eng, prompt_ids(i, SHIFT_PROMPT, salt), sp,
+                             SHIFT_NEW, context_shift=True)
+                for i, sp in enumerate(SHIFT_SAMPLING)]
+        while _pump(eng, recs):
+            pass
+    wall = time.perf_counter() - t0
+    del eng.graphs.run
+    busy = _busy_ms_step(marks)
+    after, g1 = launch_counts(), eng.graphs.counters()
+    finished_length(label, recs, SHIFT_NEW)
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    own = {"dense": DENSE_OWN, "paged": PAGED_OWN,
+           "ragged": RAGGED_OWN}[path][recipe]
+    for k in own:
+        if launched.get(k, 0) <= 0:
+            raise AssertionError(f"phase11 {label}: {k} never launched")
+    if plain:
+        raise AssertionError(f"phase11 {label}: plain versions ran {plain}")
+    per = [sum(p["rid"] == r["rid"] for p in probe) for r in recs]
+    if per != [2] * len(recs):
+        raise AssertionError(f"phase11 {label}: shifts a stream {per}, "
+                             f"not 2 each")
+    caps = {p: c["captures"] - g0.get(p, {}).get("captures", 0)
+            for p, c in g1.items()}
+    if any(caps.values()):
+        raise AssertionError(f"phase11 {label}: the wave captured graphs "
+                             f"{caps}")
+    total = sum(c["replays"] for c in g1.values())
+    for p in probe:
+        if total <= sum(c["replays"] for c in p["graphs"].values()):
+            raise AssertionError(f"phase11 {label}: no graph replay after a "
+                                 f"shift")
+    if eng._paged and not all(p["owned"] for p in probe):
+        raise AssertionError(f"phase11 {label}: a shift rotated a page "
+                             f"another tenant held")
+    dev_ms, host_ms = shift_timings(probe)
+    row = {"engine": label, "tok_s": len(recs) * SHIFT_NEW / wall,
+           "ttft_p50_ms": _p50_ms(recs), "wall_s": wall,
+           "shifts_per_stream": per, "shift_device_ms": dev_ms,
+           "shift_host_ms": host_ms, "busy_ms_step": busy,
+           "graphs": graph_delta(g0, g1),
+           "launches": {k: launched.get(k, 0) for k in own}}
+    return row, eng, probe, recs
+
+
+def shift_fault(eng, salt):
+    """The planted fault: the engine's shift turned into a slide without
+    the K rotation (rotation by 0), one greedy stream served through its
+    first shift. Returns (its record, the probe)."""
+    import torch
+
+    c, s = eng._shift_rot
+    eng._shift_rot = (torch.ones_like(c), torch.zeros_like(s))
+    probe = shift_probe(eng)
+    rec = shift_submit(eng, prompt_ids(0, SHIFT_PROMPT, salt),
+                       dict(temperature=0.0), 250, context_shift=True)
+    while _pump(eng, [rec]):
+        pass
+    eng._shift_rot = (c, s)
+    return rec, probe
+
+
+def shared_pages_leg(eng, salt=77):
+    """Phase 11.2 on the paged bf16 engine (after 11.1's wave): A serves
+    the 512-token prefix P and is retained (its full blocks in the hash
+    index); D (P + a tail) takes A's slot by its slot prompt cache and
+    decodes on, holding A's blocks; B (P + 388 tokens, shifting) would
+    borrow them, but takes lcp 0 and owns its pages; once B has shifted
+    twice and D has ended, C (P) reuses A's blocks and must stream A's
+    tokens (a bf16 near-tie aside). Returns the reading."""
+    P = prompt_ids(0, SHIFT_SHARED, salt)
+    probe = shift_probe(eng)
+    m = eng.metrics
+    a = shift_submit(eng, P, dict(temperature=0.0), 16)
+    while _pump(eng, [a]):
+        pass
+    reused0 = m["prompt_tokens_reused"]
+    d = shift_submit(eng, P + _tail(3, 32), dict(temperature=0.0), 64)
+    _pump(eng, [d])
+    reused_d = m["prompt_tokens_reused"] - reused0
+    b = shift_submit(eng, P + _tail(4, SHIFT_PROMPT - SHIFT_SHARED),
+                     dict(temperature=0.0), 520, context_shift=True)
+    recs = [d, b]
+    while ((sum(p["rid"] == b["rid"] for p in probe) < 2
+            or d["last"] is None) and b["last"] is None):
+        _pump(eng, recs)
+    reused_b = m["prompt_tokens_reused"] - reused0 - reused_d
+    c = shift_submit(eng, P, dict(temperature=0.0), 16)
+    recs.append(c)
+    while _pump(eng, recs):
+        pass
+    reused_c = m["prompt_tokens_reused"] - reused0 - reused_d - reused_b
+    finished_length("11.2", [a, c], 16)
+    finished_length("11.2", [b], 520)
+    if reused_d < SHIFT_SHARED or reused_b != 0 or reused_c < 3 * 128:
+        raise AssertionError(f"phase11 11.2: prompt tokens reused D "
+                             f"{reused_d}, B {reused_b}, C {reused_c}")
+    if not all(p["owned"] for p in probe) or len(probe) != 2:
+        raise AssertionError("phase11 11.2: B's shifts rotated pages "
+                             "another tenant held, or B did not shift twice")
+    checks = shift_check("11.2", eng, probe, [b, c], (0, 1))
+    same = c["toks"] == a["toks"]
+    if not same:
+        # a bf16 near-tie: C's last prompt row came from a 1-row extend,
+        # A's from a 256-row chunk; at the first token that differs both
+        # must be within REF_MARGIN of C's reference row's largest logit
+        import torch
+
+        j = next(i for i, (x, y) in enumerate(zip(a["toks"], c["toks"]))
+                 if x != y)
+        ref, _ = shift_reference(eng, c["ids"], c["toks"], [])
+        gap = float(ref[j].max() - ref[j, a["toks"][j]])
+        if gap > REF_MARGIN:
+            raise AssertionError(f"phase11 11.2: C left A's stream at token "
+                                 f"{j} (gap {gap})")
+    return {"reused": {"D": reused_d, "B": reused_b, "C": reused_c},
+            "C_equals_A": same, "B_shifts": len(probe),
+            "reference": checks}
+
+
+def disk_leg(recipe, cfg, params, tok, kv, tmp):
+    """Phase 11.3 for one recipe: an engine serves DISK_PROMPT tokens with
+    prompt_cache_path and writes the file at release; a fresh engine
+    (prompt_cache off, so nothing but the file is reused) serves the
+    follow-up cold, then from the file (prompt_cache_hits 1,
+    prompt_tokens_reused DISK_PROMPT, the teacher-forced check), then
+    read-only (the file's bytes and mtime unchanged). Returns the
+    reading."""
+    import hashlib
+
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    def timer(eng, name, acc):
+        fn = getattr(eng, name)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        setattr(eng, name, timed)
+
+    def serve(eng, ids, **kw):
+        """One greedy request to its end; its record, with `prefill_ms`:
+        submit to its prefill done on the card (the host clock around the
+        admission ticks, the card synchronized once the slot is
+        prefilled)."""
+        r = shift_submit(eng, ids, dict(temperature=0.0), DISK_NEW, **kw)
+        while r["last"] is None and not any(
+                s is not None and s.request_id == r["rid"] and s.prefilled
+                for s in eng._slots):
+            _pump(eng, [r])
+        torch.cuda.synchronize()
+        r["prefill_ms"] = (time.perf_counter() - r["t0"]) * 1e3
+        while _pump(eng, [r]):
+            pass
+        finished_length(f"11.3 {recipe}", [r], DISK_NEW)
+        return r
+
+    def digest():
+        with open(path, "rb") as f:
+            h = hashlib.sha256(f.read()).hexdigest()
+        return h, os.stat(path).st_mtime_ns
+
+    path = os.path.join(tmp, f"prompt-{recipe}.kv.npz")
+    prompt = prompt_ids(0, DISK_PROMPT, salt=91)
+    follow = prompt + prompt_ids(1, DISK_FOLLOW, salt=92)
+    e1 = Engine(cfg, params, tok, EngineConfig(**DISK_EC, cache_type=kv),
+                device="cuda")
+    saves, loads = [], []
+    timer(e1, "_save_prompt_cache", saves)
+    serve(e1, prompt, prompt_cache_path=path)
+    mb = os.path.getsize(path) / 2 ** 20
+    del e1
+    e2 = Engine(cfg, params, tok, EngineConfig(
+        **DISK_EC, cache_type=kv, prompt_cache=False), device="cuda")
+    e2.warmup()
+    timer(e2, "_load_prompt_cache", loads)
+    cold = serve(e2, follow)
+    m0 = dict(e2.metrics)
+    hot = serve(e2, follow, prompt_cache_path=path)
+    m1 = dict(e2.metrics)
+    hits = m1["prompt_cache_hits"] - m0["prompt_cache_hits"]
+    reused = m1["prompt_tokens_reused"] - m0["prompt_tokens_reused"]
+    if (hits, reused) != (1, DISK_PROMPT):
+        raise AssertionError(f"phase11 11.3 {recipe}: prompt_cache_hits "
+                             f"{hits}, prompt_tokens_reused {reused}")
+    ref = check_reference(
+        f"{recipe} disk follow-up", e2,
+        {"follow-up": (follow, hot["toks"], hot["lps"])},
+        (prompt_ids(2, DISK_PROMPT + DISK_FOLLOW, salt=93), hot["toks"],
+         hot["lps"]), phase="phase11")
+    stamp = digest()
+    m2 = dict(e2.metrics)
+    serve(e2, follow, prompt_cache_path=path, prompt_cache_ro=True)
+    if e2.metrics["prompt_cache_hits"] != m2["prompt_cache_hits"] + 1:
+        raise AssertionError(f"phase11 11.3 {recipe}: the read-only load "
+                             f"missed")
+    if digest() != stamp:
+        raise AssertionError(f"phase11 11.3 {recipe}: prompt_cache_ro "
+                             f"changed the file")
+    os.remove(path)
+    return {"file_mb": round(mb, 1), "save_ms": saves, "load_ms": loads,
+            "ttft_file_ms": hot["ttft"] * 1e3,
+            "ttft_cold_ms": cold["ttft"] * 1e3,
+            "prefill_file_ms": hot["prefill_ms"],
+            "prefill_cold_ms": cold["prefill_ms"],
+            "reused": reused, "reference": ref}
+
+
+def phase_shift(d, smi, tok):
+    """Phase 11, context shift and the disk prompt cache at full width: the
+    synthetic Llama-3.1-8B (32 layers) with the grammar checkpoint's
+    tokenizer. 11.1: in-process Engines of 4 slots and 1024-token
+    contexts (dense bf16 and int8, paged bf16 and int8, ragged bf16 with a
+    budget of 192) serve four 900-token prompts of 700 shifting tokens;
+    the dense bf16 engine then serves the planted fault. 11.2: shared
+    pages on the paged bf16 engine. 11.3: the disk prompt cache, dense
+    bf16 then int8. Returns the phase's launch counts."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows, disk = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for salt, (name, dtype, kv) in enumerate(RECIPES):
+            cfg, params = recipe_weights(d, dtype)
+            for j, (label, recipe, path) in enumerate(SHIFT_LEGS):
+                if recipe != name:
+                    continue
+                row, eng, probe, recs = shift_leg(
+                    label, recipe, cfg, params, tok, kv, path,
+                    101 + 7 * salt + j)
+                fault = None
+                if label == "bf16 dense":
+                    fault, fprobe = shift_fault(eng, 131)
+                    probe = probe + fprobe
+                t1 = time.perf_counter()
+                row["reference"] = shift_check(label, eng, probe, recs,
+                                               SHIFT_GREEDY, fault)
+                row["reference_s"] = time.perf_counter() - t1
+                if label == "bf16 paged":
+                    row["shared_pages"] = shared_pages_leg(eng)
+                log(f"phase11 {label} " + json.dumps(row) + f" card {smi}")
+                rows.append(row)
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+            disk[name] = disk_leg(name, cfg, params, tok, kv, tmp)
+            log(f"phase11 {name} disk prompt cache "
+                + json.dumps(disk[name]) + f" card {smi}")
+    del params
+    WEIGHTS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    log("phase11 summary " + json.dumps({
+        "tok_s": {r["engine"]: r["tok_s"] for r in rows},
+        "ttft_p50_ms": {r["engine"]: r["ttft_p50_ms"] for r in rows},
+        "busy_ms_step": {r["engine"]: r["busy_ms_step"] for r in rows},
+        "shift_device_ms": {r["engine"]: r["shift_device_ms"] for r in rows},
+        "shift_host_ms": {r["engine"]: r["shift_host_ms"] for r in rows},
+        "disk": {k: {x: v[x] for x in ("file_mb", "save_ms", "load_ms",
+                                        "ttft_file_ms", "ttft_cold_ms",
+                                        "prefill_file_ms",
+                                        "prefill_cold_ms")}
+                 for k, v in disk.items()}})
         + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
     return counts
 
@@ -5439,6 +6115,7 @@ def main():
                                gtok)
         tier_counts = timed("10 kv tier", phase_kv_tier, gdir, smi, gtok,
                             measured["paged_demote_q8"])
+        shift_counts = timed("11 shift", phase_shift, gdir, smi, gtok)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
         + f" total {time.perf_counter() - t0:.1f} s")
@@ -5460,6 +6137,7 @@ def main():
                      "launches_spec": spec_counts[name],
                      "launches_host_tier": host_counts[name],
                      "launches_kv_tier": tier_counts[name],
+                     "launches_shift": shift_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

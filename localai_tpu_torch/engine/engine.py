@@ -63,6 +63,18 @@ What this slice serves, as the reference does:
   stream with a terminal "preempted" StepOutput carrying a ResumeToken; a
   resume is a normal request over prompt + emitted that installs the key
   and replays the grammar and the detokenizer, sending no text twice;
+- context shift (GenRequest.context_shift, llama.cpp's ctx_shift): at
+  the context cap a shifting slot keeps its sink tokens, evicts the next
+  stretch and slides the rest left in place, K re-rotated to its new
+  positions (models/llama.cache_shift; paged engines permute the slot's
+  table row and rotate only K's tail blocks, cache_shift_paged), and
+  decodes on; every length the host keeps subtracts the slot's shifted
+  tokens, and a shifted slot is never retained, registered, spilled or
+  saved;
+- the disk prompt cache (GenRequest.prompt_cache_path / prompt_cache_ro,
+  dense engines): a prompt's KV rows are saved at release in the
+  reference's file format and restored at a later admission whose prompt
+  shares the file's prefix (the suffix takes the chunked extend path);
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
   logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
@@ -76,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import queue
 import threading
 import time
@@ -94,6 +107,8 @@ from localai_tpu_torch.models.llama import (
     LoopState,
     build_decode_loop,
     build_ragged_loop,
+    cache_shift,
+    cache_shift_paged,
     decode_step,
     extend,
     init_kv_cache,
@@ -101,6 +116,7 @@ from localai_tpu_torch.models.llama import (
     prefill,
     ragged_forward,
     segment_lengths,
+    shift_rotation,
 )
 from localai_tpu_torch.ops.kernels import QBLK, demote_targets, paged_demote_q8
 from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
@@ -129,7 +145,8 @@ class EngineConfig:
     dtype: str | None = None      # KV dtype (default: model dtype)
     cache_type: str = ""          # ""|bf16 dense; int8|q8_0 quantized KV
     mesh: Any | None = None       # parallel slice
-    shift_keep: int = 4           # context shift (waits)
+    shift_keep: int = 4           # context shift: sink tokens always kept
+                                  # (paged: rounded up to whole blocks)
     replicator: Any | None = None  # multi-host (parallel slice)
     gamma: int = 4                # speculative: draft tokens per step
     prompt_cache: bool = True     # reuse a freed slot's KV prefix
@@ -177,9 +194,11 @@ class GenRequest:
     ignore_eos: bool = False
     logprobs: bool = False
     grammar: str = ""             # GBNF; enforced through the matcher
-    context_shift: bool = False   # context-shift slice
-    prompt_cache_path: str = ""   # disk prompt cache (context-shift slice)
-    prompt_cache_ro: bool = False
+    context_shift: bool = False   # evict-and-continue past max_context
+                                  # (llama.cpp's ctx_shift)
+    prompt_cache_path: str = ""   # persist and reuse this prompt's KV on
+                                  # disk (dense engines)
+    prompt_cache_ro: bool = False  # reuse only; never rewrite the file
     trace_id: str = ""            # request id from the HTTP layer
     trace_parent: int = 0
     deadline: float = 0.0         # absolute time.monotonic(); 0 = none
@@ -246,6 +265,9 @@ class _Slot:
                                      # device tables; None = host-masked
                                      # (the automaton overflowed them, or
                                      # grammar_table_states is 0)
+    shifted: int = 0                 # tokens evicted by context shifts
+    disk_prefix: int = 0             # prefix length loaded from the disk
+                                     # prompt cache
 
 
 def _check_config(ec: EngineConfig):
@@ -569,7 +591,28 @@ class Engine:
             self.metrics.update(
                 kv_host_blocks=0, kv_host_bytes=0, kv_host_bytes_peak=0,
                 kv_host_hits=0, kv_host_spills=0, kv_host_evictions=0)
+        self._build_shift()
         self._build_fns()
+
+    def _build_shift(self):
+        """The context shift's geometry, fixed per engine, and its rotation
+        (cos, sin of discard·inv_freq) on the device. Paged: keep the sink
+        block(s) and drop half the context's remaining blocks; the slide is
+        a permutation of the slot's table row. A shift must leave a tail
+        block to slide: on a context of keep + discard blocks or fewer
+        (`_shift_ok` False) submit refuses context_shift. Dense: keep
+        shift_keep rows and drop half of the rest."""
+        if self._paged:
+            self._shift_keepb = max(1, -(-self.ec.shift_keep // BLOCK))
+            self._shift_discb = max(1, (self._maxb - self._shift_keepb) // 2)
+            self._shift_discard = self._shift_discb * BLOCK
+            self._shift_ok = self._maxb > (self._shift_keepb
+                                           + self._shift_discb)
+        else:
+            self._shift_discard = max(
+                1, (self.ec.max_context - self.ec.shift_keep) // 2)
+        self._shift_rot = shift_rotation(self.cfg, self._shift_discard,
+                                         self.device)
 
     # ------------------------------------------------------------ state
 
@@ -1216,6 +1259,39 @@ class Engine:
                                 self._cv.s[i], self._kc[i, pb],
                                 self._vc[i, pb], targets)
 
+    def _dev_shift(self, idx: int):
+        """Context-shift slot `idx` (_emit, at the cap), enqueued behind
+        the dispatch whose token triggered it and any pipelined one after
+        it: that in-flight step wrote at a pre-shift position and is part
+        of the device state the shift moves. Everything is written in
+        place — the caches, the pool and `_lengths` keep their storage, so
+        the fused loops' CUDA graphs go on replaying over them. Paged: K's
+        tail blocks rotate in place through the PRE-permutation row, then
+        the host row is permuted (sink blocks stay, discarded blocks
+        re-append as tail capacity; the reservation is unchanged) and
+        reaches the device with the next dispatch's table snapshot."""
+        with torch.no_grad():
+            if self._paged:
+                row = torch.from_numpy(self._table[idx].astype(np.int64))
+                if self.device.type == "cuda":
+                    row = row.pin_memory().to(self.device, non_blocking=True)
+                cache_shift_paged(self.cfg, self._kc, row,
+                                  keep_blocks=self._shift_keepb,
+                                  discard_blocks=self._shift_discb,
+                                  rot=self._shift_rot)
+                self._lengths[idx] -= self._shift_discard
+                blocks = self._slot_blocks[idx]
+                kb, db = self._shift_keepb, self._shift_discb
+                if len(blocks) > kb + db:   # a shift fires at the cap, where
+                    # the reservation spans the whole context
+                    newb = blocks[:kb] + blocks[kb + db:] + blocks[kb:kb + db]
+                    self._slot_blocks[idx] = newb
+                    self._table[idx, :len(newb)] = newb
+            else:
+                cache_shift(self.cfg, self._kc, self._vc, self._lengths, idx,
+                            keep=self.ec.shift_keep,
+                            discard=self._shift_discard, rot=self._shift_rot)
+
     # ------------------------------------------------------- host KV tier
 
     def _spill_arrays(self, pb: int) -> list:
@@ -1539,11 +1615,20 @@ class Engine:
                 f"need a larger context window")
         if req.mm_embeds is not None or req.mm_positions is not None:
             raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
-        if req.context_shift:
-            raise not_ported("context_shift", "context-shift")
-        if req.prompt_cache_path:
-            raise not_ported("prompt_cache_path (disk prompt cache)",
-                             "context-shift")
+        if req.context_shift and self._draft is not None:
+            raise ValueError(
+                "context_shift is not supported with a draft model "
+                "(the draft cache would need shifting too)")
+        if req.context_shift and self._paged and not self._shift_ok:
+            raise ValueError(
+                "context_shift with paged KV needs max_context spanning "
+                "more than keep+discard blocks (128-token granularity); "
+                "raise max_context or use a dense cache")
+        if req.context_shift and self._tiered:
+            raise ValueError(
+                "context_shift is not supported under a sink_window "
+                "kv_policy (the ring geometry already bounds residency; "
+                "long sequences decode in place up to max_context)")
         if req.kv_policy:
             # a malformed or oversized policy fails THIS call (gRPC
             # INVALID_ARGUMENT), not in-band at admission
@@ -1663,7 +1748,13 @@ class Engine:
         slot, lcp = self._pick_slot(req.prompt_ids)
         if self._paged:
             shared = None
-            if self.ec.prompt_cache and self._draft is None:
+            if req.context_shift:
+                # a shift rotates this slot's pages IN PLACE — never over
+                # pages other tenants read: no borrowed pages, and lcp 0
+                # makes _alloc_slot's copy-on-write pass swap every
+                # externally shared retained block before the prefill
+                lcp = 0
+            elif self.ec.prompt_cache and self._draft is None:
                 # block-level prefix cache: another tenant's pages beat the
                 # slot-retained token match when they cover more prefix
                 shared, shtok = self._match_prefix_blocks(req.prompt_ids)
@@ -1705,6 +1796,9 @@ class Engine:
                 self._set_tier_slot(slot, pol)
             self._note_pool()
         self._slot_kv_tokens[slot] = []
+        disk_prefix = 0
+        if not lcp and req.prompt_cache_path:
+            lcp = disk_prefix = self._load_prompt_cache(slot, req)
         if lcp:
             # shared prefix already in this slot's cache: prefill only the
             # suffix via the chunked-extend path (start offset = lcp)
@@ -1771,6 +1865,7 @@ class Engine:
             start_time=time.monotonic(), prompt_len=n,
             prefilled=not chunked, row=row, counts_row=counts_row,
             prefill_pos=lcp, fast_w=fast_w, matcher=matcher, gbase=gbase,
+            disk_prefix=disk_prefix,
         )
         if chunked:
             self._prefillq.append(slot)
@@ -1965,7 +2060,7 @@ class Engine:
         for s in self._slots:
             if s is None or not s.prefilled:
                 continue
-            if s.prompt_len + s.generated + 2 * G >= limit:
+            if s.prompt_len + s.generated - s.shifted + 2 * G >= limit:
                 return 1
             stale = self._inflight_steps if self._pending is not None else 0
             rem = s.req.max_tokens - s.generated - stale
@@ -2171,7 +2266,7 @@ class Engine:
         rows the block wrote past the accepted position are unreadable
         (attention masks by length) and later steps overwrite them."""
         self.metrics["grammar_rollbacks"] += 1
-        n = slot.prompt_len + slot.generated      # valid rows
+        n = slot.prompt_len + slot.generated - slot.shifted  # valid rows
         seq = list(slot.req.prompt_ids) + slot.gen_ids
         buf = np.zeros((1, self._chunk), np.int32)
         buf[0, 0] = seq[-1]
@@ -2211,7 +2306,7 @@ class Engine:
         pol = self._slot_policy[i]
         if pol is None or not pol.windowed:
             return
-        n = (s.prompt_len + s.generated if s.prefilled
+        n = (s.prompt_len + s.generated - s.shifted if s.prefilled
              else s.prefill_pos)
         sb = int(self._kv_sb[i])
         lim = n - int(self._kv_window[i])
@@ -2223,7 +2318,7 @@ class Engine:
             col = sb + (raw - sb) % max(int(self._kv_rw[i]), 1)
             if not self._cold or not self._cold_free:
                 self.metrics["kv_evictions"] += 1
-                if (self._kvhost is not None
+                if (self._kvhost is not None and s.shifted == 0
                         and (raw + 1) * BLOCK
                         <= int(self._kv_window[i])):
                     # ring content sits at TRUE positions; a block ending
@@ -2384,7 +2479,7 @@ class Engine:
             # the window starts at the carried next_token, which is
             # emitted (counted in `generated`) but not yet written: its
             # position is prompt_len + generated - 1, the device length
-            n = s.prompt_len + s.generated - 1
+            n = s.prompt_len + s.generated - s.shifted - 1
             qstart[i], qlen[i], kvlen[i] = row, G + 1, n + G + 1
             block_seq[row // QBLK:row // QBLK + winb] = i
             spec_rows[i] = row
@@ -2506,7 +2601,7 @@ class Engine:
                 continue
             if row + QBLK > cap:
                 break
-            n = s.prompt_len + s.generated
+            n = s.prompt_len + s.generated - s.shifted
             qstart[i], qlen[i], kvlen[i] = row, 1, n + 1
             block_seq[row // QBLK] = i
             decode_slot[row] = i
@@ -2616,14 +2711,22 @@ class Engine:
         disagree (it should not happen): the request finishes "stop"
         rather than resample the same token forever."""
         finish = None
-        cache_len = slot.prompt_len + slot.generated + 1
+        shift = False
+        cache_len = slot.prompt_len + slot.generated + 1 - slot.shifted
         is_eos = self.tok is not None and token_id in self.tok.eos_ids
         if is_eos and not slot.req.ignore_eos:
             finish = "eos"
         elif slot.generated + 1 >= slot.req.max_tokens:
             finish = "length"
         elif cache_len >= self.ec.max_context - 2 - self._ctx_reserve:
-            finish = "length"
+            if slot.req.context_shift:
+                # evict-and-continue: slide the cache left, re-rotating K;
+                # the fused loops froze the slot at the cap, and a
+                # pipelined step already in flight wrote at a pre-shift
+                # position (submit refused context_shift with a draft)
+                shift = True
+            else:
+                finish = "length"
         if finish is None and slot.request_id in self._cancelled:
             finish = "cancelled"
         elif finish is None and slot.req.deadline \
@@ -2674,6 +2777,9 @@ class Engine:
         slot.gen_ids.append(token_id)
         self.metrics["tokens_generated"] += 1
         self.metrics["tokens_by_path__" + path] += 1
+        if shift:
+            self._dev_shift(idx)
+            slot.shifted += self._shift_discard
 
         text = ""
         if slot.detok is not None:
@@ -2745,6 +2851,119 @@ class Engine:
         cold = min(self._free, key=lambda s: len(self._slot_kv_tokens[s]))
         self._free.remove(cold)
         return cold, 0
+
+    # ------------------------------------------------ disk prompt cache
+    # (llama.cpp's prompt_cache_path / prompt_cache_ro: a prompt's KV
+    # persists in a file and is restored across restarts). The file is the
+    # reference's np.savez — `tokens` int64 [n] and, from a dense cache,
+    # `k`/`v` f32 [L, KVH, n, D] (a bf16 cache's too), from an int8 one
+    # `kq`/`vq` int8 [L, KVH, n, D] with the slot's whole scale rows
+    # `ks`/`vs` [L, KVH, T // 128, 128] — so a file written by either
+    # package loads in the other. Dense engines without a draft only.
+
+    def _load_prompt_cache(self, slot: int, req: GenRequest) -> int:
+        """Restore a saved KV prefix into `slot` if the file's tokens prefix
+        this prompt. Returns the reusable length (0 = cold prefill: an
+        unreadable file, too short a match, or leaves that do not fit this
+        engine's cache)."""
+        if self._draft is not None or self._paged:
+            return 0
+        try:
+            with np.load(req.prompt_cache_path, allow_pickle=False) as z:
+                tokens = z["tokens"].tolist()
+                leaves = {k: z[k] for k in z.files if k != "tokens"}
+        except Exception:
+            # corrupt, truncated or foreign files raise a zoo (BadZipFile,
+            # zlib.error, ValueError, OSError, KeyError...): all of them
+            # mean a cold prefill, never a dead engine
+            return 0
+        if not isinstance(tokens, list):      # a 0-d `tokens`
+            return 0
+        limit = self.ec.max_context - 2 - self._ctx_reserve
+        m = min(len(tokens), len(req.prompt_ids) - 1, limit - 1)
+        lcp = 0
+        while lcp < m and tokens[lcp] == req.prompt_ids[lcp]:
+            lcp += 1
+        if lcp < self.ec.prompt_cache_min or not self._cache_fits(leaves,
+                                                                   lcp):
+            return 0
+        self._cache_inject(slot, leaves, lcp)
+        return lcp
+
+    def _cache_fits(self, leaves: dict, n: int) -> bool:
+        """Whether a file's leaves hold n rows of this engine's cache: the
+        keys of its kind, [L, KVH, >= n, D] rows of the right type and, for
+        int8, scale rows of the slot's shape."""
+        cfg = self.cfg
+        L, KVH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+        def rows(a, kinds):
+            return (a is not None and a.ndim == 4 and a.dtype.kind in kinds
+                    and a.shape[0] == L and a.shape[1] == KVH
+                    and a.shape[2] >= n and a.shape[3] == D)
+
+        if isinstance(self._kc, QuantKV):
+            srow = tuple(self._kc.s.shape[2:])
+            return (all(rows(leaves.get(k), "i") for k in ("kq", "vq"))
+                    and all(leaves.get(k) is not None
+                            and leaves[k].dtype.kind == "f"
+                            and tuple(leaves[k].shape) == (L,) + srow
+                            for k in ("ks", "vs")))
+        return all(rows(leaves.get(k), "f") for k in ("k", "v"))
+
+    def _cache_inject(self, slot: int, leaves: dict, n: int):
+        """Write saved rows [L, KVH, n, D] into slot's cache region, in
+        place (an int8 cache takes the file's whole scale rows)."""
+        def put(dst, a, dtype):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(dtype))
+
+        with torch.no_grad():
+            if isinstance(self._kc, QuantKV):
+                for c, q, sc in ((self._kc, "kq", "ks"),
+                                 (self._vc, "vq", "vs")):
+                    put(c.q[:, slot, :, :n], leaves[q][:, :, :n], torch.int8)
+                    put(c.s[:, slot], leaves[sc], c.s.dtype)
+            else:
+                for c, k in ((self._kc, "k"), (self._vc, "v")):
+                    put(c[:, slot, :, :n], leaves[k][:, :, :n], c.dtype)
+
+    def _save_prompt_cache(self, idx: int, slot: _Slot):
+        """Persist the slot's prompt rows and token ids to the request's
+        cache file, through `path.tmp` and os.replace (skipped for RO
+        requests, paged and draft engines, shifted or mid-prefill slots,
+        and when the loaded file already covers the prompt)."""
+        req = slot.req
+        if (not req.prompt_cache_path or req.prompt_cache_ro
+                or self._draft is not None or self._paged or slot.shifted
+                or not slot.prefilled):
+            return
+        n = min(slot.prompt_len, self.ec.max_context - 2)
+        if slot.disk_prefix >= n - 1:
+            return
+        try:
+            if isinstance(self._kc, QuantKV):
+                leaves = {k: t.cpu().numpy() for k, t in (
+                    ("kq", self._kc.q[:, idx, :, :n]),
+                    ("ks", self._kc.s[:, idx]),
+                    ("vq", self._vc.q[:, idx, :, :n]),
+                    ("vs", self._vc.s[:, idx]))}
+            else:
+                # f32 on disk: npz keeps no bfloat16
+                leaves = {k: c[:, idx, :, :n].float().cpu().numpy()
+                          for k, c in (("k", self._kc), ("v", self._vc))}
+            tmp = req.prompt_cache_path + ".tmp"
+            with open(tmp, "wb") as f:   # a file object: savez adds no .npz
+                np.savez(f, tokens=np.asarray(req.prompt_ids[:n], np.int64),
+                         **leaves)
+            os.replace(tmp, req.prompt_cache_path)
+        except Exception:
+            # best effort, as the reference's: a full disk or a faulted
+            # device must not break the release (or _fail_active's loop)
+            import logging
+
+            logging.getLogger("localai_tpu_torch").warning(
+                "failed to write prompt cache %s", req.prompt_cache_path,
+                exc_info=True)
 
     # ------------------------------------------------------------ paged KV
 
@@ -2964,8 +3183,10 @@ class Engine:
         """Free `slot`; with `retain` (and the prompt cache on) its cached
         rows stay as a warm prefix. A preempted mid-prefill slot passes
         retain=False: its blocks are only partly written, so none is
-        registered in the prefix index."""
+        registered in the prefix index. A shifted slot retains nothing: its
+        rows moved, so their mapping is no longer positional."""
         self._finish_rid(slot.request_id)
+        self._save_prompt_cache(idx, slot)
         if slot.matcher is not None:
             self._mask_host[idx] = 0xFF
             self._grammar_slots -= 1
@@ -2979,7 +3200,7 @@ class Engine:
         # a windowed slot's ring columns hold position-rotated content no
         # other tenant can address: it retains nothing and registers nothing
         retain = (retain and self.ec.prompt_cache and self._draft is None
-                  and not windowed)
+                  and slot.shifted == 0 and not windowed)
         if self._paged:
             if retain:
                 # retain ONLY the blocks holding cached rows as the warm
@@ -3249,8 +3470,8 @@ class Engine:
     def _freeze_slot(self, idx: int, slot: _Slot, keys, now: float):
         """Checkpoint one live slot into a ResumeToken, force-spilling its
         full KV chain blocks to the host tier (the retention rules of
-        _release_slot: a prefilled slot, prompt cache on, no draft, no
-        window).
+        _release_slot: a prefilled slot, prompt cache on, no shift, no
+        draft, no window).
         Returns (token, blocks spilled)."""
         from localai_tpu_torch.engine.resume import ResumeToken
 
@@ -3260,8 +3481,8 @@ class Engine:
         windowed = self._tiered and self._slot_policy[idx] is not None \
             and self._slot_policy[idx].windowed
         if (self._paged and self.ec.prompt_cache and self._kvhost is not None
-                and slot.prefilled and self._draft is None
-                and not windowed):
+                and slot.prefilled and slot.shifted == 0
+                and self._draft is None and not windowed):
             kept = min(slot.prompt_len + slot.generated,
                        self.ec.max_context - 2)
             ids = (list(req.prompt_ids) + slot.gen_ids)[:kept]

@@ -54,13 +54,14 @@ from localai_tpu_torch.ops.kernels import (
 )
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
+    requantize,
 )
 from localai_tpu_torch.ops.paged import (
     BLOCK, paged_view, ring_block_map, tiered_positions,
 )
 from localai_tpu_torch.ops.norms import rms_norm
 from localai_tpu_torch.ops.quant import QuantWeight, is_quantized, qmatmul
-from localai_tpu_torch.ops.rope import RopeConfig, apply_rope
+from localai_tpu_torch.ops.rope import RopeConfig, apply_rope, rope_freqs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -666,6 +667,97 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last = x[0][logit_rows.long().to(dev)]
     return _lm_head(last.float(), params)
+
+
+def shift_rotation(cfg: LlamaConfig, distance: int, device=None):
+    """(cos, sin) [head_dim // 2] f32 of the angle distance·inv_freq (the
+    rope's scaling included, ops/rope.rope_freqs): the context shift
+    rotates moved K rows back by `distance` positions with them. Made once
+    per engine, on its device (a shift then copies nothing from the
+    host)."""
+    inv_freq, _ = rope_freqs(cfg.rope)
+    ang = inv_freq * distance
+    return torch.cos(ang).to(device), torch.sin(ang).to(device)
+
+
+def _rotate_back(x, rot):
+    """Rotate f32 rows x [..., D] by -angle, rot = (cos, sin) of angle:
+    x1' = x1·cos + x2·sin, x2' = x2·cos - x1·sin."""
+    c, s = rot
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * c + x2 * s, x2 * c - x1 * s], dim=-1)
+
+
+def cache_shift(cfg: LlamaConfig, k_cache, v_cache, lengths, slot: int, *,
+                keep: int, discard: int, rot=None):
+    """llama.cpp-style context shift of ONE slot of a dense cache [L, B,
+    KVH, T, D], IN PLACE: keep the first `keep` sink rows, drop the next
+    `discard`, slide the rest left and lengths[slot] -= discard.
+
+    Cached K is stored post-RoPE, so the moved rows rotate by -discard
+    positions (a pure rotation by -discard·inv_freq; the yarn / llama3
+    attention scale is a uniform factor and commutes with it); V moves
+    unrotated. The rows moved are those below the DEVICE length (`lengths`
+    as it stands when the shift runs, an in-flight step's write included),
+    so nothing waits for the host. An int8 cache dequantizes the slot to
+    f32, shifts it and requantizes the whole slot (fresh scales), as the
+    reference does. `rot`: shift_rotation(cfg, discard) made beforehand on
+    the cache's device (computed here when None). Returns (k_cache,
+    v_cache, lengths), the same objects."""
+    quant = isinstance(k_cache, QuantKV)
+    dev = (k_cache.q if quant else k_cache).device
+    rot = rot if rot is not None else shift_rotation(cfg, discard, dev)
+    T = k_cache.shape[3]
+    ks = dequant(k_cache[:, slot], torch.float32) if quant else k_cache[:, slot]
+    vs = dequant(v_cache[:, slot], torch.float32) if quant else v_cache[:, slot]
+    ks_rot = _rotate_back(torch.roll(ks, -discard, dims=2).float(),
+                          rot).to(ks.dtype)
+    vs_m = torch.roll(vs, -discard, dims=2)
+    idx = torch.arange(T, device=dev)[None, None, :, None]
+    move = (idx >= keep) & (idx < lengths[slot] - discard)
+    k_new = torch.where(move, ks_rot, ks)
+    v_new = torch.where(move, vs_m, vs)
+    if quant:
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            rq = requantize(cache[:, slot], new)
+            cache.q[:, slot] = rq.q
+            cache.s[:, slot] = rq.s
+    else:
+        k_cache[:, slot] = k_new
+        v_cache[:, slot] = v_new
+    lengths[slot] -= discard
+    return k_cache, v_cache, lengths
+
+
+def cache_shift_paged(cfg: LlamaConfig, k_pool, row_table, *,
+                      keep_blocks: int, discard_blocks: int, rot=None):
+    """Block-granular context shift of ONE paged slot: its K tail blocks
+    re-rotate by -discard_blocks·128 positions IN PLACE in the pool
+    [L, NB, KVH, 128, D] (int8 pools through the f32 round trip of
+    requantize). The slide itself is the caller's permutation of the
+    slot's table row (sink blocks stay, the discarded ones re-append as
+    tail capacity); V blocks never move or change.
+
+    row_table [MAXB] (on the pool's device) is the PRE-permutation row:
+    its entries from virtual block keep_blocks + discard_blocks on are
+    rotated, unallocated ones (0) landing in the trash block. `rot`:
+    shift_rotation(cfg, discard_blocks * 128), made when None. Returns
+    k_pool."""
+    quant = isinstance(k_pool, QuantKV)
+    dev = (k_pool.q if quant else k_pool).device
+    rot = rot if rot is not None else shift_rotation(
+        cfg, discard_blocks * BLOCK, dev)
+    tail = row_table[keep_blocks + discard_blocks:].long()
+    kb = k_pool[:, tail]                          # [L, TAIL, KVH, BS, D]
+    kf = dequant(kb, torch.float32) if quant else kb.float()
+    rotated = _rotate_back(kf, rot)
+    if quant:
+        rq = requantize(kb, rotated)
+        k_pool.q[:, tail] = rq.q
+        k_pool.s[:, tail] = rq.s
+    else:
+        k_pool[:, tail] = rotated.to(k_pool.dtype)
+    return k_pool
 
 
 # the fused loops read their device-side `done` flags (a host sync) once per

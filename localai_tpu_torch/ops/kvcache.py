@@ -106,3 +106,13 @@ def cache_scatter(cache: QuantKV, idx, values) -> QuantKV:
     cache.q[idx] = q
     cache.s[s_idx] = scale.to(cache.s.dtype)
     return cache
+
+
+def requantize(cache: QuantKV, dense) -> QuantKV:
+    """Dense [..., T, D] → a fresh QuantKV in `cache`'s scale layout ([..,
+    T // 128, 128]; a paged block's [.., 1, 128]): the context shift's
+    rewrites go through here after working in f32."""
+    q, scale = quantize_tokens(dense)
+    *lead, t = scale.shape
+    return QuantKV(q, scale.reshape(*lead, t // SCALE_TILE, SCALE_TILE)
+                   .to(cache.s.dtype))

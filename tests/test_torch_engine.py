@@ -202,6 +202,24 @@ def test_unported_request_fields_rejected(models, field, value):
         with pytest.raises(ValueError, match="unknown kv_policy"):
             eng.submit(TRequest([3, 4], **{field: value}))
         return
+    if field == "context_shift":
+        # served now: the stream runs past the 128-token context to its
+        # budget (tests/test_torch_shift.py holds it to the reference)
+        out = list(eng.generate(TRequest([3, 4], TParams(temperature=0.0),
+                                         max_tokens=200, ignore_eos=True,
+                                         **{field: value})))
+        assert len(out) == 200 and out[-1].finish_reason == "length"
+        return
+    if field == "prompt_cache_path":
+        # served now: an unreadable file is a cold prefill, and a file that
+        # cannot be written is logged, not raised
+        # (tests/test_torch_prompt_cache.py)
+        out = list(eng.generate(TRequest([3, 4], TParams(temperature=0.0),
+                                         max_tokens=4, ignore_eos=True,
+                                         **{field: value})))
+        assert out[-1].finish_reason == "length"
+        assert eng.metrics["prompt_tokens_reused"] == 0
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         eng.submit(TRequest([3, 4], **{field: value}))
 
