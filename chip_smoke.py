@@ -48,7 +48,14 @@ and the script exits non-zero:
      (f32 logits) on the 8B head [4096, 128256] in bf16, int8 and tied at
      M = 4 and 8 and on Qwen2-7B's head (V = 152064), with a planted fault
      each (x32 rounded to bf16; a K tile dropped), library_ms the head's
-     f32 copy + matmul (line `phase2 weight gemms`). Then the speculative
+     f32 copy + matmul (line `phase2 weight gemms`). Then the expert GEMM
+     (moe_w8_matmul, row 15) at Mixtral-8x7B's experts (E = 8): (K, N) =
+     (4096, 14336) on x shared by the experts and (14336, 4096) on one x
+     slice an expert, M = 4, 192 and 2048, against its plain version
+     within one bf16 step an output on at most 1% of them, each with two
+     planted faults (expert e read with expert e + 1's scales; a K tile
+     dropped), library_ms the reference's dequantize + torch.einsum (line
+     `phase2 moe gemms`). Then the speculative
      leg's shapes, each with its planted fault (line `phase2 spec
      shapes`): dense decode at the Llama-3.2-1B draft's H=32, KVH=8,
      D=64 (B=8, T=4096), w8a16_matmul on the 1B's projections at M = 8
@@ -133,7 +140,9 @@ and the script exits non-zero:
      teacher-forced reference. Then the same run on a synthetic checkpoint
      of Qwen2-7B's published widths (Qwen2ForCausalLM: hidden 3584, 28
      layers, 28 heads on 4 KV heads, head_dim 128, QKV bias, untied head,
-     vocab 152064), full depth, both recipes, with the same checks.
+     vocab 152064), both recipes, with the same checks. Phases 6-7 and
+     9-11 serve their models at 8 of their layers (SERVE_LAYERS), the
+     published widths kept.
   7. grammar-constrained decoding at full width. The leg's checkpoint is
      a directory of its own: the synthetic Llama-3.1-8B's config and a
      ByteLevel BPE tokenizer written here (the 256 byte symbols, strings
@@ -155,9 +164,9 @@ and the script exits non-zero:
      greedy tool-call stream passes the teacher-forced check with each
      reference row masked by the matcher. Each reading line carries the
      card's name and power limit.
-  8. speculative decoding at full width: the synthetic Llama-3.1-8B (16
+  8. speculative decoding at full width: the synthetic Llama-3.1-8B (8
      of its 32 layers) with a synthetic draft of Llama-3.2-1B's published
-     widths (hidden 2048, 8 of its 16 layers, 32 heads on 8 KV heads,
+     widths (hidden 2048, 4 of its 16 layers, 32 heads on 8 KV heads,
      head_dim 64, tied head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
      LoadModel(draft_model, n_draft=4) on the dense path (phase 4's
      prompts, the fourth greedy), then draft Engines in-process on phase
@@ -176,9 +185,10 @@ and the script exits non-zero:
      and a spec dispatch's host and device-busy ms, split into the draft
      steps, the verify and the accept tail.
   9. the host KV spill tier, preemption and resume at full width: the
-     synthetic Llama-3.1-8B (32 layers) with the grammar leg's tokenizer,
-     bf16 then the int8 recipe, in-process Engines on phase 5's pool
-     (kv_pages=129, 8 slots, prompt cache on) with kv_host_bytes = 2 GiB.
+     synthetic Llama-3.1-8B (8 of its 32 layers) with the grammar leg's
+     tokenizer, bf16 then the int8 recipe, in-process Engines on phase 5's
+     pool (kv_pages=129, 8 slots, prompt cache on) with kv_host_bytes =
+     512 MiB (248 int8 blocks, as 2 GiB at 32 layers).
      9.1: waves A1 (8 conversations, 2000-token prompts), A2 (8 unrelated
      2000-token prompts, which reclaim or rewrite A1's retained blocks:
      they spill) and A3 (A1's follow-ups: prompt + reply + 100 new
@@ -203,31 +213,30 @@ and the script exits non-zero:
      wall ms and blocks, host bytes at peak, A3's TTFT p50 with and
      without the tier, resume TTFT p50 by readmit and by re-prefill, and
      the launches of the paged decode and scatter kernels in the phase.
- 10. the KV retention tier at full width: the synthetic Llama-3.1-8B (32
-     layers) with the grammar leg's tokenizer, in-process Engines of 4
-     slots and 8192-token contexts, four 6000-token prompts of 256 new
-     tokens (three greedy, one seeded): kv_policy full (a pool of four
-     contexts); sink_window(sinks=128, window=1024) on the paged and the
-     ragged path (budget 192), bf16 and the int8 recipe (pools of 4 x 13
-     resident blocks + 1); with quantize_cold over a bf16 pool (a cold pool
-     of 4 x 49 + 1 blocks; paged only, as the reference); then the gRPC
-     backend's LoadModel with kv_policy in its options serving phase 4's
-     prompts. Checks: every stream to its budget; kv_blocks_peak <= 4 x
-     the resident blocks; kv_evictions (drop) and kv_cold_blocks (cold)
-     exactly 4 x 39 (_kv_tick's rule at the final length); the tiered
-     reads launched and no untiered one (the full engine: no tiered one),
-     the demotion 32 launches a cold block; three greedy streams an engine
-     against a teacher-forced plain forward under the same retention (the
-     sink and window mask; the demoted middle through the quantize_tokens
-     round trip), whose planted fault — a stream held to another prompt —
-     fails; a second wave of per-request policies ("full", a narrower
-     window) on the paged bf16 engine captures no new graph. Prints, each
-     with the card: tok/s, TTFT p50, busy ms a decode step (CUDA events
-     around each fused-loop segment replay), the seconds to prefill, the
-     demote's ms a block, the tiered launches.
+ 10. the KV retention tier at full width: the synthetic Llama-3.1-8B (8 of its
+     32 layers) with the grammar leg's tokenizer, in-process Engines of 4 slots
+     and 8192-token contexts, four 6000-token prompts of 256 new tokens (three
+     greedy, one seeded): kv_policy full (a pool of four contexts);
+     sink_window(sinks=128, window=1024) on the paged and the ragged path
+     (budget 192), bf16 and the int8 recipe (pools of 4 x 13 resident blocks +
+     1); with quantize_cold over a bf16 pool (a cold pool of 4 x 49 + 1 blocks;
+     paged only, as the reference); then the gRPC backend's LoadModel with
+     kv_policy in its options serving phase 4's prompts. Checks: every stream
+     to its budget; kv_blocks_peak <= 4 x the resident blocks; kv_evictions
+     (drop) and kv_cold_blocks (cold) exactly 4 x 39 (_kv_tick's rule at the
+     final length); the tiered reads launched and no untiered one (the full
+     engine: no tiered one), the demotion one launch a layer a cold block;
+     three greedy streams an engine against a teacher-forced plain forward
+     under the same retention (the sink and window mask; the demoted middle
+     through the quantize_tokens round trip), whose planted fault — a stream
+     held to another prompt — fails; a second wave of per-request policies
+     ("full", a narrower window) on the paged bf16 engine captures no new
+     graph. Prints, each with the card: tok/s, TTFT p50, busy ms a decode step
+     (CUDA events around each fused-loop segment replay), the seconds to
+     prefill, the demote's ms a block, the tiered launches.
  11. context shift and the disk prompt cache at full width: the synthetic
-     Llama-3.1-8B (32 layers) with the grammar leg's tokenizer. 11.1:
-     in-process Engines of 4 slots and 1024-token contexts (dense bf16
+     Llama-3.1-8B (8 of its 32 layers) with the grammar leg's tokenizer.
+     11.1: in-process Engines of 4 slots and 1024-token contexts (dense bf16
      and int8, paged bf16 and int8 on a pool of 41 blocks, ragged bf16
      with a budget of 192) serve four 900-token prompts of 700 new tokens
      with context_shift (three greedy, one seeded). Checks: every stream
@@ -252,6 +261,26 @@ and the script exits non-zero:
      decode step, the shifts a stream, the device and host ms of each
      shift; the file's MB, save and load ms, and the follow-up's prefill
      and TTFT from the file against cold.
+ 12. Mixtral-8x7B at its published widths (MixtralForCausalLM: hidden
+     4096, 8 experts of 14336, top-2, 32 heads on 8 KV heads, vocab 32000,
+     rope_theta 1e6), synthetic checkpoints written here. The int8 recipe
+     (int8 weights and KV, 32 layers, about 47 GB) through the gRPC
+     backend's LoadModel on the dense engine, phase 4's four requests in
+     Mixtral's vocabulary; then an in-process ragged Engine (phase 6's
+     pool, budget 192) on the same weights, one wave of the four. bf16 at
+     16 of its 32 layers (93 GB of bf16 weights exceed the card), one
+     dense request. Checks: every stream to its budget; each leg's
+     attention kernels launched, moe_w8_matmul once an expert stack a
+     layer a forward in int8 (w8a16_matmul once an attention projection),
+     neither in bf16, and no plain version ran; no graph captured in a
+     wave; the greedy streams against the teacher-forced plain forward on
+     the card, whose planted fault fails: within ROUTE_MARGIN (1.5 logit)
+     on the top-2 legs, where a near tie of the router moves a row (see
+     ROUTE_MARGIN), and within phase 5-11's 0.25 on a control leg that
+     serves the int8 weights with every expert routed (top-8, a
+     continuous combine; an in-process dense Engine, the greedy
+     requests). Prints, each with the card: tok/s, TTFT p50, busy ms a
+     decode step, the launches.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -310,6 +339,15 @@ CFG_QWEN2_7B = {
     "tie_word_embeddings": False, "sliding_window": 131072,
     "use_sliding_window": False, "max_window_layers": 28,
 }
+
+# the depth at which phases 6-7 and 9-11 serve their models (the 8B, and
+# phase 6's Qwen2-7B), at their published widths: a leg's seconds (waves,
+# graph captures, teacher-forced forwards) grow with the layers, and at
+# full depth the smoke outran its time limit on a slower host. Phases 4-5
+# (the main path) and phase 12's int8 leg keep full depth.
+SERVE_LAYERS = 8
+CFG_8B_CUT = dict(CFG_8B, num_hidden_layers=SERVE_LAYERS)
+CFG_QWEN2_7B_CUT = dict(CFG_QWEN2_7B, num_hidden_layers=SERVE_LAYERS)
 
 # the grammar leg's grammars, as GBNF text (what the control plane sends
 # the backend in PredictOptions.grammar): a forced call of one tool (the
@@ -379,7 +417,17 @@ SPIN_CYCLES = 1_000_000
 TOL = {"bfloat16": (1e-3, 2 ** -7), "float32": (2e-5, 0.0)}
 
 
+# (seconds since the previous log line, the line's head) for each line
+# that ended a gap of at least a second: the `slowest steps` line
+STEPS: list = []
+_LAST_LOG = [time.perf_counter()]
+
+
 def log(*a):
+    now = time.perf_counter()
+    gap, _LAST_LOG[0] = now - _LAST_LOG[0], now
+    if gap >= 1.0:
+        STEPS.append((round(gap, 1), " ".join(map(str, a))[:56]))
     print(*a, flush=True)
 
 
@@ -1514,6 +1562,83 @@ def weight_gemms():
     return w8["M=4 K=4096 N=14336"], heads["bf16 M=4"]
 
 
+# Row 15, the expert GEMM, at Mixtral-8x7B's experts (E = 8): w1/w3 (K, N)
+# = (4096, 14336) on x shared by the experts, w2 (14336, 4096) on one x
+# slice an expert; M: decode, phase 12's ragged pack, a prefill batch.
+# Kernel and plain version round the same bf16 weights' f32 sums once: one
+# bf16 step an output, on at most 1% of them.
+MOE_EXPERTS = 8
+MOE_GEOMETRIES = [(4096, 14336, True), (14336, 4096, False)]
+MOE_TOL = (1e-3, 2 ** -7)
+
+
+def check_moe(M, K, N, shared, timed=True, cold=True, seed=0):
+    """moe_w8_matmul at x [M, K] (shared) or [M, E, K] against an int8
+    stack [E, K, N] with scales [E, 1, N]. Planted faults: expert e read
+    with expert e + 1's scales, the K rows 64..127 of every expert
+    dropped. library_ms: the reference's two calls, dequantize and
+    torch.einsum (what the plain version runs too)."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import moe_w8_matmul, \
+        moe_w8_matmul_plain
+    from localai_tpu_torch.ops.quant import dequantize
+
+    E = MOE_EXPERTS
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    w = torch.randn(E, K, N, device="cuda", generator=g) * K ** -0.5
+    s = torch.clamp_min(w.abs().amax(1, keepdim=True), 1e-8) / 127
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    del w
+    x = torch.randn((M, K) if shared else (M, E, K), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    eq = "mk,ekn->men" if shared else "mek,ekn->men"
+    fn = lambda: moe_w8_matmul(x, q, s)  # noqa: E731
+    plain = lambda: moe_w8_matmul_plain(x, q, s)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    faults = None
+    if timed:
+        qd = q.clone()
+        qd[:, 64:128] = 0
+        faults = {"next_experts_scales": moe_w8_matmul_plain(
+            x, q, torch.roll(s, -1, dims=0)),
+            "k_tile_dropped": moe_w8_matmul_plain(x, qd, s)}
+        del qd
+    name = (f"moe_w8_matmul M={M} E={E} K={K} N={N} "
+            f"{'shared' if shared else 'per-expert'} x")
+    res = _check_close(name, out, ref, MOE_TOL, fault=faults,
+                       share=W8_SHARE)
+    if timed:
+        xb = x.numel() * 2
+        res.update(_timings(
+            fn, plain, lambda: torch.einsum(
+                eq, x, dequantize({"q": q, "s": s}, torch.bfloat16)),
+            nbytes=E * K * N + 4 * E * N + xb + 2 * M * E * N,
+            flops=2.0 * M * E * K * N, peak=PEAK_BF16, cold=cold))
+    log(name + " " + json.dumps(res))
+    del q, s, x, out, ref, faults
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_gemms():
+    """Row 15 of PERF.md §6: moe_w8_matmul against its plain version at
+    Mixtral-8x7B's expert geometries for M = 4, 192 and 2048 (line
+    `phase2 moe gemms`). Returns the main row: M = 4 on w1/w3."""
+    rows = {f"M={M} K={K} N={N}": check_moe(M, K, N, shared,
+                                            cold=M == W8_ROWS[0])
+            for K, N, shared in MOE_GEOMETRIES for M in W8_ROWS}
+    keep = ("max_abs_err", "mismatch_share", "next_experts_scales_err",
+            "k_tile_dropped_err", "ms", "ms_cold", "ms_host", "ms_graph",
+            "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "library_ms_cold")
+    log("phase2 moe gemms " + json.dumps(
+        {k: {f: r.get(f) for f in keep} for k, r in rows.items()}))
+    return rows[f"M={W8_ROWS[0]} K=4096 N=14336"]
+
+
 # the speculative leg's shapes (phase 8): the Llama-3.2-1B draft decodes
 # at H=32, KVH=8, D=64 over eight 4096-token slots, through its
 # projections (K, N) and its tied head; the 8B target verifies eight
@@ -1665,6 +1790,7 @@ def phase_kernels():
     ragged_packs(H, KVH, D)
     main.update(tier_kernels())
     main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
+    main["moe_w8_matmul"] = moe_gemms()
     main["spec shapes"] = spec_shapes()
     main["launch floor"] = launch_floor()
     log("phase2 wide geometry " + json.dumps({
@@ -2681,10 +2807,9 @@ def drive_requests(client, salt=0, requests=None):
     return results, time.perf_counter() - t0
 
 
-def check_wave(name, results):
+def check_wave(name, results, vocab=CFG_8B["vocab_size"]):
     """Every request finished with `length` and NEW_TOKENS in-vocab tokens
     with finite logprobs."""
-    vocab = CFG_8B["vocab_size"]
     for i, res in enumerate(results):
         if res is None:
             raise RuntimeError(f"{name}: request {i} failed")
@@ -2735,7 +2860,11 @@ def graph_delta(before, after):
 
 
 # the projections w8a16_matmul runs a layer a forward in the int8 recipe
+# (a Mixtral layer: the four attention projections, and moe_w8_matmul
+# once for each of its three expert stacks)
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+MOE_PROJECTIONS = ("wq", "wk", "wv", "wo")
+EXPERT_STACKS = ("moe_w1", "moe_w2", "moe_w3")
 
 
 def forward_counts(m0, m1, graphs):
@@ -2756,12 +2885,17 @@ def forward_counts(m0, m1, graphs):
 
 
 def check_weight_gemms(label, launched, layers, forwards, logit_forwards,
-                       int8):
+                       int8, moe=False):
     """The weight GEMM kernels launched once a projection a layer a forward
-    (w8a16_matmul, int8 recipe only) and once a forward that returns
-    logits (head_matmul: the untied bf16 or int8 head)."""
-    want = {"w8a16_matmul": len(PROJECTIONS) * layers * forwards if int8
-            else 0, "head_matmul": logit_forwards}
+    (w8a16_matmul, int8 recipe only), once an expert stack a layer a
+    forward (moe_w8_matmul, a Mixtral model's int8 recipe only) and once
+    a forward that returns logits (head_matmul: the untied bf16 or int8
+    head)."""
+    proj = MOE_PROJECTIONS if moe else PROJECTIONS
+    want = {"w8a16_matmul": len(proj) * layers * forwards if int8 else 0,
+            "moe_w8_matmul": len(EXPERT_STACKS) * layers * forwards
+            if int8 and moe else 0,
+            "head_matmul": logit_forwards}
     for k, n in want.items():
         if launched[k] != n:
             raise AssertionError(
@@ -2790,13 +2924,14 @@ def check_fused_path(label, graphs, path, loop_tokens, launched, kernels,
 
 
 def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
-                 waves=None, then=None):
+                 waves=None, then=None, on_load=None):
     """Start the port's gRPC backend on 127.0.0.1, load the model, drive
     each wave of requests (default: the four REQUESTS) after the previous
-    one finished, and check them. Then, with the model still loaded, call
-    then(client, servicer, readings) if given. Returns the wave's readings
-    (its requests' results under "_results"), or with several waves the
-    list of them."""
+    one finished, and check them. on_load(servicer), if given, runs once
+    the model is loaded, before the first wave. Then, with the model still
+    loaded, call then(client, servicer, readings) if given. Returns the
+    wave's readings (its requests' results under "_results"), or with
+    several waves the list of them."""
     import torch
 
     from localai_tpu_torch.backend.server import serve
@@ -2813,6 +2948,8 @@ def serve_recipe(name, model_dir, load_kw, phase="phase4", load_opts=None,
             raise RuntimeError(f"{name}: LoadModel failed: {r.message}")
         log(f"{phase} {name}: LoadModel (weights + warmup) "
             f"{time.perf_counter() - t0:.1f} s")
+        if on_load is not None:
+            on_load(servicer)
         outs = []
         for w, requests in enumerate(waves):
             before = launch_counts()
@@ -2958,26 +3095,27 @@ def paged_reference_cases(outs):
 
 @contextlib.contextmanager
 def plain_weight_gemms():
-    """Within: the model's projections and lm head run the weight GEMMs'
-    plain versions (cast + torch.matmul) on the card too, for the
-    teacher-forced reference, which launches none of the port's kernels.
-    A check's own device, never the serving path's."""
+    """Within: the model's projections, int8 expert stacks and lm head run
+    the weight GEMMs' plain versions (cast + torch.matmul, dequantize +
+    einsum) on the card too, for the teacher-forced reference, which
+    launches none of the port's kernels. A check's own device, never the
+    serving path's."""
     from localai_tpu_torch.models import llama
     from localai_tpu_torch.ops import quant
     from localai_tpu_torch.ops.kernels import head_matmul_plain, \
-        w8a16_matmul_plain
+        moe_w8_matmul_plain, w8a16_matmul_plain
 
-    saved = quant.w8a16_matmul, llama.head_matmul
-    quant.w8a16_matmul, llama.head_matmul = (w8a16_matmul_plain,
-                                             head_matmul_plain)
+    saved = quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul
+    quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul = (
+        w8a16_matmul_plain, head_matmul_plain, moe_w8_matmul_plain)
     try:
         yield
     finally:
-        quant.w8a16_matmul, llama.head_matmul = saved
+        quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul = saved
 
 
 def check_reference(name, engine, cases, fault, phase="phase5",
-                    grammar=None):
+                    grammar=None, margin=None):
     """Hold greedy requests served on the paged or ragged path against a
     teacher-forced reference: the prompt plus the served tokens go through
     the port's plain forward (models.llama.extend over a dense cache — plain
@@ -2991,10 +3129,14 @@ def check_reference(name, engine, cases, fault, phase="phase5",
     logprobs under a WRONG prompt, which must fail. `grammar`: the GBNF
     the cases were served under; each reference row is then masked to the
     tokens the grammar allowed there (the port's matcher), as the sampler
-    masked the served row."""
+    masked the served row. `margin`: the gap and logprob bound in place
+    of REF_MARGIN and REF_LP_TOL (phase 12's top-k routed models)."""
     import torch
 
     from localai_tpu_torch.models.llama import extend, init_kv_cache
+
+    gap_tol, lp_tol = (REF_MARGIN, REF_LP_TOL) if margin is None \
+        else (margin, margin)
     from localai_tpu_torch.ops.kernels import launch_counts
 
     cfg, dev = engine.cfg, engine.device
@@ -3011,11 +3153,18 @@ def check_reference(name, engine, cases, fault, phase="phase5",
                             engine._cos, engine._sin, kc, vc)
         return logits[0, len(ids) - 1:].float()  # row i predicted toks[i]
 
+    # the grammar's allowed rows by served tokens: the planted fault
+    # serves a case's tokens again, and their rows (a host mask walk over
+    # the vocabulary a token) are the case's
+    rows = {}
+
     def readings(ref, toks, lps):
         std = float(ref.std(1).mean())
         if grammar:
-            allowed = _grammar_rows(engine, grammar, toks)
-            ref = ref.masked_fill(~allowed, float("-inf"))
+            key = tuple(toks)
+            if key not in rows:
+                rows[key] = _grammar_rows(engine, grammar, toks)
+            ref = ref.masked_fill(~rows[key], float("-inf"))
         t = torch.tensor(toks, dtype=torch.int64, device=dev)[:, None]
         gap = ref.max(1).values - ref.gather(1, t)[:, 0]
         lp_ref = torch.log_softmax(ref, -1).gather(1, t)[:, 0]
@@ -3032,10 +3181,10 @@ def check_reference(name, engine, cases, fault, phase="phase5",
         out["planted fault"] = readings(reference(ids, toks), toks, lps)
     if launch_counts() != before:
         raise AssertionError("the reference forward launched a kernel")
-    log(f"{phase} {name} reference (margin {REF_MARGIN}, logprob tol "
-        f"{REF_LP_TOL}) " + json.dumps(out))
+    log(f"{phase} {name} reference (margin {gap_tol}, logprob tol "
+        f"{lp_tol}) " + json.dumps(out))
     for label, r in out.items():
-        ok = r["max_gap"] <= REF_MARGIN and r["max_dlogprob"] <= REF_LP_TOL
+        ok = r["max_gap"] <= gap_tol and r["max_dlogprob"] <= lp_tol
         if label == "planted fault" and ok:
             raise AssertionError(f"{phase} {name}: the reference check does "
                                  f"not reject the planted fault")
@@ -3347,16 +3496,18 @@ def _serve_ragged_model(cfg_json, phase, smi, then=None):
 
 
 def phase_ragged_path(smi, grammar_then=None):
-    """The ragged path at full width: the synthetic Llama-3.1-8B (32
-    layers) in the port's Engine with ragged continuous batching, bf16 then
-    the int8 recipe; then the same run on a synthetic checkpoint of
-    Qwen2-7B's widths (28 layers, GQA group 7), whose ragged attention
-    takes a KV head's 7 query heads in one block. The launch counts are
+    """The ragged path at full width: the synthetic Llama-3.1-8B
+    (SERVE_LAYERS of its 32 layers) in the port's Engine with ragged
+    continuous batching, bf16 then the int8 recipe; then the same run on a
+    synthetic checkpoint of Qwen2-7B's widths (SERVE_LAYERS of 28 layers,
+    GQA group 7), whose ragged attention takes a KV head's 7 query heads
+    in one block. The launch counts are
     zeroed just before each recipe's requests and read just after; returns
     the Llama run's sums. `grammar_then(recipe)`: the grammar leg's ragged
     wave on each Llama recipe's weights, after its checks."""
-    total = _serve_ragged_model(CFG_8B, "phase6", smi, then=grammar_then)
-    _serve_ragged_model(CFG_QWEN2_7B, "phase6 qwen2-7b", smi)
+    total = _serve_ragged_model(CFG_8B_CUT, "phase6", smi,
+                                then=grammar_then)
+    _serve_ragged_model(CFG_QWEN2_7B_CUT, "phase6 qwen2-7b", smi)
     return total
 
 
@@ -3923,7 +4074,7 @@ def grammar_setup(d):
     from localai_tpu_torch.engine.tokenizer import Tokenizer
 
     t0 = time.perf_counter()
-    grammar_checkpoint(d, CFG_8B)
+    grammar_checkpoint(d, CFG_8B_CUT)
     tok = Tokenizer.from_dir(d)
     log(f"grammar checkpoint: a tokenizer of {tok.vocab_size} entries "
         f"written and loaded in {time.perf_counter() - t0:.1f} s; EOS "
@@ -3933,7 +4084,8 @@ def grammar_setup(d):
 
 def phase_grammar(d, smi, tok):
     """Phase 7, the grammar leg at full width: the tables at V = 128256,
-    then the synthetic Llama-3.1-8B (32 layers) with the grammar
+    then the synthetic Llama-3.1-8B (SERVE_LAYERS of its 32 layers) with
+    the grammar
     checkpoint's tokenizer served by the gRPC backend on the dense path,
     bf16 then the int8 recipe. (The ragged path's grammar wave ran on
     phase 6's weights: grammar_ragged.)"""
@@ -3963,11 +4115,11 @@ SPEC_REQUESTS = [(1, dict(temperature=0.0)),
 # engine never runs the fused ragged loop, so ragged_loop_steps is unread)
 SPEC_PAGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                      prefill_buckets=(64, 256, 512), prefill_chunk=512)
-# phase 8's target at 16 of the 8B's 32 layers and its draft at 8 of the
-# 1B's 16, to keep the whole smoke within its time limit (the one depth
-# cut the port's plan allows); the spec checks count launches by these
-SPEC_TARGET = dict(CFG_8B, num_hidden_layers=16)
-SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=8)
+# phase 8's target at SERVE_LAYERS (8) of the 8B's 32 layers and its draft
+# at 4 of the 1B's 16, to keep the whole smoke within its time limit; the
+# spec checks count launches by these
+SPEC_TARGET = CFG_8B_CUT
+SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=4)
 LAYERS_8B = SPEC_TARGET["num_hidden_layers"]
 DRAFT_LAYERS = SPEC_DRAFT["num_hidden_layers"]
 
@@ -4176,8 +4328,10 @@ def spec_dense(name, d, dd, dtype, kv, smi):
         res["summary"] = _spec_summary(
             f"dense {name}", m0, m1, out, PLAIN.get(("dense", name)), smi,
             extra={"launches": res["launches"],
-                   "without_draft_note": "phase 4's run: the same prompts, "
-                                         "its fourth request sampled"})
+                   "without_draft_note": "phase 4's run, at 32 layers "
+                                         f"(the target: {LAYERS_8B}): the "
+                                         "same prompts, its fourth "
+                                         "request sampled"})
         res["split"] = spec_split(eng, f"dense {name}", smi)
 
     # LoadModel's prewarm serves three 50-token requests, which on the
@@ -4420,8 +4574,8 @@ def _perfect_draft_runs(cfg, params, dtype, out):
 
 def phase_spec_path(smi):
     """Phase 8, speculative decoding at full width: the synthetic
-    Llama-3.1-8B (16 of its 32 layers) with a synthetic draft of
-    Llama-3.2-1B's widths (8 of its 16 layers), gamma 4, bf16 then the
+    Llama-3.1-8B (8 of its 32 layers) with a synthetic draft of
+    Llama-3.2-1B's widths (4 of its 16 layers), gamma 4, bf16 then the
     int8 recipe, on the dense
     path (the gRPC backend's LoadModel draft_model), the paged pool and
     the ragged path (in-process Engines); then the perfect-draft leg.
@@ -4461,7 +4615,9 @@ def phase_spec_path(smi):
 
 # ------------------------------------------------------------------ phase 9
 
-HOST_BYTES = 2 << 30              # room for 248 int8 blocks of the 8B
+# room for 248 int8 blocks of the 8B (2 GiB at its 32 layers): a block's
+# bytes scale with the depth, and so does the room
+HOST_BYTES = (2 << 30) * SERVE_LAYERS // 32
 HOST_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                prompt_cache=True, prefill_buckets=(64, 256, 512),
                prefill_chunk=512)
@@ -4934,9 +5090,10 @@ def grpc_preempt_leg(d, tok, smi):
 
 def phase_host_tier(d, smi, tok):
     """Phase 9, the host KV spill tier, preemption and resume at full
-    width: the synthetic Llama-3.1-8B (32 layers) with the grammar
+    width: the synthetic Llama-3.1-8B (SERVE_LAYERS of its 32 layers)
+    with the grammar
     checkpoint's tokenizer, bf16 then the int8 recipe, on phase 5's paged
-    pool with kv_host_bytes = 2 GiB (9.1 host tier, 9.2 preempt and
+    pool with kv_host_bytes = HOST_BYTES (9.1 host tier, 9.2 preempt and
     resume in-process), then the gRPC SIGTERM leg (9.3, bf16). Returns
     the launch counts of the phase."""
     import gc
@@ -5179,7 +5336,7 @@ def _tier_forward(engine, seq, n_out, mode, sinks, window, sb):
             out[a:b] = o.reshape(b - a, cfg.num_heads, D)
         x = x + qmatmul(out.to(cfg.tdtype).reshape(1, S, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + tl._mlp(h, lp)
+        x = x + tl._mlp(h, lp, cfg)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     return tl._lm_head(x[0, -n_out:].float(), params)
 
@@ -5336,15 +5493,14 @@ def tier_leg(label, recipe, cfg, params, tok, kv, policy, ragged, salt,
 
 def phase_kv_tier(d, smi, tok, demote):
     """Phase 10, the KV retention tier at full width: the synthetic
-    Llama-3.1-8B (32 layers) with the grammar checkpoint's tokenizer,
-    in-process Engines of 4 slots and 8192-token contexts serving four
-    6000-token prompts of 256 new tokens (three greedy, one seeded): the
-    full policy; sink_window(sinks=128, window=1024) on the paged path and
-    on the ragged path (budget 192), bf16 and the int8 recipe; with
-    quantize_cold over a bf16 pool (paged: the reference refuses the cold
-    tier with ragged); then the gRPC backend's LoadModel with kv_policy in
-    its options serving phase 4's prompts. Returns the phase's launch
-    counts."""
+    Llama-3.1-8B (SERVE_LAYERS of its 32 layers) with the grammar checkpoint's
+    tokenizer, in-process Engines of 4 slots and 8192-token contexts serving
+    four 6000-token prompts of 256 new tokens (three greedy, one seeded): the
+    full policy; sink_window(sinks=128, window=1024) on the paged path and on
+    the ragged path (budget 192), bf16 and the int8 recipe; with quantize_cold
+    over a bf16 pool (paged: the reference refuses the cold tier with ragged);
+    then the gRPC backend's LoadModel with kv_policy in its options serving
+    phase 4's prompts. Returns the phase's launch counts."""
     from localai_tpu_torch.ops.kernels import launch_counts, \
         reset_launch_counts
 
@@ -5950,13 +6106,13 @@ def disk_leg(recipe, cfg, params, tok, kv, tmp):
 
 def phase_shift(d, smi, tok):
     """Phase 11, context shift and the disk prompt cache at full width: the
-    synthetic Llama-3.1-8B (32 layers) with the grammar checkpoint's
-    tokenizer. 11.1: in-process Engines of 4 slots and 1024-token
+    synthetic Llama-3.1-8B (SERVE_LAYERS of its 32 layers) with the grammar
+    checkpoint's tokenizer. 11.1: in-process Engines of 4 slots and 1024-token
     contexts (dense bf16 and int8, paged bf16 and int8, ragged bf16 with a
-    budget of 192) serve four 900-token prompts of 700 shifting tokens;
-    the dense bf16 engine then serves the planted fault. 11.2: shared
-    pages on the paged bf16 engine. 11.3: the disk prompt cache, dense
-    bf16 then int8. Returns the phase's launch counts."""
+    budget of 192) serve four 900-token prompts of 700 shifting tokens; the
+    dense bf16 engine then serves the planted fault. 11.2: shared pages on the
+    paged bf16 engine. 11.3: the disk prompt cache, dense bf16 then int8.
+    Returns the phase's launch counts."""
     import gc
     import tempfile
 
@@ -6016,6 +6172,331 @@ def phase_shift(d, smi, tok):
     return counts
 
 
+# ------------------------------------------------------------------ phase 12
+
+# Mixtral-8x7B's published widths (HF config.json of
+# mistralai/Mixtral-8x7B-v0.1): 8 experts, top-2, untied head, no sliding
+# window
+CFG_MIXTRAL = {
+    "architectures": ["MixtralForCausalLM"],
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "tie_word_embeddings": False,
+    "num_local_experts": 8, "num_experts_per_tok": 2,
+    "sliding_window": None,
+}
+# the bf16 leg's depth: 32 layers of bf16 weights (93 GB) exceed the
+# card's 80 GB
+MIXTRAL_BF16_LAYERS = 16
+MIXTRAL_BF16_REQUEST = 2           # the 300-token greedy request
+# The teacher-forced bar of the top-2 legs. Top-k routing is a
+# discontinuous function of the hidden state: where a token's k-th and
+# (k+1)-th router probabilities nearly tie, the bf16-level differences
+# between the served path and the plain forward (other kernels, another
+# summation order, decode against the window's extend) pick the other
+# expert, and every later row attends to the moved K/V. At these widths
+# that moved the served rows' logits by up to 0.77 on an H100 (47-54 of
+# 64 served tokens the reference's argmax; PERF.md §6); the same streams
+# through the plain versions on the CPU at 16 layers, 0.73, and with every
+# expert routed (top-8, a continuous combine), 0.015. The control leg
+# (mixtral_control) runs the same weights top-8 on the card and is held to
+# phase 5-11's 0.25; the top-2 legs to ROUTE_MARGIN, which the planted
+# fault (5.8-7.1) still exceeds several times over.
+ROUTE_MARGIN = 1.5
+MIXTRAL_OWN = {
+    "int8 dense": ("flash_prefill", "ragged_decode_q8", "moe_w8_matmul"),
+    "int8 ragged": ("ragged_paged_attention_q8", "ragged_scatter_append_q8",
+                    "ragged_decode_q8_paged", "paged_scatter_append_q8",
+                    "moe_w8_matmul"),
+    "bf16 dense": ("flash_prefill", "ragged_decode"),
+    "int8 dense top-8 control": ("flash_prefill", "ragged_decode_q8",
+                                 "moe_w8_matmul"),
+}
+
+
+def mixtral_ids(i, n, salt=0):
+    """Request i's n prompt ids in Mixtral's vocabulary."""
+    vocab = CFG_MIXTRAL["vocab_size"]
+    return [(7 * i + 13 * j + salt) % (vocab - 1) + 1 for j in range(n)]
+
+
+def mixtral_requests(salt):
+    """Phase 4's prompt lengths and sampling in Mixtral's vocabulary:
+    [(prompt ids, sampling)]."""
+    return [(mixtral_ids(i, n, salt), sp)
+            for i, (n, sp) in enumerate(REQUESTS)]
+
+
+def mixtral_cases(records, requests):
+    """The teacher-forced cases of a wave (its greedy requests: {label:
+    (prompt, tokens, logprobs)}) and the planted fault: the last greedy
+    request's tokens under another prompt of its length."""
+    greedy = [r for r, (_, sp) in zip(records, requests)
+              if sp.get("temperature") == 0.0]
+    cases = {f"{len(ids)}-token": (ids, toks, lps)
+             for ids, toks, lps in greedy}
+    ids, toks, lps = greedy[-1]
+    return cases, (mixtral_ids(99, len(ids), salt=99), toks, lps)
+
+
+def mixtral_wave(label, eng, requests):
+    """`requests` [(prompt ids, sampling)] submitted at once to an
+    in-process engine and run to the end, with the plain versions' calls
+    counted; every request must finish "length" at its budget. Returns
+    (records, wall s, launches, graph counters gained, metrics before,
+    after, plain calls)."""
+    from localai_tpu_torch.engine.engine import GenRequest
+    from localai_tpu_torch.ops.kernels import launch_counts
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    before, g0, m0 = launch_counts(), eng.graphs.counters(), \
+        dict(eng.metrics)
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        recs = []
+        for ids, sp in requests:
+            _, q = eng.submit(GenRequest(ids, SamplingParams(**sp),
+                                         max_tokens=NEW_TOKENS,
+                                         ignore_eos=True, logprobs=True))
+            recs.append(dict(ids=ids, q=q, t0=time.perf_counter(),
+                             ttft=None, toks=[], lps=[], text="",
+                             last=None))
+        while _pump(eng, recs):
+            pass
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    mixtral_finished(label, recs)
+    return (recs, wall, {k: after[k] - before[k] for k in after},
+            graph_delta(g0, eng.graphs.counters()), m0, dict(eng.metrics),
+            dict(plain))
+
+
+def mixtral_finished(label, recs):
+    """Every request of an in-process wave finished "length" at its
+    budget."""
+    for r in recs:
+        if r["last"] is None or r["last"].finish_reason != "length" \
+                or len(r["toks"]) != NEW_TOKENS:
+            raise AssertionError(f"phase12 {label}: a request ended "
+                                 f"{r['last'] and r['last'].finish_reason} "
+                                 f"after {len(r['toks'])} tokens")
+
+
+def mixtral_checks(label, launched, graphs, plain, toks, layers, int8,
+                   forwards, logit_forwards):
+    """Phase 12's checks of one leg's wave: every token in the vocabulary,
+    the leg's kernels launched and no plain version ran, no graph
+    captured, and the weight GEMMs' counts (w8a16_matmul on the four
+    attention projections and moe_w8_matmul on the three expert stacks a
+    layer a forward in int8; neither in bf16)."""
+    if not all(0 <= t < CFG_MIXTRAL["vocab_size"] for t in toks):
+        raise AssertionError(f"phase12 {label}: token id out of vocab")
+    for k in MIXTRAL_OWN[label]:
+        if launched.get(k, 0) <= 0:
+            raise AssertionError(f"phase12 {label}: {k} never launched")
+    if plain:
+        raise AssertionError(f"phase12 {label}: plain versions ran {plain}")
+    caps = {p: c.get("captures", 0) for p, c in graphs.items()}
+    if any(caps.values()):
+        raise AssertionError(f"phase12 {label}: the wave captured graphs "
+                             f"{caps}")
+    check_weight_gemms(f"phase12 {label}", launched, layers, forwards,
+                       logit_forwards, int8, moe=True)
+
+
+def mixtral_ragged(cfg, params, smi):
+    """Phase 12's ragged leg on the int8 weights the dense leg loaded: an
+    in-process Engine on phase 6's pool (kv_pages=129, budget 192, int8
+    KV) serves one wave of the four requests. Returns its row."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    label = "int8 ragged"
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, None, EngineConfig(**RAGGED_EC,
+                                                 cache_type="int8"),
+                 device="cuda")
+    eng.warmup()
+    setup_s = time.perf_counter() - t0
+    requests = mixtral_requests(salt=1)
+    marks = _replay_events(eng)
+    recs, wall, launched, graphs, m0, m, plain = mixtral_wave(
+        label, eng, requests)
+    del eng.graphs.run
+    mixtral_checks(label, launched, graphs, plain,
+                   [t for r in recs for t in r["toks"]], cfg.num_layers,
+                   True, *forward_counts(m0, m, graphs))
+    if m["ragged_prefill_tokens"] - m0["ragged_prefill_tokens"] != sum(
+            len(r["ids"]) for r in recs):
+        raise AssertionError(f"phase12 {label}: not every prompt token was "
+                             f"packed into a ragged tick")
+    packs = m["ragged_dispatches"] - m0["ragged_dispatches"]
+    check_fused_path(f"phase12 {label}", graphs, "rloop",
+                     m["tokens_by_path__rloop"] - m0["tokens_by_path__rloop"],
+                     launched, PAGED_OWN["int8"], cfg.num_layers,
+                     m["decode_steps_dispatched"]
+                     - m0["decode_steps_dispatched"] - packs)
+    check_fused_path(f"phase12 {label} packs", {}, "rloop", 0, launched,
+                     RAGGED_OWN["int8"], cfg.num_layers, packs)
+    cases, fault = mixtral_cases(
+        [(r["ids"], r["toks"], r["lps"]) for r in recs], requests)
+    ref = check_reference(label, eng, cases, fault, phase="phase12",
+                          margin=ROUTE_MARGIN)
+    row = {"leg": label, "layers": cfg.num_layers, "tok_s":
+           len(recs) * NEW_TOKENS / wall, "ttft_p50_ms": _p50_ms(recs),
+           "busy_ms_step": _busy_ms_step(marks), "wall_s": wall,
+           "engine_and_warmup_s": setup_s, "ragged_dispatches": packs,
+           "graphs": graphs, "launches": {k: v for k, v in launched.items()
+                                          if v},
+           "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
+                                    if k != "planted fault"),
+           "planted_fault_gap": ref["planted fault"]["max_gap"]}
+    log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+    del eng
+    return row
+
+
+def mixtral_control(cfg, params, smi):
+    """Phase 12's control leg on the int8 weights: the same model with
+    every expert routed (experts_per_tok = E: the router's softmax weights
+    the experts continuously, so a bf16-level difference cannot pick
+    another expert) in an in-process dense Engine (int8 KV), the wave's
+    greedy requests, each held to the teacher-forced reference at phase
+    5-11's REF_MARGIN. The same kernels launch as on the top-2 path.
+    Returns its row."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig
+
+    label = "int8 dense top-8 control"
+    cfg8 = dataclasses.replace(cfg, experts_per_tok=cfg.num_experts)
+    eng = Engine(cfg8, params, None, EngineConfig(
+        max_slots=4, max_context=2048, cache_type="int8"), device="cuda")
+    eng.warmup()
+    requests = [r for r in mixtral_requests(salt=3)
+                if r[1].get("temperature") == 0.0]
+    recs, wall, launched, graphs, m0, m, plain = mixtral_wave(
+        label, eng, requests)
+    mixtral_checks(label, launched, graphs, plain,
+                   [t for r in recs for t in r["toks"]], cfg.num_layers,
+                   True, *forward_counts(m0, m, graphs))
+    cases, fault = mixtral_cases(
+        [(r["ids"], r["toks"], r["lps"]) for r in recs], requests)
+    ref = check_reference(label, eng, cases, fault, phase="phase12")
+    row = {"leg": label, "layers": cfg.num_layers, "tok_s":
+           len(recs) * NEW_TOKENS / wall, "ttft_p50_ms": _p50_ms(recs),
+           "busy_ms_step": None, "wall_s": wall,
+           "launches": {k: v for k, v in launched.items() if v},
+           "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
+                                    if k != "planted fault"),
+           "planted_fault_gap": ref["planted fault"]["max_gap"]}
+    log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+    del eng
+    return row
+
+
+def mixtral_grpc(label, d, load_kw, requests, smi, then=None):
+    """One gRPC leg of phase 12: LoadModel on the checkpoint at `d` (the
+    default dense engine), one wave of `requests`, its checks and the
+    teacher-forced reference on the card; then(engine), if given, with the
+    model still loaded. Returns the leg's row."""
+    int8 = load_kw.get("dtype") == "int8"
+    marks, row = {}, {}
+
+    def on_load(servicer):
+        marks["m"] = _replay_events(servicer.engine)
+
+    def after(client, servicer, out):
+        eng = servicer.engine
+        served_plain = dict(plain)
+        del eng.graphs.run
+        res = out["_results"]
+        mixtral_checks(label, out["launches_during_requests"],
+                       out["graphs"], served_plain,
+                       [t for r in res for t in r[1]], eng.cfg.num_layers,
+                       int8, out["forwards"], out["logit_forwards"])
+        check_fused_path(f"phase12 {label}", out["graphs"], "dense",
+                         out["loop_tokens"], out["launches_during_requests"],
+                         MIXTRAL_OWN[label][1:2], eng.cfg.num_layers,
+                         out["decode_steps"])
+        cases, fault = mixtral_cases([(r[4], r[1], r[2]) for r in res],
+                                     requests)
+        ref = check_reference(label, eng, cases, fault, phase="phase12",
+                              margin=ROUTE_MARGIN)
+        row.update({
+            "leg": label, "layers": eng.cfg.num_layers,
+            "tok_s": out["tok_s"], "ttft_p50_ms": out["ttft_p50_ms"],
+            "busy_ms_step": _busy_ms_step(marks["m"]),
+            "wall_s": out["wall_s"], "peak_mem_gb": out["peak_mem_gb"],
+            "graphs": out["graphs"],
+            "launches": {k: v for k, v in
+                         out["launches_during_requests"].items() if v},
+            "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
+                                     if k != "planted fault"),
+            "planted_fault_gap": ref["planted fault"]["max_gap"]})
+        log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+        if then is not None:
+            then(eng)
+
+    with plain_calls() as plain:
+        serve_recipe(label, d, load_kw, phase="phase12", waves=[requests],
+                     then=after, on_load=on_load)
+    return row
+
+
+def phase_mixtral(smi):
+    """Phase 12, Mixtral-8x7B at its published widths: synthetic
+    checkpoints (MixtralForCausalLM, random weights from the loader's
+    seed). The int8 recipe (int8 weights and KV) at full depth through the
+    gRPC backend's LoadModel on the dense engine, four requests, then an
+    in-process ragged Engine on the same weights, one wave, and the top-8
+    control leg (mixtral_control); bf16 at 16 of its 32 layers (93 GB of
+    bf16 weights exceed the card), one dense request. Returns the phase's
+    launch counts."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = []
+    int8_kw = dict(dtype="int8", cache_type_key="int8",
+                   cache_type_value="int8")
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_MIXTRAL, localai_synthetic=True), f)
+        torch.cuda.reset_peak_memory_stats()
+        rows.append(mixtral_grpc(
+            "int8 dense", d, int8_kw, mixtral_requests(salt=0), smi,
+            then=lambda eng: rows.extend([
+                mixtral_ragged(eng.cfg, eng.params, smi),
+                mixtral_control(eng.cfg, eng.params, smi)])))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_MIXTRAL, localai_synthetic=True,
+                           num_hidden_layers=MIXTRAL_BF16_LAYERS), f)
+        torch.cuda.reset_peak_memory_stats()
+        rows.append(mixtral_grpc(
+            "bf16 dense", d, dict(dtype="bfloat16"),
+            mixtral_requests(salt=2)[MIXTRAL_BF16_REQUEST:
+                                     MIXTRAL_BF16_REQUEST + 1], smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    log("phase12 summary " + json.dumps({
+        r["leg"]: {k: r[k] for k in ("layers", "tok_s", "ttft_p50_ms",
+                                     "busy_ms_step", "reference_max_gap",
+                                     "planted_fault_gap")} for r in rows})
+        + f" launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    return counts
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -6050,6 +6531,9 @@ KERNELS = {
                      "localai_tpu/ops/quant.py:78"),
     "head_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
                     "localai_tpu/models/llama.py:347"),
+    # Mixtral's int8 expert einsums (dequantize, then XLA's dot)
+    "moe_w8_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                      "localai_tpu/models/llama.py:383"),
     # the KV tier's variants of rows 3/5 and 8/9 (on the TPU the tiered
     # reads ride XLA twins: models/llama.py _decode_dq, the ragged
     # _xla_core), and the demotion on row 7's kernel (the reference's
@@ -6116,15 +6600,19 @@ def main():
         tier_counts = timed("10 kv tier", phase_kv_tier, gdir, smi, gtok,
                             measured["paged_demote_q8"])
         shift_counts = timed("11 shift", phase_shift, gdir, smi, gtok)
+    moe_counts = timed("12 mixtral", phase_mixtral, smi)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
         + f" total {time.perf_counter() - t0:.1f} s")
+    log("slowest steps (s, the line that ended each) " + json.dumps(
+        sorted(STEPS, reverse=True)[:40]))
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
         launches = (tier_counts if name in TIER_KERNELS
                     else ragged_counts if name in RAGGED_KERNELS
                     else paged_counts if name in PAGED_KERNELS
+                    else moe_counts if name == "moe_w8_matmul"
                     else counts)[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
@@ -6138,6 +6626,7 @@ def main():
                      "launches_host_tier": host_counts[name],
                      "launches_kv_tier": tier_counts[name],
                      "launches_shift": shift_counts[name],
+                     "launches_mixtral": moe_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,17 +1,24 @@
 // Weight GEMMs that read each weight as it is stored: the int8 projections
-// (W8A16) and the f32 vocabulary projection (the lm head).
+// (W8A16), the f32 vocabulary projection (the lm head) and Mixtral's int8
+// expert stacks (the grouped expert GEMM).
 //
-// Replaces two products that the reference leaves to XLA, which fuses each
-// weight's convert into its dot (no Pallas kernel):
+// Replaces three products that the reference leaves to XLA, which fuses
+// each weight's convert into its dot (no Pallas kernel):
 //   - localai_tpu/ops/quant.py:78-80 (qmatmul): y = x @ q.astype(x.dtype),
 //     then y * s.astype(y.dtype); q int8 [K, N], s f32 [1, N] (one scale an
 //     output channel), x bf16, f16 or f32 [M, K];
 //   - localai_tpu/models/llama.py:347-364 (_lm_head): x32 f32 [M, K]
 //     against a bf16/f16 head [K, V], a tied embedding [V, K] read
-//     transposed, or an int8 head {q, s} with x32 rounded to bf16.
+//     transposed, or an int8 head {q, s} with x32 rounded to bf16;
+//   - localai_tpu/models/llama.py:383-409 (_moe_mlp) with int8 experts:
+//     w = dequantize(q, x.dtype) = T(f32(q) * s) for q int8 [E, K, N], s
+//     f32 [E, 1, N], then einsum("mk,ekn->men", x, w) (w1, w3: x [M, K]
+//     shared by the experts) or einsum("mek,ekn->men", x, w) (w2: x [M, E,
+//     K], expert e's own rows), out [M, E, N] in T (bf16: the int8
+//     recipe's activations).
 // A cast of the weight before each product would write it out and read
-// it back: 14 GB of bf16 copies a decode step at 8B widths (int8), and
-// 2.1 GB for the head's f32 copy.
+// it back: 14 GB of bf16 copies a decode step at 8B widths (int8), 2.1 GB
+// for the head's f32 copy, and 2.8 GB a layer for Mixtral-8x7B's experts.
 //
 // Arithmetic (the reference's, exactly):
 //   - bf16/f16 x, int8 q (EPI_ROUND): each int8 value converts to x's type
@@ -58,6 +65,16 @@
 //     order and applies the epilogue, in the same launch. No float atomics:
 //     a call's result is the same bits every time, so CUDA graph replays
 //     equal eager runs bit for bit.
+// The expert GEMM (EPI_MOE) runs the same two routes with the expert as
+// the grid's z axis, one launch for all experts of a projection and no
+// split-K (E x the column tiles fill the card at Mixtral's widths). Its
+// rounding is _moe_mlp's, not qmatmul's: each weight element becomes
+// T(f32(q) * s[e, n]) in the conversion stage (wg_pair_scaled: the exact
+// int8 -> T pair, each value times its channel's scale in f32, one
+// rounding to T), then T x T products sum in f32 and round once to T on
+// output. At decode it is bound by the stack's bytes (E*K*N int8), at
+// prefill's M by the bf16 tensor cores over all E experts (dense
+// dispatch computes every expert on every token, as the reference does).
 // Limits: K and N multiples of 16 (16-byte rows); the M, N and K tails of a
 // tile are zero-filled (TMA's out-of-bounds fill, or predicated loads) and
 // never stored.
@@ -71,7 +88,7 @@
 namespace {
 
 enum WgDtype { WG_F32 = 0, WG_BF16 = 1, WG_F16 = 2, WG_I8 = 3 };
-enum WgEpi { EPI_ROUND = 0, EPI_F32 = 1 };
+enum WgEpi { EPI_ROUND = 0, EPI_F32 = 1, EPI_MOE = 2 };
 
 // large-M route: blocks of BM rows x 128 output channels (64 a consumer
 // warpgroup), K stages of 64; a producer warpgroup beside two consumers
@@ -136,6 +153,21 @@ __device__ __forceinline__ uint32_t wg_pair<__nv_bfloat16>(uint32_t t) {
   uint32_t r;
   asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(x), "r"(y));
   return r;
+}
+
+// Two int8 values of one output channel (bytes 0 and 2 of t, as wg_pair
+// takes them) dequantized as the reference's dequantize does: each exact
+// value times the channel's f32 scale in f32, rounded once to T, packed
+// with byte 0's in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t wg_pair_scaled(uint32_t t, float s);
+template <>
+__device__ __forceinline__ uint32_t wg_pair_scaled<__nv_bfloat16>(uint32_t t,
+                                                                  float s) {
+  const uint32_t p = wg_pair<__nv_bfloat16>(t);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __uint_as_float(p << 16) * s, __uint_as_float(p & 0xffff0000u) * s);
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // 2 (bf16, f16) or 4 (int8) weight elements of one 32-bit word as f32
@@ -367,12 +399,16 @@ __device__ __forceinline__ uint32_t wg_bits(__half v) {
 // Outputs o and o + 1 (columns n, n + 1) from their f32 sums v0, v1.
 // EPI_ROUND: out is T, y = T(v), then T(y * T(s[n])), the reference's two
 // roundings (the product of two T values is exact in f32). EPI_F32: out is
-// f32, v * s[n] (s == nullptr: v).
+// f32, v * s[n] (s == nullptr: v). EPI_MOE: out is T, T(v) (the scales
+// were applied to the weight).
 template <typename T, int EPI>
 __device__ __forceinline__ void wg_store(void* out, const float* s,
                                          int64_t o, int n, float v0,
                                          float v1) {
-  if constexpr (EPI == EPI_F32) {
+  if constexpr (EPI == EPI_MOE) {
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + o) =
+        wg_bits(wg_round<T>(v0)) | wg_bits(wg_round<T>(v1)) << 16;
+  } else if constexpr (EPI == EPI_F32) {
     const float s0 = s ? s[n] : 1.f, s1 = s ? s[n + 1] : 1.f;
     *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
         make_float2(v0 * s0, v1 * s1);
@@ -414,6 +450,19 @@ __device__ __forceinline__ bool wg_last_split(int* counter, int splits,
 
 // ---------------------------------------- large-M route: wgmma fed by TMA
 
+// TMA: the box at coordinates (c0 innermost, c1, c2) of the 3-D tensor map
+// at `map` into shared memory at dst, completion reported to `bar`.
+__device__ __forceinline__ void wg_tma_load_3d(void* dst, const void* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(lt_smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(lt_smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The ring for BM rows of x: stage i holds the x tile [BM][64] (T, 128-byte
 // swizzle, BM * 128 bytes), then the int8 tile [64][128] (128-byte swizzle,
 // 8 KB), both on 1024-byte boundaries as the swizzle wants; the full and
@@ -434,6 +483,10 @@ struct RingA {
 // and the tile's last split applies the epilogue. tx: x [M, K] in boxes
 // [BM][64]; tq: q [K, N] in boxes [64][128]. Warpgroups 0 and 1 consume
 // (channels 64*wg..64*wg+63 of the block), warpgroup 2 produces.
+// EPI_MOE: blockIdx.z is the expert e (no split, kt_per unused); tx maps x
+// as [M, xe, K] (xe 1: one x for every expert; E: expert e's rows) in
+// boxes [BM][1][64], tq the stack q [E, K, N] in boxes [1][64][128]; the
+// weight converts with expert e's scales s [E, N] and out is [M, E, N].
 template <typename T, int BM, int EPI>
 __global__ void __launch_bounds__(A_THREADS, 1)
     weight_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
@@ -441,7 +494,8 @@ __global__ void __launch_bounds__(A_THREADS, 1)
                              const float* __restrict__ s,
                              void* __restrict__ out, float* __restrict__ ws,
                              int* __restrict__ counters, int M, int N, int K,
-                             int kt_per) {
+                             int kt_per, int xe) {
+  constexpr bool MOE = EPI == EPI_MOE;
   using R = RingA<BM>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
@@ -452,8 +506,9 @@ __global__ void __launch_bounds__(A_THREADS, 1)
 
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * A_BN;
   const int nk = (K + A_BK - 1) / A_BK;
-  const int kt0 = blockIdx.z * kt_per;
-  const int ntile = min(nk, kt0 + kt_per) - kt0;
+  const int e = MOE ? blockIdx.z : 0;
+  const int kt0 = MOE ? 0 : blockIdx.z * kt_per;
+  const int ntile = MOE ? nk : min(nk, kt0 + kt_per) - kt0;
   const int tid = threadIdx.x, wg = tid >> 7;
 
   if (tid == 0) {
@@ -476,8 +531,13 @@ __global__ void __launch_bounds__(A_THREADS, 1)
         uint8_t* stage = smem + st * R::STAGE;
         const int k0 = (kt0 + t) * A_BK;
         lt_mbar_expect_tx(&full[st], R::STAGE);
-        lt_tma_load_2d(stage, &tx, &full[st], k0, m0);
-        lt_tma_load_2d(stage + R::X_BYTES, &tq, &full[st], n0, k0);
+        if constexpr (MOE) {
+          wg_tma_load_3d(stage, &tx, &full[st], k0, xe > 1 ? e : 0, m0);
+          wg_tma_load_3d(stage + R::X_BYTES, &tq, &full[st], n0, k0, e);
+        } else {
+          lt_tma_load_2d(stage, &tx, &full[st], k0, m0);
+          lt_tma_load_2d(stage + R::X_BYTES, &tq, &full[st], n0, k0);
+        }
       }
     }
   } else {
@@ -487,6 +547,16 @@ __global__ void __launch_bounds__(A_THREADS, 1)
     // The warp's 16 channels are the 16-byte chunk c of an int8 row; A rows
     // g and g + 8 of the warp are its channels 2g and 2g + 1.
     const int c = 4 * wg + warp;
+    // this thread's channels cb, cb + 1 (A rows g, g + 8) and, for the
+    // expert GEMM, their scales
+    const int cb = n0 + 16 * c + 2 * g;
+    float sc0 = 0.f, sc1 = 0.f;
+    if constexpr (MOE) {
+      if (cb < N) {
+        sc0 = s[static_cast<int64_t>(e) * N + cb];
+        sc1 = s[static_cast<int64_t>(e) * N + cb + 1];
+      }
+    }
     float acc[BM / 2];
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
@@ -506,8 +576,14 @@ __global__ void __launch_bounds__(A_THREADS, 1)
         ldsm_x4_t(r, qt + k * A_BN + ((c ^ (k & 7)) << 4));
 #pragma unroll
         for (int m = 0; m < 4; ++m) {  // K rows 8m..8m+7 of the 32
-          f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair<T>(r[m]);
-          f[2 * h + (m >> 1)][2 * (m & 1) + 1] = wg_pair<T>(r[m] >> 8);
+          if constexpr (MOE) {
+            f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair_scaled<T>(r[m], sc0);
+            f[2 * h + (m >> 1)][2 * (m & 1) + 1] =
+                wg_pair_scaled<T>(r[m] >> 8, sc1);
+          } else {
+            f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair<T>(r[m]);
+            f[2 * h + (m >> 1)][2 * (m & 1) + 1] = wg_pair<T>(r[m] >> 8);
+          }
         }
       }
     };
@@ -535,22 +611,23 @@ __global__ void __launch_bounds__(A_THREADS, 1)
     lt_wgmma_wait<0>();
     lt_fence_regs(acc);
 
-    // acc[4j + e] is channel cb, row m0 + 8j + 2t4 + e; acc[4j + 2 + e]
-    // channel cb + 1 of the same row
-    const int cb = n0 + 16 * c + 2 * g;
+    // acc[4j + i] is channel cb, row m0 + 8j + 2t4 + i; acc[4j + 2 + i]
+    // channel cb + 1 of the same row (the expert GEMM's output row r is
+    // row r * E + e of out [M * E, N])
     const int64_t mn = static_cast<int64_t>(M) * N;
     auto each = [&](auto&& fn) {
 #pragma unroll
       for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = m0 + 8 * j + 2 * t4 + e;
+        for (int i = 0; i < 2; ++i) {
+          const int r = m0 + 8 * j + 2 * t4 + i;
+          const int64_t ro =
+              MOE ? static_cast<int64_t>(r) * gridDim.z + e : r;
           if (r < M && cb < N)
-            fn(static_cast<int64_t>(r) * N + cb, acc[4 * j + e],
-               acc[4 * j + 2 + e]);
+            fn(ro * N + cb, acc[4 * j + i], acc[4 * j + 2 + i]);
         }
     };
-    if (gridDim.z == 1) {
+    if (MOE || gridDim.z == 1) {
       each([&](int64_t o, float v0, float v1) {
         wg_store<T, EPI>(out, s, o, cb, v0, v1);
       });
@@ -575,9 +652,9 @@ __global__ void __launch_bounds__(A_THREADS, 1)
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int r = m0 + 8 * (j0 + j) + 2 * t4 + e;
-                p[j][e] = r < M && cb < N
+              for (int u = 0; u < 2; ++u) {
+                const int r = m0 + 8 * (j0 + j) + 2 * t4 + u;
+                p[j][u] = r < M && cb < N
                               ? __ldcg(reinterpret_cast<const float2*>(
                                     wsz + static_cast<int64_t>(r) * N + cb))
                               : make_float2(0.f, 0.f);
@@ -585,9 +662,9 @@ __global__ void __launch_bounds__(A_THREADS, 1)
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                acc[4 * (j0 + j) + e] += p[j][e].x;
-                acc[4 * (j0 + j) + 2 + e] += p[j][e].y;
+              for (int u = 0; u < 2; ++u) {
+                acc[4 * (j0 + j) + u] += p[j][u].x;
+                acc[4 * (j0 + j) + 2 + u] += p[j][u].y;
               }
           }
         }
@@ -618,6 +695,10 @@ __device__ __forceinline__ uint32_t wg_word(const uint4& v, int i) {
 // run a tile ahead: once a 16-row step is multiplied, its registers take
 // the same step of the warp's next tile. The warps' sums are added in
 // warp order through shared memory.
+// EPI_MOE: blockIdx.z is the expert e (no split: gridDim.y == 1); x is [M,
+// xe, K] (xe 1: one x for every expert; E: expert e's rows), q the stack
+// [E, K, N], each weight pair converted with its channel's scale in s [E,
+// N], and out [M, E, N].
 template <typename T, int NT8, int EPI>
 __global__ void __launch_bounds__(B_WARPS * 32)
     weight_gemm_gemv_kernel(const T* __restrict__ x,
@@ -625,7 +706,8 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                             const float* __restrict__ s,
                             void* __restrict__ out, float* __restrict__ ws,
                             int* __restrict__ counters, int M, int N, int K,
-                            int kt_per) {
+                            int kt_per, int xe) {
+  constexpr bool MOE = EPI == EPI_MOE;
   constexpr int ROWS = 8 * NT8, LD = B_BN + 4;
   __shared__ __align__(16) float red[B_WARPS][ROWS][LD];
   __shared__ int flag;
@@ -636,6 +718,18 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   const int g = lane >> 2, t4 = lane & 3;
   const int cb = n0 + 16 * g;
   const bool cok = cb < N;
+  // the expert GEMM: expert e's weight, x rows and the scales of this
+  // thread's 16 channels
+  const int e = MOE ? blockIdx.z : 0;
+  const int64_t xrow = MOE ? static_cast<int64_t>(xe) * K : K;
+  if constexpr (MOE) {
+    x += xe > 1 ? static_cast<int64_t>(e) * K : 0;
+    q += static_cast<int64_t>(e) * K * N;
+  }
+  float sc[MOE ? 16 : 1];
+#pragma unroll
+  for (int j = 0; j < (MOE ? 16 : 1); ++j)
+    sc[j] = MOE && cok ? s[static_cast<int64_t>(e) * N + cb + j] : 0.f;
 
   float acc[8][NT8][4];
 #pragma unroll
@@ -660,7 +754,7 @@ __global__ void __launch_bounds__(B_WARPS * 32)
     for (int nt = 0; nt < NT8; ++nt) {
       const int r = 8 * nt + g;
       xv[kk][nt] = kok && r < M ? *reinterpret_cast<const uint2*>(
-                                      x + static_cast<int64_t>(r) * K + kr)
+                                      x + r * xrow + kr)
                                 : make_uint2(0u, 0u);
     }
   };
@@ -674,10 +768,18 @@ __global__ void __launch_bounds__(B_WARPS * 32)
       const uint32_t hi = (i & 1) ? 0x7733 : 0x5511;
       const uint32_t w0 = wg_word(w[kk][0], wi), w1 = wg_word(w[kk][1], wi);
       const uint32_t w2 = wg_word(w[kk][2], wi), w3 = wg_word(w[kk][3], wi);
-      const uint32_t a[4] = {wg_pair<T>(__byte_perm(w0, w1, lo)),
-                             wg_pair<T>(__byte_perm(w0, w1, hi)),
-                             wg_pair<T>(__byte_perm(w2, w3, lo)),
-                             wg_pair<T>(__byte_perm(w2, w3, hi))};
+      uint32_t a[4];
+      if constexpr (MOE) {  // rows g, g + 8: channels 16g + 2i, + 1
+        a[0] = wg_pair_scaled<T>(__byte_perm(w0, w1, lo), sc[2 * i]);
+        a[1] = wg_pair_scaled<T>(__byte_perm(w0, w1, hi), sc[2 * i + 1]);
+        a[2] = wg_pair_scaled<T>(__byte_perm(w2, w3, lo), sc[2 * i]);
+        a[3] = wg_pair_scaled<T>(__byte_perm(w2, w3, hi), sc[2 * i + 1]);
+      } else {
+        a[0] = wg_pair<T>(__byte_perm(w0, w1, lo));
+        a[1] = wg_pair<T>(__byte_perm(w0, w1, hi));
+        a[2] = wg_pair<T>(__byte_perm(w2, w3, lo));
+        a[3] = wg_pair<T>(__byte_perm(w2, w3, hi));
+      }
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt)
         wg_mma<T>(acc[i][nt], a, xv[kk][nt].x, xv[kk][nt].y);
@@ -698,17 +800,17 @@ __global__ void __launch_bounds__(B_WARPS * 32)
     }
   }
 
-  // acc[i][nt][e]: channel 16g + 2i, token 8nt + 2t4 + e; [2 + e]: the
+  // acc[i][nt][u]: channel 16g + 2i, token 8nt + 2t4 + u; [2 + u]: the
   // next channel
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+      for (int u = 0; u < 2; ++u)
         *reinterpret_cast<float2*>(
-            &red[warp][8 * nt + 2 * t4 + e][16 * g + 2 * i]) =
-            make_float2(acc[i][nt][e], acc[i][nt][2 + e]);
+            &red[warp][8 * nt + 2 * t4 + u][16 * g + 2 * i]) =
+            make_float2(acc[i][nt][u], acc[i][nt][2 + u]);
   __syncthreads();
   // this thread's outputs: channels n, n + 1 of rows r0, r0 + 2, ...
   const int n = n0 + 2 * (tid & 63), r0 = tid >> 6;
@@ -723,7 +825,8 @@ __global__ void __launch_bounds__(B_WARPS * 32)
       v.y += u.y;
     }
     if (n >= N) continue;
-    const int64_t o = static_cast<int64_t>(r) * N + n;
+    const int64_t o =
+        (MOE ? static_cast<int64_t>(r) * gridDim.z + e : r) * N + n;
     if (split)
       *reinterpret_cast<float2*>(ws + blockIdx.y * mn + o) = v;
     else
@@ -1007,11 +1110,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major [rows, cols] tensor of `dtype` (bf16, f16
-// or int8) at ptr, read in boxes of box_rows rows and 128 bytes, 128-byte
-// swizzle; out-of-bounds elements load as zeros.
-int encode_2d(CUtensorMap* map, int dtype, const void* ptr, int rows,
-              int cols, int box_rows) {
+// The tensor map of a row-major [outer, mid, cols] tensor of `dtype`
+// (bf16, f16 or int8) at ptr (rank 2 when mid == 0: [outer, cols]), read
+// in boxes of box_outer x box_mid rows of 128 bytes, 128-byte swizzle;
+// out-of-bounds elements load as zeros.
+int encode_map(CUtensorMap* map, int dtype, const void* ptr, int outer,
+               int mid, int cols, int box_outer, int box_mid) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int es = dtype == WG_I8 ? 1 : 2;
@@ -1019,18 +1123,31 @@ int encode_2d(CUtensorMap* map, int dtype, const void* ptr, int rows,
       dtype == WG_BF16   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
       : dtype == WG_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                          : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * es};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / es),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, t, 2, const_cast<void*>(ptr), dims, strides, box,
-                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t row = static_cast<cuuint64_t>(cols) * es;
+  const cuuint32_t rank = mid > 0 ? 3 : 2;
+  const cuuint64_t dims3[3] = {static_cast<cuuint64_t>(cols),
+                               static_cast<cuuint64_t>(mid),
+                               static_cast<cuuint64_t>(outer)};
+  const cuuint64_t dims2[2] = {static_cast<cuuint64_t>(cols),
+                               static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {row, row * static_cast<cuuint64_t>(mid)};
+  const cuuint32_t box3[3] = {static_cast<cuuint32_t>(128 / es),
+                              static_cast<cuuint32_t>(box_mid),
+                              static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t box2[2] = {static_cast<cuuint32_t>(128 / es),
+                              static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, t, rank, const_cast<void*>(ptr), mid > 0 ? dims3 : dims2,
+         strides, mid > 0 ? box3 : box2, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int encode_2d(CUtensorMap* map, int dtype, const void* ptr, int rows,
+              int cols, int box_rows) {
+  return encode_map(map, dtype, ptr, rows, 0, cols, box_rows, 1);
 }
 
 template <typename T, int BM, int EPI>
@@ -1044,7 +1161,24 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((M + BM - 1) / BM, (N + A_BN - 1) / A_BN, splits);
   kernel<<<grid, A_THREADS, R::SMEM, st>>>(tx, tq, s, out, ws, counters, M,
-                                            N, K, kt_per);
+                                            N, K, kt_per, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the expert GEMM on the large-M route: one block a (row tile, column
+// tile, expert)
+template <typename T, int BM>
+int launch_wgmma_moe(const CUtensorMap& tx, const CUtensorMap& tq,
+                     const float* s, void* out, int M, int N, int K, int E,
+                     int xe, cudaStream_t st) {
+  using R = RingA<BM>;
+  auto kernel = weight_gemm_wgmma_kernel<T, BM, EPI_MOE>;
+  static size_t done[LT_MAX_DEVICES];
+  cudaError_t e = lt_set_max_smem(kernel, R::SMEM, done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((M + BM - 1) / BM, (N + A_BN - 1) / A_BN, E);
+  kernel<<<grid, A_THREADS, R::SMEM, st>>>(tx, tq, s, out, nullptr, nullptr,
+                                            M, N, K, 0, xe);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1072,11 +1206,28 @@ int launch_gemv(const void* x, const void* q, const float* s, void* out,
   if (M <= 8)
     weight_gemm_gemv_kernel<T, 1, EPI><<<grid, B_WARPS * 32, 0, st>>>(
         static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
-        counters, M, N, K, kt_per);
+        counters, M, N, K, kt_per, 1);
   else
     weight_gemm_gemv_kernel<T, 2, EPI><<<grid, B_WARPS * 32, 0, st>>>(
         static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
-        counters, M, N, K, kt_per);
+        counters, M, N, K, kt_per, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the expert GEMM on the decode route: one block a (column tile, expert)
+template <typename T>
+int launch_gemv_moe(const void* x, const void* q, const float* s, void* out,
+                    int M, int N, int K, int E, int xe, cudaStream_t st) {
+  const int nk = (K + B_BK - 1) / B_BK;
+  const dim3 grid((N + B_BN - 1) / B_BN, 1, E);
+  if (M <= 8)
+    weight_gemm_gemv_kernel<T, 1, EPI_MOE><<<grid, B_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out,
+        nullptr, nullptr, M, N, K, nk, xe);
+  else
+    weight_gemm_gemv_kernel<T, 2, EPI_MOE><<<grid, B_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out,
+        nullptr, nullptr, M, N, K, nk, xe);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1200,5 +1351,54 @@ extern "C" int weight_gemm_simt_launch(int wdtype, int nk, const void* x,
                                           splits, kt_per, st)
               : launch_simt<__half, false>(x, w, sc, out, wsp, cnt, M, N, K,
                                            splits, kt_per, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor map of an int8 expert stack for the expert GEMM's large-M
+// route: q [E, K, N] at ptr, boxes of one expert's 64 K rows and 128
+// columns, written to `map` (128 bytes, host memory). The wrapper keeps
+// one a stack.
+extern "C" int weight_gemm_moe_tmap(const void* ptr, int E, int K, int N,
+                                    void* map) {
+  if (E <= 0 || K <= 0 || N <= 0 || N % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m;
+  const int e = encode_map(&m, WG_I8, ptr, E, K, N, 1, A_BK);
+  if (e == 0) memcpy(map, &m, sizeof m);
+  return e;
+}
+
+// The expert GEMM (Mixtral's int8 experts): out [M, E, N] bf16 = x @
+// bf16(f32(q[e]) * s[e]) for each expert e, the f32 sums rounded once. x
+// [M, xe, K] bf16, xe 1 (one x for every expert) or E (expert e's rows);
+// q [E, K, N] int8 (qmap: its map from weight_gemm_moe_tmap, for bm > 0);
+// s [E, N] f32. bm 0: the decode route (M <= 16, mma.sync); 64, 128, 192
+// or 256: the large-M route's row tile. One launch, every expert; no
+// split-K. bf16 alone (the int8 recipe's activations): the kernels are
+// templates of T, but each instantiation lengthens the build.
+extern "C" int weight_gemm_moe_launch(int dtype, int bm, const void* x,
+                                      int xe, const void* q,
+                                      const void* qmap, const void* s,
+                                      void* out, int M, int N, int K, int E,
+                                      void* stream) {
+  if (bad_shape(M, N, K) || E <= 0 || (xe != 1 && xe != E) ||
+      (bm == 0 && M > 16) || dtype != WG_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* sc = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bm == 0)
+    return launch_gemv_moe<__nv_bfloat16>(x, q, sc, out, M, N, K, E, xe, st);
+  CUtensorMap tx, tq;
+  memcpy(&tq, qmap, sizeof tq);
+  const int e = encode_map(&tx, dtype, x, M, xe, K, bm, 1);
+  if (e != 0) return e;
+  switch (bm) {
+#define MOE_CASE(b)                                                     \
+  case b:                                                               \
+    return launch_wgmma_moe<__nv_bfloat16, b>(tx, tq, sc, out, M, N, K, E, \
+                                              xe, st);
+    MOE_CASE(64) MOE_CASE(128) MOE_CASE(192) MOE_CASE(256)
+#undef MOE_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

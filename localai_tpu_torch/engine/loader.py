@@ -7,6 +7,10 @@ layout, cast to the compute dtype and placed on the target device.
 dtype="int8" casts each projection to bf16 first and then quantizes it per
 output channel on the device — the reference's order, so the int8 payload
 and scales are bit-identical to localai_tpu.engine.loader.load_params.
+Mixtral checkpoints stack each layer's experts into [E, in, out] (each
+expert quantized on its own, which equals quantizing the stack: the
+scales reduce over the input axis only) and keep the router gate [H, E]
+in the model dtype, unquantized, as the reference does.
 """
 from __future__ import annotations
 
@@ -184,9 +188,7 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
     device = resolve_device(device)
     qbits = _QBITS.get(dtype)
     if qbits == 4:
-        raise not_ported("int4 weights", "Mixtral/int4")
-    if cfg.num_experts:
-        raise not_ported("Mixtral MoE checkpoints", "Mixtral/int4")
+        raise not_ported("int4 weights", "int4")
     tdtype = (torch.bfloat16 if qbits else
               torch_dtype(dtype) if dtype is not None else cfg.tdtype)
 
@@ -205,6 +207,17 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
         t = t.to(device=device, dtype=tdtype, copy=True).contiguous()
         return quantize(t) if (quant and qbits) else t
 
+    def experts(p: str, which: str):
+        # block_sparse_moe.experts.{e}.w{1,2,3}: [out, in] each, stacked
+        # transposed into [E, in, out]; int8 quantizes each expert's bf16
+        # copy, so only one expert is ever held beside the int8 stack
+        ws = [get(f"{p}block_sparse_moe.experts.{e}.{which}.weight", True,
+                  True) for e in range(cfg.num_experts)]
+        if qbits:
+            return QuantWeight(torch.stack([w.q for w in ws]),
+                               torch.stack([w.s for w in ws]))
+        return torch.stack(ws)
+
     L = "model.layers.{i}."
     layers = []
     for i in range(cfg.num_layers):
@@ -216,10 +229,17 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
             "wv": get(p + "self_attn.v_proj.weight", True, True),
             "wo": get(p + "self_attn.o_proj.weight", True, True),
             "mlp_norm": get(p + "post_attention_layernorm.weight"),
-            "w_gate": get(p + "mlp.gate_proj.weight", True, True),
-            "w_up": get(p + "mlp.up_proj.weight", True, True),
-            "w_down": get(p + "mlp.down_proj.weight", True, True),
         }
+        if cfg.num_experts:
+            # the router stays in the model dtype (bf16 under int8), as
+            # the reference's load cast leaves it: _moe_mlp casts it to f32
+            w["moe_gate"] = get(p + "block_sparse_moe.gate.weight", True)
+            for which in ("w1", "w2", "w3"):
+                w["moe_" + which] = experts(p, which)
+        else:
+            w["w_gate"] = get(p + "mlp.gate_proj.weight", True, True)
+            w["w_up"] = get(p + "mlp.up_proj.weight", True, True)
+            w["w_down"] = get(p + "mlp.down_proj.weight", True, True)
         if cfg.qkv_bias:
             w["bq"] = get(p + "self_attn.q_proj.bias")
             w["bk"] = get(p + "self_attn.k_proj.bias")
@@ -242,7 +262,9 @@ def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
     """Deterministic random params at any scale, made on `device` from a
     seeded torch.Generator. The quantized case generates the int8 payload
     and scales directly (no full-precision intermediate), sized so the
-    dequantized weights have ~1/sqrt(fan_in) std like init_params."""
+    dequantized weights have ~1/sqrt(fan_in) std like init_params; a
+    Mixtral config gets int8 expert stacks (scales [E, 1, out]) and an f32
+    router gate, as the reference's synthetic checkpoint does."""
     if qbits is None:
         return init_params(cfg, seed=seed, dtype=dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -252,8 +274,9 @@ def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
     def qrand(shape, fan_in):
         q = torch.randint(-127, 128, shape, generator=gen, device=device,
                           dtype=torch.int8)
-        s = torch.full((1, shape[-1]), (fan_in ** -0.5) * (1.73 / 127),
-                       dtype=torch.float32, device=device)
+        s = torch.full(shape[:-2] + (1, shape[-1]),
+                       (fan_in ** -0.5) * (1.73 / 127), dtype=torch.float32,
+                       device=device)
         return QuantWeight(q, s)
 
     def ones(n):
@@ -263,9 +286,17 @@ def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
     for _ in range(cfg.num_layers):
         w = {"attn_norm": ones(h), "wq": qrand((h, nh * hd), h),
              "wk": qrand((h, nkv * hd), h), "wv": qrand((h, nkv * hd), h),
-             "wo": qrand((nh * hd, h), nh * hd), "mlp_norm": ones(h),
-             "w_gate": qrand((h, inter), h), "w_up": qrand((h, inter), h),
-             "w_down": qrand((inter, h), inter)}
+             "wo": qrand((nh * hd, h), nh * hd), "mlp_norm": ones(h)}
+        if cfg.num_experts:
+            e = cfg.num_experts
+            w.update(moe_gate=torch.randn((h, e), generator=gen,
+                                          device=device) * h ** -0.5,
+                     moe_w1=qrand((e, h, inter), h),
+                     moe_w2=qrand((e, inter, h), inter),
+                     moe_w3=qrand((e, h, inter), h))
+        else:
+            w.update(w_gate=qrand((h, inter), h), w_up=qrand((h, inter), h),
+                     w_down=qrand((inter, h), inter))
         if cfg.qkv_bias:
             for k, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
                 w[k] = torch.zeros((n,), dtype=dtype, device=device)

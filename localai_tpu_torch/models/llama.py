@@ -1,5 +1,5 @@
-"""Llama-family decoder (Llama 2/3, Mistral, Qwen2, TinyLlama) in PyTorch
-(counterpart of localai_tpu/models/llama.py).
+"""Llama-family decoder (Llama 2/3, Mistral, Mixtral, Qwen2, TinyLlama) in
+PyTorch (counterpart of localai_tpu/models/llama.py).
 
 Weights keep the reference's [in, out] orientation (x @ W) and live per
 layer in an nn.Module; the KV cache keeps the head-major layout [L, B, KVH,
@@ -18,6 +18,9 @@ reading a paged cache through ops/paged.paged_view, as the reference does.
 The ragged slice (`ragged_forward`, `build_ragged_loop`) serves mixed
 prefill+decode ticks over one flat token stream through the ragged
 attention and flat-row scatter kernels.
+Mixtral's MLP (`_moe_mlp`, on every path through `_mlp`) routes each
+token to its top-k experts with dense dispatch; int8 expert stacks go
+through the expert GEMM kernel (ops/kernels.moe_w8_matmul).
 
 The KV lifecycle tier (`kvt`, engine/kvtier.py) rides every paged path as
 a dict of per-slot geometry [B] int32 — "sb", "rw" (ring), "sinks",
@@ -47,7 +50,7 @@ from localai_tpu_torch.ops.attention import (
     mha_extend, mha_extend_tiered, mha_prefill_tiered,
 )
 from localai_tpu_torch.ops.kernels import (
-    QBLK, flash_prefill, head_matmul, paged_scatter_append,
+    QBLK, flash_prefill, head_matmul, moe_w8_matmul, paged_scatter_append,
     paged_scatter_append_q8, paged_targets, ragged_decode, ragged_decode_q8,
     ragged_paged_attention, ragged_paged_attention_q8, ragged_scatter_append,
     ragged_scatter_append_q8,
@@ -111,19 +114,18 @@ class LlamaConfig:
         return torch_dtype(self.dtype)
 
 
-def _no_moe(cfg: LlamaConfig):
-    if cfg.num_experts:
-        raise not_ported("Mixtral MoE (num_experts > 0)", "Mixtral/int4")
-
-
 # ---------------------------------------------------------------- params
 
 class LlamaLayer(nn.Module):
     """One decoder layer's weights: norms as [H] buffers, projections as
     [in, out] buffers or QuantWeight submodules. `layer["wq"]` reads like
-    the reference's per-layer param dict."""
+    the reference's per-layer param dict. A Mixtral layer holds the router
+    `moe_gate` [H, E] (never quantized) and the expert stacks `moe_w1`,
+    `moe_w3` [E, H, I] and `moe_w2` [E, I, H] (QuantWeight: s [E, 1, out])
+    in place of w_gate / w_up / w_down."""
 
-    PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                   "moe_w1", "moe_w2", "moe_w3")
 
     def __init__(self, weights: dict):
         super().__init__()
@@ -153,7 +155,6 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, embed, layers, final_norm,
                  lm_head=None):
         super().__init__()
-        _no_moe(cfg)
         self.cfg = cfg
         self.register_buffer("embed", embed)
         self.layers = nn.ModuleList(layers)
@@ -172,8 +173,9 @@ class Llama(nn.Module):
 def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None,
                 device=None) -> Llama:
     """Random init (tests, synthetic checkpoints): N(0, 1/fan_in) weights
-    drawn from a torch.Generator seeded with `seed`, on `device`."""
-    _no_moe(cfg)
+    drawn from a torch.Generator seeded with `seed`, on `device`. A
+    Mixtral config draws the router gate in f32 and the expert stacks in
+    `dtype`, as the reference's init_params does."""
     dtype = torch_dtype(dtype) if dtype is not None else cfg.tdtype
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     h, hd = cfg.hidden_size, cfg.head_dim
@@ -190,9 +192,16 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None,
     for _ in range(cfg.num_layers):
         w = {"attn_norm": ones(h), "wq": norm((h, nh * hd), h),
              "wk": norm((h, nkv * hd), h), "wv": norm((h, nkv * hd), h),
-             "wo": norm((nh * hd, h), nh * hd), "mlp_norm": ones(h),
-             "w_gate": norm((h, inter), h), "w_up": norm((h, inter), h),
-             "w_down": norm((inter, h), inter)}
+             "wo": norm((nh * hd, h), nh * hd), "mlp_norm": ones(h)}
+        if cfg.num_experts:
+            e = cfg.num_experts
+            w.update(moe_gate=norm((h, e), h).float(),
+                     moe_w1=norm((e, h, inter), h),
+                     moe_w2=norm((e, inter, h), inter),
+                     moe_w3=norm((e, h, inter), h))
+        else:
+            w.update(w_gate=norm((h, inter), h), w_up=norm((h, inter), h),
+                     w_down=norm((inter, h), inter))
         if cfg.qkv_bias:
             w.update(bq=torch.zeros((nh * hd,), dtype=dtype, device=device),
                      bk=torch.zeros((nkv * hd,), dtype=dtype, device=device),
@@ -214,13 +223,11 @@ def _to_torch(x) -> torch.Tensor:
 
 def params_from_jax(tree, cfg: LlamaConfig, device=None) -> Llama:
     """The reference's parameter tree (numpy leaves, layers stacked on a
-    leading [L] axis, int8 projections as {"q", "s"} dicts) → Llama on
-    `device` (default: the card; raises without CUDA unless "cpu" is
-    asked for)."""
+    leading [L] axis, int8 projections as {"q", "s"} dicts — Mixtral's
+    expert stacks [L, E, in, out] and their scales [L, E, 1, out] too) →
+    Llama on `device` (default: the card; raises without CUDA unless "cpu"
+    is asked for)."""
     device = resolve_device(device)
-    _no_moe(cfg)
-    if any(k.startswith("moe_") for k in tree["layers"]):
-        raise not_ported("Mixtral experts", "Mixtral/int4")
 
     def leaf(x, i=None):
         if isinstance(x, dict):
@@ -380,9 +387,50 @@ def _lm_head(x32, params: Llama):
     return head_matmul(x32, head)
 
 
-def _mlp(x, lp):
+def _mlp(x, lp, cfg: LlamaConfig):
+    if cfg.num_experts:
+        return _moe_mlp(x, lp, cfg.experts_per_tok)
     return qmatmul(F.silu(qmatmul(x, lp["w_gate"]))
                    * qmatmul(x, lp["w_up"]), lp["w_down"])
+
+
+def _experts(x, w):
+    """Every expert's product: x [M, K], shared by the experts, or [M, E,
+    K], expert e's own rows, against the stack w [E, K, N] → [M, E, N] in
+    x's dtype. int8 stacks go through ops/kernels.moe_w8_matmul, which
+    reads them as stored (each weight element bf16(q·s) as it loads, the
+    reference's dequantize-then-einsum rounding); bf16/f32 stacks are one
+    batched product over the experts, as the reference's einsums are."""
+    if is_quantized(w):
+        return moe_w8_matmul(x, w.q, w.s)
+    if x.dim() == 2:
+        x = x.unsqueeze(0).expand(w.shape[0], -1, -1)
+    else:
+        x = x.transpose(0, 1)
+    return torch.bmm(x, w).transpose(0, 1)
+
+
+def _moe_mlp(x, lp, k: int):
+    """Mixtral's top-k routed experts (the reference's _moe_mlp): an f32
+    softmax router over the gate (cast to f32 at use), the top k
+    renormalized with a 1e-9 floor, and dense dispatch — every expert runs
+    on every token and the combine weights zero the rest, one sum over the
+    experts in x's dtype. Shapes only, nothing read back to the host, so
+    the fused loops' CUDA graphs replay it."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    probs = torch.softmax(x2.float() @ lp["moe_gate"].float(), dim=-1)
+    # a stable descending sort: ties take the lower expert first, as
+    # jax.lax.top_k does (torch.topk promises no order on ties)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :k], top_i[:, :k]
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    # the reference's one-hot einsum: each expert's weight, or 0
+    combine = torch.zeros_like(probs).scatter_(-1, top_i, top_w)
+    h = F.silu(_experts(x2, lp["moe_w1"])) * _experts(x2, lp["moe_w3"])
+    y = _experts(h, lp["moe_w2"])                              # [M, E, H]
+    out = torch.bmm(combine.to(x.dtype)[:, None, :], y)[:, 0]
+    return out.reshape(shape)
 
 
 def _embed(params: Llama, tokens, dtype):
@@ -422,7 +470,7 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
                                  sliding_window=cfg.sliding_window)
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, cfg)
         _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions,
                      table, kvt=kvt)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
@@ -491,7 +539,7 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
                                  cold_kv=_cold_layer(kvt, i))
         x = x + qmatmul(attn.reshape(b, 1, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, cfg)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     return _lm_head(x[:, 0].float(), params)
 
@@ -565,7 +613,7 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
                               sliding_window=cfg.sliding_window)
         x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, cfg)
     if not with_logits:
         return None
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
@@ -663,7 +711,7 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
                                           sliding_window=sw, kvt=kvt)
         x = x + qmatmul(attn.reshape(1, t, -1), lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, cfg)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last = x[0][logit_rows.long().to(dev)]
     return _lm_head(last.float(), params)

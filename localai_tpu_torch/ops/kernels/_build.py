@@ -80,6 +80,9 @@ SIGNATURES = {
                                     _I, _I, _I, _P],
         "weight_gemm_simt_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _P],
+        "weight_gemm_moe_tmap": [_P, _I, _I, _I, _P],
+        "weight_gemm_moe_launch": [_I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _P],
     },
 }
 

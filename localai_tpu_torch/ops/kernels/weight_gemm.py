@@ -1,9 +1,10 @@
 """Weight GEMMs that read the weights as they are stored, with their plain
-PyTorch versions (counterparts of two products the reference leaves to
+PyTorch versions (counterparts of three products the reference leaves to
 XLA, which fuses each weight's convert into its dot:
-localai_tpu/ops/quant.py:78-80 and localai_tpu/models/llama.py:347-364).
+localai_tpu/ops/quant.py:78-80, localai_tpu/models/llama.py:347-364 and
+the int8 expert einsums of localai_tpu/models/llama.py:383-409).
 
-Two wrappers, each beside its plain version with the same signature:
+Three wrappers, each beside its plain version with the same signature:
 - w8a16_matmul / _plain — x [..., K] (bf16, f16 or f32) @ int8 q [K, N],
   then * s [1, N]: the int8 recipe's projections (ops/quant.qmatmul). The
   sum is taken in f32 and rounds once to x's dtype, the scale rounds to
@@ -14,12 +15,22 @@ Two wrappers, each beside its plain version with the same signature:
   [V, K]), or an int8 head (q [K, V], s [1, V]), for which x32 rounds to
   bf16 and the exact bf16 x int8 products sum in f32. An f32 head is a
   plain product (`x32 @ head`) on any device: there is no cast to save.
+- moe_w8_matmul / _plain — Mixtral's int8 experts (models/llama._moe_mlp):
+  x [M, K] shared by every expert (w1, w3) or [M, E, K], expert e's own
+  rows (w2), against the stack q int8 [E, K, N] with scales s [E, 1, N] →
+  [M, E, N] in x's dtype. Its rounding is the reference's dequantize then
+  einsum: each weight element T(f32(q) * s) in x's dtype T, T x T
+  products summed in f32, rounded once (not w8a16_matmul's scale after
+  the sum). One launch a projection, the expert a grid axis; bf16
+  activations on the card (the int8 recipe's; f16 and f32 raise), no
+  split-K.
 
-On the card both run csrc/weight_gemm.cu. bf16/f16 activations (and the
-int8 head) take one of two tensor-core routes, by M alone: up to 16 rows
-(decode) `mma.sync` with the weight converted in registers, above that
-`wgmma` fed by TMA (a tensor map of each weight is encoded once and kept
-here, x's is encoded at each call). f32 activations run f32 FMAs. Split-K,
+On the card all three run csrc/weight_gemm.cu. bf16/f16 activations
+(the int8 head and the expert stacks too) take one of two tensor-core
+routes, by M alone: up to 16 rows (decode) `mma.sync` with the weight
+converted in registers, above that `wgmma` fed by TMA (a tensor map of
+each weight is encoded once and kept here, x's is encoded at each call).
+f32 activations run f32 FMAs. Split-K (not for the expert stacks),
 with a workspace and an ordered combine by the tile's last split inside
 the same launch, where the output tiles alone would not fill the card. No
 weight is cast or copied per call: a weight that is not contiguous (or,
@@ -43,7 +54,7 @@ from localai_tpu_torch.ops.kernels.flash_attention import (
     _raise_rc, _sm_count, _stream,
 )
 
-LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0}
+LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0, "moe_w8_matmul": 0}
 
 # csrc/weight_gemm.cu's dtype codes
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -119,6 +130,22 @@ def w8_plan(M: int, N: int, K: int, sms: int):
     return ("wgmma", tile) + gemm_split(M, N, K, tile, sms, PER_SM["wgmma"])
 
 
+@functools.lru_cache(maxsize=None)
+def moe_plan(M: int, N: int, K: int, E: int, sms: int) -> int:
+    """The expert GEMM's route, as a row tile: 0 (the decode route,
+    mma.sync) up to GEMV_ROWS rows, else the one of WGMMA_ROWS that puts
+    waves of (row tile, column tile, expert) blocks times (rows + the
+    conversion) lowest, the larger on a tie. No split-K."""
+    if M <= GEMV_ROWS:
+        return 0
+
+    def cost(bm):
+        blocks = -(-M // bm) * -(-N // WGMMA_BN) * E
+        return -(-blocks // sms) * (bm + CONVERT_ROWS)
+
+    return min(WGMMA_ROWS, key=lambda b: (cost(b), -b))
+
+
 # ------------------------------------------------------------------ plain
 
 def w8a16_matmul_plain(x, q, s):
@@ -126,6 +153,15 @@ def w8a16_matmul_plain(x, q, s):
     the product, then the scale in x's dtype (the reference's order)."""
     y = x @ q.to(x.dtype)
     return y * s.reshape((1,) * (y.ndim - 1) + (-1,)).to(y.dtype)
+
+
+def moe_w8_matmul_plain(x, q, s):
+    """Plain version of moe_w8_matmul: the reference's dequantize, (q in
+    f32 * s) rounded to x's dtype, then its einsum over the experts."""
+    w = (q.float() * s).to(x.dtype)
+    if x.dim() == 2:
+        return torch.einsum("mk,ekn->men", x, w)
+    return torch.einsum("mek,ekn->men", x, w)
 
 
 def head_matmul_plain(x32, w, s=None):
@@ -177,6 +213,30 @@ def _weight_checks(name, x, w, s, dtypes):
         raise ValueError(f"{name}: the weight must be a row-major [K, N] or "
                          f"the transpose of a row-major [N, K]")
     return K, N, nk
+
+
+def _moe_checks(name, x, q, s):
+    """(E, K, N) of the expert GEMM's stack q [E, K, N]; raises, naming the
+    limit, on what its kernel does not take."""
+    if q.dim() != 3 or q.dtype != torch.int8 or not q.is_contiguous():
+        raise ValueError(f"{name}: the experts must be a contiguous int8 "
+                         f"[E, K, N], got {q.dtype} {tuple(q.shape)}")
+    E, K, N = q.shape
+    if x.dim() not in (2, 3) or x.shape[-1] != K or (
+            x.dim() == 3 and x.shape[1] != E):
+        raise ValueError(f"{name}: x must be [M, {K}] or [M, {E}, {K}], "
+                         f"got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: activations must be bf16 on the card, "
+                        f"got {x.dtype}")
+    if K % 16 or N % 16:
+        raise ValueError(f"{name}: K ({K}) and N ({N}) must be multiples of "
+                         f"16 (16-byte weight rows)")
+    if s.dtype != torch.float32 or tuple(s.shape) != (E, 1, N) \
+            or not s.is_contiguous():
+        raise ValueError(f"{name}: scales must be a contiguous f32 "
+                         f"[{E}, 1, {N}], got {s.dtype} {tuple(s.shape)}")
+    return E, K, N
 
 
 def _placement_checks(name, x, tensors):
@@ -237,6 +297,17 @@ def _weight_map(ptr: int, shape: tuple, dtype) -> ctypes.Array:
     rc = _build.load("weight_gemm").weight_gemm_tmap(
         ptr, shape[0], shape[1], ctypes.addressof(buf))
     _raise_rc("weight tensor map", rc)
+    return buf
+
+
+@functools.lru_cache(maxsize=4096)
+def _moe_map(ptr: int, shape: tuple) -> ctypes.Array:
+    """The large-route tensor map of the int8 stack [E, K, N] at ptr,
+    encoded once a stack (as _weight_map)."""
+    buf = ctypes.create_string_buffer(128)
+    rc = _build.load("weight_gemm").weight_gemm_moe_tmap(
+        ptr, shape[0], shape[1], shape[2], ctypes.addressof(buf))
+    _raise_rc("expert tensor map", rc)
     return buf
 
 
@@ -324,3 +395,31 @@ def head_matmul(x32, w, s=None):
             _launch_simt(name, x2, w, None, out, nk=nk)
         LAUNCHES[name] += 1
     return out.reshape(*x32.shape[:-1], V)
+
+
+def moe_w8_matmul(x, q, s):
+    """Every expert's product with Mixtral's int8 stack: x [M, K] (one x
+    for every expert) or [M, E, K] (expert e's rows) against q int8 [E, K,
+    N] with scales s f32 [E, 1, N] → [M, E, N] in x's dtype, computed as
+    moe_w8_matmul_plain computes it: each weight element rounded to x's
+    dtype as T(f32(q) * s), f32 sums rounded once. One launch for every
+    expert."""
+    if x.device.type == "cpu":
+        return moe_w8_matmul_plain(x, q, s)
+    name = "moe_w8_matmul"
+    E, K, N = _moe_checks(name, x, q, s)
+    _placement_checks(name, x, (q, s))
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    M = x.shape[0]
+    out = torch.empty((M, E, N), dtype=x.dtype, device=x.device)
+    if M:
+        bm = moe_plan(M, N, K, E, _sm_count(x.device))
+        qmap = _moe_map(q.data_ptr(), tuple(q.shape)) if bm else None
+        rc = _build.load("weight_gemm").weight_gemm_moe_launch(
+            _CODE[x.dtype], bm, x.data_ptr(), 1 if x.dim() == 2 else E,
+            q.data_ptr(), None if qmap is None else ctypes.addressof(qmap),
+            s.data_ptr(), out.data_ptr(), M, N, K, E, _stream(x.device))
+        _raise_rc(name, rc)
+        LAUNCHES[name] += 1
+    return out

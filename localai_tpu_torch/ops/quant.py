@@ -2,7 +2,8 @@
 localai_tpu/ops/quant.py).
 
 A quantized weight holds `q` int8 [.., in, out] and `s` f32 [.., 1, out]
-(one scale per output channel). `qmatmul` computes the reference's
+(one scale per output channel; an expert stack [E, in, out] has one per
+expert and output channel). `qmatmul` computes the reference's
 x @ q.astype(x.dtype), then * s in x's dtype, through
 ops/kernels.w8a16_matmul: on the card one kernel reads the int8 weight as
 stored (no per-call cast), on the CPU its plain version casts and
@@ -31,7 +32,7 @@ class QuantWeight(nn.Module):
 
 def _check_bits(bits: int):
     if bits == 4:
-        raise not_ported("int4 weights", "Mixtral/int4")
+        raise not_ported("int4 weights", "int4")
     if bits != 8:
         raise ValueError(f"unsupported quantization width {bits}")
 
@@ -78,8 +79,10 @@ def qmatmul(x, p):
 
 
 def quantize_params(model, *, bits: int = 8):
-    """Quantize every projection matrix of a models.llama.Llama in place
-    (norms, biases and embeddings stay high-precision); returns the model."""
+    """Quantize every projection matrix of a models.llama.Llama in place —
+    Mixtral's expert stacks per expert and output channel, never its
+    router gate (norms, biases and embeddings stay high-precision, as the
+    reference's quantize_params keeps them); returns the model."""
     _check_bits(bits)
     for layer in model.layers:
         for name in layer.weight_names():

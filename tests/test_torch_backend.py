@@ -24,6 +24,7 @@ import sys
 import pytest
 
 from fixtures import tiny_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from fixtures import tiny_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 from localai_tpu.engine import loader as jloader
 from localai_tpu.engine.engine import (
     Engine as JEngine, EngineConfig as JConfig, GenRequest as JRequest,

@@ -49,6 +49,7 @@ from localai_tpu_torch.engine.engine import (
 from localai_tpu_torch.functions import matcher as tm
 from localai_tpu_torch.ops import sampling as ts
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference tests' grammars (tests/test_grammar_device.py)
 VOCAB = ['{', '}', '"', 'a', 'b', ':', ',', ' ', '0', '1', 'x']

@@ -36,6 +36,7 @@ from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops import kernels as tk
 from localai_tpu_torch.ops.sampling import SamplerState
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class _Recorded(tgraphs.GraphRunner):

@@ -25,6 +25,7 @@ import torch
 
 from localai_tpu_torch.ops import kernels as tk
 from localai_tpu_torch.ops.kvcache import quantize_tokens
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -205,6 +206,12 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     tk.ragged_paged_attention_q8(qr, pq, ps, pq, ps, *meta, kvt=kvt)
     tk.paged_demote_q8(pq, ps, pq.clone(), ps.clone(), pool[0], pool[0],
                        tk.demote_targets(0, 1))
+    # the weight GEMMs, Mixtral's expert GEMM among them
+    xw = torch.ones(2, 16)
+    qw, sw = torch.ones(16, 32, dtype=torch.int8), torch.ones(1, 32)
+    tk.w8a16_matmul(xw, qw, sw)
+    tk.head_matmul(xw, qw, sw)
+    tk.moe_w8_matmul(xw, qw.repeat(3, 1, 1), sw.repeat(3, 1, 1))
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
@@ -219,7 +226,7 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                            "ragged_paged_attention_q8_tier",
                            "ragged_scatter_append",
                            "ragged_scatter_append_q8", "w8a16_matmul",
-                           "head_matmul"}
+                           "head_matmul", "moe_w8_matmul"}
     assert not any(counts.values())
 
 

@@ -42,6 +42,7 @@ from localai_tpu_torch.engine.kvhost import HostKVBlock as TBlock
 from localai_tpu_torch.engine.kvhost import HostKVPool as TPool
 from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------ the pools
 

@@ -52,6 +52,7 @@ from localai_tpu_torch.ops import paged as tpaged
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)

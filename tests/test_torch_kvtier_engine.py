@@ -25,6 +25,7 @@ from localai_tpu_torch.engine.engine import (
     Engine as TEngine, EngineConfig as TConfig, GenRequest as TRequest,
 )
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

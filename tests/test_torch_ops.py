@@ -24,6 +24,7 @@ from localai_tpu_torch.ops import kvcache as tkv
 from localai_tpu_torch.ops import norms as tnorms
 from localai_tpu_torch.ops import quant as tquant
 from localai_tpu_torch.ops import rope as trope
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 

@@ -33,6 +33,7 @@ from localai_tpu_torch.ops import paged as tpaged
 from localai_tpu_torch.ops.kvcache import QuantKV as TQuantKV
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.rope import rope_table as trope_table
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BLOCK = tpaged.BLOCK

@@ -47,6 +47,7 @@ from localai_tpu_torch.engine.engine import (
 from localai_tpu_torch.engine.resume import RESUME_VERSION, ResumeToken
 from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -46,6 +46,7 @@ from localai_tpu_torch.ops.kernels import ragged_attention as tra
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.rope import rope_table as trope_table
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.ragged
 

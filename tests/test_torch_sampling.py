@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from localai_tpu.ops import sampling as js
 from localai_tpu_torch.ops import sampling as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 SEEDS = [0, 1, 7, 42, 123456789, 2**31 - 1]

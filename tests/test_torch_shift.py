@@ -43,6 +43,7 @@ from localai_tpu_torch.engine.engine import (
 from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops import kvcache as tkv
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 ROPES = {

@@ -60,6 +60,7 @@ from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops import sampling as ts
 from localai_tpu_torch.ops.rope import rope_table as trope
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's tiny pair (tests/test_spec_engine.py, test_speculative.py)
 TARGET = dict(vocab_size=128, hidden_size=64, intermediate_size=128,

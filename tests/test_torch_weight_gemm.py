@@ -1,6 +1,8 @@
 """The port's weight GEMMs (localai_tpu_torch.ops.kernels.weight_gemm):
-w8a16_matmul, the int8 projections of ops/quant.qmatmul, and head_matmul,
-the f32 vocabulary projection of models/llama._lm_head.
+w8a16_matmul, the int8 projections of ops/quant.qmatmul, head_matmul,
+the f32 vocabulary projection of models/llama._lm_head, and
+moe_w8_matmul, Mixtral's int8 experts in models/llama._moe_mlp (its
+plain version against the JAX package: tests/test_torch_moe.py).
 
 On the CPU: each plain version against the JAX function it stands for
 (localai_tpu.ops.quant.qmatmul, localai_tpu.models.llama._lm_head) on the
@@ -36,6 +38,7 @@ import torch
 
 from localai_tpu_torch.ops import kernels as tk
 from localai_tpu_torch.ops.kernels import weight_gemm as wg
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2 ** -6, atol=1e-3)
@@ -656,3 +659,120 @@ def test_cuda_wrappers_raise_rather_than_copy_a_weight(cuda):
     tk.head_matmul(x.float(), q, s)
     assert tk.launch_counts()["w8a16_matmul"] == 1
     assert tk.launch_counts()["head_matmul"] == 1
+
+
+# ------------------------------------------------- the expert GEMM (MoE)
+
+MOE_ONE_STEP = dict(rtol=2 ** -7, atol=1e-3)
+
+
+def _card_experts(E, K, N, device, seed=0):
+    """An int8 expert stack q [E, K, N] with scales s [E, 1, N] (each
+    expert quantized per output channel), made on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(E, K, N, generator=g, device=device) * K ** -0.5
+    s = torch.clamp_min(w.abs().amax(1, keepdim=True), 1e-8) / 127
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def assert_moe_close(out, ref):
+    d = (out.float() - ref.float()).abs()
+    excess = float((d - MOE_ONE_STEP["rtol"] * ref.float().abs()).max())
+    share = float((out != ref).float().mean())
+    assert excess <= MOE_ONE_STEP["atol"], (excess, float(d.max()))
+    assert share <= MISMATCH_SHARE, share
+
+
+def _moe_x(M, E, K, shared, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (M, K) if shared else (M, E, K)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+# Mixtral-8x7B's w1/w3 (K, N) = (4096, 14336) and w2 (14336, 4096), and a
+# small geometry with N and K tails of the tiles
+MOE_GEOMETRIES = [(8, 4096, 14336), (8, 14336, 4096), (4, 272, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 192, 2048])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-expert"])
+@pytest.mark.parametrize("E,K,N", MOE_GEOMETRIES)
+def test_cuda_moe_w8_vs_plain(cuda, E, K, N, shared, M):
+    """Both routes (M <= 16: mma.sync; above: TMA + wgmma), x shared by the
+    experts (w1, w3) or one slice an expert (w2), in one launch."""
+    q, s = _card_experts(E, K, N, cuda, seed=E + K + N)
+    x = _moe_x(M, E, K, shared, torch.bfloat16, cuda, seed=M)
+    tk.reset_launch_counts()
+    out = tk.moe_w8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["moe_w8_matmul"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, E, N)
+    assert_moe_close(out, tk.moe_w8_matmul_plain(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 192])
+def test_cuda_moe_w8_planted_faults_rejected(cuda, M):
+    """The bar rejects an expert read with the next expert's scales, a K
+    tile dropped, and the scale applied after the sum (row 13's rounding
+    instead of the dequantize-then-product one)."""
+    E, K, N = 8, 1024, 512
+    q, s = _card_experts(E, K, N, cuda, seed=9)
+    x = _moe_x(M, E, K, True, torch.bfloat16, cuda, seed=10)
+    out = tk.moe_w8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert_moe_close(out, tk.moe_w8_matmul_plain(x, q, s))
+    with pytest.raises(AssertionError):
+        assert_moe_close(out, tk.moe_w8_matmul_plain(
+            x, q, torch.roll(s, 1, dims=0)))
+    qd = q.clone()
+    qd[:, 64:128] = 0
+    with pytest.raises(AssertionError):
+        assert_moe_close(out, tk.moe_w8_matmul_plain(x, qd, s))
+    after = (torch.einsum("mk,ekn->men", x.float(), q.float())
+             * s.transpose(0, 1)).to(torch.bfloat16)
+    with pytest.raises(AssertionError):
+        assert_moe_close(out, after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 2048])
+def test_cuda_moe_w8_graph_replay_equals_eager(cuda, M):
+    """A captured call gives the eager call's bits, and so does every
+    repeated call (no atomics, no split-K)."""
+    q, s = _card_experts(8, 4096, 1024, cuda, seed=12)
+    x = _moe_x(M, 8, 4096, True, torch.bfloat16, cuda, seed=13)
+
+    def fn():
+        return tk.moe_w8_matmul(x, q, s)
+
+    eager = fn()
+    for _ in range(3):
+        assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_w8_raises_on_what_it_does_not_take(cuda):
+    q, s = _card_experts(4, 64, 128, cuda)
+    x = torch.randn(4, 64, device=cuda)
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="bf16"):
+            tk.moe_w8_matmul(x.to(dtype), q, s)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        tk.moe_w8_matmul(x.to(torch.bfloat16), q.transpose(1, 2), s)
+    with pytest.raises(ValueError, match="scales"):
+        tk.moe_w8_matmul(x.to(torch.bfloat16), q, s[:, 0])
+
