@@ -4,10 +4,12 @@ one NVIDIA card.
     python3 chip_rows.py LABEL
 
 Builds the port's kernels and runs chip_smoke.py's checks of rows 1–11
-and, where the tree has them, 13–14 (PERF.md §6) at the Llama-3.1-8B
-shapes — row 13 at every projection geometry for M = 4, 192 and 2048,
-row 14 with the bf16 and the int8 head — each against its plain
-version with its planted faults, then prints one line `ROWS LABEL {row:
+and, where the tree has them, 13–15 and 13i4–15i4 (PERF.md §6) at the
+Llama-3.1-8B shapes — row 13 at every projection geometry for M = 4, 192
+and 2048, row 14 with the bf16 and the int8 head, row 15 at
+Mixtral-8x7B's experts (M = 4), the int4 rows at w_gate (M = 4, 192,
+2048), the 8B head and w1/w3 (M = 4) — each against its plain version
+with its planted faults, then prints one line `ROWS LABEL {row:
 {ms, ms_cold, ms_host, ms_graph}}` (device ms warm and with a cold L2,
 the host-inclusive reading, and the device ms of a call inside a CUDA
 graph of 20 calls; rows 13 and 14 also `host_us`, the host's µs a call
@@ -129,6 +131,21 @@ def main():
             4, 4096, 128256, "bf16")
         rows["14 head_matmul int8"] = lambda: smoke.check_head(
             4, 4096, 128256, "int8")
+    # row 15, the int8 expert GEMM at Mixtral-8x7B's experts (M = 4), and
+    # the int4 rows 13i4-15i4 at their main shapes, where the tree has them
+    if hasattr(smoke, "check_moe"):
+        rows["15 moe_w8_matmul M=4 w1/w3"] = lambda: smoke.check_moe(
+            4, 4096, 14336, True)
+        rows["15 moe_w8_matmul M=4 w2"] = lambda: smoke.check_moe(
+            4, 14336, 4096, False)
+    if hasattr(smoke, "check_w4a16"):
+        for M in (4, 192, 2048):
+            rows[f"13i4 w4a16_matmul M={M} K=4096 N=14336"] = (
+                lambda M=M: smoke.check_w4a16(M, 4096, 14336, cold=True))
+        rows["14i4 head_matmul int4"] = lambda: smoke.check_head4(
+            4, 4096, 128256, cold=True)
+        rows["15i4 moe_w4_matmul M=4 w1/w3"] = lambda: smoke.check_moe4(
+            4, 4096, 14336, True, cold=True)
     # a parent tree's chip_smoke.py may predate the in-graph readings
     out = {"0 empty kernel": smoke.launch_floor()} \
         if hasattr(smoke, "launch_floor") else {}

@@ -55,7 +55,16 @@ and the script exits non-zero:
      within one bf16 step an output on at most 1% of them, each with two
      planted faults (expert e read with expert e + 1's scales; a K tile
      dropped), library_ms the reference's dequantize + torch.einsum (line
-     `phase2 moe gemms`). Then the speculative
+     `phase2 moe gemms`). Then the int4 twins of rows 13-15 (packed int4
+     weights, two values a byte): w4a16_matmul at the 8B's projections
+     and Qwen2-7B's wk/wv (3584, 512) for M = 4, 192 and 2048, the int4
+     head [4096, 128256] at M = 4 and 192, moe_w4_matmul at Mixtral's
+     experts for M = 4, 192 and 2048, each against its plain version at
+     the int8 row's tolerance, each with the nibbles of a byte swapped and
+     read unsigned planted (the experts also the next expert's scales),
+     library_ms the reference's unpack + cast + matmul (dequantize +
+     einsum), cold L2 readings at M = 4 (line `phase2 int4 gemms`). Then
+     the speculative
      leg's shapes, each with its planted fault (line `phase2 spec
      shapes`): dense decode at the Llama-3.2-1B draft's H=32, KVH=8,
      D=64 (B=8, T=4096), w8a16_matmul on the 1B's projections at M = 8
@@ -141,7 +150,7 @@ and the script exits non-zero:
      of Qwen2-7B's published widths (Qwen2ForCausalLM: hidden 3584, 28
      layers, 28 heads on 4 KV heads, head_dim 128, QKV bias, untied head,
      vocab 152064), both recipes, with the same checks. Phases 6-7 and
-     9-11 serve their models at 8 of their layers (SERVE_LAYERS), the
+     9-11 serve their models at 4 of their layers (SERVE_LAYERS), the
      published widths kept.
   7. grammar-constrained decoding at full width. The leg's checkpoint is
      a directory of its own: the synthetic Llama-3.1-8B's config and a
@@ -164,9 +173,9 @@ and the script exits non-zero:
      greedy tool-call stream passes the teacher-forced check with each
      reference row masked by the matcher. Each reading line carries the
      card's name and power limit.
-  8. speculative decoding at full width: the synthetic Llama-3.1-8B (8
+  8. speculative decoding at full width: the synthetic Llama-3.1-8B (4
      of its 32 layers) with a synthetic draft of Llama-3.2-1B's published
-     widths (hidden 2048, 4 of its 16 layers, 32 heads on 8 KV heads,
+     widths (hidden 2048, 2 of its 16 layers, 32 heads on 8 KV heads,
      head_dim 64, tied head), gamma 4, bf16 then the int8 recipe: the gRPC backend's
      LoadModel(draft_model, n_draft=4) on the dense path (phase 4's
      prompts, the fourth greedy), then draft Engines in-process on phase
@@ -185,10 +194,10 @@ and the script exits non-zero:
      and a spec dispatch's host and device-busy ms, split into the draft
      steps, the verify and the accept tail.
   9. the host KV spill tier, preemption and resume at full width: the
-     synthetic Llama-3.1-8B (8 of its 32 layers) with the grammar leg's
+     synthetic Llama-3.1-8B (4 of its 32 layers) with the grammar leg's
      tokenizer, bf16 then the int8 recipe, in-process Engines on phase 5's
      pool (kv_pages=129, 8 slots, prompt cache on) with kv_host_bytes =
-     512 MiB (248 int8 blocks, as 2 GiB at 32 layers).
+     256 MiB (248 int8 blocks, as 2 GiB at 32 layers).
      9.1: waves A1 (8 conversations, 2000-token prompts), A2 (8 unrelated
      2000-token prompts, which reclaim or rewrite A1's retained blocks:
      they spill) and A3 (A1's follow-ups: prompt + reply + 100 new
@@ -213,7 +222,7 @@ and the script exits non-zero:
      wall ms and blocks, host bytes at peak, A3's TTFT p50 with and
      without the tier, resume TTFT p50 by readmit and by re-prefill, and
      the launches of the paged decode and scatter kernels in the phase.
- 10. the KV retention tier at full width: the synthetic Llama-3.1-8B (8 of its
+ 10. the KV retention tier at full width: the synthetic Llama-3.1-8B (4 of its
      32 layers) with the grammar leg's tokenizer, in-process Engines of 4 slots
      and 8192-token contexts, four 6000-token prompts of 256 new tokens (three
      greedy, one seeded): kv_policy full (a pool of four contexts);
@@ -235,7 +244,7 @@ and the script exits non-zero:
      (CUDA events around each fused-loop segment replay), the seconds to
      prefill, the demote's ms a block, the tiered launches.
  11. context shift and the disk prompt cache at full width: the synthetic
-     Llama-3.1-8B (8 of its 32 layers) with the grammar leg's tokenizer.
+     Llama-3.1-8B (4 of its 32 layers) with the grammar leg's tokenizer.
      11.1: in-process Engines of 4 slots and 1024-token contexts (dense bf16
      and int8, paged bf16 and int8 on a pool of 41 blocks, ragged bf16
      with a budget of 192) serve four 900-token prompts of 700 new tokens
@@ -281,6 +290,22 @@ and the script exits non-zero:
      continuous combine; an in-process dense Engine, the greedy
      requests). Prints, each with the card: tok/s, TTFT p50, busy ms a
      decode step, the launches.
+ 13. the int4 recipe at full width (int4 weights, int8 KV): the synthetic
+     Llama-3.1-8B at its 32 layers through the gRPC backend's
+     LoadModel(dtype="int4") on the dense engine, phase 4's four
+     requests, then an in-process ragged Engine of phase 6's shape on the
+     same weights, one wave; then Mixtral-8x7B at its 32 layers (22.5 GB
+     of int4 experts, where phase 12's bf16 leg needed 16) through
+     LoadModel, four requests, and its top-8 control leg. Checks: every
+     stream to its budget; the int4 weight kernels (w4a16_matmul,
+     head_matmul_int4, moe_w4_matmul) launched once a projection (expert
+     stack, forward with logits) a layer a forward, no int8 weight GEMM
+     and no plain version; no graph captured in a wave; the greedy
+     streams against the teacher-forced plain forward (0.25 logit;
+     Mixtral's top-2 legs ROUTE_MARGIN beside the top-8 control at
+     0.25), whose planted fault fails; the projections' q bytes K x N / 2
+     each, printed against the int8 recipe's. Prints, each with the
+     card: tok/s, TTFT p50, busy ms a decode step, the launches.
 The second line from the end is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
 """
@@ -343,9 +368,10 @@ CFG_QWEN2_7B = {
 # the depth at which phases 6-7 and 9-11 serve their models (the 8B, and
 # phase 6's Qwen2-7B), at their published widths: a leg's seconds (waves,
 # graph captures, teacher-forced forwards) grow with the layers, and at
-# full depth the smoke outran its time limit on a slower host. Phases 4-5
-# (the main path) and phase 12's int8 leg keep full depth.
-SERVE_LAYERS = 8
+# full depth the smoke outran its time limit on a slower host (4 layers
+# once phase 13 joined it). Phases 4-5 (the main path), phase 12's int8
+# leg and phase 13 keep full depth.
+SERVE_LAYERS = 4
 CFG_8B_CUT = dict(CFG_8B, num_hidden_layers=SERVE_LAYERS)
 CFG_QWEN2_7B_CUT = dict(CFG_QWEN2_7B, num_hidden_layers=SERVE_LAYERS)
 
@@ -1639,6 +1665,180 @@ def moe_gemms():
     return rows[f"M={W8_ROWS[0]} K=4096 N=14336"]
 
 
+# Rows 13i4-15i4, the int4 twins of rows 13-15 (packed int4 weights,
+# ops/kernels pack_int4): w4a16_matmul at the 8B's projections and Qwen2-
+# 7B's wk/wv (3584, 512), the int4 head at the 8B's (4096, 128256) and
+# moe_w4_matmul at Mixtral-8x7B's experts. Kernel and plain version
+# compute the int8 rows' functions on the unpacked values, so they keep
+# the int8 rows' tolerances. Planted faults on every row: the nibbles of
+# a byte swapped (K rows 2j and 2j + 1 exchanged) and read unsigned; the
+# experts also expert e read with expert e + 1's scales.
+W4_GEOMETRIES = W8_GEOMETRIES + [(3584, 512)]
+W4_HEAD_ROWS = (4, 192)
+
+
+def _int4_weight(K, N, g, E=None):
+    """An N(0, 1/K) weight [K, N] (a stack [E, K, N]) on the card,
+    quantized to packed int4 (QuantWeight: q uint8 [.., K/2, N])."""
+    import torch
+
+    from localai_tpu_torch.ops.quant import quantize
+
+    shape = (K, N) if E is None else (E, K, N)
+    return quantize(torch.randn(shape, device="cuda", generator=g)
+                    * K ** -0.5, bits=4)
+
+
+def _int4_faults(q):
+    """{label: the int8 weight a misreading of packed q gives}: the nibbles
+    of each byte swapped, and read as unsigned values."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import unpack_int4
+
+    lo, hi = (q & 15).to(torch.int8), (q >> 4).to(torch.int8)
+    unsigned = torch.stack([lo, hi], dim=-2).reshape(
+        *q.shape[:-2], 2 * q.shape[-2], q.shape[-1])
+    return {"nibbles_swapped": unpack_int4(((q & 15) << 4) | (q >> 4)),
+            "nibbles_unsigned": unsigned}
+
+
+def check_w4a16(M, K, N, cold=False, seed=0):
+    """w4a16_matmul (bf16 x) at x [M, K] @ packed int4 [K/2, N] against
+    its plain version, with the int4 faults planted. library_ms: the
+    reference's calls on the card, the weight unpacked, cast and
+    torch.matmul."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import unpack_int4, w4a16_matmul, \
+        w4a16_matmul_plain, w8a16_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    qw = _int4_weight(K, N, g)
+    q, s = qw.q, qw.s
+    x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+    fn = lambda: w4a16_matmul(x, q, s)  # noqa: E731
+    plain = lambda: w4a16_matmul_plain(x, q, s)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    faults = {k: w8a16_matmul_plain(x, w, s)
+              for k, w in _int4_faults(q).items()}
+    name = f"w4a16_matmul bfloat16 M={M} K={K} N={N}"
+    res = _check_close(name, out, plain(), W8_TOL["bfloat16"], fault=faults,
+                       share=W8_SHARE)
+    res.update(_timings(
+        fn, plain, lambda: torch.matmul(x, unpack_int4(q).to(x.dtype)),
+        nbytes=K * N // 2 + 2 * M * K + 2 * M * N + 4 * N,
+        flops=2.0 * M * K * N, peak=PEAK_BF16, cold=cold))
+    log(name + " " + json.dumps(res))
+    return res
+
+
+def check_head4(M, K, V, cold=False, seed=0):
+    """head_matmul on a packed int4 head [K/2, V] (x32 f32 [M, K] rounded
+    to bf16, f32 sums, then * s in f32) against its plain version, with
+    the int4 faults planted. library_ms: the head unpacked, in f32, and
+    torch.matmul."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul, \
+        head_matmul_plain, unpack_int4
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + V)
+    x32 = torch.randn(M, K, device="cuda", generator=g)
+    qw = _int4_weight(K, V, g)
+    q, s = qw.q, qw.s
+    fn = lambda: head_matmul(x32, q, s)  # noqa: E731
+    plain = lambda: head_matmul_plain(x32, q, s)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    faults = {k: head_matmul_plain(x32, w, s)
+              for k, w in _int4_faults(q).items()}
+    name = f"head_matmul int4 M={M} K={K} V={V}"
+    res = _check_close(name, out, plain(), HEAD_TOL, fault=faults)
+    res.update(_timings(
+        fn, plain, lambda: x32 @ unpack_int4(q).float(),
+        nbytes=K * V // 2 + 4 * V + 4 * M * K + 4 * M * V,
+        flops=2.0 * M * K * V, peak=PEAK_BF16, cold=cold))
+    log(name + " " + json.dumps(res))
+    del faults
+    return res
+
+
+def check_moe4(M, K, N, shared, cold=False, seed=0):
+    """moe_w4_matmul at x [M, K] (shared) or [M, E, K] against a packed
+    int4 stack [E, K/2, N] with scales [E, 1, N], with the int4 faults and
+    expert e read with expert e + 1's scales planted. library_ms: the
+    reference's calls, dequantize (unpacking) and torch.einsum."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import moe_w4_matmul, \
+        moe_w4_matmul_plain, moe_w8_matmul_plain
+    from localai_tpu_torch.ops.quant import dequantize
+
+    E = MOE_EXPERTS
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    qw = _int4_weight(K, N, g, E=E)
+    q, s = qw.q, qw.s
+    x = torch.randn((M, K) if shared else (M, E, K), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    eq = "mk,ekn->men" if shared else "mek,ekn->men"
+    fn = lambda: moe_w4_matmul(x, q, s)  # noqa: E731
+    plain = lambda: moe_w4_matmul_plain(x, q, s)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    faults = {k: moe_w8_matmul_plain(x, w, s)
+              for k, w in _int4_faults(q).items()}
+    faults["next_experts_scales"] = moe_w4_matmul_plain(
+        x, q, torch.roll(s, -1, dims=0))
+    name = (f"moe_w4_matmul M={M} E={E} K={K} N={N} "
+            f"{'shared' if shared else 'per-expert'} x")
+    res = _check_close(name, out, plain(), MOE_TOL, fault=faults,
+                       share=W8_SHARE)
+    del faults
+    res.update(_timings(
+        fn, plain, lambda: torch.einsum(
+            eq, x, dequantize({"q": q, "s": s}, torch.bfloat16)),
+        nbytes=E * K * N // 2 + 4 * E * N + x.numel() * 2 + 2 * M * E * N,
+        flops=2.0 * M * E * K * N, peak=PEAK_BF16, cold=cold))
+    log(name + " " + json.dumps(res))
+    del q, s, x, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def int4_gemms():
+    """Rows 13i4, 14i4 and 15i4 of PERF.md §6 (line `phase2 int4 gemms`):
+    w4a16_matmul at the 8B's four projection shapes and Qwen2-7B's wk/wv
+    for M = 4, 192 and 2048, the int4 head at M = 4 and 192, and
+    moe_w4_matmul at Mixtral-8x7B's experts for M = 4, 192 and 2048, each
+    against its plain version with its planted faults; cold L2 readings
+    at M = 4. Returns the main rows: w_gate, the head and w1/w3 at M =
+    4."""
+    import torch
+
+    w4 = {f"M={M} K={K} N={N}": check_w4a16(M, K, N, cold=M == 4)
+          for K, N in W4_GEOMETRIES for M in W8_ROWS}
+    heads = {f"M={M}": check_head4(M, 4096, 128256, cold=M == 4)
+             for M in W4_HEAD_ROWS}
+    moe = {f"M={M} K={K} N={N}": check_moe4(M, K, N, shared, cold=M == 4)
+           for K, N, shared in MOE_GEOMETRIES for M in W8_ROWS}
+    keep = ("max_abs_err", "mismatch_share", "nibbles_swapped_err",
+            "nibbles_unsigned_err", "next_experts_scales_err", "ms",
+            "ms_cold", "ms_host", "ms_graph", "bound_ms", "bound_by",
+            "plain_ms", "library_ms", "library_ms_cold")
+    log("phase2 int4 gemms " + json.dumps({
+        "w4a16_matmul": {k: {f: r.get(f) for f in keep}
+                         for k, r in w4.items()},
+        "head_matmul_int4": {k: {f: r.get(f) for f in keep}
+                             for k, r in heads.items()},
+        "moe_w4_matmul": {k: {f: r.get(f) for f in keep}
+                          for k, r in moe.items()}}))
+    torch.cuda.empty_cache()
+    return (w4["M=4 K=4096 N=14336"], heads["M=4"],
+            moe["M=4 K=4096 N=14336"])
+
+
 # the speculative leg's shapes (phase 8): the Llama-3.2-1B draft decodes
 # at H=32, KVH=8, D=64 over eight 4096-token slots, through its
 # projections (K, N) and its tied head; the 8B target verifies eight
@@ -1791,6 +1991,8 @@ def phase_kernels():
     main.update(tier_kernels())
     main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
     main["moe_w8_matmul"] = moe_gemms()
+    (main["w4a16_matmul"], main["head_matmul_int4"],
+     main["moe_w4_matmul"]) = int4_gemms()
     main["spec shapes"] = spec_shapes()
     main["launch floor"] = launch_floor()
     log("phase2 wide geometry " + json.dumps({
@@ -2885,17 +3087,22 @@ def forward_counts(m0, m1, graphs):
 
 
 def check_weight_gemms(label, launched, layers, forwards, logit_forwards,
-                       int8, moe=False):
+                       int8, moe=False, int4=False):
     """The weight GEMM kernels launched once a projection a layer a forward
-    (w8a16_matmul, int8 recipe only), once an expert stack a layer a
-    forward (moe_w8_matmul, a Mixtral model's int8 recipe only) and once
-    a forward that returns logits (head_matmul: the untied bf16 or int8
-    head)."""
+    (w8a16_matmul, int8 recipe only; w4a16_matmul, int4 only), once an
+    expert stack a layer a forward (moe_w8_matmul / moe_w4_matmul, a
+    Mixtral model's int8 / int4 recipe only) and once a forward that
+    returns logits (head_matmul: the untied bf16 or int8 head;
+    head_matmul_int4: the int4 head); the other width's kernels never."""
     proj = MOE_PROJECTIONS if moe else PROJECTIONS
-    want = {"w8a16_matmul": len(proj) * layers * forwards if int8 else 0,
-            "moe_w8_matmul": len(EXPERT_STACKS) * layers * forwards
-            if int8 and moe else 0,
-            "head_matmul": logit_forwards}
+    projs = len(proj) * layers * forwards
+    stacks = len(EXPERT_STACKS) * layers * forwards if moe else 0
+    want = {"w8a16_matmul": projs if int8 else 0,
+            "moe_w8_matmul": stacks if int8 else 0,
+            "head_matmul": 0 if int4 else logit_forwards,
+            "w4a16_matmul": projs if int4 else 0,
+            "moe_w4_matmul": stacks if int4 else 0,
+            "head_matmul_int4": logit_forwards if int4 else 0}
     for k, n in want.items():
         if launched[k] != n:
             raise AssertionError(
@@ -3095,23 +3302,26 @@ def paged_reference_cases(outs):
 
 @contextlib.contextmanager
 def plain_weight_gemms():
-    """Within: the model's projections, int8 expert stacks and lm head run
-    the weight GEMMs' plain versions (cast + torch.matmul, dequantize +
-    einsum) on the card too, for the teacher-forced reference, which
+    """Within: the model's projections, int8 or int4 expert stacks and lm
+    head run the weight GEMMs' plain versions (unpack, cast +
+    torch.matmul, dequantize + einsum) on the card too, for the
+    teacher-forced reference, which
     launches none of the port's kernels. A check's own device, never the
     serving path's."""
     from localai_tpu_torch.models import llama
-    from localai_tpu_torch.ops import quant
-    from localai_tpu_torch.ops.kernels import head_matmul_plain, \
-        moe_w8_matmul_plain, w8a16_matmul_plain
+    from localai_tpu_torch.ops import kernels, quant
 
-    saved = quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul
-    quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul = (
-        w8a16_matmul_plain, head_matmul_plain, moe_w8_matmul_plain)
+    sites = ((quant, "w8a16_matmul"), (quant, "w4a16_matmul"),
+             (llama, "head_matmul"), (llama, "moe_w8_matmul"),
+             (llama, "moe_w4_matmul"))
+    saved = [getattr(mod, name) for mod, name in sites]
+    for mod, name in sites:
+        setattr(mod, name, getattr(kernels, name + "_plain"))
     try:
         yield
     finally:
-        quant.w8a16_matmul, llama.head_matmul, llama.moe_w8_matmul = saved
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
 
 
 def check_reference(name, engine, cases, fault, phase="phase5",
@@ -4115,11 +4325,11 @@ SPEC_REQUESTS = [(1, dict(temperature=0.0)),
 # engine never runs the fused ragged loop, so ragged_loop_steps is unread)
 SPEC_PAGED_EC = dict(max_slots=8, max_context=4096, kv_pages=129,
                      prefill_buckets=(64, 256, 512), prefill_chunk=512)
-# phase 8's target at SERVE_LAYERS (8) of the 8B's 32 layers and its draft
-# at 4 of the 1B's 16, to keep the whole smoke within its time limit; the
+# phase 8's target at SERVE_LAYERS (4) of the 8B's 32 layers and its draft
+# at 2 of the 1B's 16, to keep the whole smoke within its time limit; the
 # spec checks count launches by these
 SPEC_TARGET = CFG_8B_CUT
-SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=4)
+SPEC_DRAFT = dict(CFG_1B, num_hidden_layers=2)
 LAYERS_8B = SPEC_TARGET["num_hidden_layers"]
 DRAFT_LAYERS = SPEC_DRAFT["num_hidden_layers"]
 
@@ -4574,8 +4784,8 @@ def _perfect_draft_runs(cfg, params, dtype, out):
 
 def phase_spec_path(smi):
     """Phase 8, speculative decoding at full width: the synthetic
-    Llama-3.1-8B (8 of its 32 layers) with a synthetic draft of
-    Llama-3.2-1B's widths (4 of its 16 layers), gamma 4, bf16 then the
+    Llama-3.1-8B (4 of its 32 layers) with a synthetic draft of
+    Llama-3.2-1B's widths (2 of its 16 layers), gamma 4, bf16 then the
     int8 recipe, on the dense
     path (the gRPC backend's LoadModel draft_model), the paged pool and
     the ragged path (in-process Engines); then the perfect-draft leg.
@@ -6205,15 +6415,34 @@ MIXTRAL_BF16_REQUEST = 2           # the 300-token greedy request
 # phase 5-11's 0.25; the top-2 legs to ROUTE_MARGIN, which the planted
 # fault (5.8-7.1) still exceeds several times over.
 ROUTE_MARGIN = 1.5
-MIXTRAL_OWN = {
+# the kernels each leg of phases 12 and 13 must launch, by its label (the
+# dense leg's decode kernel second: check_fused_path reads it)
+_RAGGED_Q8 = ("ragged_paged_attention_q8", "ragged_scatter_append_q8",
+              "ragged_decode_q8_paged", "paged_scatter_append_q8")
+_INT4 = ("w4a16_matmul", "head_matmul_int4")
+LEG_OWN = {
     "int8 dense": ("flash_prefill", "ragged_decode_q8", "moe_w8_matmul"),
-    "int8 ragged": ("ragged_paged_attention_q8", "ragged_scatter_append_q8",
-                    "ragged_decode_q8_paged", "paged_scatter_append_q8",
-                    "moe_w8_matmul"),
+    "int8 ragged": _RAGGED_Q8 + ("moe_w8_matmul",),
     "bf16 dense": ("flash_prefill", "ragged_decode"),
     "int8 dense top-8 control": ("flash_prefill", "ragged_decode_q8",
                                  "moe_w8_matmul"),
+    "8b int4 dense": ("flash_prefill", "ragged_decode_q8") + _INT4,
+    "8b int4 ragged": _RAGGED_Q8 + _INT4,
+    "mixtral int4 dense": ("flash_prefill", "ragged_decode_q8",
+                           "moe_w4_matmul") + _INT4,
+    "mixtral int4 dense top-8 control": ("flash_prefill", "ragged_decode_q8",
+                                         "moe_w4_matmul") + _INT4,
 }
+
+
+def weight_recipe(params) -> str:
+    """"int4", "int8" or "bf16": the width of a model's projections."""
+    import torch
+
+    w = params.layers[0]["wq"]
+    if not hasattr(w, "q"):
+        return "bf16"
+    return "int4" if w.q.dtype == torch.uint8 else "int8"
 
 
 def mixtral_ids(i, n, salt=0):
@@ -6229,19 +6458,20 @@ def mixtral_requests(salt):
             for i, (n, sp) in enumerate(REQUESTS)]
 
 
-def mixtral_cases(records, requests):
+def mixtral_cases(records, requests, ids_fn=mixtral_ids):
     """The teacher-forced cases of a wave (its greedy requests: {label:
     (prompt, tokens, logprobs)}) and the planted fault: the last greedy
-    request's tokens under another prompt of its length."""
+    request's tokens under another prompt of its length (`ids_fn`: the
+    model's prompt ids)."""
     greedy = [r for r, (_, sp) in zip(records, requests)
               if sp.get("temperature") == 0.0]
     cases = {f"{len(ids)}-token": (ids, toks, lps)
              for ids, toks, lps in greedy}
     ids, toks, lps = greedy[-1]
-    return cases, (mixtral_ids(99, len(ids), salt=99), toks, lps)
+    return cases, (ids_fn(99, len(ids), salt=99), toks, lps)
 
 
-def mixtral_wave(label, eng, requests):
+def mixtral_wave(label, eng, requests, phase="phase12"):
     """`requests` [(prompt ids, sampling)] submitted at once to an
     in-process engine and run to the end, with the plain versions' calls
     counted; every request must finish "length" at its budget. Returns
@@ -6267,82 +6497,89 @@ def mixtral_wave(label, eng, requests):
             pass
     wall = time.perf_counter() - t0
     after = launch_counts()
-    mixtral_finished(label, recs)
+    mixtral_finished(label, recs, phase)
     return (recs, wall, {k: after[k] - before[k] for k in after},
             graph_delta(g0, eng.graphs.counters()), m0, dict(eng.metrics),
             dict(plain))
 
 
-def mixtral_finished(label, recs):
+def mixtral_finished(label, recs, phase="phase12"):
     """Every request of an in-process wave finished "length" at its
     budget."""
     for r in recs:
         if r["last"] is None or r["last"].finish_reason != "length" \
                 or len(r["toks"]) != NEW_TOKENS:
-            raise AssertionError(f"phase12 {label}: a request ended "
+            raise AssertionError(f"{phase} {label}: a request ended "
                                  f"{r['last'] and r['last'].finish_reason} "
                                  f"after {len(r['toks'])} tokens")
 
 
-def mixtral_checks(label, launched, graphs, plain, toks, layers, int8,
-                   forwards, logit_forwards):
-    """Phase 12's checks of one leg's wave: every token in the vocabulary,
-    the leg's kernels launched and no plain version ran, no graph
-    captured, and the weight GEMMs' counts (w8a16_matmul on the four
-    attention projections and moe_w8_matmul on the three expert stacks a
-    layer a forward in int8; neither in bf16)."""
-    if not all(0 <= t < CFG_MIXTRAL["vocab_size"] for t in toks):
-        raise AssertionError(f"phase12 {label}: token id out of vocab")
-    for k in MIXTRAL_OWN[label]:
+def leg_checks(phase, label, launched, graphs, plain, toks, cfg, forwards,
+               logit_forwards, recipe):
+    """Phases 12 and 13's checks of one leg's wave: every token in the
+    vocabulary, the leg's kernels launched (LEG_OWN) and no plain version
+    ran, no graph captured, and the weight GEMMs' counts: the recipe's
+    projection kernel (w8a16_matmul, int8; w4a16_matmul, int4) once a
+    projection a layer a forward (a Mixtral layer's four attention
+    projections), its expert kernel (moe_w8_matmul, moe_w4_matmul) once an
+    expert stack a layer a forward, its head kernel (head_matmul, or
+    head_matmul_int4) once a forward with logits, and the other width's
+    kernels never (bf16: only head_matmul)."""
+    if not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"{phase} {label}: token id out of vocab")
+    for k in LEG_OWN[label]:
         if launched.get(k, 0) <= 0:
-            raise AssertionError(f"phase12 {label}: {k} never launched")
+            raise AssertionError(f"{phase} {label}: {k} never launched")
     if plain:
-        raise AssertionError(f"phase12 {label}: plain versions ran {plain}")
+        raise AssertionError(f"{phase} {label}: plain versions ran {plain}")
     caps = {p: c.get("captures", 0) for p, c in graphs.items()}
     if any(caps.values()):
-        raise AssertionError(f"phase12 {label}: the wave captured graphs "
+        raise AssertionError(f"{phase} {label}: the wave captured graphs "
                              f"{caps}")
-    check_weight_gemms(f"phase12 {label}", launched, layers, forwards,
-                       logit_forwards, int8, moe=True)
+    check_weight_gemms(f"{phase} {label}", launched, cfg.num_layers,
+                       forwards, logit_forwards, recipe == "int8",
+                       moe=bool(cfg.num_experts), int4=recipe == "int4")
 
 
-def mixtral_ragged(cfg, params, smi):
-    """Phase 12's ragged leg on the int8 weights the dense leg loaded: an
+def mixtral_ragged(cfg, params, smi, label="int8 ragged", phase="phase12",
+                   ids_fn=mixtral_ids, margin=ROUTE_MARGIN):
+    """Phase 12's ragged leg on the weights the dense leg loaded (int8
+    Mixtral; phase 13's int4 8B with ids_fn=prompt_ids, margin None): an
     in-process Engine on phase 6's pool (kv_pages=129, budget 192, int8
     KV) serves one wave of the four requests. Returns its row."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
 
-    label = "int8 ragged"
     t0 = time.perf_counter()
     eng = Engine(cfg, params, None, EngineConfig(**RAGGED_EC,
                                                  cache_type="int8"),
                  device="cuda")
     eng.warmup()
     setup_s = time.perf_counter() - t0
-    requests = mixtral_requests(salt=1)
+    requests = [(ids_fn(i, n, salt=1), sp)
+                for i, (n, sp) in enumerate(REQUESTS)]
     marks = _replay_events(eng)
     recs, wall, launched, graphs, m0, m, plain = mixtral_wave(
-        label, eng, requests)
+        label, eng, requests, phase)
     del eng.graphs.run
-    mixtral_checks(label, launched, graphs, plain,
-                   [t for r in recs for t in r["toks"]], cfg.num_layers,
-                   True, *forward_counts(m0, m, graphs))
+    leg_checks(phase, label, launched, graphs, plain,
+               [t for r in recs for t in r["toks"]], cfg,
+               *forward_counts(m0, m, graphs), weight_recipe(params))
     if m["ragged_prefill_tokens"] - m0["ragged_prefill_tokens"] != sum(
             len(r["ids"]) for r in recs):
-        raise AssertionError(f"phase12 {label}: not every prompt token was "
+        raise AssertionError(f"{phase} {label}: not every prompt token was "
                              f"packed into a ragged tick")
     packs = m["ragged_dispatches"] - m0["ragged_dispatches"]
-    check_fused_path(f"phase12 {label}", graphs, "rloop",
+    check_fused_path(f"{phase} {label}", graphs, "rloop",
                      m["tokens_by_path__rloop"] - m0["tokens_by_path__rloop"],
                      launched, PAGED_OWN["int8"], cfg.num_layers,
                      m["decode_steps_dispatched"]
                      - m0["decode_steps_dispatched"] - packs)
-    check_fused_path(f"phase12 {label} packs", {}, "rloop", 0, launched,
+    check_fused_path(f"{phase} {label} packs", {}, "rloop", 0, launched,
                      RAGGED_OWN["int8"], cfg.num_layers, packs)
     cases, fault = mixtral_cases(
-        [(r["ids"], r["toks"], r["lps"]) for r in recs], requests)
-    ref = check_reference(label, eng, cases, fault, phase="phase12",
-                          margin=ROUTE_MARGIN)
+        [(r["ids"], r["toks"], r["lps"]) for r in recs], requests, ids_fn)
+    ref = check_reference(label, eng, cases, fault, phase=phase,
+                          margin=margin)
     row = {"leg": label, "layers": cfg.num_layers, "tok_s":
            len(recs) * NEW_TOKENS / wall, "ttft_p50_ms": _p50_ms(recs),
            "busy_ms_step": _busy_ms_step(marks), "wall_s": wall,
@@ -6352,12 +6589,13 @@ def mixtral_ragged(cfg, params, smi):
            "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
                                     if k != "planted fault"),
            "planted_fault_gap": ref["planted fault"]["max_gap"]}
-    log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+    log(f"{phase} {label} " + json.dumps(row) + f" card {smi}")
     del eng
     return row
 
 
-def mixtral_control(cfg, params, smi):
+def mixtral_control(cfg, params, smi, label="int8 dense top-8 control",
+                    phase="phase12"):
     """Phase 12's control leg on the int8 weights: the same model with
     every expert routed (experts_per_tok = E: the router's softmax weights
     the experts continuously, so a bf16-level difference cannot pick
@@ -6367,7 +6605,6 @@ def mixtral_control(cfg, params, smi):
     Returns its row."""
     from localai_tpu_torch.engine.engine import Engine, EngineConfig
 
-    label = "int8 dense top-8 control"
     cfg8 = dataclasses.replace(cfg, experts_per_tok=cfg.num_experts)
     eng = Engine(cfg8, params, None, EngineConfig(
         max_slots=4, max_context=2048, cache_type="int8"), device="cuda")
@@ -6375,13 +6612,13 @@ def mixtral_control(cfg, params, smi):
     requests = [r for r in mixtral_requests(salt=3)
                 if r[1].get("temperature") == 0.0]
     recs, wall, launched, graphs, m0, m, plain = mixtral_wave(
-        label, eng, requests)
-    mixtral_checks(label, launched, graphs, plain,
-                   [t for r in recs for t in r["toks"]], cfg.num_layers,
-                   True, *forward_counts(m0, m, graphs))
+        label, eng, requests, phase)
+    leg_checks(phase, label, launched, graphs, plain,
+               [t for r in recs for t in r["toks"]], cfg8,
+               *forward_counts(m0, m, graphs), weight_recipe(params))
     cases, fault = mixtral_cases(
         [(r["ids"], r["toks"], r["lps"]) for r in recs], requests)
-    ref = check_reference(label, eng, cases, fault, phase="phase12")
+    ref = check_reference(label, eng, cases, fault, phase=phase)
     row = {"leg": label, "layers": cfg.num_layers, "tok_s":
            len(recs) * NEW_TOKENS / wall, "ttft_p50_ms": _p50_ms(recs),
            "busy_ms_step": None, "wall_s": wall,
@@ -6389,17 +6626,19 @@ def mixtral_control(cfg, params, smi):
            "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
                                     if k != "planted fault"),
            "planted_fault_gap": ref["planted fault"]["max_gap"]}
-    log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+    log(f"{phase} {label} " + json.dumps(row) + f" card {smi}")
     del eng
     return row
 
 
-def mixtral_grpc(label, d, load_kw, requests, smi, then=None):
-    """One gRPC leg of phase 12: LoadModel on the checkpoint at `d` (the
-    default dense engine), one wave of `requests`, its checks and the
-    teacher-forced reference on the card; then(engine), if given, with the
-    model still loaded. Returns the leg's row."""
-    int8 = load_kw.get("dtype") == "int8"
+def mixtral_grpc(label, d, load_kw, requests, smi, then=None,
+                 phase="phase12", ids_fn=mixtral_ids, margin=ROUTE_MARGIN):
+    """One gRPC leg of phase 12 (or 13): LoadModel on the checkpoint at
+    `d` (the default dense engine), one wave of `requests`, its checks and
+    the teacher-forced reference on the card (`ids_fn`: the model's
+    prompt ids, for the planted fault; `margin`: the reference's bar, None
+    for phases 5-11's); then(engine), if given, with the model still
+    loaded. Returns the leg's row."""
     marks, row = {}, {}
 
     def on_load(servicer):
@@ -6410,18 +6649,19 @@ def mixtral_grpc(label, d, load_kw, requests, smi, then=None):
         served_plain = dict(plain)
         del eng.graphs.run
         res = out["_results"]
-        mixtral_checks(label, out["launches_during_requests"],
-                       out["graphs"], served_plain,
-                       [t for r in res for t in r[1]], eng.cfg.num_layers,
-                       int8, out["forwards"], out["logit_forwards"])
-        check_fused_path(f"phase12 {label}", out["graphs"], "dense",
+        leg_checks(phase, label, out["launches_during_requests"],
+                   out["graphs"], served_plain,
+                   [t for r in res for t in r[1]], eng.cfg,
+                   out["forwards"], out["logit_forwards"],
+                   weight_recipe(eng.params))
+        check_fused_path(f"{phase} {label}", out["graphs"], "dense",
                          out["loop_tokens"], out["launches_during_requests"],
-                         MIXTRAL_OWN[label][1:2], eng.cfg.num_layers,
+                         LEG_OWN[label][1:2], eng.cfg.num_layers,
                          out["decode_steps"])
         cases, fault = mixtral_cases([(r[4], r[1], r[2]) for r in res],
-                                     requests)
-        ref = check_reference(label, eng, cases, fault, phase="phase12",
-                              margin=ROUTE_MARGIN)
+                                     requests, ids_fn)
+        ref = check_reference(label, eng, cases, fault, phase=phase,
+                              margin=margin)
         row.update({
             "leg": label, "layers": eng.cfg.num_layers,
             "tok_s": out["tok_s"], "ttft_p50_ms": out["ttft_p50_ms"],
@@ -6433,12 +6673,14 @@ def mixtral_grpc(label, d, load_kw, requests, smi, then=None):
             "reference_max_gap": max(v["max_gap"] for k, v in ref.items()
                                      if k != "planted fault"),
             "planted_fault_gap": ref["planted fault"]["max_gap"]})
-        log(f"phase12 {label} " + json.dumps(row) + f" card {smi}")
+        if weight_recipe(eng.params) == "int4":
+            row.update(int4_weight_bytes(eng.cfg, eng.params))
+        log(f"{phase} {label} " + json.dumps(row) + f" card {smi}")
         if then is not None:
             then(eng)
 
     with plain_calls() as plain:
-        serve_recipe(label, d, load_kw, phase="phase12", waves=[requests],
+        serve_recipe(label, d, load_kw, phase=phase, waves=[requests],
                      then=after, on_load=on_load)
     return row
 
@@ -6497,6 +6739,104 @@ def phase_mixtral(smi):
     return counts
 
 
+# ----------------------------------------------------------------- phase 13
+
+# the int4 recipe (int4 weights, bf16 activations) with int8 KV
+INT4_KW = dict(dtype="int4", cache_type_key="int8", cache_type_value="int8")
+
+
+def int4_weight_bytes(cfg, params):
+    """The int4 projections' and head's q bytes against the
+    architecture's K x N elements (a Mixtral layer's expert stacks E x K x
+    N): int4 holds half a byte an element, the int8 recipe a byte.
+    Raises unless every projection is packed int4 at exactly K x N / 2
+    bytes."""
+    import torch
+
+    h, hd, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    shapes = {"wq": h * q_out, "wk": h * kv_out, "wv": h * kv_out,
+              "wo": q_out * h}
+    if cfg.num_experts:
+        shapes.update({k: cfg.num_experts * h * inter
+                       for k in EXPERT_STACKS})
+    else:
+        shapes.update(w_gate=h * inter, w_up=h * inter, w_down=inter * h)
+    elements = cfg.num_layers * sum(shapes.values()) + h * cfg.vocab_size
+    stored = 0
+    for w in [layer[n] for layer in params.layers for n in shapes] + [
+            params.lm_head]:
+        if w.q.dtype != torch.uint8:
+            raise AssertionError(f"phase13: a projection is {w.q.dtype}, "
+                                 f"not packed int4")
+        stored += w.q.numel()
+    if 2 * stored != elements:
+        raise AssertionError(f"phase13: {stored} int4 bytes for {elements} "
+                             f"weight elements (want half a byte each)")
+    return {"int4_weight_bytes": stored, "int8_recipe_weight_bytes": elements,
+            "int4_over_int8": stored / elements}
+
+
+def phase_int4(smi):
+    """Phase 13, the int4 recipe at full width (int4 weights, int8 KV):
+    the synthetic Llama-3.1-8B at its 32 layers through the gRPC backend's
+    LoadModel(dtype="int4") on the default dense engine, phase 4's four
+    requests, then an in-process ragged Engine of phase 6's shape on the
+    same weights, one wave; then Mixtral-8x7B at its 32 layers (22.5 GB of
+    int4 experts) through LoadModel, phase 12's four requests, and its
+    top-8 control leg. Checks (leg_checks, check_fused_path,
+    check_reference, int4_weight_bytes): every stream to its budget; the
+    int4 weight kernels launched, no int8 one and no plain version; no
+    graph captured in a wave; each greedy stream against the
+    teacher-forced plain forward (0.25 logit; Mixtral's top-2 legs
+    ROUTE_MARGIN beside the top-8 control at 0.25), whose planted fault
+    fails; the projections hold K x N / 2 bytes. Returns the phase's
+    launch counts."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_8B, localai_synthetic=True), f)
+        torch.cuda.reset_peak_memory_stats()
+        rows.append(mixtral_grpc(
+            "8b int4 dense", d, INT4_KW, REQUESTS, smi, phase="phase13",
+            ids_fn=prompt_ids, margin=None,
+            then=lambda eng: rows.append(mixtral_ragged(
+                eng.cfg, eng.params, smi, label="8b int4 ragged",
+                phase="phase13", ids_fn=prompt_ids, margin=None))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(CFG_MIXTRAL, localai_synthetic=True), f)
+        torch.cuda.reset_peak_memory_stats()
+        rows.append(mixtral_grpc(
+            "mixtral int4 dense", d, INT4_KW, mixtral_requests(salt=4), smi,
+            phase="phase13", then=lambda eng: rows.append(mixtral_control(
+                eng.cfg, eng.params, smi,
+                label="mixtral int4 dense top-8 control", phase="phase13"))))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    log("phase13 summary " + json.dumps({
+        r["leg"]: {k: r.get(k) for k in (
+            "layers", "tok_s", "ttft_p50_ms", "busy_ms_step",
+            "reference_max_gap", "planted_fault_gap", "int4_weight_bytes",
+            "int8_recipe_weight_bytes")} for r in rows})
+        + f" launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    return counts
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -6534,6 +6874,14 @@ KERNELS = {
     # Mixtral's int8 expert einsums (dequantize, then XLA's dot)
     "moe_w8_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
                       "localai_tpu/models/llama.py:383"),
+    # the int4 twins of the three (weight_gemm.cu built with WG_INT4): the
+    # reference's jnp.int4 projection, head and expert products
+    "w4a16_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                     "localai_tpu/ops/quant.py:78"),
+    "head_matmul_int4": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                         "localai_tpu/models/llama.py:347"),
+    "moe_w4_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                      "localai_tpu/models/llama.py:383"),
     # the KV tier's variants of rows 3/5 and 8/9 (on the TPU the tiered
     # reads ride XLA twins: models/llama.py _decode_dq, the ragged
     # _xla_core), and the demotion on row 7's kernel (the reference's
@@ -6559,6 +6907,8 @@ PAGED_KERNELS = ("ragged_decode_paged", "ragged_decode_q8_paged",
                  "paged_scatter_append", "paged_scatter_append_q8")
 RAGGED_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_q8",
                   "ragged_scatter_append", "ragged_scatter_append_q8")
+# the int4 recipe's kernels, launched in phase 13
+INT4_KERNELS = ("w4a16_matmul", "head_matmul_int4", "moe_w4_matmul")
 
 
 def main():
@@ -6601,6 +6951,7 @@ def main():
                             measured["paged_demote_q8"])
         shift_counts = timed("11 shift", phase_shift, gdir, smi, gtok)
     moe_counts = timed("12 mixtral", phase_mixtral, smi)
+    int4_counts = timed("13 int4", phase_int4, smi)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
         + f" total {time.perf_counter() - t0:.1f} s")
@@ -6613,6 +6964,7 @@ def main():
                     else ragged_counts if name in RAGGED_KERNELS
                     else paged_counts if name in PAGED_KERNELS
                     else moe_counts if name == "moe_w8_matmul"
+                    else int4_counts if name in INT4_KERNELS
                     else counts)[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches,
@@ -6627,6 +6979,7 @@ def main():
                      "launches_kv_tier": tier_counts[name],
                      "launches_shift": shift_counts[name],
                      "launches_mixtral": moe_counts[name],
+                     "launches_int4": int4_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     print(json.dumps({"kernels": rows}), flush=True)

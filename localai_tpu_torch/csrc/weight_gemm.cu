@@ -78,14 +78,40 @@
 // Limits: K and N multiples of 16 (16-byte rows); the M, N and K tails of a
 // tile are zero-filled (TMA's out-of-bounds fill, or predicated loads) and
 // never stored.
+//
+// int4 weights (the int4/q4 recipe; the reference's jnp.int4 payloads): the
+// same three products on packed weights, built from this source with
+// -DWG_INT4=1 into a library of its own (the two builds run side by side,
+// each instantiating one width; the C entry points are the same). A packed
+// weight is uint8 [K/2, N] (a stack [E, K/2, N]): byte (j, n) holds element
+// (2j, n) in its low nibble and (2j + 1, n) in its high nibble, each a
+// two's-complement value in [-7, 7]; scales as for int8. A byte's two
+// nibbles are K neighbours of one channel, the pair that one register of
+// an A fragment holds, so one byte becomes one T pair (wg_nib_pair: the
+// nibble xor 8 in the low mantissa bits of 128 (bf16) or 1024 (f16), then
+// one packed subtraction of 136 or 1032; exact). The decode route reads
+// two 16-byte rows a K step of 16 (four for int8) over K tiles of 128, so
+// a warp keeps int8's bytes in flight; the large-M route loads [32][128]
+// byte tiles by TMA and lifts a warp's whole tile with one ldmatrix.trans
+// (its rows permuted so that a register holds a fragment's four bytes). At
+// decode the bound halves with the bytes; at prefill's M it stays the bf16
+// tensor cores'. K must be even (a multiple of 16 here).
 #include <cuda.h>
 #include <cuda_fp16.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
+#ifndef WG_INT4
+#define WG_INT4 0
+#endif
+
 namespace {
+
+// the weight width this build instantiates: packed int4 or int8
+constexpr bool kW4 = WG_INT4 != 0;
 
 enum WgDtype { WG_F32 = 0, WG_BF16 = 1, WG_F16 = 2, WG_I8 = 3 };
 enum WgEpi { EPI_ROUND = 0, EPI_F32 = 1, EPI_MOE = 2 };
@@ -96,8 +122,11 @@ constexpr int A_BN = 128, A_BK = 64;
 constexpr int A_THREADS = 384;
 constexpr int A_RING_BYTES = 200 * 1024;  // shared memory for the ring
 // decode route: blocks of 128 output channels (16 a thread row of a warp)
-// over K tiles of 64; a warp takes every 4th tile of the block's split
-constexpr int B_BN = 128, B_BK = 64, B_WARPS = 4;
+// over K tiles of 64 (int4: 128, the same bytes); a warp takes every 4th
+// tile of the block's split
+constexpr int B_BN = 128, B_BK = kW4 ? 128 : 64, B_WARPS = 4;
+// stored weight rows a K tile of the large-M route (a packed row holds two)
+constexpr int A_QROWS = kW4 ? A_BK / 2 : A_BK;
 // SIMT route: tiles of 8 x 512 outputs, 16 of K; 4 outputs a thread a row
 constexpr int SG_BM = 8, SG_BN = 512, SG_BK = 16, SG_STAGES = 3;
 constexpr int SG_THREADS = 128;
@@ -155,19 +184,46 @@ __device__ __forceinline__ uint32_t wg_pair<__nv_bfloat16>(uint32_t t) {
   return r;
 }
 
-// Two int8 values of one output channel (bytes 0 and 2 of t, as wg_pair
-// takes them) dequantized as the reference's dequantize does: each exact
-// value times the channel's f32 scale in f32, rounded once to T, packed
-// with byte 0's in the low half.
+// Two int4 values of one output channel: the nibbles of byte B of w (low:
+// K row 2j, high: 2j + 1), as a packed pair of T, the low nibble's in the
+// low half; w4 is w >> 4, which puts the high nibble at bit 16 of the
+// permuted word. Exact: the nibble xor 8 goes into the low mantissa bits of
+// 128 (bf16, 7 mantissa bits) or 1024 (f16), and one packed subtraction of
+// 136 or 1032 leaves the two's-complement value. Three instructions a pair.
+template <typename T, int B>
+__device__ __forceinline__ uint32_t wg_nib_pair(uint32_t w, uint32_t w4) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  // 136 (bf16) or 1032 (f16) in both halves
+  constexpr uint32_t base = F16 ? 0x64086408u : 0x43084308u;
+  const uint32_t u =
+      (__byte_perm(w, w4, B | ((B + 4) << 8)) & 0x000F000Fu) ^ base;
+  uint32_t r;
+  if constexpr (F16)
+    asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(u), "r"(base));
+  else
+    asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(u), "r"(base));
+  return r;
+}
+
+// An exact pair of T (a wg_pair or wg_nib_pair) of one output channel
+// dequantized as the reference's dequantize does: each value times the
+// channel's f32 scale in f32, rounded once to T.
 template <typename T>
-__device__ __forceinline__ uint32_t wg_pair_scaled(uint32_t t, float s);
+__device__ __forceinline__ uint32_t wg_scale_pair(uint32_t p, float s);
 template <>
-__device__ __forceinline__ uint32_t wg_pair_scaled<__nv_bfloat16>(uint32_t t,
-                                                                  float s) {
-  const uint32_t p = wg_pair<__nv_bfloat16>(t);
+__device__ __forceinline__ uint32_t wg_scale_pair<__nv_bfloat16>(uint32_t p,
+                                                                 float s) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(
       __uint_as_float(p << 16) * s, __uint_as_float(p & 0xffff0000u) * s);
   return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Two int8 values of one output channel (bytes 0 and 2 of t, as wg_pair
+// takes them), dequantized (wg_scale_pair), packed with byte 0's in the
+// low half.
+template <typename T>
+__device__ __forceinline__ uint32_t wg_pair_scaled(uint32_t t, float s) {
+  return wg_scale_pair<T>(wg_pair<T>(t), s);
 }
 
 // 2 (bf16, f16) or 4 (int8) weight elements of one 32-bit word as f32
@@ -464,13 +520,14 @@ __device__ __forceinline__ void wg_tma_load_3d(void* dst, const void* map,
 }
 
 // The ring for BM rows of x: stage i holds the x tile [BM][64] (T, 128-byte
-// swizzle, BM * 128 bytes), then the int8 tile [64][128] (128-byte swizzle,
-// 8 KB), both on 1024-byte boundaries as the swizzle wants; the full and
-// empty mbarriers of the stages and the split flag follow.
+// swizzle, BM * 128 bytes), then the weight tile [64][128] of int8 (8 KB;
+// int4: [32][128] bytes, 4 KB, 128-byte swizzle), both on 1024-byte
+// boundaries as the swizzle wants; the full and empty mbarriers of the
+// stages and the split flag follow.
 template <int BM>
 struct RingA {
   static constexpr int X_BYTES = BM * A_BK * 2;
-  static constexpr int Q_BYTES = A_BK * A_BN;
+  static constexpr int Q_BYTES = A_QROWS * A_BN;
   static constexpr int STAGE = X_BYTES + Q_BYTES;
   static constexpr int STAGES =
       A_RING_BYTES / STAGE < 8 ? A_RING_BYTES / STAGE : 8;
@@ -529,14 +586,14 @@ __global__ void __launch_bounds__(A_THREADS, 1)
         const int st = t % R::STAGES;
         lt_mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
         uint8_t* stage = smem + st * R::STAGE;
-        const int k0 = (kt0 + t) * A_BK;
+        const int k0 = (kt0 + t) * A_BK, kq = (kt0 + t) * A_QROWS;
         lt_mbar_expect_tx(&full[st], R::STAGE);
         if constexpr (MOE) {
           wg_tma_load_3d(stage, &tx, &full[st], k0, xe > 1 ? e : 0, m0);
-          wg_tma_load_3d(stage + R::X_BYTES, &tq, &full[st], n0, k0, e);
+          wg_tma_load_3d(stage + R::X_BYTES, &tq, &full[st], n0, kq, e);
         } else {
           lt_tma_load_2d(stage, &tx, &full[st], k0, m0);
-          lt_tma_load_2d(stage + R::X_BYTES, &tq, &full[st], n0, k0);
+          lt_tma_load_2d(stage + R::X_BYTES, &tq, &full[st], n0, kq);
         }
       }
     }
@@ -568,21 +625,50 @@ __global__ void __launch_bounds__(A_THREADS, 1)
     // (k+1, c1). Bytes 0 and 2 are the fragment register of row g (channel
     // c0), bytes 1 and 3 the one of row g + 8. Lane l gives the address of
     // row l of each 32.
+    // int4: the tile's 32 packed rows are four 8x8 b16 matrices, one a K
+    // step of 16; matrix row r is packed row (r >> 1) + 4 (r & 1) of its
+    // step, so that ldmatrix.trans gives lane (g, t4) packed rows t4 (K
+    // rows 2t4, 2t4 + 1) and t4 + 4 (K rows 2t4 + 8, + 9) of channels 2g,
+    // 2g + 1: bytes 0..3 are the step's four fragment registers.
+    auto convert4 = [&](const uint8_t* qt, uint32_t (&f)[4][4]) {
+      const int r = lane & 7;
+      const int p = 8 * (lane >> 3) + (r >> 1) + 4 * (r & 1);
+      uint32_t v[4];
+      ldsm_x4_t(v, qt + p * A_BN + ((c ^ (p & 7)) << 4));
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t v4 = v[m] >> 4;
+        f[m][0] = wg_nib_pair<T, 0>(v[m], v4);
+        f[m][1] = wg_nib_pair<T, 1>(v[m], v4);
+        f[m][2] = wg_nib_pair<T, 2>(v[m], v4);
+        f[m][3] = wg_nib_pair<T, 3>(v[m], v4);
+        if constexpr (MOE) {
+          f[m][0] = wg_scale_pair<T>(f[m][0], sc0);
+          f[m][1] = wg_scale_pair<T>(f[m][1], sc1);
+          f[m][2] = wg_scale_pair<T>(f[m][2], sc0);
+          f[m][3] = wg_scale_pair<T>(f[m][3], sc1);
+        }
+      }
+    };
     auto convert = [&](const uint8_t* qt, uint32_t (&f)[4][4]) {
+      if constexpr (kW4) {
+        convert4(qt, f);
+      } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 32 * h + lane;
-        uint32_t r[4];
-        ldsm_x4_t(r, qt + k * A_BN + ((c ^ (k & 7)) << 4));
+        for (int h = 0; h < 2; ++h) {
+          const int k = 32 * h + lane;
+          uint32_t r[4];
+          ldsm_x4_t(r, qt + k * A_BN + ((c ^ (k & 7)) << 4));
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {  // K rows 8m..8m+7 of the 32
-          if constexpr (MOE) {
-            f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair_scaled<T>(r[m], sc0);
-            f[2 * h + (m >> 1)][2 * (m & 1) + 1] =
-                wg_pair_scaled<T>(r[m] >> 8, sc1);
-          } else {
-            f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair<T>(r[m]);
-            f[2 * h + (m >> 1)][2 * (m & 1) + 1] = wg_pair<T>(r[m] >> 8);
+          for (int m = 0; m < 4; ++m) {  // K rows 8m..8m+7 of the 32
+            if constexpr (MOE) {
+              f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair_scaled<T>(r[m], sc0);
+              f[2 * h + (m >> 1)][2 * (m & 1) + 1] =
+                  wg_pair_scaled<T>(r[m] >> 8, sc1);
+            } else {
+              f[2 * h + (m >> 1)][2 * (m & 1)] = wg_pair<T>(r[m]);
+              f[2 * h + (m >> 1)][2 * (m & 1) + 1] = wg_pair<T>(r[m] >> 8);
+            }
           }
         }
       }
@@ -699,16 +785,22 @@ __device__ __forceinline__ uint32_t wg_word(const uint4& v, int i) {
 // xe, K] (xe 1: one x for every expert; E: expert e's rows), q the stack
 // [E, K, N], each weight pair converted with its channel's scale in s [E,
 // N], and out [M, E, N].
+// int4 (kW4): K tiles of 128, eight K steps of 16; lane (g, t4) reads
+// packed rows 2t4 and 2t4 + 1 of a step (K rows 4t4..4t4+3, the same
+// fragment slots), and byte b of a chunk word gives one fragment register
+// (wg_nib_pair).
 template <typename T, int NT8, int EPI>
 __global__ void __launch_bounds__(B_WARPS * 32)
     weight_gemm_gemv_kernel(const T* __restrict__ x,
-                            const int8_t* __restrict__ q,
+                            const uint8_t* __restrict__ q,
                             const float* __restrict__ s,
                             void* __restrict__ out, float* __restrict__ ws,
                             int* __restrict__ counters, int M, int N, int K,
                             int kt_per, int xe) {
   constexpr bool MOE = EPI == EPI_MOE;
   constexpr int ROWS = 8 * NT8, LD = B_BN + 4;
+  // K steps of 16 a tile; 16-byte weight rows a thread reads a step
+  constexpr int KS = B_BK / 16, WR = kW4 ? 2 : 4;
   __shared__ __align__(16) float red[B_WARPS][ROWS][LD];
   __shared__ int flag;
   const int n0 = blockIdx.x * B_BN;
@@ -724,7 +816,7 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   const int64_t xrow = MOE ? static_cast<int64_t>(xe) * K : K;
   if constexpr (MOE) {
     x += xe > 1 ? static_cast<int64_t>(e) * K : 0;
-    q += static_cast<int64_t>(e) * K * N;
+    q += static_cast<int64_t>(e) * (kW4 ? K / 2 : K) * N;
   }
   float sc[MOE ? 16 : 1];
 #pragma unroll
@@ -739,17 +831,20 @@ __global__ void __launch_bounds__(B_WARPS * 32)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][nt][j] = 0.f;
 
-  uint4 w[4][4];     // [k16 step][K row 4t4 + j]: 16 channels
-  uint2 xv[4][NT8];  // [k16 step][token tile]: K rows 4t4..4t4+3
+  // [k16 step][K row 4t4 + j, int4: packed row 2t4 + j]: 16 channels
+  uint4 w[KS][WR];
+  uint2 xv[KS][NT8];  // [k16 step][token tile]: K rows 4t4..4t4+3
   // step kk of tile t into w[kk], xv[kk]
   auto load = [&](int kk, int t) {
     const int k16 = t * B_BK + 16 * kk, kr = k16 + 4 * t4;
     const bool kok = k16 < K;  // K % 16 == 0
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[kk][j] = cok && kok
-                     ? ldg_stream(q + static_cast<int64_t>(kr + j) * N + cb)
-                     : make_uint4(0u, 0u, 0u, 0u);
+    for (int j = 0; j < WR; ++j)
+      w[kk][j] = cok && kok ? ldg_stream(q + static_cast<int64_t>(
+                                                 (kW4 ? kr / 2 : kr) + j) *
+                                                 N +
+                                             cb)
+                            : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt) {
       const int r = 8 * nt + g;
@@ -758,43 +853,79 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                                 : make_uint2(0u, 0u);
     }
   };
-  // byte b of word i/2 (channel 16g + 2i) in bytes 0 and 2, of rows (0, 1)
-  // and (2, 3); byte b + 1 (channel 16g + 2i + 1) likewise
-  auto mul = [&](int kk) {
+  auto mul4 = [&](int kk) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int wi = i >> 1;
-      const uint32_t lo = (i & 1) ? 0x6622 : 0x4400;
-      const uint32_t hi = (i & 1) ? 0x7733 : 0x5511;
-      const uint32_t w0 = wg_word(w[kk][0], wi), w1 = wg_word(w[kk][1], wi);
-      const uint32_t w2 = wg_word(w[kk][2], wi), w3 = wg_word(w[kk][3], wi);
+      // word i / 2 of both rows; channel 16g + 2i is byte 2 (i & 1), the
+      // next channel the byte after it
+      const uint32_t u0 = wg_word(w[kk][0], i >> 1);
+      const uint32_t u1 = wg_word(w[kk][WR - 1], i >> 1);
+      const uint32_t v0 = u0 >> 4, v1 = u1 >> 4;
       uint32_t a[4];
-      if constexpr (MOE) {  // rows g, g + 8: channels 16g + 2i, + 1
-        a[0] = wg_pair_scaled<T>(__byte_perm(w0, w1, lo), sc[2 * i]);
-        a[1] = wg_pair_scaled<T>(__byte_perm(w0, w1, hi), sc[2 * i + 1]);
-        a[2] = wg_pair_scaled<T>(__byte_perm(w2, w3, lo), sc[2 * i]);
-        a[3] = wg_pair_scaled<T>(__byte_perm(w2, w3, hi), sc[2 * i + 1]);
+      if (i & 1) {
+        a[0] = wg_nib_pair<T, 2>(u0, v0);
+        a[1] = wg_nib_pair<T, 3>(u0, v0);
+        a[2] = wg_nib_pair<T, 2>(u1, v1);
+        a[3] = wg_nib_pair<T, 3>(u1, v1);
       } else {
-        a[0] = wg_pair<T>(__byte_perm(w0, w1, lo));
-        a[1] = wg_pair<T>(__byte_perm(w0, w1, hi));
-        a[2] = wg_pair<T>(__byte_perm(w2, w3, lo));
-        a[3] = wg_pair<T>(__byte_perm(w2, w3, hi));
+        a[0] = wg_nib_pair<T, 0>(u0, v0);
+        a[1] = wg_nib_pair<T, 1>(u0, v0);
+        a[2] = wg_nib_pair<T, 0>(u1, v1);
+        a[3] = wg_nib_pair<T, 1>(u1, v1);
+      }
+      if constexpr (MOE) {
+        a[0] = wg_scale_pair<T>(a[0], sc[2 * i]);
+        a[1] = wg_scale_pair<T>(a[1], sc[2 * i + 1]);
+        a[2] = wg_scale_pair<T>(a[2], sc[2 * i]);
+        a[3] = wg_scale_pair<T>(a[3], sc[2 * i + 1]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt)
         wg_mma<T>(acc[i][nt], a, xv[kk][nt].x, xv[kk][nt].y);
     }
   };
+  auto mul = [&](int kk) {
+    if constexpr (kW4) {
+      mul4(kk);
+    } else {
+      // byte b of word i/2 (channel 16g + 2i) in bytes 0 and 2, of rows
+      // (0, 1) and (2, 3); byte b + 1 (channel 16g + 2i + 1) likewise
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int wi = i >> 1;
+        const uint32_t lo = (i & 1) ? 0x6622 : 0x4400;
+        const uint32_t hi = (i & 1) ? 0x7733 : 0x5511;
+        const uint32_t w0 = wg_word(w[kk][0], wi), w1 = wg_word(w[kk][1], wi);
+        const uint32_t w2 = wg_word(w[kk][WR - 2], wi);
+        const uint32_t w3 = wg_word(w[kk][WR - 1], wi);
+        uint32_t a[4];
+        if constexpr (MOE) {  // rows g, g + 8: channels 16g + 2i, + 1
+          a[0] = wg_pair_scaled<T>(__byte_perm(w0, w1, lo), sc[2 * i]);
+          a[1] = wg_pair_scaled<T>(__byte_perm(w0, w1, hi), sc[2 * i + 1]);
+          a[2] = wg_pair_scaled<T>(__byte_perm(w2, w3, lo), sc[2 * i]);
+          a[3] = wg_pair_scaled<T>(__byte_perm(w2, w3, hi), sc[2 * i + 1]);
+        } else {
+          a[0] = wg_pair<T>(__byte_perm(w0, w1, lo));
+          a[1] = wg_pair<T>(__byte_perm(w0, w1, hi));
+          a[2] = wg_pair<T>(__byte_perm(w2, w3, lo));
+          a[3] = wg_pair<T>(__byte_perm(w2, w3, hi));
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+          wg_mma<T>(acc[i][nt], a, xv[kk][nt].x, xv[kk][nt].y);
+      }
+    }
+  };
   const int ntl = kt1 - kt0 > warp ? (kt1 - kt0 - warp + B_WARPS - 1) / B_WARPS
                                    : 0;  // this warp's tiles
   if (ntl > 0) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) load(kk, kt0 + warp);
+    for (int kk = 0; kk < KS; ++kk) load(kk, kt0 + warp);
   }
   for (int i = 0; i < ntl; ++i) {
     const int nxt = kt0 + warp + B_WARPS * (i + 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       mul(kk);
       if (i + 1 < ntl) load(kk, nxt);
     }
@@ -1205,11 +1336,11 @@ int launch_gemv(const void* x, const void* q, const float* s, void* out,
   const dim3 grid((N + B_BN - 1) / B_BN, splits);
   if (M <= 8)
     weight_gemm_gemv_kernel<T, 1, EPI><<<grid, B_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
+        static_cast<const T*>(x), static_cast<const uint8_t*>(q), s, out, ws,
         counters, M, N, K, kt_per, 1);
   else
     weight_gemm_gemv_kernel<T, 2, EPI><<<grid, B_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out, ws,
+        static_cast<const T*>(x), static_cast<const uint8_t*>(q), s, out, ws,
         counters, M, N, K, kt_per, 1);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1222,11 +1353,11 @@ int launch_gemv_moe(const void* x, const void* q, const float* s, void* out,
   const dim3 grid((N + B_BN - 1) / B_BN, 1, E);
   if (M <= 8)
     weight_gemm_gemv_kernel<T, 1, EPI_MOE><<<grid, B_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out,
+        static_cast<const T*>(x), static_cast<const uint8_t*>(q), s, out,
         nullptr, nullptr, M, N, K, nk, xe);
   else
     weight_gemm_gemv_kernel<T, 2, EPI_MOE><<<grid, B_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const int8_t*>(q), s, out,
+        static_cast<const T*>(x), static_cast<const uint8_t*>(q), s, out,
         nullptr, nullptr, M, N, K, nk, xe);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1250,17 +1381,22 @@ int launch_simt(const void* x, const void* w, const float* s, void* out,
 }  // namespace
 
 // The tensor map of a weight for the large-M route: q [K, N] int8 at ptr,
-// boxes of 64 K rows and 128 columns, written to `map` (128 bytes, host
-// memory). The wrapper keeps one a weight.
+// boxes of 64 K rows and 128 columns (the int4 build: q [K/2, N] packed,
+// boxes of 32 rows of 128 bytes), written to `map` (128 bytes, host
+// memory). K is the weight's depth in elements. The wrapper keeps one a
+// weight.
 extern "C" int weight_gemm_tmap(const void* ptr, int K, int N, void* map) {
-  if (K <= 0 || N <= 0 || N % 16 != 0)
+  if (K <= 0 || N <= 0 || N % 16 != 0 || (kW4 && K % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m;
-  const int e = encode_2d(&m, WG_I8, ptr, K, N, A_BK);
+  const int e = encode_2d(&m, WG_I8, ptr, kW4 ? K / 2 : K, N, A_QROWS);
   if (e == 0) memcpy(map, &m, sizeof m);
   return e;
 }
 
+// Each entry point below takes K in elements; its weight is int8, or
+// packed int4 in the build with WG_INT4 (module comment).
+//
 // Large-M route (wgmma). x [M, K] in `dtype` (bf16 or f16), its tensor map
 // encoded here for boxes of bm (64, 128, 192 or 256) rows; qmap: the
 // weight's map from weight_gemm_tmap; s [N] f32; epi 0 (EPI_ROUND): out
@@ -1327,11 +1463,15 @@ extern "C" int weight_gemm_gemv_launch(int dtype, int epi, const void* x,
 // f16): [K, N] row-major (nk = 0) or the transpose of a row-major [N, K]
 // (nk = 1, bf16/f16 only); s [N] f32 or null; out [M, N] f32 = (x @ w) * s.
 // ws, counters and (splits, kt_per) as above, over K tiles of 16.
+// The int4 build has no SIMT route: no int4 recipe runs f32 activations.
 extern "C" int weight_gemm_simt_launch(int wdtype, int nk, const void* x,
                                        const void* w, const void* s,
                                        void* out, void* ws, void* counters,
                                        int M, int N, int K, int splits,
                                        int kt_per, void* stream) {
+#if WG_INT4
+  return static_cast<int>(cudaErrorNotSupported);
+#else
   if (bad_shape(M, N, K) || bad_split(K, SG_BK, splits, kt_per, ws, counters))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(s);
@@ -1352,18 +1492,20 @@ extern "C" int weight_gemm_simt_launch(int wdtype, int nk, const void* x,
               : launch_simt<__half, false>(x, w, sc, out, wsp, cnt, M, N, K,
                                            splits, kt_per, st);
   return static_cast<int>(cudaErrorInvalidValue);
+#endif
 }
 
 // The tensor map of an int8 expert stack for the expert GEMM's large-M
 // route: q [E, K, N] at ptr, boxes of one expert's 64 K rows and 128
-// columns, written to `map` (128 bytes, host memory). The wrapper keeps
-// one a stack.
+// columns (int4: [E, K/2, N] packed, boxes of 32 rows), written to `map`
+// (128 bytes, host memory). The wrapper keeps one a stack.
 extern "C" int weight_gemm_moe_tmap(const void* ptr, int E, int K, int N,
                                     void* map) {
-  if (E <= 0 || K <= 0 || N <= 0 || N % 16 != 0)
+  if (E <= 0 || K <= 0 || N <= 0 || N % 16 != 0 || (kW4 && K % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m;
-  const int e = encode_map(&m, WG_I8, ptr, E, K, N, 1, A_BK);
+  const int e =
+      encode_map(&m, WG_I8, ptr, E, kW4 ? K / 2 : K, N, 1, A_QROWS);
   if (e == 0) memcpy(map, &m, sizeof m);
   return e;
 }

@@ -4,9 +4,10 @@ localai_tpu/engine/loader.py).
 Tensors are read lazily per shard from an mmap with torch.frombuffer (BF16
 included — no ml_dtypes), transposed once into the [in, out] matmul
 layout, cast to the compute dtype and placed on the target device.
-dtype="int8" casts each projection to bf16 first and then quantizes it per
-output channel on the device — the reference's order, so the int8 payload
-and scales are bit-identical to localai_tpu.engine.loader.load_params.
+dtype="int8" (or "int4"/"q4") casts each projection to bf16 first and then
+quantizes it per output channel on the device — the reference's order, so
+the int8 payload (the int4 values, packed: ops/quant) and scales are
+bit-identical to localai_tpu.engine.loader.load_params.
 Mixtral checkpoints stack each layer's experts into [E, in, out] (each
 expert quantized on its own, which equals quantizing the stack: the
 scales reduce over the input axis only) and keep the router gate [H, E]
@@ -27,7 +28,8 @@ from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.models.llama import (
     Llama, LlamaConfig, LlamaLayer, init_params,
 )
-from localai_tpu_torch.ops.quant import QuantWeight, quantize
+from localai_tpu_torch.ops.kernels import pack_int4
+from localai_tpu_torch.ops.quant import QMAX, QuantWeight, quantize
 
 # HF architectures the Llama-family decoder covers
 LLAMA_FAMILY = {
@@ -183,12 +185,11 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
                 device=None) -> Llama:
     """Load + restructure a HF Llama-family checkpoint onto `device`
     (default: the CUDA device). HF stores projections [out, in]; they are
-    transposed once here. dtype="int8" quantizes every projection (and the
-    lm_head) per output channel after the bf16 load cast."""
+    transposed once here. dtype="int8" (8 bits) or "int4"/"q4" (4)
+    quantizes every projection (and the lm_head) per output channel after
+    the bf16 load cast."""
     device = resolve_device(device)
     qbits = _QBITS.get(dtype)
-    if qbits == 4:
-        raise not_ported("int4 weights", "int4")
     tdtype = (torch.bfloat16 if qbits else
               torch_dtype(dtype) if dtype is not None else cfg.tdtype)
 
@@ -205,12 +206,12 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
         t = t.T if transpose else t
         # copy=True: the reader's mmap closes after the load
         t = t.to(device=device, dtype=tdtype, copy=True).contiguous()
-        return quantize(t) if (quant and qbits) else t
+        return quantize(t, qbits) if (quant and qbits) else t
 
     def experts(p: str, which: str):
         # block_sparse_moe.experts.{e}.w{1,2,3}: [out, in] each, stacked
-        # transposed into [E, in, out]; int8 quantizes each expert's bf16
-        # copy, so only one expert is ever held beside the int8 stack
+        # transposed into [E, in, out]; int8/int4 quantizes each expert's
+        # bf16 copy, so only one expert is ever held beside the stack
         ws = [get(f"{p}block_sparse_moe.experts.{e}.{which}.weight", True,
                   True) for e in range(cfg.num_experts)]
         if qbits:
@@ -260,24 +261,28 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
 def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
                       seed: int = 0) -> Llama:
     """Deterministic random params at any scale, made on `device` from a
-    seeded torch.Generator. The quantized case generates the int8 payload
-    and scales directly (no full-precision intermediate), sized so the
-    dequantized weights have ~1/sqrt(fan_in) std like init_params; a
-    Mixtral config gets int8 expert stacks (scales [E, 1, out]) and an f32
-    router gate, as the reference's synthetic checkpoint does."""
+    seeded torch.Generator. The quantized case generates the integer
+    payload and scales directly (no full-precision intermediate): values
+    in [-qmax, qmax] (127, or 7 for int4, packed a projection at a time),
+    each scale fan_in^-0.5 * 1.73 / qmax, so the dequantized weights have
+    ~1/sqrt(fan_in) std like init_params; a Mixtral config gets quantized
+    expert stacks (scales [E, 1, out]) and an f32 router gate, as the
+    reference's synthetic checkpoint does."""
     if qbits is None:
         return init_params(cfg, seed=seed, dtype=dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
 
+    qmax = QMAX[qbits]
+
     def qrand(shape, fan_in):
-        q = torch.randint(-127, 128, shape, generator=gen, device=device,
-                          dtype=torch.int8)
+        q = torch.randint(-qmax, qmax + 1, shape, generator=gen,
+                          device=device, dtype=torch.int8)
         s = torch.full(shape[:-2] + (1, shape[-1]),
-                       (fan_in ** -0.5) * (1.73 / 127), dtype=torch.float32,
+                       (fan_in ** -0.5) * (1.73 / qmax), dtype=torch.float32,
                        device=device)
-        return QuantWeight(q, s)
+        return QuantWeight(pack_int4(q) if qbits == 4 else q, s)
 
     def ones(n):
         return torch.ones((n,), dtype=dtype, device=device)

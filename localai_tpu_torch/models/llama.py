@@ -19,8 +19,9 @@ The ragged slice (`ragged_forward`, `build_ragged_loop`) serves mixed
 prefill+decode ticks over one flat token stream through the ragged
 attention and flat-row scatter kernels.
 Mixtral's MLP (`_moe_mlp`, on every path through `_mlp`) routes each
-token to its top-k experts with dense dispatch; int8 expert stacks go
-through the expert GEMM kernel (ops/kernels.moe_w8_matmul).
+token to its top-k experts with dense dispatch; quantized expert stacks
+go through the expert GEMM kernels (ops/kernels.moe_w8_matmul, int8;
+moe_w4_matmul, packed int4).
 
 The KV lifecycle tier (`kvt`, engine/kvtier.py) rides every paged path as
 a dict of per-slot geometry [B] int32 — "sb", "rw" (ring), "sinks",
@@ -50,10 +51,10 @@ from localai_tpu_torch.ops.attention import (
     mha_extend, mha_extend_tiered, mha_prefill_tiered,
 )
 from localai_tpu_torch.ops.kernels import (
-    QBLK, flash_prefill, head_matmul, moe_w8_matmul, paged_scatter_append,
-    paged_scatter_append_q8, paged_targets, ragged_decode, ragged_decode_q8,
-    ragged_paged_attention, ragged_paged_attention_q8, ragged_scatter_append,
-    ragged_scatter_append_q8,
+    QBLK, flash_prefill, head_matmul, moe_w4_matmul, moe_w8_matmul,
+    pack_int4, paged_scatter_append, paged_scatter_append_q8, paged_targets,
+    ragged_decode, ragged_decode_q8, ragged_paged_attention,
+    ragged_paged_attention_q8, ragged_scatter_append, ragged_scatter_append_q8,
 )
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
@@ -223,14 +224,20 @@ def _to_torch(x) -> torch.Tensor:
 
 def params_from_jax(tree, cfg: LlamaConfig, device=None) -> Llama:
     """The reference's parameter tree (numpy leaves, layers stacked on a
-    leading [L] axis, int8 projections as {"q", "s"} dicts — Mixtral's
-    expert stacks [L, E, in, out] and their scales [L, E, 1, out] too) →
-    Llama on `device` (default: the card; raises without CUDA unless "cpu"
-    is asked for)."""
+    leading [L] axis, int8 or int4 projections as {"q", "s"} dicts —
+    Mixtral's expert stacks [L, E, in, out] and their scales [L, E, 1,
+    out] too) → Llama on `device` (default: the card; raises without CUDA
+    unless "cpu" is asked for). int4 payloads (numpy's view of jnp.int4)
+    are widened to int8 and packed (ops/kernels.pack_int4)."""
     device = resolve_device(device)
 
     def leaf(x, i=None):
         if isinstance(x, dict):
+            q = np.asarray(x["q"])
+            if q.dtype.name == "int4":
+                q = pack_int4(torch.from_numpy(np.asarray(
+                    q if i is None else q[i], np.int8)))
+                return QuantWeight(q.to(device), leaf(x["s"], i))
             return QuantWeight(leaf(x["q"], i), leaf(x["s"], i))
         t = _to_torch(x if i is None else np.asarray(x)[i])
         return t.to(device)
@@ -376,9 +383,10 @@ def _qkv(x, lp, cfg: LlamaConfig):
 
 def _lm_head(x32, params: Llama):
     """Vocabulary projection in f32 (tied embeddings or separate, possibly
-    int8, lm_head) through ops/kernels.head_matmul, which reads the head as
-    stored. The int8 head is a bf16×bf16 product with f32 accumulation: the
-    activations round to bf16, int8 values are exact."""
+    quantized, lm_head) through ops/kernels.head_matmul, which reads the
+    head as stored. A quantized head (int8, or packed int4) is a bf16×bf16
+    product with f32 accumulation, then × s in f32: the activations round
+    to bf16, the integer values are exact."""
     head = params.lm_head
     if head is None:
         return head_matmul(x32, params.embed.T)
@@ -397,11 +405,14 @@ def _mlp(x, lp, cfg: LlamaConfig):
 def _experts(x, w):
     """Every expert's product: x [M, K], shared by the experts, or [M, E,
     K], expert e's own rows, against the stack w [E, K, N] → [M, E, N] in
-    x's dtype. int8 stacks go through ops/kernels.moe_w8_matmul, which
-    reads them as stored (each weight element bf16(q·s) as it loads, the
-    reference's dequantize-then-einsum rounding); bf16/f32 stacks are one
-    batched product over the experts, as the reference's einsums are."""
+    x's dtype. Quantized stacks go through ops/kernels.moe_w8_matmul
+    (int8) or moe_w4_matmul (packed int4), which read them as stored (each
+    weight element bf16(q·s) as it loads, the reference's
+    dequantize-then-einsum rounding); bf16/f32 stacks are one batched
+    product over the experts, as the reference's einsums are."""
     if is_quantized(w):
+        if w.q.dtype == torch.uint8:
+            return moe_w4_matmul(x, w.q, w.s)
         return moe_w8_matmul(x, w.q, w.s)
     if x.dim() == 2:
         x = x.unsqueeze(0).expand(w.shape[0], -1, -1)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port (counterparts of
 localai_tpu/ops/pallas, and — weight_gemm — of the XLA-fused weight
-products of localai_tpu/ops/quant.py and models/llama.py, Mixtral's int8
-experts included). Importing this package builds nothing: each kernel's
-shared library is compiled with nvcc at its first launch (_build.py).
+products of localai_tpu/ops/quant.py and models/llama.py, int8 and
+packed int4, Mixtral's experts included). Importing this package builds
+nothing: each kernel's shared library is compiled with nvcc at its first
+launch (_build.py).
 
 Every wrapper adds one to its own count where it launches its kernel, and
 nowhere else; `launch_counts()` reads all the counts, `reset_launch_counts()`
@@ -51,8 +52,14 @@ from localai_tpu_torch.ops.kernels.weight_gemm import (  # noqa: F401
     gemm_split,
     head_matmul,
     head_matmul_plain,
+    moe_w4_matmul,
+    moe_w4_matmul_plain,
     moe_w8_matmul,
     moe_w8_matmul_plain,
+    pack_int4,
+    unpack_int4,
+    w4a16_matmul,
+    w4a16_matmul_plain,
     w8a16_matmul,
     w8a16_matmul_plain,
 )

@@ -6,7 +6,9 @@ library is compiled at its first use — never when a module is imported —
 into `localai_tpu_torch/csrc/build/`, named by a digest of its sources and
 flags so an edited kernel is never served stale. All missing libraries
 build in parallel (one nvcc per source, started together). A failed build
-raises; nothing falls back to the plain versions.
+raises; nothing falls back to the plain versions. A library may be a
+second build of another's source with flags of its own (VARIANTS: the
+int4 weight GEMMs are weight_gemm.cu built with WG_INT4).
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("flash_prefill", "decode_attention", "paged_scatter",
-           "ragged_attention", "weight_gemm")
+           "ragged_attention", "weight_gemm", "weight_gemm4")
+# library -> (the source it builds from, its extra nvcc flags)
+VARIANTS = {"weight_gemm4": ("weight_gemm", ("-DWG_INT4=1",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,6 +89,7 @@ SIGNATURES = {
                                    _I, _I, _P],
     },
 }
+SIGNATURES["weight_gemm4"] = SIGNATURES["weight_gemm"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -105,13 +110,19 @@ def nvcc_path() -> str:
                        "kernels are compiled at first use")
 
 
+def _source(name: str) -> tuple:
+    """(path of the .cu that library `name` builds from, its nvcc flags)."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, src + ".cu"), NVCC_FLAGS + extra
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [
-            os.path.join(CSRC, name + ".cu")]:
+    src, flags = _source(name)
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [src]:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:12]
 
 
@@ -134,8 +145,8 @@ def build_all(names=SOURCES) -> dict:
         procs = {}
         for n in todo:
             tmp = so_path(n) + f".tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, n + ".cu")]
+            src, flags = _source(n)
+            cmd = [nvcc, *flags, "-o", tmp, src]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
                         tmp)
@@ -144,7 +155,8 @@ def build_all(names=SOURCES) -> dict:
             log, _ = p.communicate()
             took[n] = time.perf_counter() - t0
             if p.returncode != 0:
-                errors.append(f"nvcc failed for {n}.cu:\n{log}")
+                errors.append(f"nvcc failed for {n} "
+                              f"({' '.join(_source(n)[1])}):\n{log}")
                 continue
             os.replace(tmp, so_path(n))
         if errors:

@@ -2,9 +2,21 @@
 PyTorch versions (counterparts of three products the reference leaves to
 XLA, which fuses each weight's convert into its dot:
 localai_tpu/ops/quant.py:78-80, localai_tpu/models/llama.py:347-364 and
-the int8 expert einsums of localai_tpu/models/llama.py:383-409).
+the quantized expert einsums of localai_tpu/models/llama.py:383-409), for
+int8 weights and for packed int4 weights.
 
-Three wrappers, each beside its plain version with the same signature:
+Packed int4 (the int4/q4 recipe): q uint8 [..., K/2, N], byte (j, n)
+holding element (2j, n) in its low nibble and (2j + 1, n) in its high
+nibble, each a two's-complement value in [-7, 7]; scales f32 [..., 1, N]
+as for int8. pack_int4 / unpack_int4 are the one place that knows the
+layout (ops/quant quantizes through them). Each int8 wrapper has an int4
+twin that computes the same function on the unpacked values:
+w4a16_matmul (w8a16_matmul's), moe_w4_matmul (moe_w8_matmul's), and
+head_matmul on a packed head (the int8 head's; counted apart, as
+head_matmul_int4). K must be even.
+
+Three int8 wrappers, each beside its plain version with the same
+signature:
 - w8a16_matmul / _plain — x [..., K] (bf16, f16 or f32) @ int8 q [K, N],
   then * s [1, N]: the int8 recipe's projections (ops/quant.qmatmul). The
   sum is taken in f32 and rounds once to x's dtype, the scale rounds to
@@ -37,6 +49,16 @@ weight is cast or copied per call: a weight that is not contiguous (or,
 for the head, the transpose of a contiguous tensor) or not 16-byte
 aligned raises. K and N must be multiples of 16.
 
+The int4 twins run the same routes from a second build of
+csrc/weight_gemm.cu (library "weight_gemm4", WG_INT4): the decode route
+over K tiles of 128 (the bytes of int8's 64), the large-M route over TMA
+tiles of [32][128] packed bytes; no SIMT route (f32 activations on int4
+weights raise on the card; no recipe serves them). The plans stand as
+int8's: the decode route's split counts its deeper tiles (w8_plan's
+`bits`), the large-M route's row tile and split keep wgmma_cost, whose
+terms (rows of x and the conversion a weight element, per K tile of 64)
+do not change with the width, and whose bytes it does not count.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — no size threshold, probe or switch sends a
 CUDA tensor elsewhere. Each launch adds one to its count in LAUNCHES, and
@@ -54,11 +76,14 @@ from localai_tpu_torch.ops.kernels.flash_attention import (
     _raise_rc, _sm_count, _stream,
 )
 
-LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0, "moe_w8_matmul": 0}
+LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0, "moe_w8_matmul": 0,
+            "w4a16_matmul": 0, "head_matmul_int4": 0, "moe_w4_matmul": 0}
 
 # csrc/weight_gemm.cu's dtype codes
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
          torch.int8: 3}
+# the library of each weight storage: int8, or packed int4 (uint8)
+_LIB = {torch.int8: "weight_gemm", torch.uint8: "weight_gemm4"}
 
 # (rows, columns, K depth) of a block's tile on each route of
 # csrc/weight_gemm.cu: the decode route takes all M <= GEMV_ROWS rows, the
@@ -66,6 +91,7 @@ _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 # SIMT route 8 rows
 GEMV_ROWS = 16
 GEMV = (GEMV_ROWS, 128, 64)
+GEMV4 = (GEMV_ROWS, 128, 128)  # int4: K tiles of the same bytes
 WGMMA_ROWS = (64, 128, 192, 256)
 WGMMA_BN, WGMMA_BK = 128, 64
 SIMT = (8, 512, 16)
@@ -116,14 +142,16 @@ def wgmma_cost(M: int, N: int, K: int, bm: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def w8_plan(M: int, N: int, K: int, sms: int):
-    """(route, tile, splits, K tiles a split) of an int8 projection x [M,
-    K] @ q [K, N] on the tensor cores. The route is a rule of M alone:
-    "gemv" (mma.sync, the weight converted in registers) up to GEMV_ROWS
-    rows, "wgmma" above. On the wgmma route the row tile is the one of
-    WGMMA_ROWS that wgmma_cost puts lowest, the larger on a tie."""
+def w8_plan(M: int, N: int, K: int, sms: int, bits: int = 8):
+    """(route, tile, splits, K tiles a split) of an int8 (or, bits=4,
+    packed int4) projection x [M, K] @ q [K, N] on the tensor cores. The
+    route is a rule of M alone: "gemv" (mma.sync, the weight converted in
+    registers) up to GEMV_ROWS rows, "wgmma" above. On the wgmma route
+    the row tile is the one of WGMMA_ROWS that wgmma_cost puts lowest, the
+    larger on a tie."""
     if M <= GEMV_ROWS:
-        return ("gemv", GEMV) + gemm_split(M, N, K, GEMV, sms,
+        tile = GEMV4 if bits == 4 else GEMV
+        return ("gemv", tile) + gemm_split(M, N, K, tile, sms,
                                            PER_SM["gemv"], nearest=True)
     bm = min(WGMMA_ROWS, key=lambda b: (wgmma_cost(M, N, K, b, sms), -b))
     tile = (bm, WGMMA_BN, WGMMA_BK)
@@ -146,6 +174,28 @@ def moe_plan(M: int, N: int, K: int, E: int, sms: int) -> int:
     return min(WGMMA_ROWS, key=lambda b: (cost(b), -b))
 
 
+# --------------------------------------------------------- int4 packing
+
+def pack_int4(q):
+    """int8 values in [-8, 7] [..., K, N] (K even) -> the packed uint8
+    [..., K/2, N]: K row 2j in the low nibble of byte row j, 2j + 1 in the
+    high one, each as its two's-complement nibble."""
+    if q.shape[-2] % 2:
+        raise ValueError(f"int4 weights need an even K (input rows), got "
+                         f"{q.shape[-2]}")
+    u = (q.to(torch.int16) & 15).to(torch.uint8)
+    return u[..., 0::2, :] | (u[..., 1::2, :] << 4)
+
+
+def unpack_int4(p):
+    """The packed uint8 [..., K/2, N] -> int8 values [..., K, N]."""
+    lo = (p & 15).to(torch.int8)
+    hi = (p >> 4).to(torch.int8)
+    q = torch.stack([lo, hi], dim=-2)       # [..., K/2, 2, N]
+    q = torch.where(q >= 8, q - 16, q)
+    return q.reshape(*p.shape[:-2], 2 * p.shape[-2], p.shape[-1])
+
+
 # ------------------------------------------------------------------ plain
 
 def w8a16_matmul_plain(x, q, s):
@@ -153,6 +203,18 @@ def w8a16_matmul_plain(x, q, s):
     the product, then the scale in x's dtype (the reference's order)."""
     y = x @ q.to(x.dtype)
     return y * s.reshape((1,) * (y.ndim - 1) + (-1,)).to(y.dtype)
+
+
+def w4a16_matmul_plain(x, q, s):
+    """Plain version of w4a16_matmul: the packed weight unpacked to int8,
+    then w8a16_matmul_plain's arithmetic."""
+    return w8a16_matmul_plain(x, unpack_int4(q), s)
+
+
+def moe_w4_matmul_plain(x, q, s):
+    """Plain version of moe_w4_matmul: the packed stack unpacked to int8,
+    then moe_w8_matmul_plain's arithmetic."""
+    return moe_w8_matmul_plain(x, unpack_int4(q), s)
 
 
 def moe_w8_matmul_plain(x, q, s):
@@ -166,8 +228,11 @@ def moe_w8_matmul_plain(x, q, s):
 
 def head_matmul_plain(x32, w, s=None):
     """Plain version of head_matmul: f32 logits of x32 against the head's
-    f32 values; with `s` (an int8 head) x32 rounds to bf16 first."""
+    f32 values; with `s` (an int8 or packed int4 head) x32 rounds to bf16
+    first."""
     if s is not None:
+        if w.dtype == torch.uint8:
+            w = unpack_int4(w)
         y = x32.to(torch.bfloat16).float() @ w.float()
         return y * s.float()
     return x32 @ w.float()
@@ -178,15 +243,24 @@ def head_matmul_plain(x32, w, s=None):
 _ACT = (torch.bfloat16, torch.float16, torch.float32)
 
 
-def _weight_checks(name, x, w, s, dtypes):
+def _weight_checks(name, x, w, s, dtypes, qdtype=torch.int8):
     """(K, N, nk) of the weight w [K, N] (nk: w is the transpose of a
-    row-major [N, K]); raises, naming the limit, on what the kernels do
-    not take. Shapes, dtypes and layouts only (a meta tensor will do).
-    Nothing is copied: a weight is used as it lies in memory."""
+    row-major [N, K]); with scales s, w must be a contiguous `qdtype`
+    weight: int8 [K, N], or uint8 [K/2, N] packed int4. Raises, naming the
+    limit, on what the kernels do not take. Shapes, dtypes and layouts
+    only (a meta tensor will do). Nothing is copied: a weight is used as
+    it lies in memory."""
     if w.dim() != 2:
         raise ValueError(f"{name}: the weight must be 2-D [K, N], got "
                          f"{tuple(w.shape)}")
+    if s is not None and (w.dtype != qdtype or not w.is_contiguous()):
+        raise ValueError(
+            f"{name}: the weight must be a contiguous "
+            + ("packed int4 uint8 [K/2, N]" if qdtype == torch.uint8
+               else "int8 [K, N]") + f", got {w.dtype}")
     K, N = w.shape
+    if s is not None and qdtype == torch.uint8:
+        K *= 2
     if x.shape[-1] != K:
         raise ValueError(f"{name}: x has {x.shape[-1]} features, the weight "
                          f"{K} rows")
@@ -197,9 +271,6 @@ def _weight_checks(name, x, w, s, dtypes):
         raise ValueError(f"{name}: K ({K}) and N ({N}) must be multiples of "
                          f"16 (16-byte weight rows)")
     if s is not None:
-        if w.dtype != torch.int8 or not w.is_contiguous():
-            raise ValueError(f"{name}: an int8 weight must be a contiguous "
-                             f"int8 [K, N], got {w.dtype}")
         if s.dtype != torch.float32 or s.numel() != N \
                 or not s.is_contiguous():
             raise ValueError(f"{name}: scales must be a contiguous f32 "
@@ -215,13 +286,19 @@ def _weight_checks(name, x, w, s, dtypes):
     return K, N, nk
 
 
-def _moe_checks(name, x, q, s):
-    """(E, K, N) of the expert GEMM's stack q [E, K, N]; raises, naming the
-    limit, on what its kernel does not take."""
-    if q.dim() != 3 or q.dtype != torch.int8 or not q.is_contiguous():
-        raise ValueError(f"{name}: the experts must be a contiguous int8 "
-                         f"[E, K, N], got {q.dtype} {tuple(q.shape)}")
+def _moe_checks(name, x, q, s, qdtype=torch.int8):
+    """(E, K, N) of the expert GEMM's stack q: int8 [E, K, N], or (qdtype
+    uint8) packed int4 [E, K/2, N]; raises, naming the limit, on what its
+    kernel does not take."""
+    if q.dim() != 3 or q.dtype != qdtype or not q.is_contiguous():
+        raise ValueError(
+            f"{name}: the experts must be a contiguous "
+            + ("packed int4 uint8 [E, K/2, N]" if qdtype == torch.uint8
+               else "int8 [E, K, N]") + f", got {q.dtype} "
+            f"{tuple(q.shape)}")
     E, K, N = q.shape
+    if qdtype == torch.uint8:
+        K *= 2
     if x.dim() not in (2, 3) or x.shape[-1] != K or (
             x.dim() == 3 and x.shape[1] != E):
         raise ValueError(f"{name}: x must be [M, {K}] or [M, {E}, {K}], "
@@ -289,44 +366,48 @@ def _counters(device):
 
 @functools.lru_cache(maxsize=4096)
 def _weight_map(ptr: int, shape: tuple, dtype) -> ctypes.Array:
-    """The large-route tensor map (128 bytes, host memory) of the int8
-    weight [K, N] at ptr: a weight lives for the process, so its map is
-    encoded once. The map holds only the address and the shape, so a key
-    names one map."""
+    """The large-route tensor map (128 bytes, host memory) of the weight at
+    ptr of `shape` (K, N) in elements: int8 [K, N], or packed int4 (dtype
+    uint8) [K/2, N]. A weight lives for the process, so its map is encoded
+    once. The map holds only the address, the shape and the width, so a
+    key names one map."""
     buf = ctypes.create_string_buffer(128)
-    rc = _build.load("weight_gemm").weight_gemm_tmap(
+    rc = _build.load(_LIB[dtype]).weight_gemm_tmap(
         ptr, shape[0], shape[1], ctypes.addressof(buf))
     _raise_rc("weight tensor map", rc)
     return buf
 
 
 @functools.lru_cache(maxsize=4096)
-def _moe_map(ptr: int, shape: tuple) -> ctypes.Array:
-    """The large-route tensor map of the int8 stack [E, K, N] at ptr,
-    encoded once a stack (as _weight_map)."""
+def _moe_map(ptr: int, shape: tuple, dtype) -> ctypes.Array:
+    """The large-route tensor map of the expert stack at ptr of `shape`
+    (E, K, N) in elements (int8, or packed int4 [E, K/2, N]), encoded once
+    a stack (as _weight_map)."""
     buf = ctypes.create_string_buffer(128)
-    rc = _build.load("weight_gemm").weight_gemm_moe_tmap(
+    rc = _build.load(_LIB[dtype]).weight_gemm_moe_tmap(
         ptr, shape[0], shape[1], shape[2], ctypes.addressof(buf))
     _raise_rc("expert tensor map", rc)
     return buf
 
 
 def _launch_w8(name, x2, q, s, out, epi):
-    """Tensor-core routes: x2 [M, K] bf16/f16, q [K, N] int8, s [N] f32."""
+    """Tensor-core routes: x2 [M, K] bf16/f16, q int8 [K, N] or packed
+    int4 uint8 [K/2, N], s [N] f32."""
     M, K = x2.shape
     N = q.shape[1]
-    route, tile, splits, per = w8_plan(M, N, K, _sm_count(x2.device))
+    route, tile, splits, per = w8_plan(M, N, K, _sm_count(x2.device),
+                                       4 if q.dtype == torch.uint8 else 8)
     ws = _workspace(splits, M, N, x2.device)
     wsp = None if ws is None else ws.data_ptr()
     cnt = _counters(x2.device).data_ptr()
-    lib = _build.load("weight_gemm")
+    lib = _build.load(_LIB[q.dtype])
     if route == "gemv":
         rc = lib.weight_gemm_gemv_launch(
             _CODE[x2.dtype], epi, x2.data_ptr(), q.data_ptr(), s.data_ptr(),
             out.data_ptr(), wsp, cnt, M, N, K, splits, per,
             _stream(x2.device))
     else:
-        qmap = _weight_map(q.data_ptr(), tuple(q.shape), q.dtype)
+        qmap = _weight_map(q.data_ptr(), (K, N), q.dtype)
         rc = lib.weight_gemm_wgmma_launch(
             _CODE[x2.dtype], epi, tile[0], x2.data_ptr(),
             ctypes.addressof(qmap), s.data_ptr(), out.data_ptr(), wsp, cnt,
@@ -374,16 +455,37 @@ def w8a16_matmul(x, q, s):
     return out.reshape(*x.shape[:-1], N)
 
 
+def w4a16_matmul(x, q, s):
+    """x [..., K] (bf16 or f16; f32 on the CPU only) @ packed int4 q uint8
+    [K/2, N] with per-output-channel scales s [1, N] f32 → [..., N] in x's
+    dtype, computed as w4a16_matmul_plain computes it (w8a16_matmul's
+    function on the unpacked values)."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, q, s)
+    name = "w4a16_matmul"
+    K, N, _ = _weight_checks(name, x, q, s, _ACT[:2], qdtype=torch.uint8)
+    _placement_checks(name, x, (q, s))
+    x2 = _rows(x, K)
+    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
+    if x2.shape[0]:
+        _launch_w8(name, x2, q, s, out, epi=0)
+        LAUNCHES[name] += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
 def head_matmul(x32, w, s=None):
     """f32 logits [..., V] of x32 [..., K] f32 against the head w [K, V]:
     bf16/f16 (row-major, or `embed.T` of a tied row-major [V, K]
-    embedding), int8 with scales s [1, V] f32, or f32 (a plain product)."""
+    embedding), int8 [K, V] or packed int4 uint8 [K/2, V] with scales s
+    [1, V] f32 (counted as head_matmul_int4), or f32 (a plain product)."""
     if x32.device.type == "cpu":
         return head_matmul_plain(x32, w, s)
     if s is None and w.dtype == torch.float32:
         return x32 @ w
-    name = "head_matmul"
-    K, V, nk = _weight_checks(name, x32, w, s, (torch.float32,))
+    packed = s is not None and w.dtype == torch.uint8
+    name = "head_matmul_int4" if packed else "head_matmul"
+    K, V, nk = _weight_checks(name, x32, w, s, (torch.float32,),
+                              qdtype=torch.uint8 if packed else torch.int8)
     _placement_checks(name, x32, (w,) if s is None else (w, s))
     x2 = _rows(x32, K)
     out = torch.empty((x2.shape[0], V), dtype=torch.float32,
@@ -406,8 +508,21 @@ def moe_w8_matmul(x, q, s):
     expert."""
     if x.device.type == "cpu":
         return moe_w8_matmul_plain(x, q, s)
-    name = "moe_w8_matmul"
-    E, K, N = _moe_checks(name, x, q, s)
+    return _moe_launch("moe_w8_matmul", x, q, s, torch.int8)
+
+
+def moe_w4_matmul(x, q, s):
+    """moe_w8_matmul's function on Mixtral's packed int4 stack q uint8 [E,
+    K/2, N] (scales s f32 [E, 1, N]), computed as moe_w4_matmul_plain
+    computes it. One launch for every expert."""
+    if x.device.type == "cpu":
+        return moe_w4_matmul_plain(x, q, s)
+    return _moe_launch("moe_w4_matmul", x, q, s, torch.uint8)
+
+
+def _moe_launch(name, x, q, s, qdtype):
+    """The expert GEMM on the card for an int8 or packed int4 stack."""
+    E, K, N = _moe_checks(name, x, q, s, qdtype)
     _placement_checks(name, x, (q, s))
     if not x.is_contiguous() or x.data_ptr() % 16:
         x = x.clone(memory_format=torch.contiguous_format)
@@ -415,8 +530,8 @@ def moe_w8_matmul(x, q, s):
     out = torch.empty((M, E, N), dtype=x.dtype, device=x.device)
     if M:
         bm = moe_plan(M, N, K, E, _sm_count(x.device))
-        qmap = _moe_map(q.data_ptr(), tuple(q.shape)) if bm else None
-        rc = _build.load("weight_gemm").weight_gemm_moe_launch(
+        qmap = _moe_map(q.data_ptr(), (E, K, N), qdtype) if bm else None
+        rc = _build.load(_LIB[qdtype]).weight_gemm_moe_launch(
             _CODE[x.dtype], bm, x.data_ptr(), 1 if x.dim() == 2 else E,
             q.data_ptr(), None if qmap is None else ctypes.addressof(qmap),
             s.data_ptr(), out.data_ptr(), M, N, K, E, _stream(x.device))

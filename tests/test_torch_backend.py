@@ -6,11 +6,13 @@ import hygiene.
   streams greedy text EQUAL to the JAX package's `llm` backend (f32, tiny
   checkpoint); so does the port's servicer loaded with `kv_pages` (the
   paged KV pool) against the JAX backend loaded the same way.
-- In a subprocess, importing the port's backend and engine leaves no `jax`
-  or `localai_tpu` module in sys.modules.
-- An AST scan finds no `jax` / `localai_tpu` import anywhere in
-  localai_tpu_torch/ or the chip scripts (chip_smoke.py, chip_profile.py,
-  chip_rows.py, chip_stage_sweep.py, chip_host_tier.py).
+- In a subprocess, importing the port's backend, engine, loader and
+  quantization leaves no `jax`, `ml_dtypes` or `localai_tpu` module in
+  sys.modules.
+- An AST scan finds no `jax` / `localai_tpu` / `ml_dtypes` import
+  anywhere in localai_tpu_torch/ or the chip scripts (chip_smoke.py,
+  chip_profile.py, chip_rows.py, chip_stage_sweep.py,
+  chip_host_tier.py).
   (`localai_tpu_torch` starts with "localai_tpu": the checks match the
   name exactly or with a dot.)
 """
@@ -36,7 +38,7 @@ def ckpt(tmp_path_factory):
 
 def _forbidden(mod: str) -> bool:
     return any(mod == p or mod.startswith(p + ".")
-               for p in ("jax", "jaxlib", "localai_tpu"))
+               for p in ("jax", "jaxlib", "localai_tpu", "ml_dtypes"))
 
 
 LOAD = dict(dtype="float32", parallel=2, context_size=128,
@@ -200,6 +202,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import localai_tpu_torch.engine.resume\n"
         "import localai_tpu_torch.models.llama\n"
         "import localai_tpu_torch.ops.kernels\n"
+        "import localai_tpu_torch.ops.quant\n"
+        "import localai_tpu_torch.engine.loader\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -210,6 +214,7 @@ def test_import_leaves_no_jax_in_sys_modules():
     assert "localai_tpu_torch.engine.speculative" in mods
     assert "localai_tpu_torch.engine.kvhost" in mods
     assert "localai_tpu_torch.engine.resume" in mods
+    assert "localai_tpu_torch.ops.kernels.weight_gemm" in mods
     bad = [m for m in mods if _forbidden(m)]
     assert bad == []
 
@@ -235,9 +240,12 @@ def test_ast_no_jax_or_reference_imports():
     for name in ("spec.py", "speculative.py", "kvhost.py", "resume.py"):
         assert os.path.join(ROOT, "localai_tpu_torch", "engine",
                             name) in files
+    for name in ("quant.py", os.path.join("kernels", "weight_gemm.py")):
+        assert os.path.join(ROOT, "localai_tpu_torch", "ops", name) in files
     bad = [(os.path.relpath(f, ROOT), line, mod) for f in files
            for line, mod in _imports(f) if _forbidden(mod)]
     assert bad == []
     # the prefix trap: the port's own name is not a reference import
     assert not _forbidden("localai_tpu_torch.engine")
     assert _forbidden("localai_tpu.engine") and _forbidden("jax")
+    assert _forbidden("ml_dtypes")

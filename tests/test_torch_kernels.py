@@ -212,6 +212,11 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     tk.w8a16_matmul(xw, qw, sw)
     tk.head_matmul(xw, qw, sw)
     tk.moe_w8_matmul(xw, qw.repeat(3, 1, 1), sw.repeat(3, 1, 1))
+    # their int4 twins, on a packed weight
+    q4 = tk.pack_int4(qw)
+    tk.w4a16_matmul(xw, q4, sw)
+    tk.head_matmul(xw, q4, sw)
+    tk.moe_w4_matmul(xw, q4.repeat(3, 1, 1), sw.repeat(3, 1, 1))
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
@@ -226,7 +231,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                            "ragged_paged_attention_q8_tier",
                            "ragged_scatter_append",
                            "ragged_scatter_append_q8", "w8a16_matmul",
-                           "head_matmul", "moe_w8_matmul"}
+                           "head_matmul", "moe_w8_matmul", "w4a16_matmul",
+                           "head_matmul_int4", "moe_w4_matmul"}
     assert not any(counts.values())
 
 

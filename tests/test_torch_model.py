@@ -6,13 +6,16 @@ Tolerances:
 - loader parameters: EXACT (same bytes; int8 payloads and scales
   bit-identical to the reference's quantization);
 - f32 logits: 1e-4 — two layers of f32 matmuls summed in another order;
-- int8 weights (bf16 activations): 6e-2 on logits of magnitude ~1 — bf16
-  rounds at slightly different places in the two frameworks (fused XLA
-  elementwise chains vs one rounding per torch op). The reference runs
+- int8 and int4 weights (bf16 activations): 6e-2 on logits of magnitude
+  ~1 — bf16 rounds at slightly different places in the two frameworks
+  (fused XLA elementwise chains vs one rounding per torch op), and int4's
+  coarser values move no rounding further than int8's. The reference runs
   with LOCALAI_FORCE_PALLAS=1 so its attention is the Pallas kernels
   (interpret mode) whose f32 math the port's kernels share — its default
   CPU path dequantizes int8 KV to bf16 instead (ops/kvcache.dequant).
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,7 @@ from localai_tpu.ops.rope import rope_table as jrope_table
 from localai_tpu_torch.engine import loader as tloader
 from localai_tpu_torch.models import llama as tllama
 from localai_tpu_torch.ops import quant as tquant
+from localai_tpu_torch.ops.kernels import unpack_int4
 from localai_tpu_torch.ops.kvcache import QuantKV as TQuantKV
 from localai_tpu_torch.ops.quant import is_quantized
 from localai_tpu_torch.ops.rope import rope_table as trope_table
@@ -42,13 +46,16 @@ def ckpt(tmp_path_factory):
 
 
 def _flat_jax(tree):
-    """{name: numpy} with per-layer slices, int8 leaves as name.q / name.s."""
+    """{name: numpy} with per-layer slices, int8 leaves as name.q / name.s
+    (int4 payloads widened to int8)."""
     out = {}
 
     def put(name, x):
         if isinstance(x, dict):
             put(name + ".q", x["q"])
             put(name + ".s", x["s"])
+        elif x.dtype == jnp.int4:
+            out[name] = np.asarray(x, np.int8)
         else:
             out[name] = np.asarray(jnp.asarray(x, jnp.float32)
                                    if x.dtype == jnp.bfloat16 else x)
@@ -65,13 +72,17 @@ def _flat_jax(tree):
 
 
 def _flat_torch(model):
+    """{name: numpy} of every buffer; packed int4 payloads unpacked."""
     out = {}
     for name, t in model.named_buffers():
+        if t.dtype == torch.uint8:
+            t = unpack_int4(t)
         out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4",
+                                   "q4"])
 def test_loader_params_equal_reference(ckpt, dtype):
     jcfg = jloader.load_config(ckpt, dtype=dtype)
     tcfg = tloader.load_config(ckpt, dtype=dtype)
@@ -143,11 +154,13 @@ def test_params_from_jax_defaults_to_cuda(ckpt):
                                   device="cpu").embed.device.type == "cpu"
 
 
-def test_mixtral_waits_for_its_slice():
-    """The Mixtral slice is ported: a MoE config initializes (router gate
-    f32 [H, E], expert stacks [E, in, out]) and quantizes its experts to
-    int8; int4 weights are what still wait, for the int4 slice, in
-    quantize_params and in the loader."""
+def test_mixtral_waits_for_its_slice(monkeypatch, tmp_path):
+    """The Mixtral slice is ported (the name is the refusal test's): a MoE
+    config initializes (router gate f32 [H, E], expert stacks [E, in,
+    out]) and quantizes its experts to int8 or, since the int4 slice, to
+    packed int4 (q uint8 [E, in/2, out]) in quantize_params; the loader
+    takes dtype="int4" (a synthetic checkpoint's int4 payloads in [-7, 7]
+    and its scales); the router gate is never quantized."""
     cfg = tllama.LlamaConfig(num_experts=4, num_layers=1, hidden_size=8,
                              intermediate_size=16, num_heads=2,
                              num_kv_heads=2, head_dim=4, vocab_size=16)
@@ -157,13 +170,31 @@ def test_mixtral_waits_for_its_slice():
     assert tuple(layer.moe_gate.shape) == (8, 4)
     assert tuple(layer.moe_w1.shape) == (4, 8, 16)
     assert tuple(layer.moe_w2.shape) == (4, 16, 8)
-    with pytest.raises(NotImplementedError, match="int4 slice"):
-        tquant.quantize_params(model, bits=4)
+    m4 = tquant.quantize_params(tllama.init_params(cfg), bits=4)
+    assert m4.layers[0].moe_w1.q.dtype == torch.uint8
+    assert tuple(m4.layers[0].moe_w1.q.shape) == (4, 4, 16)
+    assert tuple(m4.layers[0].moe_w2.q.shape) == (4, 8, 8)
+    assert m4.layers[0].moe_gate.dtype == torch.float32
     tquant.quantize_params(model)
     assert tuple(layer.moe_w3.s.shape) == (4, 1, 16)
     assert layer.moe_gate.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int4 slice"):
-        tloader.load_params("/nonexistent", cfg, dtype="int4", device="cpu")
+    monkeypatch.setenv("LOCALAI_ALLOW_SYNTHETIC", "1")
+    d = tmp_path / "synthetic"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(
+        {"architectures": ["MixtralForCausalLM"], "vocab_size": 16,
+         "hidden_size": 8, "intermediate_size": 16, "num_hidden_layers": 1,
+         "num_attention_heads": 2, "num_key_value_heads": 2, "head_dim": 4,
+         "num_local_experts": 4, "localai_synthetic": True}))
+    s4 = tloader.load_params(str(d), tloader.load_config(str(d), "int4"),
+                             dtype="int4", device="cpu")
+    w1 = s4.layers[0].moe_w1
+    assert w1.q.dtype == torch.uint8 and tuple(w1.q.shape) == (4, 4, 16)
+    vals = unpack_int4(w1.q)
+    assert int(vals.min()) >= -7 and int(vals.max()) <= 7
+    torch.testing.assert_close(w1.s, torch.full((4, 1, 16),
+                                                8 ** -0.5 * 1.73 / 7))
+    assert s4.layers[0].moe_gate.dtype == torch.float32
 
 
 def _models(ckpt, dtype):
@@ -193,14 +224,16 @@ def _caches_equalish(jc, tc, tol):
             _np(tc.float()), np.asarray(jc, np.float32), rtol=tol, atol=tol)
 
 
-CASES = [("float32", "", 1e-4), ("int8", "", 6e-2), ("int8", "int8", 6e-2)]
+CASES = [("float32", "", 1e-4), ("int8", "", 6e-2), ("int8", "int8", 6e-2),
+         ("int4", "", 6e-2), ("int4", "int8", 6e-2)]
 
 
 @pytest.mark.parametrize("dtype,cache_type,tol", CASES,
-                         ids=["f32", "int8w", "int8w_int8kv"])
+                         ids=["f32", "int8w", "int8w_int8kv", "int4w",
+                              "int4w_int8kv"])
 def test_prefill_decode_extend_logits(ckpt, monkeypatch, dtype, cache_type,
                                       tol):
-    if dtype == "int8":
+    if dtype in ("int8", "int4"):
         monkeypatch.setenv("LOCALAI_FORCE_PALLAS", "1")
     jcfg, jp, tcfg, tp = _models(ckpt, dtype)
     B = 2

@@ -8,8 +8,8 @@ Tolerances:
 - f32: 1e-5 for _moe_mlp (the same f32 products, summed in another
   order); 2e-3 for prefill logits against HF, as the reference's own
   test holds itself; greedy and seeded-sampled streams token for token.
-- bf16 and int8 _moe_mlp (x and expert weights bf16; int8 experts
-  dequantized to the same bf16 bits in both packages): atol 2e-2 on
+- bf16, int8 and int4 _moe_mlp (x and expert weights bf16; quantized
+  experts dequantized to the same bf16 bits in both packages): atol 2e-2 on
   outputs of magnitude ~1. Each of the five bf16 roundings (the two
   expert products, silu, the gated product, the down product, the
   combine) can fall one bf16 step (2**-8 relative) apart when its f32 sum
@@ -163,12 +163,14 @@ def test_synthetic_mixtral_params(monkeypatch, mixtral_ckpt, tmp_path):
 
 def _layer_pair(cfg_kw, dtype, quantize, seed=0):
     """One layer's MoE leaves from the reference's init_params (numpy),
-    as the reference's per-layer dict and the port's LlamaLayer."""
+    as the reference's per-layer dict and the port's LlamaLayer;
+    `quantize`: False, True (int8) or 4 (int4, the reference's jnp.int4
+    stacks packed by params_from_jax)."""
     jcfg = jllama.LlamaConfig(**cfg_kw)
     tree = jllama.init_params(jcfg, jax.random.PRNGKey(seed),
                               dtype=jnp.dtype(dtype))
     if quantize:
-        tree = jquant.quantize_params(tree)
+        tree = jquant.quantize_params(tree, bits=4 if quantize == 4 else 8)
     tree = jax.tree_util.tree_map(np.asarray, tree)
     tcfg = tllama.LlamaConfig(**cfg_kw)
     tp = tllama.params_from_jax(tree, tcfg, device="cpu")
@@ -182,11 +184,14 @@ MOE_CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=48,
                num_experts=4, experts_per_tok=2, dtype="float32")
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "int4"])
 def test_moe_mlp_equals_reference(kind):
     dtype = "float32" if kind == "f32" else "bfloat16"
     jl, tl, _ = _layer_pair(dict(MOE_CFG, dtype=dtype), dtype,
-                            quantize=kind == "int8")
+                            quantize={"int8": True, "int4": 4}.get(kind,
+                                                                   False))
+    if kind == "int4":
+        assert tl["moe_w1"].q.dtype == torch.uint8
     assert tl["moe_gate"].dtype == torch.float32
     x = np.random.default_rng(1).standard_normal((3, 5, 32)).astype(
         np.float32)

@@ -24,6 +24,7 @@ from localai_tpu_torch.ops import kvcache as tkv
 from localai_tpu_torch.ops import norms as tnorms
 from localai_tpu_torch.ops import quant as tquant
 from localai_tpu_torch.ops import rope as trope
+from localai_tpu_torch.ops.kernels import unpack_int4
 from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -145,8 +146,26 @@ def test_quantize_bit_identical(src):
 
 
 def test_int4_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="int4"):
-        tquant.quantize(torch.zeros(4, 4), bits=4)
+    """The int4 slice is ported (the name is the refusal test's): bits=4
+    quantizes to the reference's values, packed two a byte (unpacked here,
+    bit-identical), and loads through qmatmul; an odd K, which no byte
+    pair can hold, still raises, naming the limit."""
+    r = _rng(4)
+    w = (r.standard_normal((24, 40)) * 0.3).astype(np.float32)
+    ref = jquant.quantize(jnp.asarray(w), bits=4)
+    mine = tquant.quantize(torch.tensor(w), bits=4)
+    assert mine.q.dtype == torch.uint8 and tuple(mine.q.shape) == (12, 40)
+    np.testing.assert_array_equal(unpack_int4(mine.q).numpy(),
+                                  np.asarray(ref["q"], np.int8))
+    np.testing.assert_array_equal(mine.s.numpy(), np.asarray(ref["s"]))
+    x = r.standard_normal((3, 24)).astype(np.float32)
+    np.testing.assert_allclose(
+        tquant.qmatmul(torch.tensor(x), mine).numpy(),
+        np.asarray(jquant.qmatmul(jnp.asarray(x), ref)), **F32)
+    with pytest.raises(ValueError, match="even K"):
+        tquant.quantize(torch.zeros(5, 4), bits=4)
+    with pytest.raises(ValueError, match="width 3"):
+        tquant.quantize(torch.zeros(4, 4), bits=3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -69,13 +69,23 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
 
 
+def _jax_copy(t, dtype=None):
+    """A JAX array of its own from a port tensor or numpy array. On the CPU
+    jnp.asarray may alias a numpy buffer (and so a tensor's memory) and
+    reads it when the dispatched computation runs, which can be after the
+    port has written the tensor in place: every array handed to the
+    reference here is a copy."""
+    a = t.numpy() if isinstance(t, torch.Tensor) else t
+    return jnp.array(a, dtype=dtype, copy=True)
+
+
 def _quant_pair(x):
     """The same int8 cache in both packages from f32 numpy `x` [..., T, D]
     (the port's quantize_tokens, which the reference's equals bit for
     bit on the CPU)."""
     q, s = tkv.quantize_tokens(torch.from_numpy(x))
     s = s.reshape(*s.shape[:-1], s.shape[-1] // 128, 128)
-    return (jkv.QuantKV(jnp.asarray(q.numpy()), jnp.asarray(s.numpy())),
+    return (jkv.QuantKV(_jax_copy(q), _jax_copy(s)),
             tkv.QuantKV(q.clone(), s.clone()))
 
 
@@ -125,7 +135,7 @@ def _dense_case(kind, seed=2):
     else:
         jdt = jnp.bfloat16 if kind == "bf16" else jnp.float32
         tdt = torch.bfloat16 if kind == "bf16" else torch.float32
-        jk, jv = jnp.asarray(k, jdt), jnp.asarray(v, jdt)
+        jk, jv = _jax_copy(k, jdt), _jax_copy(v, jdt)
         tk, tv = torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)
     lengths = np.array([200, 77], np.int32)
     return (jk, jv, jnp.asarray(lengths)), (tk, tv,
@@ -176,7 +186,7 @@ def _paged_case(kind, seed=3):
     else:
         jdt = jnp.bfloat16 if kind == "bf16" else jnp.float32
         tdt = torch.bfloat16 if kind == "bf16" else torch.float32
-        jp, tp = jnp.asarray(pool, jdt), torch.from_numpy(pool).to(tdt)
+        jp, tp = _jax_copy(pool, jdt), torch.from_numpy(pool).to(tdt)
     return jp, tp, row
 
 
@@ -255,7 +265,7 @@ def _model_case(models, paged):
     tt = None if table is None else torch.from_numpy(table)
     tllama.prefill(tp, tcfg, torch.from_numpy(toks), torch.tensor([n]),
                    tcos, tsin, tkc, tvc, torch.tensor([0]), table=tt)
-    jkc, jvc = (jkv.QuantKV(jnp.asarray(c.q.numpy()), jnp.asarray(c.s.numpy()))
+    jkc, jvc = (jkv.QuantKV(_jax_copy(c.q), _jax_copy(c.s))
                 for c in (tkc, tvc))
     jcos, jsin = jrope(jcfg.rope, T)
     return dict(j=[jcfg, jp, jcos, jsin, jkc, jvc], t=[tcfg, tp, tcos, tsin,
@@ -462,6 +472,19 @@ WAVES = {
 }
 
 
+def _shift_reads_its_row_first(je):
+    """The reference engine's paged shift dispatches its program on a
+    zero-copy view of the slot's table row (jnp.asarray of a numpy row;
+    JAX aliases a host buffer it finds aligned) and rewrites that row in
+    place right after (localai_tpu/engine/engine.py:2074-2085): whether
+    the program reads the old row or the new one depends on the thread
+    timing and the row's alignment, so on the state the process is in.
+    Waiting for the program before the rewrite gives the engine's
+    intended order every time."""
+    shift = je._shift_fn
+    je._shift_fn = lambda *a: jax.block_until_ready(shift(*a))
+
+
 @pytest.fixture(scope="module")
 def waves(models):
     """Each wave through the JAX engine and the port's, once per module:
@@ -480,6 +503,7 @@ def waves(models):
                 os.environ["LOCALAI_FORCE_PALLAS"] = "1"
             try:
                 je = JEngine(jcfg, jp, jtok, JConfig(**ec))
+                _shift_reads_its_row_first(je)
                 ref, jinfo = _drive(je, JRequest, JParams, plan(jtok))
             finally:
                 if old is None:

@@ -776,3 +776,191 @@ def test_cuda_moe_w8_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="scales"):
         tk.moe_w8_matmul(x.to(torch.bfloat16), q, s[:, 0])
 
+
+
+# ------------------------------------------- int4 weights (packed, uint8)
+
+def _card_weight4(K, N, device, seed=0, E=None):
+    """A packed int4 weight [K/2, N] (or a stack [E, K/2, N]) and its
+    scales, quantized on the card from N(0, 1/K) values."""
+    from localai_tpu_torch.ops.quant import quantize
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (K, N) if E is None else (E, K, N)
+    qw = quantize(torch.randn(shape, generator=g, device=device)
+                  * K ** -0.5, bits=4)
+    return qw.q, qw.s
+
+
+def _int4_faults(p):
+    """The int8 weights two misreadings of the packed p give: the nibbles
+    swapped (K rows 2j and 2j + 1 exchanged) and read unsigned."""
+    swapped = tk.unpack_int4(((p & 15) << 4) | (p >> 4))
+    lo, hi = (p & 15).to(torch.int8), (p >> 4).to(torch.int8)
+    unsigned = torch.stack([lo, hi], dim=-2).reshape(
+        *p.shape[:-2], 2 * p.shape[-2], p.shape[-1])
+    return {"nibbles_swapped": swapped, "nibbles_unsigned": unsigned}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 64, 65, 192, 193, 2048])
+@pytest.mark.parametrize("K,N", GEOMETRIES)
+def test_cuda_w4a16_bf16_vs_plain(cuda, K, N, M):
+    """Both routes (M <= 16: mma.sync over K tiles of 128; above: TMA +
+    wgmma over [32][128] packed tiles), with and without split-K."""
+    q, s = _card_weight4(K, N, cuda, seed=K + N)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    tk.reset_launch_counts()
+    out = tk.w4a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["w4a16_matmul"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert_w8_close(out, tk.w4a16_matmul_plain(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_w4a16_converts_every_int4_value_exactly(cuda, dtype, M):
+    """Every nibble, -8 included, in both halves of a byte, through the
+    kernel's conversion on both routes: one-hot rows of x pick weight
+    rows, so each output is one int4 value times a unit scale."""
+    K, N = 256, 256
+    k = torch.arange(K, device=cuda)[:, None]
+    n = torch.arange(N, device=cuda)[None, :]
+    q8 = ((k * 3 + n) % 16 - 8).to(torch.int8)
+    q, s = tk.pack_int4(q8), torch.ones(1, N, device=cuda)
+    x = torch.zeros(M, K, device=cuda)
+    rows = (torch.arange(M, device=cuda) * 7) % K
+    x[torch.arange(M, device=cuda), rows] = 1.0
+    x = x.to(getattr(torch, dtype))
+    out = tk.w4a16_matmul(x, q, s)
+    assert torch.equal(out, tk.w4a16_matmul_plain(x, q, s))
+    assert torch.equal(out.float(), q8[rows].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 192, 2048])
+def test_cuda_int4_planted_faults_rejected(cuda, M):
+    """The bar rejects the nibbles swapped and read unsigned (projection
+    and head; the experts also the next expert's scales)."""
+    K, N = 4096, 1024
+    q, s = _card_weight4(K, N, cuda, seed=5)
+    x = torch.randn(M, K, device=cuda).to(torch.bfloat16)
+    out = tk.w4a16_matmul(x, q, s)
+    assert_w8_close(out, tk.w4a16_matmul_plain(x, q, s))
+    for bad in _int4_faults(q).values():
+        with pytest.raises(AssertionError):
+            assert_w8_close(out, tk.w8a16_matmul_plain(x, bad, s))
+    x32 = torch.randn(min(M, 64), K, device=cuda)
+    head = tk.head_matmul(x32, q, s)
+    torch.testing.assert_close(head, tk.head_matmul_plain(x32, q, s),
+                               **HEAD_CARD)
+    for bad in _int4_faults(q).values():
+        assert float((tk.head_matmul_plain(x32, bad, s) - head).abs()
+                     .max()) > HEAD_CARD["atol"]
+    E = 4
+    qe, se = _card_weight4(1024, 512, cuda, seed=9, E=E)
+    xe = _moe_x(min(M, 192), E, 1024, True, torch.bfloat16, cuda, seed=10)
+    out = tk.moe_w4_matmul(xe, qe, se)
+    assert_moe_close(out, tk.moe_w4_matmul_plain(xe, qe, se))
+    faults = dict(_int4_faults(qe))
+    for bad in faults.values():
+        with pytest.raises(AssertionError):
+            assert_moe_close(out, tk.moe_w8_matmul_plain(xe, bad, se))
+    with pytest.raises(AssertionError):
+        assert_moe_close(out, tk.moe_w4_matmul_plain(
+            xe, qe, torch.roll(se, -1, dims=0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 64, 192])
+def test_cuda_head_int4_vs_plain(cuda, M):
+    K, V = 4096, 128256
+    q, s = _card_weight4(K, V, cuda, seed=3)
+    x32 = torch.randn(M, K, device=cuda)
+    tk.reset_launch_counts()
+    out = tk.head_matmul(x32, q, s)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["head_matmul_int4"] == 1
+    assert tk.launch_counts()["head_matmul"] == 0
+    assert out.dtype == torch.float32 and out.shape == (M, V)
+    torch.testing.assert_close(out, tk.head_matmul_plain(x32, q, s),
+                               **HEAD_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 192, 2048])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-expert"])
+@pytest.mark.parametrize("E,K,N", MOE_GEOMETRIES)
+def test_cuda_moe_w4_vs_plain(cuda, E, K, N, shared, M):
+    q, s = _card_weight4(K, N, cuda, seed=E + K + N, E=E)
+    x = _moe_x(M, E, K, shared, torch.bfloat16, cuda, seed=M)
+    tk.reset_launch_counts()
+    out = tk.moe_w4_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["moe_w4_matmul"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, E, N)
+    assert_moe_close(out, tk.moe_w4_matmul_plain(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split", "big", "prefill", "head", "moe"])
+def test_cuda_int4_graph_replay_equals_eager(cuda, case):
+    """The int4 twins in a CUDA graph give the eager call's bits, and so
+    does every repeated call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if case == "head":
+        q, s = _card_weight4(4096, 32000, cuda)
+        x = torch.randn(4, 4096, generator=g, device=cuda)
+
+        def fn():
+            return tk.head_matmul(x, q, s)
+    elif case == "moe":
+        q, s = _card_weight4(4096, 1024, cuda, E=8)
+        x = _moe_x(4, 8, 4096, True, torch.bfloat16, cuda, seed=13)
+
+        def fn():
+            return tk.moe_w4_matmul(x, q, s)
+    else:
+        M = {"split": 4, "big": 192, "prefill": 2048}[case]
+        q, s = _card_weight4(4096, 1024 if M < 2048 else 4096, cuda)
+        x = torch.randn(M, 4096, generator=g, device=cuda).to(torch.bfloat16)
+
+        def fn():
+            return tk.w4a16_matmul(x, q, s)
+    eager = fn()
+    for _ in range(3):
+        assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_int4_wrappers_raise_on_what_they_do_not_take(cuda):
+    """f32 activations (no int4 recipe serves them), an int8 weight given
+    to an int4 wrapper and a packed one given to an int8 wrapper raise."""
+    q, s = _card_weight4(64, 128, cuda)
+    q8, _ = _card_weight(64, 128, cuda)
+    x = torch.randn(4, 64, device=cuda)
+    with pytest.raises(TypeError, match="activations"):
+        tk.w4a16_matmul(x, q, s)
+    with pytest.raises(ValueError, match="packed int4"):
+        tk.w4a16_matmul(x.to(torch.bfloat16), q8, s)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        tk.w8a16_matmul(x.to(torch.bfloat16), q, s)
+    qe, se = _card_weight4(64, 128, cuda, E=2)
+    with pytest.raises(TypeError, match="bf16"):
+        tk.moe_w4_matmul(x.to(torch.float16), qe, se)
+    with pytest.raises(ValueError, match="packed int4"):
+        tk.moe_w4_matmul(x.to(torch.bfloat16), qe.view(torch.int8), se)
