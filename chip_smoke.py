@@ -306,8 +306,32 @@ and the script exits non-zero:
      0.25), whose planted fault fails; the projections' q bytes K x N / 2
      each, printed against the int8 recipe's. Prints, each with the
      card: tok/s, TTFT p50, busy ms a decode step, the launches.
-The second line from the end is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. It imports nothing of JAX or localai_tpu.
+ 14. tensor parallelism on the one card: row 12's six *_sharded wrappers
+     (paged_scatter_append[_q8], ragged_paged_attention[_q8],
+     ragged_scatter_append[_q8]), each run on the two KV-head shards (4 of
+     the 8B's 8 heads a rank) of a whole pool and joined, against the
+     unsharded plain version (the scatters bit-exact, attention at rows
+     8/9's tolerance; the shards joined in the wrong rank order rejected),
+     timed at rank 0's shard beside the unsharded kernel. Then the
+     synthetic Llama-3.1-8B served by two ranks on cuda:0 over gloo (the
+     smoke as rank 0, one follower process of the worker role whose output
+     goes to a log file): dense and paged through the gRPC backend's
+     LoadModel(mesh_model=2), ragged through the worker role's World and
+     an Engine of phase 6's shape, bf16 then the int8 recipe, four streams
+     a leg, 32 new tokens each (TP_LAYERS: the ragged legs at 32 layers,
+     the dense and paged legs at 8). Checks: every stream to its budget; the
+     leg's kernels launched through the sharded wrappers and no unsharded
+     scatter or ragged kernel; the three greedy streams teacher-forced
+     through the one-rank model on the same synthetic weights within 0.25
+     logit (planted fault rejected); every *_sharded counter above 0; the
+     follower exits 0. Prints, each with the card: tok/s, TTFT p50, rank
+     0's collectives' ms a decode step (host clock inside gloo's calls,
+     after a synchronize), its busy and idle ms a decode step
+     (torch.profiler: the union of its CUDA activities against the wall),
+     the follower's own launch counts.
+The second line from the end is {"kernels": [...]} (the six wrappers of
+row 12 among them); the last line is {"ok": true, "device": {...}}. It
+imports nothing of JAX or localai_tpu.
 """
 from __future__ import annotations
 
@@ -2827,8 +2851,8 @@ GRAPH_TOKENS = 24
 
 def _serve_graph_case(cfg, params, ec, eager, label):
     """GRAPH_REQUESTS through an in-process Engine, its loop segments as
-    graph replays or (eager=True) each called directly (EagerSegments, a
-    runner for checks: the engine never makes one); checks the weight
+    graph replays or (eager=True) each called directly (EagerSegments, the
+    runner of an engine on a mesh; here a check's); checks the weight
     GEMMs' launches against the forwards run. Returns
     ([(tokens, logprobs)], runner counters)."""
     from localai_tpu_torch.engine.engine import (
@@ -2976,11 +3000,11 @@ def prompt_ids(i, n, salt=0):
     return [(7 * i + 13 * j + salt) % (vocab - 1) + 1 for j in range(n)]
 
 
-def drive_requests(client, salt=0, requests=None):
+def drive_requests(client, salt=0, requests=None, tokens=NEW_TOKENS):
     """`requests` ([(prompt length or ids, sampling)], default REQUESTS) at
-    once over `client`. Returns ([(ttft_s, token ids, logprobs, last
-    reply, prompt ids)], wall seconds). The prompt ids depend on `salt`, so
-    a new salt misses the prompt cache."""
+    once over `client`, `tokens` new tokens each. Returns ([(ttft_s, token
+    ids, logprobs, last reply, prompt ids)], wall seconds). The prompt ids
+    depend on `salt`, so a new salt misses the prompt cache."""
     import threading
 
     requests = REQUESTS if requests is None else requests
@@ -2990,7 +3014,7 @@ def drive_requests(client, salt=0, requests=None):
         ids = list(n) if isinstance(n, list) else prompt_ids(i, n, salt)
         ts = time.perf_counter()
         ttft, toks, lps, last = None, [], [], None
-        for c in client.stream(prompt_ids=ids, tokens=NEW_TOKENS,
+        for c in client.stream(prompt_ids=ids, tokens=tokens,
                                ignore_eos=True, logprobs=True, **sp):
             if c.token_ids and ttft is None:
                 ttft = time.perf_counter() - ts
@@ -6837,6 +6861,688 @@ def phase_int4(smi):
     return counts
 
 
+# ----------------------------------------------------------------- phase 14
+
+TP = 2
+# four streams: three greedy (the teacher-forced check's) and one seeded
+TP_REQUESTS = [(17, dict(temperature=0.0)), (300, dict(temperature=0.0)),
+               (700, dict(temperature=0.0)),
+               (40, dict(temperature=0.8, top_k=40, seed=11))]
+# layers a leg serves: the ragged legs at the published 32, the dense and
+# paged legs at 8 (at 32 every leg the phase took about nine minutes of the
+# smoke's 1200 s, 230-340 ms a decode step: PERF.md); new tokens a stream
+TP_LAYERS = {"dense": 8, "paged": 8, "ragged": 32}
+TP_TOKENS = 32
+TP_LOAD = {"dense": dict(parallel=4, context_size=2048),
+           "paged": dict(parallel=4, context_size=4096, kv_pages=129)}
+TP_RECIPES = (("bf16", dict(dtype="bfloat16"), "bfloat16", ""),
+              ("int8", dict(dtype="int8", cache_type_key="int8",
+                            cache_type_value="int8"), "int8", "int8"))
+# the six TP wrappers (row 12): (its launch counter, the CUDA source, the
+# reference's wrapper, the unsharded kernel it launches per shard)
+SHARDED = {
+    "paged_scatter_append_sharded": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/paged_scatter.py:141",
+        "paged_scatter_append"),
+    "paged_scatter_append_q8_sharded": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/paged_scatter.py:183",
+        "paged_scatter_append_q8"),
+    "ragged_paged_attention_sharded": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:436",
+        "ragged_paged_attention"),
+    "ragged_paged_attention_q8_sharded": (
+        "localai_tpu_torch/csrc/ragged_attention.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:458",
+        "ragged_paged_attention_q8"),
+    "ragged_scatter_append_sharded": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:541",
+        "ragged_scatter_append"),
+    "ragged_scatter_append_q8_sharded": (
+        "localai_tpu_torch/csrc/paged_scatter.cu",
+        "localai_tpu/ops/pallas/ragged_attention.py:555",
+        "ragged_scatter_append_q8"),
+}
+# the rank's own kernels a TP leg must launch (rank 0's counts)
+TP_OWN = {
+    ("dense", "bf16"): ("flash_prefill", "ragged_decode"),
+    ("dense", "int8"): ("flash_prefill", "ragged_decode_q8",
+                        "w8a16_matmul"),
+    ("paged", "bf16"): ("ragged_decode_paged",
+                        "paged_scatter_append_sharded"),
+    ("paged", "int8"): ("ragged_decode_q8_paged",
+                        "paged_scatter_append_q8_sharded", "w8a16_matmul"),
+    ("ragged", "bf16"): ("ragged_paged_attention_sharded",
+                         "ragged_scatter_append_sharded",
+                         "ragged_decode_paged",
+                         "paged_scatter_append_sharded"),
+    ("ragged", "int8"): ("ragged_paged_attention_q8_sharded",
+                         "ragged_scatter_append_q8_sharded",
+                         "ragged_decode_q8_paged",
+                         "paged_scatter_append_q8_sharded", "w8a16_matmul"),
+}
+
+
+def _rank_mesh(r):
+    """Rank r of the TP-wide model axis, for a check that runs one shard's
+    kernels in this process (no process group: no collective)."""
+    import torch
+
+    from localai_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(rank=r, model=TP, device=torch.device("cuda"))
+
+
+def _head_shard(t, r, dim=1):
+    """Rank r's contiguous head shard of `t` (its own storage)."""
+    n = t.shape[dim] // TP
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+def _joined(shards, i, swap=False):
+    """The ranks' i-th tensors joined on the head axis (swap: in the wrong
+    rank order, the planted fault)."""
+    import torch
+
+    parts = [s[i] for s in shards]
+    return torch.cat(parts[::-1] if swap else parts, dim=1)
+
+
+def _sharded_timings(name, fn, plain, unsharded, library, nbytes, flops,
+                     peak):
+    """The row-12 readings of one wrapper at rank 0's shard: device, host
+    and in-graph ms, its plain version's and the unsharded kernel's (all
+    KV heads, one rank's work before TP) ms, the library call's, and
+    bound_ms from the shard's bytes and operations."""
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    before = launch_counts()[name]
+    fn()
+    if launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name}: one call did not count one launch")
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(
+        ms=_time_ms(fn), ms_host=_time_ms(fn, spin=False),
+        ms_graph=_graph_ms(fn), plain_ms=_time_ms(plain),
+        unsharded_ms=_time_ms(unsharded),
+        library_ms=None if library is None else _time_ms(library),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_formula=(f"max({nbytes:.4g} B of the shard / 3.35 TB/s, "
+                       f"{flops:.4g} flop / {peak / 1e12:.0f} TFLOP/s)"))
+
+
+def tp_paged_scatter(q8):
+    """paged_scatter_append[_q8]_sharded on each rank's head shard of phase
+    2's pool (8 slots, 129 blocks, KVH 8: 4 a rank), joined: the unsharded
+    plain version's pools over the whole pool, BIT FOR BIT; the shards
+    joined in the wrong rank order (the planted fault) differ."""
+    import torch
+
+    from localai_tpu_torch.ops import kernels as K
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    B, KVH, D, maxb = 8, 8, 128, 32
+    lengths = [(97 * b + 1) % (maxb * 128 - 1) for b in range(B)]
+    k, v, table, nb = _paged_pools(B, KVH, D, [n + 1 for n in lengths],
+                                   maxb, seed=2, nb=129)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    k_new = torch.randn(B, KVH, D, device="cuda", generator=g).to(bf16)
+    v_new = torch.randn(B, KVH, D, device="cuda", generator=g).to(bf16)
+    pos = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    active = torch.tensor([b % 3 != 2 for b in range(B)], device="cuda")
+    targets = K.paged_targets(pos, table, active)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128)]
+        name, plain_fn = ("paged_scatter_append_q8_sharded",
+                          K.paged_scatter_append_q8_plain)
+        wrapper, unsharded = (K.paged_scatter_append_q8_sharded,
+                              K.paged_scatter_append_q8)
+    else:
+        pools = [k.to(bf16), v.to(bf16)]
+        name, plain_fn = ("paged_scatter_append_sharded",
+                          K.paged_scatter_append_plain)
+        wrapper, unsharded = (K.paged_scatter_append_sharded,
+                              K.paged_scatter_append)
+    ref = [t.clone() for t in pools]
+    plain_fn(*ref, k_new, v_new, pos, table, active, targets=targets)
+    shards = [[_head_shard(p, r) for p in pools] for r in range(TP)]
+    new = [(_head_shard(k_new, r), _head_shard(v_new, r)) for r in range(TP)]
+    for r in range(TP):
+        wrapper(_rank_mesh(r), *shards[r], *new[r], pos, table, active,
+                targets=targets)
+    torch.cuda.synchronize()
+    for i, want in enumerate(ref):
+        if not torch.equal(_joined(shards, i), want):
+            raise AssertionError(f"{name}: shard {i} joined differs from "
+                                 f"the unsharded plain version")
+    if all(torch.equal(_joined(shards, i, swap=True), want)
+           for i, want in enumerate(ref)):
+        raise AssertionError(f"{name}: the check does not reject the "
+                             f"planted fault")
+    kvh = KVH // TP
+    es, out_es = 2, 1 if q8 else 2
+    nbytes = (2 * B * kvh * D * es + 8 * B + 2 * B * kvh * D * out_es
+              + (2 * B * kvh * 4 if q8 else 0))
+    mine, (kn, vn), m0 = shards[0], new[0], _rank_mesh(0)
+    plain_pools = [t.clone() for t in mine]
+    full = [t.clone() for t in pools]
+    library = None
+    if not q8:
+        pb, off = (t.long() for t in targets)
+
+        def library():
+            mine[0][pb, :, off] = kn
+            mine[1][pb, :, off] = vn
+    res = {"max_abs_err": 0.0, "tol": "bit-exact", "shape": (
+        f"bf16 B={B} NB={nb} KVH={KVH} ({kvh} a rank) D={D}"),
+        "planted_fault_differs": True}
+    res.update(_sharded_timings(
+        name, lambda: wrapper(m0, *mine, kn, vn, pos, table, active,
+                              targets=targets),
+        lambda: plain_fn(*plain_pools, kn, vn, pos, table, active,
+                         targets=targets),
+        lambda: unsharded(*full, k_new, v_new, pos, table, active,
+                          targets=targets),
+        library, nbytes, 0.0, PEAK_BF16))
+    log(f"phase14 {name} " + json.dumps(res))
+    return name, res
+
+
+def _pack_work(seqs, window=None):
+    """(live query-key pairs, K/V rows read, table entries) of a ragged
+    pack, as check_ragged_attention counts them."""
+    pairs = kv_read = entries = 0
+    for kvl, ql in (x for x in seqs if x is not None):
+        first = kvl - ql
+        lo = max(first - window + 1, 0) if window else 0
+        kv_read += kvl - lo
+        entries += -(-kvl // 128) - lo // 128
+        pairs += sum(min(p + 1, window or p + 1) for p in range(first, kvl))
+    return pairs, kv_read, entries
+
+
+def tp_ragged_attention(q8):
+    """ragged_paged_attention[_q8]_sharded at phase 6's pack (T = 192, H
+    32 on KVH 8: 16 on 4 a rank), each rank on its query heads and KV-head
+    shard, joined on the head axis: the unsharded plain version's live rows
+    within rows 8/9's bf16 tolerance; the shards joined in the wrong rank
+    order (the planted fault) rejected."""
+    import torch
+
+    from localai_tpu_torch.ops import kernels as K
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    H, KVH, D = 32, 8, 128
+    seqs = _ragged_seqs(RAGGED_DECODE, RAGGED_CHUNK)
+    k, v, meta, live, _, nb = _ragged_pack(None, None, 32, 129, KVH, D,
+                                           seed=4, seqs=seqs)
+    T = int(meta["block_seq"].shape[0]) * 8
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    q = torch.randn(T, H, D, device="cuda", generator=g).to(bf16)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128)]
+        name, plain_fn = ("ragged_paged_attention_q8_sharded",
+                          K.ragged_paged_attention_q8_plain)
+        wrapper, unsharded = (K.ragged_paged_attention_q8_sharded,
+                              K.ragged_paged_attention_q8)
+    else:
+        pools = [k.to(bf16), v.to(bf16)]
+        name, plain_fn = ("ragged_paged_attention_sharded",
+                          K.ragged_paged_attention_plain)
+        wrapper, unsharded = (K.ragged_paged_attention_sharded,
+                              K.ragged_paged_attention)
+    ref = plain_fn(q, *pools, **meta)
+    shards = [[_head_shard(q, r)] + [_head_shard(p, r) for p in pools]
+              for r in range(TP)]
+    outs = [[wrapper(_rank_mesh(r), *shards[r], **meta)] for r in range(TP)]
+    torch.cuda.synchronize()
+    rows = torch.tensor(live, device="cuda")
+    res = _check_close(f"phase14 {name}", _joined(outs, 0)[rows], ref[rows],
+                       TOL["bfloat16"],
+                       fault=_joined(outs, 0, swap=True)[rows])
+    pairs, kv_read, entries = _pack_work(seqs)
+    h, kvh, kv_es = H // TP, KVH // TP, 1 if q8 else 2
+    nbytes = (kv_read * kvh * D * 2 * kv_es
+              + (kv_read * kvh * 2 * 4 if q8 else 0)
+              + 2 * len(live) * h * D * 2 + 4 * entries)
+    mine, m0 = shards[0], _rank_mesh(0)
+    res["shape"] = (f"bf16 T={T} H={H} ({h} a rank) KVH={KVH} ({kvh} a "
+                    f"rank) D={D} MAXB=32 NB={nb}")
+    res.update(_sharded_timings(
+        name, lambda: wrapper(m0, *mine, **meta),
+        lambda: plain_fn(*mine, **meta), lambda: unsharded(q, *pools, **meta),
+        None, nbytes, 4.0 * pairs * h * D, PEAK_BF16))
+    log(f"phase14 {name} " + json.dumps(res))
+    return name, res
+
+
+def tp_ragged_scatter(q8):
+    """ragged_scatter_append[_q8]_sharded at phase 6's pack's own targets
+    on each rank's head shard, joined: the unsharded plain version's pools
+    outside the trash block 0, BIT FOR BIT; the shards joined in the wrong
+    rank order (the planted fault) differ."""
+    import torch
+
+    from localai_tpu_torch.models.llama import ragged_row_targets
+    from localai_tpu_torch.ops import kernels as K
+    from localai_tpu_torch.ops.kvcache import quantize_tokens
+
+    KVH, D = 8, 128
+    k, v, meta, live, _, nb = _ragged_pack(RAGGED_DECODE, RAGGED_CHUNK, 32,
+                                           129, KVH, D, seed=6)
+    T = int(meta["block_seq"].shape[0]) * 8
+    _, pb, off = ragged_row_targets(meta["block_seq"], meta["qstart"],
+                                    meta["qlen"], meta["kvlen"],
+                                    meta["tables"], 32 * 128)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf16 = torch.bfloat16
+    k_new = torch.randn(T, KVH, D, device="cuda", generator=g).to(bf16)
+    v_new = torch.randn(T, KVH, D, device="cuda", generator=g).to(bf16)
+    if q8:
+        kq, ks = quantize_tokens(k)
+        vq, vs = quantize_tokens(v)
+        pools = [kq, ks.reshape(nb, KVH, 1, 128), vq,
+                 vs.reshape(nb, KVH, 1, 128)]
+        name, plain_fn = ("ragged_scatter_append_q8_sharded",
+                          K.ragged_scatter_append_q8_plain)
+        wrapper, unsharded = (K.ragged_scatter_append_q8_sharded,
+                              K.ragged_scatter_append_q8)
+    else:
+        pools = [k.to(bf16), v.to(bf16)]
+        name, plain_fn = ("ragged_scatter_append_sharded",
+                          K.ragged_scatter_append_plain)
+        wrapper, unsharded = (K.ragged_scatter_append_sharded,
+                              K.ragged_scatter_append)
+    ref = [t.clone() for t in pools]
+    plain_fn(*ref, k_new, v_new, pb, off)
+    shards = [[_head_shard(p, r) for p in pools] for r in range(TP)]
+    new = [(_head_shard(k_new, r), _head_shard(v_new, r)) for r in range(TP)]
+    for r in range(TP):
+        wrapper(_rank_mesh(r), *shards[r], *new[r], pb, off)
+    torch.cuda.synchronize()
+    for i, want in enumerate(ref):
+        if not torch.equal(_joined(shards, i)[1:], want[1:]):
+            raise AssertionError(f"{name}: shard {i} joined differs from "
+                                 f"the unsharded plain version outside "
+                                 f"block 0")
+    if all(torch.equal(_joined(shards, i, swap=True)[1:], want[1:])
+           for i, want in enumerate(ref)):
+        raise AssertionError(f"{name}: the check does not reject the "
+                             f"planted fault")
+    n, kvh = len(live), KVH // TP
+    out_es = 1 if q8 else 2
+    nbytes = (2 * n * kvh * D * 2 + 8 * n + 2 * n * kvh * D * out_es
+              + (2 * n * kvh * 4 if q8 else 0))
+    mine, (kn, vn), m0 = shards[0], new[0], _rank_mesh(0)
+    plain_pools = [t.clone() for t in mine]
+    full = [t.clone() for t in pools]
+    library = None
+    if not q8:
+        pbl, offl = pb.long(), off.long()
+
+        def library():
+            mine[0][pbl, :, offl] = kn
+            mine[1][pbl, :, offl] = vn
+    res = {"max_abs_err": 0.0, "tol": "bit-exact outside block 0",
+           "shape": f"bf16 T={T} NB={nb} KVH={KVH} ({kvh} a rank) D={D}",
+           "planted_fault_differs": True}
+    res.update(_sharded_timings(
+        name, lambda: wrapper(m0, *mine, kn, vn, pb, off),
+        lambda: plain_fn(*plain_pools, kn, vn, pb, off),
+        lambda: unsharded(*full, k_new, v_new, pb, off), library, nbytes,
+        0.0, PEAK_BF16))
+    log(f"phase14 {name} " + json.dumps(res))
+    return name, res
+
+
+def tp_kernels():
+    """Row 12: each *_sharded wrapper on two head shards of a whole pool on
+    the card, joined and held against the unsharded plain version, and
+    timed at rank 0's shard (tp = 2: 4 of the 8B's 8 KV heads)."""
+    return dict(fn(q8) for q8 in (False, True) for fn in (
+        tp_paged_scatter, tp_ragged_attention, tp_ragged_scatter))
+
+
+class _CollectiveClock:
+    """Rank 0's host ms inside its mesh's collectives: each call waits for
+    the card first (torch.cuda.synchronize), so the clock holds the
+    collective's own time (gloo: the copies to and from the host, the
+    transfer, the wait for the other rank), not the kernels queued before
+    it."""
+
+    def __init__(self, mesh):
+        import torch
+
+        self.ms, self.calls = 0.0, 0
+        for name in ("all_reduce", "all_gather"):
+            orig = getattr(mesh, name)
+
+            def timed(*a, _orig=orig, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _orig(*a, **kw)
+                self.ms += (time.perf_counter() - t) * 1e3
+                self.calls += 1
+                return out
+
+            setattr(mesh, name, timed)
+
+    def read(self):
+        return self.ms, self.calls
+
+
+def _busy_ms(p):
+    """Device ms of rank 0 in a torch.profiler window: the union of its
+    CUDA activities' intervals (kernels and copies; overlapping streams
+    counted once), read from the profiler's raw events (key_averages over
+    a leg's hundred thousand events took tens of seconds)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in p.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6
+
+
+def _tp_reference(cfg, params, kv):
+    """The one-rank engine-like holder check_reference teacher-forces
+    with: the whole model's params on the card, the recipe's KV kind and
+    the rope tables."""
+    from localai_tpu_torch.ops.rope import rope_table
+
+    cos, sin = rope_table(cfg.rope, 4096, device="cuda")
+    return SimpleNamespace(cfg=cfg, device=params.embed.device,
+                           params=params, ec=SimpleNamespace(cache_type=kv),
+                           _cos=cos, _sin=sin)
+
+
+def _followers(label, out, codes, outputs):
+    """Hold a leg's followers to a clean exit: exit code 0 and no
+    traceback in their output; note each one's own launch counts (the
+    worker role prints them when rank 0 stops it)."""
+    launches = []
+    for text in outputs:
+        lines = [ln for ln in text.splitlines() if " launches " in ln]
+        launches.append(json.loads(lines[-1].split(" launches ", 1)[1])
+                        if lines else None)
+    out["follower_exit"] = codes
+    out["follower_launches"] = launches
+    log(f"phase14 {label} followers exit {codes} launches "
+        + json.dumps(launches))
+    if codes != [0] * (TP - 1) or len(outputs) != TP - 1:
+        raise AssertionError(f"phase14 {label}: followers exited {codes}")
+    for text in outputs:
+        if "Traceback" in text:
+            raise AssertionError(f"phase14 {label}: a follower raised:\n"
+                                 + text[-3000:])
+
+
+def _tp_readings(label, path, recs, wall, m0, m1, clock, busy, launched,
+                 smi):
+    """One leg's line: tok/s, TTFT p50, rank 0's busy and idle ms a decode
+    step (its profiler's device time against the wall a step; the card
+    also runs rank 1's kernels) and its collectives' ms a decode step."""
+    import statistics
+
+    steps = m1["decode_steps_dispatched"] - m0["decode_steps_dispatched"]
+    toks = m1["tokens_generated"] - m0["tokens_generated"]
+    coll_ms, calls = clock
+    out = {"path": path, "tok_s": toks / wall, "wall_s": wall,
+           "ttft_p50_ms": statistics.median(r[0] for r in recs) * 1e3,
+           "decode_steps": steps, "tokens": toks,
+           "collectives_ms_per_step": coll_ms / max(steps, 1),
+           "collective_calls": calls,
+           "busy_ms_per_step": busy / max(steps, 1),
+           "idle_ms_per_step": (wall * 1e3 - busy) / max(steps, 1),
+           "launches": {k: v for k, v in launched.items() if v},
+           "card": smi}
+    log(f"phase14 {label} " + json.dumps(out))
+    return out
+
+
+def _tp_check_leg(label, path, recipe, launched, recs, ref):
+    """A leg's checks: every stream to its budget, the rank's own kernels
+    launched (the recipe's, through the sharded wrappers), the other
+    recipe's not, and the greedy streams held against the one-rank
+    teacher-forced reference within REF_MARGIN, whose planted fault (a
+    stream held to another prompt) fails."""
+    for i, r in enumerate(recs):
+        if len(r[1]) != TP_TOKENS:
+            raise AssertionError(f"phase14 {label} request {i}: "
+                                 f"{len(r[1])} tokens")
+    for k in TP_OWN[path, recipe]:
+        if launched.get(k, 0) <= 0:
+            raise AssertionError(f"phase14 {label}: {k} never launched")
+    if recipe == "bf16" and launched.get("w8a16_matmul"):
+        raise AssertionError(f"phase14 {label}: an int8 GEMM launched")
+    unsharded = ("paged_scatter_append", "paged_scatter_append_q8",
+                 "ragged_paged_attention", "ragged_paged_attention_q8",
+                 "ragged_scatter_append", "ragged_scatter_append_q8")
+    for k in unsharded:
+        if launched.get(k):
+            raise AssertionError(f"phase14 {label}: the unsharded {k} "
+                                 f"launched on a mesh")
+    cases = {f"{len(r[4])}-token": (r[4], r[1], r[2]) for r in recs[:3]}
+    fault = (prompt_ids(99, len(recs[2][4]), salt=99), recs[2][1],
+             recs[2][2])
+    return check_reference(label, ref, cases, fault, phase="phase14")
+
+
+def tp_grpc_leg(label, path, recipe, d, load_kw, ref, smi):
+    """A dense or paged leg: the port's gRPC backend in this process as
+    rank 0 with LoadModel(mesh_model=2) (one follower process on the same
+    card), TP_REQUESTS at once, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localai_tpu_torch.backend.server import serve
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    server, servicer, port = serve("127.0.0.1:0", device="cuda")
+    client = _Client(f"127.0.0.1:{port}")
+    try:
+        t0 = time.perf_counter()
+        r = client.load(model=d, mesh_model=TP, **TP_LOAD[path], **load_kw)
+        if not r.success:
+            raise RuntimeError(f"phase14 {label}: LoadModel failed: "
+                               f"{r.message}")
+        servicer.engine.warmup()
+        log(f"phase14 {label}: LoadModel (two ranks) + warmup "
+            f"{time.perf_counter() - t0:.1f} s")
+        eng = servicer.engine
+        clock = _CollectiveClock(eng.mesh)
+        before, m0 = launch_counts(), dict(eng.metrics)
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            recs, wall = drive_requests(client, requests=TP_REQUESTS,
+                                        tokens=TP_TOKENS)
+            torch.cuda.synchronize()
+        m1 = dict(eng.metrics)
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        out = _tp_readings(label, path, recs, wall, m0, m1, clock.read(),
+                           _busy_ms(p), launched, smi)
+        out["eager"] = eng.graphs.counters()
+        out["reference"] = _tp_check_leg(label, path, recipe, launched,
+                                         recs, ref)
+    finally:
+        client.close()
+        codes = servicer.free()
+        server.stop(grace=1).wait(10)
+    _followers(label, out, codes, servicer.follower_output)
+    return out
+
+
+def tp_ragged_leg(label, recipe, d, dtype, kv, ref, smi):
+    """A ragged leg: the worker role's world led by this process (one
+    follower process on the same card) under an Engine of phase 6's shape
+    (ragged_token_budget 192, the fused ragged loop), TP_REQUESTS at once,
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localai_tpu_torch.core.worker import World, engine_fields
+    from localai_tpu_torch.engine.engine import (
+        Engine, EngineConfig, GenRequest,
+    )
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    world = World(d, dtype, TP, "cuda")
+    eng = None
+    try:
+        cfg = load_config(d, dtype=dtype)
+        params = load_params(d, cfg, dtype=dtype, device=world.mesh.device,
+                             mesh=world.mesh)
+        ec = EngineConfig(**RAGGED_EC, cache_type=kv, mesh=world.mesh,
+                          replicator=world.replicator)
+        eng = Engine(cfg, params, None, ec, device=world.mesh.device)
+        world.replicator.wait_for_followers()
+        world.replicator.broadcast("engine", engine_fields(ec))
+        eng.warmup()
+        log(f"phase14 {label}: two-rank world + weights + warmup "
+            f"{time.perf_counter() - t0:.1f} s")
+        clock = _CollectiveClock(world.mesh)
+        before, m0 = launch_counts(), dict(eng.metrics)
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            t1 = time.perf_counter()
+            subs = []
+            for i, (n, sp) in enumerate(TP_REQUESTS):
+                ids = prompt_ids(i, n)
+                subs.append((ids, time.perf_counter(), eng.submit(GenRequest(
+                    ids, SamplingParams(**sp), max_tokens=TP_TOKENS,
+                    ignore_eos=True, logprobs=True))[1]))
+            # (ttft s, tokens, logprobs, None, prompt ids) a request, as
+            # drive_requests returns them; a token's time is the end of the
+            # engine step that streamed it
+            recs = [[None, [], [], None, ids] for ids, _, _ in subs]
+            busy = True
+            while busy:
+                busy = eng.step()
+                now = time.perf_counter()
+                for rec, (_, ts, q) in zip(recs, subs):
+                    while not q.empty():
+                        o = q.get_nowait()
+                        if o.token_id >= 0:
+                            rec[0] = rec[0] or now - ts
+                            rec[1].append(o.token_id)
+                            rec[2].append(o.logprob)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        m1 = dict(eng.metrics)
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        out = _tp_readings(label, "ragged", recs, wall, m0, m1, clock.read(),
+                           _busy_ms(p), launched, smi)
+        out["eager"] = eng.graphs.counters()
+        out["ragged_dispatches"] = m1["ragged_dispatches"] - \
+            m0["ragged_dispatches"]
+        out["reference"] = _tp_check_leg(label, "ragged", recipe, launched,
+                                         recs, ref)
+    finally:
+        if eng is not None:
+            eng.stop()
+        codes = world.close()
+    _followers(label, out, codes, world.outputs)
+    return out
+
+
+def phase_tp(smi):
+    """Tensor parallelism on one card: row 12's wrappers against the
+    unsharded plain versions, then the synthetic Llama-3.1-8B served by two
+    ranks over gloo on cuda:0 (the smoke as rank 0, one follower process),
+    dense and paged through LoadModel(mesh_model=2), ragged through the
+    worker role's world, bf16 then the int8 recipe; each leg's greedy
+    streams teacher-forced through the one-rank model on the same weights.
+    Returns (rank 0's launch counts over the legs, row 12's readings)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    # the follower is another process on this card: hand it the memory
+    # this process's allocator still caches from earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = tp_kernels()
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    prewarm = os.environ.get("LOCALAI_NO_PREWARM")
+    os.environ["LOCALAI_NO_PREWARM"] = "1"
+    legs = {}
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as top:
+            dirs = {}
+            for n in sorted(set(TP_LAYERS.values())):
+                dirs[n] = os.path.join(top, f"l{n}")
+                os.makedirs(dirs[n])
+                with open(os.path.join(dirs[n], "config.json"), "w") as f:
+                    json.dump(dict(CFG_8B, num_hidden_layers=n,
+                                   localai_synthetic=True), f)
+            for recipe, load_kw, dtype, kv in TP_RECIPES:
+                refs = {}
+                for path in ("dense", "paged", "ragged"):
+                    n = TP_LAYERS[path]
+                    if n not in refs:
+                        cfg = load_config(dirs[n], dtype=dtype)
+                        refs[n] = _tp_reference(cfg, load_params(
+                            dirs[n], cfg, dtype=dtype, device="cuda"), kv)
+                    label = f"{recipe} {path} ({n} layers)"
+                    if path == "ragged":
+                        legs[label] = tp_ragged_leg(label, recipe, dirs[n],
+                                                    dtype, kv, refs[n], smi)
+                    else:
+                        legs[label] = tp_grpc_leg(label, path, recipe,
+                                                  dirs[n], load_kw, refs[n],
+                                                  smi)
+                del refs
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        if prewarm is None:
+            os.environ.pop("LOCALAI_NO_PREWARM", None)
+        else:
+            os.environ["LOCALAI_NO_PREWARM"] = prewarm
+    counts = launch_counts()
+    for name in SHARDED:
+        if counts[name] <= 0:
+            raise AssertionError(f"phase14: {name} never launched on a leg")
+    log("phase14 summary " + json.dumps({
+        label: {k: leg[k] for k in (
+            "tok_s", "ttft_p50_ms", "collectives_ms_per_step",
+            "busy_ms_per_step", "idle_ms_per_step")}
+        | {"max_gap": max(r["max_gap"] for c, r in leg["reference"].items()
+                          if c != "planted fault")}
+        for label, leg in legs.items()})
+        + f" rank-0 launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        + f" wall {time.perf_counter() - t0:.1f} s card {smi}")
+    return counts, kernels
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -6952,6 +7658,7 @@ def main():
         shift_counts = timed("11 shift", phase_shift, gdir, smi, gtok)
     moe_counts = timed("12 mixtral", phase_mixtral, smi)
     int4_counts = timed("13 int4", phase_int4, smi)
+    tp_counts, tp_measured = timed("14 tensor parallel", phase_tp, smi)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
         + f" total {time.perf_counter() - t0:.1f} s")
@@ -6980,8 +7687,21 @@ def main():
                      "launches_shift": shift_counts[name],
                      "launches_mixtral": moe_counts[name],
                      "launches_int4": int4_counts[name],
+                     "launches_tp": tp_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
+    # row 12: the TP wrappers, at rank 0's shard, launches from phase 14
+    for name, (src, replaces, unsharded) in SHARDED.items():
+        m = tp_measured[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": tp_counts[name],
+                     "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"], "ms_host": m["ms_host"],
+                     "ms_graph": m["ms_graph"],
+                     "unsharded_ms": m["unsharded_ms"],
+                     "unsharded": unsharded})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,17 @@ tier, `kv_policy` and `kv_cold_pages` the KV retention tier (GetMetrics
 then carries kv_cold_blocks, kv_evictions, kv_recomputes and
 kv_policy_demotions); `resume_json` (a ResumeToken) continues a preempted
 stream, and `preempt` (the SIGTERM path of server.py) ends every open
-stream with a terminal "preempted" reply carrying one. Embeddings, BERT,
-llava, meshes and telemetry spans wait for later slices: LoadModel
+stream with a terminal "preempted" reply carrying one.
+`mesh_model=N` serves the model tensor-parallel over N ranks on this
+host: LoadModel starts ranks 1..N-1 as worker processes (core/worker.py,
+rank r on cuda:r % device_count, or the CPU), joins them as rank 0 over
+torch.distributed (parallel/distributed.py) and serves the rank-0
+engine, which broadcasts every dispatch to them; `free()` (and shutdown)
+stops them and keeps their output (`follower_output`). Tensor
+parallelism is opt-in: with no `mesh_model` the model loads on one card
+however many are visible (the reference's auto-TP waits until a mesh
+serves all that one card serves). Embeddings, BERT, llava,
+the mesh's data axis and telemetry spans wait for later slices: LoadModel
 rejects their options with a message naming the slice, and their RPCs
 stay UNIMPLEMENTED.
 """
@@ -35,16 +44,23 @@ from localai_tpu_torch.ops.sampling import SamplingParams
 
 
 class LLMServicer(BackendServicer):
-    def __init__(self, device=None):
+    def __init__(self, device=None, preloaded=None):
         """`device`: where LoadModel places the model (default: the CUDA
-        device; "cpu" serves through the plain PyTorch versions)."""
+        device; "cpu" serves through the plain PyTorch versions).
+        `preloaded=(engine, cfg, tok, name)` serves an engine built by the
+        worker role's rank 0 (core/worker.py)."""
         self.device = device
         self.engine = None
         self.tok = None
         self.cfg = None
         self.model_name = ""
+        self._world = None
+        self.follower_output: list[str] = []
         self._state = pb.StatusResponse.UNINITIALIZED
         self._load_lock = threading.Lock()
+        if preloaded is not None:
+            self.engine, self.cfg, self.tok, self.model_name = preloaded
+            self._state = pb.StatusResponse.READY
 
     # ------------------------------------------------------------ lifecycle
 
@@ -63,15 +79,11 @@ class LLMServicer(BackendServicer):
                                  message=f"{type(e).__name__}: {e}")
 
     def _load(self, request):
-        from localai_tpu_torch.engine.engine import Engine, EngineConfig
-        from localai_tpu_torch.engine.loader import (
-            load_config, load_params, load_tokenizer,
-        )
+        from localai_tpu_torch.engine.loader import load_config
         from localai_tpu_torch.ops.kvcache import is_quant_kind
 
-        if request.mesh_data or request.mesh_model:
-            raise not_ported("mesh_data/mesh_model (tensor parallelism)",
-                             "parallel")
+        if request.mesh_data > 1:
+            raise not_ported("mesh_data (the data axis)", "parallel")
         if request.embeddings:
             raise not_ported("embeddings", "embeddings")
         # the KV tiers ride the ModelOptions.options JSON blob (no
@@ -96,8 +108,37 @@ class LLMServicer(BackendServicer):
                              or is_quant_kind(request.cache_type_value)) \
             else ""
         context_size = request.context_size or min(2048, cfg.max_position)
+        tp = request.mesh_model or 1
+        if tp > 1:
+            if request.draft_model:
+                raise not_ported("speculative decoding under a mesh",
+                                 "parallel")
+            from localai_tpu_torch.core.worker import World
+
+            self._world = World(model_dir, request.dtype or None, tp,
+                                self.device)
+        kv = dict(kv_policy=kv_policy, kv_cold_pages=kv_cold_pages,
+                  kv_host_bytes=kv_host_bytes)
+        try:
+            self._load_engine(request, cfg, model_dir, kv_kind,
+                              context_size, kv)
+        except BaseException:
+            self.free()
+            raise
+        if os.environ.get("LOCALAI_NO_PREWARM") != "1":
+            self._prewarm()
+
+    def _load_engine(self, request, cfg, model_dir, kv_kind, context_size,
+                     kv):
+        from localai_tpu_torch.engine.engine import Engine, EngineConfig
+        from localai_tpu_torch.engine.loader import (
+            load_config, load_params, load_tokenizer,
+        )
+        world = self._world
+        mesh = None if world is None else world.mesh
+        device = self.device if mesh is None else mesh.device
         params = load_params(model_dir, cfg, dtype=request.dtype or None,
-                             device=self.device)
+                             device=device, mesh=mesh)
         tok = load_tokenizer(model_dir)
         draft = None
         if request.draft_model:
@@ -109,13 +150,13 @@ class LLMServicer(BackendServicer):
             dcfg = load_config(draft_dir, dtype=request.dtype or None)
             draft = (dcfg, load_params(draft_dir, dcfg,
                                        dtype=request.dtype or None,
-                                       device=self.device))
+                                       device=device))
         # single-shot prefill up to the chunk size; longer prompts prefill in
         # chunk-sized pieces interleaved with running decodes
         chunk = min(512, context_size)
         buckets = tuple(request.prefill_buckets) or tuple(
             b for b in (64, 256, 512) if b <= chunk) or (chunk,)
-        self.engine = Engine(cfg, params, tok, EngineConfig(
+        ec = EngineConfig(
             max_slots=request.parallel or 4,
             max_context=context_size,
             prefill_buckets=buckets,
@@ -123,15 +164,19 @@ class LLMServicer(BackendServicer):
             gamma=request.n_draft or 4,
             cache_type=kv_kind,
             kv_pages=request.kv_pages,
-            kv_policy=kv_policy,
-            kv_cold_pages=kv_cold_pages,
-            kv_host_bytes=kv_host_bytes,
-        ), draft=draft, device=self.device)
+            mesh=mesh,
+            replicator=None if world is None else world.replicator,
+            **kv,
+        )
+        self.engine = Engine(cfg, params, tok, ec, draft=draft, device=device)
+        if world is not None:
+            from localai_tpu_torch.core.worker import engine_fields
+
+            world.replicator.wait_for_followers()
+            world.replicator.broadcast("engine", engine_fields(ec))
         self.cfg, self.tok = cfg, tok
         self.model_name = request.model
         self.engine.start()
-        if os.environ.get("LOCALAI_NO_PREWARM") != "1":
-            self._prewarm()
 
     def _prewarm(self):
         """Build the kernels and run the serving paths once before LoadModel
@@ -339,6 +384,22 @@ class LLMServicer(BackendServicer):
             return []
         return self.engine.preempt(grace)
 
-    def shutdown(self):
+    def free(self) -> list:
+        """Unload: stop the engine and, on a mesh, the follower ranks
+        (their `stop`, then their exit) and leave the process group,
+        keeping their output in `follower_output`. Returns the followers'
+        exit codes (printed too)."""
         if self.engine is not None:
             self.engine.stop()
+            self.engine = None
+        codes = []
+        if self._world is not None:
+            world, self._world = self._world, None
+            codes = world.close()
+            self.follower_output = world.outputs
+            print(f"backend[llm] followers exited {codes}", flush=True)
+        self._state = pb.StatusResponse.UNINITIALIZED
+        return codes
+
+    def shutdown(self):
+        self.free()

@@ -12,13 +12,14 @@ import grpc
 from localai_tpu_torch.backend.base import add_backend_servicer
 
 
-def serve(addr: str = "127.0.0.1:50051", device=None, max_workers: int = 16):
+def serve(addr: str = "127.0.0.1:50051", device=None, max_workers: int = 16,
+          servicer=None):
     """Start a backend server; returns (grpc.Server, servicer, bound_port).
     `device` (default: the CUDA device) is where LoadModel places the
-    model."""
+    model; `servicer`: an already-constructed one to serve instead."""
     from localai_tpu_torch.backend.llm import LLMServicer
 
-    servicer = LLMServicer(device=device)
+    servicer = servicer or LLMServicer(device=device)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),
         options=[("grpc.max_receive_message_length", 128 * 1024 * 1024),
@@ -32,8 +33,9 @@ def serve(addr: str = "127.0.0.1:50051", device=None, max_workers: int = 16):
     return server, servicer, port
 
 
-def serve_blocking(addr: str = "127.0.0.1:50051", device=None) -> int:
-    server, servicer, port = serve(addr, device=device)
+def serve_blocking(addr: str = "127.0.0.1:50051", device=None,
+                   servicer=None) -> int:
+    server, servicer, port = serve(addr, device=device, servicer=servicer)
     print(f"backend[llm] serving on port {port}", flush=True)
     stop = threading.Event()
 

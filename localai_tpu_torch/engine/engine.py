@@ -77,7 +77,22 @@ What this slice serves, as the reference does:
   shares the file's prefix (the suffix takes the chunked extend path);
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
-  logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache.
+  logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache;
+- tensor parallelism on the `model` axis (EngineConfig.mesh, a
+  parallel/mesh.Mesh; params sharded on it by models/llama.shard_params
+  or the loader): one process a rank, each holding its shards and its
+  num_kv_heads // tp heads of the cache, on the dense, paged and ragged
+  paths in f32/bf16 and the int8 recipe. Rank 0 runs this engine with a
+  `replicator` (parallel/distributed.Replicator) and broadcasts (op, host
+  args) before every device dispatch (`_bcast`: the reference's op names
+  and keys, plus the paged block table the followers' engines do not
+  allocate); every other rank runs `follow(channel)`, replaying the same
+  dispatches on its shards, so the ranks' kernels and collectives stay in
+  lockstep. On a mesh the fused loops' segments run eagerly
+  (graphs.EagerSegments: a gloo collective cannot be captured in a CUDA
+  graph). The speculative draft, the KV retention and host tiers,
+  preemption and resume, context shift, the disk prompt cache, grammars
+  and Mixtral's experts raise under a mesh, naming the parallel slice.
 
 Every EngineConfig/GenRequest/StepOutput field of the reference is kept.
 Those this slice does not serve are rejected with NotImplementedError
@@ -101,7 +116,7 @@ import torch
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.engine import kvtier
-from localai_tpu_torch.engine.graphs import GraphRunner
+from localai_tpu_torch.engine.graphs import EagerSegments, GraphRunner
 from localai_tpu_torch.models.llama import (
     LlamaConfig,
     LoopState,
@@ -112,6 +127,7 @@ from localai_tpu_torch.models.llama import (
     decode_step,
     extend,
     init_kv_cache,
+    kv_heads,
     loop_segment,
     prefill,
     ragged_forward,
@@ -130,6 +146,7 @@ from localai_tpu_torch.ops.sampling import (
     sampler_row,
     threefry_seed,
 )
+from localai_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,10 +161,12 @@ class EngineConfig:
     decode_loop: int = 64         # fused decode loop steps (0/1 disables)
     dtype: str | None = None      # KV dtype (default: model dtype)
     cache_type: str = ""          # ""|bf16 dense; int8|q8_0 quantized KV
-    mesh: Any | None = None       # parallel slice
+    mesh: Any | None = None       # tensor parallelism: this rank's
+                                  # parallel/mesh.Mesh (model axis only)
     shift_keep: int = 4           # context shift: sink tokens always kept
                                   # (paged: rounded up to whole blocks)
-    replicator: Any | None = None  # multi-host (parallel slice)
+    replicator: Any | None = None  # rank 0 of a mesh: the dispatch
+                                   # broadcaster (parallel/distributed)
     gamma: int = 4                # speculative: draft tokens per step
     prompt_cache: bool = True     # reuse a freed slot's KV prefix
     prompt_cache_min: int = 16    # minimum shared prefix worth reusing
@@ -181,7 +200,8 @@ class EngineConfig:
                                   # HostKVPool (int8 blocks keyed by the
                                   # prefix cache's chain hashes; paged KV
                                   # only; 0 = off)
-    max_restarts: int = 2         # fatal step() errors survived
+    max_restarts: int = 2         # fatal step() errors survived (none
+                                  # on a mesh)
 
 
 @dataclasses.dataclass
@@ -276,9 +296,22 @@ def _check_config(ec: EngineConfig):
         raise ValueError(
             "ragged_token_budget requires paged KV (set kv_pages)")
     if ec.mesh is not None:
-        raise not_ported("mesh (tensor parallelism)", "parallel")
-    if ec.replicator is not None:
-        raise not_ported("replicator (multi-host)", "parallel")
+        if not isinstance(ec.mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(ec.mesh).__name__}")
+        for field, what in (
+                ("kv_host_bytes", "the host KV tier"),
+                ("kv_cold_pages", "the KV retention tier's cold pool")):
+            if getattr(ec, field):
+                raise not_ported(f"{what} under a mesh", "parallel")
+        if kvtier.parse_policy(ec.kv_policy).windowed:
+            raise not_ported("the KV retention tier under a mesh",
+                             "parallel")
+    elif ec.replicator is not None:
+        # a replicator drives ranks that shard one model; ranks that each
+        # hold the whole model are replicas (the data axis)
+        raise not_ported("a replicator without a mesh (data-parallel "
+                         "replicas)", "parallel")
 
 
 class _AsyncFetch:
@@ -357,6 +390,18 @@ class Engine:
         self.tok = tokenizer
         self.ec = econfig or EngineConfig()
         _check_config(self.ec)
+        self.mesh = self.ec.mesh
+        if getattr(params, "mesh", None) is not self.mesh:
+            raise ValueError("the params are not sharded on the engine's "
+                             "mesh (models/llama.shard_params, or the "
+                             "loader's mesh=)")
+        if self.mesh is not None:
+            for cond, what in ((draft is not None, "speculative decoding"),
+                               (kvhost is not None, "the host KV tier"),
+                               (cfg.num_experts > 0, "expert parallelism "
+                                "(Mixtral's experts)")):
+                if cond:
+                    raise not_ported(f"{what} under a mesh", "parallel")
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         # speculative decoding: (draft_cfg, draft_params) — the draft keeps
@@ -673,13 +718,13 @@ class Engine:
         self._cos, self._sin = rope_table(cfg.rope, T, device=dev)
         if self._paged:
             self._kc, self._vc = init_paged(
-                cfg.num_layers, self.ec.kv_pages, cfg.num_kv_heads,
+                cfg.num_layers, self.ec.kv_pages, kv_heads(cfg, self.mesh),
                 cfg.head_dim, self._kv_dtype, cache_type=self.ec.cache_type,
                 device=dev)
         else:
             self._kc, self._vc = init_kv_cache(cfg, B, T, self._kv_dtype,
                                                cache_type=self.ec.cache_type,
-                                               device=dev)
+                                               device=dev, mesh=self.mesh)
         self._kvt_dev = None
         if self._tiered:
             # the tier's geometry in one int32 buffer written in place before
@@ -734,8 +779,11 @@ class Engine:
             inp[:nt].view(B, self._maxb) if self._paged else None,
             gmasks=self._gmasks, gtrans=self._gtrans, kvt=self._kvt_dev)
         # the loop segments' CUDA graphs (on the card); they hold the
-        # addresses of the tensors made here, so a new state gets new graphs
-        self.graphs = GraphRunner(dev)
+        # addresses of the tensors made here, so a new state gets new graphs.
+        # On a mesh the segments run eagerly: their collectives cannot be
+        # captured (gloo stages them through the host)
+        self.graphs = (GraphRunner(dev) if self.mesh is None
+                       else EagerSegments(dev))
         self._slots: list[_Slot | None] = [None] * B
         self._free: list[int] = list(range(B))
         self._ragged_rr = 0   # ragged decode-row round-robin offset
@@ -912,6 +960,24 @@ class Engine:
                     FIELD_DTYPES[f.name])
 
     # ------------------------------------------------------ device dispatch
+    # On a mesh the rank-0 engine broadcasts (op, host args) over its
+    # replicator before each dispatch; follower ranks replay the identical
+    # sequence through follow(), so every rank's kernels and collectives
+    # run in lockstep (parallel/distributed.py).
+
+    def _bcast(self, op: str, **kw):
+        """Ship `op` and its host args to the follower ranks (rank 0 of a
+        mesh; a no-op otherwise). Arrays go as numpy (a CUDA tensor raises:
+        host args only); a paged engine adds its block table, which the
+        followers' engines, allocating nothing, take from here."""
+        rep = self.ec.replicator
+        if rep is None:
+            return
+        msg = {k: (np.asarray(v) if hasattr(v, "shape") or isinstance(
+            v, (list, tuple)) else v) for k, v in kw.items()}
+        if self._paged:
+            msg["table"] = self._table.copy()
+        rep.broadcast(op, msg)
 
     def _tab(self):
         """Device copy of the block table for this dispatch (paged KV only).
@@ -960,6 +1026,9 @@ class Engine:
 
     def _dev_admit_many(self, ids, lens, slots, rows, counts_rows):
         """Admission burst: prefill K same-bucket requests in ONE pass."""
+        self._bcast("admit_many", ids=ids, lens=lens, slots=slots,
+                    rows={k: np.asarray(v) for k, v in rows.items()},
+                    counts_rows=counts_rows)
         self.metrics["admit_dispatches"] += 1
         dev = self.device
         tokens = torch.as_tensor(ids, device=dev)
@@ -975,6 +1044,7 @@ class Engine:
 
     def _dev_extend_mid(self, buf, pos, idx):
         """One non-final prefill chunk: KV writes only."""
+        self._bcast("extend_mid", buf=buf, pos=pos, idx=idx)
         self.metrics["prefill_chunks_mid"] += 1
         dev = self.device
         with torch.no_grad():
@@ -988,6 +1058,9 @@ class Engine:
         """Final prefill chunk: KV writes + last-token logits + the sampler
         row install (deferred to here so the request's RNG stream does not
         depend on how many ticks the prefill spanned)."""
+        self._bcast("extend_final", buf=buf, pos=pos, nvalid=nvalid, idx=idx,
+                    row={k: np.asarray(v) for k, v in row.items()},
+                    counts_row=counts_row)
         self.metrics["prefill_chunks_final"] += 1
         dev = self.device
         with torch.no_grad():
@@ -1017,6 +1090,8 @@ class Engine:
             self.device)
 
     def _dev_decode(self, active, fast_width=None, mask_host=None):
+        self._bcast("decode", active=active, mask=mask_host,
+                    fast_width=fast_width)
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += 1
         with torch.no_grad():
@@ -1030,6 +1105,8 @@ class Engine:
                           mask_host=None):
         """`steps` fused sample→decode iterations in one dispatch (a grammar
         slot samples every step under its block-start mask row)."""
+        self._bcast("decode_block", active=active, steps=steps,
+                    fast_width=fast_width, mask=mask_host)
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += steps
         toks, lps = [], []
@@ -1129,6 +1206,9 @@ class Engine:
         the loop with no per-token host round trip. The steps actually run
         ride the fetch; decode_steps_dispatched is credited at consume
         time. _dispatch_loop dispatches it only with a live slot."""
+        self._bcast("decode_loop", active=active, remaining=remaining,
+                    check_eos=check_eos, fast_width=fast_width,
+                    gstate=gstate)
         self.metrics["decode_dispatches"] += 1
         with torch.no_grad():
             (toks, lps, n_out, steps, self._sampler, self._last_logits,
@@ -1182,6 +1262,7 @@ class Engine:
         `pack["mask"]` when grammar slots are live) plus the packed
         chunked-prefill windows run a single ragged forward (see
         _ragged_tick)."""
+        self._bcast("ragged", **pack)
         self.metrics["decode_dispatches"] += 1
         self.metrics["decode_steps_dispatched"] += 1
         self._note_ragged(int(pack["packed"]), int(np.sum(pack["is_decode"])))
@@ -1205,6 +1286,9 @@ class Engine:
         single-step ragged levels. `gstate` selects the grammar variant,
         as in _dev_decode_loop. Steps run and the exit code ride the
         fetch."""
+        self._bcast("ragged_loop", remaining=remaining, check_eos=check_eos,
+                    prefill_pending=bool(prefill_pending), gstate=gstate,
+                    **pack)
         self.metrics["decode_dispatches"] += 1
         self._note_ragged(int(pack["packed"]), int(np.sum(pack["is_decode"])))
         with torch.no_grad():
@@ -1223,6 +1307,8 @@ class Engine:
         """The fused ragged loop without a pack: a pure-decode tick on a
         ragged engine, with the loop's first-finish exit (grammar variant
         with `gstate`, as in _dev_decode_loop)."""
+        self._bcast("rloop_decode", active=active, remaining=remaining,
+                    check_eos=check_eos, fast_width=fast_width, gstate=gstate)
         self.metrics["decode_dispatches"] += 1
         with torch.no_grad():
             (toks, lps, n_out, steps, code, self._sampler, self._last_logits,
@@ -1238,10 +1324,72 @@ class Engine:
         """Sampler-row install for a ragged final prefill chunk (the dense
         path installs inside _dev_extend_final; the ragged dispatch leaves
         it to here, after the pack)."""
+        self._bcast("install", idx=idx,
+                    row={k: np.asarray(v) for k, v in row.items()},
+                    counts_row=counts_row)
         with torch.no_grad():
             self._install_rows(
                 [idx], {k: np.asarray(v)[None] for k, v in row.items()},
                 None if counts_row is None else np.asarray(counts_row)[None])
+
+    def follow(self, channel) -> None:
+        """Follower-rank loop (rank > 0 of a mesh): replay the rank-0
+        engine's device dispatches on this rank's shards. Blocks until
+        rank 0 sends `stop` or the channel drops. A failed op ends the
+        follower: it reports the failure to rank 0 (whose next dispatch
+        then raises, ending its engine) and raises. Nothing resets a
+        world: an op that failed part-way leaves the ranks' collectives
+        unpaired."""
+        while True:
+            try:
+                op, kw = channel.recv()
+            except (ConnectionError, EOFError):
+                return
+            if op == "stop":
+                return
+            try:
+                self._follow_op(op, kw)
+            except Exception as e:
+                channel.report(op, e)
+                raise
+
+    def _follow_op(self, op: str, kw: dict) -> None:
+        kw = dict(kw)
+        table = kw.pop("table", None)
+        if table is not None:
+            self._table[...] = table
+        if op == "admit_many":
+            self._dev_admit_many(kw["ids"], kw["lens"], kw["slots"],
+                                 kw["rows"], kw["counts_rows"])
+        elif op == "extend_mid":
+            self._dev_extend_mid(kw["buf"], kw["pos"], kw["idx"])
+        elif op == "extend_final":
+            self._dev_extend_final(kw["buf"], kw["pos"], kw["nvalid"],
+                                   kw["idx"], kw["row"], kw["counts_row"])
+        elif op == "decode":
+            self._dev_decode(kw["active"], kw.get("fast_width"), kw["mask"])
+        elif op == "decode_block":
+            self._dev_decode_block(kw["active"], int(kw["steps"]),
+                                   kw.get("fast_width"), kw.get("mask"))
+        elif op == "decode_loop":
+            self._dev_decode_loop(kw["active"], kw["remaining"],
+                                  kw["check_eos"], kw.get("fast_width"),
+                                  kw.get("gstate"))
+        elif op == "ragged":
+            self._dev_ragged(kw)
+        elif op == "ragged_loop":
+            self._dev_ragged_loop(kw, kw.pop("remaining"),
+                                  kw.pop("check_eos"),
+                                  kw.pop("prefill_pending"),
+                                  gstate=kw.pop("gstate"))
+        elif op == "rloop_decode":
+            self._dev_rloop_decode(kw["active"], kw["remaining"],
+                                   kw["check_eos"], kw.get("fast_width"),
+                                   kw.get("gstate"))
+        elif op == "install":
+            self._dev_install(kw["idx"], kw["row"], kw["counts_row"])
+        else:
+            raise ValueError(f"follower: unknown op {op!r}")
 
     def _dev_demote(self, pb: int, ci: int):
         """Copy hot physical block `pb` into cold-pool block `ci` (int8,
@@ -1615,6 +1763,15 @@ class Engine:
                 f"need a larger context window")
         if req.mm_embeds is not None or req.mm_positions is not None:
             raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
+        if self.mesh is not None:
+            for cond, what in (
+                    (req.context_shift, "context shift"),
+                    (req.prompt_cache_path, "the disk prompt cache"),
+                    (req.grammar, "grammar-constrained decoding"),
+                    (req.resume is not None, "resume (the host tier's "
+                     "checkpoints)")):
+                if cond:
+                    raise not_ported(f"{what} under a mesh", "parallel")
         if req.context_shift and self._draft is not None:
             raise ValueError(
                 "context_shift is not supported with a draft model "
@@ -3380,6 +3537,9 @@ class Engine:
         resume may be submitted right back into it."""
         if self._dead:
             return []
+        if self.mesh is not None:
+            raise not_ported("preemption under a mesh (the host tier)",
+                             "parallel")
         self._preempt_manifest = []
         self._preempt_done.clear()
         self._preempt_t = time.monotonic() + max(float(grace), 0.0)
@@ -3566,7 +3726,9 @@ class Engine:
 
                 traceback.print_exc()
                 self._fail_active("error")
-                if restarts >= self.ec.max_restarts:
+                # on a mesh a failed step may leave the ranks' collectives
+                # unpaired: no restart
+                if restarts >= self.ec.max_restarts or self.mesh is not None:
                     self._running = False
                     self._dead = True
                     return

@@ -27,9 +27,15 @@ each replay adds the capture's counts. The runner's own counters, per
 path: captures, replays, steps replayed and warm-up steps (`counters()`);
 and the replays of each key (`key_replays()`).
 
-`EagerSegments` runs every segment eagerly, on any device. The engine
-never makes one: checks set it on an engine to hold the graphs against
-(tests/test_torch_graphs.py, chip_smoke.py).
+`EagerSegments` runs every segment eagerly, on any device, and counts
+what it ran (eager_segments, eager_steps a path). It is the engine's
+runner on a tensor-parallel mesh — a stated mode, not a fallback: a
+segment's collectives (an all-reduce after wo and w_down each layer, the
+vocab-parallel head's all-gather) run through gloo when ranks share a
+card, which stages them through the host and cannot be captured; graphs
+under NCCL capture wait for a later slice. Checks also set it on an
+engine to hold the graphs against (tests/test_torch_graphs.py,
+chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -135,10 +141,20 @@ class GraphRunner:
         return graph.replay
 
 
+EAGER_COUNTERS = ("eager_segments", "eager_steps")
+
+
 class EagerSegments(GraphRunner):
-    """For checks: a runner that calls each segment directly, on the card
-    too (no graph, no counters)."""
+    """A runner that calls each segment directly, on the card too, and
+    counts the segments and steps it ran a path (no graph): the engine's
+    runner on a mesh, and the checks' stand-in for the graphs."""
 
     def __init__(self, device):
         super().__init__(device)
         self.graphed = False
+
+    def run(self, key, steps: int, segment, freeze, addresses=()):
+        segment()
+        c = self._counts.setdefault(key[0], dict.fromkeys(EAGER_COUNTERS, 0))
+        c["eager_segments"] += 1
+        c["eager_steps"] += steps

@@ -12,6 +12,11 @@ Mixtral checkpoints stack each layer's experts into [E, in, out] (each
 expert quantized on its own, which equals quantizing the stack: the
 scales reduce over the input axis only) and keep the router gate [H, E]
 in the model dtype, unquantized, as the reference does.
+With a `mesh` (tensor parallelism, parallel/mesh.py) each rank keeps only
+its shards (models/llama.shard_leaf), one projection held whole at a
+time: a projection is read, cast and, for int8, quantized whole — the
+reference's host quantization, so the scales equal the single-device
+load's bit for bit — and then sliced; no rank holds the whole bf16 stack.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 from localai_tpu_torch import not_ported
 from localai_tpu_torch.device import resolve_device, torch_dtype
 from localai_tpu_torch.models.llama import (
-    Llama, LlamaConfig, LlamaLayer, init_params,
+    Llama, LlamaConfig, LlamaLayer, init_params, shard_layer, shard_leaf,
+    tp_check,
 )
 from localai_tpu_torch.ops.kernels import pack_int4
 from localai_tpu_torch.ops.quant import QMAX, QuantWeight, quantize
@@ -181,32 +187,46 @@ class _TensorReader:
         self._open.clear()
 
 
+def _mesh_check(cfg: LlamaConfig, qbits, mesh) -> None:
+    if mesh is None:
+        return
+    tp_check(cfg, mesh)
+    if qbits == 4:
+        raise not_ported("int4 weights under a mesh", "parallel")
+
+
 def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
-                device=None) -> Llama:
+                device=None, mesh=None) -> Llama:
     """Load + restructure a HF Llama-family checkpoint onto `device`
     (default: the CUDA device). HF stores projections [out, in]; they are
     transposed once here. dtype="int8" (8 bits) or "int4"/"q4" (4)
     quantizes every projection (and the lm_head) per output channel after
-    the bf16 load cast."""
+    the bf16 load cast. `mesh`: keep this rank's shards only (module
+    docstring)."""
     device = resolve_device(device)
     qbits = _QBITS.get(dtype)
     tdtype = (torch.bfloat16 if qbits else
               torch_dtype(dtype) if dtype is not None else cfg.tdtype)
+    _mesh_check(cfg, qbits, mesh)
 
     if _is_synthetic(model_dir):
         # benchmark checkpoints: config.json declares the geometry, weights
         # are seeded random init made on the device
         return _synthetic_params(cfg, dtype=tdtype, device=device,
-                                 qbits=qbits)
+                                 qbits=qbits, mesh=mesh)
 
     r = _TensorReader(model_dir)
 
-    def get(name: str, transpose: bool = False, quant: bool = False):
+    def get(name: str, transpose: bool = False, quant: bool = False,
+            leaf: str | None = None):
         t = r.get(name)
         t = t.T if transpose else t
         # copy=True: the reader's mmap closes after the load
         t = t.to(device=device, dtype=tdtype, copy=True).contiguous()
-        return quantize(t, qbits) if (quant and qbits) else t
+        t = quantize(t, qbits) if (quant and qbits) else t
+        # a sharded load slices after the whole projection's quantization
+        return t if (mesh is None or leaf is None) else shard_leaf(
+            leaf, t, mesh)
 
     def experts(p: str, which: str):
         # block_sparse_moe.experts.{e}.w{1,2,3}: [out, in] each, stacked
@@ -225,10 +245,10 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
         p = L.format(i=i)
         w = {
             "attn_norm": get(p + "input_layernorm.weight"),
-            "wq": get(p + "self_attn.q_proj.weight", True, True),
-            "wk": get(p + "self_attn.k_proj.weight", True, True),
-            "wv": get(p + "self_attn.v_proj.weight", True, True),
-            "wo": get(p + "self_attn.o_proj.weight", True, True),
+            "wq": get(p + "self_attn.q_proj.weight", True, True, "wq"),
+            "wk": get(p + "self_attn.k_proj.weight", True, True, "wk"),
+            "wv": get(p + "self_attn.v_proj.weight", True, True, "wv"),
+            "wo": get(p + "self_attn.o_proj.weight", True, True, "wo"),
             "mlp_norm": get(p + "post_attention_layernorm.weight"),
         }
         if cfg.num_experts:
@@ -238,28 +258,30 @@ def load_params(model_dir: str, cfg: LlamaConfig, *, dtype=None,
             for which in ("w1", "w2", "w3"):
                 w["moe_" + which] = experts(p, which)
         else:
-            w["w_gate"] = get(p + "mlp.gate_proj.weight", True, True)
-            w["w_up"] = get(p + "mlp.up_proj.weight", True, True)
-            w["w_down"] = get(p + "mlp.down_proj.weight", True, True)
+            w["w_gate"] = get(p + "mlp.gate_proj.weight", True, True,
+                              "w_gate")
+            w["w_up"] = get(p + "mlp.up_proj.weight", True, True, "w_up")
+            w["w_down"] = get(p + "mlp.down_proj.weight", True, True,
+                              "w_down")
         if cfg.qkv_bias:
-            w["bq"] = get(p + "self_attn.q_proj.bias")
-            w["bk"] = get(p + "self_attn.k_proj.bias")
-            w["bv"] = get(p + "self_attn.v_proj.bias")
+            w["bq"] = get(p + "self_attn.q_proj.bias", leaf="bq")
+            w["bk"] = get(p + "self_attn.k_proj.bias", leaf="bk")
+            w["bv"] = get(p + "self_attn.v_proj.bias", leaf="bv")
         layers.append(LlamaLayer(w))
     head = None
     if not cfg.tie_embeddings:
         if "lm_head.weight" not in r:
             raise ValueError(
                 "config says untied embeddings but lm_head.weight is missing")
-        head = get("lm_head.weight", True, True)
+        head = get("lm_head.weight", True, True, "lm_head")
     params = Llama(cfg, get("model.embed_tokens.weight"), layers,
-                   get("model.norm.weight"), head)
+                   get("model.norm.weight"), head, mesh=mesh)
     r.close()
     return params
 
 
 def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
-                      seed: int = 0) -> Llama:
+                      seed: int = 0, mesh=None) -> Llama:
     """Deterministic random params at any scale, made on `device` from a
     seeded torch.Generator. The quantized case generates the integer
     payload and scales directly (no full-precision intermediate): values
@@ -267,9 +289,12 @@ def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
     each scale fan_in^-0.5 * 1.73 / qmax, so the dequantized weights have
     ~1/sqrt(fan_in) std like init_params; a Mixtral config gets quantized
     expert stacks (scales [E, 1, out]) and an f32 router gate, as the
-    reference's synthetic checkpoint does."""
+    reference's synthetic checkpoint does. With a `mesh` every layer is
+    drawn whole, as without one, and sliced to the rank's shards before
+    the next is drawn: each rank holds its shards of the same weights."""
     if qbits is None:
-        return init_params(cfg, seed=seed, dtype=dtype, device=device)
+        return init_params(cfg, seed=seed, dtype=dtype, device=device,
+                           mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, hd = cfg.hidden_size, cfg.head_dim
     nh, nkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
@@ -305,11 +330,13 @@ def _synthetic_params(cfg: LlamaConfig, *, dtype, device, qbits=None,
         if cfg.qkv_bias:
             for k, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
                 w[k] = torch.zeros((n,), dtype=dtype, device=device)
-        layers.append(LlamaLayer(w))
+        layers.append(LlamaLayer(w if mesh is None else shard_layer(w, mesh)))
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device,
                          dtype=torch.float32) * h ** -0.5).to(dtype)
     head = None if cfg.tie_embeddings else qrand((h, cfg.vocab_size), h)
-    return Llama(cfg, embed, layers, ones(h), head)
+    if head is not None and mesh is not None:
+        head = shard_leaf("lm_head", head, mesh)
+    return Llama(cfg, embed, layers, ones(h), head, mesh=mesh)
 
 
 def _is_synthetic(model_dir: str) -> bool:
@@ -338,9 +365,11 @@ def load_tokenizer(model_dir: str):
         return None
 
 
-def load_model(model_dir: str, *, dtype=None, device=None):
+def load_model(model_dir: str, *, dtype=None, device=None, mesh=None):
     """config.json + safetensors + tokenizer in one call → (cfg, params, tok).
-    `device` defaults to the CUDA device; pass "cpu" to load on the host."""
+    `device` defaults to the CUDA device; pass "cpu" to load on the host.
+    `mesh`: this rank's shards only."""
     cfg = load_config(model_dir, dtype=dtype)
-    params = load_params(model_dir, cfg, dtype=dtype, device=device)
+    params = load_params(model_dir, cfg, dtype=dtype, device=device,
+                         mesh=mesh)
     return cfg, params, load_tokenizer(model_dir)

@@ -33,6 +33,18 @@ kernels; the first prefill chunk attends under ops/attention's
 mha_prefill_tiered and `extend` against the resident view at true
 positions (mha_extend_tiered), as the reference does. kvt=None keeps
 every path as it is untiered.
+
+Tensor parallelism on the `model` axis (parallel/mesh.py): shard_params
+keeps one rank's Megatron slices (q/k/v/gate/up columns, wo/down rows, the
+untied lm_head's vocab columns; int8 scales follow their columns, a
+row-parallel projection's scales stay whole), the caches hold the rank's
+num_kv_heads // tp heads, every forward sums the row-parallel products
+over the axis (one all-reduce after wo and one after w_down a layer) and
+the vocab-parallel head all-gathers its f32 logits, so every rank holds
+the same logits. Under a mesh the paged decode write and the ragged
+path's attention and writes pass the mesh to their kernel wrappers
+(ops/kernels): the rank's launch of rows 6-11 on its own heads, counted
+under the `*_sharded` names.
 """
 from __future__ import annotations
 
@@ -52,9 +64,10 @@ from localai_tpu_torch.ops.attention import (
 )
 from localai_tpu_torch.ops.kernels import (
     QBLK, flash_prefill, head_matmul, moe_w4_matmul, moe_w8_matmul,
-    pack_int4, paged_scatter_append, paged_scatter_append_q8, paged_targets,
-    ragged_decode, ragged_decode_q8, ragged_paged_attention,
-    ragged_paged_attention_q8, ragged_scatter_append, ragged_scatter_append_q8,
+    pack_int4, paged_scatter_append, paged_scatter_append_q8,
+    paged_targets, ragged_decode, ragged_decode_q8, ragged_paged_attention,
+    ragged_paged_attention_q8, ragged_scatter_append,
+    ragged_scatter_append_q8,
 )
 from localai_tpu_torch.ops.kvcache import (
     QuantKV, cache_scatter, dequant, init_quant, is_quant_kind, padded_len,
@@ -151,12 +164,15 @@ class LlamaLayer(nn.Module):
 
 class Llama(nn.Module):
     """The whole model's weights: embed [V, H], per-layer LlamaLayers,
-    final_norm [H] and lm_head [H, V] (None with tied embeddings)."""
+    final_norm [H] and lm_head [H, V] (None with tied embeddings). `mesh`:
+    the parallel/mesh.Mesh whose rank's shards these are (shard_params),
+    None for a whole model."""
 
     def __init__(self, cfg: LlamaConfig, embed, layers, final_norm,
-                 lm_head=None):
+                 lm_head=None, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.register_buffer("embed", embed)
         self.layers = nn.ModuleList(layers)
         self.register_buffer("final_norm", final_norm)
@@ -172,11 +188,16 @@ class Llama(nn.Module):
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None,
-                device=None) -> Llama:
+                device=None, mesh=None) -> Llama:
     """Random init (tests, synthetic checkpoints): N(0, 1/fan_in) weights
     drawn from a torch.Generator seeded with `seed`, on `device`. A
     Mixtral config draws the router gate in f32 and the expert stacks in
-    `dtype`, as the reference's init_params does."""
+    `dtype`, as the reference's init_params does. With a `mesh` each
+    layer is drawn whole, as without one, and only this rank's slices are
+    kept (shard_layer): the same weights, sharded, one layer held whole
+    at a time."""
+    if mesh is not None:
+        tp_check(cfg, mesh)
     dtype = torch_dtype(dtype) if dtype is not None else cfg.tdtype
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     h, hd = cfg.hidden_size, cfg.head_dim
@@ -207,10 +228,12 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype=None,
             w.update(bq=torch.zeros((nh * hd,), dtype=dtype, device=device),
                      bk=torch.zeros((nkv * hd,), dtype=dtype, device=device),
                      bv=torch.zeros((nkv * hd,), dtype=dtype, device=device))
-        layers.append(LlamaLayer(w))
+        layers.append(LlamaLayer(w if mesh is None else shard_layer(w, mesh)))
     embed = norm((cfg.vocab_size, h), h)
     head = None if cfg.tie_embeddings else norm((h, cfg.vocab_size), h)
-    return Llama(cfg, embed, layers, ones(h), head)
+    if head is not None and mesh is not None:
+        head = shard_leaf("lm_head", head, mesh)
+    return Llama(cfg, embed, layers, ones(h), head, mesh=mesh)
 
 
 def _to_torch(x) -> torch.Tensor:
@@ -249,19 +272,122 @@ def params_from_jax(tree, cfg: LlamaConfig, device=None) -> Llama:
                  None if head is None else leaf(head))
 
 
+# ---------------------------------------------------- tensor parallelism
+
+# the reference's param_specs: column-parallel projections (and their
+# biases) split the output axis, row-parallel ones the input axis
+_COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")
+_ROW = ("wo", "w_down")
+_BIAS = ("bq", "bk", "bv")
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of a slice in storage of its own (a view would
+    keep the whole weight alive)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def tp_check(cfg: LlamaConfig, mesh) -> None:
+    """What a mesh's model axis must divide (the reference's
+    max_model_axis dims; the KV heads are the num_kv_heads % tp gate of its
+    models/llama._pallas_paged_scatter, here a refusal: the port keeps no
+    replicated pool); Mixtral's experts raise (expert parallelism waits
+    for its slice)."""
+    if cfg.num_experts:
+        raise not_ported("expert parallelism (Mixtral's experts on the "
+                         "model axis)", "parallel")
+    for n, what in ((cfg.num_heads * cfg.head_dim, "q width"),
+                    (cfg.num_kv_heads, "num_kv_heads"),
+                    (cfg.intermediate_size, "intermediate_size")):
+        mesh.local(n, what)
+    if not cfg.tie_embeddings:
+        mesh.local(cfg.vocab_size, "vocab_size (vocab-parallel lm_head)")
+
+
+def shard_leaf(name: str, w, mesh):
+    """This rank's slice of one layer leaf (or of the untied lm_head,
+    name "lm_head"), where the reference's param_specs(cfg, qbits=8) puts
+    it: columns of wq/wk/wv/w_gate/w_up and of their int8 q and s, rows of
+    wo/w_down's q with s whole, slices of bq/bk/bv, vocab columns of the
+    head; norms whole. Packed int4 raises (int4 under TP waits)."""
+    if isinstance(w, QuantWeight) and w.q.dtype == torch.uint8:
+        raise not_ported("int4 weights under a mesh", "parallel")
+    if name in _COLUMN or name == "lm_head":
+        if isinstance(w, QuantWeight):
+            sl = mesh.span(w.q.shape[-1], name)
+            return QuantWeight(_own(w.q[..., sl]), _own(w.s[..., sl]))
+        return _own(w[..., mesh.span(w.shape[-1], name)])
+    if name in _ROW:
+        if isinstance(w, QuantWeight):
+            return QuantWeight(_own(w.q[mesh.span(w.q.shape[0], name)]),
+                               w.s)
+        return _own(w[mesh.span(w.shape[0], name)])
+    if name in _BIAS:
+        return _own(w[mesh.span(w.shape[0], name)])
+    return w
+
+
+def shard_layer(weights: dict, mesh) -> dict:
+    """shard_leaf over one layer's {name: weight}."""
+    return {k: shard_leaf(k, w, mesh) for k, w in weights.items()}
+
+
+def shard_params(params: Llama, cfg: LlamaConfig, mesh) -> Llama:
+    """This rank's Llama: every leaf sliced as shard_leaf places it (the
+    addressable shard the reference's shard_params(params, param_specs(cfg,
+    qbits)) gives this rank), on the device the leaves are on; embed and
+    the norms replicated."""
+    tp_check(cfg, mesh)
+    layers = [LlamaLayer(shard_layer(
+        {**dict(lp.named_buffers(recurse=False)),
+         **dict(lp.named_children())}, mesh)) for lp in params.layers]
+    head = params.lm_head
+    return Llama(cfg, params.embed, layers, params.final_norm,
+                 None if head is None else shard_leaf("lm_head", head, mesh),
+                 mesh=mesh)
+
+
+def _tp(params: Llama, cfg: LlamaConfig, k_cache):
+    """The mesh a forward's collectives run on: the one the params were
+    sharded on (None for a whole model). A sharded model over a cache that
+    does not hold the rank's num_kv_heads // tp heads raises."""
+    mesh = params.mesh
+    if mesh is not None and k_cache.shape[2] != kv_heads(cfg, mesh):
+        raise ValueError(f"a cache of {k_cache.shape[2]} KV heads on rank "
+                         f"{mesh.rank} of {mesh.model}: the rank holds "
+                         f"{kv_heads(cfg, mesh)}")
+    return mesh
+
+
+def _reduce(y, mesh):
+    """A row-parallel product's partial sums, summed over the model axis
+    (the reference's psum after wo and after w_down)."""
+    return y if mesh is None else mesh.all_reduce(y)
+
+
 # ---------------------------------------------------------------- KV cache
 
+def kv_heads(cfg: LlamaConfig, mesh=None) -> int:
+    """The KV heads one rank's cache holds: num_kv_heads, or its share on
+    the mesh's model axis."""
+    if mesh is None:
+        return cfg.num_kv_heads
+    return mesh.local(cfg.num_kv_heads, "num_kv_heads")
+
+
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-                  cache_type: str = "", device=None):
-    """Head-major caches [L, B, KVH, T, D]. cache_type "int8"/"q8_0" stores
-    int8 + per-token scales with T padded to the 128-token scale tile."""
+                  cache_type: str = "", device=None, mesh=None):
+    """Head-major caches [L, B, KVH, T, D] (KVH the rank's kv_heads on a
+    mesh). cache_type "int8"/"q8_0" stores int8 + per-token scales with T
+    padded to the 128-token scale tile."""
+    kvh = kv_heads(cfg, mesh)
     if is_quant_kind(cache_type):
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads,
-                 padded_len(max_len), cfg.head_dim)
+        shape = (cfg.num_layers, batch, kvh, padded_len(max_len),
+                 cfg.head_dim)
         return init_quant(shape, device=device), init_quant(shape,
                                                             device=device)
     dtype = torch_dtype(dtype) if dtype is not None else cfg.tdtype
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.num_layers, batch, kvh, max_len, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -375,9 +501,10 @@ def _qkv(x, lp, cfg: LlamaConfig):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    # -1 heads: the rank's share on a mesh (its column slices)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -386,20 +513,34 @@ def _lm_head(x32, params: Llama):
     quantized, lm_head) through ops/kernels.head_matmul, which reads the
     head as stored. A quantized head (int8, or packed int4) is a bf16×bf16
     product with f32 accumulation, then × s in f32: the activations round
-    to bf16, the integer values are exact."""
+    to bf16, the integer values are exact. On a mesh an untied head is the
+    rank's vocab columns: its f32 logits are all-gathered, in rank order,
+    so every rank holds the whole row (a tied head is the replicated
+    embedding)."""
     head = params.lm_head
     if head is None:
         return head_matmul(x32, params.embed.T)
     if is_quantized(head):
-        return head_matmul(x32, head.q, head.s)
-    return head_matmul(x32, head)
+        out = head_matmul(x32, head.q, head.s)
+    else:
+        out = head_matmul(x32, head)
+    mesh = getattr(params, "mesh", None)
+    return out if mesh is None else mesh.all_gather(out, dim=-1)
 
 
-def _mlp(x, lp, cfg: LlamaConfig):
+def _mlp(x, lp, cfg: LlamaConfig, mesh=None):
+    """SwiGLU (or Mixtral's experts); on a mesh w_down's partial sums are
+    summed over the model axis."""
     if cfg.num_experts:
         return _moe_mlp(x, lp, cfg.experts_per_tok)
-    return qmatmul(F.silu(qmatmul(x, lp["w_gate"]))
-                   * qmatmul(x, lp["w_up"]), lp["w_down"])
+    return _reduce(qmatmul(F.silu(qmatmul(x, lp["w_gate"]))
+                           * qmatmul(x, lp["w_up"]), lp["w_down"]), mesh)
+
+
+def _attn_out(attn, lp, mesh):
+    """The attention output projection, wo's partial sums summed over the
+    model axis on a mesh."""
+    return _reduce(qmatmul(attn, lp["wo"]), mesh)
 
 
 def _experts(x, w):
@@ -461,6 +602,7 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
     dropped), as the reference does."""
     b, s = tokens.shape
     dev = tokens.device
+    mesh = _tp(params, cfg, k_cache)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     if kvt is not None:
         sm = slot_map.long().to(dev)
@@ -479,9 +621,9 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
         else:
             attn = flash_prefill(q, k, v, lengths,
                                  sliding_window=cfg.sliding_window)
-        x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
+        x = x + _attn_out(attn.reshape(b, s, -1), lp, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, mesh)
         _cache_write(k_cache[i], v_cache[i], k, v, slot_map, positions,
                      table, kvt=kvt)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
@@ -511,6 +653,7 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
     layer, read-only), which takes the place of the sliding window."""
     b = tokens.shape[0]
     dev = tokens.device
+    mesh = _tp(params, cfg, k_cache)
     kv_quant = isinstance(k_cache, QuantKV)
     positions = lengths.long()[:, None]
     if table is None:
@@ -535,10 +678,11 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
             _cache_write(kc, vc, k, v, rows, wpos)
         elif kv_quant:
             paged_scatter_append_q8(kc.q, kc.s, vc.q, vc.s, k[:, 0], v[:, 0],
-                                    lengths, table, active, targets=targets)
+                                    lengths, table, active, targets=targets,
+                                    mesh=mesh)
         else:
             paged_scatter_append(kc, vc, k[:, 0], v[:, 0], lengths, table,
-                                 active, targets=targets)
+                                 active, targets=targets, mesh=mesh)
         if kv_quant:
             attn = ragged_decode_q8(q, kc.q, kc.s, vc.q, vc.s, attn_len,
                                     sliding_window=cfg.sliding_window,
@@ -548,9 +692,9 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
                                  sliding_window=cfg.sliding_window,
                                  table=table, kvt=kvt,
                                  cold_kv=_cold_layer(kvt, i))
-        x = x + qmatmul(attn.reshape(b, 1, -1), lp["wo"])
+        x = x + _attn_out(attn.reshape(b, 1, -1), lp, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, mesh)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     return _lm_head(x[:, 0].float(), params)
 
@@ -580,6 +724,7 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     query, so the kv_pos <= q_pos mask hides it."""
     b, s = tokens.shape
     dev = tokens.device
+    mesh = _tp(params, cfg, k_cache)
     rows = (torch.arange(b, device=dev) if slot_map is None
             else slot_map.long().to(dev))
     positions = start.long().to(dev)[:, None] + torch.arange(
@@ -622,9 +767,9 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
                 vr = vc if slot_map is None else vc[rows]
             attn = mha_extend(q, dequant(kr), dequant(vr), positions,
                               sliding_window=cfg.sliding_window)
-        x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
+        x = x + _attn_out(attn.reshape(b, s, -1), lp, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, mesh)
     if not with_logits:
         return None
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
@@ -695,6 +840,9 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
                          "multimodal")
     t = tokens.shape[0]
     dev = tokens.device
+    if params.mesh is not None and kvt is not None:
+        raise not_ported("the KV retention tier under a mesh", "parallel")
+    mesh = _tp(params, cfg, k_cache)
     kv_quant = isinstance(k_cache, QuantKV)
     block_seq, qstart, qlen, kvlen, tables = (
         m.to(device=dev, dtype=torch.int32).contiguous()
@@ -712,17 +860,18 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
         k = apply_rope(k, cos, sin, pos[None])
         if kv_quant:
             ragged_scatter_append_q8(kc.q, kc.s, vc.q, vc.s, k[0], v[0], pb,
-                                     off)
+                                     off, mesh=mesh)
             attn = ragged_paged_attention_q8(q[0], kc.q, kc.s, vc.q, vc.s,
                                              *meta, sliding_window=sw,
-                                             kvt=kvt)
+                                             kvt=kvt, mesh=mesh)
         else:
-            ragged_scatter_append(kc, vc, k[0], v[0], pb, off)
+            ragged_scatter_append(kc, vc, k[0], v[0], pb, off, mesh=mesh)
             attn = ragged_paged_attention(q[0], kc, vc, *meta,
-                                          sliding_window=sw, kvt=kvt)
-        x = x + qmatmul(attn.reshape(1, t, -1), lp["wo"])
+                                          sliding_window=sw, kvt=kvt,
+                                          mesh=mesh)
+        x = x + _attn_out(attn.reshape(1, t, -1), lp, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, mesh)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last = x[0][logit_rows.long().to(dev)]
     return _lm_head(last.float(), params)

@@ -32,6 +32,8 @@ from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
     paged_scatter_append_plain,
     paged_scatter_append_q8,
     paged_scatter_append_q8_plain,
+    paged_scatter_append_q8_sharded,
+    paged_scatter_append_sharded,
     paged_targets,
 )
 from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
@@ -41,10 +43,14 @@ from localai_tpu_torch.ops.kernels.ragged_attention import (  # noqa: F401
     ragged_paged_attention_plain,
     ragged_paged_attention_q8,
     ragged_paged_attention_q8_plain,
+    ragged_paged_attention_q8_sharded,
+    ragged_paged_attention_sharded,
     ragged_scatter_append,
     ragged_scatter_append_plain,
     ragged_scatter_append_q8,
     ragged_scatter_append_q8_plain,
+    ragged_scatter_append_q8_sharded,
+    ragged_scatter_append_sharded,
     ragged_split,
     ragged_tiling,
 )

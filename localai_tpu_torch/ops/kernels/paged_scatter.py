@@ -25,6 +25,11 @@ engine _demote) runs on the same quantizing kernel: one hot block [KVH,
 viewed as blocks of one head [NBc*KVH, 1, 128, D], targets from
 `demote_targets` — no kernel of its own and no op chain.
 
+The tensor-parallel wrappers `paged_scatter_append_sharded` and
+`paged_scatter_append_q8_sharded` (the reference's shard_map wrappers)
+are one rank's launch of the same kernels on its KV-head shard of the
+pool, counted apart: the unsharded wrappers given `mesh=`.
+
 A wrapper given CPU tensors runs the plain version (advanced-index
 assignment); given CUDA tensors it launches the kernel or raises. Each
 launch adds one to its count in LAUNCHES, and nothing else does.
@@ -41,7 +46,8 @@ from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.paged import BLOCK, ring_block_map
 
 LAUNCHES = {"paged_scatter_append": 0, "paged_scatter_append_q8": 0,
-            "paged_demote_q8": 0}
+            "paged_demote_q8": 0, "paged_scatter_append_sharded": 0,
+            "paged_scatter_append_q8_sharded": 0}
 
 
 def paged_targets(positions, table, active=None, sb=None, rw=None):
@@ -158,7 +164,8 @@ def launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new, targets):
 
 
 def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
-                         active=None, sb=None, rw=None, targets=None):
+                         active=None, sb=None, rw=None, targets=None,
+                         mesh=None):
     """Append one K/V token per slot into the paged pools, IN PLACE.
 
     k_pool/v_pool: [NB, KVH, BS, D]; k_new/v_new: [B, KVH, D] (this step's
@@ -166,37 +173,38 @@ def paged_scatter_append(k_pool, v_pool, k_new, v_new, positions, table,
     write position (= the slot's current length); table: [B, MAXB] int;
     active: [B] bool or None; sb/rw: ring geometry or None; targets:
     (pb, off) precomputed by paged_targets (then positions/table/active/
-    sb/rw are not read). Returns (k_pool, v_pool), the same tensors."""
-    if k_new.device.type == "cpu":
+    sb/rw are not read); mesh: a tensor-parallel rank's shards (see
+    paged_scatter_append_sharded). Returns (k_pool, v_pool), the same
+    tensors."""
+    name = counted("paged_scatter_append", mesh, k_new.shape[1],
+                   k_pool.shape[1])
+    if _on_cpu(name, k_new):
         return paged_scatter_append_plain(k_pool, v_pool, k_new, v_new,
                                           positions, table, active, sb, rw,
                                           targets)
-    if k_new.device.type != "cuda":
-        raise ValueError(f"paged_scatter_append: unsupported device "
-                         f"{k_new.device}")
-    launch_rows("paged_scatter_append", k_pool, v_pool, k_new, v_new,
+    launch_rows(name, k_pool, v_pool, k_new, v_new,
                 _resolve(positions, table, active, sb, rw, targets))
-    LAUNCHES["paged_scatter_append"] += 1
+    LAUNCHES[name] += 1
     return k_pool, v_pool
 
 
 def paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions, table,
-                            active=None, sb=None, rw=None, targets=None):
+                            active=None, sb=None, rw=None, targets=None,
+                            mesh=None):
     """int8 variant, IN PLACE: pools kq/vq [NB, KVH, BS, D] int8 with scales
     ks/vs [NB, KVH, 1, BS] f32. k_new/v_new arrive dense [B, KVH, D] (bf16
     or f32 on the card) and are quantized per token, symmetric over D (on
     the card inside the kernel). Returns (kq, ks, vq, vs), the same
     tensors."""
-    if k_new.device.type == "cpu":
+    name = counted("paged_scatter_append_q8", mesh, k_new.shape[1],
+                   kq.shape[1])
+    if _on_cpu(name, k_new):
         return paged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new,
                                              positions, table, active, sb,
                                              rw, targets)
-    if k_new.device.type != "cuda":
-        raise ValueError(f"paged_scatter_append_q8: unsupported device "
-                         f"{k_new.device}")
-    launch_rows_q8("paged_scatter_append_q8", kq, ks, vq, vs, k_new, v_new,
+    launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new,
                    _resolve(positions, table, active, sb, rw, targets))
-    LAUNCHES["paged_scatter_append_q8"] += 1
+    LAUNCHES[name] += 1
     return kq, ks, vq, vs
 
 
@@ -251,3 +259,62 @@ def paged_demote_q8(kq, ks, vq, vs, k_blk, v_blk, targets):
                    v_blk.view(kvh * BLOCK, 1, d), targets)
     LAUNCHES["paged_demote_q8"] += 1
     return kq, ks, vq, vs
+
+
+# ------------------------------------------------------ tensor parallelism
+# The reference's *_sharded wrappers run the kernel per KV-head shard under
+# shard_map, the targets (ring map folded in) computed outside it from
+# replicated positions/table/active. PyTorch runs TP as SPMD: a rank's
+# shard_map body is its own launch on the rows [B, KVH/tp, D] and the pool
+# shard [NB, KVH/tp, 128, D] it holds, the targets computed outside the
+# launch, alike on every rank.
+
+def counted(name, mesh, heads, pool_heads, grouped=False):
+    """The LAUNCHES key a wrapper's launch adds to: `name`, or on a
+    tensor-parallel `mesh` its `*_sharded` twin, once the operands are
+    held to one rank's shards: `heads` (the new rows' KV heads, or q's
+    heads when `grouped`: whole GQA groups) on a pool shard of
+    `pool_heads` KV heads, on a rank of `mesh`."""
+    if mesh is None:
+        return name
+    name += "_sharded"
+    if not 0 <= mesh.rank < mesh.model:
+        raise ValueError(f"{name}: rank {mesh.rank} outside the model axis "
+                         f"({mesh.model})")
+    if (heads % pool_heads) if grouped else (heads != pool_heads):
+        raise ValueError(f"{name}: {heads} heads on a pool shard of "
+                         f"{pool_heads} KV heads: not this rank's shard")
+    return name
+
+
+def _on_cpu(name, x):
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    one; raises for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return False
+
+
+def paged_scatter_append_sharded(mesh, k_pool, v_pool, k_new, v_new,
+                                 positions, table, active=None, sb=None,
+                                 rw=None, targets=None):
+    """TP wrapper of paged_scatter_append (the reference's
+    paged_scatter.py:141): the rank's rows k_new/v_new [B, KVH/tp, D] into
+    its pool shard [NB, KVH/tp, 128, D], IN PLACE. The targets, ring map
+    (sb/rw) included, are computed outside the launch (paged_targets; or
+    given as `targets`), as the reference folds the ring outside
+    shard_map."""
+    return paged_scatter_append(k_pool, v_pool, k_new, v_new, positions,
+                                table, active, sb, rw, targets, mesh=mesh)
+
+
+def paged_scatter_append_q8_sharded(mesh, kq, ks, vq, vs, k_new, v_new,
+                                    positions, table, active=None, sb=None,
+                                    rw=None, targets=None):
+    """TP wrapper of paged_scatter_append_q8 (the reference's
+    paged_scatter.py:183): the int8 pools' and their scales' KV-head
+    shards, IN PLACE, the targets outside the launch."""
+    return paged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, positions,
+                                   table, active, sb, rw, targets, mesh=mesh)

@@ -60,7 +60,9 @@ launches count apart (`ragged_paged_attention_tier`,
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each launch adds one to the wrapper's count
 in LAUNCHES, and nothing else does. The tensor-parallel `*_sharded`
-wrappers wait for their slice and raise.
+wrappers (the reference's shard_map wrappers) launch the same kernels on
+one rank's KV-head shard and count apart: the unsharded wrappers given
+`mesh=`.
 """
 from __future__ import annotations
 
@@ -68,14 +70,14 @@ import functools
 
 import torch
 
-from localai_tpu_torch import not_ported
 from localai_tpu_torch.ops.attention import NEG_INF
 from localai_tpu_torch.ops.kernels import _build
 from localai_tpu_torch.ops.kernels.flash_attention import (
     _DTYPE_CODE, _check_cuda, _on, _raise_rc, _sm_count, _stream, _window,
 )
+from localai_tpu_torch import not_ported
 from localai_tpu_torch.ops.kernels.paged_scatter import (
-    launch_rows, launch_rows_q8, paged_scatter_append_plain,
+    _on_cpu, counted, launch_rows, launch_rows_q8, paged_scatter_append_plain,
     paged_scatter_append_q8_plain,
 )
 from localai_tpu_torch.ops.paged import BLOCK, resident_row_positions
@@ -141,7 +143,11 @@ def _ragged_workspace(t, h, kvh, d, maxb, device):
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0,
             "ragged_paged_attention_tier": 0,
             "ragged_paged_attention_q8_tier": 0,
-            "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0}
+            "ragged_scatter_append": 0, "ragged_scatter_append_q8": 0,
+            "ragged_paged_attention_sharded": 0,
+            "ragged_paged_attention_q8_sharded": 0,
+            "ragged_scatter_append_sharded": 0,
+            "ragged_scatter_append_q8_sharded": 0}
 
 _TIER_KEYS = ("sb", "rw", "sinks", "window")
 
@@ -286,77 +292,102 @@ def _attn_checks(name, q, pool_shape, tables):
     return t, h, kvh, d, tables.shape[1]
 
 
-def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
-                           kvlen, tables, sliding_window=None, kvt=None):
-    """Flat-stream GQA attention over paged KV. q: [T, H, D], T a multiple
-    of QBLK; pools [NB, KVH, 128, D] in q's dtype; metadata per the module
-    docstring; `kvt` the KV tier's per-sequence geometry (sliding_window is
-    then ignored). Returns [T, H, D] in q.dtype (padding rows garbage)."""
-    if q.device.type == "cpu":
-        return ragged_paged_attention_plain(q, k_pool, v_pool, block_seq,
-                                            qstart, qlen, kvlen, tables,
-                                            sliding_window, kvt)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_paged_attention: unsupported device "
-                         f"{q.device}")
-    if v_pool.shape != k_pool.shape:
-        raise ValueError("ragged_paged_attention: k/v pool shapes differ")
-    t, h, kvh, d, maxb = _attn_checks("ragged_paged_attention", q,
-                                      k_pool.shape, tables)
+def _prep(name, q, pools, tables, meta):
+    """Check a launch's tensors (pools: k, ks, v, vs; ks/vs None for
+    bf16/f32) and bring q and the metadata to the kernel's form: (q
+    contiguous, int32 metadata)."""
+    kp, ks, vp, vs = pools
+    if vp.shape != kp.shape:
+        raise ValueError(f"{name}: k/v pool shapes differ")
+    t, h, kvh, d, maxb = _attn_checks(name, q, kp.shape, tables)
     q = q.contiguous()
-    _check_cuda("ragged_paged_attention", (q, k_pool, v_pool),
-                (None, q.dtype, q.dtype))
-    meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
-    if kvt is not None:
-        return _ragged_tier(q, (k_pool, None, v_pool, None), meta, kvt)
+    if ks is None:
+        _check_cuda(name, (q, kp, vp), (None, q.dtype, q.dtype))
+    else:
+        nb = kp.shape[0]
+        if ks.shape != (nb, kvh, 1, BLOCK) or vs.shape != ks.shape:
+            raise ValueError(f"{name}: bad pool/scale shapes")
+        _check_cuda(name, (q, kp, ks, vp, vs),
+                    (None, torch.int8, torch.float32, torch.int8,
+                     torch.float32))
+    return q, _meta_i32(q.device, *meta)
+
+
+def _launch(name, q, pools, meta, sliding_window):
+    """One untiered split-KV launch (ragged_attention_launch, or its q8
+    twin when the pools carry scales) over _prep's tensors. Counts
+    nothing: each wrapper counts its own launch."""
+    kp, ks, vp, vs = pools
+    t, h, d = q.shape
+    kvh, maxb = kp.shape[1], meta[4].shape[1]
     out = torch.empty_like(q)
     nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
     lib = _build.load("ragged_attention")
-    rc = lib.ragged_attention_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), *(m.data_ptr() for m in meta), out.data_ptr(), t,
-        h, kvh, maxb, d, _window(sliding_window), d ** -0.5, ws.data_ptr(),
-        nsplit, split, _stream(q.device))
-    _raise_rc("ragged_paged_attention", rc)
-    LAUNCHES["ragged_paged_attention"] += 1
+    tail = (out.data_ptr(), t, h, kvh, maxb, d, _window(sliding_window),
+            d ** -0.5, ws.data_ptr(), nsplit, split, _stream(q.device))
+    mp = tuple(m.data_ptr() for m in meta)
+    if ks is None:
+        rc = lib.ragged_attention_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            *mp, *tail)
+    else:
+        rc = lib.ragged_attention_q8_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), kp.data_ptr(), ks.data_ptr(),
+            vp.data_ptr(), vs.data_ptr(), *mp, *tail)
+    _raise_rc(name, rc)
+    return out
+
+
+def _attn_name(name, mesh, q, pool, kvt):
+    """The LAUNCHES key of an attention launch (counted); the KV tier
+    raises under a mesh."""
+    if mesh is not None and kvt is not None:
+        raise not_ported("the KV retention tier under a mesh", "parallel")
+    return counted(name, mesh, q.shape[1], pool.shape[1], grouped=True)
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart, qlen,
+                           kvlen, tables, sliding_window=None, kvt=None,
+                           mesh=None):
+    """Flat-stream GQA attention over paged KV. q: [T, H, D], T a multiple
+    of QBLK; pools [NB, KVH, 128, D] in q's dtype; metadata per the module
+    docstring; `kvt` the KV tier's per-sequence geometry (sliding_window is
+    then ignored); `mesh` a tensor-parallel rank's shards (see
+    ragged_paged_attention_sharded). Returns [T, H, D] in q.dtype (padding
+    rows garbage)."""
+    name = _attn_name("ragged_paged_attention", mesh, q, k_pool, kvt)
+    if _on_cpu(name, q):
+        return ragged_paged_attention_plain(q, k_pool, v_pool, block_seq,
+                                            qstart, qlen, kvlen, tables,
+                                            sliding_window, kvt)
+    pools = (k_pool, None, v_pool, None)
+    q, meta = _prep(name, q, pools, tables,
+                    (block_seq, qstart, qlen, kvlen, tables))
+    if kvt is not None:
+        return _ragged_tier(q, pools, meta, kvt)
+    out = _launch(name, q, pools, meta, sliding_window)
+    LAUNCHES[name] += 1
     return out
 
 
 def ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq, qstart,
                               qlen, kvlen, tables, sliding_window=None,
-                              kvt=None):
+                              kvt=None, mesh=None):
     """int8 twin: pools k_q/v_q [NB, KVH, 128, D] int8 with per-token scales
     k_s/v_s [NB, KVH, 1, 128] f32 (ops/paged.py layout)."""
-    if q.device.type == "cpu":
+    name = _attn_name("ragged_paged_attention_q8", mesh, q, k_q, kvt)
+    if _on_cpu(name, q):
         return ragged_paged_attention_q8_plain(q, k_q, k_s, v_q, v_s,
                                                block_seq, qstart, qlen,
                                                kvlen, tables, sliding_window,
                                                kvt)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_paged_attention_q8: unsupported device "
-                         f"{q.device}")
-    t, h, kvh, d, maxb = _attn_checks("ragged_paged_attention_q8", q,
-                                      k_q.shape, tables)
-    nb = k_q.shape[0]
-    if (v_q.shape != k_q.shape or k_s.shape != (nb, kvh, 1, BLOCK)
-            or v_s.shape != k_s.shape):
-        raise ValueError("ragged_paged_attention_q8: bad pool/scale shapes")
-    q = q.contiguous()
-    _check_cuda("ragged_paged_attention_q8", (q, k_q, k_s, v_q, v_s),
-                (None, torch.int8, torch.float32, torch.int8, torch.float32))
-    meta = _meta_i32(q.device, block_seq, qstart, qlen, kvlen, tables)
+    pools = (k_q, k_s, v_q, v_s)
+    q, meta = _prep(name, q, pools, tables,
+                    (block_seq, qstart, qlen, kvlen, tables))
     if kvt is not None:
-        return _ragged_tier(q, (k_q, k_s, v_q, v_s), meta, kvt)
-    out = torch.empty_like(q)
-    nsplit, split, ws = _ragged_workspace(t, h, kvh, d, maxb, q.device)
-    lib = _build.load("ragged_attention")
-    rc = lib.ragged_attention_q8_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
-        v_q.data_ptr(), v_s.data_ptr(), *(m.data_ptr() for m in meta),
-        out.data_ptr(), t, h, kvh, maxb, d, _window(sliding_window),
-        d ** -0.5, ws.data_ptr(), nsplit, split, _stream(q.device))
-    _raise_rc("ragged_paged_attention_q8", rc)
-    LAUNCHES["ragged_paged_attention_q8"] += 1
+        return _ragged_tier(q, pools, meta, kvt)
+    out = _launch(name, q, pools, meta, sliding_window)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -391,55 +422,79 @@ def _ragged_tier(q, pools, meta, kvt):
     return out
 
 
-def ragged_scatter_append(k_pool, v_pool, k_new, v_new, pb, off):
+def ragged_scatter_append(k_pool, v_pool, k_new, v_new, pb, off, mesh=None):
     """Write each flat row into its pool slot, IN PLACE. k_new/v_new: [T,
-    KVH, D]; pb/off: [T] int (padding rows aim at trash block 0). Returns
-    (k_pool, v_pool), the same tensors."""
-    if k_new.device.type == "cpu":
+    KVH, D]; pb/off: [T] int (padding rows aim at trash block 0); `mesh` a
+    tensor-parallel rank's shards. Returns (k_pool, v_pool), the same
+    tensors."""
+    name = counted("ragged_scatter_append", mesh, k_new.shape[1],
+                   k_pool.shape[1])
+    if _on_cpu(name, k_new):
         return ragged_scatter_append_plain(k_pool, v_pool, k_new, v_new, pb,
                                            off)
-    if k_new.device.type != "cuda":
-        raise ValueError(f"ragged_scatter_append: unsupported device "
-                         f"{k_new.device}")
-    launch_rows("ragged_scatter_append", k_pool, v_pool, k_new, v_new,
-                (pb, off))
-    LAUNCHES["ragged_scatter_append"] += 1
+    launch_rows(name, k_pool, v_pool, k_new, v_new, (pb, off))
+    LAUNCHES[name] += 1
     return k_pool, v_pool
 
 
-def ragged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, pb, off):
+def ragged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, pb, off,
+                             mesh=None):
     """int8 twin, IN PLACE: quantize the flat rows, then write int8 rows and
     scale elements into [NB, KVH, 128, D] / [NB, KVH, 1, 128]. Returns (kq,
     ks, vq, vs), the same tensors."""
-    if k_new.device.type == "cpu":
+    name = counted("ragged_scatter_append_q8", mesh, k_new.shape[1],
+                   kq.shape[1])
+    if _on_cpu(name, k_new):
         return ragged_scatter_append_q8_plain(kq, ks, vq, vs, k_new, v_new,
                                               pb, off)
-    if k_new.device.type != "cuda":
-        raise ValueError(f"ragged_scatter_append_q8: unsupported device "
-                         f"{k_new.device}")
-    launch_rows_q8("ragged_scatter_append_q8", kq, ks, vq, vs, k_new, v_new,
-                   (pb, off))
-    LAUNCHES["ragged_scatter_append_q8"] += 1
+    launch_rows_q8(name, kq, ks, vq, vs, k_new, v_new, (pb, off))
+    LAUNCHES[name] += 1
     return kq, ks, vq, vs
 
 
-# ------------------------------------------------ tensor parallelism (later)
+# ------------------------------------------------------ tensor parallelism
+# The reference's *_sharded wrappers run rows 8-11 per KV-head shard under
+# shard_map. PyTorch runs TP as SPMD, so a rank's shard_map body is its own
+# launch of the same kernel on the heads it holds: q [T, H/tp, D] (the
+# rank's query heads: q is kv-head-major, so an even KV-head split keeps
+# every GQA group on one rank) and the pools' KV-head shard [NB, KVH/tp,
+# 128, D]; the metadata is every rank's alike. Each counts its own
+# launches; on CPU tensors it runs the plain version.
 
-def ragged_paged_attention_sharded(mesh, *args, **kwargs):
-    raise not_ported("ragged_paged_attention_sharded (KV-head shards)",
-                     "parallel")
+def ragged_paged_attention_sharded(mesh, q, k_pool, v_pool, block_seq,
+                                   qstart, qlen, kvlen, tables,
+                                   sliding_window=None):
+    """TP wrapper of ragged_paged_attention (the reference's
+    ragged_attention.py:436): this rank's attention on its heads."""
+    return ragged_paged_attention(q, k_pool, v_pool, block_seq, qstart,
+                                  qlen, kvlen, tables, sliding_window,
+                                  mesh=mesh)
 
 
-def ragged_paged_attention_q8_sharded(mesh, *args, **kwargs):
-    raise not_ported("ragged_paged_attention_q8_sharded (KV-head shards)",
-                     "parallel")
+def ragged_paged_attention_q8_sharded(mesh, q, k_q, k_s, v_q, v_s,
+                                      block_seq, qstart, qlen, kvlen,
+                                      tables, sliding_window=None):
+    """TP wrapper of ragged_paged_attention_q8 (the reference's
+    ragged_attention.py:458): the int8 pools' and their scales' KV-head
+    shards."""
+    return ragged_paged_attention_q8(q, k_q, k_s, v_q, v_s, block_seq,
+                                     qstart, qlen, kvlen, tables,
+                                     sliding_window, mesh=mesh)
 
 
-def ragged_scatter_append_sharded(mesh, *args, **kwargs):
-    raise not_ported("ragged_scatter_append_sharded (KV-head shards)",
-                     "parallel")
+def ragged_scatter_append_sharded(mesh, k_pool, v_pool, k_new, v_new, pb,
+                                  off):
+    """TP wrapper of ragged_scatter_append (the reference's
+    ragged_attention.py:541): the rank's flat rows [T, KVH/tp, D] into its
+    pool shard, IN PLACE."""
+    return ragged_scatter_append(k_pool, v_pool, k_new, v_new, pb, off,
+                                 mesh=mesh)
 
 
-def ragged_scatter_append_q8_sharded(mesh, *args, **kwargs):
-    raise not_ported("ragged_scatter_append_q8_sharded (KV-head shards)",
-                     "parallel")
+def ragged_scatter_append_q8_sharded(mesh, kq, ks, vq, vs, k_new, v_new,
+                                     pb, off):
+    """TP wrapper of ragged_scatter_append_q8 (the reference's
+    ragged_attention.py:555): quantizing writes into the rank's int8 pool
+    and scale shards, IN PLACE."""
+    return ragged_scatter_append_q8(kq, ks, vq, vs, k_new, v_new, pb, off,
+                                    mesh=mesh)

@@ -145,7 +145,8 @@ def test_load_kv_pages_streams_reference_text(ckpt):
 
 
 def test_load_rejects_unported_options(ckpt):
-    """Options of later slices fail the load, naming the slice. A
+    """Options of later slices fail the load, naming the slice (a mesh's
+    data axis; mesh_model is served, tests/test_torch_parallel.py). A
     draft_model is served (speculative decoding): LoadModel reads the
     draft's checkpoint — a missing one fails the load as a missing target
     does — and tests/test_torch_spec.py streams through a real one. The KV
@@ -158,7 +159,7 @@ def test_load_rejects_unported_options(ckpt):
 
     for kw, want in (
             (dict(draft_model="x"), "FileNotFoundError"),
-            (dict(embeddings=True), "slice"), (dict(mesh_model=2), "slice"),
+            (dict(embeddings=True), "slice"), (dict(mesh_data=2), "slice"),
             (dict(options=json.dumps({"kv_policy": "sink_window"})),
              "ValueError: unknown kv_policy 'sink_window'"),
             (dict(options=json.dumps({"kv_cold_pages": 4})),
@@ -204,6 +205,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import localai_tpu_torch.ops.kernels\n"
         "import localai_tpu_torch.ops.quant\n"
         "import localai_tpu_torch.engine.loader\n"
+        "import localai_tpu_torch.parallel.mesh\n"
+        "import localai_tpu_torch.parallel.distributed\n"
+        "import localai_tpu_torch.core.worker\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -215,6 +219,8 @@ def test_import_leaves_no_jax_in_sys_modules():
     assert "localai_tpu_torch.engine.kvhost" in mods
     assert "localai_tpu_torch.engine.resume" in mods
     assert "localai_tpu_torch.ops.kernels.weight_gemm" in mods
+    assert "localai_tpu_torch.parallel.distributed" in mods
+    assert "localai_tpu_torch.core.worker" in mods
     bad = [m for m in mods if _forbidden(m)]
     assert bad == []
 
@@ -242,6 +248,10 @@ def test_ast_no_jax_or_reference_imports():
                             name) in files
     for name in ("quant.py", os.path.join("kernels", "weight_gemm.py")):
         assert os.path.join(ROOT, "localai_tpu_torch", "ops", name) in files
+    for name in (os.path.join("parallel", "mesh.py"),
+                 os.path.join("parallel", "distributed.py"),
+                 os.path.join("core", "worker.py")):
+        assert os.path.join(ROOT, "localai_tpu_torch", name) in files
     bad = [(os.path.relpath(f, ROOT), line, mod) for f in files
            for line, mod in _imports(f) if _forbidden(mod)]
     assert bad == []

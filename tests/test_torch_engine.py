@@ -33,6 +33,7 @@ from localai_tpu_torch.engine.engine import (
     Engine as TEngine, EngineConfig as TConfig, GenRequest as TRequest,
 )
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from localai_tpu_torch.parallel.mesh import Mesh
 
 
 @pytest.fixture(scope="module")
@@ -164,18 +165,24 @@ def test_threaded_serving_cancel_and_deadline(models):
 @pytest.mark.parametrize("field,value", [
     ("ragged_token_budget", 16),
     ("kv_policy", "sink_window(sinks=0, window=64)"), ("kv_cold_pages", 2),
-    ("kv_host_bytes", 1 << 20), ("mesh", object()),
+    ("kv_host_bytes", 1 << 20),
+    ("mesh", Mesh(rank=0, model=1, device=torch.device("cpu"))),
     ("replicator", object())])
 def test_unported_config_rejected(models, field, value):
     (_, _, _), (tcfg, tp, ttok) = models
     # ragged batching and the host and retention KV tiers are served now,
     # but only over a paged pool (kv_policy), and kv_cold_pages only with a
-    # quantize_cold policy: they are rejected with the reference's errors
+    # quantize_cold policy: they are rejected with the reference's errors.
+    # Tensor parallelism is served on the model axis: a mesh the params
+    # were not sharded on is refused, and a replicator without a mesh
+    # (replicas) waits for a later slice
     exc, match = ((ValueError, "paged")
                   if field in ("ragged_token_budget", "kv_host_bytes",
                                "kv_policy")
                   else (ValueError, "kv_cold_pages needs kv_policy")
                   if field == "kv_cold_pages"
+                  else (ValueError, "not sharded on the engine's mesh")
+                  if field == "mesh"
                   else (NotImplementedError, "slice"))
     with pytest.raises(exc, match=match):
         TEngine(tcfg, tp, ttok, TConfig(**dict(EC, **{field: value})),

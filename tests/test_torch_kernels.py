@@ -25,6 +25,7 @@ import torch
 
 from localai_tpu_torch.ops import kernels as tk
 from localai_tpu_torch.ops.kvcache import quantize_tokens
+from localai_tpu_torch.parallel.mesh import Mesh
 from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -217,6 +218,19 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     tk.w4a16_matmul(xw, q4, sw)
     tk.head_matmul(xw, q4, sw)
     tk.moe_w4_matmul(xw, q4.repeat(3, 1, 1), sw.repeat(3, 1, 1))
+    # the tensor-parallel wrappers, on a one-rank mesh
+    one_rank = Mesh(rank=0, model=1, device=torch.device("cpu"))
+    tk.paged_scatter_append_sharded(one_rank, pool, pool.clone(), row, row,
+                                    torch.tensor([7]), table)
+    tk.paged_scatter_append_q8_sharded(one_rank, pq, ps, pq.clone(),
+                                       ps.clone(), row, row,
+                                       torch.tensor([7]), table)
+    tk.ragged_paged_attention_sharded(one_rank, qr, pool, pool, *meta)
+    tk.ragged_paged_attention_q8_sharded(one_rank, qr, pq, ps, pq, ps, *meta)
+    tk.ragged_scatter_append_sharded(one_rank, pool, pool.clone(), rows8,
+                                     rows8, pb8, off8)
+    tk.ragged_scatter_append_q8_sharded(one_rank, pq, ps, pq.clone(),
+                                        ps.clone(), rows8, rows8, pb8, off8)
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
@@ -232,7 +246,13 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                            "ragged_scatter_append",
                            "ragged_scatter_append_q8", "w8a16_matmul",
                            "head_matmul", "moe_w8_matmul", "w4a16_matmul",
-                           "head_matmul_int4", "moe_w4_matmul"}
+                           "head_matmul_int4", "moe_w4_matmul",
+                           "paged_scatter_append_sharded",
+                           "paged_scatter_append_q8_sharded",
+                           "ragged_paged_attention_sharded",
+                           "ragged_paged_attention_q8_sharded",
+                           "ragged_scatter_append_sharded",
+                           "ragged_scatter_append_q8_sharded"}
     assert not any(counts.values())
 
 

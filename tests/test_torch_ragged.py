@@ -46,6 +46,7 @@ from localai_tpu_torch.ops.kernels import ragged_attention as tra
 from localai_tpu_torch.ops.kvcache import quantize_tokens
 from localai_tpu_torch.ops.rope import rope_table as trope_table
 from localai_tpu_torch.ops.sampling import SamplingParams as TParams
+from localai_tpu_torch.parallel.mesh import Mesh
 from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.ragged
@@ -217,12 +218,19 @@ def test_unported_lanes_raise():
     np.testing.assert_array_equal(
         tk.ragged_paged_attention(*targs, **tmeta, kvt=kvt).numpy(),
         tk.ragged_paged_attention(*targs, **tmeta).numpy())
-    for fn in (tra.ragged_paged_attention_sharded,
-               tra.ragged_paged_attention_q8_sharded,
-               tra.ragged_scatter_append_sharded,
-               tra.ragged_scatter_append_q8_sharded):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
-            fn(None, *targs)
+    # the tensor-parallel wrappers run now (tests/test_torch_parallel.py):
+    # on a one-rank mesh they are the unsharded lane; under a mesh the
+    # tiered lane waits for the parallel slice
+    one = Mesh(rank=0, model=1, device=torch.device("cpu"))
+    np.testing.assert_array_equal(
+        tra.ragged_paged_attention_sharded(one, *targs, **tmeta).numpy(),
+        tk.ragged_paged_attention(*targs, **tmeta).numpy())
+    with pytest.raises(NotImplementedError, match="parallel slice"):
+        tllama.ragged_forward(
+            tllama.Llama(None, None, [], None, mesh=one), None,
+            torch.zeros(8, dtype=torch.int32), None, None,
+            torch.zeros((1, 1, 1, 128, 16)), None, None, None, None, None,
+            None, None, kvt=kvt)
 
 
 def test_ragged_row_targets():

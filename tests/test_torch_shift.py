@@ -138,7 +138,7 @@ def _dense_case(kind, seed=2):
         jk, jv = _jax_copy(k, jdt), _jax_copy(v, jdt)
         tk, tv = torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)
     lengths = np.array([200, 77], np.int32)
-    return (jk, jv, jnp.asarray(lengths)), (tk, tv,
+    return (jk, jv, _jax_copy(lengths)), (tk, tv,
                                             torch.from_numpy(lengths))
 
 
@@ -315,7 +315,9 @@ def test_int8_step_after_shift_logits(models, monkeypatch, paged):
             jt, tt = jnp.asarray(table), torch.from_numpy(table)
         else:
             lens = np.array([n, 0], np.int32)
-            jkc, jvc, _ = shift_d(jcfg, jkc, jvc, jnp.asarray(lens), 0,
+            # the port decrements lens[0] in place: the reference reads
+            # a copy of its own
+            jkc, jvc, _ = shift_d(jcfg, jkc, jvc, _jax_copy(lens), 0,
                                   keep=4, discard=100)
             tllama.cache_shift(tcfg, tkc, tvc, torch.from_numpy(lens), 0,
                                keep=4, discard=100)
