@@ -318,8 +318,8 @@ and the script exits non-zero:
      goes to a log file): dense and paged through the gRPC backend's
      LoadModel(mesh_model=2), ragged through the worker role's World and
      an Engine of phase 6's shape, bf16 then the int8 recipe, four streams
-     a leg, 32 new tokens each (TP_LAYERS: the ragged legs at 32 layers,
-     the dense and paged legs at 8). Checks: every stream to its budget; the
+     a leg, 32 new tokens each, at 8 of the 8B's 32 layers (TP_LAYERS).
+     Checks: every stream to its budget; the
      leg's kernels launched through the sharded wrappers and no unsharded
      scatter or ragged kernel; the three greedy streams teacher-forced
      through the one-rank model on the same synthetic weights within 0.25
@@ -329,9 +329,49 @@ and the script exits non-zero:
      after a synchronize), its busy and idle ms a decode step
      (torch.profiler: the union of its CUDA activities against the wall),
      the follower's own launch counts.
+ 15. the llm backend's other roles at published widths. 15.1: the
+     synthetic Llama-3.1-8B (32 layers, write_tokenizer's tokenizer) through
+     the gRPC backend's LoadModel(embeddings=true, prefill_buckets=[64,
+     256, 1024]), bf16 then the int8 recipe: Embedding of 17, 200 and 900
+     ids (one bucket each), the Embedder on eight id lists in the 1024
+     bucket, the CrossScorer on a 32-token query and eight documents of
+     64-400 tokens (M = 8192 rows through the head), the batched `prompts`
+     Embedding and Rerank through the tokenizer; checks: flash_prefill
+     launched 32 times a forward, w8a16_matmul (int8) 7 x 32, head_matmul
+     once a scorer forward, nothing else and no plain version; the
+     vectors within cosine 0.999 and the scores within 0.05 (and in order
+     where two differ by more than 0.1) of the same calls with every
+     kernel's plain version on the card; Rerank and `prompts` equal the
+     in-process calls. 15.2: BAAI/bge-large-en-v1.5's BertModel widths
+     (24 layers, hidden 1024, 16 heads, vocab 30522; weights from a seed,
+     a safetensors file written here): LoadModel on its directory (the
+     encoder alone), Embedding at 17, 200 and 500 ids and of two texts,
+     TokenizeString, and a batch of eight at 512; card against the port
+     on the CPU (f32): cosine >= 0.999; no kernel launches (bidirectional
+     attention: plain matmuls). 15.3: llava-1.5-7b (Llama-2-7B text
+     widths, vocab 32064, the image token 32000; the CLIP ViT-L/14-336
+     tower and projector, about 0.32 B values from a seed written here,
+     the text side synthetic): four PredictStream requests over gRPC at 32
+     layers, one PNG each (~40 text tokens, 576 image rows: chunked extend
+     with the rows injected), 32 new tokens; then in-process Engines at
+     SERVE_LAYERS: paged (single-shot prefill with the rows injected),
+     ragged with bf16 and with int8 KV (the rows packed into the flat
+     stream), and an
+     identity leg (a dense int8-KV engine: a prompt's own embedding rows
+     injected give its token prompt's greedy tokens, the image rows other
+     tokens). Checks: every stream to its budget; the path's kernels
+     launched and no plain version; every prompt token packed on the
+     ragged engine; the greedy streams within 0.25 logit of a teacher-
+     forced plain forward fed the same image rows (planted fault: none).
+     Prints, each with the card: each call's wall and device-busy ms,
+     the cosines and scores, the tower's ms an image, TTFT p50, tok/s and
+     the launches; then row 14 at M = 8192 (the scorer's head) and row 1
+     at the embeddings batch and llava's text widths, timed after the
+     phase's counts are read.
 The second line from the end is {"kernels": [...]} (the six wrappers of
-row 12 among them); the last line is {"ok": true, "device": {...}}. It
-imports nothing of JAX or localai_tpu.
+row 12 among them; `launches_roles`: phase 15's); the last line is
+{"ok": true, "device": {...}}. It imports nothing of JAX or
+localai_tpu.
 """
 from __future__ import annotations
 
@@ -712,9 +752,9 @@ def _check_close(name, out, ref, tol, lengths=None, fault=None, share=None):
 def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
                   timed=True, cold=False):
     """With timed=True also plants a fault — the 64 keys furthest back
-    dropped for the query rows that have more than S - 64 (a window of
-    S - 64; for S <= 128 a window of half the longest length) — and checks
-    that the tolerance rejects it. cold=True also times kernel and library
+    dropped for the query rows that have more than L - 64, L the longest
+    length (a window of L - 64; for L <= 128 a window of half of L) — and
+    checks that the tolerance rejects it. cold=True also times kernel and library
     with a cold L2."""
     import torch
     import torch.nn.functional as F
@@ -727,7 +767,8 @@ def check_prefill(B, S, H, KVH, D, dtype, lengths, window=None,
     out = flash_prefill(q, k, v, lens, sliding_window=window)
     torch.cuda.synchronize()
     ref = flash_prefill_plain(q, k, v, lens, sliding_window=window)
-    fault_window = S - 64 if S > 128 else max(max(lengths) // 2, 1)
+    longest = max(lengths)
+    fault_window = longest - 64 if longest > 128 else max(longest // 2, 1)
     fault = flash_prefill_plain(q, k, v, lens, sliding_window=fault_window) \
         if timed and window is None else None
     name = f"flash_prefill {str(dtype).split('.')[-1]} B={B} S={S} " \
@@ -2981,6 +3022,21 @@ class _Client:
                       self.pb.MetricsResponse)(self.pb.MetricsRequest())
         return dict(r.metrics)
 
+    def embedding(self, **kw):
+        return self._rpc("Embedding", self.pb.PredictOptions,
+                         self.pb.EmbeddingResult)(
+            self.pb.PredictOptions(**kw), timeout=600)
+
+    def rerank(self, **kw):
+        return self._rpc("Rerank", self.pb.RerankRequest,
+                         self.pb.RerankResult)(
+            self.pb.RerankRequest(**kw), timeout=600)
+
+    def tokenize(self, prompt):
+        return self._rpc("TokenizeString", self.pb.PredictOptions,
+                         self.pb.TokenizationResponse)(
+            self.pb.PredictOptions(prompt=prompt), timeout=60)
+
     def close(self):
         self.channel.close()
 
@@ -3349,7 +3405,7 @@ def plain_weight_gemms():
 
 
 def check_reference(name, engine, cases, fault, phase="phase5",
-                    grammar=None, margin=None):
+                    grammar=None, margin=None, mm=None):
     """Hold greedy requests served on the paged or ragged path against a
     teacher-forced reference: the prompt plus the served tokens go through
     the port's plain forward (models.llama.extend over a dense cache — plain
@@ -3364,7 +3420,11 @@ def check_reference(name, engine, cases, fault, phase="phase5",
     the cases were served under; each reference row is then masked to the
     tokens the grammar allowed there (the port's matcher), as the sampler
     masked the served row. `margin`: the gap and logprob bound in place
-    of REF_MARGIN and REF_LP_TOL (phase 12's top-k routed models)."""
+    of REF_MARGIN and REF_LP_TOL (phase 12's top-k routed models). `mm`:
+    {label: (image feature rows [K, H], their prompt positions [K])} of
+    multimodal cases (phase 15): the reference forward is fed the same
+    rows through extend's inject; the planted fault takes none."""
+    import numpy as np
     import torch
 
     from localai_tpu_torch.models.llama import extend, init_kv_cache
@@ -3375,16 +3435,27 @@ def check_reference(name, engine, cases, fault, phase="phase5",
 
     cfg, dev = engine.cfg, engine.device
 
-    def reference(ids, toks):
+    def reference(ids, toks, rows=None):
         seq = list(ids) + list(toks[:-1])
         kc, vc = init_kv_cache(cfg, 1, len(seq),
                                cache_type=engine.ec.cache_type, device=dev)
+        inject = None
+        if rows is not None:
+            emb, pos = rows
+            p = torch.as_tensor(np.asarray(pos), device=dev)
+            extra = torch.zeros((1, len(seq), emb.shape[1]), device=dev)
+            extra[0, p] = torch.as_tensor(np.asarray(emb, np.float32),
+                                          device=dev)
+            is_embed = torch.zeros((1, len(seq)), dtype=torch.bool,
+                                   device=dev)
+            is_embed[0, p] = True
+            inject = (extra, is_embed)
         with torch.no_grad():
             logits = extend(engine.params, cfg,
                             torch.tensor([seq], dtype=torch.int32,
                                          device=dev),
                             torch.zeros((1,), dtype=torch.int32, device=dev),
-                            engine._cos, engine._sin, kc, vc)
+                            engine._cos, engine._sin, kc, vc, inject=inject)
         return logits[0, len(ids) - 1:].float()  # row i predicted toks[i]
 
     # the grammar's allowed rows by served tokens: the planted fault
@@ -3408,8 +3479,10 @@ def check_reference(name, engine, cases, fault, phase="phase5",
                 "max_dlogprob": float(dlp.max()), "logit_std": std}
 
     before = launch_counts()
+    mm = mm or {}
     with plain_weight_gemms():
-        out = {label: readings(reference(ids, toks), toks, lps)
+        out = {label: readings(reference(ids, toks, mm.get(label)), toks,
+                               lps)
                for label, (ids, toks, lps) in cases.items()}
         ids, toks, lps = fault
         out["planted fault"] = readings(reference(ids, toks), toks, lps)
@@ -6868,10 +6941,11 @@ TP = 2
 TP_REQUESTS = [(17, dict(temperature=0.0)), (300, dict(temperature=0.0)),
                (700, dict(temperature=0.0)),
                (40, dict(temperature=0.8, top_k=40, seed=11))]
-# layers a leg serves: the ragged legs at the published 32, the dense and
-# paged legs at 8 (at 32 every leg the phase took about nine minutes of the
-# smoke's 1200 s, 230-340 ms a decode step: PERF.md); new tokens a stream
-TP_LAYERS = {"dense": 8, "paged": 8, "ragged": 32}
+# layers a leg serves: 8 of the published 32 (at 32 every leg the phase
+# took about nine minutes of the smoke's 1200 s, 230-340 ms a decode step;
+# the ragged legs served 32 until phase 15 joined the smoke, which then
+# took 1010.6 s on a slow host: PERF.md); new tokens a stream
+TP_LAYERS = {"dense": 8, "paged": 8, "ragged": 8}
 TP_TOKENS = 32
 TP_LOAD = {"dense": dict(parallel=4, context_size=2048),
            "paged": dict(parallel=4, context_size=4096, kv_pages=129)}
@@ -7543,6 +7617,907 @@ def phase_tp(smi):
     return counts, kernels
 
 
+# ----------------------------------------------------------------- phase 15
+
+# BAAI/bge-large-en-v1.5's published config (BertModel)
+CFG_BGE_LARGE = {
+    "architectures": ["BertModel"], "model_type": "bert",
+    "vocab_size": 30522, "hidden_size": 1024, "intermediate_size": 4096,
+    "num_hidden_layers": 24, "num_attention_heads": 16,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+}
+
+# llava-hf/llava-1.5-7b-hf's published config: the text side (Vicuna-7B,
+# Llama-2-7B's widths, the vocabulary widened to 32064 by the image token
+# and padding) written out in full, and the CLIP ViT-L/14-336 tower
+CFG_LLAVA = {
+    "architectures": ["LlavaForConditionalGeneration"],
+    "model_type": "llava", "image_token_index": 32000,
+    "vision_feature_layer": -2, "vision_feature_select_strategy": "default",
+    "projector_hidden_act": "gelu",
+    "text_config": {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": 32064, "hidden_size": 4096,
+        "intermediate_size": 11008, "num_hidden_layers": 32,
+        "num_attention_heads": 32, "num_key_value_heads": 32,
+        "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+        "rope_theta": 10000.0, "tie_word_embeddings": False},
+    "vision_config": {
+        "model_type": "clip_vision_model", "hidden_size": 1024,
+        "intermediate_size": 4096, "num_hidden_layers": 24,
+        "num_attention_heads": 16, "image_size": 336, "patch_size": 14,
+        "layer_norm_eps": 1e-5, "projection_dim": 768},
+}
+
+# the embeddings leg: one Embedding request a bucket of the Embedder's
+# (64, 256, 1024), a batch of eight in the 1024 bucket, and one 32-token
+# query against eight documents of 64-400 tokens (the 1024 bucket: M =
+# 8 x 1024 = 8192 rows through the head)
+ROLES_BUCKETS = [64, 256, 1024]
+ROLES_EMBED_LENS = (17, 200, 900)
+ROLES_BATCH = [1024 - 47 * i for i in range(8)]
+ROLES_QUERY = 32
+ROLES_DOCS = (64, 110, 160, 210, 260, 310, 360, 400)
+# pooled vectors against the plain forward: cosine; rerank scores (mean
+# log-probs, magnitude ~12 at V = 128256): absolute, and the order wherever
+# two plain scores are more than ORDER_GAP apart
+COS_MIN = 0.999
+SCORE_TOL = 0.05
+ORDER_GAP = 0.1
+BERT_LENS = (17, 200, 500)
+BERT_BATCH = 8
+# llava: ~40 text tokens around one image placeholder a prompt, 32 new
+# tokens a stream; four streams, the fourth seeded-sampled
+LLAVA_TEXT = 40
+LLAVA_TOKENS = 32
+LLAVA_SAMPLING = [dict(temperature=0.0)] * 3 + [
+    dict(temperature=0.8, top_k=40, seed=15)]
+ROLES_OWN = {"bf16": ("flash_prefill", "head_matmul"),
+             "int8": ("flash_prefill", "w8a16_matmul", "head_matmul")}
+
+
+def write_safetensors(path, tensors):
+    """{name: tensor} (bf16 or f32, any device) → a safetensors file: the
+    8-byte header length, the JSON header, the raw little-endian bytes."""
+    import torch
+
+    code = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": code[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(
+                torch.uint8).cpu().numpy().tobytes())
+
+
+class _Seeded:
+    """bf16 tensors on the card from one seeded generator: linear weights
+    N(0, 1/fan_in) (fan_in: the last axis unless given), LayerNorm gains
+    near 1 and biases near 0."""
+
+    def __init__(self, seed):
+        import torch
+
+        self.torch = torch
+        self.g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def _n(self, shape):
+        return self.torch.randn(shape, generator=self.g, device="cuda")
+
+    def w(self, *shape, fan=None):
+        return (self._n(shape) * (fan or shape[-1]) ** -0.5).to(
+            self.torch.bfloat16)
+
+    def bias(self, n):
+        return (0.02 * self._n((n,))).to(self.torch.bfloat16)
+
+    def gain(self, n):
+        return (1.0 + 0.1 * self._n((n,))).to(self.torch.bfloat16)
+
+
+def bert_checkpoint(d, seed=15):
+    """bge-large-en-v1.5's widths with weights from `seed`, written as a
+    BertModel safetensors file (bf16) with write_tokenizer's tokenizer of
+    its vocabulary. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    c, r = CFG_BGE_LARGE, _Seeded(seed)
+    h, inter = c["hidden_size"], c["intermediate_size"]
+    t = {"embeddings.word_embeddings.weight": r.w(c["vocab_size"], h),
+         "embeddings.position_embeddings.weight": r.w(
+             c["max_position_embeddings"], h),
+         "embeddings.token_type_embeddings.weight": r.w(
+             c["type_vocab_size"], h),
+         "embeddings.LayerNorm.weight": r.gain(h),
+         "embeddings.LayerNorm.bias": r.bias(h)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, o, n in (("attention.self.query", h, h),
+                           ("attention.self.key", h, h),
+                           ("attention.self.value", h, h),
+                           ("attention.output.dense", h, h),
+                           ("intermediate.dense", inter, h),
+                           ("output.dense", h, inter)):
+            t[p + name + ".weight"] = r.w(o, n)
+            t[p + name + ".bias"] = r.bias(o)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[p + name + ".weight"] = r.gain(h)
+            t[p + name + ".bias"] = r.bias(h)
+    write_safetensors(os.path.join(d, "model.safetensors"), t)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(c, f)
+    write_tokenizer(d, c["vocab_size"])
+    return time.perf_counter() - t0
+
+
+def llava_checkpoint(d, seed=16):
+    """A synthetic llava-1.5-7b directory: config.json (CFG_LLAVA,
+    "localai_synthetic": the text side drawn from the seed by the loader)
+    and a safetensors file holding only the CLIP tower and the projector
+    (classic layout, bf16, about 0.32 B values) from `seed`. Returns (the
+    values written, seconds)."""
+    t0 = time.perf_counter()
+    vc, r = CFG_LLAVA["vision_config"], _Seeded(seed)
+    h, inter = vc["hidden_size"], vc["intermediate_size"]
+    p_sz = vc["patch_size"]
+    n_pos = (vc["image_size"] // p_sz) ** 2 + 1
+    pre = "vision_tower.vision_model."
+    t = {pre + "embeddings.patch_embedding.weight": r.w(
+             h, 3, p_sz, p_sz, fan=3 * p_sz * p_sz),
+         pre + "embeddings.class_embedding": r.w(h),
+         pre + "embeddings.position_embedding.weight": r.w(n_pos, h),
+         pre + "pre_layrnorm.weight": r.gain(h),
+         pre + "pre_layrnorm.bias": r.bias(h)}
+    for i in range(vc["num_hidden_layers"]):
+        p = pre + f"encoder.layers.{i}."
+        for name, o, n in (("self_attn.q_proj", h, h),
+                           ("self_attn.k_proj", h, h),
+                           ("self_attn.v_proj", h, h),
+                           ("self_attn.out_proj", h, h),
+                           ("mlp.fc1", inter, h), ("mlp.fc2", h, inter)):
+            t[p + name + ".weight"] = r.w(o, n)
+            t[p + name + ".bias"] = r.bias(o)
+        for name in ("layer_norm1", "layer_norm2"):
+            t[p + name + ".weight"] = r.gain(h)
+            t[p + name + ".bias"] = r.bias(h)
+    ht = CFG_LLAVA["text_config"]["hidden_size"]
+    t["multi_modal_projector.linear_1.weight"] = r.w(ht, h)
+    t["multi_modal_projector.linear_1.bias"] = r.bias(ht)
+    t["multi_modal_projector.linear_2.weight"] = r.w(ht, ht)
+    t["multi_modal_projector.linear_2.bias"] = r.bias(ht)
+    write_safetensors(os.path.join(d, "model.safetensors"), t)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(CFG_LLAVA, localai_synthetic=True), f)
+    return sum(x.numel() for x in t.values()), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def plain_forwards():
+    """Within: the cacheless forwards and the prefill attend through
+    flash_prefill's plain version, and the weight GEMMs run theirs
+    (plain_weight_gemms) — the embeddings leg's reference, on the card."""
+    from localai_tpu_torch.models import llama
+    from localai_tpu_torch.ops import kernels
+
+    saved = llama.flash_prefill
+    llama.flash_prefill = kernels.flash_prefill_plain
+    try:
+        with plain_weight_gemms():
+            yield
+    finally:
+        llama.flash_prefill = saved
+
+
+def _call_ms(fn):
+    """(fn's result, its wall ms, its device-busy ms): one call timed on
+    the host clock (the card synchronized before and after), then a second
+    call under torch.profiler, whose CUDA activities' union is the busy
+    ms (_busy_ms). Both calls are the path's own."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return out, wall, _busy_ms(p)
+
+
+def _cos(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _order_flips(got, want, gap=ORDER_GAP):
+    """Pairs (i, j) whose plain scores are more than `gap` apart and whose
+    served scores order them the other way."""
+    n = len(want)
+    return [(i, j) for i in range(n) for j in range(n)
+            if want[i] - want[j] > gap and not got[i] > got[j]]
+
+
+def roles_embed_leg(label, d, load_kw, smi):
+    """The embeddings and rerank roles of the synthetic Llama-3.1-8B (32
+    layers) over gRPC: LoadModel(embeddings=true) (no prewarm: the roles
+    do not use the engine), Embedding at ROLES_EMBED_LENS (one bucket
+    each), the Embedder on a batch of eight in the 1024 bucket, the
+    CrossScorer on a 32-token query and eight documents, the batched
+    `prompts` Embedding and Rerank through the tokenizer. Checks: no plain
+    version ran; flash_prefill launched 32 times a forward, w8a16_matmul
+    (int8) 7 x 32 a forward, head_matmul once a scorer forward; cosine >=
+    COS_MIN against the same calls with every kernel's plain version on
+    the card, scores within SCORE_TOL and in the plain order wherever two
+    differ by more than ORDER_GAP; gRPC Rerank and batched prompts equal
+    the in-process calls on the tokenized text. Returns the leg's row."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.backend.server import serve
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    os.environ["LOCALAI_NO_PREWARM"] = "1"
+    server, servicer, port = serve("127.0.0.1:0", device="cuda")
+    client = _Client(f"127.0.0.1:{port}")
+    row = {"leg": label}
+    try:
+        t0 = time.perf_counter()
+        r = client.load(model=d, embeddings=True, parallel=1,
+                        context_size=2048, prefill_buckets=ROLES_BUCKETS,
+                        **load_kw)
+        if not r.success:
+            raise RuntimeError(f"phase15 {label}: LoadModel failed: "
+                               f"{r.message}")
+        row["load_s"] = time.perf_counter() - t0
+        cfg, emb, scorer = servicer.cfg, servicer.embedder, servicer.scorer
+        L = cfg.num_layers
+        calls, forwards, scored = {}, 0, 0
+        before = launch_counts()
+        with plain_calls() as plain:
+            served = {}
+            for n in ROLES_EMBED_LENS:
+                ids = prompt_ids(n, n, salt=15)
+                res, wall, busy = _call_ms(
+                    lambda ids=ids: client.embedding(prompt_ids=ids))
+                if res.prompt_tokens != n or len(res.embeddings) != \
+                        cfg.hidden_size:
+                    raise AssertionError(f"phase15 {label}: Embedding of "
+                                         f"{n} ids answered {res}")
+                served[n] = (ids, np.asarray(res.embeddings, np.float32))
+                calls[f"embedding {n}"] = (wall, busy)
+                forwards += 2
+            batch = [prompt_ids(i, n, salt=16)
+                     for i, n in enumerate(ROLES_BATCH)]
+            bvecs, wall, busy = _call_ms(lambda: emb.embed(batch))
+            calls["embed batch 8 x 1024"] = (wall, busy)
+            forwards += 2
+            q = prompt_ids(0, ROLES_QUERY, salt=17)
+            docs = [prompt_ids(i + 1, n, salt=18)
+                    for i, n in enumerate(ROLES_DOCS)]
+            scores, wall, busy = _call_ms(lambda: scorer.score(q, docs))
+            calls["score 8 docs (M = 8192)"] = (wall, busy)
+            forwards += 2
+            scored += 2
+            texts = ["what is the weather in paris today",
+                     "a cat sat on the mat", '{"unit": "celsius"}']
+            t = time.perf_counter()
+            res = client.embedding(prompts=texts)
+            calls["embedding prompts x3"] = ((time.perf_counter() - t)
+                                             * 1e3, None)
+            forwards += 1
+            want = emb.embed([servicer.tok.encode(x) for x in texts])
+            forwards += 1
+            got = np.asarray([v.values for v in res.vectors], np.float32)
+            if got.shape != want.shape or np.abs(got - want).max() > 1e-6:
+                raise AssertionError(f"phase15 {label}: batched prompts "
+                                     f"differ from the Embedder's vectors")
+            t = time.perf_counter()
+            rr = client.rerank(query=texts[0], documents=texts + [
+                "paris weather: rain, 12 celsius"], top_n=3)
+            calls["rerank 4 docs"] = ((time.perf_counter() - t) * 1e3, None)
+            forwards += 1
+            scored += 1
+            want = scorer.score(
+                servicer.tok.encode(texts[0]),
+                [servicer.tok.encode(x, add_bos=False)
+                 for x in texts + ["paris weather: rain, 12 celsius"]])
+            forwards += 1
+            scored += 1
+            order = [int(i) for i in want.argsort()[::-1][:3]]
+            if [x.index for x in rr.results] != order or max(
+                    abs(x.relevance_score - want[x.index])
+                    for x in rr.results) > 1e-5:
+                raise AssertionError(f"phase15 {label}: Rerank {rr} against "
+                                     f"the scorer's {want}")
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        if plain:
+            raise AssertionError(f"phase15 {label}: plain versions ran "
+                                 f"{plain}")
+        int8 = load_kw.get("dtype") == "int8"
+        want = {"flash_prefill": L * forwards,
+                "w8a16_matmul": 7 * L * forwards if int8 else 0,
+                "head_matmul": scored}
+        for k, n in want.items():
+            if launched[k] != n:
+                raise AssertionError(f"phase15 {label}: {k} launched "
+                                     f"{launched[k]} times, not {n}")
+        others = {k: v for k, v in launched.items() if v and k not in want}
+        if others:
+            raise AssertionError(f"phase15 {label}: other kernels launched "
+                                 f"{others}")
+        # the same calls with every kernel's plain version, on the card
+        mark = launch_counts()
+        with plain_forwards():
+            ref = {n: emb.embed([ids])[0] for n, (ids, _) in served.items()}
+            ref_batch = emb.embed(batch)
+            ref_scores = scorer.score(q, docs)
+        if launch_counts() != mark:
+            raise AssertionError(f"phase15 {label}: the plain forward "
+                                 f"launched a kernel")
+        cosines = {n: _cos(v, ref[n]) for n, (_, v) in served.items()}
+        cosines["batch min"] = min(_cos(a, b)
+                                   for a, b in zip(bvecs, ref_batch))
+        dscore = float(np.abs(scores - ref_scores).max())
+        flips = _order_flips(scores, ref_scores)
+        row.update({
+            "layers": L, "recipe": weight_recipe(servicer.engine.params),
+            "calls_wall_busy_ms": calls, "cosine": cosines,
+            "scores": [float(x) for x in scores],
+            "plain_scores": [float(x) for x in ref_scores],
+            "max_dscore": dscore, "order_flips": flips,
+            "launches": {k: v for k, v in launched.items() if v},
+            "forwards": forwards,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+        log(f"phase15 {label} " + json.dumps(row) + f" card {smi}")
+        if min(cosines.values()) < COS_MIN or dscore > SCORE_TOL or flips:
+            raise AssertionError(f"phase15 {label}: served against plain: "
+                                 f"cosines {cosines}, scores {dscore}, "
+                                 f"order flips {flips}")
+        return row
+    finally:
+        os.environ.pop("LOCALAI_NO_PREWARM", None)
+        client.close()
+        servicer.shutdown()
+        server.stop(grace=1).wait(10)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def roles_bert_leg(d, smi):
+    """bge-large-en-v1.5's widths (24 layers, hidden 1024, 16 heads) over
+    gRPC: LoadModel on its directory (the encoder alone, f32), Embedding
+    at BERT_LENS and of three texts (`prompts`), TokenizeString, and the
+    BertEmbedder on a batch of eight at 512; each held to the port on the
+    CPU (the same file, f32): cosine >= COS_MIN. No kernel launches (BERT
+    attends both ways: plain matmuls). Returns the leg's row."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.backend.server import serve
+    from localai_tpu_torch.models import bert
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    server, servicer, port = serve("127.0.0.1:0", device="cuda")
+    client = _Client(f"127.0.0.1:{port}")
+    row = {"leg": "bert"}
+    try:
+        t0 = time.perf_counter()
+        r = client.load(model=d)
+        if not r.success:
+            raise RuntimeError(f"phase15 bert: LoadModel failed {r.message}")
+        row["load_s"] = time.perf_counter() - t0
+        if servicer.engine is not None or not isinstance(
+                servicer.embedder, bert.BertEmbedder):
+            raise AssertionError("phase15 bert: not an embedding-only load")
+        vocab = CFG_BGE_LARGE["vocab_size"]
+        before = launch_counts()
+        calls, served = {}, {}
+        for n in BERT_LENS:
+            ids = [(7 * n + 13 * j) % (vocab - 1) + 1 for j in range(n)]
+            res, wall, busy = _call_ms(
+                lambda ids=ids: client.embedding(prompt_ids=ids))
+            served[n] = (ids, np.asarray(res.embeddings, np.float32))
+            calls[f"embedding {n}"] = (wall, busy)
+        batch = [[(11 * i + 5 * j) % (vocab - 1) + 1 for j in range(512)]
+                 for i in range(BERT_BATCH)]
+        bvecs, wall, busy = _call_ms(lambda: servicer.embedder.embed(batch))
+        calls[f"embed batch {BERT_BATCH} x 512"] = (wall, busy)
+        texts = ["what is the weather in paris today",
+                 "a cat sat on the mat"]
+        tok = client.tokenize(texts[0])
+        pres = client.embedding(prompts=texts)
+        if list(tok.tokens) != servicer.tok.encode(texts[0]) or \
+                len(pres.vectors) != 2:
+            raise AssertionError("phase15 bert: TokenizeString or batched "
+                                 "prompts answered wrong")
+        if launch_counts() != before:
+            raise AssertionError("phase15 bert: a kernel launched")
+        t0 = time.perf_counter()
+        cfg = bert.load_bert_config(d)
+        cpu = bert.BertEmbedder(cfg, bert.load_bert_params(d, cfg,
+                                                           device="cpu"),
+                                device="cpu")
+        ref = {n: cpu.embed([ids])[0] for n, (ids, _) in served.items()}
+        ref_batch = cpu.embed(batch)
+        ref_prompts = cpu.embed([servicer.tok.encode(x) for x in texts])
+        cpu_s = time.perf_counter() - t0
+        cosines = {n: _cos(v, ref[n]) for n, (_, v) in served.items()}
+        cosines["batch min"] = min(_cos(a, b)
+                                   for a, b in zip(bvecs, ref_batch))
+        cosines["prompts min"] = min(
+            _cos(v.values, b) for v, b in zip(pres.vectors, ref_prompts))
+        row.update({"layers": cfg.num_layers, "dtype": cfg.dtype,
+                    "calls_wall_busy_ms": calls, "cosine": cosines,
+                    "cpu_reference_s": cpu_s})
+        log("phase15 bert " + json.dumps(row) + f" card {smi}")
+        if min(cosines.values()) < COS_MIN:
+            raise AssertionError(f"phase15 bert: card against CPU {cosines}")
+        return row
+    finally:
+        client.close()
+        servicer.shutdown()
+        server.stop(grace=1).wait(10)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _png_b64(seed, size=(400, 300)):
+    """A PNG of seeded random pixels, base64 (the proto's images entry)."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    px = np.random.default_rng(seed).integers(
+        0, 256, (size[1], size[0], 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(px, "RGB").save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def llava_prompts(salt=0):
+    """Four prompts of LLAVA_TEXT text ids in llava's vocabulary, the
+    image placeholder (32000) at position 5, and each its PNG."""
+    img = CFG_LLAVA["image_token_index"]
+    out = []
+    for i in range(len(LLAVA_SAMPLING)):
+        ids = [(7 * i + 13 * j + salt) % (img - 1) + 1
+               for j in range(LLAVA_TEXT)]
+        ids[5] = img
+        out.append((ids, _png_b64(100 + i + salt)))
+    return out
+
+
+def _tower_ms(vision, images):
+    """Device ms of encode_images (tower + projector) on `images` (PNG
+    base64), by CUDA events (median of 5 after a warm call)."""
+    import numpy as np
+
+    from localai_tpu_torch.models.llava import (
+        decode_image_b64, encode_images, preprocess_image,
+    )
+
+    vcfg, vparams, meta = vision
+    px = np.concatenate([preprocess_image(decode_image_b64(b), vcfg)
+                         for b in images])
+    return _time_ms(lambda: encode_images(vparams, vcfg, meta, px), reps=5,
+                    warm=1, spin=False)
+
+
+def _mm_records(recs, label):
+    """Every stream of an mm wave finished "length" at LLAVA_TOKENS."""
+    for r in recs:
+        if r["last"] is None or r["last"].finish_reason != "length" \
+                or len(r["toks"]) != LLAVA_TOKENS:
+            raise AssertionError(f"phase15 {label}: a stream ended "
+                                 f"{r['last'] and r['last'].finish_reason} "
+                                 f"after {len(r['toks'])} tokens")
+
+
+def _mm_reference(label, eng, recs, requests, mm):
+    """The teacher-forced check of a wave's greedy mm streams, the same
+    image rows fed to the plain forward; planted fault: the last greedy
+    stream held to its prompt without the image rows."""
+    greedy = [(i, r) for i, r in enumerate(recs)
+              if requests[i][1].get("temperature") == 0.0]
+    cases = {f"stream {i}": (r["ids"], r["toks"], r["lps"])
+             for i, r in greedy}
+    rows = {f"stream {i}": mm[i] for i, _ in greedy}
+    i, r = greedy[-1]
+    ref = check_reference(label, eng, cases, (r["ids"], r["toks"], r["lps"]),
+                          phase="phase15", mm=rows)
+    return (max(v["max_gap"] for k, v in ref.items() if k != "planted fault"),
+            ref["planted fault"]["max_gap"])
+
+
+def llava_grpc_leg(d, smi, out):
+    """llava's dense leg over gRPC at all 32 layers (bf16): LoadModel on
+    the llava directory (the engine, the tower and the projector), four
+    PredictStream requests with one PNG each (~40 text tokens, the
+    placeholder expanded to 576 image rows: 615-token prompts, which
+    prefill by chunked extend with the feature rows injected), 32 new
+    tokens. Checks: every stream to its budget, no plain version ran, the
+    dense decode kernel once a layer a decode step, the three greedy
+    streams within 0.25 logit of the teacher-forced plain forward fed the
+    same rows (planted fault: no image rows). Keeps the vision params and
+    the expanded prompts in `out`. Returns the leg's row."""
+    import threading
+
+    import torch
+
+    from localai_tpu_torch.backend.server import serve
+    from localai_tpu_torch.ops.kernels import launch_counts
+
+    server, servicer, port = serve("127.0.0.1:0", device="cuda")
+    client = _Client(f"127.0.0.1:{port}")
+    try:
+        t0 = time.perf_counter()
+        r = client.load(model=d, dtype="bfloat16", parallel=4,
+                        context_size=2048)
+        if not r.success:
+            raise RuntimeError(f"phase15 llava: LoadModel failed {r.message}")
+        load_s = time.perf_counter() - t0
+        eng = servicer.engine
+        prompts = llava_prompts()
+        recs = [None] * len(prompts)
+
+        def one(i, ids, b64, sp):
+            ts = time.perf_counter()
+            rec = dict(ttft=None, toks=[], lps=[], last=None)
+            for c in client.stream(prompt_ids=ids, images=[b64],
+                                   tokens=LLAVA_TOKENS, ignore_eos=True,
+                                   logprobs=True, **sp):
+                if c.token_ids and rec["ttft"] is None:
+                    rec["ttft"] = time.perf_counter() - ts
+                rec["toks"] += list(c.token_ids)
+                rec["lps"] += list(c.logprobs)
+                rec["last"] = c
+            recs[i] = rec
+
+        m0, g0, before = client.metrics(), eng.graphs.counters(), \
+            launch_counts()
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            threads = [threading.Thread(target=one, args=(i, ids, b64, sp))
+                       for i, ((ids, b64), sp) in enumerate(
+                           zip(prompts, LLAVA_SAMPLING))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        m1, graphs = client.metrics(), graph_delta(g0,
+                                                   eng.graphs.counters())
+        if plain:
+            raise AssertionError(f"phase15 llava: plain versions ran {plain}")
+        mm = []
+        for (ids, b64), rec in zip(prompts, recs):
+            if rec is None:
+                raise RuntimeError("phase15 llava: a stream failed")
+            ids_x, feats, pos = servicer._encode_images(ids, [b64])
+            rec["ids"] = ids_x
+            mm.append((feats, pos))
+        _mm_records(recs, "llava dense")
+        steps = int(m1["decode_steps_dispatched"]
+                    - m0["decode_steps_dispatched"])
+        check_fused_path("phase15 llava dense", graphs, "dense",
+                         m1["tokens_by_path__loop"]
+                         - m0["tokens_by_path__loop"], launched,
+                         ("ragged_decode",), eng.cfg.num_layers, steps)
+        chunks = int(m1["prefill_chunks_mid"] - m0["prefill_chunks_mid"]
+                     + m1["prefill_chunks_final"]
+                     - m0["prefill_chunks_final"])
+        if chunks < len(prompts) * 2:
+            raise AssertionError(f"phase15 llava: {chunks} prefill chunks "
+                                 f"for {len(prompts)} 615-token prompts")
+        gap, fault_gap = _mm_reference("llava dense", eng, recs,
+                                       list(zip(prompts, LLAVA_SAMPLING)),
+                                       mm)
+        tower_1 = _tower_ms(servicer.vision, [prompts[0][1]])
+        tower_4 = _tower_ms(servicer.vision, [b for _, b in prompts])
+        import statistics
+
+        row = {"leg": "llava dense grpc", "layers": eng.cfg.num_layers,
+               "prompt_tokens": [len(r["ids"]) for r in recs],
+               "load_s": load_s, "wall_s": wall,
+               "tok_s": len(recs) * LLAVA_TOKENS / wall,
+               "ttft_p50_ms": statistics.median(r["ttft"] for r in recs)
+               * 1e3, "prefill_chunks": chunks, "graphs": graphs,
+               "tower_ms_per_image": {"1 image": tower_1,
+                                      "4 images": tower_4 / 4},
+               "launches": {k: v for k, v in launched.items() if v},
+               "reference_max_gap": gap, "planted_fault_gap": fault_gap}
+        log("phase15 llava dense grpc " + json.dumps(row) + f" card {smi}")
+        out["vision"] = servicer.vision
+        out["mm"] = [(r["ids"], feats, pos)
+                     for r, (feats, pos) in zip(recs, mm)]
+        return row
+    finally:
+        client.close()
+        servicer.shutdown()
+        server.stop(grace=1).wait(10)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def llava_engine_leg(label, cfg, params, ec, mm, smi, own):
+    """An in-process Engine (SERVE_LAYERS) on llava's text side serving
+    the four mm requests of the gRPC leg (their expanded prompts and image
+    rows) at once. Checks: every stream to its budget, no plain version
+    ran, each kernel of `own` launched, on a ragged engine every prompt
+    token packed; the greedy streams against the teacher-forced plain
+    forward fed the same rows. Returns the leg's row."""
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, \
+        GenRequest
+    from localai_tpu_torch.ops.kernels import launch_counts
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    eng = Engine(cfg, params, None, EngineConfig(**ec), device="cuda")
+    eng.warmup()
+    m0, g0, before = dict(eng.metrics), eng.graphs.counters(), \
+        launch_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        recs = []
+        for (ids, feats, pos), sp in zip(mm, LLAVA_SAMPLING):
+            _, q = eng.submit(GenRequest(
+                list(ids), SamplingParams(**sp), max_tokens=LLAVA_TOKENS,
+                ignore_eos=True, logprobs=True, mm_embeds=feats,
+                mm_positions=pos))
+            recs.append(dict(ids=list(ids), q=q, t0=time.perf_counter(),
+                             ttft=None, toks=[], lps=[], text="", last=None))
+        while _pump(eng, recs):
+            pass
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    m, graphs = dict(eng.metrics), graph_delta(g0, eng.graphs.counters())
+    _mm_records(recs, label)
+    if plain:
+        raise AssertionError(f"phase15 {label}: plain versions ran {plain}")
+    for k in own:
+        if launched[k] <= 0:
+            raise AssertionError(f"phase15 {label}: {k} never launched")
+    if ec.get("ragged_token_budget") and (
+            m["ragged_prefill_tokens"] - m0["ragged_prefill_tokens"]
+            != sum(len(r["ids"]) for r in recs)):
+        raise AssertionError(f"phase15 {label}: not every prompt token "
+                             f"was packed into a ragged tick")
+    gap, fault_gap = _mm_reference(
+        label, eng, recs, [(None, sp) for sp in LLAVA_SAMPLING],
+        [(f, p) for _, f, p in mm])
+    row = {"leg": label, "layers": cfg.num_layers, "wall_s": wall,
+           "tok_s": len(recs) * LLAVA_TOKENS / wall,
+           "ttft_p50_ms": _p50_ms(recs), "graphs": graphs,
+           "ragged_dispatches": int(m.get("ragged_dispatches", 0)
+                                    - m0.get("ragged_dispatches", 0)),
+           "launches": {k: v for k, v in launched.items() if v},
+           "reference_max_gap": gap, "planted_fault_gap": fault_gap}
+    log(f"phase15 {label} " + json.dumps(row) + f" card {smi}")
+    del eng
+    return row
+
+
+def llava_identity_leg(cfg, params, mm, smi):
+    """The inject lane as an identity on the card: a dense Engine
+    (SERVE_LAYERS, int8 KV, single-shot prefill of the 615-token prompts)
+    serves each greedy prompt alone three times — as tokens, with the
+    embedding rows of its own tokens injected at the image positions, and
+    with the image rows — and the first two give the same tokens (the
+    reference's test_llava identity idea); the image rows give others.
+    Returns the leg's row."""
+    import numpy as np
+    import torch
+
+    from localai_tpu_torch.engine.engine import Engine, EngineConfig, \
+        GenRequest
+    from localai_tpu_torch.ops.kernels import launch_counts
+    from localai_tpu_torch.ops.sampling import SamplingParams
+
+    eng = Engine(cfg, params, None, EngineConfig(
+        max_slots=2, max_context=2048, prefill_buckets=(1024,),
+        prefill_chunk=1024, cache_type="int8"), device="cuda")
+    eng.warmup()
+    before = launch_counts()
+
+    def run(ids, rows=None):
+        kw = {} if rows is None else dict(mm_embeds=rows[0],
+                                          mm_positions=rows[1])
+        _, q = eng.submit(GenRequest(list(ids), SamplingParams(
+            temperature=0.0), max_tokens=LLAVA_TOKENS, ignore_eos=True,
+            **kw))
+        rec = dict(q=q, t0=time.perf_counter(), ttft=None, toks=[], lps=[],
+                   text="", last=None)
+        while _pump(eng, [rec]):
+            pass
+        return rec["toks"]
+
+    out = []
+    with plain_calls() as plain:
+        for ids, feats, pos in mm[:2]:
+            own = eng.params.embed[torch.as_tensor(
+                np.asarray(ids)[pos], device="cuda")].float().cpu().numpy()
+            toks, same, image = run(ids), run(ids, (own, pos)), run(
+                ids, (feats, pos))
+            out.append((toks == same, toks != image))
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    if plain:
+        raise AssertionError(f"phase15 identity: plain versions ran {plain}")
+    for k in ("flash_prefill", "ragged_decode_q8"):
+        if launched[k] <= 0:
+            raise AssertionError(f"phase15 identity: {k} never launched")
+    row = {"leg": "llava identity", "layers": cfg.num_layers,
+           "own_rows_equal_tokens": [a for a, _ in out],
+           "image_rows_differ": [b for _, b in out],
+           "launches": {k: v for k, v in launched.items() if v}}
+    log("phase15 llava identity " + json.dumps(row) + f" card {smi}")
+    if not all(a for a, _ in out) or not all(b for _, b in out):
+        raise AssertionError(f"phase15 identity: {row}")
+    del eng
+    return row
+
+
+def row14_large_m(smi, M=8192, K=4096, V=128256):
+    """Row 14 (head_matmul, the bf16 head on its SIMT route) at the
+    scorer's M = 8 x 1024 against its plain version (the head's f32 copy
+    and torch.matmul, which is also the library call), device ms (median
+    of 3 after a warm call, behind a spin) and the bound: 2 M K V flops at
+    the f32 peak (the port keeps the head's product in f32)."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul, head_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x32 = torch.randn(M, K, device="cuda", generator=g)
+    w = (torch.randn(V, K, device="cuda", generator=g)
+         * K ** -0.5).to(torch.bfloat16).T.contiguous()
+    out = head_matmul(x32, w)
+    ref = head_matmul_plain(x32, w)
+    res = _check_close(f"head_matmul bf16 M={M}", out, ref, HEAD_TOL)
+    del out, ref
+    flops, nbytes = 2.0 * M * K * V, 2 * K * V + 4 * M * K + 4 * M * V
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    res.update(
+        ms=_time_ms(lambda: head_matmul(x32, w), reps=3, warm=1),
+        plain_ms=_time_ms(lambda: head_matmul_plain(x32, w), reps=3,
+                          warm=1),
+        library_ms=_time_ms(lambda: x32 @ w.float(), reps=3, warm=1),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"phase15 row 14 at M={M} K={K} V={V} " + json.dumps(res)
+        + f" card {smi}")
+    return res
+
+
+def row1_roles(smi):
+    """Row 1 (flash_prefill) at the roles' shapes: the embeddings batch
+    (B = 8, S = 1024 on the 8B's H = 32, KVH = 8) and llava's text side
+    (B = 1, S = 1024, H = KVH = 32), against its plain version, timed as
+    phase 2 times it."""
+    import torch
+
+    return {
+        "embed 8x1024": check_prefill(8, 1024, 32, 8, 128, torch.bfloat16,
+                                      ROLES_BATCH),
+        "llava 1x1024": check_prefill(1, 1024, 32, 32, 128, torch.bfloat16,
+                                      [615])}
+
+
+def phase_roles(smi):
+    """Phase 15, the llm backend's other roles at published widths:
+    embeddings and rerank (the 8B at 32 layers, bf16 and the int8
+    recipe), the BERT encoder (bge-large-en-v1.5), and llava-1.5-7b's
+    images (dense gRPC at 32 layers; paged, ragged and identity Engines
+    at SERVE_LAYERS), the llava legs first: their engines capture CUDA
+    graphs, and a ragged engine's capture in a run that had made the
+    embeddings calls (timed under torch.profiler) first failed once, its
+    capture invalidated between two ops of one layer. The launch counts are zeroed at its start and read
+    before the kernel timings at its end (row 14 at M = 8192, row 1 at the
+    roles' shapes), whose launches do not count. Returns (the phase's
+    launch counts, the timings)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from localai_tpu_torch.engine.loader import load_config, load_params
+    from localai_tpu_torch.ops.kernels import launch_counts, \
+        reset_launch_counts
+
+    os.environ["LOCALAI_ALLOW_SYNTHETIC"] = "1"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = []
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the legs whose engines capture CUDA graphs run first, before any
+    # torch.profiler session of the process (the calls' busy ms)
+    with tempfile.TemporaryDirectory() as d:
+        n, secs = llava_checkpoint(d)
+        log(f"phase15 llava checkpoint: {n} tower and projector values "
+            f"written in {secs:.1f} s")
+        kept = {}
+        rows.append(llava_grpc_leg(d, smi, kept))
+        settle()
+        cfg = dataclasses.replace(load_config(d, dtype="bfloat16"),
+                                  num_layers=SERVE_LAYERS)
+        params = load_params(d, cfg, dtype="bfloat16", device="cuda")
+        pages = 4 * 8 + 1
+        rows.append(llava_engine_leg(
+            "llava paged", cfg, params, dict(
+                max_slots=4, max_context=2048, prefill_buckets=(1024,),
+                prefill_chunk=1024, kv_pages=pages),
+            kept["mm"], smi, ("flash_prefill", "ragged_decode_paged",
+                              "paged_scatter_append")))
+        settle()
+        rows.append(llava_engine_leg(
+            "llava ragged", cfg, params, dict(
+                max_slots=4, max_context=2048, kv_pages=pages,
+                ragged_token_budget=192),
+            kept["mm"], smi, ("ragged_paged_attention",
+                              "ragged_scatter_append",
+                              "ragged_decode_paged",
+                              "paged_scatter_append")))
+        settle()
+        rows.append(llava_engine_leg(
+            "llava ragged int8 kv", cfg, params, dict(
+                max_slots=4, max_context=2048, kv_pages=pages,
+                ragged_token_budget=192, cache_type="int8"),
+            kept["mm"], smi, ("ragged_paged_attention_q8",
+                              "ragged_scatter_append_q8",
+                              "ragged_decode_q8_paged",
+                              "paged_scatter_append_q8")))
+        settle()
+        rows.append(llava_identity_leg(cfg, params, kept["mm"], smi))
+        del params, kept
+        settle()
+    with tempfile.TemporaryDirectory() as d:
+        log(f"phase15 bert checkpoint written in {bert_checkpoint(d):.1f} s")
+        rows.append(roles_bert_leg(d, smi))
+    with tempfile.TemporaryDirectory() as d:
+        grammar_checkpoint(d, CFG_8B)
+        for label, kw in (("8b bf16 embeddings", dict(dtype="bfloat16")),
+                          ("8b int8 embeddings", dict(dtype="int8"))):
+            torch.cuda.reset_peak_memory_stats()
+            rows.append(roles_embed_leg(label, d, kw, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    timings = {"row14": row14_large_m(smi), "row1": row1_roles(smi)}
+    log("phase15 summary " + json.dumps({
+        r["leg"]: {k: r.get(k) for k in (
+            "layers", "tok_s", "ttft_p50_ms", "cosine", "max_dscore",
+            "reference_max_gap", "planted_fault_gap", "tower_ms_per_image",
+            "own_rows_equal_tokens")} for r in rows})
+        + f" launches {json.dumps({k: v for k, v in counts.items() if v})}"
+        + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
+    return counts, timings
+
+
 KERNELS = {
     "flash_prefill": ("localai_tpu_torch/csrc/flash_prefill.cu",
                       "localai_tpu/ops/pallas/flash_attention.py:133"),
@@ -7658,6 +8633,9 @@ def main():
         shift_counts = timed("11 shift", phase_shift, gdir, smi, gtok)
     moe_counts = timed("12 mixtral", phase_mixtral, smi)
     int4_counts = timed("13 int4", phase_int4, smi)
+    # phase 15 before 14: its engines capture graphs, and phase 14's
+    # profiler sessions come after every capture
+    roles_counts, _ = timed("15 roles", phase_roles, smi)
     tp_counts, tp_measured = timed("14 tensor parallel", phase_tp, smi)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
@@ -7688,6 +8666,7 @@ def main():
                      "launches_mixtral": moe_counts[name],
                      "launches_int4": int4_counts[name],
                      "launches_tp": tp_counts[name],
+                     "launches_roles": roles_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
                         if "library_bf16_ms" in m else {})})
     # row 12: the TP wrappers, at rank 0's shard, launches from phase 14
@@ -7701,7 +8680,8 @@ def main():
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
                      "ms_graph": m["ms_graph"],
                      "unsharded_ms": m["unsharded_ms"],
-                     "unsharded": unsharded})
+                     "unsharded": unsharded,
+                     "launches_roles": roles_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,18 @@ engine, which broadcasts every dispatch to them; `free()` (and shutdown)
 stops them and keeps their output (`follower_output`). Tensor
 parallelism is opt-in: with no `mesh_model` the model loads on one card
 however many are visible (the reference's auto-TP waits until a mesh
-serves all that one card serves). Embeddings, BERT, llava,
-the mesh's data axis and telemetry spans wait for later slices: LoadModel
-rejects their options with a message naming the slice, and their RPCs
-stay UNIMPLEMENTED.
+serves all that one card serves).
+The other roles of the reference's servicer: `embeddings=true` builds an
+Embedder (masked-mean pooled vectors, `Embedding`) and a CrossScorer
+(`Rerank`: each document's mean log-probability given the query) beside
+the engine (engine/embedder.py); a BERT-family directory loads the
+encoder alone (models/bert.py), serving `Embedding` and `TokenizeString`
+with the generation RPCs FAILED_PRECONDITION; a llava directory loads
+its CLIP tower and projector beside the engine (models/llava.py), and
+Predict/PredictStream `images` (base64, or data: URLs) become injected
+feature rows of the prompt (GenRequest.mm_embeds). Under `mesh_model >
+1` these roles fail the load, and `mesh_data`, `audios` and telemetry
+spans wait for later slices, each naming its slice.
 """
 from __future__ import annotations
 
@@ -51,6 +59,9 @@ class LLMServicer(BackendServicer):
         worker role's rank 0 (core/worker.py)."""
         self.device = device
         self.engine = None
+        self.embedder = None
+        self.scorer = None
+        self.vision = None
         self.tok = None
         self.cfg = None
         self.model_name = ""
@@ -66,7 +77,7 @@ class LLMServicer(BackendServicer):
 
     def LoadModel(self, request, context):
         with self._load_lock:
-            if self.engine is not None:
+            if self.engine is not None or self.embedder is not None:
                 return pb.Result(success=True, message="already loaded")
             self._state = pb.StatusResponse.BUSY
             try:
@@ -80,12 +91,12 @@ class LLMServicer(BackendServicer):
 
     def _load(self, request):
         from localai_tpu_torch.engine.loader import load_config
+        from localai_tpu_torch.models.bert import is_bert_dir
+        from localai_tpu_torch.models.llava import is_llava
         from localai_tpu_torch.ops.kvcache import is_quant_kind
 
         if request.mesh_data > 1:
             raise not_ported("mesh_data (the data axis)", "parallel")
-        if request.embeddings:
-            raise not_ported("embeddings", "embeddings")
         # the KV tiers ride the ModelOptions.options JSON blob (no
         # dedicated proto field), as the reference's do
         kv_policy, kv_cold_pages, kv_host_bytes = "", 0, 0
@@ -101,6 +112,19 @@ class LLMServicer(BackendServicer):
             raise not_ported("GGUF checkpoints", "other-roles")
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model directory not found: {model_dir}")
+        tp = request.mesh_model or 1
+        if tp > 1:
+            for cond, what in (
+                    (request.embeddings, "embeddings and rerank"),
+                    (is_bert_dir(model_dir), "BERT embeddings"),
+                    (is_llava(model_dir), "llava (images)")):
+                if cond:
+                    raise not_ported(f"{what} under a mesh", "parallel")
+        if is_bert_dir(model_dir):
+            # encoder checkpoint (BertModel/RobertaModel/...): the universal
+            # embeddings role — no generation engine, Embedding RPC only
+            self._load_bert(request, model_dir)
+            return
 
         cfg = load_config(model_dir, dtype=request.dtype or None)
         # quant in EITHER field means int8 KV (one storage kind for both)
@@ -108,7 +132,6 @@ class LLMServicer(BackendServicer):
                              or is_quant_kind(request.cache_type_value)) \
             else ""
         context_size = request.context_size or min(2048, cfg.max_position)
-        tp = request.mesh_model or 1
         if tp > 1:
             if request.draft_model:
                 raise not_ported("speculative decoding under a mesh",
@@ -174,6 +197,21 @@ class LLMServicer(BackendServicer):
 
             world.replicator.wait_for_followers()
             world.replicator.broadcast("engine", engine_fields(ec))
+        if request.embeddings:
+            from localai_tpu_torch.engine.embedder import (
+                CrossScorer, Embedder,
+            )
+
+            self.embedder = Embedder(cfg, params, buckets=buckets,
+                                     device=device)
+            self.scorer = CrossScorer(cfg, params, buckets=buckets,
+                                      device=device)
+        from localai_tpu_torch.models.llava import is_llava, load_vision
+
+        if is_llava(model_dir):
+            # vision-language checkpoint: the CLIP tower + projector serve
+            # request.images
+            self.vision = load_vision(model_dir, device=device)
         self.cfg, self.tok = cfg, tok
         self.model_name = request.model
         self.engine.start()
@@ -198,6 +236,27 @@ class LLMServicer(BackendServicer):
                 prompt_ids=[1], max_tokens=n, ignore_eos=True, params=sp))
             while not q.get(timeout=600).finished:
                 pass
+
+    def _load_bert(self, request, model_dir: str):
+        """Embedding-only load for BERT-family encoders: the generation
+        RPCs stay FAILED_PRECONDITION (no engine), Embedding serves."""
+        from localai_tpu_torch.engine.loader import load_tokenizer
+        from localai_tpu_torch.models.bert import (
+            BertEmbedder, load_bert_config, load_bert_params,
+        )
+
+        cfg = load_bert_config(model_dir, dtype=request.dtype or None)
+        params = load_bert_params(model_dir, cfg, device=self.device)
+        buckets = tuple(request.prefill_buckets) or (64, 256, 512)
+        self.embedder = BertEmbedder(cfg, params, buckets=buckets,
+                                     device=self.device)
+        try:
+            self.tok = load_tokenizer(model_dir)
+        except FileNotFoundError:
+            # a tokenizer-less checkpoint still serves prompt_ids
+            self.tok = None
+        self.cfg = cfg
+        self.model_name = request.model
 
     # ------------------------------------------------------------ helpers
 
@@ -242,9 +301,9 @@ class LLMServicer(BackendServicer):
     def _submit(self, request, context):
         from localai_tpu_torch.engine.engine import GenRequest
 
-        if request.images or request.audios:
+        if request.audios:
             context.abort(grpc.StatusCode.UNIMPLEMENTED, str(not_ported(
-                "multimodal inputs", "other-roles")))
+                "audio inputs", "whisper")))
         resume = None
         max_tokens = request.tokens or 128
         if request.resume_json:
@@ -264,6 +323,20 @@ class LLMServicer(BackendServicer):
             max_tokens = max(1, max_tokens - tok.generated)
         else:
             ids = self._prompt_ids(request, context)
+        mm_embeds = mm_positions = None
+        if request.images:
+            if self.vision is None:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              "model has no vision tower; images unsupported")
+            try:
+                ids, mm_embeds, mm_positions = self._encode_images(
+                    ids, list(request.images))
+            except Exception as e:
+                # bad base64 (binascii.Error), not-an-image payloads
+                # (PIL.UnidentifiedImageError, an OSError), placeholder
+                # count mismatches (ValueError): client errors, never fatal
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              f"bad image: {e}")
         req = GenRequest(
             prompt_ids=ids,
             params=self._sampling(request),
@@ -276,6 +349,8 @@ class LLMServicer(BackendServicer):
             context_shift=request.context_shift,
             prompt_cache_path=request.prompt_cache_path,
             prompt_cache_ro=request.prompt_cache_ro,
+            mm_embeds=mm_embeds,
+            mm_positions=mm_positions,
             deadline=(time.monotonic() + request.deadline_ms / 1e3
                       if request.deadline_ms else 0.0),
         )
@@ -290,6 +365,31 @@ class LLMServicer(BackendServicer):
         if context is not None:
             context.add_callback(lambda: self.engine.cancel(rid))
         return rid, out, ids
+
+    def _encode_images(self, ids, images):
+        """base64 images + prompt ids with <image> placeholders → (expanded
+        ids, mm_embeds [K, H] f32, mm_positions [K]). The CLIP tower and
+        projector run on the engine's device, per request, off the decode
+        loop (models/llava.py)."""
+        import numpy as np
+
+        from localai_tpu_torch.models.llava import (
+            decode_image_b64, encode_images, expand_image_tokens,
+            preprocess_image,
+        )
+
+        vcfg, vparams, meta = self.vision
+        px = np.concatenate(
+            [preprocess_image(decode_image_b64(i), vcfg) for i in images])
+        feats = encode_images(vparams, vcfg, meta, px).float().cpu().numpy()
+        n_tok = feats.shape[1]                          # [N, n_tok, H]
+        if meta.image_token_index not in ids and len(images) == 1:
+            # a prompt without a placeholder (plain chat with an
+            # attachment): the image goes first, llava's "<image>\n..."
+            ids = [meta.image_token_index] + list(ids)
+        ids, positions = expand_image_tokens(
+            ids, len(images), n_tok, meta.image_token_index)
+        return ids, feats.reshape(-1, feats.shape[-1]), positions
 
     # ------------------------------------------------------------ inference
 
@@ -364,6 +464,57 @@ class LLMServicer(BackendServicer):
         ids = self.tok.encode(request.prompt)
         return pb.TokenizationResponse(length=len(ids), tokens=ids)
 
+    def Embedding(self, request, context):
+        if self.embedder is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "model loaded without embeddings=true")
+        if request.prompts:
+            # batched: the whole input list in one RPC, one bucketed call
+            if self.tok is None:
+                context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                              "no tokenizer; batched embeddings need one")
+            ids_batch = [self.tok.encode(p) for p in request.prompts]
+            try:
+                vecs = self.embedder.embed(ids_batch)
+            except ValueError as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            return pb.EmbeddingResult(
+                vectors=[pb.EmbeddingVector(values=v.tolist()) for v in vecs],
+                prompt_tokens=sum(len(i) for i in ids_batch))
+        ids = self._prompt_ids(request, context)
+        try:
+            vec = self.embedder.embed([ids])[0]
+        except ValueError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        return pb.EmbeddingResult(embeddings=vec.tolist(),
+                                  prompt_tokens=len(ids))
+
+    def Rerank(self, request, context):
+        """Cross-encoder rerank: each document scored by the LM's
+        conditional log-likelihood given the query, query and document
+        attending jointly (engine/embedder.py CrossScorer)."""
+        if self.scorer is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                          "model loaded without embeddings=true")
+        if not request.query or not request.documents:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                          "query and documents required")
+        q_ids = self.tok.encode(request.query)
+        d_ids = [self.tok.encode(d, add_bos=False)
+                 for d in request.documents]
+        try:
+            sims = self.scorer.score(q_ids, d_ids)
+        except ValueError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        order = sims.argsort()[::-1]
+        top_n = request.top_n or len(order)
+        resp = pb.RerankResult()
+        for i in order[:top_n]:
+            resp.results.append(pb.RerankedDocument(
+                index=int(i), text=request.documents[int(i)],
+                relevance_score=float(sims[int(i)])))
+        return resp
+
     def Status(self, request, context):
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
         return pb.StatusResponse(
@@ -392,6 +543,7 @@ class LLMServicer(BackendServicer):
         if self.engine is not None:
             self.engine.stop()
             self.engine = None
+        self.embedder = self.scorer = self.vision = None
         codes = []
         if self._world is not None:
             world, self._world = self._world, None

@@ -75,6 +75,13 @@ What this slice serves, as the reference does:
   dense engines): a prompt's KV rows are saved at release in the
   reference's file format and restored at a later admission whose prompt
   shares the file's prefix (the suffix takes the chunked extend path);
+- multimodal prompts (GenRequest.mm_embeds / mm_positions: image
+  features from models/llava.py): the feature rows replace their token
+  embeddings through an (extra, is_embed) inject pair on the dense
+  admission's prefill, the chunked extend and the ragged packs (spec-as-
+  ragged included; a ragged pack with feature rows takes the single-step
+  dispatch, not the fused loop); such a prompt takes no slot, block, host
+  or disk prefix reuse and registers, records, spills and saves nothing;
 - host side: pipelined dispatch with an async device→host fetch of the
   token ring (pinned memory + a CUDA event), stop strings with holdback,
   logprobs, EOS, deadline, cancel, and the in-memory slot prompt cache;
@@ -91,8 +98,9 @@ What this slice serves, as the reference does:
   lockstep. On a mesh the fused loops' segments run eagerly
   (graphs.EagerSegments: a gloo collective cannot be captured in a CUDA
   graph). The speculative draft, the KV retention and host tiers,
-  preemption and resume, context shift, the disk prompt cache, grammars
-  and Mixtral's experts raise under a mesh, naming the parallel slice.
+  preemption and resume, context shift, the disk prompt cache, grammars,
+  multimodal prompts and Mixtral's experts raise under a mesh, naming the
+  parallel slice.
 
 Every EngineConfig/GenRequest/StepOutput field of the reference is kept.
 Those this slice does not serve are rejected with NotImplementedError
@@ -228,8 +236,10 @@ class GenRequest:
                                   # needs a windowed engine and may only
                                   # shrink its geometry
                                   # (kvtier.resolve_policy)
-    mm_embeds: Any = None         # multimodal slice
-    mm_positions: Any = None
+    mm_embeds: Any = None         # [K, H] f32 image-feature rows that
+                                  # replace the token embeddings at
+    mm_positions: Any = None      # [K] strictly increasing prompt
+                                  # positions (models/llava.py)
     queued_t: float = 0.0         # time.monotonic() at submit()
     resume: dict | None = None    # ResumeToken.payload(): prompt_ids is
                                   # prompt + emitted; "emitted" counts the
@@ -884,7 +894,8 @@ class Engine:
             the flat stream at the decode rows, one ragged_forward over
             decode rows and prefill chunks; decode slots and final chunks
             take their new last-token logits, set_len commits a final
-            chunk's length."""
+            chunk's length. pack["inject"], if present, carries a
+            multimodal chunk's feature rows (ragged_forward's inject)."""
             sampled, keys, logprobs = sample(last_logits, sampler, mask_bits,
                                              topk_width=None)
             ds = pack["decode_slot"]
@@ -893,7 +904,7 @@ class Engine:
             logits = ragged_forward(
                 params, cfg, toks, cos, sin, kc, vc, pack["block_seq"],
                 pack["qstart"], pack["qlen"], pack["kvlen"], table,
-                pack["logit_rows"], kvt=kvt)
+                pack["logit_rows"], kvt=kvt, inject=pack.get("inject"))
             act = is_decode.to(torch.int32)
             rows = torch.arange(sampled.shape[0], device=sampled.device)
             sampler.token_counts.index_put_((rows, sampled.long()), act,
@@ -1017,15 +1028,29 @@ class Engine:
         if used > self.metrics["kv_blocks_peak"]:
             self.metrics["kv_blocks_peak"] = used
 
-    def _dev_admit(self, ids, n, slot, row, counts_row):
+    def _dev_admit(self, ids, n, slot, row, counts_row, inject=None):
         self._dev_admit_many(
             np.asarray(ids, np.int32), np.asarray([n], np.int32),
             np.asarray([slot], np.int32),
             {k: np.asarray(v)[None] for k, v in row.items()},
-            None if counts_row is None else np.asarray(counts_row)[None])
+            None if counts_row is None else np.asarray(counts_row)[None],
+            inject)
 
-    def _dev_admit_many(self, ids, lens, slots, rows, counts_rows):
-        """Admission burst: prefill K same-bucket requests in ONE pass."""
+    def _inj(self, inject):
+        """A host inject pair (extra [..., H] f32, is_embed [...] bool) on
+        the device, or None. A multimodal request never reaches a mesh
+        (submit), so the pair is never broadcast."""
+        if inject is None:
+            return None
+        extra, is_embed = inject
+        return (torch.from_numpy(np.asarray(extra, np.float32)).to(
+                    self.device),
+                torch.from_numpy(np.asarray(is_embed, bool)).to(self.device))
+
+    def _dev_admit_many(self, ids, lens, slots, rows, counts_rows,
+                        inject=None):
+        """Admission burst: prefill K same-bucket requests in ONE pass
+        (`inject`: one multimodal request's feature rows, _mm_inject)."""
         self._bcast("admit_many", ids=ids, lens=lens, slots=slots,
                     rows={k: np.asarray(v) for k, v in rows.items()},
                     counts_rows=counts_rows)
@@ -1037,12 +1062,13 @@ class Engine:
         with torch.no_grad():
             logits = prefill(self.params, self.cfg, tokens, lens_t, self._cos,
                              self._sin, self._kc, self._vc, slots_t,
-                             self._tab(), kvt=self._kvt())
+                             self._tab(), inject=self._inj(inject),
+                             kvt=self._kvt())
             self._last_logits[slots_t] = logits
             self._lengths[slots_t] = lens_t
             self._install_rows(slots, rows, counts_rows)
 
-    def _dev_extend_mid(self, buf, pos, idx):
+    def _dev_extend_mid(self, buf, pos, idx, inject=None):
         """One non-final prefill chunk: KV writes only."""
         self._bcast("extend_mid", buf=buf, pos=pos, idx=idx)
         self.metrics["prefill_chunks_mid"] += 1
@@ -1052,9 +1078,11 @@ class Engine:
                    torch.tensor([pos], device=dev), self._cos, self._sin,
                    self._kc, self._vc,
                    slot_map=torch.tensor([idx], device=dev),
-                   with_logits=False, table=self._tab(), kvt=self._kvt())
+                   with_logits=False, table=self._tab(),
+                   inject=self._inj(inject), kvt=self._kvt())
 
-    def _dev_extend_final(self, buf, pos, nvalid, idx, row, counts_row):
+    def _dev_extend_final(self, buf, pos, nvalid, idx, row, counts_row,
+                          inject=None):
         """Final prefill chunk: KV writes + last-token logits + the sampler
         row install (deferred to here so the request's RNG stream does not
         depend on how many ticks the prefill spanned)."""
@@ -1069,7 +1097,7 @@ class Engine:
                 torch.tensor([pos], device=dev), self._cos, self._sin,
                 self._kc, self._vc, slot_map=torch.tensor([idx], device=dev),
                 last_pos=torch.tensor([max(nvalid - 1, 0)], device=dev),
-                table=self._tab(), kvt=self._kvt())
+                table=self._tab(), inject=self._inj(inject), kvt=self._kvt())
             self._last_logits[idx] = logits[0]
             self._lengths[idx] = pos + nvalid
             self._install_rows(
@@ -1268,6 +1296,7 @@ class Engine:
         self._note_ragged(int(pack["packed"]), int(np.sum(pack["is_decode"])))
         with torch.no_grad():
             dp = self._pack_dev(pack)
+            dp["inject"] = self._inj(pack.get("inject"))
             (tokens, logprobs, self._sampler, self._last_logits,
              self._lengths) = self._ragged_fn(
                 self.params, self._cos, self._sin, self._kc, self._vc,
@@ -1660,7 +1689,8 @@ class Engine:
                 self._next_tokens, d["verify"], d["tokens"],
                 d["spec_rows"], d["set_len"], d["logit_set"],
                 d["logit_rows"], d["block_seq"], d["qstart"], d["qlen"],
-                d["kvlen"], self._tab(), **gkw)
+                d["kvlen"], self._tab(), inject=self._inj(pack.get("inject")),
+                **gkw)
             return _AsyncFetch((tokens_out, n_out, logprobs_out, n_extra))
 
     # ------------------------------------------------------------ grammar
@@ -1761,10 +1791,10 @@ class Engine:
                 f"prompt length {len(req.prompt_ids)} exceeds {limit} "
                 f"(max_context minus the decode margin); longer prompts "
                 f"need a larger context window")
-        if req.mm_embeds is not None or req.mm_positions is not None:
-            raise not_ported("multimodal prompts (mm_embeds)", "multimodal")
         if self.mesh is not None:
             for cond, what in (
+                    (req.mm_embeds is not None,
+                     "multimodal prompts (mm_embeds)"),
                     (req.context_shift, "context shift"),
                     (req.prompt_cache_path, "the disk prompt cache"),
                     (req.grammar, "grammar-constrained decoding"),
@@ -1816,6 +1846,27 @@ class Engine:
                     "speculative verify needs the precompiled device "
                     "grammar table (raise grammar_table_states or drop "
                     "the draft model for this grammar)")
+        if req.mm_embeds is not None:
+            if self._draft is not None and not self._ragged:
+                raise ValueError(
+                    "multimodal prompts with a draft model need ragged "
+                    "continuous batching (feature rows pack into the flat "
+                    "stream; the bucketed dense prefill has no draft-side "
+                    "path). The draft itself ingests token ids only.")
+            emb = np.asarray(req.mm_embeds, np.float32)
+            pos = np.asarray(req.mm_positions, np.int64)
+            if emb.ndim != 2 or emb.shape[1] != self.cfg.hidden_size:
+                raise ValueError(
+                    f"mm_embeds must be [K, {self.cfg.hidden_size}], got "
+                    f"{emb.shape}")
+            if pos.shape != (emb.shape[0],):
+                raise ValueError("mm_positions must match mm_embeds rows")
+            if len(pos) and (pos.min() < 0
+                             or pos.max() >= len(req.prompt_ids)):
+                raise ValueError("mm_positions outside the prompt")
+            if len(pos) > 1 and (np.diff(pos) <= 0).any():
+                raise ValueError("mm_positions must be strictly increasing")
+            req.mm_embeds, req.mm_positions = emb, pos
         if req.grammar:
             # compile now (cached) so a malformed GBNF rejects THIS call
             # with ValueError (gRPC INVALID_ARGUMENT) instead of failing
@@ -1885,10 +1936,14 @@ class Engine:
         n = len(req.prompt_ids)
         chunked = n > self._small_max
         bucket = None if chunked else self._bucket(n)
+        mm = req.mm_embeds is not None
         if self._ragged:
             # ragged admissions are always chunked: admission is host-only
             # slot bookkeeping and the prompt packs unpadded into mixed
-            # ragged ticks — no bucket padding, no admission dispatch
+            # ragged ticks — no bucket padding, no admission dispatch. A
+            # multimodal prompt packs too: its feature rows ride the flat
+            # stream as per-row embedding overrides (ragged_forward's
+            # inject)
             chunked, bucket = True, None
         pol = self._req_policy(req) if self._tiered else None
         if self._tiered and not pol.windowed:
@@ -1902,7 +1957,10 @@ class Engine:
             if base > self._maxb or base > len(self._kv_free):
                 pol = self._kv_policy
                 self.metrics["kv_policy_demotions"] += 1
-        slot, lcp = self._pick_slot(req.prompt_ids)
+        # multimodal: an id-level prefix match would take the repeated
+        # image token for a hit while the injected features differ — no
+        # slot, block, host or disk reuse
+        slot, lcp = self._pick_slot([] if mm else req.prompt_ids)
         if self._paged:
             shared = None
             if req.context_shift:
@@ -1911,7 +1969,7 @@ class Engine:
                 # makes _alloc_slot's copy-on-write pass swap every
                 # externally shared retained block before the prefill
                 lcp = 0
-            elif self.ec.prompt_cache and self._draft is None:
+            elif self.ec.prompt_cache and self._draft is None and not mm:
                 # block-level prefix cache: another tenant's pages beat the
                 # slot-retained token match when they cover more prefix
                 shared, shtok = self._match_prefix_blocks(req.prompt_ids)
@@ -1954,7 +2012,7 @@ class Engine:
             self._note_pool()
         self._slot_kv_tokens[slot] = []
         disk_prefix = 0
-        if not lcp and req.prompt_cache_path:
+        if not lcp and req.prompt_cache_path and not mm:
             lcp = disk_prefix = self._load_prompt_cache(slot, req)
         if lcp:
             # shared prefix already in this slot's cache: prefill only the
@@ -1991,7 +2049,7 @@ class Engine:
         else:
             counts_row = None
         if not chunked:
-            if batch is not None and self._draft is None:
+            if batch is not None and self._draft is None and not mm:
                 # defer the device call: _flush_admits batches same-bucket
                 # admissions from this tick into one prefill pass
                 batch.append(dict(slot=slot, n=n, bucket=bucket,
@@ -2000,7 +2058,8 @@ class Engine:
             else:
                 ids = self._pad_ids([dict(n=n, prompt_ids=req.prompt_ids)],
                                     bucket)
-                self._dev_admit(ids, n, slot, row, counts_row)
+                inject = self._mm_inject(req, 0, bucket) if mm else None
+                self._dev_admit(ids, n, slot, row, counts_row, inject)
                 if self._draft is not None:
                     self._dev_draft_ingest(ids, 0, slot)
 
@@ -2115,11 +2174,13 @@ class Engine:
                 buf = np.zeros((1, self._chunk), np.int32)
                 buf[0, :nvalid] = ids[pos:pos + nvalid]
                 final = pos + nvalid == len(ids)
+                inject = (self._mm_inject(slot.req, pos, self._chunk)
+                          if slot.req.mm_embeds is not None else None)
                 if final:
                     self._dev_extend_final(buf, pos, nvalid, idx, slot.row,
-                                           slot.counts_row)
+                                           slot.counts_row, inject)
                 else:
-                    self._dev_extend_mid(buf, pos, idx)
+                    self._dev_extend_mid(buf, pos, idx, inject)
                 if self._draft is not None:
                     self._dev_draft_ingest(buf, pos, idx)
                 slot.prefill_pos = pos + nvalid
@@ -2161,6 +2222,40 @@ class Engine:
             self._admitting = None
             if ok is None:
                 return
+
+    @staticmethod
+    def _mm_inject(req: GenRequest, start: int, width: int):
+        """(extra [1, width, H] f32, mask [1, width] bool) for the prompt
+        window [start, start + width): image-feature rows from
+        req.mm_embeds land at their expanded positions, everything else
+        stays a token."""
+        pos, emb = req.mm_positions, req.mm_embeds
+        lo = int(np.searchsorted(pos, start))
+        hi = int(np.searchsorted(pos, start + width))
+        extra = np.zeros((1, width, emb.shape[1]), np.float32)
+        mask = np.zeros((1, width), bool)
+        sel = (pos[lo:hi] - start).astype(np.int64)
+        extra[0, sel] = emb[lo:hi]
+        mask[0, sel] = True
+        return (extra, mask)
+
+    @classmethod
+    def _pack_inject(cls, s, pos: int, nvalid: int, row: int, T: int, inj):
+        """Add slot `s`'s feature rows of the chunk [pos, pos + nvalid),
+        packed at flat row `row`, to the pack's inject pair `inj` (made at
+        the first chunk with feature rows of a tick: a text-only tick
+        ships none). Returns the pair, or None."""
+        if s.req.mm_embeds is None:
+            return inj
+        extra, mask = cls._mm_inject(s.req, pos, nvalid)
+        if not mask.any():
+            return inj
+        if inj is None:
+            inj = (np.zeros((T, extra.shape[2]), np.float32),
+                   np.zeros((T,), bool))
+        inj[0][row:row + nvalid] = extra[0]
+        inj[1][row:row + nvalid] = mask[0]
+        return inj
 
     @staticmethod
     def _pad_ids(plans: list, bucket: int) -> np.ndarray:
@@ -2476,6 +2571,7 @@ class Engine:
             if not self._cold or not self._cold_free:
                 self.metrics["kv_evictions"] += 1
                 if (self._kvhost is not None and s.shifted == 0
+                        and s.req.mm_embeds is None
                         and (raw + 1) * BLOCK
                         <= int(self._kv_window[i])):
                     # ring content sits at TRUE positions; a block ending
@@ -2646,6 +2742,7 @@ class Engine:
             row += winb * QBLK
         packed = len(entries) * (G + 1)
         chunks = []
+        inj = None
         for idx in chunkable:
             if T - row < QBLK:
                 break
@@ -2665,6 +2762,7 @@ class Engine:
                 # every logit row points at the final prompt row, so the
                 # last_logits merge takes the admission logits
                 logit_rows[idx, :] = row + nvalid - 1
+            inj = self._pack_inject(s, pos, nvalid, row, T, inj)
             chunks.append((idx, pos, nvalid, final))
             packed += nvalid
             row += nb * QBLK
@@ -2675,7 +2773,8 @@ class Engine:
                     # the verify masks come from the device tables, keyed
                     # by each slot's automaton state
                     gstate=(self._gstate.copy()
-                            if self._grammar_slots > 0 else None))
+                            if self._grammar_slots > 0 else None),
+                    inject=inj)
         fetch = self._dev_spec_ragged(pack)
         # chunk bookkeeping overlaps the device step; the draft ingests
         # each chunk's tokens through its own extend
@@ -2746,6 +2845,7 @@ class Engine:
         logit_rows = np.zeros((B,), np.int32)
         row = 0
         entries = []
+        inj = None
         # decode rows, QBLK-aligned, one per prefilled slot; the last QBLK
         # is reserved for prefill so admission is never starved, and the
         # rotating start keeps a budget overflow fair across ticks
@@ -2788,6 +2888,8 @@ class Engine:
                 set_len[idx] = pos + nvalid
                 logit_set[idx] = True
                 logit_rows[idx] = row + nvalid - 1
+            # a multimodal chunk's feature rows land at their flat rows
+            inj = self._pack_inject(s, pos, nvalid, row, T, inj)
             chunks.append((idx, pos, nvalid, final))
             packed += nvalid
             row += nb * QBLK
@@ -2799,17 +2901,20 @@ class Engine:
                     # grammar decode slots sample under their CURRENT mask
                     # rows (the tick is consumed in it, so never stale)
                     mask=(self._mask_host.copy()
-                          if self._grammar_slots > 0 else None))
+                          if self._grammar_slots > 0 else None),
+                    inject=inj)
         # the fused loop: the pack is iteration 0 and every decode slot
         # keeps advancing on the device until a slot finishes, host work
         # appears, or the step cap. Host-only grammar slots and stop-string
         # slots need a host decision per token (host arbitration): they
-        # keep the single step.
+        # keep the single step, and so does a pack with feature rows
+        # (they sit mid-prefill, where the loop would stop after the pack
+        # anyway).
         res: dict[int, int] = {}
         arbitration = (self._grammar_hostonly > 0
                        or any(self._slots[i].req.stop for i, _ in entries))
         use_loop = (self._ragged_loop_fn is not None and bool(entries)
-                    and not arbitration)
+                    and inj is None and not arbitration)
         if use_loop:
             remaining = np.zeros((B,), np.int32)
             check_eos = np.zeros((B,), bool)
@@ -3092,7 +3197,9 @@ class Engine:
         req = slot.req
         if (not req.prompt_cache_path or req.prompt_cache_ro
                 or self._draft is not None or self._paged or slot.shifted
-                or not slot.prefilled):
+                or not slot.prefilled or req.mm_embeds is not None):
+            # (multimodal: no reuse path loads it, and its repeated
+            # image-token ids could match a text prompt)
             return
         n = min(slot.prompt_len, self.ec.max_context - 2)
         if slot.disk_prefix >= n - 1:
@@ -3376,14 +3483,17 @@ class Engine:
                     self._table[idx, keep:] = 0
                 # register every FULL block in the content-hash index: a
                 # future admission sharing the prefix maps these pages into
-                # its own table (block-level prefix cache)
-                ids = (list(slot.req.prompt_ids) + slot.gen_ids)[:kept]
-                for vb, h in enumerate(self._chain_hashes(ids)):
-                    pb = blocks[vb]
-                    if h not in self._hash_index:
-                        self._drop_hash(pb)
-                        self._hash_index[h] = pb
-                        self._block_hash_of[pb] = h
+                # its own table (block-level prefix cache). Multimodal
+                # rows are not registered: identical image-token ids,
+                # different KV
+                if slot.req.mm_embeds is None:
+                    ids = (list(slot.req.prompt_ids) + slot.gen_ids)[:kept]
+                    for vb, h in enumerate(self._chain_hashes(ids)):
+                        pb = blocks[vb]
+                        if h not in self._hash_index:
+                            self._drop_hash(pb)
+                            self._hash_index[h] = pb
+                            self._block_hash_of[pb] = h
                 self._released_lru.append(idx)
             else:
                 self._unref_blocks(self._slot_blocks[idx])
@@ -3395,7 +3505,9 @@ class Engine:
             self._note_pool()
         # record what the slot's cache still holds (rows 0..len-1) so a
         # later prompt sharing the prefix skips that part of its prefill
-        if retain:
+        # (not a multimodal prompt's: its image-token ids all look alike
+        # while the features differ per image)
+        if retain and slot.req.mm_embeds is None:
             self._slot_kv_tokens[idx] = (list(slot.req.prompt_ids)
                                          + slot.gen_ids)[
                 : self.ec.max_context - 2]
@@ -3630,8 +3742,8 @@ class Engine:
     def _freeze_slot(self, idx: int, slot: _Slot, keys, now: float):
         """Checkpoint one live slot into a ResumeToken, force-spilling its
         full KV chain blocks to the host tier (the retention rules of
-        _release_slot: a prefilled slot, prompt cache on, no shift, no
-        draft, no window).
+        _release_slot: a prefilled slot, prompt cache on, no multimodal
+        rows, no shift, no draft, no window).
         Returns (token, blocks spilled)."""
         from localai_tpu_torch.engine.resume import ResumeToken
 
@@ -3642,7 +3754,8 @@ class Engine:
             and self._slot_policy[idx].windowed
         if (self._paged and self.ec.prompt_cache and self._kvhost is not None
                 and slot.prefilled and slot.shifted == 0
-                and self._draft is None and not windowed):
+                and req.mm_embeds is None and self._draft is None
+                and not windowed):
             kept = min(slot.prompt_len + slot.generated,
                        self.ec.max_context - 2)
             ids = (list(req.prompt_ids) + slot.gen_ids)[:kept]

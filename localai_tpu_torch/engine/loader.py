@@ -12,6 +12,10 @@ Mixtral checkpoints stack each layer's experts into [E, in, out] (each
 expert quantized on its own, which equals quantizing the stack: the
 scales reduce over the input axis only) and keep the router gate [H, E]
 in the model dtype, unquantized, as the reference does.
+A llava checkpoint's language side loads as any Llama-family model: its
+config is `text_config`, and the tensor reader resolves both llava save
+layouts' spellings of the text weights (models/llava.py loads the vision
+side).
 With a `mesh` (tensor parallelism, parallel/mesh.py) each rank keeps only
 its shards (models/llama.shard_leaf), one projection held whole at a
 time: a projection is read, cast and, for int8, quantized whole — the
@@ -57,7 +61,15 @@ def load_config(model_dir: str, dtype: str | None = None) -> LlamaConfig:
 
     arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
     if hf.get("model_type") == "llava" or arch.startswith("Llava"):
-        raise not_ported("vision-language (llava) checkpoints", "other-roles")
+        # vision-language checkpoint: the language side is a plain
+        # Llama-family config nested under text_config (the vision side
+        # loads separately: models/llava.py)
+        hf = dict(hf["text_config"])
+        arch = (hf.get("architectures")
+                or [{"llama": "LlamaForCausalLM",
+                     "mistral": "MistralForCausalLM",
+                     "qwen2": "Qwen2ForCausalLM"}.get(
+                        hf.get("model_type", "llama"), "LlamaForCausalLM")])[0]
     if arch not in LLAMA_FAMILY:
         raise ValueError(f"unsupported architecture {arch!r}")
     extra = LLAMA_FAMILY[arch]
@@ -170,16 +182,33 @@ class _TensorReader:
                 f.close()
         raise FileNotFoundError(f"no safetensors checkpoint in {model_dir}")
 
+    @staticmethod
+    def _variants(name: str):
+        """Key spellings across HF save layouts: plain Llama, classic LLaVA
+        (language_model.model.* + language_model.lm_head.*), and the 4.52+
+        LLaVA relayout (model.language_model.* + top-level lm_head.*)."""
+        yield name
+        yield "language_model." + name
+        if name.startswith("model."):
+            yield "model.language_model." + name[len("model."):]
+
+    def _resolve(self, name: str) -> str | None:
+        for v in self._variants(name):
+            if v in self.index:
+                return v
+        return None
+
     def __contains__(self, name: str) -> bool:
-        return name in self.index
+        return self._resolve(name) is not None
 
     def get(self, name: str) -> torch.Tensor:
-        if name not in self.index:
+        key = self._resolve(name)
+        if key is None:
             raise KeyError(name)
-        fname = self.index[name]
+        fname = self.index[key]
         if fname not in self._open:
             self._open[fname] = _SafetensorsFile(os.path.join(self.dir, fname))
-        return self._open[fname].get(name)
+        return self._open[fname].get(key)
 
     def close(self):
         for f in self._open.values():

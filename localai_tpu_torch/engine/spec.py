@@ -208,21 +208,23 @@ def build_spec_ragged(cfg_t: LlamaConfig, cfg_d: LlamaConfig, gamma: int):
     (params_t, params_d, cos_t, sin_t, cos_d, sin_d, kct, vct, kcd, vcd,
      sampler, last_logits, lengths, next_tokens, active, tokens [T],
      spec_rows [B], set_len [B], logit_set [B], logit_rows [B, gamma+1],
-     block_seq, qstart, qlen, kvlen, table, gstate=None, gmasks=None,
-     gtrans=None) →
+     block_seq, qstart, qlen, kvlen, table, inject=None, gstate=None,
+     gmasks=None, gtrans=None) →
     (tokens_out, n_out, logprobs_out, next_tokens', sampler',
      last_logits', lengths', n_extra)
 
     `active` marks the slots verifying a window this tick; spec_rows[b] is
     slot b's window start row; set_len / logit_set carry the packed
     prefill chunks' length commits and final-chunk last_logits updates, as
-    in the plain ragged step."""
+    in the plain ragged step; `inject` (extra [T, H] f32, is_embed [T]
+    bool), a multimodal chunk's feature rows (ragged_forward's inject;
+    the draft ingests token ids only)."""
 
     def spec_ragged(params_t, params_d, cos_t, sin_t, cos_d, sin_d, kct, vct,
                     kcd, vcd, sampler, last_logits, lengths, next_tokens,
                     active, tokens, spec_rows, set_len, logit_set,
                     logit_rows, block_seq, qstart, qlen, kvlen, table,
-                    gstate=None, gmasks=None, gtrans=None):
+                    inject=None, gstate=None, gmasks=None, gtrans=None):
         G = gamma
         B = next_tokens.shape[0]
         T = tokens.shape[0]
@@ -249,7 +251,7 @@ def build_spec_ragged(cfg_t: LlamaConfig, cfg_d: LlamaConfig, gamma: int):
 
         tlogits = ragged_forward(params_t, cfg_t, toks, cos_t, sin_t, kct,
                                  vct, block_seq, qstart, qlen, kvlen, table,
-                                 logit_rows)                  # [B, G+1, V]
+                                 logit_rows, inject=inject)   # [B, G+1, V]
         # packed final prefill chunks refresh last_logits (their G+1 rows
         # all point at the chunk's last token)
         last_logits = torch.where(logit_set[:, None], tlogits[:, -1],

@@ -18,6 +18,12 @@ reading a paged cache through ops/paged.paged_view, as the reference does.
 The ragged slice (`ragged_forward`, `build_ragged_loop`) serves mixed
 prefill+decode ticks over one flat token stream through the ragged
 attention and flat-row scatter kernels.
+The cacheless full-sequence forwards (`hidden_states`, `forward_train`,
+`encode_pooled`: the embeddings and rerank roles, engine/embedder.py)
+attend through flash_prefill under the lengths mask and write no cache.
+The multimodal lane (`inject`: extra rows and an is_embed mask) replaces
+token embeddings with image features before the first layer in
+`prefill`, `extend` and `ragged_forward` (models/llava.py).
 Mixtral's MLP (`_moe_mlp`, on every path through `_mlp`) routes each
 token to its top-k experts with dense dispatch; quantized expert stacks
 go through the expert GEMM kernels (ops/kernels.moe_w8_matmul, int8;
@@ -78,7 +84,9 @@ from localai_tpu_torch.ops.paged import (
 )
 from localai_tpu_torch.ops.norms import rms_norm
 from localai_tpu_torch.ops.quant import QuantWeight, is_quantized, qmatmul
-from localai_tpu_torch.ops.rope import RopeConfig, apply_rope, rope_freqs
+from localai_tpu_torch.ops.rope import (
+    RopeConfig, apply_rope, rope_freqs, rope_table,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -589,12 +597,27 @@ def _embed(params: Llama, tokens, dtype):
     return params.embed[tokens.long()].to(dtype)
 
 
+def _inject(x, inject):
+    """The multimodal lane: rows with `is_embed` take `extra` (f32 image
+    features, models/llava.py) in place of their token embedding, cast to
+    x's dtype, before the first layer — the reference's jnp.where. `inject`
+    is (extra [..., H], is_embed [...] bool) over x's leading axes, or
+    None."""
+    if inject is None:
+        return x
+    extra, is_embed = inject
+    return torch.where(is_embed.to(x.device)[..., None],
+                       extra.to(device=x.device, dtype=x.dtype), x)
+
+
 def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
-            k_cache, v_cache, slot_map, table=None, kvt=None):
+            k_cache, v_cache, slot_map, table=None, inject=None, kvt=None):
     """Padded prompt batch → last-token logits [B, V] f32, writing K/V into
     cache rows slot_map[b] (in place; through the block `table` when the
     cache is paged). tokens: [B, S]; lengths: [B]. Attention runs on the
-    fresh K/V, so it is the same kernel either way.
+    fresh K/V, so it is the same kernel either way. `inject` (extra [B, S,
+    H] f32, is_embed [B, S] bool): positions with is_embed take `extra`
+    rows instead of the token embedding (_inject; image features).
 
     kvt (the KV tier): the writes map through the ring and the attention
     is mha_prefill_tiered under each slot's sinks/window — with the cold
@@ -610,7 +633,7 @@ def prefill(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
         window = kvt["window"].to(dev)[sm]
         if "cold_tab" in kvt:
             window = torch.full_like(window, 1 << 30)
-    x = _embed(params, tokens, cfg.tdtype)
+    x = _inject(_embed(params, tokens, cfg.tdtype), inject)
     for i, lp in enumerate(params.layers):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg)
@@ -701,7 +724,7 @@ def decode_step(params: Llama, cfg: LlamaConfig, tokens, lengths, cos, sin,
 
 def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
            k_cache, v_cache, slot_map=None, with_logits=True, last_pos=None,
-           table=None, redirect=None, kvt=None):
+           table=None, inject=None, redirect=None, kvt=None):
     """Forward a window of S tokens per row starting at cache offset
     `start` [B] — the chunked-prefill workhorse. Writes the window's K/V
     (in place) and returns logits for every window position [B, S, V], or
@@ -715,6 +738,8 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
     read through ops/paged.paged_view of the rows' table rows. `redirect`
     [B] bool (paged): flagged rows write their whole window to the trash
     block (the speculative verify's inactive rows, _cache_write).
+    `inject` (extra [B, S, H] f32, is_embed [B, S] bool): a multimodal
+    chunk's image-feature rows replace their token embeddings (_inject).
 
     kvt (paged, the KV tier): the window writes through the ring and
     attends the resident view at true positions (_tiered_kv,
@@ -743,7 +768,7 @@ def extend(params: Llama, cfg: LlamaConfig, tokens, start, cos, sin,
         kv_pos, kv_ok = _tiered_rows(row_table.shape[1], geo["sb"],
                                      geo["rw"], start.long().to(dev) + s,
                                      geo.get("cold_tab"))
-    x = _embed(params, tokens, cfg.tdtype)
+    x = _inject(_embed(params, tokens, cfg.tdtype), inject)
     for i, lp in enumerate(params.layers):
         kc, vc = k_cache[i], v_cache[i]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
@@ -833,11 +858,10 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
 
     `kvt` (the KV tier, per-sequence [NSEQ] geometry: sequence = engine
     slot): the row targets map through each sequence's ring and attention
-    is the tiered ragged kernel. `inject` (multimodal rows) belongs to a
-    later slice."""
-    if inject is not None:
-        raise not_ported("inject (multimodal rows) in ragged_forward",
-                         "multimodal")
+    is the tiered ragged kernel. `inject` (extra [T, H] f32, is_embed [T]
+    bool): rows with is_embed take `extra` directly instead of the token-id
+    embedding lookup (_inject; a multimodal prompt's chunk in the flat
+    stream)."""
     t = tokens.shape[0]
     dev = tokens.device
     if params.mesh is not None and kvt is not None:
@@ -851,7 +875,7 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
                                       cos.shape[0], kvt)
     meta = (block_seq, qstart, qlen, kvlen, tables)
     sw = cfg.sliding_window
-    x = _embed(params, tokens, cfg.tdtype)[None]                # [1, T, H]
+    x = _inject(_embed(params, tokens, cfg.tdtype), inject)[None]  # [1,T,H]
     for i, lp in enumerate(params.layers):
         kc, vc = k_cache[i], v_cache[i]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
@@ -875,6 +899,64 @@ def ragged_forward(params: Llama, cfg: LlamaConfig, tokens, cos, sin,
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     last = x[0][logit_rows.long().to(dev)]
     return _lm_head(last.float(), params)
+
+
+# ------------------------------------------------- cacheless forwards
+
+def _no_mesh(params: Llama, what: str) -> None:
+    if params.mesh is not None:
+        raise not_ported(f"{what} under a mesh", "parallel")
+
+
+def hidden_states(params: Llama, cfg: LlamaConfig, tokens, lengths=None):
+    """Full-sequence causal forward → final-norm hidden states [B, S, H] in
+    the model dtype, writing no KV cache. tokens: [B, S]; `lengths` [B]
+    masks padded positions out of attention (default: all S). Attention is
+    flash_prefill (row 1) under the model's sliding window, the
+    projections qmatmul (rows 13 / 13i4 on a quantized recipe)."""
+    _no_mesh(params, "the cacheless forwards (embeddings, rerank)")
+    b, s = tokens.shape
+    dev = tokens.device
+    cos, sin = rope_table(cfg.rope, s, device=dev)
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    x = _embed(params, tokens, cfg.tdtype)
+    for lp in params.layers:
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        attn = flash_prefill(q, k, v, lengths,
+                             sliding_window=cfg.sliding_window)
+        x = x + qmatmul(attn.reshape(b, s, -1), lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + _mlp(h, lp, cfg)
+    return rms_norm(x, params.final_norm, cfg.rms_eps)
+
+
+def forward_train(params: Llama, cfg: LlamaConfig, tokens):
+    """Full-sequence causal forward → logits [B, S, V] f32 (the rerank
+    scorer's and evaluation's path; _lm_head, row 14 / 14i4)."""
+    x = hidden_states(params, cfg, tokens)
+    return _lm_head(x.float(), params)
+
+
+def encode_pooled(params: Llama, cfg: LlamaConfig, tokens, lengths,
+                  normalize: bool = True):
+    """Masked-mean-pooled embeddings [B, H] f32 over the first lengths[b]
+    positions, L2-normalized (floor 1e-9) unless `normalize` is False —
+    the embeddings role (the reference's mean pooling)."""
+    s = tokens.shape[1]
+    x = hidden_states(params, cfg, tokens, lengths).float()
+    mask = (torch.arange(s, device=x.device)[None, :]
+            < lengths.to(x.device)[:, None]).float()
+    pooled = (x * mask[..., None]).sum(1) / torch.clamp_min(
+        mask.sum(1)[:, None], 1.0)
+    if normalize:
+        pooled = pooled / torch.clamp_min(
+            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), 1e-9)
+    return pooled
 
 
 def shift_rotation(cfg: LlamaConfig, distance: int, device=None):

@@ -153,13 +153,15 @@ def test_load_rejects_unported_options(ckpt):
     retention tier is served: an invalid option set fails the load with
     the reference's ValueError ("sink_window" without arguments;
     kv_cold_pages without quantize_cold), and a valid one (kv_pages with a
-    sink_window policy) serves."""
+    sink_window policy) serves. embeddings=true is served: the load builds
+    the Embedder and the CrossScorer beside the engine, and Embedding
+    answers (tests/test_torch_embed.py holds them to the reference)."""
     from localai_tpu_torch.backend import pb
     from localai_tpu_torch.backend.llm import LLMServicer
 
     for kw, want in (
             (dict(draft_model="x"), "FileNotFoundError"),
-            (dict(embeddings=True), "slice"), (dict(mesh_data=2), "slice"),
+            (dict(mesh_data=2), "slice"),
             (dict(options=json.dumps({"kv_policy": "sink_window"})),
              "ValueError: unknown kv_policy 'sink_window'"),
             (dict(options=json.dumps({"kv_cold_pages": 4})),
@@ -186,6 +188,17 @@ def test_load_rejects_unported_options(ckpt):
                     "kv_policy_demotions", "kv_blocks_peak"):
             assert key in m, key
         s.engine.stop()
+        s = LLMServicer(device="cpu")
+        r = s.LoadModel(pb.ModelOptions(model=ckpt, dtype="float32",
+                                        embeddings=True), None)
+        assert r.success, r.message
+        assert s.embedder is not None and s.scorer is not None
+        assert s.Status(pb.HealthMessage(), None).state == 2      # READY
+        vec = s.Embedding(pb.PredictOptions(prompt="hello world"),
+                          None).embeddings
+        assert len(vec) == s.cfg.hidden_size
+        assert abs(sum(v * v for v in vec) - 1.0) < 1e-4
+        s.shutdown()
     finally:
         os.environ.pop("LOCALAI_NO_PREWARM", None)
 
@@ -208,6 +221,10 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import localai_tpu_torch.parallel.mesh\n"
         "import localai_tpu_torch.parallel.distributed\n"
         "import localai_tpu_torch.core.worker\n"
+        "import localai_tpu_torch.engine.embedder\n"
+        "import localai_tpu_torch.models.bert\n"
+        "import localai_tpu_torch.models.clip_vit\n"
+        "import localai_tpu_torch.models.llava\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -221,6 +238,9 @@ def test_import_leaves_no_jax_in_sys_modules():
     assert "localai_tpu_torch.ops.kernels.weight_gemm" in mods
     assert "localai_tpu_torch.parallel.distributed" in mods
     assert "localai_tpu_torch.core.worker" in mods
+    for m in ("engine.embedder", "models.bert", "models.clip_vit",
+              "models.llava"):
+        assert "localai_tpu_torch." + m in mods
     bad = [m for m in mods if _forbidden(m)]
     assert bad == []
 
@@ -250,7 +270,11 @@ def test_ast_no_jax_or_reference_imports():
         assert os.path.join(ROOT, "localai_tpu_torch", "ops", name) in files
     for name in (os.path.join("parallel", "mesh.py"),
                  os.path.join("parallel", "distributed.py"),
-                 os.path.join("core", "worker.py")):
+                 os.path.join("core", "worker.py"),
+                 os.path.join("engine", "embedder.py"),
+                 os.path.join("models", "bert.py"),
+                 os.path.join("models", "clip_vit.py"),
+                 os.path.join("models", "llava.py")):
         assert os.path.join(ROOT, "localai_tpu_torch", name) in files
     bad = [(os.path.relpath(f, ROOT), line, mod) for f in files
            for line, mod in _imports(f) if _forbidden(mod)]

@@ -228,6 +228,19 @@ def test_unported_request_fields_rejected(models, field, value):
         assert out[-1].finish_reason == "length"
         assert eng.metrics["prompt_tokens_reused"] == 0
         return
+    if field == "mm_embeds":
+        # served now: image-feature rows replace token embeddings
+        # (tests/test_torch_llava.py holds the streams to the reference);
+        # rows of the wrong width are the reference's ValueError
+        out = list(eng.generate(TRequest([3, 4], TParams(temperature=0.0),
+                                         max_tokens=4, ignore_eos=True,
+                                         mm_positions=np.array([1]),
+                                         **{field: value})))
+        assert out[-1].finish_reason == "length"
+        with pytest.raises(ValueError, match="mm_embeds must be"):
+            eng.submit(TRequest([3, 4], mm_embeds=np.zeros((1, 8)),
+                                mm_positions=np.array([1])))
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         eng.submit(TRequest([3, 4], **{field: value}))
 

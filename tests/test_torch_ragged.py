@@ -372,7 +372,10 @@ def test_ragged_forward_int8_kv_matches_reference(monkeypatch):
 def test_ragged_forward_unported_inputs_raise():
     """2-D logit_rows (the speculative verify windows) are served: logits
     [NSEQ, R, V], each row's those of the 1-D gather at that row. The
-    multimodal and KV-tier inputs still raise, naming their slices."""
+    multimodal inject is served: feature rows packed into the flat stream
+    give the logits that prefill gives the same rows injected into its
+    padded batch (and not the token prompt's). The KV tier is served:
+    sentinel geometry gives the untiered forward."""
     _, _, tcfg, tp, _ = _tiny_models()
     cos, sin = trope_table(tcfg.rope, 256)
     kc, vc = tpaged.init_paged(tcfg.num_layers, 4, tcfg.num_kv_heads,
@@ -387,8 +390,21 @@ def test_ragged_forward_unported_inputs_raise():
         one = tllama.ragged_forward(*args, torch.tensor([r]))
         np.testing.assert_allclose(two[:, j].numpy(), one.numpy(),
                                    rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        tllama.ragged_forward(*args, torch.tensor([0]), inject=(None, None))
+    rng = np.random.default_rng(3)
+    extra = torch.from_numpy(rng.standard_normal(
+        (8, tcfg.hidden_size)).astype(np.float32) * 0.1)
+    is_embed = torch.tensor([False, True, True, False, True, False, False,
+                             False])
+    inj = tllama.ragged_forward(*args, torch.tensor([4]),
+                                inject=(extra, is_embed))
+    pk, pv = tllama.init_kv_cache(tcfg, 1, 16)
+    want = tllama.prefill(tp, tcfg, toks[None, :5], torch.tensor([5]), cos,
+                          sin, pk, pv, torch.tensor([0]),
+                          inject=(extra[None, :5], is_embed[None, :5]))
+    np.testing.assert_allclose(inj.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    plain = tllama.ragged_forward(*args, torch.tensor([4]))
+    assert np.abs(inj.numpy() - plain.numpy()).max() > 1e-3
     # the KV tier runs now: sentinel geometry gives the untiered forward
     sent = {"sb": torch.tensor([1]), "rw": torch.tensor([1]),
             "sinks": torch.tensor([1 << 20]), "window": torch.tensor([1 << 20])}
