@@ -8,8 +8,10 @@ and, where the tree has them, 13–15 and 13i4–15i4 (PERF.md §6) at the
 Llama-3.1-8B shapes — row 13 at every projection geometry for M = 4, 192
 and 2048, row 14 with the bf16 and the int8 head, row 15 at
 Mixtral-8x7B's experts (M = 4), the int4 rows at w_gate (M = 4, 192,
-2048), the 8B head and w1/w3 (M = 4) — each against its plain version
-with its planted faults, then prints one line `ROWS LABEL {row:
+2048), the 8B head and w1/w3 and w2 (M = 4), and, where the tree has
+them, row 14's two routes on the bf16 head at M = 40 and 8192 — each
+against its plain version with its planted faults, then prints one line
+`ROWS LABEL {row:
 {ms, ms_cold, ms_host, ms_graph}}` (device ms warm and with a cold L2,
 the host-inclusive reading, and the device ms of a call inside a CUDA
 graph of 20 calls; rows 13 and 14 also `host_us`, the host's µs a call
@@ -146,6 +148,8 @@ def main():
             4, 4096, 128256, cold=True)
         rows["15i4 moe_w4_matmul M=4 w1/w3"] = lambda: smoke.check_moe4(
             4, 4096, 14336, True, cold=True)
+        rows["15i4 moe_w4_matmul M=4 w2"] = lambda: smoke.check_moe4(
+            4, 14336, 4096, False, cold=True)
     # a parent tree's chip_smoke.py may predate the in-graph readings
     out = {"0 empty kernel": smoke.launch_floor()} \
         if hasattr(smoke, "launch_floor") else {}
@@ -153,6 +157,15 @@ def main():
         r = check()
         out[name] = {k: r.get(k) for k in ("ms", "ms_cold", "ms_host",
                                            "ms_graph")}
+    # row 14's two routes (a tree with the tensor-core route): the
+    # speculative verify's M and the scorer's
+    if hasattr(smoke, "check_head_routes"):
+        for M in (40, 8192):
+            r = smoke.check_head_routes(M, "bf16")
+            for route in ("simt", "wgmma"):
+                out[f"14 head_matmul bf16 M={M} {route}"] = {
+                    k: r[route].get(k) for k in ("ms", "ms_cold", "ms_host",
+                                                 "ms_graph")}
     if hasattr(smoke, "check_w8a16"):
         for name, us in weight_gemm_host_us().items():
             out[name]["host_us"] = us

@@ -48,7 +48,20 @@ and the script exits non-zero:
      (f32 logits) on the 8B head [4096, 128256] in bf16, int8 and tied at
      M = 4 and 8 and on Qwen2-7B's head (V = 152064), with a planted fault
      each (x32 rounded to bf16; a K tile dropped), library_ms the head's
-     f32 copy + matmul (line `phase2 weight gemms`). Then the expert GEMM
+     f32 copy + matmul (line `phase2 weight gemms`). Then the bf16 head's
+     two routes (row 14: the SIMT route's f32 FMAs, and the tensor cores
+     on x32's three bf16 terms) at M = 4, 8, 9, 16, 17, 40, 192, 2048
+     and 8192, bf16 and tied, each route against the plain version with two
+     planted faults (x32 rounded to bf16, the hi term alone; a K tile of
+     the head dropped), both bounds (the f32-FMA one and the tensor
+     cores' three passes) and the route head_plan takes (line `phase2
+     head routes`); the tensor-core route on inputs whose lo terms carry
+     the whole product (hi and mid cancel pair by pair along K), bf16
+     and tied at M = 40, against the exact f64 logits within HEAD_TOL
+     with the planted fault lo_term_dropped (line `phase2 head lo
+     term`); and the split kernel bit for bit against its plain
+     version on 8192 x 4096 values with the special ones among them (line
+     `phase2 split terms`). Then the expert GEMM
      (moe_w8_matmul, row 15) at Mixtral-8x7B's experts (E = 8): (K, N) =
      (4096, 14336) on x shared by the experts and (14336, 4096) on one x
      slice an expert, M = 4, 192 and 2048, against its plain version
@@ -59,9 +72,11 @@ and the script exits non-zero:
      weights, two values a byte): w4a16_matmul at the 8B's projections
      and Qwen2-7B's wk/wv (3584, 512) for M = 4, 192 and 2048, the int4
      head [4096, 128256] at M = 4 and 192, moe_w4_matmul at Mixtral's
-     experts for M = 4, 192 and 2048, each against its plain version at
-     the int8 row's tolerance, each with the nibbles of a byte swapped and
-     read unsigned planted (the experts also the next expert's scales),
+     experts for M = 1, 4, 8, 16, 192 and 2048, each against its plain
+     version at the int8 row's tolerance, each with the nibbles of a byte
+     swapped and read unsigned planted (the experts also the next
+     expert's scales and, for the decode route's persistent grid, one
+     unit's 64 K rows of expert 1 dropped),
      library_ms the reference's unpack + cast + matmul (dequantize +
      einsum), cold L2 readings at M = 4 (line `phase2 int4 gemms`). Then
      the speculative
@@ -369,7 +384,10 @@ and the script exits non-zero:
      at the embeddings batch and llava's text widths, timed after the
      phase's counts are read.
 The second line from the end is {"kernels": [...]} (the six wrappers of
-row 12 among them; `launches_roles`: phase 15's); the last line is
+row 12 among them; `launches_roles`: phase 15's; split_bf16_terms's
+`launches` are phase 15's, where the scorer's head splits x32; the
+head_matmul row carries row 14 at M = 8192 as `large_m`, the
+moe_w4_matmul row its w2 stack's readings as `w2`); the last line is
 {"ok": true, "device": {...}}. It imports nothing of JAX or
 localai_tpu.
 """
@@ -641,10 +659,12 @@ def _graph_ms(fn, calls=GRAPH_CALLS):
     of a call and the launch latency between kernels."""
     import torch
 
+    from localai_tpu_torch.engine.graphs import gc_paused
+
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     ms = _time_ms(graph.replay, warm=2)
@@ -1653,6 +1673,239 @@ def weight_gemms():
     return w8["M=4 K=4096 N=14336"], heads["bf16 M=4"]
 
 
+# row 14's two routes on the bf16 head: decode (4, 8, 16), the first row
+# above head_plan's SIMT rows (9), the first above the decode routes' (17),
+# the speculative verify (8 x 5 = 40),
+# phase 6's pack (192), a prefill batch (2048) and the scorer (8192); the
+# cold-L2 readings at decode and the verify
+HEAD_ROUTE_ROWS = (4, 8, 9, 16, 17, 40, 192, 2048, 8192)
+HEAD_COLD_ROWS = (4, 40)
+
+
+def check_head_routes(M, kind, K=4096, V=128256, seed=0):
+    """The bf16 head ("bf16": [K, V] row-major; "tied": embed.T of a
+    row-major [V, K]) at x32 [M, K] on both of head_matmul's routes, each
+    called on its own (weight_gemm._launch_head on head_route's plan):
+    "simt" (f32 FMAs) and "wgmma" (the tensor cores on x32's three bf16
+    terms, the split kernel's launch included), each against the plain
+    version within HEAD_TOL with two planted faults — x32 rounded to bf16
+    (the hi term alone) and the head's K rows 64..127 dropped. Device ms
+    of each route (median of 25; above 192 rows of 3, after one warm
+    call); on the route head_plan takes, up to 192 rows (a graph of 20
+    calls of a 2048-row call would take seconds a rep), ms_host and
+    ms_graph, and ms_cold at HEAD_COLD_ROWS;
+    the plain version's and the library call's ms (the head's f32 copy and
+    torch.matmul, which the plain version also runs). Bounds: bound_ms the
+    tensor cores' least time for the exact f32 x bf16 products, max(bytes /
+    3.35 TB/s, 3 x 2MKV / 989 TFLOP/s), and bound_f32_ms the f32 FMAs',
+    max(bytes / 3.35 TB/s, 2MKV / 67 TFLOP/s); `route`: head_plan's."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul_plain
+    from localai_tpu_torch.ops.kernels import weight_gemm as wg
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + V)
+    x32 = torch.randn(M, K, device="cuda", generator=g)
+    e = (torch.randn(V, K, device="cuda", generator=g)
+         * K ** -0.5).to(torch.bfloat16)
+    w = e.T if kind == "tied" else e.T.contiguous()
+    del e
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = M > 192
+    reps = dict(reps=3, warm=1) if big else {}
+    ref = head_matmul_plain(x32, w)
+    wd = w.clone()
+    wd[64:128] = 0
+    faults = {"x32_rounded_to_bf16": head_matmul_plain(
+        x32.to(torch.bfloat16).float(), w),
+        "k_tile_dropped": head_matmul_plain(x32, wd)}
+    del wd
+    res = {"route": wg.head_plan(M, V, K, sms)[0]}
+    out = torch.empty(M, V, device="cuda")
+    for route in ("simt", "wgmma"):
+        plan = wg.head_route(route, M, V, K, sms)
+
+        def fn(plan=plan):
+            wg._launch_head("head_matmul", x32, w, out, kind == "tied",
+                            plan)
+
+        out.fill_(float("nan"))
+        fn()
+        torch.cuda.synchronize()
+        r = _check_close(f"head_matmul {kind} {route} M={M}", out, ref,
+                         HEAD_TOL, fault=faults)
+        r["ms"] = _time_ms(fn, **reps)
+        if route == res["route"] and not big:
+            r["ms_host"] = _time_ms(fn, spin=False)
+            r["ms_graph"] = _graph_ms(fn)
+            if M in HEAD_COLD_ROWS:
+                r["ms_cold"] = _time_ms(fn, cold=True)
+        res[route] = r
+    del faults, out, ref
+    res["plain_ms"] = _time_ms(lambda: head_matmul_plain(x32, w), **reps)
+    res["library_ms"] = _time_ms(lambda: x32 @ w.float(), **reps)
+    flops, nbytes = 2.0 * M * K * V, 2 * K * V + 4 * M * K + 4 * M * V
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_tc = 3 * flops / PEAK_BF16 * 1e3
+    res.update(bound_ms=max(t_bytes, t_tc),
+               bound_by="operations" if t_tc >= t_bytes else "bytes",
+               bound_f32_ms=max(t_bytes, flops / PEAK_F32 * 1e3),
+               bound_formula=(f"max({nbytes:.4g} B / 3.35 TB/s, 3 x "
+                              f"{flops:.4g} flop / 989 TFLOP/s); f32: "
+                              f"{flops:.4g} flop / 67 TFLOP/s"))
+    log(f"head_matmul {kind} routes M={M} K={K} V={V} " + json.dumps(res))
+    torch.cuda.empty_cache()
+    return res
+
+
+def head_routes():
+    """Row 14's two routes at HEAD_ROUTE_ROWS, bf16 and tied (line `phase2
+    head routes`, with the least M at which the tensor-core route is the
+    faster, a kind). Returns the rows."""
+    rows = {f"{kind} M={M}": check_head_routes(M, kind)
+            for kind in ("bf16", "tied") for M in HEAD_ROUTE_ROWS}
+    keep = ("max_abs_err", "x32_rounded_to_bf16_err", "k_tile_dropped_err",
+            "ms", "ms_cold", "ms_host", "ms_graph")
+    faster = {kind: next((M for M in HEAD_ROUTE_ROWS
+                          if rows[f"{kind} M={M}"]["wgmma"]["ms"]
+                          < rows[f"{kind} M={M}"]["simt"]["ms"]), None)
+              for kind in ("bf16", "tied")}
+    log("phase2 head routes " + json.dumps({
+        "rows": {k: {"route": r["route"], "plain_ms": r["plain_ms"],
+                     "library_ms": r["library_ms"],
+                     "bound_ms": r["bound_ms"],
+                     "bound_f32_ms": r["bound_f32_ms"],
+                     **{rt: {f: r[rt].get(f) for f in keep}
+                        for rt in ("simt", "wgmma")}}
+                 for k, r in rows.items()},
+        "tensor_cores_faster_from_M": faster}))
+    return rows
+
+
+def head_lo_term_case(M, K, V, kind, seed=0):
+    """Inputs on which x32's lo terms carry the whole product: along K, x
+    alternates 1 + 2^-8 + 2^-16 (terms 1, 2^-8, 2^-16) and 1 + 2^-8 (lo
+    0), row m scaled by 2^(m % 4), and column v of the head is +s_v, -s_v,
+    +s_v, ... (s_v a random sign), so hi and mid cancel pair by pair and
+    logit (m, v) is s_v * 2^(m % 4) * (K / 2) * 2^-16 exactly. Any
+    partial sum of the terms' products over 64 K rows from an even start
+    is a multiple of 2^(m%4 - 16) below 2^(m%4 + 7), exact in f32, so a
+    route that sums the exact products in f32 64 K rows at a time gets
+    every logit exactly. Returns x32 [M, K]
+    f32, the head as head_matmul takes it ([K, V] bf16; "tied": embed.T
+    of a row-major [V, K]) and the exact logits [M, V] f64, on the
+    card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed + M + K + V)
+    k = torch.arange(K, device="cuda")
+    x = torch.where(k % 2 == 0, 1 + 2.0 ** -8 + 2.0 ** -16, 1 + 2.0 ** -8)
+    scale = 2.0 ** (torch.arange(M, device="cuda") % 4)
+    x32 = (scale[:, None] * x[None, :]).float()
+    sign = torch.randint(0, 2, (V,), device="cuda", generator=g) * 2 - 1
+    e = (sign[:, None] * (1 - 2 * (k % 2))[None, :]).to(torch.bfloat16)
+    w = e.T if kind == "tied" else e.T.contiguous()
+    exact = (scale[:, None].double() * (K // 2) * 2.0 ** -16
+             * sign[None, :].double())
+    return x32, w, exact
+
+
+def check_head_lo_term(kind, M=40, K=4096, V=128256):
+    """head_matmul (head_plan's tensor-core route at M = 40) on
+    head_lo_term_case's inputs, against the exact logits within HEAD_TOL:
+    a route that dropped x's lo term would return 0 for every logit
+    (planted fault lo_term_dropped: the f64 product of hi + mid, from the
+    plain split), and one that rounded x to bf16 2^(m%4) * K / 2 * 2^-7
+    (x32_rounded_to_bf16). `exact`: the kernel's logits equal the exact
+    ones bit for bit."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import head_matmul, launch_counts, \
+        split_bf16_terms_plain
+    from localai_tpu_torch.ops.kernels import weight_gemm as wg
+
+    x32, w, exact = head_lo_term_case(M, K, V, kind)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = wg.head_plan(M, V, K, sms)[0]
+    if route != "wgmma":
+        raise AssertionError(f"phase2 head lo term: head_plan takes {route} "
+                             f"at M = {M}")
+    before = launch_counts()["split_bf16_terms"]
+    out = head_matmul(x32, w)
+    torch.cuda.synchronize()
+    if launch_counts()["split_bf16_terms"] - before != 1:
+        raise AssertionError("phase2 head lo term: no split launch")
+    xs = split_bf16_terms_plain(x32)
+    wd = w.double()
+    faults = {"lo_term_dropped": (xs[0].double() + xs[1].double()) @ wd,
+              "x32_rounded_to_bf16": x32.to(torch.bfloat16).double() @ wd}
+    res = _check_close(f"head_matmul {kind} lo term M={M}", out, exact,
+                       HEAD_TOL, fault=faults)
+    res.update(route=route, exact=bool(torch.equal(out.double(), exact)))
+    log(f"phase2 head lo term {kind} M={M} K={K} V={V} " + json.dumps(res))
+    del x32, w, exact, out, xs, wd, faults
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_split(M=8192, K=4096, seed=0):
+    """split_bf16_terms (the head's split kernel) at the scorer's x32 [M,
+    K] (random values, the first row special ones: +-0, +-inf, NaN, f32's
+    largest and least normal values, subnormals on bf16's grid of 2^-133,
+    1e+-30) against its plain
+    version on the card, BIT FOR BIT; the terms' f64 sum equals x32 on the
+    finite values. Planted fault: hi rounded to nearest (x32.to(bf16)) in
+    place of the cut, which the bit check must reject. Timings as _timings
+    takes them; no PyTorch call splits f32 into bf16 terms (library
+    null); bound: 4 bytes read and 6 written a value."""
+    import torch
+
+    from localai_tpu_torch.ops.kernels import split_bf16_terms, \
+        split_bf16_terms_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, device="cuda", generator=g) * 3
+    special = torch.tensor(
+        [0.0, -0.0, float("inf"), float("-inf"), float("nan"),
+         3.4028234663852886e38, -3.4028234663852886e38, 2.0 ** -126,
+         2.0 ** -133, -3 * 2.0 ** -133, 1e-30, -1e30, 1.0, 2.0 ** -110],
+        device="cuda")
+    x[0, :special.numel()] = special
+    out = split_bf16_terms(x)
+    torch.cuda.synchronize()
+    ref = split_bf16_terms_plain(x)
+    bits = out.view(torch.int16)
+    if not torch.equal(bits, ref.view(torch.int16)):
+        raise AssertionError("split_bf16_terms: the kernel's terms differ "
+                             "from the plain version's at "
+                             f"{int((bits != ref.view(torch.int16)).sum())}"
+                             " places")
+    fin = torch.isfinite(x)
+    if not torch.equal(out.double().sum(0)[fin], x.double()[fin]):
+        raise AssertionError("split_bf16_terms: hi + mid + lo != x32")
+    bad = ref.clone()
+    bad[0] = x.to(torch.bfloat16)
+    fault = int((bad.view(torch.int16) != bits).sum())
+    if not fault:
+        raise AssertionError("split_bf16_terms: the bit check does not see "
+                             "hi rounded to nearest")
+    res = {"max_abs_err": 0.0, "tol": "bit for bit",
+           "hi_rounded_to_nearest_differing": fault}
+    del bad, ref, out
+    nbytes = 10.0 * M * K
+    res.update(ms=_time_ms(lambda: split_bf16_terms(x)),
+               ms_host=_time_ms(lambda: split_bf16_terms(x), spin=False),
+               ms_graph=_graph_ms(lambda: split_bf16_terms(x)),
+               ms_cold=_time_ms(lambda: split_bf16_terms(x), cold=True),
+               plain_ms=_time_ms(lambda: split_bf16_terms_plain(x)),
+               library_ms=None, library_ms_host=None,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               bound_formula=f"{nbytes:.4g} B / 3.35 TB/s")
+    log(f"phase2 split terms M={M} K={K} " + json.dumps(res))
+    torch.cuda.empty_cache()
+    return res
+
+
 # Row 15, the expert GEMM, at Mixtral-8x7B's experts (E = 8): w1/w3 (K, N)
 # = (4096, 14336) on x shared by the experts, w2 (14336, 4096) on one x
 # slice an expert; M: decode, phase 12's ragged pack, a prefill batch.
@@ -1740,6 +1993,11 @@ def moe_gemms():
 # experts also expert e read with expert e + 1's scales.
 W4_GEOMETRIES = W8_GEOMETRIES + [(3584, 512)]
 W4_HEAD_ROWS = (4, 192)
+# moe_w4_matmul's rows: the decode route's (a batch of 1 to 16 streams),
+# phase 12's ragged pack and a prefill batch
+MOE4_ROWS = (1, 4, 8, 16, 192, 2048)
+# the rows up to which the weight GEMMs take their decode routes
+GEMV_ROWS = 16
 
 
 def _int4_weight(K, N, g, E=None):
@@ -1833,8 +2091,9 @@ def check_head4(M, K, V, cold=False, seed=0):
 def check_moe4(M, K, N, shared, cold=False, seed=0):
     """moe_w4_matmul at x [M, K] (shared) or [M, E, K] against a packed
     int4 stack [E, K/2, N] with scales [E, 1, N], with the int4 faults and
-    expert e read with expert e + 1's scales planted. library_ms: the
-    reference's calls, dequantize (unpacking) and torch.einsum."""
+    expert e read with expert e + 1's scales planted, and at decode one
+    unit of expert 1 dropped. library_ms: the reference's calls,
+    dequantize (unpacking) and torch.einsum."""
     import torch
 
     from localai_tpu_torch.ops.kernels import moe_w4_matmul, \
@@ -1856,6 +2115,16 @@ def check_moe4(M, K, N, shared, cold=False, seed=0):
               for k, w in _int4_faults(q).items()}
     faults["next_experts_scales"] = moe_w4_matmul_plain(
         x, q, torch.roll(s, -1, dims=0))
+    if M <= GEMV_ROWS:
+        # the decode route's persistent grid: one unit (MOE4_BK K rows) of
+        # expert 1 dropped, as a lost part of a cut tile would
+        from localai_tpu_torch.ops.kernels import unpack_int4
+        from localai_tpu_torch.ops.kernels.weight_gemm import MOE4_BK
+
+        qd = unpack_int4(q)
+        qd[1, MOE4_BK:2 * MOE4_BK] = 0
+        faults["unit_dropped"] = moe_w8_matmul_plain(x, qd, s)
+        del qd
     name = (f"moe_w4_matmul M={M} E={E} K={K} N={N} "
             f"{'shared' if shared else 'per-expert'} x")
     res = _check_close(name, out, plain(), MOE_TOL, fault=faults,
@@ -1876,7 +2145,7 @@ def int4_gemms():
     """Rows 13i4, 14i4 and 15i4 of PERF.md §6 (line `phase2 int4 gemms`):
     w4a16_matmul at the 8B's four projection shapes and Qwen2-7B's wk/wv
     for M = 4, 192 and 2048, the int4 head at M = 4 and 192, and
-    moe_w4_matmul at Mixtral-8x7B's experts for M = 4, 192 and 2048, each
+    moe_w4_matmul at Mixtral-8x7B's experts for MOE4_ROWS, each
     against its plain version with its planted faults; cold L2 readings
     at M = 4. Returns the main rows: w_gate, the head and w1/w3 at M =
     4."""
@@ -1887,9 +2156,10 @@ def int4_gemms():
     heads = {f"M={M}": check_head4(M, 4096, 128256, cold=M == 4)
              for M in W4_HEAD_ROWS}
     moe = {f"M={M} K={K} N={N}": check_moe4(M, K, N, shared, cold=M == 4)
-           for K, N, shared in MOE_GEOMETRIES for M in W8_ROWS}
+           for K, N, shared in MOE_GEOMETRIES for M in MOE4_ROWS}
     keep = ("max_abs_err", "mismatch_share", "nibbles_swapped_err",
-            "nibbles_unsigned_err", "next_experts_scales_err", "ms",
+            "nibbles_unsigned_err", "next_experts_scales_err",
+            "unit_dropped_err", "ms",
             "ms_cold", "ms_host", "ms_graph", "bound_ms", "bound_by",
             "plain_ms", "library_ms", "library_ms_cold")
     log("phase2 int4 gemms " + json.dumps({
@@ -1901,7 +2171,8 @@ def int4_gemms():
                           for k, r in moe.items()}}))
     torch.cuda.empty_cache()
     return (w4["M=4 K=4096 N=14336"], heads["M=4"],
-            moe["M=4 K=4096 N=14336"])
+            dict(moe["M=4 K=4096 N=14336"],
+                 w2=moe["M=4 K=14336 N=4096"]))
 
 
 # the speculative leg's shapes (phase 8): the Llama-3.2-1B draft decodes
@@ -2055,6 +2326,10 @@ def phase_kernels():
     ragged_packs(H, KVH, D)
     main.update(tier_kernels())
     main["w8a16_matmul"], main["head_matmul"] = weight_gemms()
+    main["head_routes"] = head_routes()
+    for kind in ("bf16", "tied"):
+        check_head_lo_term(kind)
+    main["split_bf16_terms"] = check_split()
     main["moe_w8_matmul"] = moe_gemms()
     (main["w4a16_matmul"], main["head_matmul_int4"],
      main["moe_w4_matmul"]) = int4_gemms()
@@ -6929,6 +7204,9 @@ def phase_int4(smi):
             "layers", "tok_s", "ttft_p50_ms", "busy_ms_step",
             "reference_max_gap", "planted_fault_gap", "int4_weight_bytes",
             "int8_recipe_weight_bytes")} for r in rows})
+        + " (before the int4 expert GEMM's decode redesign, PERF.md §5:"
+        " busy ms a decode step, the 8B dense 10.66-10.70, ragged"
+        " 8.37-8.41, Mixtral dense 23.68-24.90)"
         + f" launches {json.dumps({k: v for k, v in counts.items() if v})}"
         + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
     return counts
@@ -7659,6 +7937,8 @@ ROLES_EMBED_LENS = (17, 200, 900)
 ROLES_BATCH = [1024 - 47 * i for i in range(8)]
 ROLES_QUERY = 32
 ROLES_DOCS = (64, 110, 160, 210, 260, 310, 360, 400)
+# the embeddings legs' name of the scorer's call (its head at M = 8192)
+SCORER_CALL = "score 8 docs (M = 8192)"
 # pooled vectors against the plain forward: cosine; rerank scores (mean
 # log-probs, magnitude ~12 at V = 128256): absolute, and the order wherever
 # two plain scores are more than ORDER_GAP apart
@@ -7908,7 +8188,7 @@ def roles_embed_leg(label, d, load_kw, smi):
             docs = [prompt_ids(i + 1, n, salt=18)
                     for i, n in enumerate(ROLES_DOCS)]
             scores, wall, busy = _call_ms(lambda: scorer.score(q, docs))
-            calls["score 8 docs (M = 8192)"] = (wall, busy)
+            calls[SCORER_CALL] = (wall, busy)
             forwards += 2
             scored += 2
             texts = ["what is the weather in paris today",
@@ -7947,9 +8227,12 @@ def roles_embed_leg(label, d, load_kw, smi):
             raise AssertionError(f"phase15 {label}: plain versions ran "
                                  f"{plain}")
         int8 = load_kw.get("dtype") == "int8"
+        # the scorer's head: M = documents x bucket, at least 4 x 64 rows,
+        # above head_plan's SIMT rows: a bf16 head splits x32 first
         want = {"flash_prefill": L * forwards,
                 "w8a16_matmul": 7 * L * forwards if int8 else 0,
-                "head_matmul": scored}
+                "head_matmul": scored,
+                "split_bf16_terms": 0 if int8 else scored}
         for k, n in want.items():
             if launched[k] != n:
                 raise AssertionError(f"phase15 {label}: {k} launched "
@@ -8378,34 +8661,54 @@ def llava_identity_leg(cfg, params, mm, smi):
 
 
 def row14_large_m(smi, M=8192, K=4096, V=128256):
-    """Row 14 (head_matmul, the bf16 head on its SIMT route) at the
-    scorer's M = 8 x 1024 against its plain version (the head's f32 copy
-    and torch.matmul, which is also the library call), device ms (median
-    of 3 after a warm call, behind a spin) and the bound: 2 M K V flops at
-    the f32 peak (the port keeps the head's product in f32)."""
+    """Row 14 (head_matmul on a bf16 head) at the scorer's M = 8 x 1024,
+    on the route head_plan takes there (logged; the tensor cores on x32's
+    three bf16 terms), against its plain version (the head's f32 copy and
+    torch.matmul, which is also the library call) with the planted fault
+    x32 rounded to bf16, device ms (median of 3 after a warm call, behind
+    a spin) and both bounds: bound_ms the tensor cores' three bf16 passes
+    (3 x 2MKV at 989 TFLOP/s, or the bytes), bound_f32_ms 2MKV at the f32
+    FMAs' 67 TFLOP/s (the SIMT route's bound)."""
     import torch
 
-    from localai_tpu_torch.ops.kernels import head_matmul, head_matmul_plain
+    from localai_tpu_torch.ops.kernels import head_matmul, \
+        head_matmul_plain, launch_counts
+    from localai_tpu_torch.ops.kernels import weight_gemm as wg
 
     g = torch.Generator(device="cuda").manual_seed(14)
     x32 = torch.randn(M, K, device="cuda", generator=g)
     w = (torch.randn(V, K, device="cuda", generator=g)
          * K ** -0.5).to(torch.bfloat16).T.contiguous()
+    route = wg.head_plan(M, V, K, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    before = launch_counts()
     out = head_matmul(x32, w)
+    split = launch_counts()["split_bf16_terms"] - before["split_bf16_terms"]
     ref = head_matmul_plain(x32, w)
-    res = _check_close(f"head_matmul bf16 M={M}", out, ref, HEAD_TOL)
-    del out, ref
+    fault = {"x32_rounded_to_bf16": head_matmul_plain(
+        x32.to(torch.bfloat16).float(), w)}
+    res = _check_close(f"head_matmul bf16 M={M}", out, ref, HEAD_TOL,
+                       fault=fault)
+    del out, ref, fault
+    if route[0] == "wgmma" and split != 1:
+        raise AssertionError(f"phase15 row 14: the tensor-core route ran "
+                             f"{split} splits, not 1")
     flops, nbytes = 2.0 * M * K * V, 2 * K * V + 4 * M * K + 4 * M * V
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = 3 * flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     res.update(
+        route=route[0], tile=route[1],
         ms=_time_ms(lambda: head_matmul(x32, w), reps=3, warm=1),
         plain_ms=_time_ms(lambda: head_matmul_plain(x32, w), reps=3,
                           warm=1),
         library_ms=_time_ms(lambda: x32 @ w.float(), reps=3, warm=1),
         bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes")
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_f32_ms=max(flops / PEAK_F32 * 1e3, t_bytes))
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
     log(f"phase15 row 14 at M={M} K={K} V={V} " + json.dumps(res)
-        + f" card {smi}")
+        + f" card {smi} (before the tensor-core route this shape took "
+        f"283.8 ms on the SIMT route, PERF.md §6)")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -8513,6 +8816,11 @@ def phase_roles(smi):
             "layers", "tok_s", "ttft_p50_ms", "cosine", "max_dscore",
             "reference_max_gap", "planted_fault_gap", "tower_ms_per_image",
             "own_rows_equal_tokens")} for r in rows})
+        + " scorer (M = 8192) wall · device-busy ms " + json.dumps({
+            r["leg"]: r["calls_wall_busy_ms"][SCORER_CALL] for r in rows
+            if SCORER_CALL in r.get("calls_wall_busy_ms", {})})
+        + " (with the head on the SIMT route, PERF.md §5: bf16 526.2 ·"
+        " 520.7, int8 296.8 · 292.8)"
         + f" launches {json.dumps({k: v for k, v in counts.items() if v})}"
         + f" ({time.perf_counter() - t0:.1f} s) card {smi}")
     return counts, timings
@@ -8563,6 +8871,10 @@ KERNELS = {
                          "localai_tpu/models/llama.py:347"),
     "moe_w4_matmul": ("localai_tpu_torch/csrc/weight_gemm.cu",
                       "localai_tpu/models/llama.py:383"),
+    # the bf16 head's x32 split into three bf16 terms for its tensor-core
+    # route (part of row 14's port; launched where the scorer's head runs)
+    "split_bf16_terms": ("localai_tpu_torch/csrc/weight_gemm.cu",
+                         "localai_tpu/models/llama.py:347"),
     # the KV tier's variants of rows 3/5 and 8/9 (on the TPU the tiered
     # reads ride XLA twins: models/llama.py _decode_dq, the ragged
     # _xla_core), and the demotion on row 7's kernel (the reference's
@@ -8635,17 +8947,25 @@ def main():
     int4_counts = timed("13 int4", phase_int4, smi)
     # phase 15 before 14: its engines capture graphs, and phase 14's
     # profiler sessions come after every capture
-    roles_counts, _ = timed("15 roles", phase_roles, smi)
+    roles_counts, roles_timings = timed("15 roles", phase_roles, smi)
     tp_counts, tp_measured = timed("14 tensor parallel", phase_tp, smi)
     spec_counts = timed("8 speculative", phase_spec_path, smi)
     log("phase walls (s) " + json.dumps(walls)
         + f" total {time.perf_counter() - t0:.1f} s")
     log("slowest steps (s, the line that ended each) " + json.dumps(
         sorted(STEPS, reverse=True)[:40]))
+    # row 14 at the scorer's M (phase 15) and row 15i4's w2 stack beside
+    # their main shapes' readings
+    extra = {"head_matmul": {"large_m": roles_timings["row14"]},
+             "moe_w4_matmul": {"w2": {
+                 k: measured["moe_w4_matmul"]["w2"].get(k)
+                 for k in ("ms", "ms_cold", "ms_graph", "bound_ms",
+                           "max_abs_err", "library_ms")}}}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         m = measured[name]
         launches = (tier_counts if name in TIER_KERNELS
+                    else roles_counts if name == "split_bf16_terms"
                     else ragged_counts if name in RAGGED_KERNELS
                     else paged_counts if name in PAGED_KERNELS
                     else moe_counts if name == "moe_w8_matmul"
@@ -8668,7 +8988,8 @@ def main():
                      "launches_tp": tp_counts[name],
                      "launches_roles": roles_counts[name],
                      **({"library_bf16_ms": m["library_bf16_ms"]}
-                        if "library_bf16_ms" in m else {})})
+                        if "library_bf16_ms" in m else {}),
+                     **extra.get(name, {})})
     # row 12: the TP wrappers, at rank 0's shard, launches from phase 14
     for name, (src, replaces, unsharded) in SHARDED.items():
         m = tp_measured[name]

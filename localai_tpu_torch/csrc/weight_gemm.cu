@@ -29,12 +29,17 @@
 //     products are exact in f32, summed in f32, then times s in f32;
 //   - f32 x with an int8, bf16 or f16 weight (weight_gemm_simt_kernel): f32
 //     FMAs of x and the weight's exact f32 value. The tensor cores would
-//     round x to bf16 (or TF32), which is not the reference's arithmetic.
+//     round x to bf16 (or TF32), which is not the reference's arithmetic;
+//   - f32 x with a bf16 head above a row count (the wrapper's head_plan;
+//     head_gemm_wgmma_kernel): x splits into three bf16 terms whose sum is
+//     x (split_terms_kernel), and the tensor cores multiply the head with
+//     each, f32 sums: the same exact products in another order.
 //
 // What bounds it on the H100: at decode (M <= 16) the weight's bytes — one
 // int8 byte read per element at 3.35 TB/s — and at prefill's M the bf16
-// tensor cores (989 TFLOP/s; for f32 x, the 67 TFLOP/s of f32 FMA). Two
-// tensor-core routes, chosen by M in the wrapper:
+// tensor cores (989 TFLOP/s; the bf16 head's three terms, three times the
+// products; the SIMT route's f32 x, the 67 TFLOP/s of f32 FMA). Two
+// tensor-core routes for the int8 weights, chosen by M in the wrapper:
 //   - large M (weight_gemm_wgmma_kernel, M > 16): the weight is wgmma's A
 //     operand and x its B operand (y^T = q^T x^T), so the int8 tile never
 //     goes back to shared memory as bf16. A producer warp keeps TMA loads
@@ -95,7 +100,12 @@
 // byte tiles by TMA and lifts a warp's whole tile with one ldmatrix.trans
 // (its rows permuted so that a register holds a fragment's four bytes). At
 // decode the bound halves with the bytes; at prefill's M it stays the bf16
-// tensor cores'. K must be even (a multiple of 16 here).
+// tensor cores'. K must be even (a multiple of 16 here). The expert GEMM
+// at decode has a kernel of its own in this build (moe_w4_stream_kernel):
+// at half int8's bytes the conversion's instructions, not the bytes, set
+// its time, so each nibble becomes f32 in two instructions (w4_value), and
+// its blocks take equal ranges of (expert, column tile, K tile) units, so
+// a stack of fewer tiles than the card's slots (w2) still fills a wave.
 #include <cuda.h>
 #include <cuda_fp16.h>
 
@@ -133,6 +143,17 @@ constexpr int SG_THREADS = 128;
 // the [BN][BK] tile of a transposed (tied) weight, rows padded to 48 bytes
 // so that eight lanes' 16-byte reads of eight rows hit distinct banks
 constexpr int SG_NK_LD = SG_BK + 8;
+// bf16 head at large M: blocks of BN rows x 128 vocabulary columns (64 a
+// consumer warpgroup) over K stages of 64; H_GROUP row tiles share a band
+// of the grid's order, so the blocks in flight reuse each other's head and
+// x tiles from the L2
+constexpr int H_BV = 128, H_GROUP = 8;
+// shared memory for the head's ring: a block's whole allowance (227 KB)
+// less the alignment slack and the barriers
+constexpr int H_RING_BYTES = 232448 - 1024 - 128;
+// int4 expert GEMM at decode: units of 128 channels x MS_BK K rows (MS_KS
+// K steps of 16) of one expert, the warp's loads one unit ahead
+constexpr int MS_KS = 4, MS_BK = 16 * MS_KS;
 
 __device__ __forceinline__ float wg_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -218,6 +239,54 @@ __device__ __forceinline__ uint32_t wg_scale_pair<__nv_bfloat16>(uint32_t p,
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// The magic words of w4_value for the nibble positions 0, 4, 8 and 12:
+// the exponent of 2^(23-P) and the xor of the nibble's sign bit. They must
+// live in registers: a LOP3 takes one immediate, so with the nibble's mask
+// and the magic both immediate the compiler emits two LOP3 a value. `zero`
+// is a value that is 0 at run time and unknown to the compiler (it keeps
+// the words from folding back into immediates), and w4_value's LOP3 is
+// inline PTX, which no pass reassociates.
+struct W4Magic {
+  uint32_t m[4];
+};
+__device__ __forceinline__ W4Magic w4_magic(uint32_t zero) {
+  W4Magic w;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w.m[i] = (((127u + 23u - 4u * i) << 23) | (8u << (4 * i))) ^ zero;
+  return w;
+}
+
+// The int4 nibble at bit P (0, 4, 8 or 12) of u as an exact f32 value, in
+// two instructions: the nibble xor 8 goes into the mantissa of 2^(23-P),
+// whose unit is then one (one LOP3: (u & mask) ^ magic), and subtracting
+// 2^(23-P) + 8 leaves the two's-complement value (exact: both terms are
+// integers below 2^24).
+template <int P>
+__device__ __forceinline__ float w4_value(uint32_t u, const W4Magic& w) {
+  static_assert(P >= 0 && P <= 12 && P % 4 == 0,
+                "the nibble must lie in the mantissa");
+  constexpr float bias = static_cast<float>((1u << (23 - P)) + 8u);
+  uint32_t v;  // (u & mask) ^ magic: one LOP3 (lut 0x6a)
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;"
+      : "=r"(v)
+      : "r"(u), "n"(0xFu << P), "r"(w.m[P / 4]));
+  return __fadd_rn(__uint_as_float(v), -bias);
+}
+
+// The nibbles at bits P and P + 4 of u (K rows 2j and 2j + 1 of one
+// channel) dequantized as the reference does, T(f32(q) * s) with one f32
+// product and one rounding, as a bf16 pair (bit P's in the low half): two
+// LOP3, two FADD, two FMUL and one F2F a pair, against wg_nib_pair +
+// wg_scale_pair's PRMT, LOP3, HSUB2, two unpacks, two FMUL and one F2F.
+template <int P>
+__device__ __forceinline__ uint32_t w4_pair_scaled(uint32_t u, float s,
+                                                   const W4Magic& w) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __fmul_rn(w4_value<P>(u, w), s), __fmul_rn(w4_value<P + 4>(u, w), s));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // Two int8 values of one output channel (bytes 0 and 2 of t, as wg_pair
 // takes them), dequantized (wg_scale_pair), packed with byte 0's in the
 // low half.
@@ -248,6 +317,17 @@ __device__ __forceinline__ void wg_word_f(uint32_t w, int8_t, float* v) {
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(lt_smem_u32(p))
+      : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory as stored (lanes 8i..8i+7
+// give matrix i's row addresses; lane (g, t4) receives elements 2*t4 and
+// 2*t4 + 1 of row g, the first in the low half).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(lt_smem_u32(p))
       : "memory");
@@ -762,6 +842,239 @@ __global__ void __launch_bounds__(A_THREADS, 1)
   }
 }
 
+// ------------------------------- bf16 head at large M: three bf16 terms
+
+// x32 = hi + mid + lo, each a bf16 (split_terms_kernel): the top 8
+// significant bits of x, of the rest, and of what is left. Each cut is a
+// truncation of the f32 bits and each rest an exact f32 difference, so the
+// three hold x exactly wherever its bits lie at or above 2^-133 (bf16's
+// least subnormal: every |x| >= 2^-110, every normal value a row of the
+// model holds); bits below that, which no bf16 holds, are dropped. A
+// non-finite x: hi = x (NaN as 0x7fc0), mid = lo = 0.
+__device__ __forceinline__ void hs_split(float x, uint32_t& h, uint32_t& m,
+                                         uint32_t& l) {
+  const uint32_t b = __float_as_uint(x);
+  if ((b & 0x7f800000u) == 0x7f800000u) {
+    h = (b & 0x007fffffu) ? 0x7fc0u : b >> 16;
+    m = l = 0;
+    return;
+  }
+  const float r1 = __fsub_rn(x, __uint_as_float(b & 0xffff0000u));
+  const uint32_t b1 = __float_as_uint(r1);
+  const float r2 = __fsub_rn(r1, __uint_as_float(b1 & 0xffff0000u));
+  h = b >> 16;
+  m = b1 >> 16;
+  l = __float_as_uint(r2) >> 16;
+}
+
+// x32 [n4 * 4] f32 -> xs [3][n4 * 4] bf16 (hi, mid, lo), four values a
+// thread and step; bound by its bytes (4 read, 6 written a value).
+__global__ void split_terms_kernel(const float4* __restrict__ x,
+                                   uint2* __restrict__ xs, int64_t n4) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 v = x[i];
+    uint32_t h[4], m[4], l[4];
+    hs_split(v.x, h[0], m[0], l[0]);
+    hs_split(v.y, h[1], m[1], l[1]);
+    hs_split(v.z, h[2], m[2], l[2]);
+    hs_split(v.w, h[3], m[3], l[3]);
+    xs[i] = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+    xs[n4 + i] = make_uint2(m[0] | m[1] << 16, m[2] | m[3] << 16);
+    xs[2 * n4 + i] = make_uint2(l[0] | l[1] << 16, l[2] | l[3] << 16);
+  }
+}
+
+// The head's ring for BN rows of x: stage i holds the three term tiles
+// [BN][64] (bf16, 128-byte swizzle) of x's rows, then the head tile of 128
+// vocabulary columns x 64 K rows (16 KB: two boxes [64 K][64 V] of a
+// row-major [K, V] head, or one box [128 V][64 K] of a tied [V, K]), each
+// on a 1024-byte boundary; the mbarriers and the split flag follow.
+template <int BN>
+struct RingH {
+  static constexpr int X_BYTES = BN * A_BK * 2;
+  static constexpr int W_BYTES = H_BV * A_BK * 2;
+  static constexpr int STAGE = 3 * X_BYTES + W_BYTES;
+  static constexpr int STAGES =
+      H_RING_BYTES / STAGE < 8 ? H_RING_BYTES / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8 + 16;
+};
+
+// out [M, V] f32 = x32 @ w for a bf16 head w, on the tensor cores: x32 =
+// hi + mid + lo (split_terms_kernel, xs [3, M, K]), and each K step of 16
+// multiplies one A fragment of the head with the three term tiles, into
+// one f32 accumulator a K stage of 64, added to the running sums in f32.
+// The bf16 x bf16 products are exact, so the sum holds the reference's
+// products (the head's value times x's) in another order. The head is
+// wgmma's A operand, lifted from its tile by ldmatrix (.trans for a
+// row-major [K, V] head: a tile row is one K row of 64 columns; as stored
+// for a tied [V, K], NK): warp w of consumer warpgroup
+// c owns vocabulary columns n0 + 64c + 16w + (0..15), A row r its column
+// r. The term tiles are B operands from shared memory. Block order: bands
+// of H_GROUP row tiles, the column tile varying fastest in a band; split z
+// = blockIdx.y sums K tiles [z*kt_per, (z+1)*kt_per) of 64 (the tile's
+// last split combines, as weight_gemm_wgmma_kernel's). tx: xs as [3, M,
+// K] in boxes [1][BN][64]; tw: the head (weight_gemm_head_tmap).
+template <int BN, bool NK>
+__global__ void __launch_bounds__(A_THREADS, 1)
+    head_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           float* __restrict__ out, float* __restrict__ ws,
+                           int* __restrict__ counters, int M, int V, int K,
+                           int kt_per) {
+  using R = RingH<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (lt_smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  int* flag = reinterpret_cast<int*>(empty + R::STAGES);
+
+  const int nm = (M + BN - 1) / BN, nv = (V + H_BV - 1) / H_BV;
+  const int band = H_GROUP * nv, b = blockIdx.x;
+  const int first = b / band * H_GROUP, gm = min(nm - first, H_GROUP);
+  const int mt = first + b % band % gm, vt = b % band / gm;
+  const int m0 = mt * BN, n0 = vt * H_BV;
+  const int nk = (K + A_BK - 1) / A_BK;
+  const int kt0 = blockIdx.y * kt_per;
+  const int ntile = min(nk, kt0 + kt_per) - kt0;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // a row-major head's second box lies past V on a ragged last tile
+  const bool box2 = NK || n0 + 64 < V;
+
+  if (tid == 0) {
+    for (int i = 0; i < R::STAGES; ++i) {
+      lt_mbar_init(&full[i], 1);
+      lt_mbar_init(&empty[i], 8);  // one arrival a consumer warp
+    }
+    lt_mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int t = 0; t < ntile; ++t) {
+        const int st = t % R::STAGES;
+        lt_mbar_wait(&empty[st], ((t / R::STAGES) & 1) ^ 1);
+        uint8_t* stage = smem + st * R::STAGE;
+        uint8_t* wt = stage + 3 * R::X_BYTES;
+        const int k0 = (kt0 + t) * A_BK;
+        lt_mbar_expect_tx(&full[st], box2 ? R::STAGE
+                                          : R::STAGE - R::W_BYTES / 2);
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+          wg_tma_load_3d(stage + term * R::X_BYTES, &tx, &full[st], k0, m0,
+                         term);
+        if constexpr (NK) {
+          lt_tma_load_2d(wt, &tw, &full[st], k0, n0);
+        } else {
+          lt_tma_load_2d(wt, &tw, &full[st], n0, k0);
+          if (box2)
+            lt_tma_load_2d(wt + R::W_BYTES / 2, &tw, &full[st], n0 + 64, k0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    // acc: the sums so far; part: one stage's, added to acc in f32 (RN)
+    // once its wgmmas are done. The tensor cores' f32 accumulation rounds
+    // otherwise than RN, and over the 3 x K / 16 wgmmas of a whole K its
+    // bias reached 1.05e-4 on logits of ~4; a stage's 12 stay far below.
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    uint32_t f[4][4];  // the stage's A fragments, [k16][reg]
+
+    // The A fragments of the head tile at wt for the four K steps. Matrix
+    // i of an x4 (lanes 8i..8i+7 give its rows) is fragment register i:
+    // A rows 8 (i & 1) + (0..7), K columns 8 (i >> 1) + (0..7) of the step.
+    // A tile row is 128 bytes, its 16-byte chunk c stored at c ^ (row & 7).
+    auto frags = [&](const uint8_t* wt) {
+      const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (NK) {
+          // row: vocabulary column 64 wg + 16 warp + 8 (i & 1) + r; chunk:
+          // K columns 16 kk + 8 (i >> 1)
+          const int row = 64 * wg + 16 * warp + 8 * (i & 1) + r;
+          ldsm_x4(f[kk], wt + row * 128 + (((2 * kk + (i >> 1)) ^ r) << 4));
+        } else {
+          // row: K row 16 kk + 8 (i >> 1) + r of warpgroup wg's box;
+          // chunk: its columns 16 warp + 8 (i & 1)
+          const int k = 16 * kk + 8 * (i >> 1) + r;
+          ldsm_x4_t(f[kk], wt + wg * (R::W_BYTES / 2) + k * 128 +
+                               (((2 * warp + (i & 1)) ^ r) << 4));
+        }
+      }
+    };
+    // stage t: its fragments, its 12 wgmmas (the small terms first) into
+    // part, then the stage back to the producer and part into acc; the
+    // other consumer warpgroup's wgmmas keep the tensor cores busy
+    // meanwhile
+    for (int t = 0; t < ntile; ++t) {
+      const int st = t % R::STAGES;
+      lt_mbar_wait(&full[st], (t / R::STAGES) & 1);
+      const uint8_t* stage = smem + st * R::STAGE;
+      frags(stage + 3 * R::X_BYTES);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+      lt_wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int term = 2; term >= 0; --term)
+          wg_wgmma<__nv_bfloat16, BN>(
+              part, f[kk],
+              lt_smem_desc(stage + term * R::X_BYTES + kk * 32, 16, 1024));
+      lt_wgmma_commit();
+      lt_wgmma_wait<0>();
+      lt_fence_regs(part);
+      if (lane == 0) lt_mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+
+    // acc[4j + i]: vocabulary column cv + 8 (i >> 1), row m0 + 8j + 2t4 +
+    // (i & 1)
+    const int cv = n0 + 64 * wg + 16 * warp + g;
+    const int64_t mv = static_cast<int64_t>(M) * V;
+    auto each = [&](auto&& fn) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + 8 * j + 2 * t4 + (i & 1);
+          const int v = cv + 8 * (i >> 1);
+          if (r < M && v < V)
+            fn(static_cast<int64_t>(r) * V + v, acc[4 * j + i]);
+        }
+    };
+    if (gridDim.y == 1) {
+      each([&](int64_t o, float& a) { out[o] = a; });
+    } else {
+      float* wz = ws + blockIdx.y * mv;
+      each([&](int64_t o, float& a) { wz[o] = a; });
+      if (wg_last_split(counters + mt + nm * vt, gridDim.y, flag, tid == 0,
+                        [] {
+                          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+                        })) {
+        // the tile's last split: the splits' partials summed in order
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        for (int z = 0; z < static_cast<int>(gridDim.y); ++z) {
+          const float* wsz = ws + z * mv;
+          each([&](int64_t o, float& a) { a += __ldcg(wsz + o); });
+        }
+        each([&](int64_t o, float& a) { out[o] = a; });
+      }
+    }
+  }
+}
+
 // ------------------------------------------------ decode route: mma.sync
 
 // word i of a 16-byte chunk
@@ -781,10 +1094,10 @@ __device__ __forceinline__ uint32_t wg_word(const uint4& v, int i) {
 // run a tile ahead: once a 16-row step is multiplied, its registers take
 // the same step of the warp's next tile. The warps' sums are added in
 // warp order through shared memory.
-// EPI_MOE: blockIdx.z is the expert e (no split: gridDim.y == 1); x is [M,
-// xe, K] (xe 1: one x for every expert; E: expert e's rows), q the stack
-// [E, K, N], each weight pair converted with its channel's scale in s [E,
-// N], and out [M, E, N].
+// EPI_MOE (the int8 build): blockIdx.z is the expert e (no split:
+// gridDim.y == 1); x is [M, xe, K] (xe 1: one x for every expert; E:
+// expert e's rows), q the stack [E, K, N], each weight pair converted
+// with its channel's scale in s [E, N], and out [M, E, N].
 // int4 (kW4): K tiles of 128, eight K steps of 16; lane (g, t4) reads
 // packed rows 2t4 and 2t4 + 1 of a step (K rows 4t4..4t4+3, the same
 // fragment slots), and byte b of a chunk word gives one fragment register
@@ -798,6 +1111,8 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                             int* __restrict__ counters, int M, int N, int K,
                             int kt_per, int xe) {
   constexpr bool MOE = EPI == EPI_MOE;
+  static_assert(!(kW4 && MOE), "the int4 expert stacks at decode run "
+                               "moe_w4_stream_kernel");
   constexpr int ROWS = 8 * NT8, LD = B_BN + 4;
   // K steps of 16 a tile; 16-byte weight rows a thread reads a step
   constexpr int KS = B_BK / 16, WR = kW4 ? 2 : 4;
@@ -872,12 +1187,6 @@ __global__ void __launch_bounds__(B_WARPS * 32)
         a[1] = wg_nib_pair<T, 1>(u0, v0);
         a[2] = wg_nib_pair<T, 0>(u1, v1);
         a[3] = wg_nib_pair<T, 1>(u1, v1);
-      }
-      if constexpr (MOE) {
-        a[0] = wg_scale_pair<T>(a[0], sc[2 * i]);
-        a[1] = wg_scale_pair<T>(a[1], sc[2 * i + 1]);
-        a[2] = wg_scale_pair<T>(a[2], sc[2 * i]);
-        a[3] = wg_scale_pair<T>(a[3], sc[2 * i + 1]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT8; ++nt)
@@ -1002,6 +1311,235 @@ __global__ void __launch_bounds__(B_WARPS * 32)
     if (r < M && n < N)
       wg_store<T, EPI>(out, s, static_cast<int64_t>(r) * N + n, n, v[i].x,
                        v[i].y);
+  }
+}
+
+// ------------------------------------- int4 expert GEMM at decode: stream
+
+// moe_w4_matmul at M <= 8 * NT8 (the int4 build): out [M, E, N] =
+// x @ T(f32(q[e]) * s[e]) over the units (expert e, column tile of 128,
+// K tile of MS_BK rows), ordered by tile (e-major) then K. Block b of the
+// G blocks takes units [b*U/G, (b+1)*U/G): every block the same bytes,
+// whatever E x (column tiles) is against the card's SMs. Its warps
+// take every 4th unit of each tile it touches and sum through shared
+// memory as weight_gemm_gemv_kernel does, with the same fragments and
+// x^T as B; each warp's loads run one unit ahead, across tile edges too.
+// A tile whole in the block is stored at once. A tile cut by a block edge
+// is a part of each block that touches it: each writes its f32 sums to
+// ws [G][2][M][128] (slot 0 for its first tile, 1 for its last), and the
+// last to arrive (counters[tile], back to 0 after) sums the parts in
+// block order and stores: no float atomics, the same bits every call.
+// Conversion: w4_pair_scaled, the reference's rounding in 8 instructions
+// a pair with the mma (wg_nib_pair + wg_scale_pair on the decode route
+// took 11; cuobjdump -sass).
+template <int NT8>
+__global__ void __launch_bounds__(B_WARPS * 32,
+                                  (MS_KS <= 4 ? 4 : 3) - (NT8 - 1))
+    moe_w4_stream_kernel(const __nv_bfloat16* __restrict__ x,
+                         const uint8_t* __restrict__ q,
+                         const float* __restrict__ s,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ ws, int* __restrict__ counters,
+                         int M, int N, int K, int E, int xe) {
+  using T = __nv_bfloat16;
+  constexpr int ROWS = 8 * NT8, LD = B_BN + 4;
+  __shared__ __align__(16) float red[B_WARPS][ROWS][LD];
+  __shared__ int flag;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int NT = (N + B_BN - 1) / B_BN, KT = (K + MS_BK - 1) / MS_BK;
+  const int64_t U = static_cast<int64_t>(E) * NT * KT;
+  const int64_t G = gridDim.x, b = blockIdx.x;
+  const int64_t u0 = b * U / G, u1 = (b + 1) * U / G;
+  const int tf = static_cast<int>(u0 / KT);
+  const int tl = static_cast<int>((u1 - 1) / KT);
+  const int64_t qstride = static_cast<int64_t>(K / 2) * N;  // an expert
+  const int64_t xrow = static_cast<int64_t>(xe) * K;
+
+  // the warp's first unit in tile t, t + 1, ... tl of the block's range
+  auto next_from = [&](int t) -> int64_t {
+    for (; t <= tl; ++t) {
+      const int64_t lo = static_cast<int64_t>(t) * KT, hi = lo + KT;
+      const int64_t a = (u0 > lo ? u0 : lo) + warp;
+      if (a < (u1 < hi ? u1 : hi)) return a;
+    }
+    return -1;
+  };
+  // where unit u's loads read: its weight rows and x rows for this lane
+  struct Src {
+    const uint8_t* q;
+    const T* x;
+    int k0;
+    bool cok;
+  };
+  auto src_of = [&](int64_t u) {
+    const int t = static_cast<int>(u / KT);
+    const int kt = static_cast<int>(u - static_cast<int64_t>(t) * KT);
+    const int e = t / NT, cb = (t - e * NT) * B_BN + 16 * g;
+    const int k0 = kt * MS_BK;
+    return Src{
+        q + e * qstride + static_cast<int64_t>(k0 / 2 + 2 * t4) * N + cb,
+        x + (xe > 1 ? static_cast<int64_t>(e) * K : 0) + k0 + 4 * t4, k0,
+        cb < N};
+  };
+  uint4 w[MS_KS][2];    // [k16 step][packed row 2t4 + j]: 16 channels
+  uint2 xv[MS_KS][NT8]; // [k16 step][token tile]: K rows 4t4..4t4+3
+  auto load = [&](int kk, const Src& p) {
+    const bool kok = p.k0 + 16 * kk < K;  // K % 16 == 0
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      w[kk][j] = p.cok && kok
+                     ? ldg_stream(p.q + static_cast<int64_t>(8 * kk + j) * N)
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      const int r = 8 * nt + g;
+      xv[kk][nt] = kok && r < M ? *reinterpret_cast<const uint2*>(
+                                      p.x + r * xrow + 16 * kk)
+                                : make_uint2(0u, 0u);
+    }
+  };
+  float sc[16];  // the scales of this lane's 16 channels of the tile
+  auto scales = [&](int t) {
+    const int e = t / NT, cb = (t - e * NT) * B_BN + 16 * g;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      sc[j] = cb < N ? s[static_cast<int64_t>(e) * N + cb + j] : 0.f;
+  };
+  float acc[8][NT8][4];
+  // M >= 1: its sign bit is the run-time zero of w4_magic
+  const W4Magic mg = w4_magic(static_cast<uint32_t>(M) >> 31);
+  auto mul = [&](int kk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // word i / 2 of both rows: channels 16g + 2i and + 1 are its bytes
+      // 2 (i & 1) and 2 (i & 1) + 1
+      uint32_t u0w = wg_word(w[kk][0], i >> 1);
+      uint32_t u1w = wg_word(w[kk][1], i >> 1);
+      if (i & 1) {  // bytes 2 and 3: their nibbles to bits 0..15
+        u0w >>= 16;
+        u1w >>= 16;
+      }
+      uint32_t a[4];
+      a[0] = w4_pair_scaled<0>(u0w, sc[2 * i], mg);
+      a[1] = w4_pair_scaled<8>(u0w, sc[2 * i + 1], mg);
+      a[2] = w4_pair_scaled<0>(u1w, sc[2 * i], mg);
+      a[3] = w4_pair_scaled<8>(u1w, sc[2 * i + 1], mg);
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+        wg_mma<T>(acc[i][nt], a, xv[kk][nt].x, xv[kk][nt].y);
+    }
+  };
+  // the block whose range holds unit u
+  auto block_of = [&](int64_t u) { return ((u + 1) * G - 1) / U; };
+
+  int64_t u = next_from(tf);
+  if (u >= 0) {
+    const Src p = src_of(u);
+#pragma unroll
+    for (int kk = 0; kk < MS_KS; ++kk) load(kk, p);
+  }
+  scales(tf);
+  for (int t = tf; t <= tl; ++t) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][nt][j] = 0.f;
+    const int64_t tend = static_cast<int64_t>(t + 1) * KT;
+    const int64_t end = u1 < tend ? u1 : tend;
+    while (u >= 0 && u < end) {
+      const int64_t nx = u + B_WARPS < end ? u + B_WARPS : next_from(t + 1);
+      Src p;
+      if (nx >= 0) p = src_of(nx);
+#pragma unroll
+      for (int kk = 0; kk < MS_KS; ++kk) {
+        mul(kk);
+        if (nx >= 0) load(kk, p);
+      }
+      u = nx;
+    }
+    if (t < tl) scales(t + 1);  // read while the tile's sums combine
+
+    // acc[i][nt][c]: channel 16g + 2i (+1 for c >= 2), token 8nt + 2t4 +
+    // (c & 1); the warps' sums added in warp order
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          *reinterpret_cast<float2*>(
+              &red[warp][8 * nt + 2 * t4 + c][16 * g + 2 * i]) =
+              make_float2(acc[i][nt][c], acc[i][nt][2 + c]);
+    __syncthreads();
+    const int e = t / NT, n0 = (t - e * NT) * B_BN;
+    const int nl = 2 * (tid & 63), n = n0 + nl, r0 = tid >> 6;
+    const bool whole = u0 <= static_cast<int64_t>(t) * KT &&
+                       u1 >= static_cast<int64_t>(t + 1) * KT;
+    constexpr int RT = ROWS / 2;  // rows a thread at most
+    float2 v[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      v[i] = make_float2(0.f, 0.f);
+      const int r = r0 + 2 * i;
+      if (r < M) {
+#pragma unroll
+        for (int w8 = 0; w8 < B_WARPS; ++w8) {
+          const float2 p = *reinterpret_cast<const float2*>(&red[w8][r][nl]);
+          v[i].x += p.x;
+          v[i].y += p.y;
+        }
+      }
+    }
+    bool store = whole;
+    if (!whole) {
+      // this block's part: slot 0 of its first tile, 1 of its last
+      auto part = [&](int64_t bb, int tt) {
+        const int64_t f0 = bb * U / G / KT;
+        return ws + ((bb * 2 + (tt == f0 ? 0 : 1)) * M) * B_BN;
+      };
+      float* mine = part(b, t);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = r0 + 2 * i;
+        if (r < M) *reinterpret_cast<float2*>(mine + r * B_BN + nl) = v[i];
+      }
+      const int64_t bf = block_of(static_cast<int64_t>(t) * KT);
+      const int64_t bl = block_of(static_cast<int64_t>(t + 1) * KT - 1);
+      store = wg_last_split(counters + t, static_cast<int>(bl - bf + 1),
+                            &flag, tid == 0, [] { __syncthreads(); });
+      if (store) {
+        // the tile's last part to arrive: every part, in block order
+#pragma unroll
+        for (int i = 0; i < RT; ++i) v[i] = make_float2(0.f, 0.f);
+        for (int64_t bb = bf; bb <= bl; ++bb) {
+          const float* pp = part(bb, t);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const int r = r0 + 2 * i;
+            if (r < M) {
+              const float2 p =
+                  __ldcg(reinterpret_cast<const float2*>(pp + r * B_BN + nl));
+              v[i].x += p.x;
+              v[i].y += p.y;
+            }
+          }
+        }
+      }
+    }
+    if (store && n < N) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = r0 + 2 * i;
+        if (r < M)
+          wg_store<T, EPI_MOE>(
+              out, nullptr, (static_cast<int64_t>(r) * E + e) * N + n, n,
+              v[i].x, v[i].y);
+      }
+    }
+    __syncthreads();  // red is written again for the next tile
   }
 }
 
@@ -1345,6 +1883,7 @@ int launch_gemv(const void* x, const void* q, const float* s, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+#if !WG_INT4
 // the expert GEMM on the decode route: one block a (column tile, expert)
 template <typename T>
 int launch_gemv_moe(const void* x, const void* q, const float* s, void* out,
@@ -1361,6 +1900,41 @@ int launch_gemv_moe(const void* x, const void* q, const float* s, void* out,
         nullptr, nullptr, M, N, K, nk, xe);
   return static_cast<int>(cudaGetLastError());
 }
+#endif
+
+#if WG_INT4
+// the int4 expert GEMM at decode: `blocks` blocks of equal unit ranges
+int launch_moe_stream(const void* x, const void* q, const float* s,
+                      void* out, float* ws, int* counters, int M, int N,
+                      int K, int E, int xe, int blocks, cudaStream_t st) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* qp = static_cast<const uint8_t*>(q);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (M <= 8)
+    moe_w4_stream_kernel<1><<<blocks, B_WARPS * 32, 0, st>>>(
+        xp, qp, s, op, ws, counters, M, N, K, E, xe);
+  else
+    moe_w4_stream_kernel<2><<<blocks, B_WARPS * 32, 0, st>>>(
+        xp, qp, s, op, ws, counters, M, N, K, E, xe);
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+// the bf16 head at large M: one block a (row tile, column tile, split)
+template <int BN, bool NK>
+int launch_head(const CUtensorMap& tx, const CUtensorMap& tw, float* out,
+                float* ws, int* counters, int M, int V, int K, int splits,
+                int kt_per, cudaStream_t st) {
+  using R = RingH<BN>;
+  auto kernel = head_gemm_wgmma_kernel<BN, NK>;
+  static size_t done[LT_MAX_DEVICES];
+  cudaError_t e = lt_set_max_smem(kernel, R::SMEM, done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(((M + BN - 1) / BN) * ((V + H_BV - 1) / H_BV), splits);
+  kernel<<<grid, A_THREADS, R::SMEM, st>>>(tx, tw, out, ws, counters, M, V,
+                                            K, kt_per);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 template <typename WT, bool NK>
 int launch_simt(const void* x, const void* w, const float* s, void* out,
@@ -1514,8 +2088,9 @@ extern "C" int weight_gemm_moe_tmap(const void* ptr, int E, int K, int N,
 // bf16(f32(q[e]) * s[e]) for each expert e, the f32 sums rounded once. x
 // [M, xe, K] bf16, xe 1 (one x for every expert) or E (expert e's rows);
 // q [E, K, N] int8 (qmap: its map from weight_gemm_moe_tmap, for bm > 0);
-// s [E, N] f32. bm 0: the decode route (M <= 16, mma.sync); 64, 128, 192
-// or 256: the large-M route's row tile. One launch, every expert; no
+// s [E, N] f32. bm 0: the decode route (M <= 16, mma.sync; the int8 build:
+// the int4 build's stacks at decode take weight_gemm_moe4_launch); 64,
+// 128, 192 or 256: the large-M route's row tile. One launch, every expert; no
 // split-K. bf16 alone (the int8 recipe's activations): the kernels are
 // templates of T, but each instantiation lengthens the build.
 extern "C" int weight_gemm_moe_launch(int dtype, int bm, const void* x,
@@ -1528,8 +2103,12 @@ extern "C" int weight_gemm_moe_launch(int dtype, int bm, const void* x,
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if WG_INT4
+  if (bm == 0) return static_cast<int>(cudaErrorInvalidValue);
+#else
   if (bm == 0)
     return launch_gemv_moe<__nv_bfloat16>(x, q, sc, out, M, N, K, E, xe, st);
+#endif
   CUtensorMap tx, tq;
   memcpy(&tq, qmap, sizeof tq);
   const int e = encode_map(&tx, dtype, x, M, xe, K, bm, 1);
@@ -1543,4 +2122,107 @@ extern "C" int weight_gemm_moe_launch(int dtype, int bm, const void* x,
 #undef MOE_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 head's tensor map for its large-M route: a row-major [K, V]
+// head (nk 0) in boxes of 64 K rows x 64 columns, or the transpose of a
+// row-major [V, K] tied embedding (nk 1, ptr: the embedding) in boxes of
+// 128 vocabulary rows x 64 K columns; written to `map` (128 bytes, host
+// memory). The wrapper keeps one a head. The int4 build has no bf16 head.
+extern "C" int weight_gemm_head_tmap(const void* ptr, int nk, int K, int V,
+                                     void* map) {
+#if WG_INT4
+  return static_cast<int>(cudaErrorNotSupported);
+#else
+  if (K <= 0 || V <= 0 || K % 16 != 0 || V % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m;
+  const int e = nk ? encode_2d(&m, WG_BF16, ptr, V, K, H_BV)
+                   : encode_2d(&m, WG_BF16, ptr, K, V, A_BK);
+  if (e == 0) memcpy(map, &m, sizeof m);
+  return e;
+#endif
+}
+
+// x32 [M, K] f32 -> xs [3, M, K] bf16, the terms hi, mid and lo of each
+// value (hs_split), for the bf16 head's large-M route. K % 4 == 0, x32
+// 16-byte aligned, xs 8-byte aligned.
+extern "C" int weight_gemm_split_launch(const void* x, void* xs, int M,
+                                        int K, void* stream) {
+#if WG_INT4
+  return static_cast<int>(cudaErrorNotSupported);
+#else
+  if (M <= 0 || K <= 0 || K % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n4 = static_cast<int64_t>(M) * K / 4;
+  const int blocks = static_cast<int>(n4 / 256 + 1 < 4096 ? n4 / 256 + 1
+                                                          : 4096);
+  split_terms_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<uint2*>(xs), n4);
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
+// The bf16 head at large M (tensor cores): out [M, V] f32 = (hi + mid +
+// lo) @ w, xs [3, M, K] bf16 from weight_gemm_split_launch, wmap the
+// head's map from weight_gemm_head_tmap (nk as there); bn (64 or 128) rows
+// of x a block. ws: f32 [splits * M * V] and counters: int32, zero,
+// one a (row tile, column tile) block, when splits > 1; split z sums K
+// tiles [z*kt_per, (z+1)*kt_per) of 64.
+extern "C" int weight_gemm_head_launch(int nk, int bn, const void* xs,
+                                       const void* wmap, void* out,
+                                       void* ws, void* counters, int M,
+                                       int V, int K, int splits, int kt_per,
+                                       void* stream) {
+#if WG_INT4
+  return static_cast<int>(cudaErrorNotSupported);
+#else
+  if (bad_shape(M, V, K) || bad_split(K, A_BK, splits, kt_per, ws, counters))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tw;
+  memcpy(&tw, wmap, sizeof tw);
+  const int e = encode_map(&tx, WG_BF16, xs, 3, M, K, 1, bn);
+  if (e != 0) return e;
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bn * 2 + (nk ? 1 : 0)) {
+#define HEAD_CASE(b)                                                       \
+  case 2 * b:                                                              \
+    return launch_head<b, false>(tx, tw, o, w, cnt, M, V, K, splits,       \
+                                 kt_per, st);                              \
+  case 2 * b + 1:                                                          \
+    return launch_head<b, true>(tx, tw, o, w, cnt, M, V, K, splits, kt_per, \
+                                st);
+    HEAD_CASE(64) HEAD_CASE(128)
+#undef HEAD_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
+}
+
+// The int4 expert GEMM at decode (the int4 build; M <= 16): out [M, E, N]
+// bf16 = x @ bf16(f32(q[e]) * s[e]) for each expert, one launch of
+// `blocks` (at most the E x ceil(N/128) x ceil(K/MS_BK) units: no empty
+// block). x [M, xe, K] bf16 (xe 1 or E), q [E, K/2, N] packed,
+// s [E, N] f32; ws f32 [blocks * 2 * M * 128], counters int32, zero, one
+// an (expert, column tile).
+extern "C" int weight_gemm_moe4_launch(const void* x, int xe, const void* q,
+                                       const void* s, void* out, void* ws,
+                                       void* counters, int M, int N, int K,
+                                       int E, int blocks, void* stream) {
+#if WG_INT4
+  const int64_t units = static_cast<int64_t>(E) * ((N + B_BN - 1) / B_BN) *
+                        ((K + MS_BK - 1) / MS_BK);
+  if (bad_shape(M, N, K) || M > 16 || E <= 0 || (xe != 1 && xe != E) ||
+      blocks < 1 || blocks > units || ws == nullptr || counters == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_moe_stream(x, q, static_cast<const float*>(s), out,
+                           static_cast<float*>(ws),
+                           static_cast<int*>(counters), M, N, K, E, xe,
+                           blocks, static_cast<cudaStream_t>(stream));
+#else
+  return static_cast<int>(cudaErrorNotSupported);
+#endif
 }

@@ -39,7 +39,9 @@ chip_smoke.py).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 
 import torch
 
@@ -132,13 +134,30 @@ class GraphRunner:
 
     def _capture(self, segment):
         """The graph of one call of `segment` (captured, not run), as its
-        replay callable."""
+        replay callable. Python's cyclic garbage collector is off during
+        the capture: an engine dropped earlier holds its graphs in
+        reference cycles, and a collection inside the capture would
+        destroy them there, which CUDA refuses while a stream captures
+        and which ends the capture (cudaErrorStreamCaptureInvalidated)."""
         graph = torch.cuda.CUDAGraph()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with gc_paused(), torch.cuda.graph(graph, pool=self._pool):
             segment()
         return graph.replay
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the block (a CUDA graph
+    capture: see GraphRunner._capture), back as it was after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 EAGER_COUNTERS = ("eager_segments", "eager_steps")

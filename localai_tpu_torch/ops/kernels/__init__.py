@@ -63,6 +63,8 @@ from localai_tpu_torch.ops.kernels.weight_gemm import (  # noqa: F401
     moe_w8_matmul,
     moe_w8_matmul_plain,
     pack_int4,
+    split_bf16_terms,
+    split_bf16_terms_plain,
     unpack_int4,
     w4a16_matmul,
     w4a16_matmul_plain,

@@ -87,6 +87,12 @@ SIGNATURES = {
         "weight_gemm_moe_tmap": [_P, _I, _I, _I, _P],
         "weight_gemm_moe_launch": [_I, _I, _P, _I, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _P],
+        "weight_gemm_head_tmap": [_P, _I, _I, _I, _P],
+        "weight_gemm_split_launch": [_P, _P, _I, _I, _P],
+        "weight_gemm_head_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _P],
+        "weight_gemm_moe4_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _P],
     },
 }
 SIGNATURES["weight_gemm4"] = SIGNATURES["weight_gemm"]

@@ -42,7 +42,11 @@ On the card all three run csrc/weight_gemm.cu. bf16/f16 activations
 routes, by M alone: up to 16 rows (decode) `mma.sync` with the weight
 converted in registers, above that `wgmma` fed by TMA (a tensor map of
 each weight is encoded once and kept here, x's is encoded at each call).
-f32 activations run f32 FMAs. Split-K (not for the expert stacks),
+f32 activations run f32 FMAs, except a bf16 head above HEAD_SIMT_ROWS
+rows (head_plan): x32 splits into three bf16 terms whose sum is x32
+(split_bf16_terms, a kernel and a launch count of its own) and `wgmma`
+multiplies the head with each, f32 sums — the same exact products as
+the FMAs, in another order. Split-K (not for the expert stacks),
 with a workspace and an ordered combine by the tile's last split inside
 the same launch, where the output tiles alone would not fill the card. No
 weight is cast or copied per call: a weight that is not contiguous (or,
@@ -53,7 +57,11 @@ The int4 twins run the same routes from a second build of
 csrc/weight_gemm.cu (library "weight_gemm4", WG_INT4): the decode route
 over K tiles of 128 (the bytes of int8's 64), the large-M route over TMA
 tiles of [32][128] packed bytes; no SIMT route (f32 activations on int4
-weights raise on the card; no recipe serves them). The plans stand as
+weights raise on the card; no recipe serves them). The int4 expert
+stacks at decode have a route of their own (moe4_plan): blocks of equal
+ranges of (expert, column tile, K tile) units, each nibble converted
+through f32 in fewer instructions, the tiles its blocks cut combined in
+block order through a workspace and counters. The plans stand as
 int8's: the decode route's split counts its deeper tiles (w8_plan's
 `bits`), the large-M route's row tile and split keep wgmma_cost, whose
 terms (rows of x and the conversion a weight element, per K tile of 64)
@@ -77,7 +85,8 @@ from localai_tpu_torch.ops.kernels.flash_attention import (
 )
 
 LAUNCHES = {"w8a16_matmul": 0, "head_matmul": 0, "moe_w8_matmul": 0,
-            "w4a16_matmul": 0, "head_matmul_int4": 0, "moe_w4_matmul": 0}
+            "w4a16_matmul": 0, "head_matmul_int4": 0, "moe_w4_matmul": 0,
+            "split_bf16_terms": 0}
 
 # csrc/weight_gemm.cu's dtype codes
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -110,6 +119,28 @@ CONVERT_ROWS = 32
 COMBINE_ROWS = 4
 # K rows a split takes at least
 SPLIT_MIN_K = 256
+# the bf16 head (head_plan): up to HEAD_SIMT_ROWS rows of x the SIMT route
+# (f32 FMAs, at 91% of its bytes bound at M = 4; its 8-row tiles read the
+# head once a tile), above them the tensor cores on x's three bf16 terms,
+# one of HEAD_ROWS rows of x a block (head_bn). The tensor cores took 0.391
+# ms at M = 9 against SIMT's 0.617, 44.3 ms at M = 8192 against 283.8;
+# SIMT 0.341 at M = 4 against 0.545. 64 rows a block against 128: 0.391
+# against 0.633 ms at M = 9, 0.381 against 0.582 at 40, 1.01 against 1.33
+# at 192; 0.756 against 0.620 at 65, 10.8 against 10.1 at 2048 (PERF.md
+# §6, chip_gemm_sweep.py)
+HEAD_SIMT_ROWS = 8
+HEAD_ROWS = (64, 128)
+HEAD_BN, HEAD_BK = 128, 64
+# the int4 expert GEMM at decode (moe4_plan): units of 128 channels x
+# MOE4_BK K rows of one expert (csrc MS_BK), over a grid of at least a
+# block a tile and MOE4_PER_SM blocks an SM (one fewer above 8 rows,
+# whose accumulators double)
+MOE4_BK = 64
+MOE4_PER_SM = 4
+# the card's counters: the split calls' (max(PER_SM) x SMs at most, one a
+# block of a one-wave call) and one an (expert, column tile) of an int4
+# expert stack at decode, up to MOE4_TILES (Mixtral-8x7B: 8 x 112)
+MOE4_TILES = 4096
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +192,8 @@ def w8_plan(M: int, N: int, K: int, sms: int, bits: int = 8):
 @functools.lru_cache(maxsize=None)
 def moe_plan(M: int, N: int, K: int, E: int, sms: int) -> int:
     """The expert GEMM's route, as a row tile: 0 (the decode route,
-    mma.sync) up to GEMV_ROWS rows, else the one of WGMMA_ROWS that puts
+    mma.sync; a packed int4 stack takes moe4_plan's instead) up to
+    GEMV_ROWS rows, else the one of WGMMA_ROWS that puts
     waves of (row tile, column tile, expert) blocks times (rows + the
     conversion) lowest, the larger on a tie. No split-K."""
     if M <= GEMV_ROWS:
@@ -172,6 +204,57 @@ def moe_plan(M: int, N: int, K: int, E: int, sms: int) -> int:
         return -(-blocks // sms) * (bm + CONVERT_ROWS)
 
     return min(WGMMA_ROWS, key=lambda b: (cost(b), -b))
+
+
+def head_bn(M: int) -> int:
+    """Rows of x a block of the bf16 head's tensor-core route: the one of
+    HEAD_ROWS that pads M's rows least (the tensor cores' work), the
+    larger on a tie (fewer reads of the head)."""
+    return min(HEAD_ROWS, key=lambda b: (-(-M // b) * b, -b))
+
+
+def head_route(route: str, M: int, V: int, K: int, sms: int):
+    """(route, tile, splits, K tiles a split) of x32 [M, K] against a bf16
+    or f16 head [K, V] on `route`: "simt" (f32 FMAs, 8 rows a block) or
+    "wgmma" (x's three bf16 terms on the tensor cores, head_bn(M) rows a
+    block, K tiles of 64); the split as gemm_split puts it for the route's
+    blocks an SM."""
+    if route == "simt":
+        return ("simt", SIMT) + gemm_split(M, V, K, SIMT, sms,
+                                           PER_SM["simt"])
+    tile = (head_bn(M), HEAD_BN, HEAD_BK)
+    return ("wgmma", tile) + gemm_split(M, V, K, tile, sms, PER_SM["wgmma"])
+
+
+@functools.lru_cache(maxsize=None)
+def head_plan(M: int, V: int, K: int, sms: int, dtype=torch.bfloat16):
+    """The route of head_matmul on a bf16 or f16 head [K, V] (head_route's
+    tuple), a rule of shapes and dtypes alone: a bf16 head above
+    HEAD_SIMT_ROWS rows takes "wgmma", every other "simt". An f16 head
+    stays on "simt" at every M: its product on the tensor cores would need
+    x in f16 terms, and an f32 value outside f16's range (above 65504, or
+    under its least subnormal 2^-24) has none. An int8 or packed int4 head
+    is not this plan's: it takes w8_plan's routes (row 13's)."""
+    route = "wgmma" if dtype == torch.bfloat16 and M > HEAD_SIMT_ROWS \
+        else "simt"
+    return head_route(route, M, V, K, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def moe4_plan(M: int, N: int, K: int, E: int, sms: int):
+    """(blocks, units, tiles) of the int4 expert GEMM at decode (M <= 16):
+    units of (expert, 128 columns, MOE4_BK K rows), tiles of (expert, 128
+    columns). Block b takes units [b*U/G, (b+1)*U/G) (csrc
+    moe_w4_stream_kernel) of G blocks: a block a tile, or where the tiles
+    are fewer than the card's MOE4_PER_SM slots an SM (one fewer above 8
+    rows), a block a slot (w2's 256 tiles on 132 SMs: 528 blocks, each
+    tile in parts); never more blocks than units. Mixtral-8x7B's w1/w3
+    (896 tiles) took 0.115 ms on a block a tile, 0.120 on 528 blocks; w2
+    0.118 on 528, 0.137 on a block a tile (PERF.md §6)."""
+    tiles = E * -(-N // WGMMA_BN)
+    units = tiles * -(-K // MOE4_BK)
+    slots = (MOE4_PER_SM - (M > 8)) * sms
+    return min(units, max(tiles, slots)), units, tiles
 
 
 # --------------------------------------------------------- int4 packing
@@ -224,6 +307,34 @@ def moe_w8_matmul_plain(x, q, s):
     if x.dim() == 2:
         return torch.einsum("mk,ekn->men", x, w)
     return torch.einsum("mek,ekn->men", x, w)
+
+
+def split_bf16_terms_plain(x32):
+    """Plain version of split_bf16_terms: x32 [..., K] f32 -> [3, ..., K]
+    bf16 (hi, mid, lo). hi is x's f32 bits cut to their top 16 (a bf16:
+    sign, exponent, 7 mantissa bits), mid the same cut of x - hi, lo of x
+    - hi - mid; each difference is exact in f32. So hi + mid + lo == x
+    exactly for every finite x whose bits lie at or above 2^-133 (bf16's
+    least subnormal; every |x| >= 2^-110 and every zero, whose hi keeps
+    its sign), and for smaller x the bits below 2^-133, which no bf16
+    holds, are dropped (an error under 2^-133). A non-finite x: hi is x
+    (+-inf, or NaN as 0x7fc0), mid = lo = 0, so the sum is x again. Bit for
+    bit the card's split_terms_kernel."""
+    mask = -65536                               # 0xffff0000 as int32
+    b = x32.contiguous().view(torch.int32)
+    finite = (b & 0x7f800000) != 0x7f800000
+    hi = b & mask
+    r1 = x32 - hi.view(torch.float32)           # exact
+    b1 = r1.view(torch.int32)
+    r2 = r1 - (b1 & mask).view(torch.float32)   # exact
+    nan = 0x7fc00000
+    hi = torch.where(finite, hi, torch.where((b & 0x007fffff) != 0,
+                                             torch.full_like(b, nan), b))
+    zero = torch.zeros_like(b)
+    terms = [hi, torch.where(finite, b1, zero),
+             torch.where(finite, r2.view(torch.int32), zero)]
+    return torch.stack([(t >> 16).to(torch.int16).view(torch.bfloat16)
+                        for t in terms])
 
 
 def head_matmul_plain(x32, w, s=None):
@@ -344,14 +455,21 @@ def _workspace(splits, M, N, device):
 _COUNTERS: dict = {}
 
 
+def counters_size(sms: int) -> int:
+    """The counters a card holds: one an output tile of a split call
+    (gemm_split splits only calls of at most max(PER_SM) x SMs blocks) and
+    one an (expert, column tile) of an int4 expert stack at decode, whose
+    cut tiles combine as split tiles do (at most MOE4_TILES)."""
+    return max(max(PER_SM.values()) * sms, MOE4_TILES)
+
+
 def _counters(device):
-    """The card's split-K counters, one an output tile of a split call
-    (gemm_split splits only calls of fewer tiles than the card's SMs hold
-    blocks): int32 zeros, made at the card's first launch and left at zero
-    by every launch (a tile's last split resets its counter). Made outside
-    any CUDA graph capture, which would record the zeroing instead of
-    doing it. Launches that overlap on two streams of one card would share
-    them: the port runs its GEMMs on one stream at a time."""
+    """The card's split-K counters (counters_size): int32 zeros, made at
+    the card's first launch and left at zero by every launch (a tile's
+    last split resets its counter). Made outside any CUDA graph capture,
+    which would record the zeroing instead of doing it. Launches that
+    overlap on two streams of one card would share them: the port runs
+    its GEMMs on one stream at a time."""
     c = _COUNTERS.get(device.index)
     if c is None:
         if torch.cuda.is_current_stream_capturing():
@@ -359,7 +477,7 @@ def _counters(device):
                                "its split-K counters and must not be "
                                "captured in a CUDA graph")
         c = _COUNTERS[device.index] = torch.zeros(
-            max(PER_SM.values()) * _sm_count(device), dtype=torch.int32,
+            counters_size(_sm_count(device)), dtype=torch.int32,
             device=device)
     return c
 
@@ -388,6 +506,41 @@ def _moe_map(ptr: int, shape: tuple, dtype) -> ctypes.Array:
         ptr, shape[0], shape[1], shape[2], ctypes.addressof(buf))
     _raise_rc("expert tensor map", rc)
     return buf
+
+
+@functools.lru_cache(maxsize=4096)
+def _head_map(ptr: int, shape: tuple, nk: bool) -> ctypes.Array:
+    """The tensor-core route's map of the bf16 head at ptr of `shape` (K,
+    V): a row-major [K, V], or (nk) the transpose of a row-major [V, K]
+    tied embedding; encoded once a head (as _weight_map)."""
+    buf = ctypes.create_string_buffer(128)
+    rc = _build.load("weight_gemm").weight_gemm_head_tmap(
+        ptr, int(nk), shape[0], shape[1], ctypes.addressof(buf))
+    _raise_rc("head tensor map", rc)
+    return buf
+
+
+def _launch_head(name, x2, w, out, nk, plan):
+    """A bf16/f16 head on `plan`'s route (head_route): x2 [M, K] f32, w
+    [K, V] (nk: the transpose of a row-major [V, K])."""
+    route, tile, splits, per = plan
+    if route == "simt":
+        _launch_simt(name, x2, w, None, out, nk)
+        return
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the tensor-core route takes a bf16 head, "
+                        f"got {w.dtype}")
+    M, K = x2.shape
+    V = w.shape[1]
+    xs = split_bf16_terms(x2)
+    hmap = _head_map(w.data_ptr(), (K, V), bool(nk))
+    ws = _workspace(splits, M, V, x2.device)
+    rc = _build.load("weight_gemm").weight_gemm_head_launch(
+        int(nk), tile[0], xs.data_ptr(), ctypes.addressof(hmap),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        _counters(x2.device).data_ptr(), M, V, K, splits, per,
+        _stream(x2.device))
+    _raise_rc(name, rc)
 
 
 def _launch_w8(name, x2, q, s, out, epi):
@@ -473,11 +626,39 @@ def w4a16_matmul(x, q, s):
     return out.reshape(*x.shape[:-1], N)
 
 
+def split_bf16_terms(x32):
+    """x32 [M, K] f32 -> [3, M, K] bf16, the terms hi, mid, lo of each
+    value as split_bf16_terms_plain defines them (their sum is x32). On
+    the card one launch of split_terms_kernel (csrc/weight_gemm.cu), into
+    a buffer allocated on the stream; x32 contiguous and 16-byte aligned,
+    K a multiple of 4."""
+    if x32.device.type == "cpu":
+        return split_bf16_terms_plain(x32)
+    name = "split_bf16_terms"
+    if x32.dtype != torch.float32 or x32.dim() != 2 \
+            or not x32.is_contiguous() or x32.data_ptr() % 16 \
+            or x32.shape[1] % 4:
+        raise ValueError(f"{name}: x32 must be a contiguous, 16-byte "
+                         f"aligned f32 [M, K] with K % 4 == 0, got "
+                         f"{x32.dtype} {tuple(x32.shape)}")
+    M, K = x32.shape
+    xs = torch.empty((3, M, K), dtype=torch.bfloat16, device=x32.device)
+    if M:
+        rc = _build.load("weight_gemm").weight_gemm_split_launch(
+            x32.data_ptr(), xs.data_ptr(), M, K, _stream(x32.device))
+        _raise_rc(name, rc)
+        LAUNCHES[name] += 1
+    return xs
+
+
 def head_matmul(x32, w, s=None):
     """f32 logits [..., V] of x32 [..., K] f32 against the head w [K, V]:
     bf16/f16 (row-major, or `embed.T` of a tied row-major [V, K]
     embedding), int8 [K, V] or packed int4 uint8 [K/2, V] with scales s
-    [1, V] f32 (counted as head_matmul_int4), or f32 (a plain product)."""
+    [1, V] f32 (counted as head_matmul_int4), or f32 (a plain product).
+    On the card a bf16 or f16 head takes head_plan's route: f32 FMAs, or
+    above HEAD_SIMT_ROWS rows of a bf16 head the tensor cores on x32's
+    three bf16 terms (split_bf16_terms, one more launch, counted apart)."""
     if x32.device.type == "cpu":
         return head_matmul_plain(x32, w, s)
     if s is None and w.dtype == torch.float32:
@@ -494,7 +675,8 @@ def head_matmul(x32, w, s=None):
         if s is not None:
             _launch_w8(name, x2.to(torch.bfloat16), w, s, out, epi=1)
         else:
-            _launch_simt(name, x2, w, None, out, nk=nk)
+            _launch_head(name, x2, w, out, nk, head_plan(
+                x2.shape[0], V, K, _sm_count(x32.device), w.dtype))
         LAUNCHES[name] += 1
     return out.reshape(*x32.shape[:-1], V)
 
@@ -520,6 +702,27 @@ def moe_w4_matmul(x, q, s):
     return _moe_launch("moe_w4_matmul", x, q, s, torch.uint8)
 
 
+def _launch_moe4(name, x, q, s, out, blocks):
+    """The int4 expert GEMM at decode on a grid of `blocks`
+    (moe4_plan): x [M, K] or [M, E, K] bf16, q [E, K/2, N] packed, s [E,
+    1, N]; its cut tiles' parts in a workspace of 2 x M x 128 f32 a block,
+    a counter an (expert, column tile)."""
+    E, _, N = q.shape
+    M, K = x.shape[0], x.shape[-1]
+    tiles = E * -(-N // WGMMA_BN)
+    cnt = _counters(x.device)
+    if tiles > cnt.numel():
+        raise ValueError(f"{name}: {tiles} (expert, column tile) tiles "
+                         f"exceed the card's {cnt.numel()} counters")
+    ws = torch.empty(blocks * 2 * M * WGMMA_BN, dtype=torch.float32,
+                     device=x.device)
+    rc = _build.load("weight_gemm4").weight_gemm_moe4_launch(
+        x.data_ptr(), 1 if x.dim() == 2 else E, q.data_ptr(), s.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), M, N, K, E, blocks,
+        _stream(x.device))
+    _raise_rc(name, rc)
+
+
 def _moe_launch(name, x, q, s, qdtype):
     """The expert GEMM on the card for an int8 or packed int4 stack."""
     E, K, N = _moe_checks(name, x, q, s, qdtype)
@@ -528,7 +731,12 @@ def _moe_launch(name, x, q, s, qdtype):
         x = x.clone(memory_format=torch.contiguous_format)
     M = x.shape[0]
     out = torch.empty((M, E, N), dtype=x.dtype, device=x.device)
-    if M:
+    if not M:
+        return out
+    if qdtype == torch.uint8 and M <= GEMV_ROWS:
+        _launch_moe4(name, x, q, s, out, moe4_plan(
+            M, N, K, E, _sm_count(x.device))[0])
+    else:
         bm = moe_plan(M, N, K, E, _sm_count(x.device))
         qmap = _moe_map(q.data_ptr(), (E, K, N), qdtype) if bm else None
         rc = _build.load(_LIB[qdtype]).weight_gemm_moe_launch(
@@ -536,5 +744,5 @@ def _moe_launch(name, x, q, s, qdtype):
             q.data_ptr(), None if qmap is None else ctypes.addressof(qmap),
             s.data_ptr(), out.data_ptr(), M, N, K, E, _stream(x.device))
         _raise_rc(name, rc)
-        LAUNCHES[name] += 1
+    LAUNCHES[name] += 1
     return out

@@ -300,6 +300,25 @@ def test_failed_capture_takes_its_counts_back():
     tk.reset_launch_counts()
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gc_paused_during_a_capture(enabled):
+    """The cyclic garbage collector is off inside gc_paused (a capture: a
+    dead engine's graphs destroyed by a collection there would end it),
+    and afterwards as it was, an exception included."""
+    import gc
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with pytest.raises(ValueError):
+            with tgraphs.gc_paused():
+                assert not gc.isenabled()
+                raise ValueError
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture

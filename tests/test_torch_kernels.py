@@ -231,6 +231,7 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                                      rows8, pb8, off8)
     tk.ragged_scatter_append_q8_sharded(one_rank, pq, ps, pq.clone(),
                                         ps.clone(), rows8, rows8, pb8, off8)
+    tk.split_bf16_terms(torch.randn(3, 16))
     counts = tk.launch_counts()
     assert set(counts) == {"flash_prefill", "ragged_decode",
                            "ragged_decode_q8", "ragged_decode_paged",
@@ -252,7 +253,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                            "ragged_paged_attention_sharded",
                            "ragged_paged_attention_q8_sharded",
                            "ragged_scatter_append_sharded",
-                           "ragged_scatter_append_q8_sharded"}
+                           "ragged_scatter_append_q8_sharded",
+                           "split_bf16_terms"}
     assert not any(counts.values())
 
 

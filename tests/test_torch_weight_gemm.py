@@ -561,6 +561,133 @@ def test_cuda_head_ragged_tails(cuda, kind):
                                tk.head_matmul_plain(x32, *args), **HEAD_CARD)
 
 
+@pytest.mark.cuda
+def test_cuda_split_bf16_terms_bit_for_bit(cuda):
+    """The split kernel equals its plain version (run on the CPU) bit for
+    bit, special values included, and counts one launch."""
+    from test_torch_head_route import _special_values
+
+    v = torch.tensor(_special_values())
+    v = torch.cat([v, torch.tensor([float("inf"), float("-inf"),
+                                    float("nan")])])
+    x = torch.cat([v, torch.zeros(-v.numel() % 256)]).reshape(-1, 256)
+    tk.reset_launch_counts()
+    got = tk.split_bf16_terms(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["split_bf16_terms"] == 1
+    want = tk.split_bf16_terms_plain(x)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 17, 40, 64, 65, 192, 2048])
+@pytest.mark.parametrize("kind", ["bf16", "tied"])
+def test_cuda_head_tensor_core_route_vs_plain(cuda, kind, M):
+    """Above HEAD_SIMT_ROWS rows a bf16 head runs the tensor cores on x's
+    three bf16 terms: within HEAD_CARD of the plain version, the split
+    kernel launched once, and the planted fault (x32 rounded to bf16, the
+    hi term alone) rejected."""
+    K, V = 4096, 32000
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x32 = torch.randn(M, K, generator=g, device=cuda)
+    w = (torch.randn(V, K, generator=g, device=cuda)
+         * K ** -0.5).to(torch.bfloat16)
+    args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    assert wg.head_plan(M, V, K, 132)[0] == "wgmma"
+    tk.reset_launch_counts()
+    out = tk.head_matmul(x32, *args)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts["head_matmul"] == counts["split_bf16_terms"] == 1
+    ref = tk.head_matmul_plain(x32, *args)
+    torch.testing.assert_close(out, ref, **HEAD_CARD)
+    bad = tk.head_matmul_plain(x32.to(torch.bfloat16).float(), *args)
+    assert float((bad - out).abs().max()) > HEAD_CARD["atol"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,V", [(40, 128256), (100, 2000)])
+@pytest.mark.parametrize("kind", ["bf16", "tied"])
+def test_cuda_head_tensor_core_route_keeps_the_lo_term(cuda, kind, M, V):
+    """On inputs whose lo terms carry every logit (hi and mid cancel along
+    K; test_torch_head_route._lo_term_case) the tensor-core route returns
+    the exact logits within HEAD_CARD (both row tiles; V = 2000 takes
+    split-K), and the same limit rejects a route without the lo term,
+    whose logits are the f64 product of hi + mid."""
+    from test_torch_head_route import _lo_term_case
+
+    K = 4096
+    x, w, exact = _lo_term_case(M, K, V, kind, device=cuda)
+    assert wg.head_plan(M, V, K, 132)[0] == "wgmma"
+    out = tk.head_matmul(x, w)
+    torch.testing.assert_close(out.double(), exact, **HEAD_CARD)
+    t = tk.split_bf16_terms_plain(x.cpu())
+    dropped = (t[0].double() + t[1].double()) @ w.cpu().double()
+    assert float((dropped - out.cpu().double()).abs().max()) \
+        > HEAD_CARD["atol"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [400, 2000])
+@pytest.mark.parametrize("kind", ["bf16", "tied"])
+def test_cuda_head_tensor_core_route_tails_and_splits(cuda, kind, V):
+    """Ragged row, column and K tails (M = 37, K = 272) and a small
+    vocabulary, whose few column tiles take split-K."""
+    M, K = 37, 272
+    g = torch.Generator(device=cuda).manual_seed(V)
+    x32 = torch.randn(M, K, generator=g, device=cuda)
+    w = (torch.randn(V, K, generator=g, device=cuda)
+         * K ** -0.5).to(torch.bfloat16)
+    args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    out = tk.head_matmul(x32, *args)
+    torch.testing.assert_close(out, tk.head_matmul_plain(x32, *args),
+                               **HEAD_CARD)
+    x = torch.randn(M, 4096, generator=g, device=cuda)
+    w = (torch.randn(V, 4096, generator=g, device=cuda)
+         * 4096 ** -0.5).to(torch.bfloat16)
+    args = (w.T,) if kind == "tied" else (w.T.contiguous(),)
+    assert wg.head_plan(M, V, 4096, 132)[2] > 1
+    torch.testing.assert_close(tk.head_matmul(x, *args),
+                               tk.head_matmul_plain(x, *args), **HEAD_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_cuda_quantized_heads_keep_their_routes(cuda, kind):
+    """head_plan is the bf16 head's: an int8 or packed int4 head at M = 40
+    runs row 13's routes (its own counter), no split of x32."""
+    K, V, M = 4096, 32000, 40
+    q, s = (_card_weight if kind == "int8" else _card_weight4)(K, V, cuda)
+    x32 = torch.randn(M, K, device=cuda)
+    tk.reset_launch_counts()
+    out = tk.head_matmul(x32, q, s)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts["split_bf16_terms"] == 0
+    assert counts["head_matmul" if kind == "int8" else "head_matmul_int4"] \
+        == 1
+    torch.testing.assert_close(out, tk.head_matmul_plain(x32, q, s),
+                               **HEAD_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 40])
+def test_cuda_head_routes_agree(cuda, M):
+    """The SIMT route and the tensor-core route, each called on its own at
+    the same M, agree within HEAD_CARD."""
+    K, V = 4096, 32000
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x32 = torch.randn(M, K, generator=g, device=cuda)
+    w = (torch.randn(K, V, generator=g, device=cuda)
+         * K ** -0.5).to(torch.bfloat16)
+    outs = {}
+    for route in ("simt", "wgmma"):
+        outs[route] = torch.empty(M, V, device=cuda)
+        wg._launch_head("head_matmul", x32, w, outs[route], False,
+                        wg.head_route(route, M, V, K, 132))
+    torch.testing.assert_close(outs["wgmma"], outs["simt"], **HEAD_CARD)
+
+
 def _stage_before_load(q, t=1):
     """The weight a ring stage read before its load landed would give: K
     tile t (64 rows) replaced by tile t - 1, the stage's previous
@@ -605,7 +732,7 @@ def test_cuda_w8a16_wgmma_planted_faults_rejected(cuda, M):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["split", "big", "prefill", "head",
-                                  "head-int8"])
+                                  "head-int8", "head-large", "head-tied"])
 def test_cuda_graph_replay_equals_eager_and_repeats(cuda, case):
     """A call captured in a CUDA graph (its output and split-K workspace
     from the graph's pool, the tensor maps in its kernel's parameters)
@@ -615,11 +742,15 @@ def test_cuda_graph_replay_equals_eager_and_repeats(cuda, case):
     route with no split (M = 2048)."""
     g = torch.Generator(device=cuda).manual_seed(11)
     if case.startswith("head"):
+        # head-large / head-tied: the tensor-core route (M = 192)
         K, V = 4096, 32000
-        x = torch.randn(4, K, generator=g, device=cuda)
+        x = torch.randn(4 if case in ("head", "head-int8") else 192, K,
+                        generator=g, device=cuda)
         args = _card_weight(K, V, cuda) if case == "head-int8" else (
             (torch.randn(K, V, generator=g, device=cuda)
              * K ** -0.5).to(torch.bfloat16),)
+        if case == "head-tied":
+            args = (args[0].T.contiguous().T,)
 
         def fn():
             return tk.head_matmul(x, *args)
@@ -903,6 +1034,32 @@ def test_cuda_moe_w4_vs_plain(cuda, E, K, N, shared, M):
     assert tk.launch_counts()["moe_w4_matmul"] == 1
     assert out.dtype == torch.bfloat16 and out.shape == (M, E, N)
     assert_moe_close(out, tk.moe_w4_matmul_plain(x, q, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("E,K,N", MOE_GEOMETRIES + [(2, 64, 128)])
+def test_cuda_moe_w4_decode_any_grid(cuda, E, K, N, M):
+    """The int4 decode route's grid at 1, 7, 97 blocks and one
+    a unit: tiles cut anywhere, their parts combined in block order, each
+    result within the bar of the plain version; and a unit's K rows (one
+    unit, MOE4_BK rows, of expert 1) dropped is rejected."""
+    q, s = _card_weight4(K, N, cuda, seed=E + K + N, E=E)
+    x = _moe_x(M, E, K, True, torch.bfloat16, cuda, seed=M)
+    ref = tk.moe_w4_matmul_plain(x, q, s)
+    units = wg.moe4_plan(M, N, K, E, 132)[1]
+    for blocks in sorted({1, min(7, units), min(97, units), units}):
+        out = torch.empty(M, E, N, dtype=torch.bfloat16, device=cuda)
+        wg._launch_moe4("moe_w4_matmul", x, q, s, out, blocks)
+        assert_moe_close(out, ref)
+    q8 = tk.unpack_int4(q)
+    k0 = wg.MOE4_BK if K > wg.MOE4_BK else 0
+    q8[min(1, E - 1), k0:k0 + wg.MOE4_BK] = 0
+    bad = tk.moe_w8_matmul_plain(x, q8, s)
+    d = (bad.float() - ref.float()).abs()
+    assert float((d - MOE_ONE_STEP["rtol"] * ref.float().abs()).max()) > \
+        MOE_ONE_STEP["atol"] or float((bad != ref).float().mean()) > \
+        MISMATCH_SHARE
 
 
 @pytest.mark.cuda
