@@ -1,7 +1,7 @@
 """Plan sweep of the two weight GEMMs that weight_gemm.py routes by shape
 alone, on one NVIDIA card:
 
-    python3 chip_gemm_sweep.py [--cu=PATH ...]
+    python3 chip_gemm_sweep.py [--cu=PATH ...] [--only=regs,w4,moe4,head]
 
 1. Registers and spills (`nvcc -Xptxas -v`) of the bf16 head's kernels
    (tensor-core, split, SIMT) and of the int4 expert decode kernel, from
@@ -20,6 +20,13 @@ alone, on one NVIDIA card:
    core route with each row tile of HEAD_ROWS at HEAD_CROSS_ROWS and
    HEAD_BIG_ROWS (head_bn's choice), each against the plain version
    within HEAD_TOL.
+4. w4a16_matmul at decode (row 13i4) at M = 4 and 16 on every served
+   projection shape (W4_SHAPES), on w4_plan's split count and on others
+   (set through weight_gemm's W4_SPLIT_KT and W4_BLOCKS_SM, w4_splits;
+   1 split has no split-K combine), and the int4 head at decode on 1–8
+   splits: ms, ms_graph and ms_graph_cold (a graph cycling weight copies
+   beyond the L2), back to back and after an elementwise kernel, each
+   case against its plain version.
 
 Prints `SWEEP {...}` with the card's name and power limit. The port
 launches with weight_gemm.py's plans; this script times the choices they
@@ -27,6 +34,7 @@ make. It imports nothing of JAX or localai_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -37,6 +45,14 @@ from collections import Counter
 import chip_smoke as smoke
 
 HEAD_CROSS_ROWS = (4, 8, 9, 12, 16, 17, 24, 32, 40, 64)
+# 13i4 at decode: the served projection shapes (K, N) — the 8B's (and
+# Mixtral's attention) wq/wo, wk/wv, w_gate/w_up, w_down, and Qwen2-7B's
+# wk/wv — the rows, and the split counts besides w4_plan's
+W4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+             (3584, 512)]
+W4_ROWS = (1, 4, 8, 16)
+W4_SPLITS = (1, 2, 4, 8, 16)
+W4_SPLIT_ROWS = (4, 16)
 HEAD_BIG_ROWS = (65, 128, 192, 2048, 8192)
 # the kernels whose registers are printed, and the int4 expert decode
 # kernel at 8 rows (the source's moe_w4_stream_kernel<1>; before it, the
@@ -45,6 +61,8 @@ REGS = (r"moe_w4_stream|weight_gemm_gemv_kernelI13__nv_bfloat16Li[12]ELi2E|"
         r"head_gemm|split_terms|weight_gemm_simt")
 MOE4_DECODE = (r"moe_w4_stream_kernelILi1E|"
                r"weight_gemm_gemv_kernelI13__nv_bfloat16Li1ELi2E")
+# the int4 projection's decode route at 8 rows (bf16, EPI_ROUND)
+W4_DECODE = r"weight_gemm_gemv_kernelI13__nv_bfloat16Li1ELi0E"
 
 
 def build(sources):
@@ -206,30 +224,132 @@ def head_sweep(sms):
     return res
 
 
+@contextlib.contextmanager
+def w4_splits(nk, splits):
+    """Launch the int4 decode route on `splits` splits of nk K tiles
+    (w4_plan's K spans of ceil(nk / splits) tiles, no cap of blocks an SM)
+    by setting weight_gemm's W4_SPLIT_KT and W4_BLOCKS_SM; restored, with
+    w4_plan's cache cleared, on exit."""
+    from localai_tpu_torch.ops.kernels import weight_gemm as wg
+
+    saved = wg.W4_SPLIT_KT, wg.W4_BLOCKS_SM
+    wg.W4_SPLIT_KT, wg.W4_BLOCKS_SM = -(-nk // splits), 1 << 20
+    wg.w4_plan.cache_clear()
+    try:
+        yield
+    finally:
+        wg.W4_SPLIT_KT, wg.W4_BLOCKS_SM = saved
+        wg.w4_plan.cache_clear()
+
+
+def w4_sweep(sms):
+    """13i4 at decode: w4a16_matmul on w4_plan's split count and on
+    W4_SPLITS (1: no split-K combine) at W4_SPLIT_ROWS rows of every
+    served shape — ms, ms_graph, ms_graph_cold back to back and
+    interleaved with an elementwise kernel (chip_rows.w4_graph_cold) —
+    and the int4 head at decode on 1, 2, 4 and 8 splits (w4_plan: 1),
+    each case against its plain version."""
+    import torch
+
+    from chip_rows import w4_graph_cold
+    from localai_tpu_torch.ops.kernels import head_matmul, \
+        head_matmul_plain, w4a16_matmul, w4a16_matmul_plain
+    from localai_tpu_torch.ops.kernels import weight_gemm as wg
+
+    res = {"splits": {}, "head": {}}
+    g = torch.Generator(device="cuda").manual_seed(40)
+    for K, N in W4_SHAPES:
+        qw = smoke._int4_weight(K, N, g)
+        nk = -(-K // wg.GEMV4[2])
+        n = max(4, -(-2 * smoke.L2_BYTES // (K * N // 2)))
+        copies = [qw.q.clone() for _ in range(n)]
+        for Ms in W4_SPLIT_ROWS:
+            x = torch.randn(Ms, K, device="cuda", generator=g).to(
+                torch.bfloat16)
+            ref = w4a16_matmul_plain(x, qw.q, qw.s)
+            plan = wg.w4_plan(N, K, sms)[0]
+            for want in sorted({plan, *W4_SPLITS}):
+                with w4_splits(nk, want):
+                    splits = wg.w4_plan(N, K, sms)[0]
+                    label = (f"M={Ms} K={K} N={N} splits={splits}"
+                             f"{' (plan)' if splits == plan else ''}")
+                    out = w4a16_matmul(x, qw.q, qw.s)
+                    torch.cuda.synchronize()
+                    r = smoke._check_close(
+                        f"sweep w4 {label}", out, ref,
+                        smoke.W8_TOL["bfloat16"], share=smoke.W8_SHARE)
+                    fn = lambda: w4a16_matmul(x, qw.q, qw.s)  # noqa: E731
+                    inter, ew = w4_graph_cold(x, copies, qw.s, True)
+                    res["splits"][label] = {
+                        "ms": smoke._time_ms(fn),
+                        "ms_graph": smoke._graph_ms(fn),
+                        "ms_graph_cold": w4_graph_cold(x, copies,
+                                                       qw.s)[0],
+                        "ms_graph_cold_interleaved": inter,
+                        "ew_ms_graph": ew,
+                        "max_abs_err": r["max_abs_err"]}
+                print(f"SWEEP w4 {label} "
+                      + json.dumps(res["splits"][label]), flush=True)
+        del qw, copies
+        torch.cuda.empty_cache()
+    K, V = 4096, 128256
+    qw = smoke._int4_weight(K, V, g)
+    for M in W4_ROWS:
+        x32 = torch.randn(M, K, device="cuda", generator=g)
+        ref = head_matmul_plain(x32, qw.q, qw.s)
+        row = {}
+        for want in (1, 2, 4, 8):
+            with w4_splits(-(-K // wg.GEMV4[2]), want):
+                fn = lambda: head_matmul(x32, qw.q, qw.s)  # noqa: E731
+                r = smoke._check_close(f"sweep head4 splits={want} M={M}",
+                                       fn(), ref, smoke.HEAD_TOL)
+                row[f"splits={want}"] = {
+                    "ms": smoke._time_ms(fn),
+                    "ms_cold": smoke._time_ms(fn, cold=True),
+                    "ms_graph": smoke._graph_ms(fn),
+                    "max_abs_err": r["max_abs_err"]}
+        res["head"][f"M={M}"] = row
+        print(f"SWEEP head4 M={M} " + json.dumps(row), flush=True)
+    del qw
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
     from localai_tpu_torch.ops.kernels import _build
 
+    only = {p for a in sys.argv[1:] if a.startswith("--only=")
+            for p in a.split("=", 1)[1].split(",")}
+    run = (lambda part: not only or part in only)  # noqa: E731
     smi = smoke.phase_device()
     smoke.phase_build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    src = os.path.join(_build.CSRC, "weight_gemm.cu")
-    sources = {"int8": (src, False), "int4": (src, True)}
-    for i, a in enumerate(a for a in sys.argv[1:] if a.startswith("--cu=")):
-        sources[f"cu{i}_int4"] = (os.path.abspath(a.split("=", 1)[1]), True)
-    builds = build(sources)
-    regs = {tag: ptxas_regs(log, REGS) for tag, (_, log) in builds.items()}
-    sass = {tag: sass_counts(so, MOE4_DECODE)
-            for tag, (so, _) in builds.items() if tag != "int8"}
-    print("SWEEP sources " + json.dumps(
-        {t: p for t, (p, _) in sources.items()}), flush=True)
-    print("SWEEP registers " + json.dumps(regs), flush=True)
-    print("SWEEP sass " + json.dumps(sass), flush=True)
-    moe = moe4_grids(sms)
-    head = head_sweep(sms)
-    print("SWEEP " + json.dumps({"card": smi, "moe4": moe, "head": head}),
-          flush=True)
+    out = {"card": smi}
+    if run("regs"):
+        src = os.path.join(_build.CSRC, "weight_gemm.cu")
+        sources = {"int8": (src, False), "int4": (src, True)}
+        for i, a in enumerate(a for a in sys.argv[1:]
+                              if a.startswith("--cu=")):
+            sources[f"cu{i}_int4"] = (os.path.abspath(a.split("=", 1)[1]),
+                                      True)
+        builds = build(sources)
+        regs = {tag: ptxas_regs(log, REGS)
+                for tag, (_, log) in builds.items()}
+        sass = {tag: sass_counts(so, MOE4_DECODE + "|" + W4_DECODE)
+                for tag, (so, _) in builds.items() if tag != "int8"}
+        print("SWEEP sources " + json.dumps(
+            {t: p for t, (p, _) in sources.items()}), flush=True)
+        print("SWEEP registers " + json.dumps(regs), flush=True)
+        print("SWEEP sass " + json.dumps(sass), flush=True)
+    if run("w4"):
+        out["w4"] = w4_sweep(sms)
+    if run("moe4"):
+        out["moe4"] = moe4_grids(sms)
+    if run("head"):
+        out["head"] = head_sweep(sms)
+    print("SWEEP " + json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -672,6 +672,35 @@ def _graph_ms(fn, calls=GRAPH_CALLS):
     return ms / calls
 
 
+# the card's L2 (H100: 50 MB); a served decode step streams a new weight
+# every launch (one int4 layer of the 8B is ~109 MB)
+L2_BYTES = 50 << 20
+
+
+def _graph_cold_ms(fn_on, nbytes, calls=GRAPH_CALLS):
+    """Device ms of one call inside a CUDA graph whose calls cycle through
+    n distinct copies of the call's weight, n the least (4 at least) whose
+    bytes exceed twice the L2: each call finds its weight in device memory,
+    as a served graph's projections do. fn_on(i) is the call on copy i."""
+    import torch
+
+    from localai_tpu_torch.engine.graphs import gc_paused
+
+    n = max(4, -(-2 * L2_BYTES // nbytes))
+    fns = [fn_on(i) for i in range(n)]
+    calls = max(calls, n)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with gc_paused(), torch.cuda.graph(graph):
+        for c in range(calls):
+            fns[c % n]()
+    ms = _time_ms(graph.replay, warm=2)
+    del graph, fns
+    return ms / calls
+
+
 def launch_floor():
     """The harness's floor: an empty kernel (torch.cuda._sleep(0), one
     thread that returns at once) timed as the kernels are — device ms
@@ -2053,6 +2082,13 @@ def check_w4a16(M, K, N, cold=False, seed=0):
         fn, plain, lambda: torch.matmul(x, unpack_int4(q).to(x.dtype)),
         nbytes=K * N // 2 + 2 * M * K + 2 * M * N + 4 * N,
         flops=2.0 * M * K * N, peak=PEAK_BF16, cold=cold))
+    if cold:
+        # the served condition: a graph streaming a new weight each call
+        copies = {}
+        res["ms_graph_cold"] = _graph_cold_ms(
+            lambda i: (lambda w=copies.setdefault(i, q.clone()):
+                       w4a16_matmul(x, w, s)), K * N // 2)
+        del copies
     log(name + " " + json.dumps(res))
     return res
 
@@ -2160,8 +2196,8 @@ def int4_gemms():
     keep = ("max_abs_err", "mismatch_share", "nibbles_swapped_err",
             "nibbles_unsigned_err", "next_experts_scales_err",
             "unit_dropped_err", "ms",
-            "ms_cold", "ms_host", "ms_graph", "bound_ms", "bound_by",
-            "plain_ms", "library_ms", "library_ms_cold")
+            "ms_cold", "ms_host", "ms_graph", "ms_graph_cold", "bound_ms",
+            "bound_by", "plain_ms", "library_ms", "library_ms_cold")
     log("phase2 int4 gemms " + json.dumps({
         "w4a16_matmul": {k: {f: r.get(f) for f in keep}
                          for k, r in w4.items()},
@@ -2387,7 +2423,8 @@ def _tier_rows(L, sb, rw, sinks, window, demoted):
 
 def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
                       H=32, KVH=8, D=128, sinks=TIER_SINKS,
-                      window=TIER_WINDOW, timed=True, seed=0):
+                      window=TIER_WINDOW, timed=True, seed=0,
+                      untiered=True):
     """The tiered paged decode (rows 3/5 with the KV tier) against its plain
     version: compact ring tables of sb + rw distinct blocks a slot of a
     shuffled pool; with `cold`, each slot's middle — raw blocks sb ..
@@ -2398,12 +2435,14 @@ def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
     L2), ms_graph, the plain version, and the untiered paged kernel over
     the full lengths (a table of ceil(L/128) blocks, `untiered_ms`);
     bound_ms from the live bytes — the kept rows at the hot dtype, the
-    demoted rows at int8 with their scales."""
+    demoted rows at int8 with their scales. untiered=False skips the
+    untiered and plain timings (chip_tier_sweep.py, which sets
+    flash_attention's span constants to time other plans)."""
     import torch
 
     from localai_tpu_torch.ops.kernels import (
-        decode_split, launch_counts, ragged_decode, ragged_decode_plain,
-        ragged_decode_q8, ragged_decode_q8_plain,
+        launch_counts, ragged_decode, ragged_decode_plain, ragged_decode_q8,
+        ragged_decode_q8_plain, tier_plan,
     )
     from localai_tpu_torch.ops.kvcache import QuantKV, quantize_tokens
 
@@ -2477,10 +2516,7 @@ def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
     tol = TOL[str(dtype).split(".")[-1]]
     res = _check_close(name, out, ref, tol, fault=faults)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res["nsplit"], res["split"] = decode_split(maxb * 128, B * KVH, sms)
-    if cold:
-        res["nsplit_cold"], res["split_cold"] = decode_split(
-            mbc * 128, B * KVH, sms)
+    res["plan"] = tier_plan(maxb, mbc if cold else 0, B * KVH, sms, q8)
     if timed:
         es = q.element_size()
         kv_es = 1 if q8 else es
@@ -2498,6 +2534,20 @@ def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
         flops = 4.0 * (hot + cold_rows) * H * D
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        res.update(ms=_time_ms(fn), ms_cold=_time_ms(fn, cold=True),
+                   ms_host=_time_ms(fn, spin=False), ms_graph=_graph_ms(fn),
+                   live_rows={"hot": hot, "cold": cold_rows,
+                              "of": sum(lens)},
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_formula=(f"max({nbytes:.4g} B of kept K/V + demoted "
+                                  f"int8 K/V + tables + q/out / 3.35 TB/s, "
+                                  f"{flops:.4g} flop / {peak / 1e12:.0f} "
+                                  f"TFLOP/s)"),
+                   library_ms=None, library_ms_host=None,
+                   library_note="no PyTorch call attends through a ring")
+    if timed and untiered:
+        res["plain_ms"] = _time_ms(plain, reps=5, warm=1)
         # the untiered kernel over the full lengths (ceil(L/128) blocks a
         # slot of a pool holding them all)
         need = [-(-n // 128) for n in lens]
@@ -2519,21 +2569,8 @@ def check_tier_decode(dtype, q8=False, cold=False, lens=TIER_LENS,
             fpools = (kf.to(dtype), vf.to(dtype))
         untiered = lambda: kernel(q, *fpools, lens_t,  # noqa: E731
                                   table=ftab)
-        res.update(ms=_time_ms(fn), ms_cold=_time_ms(fn, cold=True),
-                   ms_host=_time_ms(fn, spin=False), ms_graph=_graph_ms(fn),
-                   plain_ms=_time_ms(plain, reps=5, warm=1),
-                   untiered_ms=_time_ms(untiered),
-                   untiered_ms_cold=_time_ms(untiered, cold=True),
-                   live_rows={"hot": hot, "cold": cold_rows,
-                              "of": sum(lens)},
-                   bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   bound_formula=(f"max({nbytes:.4g} B of kept K/V + demoted "
-                                  f"int8 K/V + tables + q/out / 3.35 TB/s, "
-                                  f"{flops:.4g} flop / {peak / 1e12:.0f} "
-                                  f"TFLOP/s)"),
-                   library_ms=None, library_ms_host=None,
-                   library_note="no PyTorch call attends through a ring")
+        res.update(untiered_ms=_time_ms(untiered),
+                   untiered_ms_cold=_time_ms(untiered, cold=True))
         del kf, vf, fpools
     log(name + " " + json.dumps(res))
     return res
@@ -8979,6 +9016,8 @@ def main():
                      "library_ms": m["library_ms"], "ms_host": m["ms_host"],
                      "library_ms_host": m["library_ms_host"],
                      "ms_cold": m.get("ms_cold"), "ms_graph": m["ms_graph"],
+                     **({"ms_graph_cold": m["ms_graph_cold"]}
+                        if "ms_graph_cold" in m else {}),
                      "launches_spec": spec_counts[name],
                      "launches_host_tier": host_counts[name],
                      "launches_kv_tier": tier_counts[name],

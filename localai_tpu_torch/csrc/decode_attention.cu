@@ -74,23 +74,39 @@
 //     where it is resident (raw < sb, or cur - rw < raw <= cur), else not
 //     at all (a dead tile: no load, no compute). Token mask: pos < L and,
 //     without the cold tier, pos >= L - window or pos < sinks.
-//   - The hot splits walk a compressed order: the sinks [0, a) then the
+//   - The hot spans walk a compressed order: the sinks [0, a) then the
 //     window [c, L) (with the cold tier: every sink block, then the ring),
 //     tile j < g0 being true tile j and tile j >= g0 true tile j + gap, so
-//     a 1024-token window at 32k walks ~40 tiles, not 1024; the live rows
-//     never exceed the resident columns, so decode_split over MAXB*128
-//     covers them. The cold tier's own splits (grid x beyond nsplit) walk
-//     every tile below L and load the demoted ones, dequantized once a tile
-//     into a bf16 staging tile as the reference's dequant gives them,
-//     bf16(q * scale); the combine merges the hot and the cold partials.
-//   - An int8 hot pool keeps the Q8 arithmetic above, so full-policy
-//     sentinels (sb = MAXB, rw = 1, sinks = window = the context) give the
-//     untiered paged kernel's output bit for bit.
+//     a 1024-token window at 32k walks ~40 tiles, not 1024. The live rows
+//     never exceed the resident columns (MAXB*128), and the host plans
+//     spans over them deep enough to stream (ops/kernels/flash_attention
+//     tier_plan: 32 tiles, where decode_split's 16 blocks an SM gave ~5).
+//     Each span first resolves its tiles (ring map, cold table, block
+//     table) into shared memory side by side (sk_resolve), so no K/V load
+//     waits on an index load and dead tiles never enter the ring. The cold
+//     tier's own spans (grid x past the hot ones) walk the demoted blocks
+//     alone, in raw order, found by a scan of the slot's cold table, and
+//     read their int8 tiles through the Q8 ring, each element dequantized
+//     in registers at the read as the reference's dequant gives it,
+//     bf16(q * scale) (SK_DQ); the combine merges the hot and the cold
+//     partials.
+//   - A span of a slot under a policy, and a cold span, with bf16 q and
+//     at most 8 heads a block, consumes its tiles on the tensor cores
+//     (sk_consume_tc: mma.sync with the heads as n = 8), a few times fewer
+//     instructions a tile than the SIMT consume, which set the pace.
+//   - An int8 hot pool keeps the Q8 arithmetic above (the K scale on the
+//     score, the V scale on p), and a full-policy slot (sentinels: sb =
+//     MAXB, rw = 1, sinks = window = the context) keeps the untiered
+//     launch's spans and its SIMT consume, walked in turn by the tier's
+//     hot blocks, so the sentinels give the untiered paged kernel's output
+//     bit for bit.
 //   - Bound: the kept rows' bytes (and the demoted rows' at int8) over
 //     3.35 TB/s; the untiered kernel reads every row below L.
 // Geometry: D % 16 == 0 and D <= 256 (a combine thread owns D / 128 output
 // columns at most 2; the bf16 ring at D = 256 takes 135 KB of shared
 // memory); any G.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -150,6 +166,8 @@ __device__ __forceinline__ int64_t tile_row0(const int* table, int b, int kh,
 constexpr int SK_NS_BF16 = 4;
 constexpr int SK_NS_F32 = 2;
 constexpr int SK_NS_Q8 = 4;
+// the KV tier's cold spans: int8 stages, dequantized at the read
+constexpr int SK_NS_COLD = 4;
 
 // Bytes of one ring stage: the K and V tiles (rows padded by 16 bytes),
 // then, for int8, the tile's 32 K scales and 32 V scales (f32).
@@ -170,20 +188,10 @@ size_t sk_smem(int G, int D) {
 
 // How a split-pass span reads a tile's K/V: as stored (bf16/f32), int8
 // with the K scale on the finished score and the V scale on p (SK_Q8, the
-// hot int8 pools), or int8 dequantized to bf16(q * scale) once a tile into
-// a shared staging tile and read from there as bf16 (SK_DQ, the KV tier's
-// cold pool: the reference's dequant, which rounds to bf16).
+// hot int8 pools), or int8 dequantized at the read, each element bf16(q *
+// its row's scale) in registers as the reference's dequant gives it, the
+// scores and p then as SK_PLAIN's (SK_DQ, the KV tier's cold pool).
 enum SkMode { SK_PLAIN = 0, SK_Q8 = 1, SK_DQ = 2 };
-
-// Bytes of SK_DQ's bf16 staging tile (K rows then V rows, padded as the
-// ring's), and the shared memory of a cold span with NS ring stages.
-__host__ __device__ __forceinline__ int sk_stage_dq_bytes(int D) {
-  return 2 * SK_BK * (2 * D + 16);
-}
-template <int NS>
-size_t sk_smem_dq(int G, int D) {
-  return sk_smem<int8_t, true, NS>(G, D) + 16 + sk_stage_dq_bytes(D);
-}
 
 // One tile of a span: its first true position, its first cache row (dense
 // or pool row, also the index of its scales), and the rows below the span's
@@ -192,6 +200,14 @@ struct SkTile {
   int64_t row0;
   int t0, valid;
 };
+
+// Shared memory a tiered span keeps past its state: the span's resolved
+// tiles (tmax), the cold view's demoted blocks (lmax) and a scan's warp
+// counts.
+__host__ __device__ __forceinline__ int sk_extra_bytes(int tmax, int lmax) {
+  return 16 + static_cast<int>(sizeof(SkTile)) * tmax + 8 * lmax +
+         4 * (NT / 32);
+}
 
 // Issue the cp.async copies of one tile into a ring stage: K rows, then V
 // rows (padded by 16 bytes), then for int8 the tile's 32 K and 32 V scales.
@@ -225,39 +241,75 @@ __device__ __forceinline__ void sk_load(uint8_t* kt, const KV* __restrict__ kc,
   }
 }
 
-// The landed int8 tile at kt (K rows, V rows, then their 32 + 32 scales)
-// as bf16(q * scale) rows into the staging tile stg, the layout of a bf16
-// ring stage; the block synchronises before stg is read.
-__device__ __forceinline__ void sk_dequant_tile(uint8_t* stg,
-                                                const uint8_t* kt, int D) {
-  const int rs8 = D + 16, rs16 = 2 * D + 16;
-  const float* sc = reinterpret_cast<const float*>(kt + 2 * SK_BK * rs8);
-  const int cpr = D / 16;  // 16-byte int8 chunks a row
-  for (int i = threadIdx.x; i < 2 * SK_BK * cpr; i += NT) {
-    const int r = i / cpr, c = i - r * cpr;  // rows 0..31 K, 32..63 V
-    const uint4 raw = *reinterpret_cast<const uint4*>(kt + r * rs8 + c * 16);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-    const float s = sc[r];  // K scales [0, 32), V scales [32, 64)
-    uint32_t w[8];
+// Byte I of u (an int8 word xor 0x80808080) as its exact f32 value without
+// the int -> float unit (quarter rate on the H100): the byte in the low
+// mantissa bits of 2^23, minus 2^23 + 128. The value static_cast<float>
+// gives, so the int8 arithmetic stays row 5's bit for bit.
+template <int I>
+__device__ __forceinline__ float sk_i8(uint32_t u) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | I)) -
+         8388736.f;
+}
+
+// Two f32 values rounded to bf16 (the reference's dequant) and back.
+__device__ __forceinline__ float2 sk_bf16_pair(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// The 16 / sizeof(KV) elements of a 16-byte K chunk as f32: as stored, the
+// exact int8 values (SK_Q8), or bf16(q * s) with its row's scale s (SK_DQ).
+template <typename KV, int MODE>
+__device__ __forceinline__ void sk_chunk(const uint4& raw, float s,
+                                         float* kf) {
+  if constexpr (sizeof(KV) == 1) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(
-          static_cast<float>(e[2 * x]) * s,
-          static_cast<float>(e[2 * x + 1]) * s);
-      w[x] = *reinterpret_cast<const uint32_t*>(&h);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t u = w[j] ^ 0x80808080u;
+      kf[4 * j] = sk_i8<0>(u);
+      kf[4 * j + 1] = sk_i8<1>(u);
+      kf[4 * j + 2] = sk_i8<2>(u);
+      kf[4 * j + 3] = sk_i8<3>(u);
     }
-    uint4* dst = reinterpret_cast<uint4*>(stg + r * rs16 + c * 32);
-    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    if constexpr (MODE == SK_DQ) {
+#pragma unroll
+      for (int x = 0; x < 16; x += 2) {
+        const float2 f = sk_bf16_pair(kf[x] * s, kf[x + 1] * s);
+        kf[x] = f.x;
+        kf[x + 1] = f.y;
+      }
+    }
+  } else {
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int x = 0; x < 16 / static_cast<int>(sizeof(KV)); ++x)
+      kf[x] = lt_to_f(e[x]);
   }
-  __syncthreads();
+}
+
+// Two adjacent V elements at p (the first at an even column) as f32, as
+// sk_chunk converts K.
+template <typename KV, int MODE>
+__device__ __forceinline__ float2 sk_pair(const uint8_t* p, float s) {
+  if constexpr (sizeof(KV) == 1) {
+    const uint32_t u =
+        static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) ^ 0x8080u;
+    const float a = sk_i8<0>(u), b = sk_i8<1>(u);
+    if constexpr (MODE == SK_DQ) return sk_bf16_pair(a * s, b * s);
+    return make_float2(a, b);
+  } else {
+    return lt_to_f2(reinterpret_cast<const KV*>(p));
+  }
 }
 
 // Shared state of a span over G heads: Qs [G][D] (pre-scaled), the ring,
-// Red [SK_P][G][BK], Ps [G][BK] and the running Ms/Ls/Al [G].
+// Red [SK_P][G][BK], Ps [G][BK] and the running Ms/Ls/Al [G]; `extra`
+// (16-byte aligned) is the tiered span's (sk_extra_bytes).
 struct SkShared {
   float *Qs, *Red, *Ps, *Ms, *Ls, *Al;
-  uint8_t* ring;
+  uint8_t *ring, *extra;
 };
 
 template <typename KV, int MODE, int NS>
@@ -272,11 +324,14 @@ __device__ __forceinline__ SkShared sk_shared(uint8_t* raw, int G, int D) {
   sh.Ms = sh.Ps + G * SK_BK;
   sh.Ls = sh.Ms + G;
   sh.Al = sh.Ls + G;
+  sh.extra = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(sh.Al + G) + 15) & ~uintptr_t(15));
   return sh;
 }
 
 // Consume one landed tile: the scores of its 32 tokens for the G heads,
-// masked by ok(kpos), the online softmax, and p V into acc.
+// masked by ok(kpos), the online softmax, and p V into acc. The arithmetic
+// of decode_split_kernel's loop (SK_PLAIN, SK_Q8), in the same order.
 template <typename KV, int MODE, class OK>
 __device__ __forceinline__ void sk_consume(const SkShared& sh,
                                            const uint8_t* kt, int G, int D,
@@ -290,6 +345,7 @@ __device__ __forceinline__ void sk_consume(const SkShared& sh,
   const uint8_t* vt = kt + SK_BK * rs;
   // int8: K scales [BK], then V scales [BK]
   const float* sc = reinterpret_cast<const float*>(vt + SK_BK * rs);
+  const float skj = MODE == SK_DQ ? sc[j] : 1.f;
 
   // partial dot products of token j over chunks part, part + P, ...,
   // for 8 heads at a time: each K chunk is read once per 8 heads
@@ -299,10 +355,8 @@ __device__ __forceinline__ void sk_consume(const SkShared& sh,
     for (int x = 0; x < 8; ++x) s[x] = 0.f;
     for (int c = part; c < cpr; c += SK_P) {
       const uint4 raw = *reinterpret_cast<const uint4*>(kt + j * rs + c * 16);
-      const KV* e = reinterpret_cast<const KV*>(&raw);
       float kf[VEC];
-#pragma unroll
-      for (int x = 0; x < VEC; ++x) kf[x] = lt_to_f(e[x]);
+      sk_chunk<KV, MODE>(raw, skj, kf);
 #pragma unroll
       for (int gi = 0; gi < 8; ++gi) {
         if (gb + gi < G) {
@@ -355,8 +409,8 @@ __device__ __forceinline__ void sk_consume(const SkShared& sh,
       float a0 = acc[2 * i] * sh.Al[g], a1 = acc[2 * i + 1] * sh.Al[g];
 #pragma unroll 8
       for (int t = 0; t < SK_BK; ++t) {
-        const float2 vv =
-            lt_to_f2(reinterpret_cast<const KV*>(vt + t * rs) + d);
+        const float2 vv = sk_pair<KV, MODE>(
+            vt + t * rs + d * ES, MODE == SK_DQ ? sc[SK_BK + t] : 1.f);
         a0 += pr[t] * vv.x;
         a1 += pr[t] * vv.y;
       }
@@ -367,13 +421,271 @@ __device__ __forceinline__ void sk_consume(const SkShared& sh,
   __syncthreads();  // this stage consumed before it is refilled
 }
 
+// ---------------------------------------- tier spans on the tensor cores
+
+// A tiered span of a slot under a policy (no bit-exact twin to keep) with
+// bf16 q and at most SK_TC_HEADS heads a block runs its tile on the tensor
+// cores (mma.sync m16n8k16, bf16 -> f32), the heads as the n = 8 side: S^T
+// [32 tokens x 8 heads] = K [32 x D] . q^T, the four warps each taking 16
+// tokens and half of D (their halves added in shared memory); the online
+// softmax a warp a head on the finished scores (times d^-0.5, and for
+// SK_Q8 the K scale, after the product); then O^T [D x 8] += V^T . p^T,
+// each warp D/64 m16 tiles of D, V through ldmatrix.trans (bf16) or int8
+// pairs converted in registers. p enters as two bf16 terms, hi = bf16(p)
+// and lo = bf16(p - hi) (about 2^-17 relative, as ragged_attention.cu's
+// tensor-core pass), q as given, K and V exactly (bf16, int8 values, or
+// SK_DQ's bf16(q * s)): a tile costs each warp ~100 instructions where the
+// SIMT consume takes ~550, which set the span's pace.
+constexpr int SK_TC_HEADS = 8;
+constexpr int SK_TC_PLD = SK_BK + 8;  // p rows (bf16): conflict-free reads
+
+// shared memory of the tensor-core scratch: q [8][D+8] bf16, the two K
+// halves' scores [2][8][32] f32, p's hi and lo terms [2][8][PLD] bf16, and
+// the heads' rescale factors [8]
+__host__ __device__ __forceinline__ int sk_tc_bytes(int D) {
+  return 16 + SK_TC_HEADS * (D + 8) * 2 + 2 * SK_TC_HEADS * SK_BK * 4 +
+         2 * SK_TC_HEADS * SK_TC_PLD * 2 + SK_TC_HEADS * 4;
+}
+
+struct SkTc {
+  __nv_bfloat16 *Qb, *Ph, *Pl;
+  float *Sp, *Al;
+};
+
+__device__ __forceinline__ SkTc sk_tc(uint8_t* p, int D) {
+  SkTc tc;
+  uint8_t* a = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 15) & ~uintptr_t(15));
+  tc.Qb = reinterpret_cast<__nv_bfloat16*>(a);
+  tc.Sp = reinterpret_cast<float*>(tc.Qb + SK_TC_HEADS * (D + 8));
+  tc.Ph = reinterpret_cast<__nv_bfloat16*>(tc.Sp + 2 * SK_TC_HEADS * SK_BK);
+  tc.Pl = tc.Ph + SK_TC_HEADS * SK_TC_PLD;
+  tc.Al = reinterpret_cast<float*>(tc.Pl + SK_TC_HEADS * SK_TC_PLD);
+  return tc;
+}
+
+__device__ __forceinline__ void sk_ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(lt_smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void sk_ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(lt_smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void sk_ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(lt_smem_u32(p))
+               : "memory");
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators.
+__device__ __forceinline__ void sk_mma(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t sk_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two int8 bytes (b0 in the low half of u) as a bf16 pair: exact (SK_Q8)
+// or each times its scale and rounded once (SK_DQ: bf16(q * s)).
+template <int MODE>
+__device__ __forceinline__ uint32_t sk_i8_pair(uint32_t u, float s0,
+                                               float s1) {
+  const uint32_t x = u ^ 0x8080u;
+  const float a = sk_i8<0>(x), b = sk_i8<1>(x);
+  return MODE == SK_DQ ? sk_bf16x2(a * s0, b * s1) : sk_bf16x2(a, b);
+}
+
+// The span's q rows of this block (bf16, G of them) into Qb, zero rows up
+// to 8 heads; p's rows past G zero, and every head's rescale 1 (the heads
+// past G ride the mma as zeros).
+template <typename T>
+__device__ __forceinline__ void sk_tc_begin(const SkTc& tc,
+                                            const T* __restrict__ q, int G,
+                                            int D) {
+  const int ld = D + 8;
+  for (int i = threadIdx.x; i < SK_TC_HEADS * D / 8; i += NT) {
+    const int g = i / (D / 8), c = (i - g * (D / 8)) * 8;
+    const uint4 v = g < G ? *reinterpret_cast<const uint4*>(q + g * D + c)
+                          : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(tc.Qb + g * ld + c) = v;
+  }
+  for (int i = threadIdx.x; i < 2 * SK_TC_HEADS * SK_TC_PLD; i += NT)
+    tc.Ph[i] = __float2bfloat16(0.f);  // Ph and Pl are contiguous
+  if (threadIdx.x < SK_TC_HEADS) tc.Al[threadIdx.x] = 1.f;
+}
+
+// One landed tile on the tensor cores (the block's four warps): acc [4][4]
+// is the warp's O^T fragments, m16 tiles warp, warp + 4, ... of D.
+template <typename KV, int MODE, class OK>
+__device__ __forceinline__ void sk_consume_tc(const SkShared& sh,
+                                              const SkTc& tc,
+                                              const uint8_t* kt, int G, int D,
+                                              float scale, int t0,
+                                              float (&acc)[4][4],
+                                              const OK& ok) {
+  constexpr int ES = sizeof(KV);
+  const int rs = D * ES + 16, qld = D + 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint8_t* vt = kt + SK_BK * rs;
+  const float* sc = reinterpret_cast<const float*>(vt + SK_BK * rs);
+
+  // S^T: warp -> 16 tokens (m0) and half of D's k steps
+  {
+    const int m0 = 16 * (warp & 1), nks = D / 16, half = (nks + 1) / 2;
+    const int k0 = (warp >> 1) * half, k1 = min(nks, k0 + half);
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = k0; ks < k1; ++ks) {
+      uint32_t a[4], b[2];
+      if constexpr (ES == 2) {
+        sk_ldsm_x4(a, kt + (m0 + (lane & 15)) * rs +
+                          (ks * 16 + (lane >> 4) * 8) * 2);
+      } else {
+        // rows g, g + 8; columns 2t4 (+ 8): two bytes each
+        const float s0 = MODE == SK_DQ ? sc[m0 + g] : 1.f;
+        const float s1 = MODE == SK_DQ ? sc[m0 + g + 8] : 1.f;
+        const uint8_t* r0 = kt + (m0 + g) * rs + ks * 16 + 2 * t4;
+        const uint8_t* r1 = r0 + 8 * rs;
+        a[0] = sk_i8_pair<MODE>(*reinterpret_cast<const uint16_t*>(r0), s0, s0);
+        a[1] = sk_i8_pair<MODE>(*reinterpret_cast<const uint16_t*>(r1), s1, s1);
+        a[2] = sk_i8_pair<MODE>(*reinterpret_cast<const uint16_t*>(r0 + 8), s0,
+                                s0);
+        a[3] = sk_i8_pair<MODE>(*reinterpret_cast<const uint16_t*>(r1 + 8), s1,
+                                s1);
+      }
+      sk_ldsm_x2(b, tc.Qb + (lane & 7) * qld + ks * 16 + ((lane >> 3) & 1) * 8);
+      sk_mma(c, a, b[0], b[1]);
+    }
+    float* sp = tc.Sp + (warp >> 1) * SK_TC_HEADS * SK_BK;
+    sp[(2 * t4) * SK_BK + m0 + g] = c[0];
+    sp[(2 * t4 + 1) * SK_BK + m0 + g] = c[1];
+    sp[(2 * t4) * SK_BK + m0 + g + 8] = c[2];
+    sp[(2 * t4 + 1) * SK_BK + m0 + g + 8] = c[3];
+  }
+  __syncthreads();
+
+  for (int h = warp; h < G; h += NT / 32) {
+    float s = (tc.Sp[h * SK_BK + lane] +
+               tc.Sp[(SK_TC_HEADS + h) * SK_BK + lane]) * scale;
+    if (MODE == SK_Q8) s *= sc[lane];  // the K scale on the finished product
+    const int kpos = t0 + lane;
+    const bool live = ok(kpos);
+    s = live ? s : LT_NEG_INF;
+    const float m_old = sh.Ms[h];
+    const float m_new = fmaxf(m_old, lt_warp_max(s));
+    const float p = expf(s - m_new);
+    const float psum = lt_warp_sum(p);  // l sums the unscaled p
+    const float pv = MODE == SK_Q8 ? (live ? p * sc[SK_BK + lane] : 0.f) : p;
+    const __nv_bfloat16 hi = __float2bfloat16(pv);
+    tc.Ph[h * SK_TC_PLD + lane] = hi;
+    tc.Pl[h * SK_TC_PLD + lane] = __float2bfloat16(pv - __bfloat162float(hi));
+    if (lane == 0) {
+      const float alpha = expf(m_old - m_new);
+      sh.Ls[h] = sh.Ls[h] * alpha + psum;
+      sh.Ms[h] = m_new;
+      tc.Al[h] = alpha;
+    }
+  }
+  __syncthreads();
+
+  // O^T += V^T . p^T: the warp's m16 tiles of D, two k steps of 16 tokens
+  const float al0 = tc.Al[2 * t4], al1 = tc.Al[2 * t4 + 1];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    const int d0 = 16 * (warp + 4 * mi);
+    if (d0 >= D) break;
+    acc[mi][0] *= al0;
+    acc[mi][1] *= al1;
+    acc[mi][2] *= al0;
+    acc[mi][3] *= al1;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t a[4];
+      if constexpr (ES == 2) {
+        sk_ldsm_x4_t(a, vt + (16 * ks + (lane & 7) + ((lane >> 4) << 3)) * rs +
+                            (d0 + ((lane >> 3) & 1) * 8) * 2);
+      } else {
+        // rows d0 + g (+ 8), tokens 16ks + 2t4 (+ 1, + 8, + 9): a byte each
+        const int tk = 16 * ks + 2 * t4;
+        const uint8_t* v0 = vt + tk * rs + d0 + g;
+        auto pair = [&](const uint8_t* p, int t) {
+          const uint32_t u = static_cast<uint32_t>(p[0]) |
+                             (static_cast<uint32_t>(p[rs]) << 8);
+          return sk_i8_pair<MODE>(u, MODE == SK_DQ ? sc[SK_BK + t] : 1.f,
+                                  MODE == SK_DQ ? sc[SK_BK + t + 1] : 1.f);
+        };
+        a[0] = pair(v0, tk);
+        a[1] = pair(v0 + 8, tk);
+        a[2] = pair(v0 + 8 * rs, tk + 8);
+        a[3] = pair(v0 + 8 * rs + 8, tk + 8);
+      }
+      const int pb = g * SK_TC_PLD + 16 * ks + 2 * t4;
+      sk_mma(acc[mi], a, *reinterpret_cast<const uint32_t*>(tc.Ph + pb),
+             *reinterpret_cast<const uint32_t*>(tc.Ph + pb + 8));
+      sk_mma(acc[mi], a, *reinterpret_cast<const uint32_t*>(tc.Pl + pb),
+             *reinterpret_cast<const uint32_t*>(tc.Pl + pb + 8));
+    }
+  }
+  __syncthreads();  // this stage consumed before it is refilled
+}
+
+// The tiles kb0..kb1-1 that tile(kb) resolves, the live ones (valid > 0)
+// packed in order into tt by all NT threads at once — the table walks run
+// side by side, before any K/V load waits on them; returns their count.
+// tmp: NT/32 ints of shared memory.
+template <class TILE>
+__device__ __forceinline__ int sk_resolve(SkTile* tt, int kb0, int kb1,
+                                          const TILE& tile, int* tmp) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int base = 0;
+  for (int c0 = kb0; c0 < kb1; c0 += NT) {
+    const int kb = c0 + tid;
+    SkTile tl = {0, 0, 0};
+    if (kb < kb1) tl = tile(kb);
+    const bool live = kb < kb1 && tl.valid > 0;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) tmp[warp] = __popc(m);
+    __syncthreads();
+    int off = base, tot = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      off += w < warp ? tmp[w] : 0;
+      tot += tmp[w];
+    }
+    if (live) tt[off + __popc(m & ((1u << lane) - 1))] = tl;
+    base += tot;
+    __syncthreads();
+  }
+  return base;
+}
+
 // One span of tiles [kb0, kb1) for G heads: tile(kb) gives each tile's
 // source (SkTile), ok(kpos) the token mask; writes the heads' f32 partials
 // (m, l, acc[D]) at ml (head g at + 2 * g * nsw) and accw (head g at + g *
 // nsw * D), nsw the workspace's splits a head. q: the block's first head.
-// A dead tile (valid <= 0) is skipped.
-template <typename T, typename KV, int MODE, int NS, class TILE, class OK>
-__device__ __forceinline__ void sk_span(uint8_t* raw, const T* __restrict__ q,
+// The span's tiles are resolved first (sk_resolve into tt), so no K/V
+// load waits on a table; dead tiles never enter the ring. TC: the tiles on
+// the tensor cores (sk_consume_tc; bf16 q, G <= SK_TC_HEADS), its scratch
+// past tt's (tmax tiles, then sk_tc_bytes).
+template <typename T, typename KV, int MODE, int NS, bool TC = false,
+          class TILE, class OK>
+__device__ __forceinline__ void sk_span(uint8_t* raw, SkTile* tt, int* tmp,
+                                        const T* __restrict__ q,
                                         const KV* __restrict__ kc,
                                         const KV* __restrict__ vc,
                                         const float* __restrict__ ksc,
@@ -384,46 +696,67 @@ __device__ __forceinline__ void sk_span(uint8_t* raw, const T* __restrict__ q,
   const int tid = threadIdx.x;
   const SkShared sh = sk_shared<KV, MODE, NS>(raw, G, D);
   const int stage = sk_stage_bytes<KV, MODE != SK_PLAIN>(D);
-  auto load = [=](int kb) {
-    const SkTile tl = tile(kb);
-    if (tl.valid > 0)
-      sk_load<KV, MODE>(sh.ring + ((kb - kb0) % NS) * stage, kc, vc, ksc,
-                        vsc, tl, D);
+  const int n = sk_resolve(tt, kb0, kb1, tile, tmp);
+  auto load = [=](int i) {
+    sk_load<KV, MODE>(sh.ring + (i % NS) * stage, kc, vc, ksc, vsc, tt[i], D);
   };
   // the first NS-1 tiles in flight, one commit group each (possibly empty)
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
-    if (kb0 + i < kb1) load(kb0 + i);
+    if (i < n) load(i);
     lt_cp_async_commit();
   }
 
-  lt_load_tile(sh.Qs, D, q, D, G, G, D, scale);
   for (int g = tid; g < G; g += NT) {
     sh.Ms[g] = LT_NEG_INF;
     sh.Ls[g] = 0.f;
   }
+  if constexpr (TC) {
+    const SkTc tc = sk_tc(reinterpret_cast<uint8_t*>(tmp + NT / 32), D);
+    sk_tc_begin(tc, q, G, D);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < n; ++i) {
+      if (i + NS - 1 < n) load(i + NS - 1);
+      lt_cp_async_commit();
+      lt_cp_async_wait<NS - 1>();  // tile i landed
+      __syncthreads();
+      sk_consume_tc<KV, MODE>(sh, tc, sh.ring + (i % NS) * stage, G, D, scale,
+                              tt[i].t0, acc, ok);
+    }
+    // acc[mi]: rows d0 + g (+ 8) of D, heads 2t4, 2t4 + 1
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int d0 = 16 * (warp + 4 * mi);
+      if (d0 >= D) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int h = 2 * t4 + (j & 1), d = d0 + g + 8 * (j >> 1);
+        if (h < G) accw[static_cast<int64_t>(h) * nsw * D + d] = acc[mi][j];
+      }
+    }
+    for (int g2 = tid; g2 < G; g2 += NT) {
+      ml[2 * g2 * nsw] = sh.Ms[g2];
+      ml[2 * g2 * nsw + 1] = sh.Ls[g2];
+    }
+    return;
+  }
+  lt_load_tile(sh.Qs, D, q, D, G, G, D, scale);
   float acc[2 * SK_MAXP];
 #pragma unroll
   for (int i = 0; i < 2 * SK_MAXP; ++i) acc[i] = 0.f;
 
-  for (int kb = kb0; kb < kb1; ++kb) {
-    if (kb + NS - 1 < kb1) load(kb + NS - 1);
+  for (int i = 0; i < n; ++i) {
+    if (i + NS - 1 < n) load(i + NS - 1);
     lt_cp_async_commit();
-    lt_cp_async_wait<NS - 1>();  // tile kb landed
+    lt_cp_async_wait<NS - 1>();  // tile i landed
     __syncthreads();
-    const SkTile tl = tile(kb);
-    // a dead tile (the same for every thread) is skipped: nothing read its
-    // stage, and the next refill of it goes to a stage no one reads
-    if (tl.valid <= 0) continue;
-    const uint8_t* kt = sh.ring + ((kb - kb0) % NS) * stage;
-    if constexpr (MODE == SK_DQ) {
-      uint8_t* stg = reinterpret_cast<uint8_t*>(
-          (reinterpret_cast<uintptr_t>(sh.Al + G) + 15) & ~uintptr_t(15));
-      sk_dequant_tile(stg, kt, D);
-      sk_consume<__nv_bfloat16, SK_PLAIN>(sh, stg, G, D, tl.t0, acc, ok);
-    } else {
-      sk_consume<KV, MODE>(sh, kt, G, D, tl.t0, acc, ok);
-    }
+    sk_consume<KV, MODE>(sh, sh.ring + (i % NS) * stage, G, D, tt[i].t0, acc,
+                         ok);
   }
   // m and l are visible: a consumed tile ends with a barrier, and without
   // one each thread reads back only the heads it set itself
@@ -680,6 +1013,7 @@ __global__ void __launch_bounds__(NT)
 // with the cold tier, its table ctab [B, cmaxb] (cold block per raw block,
 // 0 = not demoted) and the cold int8 pools [NBc, KVH, 128, D] with scales
 // [NBc, KVH, 1, 128], read by splits of their own (nsplit_c of split_c).
+// split_f: the span of a full-policy slot (the untiered kernel's).
 struct TierArgs {
   const int* sb;
   const int* rw;
@@ -692,25 +1026,28 @@ struct TierArgs {
   const int8_t* cvq;
   const float* cvs;
   int nsplit_c, split_c;
+  int split_f;
 };
 
 // One slot's plan: true length L, its current raw block cur, the ring's
-// first resident raw block ring_lo, and the live tiles of each view. The
+// first resident raw block ring_lo, and the hot view's live tiles. The
 // hot view's live positions are [0, a) U [c, L) — the sinks (and, cold,
-// every sink block) and the window (cold: the ring) — walked as ntile_hot
+// every sink block) and the window (cold: the ring) — walked as nhot
 // tiles: tile j < g0 is true tile j, tile j >= g0 true tile j + gap, so a
-// 1024-token window at 32k walks ~40 tiles, not 1024. The cold view walks
-// every tile below L and skips those not demoted.
+// 1024-token window at 32k walks ~40 tiles, not 1024. full: a full-policy
+// slot (sb >= the table width, the ring map the identity).
 struct TierRow {
-  int L, cur, sb, rw, sinks, window, ring_lo, g0, gap, nhot, ncold;
+  int L, cur, sb, rw, sinks, window, ring_lo, g0, gap, nhot;
+  bool full;
 };
 
 __device__ __forceinline__ TierRow tier_row(const TierArgs& ta, int b, int L,
-                                            bool cold) {
+                                            bool cold, int MAXB) {
   TierRow r;
   r.L = max(L, 0);
   r.sb = ta.sb[b];
   r.rw = max(ta.rw[b], 1);
+  r.full = r.sb >= MAXB;
   // the cold tier keeps every demoted or resident row: no retention mask
   // (the reference lifts the window to 1 << 30), hot rows from every sink
   // block and the ring
@@ -725,8 +1062,15 @@ __device__ __forceinline__ TierRow tier_row(const TierArgs& ta, int b, int L,
   r.g0 = (a + SK_BK - 1) / SK_BK;
   r.gap = max(c / SK_BK, r.g0) - r.g0;
   r.nhot = (r.L + SK_BK - 1) / SK_BK - r.gap;
-  r.ncold = cold ? (r.L + SK_BK - 1) / SK_BK : 0;
   return r;
+}
+
+// Tiles a hot span of the slot takes: a full-policy slot keeps the
+// untiered kernel's spans (split_f), so its output is row 3/5's bit for
+// bit; a slot under a policy the tier's deeper spans (split).
+__device__ __forceinline__ int tier_hot_tiles(const TierRow& r,
+                                              const TierArgs& ta, int split) {
+  return (r.full ? ta.split_f : split) / SK_BK;
 }
 
 // Physical hot block of raw block `raw` (ring_block_map through the
@@ -747,26 +1091,77 @@ __device__ __forceinline__ int64_t tier_hot_block(const TierRow& r,
   return table[static_cast<int64_t>(b) * MAXB + col];
 }
 
+// The slot's demoted blocks below L (cold-table entries != 0), counted by
+// all NT threads; tmp: NT/32 ints of shared memory. The cold view walks
+// their tiles in raw order, PBS / SK_BK a block.
+__device__ __forceinline__ int tier_cold_blocks(const TierArgs& ta, int b,
+                                                int L, int* tmp) {
+  const int lim = min(ta.cmaxb, (L + PBS - 1) / PBS);
+  const int* row = ta.ctab + static_cast<int64_t>(b) * ta.cmaxb;
+  int c = 0;
+  for (int r = threadIdx.x; r < lim; r += NT) c += row[r] != 0;
+  c = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0) tmp[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int tot = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) tot += tmp[w];
+  __syncthreads();
+  return tot;
+}
+
+// The slot's demoted blocks of rank k0..k1-1 (in raw order, below L) into
+// list as (raw block, cold block), by all NT threads.
+__device__ __forceinline__ void tier_cold_list(const TierArgs& ta, int b,
+                                               int L, int k0, int k1,
+                                               int2* list, int* tmp) {
+  const int lim = min(ta.cmaxb, (L + PBS - 1) / PBS);
+  const int* row = ta.ctab + static_cast<int64_t>(b) * ta.cmaxb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int base = 0;
+  for (int r0 = 0; r0 < lim && base < k1; r0 += NT) {
+    const int r = r0 + tid;
+    const int ci = r < lim ? row[r] : 0;
+    const unsigned m = __ballot_sync(0xffffffffu, ci != 0);
+    if (lane == 0) tmp[warp] = __popc(m);
+    __syncthreads();
+    int off = base, tot = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      off += w < warp ? tmp[w] : 0;
+      tot += tmp[w];
+    }
+    const int rank = off + __popc(m & ((1u << lane) - 1));
+    if (ci != 0 && rank >= k0 && rank < k1) list[rank - k0] = make_int2(r, ci);
+    base += tot;
+    __syncthreads();
+  }
+}
+
 // Splits of each view a slot's combine reads (the split pass writes a
-// partial for each): hot [0, nh), cold [nsplit, nsplit + nc).
+// partial for each): hot [0, nh), cold [nsplit, nsplit + nc); ncold: the
+// cold view's tiles.
 __device__ __forceinline__ void tier_splits(const TierRow& r,
                                             const TierArgs& ta, int split,
-                                            int nsplit, int& nh, int& nc) {
-  const int th = split / SK_BK;
+                                            int nsplit, int ncold, int& nh,
+                                            int& nc) {
+  const int th = tier_hot_tiles(r, ta, split);
   nh = min(nsplit, (r.nhot + th - 1) / th);
   nc = 0;
   if (ta.ctab != nullptr) {
     const int tc = ta.split_c / SK_BK;
-    nc = min(ta.nsplit_c, (r.ncold + tc - 1) / tc);
+    nc = min(ta.nsplit_c, (ncold + tc - 1) / tc);
   }
 }
 
 // The tiered split pass over true positions, grid (nsplit [+ nsplit_c],
 // KVH * ngrp, B): blocks below nsplit walk the hot view's live tiles
-// through the ring map (SK_PLAIN, or SK_Q8 on an int8 hot pool), the others
-// (COLD) the cold view's demoted tiles (SK_DQ, NSC stages). Token mask:
-// pos < L and, without the cold tier, (pos >= L - window or pos < sinks).
-// Workspace as decode_split_kernel's with nsplit + nsplit_c splits a head.
+// through the ring map (SK_PLAIN, or SK_Q8 on an int8 hot pool) in spans of
+// tier_hot_tiles; the others (COLD) the demoted blocks' tiles alone, in
+// raw order (SK_DQ, NSC stages). Each span resolves its tiles into shared
+// memory first (sk_resolve). Token mask: pos < L and, without the cold
+// tier, (pos >= L - window or pos < sinks). Workspace as
+// decode_split_kernel's with nsplit + nsplit_c splits a head.
 template <typename T, typename KV, bool Q8, int NS, int NSC, bool GROUPED,
           bool COLD>
 __global__ void __launch_bounds__(NT)
@@ -784,39 +1179,70 @@ __global__ void __launch_bounds__(NT)
   const int GA = H / KVH;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int b = blockIdx.z;
-  const TierRow r = tier_row(ta, b, lengths[b], COLD);
-  const bool cold = COLD && static_cast<int>(blockIdx.x) >= nsplit;
-  const int sp = cold ? blockIdx.x - nsplit : blockIdx.x;
-  const int tps = (cold ? ta.split_c : split) / SK_BK;  // tiles a span
-  const int kb0 = sp * tps;
-  const int kb1 = min(kb0 + tps, cold ? r.ncold : r.nhot);
-  // past the view's live tiles: the combine reads no partial of this block
-  if (kb1 <= kb0) return;
+  const TierRow r = tier_row(ta, b, lengths[b], COLD, MAXB);
+  // hot blocks a (slot, head group): the grid's x less the cold splits
+  const int nhx = static_cast<int>(gridDim.x) - (COLD ? ta.nsplit_c : 0);
+  const bool cold = COLD && static_cast<int>(blockIdx.x) >= nhx;
+  // the extra shared memory: the span's tiles, the cold list, a scan's
+  // counts (sk_extra_bytes)
+  const int tmax = max(max(split, ta.split_f), COLD ? ta.split_c : 0) / SK_BK;
+  const int lmax = COLD ? ta.split_c / SK_BK / (PBS / SK_BK) + 2 : 0;
   const int nsw = nsplit + (COLD ? ta.nsplit_c : 0);
   const int64_t head0 = static_cast<int64_t>(b) * H + kh * GA + g0;
-  const int64_t part0 = head0 * nsw + blockIdx.x;
-  float* ml = ws + 2 * part0;
-  float* accw =
-      ws + 2 * static_cast<int64_t>(gridDim.z) * H * nsw + part0 * D;
+  // the partials of workspace split `part` (hot below nsplit, cold above)
+  auto ml_at = [=](int part) { return ws + 2 * (head0 * nsw + part); };
+  auto acc_at = [=](int part) {
+    return ws + 2 * static_cast<int64_t>(gridDim.z) * H * nsw +
+           (head0 * nsw + part) * D;
+  };
   const int L = r.L;
   if constexpr (COLD) {
     if (cold) {
+      SkTile* tt = reinterpret_cast<SkTile*>(
+          sk_shared<int8_t, SK_DQ, NSC>(sk_raw, G, D).extra);
+      int2* list = reinterpret_cast<int2*>(tt + tmax);
+      int* tmp = reinterpret_cast<int*>(list + lmax);
+      const int sp = blockIdx.x - nhx, tpc = ta.split_c / SK_BK;
+      const int ncold = (PBS / SK_BK) * tier_cold_blocks(ta, b, L, tmp);
+      const int kb0 = sp * tpc, kb1 = min(kb0 + tpc, ncold);
+      // past the view's live tiles: the combine reads no partial of it
+      if (kb1 <= kb0) return;
+      const int k0 = kb0 / (PBS / SK_BK);
+      tier_cold_list(ta, b, L, k0, (kb1 + PBS / SK_BK - 1) / (PBS / SK_BK),
+                     list, tmp);
       auto tile = [=](int kb) {
-        const int t0 = kb * SK_BK, raw = t0 / PBS;
-        const int ci = raw < ta.cmaxb
-                           ? ta.ctab[static_cast<int64_t>(b) * ta.cmaxb + raw]
-                           : 0;
-        if (ci == 0) return SkTile{0, t0, 0};
-        return SkTile{(static_cast<int64_t>(ci) * KVH + kh) * PBS + t0 % PBS,
-                      t0, min(SK_BK, L - t0)};
+        const int2 e = list[kb / (PBS / SK_BK) - k0];  // (raw, cold block)
+        const int off = (kb % (PBS / SK_BK)) * SK_BK;
+        const int t0 = e.x * PBS + off;
+        return SkTile{(static_cast<int64_t>(e.y) * KVH + kh) * PBS + off, t0,
+                      min(SK_BK, L - t0)};
       };
       auto ok = [=](int kpos) { return kpos < L; };
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        if (G <= SK_TC_HEADS) {
+          sk_span<T, int8_t, SK_DQ, NSC, true>(
+              sk_raw, tt, tmp, q + head0 * D, ta.ckq, ta.cvq, ta.cks, ta.cvs,
+              ml_at(nsplit + sp), acc_at(nsplit + sp), nsw, G, D, scale, kb0,
+              kb1, tile, ok);
+          return;
+        }
+      }
       sk_span<T, int8_t, SK_DQ, NSC>(
-          sk_raw, q + head0 * D, ta.ckq, ta.cvq, ta.cks, ta.cvs, ml, accw,
-          nsw, G, D, scale, kb0, kb1, tile, ok);
+          sk_raw, tt, tmp, q + head0 * D, ta.ckq, ta.cvq, ta.cks, ta.cvs,
+          ml_at(nsplit + sp), acc_at(nsplit + sp), nsw, G, D, scale, kb0, kb1,
+          tile, ok);
       return;
     }
   }
+  // the slot's hot spans blockIdx.x, + nhx, ... below the workspace's
+  // nsplit: one a block for a slot under a policy, several for a
+  // full-policy slot, whose spans (split_f) may outnumber the grid's hot
+  // width (its rows past MAXB*128, were there any, are not resident)
+  const int tps = tier_hot_tiles(r, ta, split);
+  if (static_cast<int>(blockIdx.x) * tps >= r.nhot) return;
+  SkTile* tt = reinterpret_cast<SkTile*>(
+      sk_shared<KV, Q8 ? SK_Q8 : SK_PLAIN, NS>(sk_raw, G, D).extra);
+  int* tmp = reinterpret_cast<int*>(reinterpret_cast<int2*>(tt + tmax) + lmax);
   auto tile = [=](int kb) {
     const int t = kb < r.g0 ? kb : kb + r.gap;
     const int t0 = t * SK_BK;
@@ -828,9 +1254,25 @@ __global__ void __launch_bounds__(NT)
   };
   const int lw = L - r.window, snk = r.sinks;
   auto ok = [=](int kpos) { return kpos < L && (kpos >= lw || kpos < snk); };
-  sk_span<T, KV, Q8 ? SK_Q8 : SK_PLAIN, NS>(
-      sk_raw, q + head0 * D, kc, vc, ksc, vsc, ml, accw, nsw, G, D, scale,
-      kb0, kb1, tile, ok);
+  constexpr int HM = Q8 ? SK_Q8 : SK_PLAIN;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // a slot under a policy: its one span on the tensor cores
+    if (!r.full && G <= SK_TC_HEADS) {
+      const int sp = blockIdx.x;
+      sk_span<T, KV, HM, NS, true>(
+          sk_raw, tt, tmp, q + head0 * D, kc, vc, ksc, vsc, ml_at(sp),
+          acc_at(sp), nsw, G, D, scale, sp * tps, min(sp * tps + tps, r.nhot),
+          tile, ok);
+      return;
+    }
+  }
+  for (int sp = blockIdx.x; sp < nsplit && sp * tps < r.nhot; sp += nhx) {
+    if (sp != static_cast<int>(blockIdx.x)) __syncthreads();
+    sk_span<T, KV, HM, NS>(
+        sk_raw, tt, tmp, q + head0 * D, kc, vc, ksc, vsc, ml_at(sp),
+        acc_at(sp), nsw, G, D, scale, sp * tps, min(sp * tps + tps, r.nhot),
+        tile, ok);
+  }
 }
 
 // One block of NT threads per (q head, slot); thread tid owns outputs tid,
@@ -849,13 +1291,17 @@ __global__ void __launch_bounds__(NT)
                           T* __restrict__ out, int H, int Tlen, int D,
                           int split, int nsplit, const TierArgs ta) {
   __shared__ float wsm[NT], lsm[NT], red[NT / 32];
+  __shared__ int ctmp[NT / 32];
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int n1, n2 = 0, nsw = nsplit;
   if (TIER) {
     const bool cold = ta.ctab != nullptr;
-    tier_splits(tier_row(ta, b, lengths[b], cold), ta, split, nsplit, n1, n2);
+    const int ncold =
+        cold ? (PBS / SK_BK) * tier_cold_blocks(ta, b, lengths[b], ctmp) : 0;
+    tier_splits(tier_row(ta, b, lengths[b], cold, Tlen / PBS), ta, split,
+                nsplit, ncold, n1, n2);
     nsw += cold ? ta.nsplit_c : 0;
   } else {
     const int len = min(lengths[b], Tlen);
@@ -971,19 +1417,27 @@ int launch_groups(const SplitArgs& a, int GC, int ngrp) {
 }
 
 // The tiered split pass (hot splits, then the cold tier's), then the
-// combine; shared memory for the larger of the two span kinds.
+// combine; shared memory for the larger of the two span kinds, each with
+// its resolved tiles and the cold list (sk_extra_bytes).
 template <typename T, typename KV, bool Q8, int NS, bool GROUPED, bool COLD>
 int launch_tier_groups(const SplitArgs& a, int GC, int ngrp) {
-  size_t smem = sk_smem<KV, Q8, NS>(GC, a.D);
+  const int tmax =
+      max(max(a.split, a.tier.split_f), COLD ? a.tier.split_c : 0) / SK_BK;
+  const int lmax = COLD ? a.tier.split_c / SK_BK / (PBS / SK_BK) + 2 : 0;
+  const size_t extra = sk_extra_bytes(tmax, lmax) + sk_tc_bytes(a.D);
+  size_t smem = sk_smem<KV, Q8, NS>(GC, a.D) + extra;
   if (COLD) {
-    const size_t sc = sk_smem_dq<SK_NS_Q8>(GC, a.D);
+    const size_t sc = sk_smem<int8_t, true, SK_NS_COLD>(GC, a.D) + extra;
     smem = sc > smem ? sc : smem;
   }
-  auto* kernel = decode_tier_kernel<T, KV, Q8, NS, SK_NS_Q8, GROUPED, COLD>;
+  auto* kernel = decode_tier_kernel<T, KV, Q8, NS, SK_NS_COLD, GROUPED, COLD>;
   static size_t smem_set[LT_MAX_DEVICES] = {};
   const cudaError_t ea = lt_set_max_smem(kernel, smem, smem_set);
   if (ea != cudaSuccess) return static_cast<int>(ea);
-  const int nx = a.nsplit + (COLD ? a.tier.nsplit_c : 0);
+  // hot blocks: the tier's spans over the table (full-policy slots walk
+  // their more numerous spans in turn), then the cold splits
+  const int nx = (a.Tlen + a.split - 1) / a.split +
+                 (COLD ? a.tier.nsplit_c : 0);
   kernel<<<dim3(nx, a.KVH * ngrp, a.B), NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
       static_cast<const KV*>(a.vc), a.ks, a.vs, a.lengths, a.table, a.tier,
@@ -1018,7 +1472,10 @@ bool bad_split(const SplitArgs& a) {
     return true;
   const TierArgs& t = a.tier;
   if (t.sb == nullptr) return false;
-  if (!t.rw || !t.sinks || !t.window) return true;
+  if (!t.rw || !t.sinks || !t.window || t.split_f <= 0 ||
+      t.split_f % SK_BK != 0 ||
+      static_cast<int64_t>(a.nsplit) * t.split_f < a.Tlen)
+    return true;
   if (t.ctab == nullptr) return false;
   // the cold tier: its pools and spans, every raw block of the slot's
   // context in the cold table
@@ -1114,6 +1571,9 @@ extern "C" int decode_attention_q8_paged_launch(
 // cold tier (ctab non-null, dense hot pool only) adds ctab [B, cmaxb] and
 // the int8 cold pools [NBc, KVH, 128, D] / scales [NBc, KVH, 1, 128], read
 // by nsplit_c splits of split_c tokens (nsplit_c * split_c >= cmaxb*128).
+// Hot spans: split tokens a span for a slot under a policy, split_f for a
+// full-policy slot (sb >= MAXB: the untiered launch's span), nsplit of
+// them at most (nsplit * min(split, split_f) >= MAXB*128).
 // ws holds B*H*(nsplit + nsplit_c)*(D+2) floats. No sliding window: the
 // tier's mask takes its place.
 extern "C" int decode_attention_tier_launch(
@@ -1122,11 +1582,16 @@ extern "C" int decode_attention_tier_launch(
     const int* sb, const int* rw, const int* sinks, const int* window,
     const int* ctab, int cmaxb, const int8_t* ckq, const float* cks,
     const int8_t* cvq, const float* cvs, void* out, float* ws, int B, int H,
-    int KVH, int MAXB, int D, float scale, int nsplit, int split,
+    int KVH, int MAXB, int D, float scale, int nsplit, int split, int split_f,
     int nsplit_c, int split_c, void* stream) {
   if (sb == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const TierArgs t = {sb,  rw,  sinks, window, ctab,     cmaxb,  ckq,
-                      cks, cvq, cvs,   ctab ? nsplit_c : 0, ctab ? split_c : 0};
+  const TierArgs t = {sb,      rw,
+                      sinks,   window,
+                      ctab,    cmaxb,
+                      ckq,     cks,
+                      cvq,     cvs,
+                      ctab ? nsplit_c : 0, ctab ? split_c : 0,
+                      split_f};
   const SplitArgs a = {q, kp, vp, ks, vs, table, lengths, out, ws, B, H, KVH,
                        MAXB * PBS, D, 0, scale, nsplit, split,
                        static_cast<cudaStream_t>(stream), t};

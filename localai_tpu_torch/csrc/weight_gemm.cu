@@ -106,6 +106,10 @@
 // its time, so each nibble becomes f32 in two instructions (w4_value), and
 // its blocks take equal ranges of (expert, column tile, K tile) units, so
 // a stack of fewer tiles than the card's slots (w2) still fills a wave.
+// The projection and the head at decode run the decode route as a
+// programmatic dependent launch (weight_gemm_w4_launch): a kernel's first
+// weight tile streams in under the previous kernel's tail, and only x's
+// loads and the stores wait for that grid; the rounding stays qmatmul's.
 #include <cuda.h>
 #include <cuda_fp16.h>
 
@@ -1101,7 +1105,10 @@ __device__ __forceinline__ uint32_t wg_word(const uint4& v, int i) {
 // int4 (kW4): K tiles of 128, eight K steps of 16; lane (g, t4) reads
 // packed rows 2t4 and 2t4 + 1 of a step (K rows 4t4..4t4+3, the same
 // fragment slots), and byte b of a chunk word gives one fragment register
-// (wg_nib_pair).
+// (wg_nib_pair). The int4 build's projection and head launch as a
+// programmatic dependent launch (launch_gemv4): the first tile's weight
+// loads are issued before griddepcontrol.wait, x's loads and every store
+// after it, so no kernel just before one may write its weight q.
 template <typename T, int NT8, int EPI>
 __global__ void __launch_bounds__(B_WARPS * 32)
     weight_gemm_gemv_kernel(const T* __restrict__ x,
@@ -1149,8 +1156,8 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   // [k16 step][K row 4t4 + j, int4: packed row 2t4 + j]: 16 channels
   uint4 w[KS][WR];
   uint2 xv[KS][NT8];  // [k16 step][token tile]: K rows 4t4..4t4+3
-  // step kk of tile t into w[kk], xv[kk]
-  auto load = [&](int kk, int t) {
+  // step kk of tile t into w[kk] (the weight) and xv[kk] (x)
+  auto load_w = [&](int kk, int t) {
     const int k16 = t * B_BK + 16 * kk, kr = k16 + 4 * t4;
     const bool kok = k16 < K;  // K % 16 == 0
 #pragma unroll
@@ -1160,6 +1167,10 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                                                  N +
                                              cb)
                             : make_uint4(0u, 0u, 0u, 0u);
+  };
+  auto load_x = [&](int kk, int t) {
+    const int k16 = t * B_BK + 16 * kk, kr = k16 + 4 * t4;
+    const bool kok = k16 < K;
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt) {
       const int r = 8 * nt + g;
@@ -1167,6 +1178,10 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                                       x + r * xrow + kr)
                                 : make_uint2(0u, 0u);
     }
+  };
+  auto load = [&](int kk, int t) {
+    load_w(kk, t);
+    load_x(kk, t);
   };
   auto mul4 = [&](int kk) {
 #pragma unroll
@@ -1227,7 +1242,22 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   };
   const int ntl = kt1 - kt0 > warp ? (kt1 - kt0 - warp + B_WARPS - 1) / B_WARPS
                                    : 0;  // this warp's tiles
-  if (ntl > 0) {
+  if constexpr (kW4) {
+    // a programmatic dependent launch: the next kernel may launch now; the
+    // first tile's weight (which no kernel just before it may write)
+    // streams in before the wait for the previous grid, x (its output,
+    // maybe) and every store after it
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    if (ntl > 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) load_w(kk, kt0 + warp);
+    }
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    if (ntl > 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) load_x(kk, kt0 + warp);
+    }
+  } else if (ntl > 0) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) load(kk, kt0 + warp);
   }
@@ -1903,6 +1933,35 @@ int launch_gemv_moe(const void* x, const void* q, const float* s, void* out,
 #endif
 
 #if WG_INT4
+// the int4 projection at decode: the decode route's grid of (column tile,
+// split) blocks, as a programmatic dependent launch
+template <typename T, int EPI>
+int launch_gemv4(const void* x, const void* q, const float* s, void* out,
+                 float* ws, int* counters, int M, int N, int K, int splits,
+                 int kt_per, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + B_BN - 1) / B_BN, splits);
+  cfg.blockDim = dim3(B_WARPS * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const T* xp = static_cast<const T*>(x);
+  const uint8_t* qp = static_cast<const uint8_t*>(q);
+  const cudaError_t e =
+      M <= 8 ? cudaLaunchKernelEx(&cfg, weight_gemm_gemv_kernel<T, 1, EPI>,
+                                  xp, qp, s, out, ws, counters, M, N, K,
+                                  kt_per, 1)
+             : cudaLaunchKernelEx(&cfg, weight_gemm_gemv_kernel<T, 2, EPI>,
+                                  xp, qp, s, out, ws, counters, M, N, K,
+                                  kt_per, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the int4 expert GEMM at decode: `blocks` blocks of equal unit ranges
 int launch_moe_stream(const void* x, const void* q, const float* s,
                       void* out, float* ws, int* counters, int M, int N,
@@ -2006,14 +2065,18 @@ extern "C" int weight_gemm_wgmma_launch(int dtype, int epi, int bm,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Decode route (M <= 16, mma.sync). x [M, K] in `dtype` (bf16 or f16), q
-// [K, N] int8, s [N] f32; epi, ws, counters and (splits, kt_per) as above,
-// one counter a column tile of 128.
+// Decode route (M <= 16, mma.sync; the int8 build). x [M, K] in `dtype`
+// (bf16 or f16), q [K, N] int8, s [N] f32; epi, ws, counters and (splits,
+// kt_per) as above, one counter a column tile of 128.
 extern "C" int weight_gemm_gemv_launch(int dtype, int epi, const void* x,
                                        const void* q, const void* s,
                                        void* out, void* ws, void* counters,
                                        int M, int N, int K, int splits,
                                        int kt_per, void* stream) {
+#if WG_INT4
+  // the int4 build's decode route launches through weight_gemm_w4_launch
+  return static_cast<int>(cudaErrorNotSupported);
+#else
   if (bad_shape(M, N, K) || M > 16 ||
       bad_split(K, B_BK, splits, kt_per, ws, counters))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2031,6 +2094,7 @@ extern "C" int weight_gemm_gemv_launch(int dtype, int epi, const void* x,
     return launch_gemv<__half, EPI_ROUND>(x, q, sc, out, w, cnt, M, N, K,
                                           splits, kt_per, st);
   return static_cast<int>(cudaErrorInvalidValue);
+#endif
 }
 
 // SIMT route (f32 activations). x [M, K] f32; w in `wdtype` (int8, bf16 or
@@ -2199,6 +2263,39 @@ extern "C" int weight_gemm_head_launch(int nk, int bn, const void* xs,
 #undef HEAD_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
+#endif
+}
+
+// The int4 projection at decode (the int4 build; M <= 16): the decode
+// route of weight_gemm_gemv_launch (x, q packed, s, epi, ws, counters and
+// (splits, kt_per) as there, K tiles of 128), launched as a programmatic
+// dependent launch: its first weight tile is read before the previous
+// kernel in the stream has finished, so that kernel must not write q.
+extern "C" int weight_gemm_w4_launch(int dtype, int epi, const void* x,
+                                     const void* q, const void* s, void* out,
+                                     void* ws, void* counters, int M, int N,
+                                     int K, int splits, int kt_per,
+                                     void* stream) {
+#if WG_INT4
+  if (bad_shape(M, N, K) || M > 16 ||
+      bad_split(K, B_BK, splits, kt_per, ws, counters))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* sc = static_cast<const float*>(s);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == WG_BF16 && epi == EPI_ROUND)
+    return launch_gemv4<__nv_bfloat16, EPI_ROUND>(x, q, sc, out, w, cnt, M, N,
+                                                  K, splits, kt_per, st);
+  if (dtype == WG_BF16 && epi == EPI_F32)
+    return launch_gemv4<__nv_bfloat16, EPI_F32>(x, q, sc, out, w, cnt, M, N,
+                                                K, splits, kt_per, st);
+  if (dtype == WG_F16 && epi == EPI_ROUND)
+    return launch_gemv4<__half, EPI_ROUND>(x, q, sc, out, w, cnt, M, N, K,
+                                           splits, kt_per, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+#else
+  return static_cast<int>(cudaErrorNotSupported);
 #endif
 }
 

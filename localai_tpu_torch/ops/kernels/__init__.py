@@ -15,6 +15,7 @@ from localai_tpu_torch.ops.kernels import paged_scatter as _ps
 from localai_tpu_torch.ops.kernels import ragged_attention as _ra
 from localai_tpu_torch.ops.kernels import weight_gemm as _wg
 from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
+    COLD_SPAN_TILES,
     DECODE_TILE,
     decode_split,
     flash_prefill,
@@ -23,6 +24,9 @@ from localai_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     ragged_decode_plain,
     ragged_decode_q8,
     ragged_decode_q8_plain,
+    tier_plan,
+    tier_span_tiles,
+    tier_split,
 )
 from localai_tpu_torch.ops.kernels.paged_scatter import (  # noqa: F401
     demote_targets,

@@ -55,7 +55,7 @@ SIGNATURES = {
         "decode_attention_tier_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P, _P, _I, _P, _P, _P,
                                          _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                         _I, _I, _I, _I, _P],
+                                         _I, _I, _I, _I, _I, _P],
         "decode_split_stages": [_I, _I],
     },
     "paged_scatter": {
@@ -93,6 +93,8 @@ SIGNATURES = {
                                     _I, _I, _P],
         "weight_gemm_moe4_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _P],
+        "weight_gemm_w4_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _P],
     },
 }
 SIGNATURES["weight_gemm4"] = SIGNATURES["weight_gemm"]

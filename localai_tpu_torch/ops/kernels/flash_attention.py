@@ -20,12 +20,16 @@ compact ring table, and, on a dense hot pool, the int8 cold tier
 the cold pool where the cold table has it, else from the hot pool through
 ring_block_map where it is resident, else not at all; the retention mask
 (pos < L and pos >= L - window or pos < sinks; with the cold tier pos < L
-only) takes the place of the model's sliding window. Its splits cover the
-live tiles (sinks and window), not 0..L, and the cold tier's tiles have
-splits of their own. Cold rows are read as the reference's dequant gives
-them, bf16(q * scale); a hot int8 pool keeps row 5's arithmetic (the K
-scale on the score, the V scale on p), so full-policy sentinels give row
-3/5's output bit for bit. Tiered launches count apart
+only) takes the place of the model's sliding window. Its spans cover the
+live tiles (sinks and window), not 0..L, in about TIER_BLOCKS_SM
+blocks an SM (tier_plan), and the cold tier's spans walk the demoted
+blocks alone.
+Cold rows are read as the reference's dequant gives them, bf16(q *
+scale), formed in registers at the read; a hot int8 pool keeps row 5's
+arithmetic (the K scale on the score, the V scale on p). A span of a slot
+under a policy runs on the tensor cores (bf16 q, at most 8 heads a
+block); full-policy slots keep decode_split's spans and row 3/5's SIMT
+arithmetic, so full-policy sentinels give row 3/5's output bit for bit. Tiered launches count apart
 (`ragged_decode_paged_tier`, `ragged_decode_q8_paged_tier`).
 
 On the card every kernel takes any GQA group size G = H/KVH and a head_dim
@@ -124,6 +128,58 @@ def decode_split(T: int, rows: int, sms: int) -> tuple[int, int]:
     want = min(max(1, -(-16 * sms // rows)), -(-tiles // 2))
     split = -(-tiles // want) * DECODE_TILE
     return -(-T // split), split
+
+
+# the tiered decode's spans (tier_plan), in tiles of DECODE_TILE tokens: a
+# slot under a sink_window policy reads its live rows (sinks + window + a
+# block, at most the compact table's MAXB*128) in about TIER_BLOCKS_SM
+# blocks an SM over all (slot, KV head) rows (TIER_BLOCKS_SM_Q8 over an
+# int8 hot pool, whose ring stages are half the bytes), at least
+# TIER_MIN_TILES a span; the cold tier its demoted blocks in spans of
+# COLD_SPAN_TILES; a full-policy slot (sb >= MAXB) keeps decode_split's
+# spans, so its output stays row 3/5's bit for bit. At phase 2's tiered
+# shape (64 rows, 152 tiles) that is 31 and 16 tiles a span, the
+# optima of chip_tier_sweep.py's 4–64 (PERF.md §6)
+TIER_BLOCKS_SM = 2.5
+TIER_BLOCKS_SM_Q8 = 5.0
+TIER_MIN_TILES = 4
+COLD_SPAN_TILES = 32
+
+
+@functools.lru_cache(maxsize=None)
+def tier_split(T: int, tiles: int) -> tuple[int, int]:
+    """(nsplit, split) of a tiered view of at most T live tokens in spans
+    of `tiles` tiles (one span when T is shorter). Shapes only: a span past
+    a slot's live tiles exits at once, so a decode step needs no device
+    sync. nsplit * split >= T."""
+    split = min(tiles, -(-T // DECODE_TILE)) * DECODE_TILE
+    return -(-T // split), split
+
+
+def tier_span_tiles(maxb: int, rows: int, sms: int, q8: bool) -> int:
+    """Tiles a hot span of a slot under a policy: its live tiles (at most
+    maxb*128 tokens) cut in about TIER_BLOCKS_SM (q8: TIER_BLOCKS_SM_Q8)
+    x SMs / rows splits, at least TIER_MIN_TILES a span."""
+    want = max(1, round((TIER_BLOCKS_SM_Q8 if q8 else TIER_BLOCKS_SM)
+                        * sms / rows))
+    return max(TIER_MIN_TILES, -(-maxb * BLOCK // DECODE_TILE // want))
+
+
+def tier_plan(maxb: int, mbc: int, rows: int, sms: int,
+              q8: bool = False) -> dict:
+    """The tiered launch's spans over a compact table of maxb columns and
+    (mbc > 0) a cold table of mbc, for rows = B*KVH (slot, KV head) rows:
+    {"nsplit", "split"} of the hot view in spans of tier_span_tiles (the
+    workspace's hot splits cover both span kinds), "split_f" (full-policy
+    slots: decode_split's), and {"nsplit_c", "split_c"} of the cold view
+    in spans of COLD_SPAN_TILES (0 without it). Shapes only."""
+    T = maxb * BLOCK
+    nsplit_f, split_f = decode_split(T, rows, sms)
+    nsplit_t, split_t = tier_split(T, tier_span_tiles(maxb, rows, sms, q8))
+    nsplit_c, split_c = (tier_split(mbc * BLOCK, COLD_SPAN_TILES) if mbc
+                         else (0, 0))
+    return dict(nsplit=max(nsplit_f, nsplit_t), split=split_t,
+                split_f=split_f, nsplit_c=nsplit_c, split_c=split_c)
 
 
 def _split_workspace(T, B, H, KVH, D, device):
@@ -482,10 +538,8 @@ def _ragged_decode_q8_paged(q, k_q, k_s, v_q, v_s, lengths, sliding_window,
 
 def _decode_tier(q, pools, lengths, table, kvt, cold_kv):
     """The tiered paged launch (decode_attention_tier_launch): pools (k,
-    ks, v, vs) with ks/vs None for a bf16/f32 pool; the hot spans from
-    decode_split over the compact table (MAXB*128: the live hot rows never
-    exceed the resident columns), the cold tier's over its table's full
-    context."""
+    ks, v, vs) with ks/vs None for a bf16/f32 pool; the spans of
+    tier_plan."""
     kp, ks, vp, vs = pools
     q8 = ks is not None
     name = "ragged_decode_q8" if q8 else "ragged_decode"
@@ -513,7 +567,6 @@ def _decode_tier(q, pools, lengths, table, kvt, cold_kv):
         _check_cuda(name, (q, kp, vp), (None, q.dtype, q.dtype))
     ctab = kvt.get("cold_tab")
     cold = (None, 0, None, None, None, None)
-    nsplit_c = split_c = 0
     if ctab is not None:
         if cold_kv is None:
             raise ValueError(f"{name}: kvt['cold_tab'] needs cold_kv")
@@ -529,24 +582,22 @@ def _decode_tier(q, pools, lengths, table, kvt, cold_kv):
         _check_cuda(name, (q, ck.q, ck.s, cv.q, cv.s),
                     (None, torch.int8, torch.float32, torch.int8,
                      torch.float32))
-        mbc = ctab.shape[1]
-        nsplit_c, split_c = decode_split(mbc * BLOCK, B * KVH,
-                                         _sm_count(dev))
-        cold = (ctab, mbc, ck.q, ck.s, cv.q, cv.s)
+        cold = (ctab, ctab.shape[1], ck.q, ck.s, cv.q, cv.s)
+    ctab_t, mbc, ckq, cks, cvq, cvs = cold
+    plan = tier_plan(maxb, mbc, B * KVH, _sm_count(dev), q8)
     lens = _on(lengths, torch.int32, dev)
     out = torch.empty_like(q)
-    nsplit, split = decode_split(T, B * KVH, _sm_count(dev))
-    ws = torch.empty(B * H * (nsplit + nsplit_c) * (D + 2),
+    ws = torch.empty(B * H * (plan["nsplit"] + plan["nsplit_c"]) * (D + 2),
                      dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    ctab_t, mbc, ckq, cks, cvq, cvs = cold
     lib = _build.load("decode_attention")
     rc = lib.decode_attention_tier_launch(
         _DTYPE_CODE[q.dtype], int(q8), q.data_ptr(), kp.data_ptr(), ptr(ks),
         vp.data_ptr(), ptr(vs), tab.data_ptr(), lens.data_ptr(),
         *(g.data_ptr() for g in geo), ptr(ctab_t), mbc, ptr(ckq), ptr(cks),
         ptr(cvq), ptr(cvs), out.data_ptr(), ws.data_ptr(), B, H, KVH, maxb,
-        D, D ** -0.5, nsplit, split, nsplit_c, split_c, _stream(dev))
+        D, D ** -0.5, plan["nsplit"], plan["split"], plan["split_f"],
+        plan["nsplit_c"], plan["split_c"], _stream(dev))
     _raise_rc(f"{name} (tiered)", rc)
     LAUNCHES[name + "_paged_tier"] += 1
     return out

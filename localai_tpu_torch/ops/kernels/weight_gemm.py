@@ -61,7 +61,11 @@ weights raise on the card; no recipe serves them). The int4 expert
 stacks at decode have a route of their own (moe4_plan): blocks of equal
 ranges of (expert, column tile, K tile) units, each nibble converted
 through f32 in fewer instructions, the tiles its blocks cut combined in
-block order through a workspace and counters. The plans stand as
+block order through a workspace and counters. The int4 projection and
+head at decode run the decode route as a programmatic dependent launch
+(_launch_w4, w4_plan's spans of W4_SPLIT_KT K tiles): a kernel's first
+weight tile streams in under the previous kernel's tail, before it waits
+for that grid and reads x. The plans stand as
 int8's: the decode route's split counts its deeper tiles (w8_plan's
 `bits`), the large-M route's row tile and split keep wgmma_cost, whose
 terms (rows of x and the conversion a weight element, per K tile of 64)
@@ -137,6 +141,16 @@ HEAD_BN, HEAD_BK = 128, 64
 # whose accumulators double)
 MOE4_BK = 64
 MOE4_PER_SM = 4
+# the int4 projection and head at decode (w4_plan, _launch_w4): the decode
+# route as a programmatic dependent launch (its first weight tile streams
+# in under the previous kernel's tail), K split in spans of W4_SPLIT_KT
+# tiles of 128 — small blocks, which start on the SMs the previous kernel
+# frees — up to W4_BLOCKS_SM blocks an SM (the head's 1002 column tiles
+# take no split). More blocks (4 an SM) were faster where projections
+# follow each other, and slower after an elementwise kernel, the order of
+# the 8B's w_gate, w_up and w_down; chip_gemm_sweep.py (PERF.md §6)
+W4_SPLIT_KT = 4
+W4_BLOCKS_SM = 2
 # the card's counters: the split calls' (max(PER_SM) x SMs at most, one a
 # block of a one-wave call) and one an (expert, column tile) of an int4
 # expert stack at decode, up to MOE4_TILES (Mixtral-8x7B: 8 x 112)
@@ -255,6 +269,20 @@ def moe4_plan(M: int, N: int, K: int, E: int, sms: int):
     units = tiles * -(-K // MOE4_BK)
     slots = (MOE4_PER_SM - (M > 8)) * sms
     return min(units, max(tiles, slots)), units, tiles
+
+
+@functools.lru_cache(maxsize=None)
+def w4_plan(N: int, K: int, sms: int):
+    """(splits, K tiles a split) of the int4 projection or head at decode
+    (M <= GEMV_ROWS) on the decode route's (column tile of 128, split)
+    grid over K tiles of 128: spans of W4_SPLIT_KT tiles, as few more as
+    keep the blocks within W4_BLOCKS_SM an SM, and no split where the
+    column tiles alone exceed it. Shapes only, so a call needs no device
+    sync."""
+    tiles, nk = -(-N // GEMV4[1]), -(-K // GEMV4[2])
+    splits = max(1, min(-(-nk // W4_SPLIT_KT), W4_BLOCKS_SM * sms // tiles))
+    per = -(-nk // splits)
+    return -(-nk // per), per
 
 
 # --------------------------------------------------------- int4 packing
@@ -543,11 +571,35 @@ def _launch_head(name, x2, w, out, nk, plan):
     _raise_rc(name, rc)
 
 
-def _launch_w8(name, x2, q, s, out, epi):
-    """Tensor-core routes: x2 [M, K] bf16/f16, q int8 [K, N] or packed
-    int4 uint8 [K/2, N], s [N] f32."""
+def _launch_w4(name, x2, q, s, out, epi):
+    """The int4 projection (epi 0) or head (epi 1) at decode: x2 [M, K]
+    bf16/f16 (M <= GEMV_ROWS), q packed int4 [K/2, N], s [N] f32, on the
+    decode route's kernel over w4_plan's (column tile, split) grid, as a
+    programmatic dependent launch. Its first weight tile is read before
+    the previous kernel on the stream has finished, so that kernel must
+    not write q (a weight packed on the card needs another kernel, or a
+    synchronize, between its packing and its first projection)."""
     M, K = x2.shape
     N = q.shape[1]
+    nsp, per = w4_plan(N, K, _sm_count(x2.device))
+    ws = _workspace(nsp, M, N, x2.device)
+    rc = _build.load("weight_gemm4").weight_gemm_w4_launch(
+        _CODE[x2.dtype], epi, x2.data_ptr(), q.data_ptr(), s.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        _counters(x2.device).data_ptr(), M, N, K, nsp, per,
+        _stream(x2.device))
+    _raise_rc(name, rc)
+
+
+def _launch_w8(name, x2, q, s, out, epi):
+    """Tensor-core routes: x2 [M, K] bf16/f16, q int8 [K, N] or packed
+    int4 uint8 [K/2, N], s [N] f32. Packed int4 at decode takes
+    _launch_w4."""
+    M, K = x2.shape
+    N = q.shape[1]
+    if q.dtype == torch.uint8 and M <= GEMV_ROWS:
+        _launch_w4(name, x2, q, s, out, epi)
+        return
     route, tile, splits, per = w8_plan(M, N, K, _sm_count(x2.device),
                                        4 if q.dtype == torch.uint8 else 8)
     ws = _workspace(splits, M, N, x2.device)
@@ -612,7 +664,10 @@ def w4a16_matmul(x, q, s):
     """x [..., K] (bf16 or f16; f32 on the CPU only) @ packed int4 q uint8
     [K/2, N] with per-output-channel scales s [1, N] f32 → [..., N] in x's
     dtype, computed as w4a16_matmul_plain computes it (w8a16_matmul's
-    function on the unpacked values)."""
+    function on the unpacked values). On the card, up to GEMV_ROWS rows
+    of x launch as a programmatic dependent launch that reads q before
+    the previous kernel on the stream has finished: that kernel must not
+    write q (_launch_w4)."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, q, s)
     name = "w4a16_matmul"
@@ -658,7 +713,9 @@ def head_matmul(x32, w, s=None):
     [1, V] f32 (counted as head_matmul_int4), or f32 (a plain product).
     On the card a bf16 or f16 head takes head_plan's route: f32 FMAs, or
     above HEAD_SIMT_ROWS rows of a bf16 head the tensor cores on x32's
-    three bf16 terms (split_bf16_terms, one more launch, counted apart)."""
+    three bf16 terms (split_bf16_terms, one more launch, counted apart).
+    An int4 head at up to GEMV_ROWS rows reads w as w4a16_matmul does,
+    before the previous kernel on the stream (x32's cast) has finished."""
     if x32.device.type == "cpu":
         return head_matmul_plain(x32, w, s)
     if s is None and w.dtype == torch.float32:

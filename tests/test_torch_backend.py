@@ -12,7 +12,7 @@ import hygiene.
 - An AST scan finds no `jax` / `localai_tpu` / `ml_dtypes` import
   anywhere in localai_tpu_torch/ or the chip scripts (chip_smoke.py,
   chip_profile.py, chip_rows.py, chip_stage_sweep.py,
-  chip_host_tier.py, chip_gemm_sweep.py).
+  chip_host_tier.py, chip_gemm_sweep.py, chip_tier_sweep.py).
   (`localai_tpu_torch` starts with "localai_tpu": the checks match the
   name exactly or with a dot.)
 """
@@ -259,7 +259,8 @@ def _imports(path):
 def test_ast_no_jax_or_reference_imports():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "chip_profile.py", "chip_rows.py",
-        "chip_stage_sweep.py", "chip_host_tier.py", "chip_gemm_sweep.py")]
+        "chip_stage_sweep.py", "chip_host_tier.py", "chip_gemm_sweep.py",
+        "chip_tier_sweep.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "localai_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

@@ -1468,6 +1468,65 @@ def test_cuda_tier_decode_vs_plain(cuda, dtype, q8, cold, H, KVH):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(1, 1), (8, 4), (32, 32), (64, 64)],
+                         ids=["t1", "t8", "t32", "t64"])
+@pytest.mark.parametrize("q8,cold", [(False, False), (True, False),
+                                     (False, True)],
+                         ids=["bf16", "int8", "cold"])
+def test_cuda_tier_decode_plans_vs_plain(cuda, monkeypatch, q8, cold,
+                                         tiles):
+    """The tiered decode at odd lengths on any span plan (hot and cold
+    tiles a span, set through flash_attention's span constants): against
+    its plain version, with a full-policy slot in the batch whose row
+    equals the untiered kernel's bit for bit, and a cold table with a sink
+    block and scattered blocks demoted."""
+    from localai_tpu_torch.ops.kernels import flash_attention as fa
+    from localai_tpu_torch.ops.kvcache import QuantKV
+
+    lens = [32767, 9001, 4500, 1537, 129, 33, 2]
+    q, pools, lens_t, table, kvt, cold_kv, sb = _tier_decode_inputs(
+        cuda, torch.bfloat16, q8, cold, lens, 256, 1024, seed=5)
+    maxb = table.shape[1]
+    full = 4  # slot 4 (129 tokens) under the full policy's sentinels
+    for n, x in (("sb", maxb), ("rw", 1), ("sinks", 1 << 20),
+                 ("window", 1 << 20)):
+        kvt[n][full] = x
+    if cold:
+        ctab = kvt["cold_tab"]
+        ctab[full] = 0
+        ctab[1, 0] = ctab.max() + 1  # a sink block demoted
+        ctab[1, 7:9] = 0             # a gap in slot 1's demoted run
+        n = int(ctab.max()) + 1
+        g = torch.Generator(device=cuda).manual_seed(6)
+        cold_kv = [QuantKV(*(lambda qs: (qs[0], qs[1][:, :, None, :]))(
+            quantize_tokens(torch.randn(n, 8, 128, 128, device=cuda,
+                                        generator=g)))) for _ in range(2)]
+    for name, value in (("TIER_BLOCKS_SM", 1e9), ("TIER_BLOCKS_SM_Q8", 1e9),
+                        ("TIER_MIN_TILES", tiles[0]),
+                        ("COLD_SPAN_TILES", tiles[1])):
+        monkeypatch.setattr(fa, name, value)
+    kernel = tk.ragged_decode_q8 if q8 else tk.ragged_decode
+    plain = tk.ragged_decode_q8_plain if q8 else tk.ragged_decode_plain
+    kw = dict(cold_kv=cold_kv) if cold else {}
+    out = kernel(q, *pools, lens_t, table=table, kvt=kvt, **kw)
+    torch.cuda.synchronize()
+    assert fa.tier_plan(maxb, kvt["cold_tab"].shape[1] if cold else 0,
+                        len(lens) * 8, 132, q8)["split"] == min(
+        tiles[0] * fa.DECODE_TILE, -(-maxb * 128 // fa.DECODE_TILE)
+        * fa.DECODE_TILE)
+    ref = plain(q, *pools, lens_t, table=table, kvt=kvt, **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **BF16_CARD)
+    if not cold:
+        untiered = kernel(q, *pools, lens_t, table=table)
+        assert torch.equal(out[full], untiered[full])
+    if cold:
+        ones = [QuantKV(c.q, torch.ones_like(c.s)) for c in cold_kv]
+        bad = plain(q, *pools, lens_t, table=table, kvt=kvt, cold_kv=ones)
+        assert (bad.float() - out.float()).abs().max().item() > 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q8", [False, True])
 def test_cuda_tier_full_sentinels_equal_untiered(cuda, q8):
     """Full-policy sentinels (sb = the table width, rw = 1, sinks = window =

@@ -433,37 +433,69 @@ def _partial(qh, kt, vt, ok):
     return m, p.sum(-1), p @ vt
 
 
+def _hot_spans(nhot, plan, full, maxb):
+    """The hot spans of one (slot, KV head) as decode_tier_kernel's blocks
+    walk them: hot block x of the ceil(maxb*128 / split) takes spans x, x +
+    nhx, ... of tier_hot_tiles (split_f's for a full-policy slot) below
+    nhot and the plan's nsplit (the workspace's hot splits; a full-policy
+    slot holds at most maxb*128 rows). [(block, workspace split, kb0,
+    kb1)]."""
+    tps = (plan["split_f"] if full else plan["split"]) // BK
+    nhx = -(-maxb * PBS // plan["split"])
+    spans = []
+    for x in range(nhx):
+        sp = x
+        while sp * tps < nhot and sp < plan["nsplit"]:
+            spans.append((x, sp, sp * tps, min(sp * tps + tps, nhot)))
+            sp += nhx
+    return spans
+
+
+def _cold_spans(L, crow, plan):
+    """The cold spans of one (slot, KV head): the demoted blocks below L in
+    raw order, PBS // BK tiles each, cut into spans of split_c. [(cold
+    split, [(raw block, cold block, tile offset), ...])]."""
+    lim = min(len(crow), -(-L // PBS))
+    demoted = [(r, crow[r]) for r in range(lim) if crow[r]]
+    tiles = [(r, ci, j * BK) for r, ci in demoted for j in range(PBS // BK)]
+    tpc = plan["split_c"] // BK
+    return [(sp, tiles[sp * tpc:(sp + 1) * tpc])
+            for sp in range(-(-len(tiles) // tpc))]
+
+
 def _decode_model(q, kp, vp, lengths, table, kvt, cold=None,
                   shift=0, drop_scales=False):
     """A PyTorch model of decode_tier_kernel's work: per (slot, KV head)
     the hot view's live tiles in compressed order (g0, gap), cut into
-    decode_split's spans, dead tiles skipped, the token mask per kept tile;
-    with the cold tier its own spans over every tile below L, reading the
-    demoted ones as bf16(q * s); the combine over the spans written. f32
-    hot pools; `shift` and `drop_scales` plant faults."""
+    tier_plan's spans (decode_split's for a full-policy slot, sb >= the
+    table width), dead tiles skipped, the token mask per kept tile; with
+    the cold tier its own spans over the demoted blocks' tiles alone,
+    reading them as bf16(q * s); the combine over the spans written, hot
+    then cold. f32 hot pools; `shift` and `drop_scales` plant faults."""
     B, _, H, Dh = q.shape
     kvh = kp.shape[1]
     G = H // kvh
     maxb = table.shape[1]
-    nsplit, split = tk.decode_split(maxb * PBS, B * kvh, 132)
     ctab = None if cold is None else kvt["cold_tab"]
-    if cold is not None:
-        nsc, splc = tk.decode_split(ctab.shape[1] * PBS, B * kvh, 132)
+    plan = tk.tier_plan(maxb, 0 if ctab is None else ctab.shape[1],
+                        B * kvh, 132)
     out = torch.zeros(B, H, Dh)
+    cat = (lambda xs, e: torch.cat(xs) if xs else e)
     for b in range(B):
         L = int(lengths[b])
         sb, rw, sinks, window = (int(kvt[n][b]) for n in ("sb", "rw",
                                                           "sinks", "window"))
-        g0, gap, nhot, ncold, snk, win, cur = _plan(L, sb, rw, sinks, window,
-                                                    cold is not None)
+        g0, gap, nhot, _, snk, win, cur = _plan(L, sb, rw, sinks, window,
+                                                cold is not None)
         crow = None if ctab is None else ctab[b].tolist()
+        spans = sorted(_hot_spans(nhot, plan, sb >= maxb, maxb),
+                       key=lambda x: x[1])
         for kh in range(kvh):
             qh = q[b, 0, kh * G:(kh + 1) * G].float() * Dh ** -0.5
             parts = []
-            tps = split // BK
-            for sp in range(nsplit):
+            for _, _, kb0, kb1 in spans:
                 rows_k, rows_v, oks = [], [], []
-                for kb in range(sp * tps, min((sp + 1) * tps, nhot)):
+                for kb in range(kb0, kb1):
                     t0 = (kb if kb < g0 else kb + gap) * BK
                     pb = _hot_block(sb, rw, cur, table[b], t0 // PBS, maxb,
                                     crow, shift)
@@ -476,23 +508,18 @@ def _decode_model(q, kp, vp, lengths, table, kvt, cold=None,
                     rows_v.append(vp[pb, kh, off:off + BK].float())
                     oks.append((kpos < L) & ((kpos >= L - win)
                                              | (kpos < snk)))
-                if sp * tps < nhot:
-                    cat = (lambda xs, e: torch.cat(xs) if xs else e)
-                    parts.append(_partial(
-                        qh, cat(rows_k, torch.zeros(0, Dh)),
-                        cat(rows_v, torch.zeros(0, Dh)),
-                        cat(oks, torch.zeros(0, dtype=torch.bool))))
+                parts.append(_partial(
+                    qh, cat(rows_k, torch.zeros(0, Dh)),
+                    cat(rows_v, torch.zeros(0, Dh)),
+                    cat(oks, torch.zeros(0, dtype=torch.bool))))
             if cold is not None:
                 (cq, cs), (vq_, vs_) = cold
-                tpc = splc // BK
-                for sp in range(nsc):
+                for _, tiles in _cold_spans(L, crow, plan):
                     rows_k, rows_v, oks = [], [], []
-                    for kb in range(sp * tpc, min((sp + 1) * tpc, ncold)):
-                        t0 = kb * BK
-                        ci = crow[t0 // PBS]
-                        if ci == 0:
+                    for raw, ci, off in tiles:
+                        t0 = raw * PBS + off
+                        if t0 >= L:
                             continue
-                        off = t0 % PBS
                         sk = cs[ci, kh, 0, off:off + BK]
                         sv = vs_[ci, kh, 0, off:off + BK]
                         if drop_scales:
@@ -502,12 +529,10 @@ def _decode_model(q, kp, vp, lengths, table, kvt, cold=None,
                         rows_k.append(dq(cq[ci, kh, off:off + BK], sk))
                         rows_v.append(dq(vq_[ci, kh, off:off + BK], sv))
                         oks.append(torch.arange(t0, t0 + BK) < L)
-                    if sp * tpc < ncold:
-                        cat = (lambda xs, e: torch.cat(xs) if xs else e)
-                        parts.append(_partial(
-                            qh, cat(rows_k, torch.zeros(0, Dh)),
-                            cat(rows_v, torch.zeros(0, Dh)),
-                            cat(oks, torch.zeros(0, dtype=torch.bool))))
+                    parts.append(_partial(
+                        qh, cat(rows_k, torch.zeros(0, Dh)),
+                        cat(rows_v, torch.zeros(0, Dh)),
+                        cat(oks, torch.zeros(0, dtype=torch.bool))))
             m = torch.stack([p[0] for p in parts], 1)
             l = torch.stack([p[1] for p in parts], 1)
             acc = torch.stack([p[2] for p in parts], 1)
@@ -559,6 +584,97 @@ def test_tier_decode_plan_skips_the_gap():
     g0, gap, nhot, _, _, _, _ = _plan(32768, 1, 12, 128, 1024, False)
     assert (g0, nhot) == (4, 36)
     assert gap == 1024 - 36
+
+
+# the smoke's tiered shape (chip_smoke.py TIER_LENS: 8 slots, sinks 256,
+# window 4096 at the engine's default margin), and short slots
+SMOKE_TIER = dict(lens=[32768, 30001, 24577, 16500, 8193, 4097, 2000, 300],
+                  sinks=256, window=4096, margin=256)
+
+
+def _smoke_geometry():
+    pol = tkvtier.parse_policy(
+        f"sink_window(sinks={SMOKE_TIER['sinks']}, "
+        f"window={SMOKE_TIER['window']})")
+    return pol.sink_blocks, tkvtier.ring_blocks(SMOKE_TIER["window"],
+                                                SMOKE_TIER["margin"])
+
+
+@pytest.mark.parametrize("lens", [SMOKE_TIER["lens"], [300, 1, 4097, 1]],
+                         ids=["smoke", "short"])
+@pytest.mark.parametrize("full", [False, True], ids=["policy", "full"])
+def test_tier_hot_plan_covers_every_live_tile_once(lens, full):
+    """Every hot tile below nhot of each slot lies in exactly one span, the
+    spans a slot writes are workspace splits 0..nh-1 (the combine's read)
+    below the plan's nsplit, and a slot under the policy takes the tier's
+    deep spans (one a block), a full-policy slot decode_split's. The hot
+    span depth follows the rows: about 2.5 blocks an SM (int8: 5), so
+    phase 2's 8 slots take 31 and 16 tiles a span and phase 10's 4 slots
+    at a 1024-token window 6 and 4."""
+    assert tk.tier_span_tiles(38, 64, 132, True) == 16
+    assert tk.tier_span_tiles(13, 32, 132, False) == 6
+    assert tk.tier_span_tiles(13, 32, 132, True) == 4
+    sb, rw = _smoke_geometry()
+    maxb = sb + rw
+    B, kvh = len(lens), 8
+    plan = tk.tier_plan(maxb, 0, B * kvh, 132)
+    assert plan["split"] == tk.tier_span_tiles(maxb, B * kvh, 132,
+                                               False) * BK
+    assert plan["split_f"] == tk.decode_split(maxb * PBS, B * kvh, 132)[1]
+    if lens == SMOKE_TIER["lens"]:  # phase 2's shape: 31 tiles a span
+        assert plan["split"] == 31 * BK
+    for L in lens:
+        if full:  # a full-policy slot holds at most its table's rows
+            L = min(L, maxb * PBS)
+        g = (maxb, 1, 1 << 20, 1 << 20) if full else (
+            sb, rw, SMOKE_TIER["sinks"], SMOKE_TIER["window"])
+        g0, gap, nhot, _, snk, win, _ = _plan(L, *g, False)
+        spans = _hot_spans(nhot, plan, full, maxb)
+        tiles = [kb for _, _, kb0, kb1 in spans for kb in range(kb0, kb1)]
+        assert sorted(tiles) == list(range(nhot))
+        nh = len(spans)
+        assert sorted(sp for _, sp, _, _ in spans) == list(range(nh))
+        assert nh <= plan["nsplit"]
+        tps = (plan["split_f"] if full else plan["split"]) // BK
+        assert nh == min(plan["nsplit"], -(-nhot // tps))
+        if not full:
+            assert len({x for x, _, _, _ in spans}) == nh  # one a block
+        # every kept row's tile is one of the walked tiles
+        for p in range(L):
+            if p < snk or p >= L - win:
+                t = p // BK
+                assert 0 <= (t if t < g0 else t - gap) < nhot
+
+
+def test_tier_cold_plan_visits_only_demoted_blocks():
+    """The cold spans walk the demoted blocks' tiles alone, each once, in
+    raw order — sinks, the ring and the blocks never demoted are not
+    visited — at the smoke's 32k shape with the middle demoted and at a
+    scattered cold table."""
+    sb, rw = _smoke_geometry()
+    L = SMOKE_TIER["lens"][0]
+    mbc = -(-L // PBS)
+    crow = [0] * mbc
+    mid = range(sb, (L - SMOKE_TIER["window"]) // PBS)
+    for i, raw in enumerate(mid):
+        crow[raw] = i + 1
+    plan = tk.tier_plan(sb + rw, mbc, 64, 132)
+    assert plan["split_c"] == tk.COLD_SPAN_TILES * BK
+    assert plan["nsplit_c"] * plan["split_c"] >= mbc * PBS
+    spans = _cold_spans(L, crow, plan)
+    seen = [(raw, off) for _, tiles in spans for raw, _, off in tiles]
+    assert seen == [(raw, j * BK) for raw in mid for j in range(PBS // BK)]
+    assert len(spans) == -(-len(mid) * (PBS // BK) // (plan["split_c"]
+                                                       // BK))
+    assert len(spans) <= plan["nsplit_c"]
+    scattered = [0] * 13
+    for i, raw in enumerate((0, 3, 4, 9, 12)):
+        scattered[raw] = i + 1
+    seen = [raw for _, tiles in _cold_spans(1537, scattered, plan)
+            for raw, _, _ in tiles]
+    assert sorted(set(seen)) == [0, 3, 4, 9, 12]
+    assert len(seen) == 5 * (PBS // BK)
+    assert not _cold_spans(1537, [0] * 13, plan)
 
 
 def _ragged_model(q, kp, vp, meta, kvt, tensor_cores=True, shift=0):

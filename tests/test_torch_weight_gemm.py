@@ -315,6 +315,100 @@ def test_w8_plan_route_and_row_tile(M, K, N, route, bm):
         assert costs[bm] == min(costs.values())
 
 
+def _w4_splits(N, K):
+    """The int4 decode route's grid on the host: (column tiles of 128,
+    splits, K tiles of 128 a split) from w4_plan."""
+    splits, per = wg.w4_plan(N, K, 132)
+    return -(-N // 128), splits, per
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 14336), (1, 4096, 1024),
+                                   (16, 14336, 4096), (4, 4096, 4096),
+                                   (8, 3584, 512), (4, 272, 400),
+                                   (4, 4096, 128256)])
+def test_w4_plan_covers_every_unit_once(M, K, N):
+    """The int4 decode plan: every (column tile, K tile of 128) unit lies
+    in exactly one block (column tile, split), no split is empty, the
+    splits but the last take the same K tiles, at least W4_SPLIT_KT, and
+    the blocks stay within W4_BLOCKS_SM an SM unless the column tiles
+    alone exceed it (the head's 1002: no split), at every row count."""
+    tiles, splits, per = _w4_splits(N, K)
+    nk = -(-K // 128)
+    seen = [(t, k) for t in range(tiles) for z in range(splits)
+            for k in range(z * per, min((z + 1) * per, nk))]
+    assert sorted(seen) == [(t, k) for t in range(tiles)
+                            for k in range(nk)]
+    assert all(min((z + 1) * per, nk) > z * per for z in range(splits))
+    assert per >= min(nk, wg.W4_SPLIT_KT)
+    assert tiles * splits <= wg.W4_BLOCKS_SM * 132 or splits == 1
+    want = {(4, 4096, 14336): (112, 2, 16), (16, 14336, 4096): (32, 8, 14),
+            (4, 4096, 4096): (32, 8, 4), (1, 4096, 1024): (8, 8, 4),
+            (4, 4096, 128256): (1002, 1, 32)}
+    if (M, K, N) in want:
+        assert (tiles, splits, per) == want[(M, K, N)]
+
+
+def test_w4_split_order_sums_equal_the_product():
+    """The decode route's arithmetic on the host: each split's f32 sums of
+    its K tiles, the splits added in split order by the tile's last split,
+    then qmatmul's rounding — equals w4a16_matmul_plain within the bf16
+    bar, at a shape that takes split-K."""
+    M, K, N = 3, 4096, 1024
+    r = _rng(3)
+    q8 = torch.tensor(r.integers(-7, 8, (K, N)), dtype=torch.int8)
+    s = torch.tensor(r.random((1, N)) * 0.01 + 1e-3, dtype=torch.float32)
+    x = torch.tensor(r.standard_normal((M, K)), dtype=torch.float32).to(
+        torch.bfloat16)
+    tiles, splits, per = _w4_splits(N, K)
+    assert splits > 1
+    acc = torch.zeros(M, N)
+    for z in range(splits):
+        k = slice(z * per * 128, min((z + 1) * per * 128, K))
+        acc += x[:, k].float() @ q8[k].float()
+    out = (acc.to(torch.bfloat16).float()
+           * s.to(torch.bfloat16).float()).to(torch.bfloat16)
+    ref = tk.w4a16_matmul_plain(x, tk.pack_int4(q8), s)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16)
+
+
+@pytest.mark.parametrize("M,epi,route", [(1, 0, "w4"), (16, 0, "w4"),
+                                         (17, 0, "w8"), (4, 1, "w4"),
+                                         (17, 1, "w8")])
+def test_int4_decode_rows_take_the_pdl_launch(monkeypatch, M, epi, route):
+    """_launch_w8 sends a packed int4 projection or head at M <= GEMV_ROWS
+    to the decode route's programmatic dependent launch (_launch_w4),
+    larger M to the wgmma route."""
+    took = []
+    monkeypatch.setattr(wg, "_launch_w4",
+                        lambda *a, **k: took.append("w4"))
+    monkeypatch.setattr(wg, "_sm_count", lambda d: 132)
+
+    class Lib:
+        def __getattr__(self, name):
+            took.append(name)
+            return lambda *a: 0
+
+    monkeypatch.setattr(wg._build, "load", lambda name: Lib())
+    monkeypatch.setattr(wg, "_weight_map", lambda *a: ctypes_buf())
+    monkeypatch.setattr(wg, "_counters", lambda d: torch.zeros(1))
+    monkeypatch.setattr(wg, "_stream", lambda d: None)
+    x = torch.zeros(M, 256, dtype=torch.bfloat16)
+    q = torch.zeros(128, 256, dtype=torch.uint8)
+    s = torch.ones(256)
+    out = torch.empty(M, 256)
+    wg._launch_w8("w4a16_matmul", x, q, s, out, epi)
+    if route == "w4":
+        assert took == ["w4"]
+    else:
+        assert took == ["weight_gemm_wgmma_launch"]
+
+
+def ctypes_buf():
+    import ctypes
+
+    return ctypes.create_string_buffer(128)
+
+
 # ---------------------------------------------- the int8 recipe, whole
 
 @pytest.fixture(scope="module")
@@ -1060,6 +1154,71 @@ def test_cuda_moe_w4_decode_any_grid(cuda, E, K, N, M):
     assert float((d - MOE_ONE_STEP["rtol"] * ref.float().abs()).max()) > \
         MOE_ONE_STEP["atol"] or float((bad != ref).float().mean()) > \
         MISMATCH_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
+@pytest.mark.parametrize("K,N", GEOMETRIES + QWEN2_GEOMETRIES[2:])
+def test_cuda_w4_decode_any_split(cuda, monkeypatch, K, N, M, dtype):
+    """The int4 decode route (a programmatic dependent launch) at every W4
+    geometry on the plan's split count and on 1, 2, 3 and 7 (set through
+    W4_SPLIT_KT, the cap of blocks an SM lifted): each result within the
+    bar of the plain version; the int4 head (EPI_F32) on the plan within
+    HEAD_CARD."""
+    q, s = _card_weight4(K, N, cuda, seed=K + N)
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=cuda).to(getattr(torch, dtype))
+    ref = tk.w4a16_matmul_plain(x, q, s)
+    nk = -(-K // wg.GEMV4[2])
+    for splits in (None, 1, 2, 3, 7):
+        if splits is not None:
+            monkeypatch.setattr(wg, "W4_SPLIT_KT", -(-nk // splits))
+            monkeypatch.setattr(wg, "W4_BLOCKS_SM", 1 << 20)
+        wg.w4_plan.cache_clear()
+        assert_w8_close(tk.w4a16_matmul(x, q, s), ref)
+    monkeypatch.undo()
+    wg.w4_plan.cache_clear()
+    if dtype == "bfloat16":
+        x32 = torch.randn(M, K, generator=g, device=cuda)
+        out = torch.empty(M, N, device=cuda)
+        wg._launch_w4("head_matmul_int4", x32.to(torch.bfloat16), q, s, out,
+                      1)
+        torch.testing.assert_close(out, tk.head_matmul_plain(x32, q, s),
+                                   **HEAD_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_cuda_w4_pdl_chain_in_a_graph_equals_eager(cuda, M):
+    """Consecutive int4 projections, each reading the previous one's output
+    (programmatic dependent launches: a kernel's weight stream starts
+    under the previous kernel's tail), captured in one CUDA graph: the
+    replay gives the eager chain's bits, and so do repeated replays."""
+    ws = [_card_weight4(K, N, cuda, seed=i) for i, (K, N) in enumerate(
+        [(4096, 14336), (14336, 4096), (4096, 1024), (1024, 4096)])]
+    x = torch.randn(M, 4096, device=cuda).to(torch.bfloat16)
+
+    def chain():
+        y = x
+        for q, s in ws:
+            y = tk.w4a16_matmul(y * 0.05, q, s)
+        return y
+
+    eager = chain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.isfinite(eager.float()).all()
 
 
 @pytest.mark.cuda
